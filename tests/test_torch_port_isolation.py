@@ -44,6 +44,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     assert doc["bad"] == []
     assert "znicz_tpu_torch.kernels.decode" in doc["modules"]
     assert "znicz_tpu_torch.serve.server" in doc["modules"]
+    assert "znicz_tpu_torch.kernels.flash_attention" in doc["modules"]
+    assert "znicz_tpu_torch.parallel.tp" in doc["modules"]
 
 
 def test_port_sources_never_name_jax_or_the_reference_in_imports():
