@@ -7,50 +7,62 @@ quickest proof that the port builds, serves and trains on an NVIDIA GPU.
 Phases, each printing one JSON line (any failure raises and the script
 exits non-zero without the final ``ok`` line):
 
-1. **kernel** — build every kernel of the serving path from
-   ``znicz_tpu_torch/csrc`` with ``nvcc`` and hold each against its
-   plain PyTorch version on the card at the path's shapes, in bf16 and
-   f32; time the kernel, the plain version and one PyTorch library call
-   computing the same function; compute the kernel's bound from this
-   run's inputs.
-1b. **flash** — the same for the training path's flash-attention
-   forward and backward kernels: held against their plain versions
-   (norm-relative error of each 64-row tile) in bf16 and f32, head dim
-   64 and 128, causal and not, at t 2048 and a ragged t, and at the
-   training shape; bit-identical across two launches; each band must
-   reject a control run that reads one K/V tile as zeros.  Timed (with
-   ptxas's registers and spills) at the training shape.
-2. **serve** — make the full-width transformer LM package from a seed
-   (6 layers, d 512, 8 heads, ff 2048, vocab 32000), boot the
-   ``generate`` server in-process (8 slots, max_len 2048, page 16,
-   bf16) and stream 12 concurrent greedy requests through HTTP; every
-   kernel launch counter is set to 0 just before the requests and read
-   just after.
-3. **profile** — where a steady decode step's time goes: the served
-   decoder runs steps with all 8 slots live, timed without and then
-   with ``torch.profiler`` (device busy time, the kernel's share, the
-   device's idle share).
-4. **parity** — teacher-forced decode of a subset of the prompts through
-   the paged decoder (kernel attention) and the contiguous decoder
-   (plain attention) on the card, in f32 and bf16.
-5. **train** — bench.py bench_transformer's training step at full width
-   (6 layers, d 512, 8 heads, ff 2048, vocab 32000, batch 8, t 2048,
-   16 CE chunks, bf16 compute over f32 masters) through
-   ``make_train_step``: one warm and 12 timed steps with both flash
+0. **build** — every kernel source under ``znicz_tpu_torch/csrc`` built
+   by ``nvcc``, one process each, all started together.
+1. **kernel** — the serving path's paged-decode kernel against its plain
+   PyTorch version on the card at the path's shapes, in bf16 and f32;
+   the kernel, the plain version and one PyTorch library call timed; the
+   bound computed from this run's inputs.
+1b. **flash** — the same for the flash-attention forward and backward
+   kernels (norm-relative error of each 64-row tile, bf16 and f32, head
+   dim 64 and 128, causal and not, t 2048, a ragged t and the training
+   shape), bit-identical across two launches; each band must reject a
+   control run that reads one K/V tile as zeros.
+1c. **gemm** — the FC kernels (``gemm_fc``, ``act_backward``) against
+   their plain versions in f32 with TF32 off: bench_fc's two forward and
+   four backward products, two ragged shapes in every operand layout,
+   every fused activation; the band must reject a control that skips
+   the last k tile; timings at full width.
+1d. **optim** — the SGD (f32 and bf16 velocity) and AdamW update kernels
+   against their plain versions on bench_fc's six leaves, each band
+   rejecting a control with bs = 1; one six-leaf step timed against the
+   plain version and torch.optim's fused optimizers.
+2. **serve** — the full-width transformer LM package from a seed (6
+   layers, d 512, 8 heads, ff 2048, vocab 32000) served in-process (8
+   slots, max_len 2048, page 16, bf16): 12 concurrent greedy requests
+   through HTTP, the launch counter set to 0 just before and read just
+   after.
+3. **profile** — a steady decode step with all 8 slots live, timed
+   without and with ``torch.profiler`` (busy time, the kernel's share,
+   the idle share).
+4. **parity** — teacher-forced decode through the paged decoder (kernel
+   attention) and the contiguous decoder (plain attention), f32 and bf16.
+5. **train** — bench.py bench_transformer's step at full width (batch 8,
+   t 2048, 16 CE chunks, bf16 over f32 masters) through
+   ``make_train_step``: one warm and 12 timed steps with the flash
    launch counters set to 0 just before and read just after; the loss
-   must be finite and fall.  Step ms, tokens/s, MFU, peak memory, then
-   two steps under ``torch.profiler``.
+   must be finite and fall.  Then two profiled steps.
 6. **train_parity** — 3 steps at 2 layers, batch 2, t 256: the card in
-   f32 (TF32 off) against the port on the CPU, and the card in bf16
-   against the card in f32; the f32 bands must reject the same steps
-   with TF32 on.
+   f32 against the CPU, bf16 against f32; the f32 loss band must reject
+   the same steps with TF32 on.
 7. **handoff** — the trained params through ``export_lm`` into a paged
-   decoder on the card in f32: 8 greedy tokens from a 100-token prompt,
-   each step's logits held against ``make_logits_fn``.
+   decoder in f32, each step's logits held against ``make_logits_fn``.
+8. **mnist_eager** — ``models/mnist_fc.py build_eager`` at bench_fc's
+   widths (784-4096-4096-10, batch 1024) through ``Workflow.run`` on
+   ``TorchDevice()``, the FC kernels' counters set to 0 just before and
+   read just after; ms per train minibatch.
+9. **mnist_fused** — bench_fc's configuration through ``build_fused``:
+   ``train_steps`` calls of K minibatches (one warm, timed ones, one
+   profiled), one epoch through ``Workflow.run``, then AdamW; the update
+   kernels' counters set to 0 just before and read just after; step ms,
+   samples/s, MFU, peak memory, idle share.
+10. **mnist_parity** — the MNIST FC sample at its defaults in f32, the
+   card against the CPU, eager and fused; the fused loss band must reject
+   the same run with TF32 on.
 
-Then a ``{"kernels": [...]}`` line, the card's name and power limit as
-``nvidia-smi`` reports them, and, last, the ``{"ok": true, ...}`` line.
-Exits non-zero without a usable CUDA device.
+Then a ``{"kernels": [...]}`` line for all seven kernels, the card's name
+and power limit as ``nvidia-smi`` reports them, and, last, the ``{"ok":
+true, ...}`` line.  Exits non-zero without a usable CUDA device.
 """
 
 from __future__ import annotations
@@ -68,11 +80,16 @@ import urllib.request
 import numpy as np
 import torch
 
-from znicz_tpu_torch.core.backends import resolve_compute_dtype
+from znicz_tpu_torch.core import prng as tprng
+from znicz_tpu_torch.core.backends import TorchDevice, resolve_compute_dtype
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.kernels import build as kbuild
 from znicz_tpu_torch.kernels import decode as kdecode
 from znicz_tpu_torch.kernels import flash_attention as kflash
+from znicz_tpu_torch.kernels import gemm as kgemm
+from znicz_tpu_torch.kernels import optim as koptim
+from znicz_tpu_torch.models import mnist_fc as tmnist
+from znicz_tpu_torch.ops import activations
 from znicz_tpu_torch.observe.trace import TRACER
 from znicz_tpu_torch.parallel.transformer import (init_params,
                                                   make_logits_fn,
@@ -232,9 +249,6 @@ def sdpa_on_view(q, k, v, pt, lengths):
 
 
 def phase_kernel() -> dict:
-    t0 = time.perf_counter()
-    kbuild.build(["paged_decode"])
-    build_s = time.perf_counter() - t0
     rng = np.random.default_rng(SEED)
     lengths = rng.permutation([1, 17, 300, 700, 1024, 1500, 2000, 2048])
     lengths = [int(n) for n in lengths]
@@ -276,7 +290,7 @@ def phase_kernel() -> dict:
     ptxas = [line.split(":", 1)[1].strip() for line in
              kbuild.build_log("paged_decode").splitlines()
              if "registers" in line]
-    return {"phase": "kernel", "build_s": build_s, "ptxas": ptxas,
+    return {"phase": "kernel", "ptxas": ptxas,
             "checks": checks,
             "atol": KERNEL_ATOL, "lengths": lengths,
             "shape": {"B": SLOTS, "H": HEADS, "Dh": D // HEADS,
@@ -289,19 +303,49 @@ def phase_kernel() -> dict:
             "max_abs_err": max(c["max_abs_err"] for c in checks)}
 
 
+def _kernel_key(mangled: str) -> str:
+    """``name<args>`` of a mangled kernel template: the first
+    ``<length><name>`` that starts lower case and is followed by ``I``;
+    each argument is a literal ``L<type><n>E`` (-> n), a named type
+    ``<length><name>`` or a one-letter builtin type (``f`` = float)."""
+    for i, ch in enumerate(mangled):
+        if not ch.isdigit():
+            continue
+        j = i
+        while j < len(mangled) and mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name = mangled[j:j + n]
+        if not (name[:1].islower() and mangled[j + n:j + n + 1] == "I"):
+            continue
+        args, k = [], j + n + 1
+        while k < len(mangled) and mangled[k] != "E":
+            if mangled[k] == "L":
+                end = mangled.index("E", k)
+                args.append(mangled[k + 2:end])
+                k = end + 1
+            elif mangled[k].isdigit():
+                d = k
+                while mangled[d].isdigit():
+                    d += 1
+                args.append(mangled[d:d + int(mangled[k:d])])
+                k = d + int(mangled[k:d])
+            else:
+                args.append(mangled[k])
+                k += 1
+        return f"{name}<{','.join(args)}>"
+    return mangled
+
+
 def ptxas_usage(name: str) -> dict:
     """Registers and spill bytes per kernel from ptxas's build log, keyed
-    by the kernel's name and template arguments (``flash_fwd_bf16<64>``)."""
+    by the kernel's name and template arguments (``flash_fwd_bf16<64>``,
+    ``gemm_f32_kernel<1,0>``, ``sgd_kernel<__nv_bfloat16,4>``)."""
     usage, current = {}, None
     for line in kbuild.build_log(name).splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            # the mangled name: <length><name>I<Li<n>E...>E...
-            m = re.search(r"\d(flash_[a-z0-9_]+?)I((?:Li\d+E)+)E",
-                          entry.group(1))
-            current = (f"{m.group(1)}<"
-                       f"{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
-                       if m else entry.group(1))
+            current = _kernel_key(entry.group(1))
             usage[current] = {}
         elif current and "spill stores" in line:
             nums = [int(n) for n in re.findall(r"(\d+) bytes spill", line)]
@@ -404,9 +448,6 @@ def _flash_check(rng, bh, t, dh, dtype, causal) -> tuple:
 
 
 def phase_flash() -> dict:
-    t0 = time.perf_counter()
-    kbuild.build(["flash_attention"])
-    build_s = time.perf_counter() - t0
     rng = np.random.default_rng(SEED + 4)
     checks = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -445,13 +486,657 @@ def phase_flash() -> dict:
                                    for n in ("dq", "dk", "dv")),
                 **kflash.bound(q, True, backward=True)},
     }
-    return {"phase": "flash", "build_s": build_s,
+    return {"phase": "flash",
             "ptxas": ptxas_usage("flash_attention"),
             "tol": {str(k).split(".")[-1]: v for k, v in FLASH_TOL.items()},
             "checks": checks,
             "shape": {"bh": TRAIN_B * HEADS, "t": TRAIN_T, "dh": D // HEADS,
                       "dtype": "bfloat16", "causal": True},
             **timed}
+
+
+#: bench.py bench_fc's MNIST FC model at full width: batch, inputs,
+#: hidden layers, classes
+FC_BATCH, FC_IN, FC_LAYERS, FC_CLASSES = 1024, 784, (4096, 4096), 10
+#: gemm_fc vs plain (f32, TF32 off), as the largest norm-relative error
+#: of any 64-row tile (the flash phase's metric): both sum the same f32
+#: products, cuBLAS sometimes in another order (1.3e-6 at worst, 0 where
+#: it sums as the kernel does), and the activations add ~1 ulp.  The
+#: band must reject the control, the same
+#: call with the last k tile (8 deep) of both operands zeroed — what a
+#: kernel that skipped its last k tile would return: dropping 8 of K
+#: terms moves a tile by ~sqrt(8/K), 0.04 at K 4096
+GEMM_TOL = 1e-5
+#: act_backward vs plain: the same elementwise f32 formula; exp may
+#: differ by an ulp
+ACT_TOL = 1e-6
+#: the update kernels vs plain: the same f32 operations in the same
+#: order with round-to-nearest intrinsics (no FMA contraction), so
+#: bit-identical is expected; the band on each f32 output, as the
+#: norm-relative error of the whole leaf, leaves room for an ulp.  A bf16
+#: velocity must be within one bf16 ulp.  The control feeds bs = 1 in
+#: place of 1024, which every band must reject
+OPTIM_TOL, OPTIM_BF16_ULPS = 1e-6, 1
+#: the update phase's hyperparameters: bench_fc's momentum, a decay and
+#: an L1 mix so that every term of the formula is exercised
+OPTIM_HYPER = {"lr": 0.05, "wd": 1e-3, "l1": 0.3, "mom": 0.9}
+ADAM_HYPER = {"lr": 1e-3, "wd": 1e-2, "b1": 0.9, "b2": 0.999,
+              "eps": 1e-8}
+
+
+def fc_leaf_shapes() -> list:
+    """bench_fc's six parameter leaves: (w, b) of each All2All."""
+    dims = (FC_IN,) + FC_LAYERS + (FC_CLASSES,)
+    shapes = []
+    for n_in, n_out in zip(dims, dims[1:]):
+        shapes += [(n_in, n_out), (n_out,)]
+    return shapes
+
+
+def _dev(a, dtype=torch.float32):
+    return torch.tensor(np.asarray(a), dtype=dtype, device=DEVICE)
+
+
+def _gemm_operands(rng, m, k, n, trans_a, trans_b):
+    """a (m, k) and b (k, n), each stored contiguous or as the transpose
+    of a contiguous matrix; entries of unit size after the product."""
+    a = _dev(rng.normal(size=(k, m) if trans_a else (m, k)))
+    b = _dev(rng.normal(size=(n, k) if trans_b else (k, n)) / np.sqrt(k))
+    return (a.t() if trans_a else a), (b.t() if trans_b else b)
+
+
+def _zero_last_k_tile(a, b):
+    """Copies of a and b (same layouts) with the kernel's last k tile of
+    the contraction zeroed."""
+    k = a.shape[1]
+    last = (k - 1) // kgemm.K_TILE * kgemm.K_TILE
+    ac = a.t().clone().t() if not a.is_contiguous() else a.clone()
+    bc = b.t().clone().t() if not b.is_contiguous() else b.clone()
+    ac[:, last:] = 0
+    bc[last:, :] = 0
+    return ac, bc
+
+
+def _gemm_check(rng, name, m, k, n, trans_a, trans_b, bias, act) -> dict:
+    a, b = _gemm_operands(rng, m, k, n, trans_a, trans_b)
+    bv = _dev(rng.normal(size=n) * 0.1) if bias else None
+    got = kgemm.gemm_fc(a, b, bv, act)
+    again = kgemm.gemm_fc(a, b, bv, act)
+    want = kgemm.fc_forward_plain(a, b, bv, act)
+    wrong = kgemm.gemm_fc(*_zero_last_k_tile(a, b), bv, act)
+    torch.cuda.synchronize()
+    rel = tile_rel_err(got[None], want[None])
+    control = tile_rel_err(wrong[None], want[None])
+    report = {"case": name, "m": m, "k": k, "n": n, "trans_a": trans_a,
+              "trans_b": trans_b, "bias": bias, "activation": act,
+              "rel_err": rel, "control_rel_err": control,
+              "max_abs_err": float((got - want).abs().max()),
+              "deterministic": bool(torch.equal(got, again))}
+    if not torch.isfinite(got).all():
+        fail(f"non-finite gemm_fc output ({report})")
+    if not rel <= GEMM_TOL:                                 # NaN fails
+        fail(f"gemm_fc vs plain {rel} > {GEMM_TOL} ({report})")
+    if not control > GEMM_TOL:
+        fail(f"the gemm band passes the skipped-k-tile control ({report})")
+    if not report["deterministic"]:
+        fail(f"gemm_fc differs between two identical launches ({report})")
+    return report
+
+
+def _act_check(rng, m, n, act) -> tuple:
+    y = _dev(activations.forward(
+        np, act, rng.normal(size=(m, n)).astype(np.float32)))
+    err = _dev(rng.normal(size=(m, n)))
+    got = kgemm.act_backward(y, err, act)
+    again = kgemm.act_backward(y, err, act)
+    want = kgemm.act_backward_plain(y, err, act)
+    torch.cuda.synchronize()
+    rel = tile_rel_err(got[None], want[None])
+    report = {"m": m, "n": n, "activation": act, "rel_err": rel,
+              "max_abs_err": float((got - want).abs().max()),
+              "deterministic": bool(torch.equal(got, again))}
+    if not rel <= ACT_TOL or not report["deterministic"]:
+        fail(f"act_backward vs plain: {report} (band {ACT_TOL})")
+    return report, (y, err)
+
+
+def phase_gemm() -> dict:
+    """The FC kernels against their plain versions on the card, f32 with
+    TF32 off: bench_fc's two forward products and the backward's four
+    (with their transposes), two ragged shapes in every layout, every
+    fused activation at one shape; then timings at full width."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(SEED + 8)
+    (h0, h1), tanh = FC_LAYERS, "tanh"
+    full = [("fc0 forward", FC_BATCH, FC_IN, h0, False, False, True, tanh),
+            ("fc1 forward", FC_BATCH, h0, h1, False, False, True, tanh),
+            ("fc1 err_v.W^T", FC_BATCH, h1, h0, False, True, False,
+             "linear"),
+            ("fc0 err_v.W^T", FC_BATCH, h0, FC_IN, False, True, False,
+             "linear"),
+            ("fc1 x^T.err_v", h0, FC_BATCH, h1, True, False, False,
+             "linear"),
+            ("fc0 x^T.err_v", FC_IN, FC_BATCH, h0, True, False, False,
+             "linear")]
+    checks = [_gemm_check(rng, *case) for case in full]
+    for m, k, n in ((7, 13, 3), (129, 200, 257)):
+        for ta in (False, True):
+            for tb in (False, True):
+                checks.append(_gemm_check(rng, "ragged", m, k, n, ta, tb,
+                                          not (ta or tb), tanh))
+    for act in kgemm.FUSED_ACTIVATIONS:
+        checks.append(_gemm_check(rng, "activation", 129, 200, 257, False,
+                                  False, True, act))
+    act_checks = [_act_check(rng, 7, 13, act)[0]
+                  for act in kgemm.FUSED_ACTIVATIONS[1:]]
+    act_checks += [_act_check(rng, FC_BATCH, h1, act)[0]
+                   for act in kgemm.FUSED_ACTIVATIONS[1:]]
+    # timings at full width: the forward product of the widest layer
+    # (the headline) and each of the six products of one train step
+    timed = []
+    for name, m, k, n, ta, tb, bias, act in full:
+        a, b = _gemm_operands(rng, m, k, n, ta, tb)
+        bv = _dev(rng.normal(size=n) * 0.1) if bias else None
+
+        def library(a=a, b=b, bv=bv, act=act):
+            v = torch.addmm(bv, a, b) if bv is not None else \
+                torch.mm(a, b)
+            return activations.forward(torch, act, v)
+
+        timed.append({"case": name, "m": m, "k": k, "n": n,
+                      "ms": time_cuda_ms(
+                          lambda: kgemm.gemm_fc(a, b, bv, act)),
+                      "plain_ms": time_cuda_ms(
+                          lambda: kgemm.fc_forward_plain(a, b, bv, act)),
+                      "library_ms": time_cuda_ms(library),
+                      **kgemm.bound(a, b, bv, act)})
+    act_report, (y, err) = _act_check(rng, FC_BATCH, h1, tanh)
+    act_timed = {"m": FC_BATCH, "n": h1, "activation": tanh,
+                 "ms": time_cuda_ms(lambda: kgemm.act_backward(y, err,
+                                                               tanh)),
+                 "plain_ms": time_cuda_ms(
+                     lambda: kgemm.act_backward_plain(y, err, tanh)),
+                 "library_ms": None,
+                 "library_note": "no single PyTorch call computes "
+                                 "err * act'(y) from y",
+                 "max_abs_err": max(c["max_abs_err"] for c in act_checks),
+                 **kgemm.act_backward_bound(y, tanh)}
+    return {"phase": "gemm",
+            "ptxas": ptxas_usage("gemm"),
+            "tol": {"gemm": GEMM_TOL, "act_backward": ACT_TOL},
+            "checks": checks, "act_checks": act_checks,
+            "gemm_timed": timed, "gemm": {
+                **timed[1], "max_abs_err": max(c["max_abs_err"]
+                                               for c in checks)},
+            "act_backward": act_timed}
+
+
+def _optim_state(rng, shapes, vel_dtype=None):
+    """Seeded w, grad (summed over a batch of 1024) and optimizer state
+    on the card for each leaf."""
+    leaves = []
+    for shape in shapes:
+        leaf = {"w": _dev(rng.normal(size=shape) * 0.05),
+                "g": _dev(rng.normal(size=shape) * 32.0)}
+        if vel_dtype is not None:
+            leaf["vel"] = _dev(rng.normal(size=shape) * 0.01, vel_dtype)
+        else:
+            leaf["m"] = _dev(rng.normal(size=shape) * 0.1)
+            leaf["v"] = _dev(np.abs(rng.normal(size=shape)) * 0.01)
+        leaves.append(leaf)
+    return leaves
+
+
+def _clone(leaves):
+    return [{k: v.clone() for k, v in leaf.items()} for leaf in leaves]
+
+
+def _scalars(values: dict) -> dict:
+    return {k: _dev(np.float32(v)) for k, v in values.items()}
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).norm() /
+                 b.float().norm().clamp_min(torch.finfo(torch.float32).tiny))
+
+
+def _max_abs(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def _bf16_ulps(a, b) -> int:
+    """Largest distance in bf16 units in the last place (same signs)."""
+    return int((a.view(torch.int16).int() - b.view(torch.int16).int())
+               .abs().max())
+
+
+def _sgd_compare(leaves, h, bs, vel_dtype, control_bs) -> dict:
+    """Kernel (at ``control_bs`` when given) vs plain at ``bs``, leaf by
+    leaf: the worst f32 relative error of w (and of an f32 vel), the
+    worst bf16 ulp distance of a bf16 vel, and whether bit-identical."""
+    ker, ref = _clone(leaves), _clone(leaves)
+    kbs = bs if control_bs is None else _dev(np.float32(control_bs))
+    for kl, rl in zip(ker, ref):
+        koptim.sgd_update_(kl["w"], kl["g"], kl["vel"], h["lr"], h["wd"],
+                           h["l1"], h["mom"], kbs)
+        koptim.sgd_update_plain(rl["w"], rl["g"], rl["vel"], h["lr"],
+                                h["wd"], h["l1"], h["mom"], bs)
+    torch.cuda.synchronize()
+    out = {"w_rel": max(_rel(k["w"], r["w"]) for k, r in zip(ker, ref)),
+           "max_abs_err": max(_max_abs(k[n], r[n]) for k, r in
+                              zip(ker, ref) for n in ("w", "vel")),
+           "exact": all(torch.equal(k[n], r[n]) for k, r in zip(ker, ref)
+                        for n in ("w", "vel"))}
+    if vel_dtype == torch.bfloat16:
+        out["vel_ulps"] = max(_bf16_ulps(k["vel"], r["vel"])
+                              for k, r in zip(ker, ref))
+    else:
+        out["vel_rel"] = max(_rel(k["vel"], r["vel"])
+                             for k, r in zip(ker, ref))
+    return out
+
+
+def _sgd_within(r: dict) -> bool:
+    return r["w_rel"] <= OPTIM_TOL and (
+        r["vel_ulps"] <= OPTIM_BF16_ULPS if "vel_ulps" in r
+        else r["vel_rel"] <= OPTIM_TOL)
+
+
+def _sgd_rejects(r: dict) -> bool:
+    return r["w_rel"] > OPTIM_TOL and (
+        r["vel_ulps"] > OPTIM_BF16_ULPS if "vel_ulps" in r
+        else r["vel_rel"] > OPTIM_TOL)
+
+
+def _adam_compare(leaves, h, bs, control_bs) -> dict:
+    ker, ref = _clone(leaves), _clone(leaves)
+    kbs = bs if control_bs is None else _dev(np.float32(control_bs))
+    for kl, rl in zip(ker, ref):
+        koptim.adam_update_(kl["w"], kl["g"], kl["m"], kl["v"], h["lr"],
+                            h["wd"], h["b1"], h["b2"], h["eps"], h["c1"],
+                            h["c2"], kbs)
+        koptim.adam_update_plain(rl["w"], rl["g"], rl["m"], rl["v"],
+                                 h["lr"], h["wd"], h["b1"], h["b2"],
+                                 h["eps"], h["c1"], h["c2"], bs)
+    torch.cuda.synchronize()
+    out = {f"{n}_rel": max(_rel(k[n], r[n]) for k, r in zip(ker, ref))
+           for n in ("w", "m", "v")}
+    out["max_abs_err"] = max(_max_abs(k[n], r[n]) for k, r in
+                             zip(ker, ref) for n in ("w", "m", "v"))
+    out["exact"] = all(torch.equal(k[n], r[n]) for k, r in zip(ker, ref)
+                       for n in ("w", "m", "v"))
+    return out
+
+
+def phase_optim() -> dict:
+    """The update kernels against their plain versions on bench_fc's six
+    leaves (SGD with f32 and bf16 velocity, AdamW), each with the bs = 1
+    control; then one step over the six leaves timed against the plain
+    version and torch.optim's fused optimizers."""
+    rng = np.random.default_rng(SEED + 9)
+    shapes = fc_leaf_shapes()
+    bs = _dev(np.float32(FC_BATCH))
+    h = _scalars(OPTIM_HYPER)
+    out = {"phase": "optim",
+           "ptxas": ptxas_usage("optim"), "leaves": shapes,
+           "tol": {"f32_rel": OPTIM_TOL, "bf16_ulps": OPTIM_BF16_ULPS},
+           "hyper": {**OPTIM_HYPER, "bs": FC_BATCH}, "control_bs": 1}
+    sgd_state = {}
+    for vel_dtype in (torch.float32, torch.bfloat16):
+        name = f"sgd_vel_{str(vel_dtype).split('.')[-1]}"
+        leaves = _optim_state(rng, shapes, vel_dtype)
+        sound = _sgd_compare(leaves, h, bs, vel_dtype, None)
+        control = _sgd_compare(leaves, h, bs, vel_dtype, 1)
+        out[name] = {"sound": sound, "control": control}
+        if not _sgd_within(sound):
+            fail(f"sgd_update_ vs plain outside the band: {out[name]}")
+        if not _sgd_rejects(control):
+            fail(f"the sgd bands pass the bs = 1 control: {out[name]}")
+        sgd_state[vel_dtype] = leaves
+    ah = _scalars(ADAM_HYPER)
+    t_step = _dev(np.float32(3.0))            # the step count after 2
+    ah["c1"] = 1.0 - ah["b1"] ** t_step       # on the device, as the step
+    ah["c2"] = 1.0 - ah["b2"] ** t_step
+    adam_leaves = _optim_state(rng, shapes)
+    sound = _adam_compare(adam_leaves, ah, bs, None)
+    control = _adam_compare(adam_leaves, ah, bs, 1)
+    out["adam"] = {"sound": sound, "control": control}
+    if not all(sound[f"{n}_rel"] <= OPTIM_TOL for n in ("w", "m", "v")):
+        fail(f"adam_update_ vs plain outside the band: {out['adam']}")
+    if not all(control[f"{n}_rel"] > OPTIM_TOL for n in ("w", "m", "v")):
+        fail(f"the adam bands pass the bs = 1 control: {out['adam']}")
+
+    # one step = six launches, timed on the bf16-velocity state (bench_fc)
+    # and the AdamW state; the library yardsticks update clones of the
+    # same leaves with the grads divided by bs
+    def sgd_step(fn, leaves):
+        def run():
+            for leaf in leaves:
+                fn(leaf["w"], leaf["g"], leaf["vel"], h["lr"], h["wd"],
+                   h["l1"], h["mom"], bs)
+        return run
+
+    def adam_step(fn, leaves):
+        def run():
+            for leaf in leaves:
+                fn(leaf["w"], leaf["g"], leaf["m"], leaf["v"], ah["lr"],
+                   ah["wd"], ah["b1"], ah["b2"], ah["eps"], ah["c1"],
+                   ah["c2"], bs)
+        return run
+
+    def library(opt_cls, leaves, **kw):
+        params = []
+        for leaf in leaves:
+            p = leaf["w"].clone().requires_grad_()
+            p.grad = leaf["g"] / FC_BATCH
+            params.append(p)
+        opt = opt_cls(params, fused=True, **kw)
+        return opt.step
+
+    timed = {}
+    for name, vel_dtype in (("sgd_vel_bfloat16", torch.bfloat16),
+                            ("sgd_vel_float32", torch.float32)):
+        leaves = sgd_state[vel_dtype]
+        timed[name] = {
+            "ms": time_cuda_ms(sgd_step(koptim.sgd_update_, leaves)),
+            "plain_ms": time_cuda_ms(sgd_step(koptim.sgd_update_plain,
+                                              leaves)),
+            "library_ms": time_cuda_ms(library(
+                torch.optim.SGD, leaves, lr=OPTIM_HYPER["lr"],
+                momentum=OPTIM_HYPER["mom"],
+                weight_decay=OPTIM_HYPER["wd"])),
+            "library_note": "torch.optim.SGD(momentum, fused=True), f32 "
+                            "state: the same update up to folding lr "
+                            "into the momentum, without the L1 mix and "
+                            "without bf16 state",
+            **koptim.sgd_bound(shapes, vel_dtype)}
+    timed["adam"] = {
+        "ms": time_cuda_ms(adam_step(koptim.adam_update_, adam_leaves)),
+        "plain_ms": time_cuda_ms(adam_step(koptim.adam_update_plain,
+                                           adam_leaves)),
+        "library_ms": time_cuda_ms(library(
+            torch.optim.AdamW, adam_leaves, lr=ADAM_HYPER["lr"],
+            betas=(ADAM_HYPER["b1"], ADAM_HYPER["b2"]),
+            eps=ADAM_HYPER["eps"], weight_decay=ADAM_HYPER["wd"])),
+        "library_note": "torch.optim.AdamW(fused=True) on the grads "
+                        "divided by bs: the same function",
+        **koptim.adam_bound(shapes)}
+    out["timed"] = timed
+    return out
+
+
+#: mnist_eager: epochs at full width (bench_fc's layers, batch 1024; 4
+#: train and 1 validation minibatches an epoch)
+EAGER_EPOCHS, EAGER_TRAIN, EAGER_VALID = 2, 4096, 1024
+#: mnist_fused: minibatches per train_steps call and timed calls after a
+#: warm one (bench.py _throughput's protocol: K rolled copies of one
+#: seeded batch staged on the device); AdamW steps after
+FUSED_K, FUSED_REPS, ADAM_K = 16, 3, 4
+#: matmul weights of bench_fc's model (784-4096-4096-10): the N of
+#: MFU = 6 N samples/s / peak, as utils/flops.py counts an All2All
+FC_MATMUL_WEIGHTS = 784 * 4096 + 4096 * 4096 + 4096 * 10
+#: mnist_parity: the build_* defaults (layers (64,)) in f32, the card
+#: (TF32 off) against the port on the CPU.  Both sum the same f32
+#: products in another order (the kernels', cuBLAS's and the CPU's GEMM
+#: blocking): weights 8.9e-8 apart after 2 epochs, the fused train
+#: losses 1.7e-6 relative (the second epoch's sum is 0.47, so its
+#: rounding shows).  The bands sit 6x and 11x above those readings; the
+#: loss band must reject the same fused run with TF32 on (10 mantissa
+#: bits: 3.0e-4 on the losses, 7.6e-5 on the weights).  Readings from
+#: the chip runs of PERF.md
+MNIST_PARITY_EPOCHS = 2
+MNIST_PARITY_LOSS_RTOL, MNIST_PARITY_WEIGHT_ATOL = 1e-5, 1e-6
+
+
+def _per_minibatch_marks(w):
+    """Wrap the loader's run so each served minibatch stamps the host
+    clock after a device sync, with its class — the per-minibatch times
+    of an eager run (the evaluator syncs every minibatch anyway)."""
+    marks, orig = [], w.loader.run
+
+    def run():
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), None))
+        orig()
+        marks[-1] = (marks[-1][0], int(w.loader.minibatch_class))
+
+    w.loader.run = run
+    return marks
+
+
+def phase_mnist_eager() -> dict:
+    """build_eager at full width on TorchDevice() through Workflow.run:
+    every All2AllTanh/GDTanh minibatch on gemm_fc and act_backward, the
+    launch counters set to 0 just before the run and read just after."""
+    tprng.seed_all(SEED)
+    w = tmnist.build_eager(max_epochs=EAGER_EPOCHS, layers=FC_LAYERS,
+                           minibatch_size=FC_BATCH, n_train=EAGER_TRAIN,
+                           n_valid=EAGER_VALID)
+    t0 = time.perf_counter()
+    w.initialize(device=TorchDevice())
+    init_s = time.perf_counter() - t0
+    marks = _per_minibatch_marks(w)
+    kgemm.gemm_launches = kgemm.act_launches = 0     # 0 just before ...
+    t0 = time.perf_counter()
+    w.run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    gemm_n, act_n = kgemm.gemm_launches, kgemm.act_launches  # ... after
+    marks.append((time.perf_counter(), None))
+    per_epoch = len(marks[:-1]) // EAGER_EPOCHS
+    last_epoch = [(b[0] - a[0]) * 1e3 for a, b in
+                  zip(marks[-per_epoch - 1:-1], marks[-per_epoch:])]
+    classes = [c for _, c in marks[-per_epoch - 1:-1]]
+    train_ms = [t for t, c in zip(last_epoch, classes) if c == 2]
+    hist = w.decision.metrics_history
+    n_train_mb = EAGER_EPOCHS * EAGER_TRAIN // FC_BATCH
+    n_eval_mb = EAGER_EPOCHS * EAGER_VALID // FC_BATCH
+    out = {"phase": "mnist_eager", "layers": list(FC_LAYERS),
+           "minibatch": FC_BATCH, "epochs": EAGER_EPOCHS,
+           "n_train": EAGER_TRAIN, "n_valid": EAGER_VALID,
+           "init_s": init_s, "wall_s": wall_s, "history": hist,
+           "gemm_fc_launches": gemm_n, "act_backward_launches": act_n,
+           "train_minibatches": n_train_mb, "eval_minibatches": n_eval_mb,
+           "train_minibatch_ms": float(np.median(train_ms)),
+           "train_minibatch_ms_all": train_ms,
+           "samples_per_s": FC_BATCH / (float(np.median(train_ms)) / 1e3),
+           "timing": "host clock between device-synced loader serves, "
+                     "last epoch's train minibatches, median"}
+    if not (len(hist) == EAGER_EPOCHS and bool(w.decision.complete)):
+        fail(f"eager run did not finish its epochs: {hist}")
+    if not hist[-1]["metric_validation"] <= hist[0]["metric_validation"]:
+        fail(f"validation n_err rose: {hist}")
+    if gemm_n < 6 * n_train_mb + 2 * n_eval_mb or act_n < 2 * n_train_mb:
+        fail(f"gemm_fc launched {gemm_n} / act_backward {act_n} times for "
+             f"{n_train_mb} train + {n_eval_mb} eval minibatches")
+    return out
+
+
+def _staged_batches(rng, k: int):
+    """bench.py _throughput's inputs: one seeded batch and its K rolled
+    copies, staged on the card."""
+    x = torch.tensor(rng.normal(size=(FC_BATCH, FC_IN)).reshape(
+        FC_BATCH, 28, 28), dtype=torch.float32, device=DEVICE)
+    y = torch.tensor(rng.integers(0, FC_CLASSES, FC_BATCH), device=DEVICE,
+                     dtype=torch.int32)
+    idx = torch.tensor((np.arange(FC_BATCH)[None, :] -
+                        np.arange(k)[:, None]) % FC_BATCH, device=DEVICE)
+    return x[idx], y[idx], torch.ones((k, FC_BATCH), dtype=torch.bool,
+                                      device=DEVICE)
+
+
+def _fused_workflow(**kw):
+    tprng.seed_all(SEED)
+    w = tmnist.build_fused(max_epochs=1, layers=FC_LAYERS,
+                           minibatch_size=FC_BATCH, n_train=2 * FC_BATCH,
+                           n_valid=0, **kw)
+    w.initialize(device=TorchDevice())
+    return w
+
+
+def phase_mnist_fused() -> dict:
+    """bench_fc's configuration (bench.py:303-313) through build_fused on
+    the card: K-step train_steps calls (one warm, FUSED_REPS timed with
+    CUDA events, one profiled), then one epoch through Workflow.run; then
+    AdamW for a few steps.  The update kernels' counters are set to 0
+    just before each path and read just after."""
+    from torch.profiler import ProfilerActivity, profile
+
+    w = _fused_workflow(optimizer_config={"state_dtype": "bfloat16"})
+    step = w.step
+    xs, ys, ms = _staged_batches(np.random.default_rng(SEED + 10), FUSED_K)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    koptim.sgd_launches = 0                          # 0 just before ...
+    losses = [float(step.train_steps(xs, ys, ms)["loss"]) / (FC_BATCH *
+                                                             FUSED_K)]
+    events = []
+    for _ in range(FUSED_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = step.train_steps(xs, ys, ms)
+        end.record()
+        events.append((start, end, metrics))
+    torch.cuda.synchronize()
+    call_ms = [s.elapsed_time(e) for s, e, _ in events]
+    losses += [float(m["loss"]) / (FC_BATCH * FUSED_K) for _, _, m in events]
+    peak = torch.cuda.max_memory_allocated()
+    # busy and wall time from the same profiled window, CUDA activity only
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step.train_steps(xs, ys, ms)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")
+              and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:10]
+    # one epoch through the graph: Repeater -> Loader -> FusedStep ->
+    # Decision, the dataset pinned on the device (index-fed)
+    t0 = time.perf_counter()
+    w.run()
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    sgd_n = koptim.sgd_launches                      # ... read just after
+    # the warm, timed and profiled calls, then the epoch's 2 minibatches
+    steps = FUSED_K * (2 + FUSED_REPS) + 2
+    hist = w.decision.metrics_history
+    step_ms = float(np.median(call_ms)) / FUSED_K
+    sps = FC_BATCH / (step_ms / 1e3)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"fused loss not finite and falling: {losses}")
+    if sgd_n < 6 * steps:
+        fail(f"sgd_update_ launched {sgd_n} times over {steps} steps")
+    if not (len(hist) == 1 and bool(w.decision.complete) and
+            step._dataset_dev is not None):
+        fail(f"the fused epoch through Workflow.run did not finish: {hist}")
+    # AdamW, the same configuration with f32 moments
+    wa = _fused_workflow(optimizer="adam")
+    koptim.adam_launches = 0                         # 0 just before ...
+    m = wa.step.train_steps(xs[:ADAM_K], ys[:ADAM_K], ms[:ADAM_K])
+    adam_loss = float(m["loss"]) / (FC_BATCH * ADAM_K)
+    adam_n = koptim.adam_launches                    # ... read just after
+    if not np.isfinite(adam_loss) or adam_n < 6 * ADAM_K:
+        fail(f"adam: loss {adam_loss}, {adam_n} launches over {ADAM_K} "
+             f"steps")
+    return {"phase": "mnist_fused",
+            "config": {"layers": list(FC_LAYERS), "batch": FC_BATCH,
+                       "optimizer": "sgd", "momentum": 0.9, "lr": 0.05,
+                       "state_dtype": "bfloat16", "compute": "bfloat16",
+                       "K": FUSED_K, "timed_calls": FUSED_REPS},
+            "losses_per_sample": losses, "call_ms": call_ms,
+            "step_ms": step_ms, "samples_per_s": sps,
+            "mfu": 6.0 * FC_MATMUL_WEIGHTS * sps / BF16_FLOPS,
+            "peak_mem_bytes": peak, "sgd_update_launches": sgd_n,
+            "steps": steps,
+            "profile": {"steps": FUSED_K, "wall_ms": wall_ms,
+                        "device_busy_ms": busy_ms or None,
+                        "device_idle_share": (1 - busy_ms / wall_ms)
+                        if busy_ms else None,
+                        "busy_ms_per_step": busy_ms / FUSED_K,
+                        "ops_per_step": sum(e.count for e in device)
+                        / FUSED_K,
+                        "top_device": [
+                            {"name": e.key[:80], "count": e.count,
+                             "ms_per_step":
+                                 e.self_device_time_total / 1e3 / FUSED_K}
+                            for e in top]},
+            "epoch": {"wall_s": epoch_s, "history": hist},
+            "adam": {"steps": ADAM_K, "loss_per_sample": adam_loss,
+                     "adam_update_launches": adam_n}}
+
+
+def _parity_run(kind, device, allow_tf32=False):
+    """A build_* default run (layers (64,)) from one seed on ``device``
+    in f32 -> (n_err history, per-epoch train loss sums, weights)."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+    try:
+        tprng.seed_all(SEED)
+        w = getattr(tmnist, f"build_{kind}")(max_epochs=MNIST_PARITY_EPOCHS)
+        w.initialize(device=TorchDevice(device, precision="float32"))
+        losses = []
+        if kind == "fused":
+            logged = w.decision.on_epoch_logged
+
+            def on_epoch_logged():
+                losses.append(float(w.step.loss))
+                logged()
+
+            w.decision.on_epoch_logged = on_epoch_logged
+        w.run()
+        if kind == "fused":
+            w.step.sync_to_units()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return (w.decision.metrics_history, losses,
+            [a for f in w.forwards for a in (f.weights.map_read(),
+                                             f.bias.map_read())])
+
+
+def phase_mnist_parity() -> dict:
+    """The MNIST FC slice at the build_* defaults in f32: the card (the
+    kernels; TF32 off) against the port on the CPU (the plain versions),
+    eager and fused; the fused loss band must reject TF32."""
+    out = {"phase": "mnist_parity", "epochs": MNIST_PARITY_EPOCHS,
+           "bands": {"loss_rel": MNIST_PARITY_LOSS_RTOL,
+                     "weight_atol": MNIST_PARITY_WEIGHT_ATOL}}
+    runs = {}
+    for kind in ("eager", "fused"):
+        card, cpu = _parity_run(kind, DEVICE), _parity_run(kind, "cpu")
+        runs[kind] = (card, cpu)
+        out[kind] = {
+            "history_card": card[0], "history_cpu": cpu[0],
+            "weight_max_abs": max(float(np.abs(a - b).max())
+                                  for a, b in zip(card[2], cpu[2]))}
+        if kind == "fused":
+            out[kind]["loss_rel"] = max(abs(a - b) / abs(b) for a, b in
+                                        zip(card[1], cpu[1]))
+            out[kind]["losses_card"], out[kind]["losses_cpu"] = card[1], \
+                cpu[1]
+    tf32 = _parity_run("fused", DEVICE, allow_tf32=True)
+    cpu_losses = runs["fused"][1][1]
+    out["tf32_control"] = {
+        "losses": tf32[1],
+        "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(tf32[1],
+                                                            cpu_losses)),
+        "weight_max_abs": max(float(np.abs(a - b).max())
+                              for a, b in zip(tf32[2], runs["fused"][1][2]))}
+    for kind in ("eager", "fused"):
+        r = out[kind]
+        if r["history_card"] != r["history_cpu"]:
+            fail(f"{kind} n_err history card {r['history_card']} != cpu "
+                 f"{r['history_cpu']}")
+        if not r["weight_max_abs"] <= MNIST_PARITY_WEIGHT_ATOL:
+            fail(f"{kind} weights card vs cpu: {out}")
+    if not out["fused"]["loss_rel"] <= MNIST_PARITY_LOSS_RTOL:
+        fail(f"fused losses card vs cpu: {out}")
+    if not out["tf32_control"]["loss_rel"] > MNIST_PARITY_LOSS_RTOL:
+        fail(f"the fused loss band passes the TF32 control: {out}")
+    return out
 
 
 def _stream(port: int, ids: list, out: dict) -> None:
@@ -909,16 +1594,71 @@ def nvidia_smi() -> str:
         check=True, timeout=60).stdout.strip()
 
 
+#: every kernel source of the port's paths, built together at the start
+KERNEL_SOURCES = ("paged_decode", "flash_attention", "gemm", "optim")
+
+
+def phase_build() -> dict:
+    """One nvcc per source, all started together."""
+    t0 = time.perf_counter()
+    libs = kbuild.build(KERNEL_SOURCES)
+    return {"phase": "build", "build_s": time.perf_counter() - t0,
+            "libraries": {k: os.path.basename(v) for k, v in libs.items()}}
+
+
+def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
+                fused) -> dict:
+    """The seven kernels: launches from the main path's runs, times and
+    errors from the kernel phases, bounds from this run's inputs."""
+    def entry(name, source, replaces, launches, timed, max_abs_err):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max_abs_err, "ms": timed["ms"],
+                "plain_ms": timed["plain_ms"],
+                "bound_ms": timed["bound_ms"],
+                "bound_by": timed["bound_by"],
+                "library_ms": timed["library_ms"]}
+
+    sgd = optim["timed"]["sgd_vel_bfloat16"]
+    return {"kernels": [
+        entry("paged_decode", kdecode.SOURCE, kdecode.REPLACES,
+              serve["kernel_launches"], kernel, kernel["max_abs_err"]),
+        entry("flash_attention_fwd", kflash.SOURCE, kflash.REPLACES_FWD,
+              train["fwd_launches"], flash["fwd"],
+              flash["fwd"]["max_abs_err"]),
+        entry("flash_attention_bwd", kflash.SOURCE, kflash.REPLACES_BWD,
+              train["bwd_launches"], flash["bwd"],
+              flash["bwd"]["max_abs_err"]),
+        entry("gemm_fc", kgemm.SOURCE, kgemm.REPLACES_GEMM,
+              eager["gemm_fc_launches"], gemm["gemm"],
+              gemm["gemm"]["max_abs_err"]),
+        entry("act_backward", kgemm.SOURCE, kgemm.REPLACES_ACT,
+              eager["act_backward_launches"], gemm["act_backward"],
+              gemm["act_backward"]["max_abs_err"]),
+        entry("sgd_update", koptim.SOURCE, koptim.REPLACES,
+              fused["sgd_update_launches"], sgd,
+              max(optim[k]["sound"]["max_abs_err"]
+                  for k in ("sgd_vel_float32", "sgd_vel_bfloat16"))),
+        entry("adam_update", koptim.SOURCE, koptim.REPLACES,
+              fused["adam"]["adam_update_launches"], optim["timed"]["adam"],
+              optim["adam"]["sound"]["max_abs_err"])]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
               "smoke runs only on a CUDA device", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    emit(phase_build())
     kernel = phase_kernel()
     emit(kernel)
     flash = phase_flash()
     emit(flash)
+    gemm = phase_gemm()
+    emit(gemm)
+    optim = phase_optim()
+    emit(optim)
     t0 = time.perf_counter()
     params = init_params(np.random.default_rng(SEED), N_LAYERS, D, HEADS,
                          FF, VOCAB)
@@ -937,25 +1677,16 @@ def main() -> int:
     emit(train)
     emit(phase_train_parity())
     emit(phase_handoff(trained))
-    emit({"kernels": [{
-        "name": "paged_decode", "route": "cuda", "source": kdecode.SOURCE,
-        "replaces": kdecode.REPLACES, "launches": serve["kernel_launches"],
-        "max_abs_err": kernel["max_abs_err"], "ms": kernel["ms"],
-        "plain_ms": kernel["plain_ms"], "bound_ms": kernel["bound_ms"],
-        "bound_by": kernel["bound_by"], "library_ms": kernel["library_ms"],
-    }] + [{
-        "name": f"flash_attention_{half}", "route": "cuda",
-        "source": kflash.SOURCE, "replaces": replaces,
-        "launches": train[f"{half}_launches"],
-        "max_abs_err": flash[half]["max_abs_err"], "ms": flash[half]["ms"],
-        "plain_ms": flash[half]["plain_ms"],
-        "bound_ms": flash[half]["bound_ms"],
-        "bound_by": flash[half]["bound_by"],
-        "library_ms": flash[half]["library_ms"],
-    } for half, replaces in (("fwd", kflash.REPLACES_FWD),
-                             ("bwd", kflash.REPLACES_BWD))],
-        "first_stream": streams[0][:8],
-        "seconds": time.perf_counter() - t_start})
+    del trained
+    eager = phase_mnist_eager()
+    emit(eager)
+    fused = phase_mnist_fused()
+    emit(fused)
+    emit(phase_mnist_parity())
+    emit({**kernel_line(kernel, flash, gemm, optim, serve, train, eager,
+                        fused),
+          "first_stream": streams[0][:8],
+          "seconds": time.perf_counter() - t_start})
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,209 @@
+"""The port's FC kernels (``kernels/gemm.py``) against the JAX package's
+Pallas GEMM (``ops/pallas/gemm.py``) on the CPU.
+
+The same seeded numpy operands go through the reference's
+``fc_forward`` / ``fc_backward`` in Pallas interpret mode and through the
+port's wrappers on CPU tensors (which run the plain versions), across
+padded and exact-block geometries and every fused activation, at the
+reference's own bands (tests/test_pallas_kernels.py:624-633): rtol 1e-4
+/ atol 1e-4 forward, 2e-4 / 2e-3 backward.  Also the act-backward pass,
+the wrappers' checks, launch counting and ``bound``.  The kernel-vs-plain
+check on the card is ``cuda``-marked and skips here.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from znicz_tpu.ops import linear as jlinear
+from znicz_tpu.ops.pallas import gemm as jgemm
+
+from znicz_tpu_torch.kernels import gemm as kgemm
+
+#: the reference's geometries (tests/test_pallas_kernels.py:607): padded
+#: (32, 784, 100), (7, 13, 3), (129, 200, 257) and exact (8, 128, 128)
+FC_GEOMS = [(32, 784, 100), (7, 13, 3), (129, 200, 257), (8, 128, 128)]
+ACTS = list(kgemm.FUSED_ACTIVATIONS)
+
+
+def _operands(geom):
+    """The reference test's operands and forward (seed 13)."""
+    B, F, O = geom
+    rng = np.random.default_rng(13)
+    x = rng.normal(size=(B, F)).astype(np.float32)
+    w = (rng.normal(size=(F, O)) * 0.05).astype(np.float32)
+    b = rng.normal(size=(O,)).astype(np.float32)
+    e = rng.normal(size=(B, O)).astype(np.float32)
+    return x, w, b, e
+
+
+@pytest.mark.parametrize("geom", FC_GEOMS)
+@pytest.mark.parametrize("act", ACTS)
+def test_fc_forward_and_backward_match_pallas_interpret(geom, act):
+    x, w, b, e = _operands(geom)
+    want = np.asarray(jgemm.fc_forward(jnp.asarray(x), jnp.asarray(w),
+                                       jnp.asarray(b), act, interpret=True))
+    got = kgemm.fc_forward(torch.tensor(x), torch.tensor(w),
+                           torch.tensor(b), act)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    y = jlinear.forward(np, x, w, b, act)
+    wants = jgemm.fc_backward(jnp.asarray(x), jnp.asarray(y), jnp.asarray(w),
+                              jnp.asarray(e), act, interpret=True)
+    gots = kgemm.fc_backward(torch.tensor(x), torch.tensor(y),
+                             torch.tensor(w), torch.tensor(e), act)
+    for name, g, want in zip(("err_input", "grad_w", "grad_b"), gots,
+                             wants):
+        np.testing.assert_allclose(g.numpy(), np.asarray(want), rtol=2e-4,
+                                   atol=2e-3, err_msg=name)
+
+
+def test_fc_backward_without_activation_and_with_3d_input():
+    """``activation_applied=False`` (the GDSoftmax contract) and an
+    MNIST-shaped (B, 28, 28) input whose err_input keeps that shape."""
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(6, 28, 28)).astype(np.float32)
+    w = (rng.normal(size=(784, 10)) * 0.05).astype(np.float32)
+    y = rng.normal(size=(6, 10)).astype(np.float32)
+    e = rng.normal(size=(6, 10)).astype(np.float32)
+    wants = jlinear.backward(np, x, y, w, e, "tanh", False)
+    gots = kgemm.fc_backward(torch.tensor(x), torch.tensor(y),
+                             torch.tensor(w), torch.tensor(e), "tanh", False)
+    assert gots[0].shape == (6, 28, 28)
+    for g, want in zip(gots, wants):
+        np.testing.assert_allclose(g.numpy(), want, rtol=2e-4, atol=2e-3)
+
+
+@pytest.mark.parametrize("act", ACTS)
+def test_act_backward_plain_matches_pallas_interpret(act):
+    """err * act'(y): the same f32 formula on both sides; exp may differ
+    by an ulp, so 1e-6 on values of order 1."""
+    rng = np.random.default_rng(5)
+    y = jlinear.forward(np, rng.normal(size=(9, 130)).astype(np.float32),
+                        np.eye(130, dtype=np.float32), None, act)
+    err = rng.normal(size=(9, 130)).astype(np.float32)
+    want = np.asarray(jgemm._act_backward(jnp.asarray(y), jnp.asarray(err),
+                                          act, interpret=True))
+    got = kgemm.act_backward(torch.tensor(y), torch.tensor(err), act)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(
+        kgemm.act_backward_plain(torch.tensor(y), torch.tensor(err),
+                                 act).numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("act", ACTS)
+def test_ops_match_the_reference_ops(act):
+    """``ops/activations.py`` and ``ops/linear.py`` (both branches)
+    against the reference's ops: forward, derivative from y, the FC
+    backward and the softmax forward with its argmax."""
+    from znicz_tpu.ops import activations as jact
+    from znicz_tpu_torch.ops import activations as tact, linear as tlin
+
+    x, w, b, e = _operands((9, 13, 6))
+    y = jlinear.forward(np, x, w, b, act)
+    for mod, conv in ((np, lambda a: a), (torch, torch.tensor)):
+        np.testing.assert_allclose(
+            np.asarray(tlin.forward(mod, conv(x), conv(w), conv(b), act)), y,
+            rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(
+            np.asarray(tact.derivative_from_output(mod, act, conv(y))),
+            jact.derivative_from_output(np, act, y), rtol=1e-6, atol=1e-6)
+        for got, want in zip(
+                tlin.backward(mod, conv(x), conv(y), conv(w), conv(e), act),
+                jlinear.backward(np, x, y, w, e, act)):
+            np.testing.assert_allclose(np.asarray(got), want, rtol=1e-5,
+                                       atol=1e-5)
+        sy, si = tlin.softmax_forward(mod, conv(x), conv(w), conv(b))
+        jy, ji = jlinear.softmax_forward(np, x, w, b)
+        np.testing.assert_allclose(np.asarray(sy), jy, rtol=1e-6, atol=1e-7)
+        np.testing.assert_array_equal(np.asarray(si), ji)
+
+
+def test_linear_act_backward_returns_err_itself():
+    err = torch.ones(3, 4)
+    assert kgemm.act_backward(torch.zeros(3, 4), err, "linear") is err
+
+
+def test_transposed_operands_read_in_place():
+    """The backward's products take ``w.t()`` and ``x.t()`` views of
+    contiguous storage, as the kernel does."""
+    rng = np.random.default_rng(9)
+    a = torch.tensor(rng.normal(size=(5, 7)).astype(np.float32))
+    b = torch.tensor(rng.normal(size=(3, 5)).astype(np.float32))
+    got = kgemm.gemm_fc(a.t(), b.t())
+    np.testing.assert_allclose(got.numpy(), (a.t() @ b.t()).numpy(),
+                               rtol=1e-6)
+
+
+def test_cpu_calls_count_no_launch():
+    x, w, b, e = (torch.tensor(a) for a in _operands((7, 13, 3)))
+    before = (kgemm.gemm_launches, kgemm.act_launches)
+    y = kgemm.fc_forward(x, w, b, "tanh")
+    kgemm.fc_backward(x, y, w, e, "tanh")
+    kgemm.act_backward(y, e, "sigmoid")
+    assert (kgemm.gemm_launches, kgemm.act_launches) == before
+
+
+def test_bound_counts_flops_and_bytes():
+    a = torch.empty(1024, 4096)
+    b = torch.empty(4096, 4096)
+    bias = torch.empty(4096)
+    got = kgemm.bound(a, b, bias, "tanh")
+    assert got["flops"] == 2 * 1024 * 4096 * 4096 + 6 * 1024 * 4096
+    assert got["bytes"] == 4 * (1024 * 4096 * 2 + 4096 * 4096 + 4096)
+    assert got["bound_by"] == "operations"
+    assert got["bound_ms"] == pytest.approx(got["flops"] / 67e12 * 1e3)
+    assert 0.51 < got["bound_ms"] < 0.52
+    act = kgemm.act_backward_bound(a, "tanh")
+    assert act["bytes"] == 12 * 1024 * 4096 and act["bound_by"] == "bytes"
+    assert act["bound_ms"] == pytest.approx(act["bytes"] / 3.35e12 * 1e3)
+
+
+def test_bad_calls_raise():
+    a, b = torch.ones(4, 6), torch.ones(6, 5)
+    with pytest.raises(ValueError, match="fused kernel set"):
+        kgemm.gemm_fc(a, b, None, "softmax")
+    with pytest.raises(ValueError, match="float32"):
+        kgemm.gemm_fc(a.to(torch.bfloat16), b.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="need a"):
+        kgemm.gemm_fc(a, torch.ones(5, 5))
+    with pytest.raises(ValueError, match="bias"):
+        kgemm.gemm_fc(a, b, torch.ones(4))
+    with pytest.raises(ValueError, match="transpose"):
+        kgemm.gemm_fc(torch.ones(4, 12)[:, ::2], b)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        kgemm.gemm_fc(a.to("meta"), b.to("meta"))
+    with pytest.raises(ValueError, match="differ in shape"):
+        kgemm.act_backward(torch.ones(3, 4), torch.ones(4, 3), "tanh")
+    with pytest.raises(ValueError, match="contiguous"):
+        kgemm.act_backward(torch.ones(4, 3).t(), torch.ones(3, 4), "tanh")
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_the_card():
+    """gemm_fc and act_backward on the card against their plain
+    versions (TF32 off), bit-identical across two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernels run only on a card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(1)
+    for m, k, n in ((7, 13, 3), (129, 200, 257), (256, 784, 512)):
+        a = torch.tensor(rng.normal(size=(m, k)), dtype=torch.float32,
+                         device="cuda")
+        b = torch.tensor(rng.normal(size=(k, n)) / np.sqrt(k),
+                         dtype=torch.float32, device="cuda")
+        bias = torch.tensor(rng.normal(size=n), dtype=torch.float32,
+                            device="cuda")
+        for act in ACTS:
+            got = kgemm.gemm_fc(a, b, bias, act)
+            assert torch.equal(got, kgemm.gemm_fc(a, b, bias, act))
+            want = kgemm.fc_forward_plain(a, b, bias, act)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            err = torch.randn_like(got)
+            torch.testing.assert_close(
+                kgemm.act_backward(got, err, act),
+                kgemm.act_backward_plain(got, err, act), rtol=1e-6,
+                atol=1e-6)
+    torch.cuda.synchronize()

@@ -1,0 +1,200 @@
+"""Device/host mirrored arrays — the port of ``znicz_tpu/core/memory.py``
+(rebuild of veles/memory.py :: Array).
+
+An ``Array`` is a host ndarray plus a lazily created device buffer, here
+a ``torch.Tensor``, with the reference's mapping discipline:
+``map_read`` (device -> host fetch), ``map_write`` (fetch + mark host
+dirty), ``map_invalidate`` (mark dirty without fetching), ``unmap``
+(flush host -> device).  ``set_devmem`` replaces the device buffer
+wholesale (a step's output); the host copy is stale until the next
+``map_read``.  Pickling maps device -> host first.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from znicz_tpu_torch.core.backends import Device, NumpyDevice, TorchDevice
+
+
+def roundup(n: int, quantum: int) -> int:
+    """Round ``n`` up to a multiple of ``quantum`` (reference: roundup)."""
+    rem = n % quantum
+    return n if rem == 0 else n + quantum - rem
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A mutable host copy of a device buffer (never a view of it)."""
+    t = t.detach()
+    return t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
+
+
+class Array:
+    """Host ndarray + lazy torch.Tensor device mirror."""
+
+    def __init__(self, data=None, shape=None, dtype=np.float32) -> None:
+        self._device: Optional[Device] = None
+        self._devmem: Optional[torch.Tensor] = None
+        self._host_dirty = False   # host has writes not yet on device
+        self._dev_dirty = False    # device has writes not yet on host
+        if data is not None:
+            self._mem: Optional[np.ndarray] = np.ascontiguousarray(
+                np.asarray(data, dtype=dtype))
+        elif shape is not None:
+            self._mem = np.zeros(shape, dtype=dtype)
+        else:
+            self._mem = None
+
+    # -- basic properties ---------------------------------------------------
+    def reset(self, data=None, shape=None, dtype=np.float32) -> None:
+        """Drop device state and replace host contents (reference: reset)."""
+        self._devmem = None
+        self._host_dirty = False
+        self._dev_dirty = False
+        if data is not None:
+            self._mem = np.ascontiguousarray(np.asarray(data, dtype=dtype))
+        elif shape is not None:
+            self._mem = np.zeros(shape, dtype=dtype)
+        else:
+            self._mem = None
+
+    @property
+    def mem(self) -> Optional[np.ndarray]:
+        return self._mem
+
+    @mem.setter
+    def mem(self, value) -> None:
+        self._mem = None if value is None else np.ascontiguousarray(np.asarray(value))
+        self._host_dirty = True
+        self._dev_dirty = False
+
+    @property
+    def shape(self):
+        if self._mem is not None:
+            return self._mem.shape
+        if self._devmem is not None:
+            return tuple(self._devmem.shape)
+        return None
+
+    @property
+    def dtype(self):
+        if self._mem is not None:
+            return self._mem.dtype
+        if self._devmem is not None:
+            return torch.empty(0, dtype=self._devmem.dtype).numpy().dtype
+        return None
+
+    @property
+    def size(self) -> int:
+        shape = self.shape
+        if shape is None:
+            return 0
+        return int(np.prod(shape)) if shape else 1
+
+    def __bool__(self) -> bool:
+        return self._mem is not None or self._devmem is not None
+
+    def __len__(self) -> int:
+        shape = self.shape
+        return 0 if not shape else shape[0]
+
+    def __getitem__(self, idx):
+        self.map_read()
+        return self._mem[idx]
+
+    def __setitem__(self, idx, value):
+        self.map_write()
+        self._mem[idx] = value
+
+    # -- device lifecycle ---------------------------------------------------
+    def initialize(self, device: Optional[Device]) -> None:
+        """Attach to a device; upload host data on first accelerated use.
+        Idempotent (safe to call from every unit that shares this
+        Array)."""
+        if device is None or not device.is_accelerated:
+            if self._device is None:
+                self._device = device or NumpyDevice()
+            return
+        if self._device is device and self._devmem is not None:
+            return
+        if self._devmem is not None and self._device is not device:
+            # migrating devices: pull the current value host-side first so
+            # the re-upload lands on the new device, not a stale one
+            self.map_read()
+            self._devmem = None
+        self._device = device
+        if self._mem is not None and self._devmem is None:
+            self._devmem = device.put(self._mem)
+            self._host_dirty = False
+            self._dev_dirty = False
+
+    @property
+    def device(self) -> Optional[Device]:
+        return self._device
+
+    @property
+    def devmem(self) -> torch.Tensor:
+        """Current device value; flushes pending host writes first."""
+        self.unmap()
+        if self._devmem is None:
+            raise RuntimeError("Array has no device buffer — call initialize()")
+        return self._devmem
+
+    def set_devmem(self, value: torch.Tensor) -> None:
+        """Replace the device buffer (a step's output); host copy becomes
+        stale until the next map_read."""
+        self._devmem = value
+        self._dev_dirty = True
+        self._host_dirty = False
+
+    # -- mapping discipline -------------------------------------------------
+    def map_read(self) -> np.ndarray:
+        if self._dev_dirty and self._devmem is not None:
+            self._mem = _to_host(self._devmem)
+            self._dev_dirty = False
+        return self._mem
+
+    def map_write(self) -> np.ndarray:
+        self.map_read()
+        self._host_dirty = True
+        return self._mem
+
+    def map_invalidate(self) -> np.ndarray:
+        """Host will be fully overwritten: skip the device->host fetch."""
+        self._dev_dirty = False
+        self._host_dirty = True
+        return self._mem
+
+    def unmap(self) -> None:
+        if self._host_dirty and self._mem is not None and isinstance(
+                self._device, TorchDevice):
+            self._devmem = self._device.put(self._mem)
+            self._host_dirty = False
+
+    # -- misc ---------------------------------------------------------------
+    @property
+    def plain(self) -> np.ndarray:
+        """Flat host view (reference: Array.plain)."""
+        return self.map_read().ravel()
+
+    def __array__(self, dtype=None, copy=None):
+        mem = self.map_read()
+        return mem.astype(dtype) if dtype is not None else mem
+
+    def __repr__(self) -> str:
+        return f"Array(shape={self.shape}, dtype={self.dtype})"
+
+    # pickling: device->host first, drop device handles (reference semantics)
+    def __getstate__(self):
+        self.map_read()
+        return {"_mem": self._mem}
+
+    def __setstate__(self, state):
+        self._mem = state["_mem"]
+        self._device = None
+        self._devmem = None
+        self._host_dirty = False
+        self._dev_dirty = False

@@ -1,0 +1,280 @@
+"""Workflow — unit container + deterministic control-graph executor; the
+port's copy of ``znicz_tpu/core/workflow.py`` (rebuild of
+veles/workflow.py :: Workflow) without the JAX compilation cache, which
+has no counterpart here (PyTorch runs eagerly).
+
+Differences from the reference are execution-model only (SURVEY.md §8
+design stance): instead of a ThreadPool firing unit callbacks
+concurrently, ``run()`` performs a deterministic breadth-first walk of
+the control graph from ``start_point`` until the queue drains or
+``end_point`` fires.  Device work stays asynchronous underneath on the
+device's stream, so the host walk is not the throughput bottleneck; the
+accelerated segment can be fused into one train step by
+``parallel/step.py`` (the replacement for per-unit kernel enqueues).
+
+Keeps: child-unit management, initialize fan-out with device injection,
+per-unit timing statistics table, stop propagation, and the distributed
+delegation points (generate/apply data for master/slave — retained as API
+for checkpoint/ensemble tooling; the SPMD plane makes the job protocol
+unnecessary, SURVEY.md §3.4).
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from typing import Optional
+
+from znicz_tpu_torch.core.plumbing import EndPoint, StartPoint
+from znicz_tpu_torch.core.units import Unit
+from znicz_tpu_torch.observe import probe
+from znicz_tpu_torch.observe.trace import TRACER
+from znicz_tpu_torch.resilience.faults import fault_hook
+
+
+class Workflow(Unit):
+    """Container unit: owns child units, start/end points, run statistics."""
+
+    def __init__(self, workflow: Optional["Workflow"] = None,
+                 name: Optional[str] = None, **kwargs) -> None:
+        super().__init__(workflow, name=name, **kwargs)
+        self.units: list[Unit] = []
+        self.start_point = StartPoint(self)
+        self.end_point = EndPoint(self)
+        self.device = None
+        self._wall_time = 0.0
+        #: monotonically increasing control-graph progress counter (one
+        #: per signal delivery); the resilience supervisor's watchdog
+        #: polls it to detect a hung step
+        self.signals_dispatched = 0
+        #: input prefetchers registered by the input pipeline
+        #: .attach_prefetcher — stopped on crash, surfaced in
+        #: timing_table's stall block
+        self.pipelines: list = []
+        #: attached observe.watchtower.Watchtower instances: the run
+        #: loop calls their on_step() at every signal-delivery boundary
+        #: (count-strided sampling + SLO rule evaluation); empty list =
+        #: one falsy check per delivery
+        self.watchtowers: list = []
+
+    # -- child management ---------------------------------------------------
+    def add_unit(self, unit: Unit) -> None:
+        if unit not in self.units:
+            self.units.append(unit)
+            unit.workflow = self
+            # drop registry children cached under the old workflow label
+            # (a unit that ran standalone or in another workflow would
+            # otherwise donate to the wrong series forever)
+            unit._observers = None
+
+    def del_unit(self, unit: Unit) -> None:
+        if unit in self.units:
+            self.units.remove(unit)
+            unit.unlink_all()
+            unit.workflow = None
+
+    def __iter__(self):
+        return iter(self.units)
+
+    # -- lifecycle ----------------------------------------------------------
+    def initialize(self, device=None, **kwargs) -> None:
+        """Initialize children in control-topology order (providers first),
+        injecting the device into every unit that accepts one."""
+        self.device = device
+        for unit in self._topo_order():
+            if not unit.initialized:
+                unit.initialize(device=device, **kwargs)
+                unit.initialized = True
+        self.initialized = True
+
+    def _topo_order(self) -> list[Unit]:
+        """Children in control-flow order: iterative DFS from
+        ``start_point`` along ``links_to``, emitting reverse finish order —
+        a topological sort of the control DAG with cycle back-edges (the
+        Repeater loop) ignored.  Unlike a plain BFS this guarantees every
+        provider of a join unit initializes before the join unit itself
+        (e.g. an evaluator linked from both the loader and the last
+        forward).  Unreached units follow in insertion order."""
+        finish: list[Unit] = []
+        seen: set[int] = set()
+        stack: list[tuple[Unit, int]] = [(self.start_point, 0)]
+        seen.add(id(self.start_point))
+        while stack:
+            unit, child = stack[-1]
+            if child < len(unit.links_to):
+                stack[-1] = (unit, child + 1)
+                target = unit.links_to[child]
+                if id(target) not in seen:
+                    seen.add(id(target))
+                    stack.append((target, 0))
+            else:
+                stack.pop()
+                finish.append(unit)
+        order = finish[::-1]
+        for unit in self.units:
+            if id(unit) not in seen:
+                seen.add(id(unit))
+                order.append(unit)
+        return order
+
+    def run(self) -> None:
+        """Walk the control graph from start_point until end_point fires or
+        the signal queue drains."""
+        if not self.initialized:
+            raise RuntimeError("Workflow.run before initialize")
+        started = time.monotonic()
+        # telemetry plane: per-delivery spans + step-latency histogram +
+        # recompile polling (observe.set_enabled(False) reduces the walk
+        # to the bare loop; the reference's metrics_overhead bench pins
+        # the instrumented-vs-bare gap at <2%)
+        observed = probe.enabled()
+        if observed:
+            probe.workflow_run(self.name)
+            run_t0 = time.perf_counter()
+            signals_before = self.signals_dispatched
+            span_args: dict[str, dict] = {}   # unit -> reusable trace
+            perf = time.perf_counter          # args (no per-signal dict)
+        self.end_point.reached = False
+        # clear fired-marks left by an early-terminated previous walk so join
+        # units cannot fire on stale signals
+        for unit in self.units:
+            for provider in unit.links_from:
+                unit.links_from[provider] = False
+        queue: deque[tuple[Unit, Unit]] = deque()
+        self.start_point._signal(None, queue)
+        try:
+            while queue:
+                source, target = queue.popleft()
+                if observed:
+                    t0 = perf()
+                    try:
+                        # chaos hook: the resilience plane injects
+                        # crashes/hangs here (site "workflow.step") so
+                        # fault tests drive this real loop; with no plan
+                        # installed this is a single global None check
+                        fault_hook("workflow.step", workflow=self,
+                                   unit=target)
+                        # cross-process chaos site: same
+                        # cadence, NO context kwargs — the only trigger
+                        # that serializes into a worker's env is at_hit,
+                        # and elastic kill drills arm exactly that
+                        fault_hook("elastic.worker")
+                        self.signals_dispatched += 1
+                        target._signal(source, queue)
+                    except BaseException:
+                        # the CRASHING delivery still lands on the
+                        # timeline, error-marked — a flight artifact's
+                        # post-mortem window needs the step that died,
+                        # not just the ones before it
+                        TRACER.complete("workflow.step", t0, perf() - t0,
+                                        {"unit": target.name,
+                                         "error": True})
+                        raise
+                    dt = perf() - t0
+                    probe.signal_dispatched(dt)
+                    tname = target.name
+                    a = span_args.get(tname)
+                    if a is None:
+                        a = span_args[tname] = {"unit": tname}
+                    TRACER.complete("workflow.step", t0, dt, a)
+                    # recompile poll rides a stride: polling every
+                    # watched program per signal has no business on the
+                    # per-signal budget (<2%, metrics_overhead bench); a
+                    # 32-delivery detection lag is invisible next to a
+                    # multi-second recompile, and the end-of-run check
+                    # below closes the final window
+                    if not self.signals_dispatched % 32:
+                        probe.check_recompiles()
+                    if self.watchtowers:
+                        # attached towers sample the registry + evaluate
+                        # SLO rules at the step boundary (count-strided
+                        # inside on_step, so chaos runs stay exact)
+                        for tower in self.watchtowers:
+                            tower.on_step()
+                else:
+                    fault_hook("workflow.step", workflow=self,
+                               unit=target)
+                    fault_hook("elastic.worker")
+                    self.signals_dispatched += 1
+                    target._signal(source, queue)
+                if self.end_point.reached:
+                    break
+        except BaseException:
+            # a crashed walk must not leak prefetch workers: the
+            # supervisor rebuilds fresh objects, so stop ours now
+            for pipeline in self.pipelines:
+                pipeline.stop()
+            if observed:
+                probe.signals_add(self.signals_dispatched -
+                                  signals_before)
+            raise
+        if observed:
+            probe.signals_add(self.signals_dispatched - signals_before)
+            probe.check_recompiles()
+            TRACER.complete("workflow.run", run_t0,
+                            time.perf_counter() - run_t0,
+                            workflow=self.name)
+        self._wall_time += time.monotonic() - started
+        self.run_was_called = True
+
+    def stop(self) -> None:
+        for unit in self.units:
+            unit.stop()
+        self.stopped = True
+
+    # -- statistics ---------------------------------------------------------
+    def timing_table(self) -> str:
+        """Per-unit wall-time share table (reference: printed at stop),
+        followed by the input-pipeline stall breakdown when prefetchers
+        are attached (docs/PIPELINE.md: ``prod_stall`` = producer waited
+        for a free slot, ``cons_stall`` = consumer waited on an empty
+        queue, ``stage_s`` = H2D staging time on the worker)."""
+        # the rows come from the shared metrics registry (the same
+        # series GET /metrics exposes as znicz_unit_run_seconds_total /
+        # znicz_unit_runs_total) — counters are process-lifetime, so
+        # after a supervised restart the table shows the cumulative cost
+        # across attempts, which is exactly what a restart storm inflates.
+        # Units keep their local timers either way; when the registry saw
+        # fewer runs than the unit did (the plane was disabled for some
+        # or all of the run) the local timer is the truth — without the
+        # fallback observe.set_enabled(False) would render an empty table
+        reg = {name: (secs, runs) for secs, runs, name in
+               probe.unit_timing_rows(self.name,
+                                      (u.name for u in self.units))}
+        local: dict[str, list] = {}
+        for u in self.units:
+            runs, secs = u.timing
+            acc = local.setdefault(u.name, [0.0, 0])
+            acc[0] += secs
+            acc[1] += runs
+        rows = []
+        for name, (lsecs, lruns) in local.items():
+            rsecs, rruns = reg.get(name, (0.0, 0))
+            if rruns >= lruns:
+                rows.append((rsecs, rruns, name))
+            else:
+                rows.append((lsecs, lruns, name))
+        rows.sort(reverse=True)
+        total = sum(r[0] for r in rows) or 1e-12
+        lines = [f"{'unit':<28}{'runs':>8}{'time_s':>10}{'share':>8}"]
+        for run_time, count, name in rows:
+            if count == 0:
+                continue
+            lines.append(
+                f"{name:<28}{count:>8}{run_time:>10.3f}{run_time / total:>8.1%}")
+        if self.pipelines:
+            lines.append("")
+            lines.append(
+                f"{'pipeline':<10}{'depth':>6}{'batches':>9}{'MB':>9}"
+                f"{'serve_s':>9}{'stage_s':>9}{'prod_stall':>11}"
+                f"{'cons_stall':>11}  bound")
+            for i, pipeline in enumerate(self.pipelines):
+                s = pipeline.stats.snapshot()
+                lines.append(
+                    f"{'prefetch' + str(i):<10}{s['depth']:>6}"
+                    f"{s['consumed']:>9}"
+                    f"{s['bytes_staged'] / 1e6:>9.2f}"
+                    f"{s['serve_s']:>9.3f}{s['stage_s']:>9.3f}"
+                    f"{s['producer_starved_s']:>11.3f}"
+                    f"{s['consumer_starved_s']:>11.3f}  {s['bound']}")
+        return "\n".join(lines)

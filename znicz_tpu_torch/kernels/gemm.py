@@ -1,0 +1,242 @@
+"""The FC layer's GEMM with fused bias and activation, and its
+activation backward, as hand-written Hopper kernels (``csrc/gemm.cu``).
+
+Replaces two Pallas calls of ``znicz_tpu/ops/pallas/gemm.py``:
+``matmul`` (``:76``), which ``fc_forward`` (``:129``) and the two
+products of ``fc_backward`` (``:137``) reach, and ``_act_backward``
+(``:119``).  In float32:
+
+- :func:`gemm_fc` ``(a, b, bias, activation)`` -> ``act(a @ b + bias)``
+  for a 2-D ``a`` (M, K) and ``b`` (K, N), each contiguous or the
+  transpose of a contiguous matrix: the kernel reads the stored layout
+  with a transpose flag, so ``err_v @ W.T`` and ``x.T @ err_v`` read the
+  (in, out) weights and (batch, in) activations as they are.  f32 sums
+  on the CUDA cores, no TF32; bias and activation in the epilogue;
+  ragged edges masked in the kernel, nothing padded.
+- :func:`act_backward` ``(y, err, activation)`` -> ``err * act'(y)``,
+  the derivative from the forward output.  ``linear`` returns ``err``
+  and launches nothing, as the reference does.
+
+:func:`fc_forward` and :func:`fc_backward` compose them with the
+reference's semantics (``ops/linear.py``); ``grad_b`` is a plain torch
+sum, as the reference sums it outside its kernels.
+
+The wrappers run the plain versions (:func:`fc_forward_plain`,
+:func:`act_backward_plain`) on CPU tensors only; on CUDA tensors they
+launch the kernels or raise.  ``gemm_launches`` / ``act_launches``
+count kernel launches and nothing else.  Importing this module needs no
+``nvcc``: the library is built at the first CUDA call.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from znicz_tpu_torch.kernels import build as _build
+from znicz_tpu_torch.ops import activations
+
+#: kernel launches since import (or since a caller reset them to 0)
+gemm_launches = 0
+act_launches = 0
+
+#: the TPU kernels these replace
+REPLACES_GEMM = "znicz_tpu/ops/pallas/gemm.py:76"
+REPLACES_ACT = "znicz_tpu/ops/pallas/gemm.py:119"
+SOURCE = "znicz_tpu_torch/csrc/gemm.cu"
+
+#: activations the kernels apply in-block (the reference's fused set),
+#: in the order of csrc/gemm.cu's codes
+FUSED_ACTIVATIONS = (activations.LINEAR, activations.TANH,
+                     activations.RELU, activations.STRICT_RELU,
+                     activations.SIGMOID)
+_ACT_CODES = {a: i for i, a in enumerate(FUSED_ACTIVATIONS)}
+#: the depth of the kernel's k tiles (BK in csrc/gemm.cu)
+K_TILE = 8
+
+#: H100 SXM data-sheet peaks: HBM bytes/s; f32 flop/s of the CUDA cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+#: flops per element of err * act'(y), counted from the formulas
+_ACT_FLOPS = {activations.TANH: 5, activations.RELU: 3,
+              activations.STRICT_RELU: 2, activations.SIGMOID: 3}
+
+_lib = None
+
+
+def fc_forward_plain(x, w, bias=None, activation: str = activations.LINEAR):
+    """The plain PyTorch ``act(flatten(x) @ w + bias)`` — the semantics
+    of ``ops/linear.py forward``."""
+    v = x.reshape(x.shape[0], -1) @ w
+    if bias is not None:
+        v = v + bias
+    return activations.forward(torch, activation, v)
+
+
+def act_backward_plain(y, err, activation: str):
+    """The plain PyTorch ``err * act'(y)``."""
+    return activations.backward(torch, activation, y, err)
+
+
+def _bound_of(flops: float, nbytes: float) -> dict:
+    """The larger of the flops over the f32 peak and the bytes over the
+    HBM rate, and which of the two it is."""
+    flops_ms = flops / F32_FLOPS * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"flops": flops, "bytes": nbytes,
+            "bound_ms": max(flops_ms, bytes_ms),
+            "bound_by": "operations" if flops_ms >= bytes_ms else "bytes"}
+
+
+def bound(a, b, bias=None, activation: str = activations.LINEAR) -> dict:
+    """The least time the card could take for :func:`gemm_fc` on these
+    operands: the larger of ``2·M·N·K`` flops (plus the epilogue's) over
+    the f32 peak and the bytes of a, b, bias and the output, each moved
+    once, over the HBM rate."""
+    (m, k), n = a.shape, b.shape[1]
+    epilogue = (bias is not None) + _ACT_FLOPS.get(activation, 0)
+    flops = 2 * m * n * k + epilogue * m * n
+    nbytes = 4 * (m * k + k * n + m * n + (n if bias is not None else 0))
+    return _bound_of(flops, nbytes)
+
+
+def act_backward_bound(y, activation: str) -> dict:
+    """The same for :func:`act_backward`: y and err read, out written."""
+    n = y.numel()
+    return _bound_of(_ACT_FLOPS[activation] * n, 12 * n)
+
+
+def _check_activation(activation: str) -> None:
+    if activation not in _ACT_CODES:
+        raise ValueError(f"activation {activation!r} is not in the fused "
+                         f"kernel set {FUSED_ACTIVATIONS}")
+
+
+def _check_f32(device, **tensors) -> None:
+    for name, x in tensors.items():
+        if x.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 (the kernels are "
+                             f"f32), not {x.dtype}")
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, not {device}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the FC kernels run on cpu or cuda tensors, not "
+                         f"{device.type}")
+
+
+def _stored(x, name: str) -> int:
+    """0 if ``x`` is contiguous, 1 if it is the transpose of a
+    contiguous matrix (the kernel reads it transposed); else raise."""
+    if x.is_contiguous():
+        return 0
+    if x.t().is_contiguous():
+        return 1
+    raise ValueError(f"{name} must be contiguous or the transpose of a "
+                     f"contiguous matrix")
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = _build.load("gemm")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.znicz_gemm_f32.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
+        lib.znicz_gemm_f32.restype = i32
+        lib.znicz_act_backward_f32.argtypes = [ptr] * 3 + [
+            ctypes.c_longlong, i32, ptr]
+        lib.znicz_act_backward_f32.restype = i32
+        lib.znicz_gemm_error_string.argtypes = [i32]
+        lib.znicz_gemm_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        msg = _library().znicz_gemm_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: {msg}")
+
+
+def gemm_fc(a, b, bias=None, activation: str = activations.LINEAR):
+    """``act(a @ b + bias)`` on 2-D f32 ``a`` (M, K) and ``b`` (K, N),
+    bias (N,) or None -> a new contiguous (M, N); the plain version on
+    CPU tensors, the kernel on CUDA tensors (on the current stream)."""
+    global gemm_launches
+    _check_activation(activation)
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"need a (M, K) and b (K, N); got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    (m, k), n = a.shape, b.shape[1]
+    if min(m, n, k) < 1:
+        raise ValueError(f"empty GEMM ({m}, {k}) x ({k}, {n})")
+    tensors = {"a": a, "b": b}
+    if bias is not None:
+        if tuple(bias.shape) != (n,) or not bias.is_contiguous():
+            raise ValueError(f"bias must be a contiguous ({n},); got "
+                             f"{tuple(bias.shape)}")
+        tensors["bias"] = bias
+    _check_f32(a.device, **tensors)
+    trans_a, trans_b = _stored(a, "a"), _stored(b, "b")
+    if a.device.type == "cpu":
+        return fc_forward_plain(a, b, bias, activation)
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    rc = _library().znicz_gemm_f32(
+        a.data_ptr(), b.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(), m, n, k,
+        trans_a, trans_b, _ACT_CODES[activation],
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _raise_on(rc, "gemm_fc")
+    gemm_launches += 1
+    return out
+
+
+def act_backward(y, err, activation: str):
+    """``err * act'(y)`` on same-shaped contiguous f32 tensors; returns
+    ``err`` itself for ``linear`` (no launch).  The plain version on CPU
+    tensors, the kernel on CUDA tensors."""
+    global act_launches
+    _check_activation(activation)
+    if y.shape != err.shape:
+        raise ValueError(f"y {tuple(y.shape)} and err {tuple(err.shape)} "
+                         f"differ in shape")
+    _check_f32(y.device, y=y, err=err)
+    if not (y.is_contiguous() and err.is_contiguous()):
+        raise ValueError("y and err must be contiguous")
+    if activation == activations.LINEAR:
+        return err
+    if y.device.type == "cpu":
+        return act_backward_plain(y, err, activation)
+    if y.numel() < 1:
+        raise ValueError("empty act_backward")
+    out = torch.empty_like(err)
+    rc = _library().znicz_act_backward_f32(
+        y.data_ptr(), err.data_ptr(), out.data_ptr(), y.numel(),
+        _ACT_CODES[activation], torch.cuda.current_stream(y.device)
+        .cuda_stream)
+    _raise_on(rc, "act_backward")
+    act_launches += 1
+    return out
+
+
+def fc_forward(x, w, bias=None, activation: str = activations.LINEAR):
+    """All2All forward: flatten-batch GEMM with fused bias and
+    activation (the semantics of ``ops/linear.py forward``)."""
+    return gemm_fc(x.reshape(x.shape[0], -1), w, bias, activation)
+
+
+def fc_backward(x, y, w, err_output, activation: str = activations.LINEAR,
+                activation_applied: bool = True):
+    """All2All backward -> ``(err_input, grad_w, grad_b)``, gradients
+    summed over the batch (the semantics of ``ops/linear.py backward``):
+    ``err_v = err * act'(y)`` then ``err_v @ w.T`` and ``x.T @ err_v`` on
+    the kernels, ``grad_b`` a torch sum."""
+    x_flat = x.reshape(x.shape[0], -1)
+    err = err_output.reshape(err_output.shape[0], -1)
+    if activation_applied:
+        err_v = act_backward(y.reshape(y.shape[0], -1), err, activation)
+    else:
+        err_v = err
+    err_input = gemm_fc(err_v, w.t()).reshape(x.shape)
+    grad_w = gemm_fc(x_flat.t(), err_v)
+    return err_input, grad_w, err_v.sum(dim=0)

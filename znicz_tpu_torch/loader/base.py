@@ -1,0 +1,180 @@
+"""Loader base — the port of ``znicz_tpu/loader/base.py`` (rebuild of
+veles/loader/base.py :: Loader).
+
+Epoch structure (reference semantics): each epoch serves the sample
+classes in order TEST -> VALID -> TRAIN, in fixed-size minibatches; only
+the train set is reshuffled (deterministically, via prng) at each epoch
+start.  ``last_minibatch`` marks the final minibatch of a class pass;
+``epoch_ended`` flips when the train pass finishes and ``epoch_number``
+increments.
+
+Static-shape policy: the served arrays always have ``max_minibatch_size``
+rows; a short tail is padded and the true row count exposed as
+``minibatch_size`` — evaluator/GD mask/divide by it.
+
+Not ported yet (ROADMAP queue A): the loader registry of
+``StandardWorkflow``, the snapshot state dicts, the prefetch pipeline's
+hooks (``fill_batch``, staged batches) and the class-plan capture of the
+epoch-scan step.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from znicz_tpu_torch.core import prng
+from znicz_tpu_torch.core.memory import Array
+from znicz_tpu_torch.core.accelerated_units import AcceleratedUnit
+
+#: sample classes (reference: veles/loader/base.py :: CLASS_NAMES order)
+TEST, VALID, TRAIN = 0, 1, 2
+CLASS_NAMES = ("test", "validation", "train")
+
+class Loader(AcceleratedUnit):
+    """Minibatch server over an abstract dataset."""
+
+    def __init__(self, workflow=None, minibatch_size: int = 100,
+                 shuffle_limit: Optional[int] = None, **kwargs) -> None:
+        super().__init__(workflow, **kwargs)
+        self.max_minibatch_size = int(minibatch_size)
+        #: epochs to keep shuffling for (None = always; 0 = never)
+        self.shuffle_limit = shuffle_limit
+        # served state (data-linked by downstream units)
+        self.minibatch_data = Array()
+        self.minibatch_labels = Array()
+        self.minibatch_targets = Array()
+        self.minibatch_indices = Array()
+        self.minibatch_size = 0          # true (unpadded) row count
+        self.minibatch_class = TRAIN
+        self.last_minibatch = False
+        self.epoch_number = 0
+        self.epoch_ended = False
+        #: set by FusedTrainStep._pin_dataset: the consumer reads only
+        #: minibatch_indices, so skip per-step data gather/upload
+        self.serve_indices_only = False
+        # dataset geometry, set by load_data()
+        self.class_lengths = [0, 0, 0]
+        self._position = 0               # offset within current class
+        self._class = TEST
+        self._epoch = 0
+        self._shuffled: dict[int, np.ndarray] = {}
+
+    # -- override points ----------------------------------------------------
+    def load_data(self) -> None:
+        """Set ``class_lengths`` and prepare backing storage."""
+        raise NotImplementedError
+
+    def create_minibatch_data(self) -> None:
+        """Allocate ``minibatch_data`` (and labels/targets if served)."""
+        raise NotImplementedError
+
+    def fill_minibatch(self) -> None:
+        """Copy rows selected by ``minibatch_indices`` into the served
+        arrays; indices beyond ``minibatch_size`` are -1 (padding)."""
+        raise NotImplementedError
+
+    # -- geometry helpers ---------------------------------------------------
+    def class_offset(self, cls: int) -> int:
+        """Global sample index where class ``cls`` starts (storage order is
+        [test | validation | train], reference layout)."""
+        return int(sum(self.class_lengths[:cls]))
+
+    def _nonempty_classes(self) -> list[int]:
+        return [c for c in (TEST, VALID, TRAIN) if self.class_lengths[c] > 0]
+
+    # -- lifecycle ----------------------------------------------------------
+    def _common_init(self, **kwargs) -> None:
+        self.load_data()
+        if self.class_lengths[TRAIN] <= 0:
+            raise ValueError("Loader: empty train set")
+        self.create_minibatch_data()
+        if not self.minibatch_indices:
+            self.minibatch_indices.reset(
+                shape=(self.max_minibatch_size,), dtype=np.int64)
+        self.init_array(self.minibatch_data, self.minibatch_labels,
+                        self.minibatch_targets, self.minibatch_indices)
+        self._class = self._nonempty_classes()[0]
+        self._position = 0
+        self._shuffle_train()
+
+    def _shuffle_train(self) -> None:
+        for cls in self._nonempty_classes():
+            if cls not in self._shuffled:
+                self._shuffled[cls] = np.arange(
+                    self.class_offset(cls),
+                    self.class_offset(cls) + self.class_lengths[cls],
+                    dtype=np.int64)
+        if self.shuffle_limit is not None and \
+                self._epoch >= self.shuffle_limit:
+            return
+        prng.get().shuffle(self._shuffled[TRAIN])
+
+    # -- serving ------------------------------------------------------------
+    def numpy_run(self) -> None:
+        self._serve()
+
+    def torch_run(self) -> None:
+        self._serve()
+        if self.serve_indices_only:
+            # the fused step pinned the dataset on the device: it consumes
+            # only minibatch_indices, so the host gather + upload of the
+            # minibatch itself would be dead work on the hot loop
+            return
+        for arr in (self.minibatch_data, self.minibatch_labels,
+                    self.minibatch_targets):
+            if arr:
+                arr.unmap()
+
+    def _next_record(self) -> dict:
+        """Advance the serving cursor one minibatch and return the
+        control record."""
+        cls = self._class
+        length = self.class_lengths[cls]
+        start = self._position
+        count = min(self.max_minibatch_size, length - start)
+        indices = np.full((self.max_minibatch_size,), -1, dtype=np.int64)
+        indices[:count] = self._shuffled[cls][start:start + count]
+        self._position = start + count
+        return {"indices": indices, "size": count, "cls": cls,
+                "last": self._position >= length,
+                "epoch_ended": False, "epoch_number": self._epoch}
+
+    def _complete_record(self, rec: dict) -> dict:
+        """Class/epoch advance for a record from :meth:`_next_record` —
+        runs AFTER the fill (reference order: augmenting fills draw prng
+        before the epoch-boundary reshuffle)."""
+        if rec["last"]:
+            classes = self._nonempty_classes()
+            idx = classes.index(self._class)
+            if idx + 1 < len(classes):
+                self._class = classes[idx + 1]
+            else:
+                # train pass done -> epoch boundary
+                self._epoch += 1
+                rec["epoch_ended"] = True
+                self._class = classes[0]
+                self._shuffle_train()
+            self._position = 0
+        rec["epoch_number"] = self._epoch
+        return rec
+
+    def _publish_record(self, rec: dict) -> None:
+        """Write a record's control metadata into the published attrs the
+        downstream units read."""
+        self.epoch_ended = False
+        self.minibatch_indices.map_invalidate()
+        self.minibatch_indices.mem = rec["indices"]
+        self.minibatch_size = rec["size"]
+        self.minibatch_class = rec["cls"]
+        self.last_minibatch = rec["last"]
+
+    def _serve(self) -> None:
+        rec = self._next_record()
+        self._publish_record(rec)
+        if not self.serve_indices_only:
+            self.fill_minibatch()
+        self._complete_record(rec)
+        self.epoch_number = rec["epoch_number"]
+        self.epoch_ended = rec["epoch_ended"]

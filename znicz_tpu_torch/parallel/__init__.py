@@ -1,1 +1,2 @@
-"""Transformer pieces the serving slice needs."""
+"""Training steps of the port: the transformer trainer and the fused
+Unit/Workflow train step."""

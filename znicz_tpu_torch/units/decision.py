@@ -1,0 +1,230 @@
+"""Decision units — the port's copy of ``znicz_tpu/units/decision.py``
+(rebuild of veles.znicz decision.py :: DecisionBase, DecisionGD,
+DecisionMSE).
+
+Host-side epoch bookkeeping: accumulate the evaluator's per-minibatch
+metrics per sample class (TEST/VALID/TRAIN), detect end of epoch, track the
+best validation result, flip the ``improved`` / ``epoch_ended`` /
+``complete`` Bools that gate the snapshotter/plotters and terminate the
+Repeater loop (SURVEY.md §4.1).
+
+Stop conditions (reference semantics): ``max_epochs`` reached, or no
+validation improvement within the last ``fail_iterations`` epochs; plus
+``target_metric`` — stop as soon as the watched metric reaches a target
+(the "train to 99%" contract of BASELINE.md config 2).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+
+import uuid
+
+from znicz_tpu_torch.core.mutable import Bool
+from znicz_tpu_torch.core.units import Unit
+from znicz_tpu_torch.loader.base import TEST, VALID, TRAIN, CLASS_NAMES
+
+#: one id per process: JSONL consumers disambiguate records when a
+#: resumed run re-appends epochs an earlier (crashed) run already wrote
+_RUN_ID = uuid.uuid4().hex[:12]
+
+
+class DecisionBase(Unit):
+    """Shared epoch bookkeeping (reference: decision.py :: DecisionBase)."""
+
+    def __init__(self, workflow=None, max_epochs: Optional[int] = None,
+                 fail_iterations: int = 100,
+                 target_metric: Optional[float] = None, **kwargs) -> None:
+        super().__init__(workflow, **kwargs)
+        self.max_epochs = max_epochs
+        self.fail_iterations = fail_iterations
+        self.target_metric = target_metric
+        # data-linked from the loader:
+        self.minibatch_class = TRAIN
+        self.last_minibatch = False
+        self.class_lengths = [0, 0, 0]
+        #: data-linked to the loader; already incremented when the last train
+        #: minibatch is served, so it reads as "epochs completed" here
+        self.epoch_number = 0
+        # flags the rest of the graph gates on:
+        self.complete = Bool(False)
+        self.improved = Bool(False)
+        self.epoch_ended = Bool(False)
+        self.train_ended = Bool(False)
+        # per-epoch accumulators / history
+        self.epoch_metrics: list = [None, None, None]
+        self.best_metric = None
+        self.best_epoch = -1
+        self.metrics_history: list[dict] = []
+
+    # -- override points ----------------------------------------------------
+    def accumulate(self, cls: int) -> None:
+        """Fold the evaluator's minibatch metrics into epoch accumulators."""
+        raise NotImplementedError
+
+    def finalize_class(self, cls: int) -> float:
+        """End of one class pass; return the epoch metric for that class."""
+        raise NotImplementedError
+
+    def reset_epoch(self) -> None:
+        raise NotImplementedError
+
+    # -- the control-graph callback -----------------------------------------
+    def run(self) -> None:
+        cls = int(self.minibatch_class)
+        self.epoch_ended.set(False)
+        self.improved.set(False)
+        self.train_ended.set(False)
+        self.accumulate(cls)
+        if not self.last_minibatch:
+            return
+        metric = self.finalize_class(cls)
+        self.epoch_metrics[cls] = metric
+        if cls != TRAIN:
+            return
+        # ---- end of epoch (train is the last class served) ----
+        self.train_ended.set(True)
+        self.epoch_ended.set(True)
+        # improvement is judged on validation when present, else train
+        watch = VALID if self.class_lengths[VALID] > 0 else TRAIN
+        watched = self.epoch_metrics[watch]
+        if watched is not None and (self.best_metric is None
+                                    or watched < self.best_metric):
+            self.best_metric = watched
+            self.best_epoch = int(self.epoch_number)
+            self.improved.set(True)
+        self.metrics_history.append({
+            "epoch": int(self.epoch_number),
+            **{f"metric_{CLASS_NAMES[c]}": self.epoch_metrics[c]
+               for c in (TEST, VALID, TRAIN)
+               if self.epoch_metrics[c] is not None},
+        })
+        self._append_metrics_jsonl()
+        self.on_epoch_logged()
+        if self.max_epochs is not None and \
+                int(self.epoch_number) >= self.max_epochs:
+            self.complete.set(True)
+        if int(self.epoch_number) - self.best_epoch >= self.fail_iterations:
+            self.complete.set(True)
+        if self.target_metric is not None and watched is not None and \
+                watched <= self.target_metric:
+            self.complete.set(True)
+        self.reset_epoch()
+
+    def on_epoch_logged(self) -> None:
+        pass
+
+    def _append_metrics_jsonl(self) -> None:
+        """Append the epoch record to ``root.common.metrics_file`` when
+        set (SURVEY.md §6.5 "metrics to jsonl" — the machine-readable
+        sibling of the console log; one JSON object per line)."""
+        from znicz_tpu_torch.core.config import root
+
+        path = root.common.get("metrics_file", None)
+        if not path:
+            return
+        import json
+
+        with open(str(path), "a") as f:
+            f.write(json.dumps({"workflow": self.workflow.name
+                                if self.workflow else None,
+                                "run_id": _RUN_ID,
+                                **self.metrics_history[-1]}) + "\n")
+
+    # -- snapshot support ---------------------------------------------------
+    def state_dict(self) -> dict:
+        return {
+            "best_metric": self.best_metric,
+            "best_epoch": self.best_epoch,
+            "metrics_history": list(self.metrics_history),
+            "complete": bool(self.complete),
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        self.best_metric = state["best_metric"]
+        self.best_epoch = state["best_epoch"]
+        self.metrics_history = list(state["metrics_history"])
+        self.complete.set(state["complete"])
+
+
+class DecisionGD(DecisionBase):
+    """Classification decision: counts argmax errors (reference: DecisionGD).
+
+    ``epoch_n_err_pt`` — per-class error percentage of the finished epoch;
+    ``minibatch_n_err`` is data-linked to EvaluatorSoftmax.n_err.
+    """
+
+    def __init__(self, workflow=None, **kwargs) -> None:
+        super().__init__(workflow, **kwargs)
+        self.minibatch_n_err = 0        # linked from evaluator ("n_err")
+        self.minibatch_size = 0         # linked from loader (current size)
+        #: set to the EvaluatorSoftmax unit to collect + reset its confusion
+        #: matrix per class pass (reference: Decision owns the per-class
+        #: confusion_matrixes; the evaluator only accumulates a minibatch)
+        self.evaluator = None
+        self.epoch_n_err = [0, 0, 0]
+        self.epoch_samples = [0, 0, 0]
+        self.epoch_n_err_pt = [100.0, 100.0, 100.0]
+        self.confusion_matrixes: list = [None, None, None]
+
+    def accumulate(self, cls: int) -> None:
+        self.epoch_n_err[cls] += int(self.minibatch_n_err)
+        self.epoch_samples[cls] += int(self.minibatch_size)
+
+    def finalize_class(self, cls: int) -> float:
+        samples = max(self.epoch_samples[cls], 1)
+        self.epoch_n_err_pt[cls] = 100.0 * self.epoch_n_err[cls] / samples
+        ev = self.evaluator
+        if ev is not None and getattr(ev, "confusion_matrix", None) is not None:
+            self.confusion_matrixes[cls] = ev.confusion_matrix.copy()
+            ev.confusion_matrix[:] = 0
+        return float(self.epoch_n_err[cls])
+
+    def reset_epoch(self) -> None:
+        self.epoch_n_err = [0, 0, 0]
+        self.epoch_samples = [0, 0, 0]
+
+    def on_epoch_logged(self) -> None:
+        parts = [f"epoch {int(self.epoch_number)}:"]
+        for c in (TEST, VALID, TRAIN):
+            if self.epoch_samples[c]:
+                parts.append(f"{CLASS_NAMES[c]} err "
+                             f"{self.epoch_n_err_pt[c]:.2f}%")
+        if bool(self.improved):
+            parts.append("*")
+        self.info(" ".join(parts))
+
+
+class DecisionMSE(DecisionBase):
+    """Regression decision: tracks epoch mse (reference: DecisionMSE)."""
+
+    def __init__(self, workflow=None, **kwargs) -> None:
+        super().__init__(workflow, **kwargs)
+        self.minibatch_mse = 0.0        # linked from evaluator ("mse")
+        self.minibatch_size = 0
+        self.epoch_sse = [0.0, 0.0, 0.0]
+        self.epoch_samples = [0, 0, 0]
+
+    def accumulate(self, cls: int) -> None:
+        # evaluator mse is already normalized by its batch; re-weight to sum
+        self.epoch_sse[cls] += float(self.minibatch_mse) * \
+            int(self.minibatch_size)
+        self.epoch_samples[cls] += int(self.minibatch_size)
+
+    def finalize_class(self, cls: int) -> float:
+        return self.epoch_sse[cls] / max(self.epoch_samples[cls], 1)
+
+    def reset_epoch(self) -> None:
+        self.epoch_sse = [0.0, 0.0, 0.0]
+        self.epoch_samples = [0, 0, 0]
+
+    def on_epoch_logged(self) -> None:
+        parts = [f"epoch {int(self.epoch_number)}:"]
+        for c in (TEST, VALID, TRAIN):
+            if self.epoch_samples[c]:
+                mse = self.epoch_sse[c] / self.epoch_samples[c]
+                parts.append(f"{CLASS_NAMES[c]} mse {mse:.6f}")
+        if bool(self.improved):
+            parts.append("*")
+        self.info(" ".join(parts))

@@ -1,0 +1,154 @@
+"""Fully-connected gradient units — the port of ``znicz_tpu/units/gd.py``
+(rebuild of veles.znicz gd.py :: GradientDescent, GDTanh, GDRELU,
+GDStrictRELU, GDSigmoid, GDSoftmax).
+
+err_output -> err_input via the Wᵀ product; ∇W via the xᵀ product; then
+the reference's SGD update (learning_rate, weights_decay with its L1/L2
+mix, gradient_moment).  On a ``TorchDevice`` the units of a fused
+activation run the backward on the ``act_backward`` and ``gemm_fc``
+kernels (``kernels/gemm.py``; the reference's route under
+``root.common.engine.pallas``); ``GDSoftmax`` stays plain torch, and the
+SGD update is ``ops/sgd.py`` in plain torch, both as in the reference.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from znicz_tpu_torch.kernels import gemm as kgemm
+from znicz_tpu_torch.ops import activations, linear, sgd
+from znicz_tpu_torch.units.nn_units import GradientDescentBase
+
+
+class GradientDescent(GradientDescentBase):
+    """Gradient for All2All (reference: gd.py :: GradientDescent)."""
+
+    MAPPING = {"all2all"}
+    ACTIVATION = activations.LINEAR
+    ACTIVATION_APPLIED = True
+
+    def _common_init(self, **kwargs) -> None:
+        super()._common_init(**kwargs)
+        if not self.err_input or self.err_input.shape != self.input.shape:
+            self.err_input.reset(shape=self.input.shape)
+        self.init_array(self.err_input, self.err_output,
+                        self.gradient_weights, self.gradient_bias)
+
+    # -- the pure update (shared between backends) --------------------------
+    def _step(self, xp, x, y, w, b, err_out, vel_w, vel_b, batch_size):
+        """Returns (err_input, w_new, b_new, vel_w_new, vel_b_new).
+
+        ``w``/``vel_w`` stay in the *stored* layout; when the paired forward
+        uses ``weights_transposed`` the products see the natural (in, out)
+        view and the gradient is transposed back before the update."""
+        w_natural = w.T if self.weights_transposed else w
+        err_in, grad_w, grad_b = self._backward(xp, x, y, w_natural,
+                                                err_out)
+        if self.weights_transposed:
+            grad_w = grad_w.T
+        if not self.need_err_input:
+            err_in = None
+        if self.apply_gradient:
+            w, vel_w = sgd.update(xp, w, grad_w, vel_w, self.learning_rate,
+                                  self.weights_decay, self.l1_vs_l2,
+                                  self.gradient_moment, batch_size)
+            if b is not None:
+                b, vel_b = sgd.update(xp, b, grad_b, vel_b,
+                                      self.learning_rate_bias,
+                                      self.weights_decay_bias, self.l1_vs_l2,
+                                      self.gradient_moment_bias, batch_size)
+        return err_in, w, b, vel_w, vel_b
+
+    def numpy_run(self) -> None:
+        has_bias = bool(self.bias)
+        err_in, w, b, vel_w, vel_b = self._step(
+            np, self.input.mem, self.output.mem, self.weights.mem,
+            self.bias.mem if has_bias else None,
+            linear.flatten_batch(np, self.err_output.mem),
+            self.gradient_weights.mem,
+            self.gradient_bias.mem if has_bias else None,
+            self.current_batch_size(self.err_output))
+        if err_in is not None:
+            self.err_input.map_invalidate()
+            self.err_input.mem = err_in
+        self.weights.map_invalidate()
+        self.weights.mem = w
+        self.gradient_weights.map_invalidate()
+        self.gradient_weights.mem = vel_w
+        if has_bias:
+            self.bias.map_invalidate()
+            self.bias.mem = b
+            self.gradient_bias.map_invalidate()
+            self.gradient_bias.mem = vel_b
+
+    def _backward(self, xp, x, y, w_natural, err_out):
+        return linear.backward(xp, x, y, w_natural, err_out,
+                               self.ACTIVATION, self.ACTIVATION_APPLIED)
+
+    def torch_init(self) -> None:
+        if self.ACTIVATION in kgemm.FUSED_ACTIVATIONS:
+            # the reference's err_h_update/weights_update/bias_update trio
+            # on the act_backward and gemm_fc kernels
+            act, applied = self.ACTIVATION, self.ACTIVATION_APPLIED
+
+            def kernel_backward(xp, x, y, w_natural, err_out):
+                return kgemm.fc_backward(x, y, w_natural, err_out, act,
+                                         applied)
+
+            self._backward = kernel_backward
+        else:
+            # drop a stale override from an earlier initialize
+            self.__dict__.pop("_backward", None)
+
+    def torch_run(self) -> None:
+        has_bias = bool(self.bias)
+        err_in, w, b, vel_w, vel_b = self._step(
+            torch, self.input.devmem, self.output.devmem,
+            self.weights.devmem, self.bias.devmem if has_bias else None,
+            linear.flatten_batch(torch, self.err_output.devmem),
+            self.gradient_weights.devmem,
+            self.gradient_bias.devmem if has_bias else None,
+            self.current_batch_size(self.err_output))
+        if err_in is not None:
+            self.err_input.set_devmem(err_in)
+        self.weights.set_devmem(w)
+        self.gradient_weights.set_devmem(vel_w)
+        if has_bias:
+            self.bias.set_devmem(b)
+            self.gradient_bias.set_devmem(vel_b)
+
+
+class GDTanh(GradientDescent):
+    """Gradient for All2AllTanh (reference: gd.py :: GDTanh)."""
+    MAPPING = {"all2all_tanh"}
+    ACTIVATION = activations.TANH
+
+
+class GDRELU(GradientDescent):
+    """Gradient for All2AllRELU (reference: gd.py :: GDRELU)."""
+    MAPPING = {"all2all_relu"}
+    ACTIVATION = activations.RELU
+
+
+class GDStrictRELU(GradientDescent):
+    """Gradient for All2AllStrictRELU (reference: gd.py :: GDStrictRELU)."""
+    MAPPING = {"all2all_str"}
+    ACTIVATION = activations.STRICT_RELU
+
+
+class GDSigmoid(GradientDescent):
+    """Gradient for All2AllSigmoid."""
+    MAPPING = {"all2all_sigmoid"}
+    ACTIVATION = activations.SIGMOID
+
+
+class GDSoftmax(GradientDescent):
+    """Gradient for All2AllSoftmax (reference: gd.py :: GDSoftmax).
+
+    EvaluatorSoftmax's err_output is already d(cross-entropy)/d(logits)
+    (y - target), so no activation derivative is applied here.
+    """
+    MAPPING = {"softmax"}
+    ACTIVATION = "softmax"
+    ACTIVATION_APPLIED = False
