@@ -27,26 +27,26 @@ exits non-zero without the final ``ok`` line):
    against their plain versions on bench_fc's six leaves, each band
    rejecting a control with bs = 1; one six-leaf step timed against the
    plain version and torch.optim's fused optimizers.
-2. **serve** — the full-width transformer LM package from a seed (6
-   layers, d 512, 8 heads, ff 2048, vocab 32000) served in-process (8
-   slots, max_len 2048, page 16, bf16): 12 concurrent greedy requests
-   through HTTP, the launch counter set to 0 just before and read just
-   after.
-3. **profile** — a steady decode step with all 8 slots live, timed
-   without and with ``torch.profiler`` (busy time, the kernel's share,
-   the idle share).
-4. **parity** — teacher-forced decode through the paged decoder (kernel
-   attention) and the contiguous decoder (plain attention), f32 and bf16.
-5. **train** — bench.py bench_transformer's step at full width (batch 8,
-   t 2048, 16 CE chunks, bf16 over f32 masters) through
+2. **train** — bench.py bench_transformer's step at full width (6
+   layers, d 512, 8 heads, ff 2048, vocab 32000; batch 8, t 2048, 16 CE
+   chunks, bf16 over f32 masters) from a seed through
    ``make_train_step``: one warm and 12 timed steps with the flash
    launch counters set to 0 just before and read just after; the loss
    must be finite and fall.  Then two profiled steps.
-6. **train_parity** — 3 steps at 2 layers, batch 2, t 256: the card in
+3. **train_parity** — 3 steps at 2 layers, batch 2, t 256: the card in
    f32 against the CPU, bf16 against f32; the f32 loss band must reject
    the same steps with TF32 on.
-7. **handoff** — the trained params through ``export_lm`` into a paged
-   decoder in f32, each step's logits held against ``make_logits_fn``.
+4. **serve** — the trained weights exported once through ``export_lm``
+   and that package served in-process (8 slots, max_len 2048, page 16,
+   bf16): 12 concurrent greedy requests through HTTP, the launch counter
+   set to 0 just before and read just after.
+5. **profile** — a steady decode step with all 8 slots live, timed
+   without and with ``torch.profiler`` (busy time, the kernel's share,
+   the idle share).
+6. **parity** — teacher-forced decode through the paged decoder (kernel
+   attention) and the contiguous decoder (plain attention), f32 and bf16.
+7. **handoff** — the package's weights in a paged decoder in f32, each
+   step's logits held against ``make_logits_fn``.
 8. **mnist_eager** — ``models/mnist_fc.py build_eager`` at bench_fc's
    widths (784-4096-4096-10, batch 1024) through ``Workflow.run`` on
    ``TorchDevice()``, the FC kernels' counters set to 0 just before and
@@ -59,8 +59,26 @@ exits non-zero without the final ``ok`` line):
 10. **mnist_parity** — the MNIST FC sample at its defaults in f32, the
    card against the CPU, eager and fused; the fused loss band must reject
    the same run with TF32 on.
+11. **conv** — the conv kernels (``conv2d_fwd``, ``conv2d_input_grad``,
+   ``conv2d_weight_grad``) against their plain versions in f32 with TF32
+   off, as the norm-relative error of each 64-row tile: the reference's
+   four geometries and AlexNet's five layers at batch 128 (conv1's
+   stride-4 input gradient included), bit-identical across launches,
+   each band rejecting its control (a skipped k tile, a dropped tap, a
+   dropped split-K slice); each kernel, its plain version and cuDNN
+   (channels_last, TF32 off) timed at the five layers.
+12. **alexnet_eager** — ``models/alexnet.py build(fused=False)`` at its
+   defaults (227 px, batch 128, 1000 classes, dropout 0.5) on
+   ``TorchDevice()`` for 2 epochs of 3 train + 1 validation minibatches,
+   the conv and FC counters set to 0 just before and read just after;
+   ms per train minibatch, samples/s, peak memory, and one train
+   minibatch profiled (the conv kernels' device ms, the idle share).
+13. **alexnet_parity** — AlexNet's geometry at test size in f32, the card
+   against the CPU with the same dropout masks: identical n_err
+   histories, weights within a band the same run with TF32 on must fail.
 
-Then a ``{"kernels": [...]}`` line for all seven kernels, the card's name
+Every line carries ``at_s``, the seconds since the smoke started.  Then
+a ``{"kernels": [...]}`` line for all ten kernels, the card's name
 and power limit as ``nvidia-smi`` reports them, and, last, the ``{"ok":
 true, ...}`` line.  Exits non-zero without a usable CUDA device.
 """
@@ -84,10 +102,12 @@ from znicz_tpu_torch.core import prng as tprng
 from znicz_tpu_torch.core.backends import TorchDevice, resolve_compute_dtype
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.kernels import build as kbuild
+from znicz_tpu_torch.kernels import conv as kconv
 from znicz_tpu_torch.kernels import decode as kdecode
 from znicz_tpu_torch.kernels import flash_attention as kflash
 from znicz_tpu_torch.kernels import gemm as kgemm
 from znicz_tpu_torch.kernels import optim as koptim
+from znicz_tpu_torch.models import alexnet as talexnet
 from znicz_tpu_torch.models import mnist_fc as tmnist
 from znicz_tpu_torch.ops import activations
 from znicz_tpu_torch.observe.trace import TRACER
@@ -101,6 +121,8 @@ from znicz_tpu_torch.serve.kvcache import KVDecoder
 from znicz_tpu_torch.serve.paged import PagedKVDecoder
 from znicz_tpu_torch.serve.server import (build_generate_parser,
                                           start_generate_server)
+from znicz_tpu_torch.standard_workflow import StandardWorkflow
+from znicz_tpu_torch.units import dropout as tdropout
 from znicz_tpu_torch.utils.export import export_lm, load_lm
 
 SEED = 20261016
@@ -185,8 +207,14 @@ TRAIN_BF16_RTOL = 2e-2
 HANDOFF_PROMPT, HANDOFF_TOKENS, HANDOFF_ATOL = 100, 8, 1e-3
 
 
+#: the smoke's start, for each line's "at_s": the seconds since it, so
+#: consecutive lines give each phase's wall time
+T_START = time.perf_counter()
+
+
 def emit(doc: dict) -> None:
-    print(json.dumps(doc), flush=True)
+    print(json.dumps({**doc, "at_s": time.perf_counter() - T_START}),
+          flush=True)
 
 
 def fail(msg: str) -> None:
@@ -334,13 +362,23 @@ def _kernel_key(mangled: str) -> str:
                 args.append(mangled[k])
                 k += 1
         return f"{name}<{','.join(args)}>"
+    for i, ch in enumerate(mangled):    # a plain kernel: <length><name>E
+        if ch.isdigit():
+            j = i
+            while j < len(mangled) and mangled[j].isdigit():
+                j += 1
+            name = mangled[j:j + int(mangled[i:j])]
+            if name.endswith("_kernel") and name[:1].islower() and \
+                    mangled[j + len(name):j + len(name) + 1] == "E":
+                return name
     return mangled
 
 
 def ptxas_usage(name: str) -> dict:
     """Registers and spill bytes per kernel from ptxas's build log, keyed
     by the kernel's name and template arguments (``flash_fwd_bf16<64>``,
-    ``gemm_f32_kernel<1,0>``, ``sgd_kernel<__nv_bfloat16,4>``)."""
+    ``gemm_f32_kernel<1,0>``, ``sgd_kernel<__nv_bfloat16,4>``,
+    ``conv_fwd_kernel``)."""
     usage, current = {}, None
     for line in kbuild.build_log(name).splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
@@ -1139,6 +1177,439 @@ def phase_mnist_parity() -> dict:
     return out
 
 
+#: conv phase: AlexNet's five conv layers at its batch (alexnet.py): name,
+#: input side, cin, cout, kernel, stride, pad
+ALEX_BATCH = 128
+ALEX_CONVS = (("conv1", 227, 3, 96, 11, 4, 0), ("conv2", 27, 96, 256, 5, 1, 2),
+              ("conv3", 13, 256, 384, 3, 1, 1),
+              ("conv4", 13, 384, 384, 3, 1, 1),
+              ("conv5", 13, 384, 256, 3, 1, 1))
+#: the reference's conv test geometries (tests/test_pallas_kernels.py:
+#: 126-132) at batch 3: h, w, cin, cout, k, sliding, padding
+CONV_GEOMS = ((8, 8, 3, 16, 3, (1, 1), (0, 0, 0, 0)),
+              (9, 7, 4, 8, 3, (2, 2), (1, 1, 1, 1)),
+              (12, 12, 2, 8, 5, (2, 2), (2, 1, 0, 2)),
+              (6, 6, 8, 32, 1, (1, 1), (0, 0, 0, 0)))
+#: the conv kernels vs their plain versions (f32, TF32 off), as the
+#: largest norm-relative error of any 64-row tile (rows: output pixels of
+#: y and of the input gradient, (iy, ix, ci) rows of gw).  Both sum the
+#: same f32 products in other orders.  y and the input gradient sum K <=
+#: 3456 products a value: sequential f32 rounding, u·sqrt(K/2), is ~3e-6
+#: at worst, so 1e-5.  gw and gb sum n·oh·ow products (387,200 for
+#: conv1): a sequential sum of that length rounds to ~u·sqrt(K/2) = 2.6e-5
+#: of its value, so their band is the reference's own 1e-4
+#: (tests/test_pallas_kernels.py:448-453).  Each band must reject its
+#: control: the forward with its last k tile skipped (the weights' last 8
+#: rows zeroed: ~sqrt(8/K), >= 0.048 at K 3456), the input gradient with
+#: one tap dropped (the centre tap's weights zeroed), the weight gradient
+#: with one split-K slice dropped (that slice's rows of e zeroed: ~sqrt(1/
+#: S) of the sum)
+CONV_TOL = {"fwd": 1e-5, "input_grad": 1e-5, "weight_grad": 1e-4}
+
+
+def _conv_inputs(rng, n, h, w, cin, cout, k, sliding, padding):
+    """Seeded x, HWIO w (fan-in scaled), b, and a cotangent e of the
+    output's shape, on the card."""
+    x = _dev(rng.normal(size=(n, h, w, cin)))
+    wt = _dev(rng.normal(size=(k, k, cin, cout)) / np.sqrt(k * k * cin))
+    b = _dev(rng.normal(size=cout) * 0.1)
+    ky, kx, sy, sx, pt, pb, pl, pr = kconv.geometry(wt.shape, sliding,
+                                                    padding)
+    oh = kconv.out_size(h, ky, sy, pt, pb)
+    ow = kconv.out_size(w, kx, sx, pl, pr)
+    e = _dev(rng.normal(size=(n, oh, ow, cout)))
+    return x, wt, b, e
+
+
+def _rows(t, width):
+    return t.reshape(1, -1, width)
+
+
+def _conv_check(name, inputs, sliding, padding) -> dict:
+    """The three kernels at one geometry, on ``inputs`` = (x, w, b, e) of
+    ``_conv_inputs``, against their plain versions, two launches bit for
+    bit, and each band's control."""
+    x, wt, b, e = inputs
+    n, h, w, cin = x.shape
+    k, cout = wt.shape[0], wt.shape[3]
+    geom = (sliding, padding)
+    ky, kx, sy, sx, pt, pb, pl, pr = kconv.geometry(wt.shape, *geom)
+    got = {"fwd": (kconv.conv2d_fwd(x, wt, b, *geom),),
+           "input_grad": (kconv.conv2d_input_grad(e, wt, *geom, (h, w)),),
+           "weight_grad": kconv.conv2d_weight_grad(x, e, wt.shape, *geom)}
+    again = {"fwd": (kconv.conv2d_fwd(x, wt, b, *geom),),
+             "input_grad": (kconv.conv2d_input_grad(e, wt, *geom, (h, w)),),
+             "weight_grad": kconv.conv2d_weight_grad(x, e, wt.shape, *geom)}
+    want = {"fwd": (kconv.conv2d_fwd_plain(x, wt, b, *geom),),
+            "input_grad": (kconv.conv2d_input_grad_plain(e, wt, *geom,
+                                                         (h, w)),),
+            "weight_grad": kconv.conv2d_weight_grad_plain(x, e, wt.shape,
+                                                          *geom)}
+    # the controls: what a kernel that skipped its last k tile, dropped
+    # the centre tap or dropped one split-K slice would return
+    k_all = ky * kx * cin
+    w_skip = wt.clone()
+    w_skip.view(k_all, cout)[(k_all - 1) // kconv.K_TILE * kconv.K_TILE:] = 0
+    w_tap = wt.clone()
+    w_tap[ky // 2, kx // 2] = 0
+    splits, per = kconv.split_k(k_all + 1, cout, e.numel() // cout)
+    e_cut = e.clone()
+    e_cut.view(-1, cout)[splits // 2 * per:(splits // 2 + 1) * per] = 0
+    wrong = {"fwd": (kconv.conv2d_fwd(x, w_skip, b, *geom),),
+             "input_grad": (kconv.conv2d_input_grad(e, w_tap, *geom,
+                                                    (h, w)),),
+             "weight_grad": kconv.conv2d_weight_grad(x, e_cut, wt.shape,
+                                                     *geom)}
+    torch.cuda.synchronize()
+    report = {"case": name, "n": n, "h": h, "w": w, "cin": cin,
+              "cout": cout, "k": k, "sliding": list(sliding),
+              "padding": list(padding), "splits": splits, "per": per}
+    for kind in CONV_TOL:
+        outs = list(zip(got[kind], want[kind], wrong[kind], again[kind]))
+        width = [o[1].shape[-1] for o in outs]
+        rel = max(tile_rel_err(_rows(a, c), _rows(p, c))
+                  for (a, p, _, _), c in zip(outs, width))
+        control = min(tile_rel_err(_rows(z, c), _rows(p, c))
+                      for (_, p, z, _), c in zip(outs, width))
+        same = all(torch.equal(a, r) for a, _, _, r in outs)
+        finite = all(bool(torch.isfinite(a).all()) for a, _, _, _ in outs)
+        report[kind] = {"rel_err": rel, "control_rel_err": control,
+                        "deterministic": same,
+                        "max_abs_err": max(float((a - p).abs().max())
+                                           for a, p, _, _ in outs)}
+        if not finite:
+            fail(f"non-finite conv {kind} output ({report})")
+        if not rel <= CONV_TOL[kind]:                       # NaN fails
+            fail(f"conv {kind} vs plain {rel} > {CONV_TOL[kind]} "
+                 f"({report})")
+        if not control > CONV_TOL[kind]:
+            fail(f"the conv {kind} band passes its control ({report})")
+        if not same:
+            fail(f"conv {kind} differs between two identical launches "
+                 f"({report})")
+    return report
+
+
+def _conv_library(x, wt, b, e, sliding, padding):
+    """cuDNN's calls for the same three functions, on channels_last
+    tensors: F.conv2d, torch.nn.grad.conv2d_input and conv2d_weight."""
+    ky, kx, sy, sx, pt, pb, pl, pr = kconv.geometry(wt.shape, sliding,
+                                                    padding)
+    assert (pt, pl) == (pb, pr), "cuDNN takes symmetric pads"
+    cl = torch.channels_last
+    xn = x.permute(0, 3, 1, 2).contiguous(memory_format=cl)
+    wn = wt.permute(3, 2, 0, 1).contiguous(memory_format=cl)
+    en = e.permute(0, 3, 1, 2).contiguous(memory_format=cl)
+    kw = {"stride": (sy, sx), "padding": (pt, pl)}
+    grad = torch.nn.grad
+    return {"fwd": lambda: torch.nn.functional.conv2d(xn, wn, b, **kw),
+            "input_grad": lambda: grad.conv2d_input(xn.shape, wn, en, **kw),
+            "weight_grad": lambda: grad.conv2d_weight(xn, wn.shape, en,
+                                                      **kw)}
+
+
+def phase_conv() -> dict:
+    """The conv kernels against their plain versions in f32 (TF32 off) at
+    the reference's geometries and AlexNet's five layers at batch 128
+    (conv1's stride-4 11x11 input gradient included, which deconv will
+    launch), bit-identical across launches, each band rejecting its
+    control; then each kernel, its plain version and cuDNN timed at the
+    five layers' launches of a train minibatch (conv1's input gradient
+    is checked but not timed: the path does not launch it), with the
+    bound from this run's inputs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(SEED + 12)
+    checks = [_conv_check("reference geometry", _conv_inputs(rng, 3, *g),
+                          *g[-2:]) for g in CONV_GEOMS]
+    timed = []
+    for name, side, cin, cout, k, s, p in ALEX_CONVS:
+        geom = ((s, s), (p, p, p, p))
+        x, wt, b, e = inputs = _conv_inputs(rng, ALEX_BATCH, side, side,
+                                            cin, cout, k, *geom)
+        checks.append(_conv_check(name, inputs, *geom))
+        lib = _conv_library(x, wt, b, e, *geom)
+        runs = {"fwd": (lambda: kconv.conv2d_fwd(x, wt, b, *geom),
+                        lambda: kconv.conv2d_fwd_plain(x, wt, b, *geom)),
+                "input_grad": (
+                    lambda: kconv.conv2d_input_grad(e, wt, *geom,
+                                                    (side, side)),
+                    lambda: kconv.conv2d_input_grad_plain(e, wt, *geom,
+                                                          (side, side))),
+                "weight_grad": (
+                    lambda: kconv.conv2d_weight_grad(x, e, wt.shape, *geom),
+                    lambda: kconv.conv2d_weight_grad_plain(x, e, wt.shape,
+                                                           *geom))}
+        for kind, (kernel, plain) in runs.items():
+            if kind == "input_grad" and name == "conv1":
+                continue        # checked above; AlexNet never launches it
+            timed.append({"layer": name, "kernel": kind,
+                          "ms": time_cuda_ms(kernel),
+                          "plain_ms": time_cuda_ms(plain),
+                          "library_ms": time_cuda_ms(lib[kind]),
+                          **kconv.bound(kind, x.shape, wt.shape, *geom)})
+        del x, wt, b, e, inputs, lib, runs
+    # one train minibatch of AlexNet eager runs every layer's forward and
+    # weight gradient and conv2-5's input gradients (conv1 needs none)
+    path = {}
+    for kind in CONV_TOL:
+        rows = [t for t in timed if t["kernel"] == kind]
+        path[kind] = {key: sum(t[key] for t in rows)
+                      for key in ("ms", "plain_ms", "library_ms",
+                                  "bound_ms", "flops", "bytes")}
+        path[kind].update(
+            layers=[t["layer"] for t in rows],
+            bound_by="operations" if all(t["bound_by"] == "operations"
+                                         for t in rows) else "bytes",
+            max_abs_err=max(c[kind]["max_abs_err"] for c in checks))
+    return {"phase": "conv", "ptxas": ptxas_usage("conv"), "tol": CONV_TOL,
+            "checks": checks, "timed": timed, "path": path,
+            "path_note": "sums over the launches of one AlexNet train "
+                         "minibatch at batch 128"}
+
+
+#: alexnet_eager: alexnet.build(fused=False) at its defaults (227 px,
+#: batch 128, 1000 classes, dropout 0.5, lr 0.01, momentum 0.9, decay
+#: 5e-4); the synthetic loader (50 classes) gets n_train 384 and n_valid
+#: 128, so 350 train and 100 validation samples: 3 train and 1 validation
+#: minibatches an epoch, for 2 epochs
+ALEX_EPOCHS, ALEX_TRAIN, ALEX_VALID = 2, 384, 128
+#: the loader serve whose minibatch is profiled: the first epoch's second
+#: train minibatch (serve 0 is the validation pass, serves 1-3 train;
+#: serve 1 warms the tracer up)
+ALEX_PROFILED_SERVE = 2
+#: the kernel launches one epoch takes: conv2d_fwd at every conv layer of
+#: every minibatch, conv2d_input_grad at conv2-5 (conv1 needs no input
+#: gradient) and conv2d_weight_grad at every conv layer of every train
+#: minibatch
+ALEX_TRAIN_MB, ALEX_EVAL_MB = 3, 1
+#: alexnet_parity: AlexNet's geometry at 67 px with narrow widths (conv
+#: 8/16/16/16/8, fc 32/32, 10 classes), batch 8, 30 train and 10
+#: validation samples, lr 0.03, dropout 0.5 with the same masks injected
+#: on both sides (the card's and the CPU's generators draw different
+#: bits), 3 epochs, f32: the card (the kernels; TF32 off) against the
+#: port on the CPU (the plain versions).  Both sum the same f32 products
+#: in other orders: the port's CPU run and the JAX package's differ by
+#: 6e-8 on these weights (tests/test_torch_port_alexnet.py), so the band
+#: is 1e-6, which the same run with TF32 on must fail (its softmax
+#: layer's products keep 10 mantissa bits: ~5e-4 relative a product)
+ALEX_PARITY_EPOCHS, ALEX_PARITY_WEIGHT_ATOL = 3, 1e-6
+
+
+def small_alexnet_layers(dropout: float, lr: float) -> list:
+    """alexnet.layers at the parity test's narrow widths."""
+    specs = talexnet.layers(n_classes=10, lr=lr, dropout=dropout)
+    widths = iter((8, 16, 16, 16, 8))
+    for spec in specs:
+        if spec["type"] == "conv_str":
+            spec["->"]["n_kernels"] = next(widths)
+        elif spec["type"] == "all2all_str":
+            spec["->"]["output_sample_shape"] = 32
+    return specs
+
+
+def inject_dropout_masks(w, seed: int) -> None:
+    """Make every dropout unit of ``w`` draw its masks from one numpy
+    stream (the same masks on any device, in serve order)."""
+    rng = np.random.default_rng(seed)
+    for fwd in w.forwards:
+        if isinstance(fwd, tdropout.DropoutForward):
+            def mask(shape, device, ratio=fwd.dropout_ratio):
+                keep = rng.random(shape, dtype=np.float32) >= ratio
+                return torch.tensor(keep / np.float32(1.0 - ratio),
+                                    dtype=torch.float32, device=device)
+            fwd._make_mask_torch = mask
+
+
+def _conv_fc_weights(w) -> dict:
+    """Host copies of every conv and FC layer's weights and bias."""
+    return {f.name: (f.weights.map_read().copy(), f.bias.map_read().copy())
+            for f in w.forwards if f.weights}
+
+
+def phase_alexnet_eager() -> dict:
+    """alexnet.build(fused=False) at its defaults on TorchDevice() through
+    Workflow.run: every conv layer on the conv kernels, fc6/fc7 on the FC
+    kernels, the conv and FC counters set to 0 just before the run and
+    read just after; one train minibatch profiled."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    tprng.seed_all(SEED)
+    w = talexnet.build(max_epochs=ALEX_EPOCHS, n_train=ALEX_TRAIN,
+                       n_valid=ALEX_VALID, fused=False)
+    t0 = time.perf_counter()
+    w.initialize(device=TorchDevice())
+    init_s = time.perf_counter() - t0
+    before = _conv_fc_weights(w)
+    marks = _per_minibatch_marks(w)
+    # the minibatch before the window warms the tracer up: started cold at
+    # the window, it missed the window's first activities (it recorded no
+    # upload and 4 of the 5 conv2d_fwd launches)
+    prof = profile(activities=[ProfilerActivity.CUDA],
+                   schedule=schedule(wait=0, warmup=1, active=1, repeat=1))
+    window, serve_ms, served_rows = {}, [], []
+    served = w.loader.run
+
+    def run():  # the window: from serve ALEX_PROFILED_SERVE to the next
+        n = len(marks)              # serves so far
+        if n == ALEX_PROFILED_SERVE - 1:
+            prof.start()
+        elif n == ALEX_PROFILED_SERVE:
+            torch.cuda.synchronize()
+            prof.step()
+            window["t0"] = time.perf_counter()
+        elif n == ALEX_PROFILED_SERVE + 1:
+            torch.cuda.synchronize()
+            window["wall_ms"] = (time.perf_counter() - window["t0"]) * 1e3
+            prof.step()
+        served()
+        torch.cuda.synchronize()    # the serve: host gather + upload
+        serve_ms.append((time.perf_counter() - marks[-1][0]) * 1e3)
+        served_rows.append(int(w.loader.minibatch_size))  # unpadded
+
+    w.loader.run = run
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kconv.fwd_launches = kconv.input_grad_launches = 0   # 0 just before ...
+    kconv.weight_grad_launches = 0
+    kgemm.gemm_launches = kgemm.act_launches = 0
+    t0 = time.perf_counter()
+    w.run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    prof.stop()
+    launches = {"conv2d_fwd": kconv.fwd_launches,         # ... read after
+                "conv2d_input_grad": kconv.input_grad_launches,
+                "conv2d_weight_grad": kconv.weight_grad_launches,
+                "gemm_fc": kgemm.gemm_launches,
+                "act_backward": kgemm.act_launches}
+    peak = torch.cuda.max_memory_allocated()
+    marks.append((time.perf_counter(), None))
+    per_epoch = ALEX_TRAIN_MB + ALEX_EVAL_MB
+    last = marks[-per_epoch - 1:]
+    train_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(last, last[1:])
+                if a[1] == 2]
+    loader_ms = [t for t, m in zip(serve_ms[-per_epoch:], last)
+                 if m[1] == 2]
+    train_rows = sum(r for r, m in zip(served_rows[-per_epoch:], last)
+                     if m[1] == 2)
+    device = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")
+              and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    conv_ms = sum(e.self_device_time_total for e in device
+                  if "conv_" in e.key or "reduce_splits" in e.key) / 1e3
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:10]
+    after = _conv_fc_weights(w)
+    hist = w.decision.metrics_history
+    n_train_mb, n_eval_mb = (ALEX_EPOCHS * ALEX_TRAIN_MB,
+                             ALEX_EPOCHS * ALEX_EVAL_MB)
+    expect = {"conv2d_fwd": 5 * (n_train_mb + n_eval_mb),
+              "conv2d_input_grad": 4 * n_train_mb,
+              "conv2d_weight_grad": 5 * n_train_mb}
+    med = float(np.median(train_ms))
+    out = {"phase": "alexnet_eager", "batch": 128, "input": 227,
+           "classes": 1000, "dropout": 0.5, "lr": 0.01,
+           "epochs": ALEX_EPOCHS, "n_train": ALEX_TRAIN,
+           "n_valid": ALEX_VALID, "train_minibatches": n_train_mb,
+           "eval_minibatches": n_eval_mb, "init_s": init_s,
+           "wall_s": wall_s, "history": hist, "launches": launches,
+           "train_minibatch_ms": med, "train_minibatch_ms_all": train_ms,
+           "train_samples": train_rows,
+           "samples_per_s": train_rows / (sum(train_ms) / 1e3),
+           "peak_mem_bytes": peak,
+           "loader_serve_ms": float(np.median(loader_ms)),
+           "loader_serve_ms_all": loader_ms,
+           # host seconds inside each unit's run over the whole run (a
+           # unit that syncs, like the evaluator, also waits there for
+           # the device work queued before it)
+           "unit_host_s": dict(sorted(
+               ((u.name, u.timing[1]) for u in w.units),
+               key=lambda kv: -kv[1])[:10]),
+           "timing": "host clock between device-synced loader serves, "
+                     "last epoch's train minibatches, median; samples/s: "
+                     "their unpadded samples over their summed time",
+           "profile": {"serve": ALEX_PROFILED_SERVE,
+                       "wall_ms": window.get("wall_ms"),
+                       "device_busy_ms": busy_ms,
+                       "device_ops": sum(e.count for e in device),
+                       "conv_kernels_ms": conv_ms,
+                       "device_idle_share": 1 - busy_ms / window["wall_ms"]
+                       if window.get("wall_ms") else None,
+                       "top_device": [
+                           {"name": e.key[:80], "count": e.count,
+                            "ms": e.self_device_time_total / 1e3}
+                           for e in top]}}
+    if not (len(hist) == ALEX_EPOCHS and bool(w.decision.complete)):
+        fail(f"alexnet eager did not finish its epochs: {hist}")
+    finite = all(np.isfinite(v) for h in hist for v in h.values()) and \
+        np.isfinite(w.evaluator.max_err_output_sum) and \
+        bool(np.isfinite(w.evaluator.err_output.map_read()).all())
+    if not finite:
+        fail(f"alexnet eager metrics not finite: {out}")
+    unchanged = [name for name, (wb, bb) in before.items()
+                 if np.array_equal(after[name][0], wb)
+                 or np.array_equal(after[name][1], bb)]
+    if unchanged:
+        fail(f"alexnet eager left weights unchanged: {unchanged}")
+    if any(launches[k] != v for k, v in expect.items()):
+        fail(f"conv launches {launches} != {expect}")
+    if launches["gemm_fc"] < 6 * n_train_mb + 2 * n_eval_mb or \
+            launches["act_backward"] < 2 * n_train_mb:
+        fail(f"FC launches {launches} for {n_train_mb} train + {n_eval_mb} "
+             f"eval minibatches")
+    if not conv_ms > 0:
+        fail(f"the profiled minibatch shows no conv kernel: {out}")
+    return out
+
+
+def _alexnet_parity_run(device, allow_tf32=False):
+    """The test-size AlexNet from one seed on ``device`` in f32 -> (n_err
+    history, conv and FC weights)."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+    try:
+        tprng.seed_all(SEED)
+        w = StandardWorkflow(
+            name="AlexNet-small", layers=small_alexnet_layers(0.5, 0.03),
+            loss_function="softmax", loader_name="synthetic_image",
+            loader_config={"n_classes": 10, "sample_shape": (67, 67, 3),
+                           "n_train": 32, "n_valid": 16, "minibatch_size": 8,
+                           "spread": 1.0, "noise": 0.5},
+            decision_config={"max_epochs": ALEX_PARITY_EPOCHS}, fused=False)
+        w.initialize(device=TorchDevice(device, precision="float32"))
+        inject_dropout_masks(w, SEED)
+        w.run()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return w.decision.metrics_history, _conv_fc_weights(w)
+
+
+def phase_alexnet_parity() -> dict:
+    """The test-size AlexNet in f32, the card against the CPU: identical
+    n_err histories, weights within the band, which TF32 must fail."""
+    card, cpu = _alexnet_parity_run(DEVICE), _alexnet_parity_run("cpu")
+    tf32 = _alexnet_parity_run(DEVICE, allow_tf32=True)
+
+    def spread(a, b):
+        return max(float(np.abs(x - y).max()) for name in a
+                   for x, y in zip(a[name], b[name]))
+
+    out = {"phase": "alexnet_parity", "epochs": ALEX_PARITY_EPOCHS,
+           "band": {"weight_atol": ALEX_PARITY_WEIGHT_ATOL},
+           "history_card": card[0], "history_cpu": cpu[0],
+           "weight_max_abs": spread(card[1], cpu[1]),
+           "tf32_control": {"history": tf32[0],
+                            "weight_max_abs": spread(tf32[1], cpu[1])}}
+    if card[0] != cpu[0]:
+        fail(f"alexnet n_err history card {card[0]} != cpu {cpu[0]}")
+    if not out["weight_max_abs"] <= ALEX_PARITY_WEIGHT_ATOL:
+        fail(f"alexnet weights card vs cpu: {out}")
+    if not out["tf32_control"]["weight_max_abs"] > ALEX_PARITY_WEIGHT_ATOL:
+        fail(f"the alexnet weight band passes the TF32 control: {out}")
+    return out
+
+
 def _stream(port: int, ids: list, out: dict) -> None:
     body = json.dumps({"tokens": ids, "max_tokens": MAX_TOKENS,
                        "temperature": 0.0}).encode()
@@ -1538,15 +2009,11 @@ def phase_train_parity() -> dict:
     return out
 
 
-def phase_handoff(ps) -> dict:
-    """The trained params through the LM package into a paged decoder on
-    the card in f32; 8 greedy tokens from a 100-token prompt, each
-    step's logits held against the training forward (make_logits_fn,
-    flash forward kernel) on the growing sequence."""
-    with tempfile.TemporaryDirectory() as tmp:
-        pkg = export_lm(params_to_numpy(ps), os.path.join(tmp, "lm.npz"),
-                        heads=HEADS)
-        lm_params, _ = load_lm(pkg)
+def phase_handoff(lm_params) -> dict:
+    """The trained params, as read back from their LM package, into a
+    paged decoder on the card in f32; 8 greedy tokens from a 100-token
+    prompt, each step's logits held against the training forward
+    (make_logits_fn, flash forward kernel) on the growing sequence."""
     root.common.engine.precision = "float32"
     try:
         dec = PagedKVDecoder(lm_params, heads=HEADS, max_len=MAX_LEN,
@@ -1595,7 +2062,8 @@ def nvidia_smi() -> str:
 
 
 #: every kernel source of the port's paths, built together at the start
-KERNEL_SOURCES = ("paged_decode", "flash_attention", "gemm", "optim")
+KERNEL_SOURCES = ("paged_decode", "flash_attention", "gemm", "optim",
+                  "conv")
 
 
 def phase_build() -> dict:
@@ -1607,9 +2075,11 @@ def phase_build() -> dict:
 
 
 def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
-                fused) -> dict:
-    """The seven kernels: launches from the main path's runs, times and
-    errors from the kernel phases, bounds from this run's inputs."""
+                fused, conv, alexnet) -> dict:
+    """The ten kernels: launches from the main paths' runs, times and
+    errors from the kernel phases, bounds from this run's inputs.  A conv
+    kernel's times and bound sum its launches of one AlexNet train
+    minibatch at batch 128."""
     def entry(name, source, replaces, launches, timed, max_abs_err):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
@@ -1641,7 +2111,14 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
                   for k in ("sgd_vel_float32", "sgd_vel_bfloat16"))),
         entry("adam_update", koptim.SOURCE, koptim.REPLACES,
               fused["adam"]["adam_update_launches"], optim["timed"]["adam"],
-              optim["adam"]["sound"]["max_abs_err"])]}
+              optim["adam"]["sound"]["max_abs_err"]),
+        *(entry(f"conv2d_{kind}", kconv.SOURCE, replaces,
+                alexnet["launches"][f"conv2d_{kind}"], conv["path"][kind],
+                conv["path"][kind]["max_abs_err"])
+          for kind, replaces in (("fwd", kconv.REPLACES_FWD),
+                                 ("input_grad", kconv.REPLACES_INPUT_GRAD),
+                                 ("weight_grad",
+                                  kconv.REPLACES_WEIGHT_GRAD)))]}
 
 
 def main() -> int:
@@ -1649,7 +2126,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False — this "
               "smoke runs only on a CUDA device", file=sys.stderr)
         return 2
-    t_start = time.perf_counter()
     emit(phase_build())
     kernel = phase_kernel()
     emit(kernel)
@@ -1659,34 +2135,44 @@ def main() -> int:
     emit(gemm)
     optim = phase_optim()
     emit(optim)
-    t0 = time.perf_counter()
     params = init_params(np.random.default_rng(SEED), N_LAYERS, D, HEADS,
                          FF, VOCAB)
+    train, trained = phase_train(params)
+    emit(train)
+    del params
+    emit(phase_train_parity())
+    # one package, of the trained weights: served, then handed off
     with tempfile.TemporaryDirectory() as tmp:
-        pkg = export_lm(params, os.path.join(tmp, "lm.npz"), heads=HEADS)
+        t0 = time.perf_counter()
+        pkg = export_lm(params_to_numpy(trained), os.path.join(tmp, "lm.npz"),
+                        heads=HEADS)
         package_s = time.perf_counter() - t0
+        del trained
         serve = phase_serve(pkg)
+        lm_params, _ = load_lm(pkg)
     streams = serve.pop("_streams")
     decoder = serve.pop("_decoder")
     serve["package_s"] = package_s
     emit(serve)
     emit(phase_profile(decoder))
     del decoder
-    emit(phase_parity(params))
-    train, trained = phase_train(params)
-    emit(train)
-    emit(phase_train_parity())
-    emit(phase_handoff(trained))
-    del trained
+    emit(phase_parity(lm_params))
+    emit(phase_handoff(lm_params))
+    del lm_params
     eager = phase_mnist_eager()
     emit(eager)
     fused = phase_mnist_fused()
     emit(fused)
     emit(phase_mnist_parity())
+    conv = phase_conv()
+    emit(conv)
+    alexnet = phase_alexnet_eager()
+    emit(alexnet)
+    emit(phase_alexnet_parity())
     emit({**kernel_line(kernel, flash, gemm, optim, serve, train, eager,
-                        fused),
+                        fused, conv, alexnet),
           "first_stream": streams[0][:8],
-          "seconds": time.perf_counter() - t_start})
+          "seconds": time.perf_counter() - T_START})
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,242 @@
+"""The port's conv kernels (``kernels/conv.py``) and conv ops
+(``ops/conv.py``) against the JAX package on the CPU.
+
+The same seeded numpy operands go through the reference's Pallas conv
+kernels in interpret mode (``conv2d_im2col``, ``conv2d_backward``) and
+through the port's wrappers on CPU tensors (which run the plain
+versions), across the reference's geometries (tests/test_pallas_kernels.
+py:126-132) plus stride-4 11x11 geometries, with 4-tuple, 2-tuple, int and
+asymmetric pads and inputs the last window does not reach.  The bands are
+the reference's (tests/test_pallas_kernels.py:145, :448-453): rtol 1e-4 /
+atol 1e-5 for the output and the input gradient, 1e-4 for the weight and
+bias gradients.  Also ``ops/conv.py`` against the reference's numpy
+oracle, launch counting, ``bound``, ``split_k`` and the wrappers' checks.
+The kernel-vs-plain check on the card is ``cuda``-marked and skips here.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from znicz_tpu.ops import conv as jconv
+from znicz_tpu.ops.pallas import conv2d_backward, conv2d_im2col
+
+from znicz_tpu_torch.kernels import conv as kconv
+from znicz_tpu_torch.ops import conv as tconv
+
+#: (h, w, cin, cout, k, sliding, padding): the reference's four, then
+#: stride-4 11x11 (conv1's geometry) with a 2-tuple pad and rows/columns
+#: past the last window, and int stride and pad
+GEOMS = [
+    (8, 8, 3, 16, 3, (1, 1), (0, 0, 0, 0)),
+    (9, 7, 4, 8, 3, (2, 2), (1, 1, 1, 1)),
+    (12, 12, 2, 8, 5, (2, 2), (2, 1, 0, 2)),
+    (6, 6, 8, 32, 1, (1, 1), (0, 0, 0, 0)),
+    (23, 23, 3, 8, 11, (4, 4), (0, 0, 0, 0)),
+    (25, 22, 3, 8, 11, (4, 4), (1, 2)),
+    (10, 10, 4, 6, 3, 2, 1),
+]
+
+
+def _operands(geom, seed=7):
+    h, w, cin, cout, k, sliding, padding = geom
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(3, h, w, cin)).astype(np.float32)
+    wts = (rng.normal(size=(k, k, cin, cout)) * 0.1).astype(np.float32)
+    b = rng.normal(size=(cout,)).astype(np.float32)
+    y = jconv.forward_linear(np, x, wts, None, sliding, padding)
+    e = rng.normal(size=y.shape).astype(np.float32)
+    return x, wts, b, e, sliding, padding
+
+
+@pytest.mark.parametrize("geom", GEOMS)
+def test_forward_matches_pallas_interpret(geom):
+    x, wts, b, _, sliding, padding = _operands(geom)
+    for bias in (b, None):
+        want = np.asarray(conv2d_im2col(
+            jnp.asarray(x), jnp.asarray(wts),
+            None if bias is None else jnp.asarray(bias), sliding, padding,
+            interpret=True))
+        got = kconv.conv2d_fwd(torch.tensor(x), torch.tensor(wts),
+                               None if bias is None else torch.tensor(bias),
+                               sliding, padding)
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("geom", GEOMS)
+def test_backward_matches_pallas_interpret(geom):
+    x, wts, _, e, sliding, padding = _operands(geom, seed=11)
+    ei_j, gw_j, gb_j = conv2d_backward(jnp.asarray(x), jnp.asarray(wts),
+                                       jnp.asarray(e), sliding, padding,
+                                       interpret=True)
+    ei, gw, gb = kconv.conv2d_backward(torch.tensor(x), torch.tensor(wts),
+                                       torch.tensor(e), sliding, padding)
+    np.testing.assert_allclose(ei.numpy(), np.asarray(ei_j), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(gw.numpy(), np.asarray(gw_j), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(gb.numpy(), np.asarray(gb_j), rtol=1e-4,
+                               atol=1e-4)
+    none, gw2, _ = kconv.conv2d_backward(torch.tensor(x), torch.tensor(wts),
+                                         torch.tensor(e), sliding, padding,
+                                         need_err_input=False)
+    assert none is None and torch.equal(gw2, gw)
+
+
+@pytest.mark.parametrize("geom", GEOMS)
+def test_ops_match_the_reference_numpy_oracle(geom):
+    """``ops/conv.py``: the numpy branch is the reference's code, and the
+    torch branch (the plain tap loops) agrees with it, forward and the
+    activation-corrected backward."""
+    x, wts, b, e, sliding, padding = _operands(geom, seed=3)
+    act = "tanh"
+    y = jconv.forward(np, x, wts, b, sliding, padding, act)
+    np.testing.assert_array_equal(
+        tconv.forward(np, x, wts, b, sliding, padding, act), y)
+    t = torch.tensor
+    np.testing.assert_allclose(
+        tconv.forward(torch, t(x), t(wts), t(b), sliding, padding,
+                      act).numpy(), y, rtol=1e-5, atol=1e-6)
+    wants = jconv.backward(np, x, y, wts, e, sliding, padding, act)
+    for got, want in zip(tconv.backward(np, x, y, wts, e, sliding, padding,
+                                        act), wants):
+        np.testing.assert_array_equal(got, want)
+    for got, want in zip(tconv.backward(torch, t(x), t(y), t(wts), t(e),
+                                        sliding, padding, act), wants):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+
+
+def test_geometry_helpers_and_weight_views_match_the_reference():
+    for kx, ky, s, p in ((3, 5, 2, 1), (11, 11, (4, 3), (1, 2)),
+                         (1, 1, (1, 1), (0, 1, 2, 3))):
+        assert tconv.normalize_geometry(kx, ky, s, p) == \
+            jconv.normalize_geometry(kx, ky, s, p)
+    for args in ((227, 11, 4, 0, 0), (27, 5, 1, 2, 2), (12, 5, 2, 2, 1)):
+        assert tconv.out_size(*args) == jconv.out_size(*args)
+    w = np.random.default_rng(1).normal(size=(3, 5, 4, 7)).astype(np.float32)
+    ref = tconv.ref_weights_view(w)
+    np.testing.assert_array_equal(ref, jconv.ref_weights_view(w))
+    np.testing.assert_array_equal(tconv.from_ref_weights(ref, 3, 5, 4), w)
+
+
+def test_input_grad_takes_the_input_geometry():
+    """The input gradient's spatial size comes from the caller (deconv
+    will pass its output shape): rows and columns past the last window
+    get zeros, and an (h, w) the cotangent cannot come from raises."""
+    x, wts, _, e, sliding, padding = _operands(GEOMS[5])
+    ei = kconv.conv2d_input_grad(torch.tensor(e), torch.tensor(wts),
+                                 sliding, padding, x.shape[1:3])
+    assert ei.shape == x.shape
+    want = jconv.backward(np, x, None, wts, e, sliding, padding, "linear",
+                          activation_applied=False)[0]
+    np.testing.assert_allclose(ei.numpy(), want, rtol=1e-4, atol=1e-5)
+    assert float(ei[:, :, -1].abs().max()) == 0.0   # past the last window
+    with pytest.raises(ValueError, match="not the output"):
+        kconv.conv2d_input_grad(torch.tensor(e), torch.tensor(wts), sliding,
+                                padding, (x.shape[1] + 9, x.shape[2]))
+
+
+def test_cpu_calls_take_the_plain_path_and_count_no_launch():
+    x, wts, b, e, sliding, padding = (
+        torch.tensor(a) if isinstance(a, np.ndarray) else a
+        for a in _operands(GEOMS[2]))
+    before = (kconv.fwd_launches, kconv.input_grad_launches,
+              kconv.weight_grad_launches)
+    y = kconv.conv2d_fwd(x, wts, b, sliding, padding)
+    assert torch.equal(y, kconv.conv2d_fwd_plain(x, wts, b, sliding,
+                                                 padding))
+    ei, gw, gb = kconv.conv2d_backward(x, wts, e, sliding, padding)
+    assert torch.equal(ei, kconv.conv2d_input_grad_plain(
+        e, wts, sliding, padding, x.shape[1:3]))
+    pw, pb = kconv.conv2d_weight_grad_plain(x, e, wts.shape, sliding,
+                                            padding)
+    assert torch.equal(gw, pw) and torch.equal(gb, pb)
+    assert (kconv.fwd_launches, kconv.input_grad_launches,
+            kconv.weight_grad_launches) == before
+
+
+def test_bound_counts_flops_and_bytes():
+    """conv2 of AlexNet at batch 128: the 5x5 pad-2 window over 27x27
+    reaches the image in 23·5 + 2·(3 + 4) = 129 of 135 (oy, iy) pairs a
+    row, so 2·128·96·256·129² multiply-adds' flops, plus the bias."""
+    x_shape, w_shape = (128, 27, 27, 96), (5, 5, 96, 256)
+    fwd = kconv.bound("fwd", x_shape, w_shape, 1, 2)
+    macs = 128 * 96 * 256 * 129 ** 2
+    y_n = 128 * 27 * 27 * 256
+    assert fwd["flops"] == 2 * macs + y_n
+    assert fwd["bytes"] == 4 * (128 * 27 * 27 * 96 + 5 * 5 * 96 * 256 +
+                                256 + y_n)
+    assert fwd["bound_by"] == "operations"
+    assert fwd["bound_ms"] == pytest.approx(fwd["flops"] / 67e12 * 1e3)
+    grad = kconv.bound("input_grad", x_shape, w_shape, 1, 2)
+    assert grad["flops"] == 2 * macs
+    # conv1 touches no padding: the GEMM view's 2·M·N·K exactly
+    c1 = kconv.bound("weight_grad", (128, 227, 227, 3), (11, 11, 3, 96), 4, 0)
+    assert c1["flops"] == 2 * 387200 * 96 * 363 + 387200 * 96
+    assert 0.40 < c1["bound_ms"] < 0.41
+    with pytest.raises(ValueError, match="unknown"):
+        kconv.bound("deconv", x_shape, w_shape)
+
+
+@pytest.mark.parametrize("rows,n,k", [(364, 96, 387200), (2401, 256, 93312),
+                                      (3457, 384, 21632), (28, 16, 108),
+                                      (10, 4, 5)])
+def test_split_k_fills_the_card_with_whole_k_tiles(rows, n, k):
+    splits, per = kconv.split_k(rows, n, k)
+    assert per % kconv.K_TILE == 0
+    assert (splits - 1) * per < k <= splits * per       # none empty
+    tiles = -(-rows // kconv.TILE) * -(-n // kconv.TILE)
+    assert splits * tiles >= min(kconv.WAVE_BLOCKS,
+                                 tiles * -(-k // kconv.K_TILE)) * 0.9
+
+
+def test_bad_calls_raise():
+    x, w = torch.ones(2, 8, 8, 3), torch.ones(3, 3, 3, 4)
+    with pytest.raises(ValueError, match="float32"):
+        kconv.conv2d_fwd(x.double(), w.double())
+    with pytest.raises(ValueError, match="matching channels"):
+        kconv.conv2d_fwd(x, torch.ones(3, 3, 2, 4))
+    with pytest.raises(ValueError, match="contiguous"):
+        kconv.conv2d_fwd(x.transpose(1, 2), w)
+    with pytest.raises(ValueError, match="b must be"):
+        kconv.conv2d_fwd(x, w, torch.ones(3))
+    with pytest.raises(ValueError, match="empty conv"):
+        kconv.conv2d_fwd(torch.ones(2, 2, 2, 3), w)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        kconv.conv2d_fwd(x.to("meta"), w.to("meta"))
+    with pytest.raises(ValueError, match="agree"):
+        kconv.conv2d_weight_grad(x, torch.ones(2, 6, 6, 5), w.shape)
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_the_card():
+    """The three kernels on the card against their plain versions (TF32
+    off) at the geometries above, bit-identical across two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernels run only on a card")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for geom in GEOMS:
+            x, wts, b, e, sliding, padding = (
+                torch.tensor(a, device="cuda") if isinstance(a, np.ndarray)
+                else a for a in _operands(geom))
+            y = kconv.conv2d_fwd(x, wts, b, sliding, padding)
+            assert torch.equal(y, kconv.conv2d_fwd(x, wts, b, sliding,
+                                                   padding))
+            torch.testing.assert_close(
+                y, kconv.conv2d_fwd_plain(x, wts, b, sliding, padding),
+                rtol=1e-5, atol=1e-5)
+            got = kconv.conv2d_backward(x, wts, e, sliding, padding)
+            want = (kconv.conv2d_input_grad_plain(e, wts, sliding, padding,
+                                                  x.shape[1:3]),
+                    *kconv.conv2d_weight_grad_plain(x, e, wts.shape,
+                                                    sliding, padding))
+            for g, w_ in zip(got, want):
+                torch.testing.assert_close(g, w_, rtol=1e-4, atol=1e-4)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32

@@ -47,7 +47,11 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     assert "znicz_tpu_torch.kernels.flash_attention" in doc["modules"]
     assert "znicz_tpu_torch.parallel.tp" in doc["modules"]
     for name in ("kernels.gemm", "kernels.optim", "parallel.step",
-                 "models.mnist_fc", "core.workflow", "units.gd"):
+                 "models.mnist_fc", "core.workflow", "units.gd",
+                 "kernels.conv", "ops.conv", "ops.pooling", "ops.lrn",
+                 "ops.dropout", "units.conv", "units.gd_conv",
+                 "units.pooling", "units.gd_pooling", "units.normalization",
+                 "units.dropout", "standard_workflow", "models.alexnet"):
         assert f"znicz_tpu_torch.{name}" in doc["modules"]
 
 

@@ -19,17 +19,14 @@
 // CUDA cores' ridge of ~20 flop/byte, so 2*M*N*K / 67 TFLOP/s (0.51 ms).
 //
 // Design (right and simple first; wgmma, TMA and a bf16 instantiation
-// are later work): one 128x128 output tile per block of 256 threads, each
-// thread owning an 8x8 sub-tile of f32 sums in registers.  The K loop
-// walks 8-deep tiles staged in shared memory, double-buffered: the next
-// tile's global loads are in flight while the current one is multiplied.
-// The TPU kernel's (m, n, k) grid carries its sum across k in VMEM
-// scratch; here the k axis is that loop inside the block.  Loads past a
-// ragged edge read as zero and stores are masked, so nothing is padded in
-// device memory (the reference pads outside its kernel).  Bias and
-// activation run in the epilogue, before the one store of each output.
-// No split-K and no atomics: each output is one thread's sum in a fixed
-// order, so two launches are bit-identical.
+// are later work): the 128x128 tile of tile_f32.cuh, shared with conv.cu,
+// over two dense tile loaders.  The TPU kernel's (m, n, k) grid carries its
+// sum across k in VMEM scratch; here the k axis is the tile's K loop inside
+// the block.  Loads past a ragged edge read as zero and stores are masked,
+// so nothing is padded in device memory (the reference pads outside its
+// kernel).  Bias and activation run in the epilogue, before the one store
+// of each output.  No split-K and no atomics: each output is one thread's
+// sum in a fixed order, so two launches are bit-identical.
 //
 // act_backward: out = err * act'(y), the derivative taken from the
 // forward output y (activations.derivative_from_output), one elementwise
@@ -42,13 +39,11 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "tile_f32.cuh"
+
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 8, TM = 8, TN = 8;
-constexpr int kThreads = (BM / TM) * (BN / TN);  // 256
-static_assert(kThreads == 256, "the tile loaders assume 256 threads");
-static_assert(BM * BK == 4 * kThreads && BN * BK == 4 * kThreads,
-              "each thread stages 4 elements of each operand tile");
+using namespace znicz_tile;
 
 // activation codes, the order of kernels/gemm.py ACT_CODES
 enum Act { kLinear = 0, kTanh = 1, kRelu = 2, kStrictRelu = 3, kSigmoid = 4 };
@@ -87,124 +82,20 @@ __device__ __forceinline__ float derivative(float y, int act) {
   }
 }
 
-// One thread's 4 elements of a 128 (outer) x 8 (k) operand tile.  KC: the
-// operand is stored k-contiguous, X[o * K + k] (A, or B^T); otherwise
-// outer-contiguous, X[k * O + o] (B, or A^T).  Elements past O or K read
-// as 0.  ``vec``: the stored rows are 16-byte aligned, so 4 neighbours
-// come in one load.
-template <bool KC>
-__device__ __forceinline__ void load_tile(const float* __restrict__ X, int O,
-                                          int K, int o0, int k0, bool vec,
-                                          float (&r)[4]) {
-  const int tid = threadIdx.x;
-  if (KC) {
-    const int o = o0 + tid / 2;
-    const int k = k0 + (tid % 2) * 4;
-    const float* p = X + static_cast<size_t>(o) * K + k;
-    if (vec && o < O && k + 3 < K) {
-      const float4 v = *reinterpret_cast<const float4*>(p);
-      r[0] = v.x;
-      r[1] = v.y;
-      r[2] = v.z;
-      r[3] = v.w;
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) r[j] = (o < O && k + j < K) ? p[j] : 0.f;
-    }
-  } else {
-    const int k = k0 + tid / 32;
-    const int o = o0 + (tid % 32) * 4;
-    const float* p = X + static_cast<size_t>(k) * O + o;
-    if (vec && k < K && o + 3 < O) {
-      const float4 v = *reinterpret_cast<const float4*>(p);
-      r[0] = v.x;
-      r[1] = v.y;
-      r[2] = v.z;
-      r[3] = v.w;
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) r[j] = (k < K && o + j < O) ? p[j] : 0.f;
-    }
-  }
-}
-
-// ... and where those 4 elements go in the [k][outer] shared tile
-template <bool KC>
-__device__ __forceinline__ void store_tile(float (*S)[BM],
-                                           const float (&r)[4]) {
-  const int tid = threadIdx.x;
-  if (KC) {
-    const int o = tid / 2;
-    const int c = (tid % 2) * 4;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) S[c + j][o] = r[j];
-  } else {
-    *reinterpret_cast<float4*>(&S[tid / 32][(tid % 32) * 4]) =
-        make_float4(r[0], r[1], r[2], r[3]);
-  }
-}
-
 template <bool A_KC, bool B_KC>
 __global__ void __launch_bounds__(kThreads)
 gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
                 const float* __restrict__ bias, float* __restrict__ C, int M,
                 int N, int K, int act, bool vec_a, bool vec_b, bool vec_c) {
-  __shared__ __align__(16) float As[2][BK][BM];
-  __shared__ __align__(16) float Bs[2][BK][BN];
-
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
+  DenseTile<A_KC> la{A, M, K, m0, 0, vec_a};
+  DenseTile<B_KC> lb{B, N, K, n0, 0, vec_b};
+  float acc[TM][TN];
+  mainloop(la, lb, (K + BK - 1) / BK, acc);
+
   const int ty = threadIdx.x / (BN / TN);  // this thread's 8 rows ...
   const int tx = threadIdx.x % (BN / TN);  // ... and 8 columns
-
-  float ra[4], rb[4];
-  load_tile<A_KC>(A, M, K, m0, 0, vec_a, ra);
-  load_tile<B_KC>(B, N, K, n0, 0, vec_b, rb);
-  store_tile<A_KC>(As[0], ra);
-  store_tile<B_KC>(Bs[0], rb);
-  __syncthreads();
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  const int n_k = (K + BK - 1) / BK;
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int cur = kt & 1;
-    const bool more = kt + 1 < n_k;
-    if (more) {  // the next tile's loads fly while this one is multiplied
-      load_tile<A_KC>(A, M, K, m0, (kt + 1) * BK, vec_a, ra);
-      load_tile<B_KC>(B, N, K, n0, (kt + 1) * BK, vec_b, rb);
-    }
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float a[TM], b[TN];
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][k][ty * TM]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[cur][k][ty * TM + 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][k][tx * TN]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[cur][k][tx * TN + 4]);
-      a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
-      a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
-      b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
-      b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    if (more) {
-      store_tile<A_KC>(As[cur ^ 1], ra);
-      store_tile<B_KC>(Bs[cur ^ 1], rb);
-    }
-    // one barrier a step: the buffer written above is read next step, and
-    // the one read above is written only after the next barrier
-    __syncthreads();
-  }
-
   const int n_first = n0 + tx * TN;
   float bv[TN];
 #pragma unroll
@@ -256,10 +147,6 @@ act_backward_f32_kernel(const float* __restrict__ y,
   }
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
-}
-
 template <bool A_KC, bool B_KC>
 void launch_gemm(const float* A, const float* B, const float* bias, float* C,
                  int M, int N, int K, int act, bool vec_a, bool vec_b,
@@ -267,12 +154,6 @@ void launch_gemm(const float* A, const float* B, const float* bias, float* C,
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   gemm_f32_kernel<A_KC, B_KC><<<grid, kThreads, 0, stream>>>(
       A, B, bias, C, M, N, K, act, vec_a, vec_b, vec_c);
-}
-
-int blocks_for(long long items) {
-  // a grid-stride loop: enough blocks to fill the card several times over
-  const long long want = (items + 255) / 256;
-  return static_cast<int>(want < 132 * 16 ? (want > 0 ? want : 1) : 132 * 16);
 }
 
 }  // namespace

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library, loaded with
 ``ctypes``; no PyTorch headers are involved, so a build takes seconds.
 Libraries are built at first use into ``znicz_tpu_torch/_build/``
-(git-ignored), named by a hash of their source and flags, so an edited
-source rebuilds and an unchanged one loads the library already there.
+(git-ignored), named by a hash of their source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds
+and an unchanged one loads the library already there.
 :func:`build` starts one ``nvcc`` per missing library, all together,
 and waits for them all.  A failed build raises with the compiler's
 output; nothing here falls back to anything.
@@ -51,9 +52,11 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names) -> dict:

@@ -52,7 +52,7 @@ FUSED_ACTIVATIONS = (activations.LINEAR, activations.TANH,
                      activations.RELU, activations.STRICT_RELU,
                      activations.SIGMOID)
 _ACT_CODES = {a: i for i, a in enumerate(FUSED_ACTIVATIONS)}
-#: the depth of the kernel's k tiles (BK in csrc/gemm.cu)
+#: the depth of the kernel's k tiles (BK in csrc/tile_f32.cuh)
 K_TILE = 8
 
 #: H100 SXM data-sheet peaks: HBM bytes/s; f32 flop/s of the CUDA cores

@@ -12,10 +12,13 @@ Static-shape policy: the served arrays always have ``max_minibatch_size``
 rows; a short tail is padded and the true row count exposed as
 ``minibatch_size`` — evaluator/GD mask/divide by it.
 
-Not ported yet (ROADMAP queue A): the loader registry of
-``StandardWorkflow``, the snapshot state dicts, the prefetch pipeline's
-hooks (``fill_batch``, staged batches) and the class-plan capture of the
-epoch-scan step.
+``register_loader`` / ``get_loader`` keep the registry behind
+``StandardWorkflow``'s ``loader_name`` lookup, under the reference's
+names.
+
+Not ported yet (ROADMAP queue A): the snapshot state dicts, the prefetch
+pipeline's hooks (``fill_batch``, staged batches) and the class-plan
+capture of the epoch-scan step.
 """
 
 from __future__ import annotations
@@ -31,6 +34,29 @@ from znicz_tpu_torch.core.accelerated_units import AcceleratedUnit
 #: sample classes (reference: veles/loader/base.py :: CLASS_NAMES order)
 TEST, VALID, TRAIN = 0, 1, 2
 CLASS_NAMES = ("test", "validation", "train")
+
+#: loader registry behind StandardWorkflow's ``loader_name`` lookup
+#: (reference: veles/loader/base.py registry consumed by
+#: standard_workflow.py :: StandardWorkflowBase)
+LOADER_REGISTRY: dict[str, type] = {}
+
+
+def register_loader(name: str):
+    """Class decorator: register under ``name`` for loader_name lookup."""
+    def deco(cls):
+        LOADER_REGISTRY[name] = cls
+        cls.LOADER_NAME = name
+        return cls
+    return deco
+
+
+def get_loader(name: str) -> type:
+    try:
+        return LOADER_REGISTRY[name]
+    except KeyError:
+        raise KeyError(f"unknown loader {name!r}; registered: "
+                       f"{sorted(LOADER_REGISTRY)}") from None
+
 
 class Loader(AcceleratedUnit):
     """Minibatch server over an abstract dataset."""

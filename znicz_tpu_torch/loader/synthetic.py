@@ -4,7 +4,7 @@ data (the MNIST stand-in) and the seeded regression dataset.
 
 Generation goes through the port's ``core.prng`` streams, whose host
 half is the reference's, so one seed gives both packages the same data.
-The image variant comes with the conv stack (ROADMAP queue A).
+The loaders are registered under the reference's names.
 """
 
 from __future__ import annotations
@@ -13,7 +13,8 @@ import numpy as np
 
 from znicz_tpu_torch.core import prng
 from znicz_tpu_torch.core.memory import Array
-from znicz_tpu_torch.loader.base import TEST, VALID, TRAIN
+from znicz_tpu_torch.loader.base import (TEST, VALID, TRAIN,
+                                         register_loader)
 from znicz_tpu_torch.loader.fullbatch import (FullBatchLoader,
                                               FullBatchLoaderMSE)
 
@@ -59,6 +60,7 @@ def make_blobs(n_per_class: dict[int, int], n_classes: int,
     return assemble_classes(means, n_per_class, noise, gen)
 
 
+@register_loader("synthetic_classifier")
 class SyntheticClassifierLoader(FullBatchLoader):
     """Seeded Gaussian-blob classification dataset (MNIST stand-in)."""
 
@@ -84,6 +86,38 @@ class SyntheticClassifierLoader(FullBatchLoader):
         self.class_lengths = lengths
 
 
+@register_loader("synthetic_image")
+class SyntheticImageLoader(SyntheticClassifierLoader):
+    """Class patterns rendered as spatially-smooth (H, W, C) images —
+    conv-stack test/benchmark data.
+
+    Each class mean is a coarse ``(H//4, W//4)`` pattern upsampled to full
+    resolution, so classes have the local spatial structure convolutions
+    exploit (per-pixel blobs are white noise that conv + pooling average
+    away)."""
+
+    def __init__(self, workflow=None, sample_shape=(32, 32, 3), **kwargs) -> None:
+        if len(sample_shape) == 2:
+            sample_shape = tuple(sample_shape) + (1,)
+        super().__init__(workflow, sample_shape=sample_shape, **kwargs)
+
+    def load_data(self) -> None:
+        gen = prng.get("synthetic")
+        h, w, c = self.sample_shape
+        ch, cw = max(2, h // 4), max(2, w // 4)
+        coarse = gen.normal(0.0, self.spread,
+                            (self.n_classes, ch, cw, c)).astype(np.float32)
+        ry, rx = -(-h // ch), -(-w // cw)  # ceil
+        means = np.kron(coarse, np.ones((1, ry, rx, 1), np.float32))
+        means = np.ascontiguousarray(means[:, :h, :w, :])
+        data, labels, lengths = assemble_classes(
+            means, self.n_per_class, self.noise, gen)
+        self.original_data.mem = data
+        self.original_labels.mem = labels
+        self.class_lengths = lengths
+
+
+@register_loader("synthetic_regression")
 class SyntheticRegressionLoader(FullBatchLoaderMSE):
     """Seeded regression dataset: targets are a fixed random linear map of
     the inputs plus noise (autoencoder/MSE workflow test data).

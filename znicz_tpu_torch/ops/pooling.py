@@ -1,0 +1,158 @@
+"""Window pooling forward/backward — the port of
+``znicz_tpu/ops/pooling.py`` (rebuild of the reference's pooling.{cl,cu}
+and gradient_descent_pooling kernels): the eager max, max-|x| and average
+pooling and their backwards.
+
+Semantics kept from the reference:
+- geometry ``kx/ky`` window, ``sliding`` stride; **partial border windows
+  are included** (output size = ceil((in - k)/stride) + 1, window clipped
+  at the edge); a window that would START beyond the input is dropped
+  (torch ceil_mode semantics); see :func:`pool_out_size`;
+- max variants record the winner's flat ``(row*W + col)`` offset per
+  ``(n, oy, ox, c)`` for the backward scatter; ties go to the first
+  window element in row-major order;
+- avg divides by the *actual* (clipped) window element count.
+
+Every function takes ``xp`` (``numpy`` or ``torch``); the numpy branch is
+the reference's code.  Stochastic pooling and the fused path's custom
+backwards are not ported yet (ROADMAP queue A item 8).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+
+def pool_out_size(size: int, k: int, stride: int) -> int:
+    """ceil((size - k)/stride) + 1, but never losing the first window and
+    never emitting a window that STARTS beyond the input."""
+    if size <= k:
+        return 1
+    out = -(-(size - k) // stride) + 1
+    if (out - 1) * stride >= size:
+        out -= 1
+    return out
+
+
+def window_counts(h, w, ky, kx, sy, sx):
+    """Static window geometry: ``(valid, count)`` where valid (oh, ow, ky*kx)
+    masks in-bounds window elements and count (oh, ow, 1) is their number.
+    Pure numpy — computed once from shapes, no data touched."""
+    oh = pool_out_size(h, ky, sy)
+    ow = pool_out_size(w, kx, sx)
+    oy = np.arange(oh)[:, None, None] * sy
+    ox = np.arange(ow)[None, :, None] * sx
+    iy = np.arange(ky * kx)[None, None, :] // kx
+    ix = np.arange(ky * kx)[None, None, :] % kx
+    valid = ((oy + iy < h) & (ox + ix < w))          # (oh, ow, ky*kx)
+    return valid, valid.sum(axis=2, keepdims=True)
+
+
+def _border_pad(h, w, ky, kx, sy, sx):
+    """Bottom/right padding that turns znicz's clipped border windows into
+    full windows over a padded input."""
+    oh = pool_out_size(h, ky, sy)
+    ow = pool_out_size(w, kx, sx)
+    return max((oh - 1) * sy + ky - h, 0), max((ow - 1) * sx + kx - w, 0)
+
+
+def _as(xp, a, like):
+    """A numpy constant as ``xp``'s array (on ``like``'s device)."""
+    return a if xp is np else torch.as_tensor(a, device=like.device)
+
+
+def patches(xp, x, ky, kx, sy, sx, pad_value=0.0):
+    """``(patch, valid, count)`` where patch is (n, oh, ow, ky*kx, c) with
+    out-of-bounds elements set to ``pad_value``."""
+    n, h, w, c = x.shape
+    oh = pool_out_size(h, ky, sy)
+    ow = pool_out_size(w, kx, sx)
+    pb, pr = _border_pad(h, w, ky, kx, sy, sx)
+    if xp is np:
+        xpad = np.pad(x, ((0, 0), (0, pb), (0, pr), (0, 0)),
+                      constant_values=pad_value)
+    else:
+        xpad = F.pad(x, (0, 0, 0, pr, 0, pb), value=pad_value)
+    parts = []
+    for iy in range(ky):
+        for ix in range(kx):
+            parts.append(xpad[:, iy:iy + oh * sy:sy, ix:ix + ow * sx:sx, :])
+    patch = np.stack(parts, axis=3) if xp is np else torch.stack(parts, 3)
+    valid, count = window_counts(h, w, ky, kx, sy, sx)
+    return patch, _as(xp, valid, x), count
+
+
+def offsets_of(xp, winner_idx, in_shape, ky, kx, sy, sx):
+    """Flat (row*W + col) input offset of window element ``winner_idx``
+    (n, oh, ow, c) — the reference's ``input_offset`` payload."""
+    _, h, w, _ = in_shape
+    oh, ow = winner_idx.shape[1], winner_idx.shape[2]
+    oy = _as(xp, np.arange(oh)[None, :, None, None] * sy, winner_idx)
+    ox = _as(xp, np.arange(ow)[None, None, :, None] * sx, winner_idx)
+    row = oy + winner_idx // kx
+    col = ox + winner_idx % kx
+    off = row * w + col
+    return off.astype(np.int32) if xp is np else off.to(torch.int32)
+
+
+def max_forward(xp, x, ky, kx, sy, sx, use_abs: bool = False):
+    """Returns ``(y, offsets)``; the first maximum of a window wins."""
+    patch, valid, _ = patches(xp, x, ky, kx, sy, sx, pad_value=NEG_INF)
+    key = xp.abs(patch) if use_abs else patch
+    key = xp.where(valid[None, :, :, :, None], key, NEG_INF)
+    if xp is np:
+        idx = key.argmax(axis=3)                              # (n,oh,ow,c)
+        y = np.take_along_axis(patch, idx[:, :, :, None, :],
+                               axis=3)[:, :, :, 0, :]
+    else:
+        idx = key.argmax(dim=3)     # torch: the first maximal index too
+        y = torch.gather(patch, 3, idx[:, :, :, None, :])[:, :, :, 0, :]
+    return y, offsets_of(xp, idx, x.shape, ky, kx, sy, sx)
+
+
+def avg_forward(xp, x, ky, kx, sy, sx):
+    patch, _, count = patches(xp, x, ky, kx, sy, sx, pad_value=0.0)
+    count = count[None].astype(np.float32)
+    if xp is np:
+        return patch.sum(axis=3) / count
+    return patch.sum(dim=3) / _as(xp, count, x)
+
+
+def scatter_backward(xp, err_output, offsets, in_shape):
+    """Route err to recorded winner offsets (max backward)."""
+    n, h, w, c = in_shape
+    flat = offsets.reshape(n, -1, c)
+    e = err_output.reshape(n, -1, c)
+    if xp is np:
+        out = np.zeros((n, h * w, c), err_output.dtype)
+        ni = np.arange(n)[:, None, None]
+        ci = np.arange(c)[None, None, :]
+        np.add.at(out, (ni, flat, ci), e)
+    else:
+        out = torch.zeros((n, h * w, c), dtype=err_output.dtype,
+                          device=err_output.device)
+        out.scatter_add_(1, flat.long(), e)
+    return out.reshape(in_shape)
+
+
+def avg_backward(xp, err_output, in_shape, ky, kx, sy, sx):
+    """Spread err uniformly over each (clipped) window."""
+    n, h, w, c = in_shape
+    oh = pool_out_size(h, ky, sy)
+    ow = pool_out_size(w, kx, sx)
+    _, count = window_counts(h, w, ky, kx, sy, sx)
+    e = err_output / _as(xp, count[None].astype(np.float32), err_output)
+    pb, pr = _border_pad(h, w, ky, kx, sy, sx)
+    if xp is np:
+        padded = np.zeros((n, h + pb, w + pr, c), err_output.dtype)
+    else:
+        padded = torch.zeros((n, h + pb, w + pr, c), dtype=err_output.dtype,
+                             device=err_output.device)
+    for iy in range(ky):
+        for ix in range(kx):
+            padded[:, iy:iy + oh * sy:sy, ix:ix + ow * sx:sx, :] += e
+    return padded[:, :h, :w, :]

@@ -1,2 +1,11 @@
 """NN units of the port: forward/gradient pairs with a numpy oracle path
-and a torch device path."""
+and a torch device path.
+
+Importing this package imports every unit module, so the MatchingObject
+fwd<->gd registry that StandardWorkflow's layer-type lookup reads is
+fully populated.
+"""
+
+from znicz_tpu_torch.units import (all2all, conv, dropout,  # noqa: F401
+                                   gd, gd_conv, gd_pooling, normalization,
+                                   pooling)

@@ -92,6 +92,9 @@ class Forward(NNLayerBase):
         self.output = Array()
         self.weights = Array()
         self.bias = Array()
+        #: inference mode: loader-independent forward pass (reference:
+        #: forward_mode — dropout switches off)
+        self.forward_mode = False
 
     # -- weight init (reference: uniform/gaussian via prng) -----------------
     def _fill(self, shape, filling: str, stddev: float) -> np.ndarray:
@@ -114,7 +117,8 @@ class Forward(NNLayerBase):
     def torch_apply(self, p: dict, x, *, rng=None, train=True):
         """The forward in torch over a params leaf-dict, composed by the
         fused step (the reference's ``xla_apply``).  ``rng`` is for
-        units that set ``NEEDS_RNG`` (none is ported yet)."""
+        units that set ``NEEDS_RNG`` (dropout), which the port's fused
+        step refuses yet."""
         raise NotImplementedError(
             f"{type(self).__name__} does not support the fused step")
 
@@ -135,14 +139,18 @@ class Forward(NNLayerBase):
 
 def load_forward_params(forwards, params) -> None:
     """Write per-layer ``{"w": ndarray, "b": ndarray}`` dicts (``b``
-    optional, ``w`` in each unit's stored layout) into ``forwards`` before
-    they initialize, which then keep them instead of drawing their own —
-    how weights cross from the JAX package (its units' ``weights.mem`` /
-    ``bias.mem``) or from a file."""
+    optional, ``w`` in each unit's stored layout: (in, out) FC, HWIO conv)
+    into ``forwards`` before they initialize, which then keep them instead
+    of drawing their own — how weights cross from the JAX package (its
+    units' ``weights.mem`` / ``bias.mem``) or from a file.  ``None`` or
+    ``{}`` stands for a forward without weights (pooling, LRN, dropout),
+    which is skipped."""
     if len(params) != len(forwards):
         raise ValueError(f"{len(params)} param dicts for {len(forwards)} "
                          f"forward units")
     for fwd, p in zip(forwards, params):
+        if not p:
+            continue
         if fwd.initialized:
             raise RuntimeError(f"{fwd.name} is initialized already: load "
                                f"its params before initialize")

@@ -1,0 +1,131 @@
+"""Pooling forward units — the port of ``znicz_tpu/units/pooling.py``
+(rebuild of veles.znicz pooling.py :: Pooling, OffsetPooling, MaxPooling,
+MaxAbsPooling, AvgPooling).
+
+Max variants record the winner's flat input offset per output element
+into ``input_offset`` (reference behavior) for the eager backward
+scatter.  Plain torch on the device, as the reference keeps them on XLA
+(no TPU kernel).  ``StochasticPooling`` waits for its kernel
+(``ops/pallas/pooling.py:84``, ROADMAP queue B) and raises if named.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from znicz_tpu_torch.core.memory import Array
+from znicz_tpu_torch.ops import pooling as pool_ops
+from znicz_tpu_torch.units.nn_units import Forward
+
+
+class Pooling(Forward):
+    """Geometry base (reference: pooling.py :: Pooling)."""
+
+    MAPPING: set = set()
+
+    def __init__(self, workflow=None, kx=2, ky=2, sliding=None,
+                 **kwargs) -> None:
+        super().__init__(workflow, include_bias=False, **kwargs)
+        self.kx, self.ky = int(kx), int(ky)
+        if sliding is None:
+            sliding = (self.ky, self.kx)
+        self.sliding = (sliding, sliding) if isinstance(sliding, int) \
+            else tuple(sliding)
+
+    @property
+    def sy(self) -> int:
+        return self.sliding[0]
+
+    @property
+    def sx(self) -> int:
+        return self.sliding[1]
+
+    def output_shape_for(self, in_shape):
+        n, h, w, c = in_shape
+        return (n, pool_ops.pool_out_size(h, self.ky, self.sy),
+                pool_ops.pool_out_size(w, self.kx, self.sx), c)
+
+    def _common_init(self, **kwargs) -> None:
+        in_shape = self.input.shape
+        if len(in_shape) != 4:
+            raise ValueError(f"Pooling wants NHWC input, got {in_shape}")
+        out_shape = self.output_shape_for(in_shape)
+        if not self.output or self.output.shape != out_shape:
+            self.output.reset(shape=out_shape)
+        self.init_array(self.input, self.output)
+
+
+class OffsetPooling(Pooling):
+    """Pooling that records winner offsets (reference: OffsetPooling)."""
+
+    def __init__(self, workflow=None, **kwargs) -> None:
+        super().__init__(workflow, **kwargs)
+        self.input_offset = Array()
+
+    def _common_init(self, **kwargs) -> None:
+        super()._common_init(**kwargs)
+        out_shape = self.output.shape
+        if not self.input_offset or self.input_offset.shape != out_shape:
+            self.input_offset.reset(shape=out_shape, dtype=np.int32)
+        self.init_array(self.input_offset)
+
+
+class MaxPooling(OffsetPooling):
+    """Max pooling (reference: MaxPooling)."""
+
+    MAPPING = {"max_pooling"}
+    USE_ABS = False
+
+    def _run(self, xp, x):
+        return pool_ops.max_forward(xp, x, self.ky, self.kx, self.sy,
+                                    self.sx, use_abs=self.USE_ABS)
+
+    def numpy_run(self) -> None:
+        y, off = self._run(np, self.input.mem)
+        self.output.map_invalidate()
+        self.output.mem = y
+        self.input_offset.map_invalidate()
+        self.input_offset.mem = off
+
+    def torch_run(self) -> None:
+        self.input.unmap()
+        y, off = self._run(torch, self.input.devmem)
+        self.output.set_devmem(y.contiguous())
+        self.input_offset.set_devmem(off)
+
+
+class MaxAbsPooling(MaxPooling):
+    """Max-|x| pooling emitting the signed winner (reference:
+    MaxAbsPooling)."""
+    MAPPING = {"maxabs_pooling"}
+    USE_ABS = True
+
+
+class AvgPooling(Pooling):
+    """Average pooling (reference: AvgPooling); border windows divide by
+    the clipped element count."""
+
+    MAPPING = {"avg_pooling"}
+
+    def numpy_run(self) -> None:
+        self.output.map_invalidate()
+        self.output.mem = pool_ops.avg_forward(
+            np, self.input.mem, self.ky, self.kx, self.sy, self.sx)
+
+    def torch_run(self) -> None:
+        self.input.unmap()
+        self.output.set_devmem(pool_ops.avg_forward(
+            torch, self.input.devmem, self.ky, self.kx, self.sy, self.sx))
+
+
+class StochasticPooling(OffsetPooling):
+    """Stochastic pooling (reference: StochasticPooling).  Its TPU kernel
+    (``ops/pallas/pooling.py:84 stochastic_pool``) is not ported yet."""
+
+    MAPPING = {"stochastic_pooling", "stochastic_abs_pooling"}
+
+    def __init__(self, workflow=None, **kwargs) -> None:
+        raise NotImplementedError(
+            "stochastic pooling waits for its kernel (ROADMAP queue B, "
+            "ops/pallas/pooling.py:84 stochastic_pool)")
