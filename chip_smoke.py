@@ -76,9 +76,35 @@ exits non-zero without the final ``ok`` line):
 13. **alexnet_parity** — AlexNet's geometry at test size in f32, the card
    against the CPU with the same dropout masks: identical n_err
    histories, weights within a band the same run with TF32 on must fail.
+14. **stochastic_pool** — the stochastic-pool kernel against its plain
+   version bit for bit through ``bits=`` (y, taps, offsets; MNIST conv's
+   and AlexNet's pool shapes, odd sizes with clipped borders, windows of
+   zero mass, both variants) and through ``seed=``; the winners'
+   frequencies over one window repeated 16 M times within a chi-square
+   band that a run with 16-bit uniforms must fail; the kernel, the plain
+   version and the bound at MNIST conv's two pools and AlexNet's pool1.
+15. **mnist_conv_stochastic** — ``models/mnist_conv.py``'s layers with
+   both pools stochastic, eager on ``TorchDevice()`` (batch 100, 2000
+   train and 500 validation samples, 2 epochs), the stochastic-pool,
+   conv and FC counters set to 0 just before and read just after:
+   exactly 2 stochastic-pool launches a minibatch; ms per train
+   minibatch; then the card against the CPU at test size with the same
+   bits (a TF32 control).
+16. **kohonen** — ``som_step`` against its plain version at
+   bench_kohonen's and the reference sweep's shapes (a bs - 1 control);
+   bench_kohonen's run (scan mode, 3 epochs after a warm one, exact
+   launches); the demo's defaults per minibatch until the decision stops
+   it; the card against the CPU on the demo (identical winners).
+17. **lrn_dropout** — the LRN kernels against their plain versions at
+   AlexNet's two norm layers (a cut-window control), timed against
+   ``F.local_response_norm``; the dropout kernel against its plain
+   version at one seed, its drop rate on 64 M elements, timed.
+18. **kernel_hw** — ``utils/kernel_hw.run_parity("cuda")``, every ported
+   family ``ok``; the LRN and dropout counters set to 0 just before and
+   read just after (this is the path that reaches them).
 
 Every line carries ``at_s``, the seconds since the smoke started.  Then
-a ``{"kernels": [...]}`` line for all ten kernels, the card's name
+a ``{"kernels": [...]}`` line for all fifteen kernels, the card's name
 and power limit as ``nvidia-smi`` reports them, and, last, the ``{"ok":
 true, ...}`` line.  Exits non-zero without a usable CUDA device.
 """
@@ -103,13 +129,21 @@ from znicz_tpu_torch.core.backends import TorchDevice, resolve_compute_dtype
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.kernels import build as kbuild
 from znicz_tpu_torch.kernels import conv as kconv
+from znicz_tpu_torch.kernels import counter_rng
 from znicz_tpu_torch.kernels import decode as kdecode
+from znicz_tpu_torch.kernels import dropout as kdrop
 from znicz_tpu_torch.kernels import flash_attention as kflash
 from znicz_tpu_torch.kernels import gemm as kgemm
+from znicz_tpu_torch.kernels import kohonen as ksom
+from znicz_tpu_torch.kernels import lrn as klrn
 from znicz_tpu_torch.kernels import optim as koptim
+from znicz_tpu_torch.kernels import pooling as kpool
 from znicz_tpu_torch.models import alexnet as talexnet
+from znicz_tpu_torch.models import kohonen as tkohonen
+from znicz_tpu_torch.models import mnist_conv as tmnist_conv
 from znicz_tpu_torch.models import mnist_fc as tmnist
 from znicz_tpu_torch.ops import activations
+from znicz_tpu_torch.ops import kohonen as tk_ops
 from znicz_tpu_torch.observe.trace import TRACER
 from znicz_tpu_torch.parallel.transformer import (init_params,
                                                   make_logits_fn,
@@ -123,7 +157,9 @@ from znicz_tpu_torch.serve.server import (build_generate_parser,
                                           start_generate_server)
 from znicz_tpu_torch.standard_workflow import StandardWorkflow
 from znicz_tpu_torch.units import dropout as tdropout
+from znicz_tpu_torch.units import pooling as tpooling
 from znicz_tpu_torch.utils.export import export_lm, load_lm
+from znicz_tpu_torch.utils.kernel_hw import run_parity
 
 SEED = 20261016
 #: every tensor, decoder and the server run here (stated explicitly)
@@ -1610,6 +1646,580 @@ def phase_alexnet_parity() -> dict:
     return out
 
 
+#: stochastic_pool phase, the bits= matrix: input shape, window side,
+#: stride, abs variant.  MNIST conv's two pooling layers and AlexNet's
+#: pool1 at their batches, then odd sizes whose last windows are clipped
+#: (ceil mode), k2 s2 and k3 s2, both variants
+POOL_CASES = (((100, 28, 28, 32), 2, 2, False), ((100, 14, 14, 64), 2, 2,
+                                                 False),
+              ((128, 55, 55, 96), 3, 2, False), ((3, 9, 8, 5), 3, 2, False),
+              ((3, 9, 8, 5), 3, 2, True), ((4, 11, 13, 6), 2, 2, False),
+              ((4, 11, 13, 6), 2, 2, True), ((2, 7, 5, 4), 2, 3, True))
+#: the timed shapes: MNIST conv's pool1 and pool2 (batch 100; one of each
+#: a minibatch) and AlexNet's pool1 (batch 128, k3 s2), the largest
+POOL_TIMED = (("mnist_pool1", (100, 28, 28, 32), 2, 2),
+              ("mnist_pool2", (100, 14, 14, 64), 2, 2),
+              ("alexnet_pool1", (128, 55, 55, 96), 3, 2))
+#: the frequency check: one 2x2 window repeated over (4096, 4096) outputs,
+#: its probabilities (2^-18, 1/4, 1/2, 1/4 - 2^-18) sum to 1 exactly in
+#: f32, so with 24-bit uniforms each tap's frequency is exactly its p.  The
+#: band is chi-square with 3 degrees of freedom at a 1e-6 upper tail
+#: (scipy.stats.chi2.isf(1e-6, 3)).  The control draws u from the top 16
+#: bits only: the first tap then wins with probability 2^-16, 4x its p, and
+#: its 64 expected wins become 256, a chi-square of ~576
+CHI_WINDOW = (2.0 ** -18, 0.25, 0.5, 0.25 - 2.0 ** -18)
+CHI_N, CHI_C, CHI_BAND = 4096, 4096, 30.664849706213598
+
+
+def _taps_of(off, in_w, kx, sy, sx):
+    """Each output's winning tap (iy * kx + ix) from its flat offset."""
+    oh, ow = off.shape[1], off.shape[2]
+    oy = torch.arange(oh, device=off.device)[None, :, None, None] * sy
+    ox = torch.arange(ow, device=off.device)[None, None, :, None] * sx
+    row, col = off.long() // in_w, off.long() % in_w
+    return (row - oy) * kx + (col - ox)
+
+
+def _bits32(words):
+    """int64 words in [0, 2**32) as the int32 tensor of the same bits (the
+    kernels' bits= operand takes uint32 or int32)."""
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(
+        torch.int32)
+
+
+def _chi2(off) -> float:
+    counts = torch.bincount(off.reshape(-1).long(), minlength=4).double()
+    want = torch.tensor(CHI_WINDOW, dtype=torch.float64,
+                        device=off.device) * off.numel()
+    return float(((counts - want) ** 2 / want).sum())
+
+
+def phase_stochastic_pool() -> dict:
+    """The stochastic-pool kernel against its plain version: bit for bit
+    through bits= (y, the taps, the offsets) over POOL_CASES with windows
+    of zero mass, and through seed=; the winners' frequencies over a
+    fixed window within a chi-square band that the 16-bit control fails;
+    then the kernel, the plain version and the bound at POOL_TIMED."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 21)
+    checks = []
+    for shape, k, s, use_abs in POOL_CASES:
+        x = torch.randn(shape, generator=gen, device=DEVICE)
+        # a block of windows with zero mass: x <= 0 (x = 0 for |x|)
+        z = s + k                   # the rows and columns of 2 x 2 windows
+        x[0, :z, :z] = 0.0 if use_abs else -x[0, :z, :z].abs()
+        out = kpool.output_shape(shape, k, k, s, s)
+        bits = torch.randint(0, 2 ** 32, out, generator=gen, device=DEVICE,
+                             dtype=torch.int64)
+        bits = _bits32(bits)
+        y, off = kpool.stochastic_pool(x, k, k, s, s, use_abs, bits=bits)
+        y_p, off_p = kpool.stochastic_pool_plain(
+            x, k, k, s, s, use_abs, counter_rng.as_words(bits)
+            .reshape(-1))
+        taps = _taps_of(off, shape[2], k, s, s)
+        same = bool(torch.equal(y, y_p) and torch.equal(off, off_p) and
+                    torch.equal(taps, _taps_of(off_p, shape[2], k, s, s)))
+        zero_mass = bool((taps[0, :2, :2] == 0).all())
+        checks.append({"shape": list(shape), "k": k, "s": s,
+                       "abs": use_abs, "identical": same,
+                       "max_abs_err": float((y - y_p).abs().max()),
+                       "zero_mass_tap0": zero_mass,
+                       "taps_in_window": bool(((taps >= 0) &
+                                               (taps < k * k)).all())})
+        if not (same and zero_mass and checks[-1]["taps_in_window"]):
+            fail(f"stochastic_pool bits= vs plain: {checks[-1]}")
+    seeded = []
+    for shape, k, s in ((100, 28, 28, 32), 2, 2), ((128, 55, 55, 96), 3, 2):
+        x = torch.randn(shape, generator=gen, device=DEVICE)
+        y, off = kpool.stochastic_pool(x, k, k, s, s, seed=SEED)
+        y2, off2 = kpool.stochastic_pool(x, k, k, s, s, seed=SEED)
+        out = kpool.output_shape(shape, k, k, s, s)
+        words = counter_rng.random_bits(SEED, int(np.prod(out)),
+                                              DEVICE)
+        y_p, off_p = kpool.stochastic_pool_plain(x, k, k, s, s, False, words)
+        seeded.append({"shape": list(shape), "k": k, "s": s,
+                       "max_abs_err": float((y - y_p).abs().max()),
+                       "identical": bool(torch.equal(y, y_p) and
+                                         torch.equal(off, off_p)),
+                       "deterministic": bool(torch.equal(y, y2) and
+                                             torch.equal(off, off2))})
+        if not (seeded[-1]["identical"] and seeded[-1]["deterministic"]):
+            fail(f"stochastic_pool seed= vs plain: {seeded[-1]}")
+        del x, y, off, y2, off2, y_p, off_p, words
+    window = torch.tensor(CHI_WINDOW, dtype=torch.float32, device=DEVICE)
+    xc = window.reshape(1, 2, 2, 1).expand(CHI_N, 2, 2, CHI_C).contiguous()
+    _, off = kpool.stochastic_pool(xc, 2, 2, 2, 2, seed=SEED + 1)
+    chi2 = _chi2(off)
+    words = counter_rng.random_bits(SEED + 1, CHI_N * CHI_C, DEVICE)
+    _, off16 = kpool.stochastic_pool(
+        xc, 2, 2, 2, 2, bits=_bits32(words & 0xFFFF0000).reshape(
+            CHI_N, 1, 1, CHI_C))
+    chi2_16 = _chi2(off16)
+    freq = {"outputs": CHI_N * CHI_C, "p": list(CHI_WINDOW), "band": CHI_BAND,
+            "chi2": chi2, "control_16bit_chi2": chi2_16,
+            "counts": torch.bincount(off.reshape(-1).long(),
+                                     minlength=4).tolist()}
+    if not chi2 <= CHI_BAND:
+        fail(f"stochastic_pool frequencies off p: {freq}")
+    if not chi2_16 > CHI_BAND:
+        fail(f"the chi-square band passes the 16-bit control: {freq}")
+    del xc, off, off16, words
+    timed = []
+    for name, shape, k, s in POOL_TIMED:
+        x = torch.randn(shape, generator=gen, device=DEVICE)
+        m = int(np.prod(kpool.output_shape(shape, k, k, s, s)))
+
+        def plain(x=x, k=k, s=s, m=m):
+            return kpool.stochastic_pool_plain(
+                x, k, k, s, s, False,
+                counter_rng.random_bits(SEED, m, DEVICE))
+
+        timed.append({"layer": name, "shape": list(shape), "k": k, "s": s,
+                      "ms": time_cuda_ms(lambda: kpool.stochastic_pool(
+                          x, k, k, s, s, seed=SEED)),
+                      "plain_ms": time_cuda_ms(plain, iters=5),
+                      "library_ms": None, **kpool.bound(shape, k, k, s, s)})
+        del x
+    # MNIST conv's train minibatch launches pool1 and pool2 once each
+    path = {key: sum(t[key] for t in timed[:2])
+            for key in ("ms", "plain_ms", "bound_ms", "flops", "bytes")}
+    path.update(library_ms=None, bound_by="bytes",
+                max_abs_err=max(c["max_abs_err"] for c in checks + seeded),
+                layers=["mnist_pool1", "mnist_pool2"])
+    return {"phase": "stochastic_pool", "ptxas": ptxas_usage("pooling"),
+            "bits_checks": checks, "seed_checks": seeded,
+            "frequencies": freq, "timed": timed, "path": path,
+            "path_note": "sums over MNIST conv's two pooling launches of "
+                         "one minibatch at batch 100"}
+
+
+#: mnist_conv_stochastic: models/mnist_conv.py's published layers and
+#: widths with both pooling layers stochastic, batch 100, the synthetic
+#: image loader's 2000 train and 500 validation 28x28x1 samples, 2 epochs
+MCS_EPOCHS, MCS_TRAIN, MCS_VALID, MCS_BATCH = 2, 2000, 500, 100
+#: its parity run: the same layers at narrow widths (conv 4 and 8, fc 16),
+#: batch 10, 60 train and 20 validation samples, 2 epochs in f32, the card
+#: against the CPU with the same pooling bits injected on both.  Both sum
+#: the same f32 products in other orders (the conv and FC kernels' tiles
+#: against the plain versions; ~6e-8 on the test-size AlexNet's), so
+#: 1e-6, which the same run with TF32 on must fail (the softmax layer's
+#: products through cuBLAS keep 10 mantissa bits)
+MCS_PARITY_WEIGHT_ATOL = 1e-6
+
+
+def stochastic_mnist_layers(narrow: bool = False) -> list:
+    """models/mnist_conv.py's LAYERS with both pooling layers stochastic
+    (the substitution the reference's StandardWorkflow accepts)."""
+    specs = [dict(s, **{k: dict(s[k]) for k in ("->", "<-") if k in s})
+             for s in tmnist_conv.LAYERS]
+    widths = iter((4, 8))
+    for spec in specs:
+        if spec["type"] == "max_pooling":
+            spec["type"] = "stochastic_pooling"
+        elif narrow and spec["type"] == "conv_relu":
+            spec["->"]["n_kernels"] = next(widths)
+        elif narrow and spec["type"] == "all2all_relu":
+            spec["->"]["output_sample_shape"] = 16
+    return specs
+
+
+def _mnist_conv_workflow(narrow: bool, epochs: int, n_train: int,
+                         n_valid: int, batch: int):
+    return StandardWorkflow(
+        name="MnistConv", layers=stochastic_mnist_layers(narrow),
+        loss_function="softmax", loader_name="synthetic_image",
+        loader_config={"n_classes": 10, "sample_shape": (28, 28, 1),
+                       "n_train": n_train, "n_valid": n_valid,
+                       "minibatch_size": batch, "spread": 2.5, "noise": 1.0},
+        decision_config={"max_epochs": epochs}, fused=False)
+
+
+def inject_pool_bits(w, seed: int) -> None:
+    """Every stochastic pooling unit of ``w`` takes its bits from one numpy
+    stream (the same bits on any device, in forward order); each forward
+    still draws its seed from the host stream, as the unit does."""
+    rng = np.random.default_rng(seed)
+    for fwd in w.forwards:
+        if isinstance(fwd, tpooling.StochasticPooling):
+            def random(fwd=fwd, draw=fwd._random):
+                draw()
+                bits = rng.integers(0, 2 ** 32, fwd.output.shape,
+                                    dtype=np.uint32)
+                return {"bits": torch.from_numpy(bits).to(
+                    fwd.device.torch_device)}
+            fwd._random = random
+
+
+def _mcs_parity_run(device, allow_tf32=False):
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+    try:
+        tprng.seed_all(SEED)
+        w = _mnist_conv_workflow(True, 2, 60, 20, 10)
+        w.initialize(device=TorchDevice(device, precision="float32"))
+        inject_pool_bits(w, SEED)
+        w.run()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return w.decision.metrics_history, _conv_fc_weights(w)
+
+
+def phase_mnist_conv_stochastic() -> dict:
+    """MNIST conv with stochastic pooling eager on TorchDevice(): the
+    stochastic-pool, conv and FC counters set to 0 just before the run and
+    read just after (exactly 2 stochastic-pool launches a minibatch, train
+    and validation alike); then the card against the CPU at test size with
+    the same bits, TF32 as the control."""
+    tprng.seed_all(SEED)
+    w = _mnist_conv_workflow(False, MCS_EPOCHS, MCS_TRAIN, MCS_VALID,
+                             MCS_BATCH)
+    t0 = time.perf_counter()
+    w.initialize(device=TorchDevice())
+    init_s = time.perf_counter() - t0
+    marks = _per_minibatch_marks(w)
+    torch.cuda.synchronize()
+    kpool.launches = 0                                   # 0 just before ...
+    kconv.fwd_launches = kconv.input_grad_launches = 0
+    kconv.weight_grad_launches = 0
+    kgemm.gemm_launches = kgemm.act_launches = 0
+    t0 = time.perf_counter()
+    w.run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"stochastic_pool": kpool.launches,       # ... read after
+                "conv2d_fwd": kconv.fwd_launches,
+                "conv2d_input_grad": kconv.input_grad_launches,
+                "conv2d_weight_grad": kconv.weight_grad_launches,
+                "gemm_fc": kgemm.gemm_launches,
+                "act_backward": kgemm.act_launches}
+    marks.append((time.perf_counter(), None))
+    per_epoch = (MCS_TRAIN + MCS_VALID) // MCS_BATCH
+    last = marks[-per_epoch - 1:]
+    train_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(last, last[1:])
+                if a[1] == 2]
+    hist = w.decision.metrics_history
+    n_train_mb = MCS_EPOCHS * MCS_TRAIN // MCS_BATCH
+    n_mb = MCS_EPOCHS * per_epoch
+    expect = {"stochastic_pool": 2 * n_mb, "conv2d_fwd": 2 * n_mb,
+              "conv2d_input_grad": n_train_mb,
+              "conv2d_weight_grad": 2 * n_train_mb}
+    card, cpu = _mcs_parity_run(DEVICE), _mcs_parity_run("cpu")
+    tf32 = _mcs_parity_run(DEVICE, allow_tf32=True)
+
+    def spread(a, b):
+        return max(float(np.abs(x - y).max()) for name in a
+                   for x, y in zip(a[name], b[name]))
+
+    out = {"phase": "mnist_conv_stochastic", "batch": MCS_BATCH,
+           "epochs": MCS_EPOCHS, "n_train": MCS_TRAIN, "n_valid": MCS_VALID,
+           "init_s": init_s, "wall_s": wall_s, "history": hist,
+           "launches": launches, "expect": expect,
+           "train_minibatch_ms": float(np.median(train_ms)),
+           "train_minibatch_ms_all": train_ms,
+           "samples_per_s": MCS_BATCH * len(train_ms) / (sum(train_ms) / 1e3),
+           "timing": "host clock between device-synced loader serves, last "
+                     "epoch's train minibatches, median; samples/s: their "
+                     "samples over their summed time",
+           "parity": {"band": {"weight_atol": MCS_PARITY_WEIGHT_ATOL},
+                      "history_card": card[0], "history_cpu": cpu[0],
+                      "weight_max_abs": spread(card[1], cpu[1]),
+                      "tf32_control_weight_max_abs": spread(tf32[1],
+                                                            cpu[1])}}
+    if not (len(hist) == MCS_EPOCHS and bool(w.decision.complete)):
+        fail(f"mnist conv did not finish its epochs: {hist}")
+    if not hist[-1]["metric_train"] < hist[0]["metric_train"]:
+        fail(f"mnist conv train n_err did not fall: {hist}")
+    if any(launches[k] != v for k, v in expect.items()):
+        fail(f"mnist conv launches {launches} != {expect}")
+    if launches["gemm_fc"] < 3 * n_train_mb + (n_mb - n_train_mb) or \
+            launches["act_backward"] < n_train_mb:
+        fail(f"FC launches {launches} for {n_mb} minibatches")
+    if card[0] != cpu[0]:
+        fail(f"mnist conv n_err card {card[0]} != cpu {cpu[0]}")
+    par = out["parity"]
+    if not par["weight_max_abs"] <= MCS_PARITY_WEIGHT_ATOL:
+        fail(f"mnist conv weights card vs cpu: {par}")
+    if not par["tf32_control_weight_max_abs"] > MCS_PARITY_WEIGHT_ATOL:
+        fail(f"the mnist conv band passes the TF32 control: {par}")
+    return out
+
+
+#: kohonen phase: som_step at bench_kohonen's shape (x 500 x 16, a 16x16
+#: grid of 16-wide weights, alpha 0.5, sigma 8 = the grid's radius) and the
+#: reference sweep's (utils/pallas_hw.py: x 64 x 128, 256 x 128, alpha
+#: 0.3, sigma 1.5).  The kernel and the plain version sum the same f32
+#: products in other orders (its d-loop against cuBLAS's blocking; b in
+#: order against cuBLAS's hᵀx): ~1e-7 of the weights' norm.  The band on
+#: the norm-relative error of each 64-row tile is 1e-5; the control, the
+#: kernel at bs - 1, drops one sample (~1/B of the update: >= 2e-3)
+SOM_SHAPES = (("bench_kohonen", 500, 256, 16, 16, 0.5, 8.0),
+              ("parity_sweep", 64, 256, 128, 16, 0.3, 1.5))
+SOM_TOL = 1e-5
+#: bench.py bench_kohonen: a 16x16 grid over 16-wide samples, 4000 train
+#: samples at minibatch 500 (8 steps an epoch), 3 epochs after a 1-epoch
+#: warm-up, scan_epoch on, min_delta 0
+SOM_BENCH = {"shape": (16, 16), "sample_shape": (16,), "n_train": 4000,
+             "minibatch_size": 500, "min_delta": 0.0}
+SOM_EPOCHS = 3
+#: card against CPU on the demo's defaults (per-minibatch mode): identical
+#: winner sequences; weights within 1e-5 (the same sums in other orders,
+#: ~1e-7, carried over 100 steps)
+SOM_PARITY_ATOL = 1e-5
+
+
+def _som_run(device, scan: bool, epochs=None, warm=False, **kw):
+    """models/kohonen.build on ``device`` from the smoke's seed -> the
+    workflow, its wall seconds and the winners each per-minibatch step
+    produced."""
+    prev = root.common.engine.get("scan_epoch", False)
+    root.common.engine.scan_epoch = scan
+    try:
+        tprng.seed_all(SEED)
+        args = dict(kw)
+        if epochs is not None:
+            args["max_epochs"] = epochs
+        w = tkohonen.build(**args)
+        w.initialize(device=TorchDevice(device))
+        winners, step = [], w.trainer.run
+
+        def run():
+            step()
+            if not scan:
+                winners.append(w.trainer.winners.map_read().copy())
+
+        w.trainer.run = run
+        if device == DEVICE:
+            torch.cuda.synchronize()
+            if not warm:
+                ksom.launches = 0                        # 0 just before ...
+        t0 = time.perf_counter()
+        w.run()
+        w.trainer.weights.map_read()      # the run's last device work
+        wall = time.perf_counter() - t0
+    finally:
+        root.common.engine.scan_epoch = prev
+    return w, wall, winners
+
+
+def phase_kohonen() -> dict:
+    """som_step against its plain version (band, bs - 1 control, bit
+    identity, times); bench_kohonen's run (scan mode, exact launches);
+    the demo's defaults per minibatch until the decision stops; the card
+    against the CPU on the demo."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(SEED + 31)
+    checks, timed = [], {}
+    for name, b, n, d, side, alpha, sigma in SOM_SHAPES:
+        x = _dev(rng.normal(size=(b, d)))
+        w = _dev(rng.normal(size=(n, d)) * 0.5)
+        coords = _dev(tk_ops.grid_coords(np, side, side))
+        new_w, idx = ksom.som_step(x, w, coords, alpha, sigma, b)
+        new_w2, idx2 = ksom.som_step(x, w, coords, alpha, sigma, b)
+        ctl, _ = ksom.som_step(x, w, coords, alpha, sigma, b - 1)
+        ref_w, ref_idx = ksom.som_step_plain(x, w, coords, alpha, sigma, b)
+        torch.cuda.synchronize()
+        rel = tile_rel_err(new_w[None], ref_w[None])
+        control = tile_rel_err(ctl[None], ref_w[None])
+        checks.append({"case": name, "b": b, "n": n, "d": d,
+                       "rel_err": rel, "control_rel_err": control,
+                       "winners_identical": bool(torch.equal(idx, ref_idx)),
+                       "deterministic": bool(torch.equal(new_w, new_w2) and
+                                             torch.equal(idx, idx2)),
+                       "max_abs_err": float((new_w - ref_w).abs().max())})
+        if not (checks[-1]["winners_identical"] and rel <= SOM_TOL and
+                control > SOM_TOL and checks[-1]["deterministic"]):
+            fail(f"som_step vs plain: {checks[-1]}")
+        if name == "bench_kohonen":
+            timed = {"ms": time_cuda_ms(lambda: ksom.som_step(
+                         x, w, coords, alpha, sigma, b)),
+                     "plain_ms": time_cuda_ms(lambda: ksom.som_step_plain(
+                         x, w, coords, alpha, sigma, b)),
+                     "library_ms": None, **ksom.bound(x.shape, w.shape)}
+    _som_run(DEVICE, True, epochs=1, warm=True, **SOM_BENCH)   # warm-up
+    bench, wall, _ = _som_run(DEVICE, True, epochs=SOM_EPOCHS, **SOM_BENCH)
+    bench_launches = ksom.launches                       # ... read after
+    steps = SOM_BENCH["n_train"] // SOM_BENCH["minibatch_size"]
+    demo, demo_wall, card_win = _som_run(DEVICE, False)
+    demo_launches = ksom.launches
+    cpu, _, cpu_win = _som_run("cpu", False)
+    demo_hist = demo.decision.metrics_history
+    w_card = demo.trainer.weights.map_read()
+    w_cpu = cpu.trainer.weights.map_read()
+    out = {"phase": "kohonen", "tol": SOM_TOL, "checks": checks,
+           "timed": {**timed, "shape": "x 500x16, w 256x16"},
+           "bench": {**{k: list(v) if isinstance(v, tuple) else v
+                        for k, v in SOM_BENCH.items()},
+                     "epochs": SOM_EPOCHS, "scan_epoch": True,
+                     "launches": bench_launches,
+                     "expect": SOM_EPOCHS * steps, "wall_s": wall,
+                     "ms_per_epoch": wall / SOM_EPOCHS * 1e3,
+                     "samples_per_s": SOM_BENCH["n_train"] * SOM_EPOCHS /
+                     wall,
+                     "deltas": [h["metric_train"] for h in
+                                bench.decision.metrics_history]},
+           "demo": {"epochs_run": len(demo_hist), "launches": demo_launches,
+                    "wall_s": demo_wall,
+                    "deltas": [h["metric_train"] for h in demo_hist],
+                    "stopped": bool(demo.decision.complete)},
+           "parity": {"steps": len(card_win),
+                      "winners_identical": len(card_win) == len(cpu_win) and
+                      all(np.array_equal(a, b)
+                          for a, b in zip(card_win, cpu_win)),
+                      "weight_max_abs": float(np.abs(w_card - w_cpu).max()),
+                      "band": SOM_PARITY_ATOL}}
+    if bench_launches != SOM_EPOCHS * steps or \
+            len(bench.decision.metrics_history) != SOM_EPOCHS:
+        fail(f"bench_kohonen launches {bench_launches} != "
+             f"{SOM_EPOCHS * steps}: {out['bench']}")
+    if not out["demo"]["stopped"] or \
+            demo_launches != len(demo_hist) * 500 // 50:
+        fail(f"the SOM demo: {out['demo']}")
+    if not (out["parity"]["winners_identical"] and
+            out["parity"]["weight_max_abs"] <= SOM_PARITY_ATOL):
+        fail(f"SOM card vs cpu: {out['parity']}")
+    return out
+
+
+#: lrn_dropout phase: AlexNet's two norm layers at batch 128 (alexnet.py:
+#: alpha 1e-4, beta 0.75, k 2, n 5).  The kernels repeat the plain
+#: versions' f32 operations in their order (beta 0.75 takes the two
+#: square roots), so they agree to the bit; the band on the norm-relative
+#: error of each 64-row tile is 1e-6 all the same, and must reject the
+#: kernel run with the window cut to n - 1 (one x^2 of five dropped)
+LRN_SHAPES = (("norm1", (128, 55, 55, 96)), ("norm2", (128, 27, 27, 256)))
+LRN_ARGS = (1e-4, 0.75, 2.0, 5)
+LRN_TOL = 1e-6
+#: dropout: AlexNet's fc6 input at batch 128 and one 64 M-element tensor,
+#: ratio 0.5; the drop rate within 0.1 % of the ratio on the 64 M
+DROP_SHAPES = (("fc6_input", (128, 9216)), ("64M", (8192, 8192)))
+DROP_RATIO, DROP_RATE_TOL = 0.5, 1e-3
+
+
+def phase_lrn_dropout() -> dict:
+    """The LRN kernels against their plain versions at AlexNet's norm
+    shapes (band, cut-window control, times against
+    F.local_response_norm, which computes the same forward with alpha·n),
+    and the dropout kernel against its plain version at one seed (bit for
+    bit, the drop rate, y == x·mask, times)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 41)
+    alpha, beta, k, n = LRN_ARGS
+    lrn_checks, lrn_timed = [], []
+    for name, shape in LRN_SHAPES:
+        x = torch.randn(shape, generator=gen, device=DEVICE) * 3.0
+        e = torch.randn(shape, generator=gen, device=DEVICE)
+        got = {"fwd": klrn.lrn_forward(x, *LRN_ARGS),
+               "bwd": klrn.lrn_backward(x, e, *LRN_ARGS)}
+        want = {"fwd": klrn.lrn_forward_plain(x, *LRN_ARGS),
+                "bwd": klrn.lrn_backward_plain(x, e, *LRN_ARGS)}
+        cut = {"fwd": klrn.lrn_forward(x, alpha, beta, k, n - 1),
+               "bwd": klrn.lrn_backward(x, e, alpha, beta, k, n - 1)}
+        xn = x.permute(0, 3, 1, 2).contiguous()    # the library's NCHW
+        lib_fwd = torch.nn.functional.local_response_norm(
+            xn, n, alpha=alpha * n, beta=beta, k=k)
+        torch.cuda.synchronize()
+        c = shape[-1]
+        check = {"layer": name, "shape": list(shape),
+                 "library_fwd_max_abs": float(
+                     (lib_fwd.permute(0, 2, 3, 1) - want["fwd"]).abs().max())}
+        for kind in ("fwd", "bwd"):
+            check[kind] = {
+                "rel_err": tile_rel_err(_rows(got[kind], c),
+                                        _rows(want[kind], c)),
+                "control_rel_err": tile_rel_err(_rows(cut[kind], c),
+                                                _rows(want[kind], c)),
+                "identical": bool(torch.equal(got[kind], want[kind])),
+                "max_abs_err": float((got[kind] - want[kind]).abs().max())}
+            if not (check[kind]["rel_err"] <= LRN_TOL and
+                    check[kind]["control_rel_err"] > LRN_TOL):
+                fail(f"lrn {kind} vs plain: {check}")
+        lrn_checks.append(check)
+        for kind, kern, plain, lib in (
+                ("fwd", lambda: klrn.lrn_forward(x, *LRN_ARGS),
+                 lambda: klrn.lrn_forward_plain(x, *LRN_ARGS),
+                 lambda: torch.nn.functional.local_response_norm(
+                     xn, n, alpha=alpha * n, beta=beta, k=k)),
+                ("bwd", lambda: klrn.lrn_backward(x, e, *LRN_ARGS),
+                 lambda: klrn.lrn_backward_plain(x, e, *LRN_ARGS), None)):
+            lrn_timed.append({"layer": name, "kernel": kind,
+                              "ms": time_cuda_ms(kern),
+                              "plain_ms": time_cuda_ms(plain, iters=5),
+                              "library_ms": None if lib is None
+                              else time_cuda_ms(lib, iters=5),
+                              **klrn.bound(shape, n, kind == "bwd")})
+        del x, e, got, want, cut, lib_fwd, xn
+    drop_checks, drop_timed = [], []
+    for name, shape in DROP_SHAPES:
+        x = torch.randn(shape, generator=gen, device=DEVICE)
+        y, mask = kdrop.dropout_forward(x, DROP_RATIO, seed=SEED)
+        words = counter_rng.random_bits(SEED, x.numel(), DEVICE)
+        y_p, mask_p = kdrop.dropout_forward_plain(x, DROP_RATIO, words)
+        del words
+        rate = float((mask == 0).double().mean())
+        check = {"shape": list(shape), "drop_rate": rate,
+                 "max_abs_err": float((y - y_p).abs().max()),
+                 "identical": bool(torch.equal(y, y_p) and
+                                   torch.equal(mask, mask_p)),
+                 "y_is_x_mask": bool(torch.equal(y, x * mask))}
+        drop_checks.append(check)
+        if not (check["identical"] and check["y_is_x_mask"]):
+            fail(f"dropout vs plain: {check}")
+        if name == "64M" and not abs(rate - DROP_RATIO) <= DROP_RATE_TOL:
+            fail(f"dropout rate {rate} not within {DROP_RATE_TOL} of "
+                 f"{DROP_RATIO}")
+        del y, mask, y_p, mask_p
+
+        def plain(x=x):
+            return kdrop.dropout_forward_plain(
+                x, DROP_RATIO,
+                counter_rng.random_bits(SEED, x.numel(), DEVICE))
+
+        drop_timed.append({"shape": list(shape),
+                           "ms": time_cuda_ms(lambda: kdrop.dropout_forward(
+                               x, DROP_RATIO, seed=SEED)),
+                           "plain_ms": time_cuda_ms(plain, iters=5),
+                           "library_ms": None, **kdrop.bound(x.numel())})
+        del x
+    lrn_path = {}
+    for kind in ("fwd", "bwd"):
+        rows = [t for t in lrn_timed if t["kernel"] == kind]
+        lrn_path[kind] = {key: sum(t[key] for t in rows)
+                          for key in ("ms", "plain_ms", "bound_ms")}
+        lrn_path[kind].update(
+            library_ms=None if kind == "bwd"
+            else sum(t["library_ms"] for t in rows),
+            bound_by="bytes", max_abs_err=max(c[kind]["max_abs_err"]
+                                              for c in lrn_checks))
+    return {"phase": "lrn_dropout", "ptxas": {"lrn": ptxas_usage("lrn"),
+                                             "dropout":
+                                             ptxas_usage("dropout")},
+            "lrn_args": list(LRN_ARGS), "lrn_tol": LRN_TOL,
+            "lrn_checks": lrn_checks, "lrn_timed": lrn_timed,
+            "lrn_path": lrn_path, "dropout_checks": drop_checks,
+            "dropout_timed": drop_timed,
+            "path_note": "lrn: sums over AlexNet's norm1 and norm2 at batch "
+                         "128; dropout: the 64 M-element tensor"}
+
+
+def phase_kernel_hw() -> dict:
+    """utils/kernel_hw.run_parity on the card, the launch counters of the
+    kernels only this path reaches (LRN, dropout) set to 0 just before and
+    read just after: every ported family must be ok."""
+    torch.cuda.synchronize()
+    klrn.fwd_launches = klrn.bwd_launches = kdrop.launches = 0
+    t0 = time.perf_counter()
+    results = run_parity(DEVICE)
+    wall_s = time.perf_counter() - t0
+    launches = {"lrn_forward": klrn.fwd_launches,
+                "lrn_backward": klrn.bwd_launches,
+                "dropout_forward": kdrop.launches}
+    out = {"phase": "kernel_hw", "results": results, "launches": launches,
+           "wall_s": wall_s}
+    bad = {k: v for k, v in results.items()
+           if v != "ok" and not v.startswith("not ported")}
+    if bad or not all(launches.values()):
+        fail(f"run_parity on the card: {out}")
+    return out
+
+
 def _stream(port: int, ids: list, out: dict) -> None:
     body = json.dumps({"tokens": ids, "max_tokens": MAX_TOKENS,
                        "temperature": 0.0}).encode()
@@ -2063,7 +2673,7 @@ def nvidia_smi() -> str:
 
 #: every kernel source of the port's paths, built together at the start
 KERNEL_SOURCES = ("paged_decode", "flash_attention", "gemm", "optim",
-                  "conv")
+                  "conv", "kohonen", "pooling", "lrn", "dropout")
 
 
 def phase_build() -> dict:
@@ -2075,11 +2685,14 @@ def phase_build() -> dict:
 
 
 def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
-                fused, conv, alexnet) -> dict:
-    """The ten kernels: launches from the main paths' runs, times and
+                fused, conv, alexnet, spool, mcs, som, lrn_drop,
+                kernel_hw) -> dict:
+    """The fifteen kernels: launches from the main paths' runs, times and
     errors from the kernel phases, bounds from this run's inputs.  A conv
     kernel's times and bound sum its launches of one AlexNet train
-    minibatch at batch 128."""
+    minibatch at batch 128, the stochastic pool's its two launches of one
+    MNIST conv minibatch, an LRN kernel's AlexNet's two norm layers; the
+    dropout kernel's are at 64 M elements."""
     def entry(name, source, replaces, launches, timed, max_abs_err):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
@@ -2090,6 +2703,8 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
                 "library_ms": timed["library_ms"]}
 
     sgd = optim["timed"]["sgd_vel_bfloat16"]
+    hw = kernel_hw["launches"]
+    lrn_path = lrn_drop["lrn_path"]
     return {"kernels": [
         entry("paged_decode", kdecode.SOURCE, kdecode.REPLACES,
               serve["kernel_launches"], kernel, kernel["max_abs_err"]),
@@ -2118,7 +2733,22 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
           for kind, replaces in (("fwd", kconv.REPLACES_FWD),
                                  ("input_grad", kconv.REPLACES_INPUT_GRAD),
                                  ("weight_grad",
-                                  kconv.REPLACES_WEIGHT_GRAD)))]}
+                                  kconv.REPLACES_WEIGHT_GRAD))),
+        entry("som_step", ksom.SOURCE, ksom.REPLACES,
+              som["bench"]["launches"], som["timed"],
+              max(c["max_abs_err"] for c in som["checks"])),
+        entry("stochastic_pool", kpool.SOURCE, kpool.REPLACES,
+              mcs["launches"]["stochastic_pool"], spool["path"],
+              spool["path"]["max_abs_err"]),
+        entry("lrn_forward", klrn.SOURCE, klrn.REPLACES_FWD,
+              hw["lrn_forward"], lrn_path["fwd"],
+              lrn_path["fwd"]["max_abs_err"]),
+        entry("lrn_backward", klrn.SOURCE, klrn.REPLACES_BWD,
+              hw["lrn_backward"], lrn_path["bwd"],
+              lrn_path["bwd"]["max_abs_err"]),
+        entry("dropout_forward", kdrop.SOURCE, kdrop.REPLACES,
+              hw["dropout_forward"], lrn_drop["dropout_timed"][-1],
+              max(c["max_abs_err"] for c in lrn_drop["dropout_checks"]))]}
 
 
 def main() -> int:
@@ -2169,8 +2799,19 @@ def main() -> int:
     alexnet = phase_alexnet_eager()
     emit(alexnet)
     emit(phase_alexnet_parity())
+    spool = phase_stochastic_pool()
+    emit(spool)
+    mcs = phase_mnist_conv_stochastic()
+    emit(mcs)
+    som = phase_kohonen()
+    emit(som)
+    lrn_drop = phase_lrn_dropout()
+    emit(lrn_drop)
+    kernel_hw = phase_kernel_hw()
+    emit(kernel_hw)
     emit({**kernel_line(kernel, flash, gemm, optim, serve, train, eager,
-                        fused, conv, alexnet),
+                        fused, conv, alexnet, spool, mcs, som, lrn_drop,
+                        kernel_hw),
           "first_stream": streams[0][:8],
           "seconds": time.perf_counter() - T_START})
     print(nvidia_smi(), flush=True)

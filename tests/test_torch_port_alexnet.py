@@ -124,11 +124,6 @@ def test_pooling_units_match_jax(kind, ties):
                 np.testing.assert_array_equal(got["offset"], want["offset"])
 
 
-def test_stochastic_pooling_waits_for_its_kernel():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_pooling.StochasticPooling(TWorkflow(name="w"))
-
-
 # -- LRN --------------------------------------------------------------------
 
 @pytest.mark.parametrize("n", [5, 4])

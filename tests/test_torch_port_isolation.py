@@ -51,7 +51,11 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                  "kernels.conv", "ops.conv", "ops.pooling", "ops.lrn",
                  "ops.dropout", "units.conv", "units.gd_conv",
                  "units.pooling", "units.gd_pooling", "units.normalization",
-                 "units.dropout", "standard_workflow", "models.alexnet"):
+                 "units.dropout", "standard_workflow", "models.alexnet",
+                 "kernels.counter_rng", "kernels.kohonen", "kernels.pooling",
+                 "kernels.lrn", "kernels.dropout", "ops.kohonen",
+                 "units.kohonen", "models.kohonen", "models.mnist_conv",
+                 "utils.kernel_hw"):
         assert f"znicz_tpu_torch.{name}" in doc["modules"]
 
 
@@ -72,7 +76,7 @@ def test_port_sources_never_name_jax_or_the_reference_in_imports():
 COPIES = ["core/config.py", "core/logger.py", "observe/registry.py",
           "observe/trace.py", "utils/naming.py", "core/mutable.py",
           "core/units.py", "core/plumbing.py", "core/workflow.py",
-          "units/decision.py"]
+          "units/decision.py", "ops/kohonen.py"]
 
 
 def _code(src: str) -> str:

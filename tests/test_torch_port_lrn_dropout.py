@@ -1,0 +1,211 @@
+"""The port's LRN and dropout kernels and its kernel-layer check against
+the JAX package on the CPU.
+
+- ``kernels/lrn.py``'s plain versions against the Pallas ``lrn_forward``
+  / ``lrn_backward`` in interpret mode, n in {3, 5} (and an even n),
+  beta 0.75 and another, at the reference's 1e-4 / 1e-3 bands; the
+  library yardstick ``F.local_response_norm`` with alpha·n computes the
+  same forward;
+- ``kernels/dropout.py``'s plain version against the Pallas
+  ``dropout_forward`` through ``bits=``: identical y and mask; the
+  ``seed=`` draw (mask values, drop rate, y = x·mask);
+- ``utils/kernel_hw.run_parity("cpu")``: ``ok`` for every ported family,
+  the unported ones named so and never ``ok``, and ``FAIL`` for a
+  deliberately broken plain version;
+- refusals, bounds, and a ``cuda``-marked card check.
+"""
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+import jax.numpy as jnp
+
+from znicz_tpu.ops.pallas import dropout_forward as j_dropout_forward
+from znicz_tpu.ops.pallas import lrn_backward as j_lrn_backward
+from znicz_tpu.ops.pallas import lrn_forward as j_lrn_forward
+from znicz_tpu.utils import pallas_hw
+
+from znicz_tpu_torch.kernels import dropout as kdrop
+from znicz_tpu_torch.kernels import kohonen as ksom
+from znicz_tpu_torch.kernels import lrn as klrn
+from znicz_tpu_torch.utils import kernel_hw
+
+
+@pytest.mark.parametrize("n", [3, 5, 4])
+@pytest.mark.parametrize("beta", [0.75, 0.6])
+def test_lrn_plain_matches_pallas(n, beta):
+    rng = np.random.default_rng(n)
+    x = (rng.normal(size=(2, 5, 4, 24)) * 3).astype(np.float32)
+    e = rng.normal(size=x.shape).astype(np.float32)
+    args = (1e-2, beta, 2.0, n)
+    before = (klrn.fwd_launches, klrn.bwd_launches)
+    y = klrn.lrn_forward(torch.tensor(x), *args)
+    dx = klrn.lrn_backward(torch.tensor(x), torch.tensor(e), *args)
+    assert (klrn.fwd_launches, klrn.bwd_launches) == before
+    np.testing.assert_allclose(
+        y.numpy(), np.asarray(j_lrn_forward(jnp.asarray(x), *args,
+                                            interpret=True)),
+        rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(
+        dx.numpy(), np.asarray(j_lrn_backward(jnp.asarray(x), jnp.asarray(e),
+                                              *args, interpret=True)),
+        rtol=1e-3, atol=1e-4)
+
+
+def test_lrn_backward_is_the_adjoint():
+    """<dx, v> = <e, J v> for the forward's Jacobian J (central
+    difference in f64): the backward is the exact adjoint, even n too."""
+    rng = np.random.default_rng(1)
+    for n in (4, 5):
+        x = torch.tensor(rng.normal(size=(3, 10)) * 2)
+        e = torch.tensor(rng.normal(size=(3, 10)))
+        v = torch.tensor(rng.normal(size=(3, 10)))
+        args = (0.05, 0.75, 1.0, n)
+        h = 1e-6
+        jv = (klrn.lrn_forward_plain(x + h * v, *args) -
+              klrn.lrn_forward_plain(x - h * v, *args)) / (2 * h)
+        lhs = float((klrn.lrn_backward_plain(x, e, *args) * v).sum())
+        assert abs(lhs - float((e * jv).sum())) < 1e-6
+
+
+@pytest.mark.parametrize("n", [5, 4])
+def test_local_response_norm_with_alpha_n_is_the_same_forward(n):
+    """The library yardstick the smoke times: torch's LRN averages x² over
+    the window (pads n//2 below, (n-1)//2 above: the port's window), so
+    alpha·n gives the port's forward, odd and even n."""
+    rng = np.random.default_rng(2)
+    x = torch.tensor((rng.normal(size=(2, 4, 3, 16)) * 3).astype(np.float32))
+    alpha, beta, k = 1e-2, 0.75, 2.0
+    lib = F.local_response_norm(x.permute(0, 3, 1, 2), n, alpha=alpha * n,
+                                beta=beta, k=k).permute(0, 2, 3, 1)
+    np.testing.assert_allclose(lib.numpy(),
+                               klrn.lrn_forward(x, alpha, beta, k, n).numpy(),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_lrn_refusals_and_bound():
+    with pytest.raises(ValueError, match="float32"):
+        klrn.lrn_forward(torch.zeros(2, 4, dtype=torch.float64), 1e-4,
+                         0.75, 2.0, 5)
+    with pytest.raises(ValueError, match="match"):
+        klrn.lrn_backward(torch.zeros(2, 4), torch.zeros(2, 5), 1e-4, 0.75,
+                          2.0, 5)
+    fwd = klrn.bound((128, 55, 55, 96), 5)
+    bwd = klrn.bound((128, 55, 55, 96), 5, backward=True)
+    assert fwd["bound_by"] == bwd["bound_by"] == "bytes"
+    assert abs(fwd["bound_ms"] - 0.0888) < 1e-3
+    assert abs(bwd["bound_ms"] - 0.1331) < 1e-3
+
+
+@pytest.mark.parametrize("ratio", [0.5, 0.4, 0.1, 0.0])
+def test_dropout_plain_matches_pallas(ratio):
+    rng = np.random.default_rng(int(ratio * 10))
+    x = rng.normal(size=(6, 5, 40)).astype(np.float32)
+    bits = rng.integers(0, 2 ** 32, x.shape, dtype=np.uint32)
+    y_j, m_j = j_dropout_forward(jnp.asarray(x), 0, ratio,
+                                 bits=jnp.asarray(bits), interpret=True)
+    before = kdrop.launches
+    y, m = kdrop.dropout_forward(torch.tensor(x), ratio,
+                                 bits=torch.from_numpy(bits))
+    assert kdrop.launches == before
+    np.testing.assert_array_equal(y.numpy(), np.asarray(y_j))
+    np.testing.assert_array_equal(m.numpy(), np.asarray(m_j))
+    assert m.dtype == torch.float32
+
+
+def test_dropout_seed_draw():
+    x = torch.randn(512, 256)
+    y, m = kdrop.dropout_forward(x, 0.25, seed=4)
+    y2, m2 = kdrop.dropout_forward(x, 0.25, seed=4)
+    assert torch.equal(y, y2) and torch.equal(m, m2)
+    assert set(torch.unique(m).tolist()) == {0.0, float(np.float32(1 / 0.75))}
+    assert abs(float((m == 0).double().mean()) - 0.25) < 0.01
+    assert torch.equal(y, x * m)
+    _, m3 = kdrop.dropout_forward(x, 0.25, seed=5)
+    assert not torch.equal(m, m3)
+    # the mask in x's dtype
+    yb, mb = kdrop.dropout_forward(x.to(torch.bfloat16), 0.25, seed=4)
+    assert mb.dtype == torch.bfloat16 and torch.equal(mb, m.bfloat16())
+
+
+def test_dropout_refusals_and_bound():
+    x = torch.zeros(4, 4)
+    with pytest.raises(ValueError, match="exactly one"):
+        kdrop.dropout_forward(x, 0.5)
+    with pytest.raises(ValueError, match=r"\[0, 1\)"):
+        kdrop.dropout_forward(x, 1.0, seed=1)
+    with pytest.raises(ValueError, match="bits must be"):
+        kdrop.dropout_forward(x, 0.5, bits=torch.zeros(16, dtype=torch.int32))
+    with pytest.raises(ValueError, match="uint32"):
+        kdrop.dropout_forward(x, 0.5, bits=torch.zeros(4, 4))
+    assert kdrop.threshold(0.5) == 2147483647
+    assert kdrop.threshold(0.0) == 0
+    b = kdrop.bound(1 << 26)
+    assert b["bytes"] == 12 << 26 and b["bound_by"] == "bytes"
+
+
+# -- the kernel-layer check -------------------------------------------------
+
+def test_run_parity_cpu_holds_every_plain_version():
+    results = kernel_hw.run_parity("cpu")
+    # the reference's families, every one named
+    ref_names = {"sgd", "adam", "dropout", "lrn", "fc_gemm", "conv_fwd",
+                 "conv_bwd", "deconv", "stochastic_pool", "kohonen",
+                 "flash_attention", "conv_fwd_bf16", "flash_attention_bf16",
+                 "sgd_bf16state"}
+    assert set(results) == ref_names
+    for name, verdict in results.items():
+        if name in kernel_hw.NOT_PORTED:
+            assert verdict.startswith("not ported: ROADMAP"), (name, verdict)
+        else:
+            assert verdict == "ok", (name, verdict)
+
+
+def test_run_parity_reports_a_broken_plain_version(monkeypatch):
+    """A plain version that is wrong gives FAIL, and the sweep finishes."""
+    plain = ksom.som_step_plain
+
+    def other_winners(*args):
+        w, idx = plain(*args)
+        return w, (idx + 1) % w.shape[0]
+
+    monkeypatch.setattr(ksom, "som_step_plain", other_winners)
+    monkeypatch.setattr(klrn, "lrn_backward_plain",
+                        lambda x, e, *a: torch.zeros_like(x))
+    results = kernel_hw.run_parity("cpu")
+    assert results["kohonen"].startswith("FAIL")
+    assert results["lrn"].startswith("FAIL")
+    assert results["sgd"] == results["flash_attention"] == "ok"
+
+
+def test_run_parity_names_the_reference_families():
+    """The port's sweep and the reference's name the same families (the
+    reference's run in interpret mode is its own test's business)."""
+    import inspect
+
+    src = inspect.getsource(pallas_hw.run_parity)
+    for name in kernel_hw.run_parity("cpu"):
+        assert f'"{name}"' in src, name
+
+
+@pytest.mark.cuda
+def test_lrn_and_dropout_kernels_match_plain_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = torch.randn(64, 13, 13, 96, device="cuda") * 3
+    e = torch.randn_like(x)
+    args = (1e-4, 0.75, 2.0, 5)
+    assert torch.equal(klrn.lrn_forward(x, *args),
+                       klrn.lrn_forward_plain(x, *args))
+    assert torch.equal(klrn.lrn_backward(x, e, *args),
+                       klrn.lrn_backward_plain(x, e, *args))
+    y, m = kdrop.dropout_forward(x, 0.5, seed=3)
+    words = kdrop.counter_rng.random_bits(3, x.numel(), "cuda")
+    y_p, m_p = kdrop.dropout_forward_plain(x, 0.5, words)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_p) and torch.equal(m, m_p)
+    results = kernel_hw.run_parity("cuda")
+    assert all(v == "ok" for k, v in results.items()
+               if k not in kernel_hw.NOT_PORTED), results

@@ -16,9 +16,10 @@ rows; a short tail is padded and the true row count exposed as
 ``StandardWorkflow``'s ``loader_name`` lookup, under the reference's
 names.
 
-Not ported yet (ROADMAP queue A): the snapshot state dicts, the prefetch
-pipeline's hooks (``fill_batch``, staged batches) and the class-plan
-capture of the epoch-scan step.
+The class-plan capture (``capture_class_plan``, :meth:`Loader.class_plan`,
+:func:`plan_device_arrays`) serves the SOM trainer's epoch scan.  Not
+ported yet (ROADMAP queue A): the snapshot state dicts and the prefetch
+pipeline's hooks (``fill_batch``, staged batches).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from znicz_tpu_torch.core import prng
 from znicz_tpu_torch.core.memory import Array
@@ -58,6 +60,15 @@ def get_loader(name: str) -> type:
                        f"{sorted(LOADER_REGISTRY)}") from None
 
 
+def plan_device_arrays(plan: np.ndarray, device):
+    """Class plan -> ``(idxs, counts)`` for a scanned pass: int64 row
+    indices on ``device`` with the -1 padding clamped to row 0, and each
+    step's count of real rows on the host (the reference's mask sum,
+    which the SOM step takes as ``bs`` without a device round trip)."""
+    idxs = torch.as_tensor(np.maximum(plan, 0), device=device)
+    return idxs, (plan >= 0).sum(axis=1)
+
+
 class Loader(AcceleratedUnit):
     """Minibatch server over an abstract dataset."""
 
@@ -74,12 +85,17 @@ class Loader(AcceleratedUnit):
         self.minibatch_indices = Array()
         self.minibatch_size = 0          # true (unpadded) row count
         self.minibatch_class = TRAIN
+        self.minibatch_offset = 0
         self.last_minibatch = False
         self.epoch_number = 0
         self.epoch_ended = False
         #: set by FusedTrainStep._pin_dataset: the consumer reads only
         #: minibatch_indices, so skip per-step data gather/upload
         self.serve_indices_only = False
+        #: set by KohonenTrainer's epoch scan: capture the class plan at
+        #: each class start (dead work for everyone else)
+        self.capture_class_plan = False
+        self._current_plan = None        # captured at each class start
         # dataset geometry, set by load_data()
         self.class_lengths = [0, 0, 0]
         self._position = 0               # offset within current class
@@ -163,9 +179,13 @@ class Loader(AcceleratedUnit):
         indices = np.full((self.max_minibatch_size,), -1, dtype=np.int64)
         indices[:count] = self._shuffled[cls][start:start + count]
         self._position = start + count
-        return {"indices": indices, "size": count, "cls": cls,
-                "last": self._position >= length,
-                "epoch_ended": False, "epoch_number": self._epoch}
+        rec = {"indices": indices, "size": count, "cls": cls,
+               "offset": start, "last": self._position >= length,
+               "plan": None, "epoch_ended": False,
+               "epoch_number": self._epoch}
+        if start == 0 and self.capture_class_plan:
+            rec["plan"] = self._capture_class_plan(cls)
+        return rec
 
     def _complete_record(self, rec: dict) -> dict:
         """Class/epoch advance for a record from :meth:`_next_record` —
@@ -194,7 +214,10 @@ class Loader(AcceleratedUnit):
         self.minibatch_indices.mem = rec["indices"]
         self.minibatch_size = rec["size"]
         self.minibatch_class = rec["cls"]
+        self.minibatch_offset = rec["offset"]
         self.last_minibatch = rec["last"]
+        if rec["plan"] is not None:
+            self._current_plan = rec["plan"]
 
     def _serve(self) -> None:
         rec = self._next_record()
@@ -204,3 +227,23 @@ class Loader(AcceleratedUnit):
         self._complete_record(rec)
         self.epoch_number = rec["epoch_number"]
         self.epoch_ended = rec["epoch_ended"]
+
+    def class_plan(self) -> np.ndarray:
+        """The FULL minibatch plan of the class currently being served:
+        ``(n_minibatches, max_minibatch_size)`` int64 indices, -1 padding
+        on the final partial row.  Captured at the first serve of the
+        class pass — for a single-minibatch class, ``_complete_record``
+        (and the epoch-boundary reshuffle) has ALREADY run by the time
+        the consumer acts, so reading ``_shuffled`` lazily would hand out
+        the next class's plan."""
+        return self._current_plan
+
+    def _capture_class_plan(self, cls: int) -> np.ndarray:
+        order = self._shuffled[cls]
+        length = self.class_lengths[cls]
+        bs = self.max_minibatch_size
+        n_mb = -(-length // bs)
+        plan = np.full((n_mb, bs), -1, dtype=np.int64)
+        flat = plan.reshape(-1)
+        flat[:length] = order[:length]
+        return plan

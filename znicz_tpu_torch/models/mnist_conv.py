@@ -1,0 +1,67 @@
+"""MNIST convolutional workflow — the port of
+``znicz_tpu/models/mnist_conv.py`` (reference: veles.znicz samples/MNIST
+conv config — BASELINE.md config 2).
+
+The same declarative layer list (conv 32 5x5 p2 -> pool 2x2 -> conv 64
+5x5 p2 -> pool 2x2 -> fc 128 -> softmax 10) and signature.  Eager
+(``fused=False``) over the in-memory ``synthetic_image`` loader; a caller
+may swap a pooling layer's type (``stochastic_pooling``), as the
+reference's StandardWorkflow accepts.  The reference's defaults need what
+is not ported yet, and raise: the IDX file loader (``loader/mnist.py``,
+ROADMAP.md queue A item 5) and the fused conv shape (``torch_apply`` for
+conv and pooling, queue A item 8).
+"""
+
+from __future__ import annotations
+
+from znicz_tpu_torch.standard_workflow import StandardWorkflow
+
+LAYERS = [
+    {"type": "conv_relu", "->": {"n_kernels": 32, "kx": 5, "ky": 5,
+                                 "padding": (2, 2, 2, 2)},
+     "<-": {"learning_rate": 0.01, "gradient_moment": 0.9,
+            "weights_decay": 5e-4}},
+    {"type": "max_pooling", "->": {"kx": 2, "ky": 2}},
+    {"type": "conv_relu", "->": {"n_kernels": 64, "kx": 5, "ky": 5,
+                                 "padding": (2, 2, 2, 2)},
+     "<-": {"learning_rate": 0.01, "gradient_moment": 0.9,
+            "weights_decay": 5e-4}},
+    {"type": "max_pooling", "->": {"kx": 2, "ky": 2}},
+    {"type": "all2all_relu", "->": {"output_sample_shape": 128},
+     "<-": {"learning_rate": 0.01, "gradient_moment": 0.9,
+            "weights_decay": 5e-4}},
+    {"type": "softmax", "->": {"output_sample_shape": 10},
+     "<-": {"learning_rate": 0.01, "gradient_moment": 0.9,
+            "weights_decay": 5e-4}},
+]
+
+
+def build(max_epochs: int = 10, minibatch_size: int = 100,
+          n_train: int = 2000, n_valid: int = 500, fused: bool = True,
+          mesh=None, loader_name: str = "mnist",
+          loader_config: dict | None = None,
+          snapshotter_config: dict | None = None,
+          optimizer: str = "sgd",
+          optimizer_config: dict | None = None) -> StandardWorkflow:
+    """The reference's signature and defaults; runs with ``fused=False``
+    and ``loader_name="synthetic_image"``."""
+    if loader_name == "mnist":
+        raise NotImplementedError(
+            "the MNIST IDX file loader (loader/mnist.py) is not ported yet "
+            "(ROADMAP.md queue A item 5); pass loader_name="
+            "'synthetic_image'")
+    if fused:
+        raise NotImplementedError(
+            "the fused conv shape (torch_apply for conv and pooling, random "
+            "bits in FusedTrainStep) is not ported yet (ROADMAP.md queue A "
+            "item 8); pass fused=False")
+    cfg = {"n_classes": 10, "sample_shape": (28, 28, 1),
+           "n_train": n_train, "n_valid": n_valid,
+           "minibatch_size": minibatch_size, "spread": 2.5, "noise": 1.0}
+    cfg.update(loader_config or {})
+    return StandardWorkflow(
+        name="MnistConv", layers=LAYERS, loss_function="softmax",
+        loader_name=loader_name, loader_config=cfg,
+        decision_config={"max_epochs": max_epochs},
+        snapshotter_config=snapshotter_config, fused=fused, mesh=mesh,
+        optimizer=optimizer, optimizer_config=optimizer_config)

@@ -11,11 +11,16 @@ Semantics kept from the reference:
 - max variants record the winner's flat ``(row*W + col)`` offset per
   ``(n, oy, ox, c)`` for the backward scatter; ties go to the first
   window element in row-major order;
-- avg divides by the *actual* (clipped) window element count.
+- avg divides by the *actual* (clipped) window element count;
+- stochastic variants sample the winner with probability proportional to
+  the (abs) activation — Zeiler&Fergus stochastic pooling; in
+  ``forward_mode`` (inference) they give the probability-weighted
+  expectation.  The eager units sample through the kernel
+  (``kernels/pooling.py``); :func:`stochastic_forward` is the oracle.
 
 Every function takes ``xp`` (``numpy`` or ``torch``); the numpy branch is
-the reference's code.  Stochastic pooling and the fused path's custom
-backwards are not ported yet (ROADMAP queue A item 8).
+the reference's code.  The fused path's custom backwards are not ported
+yet (ROADMAP queue A item 8).
 """
 
 from __future__ import annotations
@@ -122,8 +127,55 @@ def avg_forward(xp, x, ky, kx, sy, sx):
     return patch.sum(dim=3) / _as(xp, count, x)
 
 
+def _stochastic_probs(xp, x, ky, kx, sy, sx, use_abs: bool):
+    """``(patch, p, total)`` — the (abs-)activation window probabilities
+    shared by train sampling and eval expectation."""
+    patch, valid, _ = patches(xp, x, ky, kx, sy, sx, pad_value=0.0)
+    vmask = valid[None, :, :, :, None]
+    if xp is np:
+        p = np.abs(patch) if use_abs else np.maximum(patch, 0.0)
+    else:
+        p = patch.abs() if use_abs else patch.clamp_min(0.0)
+    p = xp.where(vmask, p, 0.0)
+    return patch, p, p.sum(axis=3, keepdims=True)
+
+
+def _stochastic_choice(xp, x, ky, kx, sy, sx, uniform, use_abs: bool):
+    """Inverse-CDF winner per window -> ``(patch, idx)``.  STRICT
+    compare: a zero-total window (all probabilities 0, u = 0) selects
+    element 0, which is always in-bounds — the window origin is a real
+    input cell."""
+    patch, p, total = _stochastic_probs(xp, x, ky, kx, sy, sx, use_abs)
+    cdf = np.cumsum(p, axis=3) if xp is np else torch.cumsum(p, dim=3)
+    u = uniform[:, :, :, None, :] * total
+    idx = (cdf < u).sum(axis=3)
+    if xp is np:
+        return patch, np.minimum(idx, ky * kx - 1)
+    return patch, idx.clamp_max(ky * kx - 1)
+
+
+def stochastic_forward(xp, x, ky, kx, sy, sx, uniform, use_abs: bool,
+                       train: bool):
+    """Zeiler&Fergus stochastic pooling.  ``uniform`` is (n, oh, ow, c) in
+    [0, 1).  Returns ``(y, offsets)`` when training, else
+    ``(expectation, None)``."""
+    if not train:
+        patch, p, total = _stochastic_probs(xp, x, ky, kx, sy, sx,
+                                            use_abs)
+        w = xp.where(total > 0, p / xp.where(total > 0, total, 1.0), 0.0)
+        return (patch * w).sum(axis=3), None
+    patch, idx = _stochastic_choice(xp, x, ky, kx, sy, sx, uniform,
+                                    use_abs)
+    if xp is np:
+        y = np.take_along_axis(patch, idx[:, :, :, None, :],
+                               axis=3)[:, :, :, 0, :]
+    else:
+        y = torch.gather(patch, 3, idx[:, :, :, None, :])[:, :, :, 0, :]
+    return y, offsets_of(xp, idx, x.shape, ky, kx, sy, sx)
+
+
 def scatter_backward(xp, err_output, offsets, in_shape):
-    """Route err to recorded winner offsets (max backward)."""
+    """Route err to recorded winner offsets (max/stochastic backward)."""
     n, h, w, c = in_shape
     flat = offsets.reshape(n, -1, c)
     e = err_output.reshape(n, -1, c)

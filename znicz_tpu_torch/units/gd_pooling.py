@@ -1,9 +1,11 @@
 """Pooling gradient units — the port of ``znicz_tpu/units/gd_pooling.py``
 (rebuild of veles.znicz gd_pooling.py :: GDPooling, GDMaxPooling,
-GDMaxAbsPooling, GDAvgPooling).
+GDMaxAbsPooling, GDAvgPooling; the stochastic variants share the
+offset-scatter backward).
 
-Max: scatter err through the offsets the forward recorded; avg: spread
-err uniformly over each (clipped) window.  Plain torch on the device.
+Max and stochastic: scatter err through the offsets the forward
+recorded; avg: spread err uniformly over each (clipped) window.  Plain
+torch on the device.
 """
 
 from __future__ import annotations
@@ -84,6 +86,15 @@ class GDMaxPooling(GDPooling):
 class GDMaxAbsPooling(GDMaxPooling):
     """Reference: GDMaxAbsPooling — same scatter."""
     MAPPING = {"maxabs_pooling"}
+
+
+class GDStochasticPooling(GDMaxPooling):
+    """Stochastic pooling backward = scatter to the sampled winner."""
+    MAPPING = {"stochastic_pooling"}
+
+
+class GDStochasticAbsPooling(GDMaxPooling):
+    MAPPING = {"stochastic_abs_pooling"}
 
 
 class GDAvgPooling(GDPooling):

@@ -2,11 +2,16 @@
 (rebuild of veles.znicz pooling.py :: Pooling, OffsetPooling, MaxPooling,
 MaxAbsPooling, AvgPooling).
 
-Max variants record the winner's flat input offset per output element
-into ``input_offset`` (reference behavior) for the eager backward
-scatter.  Plain torch on the device, as the reference keeps them on XLA
-(no TPU kernel).  ``StochasticPooling`` waits for its kernel
-(``ops/pallas/pooling.py:84``, ROADMAP queue B) and raises if named.
+Max and stochastic variants record the winner's flat input offset per
+output element into ``input_offset`` (reference behavior) for the eager
+backward scatter.  Max and average pooling are plain torch on the device,
+as the reference keeps them on XLA (no TPU kernel).  Stochastic pooling
+(reference: StochasticPooling, StochasticAbsPooling) samples through the
+hand-written kernel (``kernels/pooling.py stochastic_pool``) in train
+mode — its plain version on CPU tensors — with a seed drawn from the
+host prng stream per forward, the reference's route under
+``engine.pallas`` (``units/pooling.py:212-234``); in ``forward_mode`` it
+returns the probability-weighted expectation in plain torch.
 """
 
 from __future__ import annotations
@@ -14,7 +19,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from znicz_tpu_torch.core import prng
 from znicz_tpu_torch.core.memory import Array
+from znicz_tpu_torch.kernels import pooling as kpool
 from znicz_tpu_torch.ops import pooling as pool_ops
 from znicz_tpu_torch.units.nn_units import Forward
 
@@ -120,12 +127,51 @@ class AvgPooling(Pooling):
 
 
 class StochasticPooling(OffsetPooling):
-    """Stochastic pooling (reference: StochasticPooling).  Its TPU kernel
-    (``ops/pallas/pooling.py:84 stochastic_pool``) is not ported yet."""
+    """Stochastic pooling, winner ~ p(x_i) = x_i+ / sum (reference:
+    StochasticPooling; Zeiler & Fergus 2013)."""
 
-    MAPPING = {"stochastic_pooling", "stochastic_abs_pooling"}
+    MAPPING = {"stochastic_pooling"}
+    USE_ABS = False
+    NEEDS_RNG = True
 
-    def __init__(self, workflow=None, **kwargs) -> None:
-        raise NotImplementedError(
-            "stochastic pooling waits for its kernel (ROADMAP queue B, "
-            "ops/pallas/pooling.py:84 stochastic_pool)")
+    def _uniform_host(self, shape):
+        return prng.get().uniform(0.0, 1.0, shape).astype(np.float32)
+
+    def numpy_run(self) -> None:
+        train = not self.forward_mode
+        u = self._uniform_host(self.output.shape) if train else None
+        y, off = pool_ops.stochastic_forward(
+            np, self.input.mem, self.ky, self.kx, self.sy, self.sx, u,
+            self.USE_ABS, train=train)
+        self.output.map_invalidate()
+        self.output.mem = y
+        if off is not None:
+            self.input_offset.map_invalidate()
+            self.input_offset.mem = off
+
+    def _random(self) -> dict:
+        """The kernel's random operand for one train forward: a seed drawn
+        from the host stream, one per forward as the reference draws it
+        (``units/pooling.py:216``)."""
+        return {"seed": int(prng.get().randint(0, 2 ** 31))}
+
+    def torch_run(self) -> None:
+        self.input.unmap()
+        x = self.input.devmem
+        if self.forward_mode:
+            y, _ = pool_ops.stochastic_forward(
+                torch, x, self.ky, self.kx, self.sy, self.sx, None,
+                self.USE_ABS, train=False)
+            self.output.set_devmem(y.contiguous())
+            return
+        y, off = kpool.stochastic_pool(x, self.ky, self.kx, self.sy,
+                                       self.sx, self.USE_ABS,
+                                       **self._random())
+        self.output.set_devmem(y)
+        self.input_offset.set_devmem(off)
+
+
+class StochasticAbsPooling(StochasticPooling):
+    """Stochastic pooling over |x| (reference: StochasticAbsPooling)."""
+    MAPPING = {"stochastic_abs_pooling"}
+    USE_ABS = True
