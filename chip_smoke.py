@@ -15,9 +15,12 @@ exits non-zero without the final ``ok`` line):
    bound computed from this run's inputs.
 1b. **flash** — the same for the flash-attention forward and backward
    kernels (norm-relative error of each 64-row tile, bf16 and f32, head
-   dim 64 and 128, causal and not, t 2048, a ragged t and the training
-   shape), bit-identical across two launches; each band must reject a
-   control run that reads one K/V tile as zeros.
+   dim 64 and 128, causal and not, t 2048, 1984, 1000 and 17 and the
+   training shape), bit-identical across two launches; each band must
+   reject a control run that reads one K/V tile as zeros.  At the
+   training shape each kernel's achieved TFLOP/s beside SDPA's, the
+   backward's two kernels timed apart (``torch.profiler``) and each
+   wrapper's host µs a call; the same times at head dim 128.
 1c. **gemm** — the FC kernels (``gemm_fc``, ``act_backward``) against
    their plain versions in f32 with TF32 off: bench_fc's two forward and
    four backward products, two ragged shapes in every operand layout,
@@ -32,7 +35,8 @@ exits non-zero without the final ``ok`` line):
    chunks, bf16 over f32 masters) from a seed through
    ``make_train_step``: one warm and 12 timed steps with the flash
    launch counters set to 0 just before and read just after; the loss
-   must be finite and fall.  Then two profiled steps.
+   must be finite and fall.  Then two profiled steps, and the host's
+   time to issue one step from an idle card (on a copy of the params).
 3. **train_parity** — 3 steps at 2 layers, batch 2, t 256: the card in
    f32 against the CPU, bf16 against f32; the f32 loss band must reject
    the same steps with TF32 on.
@@ -196,10 +200,13 @@ PARITY_ATOL_F32 = 1e-4
 PARITY_ATOL_BF16 = 0.25
 
 #: flash phase: the check matrix runs at b·h 16 (b 2, h 8), at the full
-#: t and at a ragged t that is no multiple of the kernels' 64-row tiles,
-#: then at the training shape (b·h 64, t 2048, dh 64, bf16, causal)
-FLASH_CHECK_BH, FLASH_TS = 16, (2048, 1000)
-#: rows per tile of the error metric: the kernels' q and k tile height
+#: t, at 1984 (a multiple of 64 but not of the bf16 kernels' 128-row
+#: tiles), at 1000 (no multiple of 64) and at 17 (shorter than one
+#: tile), then at the training shape (b·h 64, t 2048, dh 64, bf16,
+#: causal)
+FLASH_CHECK_BH, FLASH_TS = 16, (2048, 1984, 1000, 17)
+#: rows per tile of the error metric: the f32 kernels' q and k tile
+#: height, half the bf16 kernels' 128-row tiles
 FLASH_ERR_TILE = 64
 #: flash kernel vs plain, as the largest norm-relative error of any
 #: 64-row tile of any head, ||kernel - plain|| / ||plain||, per output
@@ -275,6 +282,45 @@ def time_cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         times.append((start, end))
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in times]))
+
+
+def host_us(fn, calls: int = 100) -> float:
+    """Median host time of one call of ``fn`` in µs, the calls issued
+    back to back with no sync between them: a wrapper's checks, argument
+    set-up and launch, not its device time (the queue stays far from
+    full at ``calls`` launches)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        start = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - start)
+    torch.cuda.synchronize()
+    return float(np.median(times)) * 1e6
+
+
+def kernel_ms_by_name(fn, tag: str, iters: int = 10) -> dict:
+    """Device ms per call of each kernel whose name holds ``tag`` that
+    ``fn`` launches (``name<template args>``), from ``torch.profiler``
+    over ``iters`` calls with L2 flushed before each, as
+    :func:`time_cuda_ms` flushes it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=DEVICE)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        name = re.search(rf"({tag}\w*<[^>]*>)", e.key)
+        if name and e.self_device_time_total > 0:
+            out[name.group(1)] = e.self_device_time_total / 1e3 / iters
+    return out
 
 
 def decode_inputs(rng, dtype, head_dim, lengths, batch=SLOTS, heads=HEADS,
@@ -558,8 +604,40 @@ def phase_flash() -> dict:
                     o4, (q4, k4, v4), do4, retain_graph=True)),
                 "max_abs_err": max(train_check["max_abs_err_by"][n]
                                    for n in ("dq", "dk", "dv")),
+                # the backward's two kernels (dk/dv, then dq) apart
+                "kernel_ms": kernel_ms_by_name(
+                    lambda: kflash.flash_attention_bwd(
+                        q, k, v, do, lse, delta, True), "flash_bwd_"),
                 **kflash.bound(q, True, backward=True)},
     }
+    for entry in timed.values():    # achieved rates: live-pair flops / ms
+        entry["tflops"] = entry["flops"] / entry["ms"] / 1e9
+        entry["library_tflops"] = entry["flops"] / entry["library_ms"] / 1e9
+    timed["fwd"]["host_us"] = host_us(
+        lambda: kflash.flash_attention_fwd(q, k, v, True))
+    timed["bwd"]["host_us"] = host_us(
+        lambda: kflash.flash_attention_bwd(q, k, v, do, lse, delta, True))
+    # head dim 128 at the training shape's b·h and t: times only (the
+    # check matrix above holds its bands)
+    q, k, v, do = _flash_inputs(rng, TRAIN_B * HEADS, TRAIN_T, 128,
+                                torch.bfloat16)
+    o, lse = kflash.flash_attention_fwd(q, k, v, True)
+    delta = _delta(do, o, torch.zeros_like(lse))
+    q4, k4, v4 = (x.view(TRAIN_B, HEADS, TRAIN_T, 128).detach()
+                  .requires_grad_() for x in (q, k, v))
+    o4 = sdpa(q4, k4, v4, is_causal=True)
+    do4 = do.view(o4.shape)
+    timed["dh128"] = {
+        "fwd_ms": time_cuda_ms(
+            lambda: kflash.flash_attention_fwd(q, k, v, True)),
+        "bwd_ms": time_cuda_ms(lambda: kflash.flash_attention_bwd(
+            q, k, v, do, lse, delta, True)),
+        "bwd_kernel_ms": kernel_ms_by_name(lambda: kflash.flash_attention_bwd(
+            q, k, v, do, lse, delta, True), "flash_bwd_"),
+        "library_fwd_ms": time_cuda_ms(
+            lambda: sdpa(q4, k4, v4, is_causal=True)),
+        "library_bwd_ms": time_cuda_ms(lambda: torch.autograd.grad(
+            o4, (q4, k4, v4), do4, retain_graph=True))}
     return {"phase": "flash",
             "ptxas": ptxas_usage("flash_attention"),
             "tol": {str(k).split(".")[-1]: v for k, v in FLASH_TOL.items()},
@@ -2519,6 +2597,27 @@ def phase_train(params) -> tuple:
 
     fwd_ms, bwd_ms = kernel_ms("flash_fwd_"), kernel_ms("flash_bwd_")
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:10]
+    # the host's own time to issue one step (autograd and launches, no
+    # sync inside) from an idle card, on a copy of the initial params so
+    # the trained ones stay as they are: where it exceeds the device busy
+    # time, the timed step is the host's
+    probe, issue_ms = params_from_numpy(params, DEVICE), []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probe, _ = step(probe, tokens, labels)
+        issue_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    # where that host time goes: one step with host ops and CUDA API
+    # calls recorded, by self CPU time
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as host_prof:
+        probe, _ = step(probe, tokens, labels)
+        torch.cuda.synchronize()
+    del probe
+    host_ops = [e for e in host_prof.key_averages()
+                if e.self_cpu_time_total > 0]
+    host_top = sorted(host_ops, key=lambda e: -e.self_cpu_time_total)[:12]
     return {"phase": "train", "steps": steps, "timed_steps": TRAIN_STEPS,
             "shape": {"n_layers": N_LAYERS, "d": D, "heads": HEADS,
                       "ff": FF, "vocab": VOCAB, "b": TRAIN_B, "t": TRAIN_T,
@@ -2529,6 +2628,13 @@ def phase_train(params) -> tuple:
             "mfu": 6.0 * _n_matmul(N_LAYERS) * tokens_per_s / BF16_FLOPS,
             "peak_mem_bytes": peak,
             "fwd_launches": fwd, "bwd_launches": bwd,
+            "host_issue_ms": float(np.median(issue_ms)),
+            "host_profile": {
+                "self_cpu_ms": sum(e.self_cpu_time_total
+                                   for e in host_ops) / 1e3,
+                "top": [{"name": e.key[:60], "count": e.count,
+                         "self_cpu_ms": e.self_cpu_time_total / 1e3}
+                        for e in host_top]},
             "profile": {"steps": 2, "wall_ms_per_step": wall_ms,
                         "device_busy_ms_per_step": busy_ms or None,
                         "device_idle_share":

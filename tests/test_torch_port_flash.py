@@ -216,11 +216,14 @@ def test_supported_and_bound():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("head_dim", [64, 128])
 @pytest.mark.parametrize("causal", [False, True])
-def test_kernels_match_plain_on_card(dtype, head_dim, causal):
+@pytest.mark.parametrize("t", [17, 200, 1984])
+def test_kernels_match_plain_on_card(dtype, head_dim, causal, t):
+    """t 17 is shorter than one tile, 200 ragged, 1984 a multiple of 64
+    but not of the bf16 kernels' 128-row tiles."""
     if not torch.cuda.is_available():
         pytest.skip("the CUDA kernels run only on a card")
-    rng = np.random.default_rng(head_dim + causal)
-    q, k, v, do = (torch.tensor(rng.normal(size=(3, 200, head_dim)),
+    rng = np.random.default_rng(head_dim + causal + t)
+    q, k, v, do = (torch.tensor(rng.normal(size=(3, t, head_dim)),
                                 dtype=dtype, device="cuda")
                    for _ in range(4))
     before = kflash.fwd_launches, kflash.bwd_launches
@@ -229,6 +232,11 @@ def test_kernels_match_plain_on_card(dtype, head_dim, causal):
     grads = kflash.flash_attention_bwd(q, k, v, do, lse, delta, causal)
     assert (kflash.fwd_launches, kflash.bwd_launches) == \
         (before[0] + 1, before[1] + 1)
+    # deterministic: a second launch gives the same bits
+    o2, lse2 = kflash.flash_attention_fwd(q, k, v, causal)
+    grads2 = kflash.flash_attention_bwd(q, k, v, do, lse2, delta, causal)
+    for a, b in zip((o, lse) + tuple(grads), (o2, lse2) + tuple(grads2)):
+        assert torch.equal(a, b)
     o_p, lse_p = kflash.flash_attention_fwd_plain(q, k, v, causal)
     grads_p = kflash.flash_attention_bwd_plain(q, k, v, do, lse_p, delta,
                                                causal)

@@ -23,41 +23,65 @@
 // tile; at T = 2048, DH = 64 in bf16 that is ~512 flops per byte,
 // above the H100's ~295 ridge, so the least time is
 // pairs * {4, 10} * DH / 989 TFLOP/s (bf16 tensor cores; f32 runs on
-// the 67 TFLOP/s CUDA cores).
+// the 67 TFLOP/s CUDA cores).  The two-pass backward below recomputes
+// s and dp in its dq pass, 7 products a pair, so its own floor is 7/5
+// of that bound.
 //
-// Design (simple and right first; wgmma, TMA, warp specialisation and a
-// pipelined K/V ring are later work):
-//  - The TPU kernel keeps all of K and V for a head in VMEM and takes
-//    a whole-row softmax.  At T = 2048 that is more than a block's
-//    shared memory, so the forward runs one block per (q tile of 64
-//    rows, head) and walks 64-row K/V tiles with an online softmax
-//    (m, l, acc in f32), writing o and lse at the end.  A causal block
-//    stops at its diagonal tile: the tiles above it hold only masked
-//    scores, which add exactly 0.  Causal q tiles are scheduled
-//    heaviest first.
-//  - The TPU backward carries dk/dv across its sequential q grid axis
-//    in a revisited output block; GPU blocks have no such carry.  So
-//    the backward takes two passes, neither with atomics (hence
-//    deterministic): one block per (k tile, head) loops over q tiles
-//    (from the diagonal when causal) accumulating dk and dv in f32
-//    registers; one block per (q tile, head) loops over k tiles and
-//    writes dq.  Both rebuild p from lse.
-//  - bf16: tensor cores through mma.sync.m16n8k16 (bf16 in, f32
-//    accumulate), four warps of 16 rows each.  The score accumulators
-//    stay in registers and are repacked as the A operand of the next
-//    product (the m16n8 C layout equals the k16 A layout), so p and ds
-//    never touch shared memory.  Shared tiles have a row stride of
-//    DH + 8 halves, which makes every fragment load conflict-free.
+// Design.  The TPU kernel keeps all of K and V for a head in VMEM and
+// takes a whole-row softmax; its backward carries dk/dv across its
+// sequential q grid axis in a revisited output block.  Neither carries
+// over: a block has at most 227 KB of shared memory and GPU blocks run
+// in no order.  So:
+//  - bf16 (the training path): one block of two consumer warpgroups and
+//    one producer warp.  The producer issues TMA copies
+//    (cp.async.bulk.tensor) of 128-byte-swizzled tiles into a ring of
+//    shared-memory slots, completed on mbarriers; the consumers wait on
+//    a slot's "full" barrier, run wgmma on it and arrive on its "empty"
+//    barrier.  Operands are described by a 3-D tensor map (bh, t, dh),
+//    whose per-head bounds zero-fill the rows of a ragged last tile past
+//    t (a 2-D (bh t, dh) map would read the next head's rows there).
+//    The maps are encoded on the host with cuTensorMapEncodeTiled,
+//    fetched through cudaGetDriverEntryPoint, so the build links no
+//    driver library.  Each product is wgmma m64nNk16 (bf16 in, f32
+//    accumulate): scores with both operands K-major from shared memory;
+//    the products with p or ds take it from registers (the m64nN f32
+//    accumulator layout is the k16 A fragment layout) rounded to bf16,
+//    and the other operand through the transpose bit.
+//  - Forward: a block per (128 q rows, head), causal q tiles heaviest
+//    first; warpgroup w owns rows 64w..64w+63 and walks 128-key K/V
+//    tiles (a 3-slot ring) with an online softmax in base 2 on the raw
+//    scores (p = 2^(s c - m c), c = sm_scale log2 e: one FFMA a score),
+//    writing o and lse = m sm_scale + ln 2 log2(l) at the end.  A causal
+//    block stops at its diagonal tile; only that tile and a ragged last
+//    tile are masked (keys past t read as zero rows, so they are masked
+//    to -inf, not left at a score of 0).
+//  - Backward, two passes without atomics, so a launch is deterministic:
+//    dk/dv, a block per (128 keys, head), keeps K and V in shared memory
+//    and both accumulators in registers, and walks (Q, dO) tiles of BQ
+//    rows from the diagonal with their lse (in base 2, +inf past t, so
+//    p = 0 there) and delta staged beside them by the producer warp,
+//    in the transposed form s^T = k q^T, dp^T = v do^T, dv += p^T do,
+//    dk += ds^T q; dq, a block per (128 q rows, head), keeps Q and dO
+//    and walks BK-key K/V tiles to the diagonal.  Both rebuild p from
+//    lse.  BQ is 64 at dh 64 and 32 at dh 128, where dk and dv alone are
+//    2 x 64 f32 a thread; BK is 64.
+//  - Registers and spills (ptxas, sm_90a): a block of nine warps puts
+//    three on one of the SM's four register-file quarters, so 168 a
+//    thread at most (setmaxnreg did not lift ptxas's allocation).
+//    Forward 155 / 168 at dh 64 / 128 (wgmma serialised by ptxas at
+//    128), dk/dv 168 / 168, dq 126 / 158; no spills but dk/dv at dh 128
+//    (~308 bytes).  Forward 128 x 128 tiles in 3 slots; backward 2.
 //  - f32: CUDA-core FMAs in full f32 (no TF32), 256 threads each owning
-//    a 4 x 4 micro-tile of the 64 x 64 score tile, so f32 results stay
-//    within the reference's f32 bands.
-//  - A ragged last tile (T not a multiple of 64) is masked in the
-//    kernel: rows past T load as 0, keys past T score -1e30 (p = 0),
-//    and rows past T are never written.
+//    a 4 x 4 micro-tile of a 64 x 64 score tile, 64-row tiles loaded
+//    synchronously, so f32 results stay within the reference's f32
+//    bands.  Rows past T load as 0, keys past T score -1e30 (p = 0), and
+//    rows past T are never written.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <cstddef>
 #include <cstdint>
 
@@ -424,28 +448,126 @@ __global__ void __launch_bounds__(kScalarThreads)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 path: tensor cores through mma.sync.m16n8k16 (f32 accumulate)
+// bf16 path: TMA rings on mbarriers, wgmma, one producer warp
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaThreads = 128;  // four warps, 16 rows each
+constexpr int kGroups = 2;                        // consumer warpgroups
+constexpr int kSpecThreads = kGroups * 128 + 32;  // + the producer warp
+constexpr int kProducerWarp = kGroups * 4;
+constexpr int kRowBytes = 128;  // 64 bf16 columns: the swizzle span
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-// D += A . B for one m16n8k16 tile: A 16x16 row-major, B 16x8 "col"
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// until the phase of the given parity has completed; a wait of more
+// than ~2^34 cycles (seconds) traps, so a lost arrival or a short copy
+// fails the launch instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long start = clock64();
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > (1ll << 34)) __trap();
+  }
+}
+
+// columns [col, col + 64) of rows [row, row + box rows) of head `head` of
+// a (bh, t, dh) map into shared memory, 128-byte swizzled; rows at or
+// past t arrive as zeros (the map's bounds, per head)
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int row,
+                                         int head) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
+      "r"(head)
+      : "memory");
 }
 
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// an R x DH tile: DH / 64 column halves, each R rows of 128 bytes
+template <int DH, int R>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int row, int head) {
+#pragma unroll
+  for (int h = 0; h < DH / 64; ++h)
+    tma_load(dst + h * R * kRowBytes, map, bar, h * 64, row, head);
 }
 
-// two bf16 bit patterns into one register, lo in the low half
-__device__ __forceinline__ uint32_t pack_u16(uint16_t lo, uint16_t hi) {
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
+// wgmma descriptor of a 128-byte-swizzled operand at shared address
+// `addr` (layout 1 = 128-byte swizzle): 8-row groups 1024 bytes apart.
+// Every operand spans one 64-column swizzle atom in its contiguous
+// dimension, so the one offset that steps between atoms there is never
+// read; both offsets are set to the 8-row stride.
+__device__ __forceinline__ uint64_t sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (64ull << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// until at most N committed groups are in flight (they end in order)
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_wait() {
+  wgmma_commit();
+  wgmma_wait<0>();
+}
+
+// keeps the compiler from moving reads of wgmma results above the wait
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int H, int N>
+__device__ __forceinline__ void reg_fence(float (&d)[H][N]) {
+#pragma unroll
+  for (int h = 0; h < H; ++h) reg_fence(d[h]);
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // two f32 values rounded to bf16 (round to nearest even) in one register
@@ -454,419 +576,603 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// rows [r0, r0 + R) of a (t, DH) bf16 matrix into shared memory with row
-// stride DH + 8 halves (16-byte loads; rows at or past t are 0)
-template <int DH, int R>
-__device__ void copy_rows(uint16_t* dst, const uint16_t* src, int r0, int t) {
-  constexpr int CH = DH / 8;
-  for (int i = threadIdx.x; i < R * CH; i += blockDim.x) {
-    const int r = i / CH, c = i % CH;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < t)
-      val = *reinterpret_cast<const uint4*>(
-          src + static_cast<size_t>(r0 + r) * DH + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * (DH + 8) + c * 8) = val;
-  }
-}
-
-// Fragment coordinates (PTX ISA, mma.m16n8k16): lane = 4 * g + tg.
-// A (16 x 16): a0 (g, 2tg..), a1 (g + 8, 2tg..), a2 (g, 2tg + 8..),
-// a3 (g + 8, 2tg + 8..).  B (16 x 8): b0 (k = 2tg.., n = g),
-// b1 (k = 2tg + 8.., n = g).  C (16 x 8): c0, c1 (g, 2tg..),
-// c2, c3 (g + 8, 2tg..).
-
-// A from a row-major shared matrix, rows r0.., columns c0..
-template <int S>
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const uint16_t* M,
-                                       int r0, int c0, int g, int tg) {
-  a[0] = ld32(M + (r0 + g) * S + c0 + 2 * tg);
-  a[1] = ld32(M + (r0 + g + 8) * S + c0 + 2 * tg);
-  a[2] = ld32(M + (r0 + g) * S + c0 + 8 + 2 * tg);
-  a[3] = ld32(M + (r0 + g + 8) * S + c0 + 8 + 2 * tg);
-}
-
-// B[kk][n] = M[n0 + n][k0 + kk]: the rows of M are B's columns
-template <int S>
-__device__ __forceinline__ void frag_b_rows(uint32_t& b0, uint32_t& b1,
-                                            const uint16_t* M, int n0, int k0,
-                                            int g, int tg) {
-  b0 = ld32(M + (n0 + g) * S + k0 + 2 * tg);
-  b1 = ld32(M + (n0 + g) * S + k0 + 8 + 2 * tg);
-}
-
-// B[kk][n] = M[k0 + kk][n0 + n]: the rows of M are B's rows
-template <int S>
-__device__ __forceinline__ void frag_b_cols(uint32_t& b0, uint32_t& b1,
-                                            const uint16_t* M, int k0, int n0,
-                                            int g, int tg) {
-  const uint16_t* p = M + (k0 + 2 * tg) * S + n0 + g;
-  b0 = pack_u16(p[0], p[S]);
-  b1 = pack_u16(p[8 * S], p[9 * S]);
-}
-
-// C tiles j = 2kk, 2kk + 1 (columns 16kk .. 16kk + 15), rounded to bf16,
-// as the A operand of the next product
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                         const float (&c1)[4]) {
-  a[0] = pack_f32(c0[0], c0[1]);
-  a[1] = pack_f32(c0[2], c0[3]);
-  a[2] = pack_f32(c1[0], c1[1]);
-  a[3] = pack_f32(c1[2], c1[3]);
-}
-
 __device__ __forceinline__ void store_pair(uint16_t* p, float lo, float hi) {
   *reinterpret_cast<uint32_t*>(p) = pack_f32(lo, hi);
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_fwd_bf16(const uint16_t* __restrict__ q,
-                   const uint16_t* __restrict__ k,
-                   const uint16_t* __restrict__ v, uint16_t* __restrict__ o,
-                   float* __restrict__ lse, int t, int causal,
-                   float sm_scale) {
-  constexpr int S = DH + 8, KS = DH / 16, ND = DH / 8, NJ = kTile / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* Qs = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* Ks = Qs + kTile * S;
-  uint16_t* Vs = Ks + kTile * S;
+// wgmma m64nNk16, bf16 in, f32 accumulate (N = 2 x the accumulator's
+// length): D (+)= A(64 x 16) . B(16 x N), both K-major in shared memory;
+// `accumulate` 0 overwrites D
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 
-  const int nq = (t + kTile - 1) / kTile;
-  const int qt = nq - 1 - static_cast<int>(blockIdx.x);
-  const int q0 = qt * kTile;
-  const size_t rb = static_cast<size_t>(blockIdx.y) * t;
-  const size_t base = rb * DH;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tg = lane % 4;
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 
-  copy_rows<DH, kTile>(Qs, q + base, q0, t);
-  __syncthreads();
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-    frag_a<S>(qa[kk], Qs, warp * 16, kk * 16, g, tg);
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 
-  float m0 = kMaskValue, m1 = kMaskValue, l0 = 0.f, l1 = 0.f;
-  float oacc[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[nd][e] = 0.f;
+// D(64 x 64) (+)= A(64 x 16) . B(16 x 64): A in registers (the k16
+// fragment layout), B MN-major in shared memory (the transpose bit)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
 
-  const int nk = causal ? qt + 1 : nq;
-  for (int kt = 0; kt < nk; ++kt) {
-    __syncthreads();
-    copy_rows<DH, kTile>(Ks, k + base, kt * kTile, t);
-    copy_rows<DH, kTile>(Vs, v + base, kt * kTile, t);
-    __syncthreads();
-    float sacc[NJ][4];
+// Accumulator layout of m64nN (f32): warp w of the group, lane 4g + tg;
+// d[4j + e] is row 16w + g + 8(e >> 1), column 8j + 2tg + (e & 1).
+
+// D(64 x N) = A(64 x DH) . B(N x DH)^T, both K-major (dh contiguous):
+// A is rows [ra, ra + 64) of an RA-row tile at `a`, B an N-row tile at
+// `b`.  The k16 steps walk 32 bytes into a swizzle atom, then the next
+// 64-column half.
+template <int DH, int RA, int N>
+__device__ __forceinline__ void gemm_nt(float (&d)[N / 2], uint32_t a, int ra,
+                                        uint32_t b) {
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sacc[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        uint32_t b0, b1;
-        frag_b_rows<S>(b0, b1, Ks, j * 8, kk * 16, g, tg);
-        mma16816(sacc[j], qa[kk], b0, b1);
-      }
-    float mx0 = kMaskValue, mx1 = kMaskValue;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kt * kTile + j * 8 + 2 * tg + (e & 1);
-        const int row = e < 2 ? row0 : row1;
-        const float s =
-            dead(row, key, t, causal) ? kMaskValue : sacc[j][e] * sm_scale;
-        sacc[j][e] = s;
-        if (e < 2)
-          mx0 = fmaxf(mx0, s);
-        else
-          mx1 = fmaxf(mx1, s);
-      }
-#pragma unroll
-    for (int w = 1; w < 4; w <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, w));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, w));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      sacc[j][0] = expf(sacc[j][0] - mn0);
-      sacc[j][1] = expf(sacc[j][1] - mn0);
-      sacc[j][2] = expf(sacc[j][2] - mn1);
-      sacc[j][3] = expf(sacc[j][3] - mn1);
-      rs0 += sacc[j][0] + sacc[j][1];
-      rs1 += sacc[j][2] + sacc[j][3];
-    }
-    // partial row sums: the quad's four lanes share alpha, so they sum
-    // once at the end
-    l0 = l0 * a0 + rs0;
-    l1 = l1 * a1 + rs1;
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      oacc[nd][0] *= a0;
-      oacc[nd][1] *= a0;
-      oacc[nd][2] *= a1;
-      oacc[nd][3] *= a1;
-    }
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t pa[4];
-      acc_to_a(pa, sacc[2 * kk], sacc[2 * kk + 1]);
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd) {
-        uint32_t b0, b1;
-        frag_b_cols<S>(b0, b1, Vs, kk * 16, nd * 8, g, tg);
-        mma16816(oacc[nd], pa, b0, b1);
-      }
-    }
-  }
-#pragma unroll
-  for (int w = 1; w < 4; w <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, w);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, w);
-  }
-  if (row0 < t) {
-    uint16_t* orow = o + base + static_cast<size_t>(row0) * DH + 2 * tg;
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
-      store_pair(orow + nd * 8, oacc[nd][0] / l0, oacc[nd][1] / l0);
-    if (tg == 0) lse[rb + row0] = m0 + logf(l0);
-  }
-  if (row1 < t) {
-    uint16_t* orow = o + base + static_cast<size_t>(row1) * DH + 2 * tg;
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
-      store_pair(orow + nd * 8, oacc[nd][2] / l1, oacc[nd][3] / l1);
-    if (tg == 0) lse[rb + row1] = m1 + logf(l1);
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    const uint32_t h = kk / 4, in = (kk % 4) * 32;
+    wgmma_ss(d, sw128(a + h * RA * kRowBytes + ra * kRowBytes + in),
+             sw128(b + h * N * kRowBytes + in), kk > 0);
   }
 }
 
-// dk/dv: one block per (k tile of 64 keys, head); each warp owns 16 keys
-// and walks q tiles of BQ rows with the transposed scores s^T = k . q^T
-template <int DH, int BQ>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_bwd_dkdv_bf16(const uint16_t* __restrict__ q,
-                        const uint16_t* __restrict__ k,
-                        const uint16_t* __restrict__ v,
-                        const uint16_t* __restrict__ dout,
+// an f32 accumulator of 64 x K rounded to bf16 as the A fragments of
+// K / 16 k16 steps (its m16n8 C layout is the k16 A layout)
+template <int K>
+__device__ __forceinline__ void to_frags(uint32_t (&a)[K / 16][4],
+                                         const float (&p)[K / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[kk][i] = pack_f32(p[8 * kk + 2 * i], p[8 * kk + 2 * i + 1]);
+}
+
+// D(64 x DH) += P(64 x K) . B(K x DH): P as bf16 A fragments, B a K-row
+// tile at `b` read MN-major (the transpose bit), one n64 product per
+// 64-column half
+template <int DH, int K>
+__device__ __forceinline__ void gemm_pv(float (&d)[DH / 64][32],
+                                        const uint32_t (&a)[K / 16][4],
+                                        uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+#pragma unroll
+    for (int h = 0; h < DH / 64; ++h)
+      wgmma_rs(d[h], a[kk],
+               sw128(b + h * K * kRowBytes + kk * 16 * kRowBytes), 1);
+}
+
+// the same with P an f32 accumulator, rounded here
+template <int DH, int K>
+__device__ __forceinline__ void gemm_pv(float (&d)[DH / 64][32],
+                                        const float (&p)[K / 2], uint32_t b) {
+  uint32_t a[K / 16][4];
+  to_frags<K>(a, p);
+  gemm_pv<DH, K>(d, a, b);
+}
+
+// One tile of the forward's online softmax, in base 2 on the raw scores
+// of rows r0 and r0 + 8 (accumulator entries e < 2 and e >= 2): where
+// `masked`, keys at or past t and causal keys past the row score -inf;
+// the running max m and sum l are updated, p replaces the scores, and
+// the two factors that rescale the earlier accumulators are returned.
+// The first tile holds a live key (key 0) for every row, so the max is
+// finite from there on and the first tile's factor is 2^-inf = 0; a
+// later tile with no live key for a row gives it p = 0 and factor 1.
+template <int K>
+__device__ __forceinline__ float2 online_softmax(float (&sc)[K / 2],
+                                                 float (&m)[2], float (&l)[2],
+                                                 bool masked, int k0, int r0,
+                                                 int t, int causal, int tg,
+                                                 float c) {
+  if (masked) {
+#pragma unroll
+    for (int j = 0; j < K / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * j + 2 * tg + (e & 1);
+        if (key >= t || (causal && key > r0 + 8 * (e >> 1)))
+          sc[4 * j + e] = -INFINITY;
+      }
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < K / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      mx[i] = fmaxf(mx[i], fmaxf(sc[4 * j + 2 * i], sc[4 * j + 2 * i + 1]));
+  float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int w = 1; w < 4; w <<= 1)
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], w));
+    alpha[i] = exp2_approx((m[i] - mx[i]) * c);
+    m[i] = mx[i];
+    mx[i] *= c;
+  }
+#pragma unroll
+  for (int j = 0; j < K / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[4 * j + e] = exp2_approx(fmaf(sc[4 * j + e], c, -mx[e >> 1]));
+      rs[e >> 1] += sc[4 * j + e];
+    }
+  // partial row sums: the quad's four lanes share alpha, so they sum
+  // once at the end
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
+  return make_float2(alpha[0], alpha[1]);
+}
+
+template <int DH>
+__device__ __forceinline__ void rescale(float (&d)[DH / 64][32],
+                                        float2 alpha) {
+#pragma unroll
+  for (int h = 0; h < DH / 64; ++h)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      d[h][4 * j] *= alpha.x;
+      d[h][4 * j + 1] *= alpha.x;
+      d[h][4 * j + 2] *= alpha.y;
+      d[h][4 * j + 3] *= alpha.y;
+    }
+}
+
+// rows r0 (lane's g) and r0 + 8 of a (.., DH) accumulator to bf16 rows,
+// each scaled by its factor; rows at or past t are not written
+template <int DH>
+__device__ __forceinline__ void store_rows(uint16_t* out,
+                                           const float (&d)[DH / 64][32],
+                                           int r0, int t, int tg, float f0,
+                                           float f1) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 8 * half;
+    if (r >= t) continue;
+    const float f = half ? f1 : f0;
+    uint16_t* row = out + static_cast<size_t>(r) * DH + 2 * tg;
+#pragma unroll
+    for (int h = 0; h < DH / 64; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        store_pair(row + h * 64 + 8 * j, d[h][4 * j + 2 * half] * f,
+                   d[h][4 * j + 2 * half + 1] * f);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+template <int H, int N>
+__device__ __forceinline__ void zero(float (&d)[H][N]) {
+#pragma unroll
+  for (int h = 0; h < H; ++h) zero(d[h]);
+}
+
+// shared memory: a header (barriers, staged rows) at the start, then the
+// tiles from the next 1024-byte boundary (the swizzle atom; TMA and
+// wgmma both read the swizzle from the address bits)
+__device__ __forceinline__ uint32_t tiles_base(uint32_t base, int header) {
+  return (base + header + 1023) & ~1023u;
+}
+
+// Forward: one block per (128 query rows, head), heaviest causal q tile
+// first.  Warpgroup wg owns rows [64 wg, 64 wg + 64) of the q tile; the
+// producer warp loads Q once and streams 128-key K/V tiles through a ring
+// of STAGES slots.  The online softmax is in base 2 on the unscaled
+// scores: p = 2^(s c - m c) with c = sm_scale log2(e), one FFMA each.
+template <int DH, int BK, int STAGES>
+__global__ void __launch_bounds__(kSpecThreads, 1)
+    flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   uint16_t* __restrict__ o, float* __restrict__ lse, int t,
+                   int causal, float sm_scale) {
+  constexpr int BQ = 128;
+  constexpr uint32_t QB = BQ * DH * 2, KB = BK * DH * 2;
+  extern __shared__ __align__(1024) unsigned char smem_tma[];
+  const uint32_t base = smem_u32(smem_tma);
+  const uint32_t full = base, empty = base + 8 * STAGES,
+                 qbar = base + 16 * STAGES;
+  const uint32_t sq = tiles_base(base, 16 * STAGES + 8);
+  const uint32_t sk0 = sq + QB;  // slot s: K at sk0 + 2 s KB, V after it
+
+  const int nq = (t + BQ - 1) / BQ;
+  const int qt = nq - 1 - static_cast<int>(blockIdx.x);
+  const int q0 = qt * BQ, head = blockIdx.y;
+  const int nk_all = (t + BK - 1) / BK;
+  const int nk_diag = (q0 + BQ - 1) / BK + 1;
+  const int nk = causal && nk_diag < nk_all ? nk_diag : nk_all;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kGroups * 4);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kProducerWarp) {
+    if (lane == 0) {
+      mbar_expect_tx(qbar, QB);
+      tma_tile<DH, BQ>(sq, &qmap, qbar, q0, head);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % STAGES;
+        if (kt >= STAGES) mbar_wait(empty + 8 * s, (kt / STAGES - 1) & 1);
+        const uint32_t sk = sk0 + 2 * s * KB;
+        mbar_expect_tx(full + 8 * s, 2 * KB);
+        tma_tile<DH, BK>(sk, &kmap, full + 8 * s, kt * BK, head);
+        tma_tile<DH, BK>(sk + KB, &vmap, full + 8 * s, kt * BK, head);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4, g = lane / 4, tg = lane % 4;
+  const int row0 = q0 + wg * 64 + (warp % 4) * 16 + g;
+  const float c = sm_scale * kLog2e;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[DH / 64][32], sc[BK / 2];
+  zero(acc);
+  mbar_wait(qbar, 0);
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % STAGES, k0 = kt * BK;
+    const uint32_t sk = sk0 + 2 * s * KB;
+    mbar_wait(full + 8 * s, (kt / STAGES) & 1);
+    wgmma_fence();
+    gemm_nt<DH, BQ, BK>(sc, sq, wg * 64, sk);
+    wgmma_commit_wait();
+    reg_fence(sc);
+    // only the tiles that reach past q0 and a ragged last tile hold dead
+    // keys
+    rescale<DH>(acc, online_softmax<BK>(
+                         sc, m, l, (causal && k0 + BK - 1 > q0) || k0 + BK > t,
+                         k0, row0, t, causal, tg, c));
+    wgmma_fence();
+    gemm_pv<DH, BK>(acc, sc, sk + KB);
+    wgmma_commit_wait();
+    reg_fence(acc);
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int w = 1; w < 4; w <<= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], w);
+  const size_t rb = static_cast<size_t>(head) * t;
+  store_rows<DH>(o + rb * DH, acc, row0, t, tg, 1.f / l[0], 1.f / l[1]);
+  if (tg == 0)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (row0 + 8 * i < t)
+        lse[rb + row0 + 8 * i] = m[i] * sm_scale + log2f(l[i]) * kLn2;
+}
+
+// dk/dv: one block per (128 keys, head); warpgroup wg owns keys
+// [64 wg, 64 wg + 64) and keeps its dk and dv accumulators in registers
+// to the end.  The producer warp loads K and V once and streams BQ-row
+// (Q, dO) tiles, with their lse (as lse log2(e); +inf past t, so p = 0
+// there) and delta staged beside them, from the diagonal when causal.
+// Transposed scores: s^T = k . q^T and dp^T = v . do^T.
+template <int DH, int BQ, int STAGES>
+__global__ void __launch_bounds__(kSpecThreads, 1)
+    flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
+                        const __grid_constant__ CUtensorMap domap,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         uint16_t* __restrict__ dk, uint16_t* __restrict__ dv,
                         int t, int causal, float sm_scale) {
-  constexpr int S = DH + 8, KS = DH / 16, ND = DH / 8, NJ = BQ / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* Ks = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* Vs = Ks + kTile * S;
-  uint16_t* Qs = Vs + kTile * S;
-  uint16_t* dOs = Qs + BQ * S;
-  float* ls = reinterpret_cast<float*>(dOs + BQ * S);
-  float* dl = ls + BQ;
+  constexpr int BK = 128;
+  constexpr uint32_t QB = BQ * DH * 2, KB = BK * DH * 2;
+  constexpr int HEADER = 16 * STAGES + 8 + STAGES * 2 * BQ * 4;
+  extern __shared__ __align__(1024) unsigned char smem_tma[];
+  const uint32_t base = smem_u32(smem_tma);
+  const uint32_t full = base, empty = base + 8 * STAGES,
+                 kvbar = base + 16 * STAGES;
+  float* stats = reinterpret_cast<float*>(smem_tma + 16 * STAGES + 8);
+  const uint32_t sk = tiles_base(base, HEADER), sv = sk + KB;
+  const uint32_t sq0 = sv + KB;  // slot s: Q at sq0 + 2 s QB, dO after it
 
-  const int k0 = static_cast<int>(blockIdx.x) * kTile;
-  const size_t rb = static_cast<size_t>(blockIdx.y) * t;
-  const size_t base = rb * DH;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tg = lane % 4;
-  const int key0 = k0 + warp * 16 + g, key1 = key0 + 8;
-
-  copy_rows<DH, kTile>(Ks, k + base, k0, t);
-  copy_rows<DH, kTile>(Vs, v + base, k0, t);
-  float dka[ND][4], dva[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[nd][e] = dva[nd][e] = 0.f;
-
+  const int k0 = static_cast<int>(blockIdx.x) * BK, head = blockIdx.y;
+  const size_t rb = static_cast<size_t>(head) * t;
   const int nqt = (t + BQ - 1) / BQ;
-  for (int qt = causal ? k0 / BQ : 0; qt < nqt; ++qt) {
-    const int q0 = qt * BQ;
-    __syncthreads();
-    copy_rows<DH, BQ>(Qs, q + base, q0, t);
-    copy_rows<DH, BQ>(dOs, dout + base, q0, t);
-    for (int i = threadIdx.x; i < BQ; i += blockDim.x) {
-      const bool live = q0 + i < t;
-      ls[i] = live ? lse[rb + q0 + i] : 0.f;
-      dl[i] = live ? delta[rb + q0 + i] : 0.f;
+  const int qt0 = causal ? k0 / BQ : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 32);  // the producer's lanes
+      mbar_init(empty + 8 * s, kGroups * 4);
     }
-    __syncthreads();
-    float sacc[NJ][4], dpacc[NJ][4];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sacc[j][e] = dpacc[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t ka[4], va[4];
-      frag_a<S>(ka, Ks, warp * 16, kk * 16, g, tg);
-      frag_a<S>(va, Vs, warp * 16, kk * 16, g, tg);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        uint32_t b0, b1;
-        frag_b_rows<S>(b0, b1, Qs, j * 8, kk * 16, g, tg);
-        mma16816(sacc[j], ka, b0, b1);
-        frag_b_rows<S>(b0, b1, dOs, j * 8, kk * 16, g, tg);
-        mma16816(dpacc[j], va, b0, b1);
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kProducerWarp) {
+    if (lane == 0) {
+      mbar_expect_tx(kvbar, 2 * KB);
+      tma_tile<DH, BK>(sk, &kmap, kvbar, k0, head);
+      tma_tile<DH, BK>(sv, &vmap, kvbar, k0, head);
+    }
+    for (int qt = qt0, i = 0; qt < nqt; ++qt, ++i) {
+      const int s = i % STAGES, q0 = qt * BQ;
+      if (i >= STAGES) mbar_wait(empty + 8 * s, (i / STAGES - 1) & 1);
+      float* ls = stats + s * 2 * BQ;
+      for (int r = lane; r < BQ; r += 32) {
+        const bool live = q0 + r < t;
+        ls[r] = live ? lse[rb + q0 + r] * kLog2e : INFINITY;
+        ls[BQ + r] = live ? delta[rb + q0 + r] : 0.f;
+      }
+      if (lane == 0) {
+        const uint32_t sq = sq0 + 2 * s * QB;
+        mbar_expect_tx(full + 8 * s, 2 * QB);
+        tma_tile<DH, BQ>(sq, &qmap, full + 8 * s, q0, head);
+        tma_tile<DH, BQ>(sq + QB, &domap, full + 8 * s, q0, head);
+      } else {
+        mbar_arrive(full + 8 * s);
       }
     }
-    // p in place of s, ds in place of dp (both f32, unrounded)
+    return;
+  }
+
+  const int wg = warp / 4, g = lane / 4, tg = lane % 4;
+  const int key0 = k0 + wg * 64 + (warp % 4) * 16 + g, key1 = key0 + 8;
+  const float c = sm_scale * kLog2e;
+  float dka[DH / 64][32], dva[DH / 64][32];
+  zero(dka);
+  zero(dva);
+  mbar_wait(kvbar, 0);
+
+  for (int qt = qt0, i = 0; qt < nqt; ++qt, ++i) {
+    const int s = i % STAGES, q0 = qt * BQ;
+    const uint32_t sq = sq0 + 2 * s * QB;
+    mbar_wait(full + 8 * s, (i / STAGES) & 1);
+    const float* ls = stats + s * 2 * BQ;
+    const float* dl = ls + BQ;
+    float st[BQ / 2], dpt[BQ / 2];
+    wgmma_fence();
+    gemm_nt<DH, BK, BQ>(st, sk, wg * 64, sq);
+    gemm_nt<DH, BK, BQ>(dpt, sv, wg * 64, sq + QB);
+    wgmma_commit_wait();
+    reg_fence(st);
+    reg_fence(dpt);
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
+    for (int j = 0; j < BQ / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + 2 * tg + (e & 1), qi = q0 + col;
-        const int key = e < 2 ? key0 : key1;
-        const float p = dead(qi, key, t, causal) || qi >= t
-                            ? 0.f
-                            : expf(sacc[j][e] * sm_scale - ls[col]);
-        sacc[j][e] = p;
-        dpacc[j][e] = p * (dpacc[j][e] - dl[col]) * sm_scale;
+        const int col = 8 * j + 2 * tg + (e & 1);
+        st[4 * j + e] = exp2_approx(fmaf(st[4 * j + e], c, -ls[col]));
       }
+    // only the q tiles that overlap this block's keys hold dead pairs
+    if (causal && q0 < k0 + BK) {
 #pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t pa[4], da[4];
-      acc_to_a(pa, sacc[2 * kk], sacc[2 * kk + 1]);
-      acc_to_a(da, dpacc[2 * kk], dpacc[2 * kk + 1]);
+      for (int j = 0; j < BQ / 8; ++j)
 #pragma unroll
-      for (int nd = 0; nd < ND; ++nd) {
-        uint32_t b0, b1;
-        frag_b_cols<S>(b0, b1, dOs, kk * 16, nd * 8, g, tg);
-        mma16816(dva[nd], pa, b0, b1);
-        frag_b_cols<S>(b0, b1, Qs, kk * 16, nd * 8, g, tg);
-        mma16816(dka[nd], da, b0, b1);
+        for (int e = 0; e < 4; ++e)
+          if ((e < 2 ? key0 : key1) > q0 + 8 * j + 2 * tg + (e & 1))
+            st[4 * j + e] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * tg + (e & 1);
+        dpt[4 * j + e] =
+            st[4 * j + e] * (dpt[4 * j + e] - dl[col]) * sm_scale;
       }
-    }
+    wgmma_fence();
+    gemm_pv<DH, BQ>(dva, st, sq + QB);
+    gemm_pv<DH, BQ>(dka, dpt, sq);
+    wgmma_commit_wait();
+    reg_fence(dka);
+    reg_fence(dva);
+    if (lane == 0) mbar_arrive(empty + 8 * s);
   }
-  if (key0 < t) {
-    const size_t row = base + static_cast<size_t>(key0) * DH + 2 * tg;
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      store_pair(dk + row + nd * 8, dka[nd][0], dka[nd][1]);
-      store_pair(dv + row + nd * 8, dva[nd][0], dva[nd][1]);
-    }
-  }
-  if (key1 < t) {
-    const size_t row = base + static_cast<size_t>(key1) * DH + 2 * tg;
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      store_pair(dk + row + nd * 8, dka[nd][2], dka[nd][3]);
-      store_pair(dv + row + nd * 8, dva[nd][2], dva[nd][3]);
-    }
-  }
+  store_rows<DH>(dk + rb * DH, dka, key0, t, tg, 1.f, 1.f);
+  store_rows<DH>(dv + rb * DH, dva, key0, t, tg, 1.f, 1.f);
 }
 
-// dq: one block per (q tile of 64 rows, head); each warp owns 16 rows and
-// walks k tiles of BK keys up to the diagonal
-template <int DH, int BK>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_bwd_dq_bf16(const uint16_t* __restrict__ q,
-                      const uint16_t* __restrict__ k,
-                      const uint16_t* __restrict__ v,
-                      const uint16_t* __restrict__ dout,
+// dq: one block per (128 query rows, head), heaviest causal q tile first;
+// warpgroup wg owns rows [64 wg, 64 wg + 64).  The producer warp loads Q
+// and dO once and streams BK-key K/V tiles up to the diagonal.
+template <int DH, int BK, int STAGES>
+__global__ void __launch_bounds__(kSpecThreads, 1)
+    flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const __grid_constant__ CUtensorMap domap,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta,
                       uint16_t* __restrict__ dq, int t, int causal,
                       float sm_scale) {
-  constexpr int S = DH + 8, KS = DH / 16, ND = DH / 8, NJ = BK / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* Qs = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* dOs = Qs + kTile * S;
-  uint16_t* Ks = dOs + kTile * S;
-  uint16_t* Vs = Ks + BK * S;
+  constexpr int BQ = 128;
+  constexpr uint32_t QB = BQ * DH * 2, KB = BK * DH * 2;
+  extern __shared__ __align__(1024) unsigned char smem_tma[];
+  const uint32_t base = smem_u32(smem_tma);
+  const uint32_t full = base, empty = base + 8 * STAGES,
+                 qbar = base + 16 * STAGES;
+  const uint32_t sq = tiles_base(base, 16 * STAGES + 8), sdo = sq + QB;
+  const uint32_t sk0 = sdo + QB;  // slot s: K at sk0 + 2 s KB, V after it
 
-  const int nq = (t + kTile - 1) / kTile;
+  const int nq = (t + BQ - 1) / BQ;
   const int qt = nq - 1 - static_cast<int>(blockIdx.x);
-  const int q0 = qt * kTile;
-  const size_t rb = static_cast<size_t>(blockIdx.y) * t;
-  const size_t base = rb * DH;
+  const int q0 = qt * BQ, head = blockIdx.y;
+  const size_t rb = static_cast<size_t>(head) * t;
+  const int nk_all = (t + BK - 1) / BK;
+  const int nk_diag = (q0 + BQ - 1) / BK + 1;
+  const int nk = causal && nk_diag < nk_all ? nk_diag : nk_all;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tg = lane % 4;
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-  const float lr0 = row0 < t ? lse[rb + row0] : 0.f;
-  const float lr1 = row1 < t ? lse[rb + row1] : 0.f;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kGroups * 4);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kProducerWarp) {
+    if (lane == 0) {
+      mbar_expect_tx(qbar, 2 * QB);
+      tma_tile<DH, BQ>(sq, &qmap, qbar, q0, head);
+      tma_tile<DH, BQ>(sdo, &domap, qbar, q0, head);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % STAGES;
+        if (kt >= STAGES) mbar_wait(empty + 8 * s, (kt / STAGES - 1) & 1);
+        const uint32_t sk = sk0 + 2 * s * KB;
+        mbar_expect_tx(full + 8 * s, 2 * KB);
+        tma_tile<DH, BK>(sk, &kmap, full + 8 * s, kt * BK, head);
+        tma_tile<DH, BK>(sk + KB, &vmap, full + 8 * s, kt * BK, head);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4, g = lane / 4, tg = lane % 4;
+  const int row0 = q0 + wg * 64 + (warp % 4) * 16 + g, row1 = row0 + 8;
+  const float c = sm_scale * kLog2e;
+  // lse in base 2, +inf past t (p = 0 there); delta 0 past t
+  const float lr0 = row0 < t ? lse[rb + row0] * kLog2e : INFINITY;
+  const float lr1 = row1 < t ? lse[rb + row1] * kLog2e : INFINITY;
   const float dr0 = row0 < t ? delta[rb + row0] : 0.f;
   const float dr1 = row1 < t ? delta[rb + row1] : 0.f;
+  float dqa[DH / 64][32];
+  zero(dqa);
+  mbar_wait(qbar, 0);
 
-  copy_rows<DH, kTile>(Qs, q + base, q0, t);
-  copy_rows<DH, kTile>(dOs, dout + base, q0, t);
-  float dqa[ND][4];
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % STAGES, kb = kt * BK;
+    const uint32_t sk = sk0 + 2 * s * KB;
+    mbar_wait(full + 8 * s, (kt / STAGES) & 1);
+    float sc[BK / 2], dp[BK / 2];
+    wgmma_fence();
+    gemm_nt<DH, BQ, BK>(sc, sq, wg * 64, sk);
+    wgmma_commit();
+    gemm_nt<DH, BQ, BK>(dp, sdo, wg * 64, sk + KB);
+    wgmma_commit();
+    wgmma_wait<1>();  // s; dp may still run
+    reg_fence(sc);
 #pragma unroll
-  for (int nd = 0; nd < ND; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqa[nd][e] = 0.f;
-
-  const int nkt_all = (t + BK - 1) / BK;
-  const int nkt_diag = (q0 + kTile - 1) / BK + 1;
-  const int nkt = causal && nkt_diag < nkt_all ? nkt_diag : nkt_all;
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int kb = kt * BK;
-    __syncthreads();
-    copy_rows<DH, BK>(Ks, k + base, kb, t);
-    copy_rows<DH, BK>(Vs, v + base, kb, t);
-    __syncthreads();
-    float sacc[NJ][4], dpacc[NJ][4];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sacc[j][e] = dpacc[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t qa[4], oa[4];
-      frag_a<S>(qa, Qs, warp * 16, kk * 16, g, tg);
-      frag_a<S>(oa, dOs, warp * 16, kk * 16, g, tg);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        uint32_t b0, b1;
-        frag_b_rows<S>(b0, b1, Ks, j * 8, kk * 16, g, tg);
-        mma16816(sacc[j], qa, b0, b1);
-        frag_b_rows<S>(b0, b1, Vs, j * 8, kk * 16, g, tg);
-        mma16816(dpacc[j], oa, b0, b1);
-      }
+    for (int j = 0; j < BK / 8; ++j) {
+      sc[4 * j] = exp2_approx(fmaf(sc[4 * j], c, -lr0));
+      sc[4 * j + 1] = exp2_approx(fmaf(sc[4 * j + 1], c, -lr0));
+      sc[4 * j + 2] = exp2_approx(fmaf(sc[4 * j + 2], c, -lr1));
+      sc[4 * j + 3] = exp2_approx(fmaf(sc[4 * j + 3], c, -lr1));
     }
+    // dead keys: causal tiles that reach past q0, a ragged last tile
+    if ((causal && kb + BK - 1 > q0) || kb + BK > t) {
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
+      for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kb + j * 8 + 2 * tg + (e & 1);
-        const int row = e < 2 ? row0 : row1;
-        const float p = dead(row, key, t, causal) || row >= t
-                            ? 0.f
-                            : expf(sacc[j][e] * sm_scale - (e < 2 ? lr0 : lr1));
-        dpacc[j][e] = p * (dpacc[j][e] - (e < 2 ? dr0 : dr1)) * sm_scale;
-      }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t da[4];
-      acc_to_a(da, dpacc[2 * kk], dpacc[2 * kk + 1]);
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd) {
-        uint32_t b0, b1;
-        frag_b_cols<S>(b0, b1, Ks, kk * 16, nd * 8, g, tg);
-        mma16816(dqa[nd], da, b0, b1);
-      }
+        for (int e = 0; e < 4; ++e) {
+          const int key = kb + 8 * j + 2 * tg + (e & 1);
+          if (key >= t || (causal && key > (e < 2 ? row0 : row1)))
+            sc[4 * j + e] = 0.f;
+        }
     }
-  }
-  if (row0 < t) {
-    uint16_t* row = dq + base + static_cast<size_t>(row0) * DH + 2 * tg;
+    wgmma_wait<0>();
+    reg_fence(dp);
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
-      store_pair(row + nd * 8, dqa[nd][0], dqa[nd][1]);
+    for (int j = 0; j < BK / 8; ++j) {
+      dp[4 * j] = sc[4 * j] * (dp[4 * j] - dr0) * sm_scale;
+      dp[4 * j + 1] = sc[4 * j + 1] * (dp[4 * j + 1] - dr0) * sm_scale;
+      dp[4 * j + 2] = sc[4 * j + 2] * (dp[4 * j + 2] - dr1) * sm_scale;
+      dp[4 * j + 3] = sc[4 * j + 3] * (dp[4 * j + 3] - dr1) * sm_scale;
+    }
+    wgmma_fence();
+    gemm_pv<DH, BK>(dqa, dp, sk);
+    wgmma_commit_wait();
+    reg_fence(dqa);
+    if (lane == 0) mbar_arrive(empty + 8 * s);
   }
-  if (row1 < t) {
-    uint16_t* row = dq + base + static_cast<size_t>(row1) * DH + 2 * tg;
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
-      store_pair(row + nd * 8, dqa[nd][2], dqa[nd][3]);
-  }
+  store_rows<DH>(dq + rb * DH, dqa, row0, t, tg, 1.f, 1.f);
 }
 
 // ---------------------------------------------------------------------------
@@ -911,19 +1217,6 @@ cudaError_t fwd_f32(const void* q, const void* k, const void* v, void* o,
 }
 
 template <int DH>
-cudaError_t fwd_bf16(const void* q, const void* k, const void* v, void* o,
-                     void* lse, int bh, int t, int causal, float scale,
-                     cudaStream_t s) {
-  const dim3 grid((t + kTile - 1) / kTile, bh);
-  const size_t smem = 3 * kTile * (DH + 8) * sizeof(uint16_t);
-  return launch(flash_fwd_bf16<DH>, grid, kMmaThreads, smem, s,
-                static_cast<const uint16_t*>(q),
-                static_cast<const uint16_t*>(k),
-                static_cast<const uint16_t*>(v), static_cast<uint16_t*>(o),
-                static_cast<float*>(lse), t, causal, scale);
-}
-
-template <int DH>
 cudaError_t bwd_f32(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     void* dq, void* dk, void* dv, int bh, int t, int causal,
@@ -945,31 +1238,123 @@ cudaError_t bwd_f32(const void* q, const void* k, const void* v,
                 causal, scale);
 }
 
-// q tile of the dk/dv pass and k tile of the dq pass: 64 rows at head
-// dim 64; 32 at 128, which keeps the accumulators within the register
-// file without spilling
-template <int DH, int B2>
+// cuTensorMapEncodeTiled, fetched from the driver through the runtime so
+// that the library needs no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A (bh, t, dh) bf16 tensor as a 3-D map read in boxes of `rows` rows by
+// 64 columns, 128-byte swizzled.  The bounds are per head, so the rows of
+// a ragged last tile past t read as zeros, never as the next head's rows.
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int bh, int t,
+                     int dh, int rows) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(dh),
+                              static_cast<cuuint64_t>(t),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(dh) * 2,
+                                 static_cast<cuuint64_t>(t) * dh * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// shared bytes of a TMA kernel: its header, the slack to the first
+// 1024-byte boundary, its tiles
+constexpr size_t tma_smem(size_t header, size_t tiles) {
+  return header + 1024 + tiles;
+}
+
+// Tiles per instantiation and their shared memory (of the 227 KB a block
+// may use): forward 128 x 128, 3 slots: 113 KB at dh 64, 225 KB at 128;
+// dk/dv 128 keys by BQ queries, 2 slots: 66 KB at (64, 64), 98 KB at
+// (128, 32); dq 128 queries by BK keys, 2 slots: 65 KB at (64, 64),
+// 129 KB at (128, 64).
+constexpr int kFwdBK = 128, kFwdStages = 3, kBwdStages = 2;
+
+template <int DH>
+cudaError_t fwd_bf16(const void* q, const void* k, const void* v, void* o,
+                     void* lse, int bh, int t, int causal, float scale,
+                     cudaStream_t s) {
+  CUtensorMap qm, km, vm;
+  cudaError_t err;
+  if ((err = make_map(&qm, q, bh, t, DH, 128)) != cudaSuccess ||
+      (err = make_map(&km, k, bh, t, DH, kFwdBK)) != cudaSuccess ||
+      (err = make_map(&vm, v, bh, t, DH, kFwdBK)) != cudaSuccess)
+    return err;
+  const size_t smem = tma_smem(16 * kFwdStages + 8,
+                               (128 + 2 * kFwdStages * kFwdBK) * DH * 2);
+  const dim3 grid((t + 127) / 128, bh);
+  return launch(flash_fwd_bf16<DH, kFwdBK, kFwdStages>, grid, kSpecThreads,
+                smem, s,
+                qm, km, vm, static_cast<uint16_t*>(o),
+                static_cast<float*>(lse), t, causal, scale);
+}
+
+// q tile of the dk/dv pass and k tile of the dq pass: BQ 64 at head dim
+// 64, 32 at 128, which keeps dk, dv and the two score accumulators in
+// registers (dh 128: 2 x 64 + 2 x 16 f32 a thread); BK 64 at both
+template <int DH, int BQ, int BK>
 cudaError_t bwd_bf16(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dq, void* dk, void* dv, int bh, int t, int causal,
                      float scale, cudaStream_t s) {
-  const dim3 grid((t + kTile - 1) / kTile, bh);
-  const uint16_t* hq = static_cast<const uint16_t*>(q);
-  const uint16_t* hk = static_cast<const uint16_t*>(k);
-  const uint16_t* hv = static_cast<const uint16_t*>(v);
-  const uint16_t* hdo = static_cast<const uint16_t*>(dout);
+  CUtensorMap qm, km, vm, dom;
   const float* flse = static_cast<const float*>(lse);
   const float* fdl = static_cast<const float*>(delta);
-  const size_t tiles = (2 * kTile + 2 * B2) * (DH + 8) * sizeof(uint16_t);
-  cudaError_t err = launch(flash_bwd_dkdv_bf16<DH, B2>, grid, kMmaThreads,
-                           tiles + 2 * B2 * sizeof(float), s, hq, hk, hv, hdo,
-                           flse, fdl, static_cast<uint16_t*>(dk),
-                           static_cast<uint16_t*>(dv), t, causal, scale);
+  cudaError_t err;
+  if ((err = make_map(&qm, q, bh, t, DH, BQ)) != cudaSuccess ||
+      (err = make_map(&km, k, bh, t, DH, 128)) != cudaSuccess ||
+      (err = make_map(&vm, v, bh, t, DH, 128)) != cudaSuccess ||
+      (err = make_map(&dom, dout, bh, t, DH, BQ)) != cudaSuccess)
+    return err;
+  const dim3 grid((t + 127) / 128, bh);
+  err = launch(flash_bwd_dkdv_bf16<DH, BQ, kBwdStages>, grid, kSpecThreads,
+               tma_smem(16 * kBwdStages + 8 + kBwdStages * 2 * BQ * 4,
+                        (2 * 128 + 2 * kBwdStages * BQ) * DH * 2),
+               s, qm, km, vm, dom, flse, fdl, static_cast<uint16_t*>(dk),
+               static_cast<uint16_t*>(dv), t, causal, scale);
   if (err != cudaSuccess) return err;
-  return launch(flash_bwd_dq_bf16<DH, B2>, grid, kMmaThreads, tiles, s, hq,
-                hk, hv, hdo, flse, fdl, static_cast<uint16_t*>(dq), t, causal,
-                scale);
+  if ((err = make_map(&qm, q, bh, t, DH, 128)) != cudaSuccess ||
+      (err = make_map(&km, k, bh, t, DH, BK)) != cudaSuccess ||
+      (err = make_map(&vm, v, bh, t, DH, BK)) != cudaSuccess ||
+      (err = make_map(&dom, dout, bh, t, DH, 128)) != cudaSuccess)
+    return err;
+  return launch(flash_bwd_dq_bf16<DH, BK, kBwdStages>, grid, kSpecThreads,
+                tma_smem(16 * kBwdStages + 8,
+                         (2 * 128 + 2 * kBwdStages * BK) * DH * 2),
+                s, qm, km, vm, dom, flse, fdl, static_cast<uint16_t*>(dq), t,
+                causal, scale);
 }
+
 
 }  // namespace
 
@@ -1006,11 +1391,11 @@ extern "C" int znicz_flash_bwd(int dtype, int head_dim, const void* q,
   if (bh < 1 || t < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   if (dtype == 0 && head_dim == 64)
-    err = bwd_bf16<64, 64>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t,
-                           causal, sm_scale, s);
+    err = bwd_bf16<64, 64, 64>(q, k, v, dout, lse, delta, dq, dk, dv, bh,
+                               t, causal, sm_scale, s);
   else if (dtype == 0 && head_dim == 128)
-    err = bwd_bf16<128, 32>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t,
-                            causal, sm_scale, s);
+    err = bwd_bf16<128, 32, 64>(q, k, v, dout, lse, delta, dq, dk, dv, bh,
+                                t, causal, sm_scale, s);
   else if (dtype == 1 && head_dim == 64)
     err = bwd_f32<64>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t, causal,
                       sm_scale, s);

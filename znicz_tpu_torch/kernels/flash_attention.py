@@ -16,14 +16,18 @@ per-head tensors ``(b·h, t, dh)``:
   cotangent is computed here in torch, as the reference computes it
   outside its kernel.
 
-Bound on the card: operations (see :func:`bound`).  Design: the
-forward runs one block per (q tile, head) with an online softmax over
-K/V tiles, stopping at the diagonal when causal; the backward is two
-passes without atomics (dk/dv per k tile, dq per q tile), so it is
-deterministic.  bf16 runs on the tensor cores (``mma.sync``, f32
-accumulation), f32 on the CUDA cores in full f32.  The source's header
-has the details.  Unlike the TPU kernel the GPU kernel masks a ragged
-last tile itself, so any ``t >= 1`` is accepted.
+Bound on the card: operations (see :func:`bound`).  Design: in bf16
+each block has two consumer warpgroups and a producer warp that streams
+128-byte-swizzled tiles through a ring in shared memory by TMA
+(``cp.async.bulk.tensor`` on a 3-D tensor map per operand, completed on
+``mbarrier`` barriers); every product is ``wgmma`` with f32
+accumulation.  The forward runs one block per (128 q rows, head) with
+an online softmax in base 2 over 128-key tiles, stopping at the
+diagonal when causal; the backward is two passes without atomics
+(dk/dv per 128 keys, dq per 128 q rows), so it is deterministic.  f32
+runs on the CUDA cores in full f32.  The source's header has the
+details.  Unlike the TPU kernel the GPU kernel masks a ragged last tile
+itself, so any ``t >= 1`` is accepted.
 
 The wrappers :func:`flash_attention_fwd` / :func:`flash_attention_bwd`
 run the plain PyTorch versions (:func:`flash_attention_fwd_plain`,
@@ -192,8 +196,8 @@ def _check_cuda(dh, dtype, **tensors):
                          f"bfloat16/float32)")
     for name, x in tensors.items():
         if x.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
-                             f"reads rows in 16-byte loads)")
+            raise ValueError(f"{name} must be 16-byte aligned (TMA and the "
+                             f"kernels' 16-byte loads need it)")
 
 
 def _library():
