@@ -70,7 +70,10 @@ exits non-zero without the final ``ok`` line):
    stride-4 input gradient included), bit-identical across launches,
    each band rejecting its control (a skipped k tile, a dropped tap, a
    dropped split-K slice); each kernel, its plain version and cuDNN
-   (channels_last, TF32 off) timed at the five layers.
+   (channels_last, TF32 off) timed at the five layers.  Then the bf16
+   forward (bf16 operands, f32 sums, one rounding) the same way at the
+   reference sweep's shape and the five layers, within one bf16 ulp on
+   the tile norm, its control rejected, timed beside cuDNN in bf16.
 12. **alexnet_eager** — ``models/alexnet.py build(fused=False)`` at its
    defaults (227 px, batch 128, 1000 classes, dropout 0.5) on
    ``TorchDevice()`` for 2 epochs of 3 train + 1 validation minibatches,
@@ -80,6 +83,26 @@ exits non-zero without the final ``ok`` line):
 13. **alexnet_parity** — AlexNet's geometry at test size in f32, the card
    against the CPU with the same dropout masks: identical n_err
    histories, weights within a band the same run with TF32 on must fail.
+13a. **deconv** — ``deconv2d`` and ``deconv2d_backward`` against their
+   plain versions in f32 at ``models/autoencoder.py build_deep``'s two
+   deconv layers (batch 64: (64,16,16,128) -> (64,32,32,64) and
+   (64,32,32,64) -> (64,64,64,3)), bit-identical across launches, each
+   band rejecting its control; timed beside ``F.conv_transpose2d`` and
+   the transposed conv's ``aten.convolution_backward`` (TF32 off).
+13b. **ae_eager** — ``build_deep(fused=False)`` at its defaults (64x64x3,
+   n_kernels (64, 128), batch 64, 256 samples) for 2 epochs on
+   ``TorchDevice()``, the conv and deconv counters set to 0 just before
+   and read just after (exact counts a minibatch); ms per train
+   minibatch, samples/s, peak memory; a second run from the same seed,
+   profiled (idle share), must end bit-identical.
+13c. **ae_parity** — ``build`` and a shrunk ``build_deep`` eager, and
+   ``build`` fused, in f32, the card against the CPU; the fused band must
+   reject TF32, and the eager path must not move under it.
+13d. **ae_fused** — bench_deconv_ae's configuration (``build_deep``
+   fused, batch 64, K = 64 staged batches, bf16 over f32 masters) through
+   ``train_steps``: samples/s, MFU, peak memory, idle share.  It runs
+   cuDNN under autograd and the SGD update kernel, not the hand-written
+   conv kernels (as the reference's fused step runs XLA's convs).
 14. **stochastic_pool** — the stochastic-pool kernel against its plain
    version bit for bit through ``bits=`` (y, taps, offsets; MNIST conv's
    and AlexNet's pool shapes, odd sizes with clipped borders, windows of
@@ -103,12 +126,13 @@ exits non-zero without the final ``ok`` line):
    AlexNet's two norm layers (a cut-window control), timed against
    ``F.local_response_norm``; the dropout kernel against its plain
    version at one seed, its drop rate on 64 M elements, timed.
-18. **kernel_hw** — ``utils/kernel_hw.run_parity("cuda")``, every ported
-   family ``ok``; the LRN and dropout counters set to 0 just before and
-   read just after (this is the path that reaches them).
+18. **kernel_hw** — ``utils/kernel_hw.run_parity("cuda")``, all fourteen
+   families of the reference ``ok``; the LRN, dropout and bf16 conv
+   forward counters set to 0 just before and read just after (this is
+   the path that reaches them).
 
 Every line carries ``at_s``, the seconds since the smoke started.  Then
-a ``{"kernels": [...]}`` line for all fifteen kernels, the card's name
+a ``{"kernels": [...]}`` line for all eighteen kernels, the card's name
 and power limit as ``nvidia-smi`` reports them, and, last, the ``{"ok":
 true, ...}`` line.  Exits non-zero without a usable CUDA device.
 """
@@ -143,10 +167,12 @@ from znicz_tpu_torch.kernels import lrn as klrn
 from znicz_tpu_torch.kernels import optim as koptim
 from znicz_tpu_torch.kernels import pooling as kpool
 from znicz_tpu_torch.models import alexnet as talexnet
+from znicz_tpu_torch.models import autoencoder as tautoencoder
 from znicz_tpu_torch.models import kohonen as tkohonen
 from znicz_tpu_torch.models import mnist_conv as tmnist_conv
 from znicz_tpu_torch.models import mnist_fc as tmnist
 from znicz_tpu_torch.ops import activations
+from znicz_tpu_torch.ops import deconv as tdeconv_ops
 from znicz_tpu_torch.ops import kohonen as tk_ops
 from znicz_tpu_torch.observe.trace import TRACER
 from znicz_tpu_torch.parallel.transformer import (init_params,
@@ -160,6 +186,7 @@ from znicz_tpu_torch.serve.paged import PagedKVDecoder
 from znicz_tpu_torch.serve.server import (build_generate_parser,
                                           start_generate_server)
 from znicz_tpu_torch.standard_workflow import StandardWorkflow
+from znicz_tpu_torch.units import deconv as tdeconv_unit
 from znicz_tpu_torch.units import dropout as tdropout
 from znicz_tpu_torch.units import pooling as tpooling
 from znicz_tpu_torch.utils.export import export_lm, load_lm
@@ -1321,6 +1348,57 @@ CONV_GEOMS = ((8, 8, 3, 16, 3, (1, 1), (0, 0, 0, 0)),
 CONV_TOL = {"fwd": 1e-5, "input_grad": 1e-5, "weight_grad": 1e-4}
 
 
+#: the bf16 conv forward vs its plain version, both from the same bf16
+#: operands with f32 sums, the bias added in f32 and one rounding: they
+#: sum in other orders, so a value whose f32 sum lies near a bf16
+#: rounding boundary can round to the neighbouring bf16 value, one ulp
+#: (<= 2^-8 of it) away: 0.01-0.03 % of the values at AlexNet's layers on
+#: the H100, a global norm-relative error of 2e-5 to 5e-5.  The band
+#: is one bf16 ulp on the 64-row-tile norm, 2^-8: a tile every value of
+#: which moved by one ulp reads at most that.  It must reject the control
+#: that skips the last k tile (the weights' last <= 8 rows zeroed: ~sqrt(
+#: 8/K) >= 0.048 at K <= 3456)
+CONV_BF16_TOL = 2.0 ** -8
+#: the reference sweep's conv_fwd_bf16 shape (utils/pallas_hw.py:129-142):
+#: x (8, 16, 16, 64), w (3, 3, 64, 128), k3 s1 p1
+CONV_BF16_SWEEP = (8, 16, 16, 64, 128, 3, (1, 1), (1, 1, 1, 1))
+
+
+def _bf16_conv_check(name, x, wt, b, sliding, padding) -> dict:
+    """The bf16 forward at one geometry against its plain version, two
+    launches bit for bit, and the band's control (the last k tile
+    skipped)."""
+    geom = (sliding, padding)
+    ky, kx, cin, cout = wt.shape
+    got = kconv.conv2d_fwd(x, wt, b, *geom)
+    again = kconv.conv2d_fwd(x, wt, b, *geom)
+    want = kconv.conv2d_fwd_plain(x, wt, b, *geom)
+    k_all = ky * kx * cin
+    w_skip = wt.clone()
+    w_skip.view(k_all, cout)[(k_all - 1) // kconv.K_TILE * kconv.K_TILE:] = 0
+    wrong = kconv.conv2d_fwd(x, w_skip, b, *geom)
+    torch.cuda.synchronize()
+    out = {"case": name, "n": x.shape[0], "h": x.shape[1], "cin": cin,
+           "cout": cout, "k": ky, "sliding": list(sliding),
+           "padding": list(padding), "dtype": str(got.dtype),
+           "rel_err": tile_rel_err(_rows(got, cout), _rows(want, cout)),
+           "control_rel_err": tile_rel_err(_rows(wrong, cout),
+                                           _rows(want, cout)),
+           "max_abs_err": _max_abs(got, want),
+           "values_differing": float((got != want).float().mean()),
+           "deterministic": bool(torch.equal(got, again))}
+    if got.dtype != torch.bfloat16 or not bool(
+            torch.isfinite(got.float()).all()):
+        fail(f"bf16 conv forward output not finite bf16 ({out})")
+    if not out["rel_err"] <= CONV_BF16_TOL:
+        fail(f"bf16 conv forward vs plain over its band ({out})")
+    if not out["control_rel_err"] > CONV_BF16_TOL:
+        fail(f"the bf16 conv forward band passes its control ({out})")
+    if not out["deterministic"]:
+        fail(f"bf16 conv forward differs between two launches ({out})")
+    return out
+
+
 def _conv_inputs(rng, n, h, w, cin, cout, k, sliding, padding):
     """Seeded x, HWIO w (fan-in scaled), b, and a cotangent e of the
     output's shape, on the card."""
@@ -1430,18 +1508,41 @@ def phase_conv() -> dict:
     control; then each kernel, its plain version and cuDNN timed at the
     five layers' launches of a train minibatch (conv1's input gradient
     is checked but not timed: the path does not launch it), with the
-    bound from this run's inputs."""
+    bound from this run's inputs.  Then the bf16 forward the same way at
+    the reference sweep's shape and the five layers, timed beside cuDNN
+    in bf16."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(SEED + 12)
     checks = [_conv_check("reference geometry", _conv_inputs(rng, 3, *g),
                           *g[-2:]) for g in CONV_GEOMS]
-    timed = []
+    n, h, w, cin, cout, k, s, p = CONV_BF16_SWEEP
+    bf16_checks = [_bf16_conv_check(
+        "sweep", *(t.bfloat16() for t in _conv_inputs(
+            rng, n, h, w, cin, cout, k, s, p)[:3]), s, p)]
+    timed, bf16_timed = [], []
     for name, side, cin, cout, k, s, p in ALEX_CONVS:
         geom = ((s, s), (p, p, p, p))
         x, wt, b, e = inputs = _conv_inputs(rng, ALEX_BATCH, side, side,
                                             cin, cout, k, *geom)
         checks.append(_conv_check(name, inputs, *geom))
+        xb, wb, bb = (t.bfloat16() for t in (x, wt, b))
+        bf16_checks.append(_bf16_conv_check(name, xb, wb, bb, *geom))
+        xbn = xb.permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        wbn = wb.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        bf16_timed.append({
+            "layer": name, "kernel": "fwd_bf16",
+            "ms": time_cuda_ms(lambda: kconv.conv2d_fwd(xb, wb, bb, *geom)),
+            "plain_ms": time_cuda_ms(
+                lambda: kconv.conv2d_fwd_plain(xb, wb, bb, *geom)),
+            "library_ms": time_cuda_ms(
+                lambda: torch.nn.functional.conv2d(xbn, wbn, bb, stride=s,
+                                                   padding=p)),
+            **kconv.bound("fwd", x.shape, wt.shape, *geom,
+                          dtype=torch.bfloat16)})
+        del xb, wb, bb, xbn, wbn
         lib = _conv_library(x, wt, b, e, *geom)
         runs = {"fwd": (lambda: kconv.conv2d_fwd(x, wt, b, *geom),
                         lambda: kconv.conv2d_fwd_plain(x, wt, b, *geom)),
@@ -1467,19 +1568,29 @@ def phase_conv() -> dict:
     # weight gradient and conv2-5's input gradients (conv1 needs none)
     path = {}
     for kind in CONV_TOL:
-        rows = [t for t in timed if t["kernel"] == kind]
-        path[kind] = {key: sum(t[key] for t in rows)
-                      for key in ("ms", "plain_ms", "library_ms",
-                                  "bound_ms", "flops", "bytes")}
-        path[kind].update(
-            layers=[t["layer"] for t in rows],
-            bound_by="operations" if all(t["bound_by"] == "operations"
-                                         for t in rows) else "bytes",
-            max_abs_err=max(c[kind]["max_abs_err"] for c in checks))
+        path[kind] = _summed([t for t in timed if t["kernel"] == kind],
+                             max(c[kind]["max_abs_err"] for c in checks))
+    path["fwd_bf16"] = _summed(bf16_timed, max(c["max_abs_err"]
+                                               for c in bf16_checks))
     return {"phase": "conv", "ptxas": ptxas_usage("conv"), "tol": CONV_TOL,
-            "checks": checks, "timed": timed, "path": path,
+            "bf16_tol": CONV_BF16_TOL, "checks": checks,
+            "bf16_checks": bf16_checks, "timed": timed + bf16_timed,
+            "path": path,
             "path_note": "sums over the launches of one AlexNet train "
-                         "minibatch at batch 128"}
+                         "minibatch at batch 128 (fwd_bf16: its five "
+                         "forwards in bf16)"}
+
+
+def _summed(rows, max_abs_err) -> dict:
+    """Timed rows of one kernel summed over the layers of a path."""
+    out = {key: sum(t[key] for t in rows)
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms", "flops",
+                       "bytes")}
+    out.update(layers=[t["layer"] for t in rows],
+               bound_by="operations" if all(t["bound_by"] == "operations"
+                                            for t in rows) else "bytes",
+               max_abs_err=max_abs_err)
+    return out
 
 
 #: alexnet_eager: alexnet.build(fused=False) at its defaults (227 px,
@@ -1721,6 +1832,496 @@ def phase_alexnet_parity() -> dict:
         fail(f"alexnet weights card vs cpu: {out}")
     if not out["tf32_control"]["weight_max_abs"] > ALEX_PARITY_WEIGHT_ATOL:
         fail(f"the alexnet weight band passes the TF32 control: {out}")
+    return out
+
+
+#: deconv phase: build_deep's two deconv layers at its defaults
+#: (models/autoencoder.py: 64x64x3, n_kernels (64, 128), batch 64, k4 s2
+#: p1): name, input side, n_kernels (its input's channels), n_channels
+AE_BATCH = 64
+AE_DECONVS = (("deconv1", 16, 128, 64), ("deconv2", 32, 64, 3))
+AE_GEOM = ((2, 2), (1, 1, 1, 1))
+#: the deconv wrappers vs their plain versions (f32, TF32 off), as the
+#: largest norm-relative error of any 64-row tile: the forward is the
+#: input-gradient kernel and err_input the forward kernel, each summing
+#: <= 1024 products a value in another order than the plain tap loop
+#: (u·sqrt(K/2) ~ 1.3e-6), so the conv phase's 1e-5; grad_w sums the
+#: n·oh·ow = 16384 and 65536 pixels of the batch, so the conv weight
+#: gradient's 1e-4.  Controls: the forward with the centre tap's weights
+#: zeroed, err_input with the last k tile skipped, grad_w with one
+#: split-K slice of x zeroed
+DECONV_TOL = {"deconv2d": 1e-5, "err_input": 1e-5, "grad_w": 1e-4}
+
+
+def _deconv_check(name, x, wt, e, sliding, padding) -> dict:
+    """Both deconv wrappers at one geometry against their plain versions,
+    two launches bit for bit, each band rejecting its control."""
+    geom = (sliding, padding)
+    ky, kx, c, nk = wt.shape
+    out_shape = tuple(e.shape)
+    got = {"deconv2d": kconv.deconv2d(x, wt, *geom, out_shape),
+           **dict(zip(("err_input", "grad_w"),
+                      kconv.deconv2d_backward(x, wt, e, *geom)))}
+    again = {"deconv2d": kconv.deconv2d(x, wt, *geom, out_shape),
+             **dict(zip(("err_input", "grad_w"),
+                        kconv.deconv2d_backward(x, wt, e, *geom)))}
+    want = {"deconv2d": kconv.deconv2d_plain(x, wt, *geom, out_shape),
+            **dict(zip(("err_input", "grad_w"),
+                       kconv.deconv2d_backward_plain(x, wt, e, *geom)))}
+    w_tap = wt.clone()
+    w_tap[ky // 2, kx // 2] = 0
+    k_all = ky * kx * c
+    w_skip = wt.clone()
+    w_skip.view(k_all, nk)[(k_all - 1) // kconv.K_TILE * kconv.K_TILE:] = 0
+    splits, per = kconv.split_k(k_all + 1, nk, x.numel() // nk)
+    x_cut = x.clone()
+    x_cut.view(-1, nk)[splits // 2 * per:(splits // 2 + 1) * per] = 0
+    wrong = {"deconv2d": kconv.deconv2d(x, w_tap, *geom, out_shape),
+             "err_input": kconv.deconv2d_backward(x, w_skip, e, *geom)[0],
+             "grad_w": kconv.deconv2d_backward(x_cut, wt, e, *geom)[1]}
+    torch.cuda.synchronize()
+    report = {"case": name, "x": list(x.shape), "w": list(wt.shape),
+              "out_shape": list(out_shape), "splits": splits, "per": per}
+    for kind, tol in DECONV_TOL.items():
+        width = got[kind].shape[-1]
+        r = {"rel_err": tile_rel_err(_rows(got[kind], width),
+                                     _rows(want[kind], width)),
+             "control_rel_err": tile_rel_err(_rows(wrong[kind], width),
+                                             _rows(want[kind], width)),
+             "max_abs_err": _max_abs(got[kind], want[kind]),
+             "deterministic": bool(torch.equal(got[kind], again[kind]))}
+        report[kind] = r
+        if not bool(torch.isfinite(got[kind]).all()):
+            fail(f"non-finite deconv {kind} ({report})")
+        if not r["rel_err"] <= tol:
+            fail(f"deconv {kind} vs plain {r['rel_err']} > {tol} "
+                 f"({report})")
+        if not r["control_rel_err"] > tol:
+            fail(f"the deconv {kind} band passes its control ({report})")
+        if not r["deterministic"]:
+            fail(f"deconv {kind} differs between two launches ({report})")
+    return report
+
+
+def phase_deconv() -> dict:
+    """The deconv wrappers against their plain versions in f32 (TF32 off)
+    at build_deep's two deconv layers at batch 64, bit-identical across
+    launches, each band rejecting its control; each wrapper, its plain
+    version and PyTorch's one call for the same function timed
+    (F.conv_transpose2d; aten.convolution_backward of the transposed conv
+    for err_input and grad_w together), with the bound from this run's
+    inputs.  deconv2's forward is the input-gradient kernel at cin 3."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(SEED + 17)
+    checks, timed = [], []
+    for name, side, nk, c in AE_DECONVS:
+        x = _dev(rng.normal(size=(AE_BATCH, side, side, nk)))
+        wt = _dev(rng.normal(size=(4, 4, c, nk)) / np.sqrt(16 * nk))
+        out_shape = tdeconv_ops.output_shape_for(x.shape, wt.shape,
+                                                 *AE_GEOM)
+        e = _dev(rng.normal(size=out_shape))
+        checks.append(_deconv_check(name, x, wt, e, *AE_GEOM))
+        cl = torch.channels_last
+        xn = x.permute(0, 3, 1, 2).contiguous(memory_format=cl)
+        wn = wt.permute(3, 2, 0, 1).contiguous(memory_format=cl)
+        en = e.permute(0, 3, 1, 2).contiguous(memory_format=cl)
+        (sy, sx), (pt, _, pl, _) = AE_GEOM
+        timed.append({
+            "layer": name, "kernel": "deconv2d",
+            "ms": time_cuda_ms(lambda: kconv.deconv2d(x, wt, *AE_GEOM,
+                                                      out_shape)),
+            "plain_ms": time_cuda_ms(lambda: kconv.deconv2d_plain(
+                x, wt, *AE_GEOM, out_shape)),
+            "library_ms": time_cuda_ms(
+                lambda: torch.nn.functional.conv_transpose2d(
+                    xn, wn, stride=(sy, sx), padding=(pt, pl))),
+            **kconv.deconv_bound(x.shape, wt.shape, *AE_GEOM, out_shape)})
+        timed.append({
+            "layer": name, "kernel": "deconv2d_backward",
+            "ms": time_cuda_ms(lambda: kconv.deconv2d_backward(
+                x, wt, e, *AE_GEOM)),
+            "plain_ms": time_cuda_ms(lambda: kconv.deconv2d_backward_plain(
+                x, wt, e, *AE_GEOM)),
+            "library_ms": time_cuda_ms(
+                lambda: torch.ops.aten.convolution_backward(
+                    en, xn, wn, None, (sy, sx), (pt, pl), (1, 1), True,
+                    (0, 0), 1, (True, True, False))),
+            **kconv.deconv_bound(x.shape, wt.shape, *AE_GEOM, out_shape,
+                                 backward=True)})
+        del x, wt, e, xn, wn, en
+    path = {kind: _summed([t for t in timed if t["kernel"] == kind],
+                          max(c[k]["max_abs_err"] for c in checks
+                              for k in keys))
+            for kind, keys in (("deconv2d", ("deconv2d",)),
+                               ("deconv2d_backward",
+                                ("err_input", "grad_w")))}
+    return {"phase": "deconv", "tol": DECONV_TOL, "checks": checks,
+            "timed": timed, "path": path,
+            "path_note": "sums over build_deep's two deconv layers at "
+                         "batch 64: one train minibatch's launches of each "
+                         "wrapper"}
+
+
+#: ae_eager: build_deep at its defaults (64x64x3, n_kernels (64, 128),
+#: batch 64, n_train 256, no validation), fused=False, 2 epochs: 4 train
+#: minibatches an epoch, but at lr AE_LR.  The default lr, 0.001, is tuned
+#: for the reference tests' 16x16 inputs; the summed MSE gradient grows
+#: with the output area (16x at 64x64), and at 0.001 the reference's run
+#: (eager and fused, JAX on the CPU, from this smoke's seed) and the
+#: port's diverge to inf in the first epoch.  5e-5 (about 0.001/16) falls
+#: every epoch in the port's CPU runs, eager and fused
+AE_EPOCHS, AE_TRAIN, AE_LR = 2, 256, 5e-5
+#: each train minibatch's launches, read from the code: conv2d_fwd's
+#: kernel at the two convs' forwards and the two deconvs' err_input (the
+#: first gd of a workflow, conv1's, needs no err_input; the deconvs' are
+#: needed), the input-gradient kernel at the two deconvs' forwards and
+#: conv2's input gradient, the weight-gradient kernel at all four layers;
+#: one deconv2d and one deconv2d_backward call a deconv layer
+AE_LAUNCHES = {"conv2d_fwd": 4, "conv2d_input_grad": 3,
+               "conv2d_weight_grad": 4, "deconv2d": 2,
+               "deconv2d_backward": 2}
+
+
+def _ae_counts() -> dict:
+    return {"conv2d_fwd": kconv.fwd_launches,
+            "conv2d_input_grad": kconv.input_grad_launches,
+            "conv2d_weight_grad": kconv.weight_grad_launches,
+            "deconv2d": kconv.deconv_fwd_launches,
+            "deconv2d_backward": kconv.deconv_bwd_launches}
+
+
+def _zero_ae_counts() -> None:
+    kconv.fwd_launches = kconv.input_grad_launches = 0
+    kconv.weight_grad_launches = 0
+    kconv.deconv_fwd_launches = kconv.deconv_bwd_launches = 0
+
+
+def _ae_eager_run(profiled: bool):
+    """build_deep eager at its defaults from SEED on the card: (workflow,
+    minibatch marks, launches, wall s, profiler or None)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    tprng.seed_all(SEED)
+    w = tautoencoder.build_deep(max_epochs=AE_EPOCHS, n_train=AE_TRAIN,
+                                fused=False, lr=AE_LR)
+    w.initialize(device=TorchDevice())
+    marks = _per_minibatch_marks(w)
+    prof = None
+    if profiled:
+        # one warm-up step on a tiny op first: a tracer started cold at
+        # the run misses its first activities (alexnet_eager's finding)
+        prof = profile(activities=[ProfilerActivity.CUDA],
+                       schedule=schedule(wait=0, warmup=1, active=1,
+                                         repeat=1))
+        prof.start()
+        torch.ones(1, device=DEVICE).add_(1)
+        torch.cuda.synchronize()
+        prof.step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_ae_counts()                                    # 0 just before ...
+    t0 = time.perf_counter()
+    w.run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    if prof is not None:
+        prof.step()
+        prof.stop()
+    launches = _ae_counts()                              # ... read after
+    marks.append((time.perf_counter(), None))
+    return w, marks, launches, wall_s, prof
+
+
+def phase_ae_eager() -> dict:
+    """build_deep(fused=False) at its defaults on TorchDevice() through
+    Workflow.run: the convs and deconvs on the conv kernels, the launch
+    counters set to 0 just before and read just after; a second run from
+    the same seed, profiled, must end bit-identical."""
+    w, marks, launches, wall_s, _ = _ae_eager_run(False)
+    peak = torch.cuda.max_memory_allocated()
+    w2, _, launches2, wall2_s, prof = _ae_eager_run(True)
+    n_mb = AE_EPOCHS * AE_TRAIN // AE_BATCH
+    per_epoch = AE_TRAIN // AE_BATCH
+    last = marks[-per_epoch - 1:]
+    train_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(last, last[1:])]
+    device = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")
+              and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    conv_ms = sum(e.self_device_time_total for e in device
+                  if "conv_" in e.key or "reduce_splits" in e.key) / 1e3
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
+    hist = w.decision.metrics_history
+    expect = {k: v * n_mb for k, v in AE_LAUNCHES.items()}
+    same_weights = all(np.array_equal(a.weights.map_read(),
+                                      b.weights.map_read())
+                       for a, b in zip(w.forwards, w2.forwards))
+    out = {"phase": "ae_eager", "input": [64, 64, 3], "n_kernels": [64, 128],
+           "batch": AE_BATCH, "epochs": AE_EPOCHS, "n_train": AE_TRAIN,
+           "lr": AE_LR,
+           "train_minibatches": n_mb, "history": hist,
+           "launches": launches, "expected_launches": expect,
+           "wall_s": wall_s, "train_minibatch_ms": float(np.median(train_ms)),
+           "train_minibatch_ms_all": train_ms,
+           "samples_per_s": AE_BATCH * len(train_ms) / (sum(train_ms) / 1e3),
+           "peak_mem_bytes": peak,
+           "timing": "host clock between device-synced loader serves, the "
+                     "last epoch's train minibatches, median; samples/s: "
+                     "their samples over their summed time",
+           "second_run": {"history": w2.decision.metrics_history,
+                          "launches": launches2, "wall_s": wall2_s,
+                          "bit_identical": same_weights and
+                          w2.decision.metrics_history == hist},
+           "profile": {"run": "the second run, all of it",
+                       "wall_ms": wall2_s * 1e3, "device_busy_ms": busy_ms,
+                       "conv_kernels_ms": conv_ms,
+                       "device_idle_share": 1 - busy_ms / (wall2_s * 1e3),
+                       "top_device": [{"name": e.key[:80], "count": e.count,
+                                       "ms": e.self_device_time_total / 1e3}
+                                      for e in top]}}
+    if not (len(hist) == AE_EPOCHS and bool(w.decision.complete)):
+        fail(f"ae eager did not finish its epochs: {hist}")
+    if not all(np.isfinite(v) for h in hist for v in h.values()) or \
+            not hist[-1]["metric_train"] < hist[0]["metric_train"]:
+        fail(f"ae eager train mse not finite and falling: {hist}")
+    if [f.output.shape for f in w.forwards] != [
+            (AE_BATCH, 32, 32, 64), (AE_BATCH, 16, 16, 128),
+            (AE_BATCH, 32, 32, 64), (AE_BATCH, 64, 64, 3)]:
+        fail(f"ae eager shapes {[f.output.shape for f in w.forwards]}")
+    if launches != expect or launches2 != expect:
+        fail(f"ae eager launches {launches} / {launches2} != {expect}")
+    if not out["second_run"]["bit_identical"]:
+        fail(f"two ae eager runs from one seed differ: {out}")
+    if not conv_ms > 0:
+        fail(f"the profiled ae run shows no conv kernel: {out}")
+    return out
+
+
+#: ae_parity: models/autoencoder.py build at its defaults but 3 epochs
+#: (16x16x1, 8 kernels, batch 50, 500 + 150 samples: 30 train steps), and
+#: build_deep shrunk as the CPU tests shrink it (16x16x3, n_kernels (8,
+#: 16), batch 16, 64 samples, 3 epochs), in f32, the card against the
+#: port on the CPU from one seed (the same initial weights: the host prng
+#: draws them).  MSE histories: the reference's pin tolerance, rtol 1e-5.
+#: Weights, eager: the kernels against their plain versions sum the same
+#: f32 products in other orders, ~1e-7 of each step's gradient, and
+#: momentum 0.9 carries those differences on: 1.07e-6 on the H100 after
+#: build's 30 steps (the CPU tests' 16 steps against the JAX package:
+#: 1.3e-7), so the band is 4e-6 (16 f32 ulps of the weights' 0.5).  The
+#: eager path runs no TF32-capable library call (the conv kernels never
+#: use TF32; SGD and the MSE are elementwise), so its TF32 run must equal
+#: the TF32-off run bit for bit.  Fused (build): cuDNN against oneDNN,
+#: the same band; its TF32 control (cuDNN's 10-bit products) must fail
+#: the MSE band
+AE_PARITY_EPOCHS = 3
+AE_PARITY_ATOL = 4e-6
+AE_PARITY_MSE_RTOL = 1e-5
+
+
+def _ae_parity_run(build, device, fused=False, allow_tf32=False):
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+    torch.backends.cudnn.allow_tf32 = allow_tf32
+    try:
+        tprng.seed_all(SEED)
+        kw = {} if build == "build" else {
+            "minibatch_size": 16, "sample_shape": (16, 16, 3),
+            "n_kernels": (8, 16), "n_train": 64}
+        w = getattr(tautoencoder, build)(max_epochs=AE_PARITY_EPOCHS,
+                                         fused=fused, **kw)
+        w.initialize(device=TorchDevice(device, precision="float32"))
+        w.run()
+        if fused:
+            w.step.sync_to_units()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    return ([[h[k] for k in sorted(h) if k.startswith("metric")]
+             for h in w.decision.metrics_history],
+            [np.array(f.weights.map_read()) for f in w.forwards],
+            [f.output.shape for f in w.forwards])
+
+
+def phase_ae_parity() -> dict:
+    """build and a shrunk build_deep in f32, the card against the CPU,
+    eager and (build) fused; the fused MSE band must reject TF32, and the
+    eager path must not move under TF32.  Every run is made before the
+    first check fails."""
+    def spread(a, b):
+        return max(float(np.abs(x - y).max()) for x, y in zip(a[1], b[1]))
+
+    def mse_rel(a, b):
+        return max(abs(x - y) / abs(y) for ra, rb in zip(a[0], b[0])
+                   for x, y in zip(ra, rb))
+
+    out = {"phase": "ae_parity", "epochs": AE_PARITY_EPOCHS,
+           "bands": {"weight_atol": AE_PARITY_ATOL,
+                     "mse_rtol": AE_PARITY_MSE_RTOL}}
+    bad = []
+    for build, fused in (("build", False), ("build_deep", False),
+                         ("build", True)):
+        kind = "fused" if fused else "eager"
+        card = _ae_parity_run(build, DEVICE, fused)
+        cpu = _ae_parity_run(build, "cpu", fused)
+        tf32 = _ae_parity_run(build, DEVICE, fused, allow_tf32=True)
+        r = out[f"{build}_{kind}"] = {
+            "mse_card": card[0], "mse_cpu": cpu[0],
+            "mse_rel": mse_rel(card, cpu), "weight_max_abs": spread(card,
+                                                                    cpu),
+            "weight_max": max(float(np.abs(x).max()) for x in cpu[1]),
+            "output_shapes": [list(s) for s in card[2]],
+            "tf32_control": {"mse": tf32[0], "mse_rel": mse_rel(tf32, cpu),
+                             "weight_max_abs": spread(tf32, cpu),
+                             "weight_max_abs_vs_card": spread(tf32, card)}}
+        if card[2] != cpu[2] or (build == "build_deep" and [
+                s[1] for s in card[2]] != [8, 4, 8, 16]):
+            bad.append(f"{build} output shapes card {card[2]} cpu {cpu[2]}")
+        if not r["mse_rel"] <= AE_PARITY_MSE_RTOL:
+            bad.append(f"{build} {kind} mse card vs cpu")
+        if not r["weight_max_abs"] <= AE_PARITY_ATOL:
+            bad.append(f"{build} {kind} weights card vs cpu")
+        if fused and not r["tf32_control"]["mse_rel"] > AE_PARITY_MSE_RTOL:
+            bad.append("the fused ae mse band passes the TF32 control")
+        if not fused and r["tf32_control"]["weight_max_abs_vs_card"] != 0:
+            bad.append(f"the eager ae {build} moved under TF32")
+    if bad:
+        fail(f"ae_parity: {bad}: {out}")
+    return out
+
+
+#: ae_fused: bench.py bench_deconv_ae (:399-423): build_deep from seed 7,
+#: batch 64, n_train 64, no validation, one seeded batch and its K = 64
+#: rolled copies staged on the card (identity targets), bf16 compute over
+#: f32 masters (the card's default), SGD momentum 0.9; one warm call of
+#: train_steps, AE_FUSED_REPS timed with CUDA events, one profiled.  The
+#: step's work does not depend on the lr, but its loss does: the 320
+#: steps fit one batch, and the fit turns unstable as it sharpens, into
+#: a spike and a dead net at loss 0.5 (every soft ReLU saturated) after
+#: ~40 steps at 5e-5 and ~120 at 5e-6 (the port fused in f32 on the CPU;
+#: the bench's 0.001 goes to inf at once), so the smoke trains at 1e-6,
+#: where the loss falls through all 320
+AE_FUSED_K, AE_FUSED_REPS, AE_FUSED_LR = 64, 3, 1e-6
+
+
+def _ae_step_flops(w, exact: bool) -> float:
+    """Training flops of one minibatch: 3x the forward's multiply-adds x
+    2.  ``exact`` counts what each layer computes (a deconv as its paired
+    conv's products); otherwise the reference's count
+    (znicz_tpu/utils/flops.py forward_flops: output positions x
+    kx·ky·c_in x c_out for conv and deconv alike, which for a stride-2
+    deconv counts the dilated zeros, 4x its products)."""
+    total = 0.0
+    for f in w.forwards:
+        n, h, wd, c_out = f.output.shape
+        c_in = f.input.shape[3]
+        if exact and isinstance(f, tdeconv_unit.Deconv):
+            total += 2.0 * n * np.prod(f.input.shape[1:3]) * f.kx * f.ky * \
+                c_in * c_out
+        else:
+            total += 2.0 * n * h * wd * f.kx * f.ky * c_in * c_out
+    return 3.0 * total
+
+
+def phase_ae_fused() -> dict:
+    """bench_deconv_ae's configuration through build_deep(fused=True) on
+    the card: K-step train_steps calls (one warm, AE_FUSED_REPS timed,
+    one profiled); the SGD update kernel's counter set to 0 just before
+    and read just after.  The forward and backward run cuDNN
+    (torch_apply's F.conv2d and F.conv_transpose2d under autograd), not
+    the hand-written conv kernels: the reference's fused step runs XLA's
+    convs, not its Pallas kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tprng.seed_all(7)
+    w = tautoencoder.build_deep(max_epochs=1, minibatch_size=AE_BATCH,
+                                n_train=AE_BATCH, n_valid=0,
+                                lr=AE_FUSED_LR)
+    w.initialize(device=TorchDevice())
+    step = w.step
+    x = torch.tensor(np.random.default_rng(0).normal(
+        size=(AE_BATCH, 64, 64, 3)), dtype=torch.float32, device=DEVICE)
+    idx = torch.tensor((np.arange(AE_BATCH)[None, :] -
+                        np.arange(AE_FUSED_K)[:, None]) % AE_BATCH,
+                       device=DEVICE)
+    xs = x[idx]
+    ms = torch.ones((AE_FUSED_K, AE_BATCH), dtype=torch.bool, device=DEVICE)
+    n_values = AE_BATCH * AE_FUSED_K * 64 * 64 * 3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_ae_counts()
+    koptim.sgd_launches = 0                          # 0 just before ...
+    losses = [float(step.train_steps(xs, xs, ms)["loss"]) / n_values]
+    events = []
+    for _ in range(AE_FUSED_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = step.train_steps(xs, xs, ms)
+        end.record()
+        events.append((start, end, metrics))
+    torch.cuda.synchronize()
+    call_ms = [s.elapsed_time(e) for s, e, _ in events]
+    losses += [float(m["loss"]) / n_values for _, _, m in events]
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step.train_steps(xs, xs, ms)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    sgd_n = koptim.sgd_launches                      # ... read just after
+    hand_conv = _ae_counts()
+    device = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")
+              and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:10]
+    steps = AE_FUSED_K * (2 + AE_FUSED_REPS)
+    step_ms = float(np.median(call_ms)) / AE_FUSED_K
+    sps = AE_BATCH / (step_ms / 1e3)
+    out = {"phase": "ae_fused",
+           "config": {"input": [64, 64, 3], "n_kernels": [64, 128],
+                      "batch": AE_BATCH, "K": AE_FUSED_K, "seed": 7,
+                      "optimizer": "sgd", "momentum": 0.9,
+                      "lr": AE_FUSED_LR,
+                      "compute": str(step.compute_dtype),
+                      "timed_calls": AE_FUSED_REPS},
+           "route": "cuDNN (torch_apply under autograd) and the SGD "
+                    "update kernel; not the hand-written conv kernels",
+           "losses_per_value": losses, "call_ms": call_ms,
+           "step_ms": step_ms, "samples_per_s": sps,
+           "mfu": _ae_step_flops(w, False) / AE_BATCH * sps / BF16_FLOPS,
+           "mfu_exact_products": _ae_step_flops(w, True) / AE_BATCH * sps /
+           BF16_FLOPS,
+           "mfu_note": "mfu counts the reference's flops (bench.py's, "
+                       "deconv dilated zeros included); "
+                       "mfu_exact_products the products computed",
+           "peak_mem_bytes": peak, "sgd_update_launches": sgd_n,
+           "hand_conv_launches": hand_conv, "steps": steps,
+           "profile": {"steps": AE_FUSED_K, "wall_ms": wall_ms,
+                       "device_busy_ms": busy_ms,
+                       "device_idle_share": 1 - busy_ms / wall_ms,
+                       "busy_ms_per_step": busy_ms / AE_FUSED_K,
+                       "top_device": [
+                           {"name": e.key[:80], "count": e.count,
+                            "ms_per_step":
+                                e.self_device_time_total / 1e3 / AE_FUSED_K}
+                           for e in top]}}
+    if step.compute_dtype != torch.bfloat16:
+        fail(f"ae fused computes in {step.compute_dtype}, not bf16")
+    if not all(np.isfinite(losses)) or \
+            not all(b < a for a, b in zip(losses, losses[1:])):
+        fail(f"ae fused loss not finite and falling: {losses}")
+    n_leaves = sum(k in leaf for leaf in step._params for k in ("w", "b"))
+    out["leaves"] = n_leaves
+    if sgd_n != n_leaves * steps:
+        fail(f"sgd_update_ launched {sgd_n} times over {steps} steps of "
+             f"{n_leaves} leaves")
+    if any(hand_conv.values()):
+        fail(f"the fused ae step launched hand-written conv kernels: "
+             f"{hand_conv}")
     return out
 
 
@@ -2277,23 +2878,33 @@ def phase_lrn_dropout() -> dict:
                          "128; dropout: the 64 M-element tensor"}
 
 
+#: the reference's kernel-layer families (utils/pallas_hw.py run_parity)
+KERNEL_HW_FAMILIES = {"sgd", "adam", "dropout", "lrn", "fc_gemm",
+                      "conv_fwd", "conv_bwd", "deconv", "stochastic_pool",
+                      "kohonen", "flash_attention", "conv_fwd_bf16",
+                      "flash_attention_bf16", "sgd_bf16state"}
+
+
 def phase_kernel_hw() -> dict:
     """utils/kernel_hw.run_parity on the card, the launch counters of the
-    kernels only this path reaches (LRN, dropout) set to 0 just before and
-    read just after: every ported family must be ok."""
+    kernels only this path reaches (LRN, dropout, the bf16 conv forward)
+    set to 0 just before and read just after: all fourteen families of
+    the reference must be there and ok."""
     torch.cuda.synchronize()
     klrn.fwd_launches = klrn.bwd_launches = kdrop.launches = 0
+    kconv.fwd_bf16_launches = 0
     t0 = time.perf_counter()
     results = run_parity(DEVICE)
     wall_s = time.perf_counter() - t0
     launches = {"lrn_forward": klrn.fwd_launches,
                 "lrn_backward": klrn.bwd_launches,
-                "dropout_forward": kdrop.launches}
+                "dropout_forward": kdrop.launches,
+                "conv2d_fwd_bf16": kconv.fwd_bf16_launches}
     out = {"phase": "kernel_hw", "results": results, "launches": launches,
            "wall_s": wall_s}
-    bad = {k: v for k, v in results.items()
-           if v != "ok" and not v.startswith("not ported")}
-    if bad or not all(launches.values()):
+    if set(results) != KERNEL_HW_FAMILIES or \
+            any(v != "ok" for v in results.values()) or \
+            not all(launches.values()):
         fail(f"run_parity on the card: {out}")
     return out
 
@@ -2791,22 +3402,26 @@ def phase_build() -> dict:
 
 
 def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
-                fused, conv, alexnet, spool, mcs, som, lrn_drop,
-                kernel_hw) -> dict:
-    """The fifteen kernels: launches from the main paths' runs, times and
-    errors from the kernel phases, bounds from this run's inputs.  A conv
-    kernel's times and bound sum its launches of one AlexNet train
-    minibatch at batch 128, the stochastic pool's its two launches of one
-    MNIST conv minibatch, an LRN kernel's AlexNet's two norm layers; the
-    dropout kernel's are at 64 M elements."""
-    def entry(name, source, replaces, launches, timed, max_abs_err):
+                fused, conv, alexnet, deconv, ae, spool, mcs, som,
+                lrn_drop, kernel_hw) -> dict:
+    """The eighteen kernels: launches from the main paths' runs, times
+    and errors from the kernel phases, bounds from this run's inputs.  A
+    conv kernel's times and bound sum its launches of one AlexNet train
+    minibatch at batch 128 (the bf16 forward: AlexNet's five forwards),
+    a deconv wrapper's its launches of one build_deep train minibatch at
+    batch 64, the stochastic pool's its two launches of one MNIST conv
+    minibatch, an LRN kernel's AlexNet's two norm layers; the dropout
+    kernel's are at 64 M elements.  Each conv.cu entry names the kernels
+    it launches (``cuda_kernels``)."""
+    def entry(name, source, replaces, launches, timed, max_abs_err,
+              **extra):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max_abs_err, "ms": timed["ms"],
                 "plain_ms": timed["plain_ms"],
                 "bound_ms": timed["bound_ms"],
                 "bound_by": timed["bound_by"],
-                "library_ms": timed["library_ms"]}
+                "library_ms": timed["library_ms"], **extra}
 
     sgd = optim["timed"]["sgd_vel_bfloat16"]
     hw = kernel_hw["launches"]
@@ -2835,11 +3450,29 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
               optim["adam"]["sound"]["max_abs_err"]),
         *(entry(f"conv2d_{kind}", kconv.SOURCE, replaces,
                 alexnet["launches"][f"conv2d_{kind}"], conv["path"][kind],
-                conv["path"][kind]["max_abs_err"])
-          for kind, replaces in (("fwd", kconv.REPLACES_FWD),
-                                 ("input_grad", kconv.REPLACES_INPUT_GRAD),
-                                 ("weight_grad",
-                                  kconv.REPLACES_WEIGHT_GRAD))),
+                conv["path"][kind]["max_abs_err"], cuda_kernels=cuda)
+          for kind, replaces, cuda in (
+              ("fwd", kconv.REPLACES_FWD, ["conv_fwd_kernel<float>"]),
+              ("input_grad", kconv.REPLACES_INPUT_GRAD,
+               ["conv_input_grad_kernel"]),
+              ("weight_grad", kconv.REPLACES_WEIGHT_GRAD,
+               ["conv_weight_grad_kernel", "reduce_splits_kernel"]))),
+        entry("conv2d_fwd_bf16", kconv.SOURCE, kconv.REPLACES_FWD,
+              kernel_hw["launches"]["conv2d_fwd_bf16"],
+              conv["path"]["fwd_bf16"], conv["path"]["fwd_bf16"][
+                  "max_abs_err"],
+              cuda_kernels=["conv_fwd_kernel<__nv_bfloat16>"]),
+        entry("deconv2d", kconv.SOURCE, kconv.REPLACES_DECONV,
+              ae["launches"]["deconv2d"], deconv["path"]["deconv2d"],
+              deconv["path"]["deconv2d"]["max_abs_err"],
+              cuda_kernels=["conv_input_grad_kernel"]),
+        entry("deconv2d_backward", kconv.SOURCE, kconv.REPLACES_DECONV_BWD,
+              ae["launches"]["deconv2d_backward"],
+              deconv["path"]["deconv2d_backward"],
+              deconv["path"]["deconv2d_backward"]["max_abs_err"],
+              cuda_kernels=["conv_fwd_kernel<float>",
+                            "conv_weight_grad_kernel",
+                            "reduce_splits_kernel"]),
         entry("som_step", ksom.SOURCE, ksom.REPLACES,
               som["bench"]["launches"], som["timed"],
               max(c["max_abs_err"] for c in som["checks"])),
@@ -2905,6 +3538,12 @@ def main() -> int:
     alexnet = phase_alexnet_eager()
     emit(alexnet)
     emit(phase_alexnet_parity())
+    deconv = phase_deconv()
+    emit(deconv)
+    ae = phase_ae_eager()
+    emit(ae)
+    emit(phase_ae_parity())
+    emit(phase_ae_fused())
     spool = phase_stochastic_pool()
     emit(spool)
     mcs = phase_mnist_conv_stochastic()
@@ -2916,8 +3555,8 @@ def main() -> int:
     kernel_hw = phase_kernel_hw()
     emit(kernel_hw)
     emit({**kernel_line(kernel, flash, gemm, optim, serve, train, eager,
-                        fused, conv, alexnet, spool, mcs, som, lrn_drop,
-                        kernel_hw),
+                        fused, conv, alexnet, deconv, ae, spool, mcs, som,
+                        lrn_drop, kernel_hw),
           "first_stream": streams[0][:8],
           "seconds": time.perf_counter() - T_START})
     print(nvidia_smi(), flush=True)

@@ -211,6 +211,107 @@ def test_bad_calls_raise():
         kconv.conv2d_weight_grad(x, torch.ones(2, 6, 6, 5), w.shape)
 
 
+def _bf16_ulps(got, want):
+    """|got - want| in bf16 ulps (8 significant bits) of ``want``, or of
+    2^-10 where ``want`` is smaller: a sum that cancels below 2^-10 keeps
+    the f32 rounding of its products (~1e-7 over the 576 of the sweep's
+    shape), which is more than a bf16 ulp there."""
+    want = np.asarray(want, np.float32)
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -10)))
+                  - 7)
+    return np.abs(np.asarray(got, np.float32) - want) / ulp
+
+
+@pytest.mark.parametrize("geom", GEOMS + [(16, 16, 64, 128, 3, (1, 1),
+                                           (1, 1, 1, 1))])
+def test_bf16_forward_matches_pallas_interpret(geom):
+    """bf16 operands, f32 sums, the bf16 bias added in f32, one rounding:
+    the port's plain version (the card's kernel's contract) against the
+    reference's kernel in interpret mode within 1 bf16 ulp (the two sum
+    in other orders before the one rounding), and both within the
+    reference sweep's bf16 band (5e-2 / 5e-1, utils/pallas_hw.py:266-267)
+    of the f32 oracle on the same bf16-rounded operands.  The last case
+    is the sweep's own shape at batch 3."""
+    x, wts, b, _, sliding, padding = _operands(geom)
+    xb, wb, bb = (torch.tensor(a).bfloat16() for a in (x, wts, b))
+    for bias, tb in ((b, bb), (None, None)):
+        want = conv2d_im2col(
+            jnp.asarray(x, jnp.bfloat16), jnp.asarray(wts, jnp.bfloat16),
+            None if bias is None else jnp.asarray(bias, jnp.bfloat16),
+            sliding, padding, interpret=True)
+        assert want.dtype == jnp.bfloat16
+        want = np.asarray(want.astype(jnp.float32))
+        got = kconv.conv2d_fwd(xb, wb, tb, sliding, padding)
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        assert _bf16_ulps(got.float().numpy(), want).max() <= 1.0
+        oracle = jconv.forward_linear(
+            np, xb.float().numpy(), wb.float().numpy(),
+            None if tb is None else tb.float().numpy(), sliding, padding)
+        for out in (got.float().numpy(), want):
+            np.testing.assert_allclose(out, oracle, rtol=5e-2, atol=5e-1)
+
+
+def test_bf16_forward_rounds_once():
+    """The plain bf16 version equals the f32 plain version on the widened
+    operands, rounded once; bound counts 2-byte operands and the bf16
+    tensor-core peak."""
+    x, wts, b, _, sliding, padding = _operands(GEOMS[1])
+    xb, wb, bb = (torch.tensor(a).bfloat16() for a in (x, wts, b))
+    y32 = kconv.conv2d_fwd(xb.float(), wb.float(), bb.float(), sliding,
+                           padding)
+    assert torch.equal(kconv.conv2d_fwd(xb, wb, bb, sliding, padding),
+                       y32.bfloat16())
+    f32 = kconv.bound("fwd", (128, 27, 27, 96), (5, 5, 96, 256), 1, 2)
+    bf16 = kconv.bound("fwd", (128, 27, 27, 96), (5, 5, 96, 256), 1, 2,
+                       dtype=torch.bfloat16)
+    assert bf16["flops"] == f32["flops"] and 2 * bf16["bytes"] == \
+        f32["bytes"]
+    assert bf16["bound_ms"] == pytest.approx(
+        max(bf16["flops"] / 989e12, bf16["bytes"] / 3.35e12) * 1e3)
+    with pytest.raises(ValueError, match="f32 only"):
+        kconv.bound("input_grad", (128, 27, 27, 96), (5, 5, 96, 256),
+                    dtype=torch.bfloat16)
+
+
+def test_unsupported_dtypes_raise_before_any_launch():
+    """f16, f64 and mixed operands raise in the wrappers whatever the
+    device (the dtype is checked before the device is looked at: the
+    meta tensors stand in for the card's here); the gradients are f32
+    only."""
+    x, w, b = torch.ones(2, 8, 8, 3), torch.ones(3, 3, 3, 4), torch.ones(4)
+    for dev in ("cpu", "meta"):
+        x_, w_, b_ = (t.to(dev) for t in (x, w, b))
+        for bad in (torch.float16, torch.float64):
+            with pytest.raises(ValueError, match="float32 or bfloat16"):
+                kconv.conv2d_fwd(x_.to(bad), w_.to(bad))
+        with pytest.raises(ValueError, match="share one dtype"):
+            kconv.conv2d_fwd(x_.bfloat16(), w_)
+        with pytest.raises(ValueError, match="share one dtype"):
+            kconv.conv2d_fwd(x_.bfloat16(), w_.bfloat16(), b_)
+        e = torch.ones(2, 6, 6, 4, device=dev)
+        with pytest.raises(ValueError, match="must be float32"):
+            kconv.conv2d_input_grad(e.bfloat16(), w_.bfloat16(), 1, 0,
+                                    (8, 8))
+        with pytest.raises(ValueError, match="must be float32"):
+            kconv.conv2d_weight_grad(x_.bfloat16(), e.bfloat16(), w.shape)
+
+
+@pytest.mark.cuda
+def test_unsupported_dtypes_raise_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = torch.ones(2, 8, 8, 4, device="cuda")
+    w = torch.ones(3, 3, 4, 8, device="cuda")
+    for bad in (torch.float16, torch.float64):
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            kconv.conv2d_fwd(x.to(bad), w.to(bad))
+    with pytest.raises(ValueError, match="share one dtype"):
+        kconv.conv2d_fwd(x.bfloat16(), w)
+    y = kconv.conv2d_fwd(x.bfloat16(), w.bfloat16())
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and float(y.float().max()) == 36.0
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_the_card():
     """The three kernels on the card against their plain versions (TF32

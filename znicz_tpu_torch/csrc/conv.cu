@@ -1,31 +1,41 @@
 // 2-D convolution forward, input gradient and weight gradient for Hopper
-// (sm_90a), float32, NHWC activations and HWIO weights.
+// (sm_90a), NHWC activations and HWIO weights: all three in float32, the
+// forward also on bf16 operands (f32 sums, bf16 out).
 //
 // Replaces three Pallas calls of the JAX package:
-//  - conv2d_im2col (znicz_tpu/ops/pallas/conv.py:97): y = conv(x, w) + b;
+//  - conv2d_im2col (znicz_tpu/ops/pallas/conv.py:97): y = conv(x, w) + b,
+//    in f32 and in bf16;
 //  - _adjoint_call (znicz_tpu/ops/pallas/conv_bwd.py:98), the input
-//    gradient of conv2d_backward (and the forward of deconv2d);
+//    gradient of conv2d_backward and the forward of deconv2d (:164);
 //  - _grad_call (znicz_tpu/ops/pallas/conv_bwd.py:118), the weight and bias
-//    gradients of conv2d_backward.
+//    gradients of conv2d_backward, and deconv2d_backward's (:180) weight
+//    gradient with input and error swapped (its err_input is the forward).
 // Geometry is the reference's: strides (sy, sx) and explicit top/left pads
 // (pt, pl); the bottom/right pads only set the output size, which the
-// caller passes as (oh, ow).
+// caller passes as (oh, ow) for the forward and weight gradient and as
+// (h, w) for the input gradient, so any output size is taken (deconv's
+// slack or cropped out_shape).
 //
 // Bound: operations at AlexNet's shapes.  Each of the three is a GEMM of
 // 27-115 GFLOP at batch 128 (conv1: 387200 x 96 x 363; conv2: 93312 x 256
 // x 2400) over 40-150 MB of operands, far above the f32 CUDA cores' ridge
-// of ~20 flop/byte, so 2*M*N*K / 67 TFLOP/s.
+// of ~20 flop/byte, so 2*M*N*K / 67 TFLOP/s (bf16: / 989 TFLOP/s on the
+// tensor cores, which these kernels do not use).
 //
-// Design (right and simple first; wgmma, TMA and bf16 are later work): an
+// Design (right and simple first; wgmma and TMA are later work): an
 // implicit GEMM on the 128x128 tile of tile_f32.cuh, shared with gemm.cu
 // (256 threads, each an 8x8 sub-tile of f32 sums in registers, the K loop
-// over 8-deep tiles double-buffered in shared memory).  Nothing is materialized: the loaders gather each tile element from the
+// over 8-deep tiles double-buffered in shared memory).  Nothing is
+// materialized: the loaders gather each tile element from the
 // NHWC tensor by index arithmetic (pixel and tap kept incrementally as the
 // K loop advances) and read zeros outside the image, so no padded, dilated
 // or phase-split copy exists in device memory.  The TPU kernels need those
 // copies because Mosaic cannot slice with a stride and the MXU wants dense
 // taps; a GPU thread computes the address instead.  f32 sums on the CUDA
-// cores, no TF32, so the reference's f32 bands hold.
+// cores, no TF32, so the reference's f32 bands hold.  The bf16 forward is
+// the same kernel with loaders that widen bf16 to f32 as they fill the f32
+// tile; the epilogue adds the widened bias to the f32 sums and rounds once
+// to bf16, as the Pallas kernel does (acc += b; acc.astype(y.dtype)).
 //
 //  forward:        M = n*oh*ow pixels, N = cout, K = ky*kx*cin in (iy, ix,
 //                  ci) order, in which the HWIO weights already are a
@@ -45,6 +55,7 @@
 //                  the same fixed order.  No atomics: two launches are
 //                  bit-identical.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -62,8 +73,30 @@ struct ConvArgs {
   int ky, kx, sy, sx, pt, pl;
 };
 
-// One row of a thread's sub-tile (+ bias) into a row of N floats at
-// columns n_first..n_first+7, 16-byte stores where the row allows.
+// One row of a thread's sub-tile (+ bias) into a row of N elements at
+// columns n_first..n_first+7, 16-byte stores where the row allows; bf16
+// rows round each f32 sum once.
+__device__ __forceinline__ void store_row(__nv_bfloat16* row,
+                                          const float (&acc)[TN],
+                                          const float (&bv)[TN], int n_first,
+                                          int N, bool vec) {
+  if (vec && n_first + TN <= N) {
+    uint4 u;
+    unsigned* words = reinterpret_cast<unsigned*>(&u);
+#pragma unroll
+    for (int j = 0; j < TN / 2; ++j) {
+      const __nv_bfloat162 v = __floats2bfloat162_rn(
+          acc[2 * j] + bv[2 * j], acc[2 * j + 1] + bv[2 * j + 1]);
+      words[j] = *reinterpret_cast<const unsigned*>(&v);
+    }
+    *reinterpret_cast<uint4*>(row) = u;
+  } else {
+#pragma unroll
+    for (int j = 0; j < TN; ++j)
+      if (n_first + j < N) row[j] = __float2bfloat16_rn(acc[j] + bv[j]);
+  }
+}
+
 __device__ __forceinline__ void store_row(float* row, const float (&acc)[TN],
                                           const float (&bv)[TN], int n_first,
                                           int N, bool vec) {
@@ -84,16 +117,18 @@ __device__ __forceinline__ void store_row(float* row, const float (&acc)[TN],
 // A (M x K) of the forward, gathered from x: row m = output pixel (n, oy,
 // ox), column k = (iy, ix, ci), A = x[n, oy*sy + iy - pt, ox*sx + ix - pl,
 // ci] or 0 outside the image.  k-contiguous: a thread loads 4 consecutive k
-// of its pixel; with cin % 4 == 0 they are 4 channels of one tap (a float4).
+// of its pixel; with cin % 4 == 0 they are 4 channels of one tap (one load
+// of 16 bytes in f32, 8 in bf16).  T: float or __nv_bfloat16.
+template <class T>
 struct FwdA {
   static constexpr bool kKC = true;
-  const float* img;  // x of this thread's image
+  const T* img;  // x of this thread's image
   int W, H, cin, kx, K;
   bool vec, row_ok;
   int h0, w0;          // the pixel's window origin in x
   int k, ci, ix, iy;   // this thread's first k of the next tile
 
-  __device__ FwdA(const float* x, const ConvArgs& g, int m0, bool vec_)
+  __device__ FwdA(const T* x, const ConvArgs& g, int m0, bool vec_)
       : W(g.w), H(g.h), cin(g.cin), kx(g.kx), K(g.ky * g.kx * g.cin),
         vec(vec_) {
     const int m = m0 + threadIdx.x / 2;
@@ -114,15 +149,14 @@ struct FwdA {
   __device__ __forceinline__ float at(int kk, int c, int jx, int jy) const {
     const int h = h0 + jy, w = w0 + jx;
     if (!row_ok || kk >= K || h < 0 || h >= H || w < 0 || w >= W) return 0.f;
-    return img[(static_cast<size_t>(h) * W + w) * cin + c];
+    return widen(img[(static_cast<size_t>(h) * W + w) * cin + c]);
   }
 
   __device__ __forceinline__ void load(float (&r)[4]) {
     if (vec) {
       const int h = h0 + iy, w = w0 + ix;
       if (row_ok && k < K && h >= 0 && h < H && w >= 0 && w < W)
-        set4(r, *reinterpret_cast<const float4*>(
-                    img + (static_cast<size_t>(h) * W + w) * cin + ci));
+        load4(r, img + (static_cast<size_t>(h) * W + w) * cin + ci);
       else
         zero4(r);
     } else {
@@ -151,14 +185,15 @@ struct FwdA {
   }
 };
 
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-conv_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                const float* __restrict__ bias, float* __restrict__ y,
-                ConvArgs g, bool vec_x, bool vec_w, bool vec_y) {
+conv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                const T* __restrict__ bias, T* __restrict__ y, ConvArgs g,
+                bool vec_x, bool vec_w, bool vec_y) {
   const int M = g.n * g.oh * g.ow, N = g.cout, K = g.ky * g.kx * g.cin;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  FwdA la(x, g, m0, vec_x);
-  DenseTile<false> lb{w, N, K, n0, 0, vec_w};
+  FwdA<T> la(x, g, m0, vec_x);
+  DenseTile<false, T> lb{w, N, K, n0, 0, vec_w};
   float acc[TM][TN];
   mainloop(la, lb, (K + BK - 1) / BK, acc);
 
@@ -167,7 +202,8 @@ conv_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   float bv[TN];
 #pragma unroll
   for (int j = 0; j < TN; ++j)
-    bv[j] = (bias != nullptr && n_first + j < N) ? bias[n_first + j] : 0.f;
+    bv[j] = (bias != nullptr && n_first + j < N) ? widen(bias[n_first + j])
+                                                 : 0.f;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int m = m0 + ty * TM + i;
@@ -493,12 +529,31 @@ unsigned tiles(long long items, int per) {
   return static_cast<unsigned>((items + per - 1) / per);
 }
 
+template <class T>
+int launch_fwd(const void* x, const void* w, const void* bias, void* y,
+               const ConvArgs& g, void* stream) {
+  if (bad_args(g)) return static_cast<int>(cudaErrorInvalidValue);
+  const T* xp = static_cast<const T*>(x);
+  const T* wp = static_cast<const T*>(w);
+  T* yp = static_cast<T*>(y);
+  const dim3 grid(tiles(static_cast<long long>(g.n) * g.oh * g.ow, BM),
+                  tiles(g.cout, BN));
+  // a row of TN outputs is one 16-byte store in f32 (two) and in bf16
+  const bool vec_y = aligned16(yp) && g.cout % (16 / sizeof(T)) == 0;
+  conv_fwd_kernel<T><<<grid, kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      xp, wp, static_cast<const T*>(bias), yp, g,
+      aligned4(xp) && g.cin % 4 == 0, aligned4(wp) && g.cout % 4 == 0,
+      vec_y);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Each entry returns the cudaError_t of its launches (0 = success); bad
 // geometry returns cudaErrorInvalidValue without launching.  All tensors
-// are contiguous f32: x (n, h, w, cin), w (ky, kx, cin, cout), y and e (n,
-// oh, ow, cout), bias and gb (cout).
+// are contiguous, f32 unless the name says bf16: x (n, h, w, cin), w (ky,
+// kx, cin, cout), y and e (n, oh, ow, cout), bias and gb (cout).
 
 // y = conv(x, w) + bias (bias may be null).
 extern "C" int znicz_conv2d_fwd_f32(const void* x, const void* w,
@@ -506,19 +561,20 @@ extern "C" int znicz_conv2d_fwd_f32(const void* x, const void* w,
                                     int wd, int cin, int oh, int ow,
                                     int cout, int ky, int kx, int sy, int sx,
                                     int pt, int pl, void* stream) {
-  const ConvArgs g =
-      make_args(n, h, wd, cin, oh, ow, cout, ky, kx, sy, sx, pt, pl);
-  if (bad_args(g)) return static_cast<int>(cudaErrorInvalidValue);
-  const float* xp = static_cast<const float*>(x);
-  const float* wp = static_cast<const float*>(w);
-  float* yp = static_cast<float*>(y);
-  const dim3 grid(tiles(static_cast<long long>(n) * oh * ow, BM),
-                  tiles(cout, BN));
-  conv_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      xp, wp, static_cast<const float*>(bias), yp, g,
-      aligned16(xp) && cin % 4 == 0, aligned16(wp) && cout % 4 == 0,
-      aligned16(yp) && cout % 4 == 0);
-  return static_cast<int>(cudaGetLastError());
+  return launch_fwd<float>(
+      x, w, bias, y,
+      make_args(n, h, wd, cin, oh, ow, cout, ky, kx, sy, sx, pt, pl), stream);
+}
+
+// The same on bf16 x, w, bias and y; f32 sums, one rounding a value.
+extern "C" int znicz_conv2d_fwd_bf16(const void* x, const void* w,
+                                     const void* bias, void* y, int n, int h,
+                                     int wd, int cin, int oh, int ow,
+                                     int cout, int ky, int kx, int sy,
+                                     int sx, int pt, int pl, void* stream) {
+  return launch_fwd<__nv_bfloat16>(
+      x, w, bias, y,
+      make_args(n, h, wd, cin, oh, ow, cout, ky, kx, sy, sx, pt, pl), stream);
 }
 
 // ei (n, h, w, cin) = the input gradient of the cotangent e (n, oh, ow,

@@ -1,19 +1,28 @@
-"""2-D convolution forward, input gradient and weight gradient as
-hand-written Hopper kernels (``csrc/conv.cu``).
+"""2-D convolution forward, input gradient and weight gradient, and the
+transposed conv (deconv) pair over them, as hand-written Hopper kernels
+(``csrc/conv.cu``).
 
-Replaces three Pallas calls of the JAX package, in float32 on NHWC
-activations and HWIO weights with the reference's geometry (``sliding``
-strides, 4-tuple ``padding``; ints and 2-tuples are normalized as
-``ops/conv.py normalize_geometry`` does):
+Replaces five functions of the JAX package that reach ``pl.pallas_call``,
+on NHWC activations and HWIO weights with the reference's geometry
+(``sliding`` strides, 4-tuple ``padding``; ints and 2-tuples are
+normalized as ``ops/conv.py normalize_geometry`` does):
 
 - :func:`conv2d_fwd` ``(x, w, b)`` -> ``conv(x, w) + b``
-  (``ops/pallas/conv.py:97 conv2d_im2col``);
+  (``ops/pallas/conv.py:97 conv2d_im2col``), in float32, or on bfloat16
+  operands with f32 sums, the bias added in f32 and one rounding to bf16
+  (the reference kernel's ``acc += b; acc.astype(y.dtype)``);
 - :func:`conv2d_input_grad` ``(e, w, ..., in_hw)`` -> the input gradient
-  of the cotangent ``e`` (``ops/pallas/conv_bwd.py:98 _adjoint_call``).
-  The input geometry is an argument, so ``deconv2d`` can reuse it;
+  of the cotangent ``e`` (``ops/pallas/conv_bwd.py:98 _adjoint_call``),
+  float32;
 - :func:`conv2d_weight_grad` ``(x, e)`` -> ``(gw, gb)``, both f32
   (``ops/pallas/conv_bwd.py:118 _grad_call``); K is split into the slices
-  :func:`split_k` chooses, reduced in a fixed order.
+  :func:`split_k` chooses, reduced in a fixed order;
+- :func:`deconv2d` (``ops/pallas/conv_bwd.py:164``): the input-gradient
+  kernel with the data as the cotangent, for any ``out_shape``;
+- :func:`deconv2d_backward` (``ops/pallas/conv_bwd.py:180``): err_input
+  is the forward kernel on ``err_output``, grad_w the weight-gradient
+  kernel with input and error swapped; err_input is launched only when
+  it is needed.
 
 :func:`conv2d_backward` composes the two gradients with the semantics of
 ``ops/pallas/conv_bwd.py conv2d_backward``, launching the input gradient
@@ -23,8 +32,11 @@ Beside each kernel sits its plain PyTorch version, which repeats the TPU
 kernel's arithmetic: a loop over the (iy, ix) taps, each an f32 matmul of
 a strided tap slice with ``w[iy, ix]``.  The wrappers run the plain
 versions on CPU tensors only; on CUDA tensors they launch the kernels or
-raise.  ``fwd_launches`` / ``input_grad_launches`` /
-``weight_grad_launches`` count kernel launches and nothing else.
+raise.  ``fwd_launches`` (f32) / ``fwd_bf16_launches`` /
+``input_grad_launches`` / ``weight_grad_launches`` count launches of each
+``conv.cu`` kernel, whichever wrapper asked for it;
+``deconv_fwd_launches`` / ``deconv_bwd_launches`` count the deconv
+wrappers' calls that launched, so a run can tell the two paths apart.
 Importing this module needs no ``nvcc``: the library is built at the
 first CUDA call.
 """
@@ -38,19 +50,26 @@ import torch
 import torch.nn.functional as F
 
 from znicz_tpu_torch.kernels import build as _build
-from znicz_tpu_torch.kernels.gemm import _bound_of
+from znicz_tpu_torch.kernels.gemm import BF16_FLOPS, F32_FLOPS, _bound_of
 from znicz_tpu_torch.ops.conv import normalize_geometry, out_size
 
 #: kernel launches since import (or since a caller reset them to 0)
 fwd_launches = 0
+fwd_bf16_launches = 0
 input_grad_launches = 0
 weight_grad_launches = 0
+deconv_fwd_launches = 0
+deconv_bwd_launches = 0
 
 #: the TPU kernels these replace
 REPLACES_FWD = "znicz_tpu/ops/pallas/conv.py:97"
 REPLACES_INPUT_GRAD = "znicz_tpu/ops/pallas/conv_bwd.py:98"
 REPLACES_WEIGHT_GRAD = "znicz_tpu/ops/pallas/conv_bwd.py:118"
+REPLACES_DECONV = "znicz_tpu/ops/pallas/conv_bwd.py:164"
+REPLACES_DECONV_BWD = "znicz_tpu/ops/pallas/conv_bwd.py:180"
 SOURCE = "znicz_tpu_torch/csrc/conv.cu"
+#: the dtypes each kernel takes (all operands alike)
+FWD_DTYPES = (torch.float32, torch.bfloat16)
 
 #: the depth of the kernels' k tiles and the side of their output tiles
 #: (BK, BM = BN in csrc/tile_f32.cuh)
@@ -79,7 +98,13 @@ def _pad(x, pt, pb, pl, pr):
 
 def conv2d_fwd_plain(x, w, b=None, sliding=(1, 1), padding=(0, 0, 0, 0)):
     """The plain PyTorch ``conv(x, w) + b``: one f32 matmul per tap of the
-    padded input's strided slice (the TPU kernel's tap loop)."""
+    padded input's strided slice (the TPU kernel's tap loop).  bf16
+    operands are widened to f32, summed and biased in f32 and rounded
+    once."""
+    if x.dtype == torch.bfloat16:
+        return conv2d_fwd_plain(x.float(), w.float(),
+                                None if b is None else b.float(), sliding,
+                                padding).to(torch.bfloat16)
     ky, kx, sy, sx, pt, pb, pl, pr = geometry(w.shape, sliding, padding)
     n, h, wd, cin = x.shape
     oh, ow = out_size(h, ky, sy, pt, pb), out_size(wd, kx, sx, pl, pr)
@@ -131,6 +156,26 @@ def conv2d_weight_grad_plain(x, e, w_shape, sliding=(1, 1),
     return gw, e2.sum(dim=0)
 
 
+def deconv2d_plain(x, w, sliding=(1, 1), padding=(0, 0, 0, 0),
+                   out_shape=None):
+    """The plain PyTorch transposed conv: the input gradient's tap loop
+    with the data ``x`` (n, oh, ow, nk) as the cotangent, for the output
+    size ``out_shape[1:3]``."""
+    return conv2d_input_grad_plain(x, w, sliding, padding, out_shape[1:3])
+
+
+def deconv2d_backward_plain(x, w, err_output, sliding=(1, 1),
+                            padding=(0, 0, 0, 0), need_err_input=True):
+    """The plain PyTorch ``(err_input or None, grad_w)`` of the deconv:
+    the forward conv of ``err_output``, and the weight gradient with input
+    and error swapped."""
+    err_input = conv2d_fwd_plain(err_output, w, None, sliding, padding) \
+        if need_err_input else None
+    gw, _ = conv2d_weight_grad_plain(err_output, x, w.shape, sliding,
+                                     padding)
+    return err_input, gw
+
+
 def split_k(rows: int, n: int, k: int) -> tuple:
     """``(splits, per)`` of the weight gradient's K = ``k`` pixels for a
     ``rows`` x ``n`` product: enough slices that the grid fills the card
@@ -148,24 +193,40 @@ def _pairs(out: int, k: int, stride: int, pad: int, size: int) -> int:
                if 0 <= o * stride + t - pad < size)
 
 
-def bound(kind: str, x_shape, w_shape, sliding=(1, 1),
-          padding=(0, 0, 0, 0)) -> dict:
-    """The least time the card could take for one of the three kernels
-    (``kind`` "fwd", "input_grad" or "weight_grad") on the conv of an
-    input of ``x_shape`` with weights of ``w_shape``: the larger of the
-    flops over the f32 peak and the bytes over the HBM rate.  The flops
-    are 2 per multiply-add that touches the image (taps over the padding
-    need none; the same count for all three), plus the forward's bias;
-    the bytes move each input once and each output once."""
+def _sizes(x_shape, w_shape, sliding, padding) -> tuple:
+    """``(macs, x_n, w_n, y_n, cout)`` of the conv of an input of
+    ``x_shape`` with weights of ``w_shape``: the multiply-adds that touch
+    the image (taps over the padding need none) and the element counts."""
     ky, kx, sy, sx, pt, pb, pl, pr = geometry(w_shape, sliding, padding)
     n, h, wd, cin = x_shape
     cout = w_shape[3]
     oh, ow = out_size(h, ky, sy, pt, pb), out_size(wd, kx, sx, pl, pr)
     macs = n * cin * cout * _pairs(oh, ky, sy, pt, h) * \
         _pairs(ow, kx, sx, pl, wd)
-    x_n, w_n, y_n = n * h * wd * cin, ky * kx * cin * cout, n * oh * ow * cout
+    return (macs, n * h * wd * cin, ky * kx * cin * cout, n * oh * ow * cout,
+            cout)
+
+
+def bound(kind: str, x_shape, w_shape, sliding=(1, 1),
+          padding=(0, 0, 0, 0), dtype=torch.float32) -> dict:
+    """The least time the card could take for one of the three kernels
+    (``kind`` "fwd", "input_grad" or "weight_grad") on the conv of an
+    input of ``x_shape`` with weights of ``w_shape``: the larger of the
+    flops over the peak and the bytes over the HBM rate.  The flops are 2
+    per multiply-add that touches the image (the same count for all
+    three), plus the forward's bias; the bytes move each input once and
+    each output once.  ``dtype`` bfloat16 (the forward only) counts
+    2-byte operands and the bf16 tensor-core peak."""
+    macs, x_n, w_n, y_n, cout = _sizes(x_shape, w_shape, sliding, padding)
     if kind == "fwd":
-        return _bound_of(2 * macs + y_n, 4 * (x_n + w_n + cout + y_n))
+        if dtype not in FWD_DTYPES:
+            raise ValueError(f"no conv forward kernel for {dtype}")
+        bf16 = dtype == torch.bfloat16
+        return _bound_of(2 * macs + y_n,
+                         (2 if bf16 else 4) * (x_n + w_n + cout + y_n),
+                         BF16_FLOPS if bf16 else F32_FLOPS)
+    if dtype != torch.float32:
+        raise ValueError(f"the conv {kind} kernel is f32 only, not {dtype}")
     if kind == "input_grad":
         return _bound_of(2 * macs, 4 * (y_n + w_n + x_n))
     if kind == "weight_grad":
@@ -173,11 +234,36 @@ def bound(kind: str, x_shape, w_shape, sliding=(1, 1),
     raise ValueError(f"unknown conv kernel {kind!r}")
 
 
-def _check(device, **tensors) -> None:
+def deconv_bound(x_shape, w_shape, sliding=(1, 1), padding=(0, 0, 0, 0),
+                 out_shape=None, backward=False,
+                 need_err_input=True) -> dict:
+    """The same for :func:`deconv2d` (``backward`` False) or
+    :func:`deconv2d_backward` on a deconv input of ``x_shape`` (n, oh, ow,
+    nk) to ``out_shape`` (n, h, w, c), f32: the paired conv of an input
+    of ``out_shape``.  The forward moves x, w and the output; the backward
+    reads x, w and err_output and writes err_input and grad_w, with the
+    multiply-adds of both products (of grad_w alone without err_input)."""
+    macs, o_n, w_n, x_n, _ = _sizes(out_shape, w_shape, sliding, padding)
+    if not backward:
+        return _bound_of(2 * macs, 4 * (x_n + w_n + o_n))
+    if need_err_input:
+        return _bound_of(4 * macs, 4 * (x_n + w_n + o_n + x_n + w_n))
+    return _bound_of(2 * macs, 4 * (x_n + o_n + w_n))
+
+
+def _check(device, dtypes=(torch.float32,), **tensors) -> None:
+    """Every tensor on ``device``, contiguous, of one dtype out of
+    ``dtypes`` (the first tensor's)."""
+    dtype = next(iter(tensors.values())).dtype
     for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32 (the kernels are "
-                             f"f32), not {t.dtype}")
+        if t.dtype not in dtypes:
+            raise ValueError(
+                f"{name} must be {' or '.join(str(d)[6:] for d in dtypes)} "
+                f"(the kernel's types), not {t.dtype}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} is {t.dtype}, not "
+                             f"{next(iter(tensors))}'s {dtype}: the "
+                             f"operands must share one dtype")
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, not {device}")
         if not t.is_contiguous():
@@ -195,12 +281,14 @@ def _library():
     if _lib is None:
         lib = _build.load("conv")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.znicz_conv2d_fwd_f32.argtypes = [ptr] * 4 + [i32] * 13 + [ptr]
+        for fn in (lib.znicz_conv2d_fwd_f32, lib.znicz_conv2d_fwd_bf16):
+            fn.argtypes = [ptr] * 4 + [i32] * 13 + [ptr]
         lib.znicz_conv2d_input_grad_f32.argtypes = [ptr] * 3 + [i32] * 13 + \
             [ptr]
         lib.znicz_conv2d_weight_grad_f32.argtypes = [ptr] * 5 + \
             [i32] * 15 + [ptr]
-        for fn in (lib.znicz_conv2d_fwd_f32, lib.znicz_conv2d_input_grad_f32,
+        for fn in (lib.znicz_conv2d_fwd_f32, lib.znicz_conv2d_fwd_bf16,
+                   lib.znicz_conv2d_input_grad_f32,
                    lib.znicz_conv2d_weight_grad_f32):
             fn.restype = i32
         lib.znicz_conv_error_string.argtypes = [i32]
@@ -219,16 +307,74 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+# -- the launches: one per kernel, each counted by the kernel it launches --
+
+def _launch_fwd(x, w, b, geom, oh, ow, what):
+    global fwd_launches, fwd_bf16_launches
+    ky, kx, sy, sx, pt, _, pl, _ = geom
+    n, h, wd, cin = x.shape
+    cout = w.shape[3]
+    y = torch.empty((n, oh, ow, cout), dtype=x.dtype, device=x.device)
+    lib = _library()
+    fn = lib.znicz_conv2d_fwd_bf16 if x.dtype == torch.bfloat16 else \
+        lib.znicz_conv2d_fwd_f32
+    rc = fn(x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
+            y.data_ptr(), n, h, wd, cin, oh, ow, cout, ky, kx, sy, sx, pt, pl,
+            _stream(x))
+    _raise_on(rc, what)
+    if x.dtype == torch.bfloat16:
+        fwd_bf16_launches += 1
+    else:
+        fwd_launches += 1
+    return y
+
+
+def _launch_input_grad(e, w, geom, h, wd, what):
+    global input_grad_launches
+    ky, kx, sy, sx, pt, _, pl, _ = geom
+    n, oh, ow, cout = e.shape
+    cin = w.shape[2]
+    ei = torch.empty((n, h, wd, cin), dtype=torch.float32, device=e.device)
+    rc = _library().znicz_conv2d_input_grad_f32(
+        e.data_ptr(), w.data_ptr(), ei.data_ptr(), n, h, wd, cin, oh, ow,
+        cout, ky, kx, sy, sx, pt, pl, _stream(e))
+    _raise_on(rc, what)
+    input_grad_launches += 1
+    return ei
+
+
+def _launch_weight_grad(x, e, w_shape, geom, what):
+    global weight_grad_launches
+    ky, kx, sy, sx, pt, _, pl, _ = geom
+    n, h, wd, cin = x.shape
+    _, oh, ow, cout = e.shape
+    rows = ky * kx * cin + 1
+    splits, per = split_k(rows, cout, n * oh * ow)
+    part = torch.empty((splits, rows, cout), dtype=torch.float32,
+                       device=x.device)
+    gw = torch.empty(w_shape, dtype=torch.float32, device=x.device)
+    gb = torch.empty((cout,), dtype=torch.float32, device=x.device)
+    rc = _library().znicz_conv2d_weight_grad_f32(
+        x.data_ptr(), e.data_ptr(), part.data_ptr(), gw.data_ptr(),
+        gb.data_ptr(), n, h, wd, cin, oh, ow, cout, ky, kx, sy, sx, pt, pl,
+        splits, per, _stream(x))
+    _raise_on(rc, what)
+    weight_grad_launches += 1
+    return gw, gb
+
+
+# -- the wrappers -----------------------------------------------------------
+
 def conv2d_fwd(x, w, b=None, sliding=(1, 1), padding=(0, 0, 0, 0)):
     """``conv(x, w) + b`` for NHWC ``x`` (n, h, w, cin), HWIO ``w`` (ky,
-    kx, cin, cout) and ``b`` (cout,) or None -> a new contiguous (n, oh,
-    ow, cout); the plain version on CPU tensors, the kernel on CUDA
-    tensors (on the current stream)."""
-    global fwd_launches
+    kx, cin, cout) and ``b`` (cout,) or None, all float32 or all bfloat16
+    -> a new contiguous (n, oh, ow, cout) of that dtype; the plain version
+    on CPU tensors, the kernel on CUDA tensors (on the current stream)."""
     if x.dim() != 4 or w.dim() != 4 or x.shape[3] != w.shape[2]:
         raise ValueError(f"need NHWC x and HWIO w with matching channels; "
                          f"got {tuple(x.shape)} and {tuple(w.shape)}")
-    ky, kx, sy, sx, pt, pb, pl, pr = geometry(w.shape, sliding, padding)
+    geom = geometry(w.shape, sliding, padding)
+    ky, kx, sy, sx, pt, pb, pl, pr = geom
     n, h, wd, cin = x.shape
     oh, ow = out_size(h, ky, sy, pt, pb), out_size(wd, kx, sx, pl, pr)
     cout = w.shape[3]
@@ -240,17 +386,10 @@ def conv2d_fwd(x, w, b=None, sliding=(1, 1), padding=(0, 0, 0, 0)):
         if tuple(b.shape) != (cout,):
             raise ValueError(f"b must be ({cout},); got {tuple(b.shape)}")
         tensors["b"] = b
-    _check(x.device, **tensors)
+    _check(x.device, FWD_DTYPES, **tensors)
     if x.device.type == "cpu":
         return conv2d_fwd_plain(x, w, b, sliding, padding)
-    y = torch.empty((n, oh, ow, cout), dtype=torch.float32, device=x.device)
-    rc = _library().znicz_conv2d_fwd_f32(
-        x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
-        y.data_ptr(), n, h, wd, cin, oh, ow, cout, ky, kx, sy, sx, pt, pl,
-        _stream(x))
-    _raise_on(rc, "conv2d_fwd")
-    fwd_launches += 1
-    return y
+    return _launch_fwd(x, w, b, geom, oh, ow, "conv2d_fwd")
 
 
 def conv2d_input_grad(e, w, sliding=(1, 1), padding=(0, 0, 0, 0),
@@ -258,29 +397,22 @@ def conv2d_input_grad(e, w, sliding=(1, 1), padding=(0, 0, 0, 0),
     """The input gradient (n, h, w, cin) of the cotangent ``e`` (n, oh,
     ow, cout) through HWIO ``w``, for an input of spatial size ``in_hw`` =
     (h, w); the plain version on CPU tensors, the kernel on CUDA tensors."""
-    global input_grad_launches
     if e.dim() != 4 or w.dim() != 4 or e.shape[3] != w.shape[3]:
         raise ValueError(f"need NHWC e and HWIO w with matching output "
                          f"channels; got {tuple(e.shape)} and "
                          f"{tuple(w.shape)}")
-    ky, kx, sy, sx, pt, pb, pl, pr = geometry(w.shape, sliding, padding)
-    n, oh, ow, cout = e.shape
+    geom = geometry(w.shape, sliding, padding)
+    ky, kx, sy, sx, pt, pb, pl, pr = geom
+    _, oh, ow, _ = e.shape
     h, wd = (int(v) for v in in_hw)
     if (out_size(h, ky, sy, pt, pb), out_size(wd, kx, sx, pl, pr)) != \
             (oh, ow):
         raise ValueError(f"e's {oh}x{ow} is not the output of a {h}x{wd} "
                          f"input under this geometry")
-    cin = w.shape[2]
     _check(e.device, e=e, w=w)
     if e.device.type == "cpu":
         return conv2d_input_grad_plain(e, w, sliding, padding, (h, wd))
-    ei = torch.empty((n, h, wd, cin), dtype=torch.float32, device=e.device)
-    rc = _library().znicz_conv2d_input_grad_f32(
-        e.data_ptr(), w.data_ptr(), ei.data_ptr(), n, h, wd, cin, oh, ow,
-        cout, ky, kx, sy, sx, pt, pl, _stream(e))
-    _raise_on(rc, "conv2d_input_grad")
-    input_grad_launches += 1
-    return ei
+    return _launch_input_grad(e, w, geom, h, wd, "conv2d_input_grad")
 
 
 def conv2d_weight_grad(x, e, w_shape, sliding=(1, 1), padding=(0, 0, 0, 0)):
@@ -288,16 +420,16 @@ def conv2d_weight_grad(x, e, w_shape, sliding=(1, 1), padding=(0, 0, 0, 0)):
     ``w_shape`` and of the bias (cout,), both f32, summed over the batch,
     from NHWC ``x`` and the cotangent ``e``; the plain version on CPU
     tensors, the kernel on CUDA tensors."""
-    global weight_grad_launches
     w_shape = tuple(int(v) for v in w_shape)
     if x.dim() != 4 or e.dim() != 4 or len(w_shape) != 4 or \
             x.shape[3] != w_shape[2] or e.shape[3] != w_shape[3] or \
             x.shape[0] != e.shape[0]:
         raise ValueError(f"need NHWC x, e and HWIO w_shape that agree; got "
                          f"{tuple(x.shape)}, {tuple(e.shape)}, {w_shape}")
-    ky, kx, sy, sx, pt, pb, pl, pr = geometry(w_shape, sliding, padding)
-    n, h, wd, cin = x.shape
-    _, oh, ow, cout = e.shape
+    geom = geometry(w_shape, sliding, padding)
+    ky, kx, sy, sx, pt, pb, pl, pr = geom
+    _, h, wd, _ = x.shape
+    _, oh, ow, _ = e.shape
     if (out_size(h, ky, sy, pt, pb), out_size(wd, kx, sx, pl, pr)) != \
             (oh, ow):
         raise ValueError(f"e's {oh}x{ow} is not the output of x's "
@@ -305,19 +437,7 @@ def conv2d_weight_grad(x, e, w_shape, sliding=(1, 1), padding=(0, 0, 0, 0)):
     _check(x.device, x=x, e=e)
     if x.device.type == "cpu":
         return conv2d_weight_grad_plain(x, e, w_shape, sliding, padding)
-    rows = ky * kx * cin + 1
-    splits, per = split_k(rows, cout, n * oh * ow)
-    part = torch.empty((splits, rows, cout), dtype=torch.float32,
-                       device=x.device)
-    gw = torch.empty(w_shape, dtype=torch.float32, device=x.device)
-    gb = torch.empty((cout,), dtype=torch.float32, device=x.device)
-    rc = _library().znicz_conv2d_weight_grad_f32(
-        x.data_ptr(), e.data_ptr(), part.data_ptr(), gw.data_ptr(),
-        gb.data_ptr(), n, h, wd, cin, oh, ow, cout, ky, kx, sy, sx, pt, pl,
-        splits, per, _stream(x))
-    _raise_on(rc, "conv2d_weight_grad")
-    weight_grad_launches += 1
-    return gw, gb
+    return _launch_weight_grad(x, e, w_shape, geom, "conv2d_weight_grad")
 
 
 def conv2d_backward(x, w, err_v, sliding=(1, 1), padding=(0, 0, 0, 0),
@@ -331,3 +451,67 @@ def conv2d_backward(x, w, err_v, sliding=(1, 1), padding=(0, 0, 0, 0),
                                   x.shape[1:3]) if need_err_input else None
     gw, gb = conv2d_weight_grad(x, err_v, w.shape, sliding, padding)
     return err_input, gw, gb
+
+
+def deconv2d(x, w, sliding=(1, 1), padding=(0, 0, 0, 0), out_shape=None):
+    """The transposed conv of ``x`` (n, oh, ow, nk) through HWIO ``w``
+    (ky, kx, c, nk) -> a new contiguous ``out_shape`` (n, h, w, c), f32:
+    the adjoint of the conv of an (h, w) input, whatever (h, w) is (rows
+    and columns no window reaches are 0; a smaller out_shape crops).  The
+    plain version on CPU tensors, the input-gradient kernel on CUDA
+    tensors."""
+    global deconv_fwd_launches
+    if x.dim() != 4 or w.dim() != 4 or x.shape[3] != w.shape[3]:
+        raise ValueError(f"need NHWC x and HWIO w with x's channels as w's "
+                         f"kernels; got {tuple(x.shape)} and "
+                         f"{tuple(w.shape)}")
+    out_shape = tuple(int(v) for v in out_shape)
+    if len(out_shape) != 4 or out_shape[0] != x.shape[0] or \
+            out_shape[3] != w.shape[2] or min(out_shape) < 1:
+        raise ValueError(f"out_shape {out_shape} is not (n, h, w, c) for x "
+                         f"{tuple(x.shape)} and w {tuple(w.shape)}")
+    _check(x.device, x=x, w=w)
+    if x.device.type == "cpu":
+        return deconv2d_plain(x, w, sliding, padding, out_shape)
+    y = _launch_input_grad(x, w, geometry(w.shape, sliding, padding),
+                           out_shape[1], out_shape[2], "deconv2d")
+    deconv_fwd_launches += 1
+    return y
+
+
+def deconv2d_backward(x, w, err_output, sliding=(1, 1),
+                      padding=(0, 0, 0, 0), need_err_input: bool = True):
+    """``(err_input or None, grad_w)`` of :func:`deconv2d` for its input
+    ``x`` (n, oh, ow, nk), HWIO ``w`` and ``err_output`` (n, h, w, c),
+    f32, grad_w summed over the batch (the semantics of
+    ``ops/pallas/conv_bwd.py deconv2d_backward``): err_input is the
+    forward conv of err_output, launched only when ``need_err_input``;
+    grad_w the weight gradient with input and error swapped.  The paired
+    conv of err_output must give x's (oh, ow), as every out_shape of
+    ``ops/deconv.py output_shape_for`` does; another raises."""
+    global deconv_bwd_launches
+    if x.dim() != 4 or w.dim() != 4 or err_output.dim() != 4 or \
+            x.shape[3] != w.shape[3] or err_output.shape[3] != w.shape[2] \
+            or x.shape[0] != err_output.shape[0]:
+        raise ValueError(f"need NHWC x, err_output and HWIO w that agree; "
+                         f"got {tuple(x.shape)}, {tuple(err_output.shape)}, "
+                         f"{tuple(w.shape)}")
+    geom = geometry(w.shape, sliding, padding)
+    ky, kx, sy, sx, pt, pb, pl, pr = geom
+    _, h, wd, _ = err_output.shape
+    _, oh, ow, _ = x.shape
+    if (out_size(h, ky, sy, pt, pb), out_size(wd, kx, sx, pl, pr)) != \
+            (oh, ow):
+        raise ValueError(f"err_output's {h}x{wd} does not give x's {oh}x{ow} "
+                         f"under this geometry (the deconv's out_shape is "
+                         f"not one its paired conv takes)")
+    _check(x.device, x=x, w=w, err_output=err_output)
+    if x.device.type == "cpu":
+        return deconv2d_backward_plain(x, w, err_output, sliding, padding,
+                                       need_err_input)
+    err_input = _launch_fwd(err_output, w, None, geom, oh, ow,
+                            "deconv2d_backward") if need_err_input else None
+    gw, _ = _launch_weight_grad(err_output, x, tuple(w.shape), geom,
+                                "deconv2d_backward")
+    deconv_bwd_launches += 1
+    return err_input, gw

@@ -55,9 +55,11 @@ _ACT_CODES = {a: i for i, a in enumerate(FUSED_ACTIVATIONS)}
 #: the depth of the kernel's k tiles (BK in csrc/tile_f32.cuh)
 K_TILE = 8
 
-#: H100 SXM data-sheet peaks: HBM bytes/s; f32 flop/s of the CUDA cores
+#: H100 SXM data-sheet peaks: HBM bytes/s; f32 flop/s of the CUDA cores;
+#: dense bf16 flop/s of the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 #: flops per element of err * act'(y), counted from the formulas
 _ACT_FLOPS = {activations.TANH: 5, activations.RELU: 3,
               activations.STRICT_RELU: 2, activations.SIGMOID: 3}
@@ -79,10 +81,10 @@ def act_backward_plain(y, err, activation: str):
     return activations.backward(torch, activation, y, err)
 
 
-def _bound_of(flops: float, nbytes: float) -> dict:
-    """The larger of the flops over the f32 peak and the bytes over the
-    HBM rate, and which of the two it is."""
-    flops_ms = flops / F32_FLOPS * 1e3
+def _bound_of(flops: float, nbytes: float, peak: float = F32_FLOPS) -> dict:
+    """The larger of the flops over ``peak`` (the f32 one by default) and
+    the bytes over the HBM rate, and which of the two it is."""
+    flops_ms = flops / peak * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return {"flops": flops, "bytes": nbytes,
             "bound_ms": max(flops_ms, bytes_ms),

@@ -8,10 +8,10 @@ pad2 -> LRN -> pool -> conv 384 -> conv 384 -> conv 256 -> pool -> fc 4096
 (dropout) -> fc 4096 (dropout) -> softmax 1000.
 
 ``build(fused=False)`` trains eager on the conv and FC kernels; the fused
-shape waits for the conv, pooling, LRN and dropout units' ``torch_apply``
-(ROADMAP queue A item 8) and raises.  The image-file loaders
+shape waits for the pooling, LRN and dropout units' ``torch_apply``
+(ROADMAP queue A item 8a) and raises.  The image-file loaders
 (``file_image``, ``full_batch_image``) and ``augment`` wait for
-``loader/image.py`` (item 8) and raise too; the synthetic in-memory
+``loader/image.py`` (item 5) and raise too; the synthetic in-memory
 loader is the default, as in the reference.
 """
 
@@ -74,7 +74,7 @@ def build(max_epochs: int = 1, minibatch_size: int = 128,
     if loader_name in _FILE_LOADERS or loader_config.get("augment"):
         raise NotImplementedError(
             f"the image-file loaders {_FILE_LOADERS} and augment are not "
-            f"ported yet (loader/image.py, ROADMAP.md queue A item 8)")
+            f"ported yet (loader/image.py, ROADMAP.md queue A item 5)")
     cfg = {"n_classes": min(n_classes, 50),
            "sample_shape": (input_size, input_size, 3),
            "n_train": n_train, "n_valid": n_valid,

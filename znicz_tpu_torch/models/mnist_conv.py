@@ -9,7 +9,7 @@ may swap a pooling layer's type (``stochastic_pooling``), as the
 reference's StandardWorkflow accepts.  The reference's defaults need what
 is not ported yet, and raise: the IDX file loader (``loader/mnist.py``,
 ROADMAP.md queue A item 5) and the fused conv shape (``torch_apply`` for
-conv and pooling, queue A item 8).
+pooling, queue A item 8a).
 """
 
 from __future__ import annotations
@@ -52,9 +52,9 @@ def build(max_epochs: int = 10, minibatch_size: int = 100,
             "'synthetic_image'")
     if fused:
         raise NotImplementedError(
-            "the fused conv shape (torch_apply for conv and pooling, random "
+            "the fused conv shape (torch_apply for pooling, random "
             "bits in FusedTrainStep) is not ported yet (ROADMAP.md queue A "
-            "item 8); pass fused=False")
+            "item 8a); pass fused=False")
     cfg = {"n_classes": 10, "sample_shape": (28, 28, 1),
            "n_train": n_train, "n_valid": n_valid,
            "minibatch_size": minibatch_size, "spread": 2.5, "noise": 1.0}

@@ -20,7 +20,7 @@ Semantics kept from the reference:
 
 Every function takes ``xp`` (``numpy`` or ``torch``); the numpy branch is
 the reference's code.  The fused path's custom backwards are not ported
-yet (ROADMAP queue A item 8).
+yet (ROADMAP queue A item 8a).
 """
 
 from __future__ import annotations

@@ -13,9 +13,9 @@ the reference:
   kernels, plain torch elsewhere).  Complete.
 - ``fused=True``: the accelerated segment collapsed into one
   ``FusedTrainStep`` (``parallel/step.py``).  It composes the forwards'
-  ``torch_apply``, which only the FC units have yet: a layer list with a
-  conv, pooling, LRN or dropout layer raises ``NotImplementedError``
-  (ROADMAP queue A item 8).
+  ``torch_apply``, which the FC, conv and deconv units have: a layer list
+  with a pooling, LRN or dropout layer raises ``NotImplementedError``
+  (ROADMAP queue A item 8a).
 
 Layer spec keys: ``type`` (MatchingObject registry name), ``->`` (forward
 constructor kwargs), ``<-`` (gradient/hyperparameter kwargs), ``name``;
@@ -300,7 +300,7 @@ class StandardWorkflow(StandardWorkflowBase):
                    if type(f).torch_apply is Forward.torch_apply]
         if lacking:
             raise _not_ported(f"the fused step's forward (torch_apply) of "
-                              f"{lacking}", "8")
+                              f"{lacking}", "8a")
         self._make_gds()
         step = self.step = FusedTrainStep(
             self, forwards=self.forwards, evaluator=self.evaluator,

@@ -6,6 +6,6 @@ fwd<->gd registry that StandardWorkflow's layer-type lookup reads is
 fully populated.
 """
 
-from znicz_tpu_torch.units import (all2all, conv, dropout,  # noqa: F401
-                                   gd, gd_conv, gd_pooling, normalization,
-                                   pooling)
+from znicz_tpu_torch.units import (all2all, conv, deconv,  # noqa: F401
+                                   dropout, gd, gd_conv, gd_deconv,
+                                   gd_pooling, normalization, pooling)

@@ -8,7 +8,9 @@ and 4-tuple ``padding`` — the reference's geometry.  On a ``TorchDevice``
 epilogue (``kernels/conv.py``; the reference's route under
 ``root.common.engine.pallas`` — the port has no switch) and applies the
 activation in plain torch, as the reference does around its kernel.  The
-fused step's ``torch_apply`` is not ported yet (ROADMAP queue A item 8).
+fused step's ``torch_apply`` is plain torch (``F.conv2d``: cuDNN on the
+card), as the reference's ``xla_apply`` is ``lax.conv`` and not its
+Pallas kernel.
 
 Weight init follows the reference: uniform/gaussian via the framework
 PRNG, plus the optional ``weights_filling="gabor"`` bank.
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from znicz_tpu_torch.core import prng
 from znicz_tpu_torch.kernels import conv as kconv
@@ -42,6 +45,22 @@ def gabor_bank(ky: int, kx: int, c_in: int, n_kernels: int) -> np.ndarray:
             np.cos(2 * np.pi * xr / lam + psi)
         bank[:, :, :, k] = g[:, :, None] / max(np.abs(g).max(), 1e-6)
     return bank * 0.1
+
+
+def conv2d_nhwc(x, w, b, sliding, padding):
+    """NHWC ``x`` * HWIO ``w`` (+ ``b``) through ``F.conv2d`` on the
+    channels-last view, the reference's geometry; an asymmetric pad is
+    applied by ``F.pad`` first.  Differentiable (the fused step's
+    autograd)."""
+    ky, kx, sy, sx, pt, pb, pl, pr = conv_ops.normalize_geometry(
+        w.shape[1], w.shape[0], sliding, padding)
+    pad = (pt, pl)
+    if (pt, pl) != (pb, pr):
+        x = F.pad(x, (0, 0, pl, pr, pt, pb))
+        pad = (0, 0)
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), b,
+                 stride=(sy, sx), padding=pad)
+    return y.permute(0, 2, 3, 1)
 
 
 class Conv(Forward):
@@ -91,6 +110,18 @@ class Conv(Forward):
         if not self.output or self.output.shape != out_shape:
             self.output.reset(shape=out_shape)
         self.init_array(self.input, self.output, self.weights, self.bias)
+
+    # -- fused-step protocol ------------------------------------------------
+    def param_arrays(self) -> dict:
+        out = {"w": self.weights}
+        if self.include_bias:
+            out["b"] = self.bias
+        return out
+
+    def torch_apply(self, p: dict, x, *, rng=None, train=True):
+        return activations.forward(
+            torch, self.ACTIVATION,
+            conv2d_nhwc(x, p["w"], p.get("b"), self.sliding, self.padding))
 
     # -- compute ------------------------------------------------------------
     def numpy_run(self) -> None:

@@ -3,17 +3,16 @@
 port executed against an oracle at the reference's sweep shapes and bands,
 so one run on the card checks the whole kernel layer.
 
-``run_parity(device)`` returns ``{family: "ok" | "FAIL: ..." | "not
-ported: ..."}`` with the reference's family names.  Inputs are made from
+``run_parity(device)`` returns ``{family: "ok" | "FAIL: ..."}`` with the
+reference's family names, all fourteen of them.  Inputs are made from
 a seeded numpy generator and moved to ``device``; each family calls the
 port's kernel wrapper there (the kernel on ``cuda``, its plain version on
 ``cpu``) and compares with an oracle on the CPU: the numpy code the port
 copies from the reference (``ops/``) where it has one, the plain-torch
 reference ops otherwise (attention), so on the CPU the sweep holds each
-plain version against the reference's arithmetic.  A family the port has
-no kernel for is named ``"not ported: <ROADMAP item>"`` and never reported
-``ok``.  Nothing is skipped, on either device; a failure is caught and
-reported (a sweep must finish), never hidden.
+plain version against the reference's arithmetic.  Nothing is skipped,
+on either device; a failure is caught and reported (a sweep must finish),
+never hidden.
 """
 
 from __future__ import annotations
@@ -21,14 +20,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-#: families the port has no counterpart for yet, and where they stand
-NOT_PORTED = {
-    "deconv": "not ported: ROADMAP.md queue A item 8 (units/deconv.py; "
-              "its kernels reuse conv2d_input_grad / conv2d_weight_grad)",
-    "conv_fwd_bf16": "not ported: ROADMAP.md queue B item 6 (the conv "
-                     "kernels are f32; a bf16 wgmma instantiation is later "
-                     "work)",
-}
+#: families the port has no counterpart for: none (every family of the
+#: reference has one since the deconv pair and the bf16 conv forward)
+NOT_PORTED: dict = {}
 
 
 def _close(got, want, rtol, atol, what=""):
@@ -58,6 +52,7 @@ def run_parity(device="cuda") -> dict:
                                          pooling as kpool)
     from znicz_tpu_torch.ops import (activations, adam as adam_ops,
                                      attention as att, conv as conv_ops,
+                                     deconv as deconv_ops,
                                      kohonen as k_ops, linear as lin_ops,
                                      lrn as lrn_ops, pooling as pool_ops,
                                      sgd as sgd_ops)
@@ -154,13 +149,19 @@ def run_parity(device="cuda") -> dict:
         for got, want, what in zip(outs, refs, ("err_input", "gw", "gb")):
             _close(got, want, 1e-4, 1e-3, what)
 
-    def conv_fwd():
-        x = rng.normal(size=(8, 16, 16, 64)).astype(np.float32)
-        w = (rng.normal(size=(3, 3, 64, 128)) * 0.1).astype(np.float32)
-        b = rng.normal(size=(128,)).astype(np.float32)
+    def conv_fwd(dtype=torch.float32, rtol=1e-4, atol=1e-4):
+        # one body serves both precisions, as the reference's does; the
+        # oracle takes the operands as the kernel sees them (bf16-rounded)
+        x, w, b = (on(a, dtype) for a in (
+            rng.normal(size=(8, 16, 16, 64)),
+            rng.normal(size=(3, 3, 64, 128)) * 0.1, rng.normal(size=(128,))))
         geom = ((1, 1), (1, 1, 1, 1))
-        _close(kconv.conv2d_fwd(on(x), on(w), on(b), *geom),
-               conv_ops.forward_linear(np, x, w, b, *geom), 1e-4, 1e-4, "y")
+        y = kconv.conv2d_fwd(x, w, b, *geom)
+        if y.dtype != dtype:
+            raise AssertionError(f"y came back {y.dtype}")
+        _close(y, conv_ops.forward_linear(
+            np, *(a.float().cpu().numpy() for a in (x, w, b)), *geom),
+            rtol, atol, "y")
 
     def conv_bwd():
         x = rng.normal(size=(8, 16, 16, 64)).astype(np.float32)
@@ -172,6 +173,20 @@ def run_parity(device="cuda") -> dict:
                                  activation_applied=False)
         outs = kconv.conv2d_backward(on(x), on(w), on(err), *geom)
         for got, want, what in zip(outs, refs, ("err_input", "gw", "gb")):
+            _close(got, want, 1e-4, 1e-3, what)
+
+    def deconv():
+        x = rng.normal(size=(8, 8, 8, 128)).astype(np.float32)
+        w = (rng.normal(size=(4, 4, 64, 128)) * 0.1).astype(np.float32)
+        geom = ((2, 2), (1, 1, 1, 1))
+        out_shape = deconv_ops.output_shape_for(x.shape, w.shape, *geom)
+        _close(kconv.deconv2d(on(x), on(w), *geom, out_shape),
+               deconv_ops.forward(np, x, w, *geom, out_shape), 1e-4, 1e-3,
+               "y")
+        err = rng.normal(size=out_shape).astype(np.float32)
+        refs = deconv_ops.backward(np, x, w, err, *geom)
+        outs = kconv.deconv2d_backward(on(x), on(w), on(err), *geom)
+        for got, want, what in zip(outs, refs, ("err_input", "gw")):
             _close(got, want, 1e-4, 1e-3, what)
 
     def stochastic_pool():
@@ -217,6 +232,9 @@ def run_parity(device="cuda") -> dict:
         for got, want, what in zip(leaves, ref, ("dq", "dk", "dv")):
             _close(got.grad, want.grad, grad_rtol, grad_atol, what)
 
+    def conv_fwd_bf16():
+        conv_fwd(torch.bfloat16, rtol=5e-2, atol=5e-1)
+
     def flash_attention_bf16():
         flash_attention(torch.bfloat16, rtol=5e-2, atol=5e-2,
                         grad_rtol=1e-1, grad_atol=5e-1)
@@ -227,18 +245,15 @@ def run_parity(device="cuda") -> dict:
         for name, fn in (("sgd", sgd), ("adam", adam), ("dropout", dropout),
                          ("lrn", lrn), ("fc_gemm", fc_gemm),
                          ("conv_fwd", conv_fwd), ("conv_bwd", conv_bwd),
-                         ("deconv", None),
+                         ("deconv", deconv),
                          ("stochastic_pool", stochastic_pool),
                          ("kohonen", kohonen),
                          ("flash_attention", flash_attention),
-                         ("conv_fwd_bf16", None),
+                         ("conv_fwd_bf16", conv_fwd_bf16),
                          ("flash_attention_bf16", flash_attention_bf16),
                          ("sgd_bf16state",
                           lambda: sgd(vel_dtype=torch.bfloat16))):
-            if fn is None:
-                results[name] = NOT_PORTED[name]
-            else:
-                _check(name, fn, results)
+            _check(name, fn, results)
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = tf32
