@@ -14,6 +14,8 @@ oracle, launch counting, ``bound``, ``split_k`` and the wrappers' checks.
 The kernel-vs-plain check on the card is ``cuda``-marked and skips here.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -273,6 +275,110 @@ def test_bf16_forward_rounds_once():
                     dtype=torch.bfloat16)
 
 
+#: the bf16 forward's N-tile edges (kernels/conv.py fwd_bf16_tile): conv1's
+#: cin 3 / cout 96 at its stride-4 11x11 geometry (the gathered A path),
+#: then couts at and past the 64, 128, 192 and 256 tiles, cout 6 (the
+#: scalar B path) and cin 5 (the gathered A path) at stride 2 with
+#: asymmetric pads; (h, w, cin, cout, k, sliding, padding)
+BF16_EDGE_GEOMS = [
+    (23, 23, 3, 96, 11, (4, 4), (0, 0, 0, 0)),
+    (7, 7, 8, 64, 3, (1, 1), (1, 1, 1, 1)),
+    (7, 7, 8, 65, 3, (1, 1), (1, 1, 1, 1)),
+    (6, 6, 16, 192, 3, (1, 1), (1, 1, 1, 1)),
+    (6, 6, 16, 200, 3, (1, 1), (1, 1, 1, 1)),
+    (9, 9, 5, 6, 3, (2, 2), (0, 1, 1, 0)),
+]
+#: the input gradient's N-tile edges (kernels/conv.py input_grad_tile): cin
+#: 1, 3 and 8 in the 8-wide tile, 17 in the 32-wide one, 64 and 96 at the
+#: tops of theirs; each at stride 2 with asymmetric pads (four residue
+#: classes, the 16-byte copies of cout % 4 == 0) and at stride 1 with
+#: cout 6 (the scalar copies); (h, w, cout, k, sliding, padding)
+IG_EDGE_CIN = (1, 3, 8, 17, 64, 96)
+IG_EDGE_GEOMS = [(11, 10, 12, 3, (2, 2), (1, 0, 2, 1)),
+                 (9, 9, 6, 3, (1, 1), (1, 1, 1, 1))]
+
+
+def _bf16_edge_operands(geom, seed=13):
+    h, w, cin, cout, k, sliding, padding = geom
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(2, h, w, cin)).astype(np.float32)
+    wts = (rng.normal(size=(k, k, cin, cout)) / np.sqrt(k * k * cin)) \
+        .astype(np.float32)
+    b = (rng.normal(size=(cout,)) * 0.1).astype(np.float32)
+    return x, wts, b, sliding, padding
+
+
+@pytest.mark.parametrize("geom", BF16_EDGE_GEOMS)
+def test_bf16_plain_at_the_tile_edges_matches_pallas_interpret(geom):
+    """The card's oracle for the bf16 forward, held against the reference
+    at every N tile the kernel picks: within 1 bf16 ulp of the Pallas
+    kernel in interpret mode, as at the reference's geometries."""
+    x, wts, b, sliding, padding = _bf16_edge_operands(geom)
+    xb, wb, bb = (torch.tensor(a).bfloat16() for a in (x, wts, b))
+    want = conv2d_im2col(jnp.asarray(x, jnp.bfloat16),
+                         jnp.asarray(wts, jnp.bfloat16),
+                         jnp.asarray(b, jnp.bfloat16), sliding, padding,
+                         interpret=True)
+    want = np.asarray(want.astype(jnp.float32))
+    got = kconv.conv2d_fwd(xb, wb, bb, sliding, padding)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _bf16_ulps(got.float().numpy(), want).max() <= 1.0
+
+
+def _ig_edge_operands(cin, geom, seed=17):
+    h, w, cout, k, sliding, padding = geom
+    rng = np.random.default_rng(seed + cin)
+    x = rng.normal(size=(2, h, w, cin)).astype(np.float32)
+    wts = (rng.normal(size=(k, k, cin, cout)) * 0.1).astype(np.float32)
+    y = jconv.forward_linear(np, x, wts, None, sliding, padding)
+    e = rng.normal(size=y.shape).astype(np.float32)
+    return x, wts, e, sliding, padding
+
+
+@pytest.mark.parametrize("geom", IG_EDGE_GEOMS)
+@pytest.mark.parametrize("cin", IG_EDGE_CIN)
+def test_input_grad_plain_at_the_tile_edges_matches_the_reference(cin,
+                                                                  geom):
+    """The card's oracle for the input gradient, at every N tile the
+    kernel picks, against the reference's Pallas conv2d_backward in
+    interpret mode and its numpy backward (rtol 1e-4, atol 1e-5)."""
+    x, wts, e, sliding, padding = _ig_edge_operands(cin, geom)
+    got = kconv.conv2d_input_grad(torch.tensor(e), torch.tensor(wts),
+                                  sliding, padding, x.shape[1:3])
+    ei_j, _, _ = conv2d_backward(jnp.asarray(x), jnp.asarray(wts),
+                                 jnp.asarray(e), sliding, padding,
+                                 interpret=True)
+    ei_o, _, _ = jconv.backward(np, x, None, wts, e, sliding, padding,
+                                "linear", activation_applied=False)
+    assert got.shape == x.shape
+    for want in (np.asarray(ei_j), ei_o):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+
+
+def test_tile_choices_fit_the_paths_widths():
+    """Both tile choices are functions of one channel count: the input
+    gradient's of cin (AlexNet's conv2-5 and build_deep's conv2, deconv1
+    and deconv2 below), the bf16 forward's of cout (AlexNet's five), with
+    no more padding than the next tile would need."""
+    tile = kconv.input_grad_tile
+    assert [tile(c) for c in (96, 256, 384, 384)] == \
+        [(128, 96), (128, 128), (128, 128), (128, 128)]
+    assert [tile(c) for c in (64, 64, 3)] == [(128, 64), (128, 64), (256, 8)]
+    assert [tile(c) for c in (1, 8, 9, 17, 32, 33, 96, 97)] == \
+        [(256, 8), (256, 8), (128, 32), (128, 32), (128, 32), (128, 64),
+         (128, 96), (128, 128)]
+    bn = kconv.fwd_bf16_tile
+    assert [bn(c) for c in (96, 256, 384, 384, 256)] == \
+        [128, 256, 192, 192, 256]
+    assert [bn(c) for c in (1, 64, 65, 128, 129, 193, 512, 640)] == \
+        [64, 64, 128, 128, 192, 256, 256, 128]
+    for c in range(1, 1025):
+        assert bn(c) in (64, 128, 192, 256)
+        assert math.ceil(c / bn(c)) * bn(c) <= min(
+            math.ceil(c / t) * t for t in (128, 192, 256))
+    assert kconv.BF16_K_TILE == 64 and kconv.K_TILE == 8
+
+
 def test_unsupported_dtypes_raise_before_any_launch():
     """f16, f64 and mixed operands raise in the wrappers whatever the
     device (the dtype is checked before the device is looked at: the
@@ -338,6 +444,46 @@ def test_kernels_match_plain_on_the_card():
                                                     sliding, padding))
             for g, w_ in zip(got, want):
                 torch.testing.assert_close(g, w_, rtol=1e-4, atol=1e-4)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.cuda
+def test_redesigned_kernels_match_plain_at_the_tile_edges_on_the_card():
+    """The wgmma bf16 forward at the reference's geometries and every N
+    tile (within 1 bf16 ulp of its plain version), and the input
+    gradient at every N tile (f32, TF32 off), both bit-identical across
+    two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernels run only on a card")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for geom in GEOMS[:4] + BF16_EDGE_GEOMS:
+            x, wts, b, sliding, padding = _bf16_edge_operands(geom)
+            xb, wb, bb = (torch.tensor(a, device="cuda").bfloat16()
+                          for a in (x, wts, b))
+            y = kconv.conv2d_fwd(xb, wb, bb, sliding, padding)
+            assert torch.equal(y, kconv.conv2d_fwd(xb, wb, bb, sliding,
+                                                   padding))
+            want = kconv.conv2d_fwd_plain(xb, wb, bb, sliding, padding)
+            assert _bf16_ulps(y.float().cpu().numpy(),
+                              want.float().cpu().numpy()).max() <= 1.0
+        for cin in IG_EDGE_CIN:
+            for geom in IG_EDGE_GEOMS:
+                x, wts, e, sliding, padding = (
+                    torch.tensor(a, device="cuda")
+                    if isinstance(a, np.ndarray) else a
+                    for a in _ig_edge_operands(cin, geom))
+                got = kconv.conv2d_input_grad(e, wts, sliding, padding,
+                                              x.shape[1:3])
+                assert torch.equal(got, kconv.conv2d_input_grad(
+                    e, wts, sliding, padding, x.shape[1:3]))
+                torch.testing.assert_close(
+                    got, kconv.conv2d_input_grad_plain(
+                        e, wts, sliding, padding, x.shape[1:3]),
+                    rtol=1e-5, atol=1e-5)
         torch.cuda.synchronize()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32

@@ -128,6 +128,33 @@ def test_deconv2d_backward_matches_pallas_interpret_and_the_oracle(geom):
     assert none is None and torch.equal(gw2, gw)
 
 
+#: build_deep's deconv geometry (k4 s2 p1) at output channels c on each
+#: side of the input-gradient kernel's N tiles (kernels/conv.py
+#: input_grad_tile): 1, 3 and 8 in the 8-wide tile, 17 in the 32-wide one,
+#: 64 and 96 at the tops of theirs
+EDGE_C = (1, 3, 8, 17, 64, 96)
+
+
+def _edge_geom(c):
+    return (4, 3, 8, c, 4, (2, 2), (1, 1, 1, 1), (0, 0))
+
+
+@pytest.mark.parametrize("c", EDGE_C)
+def test_deconv2d_plain_at_the_tile_edges_matches_pallas_interpret(c):
+    """The card's oracle for the deconv forward at every N tile of the
+    input-gradient kernel, against the Pallas deconv2d in interpret mode
+    and the reference's numpy deconv (rtol 1e-4, atol 1e-5)."""
+    x, w, _, sliding, padding, out_shape = _operands(_edge_geom(c))
+    got = kconv.deconv2d(torch.tensor(x), torch.tensor(w), sliding, padding,
+                         out_shape)
+    want = np.asarray(j_deconv2d(jnp.asarray(x), jnp.asarray(w), sliding,
+                                 padding, out_shape, interpret=True))
+    oracle = jdeconv.forward(np, x, w, sliding, padding, out_shape)
+    assert tuple(got.shape) == out_shape
+    for ref in (want, oracle):
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-5)
+
+
 @pytest.mark.parametrize("slack", FWD_ONLY_SLACK)
 @pytest.mark.parametrize("geom", GEOMS[1:3])
 def test_deconv2d_slack_and_cropped_out_shapes(geom, slack):
@@ -535,6 +562,31 @@ def test_deconv_kernels_match_plain_on_the_card():
             want = kconv.deconv2d_backward_plain(x, w, err, sliding, padding)
             for g, w_ in zip(got, want):
                 torch.testing.assert_close(g, w_, rtol=1e-4, atol=1e-4)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.cuda
+def test_deconv2d_kernel_at_the_tile_edges_on_the_card():
+    """deconv2d on the card at every N tile of the input-gradient kernel
+    against its plain version (TF32 off), bit-identical across two
+    launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernels run only on a card")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for c in EDGE_C:
+            x, w, _, sliding, padding, out_shape = (
+                torch.tensor(a, device="cuda") if isinstance(a, np.ndarray)
+                else a for a in _operands(_edge_geom(c)))
+            y = kconv.deconv2d(x, w, sliding, padding, out_shape)
+            assert torch.equal(y, kconv.deconv2d(x, w, sliding, padding,
+                                                 out_shape))
+            torch.testing.assert_close(
+                y, kconv.deconv2d_plain(x, w, sliding, padding, out_shape),
+                rtol=1e-5, atol=1e-5)
         torch.cuda.synchronize()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32

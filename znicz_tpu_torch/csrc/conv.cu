@@ -19,41 +19,65 @@
 // Bound: operations at AlexNet's shapes.  Each of the three is a GEMM of
 // 27-115 GFLOP at batch 128 (conv1: 387200 x 96 x 363; conv2: 93312 x 256
 // x 2400) over 40-150 MB of operands, far above the f32 CUDA cores' ridge
-// of ~20 flop/byte, so 2*M*N*K / 67 TFLOP/s (bf16: / 989 TFLOP/s on the
-// tensor cores, which these kernels do not use).
+// of ~20 flop/byte, so 2*M*N*K / 67 TFLOP/s; bf16: / 989 TFLOP/s on the
+// tensor cores, where conv1 (cin 3) is bound by its bytes instead.  At
+// narrow channel counts the input gradient is bound by bytes too (the
+// deconv forward to 3 channels: 20 MB for 0.2 GFLOP).
 //
-// Design (right and simple first; wgmma and TMA are later work): an
-// implicit GEMM on the 128x128 tile of tile_f32.cuh, shared with gemm.cu
-// (256 threads, each an 8x8 sub-tile of f32 sums in registers, the K loop
-// over 8-deep tiles double-buffered in shared memory).  Nothing is
-// materialized: the loaders gather each tile element from the
-// NHWC tensor by index arithmetic (pixel and tap kept incrementally as the
-// K loop advances) and read zeros outside the image, so no padded, dilated
-// or phase-split copy exists in device memory.  The TPU kernels need those
-// copies because Mosaic cannot slice with a stride and the MXU wants dense
-// taps; a GPU thread computes the address instead.  f32 sums on the CUDA
-// cores, no TF32, so the reference's f32 bands hold.  The bf16 forward is
-// the same kernel with loaders that widen bf16 to f32 as they fill the f32
-// tile; the epilogue adds the widened bias to the f32 sums and rounds once
-// to bf16, as the Pallas kernel does (acc += b; acc.astype(y.dtype)).
+// Design.  Every kernel is an implicit GEMM: nothing is materialized, the
+// loaders gather each tile from the NHWC tensors by index arithmetic and
+// read zeros outside the image, so no padded, dilated or phase-split copy
+// exists in device memory.  The TPU kernels need those copies because
+// Mosaic cannot slice with a stride and the MXU wants dense taps; a GPU
+// thread computes the address instead.  The f32 kernels sum on the CUDA
+// cores (no TF32), so the reference's f32 bands hold.  No split without a
+// fixed-order reduction and no atomics: two launches are bit-identical.
 //
-//  forward:        M = n*oh*ow pixels, N = cout, K = ky*kx*cin in (iy, ix,
-//                  ci) order, in which the HWIO weights already are a
-//                  row-major (K, N) matrix; bias in the epilogue.
+//  forward, f32:   the 128x128 tile of tile_f32.cuh, shared with gemm.cu
+//                  (256 threads, each an 8x8 sub-tile of f32 sums, 8-deep
+//                  k tiles double-buffered).  M = n*oh*ow pixels, N = cout,
+//                  K = ky*kx*cin in (iy, ix, ci) order, in which the HWIO
+//                  weights already are a row-major (K, N) matrix; bias in
+//                  the epilogue.
+//  forward, bf16:  the same GEMM on the tensor cores: two consumer
+//                  warpgroups (BM = 128) issue wgmma m64nNk16 (bf16 in, f32
+//                  sums) on 64-deep k tiles, 128-byte swizzled in shared
+//                  memory, fed by all 256 threads through a 4-stage
+//                  cp.async ring.  A (the im2col patch) is K-major: where
+//                  cin % 8 == 0 one 16-byte copy carries 8 channels of one
+//                  tap, a copy outside the image reads 0 bytes and writes
+//                  zeros; else (conv1's cin 3) the threads gather 2-byte
+//                  values through registers.  B (the weights) is N-major,
+//                  read with the transpose bit, N tiles of 64/128/192/256
+//                  chosen by cout (fwd_bf16_tile).  The epilogue adds the
+//                  widened bias to the f32 sums, rounds once to bf16 (the
+//                  Pallas kernel's acc += b; acc.astype(y.dtype)) and
+//                  stores 16-byte rows staged through shared memory.
 //  input gradient: M = input pixels, N = cin, K = taps*cout; w read
 //                  transposed per tap from its stored layout.  At stride
 //                  > 1 most taps of a pixel miss the output grid, so the
 //                  pixels are split by their residue mod the stride
 //                  (grid z): every tap of a residue class hits, none is
 //                  wasted.  This is the GPU form of the TPU kernel's phase
-//                  split.  A class that no tap reaches writes zeros.
+//                  split.  A class that no tap reaches writes zeros.  The
+//                  tile is chosen by cin (input_grad_tile): 256 x 8 up to
+//                  8 channels (the deconv to 3 channels, a pass bound by
+//                  its bytes), 128 x 32/64/96 up to 96, else 128 x 128.
+//                  k tiles 32 deep (64 from 96 channels) come through a
+//                  3-stage cp.async ring, 16 bytes (4 cout of one tap) a
+//                  copy where cout % 4 == 0, stored k-contiguous with
+//                  rows BK + 4 floats apart, so the inner product's
+//                  float4 reads of consecutive rows hit distinct banks.
 //  weight gradient: M = ky*kx*cin (+1), N = cout, K = n*oh*ow.  M*N is
 //                  small and K long, so K is split into S slices (grid z)
 //                  that write f32 partials (S, M+1, N); a second kernel
 //                  sums them in slice order.  Row M of A is all ones, so
 //                  row M of the product is the bias gradient, summed in
-//                  the same fixed order.  No atomics: two launches are
-//                  bit-identical.
+//                  the same fixed order.
+// Registers (ptxas, sm_90a), no spills: the bf16 forward 100 / 155 / 203
+// / 245 at N 64 / 128 / 192 / 256, one block of 256 threads an SM; the
+// input gradient 116 / 120 / 168 / 246 / 254 at N 8 / 32 / 64 / 96 / 128,
+// one block an SM (two at N 8 and 32, by registers and shared memory).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,10 +85,12 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "hopper.cuh"
 #include "tile_f32.cuh"
 
 namespace {
 
+using namespace znicz_hopper;
 using namespace znicz_tile;
 
 struct ConvArgs {
@@ -74,29 +100,7 @@ struct ConvArgs {
 };
 
 // One row of a thread's sub-tile (+ bias) into a row of N elements at
-// columns n_first..n_first+7, 16-byte stores where the row allows; bf16
-// rows round each f32 sum once.
-__device__ __forceinline__ void store_row(__nv_bfloat16* row,
-                                          const float (&acc)[TN],
-                                          const float (&bv)[TN], int n_first,
-                                          int N, bool vec) {
-  if (vec && n_first + TN <= N) {
-    uint4 u;
-    unsigned* words = reinterpret_cast<unsigned*>(&u);
-#pragma unroll
-    for (int j = 0; j < TN / 2; ++j) {
-      const __nv_bfloat162 v = __floats2bfloat162_rn(
-          acc[2 * j] + bv[2 * j], acc[2 * j + 1] + bv[2 * j + 1]);
-      words[j] = *reinterpret_cast<const unsigned*>(&v);
-    }
-    *reinterpret_cast<uint4*>(row) = u;
-  } else {
-#pragma unroll
-    for (int j = 0; j < TN; ++j)
-      if (n_first + j < N) row[j] = __float2bfloat16_rn(acc[j] + bv[j]);
-  }
-}
-
+// columns n_first..n_first+7, 16-byte stores where the row allows.
 __device__ __forceinline__ void store_row(float* row, const float (&acc)[TN],
                                           const float (&bv)[TN], int n_first,
                                           int N, bool vec) {
@@ -112,23 +116,70 @@ __device__ __forceinline__ void store_row(float* row, const float (&acc)[TN],
   }
 }
 
-// ---------------------------------------------------------------- forward
+// k -> (iy, ix, ci) of the forward's K, kept incrementally: ci fastest.
+struct FwdCursor {
+  int k, ci, ix, iy;
+
+  __device__ void start(int k_, int cin, int kx) {
+    k = k_;
+    ci = k % cin;
+    const int tap = k / cin;
+    ix = tap % kx;
+    iy = tap / kx;
+  }
+  __device__ __forceinline__ void step(int by, int cin, int kx) {
+    k += by;
+    ci += by;
+    while (ci >= cin) {
+      ci -= cin;
+      if (++ix == kx) {
+        ix = 0;
+        ++iy;
+      }
+    }
+  }
+};
+
+// The window origin in x of output pixel m, and the offset of its image;
+// ok false past the last pixel.
+struct Window {
+  int h0, w0, img;
+  bool ok;
+
+  __device__ Window(const ConvArgs& g, int m) {
+    const int per_img = g.oh * g.ow;
+    ok = m < g.n * per_img;
+    const int n = ok ? m / per_img : 0;
+    const int r = m - n * per_img;
+    h0 = (r / g.ow) * g.sy - g.pt;
+    w0 = (r % g.ow) * g.sx - g.pl;
+    img = n * g.h * g.w * g.cin;
+  }
+  // the offset of tap (iy, ix) in x, or -1 outside the image
+  __device__ __forceinline__ int at(const ConvArgs& g, int iy, int ix) const {
+    const int h = h0 + iy, w = w0 + ix;
+    if (!ok || h < 0 || h >= g.h || w < 0 || w >= g.w) return -1;
+    return img + (h * g.w + w) * g.cin;
+  }
+};
+
+// ----------------------------------------------------------- forward, f32
 
 // A (M x K) of the forward, gathered from x: row m = output pixel (n, oy,
 // ox), column k = (iy, ix, ci), A = x[n, oy*sy + iy - pt, ox*sx + ix - pl,
 // ci] or 0 outside the image.  k-contiguous: a thread loads 4 consecutive k
 // of its pixel; with cin % 4 == 0 they are 4 channels of one tap (one load
-// of 16 bytes in f32, 8 in bf16).  T: float or __nv_bfloat16.
-template <class T>
+// of 16 bytes).  It keeps its own window and cursor: built on Window and
+// FwdCursor (above) it ran the f32 forward 1.5-1.9 % slower on the H100.
 struct FwdA {
   static constexpr bool kKC = true;
-  const T* img;  // x of this thread's image
+  const float* img;  // x of this thread's image
   int W, H, cin, kx, K;
   bool vec, row_ok;
   int h0, w0;          // the pixel's window origin in x
   int k, ci, ix, iy;   // this thread's first k of the next tile
 
-  __device__ FwdA(const T* x, const ConvArgs& g, int m0, bool vec_)
+  __device__ FwdA(const float* x, const ConvArgs& g, int m0, bool vec_)
       : W(g.w), H(g.h), cin(g.cin), kx(g.kx), K(g.ky * g.kx * g.cin),
         vec(vec_) {
     const int m = m0 + threadIdx.x / 2;
@@ -149,7 +200,7 @@ struct FwdA {
   __device__ __forceinline__ float at(int kk, int c, int jx, int jy) const {
     const int h = h0 + jy, w = w0 + jx;
     if (!row_ok || kk >= K || h < 0 || h >= H || w < 0 || w >= W) return 0.f;
-    return widen(img[(static_cast<size_t>(h) * W + w) * cin + c]);
+    return img[(static_cast<size_t>(h) * W + w) * cin + c];
   }
 
   __device__ __forceinline__ void load(float (&r)[4]) {
@@ -185,15 +236,14 @@ struct FwdA {
   }
 };
 
-template <class T>
 __global__ void __launch_bounds__(kThreads)
-conv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                const T* __restrict__ bias, T* __restrict__ y, ConvArgs g,
-                bool vec_x, bool vec_w, bool vec_y) {
+conv_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                const float* __restrict__ bias, float* __restrict__ y,
+                ConvArgs g, bool vec_x, bool vec_w, bool vec_y) {
   const int M = g.n * g.oh * g.ow, N = g.cout, K = g.ky * g.kx * g.cin;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  FwdA<T> la(x, g, m0, vec_x);
-  DenseTile<false, T> lb{w, N, K, n0, 0, vec_w};
+  FwdA la(x, g, m0, vec_x);
+  DenseTile<false> lb{w, N, K, n0, 0, vec_w};
   float acc[TM][TN];
   mainloop(la, lb, (K + BK - 1) / BK, acc);
 
@@ -202,14 +252,244 @@ conv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
   float bv[TN];
 #pragma unroll
   for (int j = 0; j < TN; ++j)
-    bv[j] = (bias != nullptr && n_first + j < N) ? widen(bias[n_first + j])
-                                                 : 0.f;
+    bv[j] = (bias != nullptr && n_first + j < N) ? bias[n_first + j] : 0.f;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int m = m0 + ty * TM + i;
     if (m >= M) break;
     store_row(y + static_cast<size_t>(m) * N + n_first, acc[i], bv, n_first,
               N, vec_y);
+  }
+}
+
+// ---------------------------------------------------------- forward, bf16
+
+constexpr int kBfBM = 128, kBfBK = 64, kBfStages = 4, kBfThreads = 256;
+constexpr uint32_t kRow = 128;              // bytes of a 64-element row
+constexpr uint32_t kAtom = kBfBK * kRow;    // an MN-major atom: 64 k x 64 n
+constexpr uint32_t kBfABytes = kBfBM * kRow;
+
+template <int BN>
+__host__ __device__ constexpr uint32_t bf_stage_bytes() {
+  return kBfABytes + BN * kRow;
+}
+// the ring, and the slack that aligns it to the 1024-byte swizzle atom;
+// the epilogue stages the 128 x (BN + 8) bf16 output tile in it
+template <int BN>
+__host__ __device__ constexpr size_t bf_smem() {
+  return 1024 + kBfStages * bf_stage_bytes<BN>();
+}
+
+// byte offset of the 16-byte chunk c of row r of a 128-byte-swizzled tile
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return r * kRow + ((c ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr,
+                                             const uint32_t (&v)[4]) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
+               : "memory");
+}
+
+__device__ __forceinline__ void st_shared_u16(uint32_t addr, uint16_t v) {
+  asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(addr), "h"(v) : "memory");
+}
+
+__device__ __forceinline__ float bf16_to_f32(uint16_t v) {
+  return __uint_as_float(static_cast<uint32_t>(v) << 16);
+}
+
+// The next k tile of A into the stage at shared address `sa`: 128 rows
+// (output pixels m0..) of 64 k.  vec: thread t copies chunk t % 8 (8
+// channels of one tap) of rows t / 8 + 32 p; its cursor `c` is at that
+// chunk's k and steps one tile.  Else thread t gathers the 32 k of half t
+// % 2 of row t / 2 one value at a time (cursor at its first k).
+struct BfA {
+  const uint16_t* x;
+  Window win[4];
+  FwdCursor c;
+  bool vec;
+
+  __device__ BfA(const uint16_t* x_, const ConvArgs& g, int m0, bool vec_)
+      : x(x_),
+        win{Window(g, m0 + (vec_ ? threadIdx.x / 8 : threadIdx.x / 2)),
+            Window(g, m0 + threadIdx.x / 8 + 32),
+            Window(g, m0 + threadIdx.x / 8 + 64),
+            Window(g, m0 + threadIdx.x / 8 + 96)},
+        vec(vec_) {
+    c.start(vec ? (threadIdx.x % 8) * 8 : (threadIdx.x % 2) * 32, g.cin,
+            g.kx);
+  }
+
+  __device__ __forceinline__ void load(const ConvArgs& g, int K,
+                                       uint32_t sa) {
+    if (vec) {
+      const int chunk = threadIdx.x % 8, r0 = threadIdx.x / 8;
+      const bool kok = c.k < K;
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const int off = kok ? win[p].at(g, c.iy, c.ix) : -1;
+        cp_async16(sa + swz(r0 + 32 * p, chunk),
+                   off >= 0 ? x + off + c.ci : x, off >= 0 ? 16 : 0);
+      }
+      c.step(kBfBK, g.cin, g.kx);
+    } else {
+      const int r = threadIdx.x / 2, half = threadIdx.x % 2;
+      uint32_t v[16];
+#pragma unroll
+      for (int j = 0; j < 32; j += 2) {
+        uint16_t lo = 0, hi = 0;
+        int off = c.k < K ? win[0].at(g, c.iy, c.ix) : -1;
+        if (off >= 0) lo = x[off + c.ci];
+        c.step(1, g.cin, g.kx);
+        off = c.k < K ? win[0].at(g, c.iy, c.ix) : -1;
+        if (off >= 0) hi = x[off + c.ci];
+        c.step(1, g.cin, g.kx);
+        v[j / 2] =
+            static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint32_t w4[4] = {v[4 * q], v[4 * q + 1], v[4 * q + 2],
+                                v[4 * q + 3]};
+        st_shared_v4(sa + swz(r, half * 4 + q), w4);
+      }
+      c.step(32, g.cin, g.kx);  // the other half's 32 k
+    }
+  }
+};
+
+// The k tile `kt` of B (the weights' rows kt*64.., columns n0..n0+BN)
+// into the stage at `sb`, MN-major: BN / 64 atoms of 64 k rows x 128
+// bytes.  vec (cout % 8 == 0): 16-byte copies of 8 columns; else one
+// 2-byte value a store.
+template <int BN>
+__device__ __forceinline__ void bf_load_b(const uint16_t* w, int K, int N,
+                                          int n0, int kt, bool vec,
+                                          uint32_t sb) {
+  const int k0 = kt * kBfBK;
+  if (vec) {
+    constexpr int kChunks = BN / 8;  // a row's 16-byte chunks
+#pragma unroll
+    for (int p = 0; p < BN / 32; ++p) {
+      const int q = threadIdx.x + kBfThreads * p;
+      const int kr = q / kChunks, cc = q % kChunks;
+      const int k = k0 + kr, n = n0 + cc * 8;
+      const bool ok = k < K && n < N;
+      cp_async16(sb + (cc / 8) * kAtom + swz(kr, cc % 8),
+                 ok ? w + static_cast<size_t>(k) * N + n : w, ok ? 16 : 0);
+    }
+  } else {
+#pragma unroll 4
+    for (int p = 0; p < BN / 4; ++p) {
+      const int q = threadIdx.x + kBfThreads * p;
+      const int kr = q / BN, nn = q % BN;
+      const int k = k0 + kr, n = n0 + nn;
+      const uint16_t v =
+          k < K && n < N ? w[static_cast<size_t>(k) * N + n] : uint16_t(0);
+      st_shared_u16(sb + (nn / 64) * kAtom + swz(kr, (nn % 64) / 8) +
+                        (nn % 8) * 2,
+                    v);
+    }
+  }
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kBfThreads, 1)
+conv_fwd_bf16_kernel(const uint16_t* __restrict__ x,
+                     const uint16_t* __restrict__ w,
+                     const uint16_t* __restrict__ bias,
+                     uint16_t* __restrict__ y, ConvArgs g, bool vec_x,
+                     bool vec_w, bool vec_y) {
+  extern __shared__ __align__(1024) unsigned char bf_smem_raw[];
+  const uint32_t raw = smem_u32(bf_smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const int M = g.n * g.oh * g.ow, N = g.cout, K = g.ky * g.kx * g.cin;
+  const int m0 = blockIdx.x * kBfBM, n0 = blockIdx.y * BN;
+  const int nk = (K + kBfBK - 1) / kBfBK;
+  constexpr uint32_t kStage = bf_stage_bytes<BN>();
+  static_assert(kBfBM * (BN + 8) * 2 <= kBfStages * kStage,
+                "the staged output tile fits in the ring");
+
+  BfA la(x, g, m0, vec_x);
+  auto load = [&](int kt) {
+    const uint32_t sa = base + (kt % kBfStages) * kStage;
+    la.load(g, K, sa);
+    bf_load_b<BN>(w, K, N, n0, kt, vec_w, sa + kBfABytes);
+  };
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+
+#pragma unroll 1
+  for (int s = 0; s < kBfStages - 1; ++s) {
+    if (s < nk) load(s);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int kt = 0; kt < nk; ++kt) {
+    // this thread's copies of tile kt have landed; after the barrier
+    // everyone's have, and every warpgroup is done with tile kt - 1
+    cp_async_wait<kBfStages - 2>();
+    fence_proxy_async();
+    __syncthreads();
+    const uint32_t sa = base + (kt % kBfStages) * kStage;
+    const uint32_t sb = sa + kBfABytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBfBK / 16; ++kk)
+      wgmma_ss<1>(acc, sw128(sa + wg * 64 * kRow + kk * 32),
+                  sw128_mn(sb + kk * 16 * kRow, kAtom), 1);
+    wgmma_commit();
+    // tile kt + 3 into the stage tile kt - 1 left, while wgmma runs
+    if (kt + kBfStages - 1 < nk) load(kt + kBfStages - 1);
+    cp_async_commit();
+    wgmma_wait<0>();
+    reg_fence(acc);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: stage the output tile there
+
+  // accumulator entry 4j + e: row 16 (warp % 4) + lane / 4 + 8 (e >> 1)
+  // of the warpgroup's 64, column 8j + 2 (lane % 4) + (e & 1)
+  constexpr int kCs = BN + 8;  // staged row stride (bf16): no bank conflict
+  const int row0 = wg * 64 + (warp % 4) * 16 + lane / 4;
+  unsigned char* staged = bf_smem_raw + (base - raw);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = 8 * j + 2 * (lane % 4), n = n0 + col;
+    const float b0 =
+        bias != nullptr && n < N ? bf16_to_f32(bias[n]) : 0.f;
+    const float b1 =
+        bias != nullptr && n + 1 < N ? bf16_to_f32(bias[n + 1]) : 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(staged +
+                                   ((row0 + 8 * h) * kCs + col) * 2) =
+          pack_f32(acc[4 * j + 2 * h] + b0, acc[4 * j + 2 * h + 1] + b1);
+  }
+  __syncthreads();
+  constexpr int kChunks = BN / 8;
+#pragma unroll
+  for (int p = 0; p < kBfBM * kChunks / kBfThreads; ++p) {
+    const int q = threadIdx.x + kBfThreads * p;
+    const int r = q / kChunks, cc = q % kChunks;
+    const int m = m0 + r, n = n0 + cc * 8;
+    if (m >= M || n >= N) continue;
+    const unsigned char* src = staged + (r * kCs + cc * 8) * 2;
+    uint16_t* dst = y + static_cast<size_t>(m) * N + n;
+    if (vec_y) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      const uint16_t* s16 = reinterpret_cast<const uint16_t*>(src);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (n + e < N) dst[e] = s16[e];
+    }
   }
 }
 
@@ -257,131 +537,196 @@ struct TapCursor {
   }
 };
 
-// A (Mc x Kc) of the input gradient, gathered from e: row = input pixel
-// (n, h, w) of the class, column (jy, jx, co); A = e[n, oy, ox, co] with
-// oy = (h + pt - iy) / sy (exact in the class), or 0 off the output grid.
-struct IgradA {
-  static constexpr bool kKC = true;
-  const float* img;  // e of this thread's image
-  int oh, ow, cout, nx, Kc;
-  bool vec, row_ok;
-  int oy0, ox0;  // the output pixel that tap (jy, jx) = (0, 0) reads
-  TapCursor t;
+constexpr int kIgStages = 3;
+constexpr int kIgThreads = 256;
 
-  __device__ IgradA(const float* e, const ConvArgs& g, const ResidueClass& c,
-                    int m0, bool vec_)
-      : oh(g.oh), ow(g.ow), cout(g.cout), nx(c.nx),
-        Kc(c.ny * c.nx * g.cout), vec(vec_) {
-    const int m = m0 + threadIdx.x / 2;
-    const int per_img = c.hc * c.wc;
-    row_ok = m < g.n * per_img;
-    const int n = row_ok ? m / per_img : 0;
-    const int r = m - n * per_img;
-    const int h = c.h0 + (r / c.wc) * g.sy;
-    const int w = c.w0 + (r % c.wc) * g.sx;
-    oy0 = (h + g.pt - c.ry) / g.sy;
-    ox0 = (w + g.pl - c.rx) / g.sx;
-    img = e + static_cast<size_t>(n) * g.oh * g.ow * g.cout;
-    t.start((threadIdx.x % 2) * 4, cout, nx > 0 ? nx : 1);
-  }
-
-  __device__ __forceinline__ const float* row(int kk, int jx, int jy) const {
-    const int oy = oy0 - jy, ox = ox0 - jx;
-    if (!row_ok || kk >= Kc || oy < 0 || oy >= oh || ox < 0 || ox >= ow)
-      return nullptr;
-    return img + (static_cast<size_t>(oy) * ow + ox) * cout;
-  }
-
-  __device__ __forceinline__ void load(float (&r)[4]) {
-    if (vec) {
-      const float* p = row(t.k, t.jx, t.jy);
-      if (p)
-        set4(r, *reinterpret_cast<const float4*>(p + t.co));
-      else
-        zero4(r);
-    } else {
-      TapCursor u = t;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float* p = row(u.k, u.jx, u.jy);
-        r[j] = p ? p[u.co] : 0.f;
-        u.step(1, cout, nx);
-      }
-    }
-    t.step(BK, cout, nx);
-  }
+// A tile shape of the input gradient: BM pixels x BN input channels, each
+// thread TM x TN of them, over k tiles BK deep.  A thread's rows ty + RT i
+// and columns tx + CT j are interleaved, so a warp's float4 reads of one
+// k step fall on consecutive staged rows: with rows S = BK + 4 floats
+// apart (S / 4 odd), 8 consecutive rows (a quarter warp's 128 bytes) hit
+// 8 distinct 4-bank groups.  A loader pass fills Rows rows of Chunks
+// 16-byte chunks.
+template <int BM_, int BN_, int TM_, int TN_, int BK_>
+struct IgTile {
+  static constexpr int BM = BM_, BN = BN_, TM = TM_, TN = TN_, BK = BK_;
+  static constexpr int RT = BM / TM, CT = BN / TN, S = BK + 4;
+  static constexpr int Chunks = BK / 4, Rows = kIgThreads / Chunks;
+  static_assert(RT * CT == kIgThreads, "256 threads a block");
+  static_assert(BM % Rows == 0 && (S / 4) % 2 == 1, "whole loader passes");
+  static constexpr int kSmem =
+      static_cast<int>(sizeof(float)) * kIgStages * (BM + BN) * S;
 };
 
-// B (Kc x cin) of the input gradient: B[(jy, jx, co), ci] = w[iy, ix, ci,
-// co], the stored HWIO weights read transposed per tap (co contiguous).
-struct IgradB {
-  static constexpr bool kKC = true;
-  const float* w;
-  int cin, cout, kx, sy, sx, ry, rx, nx, Kc, ci;
-  bool vec;
-  TapCursor t;
+// the family, by cin (input_grad_tile in kernels/conv.py is its twin):
+// 64-deep k tiles from 96 channels (half the barriers); 32-deep below,
+// where 64 halved the blocks an SM at N 8 and was no faster at N 64
+using IgNarrow = IgTile<256, 8, 1, 8, 32>;  // cin <= 8: the deconv to 3
+using IgN32 = IgTile<128, 32, 8, 2, 32>;
+using IgN64 = IgTile<128, 64, 8, 4, 32>;
+using IgN96 = IgTile<128, 96, 8, 6, 64>;
+using IgWide = IgTile<128, 128, 8, 8, 64>;
 
-  __device__ IgradB(const float* w_, const ConvArgs& g, const ResidueClass& c,
-                    int n0, bool vec_)
-      : w(w_), cin(g.cin), cout(g.cout), kx(g.kx), sy(g.sy), sx(g.sx),
-        ry(c.ry), rx(c.rx), nx(c.nx), Kc(c.ny * c.nx * g.cout),
-        ci(n0 + threadIdx.x / 2), vec(vec_) {
-    t.start((threadIdx.x % 2) * 4, cout, nx > 0 ? nx : 1);
-  }
+int input_grad_bn(int cin) {
+  return cin <= 8 ? 8 : cin <= 32 ? 32 : cin <= 64 ? 64 : cin <= 96 ? 96
+                                                                     : 128;
+}
 
-  __device__ __forceinline__ const float* row(int kk, int jx, int jy) const {
-    if (ci >= cin || kk >= Kc) return nullptr;
-    const int tap = (ry + jy * sy) * kx + rx + jx * sx;
-    return w + (static_cast<size_t>(tap) * cin + ci) * cout;
-  }
-
-  __device__ __forceinline__ void load(float (&r)[4]) {
-    if (vec) {
-      const float* p = row(t.k, t.jx, t.jy);
-      if (p)
-        set4(r, *reinterpret_cast<const float4*>(p + t.co));
-      else
-        zero4(r);
-    } else {
-      TapCursor u = t;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float* p = row(u.k, u.jx, u.jy);
-        r[j] = p ? p[u.co] : 0.f;
-        u.step(1, cout, nx);
-      }
-    }
-    t.step(BK, cout, nx);
-  }
-};
-
-__global__ void __launch_bounds__(kThreads)
+// A (Mc x Kc), gathered from e: row = input pixel (n, h, w) of the class,
+// column (jy, jx, co); A = e[n, oy, ox, co] with oy = (h + pt - iy) / sy
+// (exact in the class), or 0 off the output grid.  B (Kc x cin): B[(jy,
+// jx, co), ci] = w[iy, ix, ci, co], the stored HWIO weights read
+// transposed per tap (co contiguous).  Both are staged k-contiguous, row
+// by row: thread t fills the 4 k at column 4 (t % Chunks) of rows t /
+// Chunks + Rows p of each stage.  vec (cout % 4 == 0, 16-byte aligned e
+// and w): those 4 k are 4 channels of one tap, one 16-byte cp.async (0
+// bytes read, zeros written, off the grid); else 4 loads and stores.
+template <int BM, int BN, int TM, int TN, int BK>
+__global__ void __launch_bounds__(kIgThreads, 1)
 conv_input_grad_kernel(const float* __restrict__ e,
                        const float* __restrict__ w, float* __restrict__ ei,
-                       ConvArgs g, bool vec_e, bool vec_w, bool vec_o) {
+                       ConvArgs g, bool vec) {
+  using T = IgTile<BM, BN, TM, TN, BK>;
+  extern __shared__ __align__(16) float ig_smem[];
   const ResidueClass c(g, blockIdx.z);
   const int Mc = g.n * c.hc * c.wc;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int m0 = blockIdx.x * T::BM, n0 = blockIdx.y * T::BN;
   if (m0 >= Mc) return;  // the whole block: this class has fewer pixels
-  IgradA la(e, g, c, m0, vec_e);
-  IgradB lb(w, g, c, n0, vec_w);
-  float acc[TM][TN];
-  mainloop(la, lb, (c.ny * c.nx * g.cout + BK - 1) / BK, acc);
-
-  const int ty = threadIdx.x / (BN / TN), tx = threadIdx.x % (BN / TN);
-  const int n_first = n0 + tx * TN;
-  const float zeros[TN] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  const int Kc = c.ny * c.nx * g.cout;
+  const int nk = (Kc + BK - 1) / BK;
   const int per_img = c.hc * c.wc;
+  constexpr int S = T::S;
+  float* As = ig_smem;                        // [stage][BM][S]
+  float* Bs = ig_smem + kIgStages * BM * S;   // [stage][BN][S]
+
+  constexpr int Rows = T::Rows;
+  constexpr int AP = BM / Rows, BP = (BN + Rows - 1) / Rows;
+  const int col = (threadIdx.x % T::Chunks) * 4;
+  const int r0 = threadIdx.x / T::Chunks;
+  int oy0[AP], ox0[AP], img[AP];  // the output pixel tap (0, 0) reads
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
+  for (int p = 0; p < AP; ++p) {
+    const int m = m0 + r0 + Rows * p;
+    const int n = m < Mc ? m / per_img : 0, r = m - n * per_img;
+    const int h = c.h0 + (r / c.wc) * g.sy, wi = c.w0 + (r % c.wc) * g.sx;
+    oy0[p] = m < Mc ? (h + g.pt - c.ry) / g.sy : -(1 << 30);  // never in
+    ox0[p] = (wi + g.pl - c.rx) / g.sx;
+    img[p] = n * g.oh * g.ow * g.cout;
+  }
+  TapCursor t;
+  t.start(col, g.cout, c.nx > 0 ? c.nx : 1);
+
+  // the next k tile into stage s (tiles load in order; t is at its k)
+  auto load = [&](int s) {
+    float* as = As + s * BM * S + col;
+    float* bs = Bs + s * BN * S + col;
+    if (vec) {
+      const bool kok = t.k < Kc;
+      const int tap = (c.ry + t.jy * g.sy) * g.kx + c.rx + t.jx * g.sx;
+#pragma unroll
+      for (int p = 0; p < AP; ++p) {
+        const int oy = oy0[p] - t.jy, ox = ox0[p] - t.jx;
+        const bool ok = kok && oy >= 0 && oy < g.oh && ox >= 0 && ox < g.ow;
+        cp_async16(smem_u32(as + (r0 + Rows * p) * S),
+                   ok ? e + img[p] + (oy * g.ow + ox) * g.cout + t.co : e,
+                   ok ? 16 : 0);
+      }
+#pragma unroll
+      for (int p = 0; p < BP; ++p) {
+        const int row = r0 + Rows * p, ci = n0 + row;
+        if (row >= T::BN) break;
+        const bool ok = kok && ci < g.cin;
+        cp_async16(smem_u32(bs + row * S),
+                   ok ? w + (static_cast<size_t>(tap) * g.cin + ci) * g.cout +
+                            t.co
+                      : w,
+                   ok ? 16 : 0);
+      }
+    } else {
+      TapCursor u = t;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool kok = u.k < Kc;
+        const int tap = (c.ry + u.jy * g.sy) * g.kx + c.rx + u.jx * g.sx;
+#pragma unroll
+        for (int p = 0; p < AP; ++p) {
+          const int oy = oy0[p] - u.jy, ox = ox0[p] - u.jx;
+          const bool ok =
+              kok && oy >= 0 && oy < g.oh && ox >= 0 && ox < g.ow;
+          as[(r0 + Rows * p) * S + j] =
+              ok ? e[img[p] + (oy * g.ow + ox) * g.cout + u.co] : 0.f;
+        }
+#pragma unroll
+        for (int p = 0; p < BP; ++p) {
+          const int row = r0 + Rows * p, ci = n0 + row;
+          if (row >= T::BN) break;
+          bs[row * S + j] =
+              kok && ci < g.cin
+                  ? w[(static_cast<size_t>(tap) * g.cin + ci) * g.cout + u.co]
+                  : 0.f;
+        }
+        u.step(1, g.cout, c.nx);
+      }
+    }
+    t.step(BK, g.cout, c.nx > 0 ? c.nx : 1);
+  };
+
+  float acc[T::TM][T::TN];
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < T::TN; ++j) acc[i][j] = 0.f;
+  const int ty = threadIdx.x / T::CT, tx = threadIdx.x % T::CT;
+
+#pragma unroll 1
+  for (int s = 0; s < kIgStages - 1; ++s) {
+    if (s < nk) load(s);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int kt = 0; kt < nk; ++kt) {
+    // tile kt has landed for everyone, and everyone is done with kt - 1,
+    // whose stage the next load takes
+    cp_async_wait<kIgStages - 2>();
+    __syncthreads();
+    if (kt + kIgStages - 1 < nk) load((kt + kIgStages - 1) % kIgStages);
+    cp_async_commit();
+    const float* as = As + (kt % kIgStages) * BM * S;
+    const float* bs = Bs + (kt % kIgStages) * BN * S;
+#pragma unroll
+    for (int k = 0; k < BK; k += 4) {
+      float4 a[T::TM];
+#pragma unroll
+      for (int i = 0; i < T::TM; ++i)
+        a[i] = *reinterpret_cast<const float4*>(
+            as + (ty + T::RT * i) * S + k);
+#pragma unroll
+      for (int j = 0; j < T::TN; ++j) {
+        const float4 b = *reinterpret_cast<const float4*>(
+            bs + (tx + T::CT * j) * S + k);
+#pragma unroll
+        for (int i = 0; i < T::TM; ++i) {
+          acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
+          acc[i][j] = fmaf(a[i].y, b.y, acc[i][j]);
+          acc[i][j] = fmaf(a[i].z, b.z, acc[i][j]);
+          acc[i][j] = fmaf(a[i].w, b.w, acc[i][j]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i) {
+    const int m = m0 + ty + T::RT * i;
     if (m >= Mc) break;
     const int n = m / per_img, r = m - n * per_img;
-    const int h = c.h0 + (r / c.wc) * g.sy;
-    const int wi = c.w0 + (r % c.wc) * g.sx;
-    float* row =
-        ei + ((static_cast<size_t>(n) * g.h + h) * g.w + wi) * g.cin + n_first;
-    store_row(row, acc[i], zeros, n_first, g.cin, vec_o);
+    const int h = c.h0 + (r / c.wc) * g.sy, wi = c.w0 + (r % c.wc) * g.sx;
+    float* row = ei + ((static_cast<size_t>(n) * g.h + h) * g.w + wi) * g.cin;
+#pragma unroll
+    for (int j = 0; j < T::TN; ++j) {
+      const int ci = n0 + tx + T::CT * j;
+      if (ci < g.cin) row[ci] = acc[i][j];
+    }
   }
 }
 
@@ -529,23 +874,59 @@ unsigned tiles(long long items, int per) {
   return static_cast<unsigned>((items + per - 1) / per);
 }
 
-template <class T>
-int launch_fwd(const void* x, const void* w, const void* bias, void* y,
-               const ConvArgs& g, void* stream) {
+int launch_fwd_f32(const void* x, const void* w, const void* bias, void* y,
+                   const ConvArgs& g, void* stream) {
   if (bad_args(g)) return static_cast<int>(cudaErrorInvalidValue);
-  const T* xp = static_cast<const T*>(x);
-  const T* wp = static_cast<const T*>(w);
-  T* yp = static_cast<T*>(y);
+  const float* xp = static_cast<const float*>(x);
+  const float* wp = static_cast<const float*>(w);
+  float* yp = static_cast<float*>(y);
   const dim3 grid(tiles(static_cast<long long>(g.n) * g.oh * g.ow, BM),
                   tiles(g.cout, BN));
-  // a row of TN outputs is one 16-byte store in f32 (two) and in bf16
-  const bool vec_y = aligned16(yp) && g.cout % (16 / sizeof(T)) == 0;
-  conv_fwd_kernel<T><<<grid, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      xp, wp, static_cast<const T*>(bias), yp, g,
-      aligned4(xp) && g.cin % 4 == 0, aligned4(wp) && g.cout % 4 == 0,
-      vec_y);
+  conv_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      xp, wp, static_cast<const float*>(bias), yp, g,
+      aligned16(xp) && g.cin % 4 == 0, aligned16(wp) && g.cout % 4 == 0,
+      aligned16(yp) && g.cout % 4 == 0);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The N tile of the bf16 forward: the least padded cout, the wider tile
+// on a tie (fwd_bf16_tile in kernels/conv.py is its twin).
+int fwd_bf16_bn(int cout) {
+  if (cout <= 64) return 64;
+  if (cout <= 128) return 128;
+  if (cout <= 192) return 192;
+  if (cout <= 256) return 256;
+  int best = 256;
+  for (int bn = 192; bn >= 128; bn -= 64)
+    if ((cout + bn - 1) / bn * bn < (cout + best - 1) / best * best)
+      best = bn;
+  return best;
+}
+
+template <int BN>
+cudaError_t fwd_bf16(const uint16_t* x, const uint16_t* w,
+                     const uint16_t* bias, uint16_t* y, const ConvArgs& g,
+                     cudaStream_t s) {
+  const dim3 grid(tiles(static_cast<long long>(g.n) * g.oh * g.ow, kBfBM),
+                  tiles(g.cout, BN));
+  return launch(conv_fwd_bf16_kernel<BN>, grid, kBfThreads,
+                bf_smem<BN>(), s, x, w, bias, y, g,
+                aligned16(x) && g.cin % 8 == 0,
+                aligned16(w) && g.cout % 8 == 0,
+                aligned16(y) && g.cout % 8 == 0);
+}
+
+template <class T>
+cudaError_t input_grad(const float* e, const float* w, float* ei,
+                       const ConvArgs& g, cudaStream_t s) {
+  // the largest residue class has ceil(h / sy) * ceil(w / sx) pixels
+  const long long most = static_cast<long long>(g.n) *
+                         ((g.h + g.sy - 1) / g.sy) * ((g.w + g.sx - 1) / g.sx);
+  const dim3 grid(tiles(most, T::BM), tiles(g.cin, T::BN), g.sy * g.sx);
+  return launch(conv_input_grad_kernel<T::BM, T::BN, T::TM, T::TN, T::BK>,
+                grid,
+                kIgThreads, T::kSmem, s, e, w, ei, g,
+                aligned16(e) && aligned16(w) && g.cout % 4 == 0);
 }
 
 }  // namespace
@@ -561,7 +942,7 @@ extern "C" int znicz_conv2d_fwd_f32(const void* x, const void* w,
                                     int wd, int cin, int oh, int ow,
                                     int cout, int ky, int kx, int sy, int sx,
                                     int pt, int pl, void* stream) {
-  return launch_fwd<float>(
+  return launch_fwd_f32(
       x, w, bias, y,
       make_args(n, h, wd, cin, oh, ow, cout, ky, kx, sy, sx, pt, pl), stream);
 }
@@ -572,9 +953,34 @@ extern "C" int znicz_conv2d_fwd_bf16(const void* x, const void* w,
                                      int wd, int cin, int oh, int ow,
                                      int cout, int ky, int kx, int sy,
                                      int sx, int pt, int pl, void* stream) {
-  return launch_fwd<__nv_bfloat16>(
-      x, w, bias, y,
-      make_args(n, h, wd, cin, oh, ow, cout, ky, kx, sy, sx, pt, pl), stream);
+  const ConvArgs g =
+      make_args(n, h, wd, cin, oh, ow, cout, ky, kx, sy, sx, pt, pl);
+  if (bad_args(g)) return static_cast<int>(cudaErrorInvalidValue);
+  const uint16_t* xp = static_cast<const uint16_t*>(x);
+  const uint16_t* wp = static_cast<const uint16_t*>(w);
+  const uint16_t* bp = static_cast<const uint16_t*>(bias);
+  uint16_t* yp = static_cast<uint16_t*>(y);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (fwd_bf16_bn(cout)) {
+    case 64:
+      err = fwd_bf16<64>(xp, wp, bp, yp, g, s);
+      break;
+    case 128:
+      err = fwd_bf16<128>(xp, wp, bp, yp, g, s);
+      break;
+    case 192:
+      err = fwd_bf16<192>(xp, wp, bp, yp, g, s);
+      break;
+    default:
+      err = fwd_bf16<256>(xp, wp, bp, yp, g, s);
+  }
+  return static_cast<int>(err);
+}
+
+// The bf16 forward's N tile for `cout` output channels.
+extern "C" int znicz_conv2d_fwd_bf16_tile(int cout) {
+  return fwd_bf16_bn(cout);
 }
 
 // ei (n, h, w, cin) = the input gradient of the cotangent e (n, oh, ow,
@@ -590,15 +996,31 @@ extern "C" int znicz_conv2d_input_grad_f32(const void* e, const void* w,
   const float* ep = static_cast<const float*>(e);
   const float* wp = static_cast<const float*>(w);
   float* op = static_cast<float*>(ei);
-  // the largest residue class has ceil(h / sy) * ceil(w / sx) pixels
-  const long long most = static_cast<long long>(n) * ((h + sy - 1) / sy) *
-                         ((wd + sx - 1) / sx);
-  const dim3 grid(tiles(most, BM), tiles(cin, BN), sy * sx);
-  conv_input_grad_kernel<<<grid, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      ep, wp, op, g, aligned16(ep) && cout % 4 == 0,
-      aligned16(wp) && cout % 4 == 0, aligned16(op) && cin % 4 == 0);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (input_grad_bn(cin)) {
+    case 8:
+      err = input_grad<IgNarrow>(ep, wp, op, g, s);
+      break;
+    case 32:
+      err = input_grad<IgN32>(ep, wp, op, g, s);
+      break;
+    case 64:
+      err = input_grad<IgN64>(ep, wp, op, g, s);
+      break;
+    case 96:
+      err = input_grad<IgN96>(ep, wp, op, g, s);
+      break;
+    default:
+      err = input_grad<IgWide>(ep, wp, op, g, s);
+  }
+  return static_cast<int>(err);
+}
+
+// The input gradient's N tile (its M tile: 256 at N 8, else 128) for
+// `cin` input channels.
+extern "C" int znicz_conv2d_input_grad_tile(int cin) {
+  return input_grad_bn(cin);
 }
 
 // gw (ky, kx, cin, cout) and gb (cout) of x and the cotangent e, K split

@@ -9,13 +9,10 @@
 // to the one after.  A loader's ``kKC`` says how its 4 elements lie: 4
 // consecutive k of one outer index (o = tid / 2), or 4 consecutive outer
 // indices of one k (k = tid / 32).  gemm.cu's loaders read dense row-major
-// matrices; conv.cu's gather im2col patches by index arithmetic.  A loader
-// may read bf16 operands: it widens them to f32 as it loads, so the tile,
-// the products and the sums stay f32 (conv.cu's bf16 forward).
+// matrices; conv.cu's gather im2col patches by index arithmetic.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -41,37 +38,19 @@ __device__ __forceinline__ void zero4(float (&r)[4]) {
   r[0] = r[1] = r[2] = r[3] = 0.f;
 }
 
-// One element widened to f32.
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// 4 consecutive elements at p, widened to f32, in one load: 16 bytes of
-// f32 or 8 of bf16 (p aligned to 4 elements).
+// 4 consecutive floats at p (16-byte aligned) in one load.
 __device__ __forceinline__ void load4(float (&r)[4], const float* p) {
   set4(r, *reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ void load4(float (&r)[4],
-                                      const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-  const float2 lo = __bfloat1622float2(h[0]);
-  const float2 hi = __bfloat1622float2(h[1]);
-  r[0] = lo.x;
-  r[1] = lo.y;
-  r[2] = hi.x;
-  r[3] = hi.y;
 }
 
 // A dense operand of O (outer) x K.  KC: stored k-contiguous, X[o * K + k]
 // (A, or B^T); otherwise outer-contiguous, X[k * O + o] (B, or A^T).
 // Elements past O or K read as 0.  ``vec``: the stored rows are aligned to
-// 4 elements, so 4 neighbours come in one load.  T: float or __nv_bfloat16.
-template <bool KC, class T = float>
+// 4 elements, so 4 neighbours come in one load.
+template <bool KC>
 struct DenseTile {
   static constexpr bool kKC = KC;
-  const T* X;
+  const float* X;
   int O, K, o0, k0;
   bool vec;
 
@@ -80,24 +59,24 @@ struct DenseTile {
     if (KC) {
       const int o = o0 + tid / 2;
       const int k = k0 + (tid % 2) * 4;
-      const T* p = X + static_cast<size_t>(o) * K + k;
+      const float* p = X + static_cast<size_t>(o) * K + k;
       if (vec && o < O && k + 3 < K) {
         load4(r, p);
       } else {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          r[j] = (o < O && k + j < K) ? widen(p[j]) : 0.f;
+          r[j] = (o < O && k + j < K) ? p[j] : 0.f;
       }
     } else {
       const int k = k0 + tid / 32;
       const int o = o0 + (tid % 32) * 4;
-      const T* p = X + static_cast<size_t>(k) * O + o;
+      const float* p = X + static_cast<size_t>(k) * O + o;
       if (vec && k < K && o + 3 < O) {
         load4(r, p);
       } else {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          r[j] = (k < K && o + j < O) ? widen(p[j]) : 0.f;
+          r[j] = (k < K && o + j < O) ? p[j] : 0.f;
       }
     }
     k0 += BK;
@@ -180,12 +159,6 @@ __device__ __forceinline__ void mainloop(LA& la, LB& lb, int n_k,
 
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
-}
-
-// p aligned to 4 elements of T: one load4
-template <class T>
-inline bool aligned4(const T* p) {
-  return (reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T))) == 0;
 }
 
 // blocks for a grid-stride loop over ``items``: enough to fill the card

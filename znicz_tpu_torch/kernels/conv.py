@@ -71,9 +71,18 @@ SOURCE = "znicz_tpu_torch/csrc/conv.cu"
 #: the dtypes each kernel takes (all operands alike)
 FWD_DTYPES = (torch.float32, torch.bfloat16)
 
-#: the depth of the kernels' k tiles and the side of their output tiles
-#: (BK, BM = BN in csrc/tile_f32.cuh)
+#: the depth of the f32 tile's k tiles and the side of its output tiles
+#: (BK, BM = BN in csrc/tile_f32.cuh): the f32 forward and weight gradient
 K_TILE, TILE = 8, 128
+#: the depth of the bf16 forward's k tiles (kBfBK in csrc/conv.cu): 64
+#: bf16, one 128-byte swizzle row of its wgmma operands
+BF16_K_TILE = 64
+#: the bf16 forward's M tile: two warpgroups of 64 rows (kBfBM)
+BF16_TILE_M = 128
+#: the input gradient's tile family (IgTile in csrc/conv.cu): (BM, BN)
+#: after the largest cin each takes; wider cin gets (128, 128)
+INPUT_GRAD_TILES = ((8, (256, 8)), (32, (128, 32)), (64, (128, 64)),
+                    (96, (128, 96)))
 #: blocks that fill the H100 once: two resident blocks of 256 threads on
 #: each of its 132 SMs (the weight gradient's split-K aims at this)
 WAVE_BLOCKS = 2 * 132
@@ -174,6 +183,27 @@ def deconv2d_backward_plain(x, w, err_output, sliding=(1, 1),
     gw, _ = conv2d_weight_grad_plain(err_output, x, w.shape, sliding,
                                      padding)
     return err_input, gw
+
+
+def fwd_bf16_tile(cout: int) -> int:
+    """The bf16 forward's N tile for ``cout`` output channels, the twin
+    of ``fwd_bf16_bn`` in csrc/conv.cu: the first of 64, 128, 192 and 256
+    that holds cout, or above 256 the one of 256, 192 and 128 that pads
+    cout least (the wider on a tie)."""
+    for bn in (64, 128, 192, 256):
+        if cout <= bn:
+            return bn
+    return min((256, 192, 128), key=lambda bn: math.ceil(cout / bn) * bn)
+
+
+def input_grad_tile(cin: int) -> tuple:
+    """``(BM, BN)`` of the input-gradient kernel's tile for ``cin`` input
+    channels (its N), the twin of ``input_grad_bn`` in csrc/conv.cu: a
+    function of cin alone."""
+    for most, tile in INPUT_GRAD_TILES:
+        if cin <= most:
+            return tile
+    return 128, 128
 
 
 def split_k(rows: int, n: int, k: int) -> tuple:
@@ -290,6 +320,10 @@ def _library():
         for fn in (lib.znicz_conv2d_fwd_f32, lib.znicz_conv2d_fwd_bf16,
                    lib.znicz_conv2d_input_grad_f32,
                    lib.znicz_conv2d_weight_grad_f32):
+            fn.restype = i32
+        for fn in (lib.znicz_conv2d_fwd_bf16_tile,
+                   lib.znicz_conv2d_input_grad_tile):
+            fn.argtypes = [i32]
             fn.restype = i32
         lib.znicz_conv_error_string.argtypes = [i32]
         lib.znicz_conv_error_string.restype = ctypes.c_char_p
