@@ -9,10 +9,15 @@ exits non-zero without the final ``ok`` line):
 
 0. **build** — every kernel source under ``znicz_tpu_torch/csrc`` built
    by ``nvcc``, one process each, all started together.
-1. **kernel** — the serving path's paged-decode kernel against its plain
-   PyTorch version on the card at the path's shapes, in bf16 and f32;
-   the kernel, the plain version and one PyTorch library call timed; the
-   bound computed from this run's inputs.
+1. **kernel** — the serving path's paged-decode kernels (the split
+   kernel and its combine) against their plain PyTorch version on the
+   card at the path's shapes, in all four instantiations (bf16 and f32,
+   head dim 64 and 128), at the serving mix of lengths, lengths on and
+   beside split boundaries and every slot at length 1, bit-identical
+   across launches, the band rejecting a control (one split of the
+   longest slot read from the wrong pages); each instantiation, the
+   plain version and one PyTorch library call timed with the split
+   count; the bound computed from this run's inputs.
 1b. **flash** — the same for the flash-attention forward and backward
    kernels (norm-relative error of each 64-row tile, bf16 and f32, head
    dim 64 and 128, causal and not, t 2048, 1984, 1000 and 17 and the
@@ -70,7 +75,10 @@ exits non-zero without the final ``ok`` line):
    stride-4 input gradient included), bit-identical across launches,
    each band rejecting its control (a skipped k tile, a dropped tap, a
    dropped split-K slice); each kernel, its plain version and cuDNN
-   (channels_last, TF32 off) timed at the five layers.  Then the bf16
+   (channels_last, TF32 off) timed at the five layers, each weight
+   gradient with its tile, slices, blocks and resident blocks an SM and
+   cuDNN's kernels by name; the weight gradient's schedule from conv.cu
+   (the card's occupancy) held against kernels/conv.py's twin.  Then the bf16
    forward (bf16 operands, f32 sums, one rounding) the same way at the
    reference sweep's shape and the five layers, within one bf16 ulp on
    the tile norm, its control rejected, timed beside cuDNN in bf16.
@@ -130,6 +138,12 @@ exits non-zero without the final ``ok`` line):
    families of the reference ``ok``; the LRN, dropout and bf16 conv
    forward counters set to 0 just before and read just after (this is
    the path that reaches them).
+
+``python3 chip_smoke.py --phase NAME ...`` runs only the named phases
+(kernel, flash, gemm, conv, deconv, or **waves**: the weight gradient at
+AlexNet's and build_deep's shapes with split_k's slices, one fewer and
+one more, through the C entry, which runs on older trees of the port
+too) after the build, for iterating on one kernel family.
 
 Every line carries ``at_s``, the seconds since the smoke started.  Then
 a ``{"kernels": [...]}`` line for all eighteen kernels, the card's name
@@ -291,16 +305,29 @@ def fail(msg: str) -> None:
     raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def time_cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+#: spin cycles queued ahead of a timed call by ``time_cuda_ms(...,
+#: lead=True)``: ~100 µs at the H100's clock, longer than a wrapper's
+#: host time, so the device is still busy when the call's launches
+#: arrive and the events time the device, not the host's issue
+LEAD_CYCLES = 200_000
+
+
+def time_cuda_ms(fn, iters: int = 20, warmup: int = 3,
+                 lead: bool = False) -> float:
     """Median device time of ``fn`` in ms, CUDA events around each
     call, with L2 flushed before each (the serving path meets each
-    layer's arena cold: six layers of K/V exceed the 50 MB L2)."""
+    layer's arena cold: six layers of K/V exceed the 50 MB L2).  With
+    ``lead``, a spin kernel of LEAD_CYCLES runs between the flush and the
+    start event, for calls of a few µs of device work whose host issue
+    could otherwise outlast the flush and land on the clock."""
     flush = torch.empty(64 << 20, dtype=torch.int32, device=DEVICE)
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
         flush.zero_()
+        if lead:
+            torch.cuda._sleep(LEAD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -385,58 +412,125 @@ def sdpa_on_view(q, k, v, pt, lengths):
         q4, kc, vc, attn_mask=live)
 
 
+#: kernel phase: slot lengths beside the serving mix (which phase_kernel
+#: draws): every length on a split boundary of the widest view (64 rows
+#: a split at B 8, page 16, P 128: decode_split), or one row past or
+#: short of one, and every slot at length 1 (one live split a slot)
+DECODE_EDGE_LENGTHS = {"split_boundaries": [64, 128, 192, 2048, 1024, 63,
+                                            65, 1],
+                       "all_one": [1] * SLOTS}
+
+
+def _decode_case(q, k, v, pt, ln) -> dict:
+    """The kernel at one input against its plain version, two launches
+    bit for bit, the launch counted once a call."""
+    before = kdecode.launches
+    o = kdecode.paged_decode(q, k, v, pt, ln)
+    o2 = kdecode.paged_decode(q, k, v, pt, ln)
+    if kdecode.launches != before + 2:
+        fail("paged_decode did not count its launches")
+    ref = kdecode.paged_decode_plain(q, k, v, pt, ln)
+    torch.cuda.synchronize()
+    if not torch.isfinite(o).all():
+        fail(f"non-finite kernel output ({q.dtype}, {q.shape[-1]})")
+    return {"max_abs_err": float((o - ref).abs().max()),
+            "deterministic": bool(torch.equal(o, o2)), "_out": o}
+
+
 def phase_kernel() -> dict:
+    """The paged-decode kernel (split kernel and combine) against its
+    plain version in all four instantiations at the serving view (B 8, H
+    8, page 16, P 128) and the serving mix of lengths, at the edge
+    lengths of DECODE_EDGE_LENGTHS, bit-identical across launches; the
+    band must reject a control (the plain output with one split's pages
+    of the longest slot pointed at another page).  Each instantiation
+    timed beside its plain version, SDPA on the gathered view and the
+    bound from this run's inputs, with its split count, all three with a
+    spin kernel ahead of the start event (``lead``: a 20 µs call must not
+    be timed as its wrapper's host issue); its two kernels apart
+    (``torch.profiler``), and the call at every slot of length 1 (the
+    fixed cost) and of the whole view."""
     rng = np.random.default_rng(SEED)
     lengths = rng.permutation([1, 17, 300, 700, 1024, 1500, 2000, 2048])
     lengths = [int(n) for n in lengths]
-    checks = []
+    checks, timed_rows = [], []
     timed = None
     for dtype in (torch.bfloat16, torch.float32):
         for head_dim in kdecode.HEAD_DIMS:
             args = decode_inputs(rng, dtype, head_dim, lengths)
-            before = kdecode.launches
-            o = kdecode.paged_decode(*args)
-            o2 = kdecode.paged_decode(*args)
-            if kdecode.launches != before + 2:
-                fail("paged_decode did not count its launches")
-            ref = kdecode.paged_decode_plain(*args)
-            torch.cuda.synchronize()
-            err = float((o - ref).abs().max())
-            checks.append({"dtype": str(dtype).split(".")[-1],
-                           "head_dim": head_dim, "max_abs_err": err,
-                           "deterministic": bool(torch.equal(o, o2))})
-            if not torch.isfinite(o).all():
-                fail(f"non-finite kernel output ({dtype}, {head_dim})")
-            if err > KERNEL_ATOL:
-                fail(f"kernel vs plain {err} > {KERNEL_ATOL} "
-                     f"({dtype}, head_dim {head_dim})")
-            if not torch.equal(o, o2):
-                fail("kernel output differs between two identical runs")
+            q, k, v, pt, ln = args
+            pps, splits = kdecode.decode_split(SLOTS, pt.shape[1], PAGE)
+            case = _decode_case(*args)
+            # the control: split 1 of the longest slot read from the
+            # pages of its split 0
+            longest = int(ln.argmax())
+            pt_bad = pt.clone()
+            pt_bad[longest, pps:2 * pps] = pt[longest, :pps]
+            control = float((case.pop("_out") - kdecode.paged_decode_plain(
+                q, k, v, pt_bad, ln)).abs().max())
+            row = {"dtype": str(dtype).split(".")[-1], "head_dim": head_dim,
+                   "lengths": "serving mix", "pages_per_split": pps,
+                   "splits": splits, "control_max_abs_err": control,
+                   **case}
+            checks.append(row)
+            for name, edge in DECODE_EDGE_LENGTHS.items():
+                e_args = (q, k, v, pt, torch.tensor(edge, dtype=torch.int32,
+                                                    device=DEVICE))
+                e_case = _decode_case(*e_args)
+                e_case.pop("_out")
+                checks.append({"dtype": row["dtype"], "head_dim": head_dim,
+                               "lengths": name, "pages_per_split": pps,
+                               "splits": splits, **e_case})
+            for c in checks[-3:]:
+                if not c["max_abs_err"] <= KERNEL_ATOL:
+                    fail(f"kernel vs plain over {KERNEL_ATOL} ({c})")
+                if not c["deterministic"]:
+                    fail(f"kernel output differs between two identical "
+                         f"runs ({c})")
+            if not control > KERNEL_ATOL:
+                fail(f"the decode band passes its control ({row})")
+            nbytes = kdecode.bound_bytes(q, k, pt, ln)
+            flops = 4 * int(ln.long().sum()) * HEADS * head_dim
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = flops / F32_FLOPS * 1e3
+            t = {"dtype": row["dtype"], "head_dim": head_dim,
+                 "pages_per_split": pps, "splits": splits,
+                 "blocks": splits * SLOTS,
+                 "ms": time_cuda_ms(lambda: kdecode.paged_decode(*args),
+                                    lead=True),
+                 "plain_ms": time_cuda_ms(
+                     lambda: kdecode.paged_decode_plain(*args), lead=True),
+                 "library_ms": time_cuda_ms(sdpa_on_view(*args),
+                                            lead=True),
+                 "bound_ms": max(bytes_ms, ops_ms),
+                 "bound_by": "bytes" if bytes_ms >= ops_ms
+                 else "operations", "bound_bytes": nbytes}
+            t["kernels_ms"] = kernel_ms_by_name(
+                lambda: kdecode.paged_decode(*args), "paged_decode_kernel")
+            # the fixed cost (every slot at length 1) and the full view
+            for name, edge in (("all_one", [1] * SLOTS),
+                               ("all_full", [MAX_LEN] * SLOTS)):
+                e_args = (q, k, v, pt, torch.tensor(
+                    edge, dtype=torch.int32, device=DEVICE))
+                t[f"ms_{name}"] = time_cuda_ms(
+                    lambda: kdecode.paged_decode(*e_args), lead=True)
+                t[f"kernels_ms_{name}"] = kernel_ms_by_name(
+                    lambda: kdecode.paged_decode(*e_args),
+                    "paged_decode_kernel")
+            timed_rows.append(t)
             if dtype == torch.bfloat16 and head_dim == D // HEADS:
-                timed = args
+                timed = t
+            del args, q, k, v, pt, ln
     # the serving shapes: bf16, head_dim 64, the widest page view
-    q, k, v, pt, ln = timed
-    ms = time_cuda_ms(lambda: kdecode.paged_decode(q, k, v, pt, ln))
-    plain_ms = time_cuda_ms(lambda: kdecode.paged_decode_plain(q, k, v, pt,
-                                                               ln))
-    library_ms = time_cuda_ms(sdpa_on_view(q, k, v, pt, ln))
-    nbytes = kdecode.bound_bytes(q, k, pt, ln)
-    flops = 4 * int(ln.long().sum()) * HEADS * (D // HEADS)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOPS * 1e3
-    ptxas = [line.split(":", 1)[1].strip() for line in
-             kbuild.build_log("paged_decode").splitlines()
-             if "registers" in line]
-    return {"phase": "kernel", "ptxas": ptxas,
-            "checks": checks,
-            "atol": KERNEL_ATOL, "lengths": lengths,
+    return {"phase": "kernel", "ptxas": ptxas_usage("paged_decode"),
+            "checks": checks, "atol": KERNEL_ATOL, "lengths": lengths,
             "shape": {"B": SLOTS, "H": HEADS, "Dh": D // HEADS,
-                      "page": PAGE, "P": int(pt.shape[1]),
+                      "page": PAGE, "P": -(-MAX_LEN // PAGE),
                       "dtype": "bfloat16"},
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bound_bytes": nbytes,
+            "timed": timed_rows,
+            **{key: timed[key] for key in ("ms", "plain_ms", "library_ms",
+                                           "bound_ms", "bound_by",
+                                           "bound_bytes", "splits")},
             "max_abs_err": max(c["max_abs_err"] for c in checks)}
 
 
@@ -1519,6 +1613,54 @@ def _tile_choices() -> dict:
                          for c in (96, 256, 384)}}
 
 
+def _weight_grad_plans() -> dict:
+    """The weight gradient's schedule from csrc/conv.cu (the card's own
+    residency) against kernels/conv.py's twin, at AlexNet's five layers,
+    build_deep's four and a sweep of rows, couts and pixel counts; the
+    two must agree on every one."""
+    shapes = [(k * k * cin + 1, cout, ALEX_BATCH * side_out ** 2)
+              for _, side, cin, cout, k, s, p in ALEX_CONVS
+              for side_out in [(side + 2 * p - k) // s + 1]]
+    shapes += [(49, 64, 65536), (1025, 128, 16384)]
+    shapes += [(rows, cout, k) for rows in (2, 10, 28, 49, 65, 129, 1025,
+                                            2305, 3457, 9000)
+               for cout in (3, 8, 64, 65, 96, 384)
+               for k in (5, 108, 4096, 93312)]
+    for rows, cout, k in shapes:
+        card = kconv.weight_grad_plan_on_card(rows, cout, k)
+        twin = kconv.weight_grad_grid(rows, cout, k)
+        twin.pop("waves")
+        if card != twin:
+            fail(f"the weight gradient's schedule at {(rows, cout, k)}: "
+                 f"conv.cu {card}, kernels/conv.py {twin}")
+    return {f"{bm}x{bn}": kconv.weight_grad_plan_on_card(
+        (bm if bm > 64 else 48) + 1, bn, 4096)["blocks_per_sm"]
+        for bm, bn in kconv.WEIGHT_GRAD_TILES}
+
+
+def device_kernels(fn, iters: int = 3, tries: int = 3) -> list:
+    """``[(name, ms a call)]`` of the four longest kernels ``fn``
+    launches, from ``torch.profiler`` (the library's own kernels, by
+    name); a window in which the profiler saw no device time (it happens
+    now and then) is profiled again, up to ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        found = [[e.key[:120], e.self_device_time_total / 1e3 / iters]
+                 for e in sorted(prof.key_averages(),
+                                 key=lambda e: -e.self_device_time_total)
+                 if e.self_device_time_total > 0][:4]
+        if found:
+            return found
+    return []
+
+
 def sass_counts(name: str, opcode: str) -> dict:
     """How many SASS instructions of ``opcode`` each kernel of library
     ``name`` holds, from the toolkit's ``cuobjdump -sass`` (keys as in
@@ -1556,6 +1698,7 @@ def phase_conv() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     tiles = _tile_choices()
+    tiles["weight_grad_blocks_per_sm"] = _weight_grad_plans()
     hgmma = sass_counts("conv", "HGMMA")
     if hgmma is not None and not all(
             hgmma.get(f"conv_fwd_bf16_kernel<{bn}>", 0) > 0
@@ -1611,14 +1754,18 @@ def phase_conv() -> dict:
         for kind, (kernel, plain) in runs.items():
             if kind == "input_grad" and name == "conv1":
                 continue        # checked above; AlexNet never launches it
-            timed.append({"layer": name, "kernel": kind,
-                          "tile": list(kconv.input_grad_tile(cin))
-                          if kind == "input_grad" else
-                          [kconv.TILE, kconv.TILE],
-                          "ms": time_cuda_ms(kernel),
-                          "plain_ms": time_cuda_ms(plain),
-                          "library_ms": time_cuda_ms(lib[kind]),
-                          **kconv.bound(kind, x.shape, wt.shape, *geom)})
+            row = {"layer": name, "kernel": kind,
+                   "tile": list(kconv.input_grad_tile(cin))
+                   if kind == "input_grad" else [kconv.TILE, kconv.TILE],
+                   "ms": time_cuda_ms(kernel),
+                   "plain_ms": time_cuda_ms(plain),
+                   "library_ms": time_cuda_ms(lib[kind]),
+                   **kconv.bound(kind, x.shape, wt.shape, *geom)}
+            if kind == "weight_grad":
+                row.update(kconv.weight_grad_grid(
+                    k * k * cin + 1, cout, e.numel() // cout))
+                row["library_kernels"] = device_kernels(lib[kind])
+            timed.append(row)
         del x, wt, b, e, inputs, lib, runs
     # one train minibatch of AlexNet eager runs every layer's forward and
     # weight gradient and conv2-5's input gradients (conv1 needs none)
@@ -2027,7 +2174,7 @@ def phase_deconv() -> dict:
             **kconv.deconv_bound(x.shape, wt.shape, *AE_GEOM, out_shape)})
         timed.append({
             "layer": name, "kernel": "deconv2d_backward",
-            "tile": [kconv.TILE, kconv.TILE],
+            **kconv.weight_grad_grid(16 * c + 1, nk, x.numel() // nk),
             "ms": time_cuda_ms(lambda: kconv.deconv2d_backward(
                 x, wt, e, *AE_GEOM)),
             "plain_ms": time_cuda_ms(lambda: kconv.deconv2d_backward_plain(
@@ -2037,7 +2184,9 @@ def phase_deconv() -> dict:
                     en, xn, wn, None, (sy, sx), (pt, pl), (1, 1), True,
                     (0, 0), 1, (True, True, False))),
             **kconv.deconv_bound(x.shape, wt.shape, *AE_GEOM, out_shape,
-                                 backward=True)})
+                                 backward=True),
+            "kernels": device_kernels(lambda: kconv.deconv2d_backward(
+                x, wt, e, *AE_GEOM))})
         del x, wt, e, xn, wn, en
     ig_timed, ig_checks = _ae_input_grads(rng)
     timed += ig_timed
@@ -3136,6 +3285,10 @@ def phase_profile(decoder) -> dict:
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
     return {"phase": "profile", "steps": PROFILE_STEPS,
             "slot_lengths": lens, "page_view": int(pt.shape[1]),
+            "decode_split": dict(zip(("pages_per_split", "splits"),
+                                     kdecode.decode_split(
+                                         decoder.batch, pt.shape[1],
+                                         decoder.page))),
             "step_ms": step_ms, "profiled_step_ms": profiled_ms,
             "device_busy_ms_per_step": busy_ms or None,
             "paged_decode_ms_per_step": kernel_ms or None,
@@ -3519,7 +3672,9 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
     lrn_path = lrn_drop["lrn_path"]
     return {"kernels": [
         entry("paged_decode", kdecode.SOURCE, kdecode.REPLACES,
-              serve["kernel_launches"], kernel, kernel["max_abs_err"]),
+              serve["kernel_launches"], kernel, kernel["max_abs_err"],
+              cuda_kernels=["paged_decode_kernel<T,DH>",
+                            "paged_decode_kernel_combine<DH>"]),
         entry("flash_attention_fwd", kflash.SOURCE, kflash.REPLACES_FWD,
               train["fwd_launches"], flash["fwd"],
               flash["fwd"]["max_abs_err"]),
@@ -3547,7 +3702,8 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
               ("input_grad", kconv.REPLACES_INPUT_GRAD,
                ["conv_input_grad_kernel<BM,BN,TM,TN,BK>"]),
               ("weight_grad", kconv.REPLACES_WEIGHT_GRAD,
-               ["conv_weight_grad_kernel", "reduce_splits_kernel"]))),
+               ["conv_weight_grad_kernel<BM,BN,MinBlocks,VA>",
+                "reduce_splits_kernel"]))),
         entry("conv2d_fwd_bf16", kconv.SOURCE, kconv.REPLACES_FWD,
               kernel_hw["launches"]["conv2d_fwd_bf16"],
               conv["path"]["fwd_bf16"], conv["path"]["fwd_bf16"][
@@ -3562,7 +3718,7 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
               deconv["path"]["deconv2d_backward"],
               deconv["path"]["deconv2d_backward"]["max_abs_err"],
               cuda_kernels=["conv_fwd_kernel",
-                            "conv_weight_grad_kernel",
+                            "conv_weight_grad_kernel<BM,BN,MinBlocks,VA>",
                             "reduce_splits_kernel"]),
         entry("som_step", ksom.SOURCE, ksom.REPLACES,
               som["bench"]["launches"], som["timed"],
@@ -3581,12 +3737,95 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
               max(c["max_abs_err"] for c in lrn_drop["dropout_checks"]))]}
 
 
+def phase_waves() -> dict:
+    """The weight gradient at AlexNet's five layers and build_deep's two
+    shapes with ``split_k``'s slices, one slice fewer and one more, each
+    timed in turns (plan, fewer, more, plan) through the C entry
+    (``znicz_conv2d_weight_grad_f32`` takes the slices from its caller),
+    with its grid's blocks: how much the grid's fill of its last wave
+    costs.  It calls only the C entry and ``split_k``, which older
+    checkouts of the port have too, so it runs on them as well (the k
+    tile from ``WEIGHT_GRAD_K_TILE`` where the module has it, else
+    ``K_TILE``)."""
+    torch.backends.cudnn.allow_tf32 = False
+    kt = getattr(kconv, "WEIGHT_GRAD_K_TILE", kconv.K_TILE)
+    lib = kconv._library()
+    rng = np.random.default_rng(SEED + 31)
+    shapes = [(name, ALEX_BATCH, side, cin, cout, k, s, p)
+              for name, side, cin, cout, k, s, p in ALEX_CONVS]
+    shapes += [("build_deep conv1", AE_BATCH, 64, 3, 64, 4, 2, 1),
+               ("build_deep conv2", AE_BATCH, 32, 64, 128, 4, 2, 1)]
+    rows_out = []
+    for name, batch, side, cin, cout, k, s, p in shapes:
+        geom = ((s, s), (p, p, p, p))
+        x, _, _, e = _conv_inputs(rng, batch, side, side, cin, cout, k,
+                                  *geom)
+        _, oh, ow, _ = e.shape
+        n_pix = e.numel() // cout
+        rows = k * k * cin + 1
+        splits, _ = kconv.split_k(rows, cout, n_pix)
+        gw = torch.empty((k, k, cin, cout), device=DEVICE)
+        gb = torch.empty((cout,), device=DEVICE)
+
+        def run(want):
+            per = -(-(-(-n_pix // kt)) // want) * kt
+            sp = -(-n_pix // per)
+            part = torch.empty((sp, rows, cout), device=DEVICE)
+
+            def call():
+                rc = lib.znicz_conv2d_weight_grad_f32(
+                    x.data_ptr(), e.data_ptr(), part.data_ptr(),
+                    gw.data_ptr(), gb.data_ptr(), batch, side, side, cin,
+                    oh, ow, cout, k, k, s, s, p, p, sp, per,
+                    torch.cuda.current_stream().cuda_stream)
+                if rc != 0:
+                    fail(f"weight gradient launch failed ({name}, {sp})")
+            return sp, call
+
+        runs = {"plan": run(splits), "fewer": run(max(1, splits - 1)),
+                "more": run(splits + 1)}
+        ms = {key: [] for key in runs}
+        for key in ("plan", "fewer", "more", "plan", "fewer", "more"):
+            ms[key].append(time_cuda_ms(runs[key][1], iters=10))
+        rows_out.append({"layer": name, "rows": rows, "cout": cout,
+                         "pixels": n_pix,
+                         **{key: {"splits": runs[key][0],
+                                  "ms": float(np.median(ms[key]))}
+                            for key in runs}})
+        del x, e, gw, gb, runs
+    return {"phase": "waves", "k_tile": kt, "layers": rows_out,
+            "plan_ms": sum(r["plan"]["ms"] for r in rows_out[:5]),
+            "fewer_ms": sum(r["fewer"]["ms"] for r in rows_out[:5])}
+
+
+#: phases ``--phase`` may run alone (after the build), for iterating on
+#: one kernel family; the smoke proper takes no arguments
+PHASES_ALONE = {"kernel": lambda: phase_kernel(),
+                "flash": lambda: phase_flash(),
+                "gemm": lambda: phase_gemm(),
+                "conv": lambda: phase_conv(),
+                "deconv": lambda: phase_deconv(),
+                "waves": lambda: phase_waves()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
               "smoke runs only on a CUDA device", file=sys.stderr)
         return 2
     emit(phase_build())
+    if len(sys.argv) > 1:
+        names = sys.argv[2::2] if sys.argv[1::2] == \
+            ["--phase"] * len(sys.argv[1::2]) else None
+        if not names or any(n not in PHASES_ALONE for n in names):
+            print(f"usage: chip_smoke.py [--phase "
+                  f"{{{','.join(PHASES_ALONE)}}}]...", file=sys.stderr)
+            return 2
+        for name in names:
+            emit(PHASES_ALONE[name]())
+        print(nvidia_smi(), flush=True)
+        print(json.dumps({"ok": True, "phases": names}), flush=True)
+        return 0
     kernel = phase_kernel()
     emit(kernel)
     flash = phase_flash()

@@ -187,12 +187,27 @@ def test_bound_counts_flops_and_bytes():
                                       (3457, 384, 21632), (28, 16, 108),
                                       (10, 4, 5)])
 def test_split_k_fills_the_card_with_whole_k_tiles(rows, n, k):
+    """Whole 32-pixel k tiles, no empty slice, at most
+    WEIGHT_GRAD_MAX_WAVES waves of the tile's resident blocks, and no
+    slice count in that range fills its last wave better (the count is
+    then the fewest)."""
     splits, per = kconv.split_k(rows, n, k)
-    assert per % kconv.K_TILE == 0
+    assert per % kconv.WEIGHT_GRAD_K_TILE == 0
     assert (splits - 1) * per < k <= splits * per       # none empty
-    tiles = -(-rows // kconv.TILE) * -(-n // kconv.TILE)
-    assert splits * tiles >= min(kconv.WAVE_BLOCKS,
-                                 tiles * -(-k // kconv.K_TILE)) * 0.9
+    bm, bn = kconv.weight_grad_tile(rows, n)
+    tiles = -(-(rows - 1) // bm) * -(-n // bn)
+    wave = kconv.SMS * kconv.WEIGHT_GRAD_TILES[(bm, bn)]
+    k_tiles = -(-k // kconv.WEIGHT_GRAD_K_TILE)
+
+    def fill(s):
+        s = -(-k_tiles // -(-k_tiles // s))       # slices of whole tiles
+        return s * tiles / (-(-s * tiles // wave) * wave)
+
+    assert splits == 1 or splits * tiles <= \
+        kconv.WEIGHT_GRAD_MAX_WAVES * wave
+    most = min(max(1, kconv.WEIGHT_GRAD_MAX_WAVES * wave // tiles), k_tiles)
+    assert all(fill(s) <= fill(splits) + 1e-12 for s in range(1, most + 1))
+    assert all(fill(s) < fill(splits) for s in range(1, splits))
 
 
 def test_bad_calls_raise():
@@ -377,6 +392,7 @@ def test_tile_choices_fit_the_paths_widths():
         assert math.ceil(c / bn(c)) * bn(c) <= min(
             math.ceil(c / t) * t for t in (128, 192, 256))
     assert kconv.BF16_K_TILE == 64 and kconv.K_TILE == 8
+    assert kconv.WEIGHT_GRAD_K_TILE == 32
 
 
 def test_unsupported_dtypes_raise_before_any_launch():
@@ -484,6 +500,80 @@ def test_redesigned_kernels_match_plain_at_the_tile_edges_on_the_card():
                     got, kconv.conv2d_input_grad_plain(
                         e, wts, sliding, padding, x.shape[1:3]),
                     rtol=1e-5, atol=1e-5)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+#: the weight gradient's products on the paths: (rows, cout, pixels) of
+#: AlexNet's five layers at batch 128 and build_deep's two shapes at
+#: batch 64 (its conv1 and deconv2's grad_w: rows 49; conv2 and
+#: deconv1's: rows 1025)
+WGRAD_PATH_SHAPES = [(364, 96, 387200), (2401, 256, 93312),
+                     (2305, 384, 21632), (3457, 384, 21632),
+                     (3457, 256, 21632), (49, 64, 65536), (1025, 128, 16384)]
+
+
+@pytest.mark.parametrize("rows,n,k", WGRAD_PATH_SHAPES)
+def test_weight_grad_grid_fills_whole_waves_on_the_paths(rows, n, k):
+    """At the paths' shapes the grid stays within a whole number of
+    waves of the tile's resident blocks (SMS x WEIGHT_GRAD_TILES) and
+    fills at least 85 % of its last wave; the tile follows (rows, cout)."""
+    grid = kconv.weight_grad_grid(rows, n, k)
+    bm, bn = grid["tile"]
+    assert (bm, bn) == ((64 if rows <= 65 else 128), (64 if n <= 64
+                                                      else 128))
+    wave = kconv.SMS * grid["blocks_per_sm"]
+    waves = -(-grid["blocks"] // wave)
+    assert 1 <= waves <= kconv.WEIGHT_GRAD_MAX_WAVES
+    assert grid["blocks"] >= 0.85 * waves * wave
+    assert grid["blocks"] == -(-(rows - 1) // bm) * -(-n // bn) * \
+        grid["splits"]
+    assert (grid["splits"], grid["per"]) == kconv.split_k(rows, n, k)
+
+
+def test_weight_grad_tiles_are_a_function_of_rows_and_cout():
+    tile = kconv.weight_grad_tile
+    assert [tile(r, 64) for r in (2, 49, 65, 66, 1025)] == \
+        [(64, 64), (64, 64), (64, 64), (128, 64), (128, 64)]
+    assert [tile(49, c) for c in (1, 8, 64, 65, 96, 384)] == \
+        [(64, 64)] * 3 + [(64, 128)] * 3
+    assert set(kconv.WEIGHT_GRAD_TILES) == {
+        tile(r, c) for r in (49, 1025) for c in (8, 96)}
+
+
+#: the weight gradient on the card: (batch, side, cin, cout, k, stride,
+#: pad) at cin 1, 3, 4, 17 and 96 by cout 8, 64 and 96, and build_deep's
+#: two shapes (rows 49 and 1025) at a smaller batch
+WGRAD_CARD_GEOMS = [(2, 11, cin, cout, 3, 2, 1) for cin in (1, 3, 4, 17, 96)
+                    for cout in (8, 64, 96)] + \
+    [(8, 64, 3, 64, 4, 2, 1), (8, 32, 64, 128, 4, 2, 1)]
+
+
+@pytest.mark.cuda
+def test_weight_grad_matches_plain_across_tiles_on_the_card():
+    """The weight gradient (every tile, both loaders, split-K and the
+    bias row) against its plain version in f32 with TF32 off, within the
+    reference's 1e-4, bit-identical across two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernels run only on a card")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        rng = np.random.default_rng(3)
+        for n, side, cin, cout, k, s, p in WGRAD_CARD_GEOMS:
+            oh = (side + 2 * p - k) // s + 1
+            x = torch.tensor(rng.normal(size=(n, side, side, cin)),
+                             dtype=torch.float32, device="cuda")
+            e = torch.tensor(rng.normal(size=(n, oh, oh, cout)),
+                             dtype=torch.float32, device="cuda")
+            w_shape = (k, k, cin, cout)
+            got = kconv.conv2d_weight_grad(x, e, w_shape, s, p)
+            again = kconv.conv2d_weight_grad(x, e, w_shape, s, p)
+            want = kconv.conv2d_weight_grad_plain(x, e, w_shape, s, p)
+            for g, a, w_ in zip(got, again, want):
+                assert torch.equal(g, a)
+                torch.testing.assert_close(g, w_, rtol=1e-4, atol=1e-4)
         torch.cuda.synchronize()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32

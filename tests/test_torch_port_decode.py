@@ -129,3 +129,110 @@ def test_kernel_matches_plain_on_card(dtype, head_dim):
     want = kdecode.paged_decode_plain(q, k, v, pt, lengths)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, want, rtol=BAND, atol=BAND)
+
+
+#: the split-and-combine cases: (B, H, Dh, page, n_pages, P, lengths,
+#: pages_per_split) — lengths 1 and 17, a length ending exactly on a
+#: split boundary (2 pages of 8 = 16 rows a split), a slot whose later
+#: splits hold no live row, and page views of 1 and of 128 pages
+SPLIT_CASES = [
+    (2, 4, 8, 8, 10, 4, (1, 17), 1),
+    (3, 2, 16, 8, 12, 6, (16, 32, 48), 2),
+    (2, 3, 8, 4, 20, 8, (3, 5), 2),
+    (2, 2, 16, 16, 4, 1, (1, 16), 1),
+    (2, 2, 64, 16, 300, 128, (1, 2048), 4),
+    (8, 2, 8, 16, 300, 128, (1, 17, 64, 65, 300, 1024, 2047, 2048), 4)]
+
+
+def _split_inputs(seed, B, H, Dh, page, n_pages, P, lengths):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, H, Dh)).astype(np.float32)
+    k = rng.normal(size=(n_pages, page, H, Dh)).astype(np.float32)
+    v = rng.normal(size=(n_pages, page, H, Dh)).astype(np.float32)
+    pt = rng.integers(0, n_pages, size=(B, P)).astype(np.int32)
+    return q, k, v, pt, np.asarray(lengths, np.int32)
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_split_twin_matches_jax_kernel_interpret_and_reference(case):
+    """The kernel's split-and-combine arithmetic (each split's (m, l,
+    acc), merged in split order) against the JAX Pallas kernel in
+    interpret mode and its jnp reference, f32, band 2e-5."""
+    *shape, lengths, pps = case
+    args = _split_inputs(sum(shape), *shape, lengths)
+    want_ref = np.asarray(reference(*args))
+    got = kdecode.paged_decode_split_plain(*_torch(*args), pps).numpy()
+    assert got.dtype == np.float32 and got.shape == want_ref.shape
+    np.testing.assert_allclose(got, want_ref, rtol=BAND, atol=BAND)
+    if shape[5] <= 8:           # interpret mode walks the grid in Python
+        want_kernel = np.asarray(paged_flash_decode(*args, interpret=True))
+        np.testing.assert_allclose(got, want_kernel, rtol=BAND, atol=BAND)
+    np.testing.assert_allclose(
+        got, kdecode.paged_decode_plain(*_torch(*args)).numpy(),
+        rtol=BAND, atol=BAND)
+
+
+def test_split_twin_ignores_pages_past_each_length():
+    """A split wholly past a slot's length contributes exactly nothing:
+    scribbling over every page it would read leaves the output bitwise
+    unchanged."""
+    q, k, v, pt, lengths = _split_inputs(11, 2, 2, 8, 4, 20, 8, (5, 9))
+    pt = np.arange(1, 17, dtype=np.int32).reshape(2, 8)
+    base = kdecode.paged_decode_split_plain(*_torch(q, k, v, pt, lengths), 2)
+    k2, v2 = k.copy(), v.copy()
+    for b, n in enumerate(lengths):
+        for p in range(-(-n // 8) * 2, 8):      # splits past the length
+            k2[pt[b, p]] = 1e4
+            v2[pt[b, p]] = -1e4
+    got = kdecode.paged_decode_split_plain(*_torch(q, k2, v2, pt, lengths),
+                                           2)
+    assert torch.equal(got, base)
+
+
+@pytest.mark.parametrize("batch,pages,page", [
+    (8, 128, 16), (8, 64, 16), (8, 16, 16), (8, 1, 16), (1, 128, 16),
+    (2, 5, 4), (64, 8, 16), (3, 2048, 1)])
+def test_decode_split_depends_on_shapes_only_and_covers_the_view(
+        batch, pages, page):
+    """The split is a function of (batch, pages, page) alone; its splits
+    cover the view with none wholly past it; a split holds at least
+    MIN_SPLIT_ROWS rows where the view does; the widest serving view
+    gives 4 pages (64 rows) a split and 256 blocks."""
+    pps, splits = kdecode.decode_split(batch, pages, page)
+    assert (pps, splits) == kdecode.decode_split(batch, pages, page)
+    assert 1 <= pps <= pages and (splits - 1) * pps < pages <= splits * pps
+    assert pps * page >= min(kdecode.MIN_SPLIT_ROWS, pages * page)
+    if pps > -(-kdecode.MIN_SPLIT_ROWS // page):
+        assert splits * batch >= kdecode.SPLIT_BLOCKS // 2
+    if (batch, pages, page) == (8, 128, 16):
+        assert (pps, splits) == (4, 32)
+
+
+def test_supported_takes_up_to_32_heads():
+    assert kdecode.supported(64, torch.bfloat16, 8)
+    assert kdecode.supported(128, torch.float32, kdecode.MAX_HEADS)
+    assert not kdecode.supported(64, torch.bfloat16, kdecode.MAX_HEADS + 1)
+    assert not kdecode.supported(64, torch.bfloat16, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", SPLIT_CASES[3:])
+def test_kernel_matches_plain_at_the_split_cases_on_card(dtype, case):
+    """The split kernel and its combine at the split cases with head_dim
+    64 (the view's widths kept), against the plain version, bit-identical
+    across two launches, one launch counted a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernel runs only on a card")
+    B, H, _, page, n_pages, P, lengths, _ = case
+    q, k, v, pt, ln = (torch.from_numpy(a).to("cuda") for a in
+                       _split_inputs(P, B, H, 64, page, n_pages, P, lengths))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    before = kdecode.launches
+    out = kdecode.paged_decode(q, k, v, pt, ln)
+    again = kdecode.paged_decode(q, k, v, pt, ln)
+    assert kdecode.launches == before + 2
+    want = kdecode.paged_decode_plain(q, k, v, pt, ln)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out, want, rtol=BAND, atol=BAND)

@@ -68,16 +68,32 @@
 //                  copy where cout % 4 == 0, stored k-contiguous with
 //                  rows BK + 4 floats apart, so the inner product's
 //                  float4 reads of consecutive rows hit distinct banks.
-//  weight gradient: M = ky*kx*cin (+1), N = cout, K = n*oh*ow.  M*N is
-//                  small and K long, so K is split into S slices (grid z)
-//                  that write f32 partials (S, M+1, N); a second kernel
-//                  sums them in slice order.  Row M of A is all ones, so
-//                  row M of the product is the bias gradient, summed in
-//                  the same fixed order.
+//  weight gradient: M = ky*kx*cin rows (iy, ix, ci), N = cout, K =
+//                  n*oh*ow pixels.  M*N is small and K long, so K is split
+//                  into S slices (grid z) that write f32 partials (S, M+1,
+//                  N); a second kernel sums them in slice order.  Row M is
+//                  the bias gradient: the blocks of row tile 0 also sum
+//                  the staged e tiles' columns (no extra row of tiles for
+//                  it).  Its own kernel, not the shared f32 tile: both
+//                  operands are contiguous along the outer index (x's
+//                  patch row of a pixel in (ix, ci) for each iy, e's row
+//                  in cout), so 32-deep k tiles of pixels come through a
+//                  3-stage cp.async ring as 16-byte copies (4 channels of
+//                  one tap; one-float copies where cin % 4 != 0, conv1's
+//                  3) straight into [k][outer] shared tiles, each loader
+//                  row a pixel cursor stepping 32 pixels a tile.  Tiles
+//                  128 or 64 by 128 or 64 by (rows, cout) (weight_grad_
+//                  tile); S fills the last of at most 4 waves of resident
+//                  blocks best (split_k; the card's own residency from
+//                  cudaOccupancyMaxActiveBlocksPerMultiprocessor in
+//                  znicz_conv2d_weight_grad_plan).
 // Registers (ptxas, sm_90a), no spills: the bf16 forward 100 / 155 / 203
 // / 245 at N 64 / 128 / 192 / 256, one block of 256 threads an SM; the
 // input gradient 116 / 120 / 168 / 246 / 254 at N 8 / 32 / 64 / 96 / 128,
-// one block an SM (two at N 8 and 32, by registers and shared memory).
+// one block an SM (two at N 8 and 32, by registers and shared memory);
+// the weight gradient 173 / 167 at 128 x 128 (the one-float / 16-byte
+// loader), one block an SM, 123 / 111 at 128 x 64 and 121 / 111 at 64 x
+// 128, two, and 79 at 64 x 64, three.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -732,112 +748,247 @@ conv_input_grad_kernel(const float* __restrict__ e,
 
 // -------------------------------------------------------- weight gradient
 
-// A ((M+1) x K) of the weight gradient, gathered from x: row m = (iy, ix,
-// ci) for m < M = ky*kx*cin, row M all ones (its product row is the bias
-// gradient); column k = pixel (n, oy, ox) of this split's K range; A =
-// x[n, oy*sy + iy - pt, ox*sx + ix - pl, ci] or 0 outside the image.
-// Outer-contiguous: a thread loads 4 consecutive m of one k; with cin % 4
-// == 0 they are 4 channels of one tap (a float4).
-struct WgradA {
-  static constexpr bool kKC = false;
-  const float* x;
-  int H, W, cin, kx, oh, ow, sy, sx, pt, pl, M, kend;
-  bool vec;
-  int m, ci, ix, iy;  // this thread's first row
-  int k, n, oy, ox;   // this thread's pixel of the next tile
+constexpr int kWgBK = 32, kWgStages = 3, kWgThreads = 256;
+// the most waves of resident blocks the split-K schedule spreads over
+constexpr int kWgMaxWaves = 4;
 
-  __device__ WgradA(const float* x_, const ConvArgs& g, int m0, int kbeg,
-                    int kend_, bool vec_)
-      : x(x_), H(g.h), W(g.w), cin(g.cin), kx(g.kx), oh(g.oh), ow(g.ow),
-        sy(g.sy), sx(g.sx), pt(g.pt), pl(g.pl), M(g.ky * g.kx * g.cin),
-        kend(kend_), vec(vec_) {
-    m = m0 + (threadIdx.x % 32) * 4;
-    ci = m % cin;
-    const int tap = m / cin;
-    ix = tap % kx;
-    iy = tap / kx;
-    k = kbeg + threadIdx.x / 32;
-    const int per_img = oh * ow;
-    n = k / per_img;
-    const int r = k - n * per_img;
-    oy = r / ow;
-    ox = r % ow;
-  }
-
-  // row (tap jy, jx) of x at this thread's pixel, or null outside
-  __device__ __forceinline__ const float* pixel(int jx, int jy) const {
-    const int h = oy * sy + jy - pt, w = ox * sx + jx - pl;
-    if (h < 0 || h >= H || w < 0 || w >= W) return nullptr;
-    return x + ((static_cast<size_t>(n) * H + h) * W + w) * cin;
-  }
-
-  __device__ __forceinline__ void load(float (&r)[4]) {
-    const bool ok_k = k < kend;
-    if (vec && m < M) {  // M % 4 == 0 here: 4 channels of one tap
-      const float* p = ok_k ? pixel(ix, iy) : nullptr;
-      if (p)
-        set4(r, *reinterpret_cast<const float4*>(p + ci));
-      else
-        zero4(r);
-    } else {
-      int c = ci, jx = ix, jy = iy;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float v = 0.f;
-        if (ok_k && m + j < M) {
-          const float* p = pixel(jx, jy);
-          v = p ? p[c] : 0.f;
-        } else if (ok_k && m + j == M) {
-          v = 1.f;
-        }
-        r[j] = v;
-        if (++c == cin) {
-          c = 0;
-          if (++jx == kx) {
-            jx = 0;
-            ++jy;
-          }
-        }
-      }
-    }
-    k += BK;
-    ox += BK;
-    while (ox >= ow) {
-      ox -= ow;
-      if (++oy == oh) {
-        oy = 0;
-        ++n;
-      }
-    }
-  }
+// A tile shape of the weight gradient: BM rows of (iy, ix, ci) x BN
+// output channels, each thread TM x TN of them over k tiles kWgBK pixels
+// deep.  Both operands are staged [k][outer] (x's patch row of a pixel
+// and e's row are contiguous along the outer index), so a 16-byte copy
+// lands 4 rows or 4 channels of one pixel with no transpose.  A thread's
+// rows are ty*4 + 64 i + (0..3) and its columns tx*4 + 64 j + (0..3):
+// its float4 reads of one k row are the warp's 16 consecutive float4s
+// (B) or two broadcasts (A), free of bank conflicts.  MinBlocks is the
+// residency the registers are capped for (__launch_bounds__).
+template <int BM_, int BN_, int MinBlocks_>
+struct WgTile {
+  static constexpr int BM = BM_, BN = BN_, MinBlocks = MinBlocks_;
+  static constexpr int TM = BM / 16, TN = BN / 16, RT = 16, CT = 16;
+  static constexpr int CA = BM / 4, CB = BN / 4;  // 16-byte chunks a row
+  static constexpr int PA = kWgThreads / CA, PB = kWgThreads / CB;
+  static constexpr int kSmem =
+      static_cast<int>(sizeof(float)) * kWgStages * kWgBK * (BM + BN);
+  static_assert(TM % 4 == 0 && TN % 4 == 0, "float4 reads");
+  static_assert(kWgBK % PA == 0 && kWgBK % PB == 0, "whole loader passes");
+  static_assert(RT * BN * 4 <= kSmem, "the bias sums fit in the ring");
 };
 
-__global__ void __launch_bounds__(kThreads)
+// the family, by the product's shape (weight_grad_tile in kernels/conv.py
+// is its twin): 128 wide where rows and cout allow, 64 where rows <= 64
+// (build_deep's cin-3 layers) or cout <= 64
+using WgWide = WgTile<128, 128, 1>;
+using WgN64 = WgTile<128, 64, 2>;
+using WgM64 = WgTile<64, 128, 2>;
+using WgSmall = WgTile<64, 64, 3>;
+
+// gw's partial of split blockIdx.z into part[z] (M+1 rows of N: rows
+// (iy, ix, ci), then the bias).  A (M x K) gathered from x: row m = (iy,
+// ix, ci), column k = pixel (n, oy, ox) of the split's K range, A = x[n,
+// oy*sy + iy - pt, ox*sx + ix - pl, ci] or 0 outside the image.  B (K x
+// N) = e's rows of those pixels.  Thread t copies A's chunk t % CA (4
+// rows, one 16-byte copy of 4 channels of one tap where VA, cin % 4 ==
+// 0; else 4 one-float copies) of pixel rows t / CA + PA p of each k
+// tile, keeping a (n, oy, ox) cursor per row that steps kWgBK pixels a
+// tile; a copy off the image reads 0 bytes and writes zeros.  The
+// blocks of row tile 0 also sum each staged e column (k rows ty, ty +
+// 16, ...), then over ty in order: the bias row of the partial.
+template <int BM, int BN, int MinBlocks, bool VA>
+__global__ void __launch_bounds__(kWgThreads, MinBlocks)
 conv_weight_grad_kernel(const float* __restrict__ x,
                         const float* __restrict__ e,
                         float* __restrict__ part, ConvArgs g, int per,
-                        bool vec_x, bool vec_e, bool vec_p) {
-  const int rows = g.ky * g.kx * g.cin + 1, N = g.cout;
+                        bool vec_e, bool vec_p) {
+  using T = WgTile<BM, BN, MinBlocks>;
+  extern __shared__ __align__(16) float wg_smem[];
+  float* As = wg_smem;                              // [stage][BK][BM]
+  float* Bs = wg_smem + kWgStages * kWgBK * BM;     // [stage][BK][BN]
+  const int M = g.ky * g.kx * g.cin, N = g.cout;
   const int K = g.n * g.oh * g.ow;
   const int kbeg = blockIdx.z * per;
   const int kend = kbeg + per < K ? kbeg + per : K;
+  const int nk = (kend - kbeg + kWgBK - 1) / kWgBK;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  WgradA la(x, g, m0, kbeg, kend, vec_x);
-  DenseTile<false> lb{e + static_cast<size_t>(kbeg) * N, N, kend - kbeg,
-                      n0, 0, vec_e};
-  float acc[TM][TN];
-  mainloop(la, lb, (kend - kbeg + BK - 1) / BK, acc);
+  const bool bias_block = blockIdx.x == 0;
 
-  const int ty = threadIdx.x / (BN / TN), tx = threadIdx.x % (BN / TN);
-  const int n_first = n0 + tx * TN;
-  const float zeros[TN] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  float* out = part + static_cast<size_t>(blockIdx.z) * rows * N;
+  // this thread's A chunk: rows m..m+3, each a tap (dy, dx) and channel
+  constexpr int AP = kWgBK / T::PA, BP = kWgBK / T::PB;
+  const int ca = threadIdx.x % T::CA, ra = threadIdx.x / T::CA;
+  const int m = m0 + 4 * ca;
+  int dy[VA ? 1 : 4], dx[VA ? 1 : 4], ci[VA ? 1 : 4];
+  bool mok[VA ? 1 : 4];
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
-    if (m >= rows) break;
-    store_row(out + static_cast<size_t>(m) * N + n_first, acc[i], zeros,
-              n_first, N, vec_p);
+  for (int j = 0; j < (VA ? 1 : 4); ++j) {
+    const int mm = m + j;
+    ci[j] = mm % g.cin;
+    const int tap = mm / g.cin;
+    dx[j] = tap % g.kx;
+    dy[j] = tap / g.kx;
+    mok[j] = mm < M;
+  }
+  // the pixel cursors of rows ra + PA p: k, and (n, oy, ox) of it
+  int pk[AP], pn[AP], py[AP], px[AP];
+  const int per_img = g.oh * g.ow;
+#pragma unroll
+  for (int p = 0; p < AP; ++p) {
+    pk[p] = kbeg + ra + T::PA * p;
+    pn[p] = pk[p] / per_img;
+    const int r = pk[p] - pn[p] * per_img;
+    py[p] = r / g.ow;
+    px[p] = r - py[p] * g.ow;
+  }
+  const int cb = threadIdx.x % T::CB, rb = threadIdx.x / T::CB;
+  int kb = kbeg + rb;  // e's pixel of B row rb of the next tile
+
+  // the next k tile into stage s (tiles load in order)
+  auto load = [&](int s) {
+    const uint32_t as = smem_u32(As + s * kWgBK * BM + 4 * ca);
+#pragma unroll
+    for (int p = 0; p < AP; ++p) {
+      const uint32_t dst = as + (ra + T::PA * p) * BM * 4;
+      const bool kok = pk[p] < kend;
+      const int h0 = py[p] * g.sy - g.pt, w0 = px[p] * g.sx - g.pl;
+      const float* img = x + static_cast<size_t>(pn[p]) * g.h * g.w * g.cin;
+#pragma unroll
+      for (int j = 0; j < (VA ? 1 : 4); ++j) {
+        const int hh = h0 + dy[j], ww = w0 + dx[j];
+        const bool ok = kok && mok[j] && hh >= 0 && hh < g.h && ww >= 0 &&
+                        ww < g.w;
+        const float* src = img + (hh * g.w + ww) * g.cin + ci[j];
+        if (VA)
+          cp_async16(dst, ok ? src : x, ok ? 16 : 0);
+        else
+          cp_async4(dst + 4 * j, ok ? src : x, ok ? 4 : 0);
+      }
+      pk[p] += kWgBK;
+      px[p] += kWgBK;
+      while (px[p] >= g.ow) {
+        px[p] -= g.ow;
+        if (++py[p] == g.oh) {
+          py[p] = 0;
+          ++pn[p];
+        }
+      }
+    }
+    const uint32_t bs = smem_u32(Bs + s * kWgBK * BN + 4 * cb);
+    const int n = n0 + 4 * cb;
+#pragma unroll
+    for (int p = 0; p < BP; ++p) {
+      const uint32_t dst = bs + (rb + T::PB * p) * BN * 4;
+      const int k = kb + T::PB * p;
+      const float* src = e + static_cast<size_t>(k) * N + n;
+      if (vec_e) {
+        const bool ok = k < kend && n < N;
+        cp_async16(dst, ok ? src : e, ok ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool ok = k < kend && n + j < N;
+          cp_async4(dst + 4 * j, ok ? src + j : e, ok ? 4 : 0);
+        }
+      }
+    }
+    kb += kWgBK;
+  };
+
+  float acc[T::TM][T::TN];
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < T::TN; ++j) acc[i][j] = 0.f;
+  float bsum[T::TN];
+#pragma unroll
+  for (int j = 0; j < T::TN; ++j) bsum[j] = 0.f;
+  const int ty = threadIdx.x / T::CT, tx = threadIdx.x % T::CT;
+
+#pragma unroll 1
+  for (int s = 0; s < kWgStages - 1; ++s) {
+    if (s < nk) load(s);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int kt = 0; kt < nk; ++kt) {
+    // tile kt has landed for everyone, and everyone is done with kt - 1,
+    // whose stage the next load takes
+    cp_async_wait<kWgStages - 2>();
+    __syncthreads();
+    if (kt + kWgStages - 1 < nk) load((kt + kWgStages - 1) % kWgStages);
+    cp_async_commit();
+    const float* as = As + (kt % kWgStages) * kWgBK * BM + ty * 4;
+    const float* bs = Bs + (kt % kWgStages) * kWgBK * BN + tx * 4;
+#pragma unroll
+    for (int k = 0; k < kWgBK; ++k) {
+      float a[T::TM], b[T::TN];
+#pragma unroll
+      for (int i = 0; i < T::TM / 4; ++i) {
+        const float4 v = *reinterpret_cast<const float4*>(as + k * BM + 64 * i);
+        a[4 * i] = v.x;
+        a[4 * i + 1] = v.y;
+        a[4 * i + 2] = v.z;
+        a[4 * i + 3] = v.w;
+      }
+#pragma unroll
+      for (int j = 0; j < T::TN / 4; ++j) {
+        const float4 v = *reinterpret_cast<const float4*>(bs + k * BN + 64 * j);
+        b[4 * j] = v.x;
+        b[4 * j + 1] = v.y;
+        b[4 * j + 2] = v.z;
+        b[4 * j + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < T::TM; ++i)
+#pragma unroll
+        for (int j = 0; j < T::TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (bias_block) {
+#pragma unroll
+      for (int k = 0; k < kWgBK / T::RT; ++k)
+#pragma unroll
+        for (int j = 0; j < T::TN / 4; ++j) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              bs + (ty + T::RT * k) * BN + 64 * j);
+          bsum[4 * j] += v.x;
+          bsum[4 * j + 1] += v.y;
+          bsum[4 * j + 2] += v.z;
+          bsum[4 * j + 3] += v.w;
+        }
+    }
+  }
+  cp_async_wait<0>();
+
+  float* out = part + static_cast<size_t>(blockIdx.z) * (M + 1) * N;
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i) {
+    const int row = m0 + ty * 4 + 64 * (i / 4) + i % 4;
+    if (row >= M) continue;
+#pragma unroll
+    for (int j = 0; j < T::TN / 4; ++j) {
+      const int n = n0 + tx * 4 + 64 * j;
+      float* dst = out + static_cast<size_t>(row) * N + n;
+      if (vec_p && n < N) {
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(acc[i][4 * j], acc[i][4 * j + 1], acc[i][4 * j + 2],
+                        acc[i][4 * j + 3]);
+      } else {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          if (n + jj < N) dst[jj] = acc[i][4 * j + jj];
+      }
+    }
+  }
+  if (bias_block) {  // uniform over the block
+    __syncthreads();  // every warp is done with the ring
+    float* red = wg_smem;  // [RT][BN]
+#pragma unroll
+    for (int j = 0; j < T::TN; ++j)
+      red[ty * BN + tx * 4 + 64 * (j / 4) + j % 4] = bsum[j];
+    __syncthreads();
+    for (int c = threadIdx.x; c < BN; c += kWgThreads) {
+      float v = 0.f;
+#pragma unroll
+      for (int r = 0; r < T::RT; ++r) v += red[r * BN + c];
+      if (n0 + c < N) out[static_cast<size_t>(M) * N + n0 + c] = v;
+    }
   }
 }
 
@@ -927,6 +1078,75 @@ cudaError_t input_grad(const float* e, const float* w, float* ei,
                 grid,
                 kIgThreads, T::kSmem, s, e, w, ei, g,
                 aligned16(e) && aligned16(w) && g.cout % 4 == 0);
+}
+
+// The weight gradient's tile for M = ky*kx*cin rows and cout
+// (weight_grad_tile in kernels/conv.py is its twin): 0 WgWide, 1 WgN64,
+// 2 WgM64, 3 WgSmall.
+int weight_grad_code(int M, int cout) {
+  return M > 64 ? (cout > 64 ? 0 : 1) : (cout > 64 ? 2 : 3);
+}
+
+template <class T, bool VA>
+constexpr auto wg_kernel() {
+  return conv_weight_grad_kernel<T::BM, T::BN, T::MinBlocks, VA>;
+}
+
+template <class T>
+void wg_tile(int* bm, int* bn, int* per_sm) {
+  *bm = T::BM;
+  *bn = T::BN;
+  // both loaders' instantiations must agree (the smoke checks it)
+  int res[2] = {0, 0};
+  const decltype(wg_kernel<T, true>()) kernels[2] = {wg_kernel<T, true>(),
+                                                      wg_kernel<T, false>()};
+  for (int i = 0; i < 2; ++i) {
+    cudaFuncSetAttribute(kernels[i],
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         T::kSmem);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&res[i], kernels[i],
+                                                  kWgThreads, T::kSmem);
+  }
+  *per_sm = res[0] == res[1] ? res[0] : -1;
+}
+
+// Slices of K for `tiles` output tiles over k_tiles k tiles, with `wave`
+// blocks resident at once (split_k in kernels/conv.py is its twin): the
+// count whose grid fills its last wave best, up to kWgMaxWaves waves,
+// the fewest slices on a tie; each slice a whole number of k tiles.  For
+// w waves the fullest grid has the most slices that fit, so w * wave /
+// tiles (rounded down, then by whole k tiles) is the only candidate.
+long long weight_grad_splits(long long tiles, long long wave,
+                             long long k_tiles) {
+  long long best = 0, best_waves = 1;
+  for (long long w = 1; w <= kWgMaxWaves; ++w) {
+    long long s = w * wave / tiles;
+    s = s < 1 ? 1 : s;
+    s = s < k_tiles ? s : k_tiles;
+    const long long per = (k_tiles + s - 1) / s;
+    const long long sp = (k_tiles + per - 1) / per;
+    const long long waves = (sp * tiles + wave - 1) / wave;
+    if (sp * best_waves > best * waves) {  // a fuller last wave
+      best = sp;
+      best_waves = waves;
+    }
+  }
+  return best;
+}
+
+template <class T>
+cudaError_t weight_grad(const float* x, const float* e, float* part,
+                        const ConvArgs& g, int splits, int per,
+                        cudaStream_t s) {
+  const dim3 grid(tiles(static_cast<long long>(g.ky) * g.kx * g.cin, T::BM),
+                  tiles(g.cout, T::BN), splits);
+  const bool ve = aligned16(e) && g.cout % 4 == 0;
+  const bool vp = aligned16(part) && g.cout % 4 == 0;
+  if (aligned16(x) && g.cin % 4 == 0)
+    return launch(wg_kernel<T, true>(), grid, kWgThreads, T::kSmem, s, x, e,
+                  part, g, per, ve, vp);
+  return launch(wg_kernel<T, false>(), grid, kWgThreads, T::kSmem, s, x, e,
+                part, g, per, ve, vp);
 }
 
 }  // namespace
@@ -1024,7 +1244,7 @@ extern "C" int znicz_conv2d_input_grad_tile(int cin) {
 }
 
 // gw (ky, kx, cin, cout) and gb (cout) of x and the cotangent e, K split
-// into `splits` slices of `per` pixels (per % 8 == 0, splits * per >=
+// into `splits` slices of `per` pixels (per % 32 == 0, splits * per >=
 // n*oh*ow > (splits - 1) * per); part is scratch of splits * (ky*kx*cin +
 // 1) * cout floats.
 extern "C" int znicz_conv2d_weight_grad_f32(
@@ -1034,24 +1254,75 @@ extern "C" int znicz_conv2d_weight_grad_f32(
   const ConvArgs g =
       make_args(n, h, wd, cin, oh, ow, cout, ky, kx, sy, sx, pt, pl);
   const long long K = static_cast<long long>(n) * oh * ow;
-  if (bad_args(g) || splits < 1 || per < 1 || per % BK != 0 ||
-      static_cast<long long>(splits) * per < K ||
+  if (bad_args(g) || splits < 1 || splits > 65535 || per < 1 ||
+      per % kWgBK != 0 || static_cast<long long>(splits) * per < K ||
       static_cast<long long>(splits - 1) * per >= K)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* xp = static_cast<const float*>(x);
   const float* ep = static_cast<const float*>(e);
   float* pp = static_cast<float*>(part);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long rows = static_cast<long long>(ky) * kx * cin + 1;
-  const dim3 grid(tiles(rows, BM), tiles(cout, BN), splits);
-  conv_weight_grad_kernel<<<grid, kThreads, 0, s>>>(
-      xp, ep, pp, g, per, aligned16(xp) && cin % 4 == 0,
-      aligned16(ep) && cout % 4 == 0, aligned16(pp) && cout % 4 == 0);
-  const cudaError_t err = cudaGetLastError();
+  const int M = ky * kx * cin;
+  cudaError_t err;
+  switch (weight_grad_code(M, cout)) {
+    case 0:
+      err = weight_grad<WgWide>(xp, ep, pp, g, splits, per, s);
+      break;
+    case 1:
+      err = weight_grad<WgN64>(xp, ep, pp, g, splits, per, s);
+      break;
+    case 2:
+      err = weight_grad<WgM64>(xp, ep, pp, g, splits, per, s);
+      break;
+    default:
+      err = weight_grad<WgSmall>(xp, ep, pp, g, splits, per, s);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
+  const long long rows = static_cast<long long>(M) + 1;
   reduce_splits_kernel<<<blocks_for(rows * cout), 256, 0, s>>>(
       pp, splits, rows * cout, (rows - 1) * cout, static_cast<float*>(gw),
       static_cast<float*>(gb));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The weight gradient's schedule for a product of `rows` = ky*kx*cin + 1
+// rows (the partials' rows), cout columns and k pixels, as this card
+// runs it: out = {BM, BN, resident blocks an SM (-1 if the two loaders'
+// instantiations differ), splits, per}.  kernels/conv.py split_k computes
+// the same from its table of residencies; the smoke holds one against the
+// other.
+extern "C" int znicz_conv2d_weight_grad_plan(int rows, int cout, int k,
+                                             int* out) {
+  if (rows < 2 || cout < 1 || k < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int bm, bn, per_sm;
+  switch (weight_grad_code(rows - 1, cout)) {
+    case 0:
+      wg_tile<WgWide>(&bm, &bn, &per_sm);
+      break;
+    case 1:
+      wg_tile<WgN64>(&bm, &bn, &per_sm);
+      break;
+    case 2:
+      wg_tile<WgM64>(&bm, &bn, &per_sm);
+      break;
+    default:
+      wg_tile<WgSmall>(&bm, &bn, &per_sm);
+  }
+  int device = 0, sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const long long t = static_cast<long long>(tiles(rows - 1, bm)) *
+                      tiles(cout, bn);
+  const long long k_tiles = (k + kWgBK - 1) / kWgBK;
+  const long long splits = weight_grad_splits(
+      t, static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1), k_tiles);
+  const long long per = (k_tiles + splits - 1) / splits * kWgBK;
+  out[0] = bm;
+  out[1] = bn;
+  out[2] = per_sm;
+  out[3] = static_cast<int>((k + per - 1) / per);
+  out[4] = static_cast<int>(per);
   return static_cast<int>(cudaGetLastError());
 }
 

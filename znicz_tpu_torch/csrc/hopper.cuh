@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels:
-// mbarriers, TMA loads, cp.async, wgmma descriptors and the wgmma forms
-// the kernels issue, bf16 packing, and the launch with the opt-in to
-// more than 48 KB of shared memory.  flash_attention.cu feeds its wgmma
-// from TMA rings on mbarriers; conv.cu's bf16 forward and input gradient
-// from cp.async rings.
+// mbarriers, TMA loads (tensor maps and 1-D bulk copies), cp.async,
+// wgmma descriptors and the wgmma forms the kernels issue, bf16 packing,
+// and the launch with the opt-in to more than 48 KB of shared memory.
+// flash_attention.cu feeds its wgmma from TMA rings on mbarriers and
+// paged_decode.cu its pages by bulk copies on mbarriers; conv.cu's bf16
+// forward, input gradient and weight gradient use cp.async rings.
 //
 // wgmma reads its shared-memory operands through 64-bit descriptors of
 // the 128-byte-swizzled layout (the TMA's CU_TENSOR_MAP_SWIZZLE_128B):
@@ -78,11 +79,31 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` contiguous bytes from global `src` to shared `dst` (both
+// 16-byte aligned, bytes a multiple of 16) by the TMA's 1-D bulk copy;
+// completion is counted in bytes on the mbarrier `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // 16 bytes from global `src` to shared `dst` (both 16-byte aligned),
 // through L1; `bytes` 0 reads nothing and writes 16 zeros
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            uint32_t bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// the same for one float (both 4-byte aligned); `bytes` 0 writes a zero
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          uint32_t bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(src), "r"(bytes)
                : "memory");
 }

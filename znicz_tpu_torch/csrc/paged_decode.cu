@@ -12,20 +12,37 @@
 // card's ~295 flop/byte ridge, so the least time is
 // sum(lengths) * H * 2 * Dh * sizeof(T) / 3.35 TB/s.
 //
-// Design (simple and right first; split-K over pages, TMA and several
-// heads per block are later work):
-//  - one block per (head, slot); the TPU grid's sequential page axis
-//    becomes a loop inside the block, which reads page_table and
-//    lengths itself (no scalar prefetch) and stops at row lengths[b] —
-//    masked rows add exactly 0 once one row is valid, so they are
-//    skipped rather than scored;
-//  - TPR = Dh / VEC threads share one key row: each holds VEC elements
-//    (one coalesced 16-byte load of bf16 or f32) of q, k, v and of its
-//    running output; the q.k partial sums meet by warp shuffle;
-//  - the block's kThreads / TPR row groups each run an f32 online
-//    softmax (m, l, acc) over rows g, g + GROUPS, ...; the groups'
-//    states merge in shared memory at the end (the flash-decoding
-//    combine), so rows are read once and in parallel.
+// Design: flash-decoding, split over pages, all heads in one block.
+//  - The grid is (split, slot).  Split s owns page-table entries [s*pps,
+//    (s+1)*pps); pps comes from the host's shapes alone (decode_split in
+//    kernels/decode.py: about two blocks an SM over the batch at the
+//    widest page view), never from lengths, which stay on the card.  A
+//    split that starts at or past lengths[b] writes the empty state (m =
+//    -1e30, l = 0, acc = 0) and exits, so a short slot costs one
+//    near-empty block a split and a long one fills the card.
+//  - One page of one slot, all H heads, is one contiguous run of page *
+//    H * Dh elements of the arena.  The block reads its split's page ids
+//    into shared memory once, then thread 0 streams the live rows in
+//    chunks of cr rows (the largest divisor of page whose rows fit 16
+//    KB an operand) by the TMA's 1-D bulk copy into a ring of up to 4 K+V
+//    stages on mbarriers, at most 96 KB: two blocks an SM, so every
+//    block of the widest view is resident at once, whichever slots are
+//    long, and two of a bf16 split's four pages are in flight while one
+//    is scored; no load waits on the page table.  Only live rows are
+//    read.
+//  - Warp h takes head h (H <= 32), q in registers.  TPR = Dh / VEC
+//    lanes share one key row (VEC elements of a 16-byte load each; the
+//    q.k partial sums meet by shuffle), so a warp scores 32 / TPR row
+//    groups at once, each two rows a step (loads and shuffles
+//    interleaved, one rescale) with its own f32 online softmax (m, l,
+//    acc) in base 2 (scores scaled by log2 e); the groups merge by
+//    shuffle in a fixed order at the end of the split.
+//  - A second kernel merges each (b, h) over the splits in split order
+//    (rescale by exp(m_s - m_all), divide by l_all > 0), from the f32
+//    workspace (B, splits, H, Dh + 2) the wrapper allocates.  It is
+//    launched as a programmatic dependent of the split kernel, so its
+//    launch overlaps the split kernel's last writes.  No atomics: two launches
+//    are bit-identical.
 // Contract violations (a length outside [1, P*page], a page id outside
 // [0, N)) trap: the decoder checks both on the host before upload, and
 // reading a wrong page must never pass silently.
@@ -36,10 +53,26 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+using namespace znicz_hopper;
+
 constexpr float kMaskValue = -1e30f;  // the serve plane's mask constant
+constexpr int kMaxHeads = 32;         // one warp a head
+constexpr int kMaxStages = 4;
+constexpr int kRows = 2;  // key rows a row group scores at once
+// the combine: threads a block, and splits whose acc rows a round stages
+constexpr int kCombineThreads = 256, kCombineSplits = 32;
+// the most splits the combine's shared memory takes (48 KB at Dh 128)
+constexpr int kMaxSplits = 4096;
+constexpr float kLog2e = 1.4426950408889634f;
+// one operand's rows in a stage (at most 16 KB: a 16-row page of bf16 at
+// H 8, Dh 64), and the whole ring (at most 96 KB: two blocks an SM, so
+// all 256 blocks of the widest view at B 8 are resident at once,
+// whichever slots are long)
+constexpr int kChunkBytes = 16 * 1024, kRingBytes = 96 * 1024;
 
 template <typename T>
 struct Vec16 {
@@ -66,140 +99,334 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p,
   }
 }
 
+// Chunk c of the split (rows c*cr.. of it, inside one page) into its
+// stage of the ring: K at `dst`, V stage_bytes after it, both counted on
+// the stage's mbarrier.  Thread 0 only.
+template <typename T>
+__device__ __forceinline__ void issue_chunk(
+    const T* k_pages, const T* v_pages, const int* pages, int c, int cr,
+    int live, int page, size_t row_elems, uint32_t stage_bytes, int stages,
+    uint32_t ring, uint32_t bar0) {
+  const int s = c % stages, r = c * cr;
+  const uint32_t bytes = min(cr, live - r) * row_elems * sizeof(T);
+  const size_t off =
+      (static_cast<size_t>(pages[r / page]) * page + r % page) * row_elems;
+  const uint32_t bar = bar0 + 8 * s;
+  const uint32_t dst = ring + 2u * s * stage_bytes;
+  mbar_expect_tx(bar, 2 * bytes);
+  bulk_load(dst, k_pages + off, bytes, bar);
+  bulk_load(dst + stage_bytes, v_pages + off, bytes, bar);
+}
+
+// One split of one slot: the partial state (acc[Dh], m, l) of each head
+// into ws[b][split][h].  The dynamic shared memory holds `stages` K+V
+// stages of `cr` rows each, then the split's page ids.
 template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxHeads * 32, 1)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                     const T* __restrict__ v_pages,
                     const int32_t* __restrict__ page_table,
                     const int32_t* __restrict__ lengths,
-                    float* __restrict__ out, int H, int n_pages, int page,
-                    int P, float sm_scale) {
+                    float* __restrict__ ws, int H, int n_pages, int page,
+                    int P, int pps, int cr, int stages, float sm_scale) {
   constexpr int VEC = Vec16<T>::n;
-  constexpr int TPR = DH / VEC;           // threads per key row
-  constexpr int GROUPS = kThreads / TPR;  // rows in flight per block
+  constexpr int TPR = DH / VEC;  // lanes a key row
+  constexpr int G = 32 / TPR;    // rows a warp scores at once
   static_assert(DH % VEC == 0, "head_dim must fill whole 16-byte loads");
   static_assert(TPR <= 32 && 32 % TPR == 0, "a row group fits one warp");
-  static_assert(DH <= kThreads, "the combine gives each thread <= 1 column");
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t bars[kMaxStages];
 
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int lane = threadIdx.x % TPR;
-  const int g = threadIdx.x / TPR;
+  const int split = blockIdx.x, b = blockIdx.y;
+  const int h = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / TPR, sub = lane % TPR;
 
+  // this thread's first page id is read beside the length, not after it
+  const int j0 = threadIdx.x;
+  const int pg0 = j0 < pps && split * pps + j0 < P
+                      ? page_table[static_cast<size_t>(b) * P + split * pps +
+                                   j0]
+                      : 0;
   const int len = lengths[b];
   if (len < 1 || len > P * page) __trap();
+  const int row0 = split * pps * page;  // the split's first key row
+  const int live = min(len - row0, pps * page);
+  float* part =
+      ws + ((static_cast<size_t>(b) * gridDim.x + split) * H + h) * (DH + 2);
+  if (live <= 0) {  // past the slot's length: the empty state
+    for (int d = lane; d < DH; d += 32) part[d] = 0.f;
+    if (lane == 0) {
+      part[DH] = kMaskValue;
+      part[DH + 1] = 0.f;
+    }
+    return;
+  }
+
+  const size_t row_elems = static_cast<size_t>(H) * DH;
+  const uint32_t stage_bytes = cr * row_elems * sizeof(T);  // one operand
+  int* pages = reinterpret_cast<int*>(smem + 2u * stages * stage_bytes);
+  const int n_pages_live = (live + page - 1) / page;
+  for (int j = threadIdx.x; j < n_pages_live; j += blockDim.x) {
+    const int pg =
+        j == j0 ? pg0
+                : page_table[static_cast<size_t>(b) * P + split * pps + j];
+    if (pg < 0 || pg >= n_pages) __trap();
+    pages[j] = pg;
+  }
+  const uint32_t ring = smem_u32(smem), bar0 = smem_u32(bars);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(bar0 + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int n_chunks = (live + cr - 1) / cr;
+  if (threadIdx.x == 0)
+    for (int c = 0; c < stages && c < n_chunks; ++c)
+      issue_chunk(k_pages, v_pages, pages, c, cr, live, page, row_elems,
+                  stage_bytes, stages, ring, bar0);
 
   float qv[VEC];
-  load16(q + (static_cast<size_t>(b) * H + h) * DH + lane * VEC, qv);
-
-  const int32_t* pt = page_table + static_cast<size_t>(b) * P;
-  const size_t row_stride = static_cast<size_t>(H) * DH;
-  const size_t col = static_cast<size_t>(h) * DH + lane * VEC;
-
+  load16(q + (static_cast<size_t>(b) * H + h) * DH + sub * VEC, qv);
   float m = kMaskValue, l = 0.f;
   float acc[VEC];
 #pragma unroll
   for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
 
-  // uniform trip count across the block: every lane of a warp reaches
-  // the shuffles together, whatever its row's validity
-  for (int base = 0; base < len; base += GROUPS) {
-    const int t = base + g;
-    const bool valid = t < len;
-    float kv[VEC], vv[VEC];
-    float s = 0.f;
-    if (valid) {
-      const int pg = pt[t / page];
-      if (pg < 0 || pg >= n_pages) __trap();
-      const size_t off =
-          (static_cast<size_t>(pg) * page + t % page) * row_stride + col;
-      load16(k_pages + off, kv);
-      load16(v_pages + off, vv);
+  const size_t col = static_cast<size_t>(h) * DH + sub * VEC;
+  const float scale_log2 = sm_scale * kLog2e;  // scores in log2 units
+#pragma unroll 1
+  for (int c = 0; c < n_chunks; ++c) {
+    const int s = c % stages;
+    mbar_wait(bar0 + 8 * s, (c / stages) & 1);
+    const int rows = min(cr, live - c * cr);
+    const T* ks = reinterpret_cast<const T*>(smem + 2u * s * stage_bytes);
+    const T* vs = reinterpret_cast<const T*>(smem + (2u * s + 1) *
+                                             stage_bytes);
+    // kRows rows a group at a time, their loads and shuffles interleaved,
+    // one rescale for them all; a uniform trip count across the warp, so
+    // every lane reaches the shuffles together, whatever its rows'
+    // validity
+#pragma unroll 1
+    for (int base = 0; base < rows; base += G * kRows) {
+      float sc[kRows], vv[kRows][VEC];
+      bool valid[kRows];
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) s += qv[i] * kv[i];
-    }
+      for (int u = 0; u < kRows; ++u) {
+        const int r = base + g + G * u;
+        valid[u] = r < rows;
+        sc[u] = 0.f;
+        if (valid[u]) {
+          float kv[VEC];
+          load16(ks + r * row_elems + col, kv);
+          load16(vs + r * row_elems + col, vv[u]);
 #pragma unroll
-    for (int w = TPR / 2; w > 0; w >>= 1)
-      s += __shfl_xor_sync(0xffffffffu, s, w);
-    if (valid) {
-      s *= sm_scale;
-      const float m_new = fmaxf(m, s);
-      const float alpha = expf(m - m_new);
-      const float p = expf(s - m_new);
-      l = l * alpha + p;
+          for (int i = 0; i < VEC; ++i) sc[u] += qv[i] * kv[i];
+        }
+      }
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[i] = acc[i] * alpha + p * vv[i];
+      for (int w = TPR / 2; w > 0; w >>= 1)
+#pragma unroll
+        for (int u = 0; u < kRows; ++u)
+          sc[u] += __shfl_xor_sync(0xffffffffu, sc[u], w);
+      float m_new = m;
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) {
+        sc[u] *= scale_log2;
+        if (valid[u]) m_new = fmaxf(m_new, sc[u]);
+      }
+      const float alpha = exp2f(m - m_new);  // 1 where no row is valid
+      l *= alpha;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[i] *= alpha;
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) {
+        if (!valid[u]) continue;
+        const float p = exp2f(sc[u] - m_new);
+        l += p;
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) acc[i] += p * vv[u][i];
+      }
       m = m_new;
     }
+    __syncthreads();  // every warp is done with stage s: refill it
+    if (threadIdx.x == 0 && c + stages < n_chunks)
+      issue_chunk(k_pages, v_pages, pages, c + stages, cr, live, page,
+                  row_elems, stage_bytes, stages, ring, bar0);
   }
 
-  __shared__ float s_m[GROUPS];
-  __shared__ float s_l[GROUPS];
-  __shared__ float s_acc[GROUPS][DH];
-  if (lane == 0) {
-    s_m[g] = m;
-    s_l[g] = l;
-  }
+  // every row is read: the combine may launch (a block that exits
+  // counts as launched); it waits for this grid to finish
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+
+  // the warp's row groups into group 0, in a fixed order; a group that
+  // saw no row holds m = -1e30 and weighs exactly 0
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) s_acc[g][lane * VEC + i] = acc[i];
-  __syncthreads();
-
-  const int d = threadIdx.x;
-  if (d < DH) {
-    float m_all = kMaskValue;
-#pragma unroll 8
-    for (int gg = 0; gg < GROUPS; ++gg) m_all = fmaxf(m_all, s_m[gg]);
-    float l_all = 0.f, o = 0.f;
-#pragma unroll 8
-    for (int gg = 0; gg < GROUPS; ++gg) {
-      // a group that saw no valid row holds m = -1e30: weight exactly 0
-      const float w = expf(s_m[gg] - m_all);
-      l_all += s_l[gg] * w;
-      o += s_acc[gg][d] * w;
+  for (int off = TPR; off < 32; off <<= 1) {
+    const float m_o = __shfl_xor_sync(0xffffffffu, m, off);
+    const float l_o = __shfl_xor_sync(0xffffffffu, l, off);
+    const float m_new = fmaxf(m, m_o);
+    const float a = exp2f(m - m_new), a_o = exp2f(m_o - m_new);
+    l = l * a + l_o * a_o;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i)
+      acc[i] = acc[i] * a + __shfl_xor_sync(0xffffffffu, acc[i], off) * a_o;
+    m = m_new;
+  }
+  if (g == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) part[sub * VEC + i] = acc[i];
+    if (sub == 0) {
+      part[DH] = m;
+      part[DH + 1] = l;
     }
-    out[(static_cast<size_t>(b) * H + h) * DH + d] = o / l_all;
   }
 }
 
+// o[b, h] from the splits' partial states, merged in split order, by
+// kCombineThreads threads: every split's m and l and the first
+// kCombineSplits splits' acc rows are fetched at once, then each round's
+// weighted acc rows are staged in shared memory and thread d adds column
+// d of them in split order.  It is launched as the split kernel's
+// programmatic dependent, so its launch overlaps the split kernel's last
+// writes; it reads the workspace only after that grid has finished and
+// its writes are visible.
+template <int DH>
+__global__ void __launch_bounds__(kCombineThreads)
+paged_decode_kernel_combine(const float* __restrict__ ws,
+                            float* __restrict__ out, int splits, int H) {
+  constexpr int kPer = kCombineSplits * DH / kCombineThreads;
+  static_assert(kPer * kCombineThreads == kCombineSplits * DH, "whole rounds");
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  extern __shared__ float sh[];  // weights [splits], l [splits], a round
+  float* cw = sh;
+  float* cl = sh + splits;
+  float* tile = sh + 2 * splits;  // [kCombineSplits][DH]
+  const int h = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
+  const size_t step = static_cast<size_t>(H) * (DH + 2);
+  const float* p = ws + (static_cast<size_t>(b) * splits * H + h) * (DH + 2);
+
+  float a[kPer];  // this thread's acc values of the round at s0
+  auto fetch = [&](int s0) {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int e = t + kCombineThreads * i, s = s0 + e / DH;
+      a[i] = s < splits ? p[s * step + e % DH] : 0.f;
+    }
+  };
+  fetch(0);
+  for (int s = t; s < splits; s += kCombineThreads) {
+    cw[s] = p[s * step + DH];
+    cl[s] = p[s * step + DH + 1];
+  }
+  __syncthreads();
+  float m_all = kMaskValue;
+  for (int s = 0; s < splits; ++s) m_all = fmaxf(m_all, cw[s]);
+  __syncthreads();
+  for (int s = t; s < splits; s += kCombineThreads)
+    cw[s] = exp2f(cw[s] - m_all);
+  __syncthreads();
+  float l_all = 0.f, o = 0.f;
+  for (int s = 0; s < splits; ++s) l_all += cl[s] * cw[s];
+  for (int s0 = 0; s0 < splits; s0 += kCombineSplits) {
+    if (s0 > 0) {
+      fetch(s0);
+      __syncthreads();  // everyone is done with the last round's tile
+    }
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int e = t + kCombineThreads * i;
+      if (s0 + e / DH < splits) tile[e] = a[i] * cw[s0 + e / DH];
+    }
+    __syncthreads();
+    if (t < DH) {
+      const int n = min(kCombineSplits, splits - s0);
+      for (int j = 0; j < n; ++j) o += tile[j * DH + t];
+    }
+  }
+  if (t < DH) out[(static_cast<size_t>(b) * H + h) * DH + t] = o / l_all;
+}
+
+// the rows a stage holds: the largest divisor of page whose rows of all
+// heads fit one operand's stage (0: not even one row does)
+int chunk_rows(int page, size_t row_bytes) {
+  for (int r = page; r >= 1; --r)
+    if (page % r == 0 && r * row_bytes <= kChunkBytes) return r;
+  return 0;
+}
+
 template <typename T, int DH>
-void launch(const void* q, const void* k, const void* v, const void* pt,
-            const void* len, void* out, int B, int H, int n_pages, int page,
-            int P, float sm_scale, cudaStream_t stream) {
-  const dim3 grid(H, B);
-  paged_decode_kernel<T, DH><<<grid, kThreads, 0, stream>>>(
+cudaError_t run(const void* q, const void* k, const void* v, const void* pt,
+                const void* len, void* ws, void* out, int B, int H,
+                int n_pages, int page, int P, int pps, int splits,
+                float sm_scale, cudaStream_t stream) {
+  const size_t row_bytes = static_cast<size_t>(H) * DH * sizeof(T);
+  const int cr = chunk_rows(page, row_bytes);
+  if (cr < 1) return cudaErrorInvalidValue;
+  const int chunks = (pps * page + cr - 1) / cr;  // of a whole split
+  int stages = chunks < kMaxStages ? chunks : kMaxStages;
+  while (stages > 1 && 2 * stages * cr * row_bytes > kRingBytes) --stages;
+  const size_t smem = 2 * stages * cr * row_bytes + pps * sizeof(int);
+  cudaError_t err = launch(
+      paged_decode_kernel<T, DH>, dim3(splits, B), 32 * H, smem, stream,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int32_t*>(pt),
-      static_cast<const int32_t*>(len), static_cast<float*>(out), H, n_pages,
-      page, P, sm_scale);
+      static_cast<const int32_t*>(len), static_cast<float*>(ws), H, n_pages,
+      page, P, pps, cr, stages, sm_scale);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(H, B);
+  cfg.blockDim = dim3(kCombineThreads);
+  cfg.dynamicSmemBytes = (2 * splits + kCombineSplits * DH) * sizeof(float);
+  cfg.stream = stream;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, paged_decode_kernel_combine<DH>,
+                            static_cast<const float*>(ws),
+                            static_cast<float*>(out), splits, H);
 }
 
 }  // namespace
 
-// dtype codes: 0 = bfloat16, 1 = float32.  Returns the cudaError_t of the
-// launch (0 = success); an unsupported (dtype, head_dim) returns
-// cudaErrorInvalidValue without launching.
+// dtype codes: 0 = bfloat16, 1 = float32.  ws is f32 scratch of B *
+// splits * H * (head_dim + 2); the page view's P entries go to splits of
+// pps each (splits = ceil(P / pps)).  Returns the cudaError_t of the
+// launches (0 = success); an unsupported (dtype, head_dim), more than 32
+// heads, a split count that does not cover the view or more than 4096
+// splits (the combine's shared memory) returns cudaErrorInvalidValue
+// without launching.
 extern "C" int znicz_paged_decode(int dtype, int head_dim, const void* q,
                                   const void* k_pages, const void* v_pages,
                                   const void* page_table,
-                                  const void* lengths, void* out, int B,
-                                  int H, int n_pages, int page, int P,
-                                  float sm_scale, void* stream) {
+                                  const void* lengths, void* ws, void* out,
+                                  int B, int H, int n_pages, int page, int P,
+                                  int pps, int splits, float sm_scale,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64)
-    launch<__nv_bfloat16, 64>(q, k_pages, v_pages, page_table, lengths, out,
-                              B, H, n_pages, page, P, sm_scale, s);
-  else if (dtype == 0 && head_dim == 128)
-    launch<__nv_bfloat16, 128>(q, k_pages, v_pages, page_table, lengths, out,
-                               B, H, n_pages, page, P, sm_scale, s);
-  else if (dtype == 1 && head_dim == 64)
-    launch<float, 64>(q, k_pages, v_pages, page_table, lengths, out, B, H,
-                      n_pages, page, P, sm_scale, s);
-  else if (dtype == 1 && head_dim == 128)
-    launch<float, 128>(q, k_pages, v_pages, page_table, lengths, out, B, H,
-                       n_pages, page, P, sm_scale, s);
-  else
+  if (B < 1 || H < 1 || H > kMaxHeads || page < 1 || P < 1 || pps < 1 ||
+      splits != (P + pps - 1) / pps || splits > kMaxSplits)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err;
+  if (dtype == 0 && head_dim == 64)
+    err = run<__nv_bfloat16, 64>(q, k_pages, v_pages, page_table, lengths,
+                                 ws, out, B, H, n_pages, page, P, pps, splits,
+                                 sm_scale, s);
+  else if (dtype == 0 && head_dim == 128)
+    err = run<__nv_bfloat16, 128>(q, k_pages, v_pages, page_table, lengths,
+                                  ws, out, B, H, n_pages, page, P, pps,
+                                  splits, sm_scale, s);
+  else if (dtype == 1 && head_dim == 64)
+    err = run<float, 64>(q, k_pages, v_pages, page_table, lengths, ws, out,
+                         B, H, n_pages, page, P, pps, splits, sm_scale, s);
+  else if (dtype == 1 && head_dim == 128)
+    err = run<float, 128>(q, k_pages, v_pages, page_table, lengths, ws, out,
+                          B, H, n_pages, page, P, pps, splits, sm_scale, s);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
 }
 
 extern "C" const char* znicz_cuda_error_string(int code) {

@@ -72,8 +72,19 @@ SOURCE = "znicz_tpu_torch/csrc/conv.cu"
 FWD_DTYPES = (torch.float32, torch.bfloat16)
 
 #: the depth of the f32 tile's k tiles and the side of its output tiles
-#: (BK, BM = BN in csrc/tile_f32.cuh): the f32 forward and weight gradient
+#: (BK, BM = BN in csrc/tile_f32.cuh): the f32 forward
 K_TILE, TILE = 8, 128
+#: the weight gradient's k tiles: 32 pixels (kWgBK in csrc/conv.cu)
+WEIGHT_GRAD_K_TILE = 32
+#: the weight gradient's tile family (WgTile in csrc/conv.cu): (BM, BN)
+#: -> resident blocks of 256 threads an SM on the H100, by ptxas's
+#: registers and the tile's shared memory (the smoke holds this table
+#: against cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+WEIGHT_GRAD_TILES = {(128, 128): 1, (128, 64): 2, (64, 128): 2, (64, 64): 3}
+#: the split-K schedule spreads over at most this many waves
+WEIGHT_GRAD_MAX_WAVES = 4
+#: the H100's SMs
+SMS = 132
 #: the depth of the bf16 forward's k tiles (kBfBK in csrc/conv.cu): 64
 #: bf16, one 128-byte swizzle row of its wgmma operands
 BF16_K_TILE = 64
@@ -83,10 +94,6 @@ BF16_TILE_M = 128
 #: after the largest cin each takes; wider cin gets (128, 128)
 INPUT_GRAD_TILES = ((8, (256, 8)), (32, (128, 32)), (64, (128, 64)),
                     (96, (128, 96)))
-#: blocks that fill the H100 once: two resident blocks of 256 threads on
-#: each of its 132 SMs (the weight gradient's split-K aims at this)
-WAVE_BLOCKS = 2 * 132
-
 _lib = None
 
 
@@ -206,15 +213,50 @@ def input_grad_tile(cin: int) -> tuple:
     return 128, 128
 
 
+def weight_grad_tile(rows: int, n: int) -> tuple:
+    """``(BM, BN)`` of the weight-gradient kernel's tile for a product of
+    ``rows`` = ky·kx·cin + 1 partial rows (the last the bias) and ``n`` =
+    cout columns, the twin of ``weight_grad_code`` in csrc/conv.cu: 128
+    wide unless the ky·kx·cin rows or cout are at most 64."""
+    return (128 if rows - 1 > 64 else 64), (128 if n > 64 else 64)
+
+
 def split_k(rows: int, n: int, k: int) -> tuple:
     """``(splits, per)`` of the weight gradient's K = ``k`` pixels for a
-    ``rows`` x ``n`` product: enough slices that the grid fills the card
-    once (``WAVE_BLOCKS``), each a whole number of k tiles, none empty."""
-    tiles = math.ceil(rows / TILE) * math.ceil(n / TILE)
-    k_tiles = math.ceil(k / K_TILE)
-    splits = max(1, min(math.ceil(WAVE_BLOCKS / tiles), k_tiles))
-    per = math.ceil(k_tiles / splits) * K_TILE
+    ``rows`` x ``n`` product (``rows`` = ky·kx·cin + 1), the twin of
+    ``weight_grad_splits`` in csrc/conv.cu: with ``wave`` = SMS x the
+    tile's resident blocks, the slice count whose grid fills its last
+    wave best, over at most ``WEIGHT_GRAD_MAX_WAVES`` waves (the fewest
+    slices on a tie); each slice a whole number of 32-pixel k tiles, none
+    empty.  For w waves the fullest grid takes the most slices that fit,
+    floor(w·wave / tiles) (fewer once whole k tiles round them), so those
+    few counts are the only candidates.  The bias row is summed by row
+    tile 0's blocks, so the tiles cover rows - 1."""
+    bm, bn = weight_grad_tile(rows, n)
+    tiles = math.ceil((rows - 1) / bm) * math.ceil(n / bn)
+    wave = SMS * WEIGHT_GRAD_TILES[(bm, bn)]
+    k_tiles = math.ceil(k / WEIGHT_GRAD_K_TILE)
+    best, best_waves = 0, 1
+    for w in range(1, WEIGHT_GRAD_MAX_WAVES + 1):
+        s = min(max(1, w * wave // tiles), k_tiles)
+        sp = math.ceil(k_tiles / math.ceil(k_tiles / s))  # whole k tiles
+        waves = math.ceil(sp * tiles / wave)
+        if sp * best_waves > best * waves:          # a fuller last wave
+            best, best_waves = sp, waves
+    per = math.ceil(k_tiles / best) * WEIGHT_GRAD_K_TILE
     return math.ceil(k / per), per
+
+
+def weight_grad_grid(rows: int, n: int, k: int) -> dict:
+    """The weight gradient's launch for a ``rows`` x ``n`` product over
+    ``k`` pixels: its tile, slices, blocks and resident blocks an SM."""
+    bm, bn = weight_grad_tile(rows, n)
+    splits, per = split_k(rows, n, k)
+    blocks = math.ceil((rows - 1) / bm) * math.ceil(n / bn) * splits
+    per_sm = WEIGHT_GRAD_TILES[(bm, bn)]
+    return {"tile": [bm, bn], "splits": splits, "per": per,
+            "blocks": blocks, "blocks_per_sm": per_sm,
+            "waves": blocks / (SMS * per_sm)}
 
 
 def _pairs(out: int, k: int, stride: int, pad: int, size: int) -> int:
@@ -325,10 +367,26 @@ def _library():
                    lib.znicz_conv2d_input_grad_tile):
             fn.argtypes = [i32]
             fn.restype = i32
+        lib.znicz_conv2d_weight_grad_plan.argtypes = [i32] * 3 + [ptr]
+        lib.znicz_conv2d_weight_grad_plan.restype = i32
         lib.znicz_conv_error_string.argtypes = [i32]
         lib.znicz_conv_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def weight_grad_plan_on_card(rows: int, n: int, k: int) -> dict:
+    """The weight gradient's schedule as ``csrc/conv.cu`` computes it on
+    this card (:func:`weight_grad_grid`'s keys but ``waves``), its
+    residency from the CUDA occupancy calculator; -1 blocks an SM where
+    the kernel's two loader instantiations differ."""
+    out = (ctypes.c_int * 5)()
+    _raise_on(_library().znicz_conv2d_weight_grad_plan(rows, n, k, out),
+              "conv2d_weight_grad plan")
+    bm, bn, per_sm, splits, per = out
+    return {"tile": [bm, bn], "splits": splits, "per": per,
+            "blocks": math.ceil((rows - 1) / bm) * math.ceil(n / bn)
+            * splits, "blocks_per_sm": per_sm}
 
 
 def _raise_on(rc: int, what: str) -> None:

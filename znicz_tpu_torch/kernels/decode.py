@@ -11,17 +11,21 @@ softmax with ``sm_scale = 1/√Dh``; returns ``o (B, H, Dh)`` float32.
 Bound on the card: device-memory bytes.  Every live K and V row is read
 once for four flops per element, far below the H100's ridge, so the
 least time is ``Σ lengths · H · 2 · Dh · itemsize / 3.35 TB/s``
-(:func:`bound_bytes`).  Design: one block per (head, slot) loops over
-the slot's live rows only, reading its page table and length itself,
-with coalesced 16-byte row loads and per-group online softmax states
-merged in shared memory (see the source's header).  Split-K over pages,
-TMA and several heads per block are later work.
+(:func:`bound_bytes`).  Design (flash-decoding; the source's header has
+the details): the page view is split into runs of pages
+(:func:`decode_split`, from the host's shapes alone), one block a (split,
+slot) with all heads, a warp a head; each block streams its split's live
+rows whole-page-contiguous by the TMA into a shared-memory ring and
+writes its partial softmax state to a workspace, and a second kernel
+merges the splits in split order (:func:`paged_decode_split_plain` is
+that arithmetic in PyTorch).
 
 :func:`paged_decode` is the wrapper: on CPU tensors it runs
 :func:`paged_decode_plain`, the plain PyTorch version (the analogue of
 the reference's ``decode.reference``); on CUDA tensors it launches the
-kernel or raises — there is no fallback.  ``launches`` counts kernel
-launches and nothing else.  Importing this module needs no ``nvcc``:
+kernel or raises — there is no fallback.  ``launches`` counts the wrapper's
+launches (one a call, for the split kernel and its combine together)
+and nothing else.  Importing this module needs no ``nvcc``:
 the library is built at the first CUDA call.
 """
 
@@ -31,6 +35,7 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from znicz_tpu_torch.kernels import build as _build
 from znicz_tpu_torch.ops.attention import MASK_VALUE
@@ -44,14 +49,42 @@ SOURCE = "znicz_tpu_torch/csrc/paged_decode.cu"
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 HEAD_DIMS = (64, 128)
+#: a block holds all heads, a warp each (kMaxHeads in the source)
+MAX_HEADS = 32
+#: blocks the page split aims at over the batch: two for each of the
+#: H100's 132 SMs (most slots are shorter than the view, and a split
+#: past a slot's length exits at once; four an SM, 32-row splits, was no
+#: faster on the H100 and doubled the combine's reads)
+SPLIT_BLOCKS = 2 * 132
+#: the most splits the combine takes (kMaxSplits in the source): a page
+#: view of up to 4096 x 32 rows
+MAX_SPLITS = 4096
+#: no split shorter than this many key rows: a block's set-up (page ids,
+#: barriers, its partial state) is worth at least two 16-row pages
+MIN_SPLIT_ROWS = 32
 
 _lib = None
 
 
-def supported(head_dim: int, dtype) -> bool:
-    """Shapes the compiled kernel has instantiations for; any page size
-    works (the block walks rows, not page tiles)."""
-    return int(head_dim) in HEAD_DIMS and dtype in _DTYPE_CODES
+def supported(head_dim: int, dtype, heads: int | None = None) -> bool:
+    """Shapes the compiled kernel has instantiations for: head_dim 64
+    or 128 in bfloat16 or float32, at most ``MAX_HEADS`` heads (when
+    given); any page size works (a stage holds a divisor of it)."""
+    return int(head_dim) in HEAD_DIMS and dtype in _DTYPE_CODES and \
+        (heads is None or 1 <= int(heads) <= MAX_HEADS)
+
+
+def decode_split(batch: int, pages: int, page: int) -> tuple:
+    """``(pages_per_split, splits)`` of a page view of ``pages`` entries
+    of ``page`` rows for ``batch`` slots: about ``SPLIT_BLOCKS`` blocks
+    over the batch, no split under ``MIN_SPLIT_ROWS`` rows, and ``splits
+    = ceil(pages / pages_per_split)``, so no split lies wholly past the
+    view.  A function of the host's shapes only, never of the lengths
+    (which stay on the card)."""
+    want = -(-SPLIT_BLOCKS // int(batch))
+    pps = max(-(-int(pages) // want), -(-MIN_SPLIT_ROWS // int(page)))
+    pps = min(pps, int(pages))
+    return pps, -(-int(pages) // pps)
 
 
 def paged_decode_plain(q, k_pages, v_pages, page_table, lengths):
@@ -69,6 +102,35 @@ def paged_decode_plain(q, k_pages, v_pages, page_table, lengths):
     s = s.masked_fill(dead[:, None, :], MASK_VALUE)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhk,bkhd->bhd", p, vc.float())
+
+
+def paged_decode_split_plain(q, k_pages, v_pages, page_table, lengths,
+                            pages_per_split: int):
+    """The kernel's arithmetic in plain PyTorch: each split of
+    ``pages_per_split`` page-table entries gives its f32 softmax state
+    ``(m, l, acc)`` over its live rows (the empty state ``(-1e30, 0, 0)``
+    where it has none), and the splits merge in split order: ``o = Σ_s
+    acc_s·e^(m_s - m) / Σ_s l_s·e^(m_s - m)`` with ``m = max_s m_s``."""
+    B, H, Dh = q.shape
+    page = k_pages.shape[1]
+    P = page_table.shape[1]
+    pps = int(pages_per_split)
+    splits = -(-P // pps)
+    rows = pps * page
+    pt = F.pad(page_table.long(), (0, splits * pps - P))
+    kc = k_pages[pt].reshape(B, splits, rows, H, Dh).float()
+    vc = v_pages[pt].reshape(B, splits, rows, H, Dh).float()
+    s = torch.einsum("bhd,bsrhd->bhsr", q.float(), kc) / math.sqrt(Dh)
+    t = torch.arange(splits * rows, device=q.device).reshape(splits, rows)
+    live = t[None] < lengths.long()[:, None, None]           # (B, S, R)
+    s = s.masked_fill(~live[:, None], MASK_VALUE)
+    m = s.amax(-1)                                           # (B, H, S)
+    p = torch.exp(s - m[..., None]) * live[:, None]
+    l_s = p.sum(-1)
+    acc = torch.einsum("bhsr,bsrhd->bhsd", p, vc)
+    m_all = m.amax(-1, keepdim=True)
+    w = torch.exp(m - m_all)
+    return (acc * w[..., None]).sum(2) / (l_s * w).sum(-1)[..., None]
 
 
 def bound_bytes(q, k_pages, page_table, lengths) -> int:
@@ -116,8 +178,8 @@ def _library():
     if _lib is None:
         lib = _build.load("paged_decode")
         lib.znicz_paged_decode.argtypes = (
-            [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
-            + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+            [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 7
+            + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
         lib.znicz_paged_decode.restype = ctypes.c_int
         lib.znicz_cuda_error_string.argtypes = [ctypes.c_int]
         lib.znicz_cuda_error_string.restype = ctypes.c_char_p
@@ -148,10 +210,11 @@ def paged_decode(q, k_pages, v_pages, page_table, lengths):
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode runs on cpu or cuda tensors, not "
                          f"{q.device.type}")
-    if not supported(Dh, q.dtype):
+    if not supported(Dh, q.dtype, H):
         raise ValueError(f"no paged_decode kernel for head_dim={Dh}, "
-                         f"dtype={q.dtype} (have head_dim {HEAD_DIMS} in "
-                         f"bfloat16/float32)")
+                         f"dtype={q.dtype}, heads={H} (have head_dim "
+                         f"{HEAD_DIMS} in bfloat16/float32, 1 to "
+                         f"{MAX_HEADS} heads)")
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
                     ("page_table", page_table), ("lengths", lengths)):
         if not t.is_contiguous():
@@ -159,13 +222,20 @@ def paged_decode(q, k_pages, v_pages, page_table, lengths):
         if name in ("q", "k_pages", "v_pages") and t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (the "
                              f"kernel reads rows in 16-byte loads)")
+    pps, splits = decode_split(B, P, page)
+    if splits > MAX_SPLITS:
+        raise ValueError(f"no paged_decode kernel for a view of {P} pages "
+                         f"of {page} rows at batch {B}: {splits} splits > "
+                         f"{MAX_SPLITS}")
+    ws = torch.empty((B, splits, H, Dh + 2), dtype=torch.float32,
+                     device=q.device)
     out = torch.empty((B, H, Dh), dtype=torch.float32, device=q.device)
     lib = _library()
     rc = lib.znicz_paged_decode(
         _DTYPE_CODES[q.dtype], Dh, q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), B, H, N, page, P, 1.0 / math.sqrt(Dh),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        ws.data_ptr(), out.data_ptr(), B, H, N, page, P, pps, splits,
+        1.0 / math.sqrt(Dh), torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode launch failed: "
                            f"{lib.znicz_cuda_error_string(rc).decode()}")
