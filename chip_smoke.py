@@ -28,9 +28,15 @@ exits non-zero without the final ``ok`` line):
    wrapper's host µs a call; the same times at head dim 128.
 1c. **gemm** — the FC kernels (``gemm_fc``, ``act_backward``) against
    their plain versions in f32 with TF32 off: bench_fc's two forward and
-   four backward products, two ragged shapes in every operand layout,
-   every fused activation; the band must reject a control that skips
-   the last k tile; timings at full width.
+   four backward products, AlexNet's six FC products at batch 128, two
+   ragged shapes in every operand layout, every fused activation; the
+   band must reject a control with one slice of K zeroed (the middle
+   split-K slice where the plan splits, else the last k tile); split
+   launches bit-identical; the tile and split-K plan from gemm.cu (the
+   card's occupancy) held against kernels/gemm.py gemm_plan; the twelve
+   products timed at full width, each with its tile and slices, and the
+   headline in all four operand layouts; registers and resident blocks
+   of every instantiation.
 1d. **optim** — the SGD (f32 and bf16 velocity) and AdamW update kernels
    against their plain versions on bench_fc's six leaves, each band
    rejecting a control with bs = 1; one six-leaf step timed against the
@@ -77,8 +83,11 @@ exits non-zero without the final ``ok`` line):
    dropped split-K slice); each kernel, its plain version and cuDNN
    (channels_last, TF32 off) timed at the five layers, each weight
    gradient with its tile, slices, blocks and resident blocks an SM and
-   cuDNN's kernels by name; the weight gradient's schedule from conv.cu
-   (the card's occupancy) held against kernels/conv.py's twin.  Then the bf16
+   cuDNN's kernels by name, each f32 forward with its tile and cuDNN's
+   kernels; the weight gradient's schedule and the f32 forward's tile
+   from conv.cu (the card's occupancy) held against kernels/conv.py's
+   twins, with every forward instantiation's registers and resident
+   blocks.  Then the bf16
    forward (bf16 operands, f32 sums, one rounding) the same way at the
    reference sweep's shape and the five layers, within one bf16 ulp on
    the tile norm, its control rejected, timed beside cuDNN in bf16.
@@ -87,7 +96,8 @@ exits non-zero without the final ``ok`` line):
    ``TorchDevice()`` for 2 epochs of 3 train + 1 validation minibatches,
    the conv and FC counters set to 0 just before and read just after;
    ms per train minibatch, samples/s, peak memory, and one train
-   minibatch profiled (the conv kernels' device ms, the idle share).
+   minibatch profiled (the conv and FC kernels' device ms, the idle
+   share).
 13. **alexnet_parity** — AlexNet's geometry at test size in f32, the card
    against the CPU with the same dropout masks: identical n_err
    histories, weights within a band the same run with TF32 on must fail.
@@ -140,10 +150,11 @@ exits non-zero without the final ``ok`` line):
    the path that reaches them).
 
 ``python3 chip_smoke.py --phase NAME ...`` runs only the named phases
-(kernel, flash, gemm, conv, deconv, or **waves**: the weight gradient at
-AlexNet's and build_deep's shapes with split_k's slices, one fewer and
-one more, through the C entry, which runs on older trees of the port
-too) after the build, for iterating on one kernel family.
+(kernel, flash, gemm, conv, alexnet_eager, deconv, or **waves**: the
+weight gradient at AlexNet's and build_deep's shapes with split_k's
+slices, one fewer and one more, through the C entry, which runs on
+older trees of the port too) after the build, for iterating on one
+kernel family.
 
 Every line carries ``at_s``, the seconds since the smoke started.  Then
 a ``{"kernels": [...]}`` line for all eighteen kernels, the card's name
@@ -580,8 +591,8 @@ def _kernel_key(mangled: str) -> str:
 def ptxas_usage(name: str) -> dict:
     """Registers and spill bytes per kernel from ptxas's build log, keyed
     by the kernel's name and template arguments (``flash_fwd_bf16<64>``,
-    ``gemm_f32_kernel<1,0>``, ``sgd_kernel<__nv_bfloat16,4>``,
-    ``conv_fwd_kernel``)."""
+    ``gemm_f32_kernel<128,128,1,0>``, ``sgd_kernel<__nv_bfloat16,4>``,
+    ``reduce_splits_kernel``)."""
     usage, current = {}, None
     for line in kbuild.build_log(name).splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
@@ -594,6 +605,16 @@ def ptxas_usage(name: str) -> dict:
         elif current and "registers" in line:
             usage[current]["registers"] = int(
                 re.search(r"Used (\d+) registers", line).group(1))
+    return usage
+
+
+def with_blocks(usage: dict, name: str, blocks_of) -> dict:
+    """ptxas's usage with each instantiation of kernel ``name`` given its
+    resident blocks an SM on the card: ``blocks_of(template args)``."""
+    for key, entry in usage.items():
+        if key.startswith(name + "<"):
+            args = [int(a) for a in key[len(name) + 1:-1].split(",")]
+            entry["blocks_per_sm"] = blocks_of(*args)
     return usage
 
 
@@ -771,14 +792,18 @@ def phase_flash() -> dict:
 #: bench.py bench_fc's MNIST FC model at full width: batch, inputs,
 #: hidden layers, classes
 FC_BATCH, FC_IN, FC_LAYERS, FC_CLASSES = 1024, 784, (4096, 4096), 10
+#: AlexNet's two all2all_str layers at its batch (alexnet.py): name,
+#: inputs, outputs; their forward and backward products run on gemm_fc
+ALEX_FC = (("fc6", 9216, 4096), ("fc7", 4096, 4096))
 #: gemm_fc vs plain (f32, TF32 off), as the largest norm-relative error
 #: of any 64-row tile (the flash phase's metric): both sum the same f32
 #: products, cuBLAS sometimes in another order (1.3e-6 at worst, 0 where
 #: it sums as the kernel does), and the activations add ~1 ulp.  The
-#: band must reject the control, the same
-#: call with the last k tile (8 deep) of both operands zeroed — what a
-#: kernel that skipped its last k tile would return: dropping 8 of K
-#: terms moves a tile by ~sqrt(8/K), 0.04 at K 4096
+#: band must reject the control, the same call with one slice of the
+#: contraction zeroed in both operands: the middle split-K slice where
+#: the plan splits K (~sqrt(1/S) of a tile), else the last k tile
+#: (K_TILE deep: ~sqrt(32/K), 0.09 at K 4096) — what a kernel that
+#: dropped that slice or skipped its last k tile would return
 GEMM_TOL = 1e-5
 #: act_backward vs plain: the same elementwise f32 formula; exp may
 #: differ by an ulp
@@ -818,16 +843,32 @@ def _gemm_operands(rng, m, k, n, trans_a, trans_b):
     return (a.t() if trans_a else a), (b.t() if trans_b else b)
 
 
-def _zero_last_k_tile(a, b):
-    """Copies of a and b (same layouts) with the kernel's last k tile of
-    the contraction zeroed."""
-    k = a.shape[1]
-    last = (k - 1) // kgemm.K_TILE * kgemm.K_TILE
+def gemm_plan_of(m, n, k) -> dict:
+    """gemm_fc's tile and split-K slices for an (m, k) x (k, n) product
+    (``kernels/gemm.py gemm_plan``; a tree before the split-K gemm ran
+    every product unsplit on 128 x 128 tiles)."""
+    plan = getattr(kgemm, "gemm_plan", None)
+    if plan is None:
+        return {"tile": [128, 128], "splits": 1, "per": k}
+    return plan(m, n, k)
+
+
+def _gemm_control(a, b):
+    """Copies of a and b (same layouts) with one slice of the contraction
+    zeroed: the middle split-K slice where the plan splits K, else the
+    kernel's last k tile -> (copies, the zeroed k range)."""
+    m, k = a.shape
+    plan = gemm_plan_of(m, b.shape[1], k)
+    if plan["splits"] > 1:
+        mid = plan["splits"] // 2
+        lo, hi = mid * plan["per"], min(k, (mid + 1) * plan["per"])
+    else:
+        lo, hi = (k - 1) // kgemm.K_TILE * kgemm.K_TILE, k
     ac = a.t().clone().t() if not a.is_contiguous() else a.clone()
     bc = b.t().clone().t() if not b.is_contiguous() else b.clone()
-    ac[:, last:] = 0
-    bc[last:, :] = 0
-    return ac, bc
+    ac[:, lo:hi] = 0
+    bc[lo:hi, :] = 0
+    return (ac, bc), [lo, hi]
 
 
 def _gemm_check(rng, name, m, k, n, trans_a, trans_b, bias, act) -> dict:
@@ -836,13 +877,17 @@ def _gemm_check(rng, name, m, k, n, trans_a, trans_b, bias, act) -> dict:
     got = kgemm.gemm_fc(a, b, bv, act)
     again = kgemm.gemm_fc(a, b, bv, act)
     want = kgemm.fc_forward_plain(a, b, bv, act)
-    wrong = kgemm.gemm_fc(*_zero_last_k_tile(a, b), bv, act)
+    zeroed, k_range = _gemm_control(a, b)
+    wrong = kgemm.gemm_fc(*zeroed, bv, act)
     torch.cuda.synchronize()
     rel = tile_rel_err(got[None], want[None])
     control = tile_rel_err(wrong[None], want[None])
+    plan = gemm_plan_of(m, n, k)
     report = {"case": name, "m": m, "k": k, "n": n, "trans_a": trans_a,
               "trans_b": trans_b, "bias": bias, "activation": act,
+              "tile": plan["tile"], "splits": plan["splits"],
               "rel_err": rel, "control_rel_err": control,
+              "control_zeroed_k": k_range,
               "max_abs_err": float((got - want).abs().max()),
               "deterministic": bool(torch.equal(got, again))}
     if not torch.isfinite(got).all():
@@ -850,7 +895,7 @@ def _gemm_check(rng, name, m, k, n, trans_a, trans_b, bias, act) -> dict:
     if not rel <= GEMM_TOL:                                 # NaN fails
         fail(f"gemm_fc vs plain {rel} > {GEMM_TOL} ({report})")
     if not control > GEMM_TOL:
-        fail(f"the gemm band passes the skipped-k-tile control ({report})")
+        fail(f"the gemm band passes its control ({report})")
     if not report["deterministic"]:
         fail(f"gemm_fc differs between two identical launches ({report})")
     return report
@@ -873,11 +918,57 @@ def _act_check(rng, m, n, act) -> tuple:
     return report, (y, err)
 
 
+def alexnet_fc_products() -> list:
+    """AlexNet's six FC products of a train minibatch at batch 128, as
+    gemm_check cases: each layer's forward (bias, strict ReLU), err_v.W^T
+    (the stored (in, out) weights read transposed) and x^T.err_v (the
+    stored (batch, in) input read transposed)."""
+    out = []
+    for name, n_in, n_out in ALEX_FC:
+        out += [(f"alexnet {name} forward", ALEX_BATCH, n_in, n_out, False,
+                 False, True, activations.STRICT_RELU),
+                (f"alexnet {name} err_v.W^T", ALEX_BATCH, n_out, n_in,
+                 False, True, False, "linear"),
+                (f"alexnet {name} x^T.err_v", n_in, ALEX_BATCH, n_out, True,
+                 False, False, "linear")]
+    return out
+
+
+def _gemm_plans() -> dict:
+    """gemm_fc's plan from csrc/gemm.cu (the card's own residency)
+    against kernels/gemm.py's twin over bench_fc's and AlexNet's products
+    and a sweep of shapes: the two must agree on every one.  A tree
+    before the split-K gemm has neither and reports None."""
+    if not hasattr(kgemm, "gemm_plan_on_card"):
+        return None
+    shapes = [(m, n, k) for m in (1, 7, 64, 128, 129, 784, 1024, 4096,
+                                  9216)
+              for n in (3, 10, 96, 784, 1000, 4096, 9216)
+              for k in (5, 128, 784, 1024, 4096, 9216)]
+    for m, n, k in shapes:
+        card, twin = kgemm.gemm_plan_on_card(m, n, k), kgemm.gemm_plan(m, n,
+                                                                        k)
+        if card != twin:
+            fail(f"gemm_fc's plan at {(m, n, k)}: gemm.cu {card}, "
+                 f"kernels/gemm.py {twin}")
+    card = kgemm.gemm_residency_on_card()
+    table = {f"{bm}x{bn}": r for (bm, bn), r in kgemm.GEMM_TILES.items()}
+    if card != table:
+        fail(f"gemm_fc's residency on the card {card} differs from "
+             f"kernels/gemm.py GEMM_TILES {table}")
+    return {"shapes_checked": len(shapes), "blocks_per_sm": card,
+            "blocks_per_sm_by_layout": kgemm.gemm_residency_on_card(True)}
+
+
 def phase_gemm() -> dict:
     """The FC kernels against their plain versions on the card, f32 with
     TF32 off: bench_fc's two forward products and the backward's four
-    (with their transposes), two ragged shapes in every layout, every
-    fused activation at one shape; then timings at full width."""
+    (with their transposes), AlexNet's six FC products at batch 128, two
+    ragged shapes in every layout, every fused activation at one shape;
+    each band rejecting its control (a dropped split-K slice or a skipped
+    last k tile); the card's tile and split choices against their Python
+    twins; then the twelve products timed at full width, each with its
+    tile and slices."""
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(SEED + 8)
     (h0, h1), tanh = FC_LAYERS, "tanh"
@@ -890,7 +981,8 @@ def phase_gemm() -> dict:
             ("fc1 x^T.err_v", h0, FC_BATCH, h1, True, False, False,
              "linear"),
             ("fc0 x^T.err_v", FC_IN, FC_BATCH, h0, True, False, False,
-             "linear")]
+             "linear")] + alexnet_fc_products()
+    plans = _gemm_plans()
     checks = [_gemm_check(rng, *case) for case in full]
     for m, k, n in ((7, 13, 3), (129, 200, 257)):
         for ta in (False, True):
@@ -900,12 +992,16 @@ def phase_gemm() -> dict:
     for act in kgemm.FUSED_ACTIVATIONS:
         checks.append(_gemm_check(rng, "activation", 129, 200, 257, False,
                                   False, True, act))
+    split_cases = [f"{c['case']} {c['m']}x{c['k']}x{c['n']} /{c['splits']}"
+                   for c in checks if c["splits"] > 1]
+    if plans is not None and not split_cases:
+        fail("no gemm check split K: the split path went unchecked")
     act_checks = [_act_check(rng, 7, 13, act)[0]
                   for act in kgemm.FUSED_ACTIVATIONS[1:]]
     act_checks += [_act_check(rng, FC_BATCH, h1, act)[0]
                    for act in kgemm.FUSED_ACTIVATIONS[1:]]
-    # timings at full width: the forward product of the widest layer
-    # (the headline) and each of the six products of one train step
+    # timings at full width: bench_fc's six products of one train step
+    # (fc1 forward, the widest layer's, is the headline) and AlexNet's six
     timed = []
     for name, m, k, n, ta, tb, bias, act in full:
         a, b = _gemm_operands(rng, m, k, n, ta, tb)
@@ -916,13 +1012,25 @@ def phase_gemm() -> dict:
                 torch.mm(a, b)
             return activations.forward(torch, act, v)
 
+        plan = gemm_plan_of(m, n, k)
         timed.append({"case": name, "m": m, "k": k, "n": n,
+                      "tile": plan["tile"], "splits": plan["splits"],
                       "ms": time_cuda_ms(
                           lambda: kgemm.gemm_fc(a, b, bv, act)),
                       "plain_ms": time_cuda_ms(
                           lambda: kgemm.fc_forward_plain(a, b, bv, act)),
                       "library_ms": time_cuda_ms(library),
                       **kgemm.bound(a, b, bv, act)})
+    # the headline's product in each operand layout: how much the
+    # register-staged (k-contiguous) operands cost against cp.async
+    layouts = {}
+    for ta in (False, True):
+        for tb in (False, True):
+            a, b = _gemm_operands(rng, FC_BATCH, h0, h1, ta, tb)
+            layouts[f"{'A^T' if ta else 'A'}.{'B^T' if tb else 'B'}"] = {
+                "ms": time_cuda_ms(lambda: kgemm.gemm_fc(a, b)),
+                "library_ms": time_cuda_ms(lambda: torch.mm(a, b))}
+    del a, b
     act_report, (y, err) = _act_check(rng, FC_BATCH, h1, tanh)
     act_timed = {"m": FC_BATCH, "n": h1, "activation": tanh,
                  "ms": time_cuda_ms(lambda: kgemm.act_backward(y, err,
@@ -934,11 +1042,17 @@ def phase_gemm() -> dict:
                                  "err * act'(y) from y",
                  "max_abs_err": max(c["max_abs_err"] for c in act_checks),
                  **kgemm.act_backward_bound(y, tanh)}
-    return {"phase": "gemm",
-            "ptxas": ptxas_usage("gemm"),
+    usage = ptxas_usage("gemm")
+    if plans is not None:
+        by = plans["blocks_per_sm_by_layout"]
+        with_blocks(usage, "gemm_f32_kernel",
+                    lambda bm, bn, a_kc, b_kc:
+                    by[f"{bm}x{bn}/{1 - a_kc},{b_kc}"])
+    return {"phase": "gemm", "ptxas": usage, "plans": plans,
             "tol": {"gemm": GEMM_TOL, "act_backward": ACT_TOL},
-            "checks": checks, "act_checks": act_checks,
-            "gemm_timed": timed, "gemm": {
+            "checks": checks, "split_cases": split_cases,
+            "act_checks": act_checks,
+            "gemm_timed": timed, "gemm_layouts": layouts, "gemm": {
                 **timed[1], "max_abs_err": max(c["max_abs_err"]
                                                for c in checks)},
             "act_backward": act_timed}
@@ -1597,9 +1711,19 @@ def _conv_library(x, wt, b, e, sliding, padding):
                                                       **kw)}
 
 
+def fwd_f32_tile_of(m, cout) -> list:
+    """The f32 forward's tile for m output pixels and cout channels
+    (``kernels/conv.py fwd_f32_tile``; a tree before it ran one 128 x 128
+    tile)."""
+    tile = getattr(kconv, "fwd_f32_tile", None)
+    return [128, 128] if tile is None else list(tile(m, cout))
+
+
 def _tile_choices() -> dict:
-    """The two per-launch tile choices of csrc/conv.cu against their
-    Python twins in kernels/conv.py, over every channel count to 1024."""
+    """The per-launch tile choices of csrc/conv.cu against their Python
+    twins in kernels/conv.py: the input gradient's and the bf16
+    forward's over every channel count to 1024, the f32 forward's plan
+    (:func:`_fwd_f32_plans`)."""
     lib = kconv._library()
     for c in range(1, 1025):
         if lib.znicz_conv2d_input_grad_tile(c) != \
@@ -1610,7 +1734,37 @@ def _tile_choices() -> dict:
     return {"input_grad": {c: kconv.input_grad_tile(c)
                            for c in (3, 64, 96, 256, 384)},
             "fwd_bf16": {c: kconv.fwd_bf16_tile(c)
-                         for c in (96, 256, 384)}}
+                         for c in (96, 256, 384)},
+            "fwd_f32": _fwd_f32_plans()}
+
+
+def _fwd_f32_plans() -> dict:
+    """The f32 forward's tile from csrc/conv.cu (the card's residency)
+    against kernels/conv.py fwd_f32_tile at AlexNet's five layers,
+    build_deep's shapes and a sweep of pixel and channel counts, and
+    every tile's resident blocks an SM (the fewer of its two gathers')
+    against FWD_F32_TILES."""
+    if not hasattr(kconv, "fwd_f32_residency_on_card"):
+        return None                 # a tree before the f32 forward's plan
+    card = kconv.fwd_f32_residency_on_card()
+    table = {f"{bm}x{bn}": r for (bm, bn), r in kconv.FWD_F32_TILES.items()}
+    if card != table:
+        fail(f"the f32 forward's residency on the card {card} differs from "
+             f"kernels/conv.py FWD_F32_TILES {table}")
+    shapes = [(ALEX_BATCH * ((side + 2 * p - k) // s + 1) ** 2, cout)
+              for _, side, cin, cout, k, s, p in ALEX_CONVS]
+    shapes += [(AE_BATCH * 32 * 32, 64), (AE_BATCH * 16 * 16, 128)]
+    shapes += [(m, c) for m in (1, 75, 4000, 21632, 33792, 34000, 93312,
+                                387200)
+               for c in (1, 3, 64, 65, 96, 97, 128, 200, 256, 384, 1000)]
+    for m, c in shapes:
+        got = kconv.fwd_f32_plan_on_card(m, c)["tile"]
+        if got != list(kconv.fwd_f32_tile(m, c)):
+            fail(f"the f32 forward's tile at {(m, c)}: conv.cu {got}, "
+                 f"kernels/conv.py {kconv.fwd_f32_tile(m, c)}")
+    return {"blocks_per_sm": card, "shapes_checked": len(shapes),
+            "blocks_per_sm_by_gather": kconv.fwd_f32_residency_on_card(True),
+            "alexnet": [kconv.fwd_f32_tile(m, c) for m, c in shapes[:5]]}
 
 
 def _weight_grad_plans() -> dict:
@@ -1756,7 +1910,8 @@ def phase_conv() -> dict:
                 continue        # checked above; AlexNet never launches it
             row = {"layer": name, "kernel": kind,
                    "tile": list(kconv.input_grad_tile(cin))
-                   if kind == "input_grad" else [kconv.TILE, kconv.TILE],
+                   if kind == "input_grad" else
+                   fwd_f32_tile_of(e.numel() // cout, cout),
                    "ms": time_cuda_ms(kernel),
                    "plain_ms": time_cuda_ms(plain),
                    "library_ms": time_cuda_ms(lib[kind]),
@@ -1764,6 +1919,7 @@ def phase_conv() -> dict:
             if kind == "weight_grad":
                 row.update(kconv.weight_grad_grid(
                     k * k * cin + 1, cout, e.numel() // cout))
+            if kind != "input_grad":
                 row["library_kernels"] = device_kernels(lib[kind])
             timed.append(row)
         del x, wt, b, e, inputs, lib, runs
@@ -1775,7 +1931,12 @@ def phase_conv() -> dict:
                              max(c[kind]["max_abs_err"] for c in checks))
     path["fwd_bf16"] = _summed(bf16_timed, max(c["max_abs_err"]
                                                for c in bf16_checks))
-    return {"phase": "conv", "ptxas": ptxas_usage("conv"),
+    usage = ptxas_usage("conv")
+    if tiles["fwd_f32"] is not None:
+        by = tiles["fwd_f32"]["blocks_per_sm_by_gather"]
+        with_blocks(usage, "conv_fwd_kernel",
+                    lambda bm, bn, vec: by[f"{bm}x{bn}/{vec}"])
+    return {"phase": "conv", "ptxas": usage,
             "sass_hgmma": hgmma, "tiles": tiles, "tol": CONV_TOL,
             "bf16_tol": CONV_BF16_TOL, "checks": checks,
             "bf16_checks": bf16_checks, "timed": timed + bf16_timed,
@@ -1928,6 +2089,8 @@ def phase_alexnet_eager() -> dict:
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
     conv_ms = sum(e.self_device_time_total for e in device
                   if "conv_" in e.key or "reduce_splits" in e.key) / 1e3
+    fc_ms = sum(e.self_device_time_total for e in device
+                if "gemm_f32" in e.key or "gemm_reduce" in e.key) / 1e3
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:10]
     after = _conv_fc_weights(w)
     hist = w.decision.metrics_history
@@ -1963,6 +2126,7 @@ def phase_alexnet_eager() -> dict:
                        "device_busy_ms": busy_ms,
                        "device_ops": sum(e.count for e in device),
                        "conv_kernels_ms": conv_ms,
+                       "fc_gemm_kernels_ms": fc_ms,
                        "device_idle_share": 1 - busy_ms / window["wall_ms"]
                        if window.get("wall_ms") else None,
                        "top_device": [
@@ -3683,7 +3847,9 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
               flash["bwd"]["max_abs_err"]),
         entry("gemm_fc", kgemm.SOURCE, kgemm.REPLACES_GEMM,
               eager["gemm_fc_launches"], gemm["gemm"],
-              gemm["gemm"]["max_abs_err"]),
+              gemm["gemm"]["max_abs_err"],
+              cuda_kernels=["gemm_f32_kernel<BM,BN,A_KC,B_KC>",
+                            "gemm_reduce_kernel<VEC>"]),
         entry("act_backward", kgemm.SOURCE, kgemm.REPLACES_ACT,
               eager["act_backward_launches"], gemm["act_backward"],
               gemm["act_backward"]["max_abs_err"]),
@@ -3698,7 +3864,7 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
                 alexnet["launches"][f"conv2d_{kind}"], conv["path"][kind],
                 conv["path"][kind]["max_abs_err"], cuda_kernels=cuda)
           for kind, replaces, cuda in (
-              ("fwd", kconv.REPLACES_FWD, ["conv_fwd_kernel"]),
+              ("fwd", kconv.REPLACES_FWD, ["conv_fwd_kernel<BM,BN,VEC>"]),
               ("input_grad", kconv.REPLACES_INPUT_GRAD,
                ["conv_input_grad_kernel<BM,BN,TM,TN,BK>"]),
               ("weight_grad", kconv.REPLACES_WEIGHT_GRAD,
@@ -3717,7 +3883,7 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
               ae["launches"]["deconv2d_backward"],
               deconv["path"]["deconv2d_backward"],
               deconv["path"]["deconv2d_backward"]["max_abs_err"],
-              cuda_kernels=["conv_fwd_kernel",
+              cuda_kernels=["conv_fwd_kernel<BM,BN,VEC>",
                             "conv_weight_grad_kernel<BM,BN,MinBlocks,VA>",
                             "reduce_splits_kernel"]),
         entry("som_step", ksom.SOURCE, ksom.REPLACES,
@@ -3804,6 +3970,7 @@ PHASES_ALONE = {"kernel": lambda: phase_kernel(),
                 "flash": lambda: phase_flash(),
                 "gemm": lambda: phase_gemm(),
                 "conv": lambda: phase_conv(),
+                "alexnet_eager": lambda: phase_alexnet_eager(),
                 "deconv": lambda: phase_deconv(),
                 "waves": lambda: phase_waves()}
 

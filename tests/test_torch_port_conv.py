@@ -391,7 +391,7 @@ def test_tile_choices_fit_the_paths_widths():
         assert bn(c) in (64, 128, 192, 256)
         assert math.ceil(c / bn(c)) * bn(c) <= min(
             math.ceil(c / t) * t for t in (128, 192, 256))
-    assert kconv.BF16_K_TILE == 64 and kconv.K_TILE == 8
+    assert kconv.BF16_K_TILE == 64 and kconv.K_TILE == 16
     assert kconv.WEIGHT_GRAD_K_TILE == 32
 
 
@@ -574,6 +574,81 @@ def test_weight_grad_matches_plain_across_tiles_on_the_card():
             for g, a, w_ in zip(got, again, want):
                 assert torch.equal(g, a)
                 torch.testing.assert_close(g, w_, rtol=1e-4, atol=1e-4)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+#: the f32 forward's products on the paths: (m = n·oh·ow, cout) of
+#: AlexNet's five layers at batch 128, build_deep's conv1 and conv2 (and
+#: the deconvs' err_input, the same shapes) at batch 64, and ragged ones
+FWD_F32_SHAPES = [(387200, 96), (93312, 256), (21632, 384), (21632, 384),
+                  (21632, 256), (65536, 64), (16384, 128), (1, 1), (75, 3),
+                  (300, 200), (100000, 1000), (8448, 129)]
+
+
+@pytest.mark.parametrize("m,cout", FWD_F32_SHAPES)
+def test_fwd_f32_tile_fits_cout_and_fills_whole_waves(m, cout):
+    """BN pads cout no more than any tile of the family (the narrowest
+    that holds cout up to 128: conv1's 96 takes 96, not 128); BM is 128
+    unless 64 fills the last wave of its resident blocks (SMS x
+    FWD_F32_TILES) strictly better, and never fills it worse."""
+    bm, bn = kconv.fwd_f32_tile(m, cout)
+    assert (bm, bn) in kconv.FWD_F32_TILES
+    assert -(-cout // bn) * bn == min(-(-cout // t) * t for t in (64, 96,
+                                                                 128))
+    if cout <= 128:
+        assert bn == min(t for t in (64, 96, 128) if t >= cout)
+    n_tiles = -(-cout // bn)
+
+    def fill(tm):
+        tiles = -(-m // tm) * n_tiles
+        wave = kconv.SMS * kconv.FWD_F32_TILES[(tm, bn)]
+        return tiles / (-(-tiles // wave) * wave)
+
+    assert fill(bm) >= fill(192 - bm)
+    assert bm == 128 or fill(64) > fill(128)
+
+
+def test_fwd_f32_tile_on_alexnet_takes_cout_tiles_without_padding():
+    bns = [kconv.fwd_f32_tile(m, c)[1] for m, c in FWD_F32_SHAPES[:5]]
+    assert bns == [96, 128, 128, 128, 128]
+    assert set(kconv.FWD_F32_TILES) == {(bm, bn) for bm in (64, 128)
+                                        for bn in (64, 96, 128)}
+
+
+#: the f32 forward on the card: (batch, side, cin, cout, k, stride, pad)
+#: at cin 3 (the one-float gather) and 4, 17, 96 by cout 8, 64, 96, 128,
+#: 200 and 384 (every N tile, one and several N tiles)
+FWD_F32_CARD_GEOMS = [(2, 13, cin, cout, 3, s, 1) for cin in (3, 4, 17, 96)
+                      for cout in (8, 64, 96, 128, 200, 384)
+                      for s in (1, 2)] + [(4, 35, 3, 96, 11, 4, 0)]
+
+
+@pytest.mark.cuda
+def test_fwd_f32_matches_plain_across_tiles_on_the_card():
+    """The f32 forward (every N tile, both loaders, ragged M and N)
+    against its plain version with TF32 off, within rtol / atol 1e-5
+    (outputs of unit scale), bit-identical across two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernels run only on a card")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        rng = np.random.default_rng(8)
+        for n, side, cin, cout, k, s, p in FWD_F32_CARD_GEOMS:
+            x = torch.tensor(rng.normal(size=(n, side, side, cin)),
+                             dtype=torch.float32, device="cuda")
+            w = torch.tensor(rng.normal(size=(k, k, cin, cout)) /
+                             np.sqrt(k * k * cin), dtype=torch.float32,
+                             device="cuda")
+            b = torch.tensor(rng.normal(size=cout), dtype=torch.float32,
+                             device="cuda")
+            got = kconv.conv2d_fwd(x, w, b, s, p)
+            assert torch.equal(got, kconv.conv2d_fwd(x, w, b, s, p))
+            torch.testing.assert_close(
+                got, kconv.conv2d_fwd_plain(x, w, b, s, p), rtol=1e-5,
+                atol=1e-5)
         torch.cuda.synchronize()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32

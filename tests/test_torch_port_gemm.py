@@ -207,3 +207,146 @@ def test_kernels_match_plain_on_the_card():
                 kgemm.act_backward_plain(got, err, act), rtol=1e-6,
                 atol=1e-6)
     torch.cuda.synchronize()
+
+
+#: (m, n, k) of the products the FC paths run: bench_fc's six (batch
+#: 1024; 784-4096-4096 and its 10-way last layer), AlexNet's six at batch
+#: 128 (fc6 9216 -> 4096, fc7 4096 -> 4096: forward, err_v.W^T and
+#: x^T.err_v) and ragged shapes
+PLAN_SHAPES = [(1024, 4096, 784), (1024, 4096, 4096), (1024, 4096, 4096),
+               (1024, 784, 4096), (4096, 4096, 1024), (784, 4096, 1024),
+               (1024, 10, 4096),
+               (128, 4096, 9216), (128, 9216, 4096), (9216, 4096, 128),
+               (128, 4096, 4096), (128, 4096, 4096), (4096, 4096, 128),
+               (1, 1, 1), (7, 3, 13), (129, 257, 200), (300, 100, 1000),
+               (5000, 70, 33)]
+
+
+@pytest.mark.parametrize("m,n,k", PLAN_SHAPES)
+def test_gemm_plan_covers_the_output_and_fills_whole_waves(m, n, k):
+    """The tile covers the output; the slices are whole 32-deep k tiles,
+    none empty, and cover K; a split grid stays within GEMM_MAX_WAVES
+    waves of the tile's resident blocks (SMS x GEMM_TILES), and no slice
+    count in that range fills its last wave better (the count is then
+    the fewest)."""
+    plan = kgemm.gemm_plan(m, n, k)
+    bm, bn = plan["tile"]
+    assert (bm, bn) == kgemm.gemm_tile(m, n) and (bm, bn) in kgemm.GEMM_TILES
+    assert bn >= min(n, 64) and bm == 128
+    splits, per = plan["splits"], plan["per"]
+    assert per % kgemm.K_TILE == 0
+    assert (splits - 1) * per < k <= splits * per       # none empty
+    tiles = -(-m // bm) * -(-n // bn)
+    assert plan["blocks"] == tiles * splits
+    wave = kgemm.SMS * plan["blocks_per_sm"]
+    k_tiles = -(-k // kgemm.K_TILE)
+
+    def fill(s):
+        s = -(-k_tiles // -(-k_tiles // s))       # slices of whole tiles
+        return s * tiles / (-(-s * tiles // wave) * wave)
+
+    assert splits == 1 or splits * tiles <= kgemm.GEMM_MAX_WAVES * wave
+    most = min(max(1, kgemm.GEMM_MAX_WAVES * wave // tiles), k_tiles)
+    assert all(fill(s) <= fill(splits) + 1e-12 for s in range(1, most + 1))
+    assert all(fill(s) < fill(splits) for s in range(1, splits))
+
+
+def test_gemm_plan_splits_the_products_that_underfill_the_card():
+    """bench_fc's fc0 err_v.W^T (56 tiles) and AlexNet's batch-128
+    products (32-72 tiles) split K; products of a few waves of tiles, the
+    headline among them, do not."""
+    tiles = {(m, n): -(-m // 128) * -(-n // 128)
+             for m, n in ((1024, 784), (128, 4096), (128, 9216))}
+    assert tiles == {(1024, 784): 56, (128, 4096): 32, (128, 9216): 72}
+    for m, n, k in ((1024, 784, 4096), (128, 4096, 9216),
+                    (128, 9216, 4096), (128, 4096, 4096)):
+        assert kgemm.gemm_plan(m, n, k)["splits"] > 1, (m, n, k)
+    for m, n, k in ((1024, 4096, 4096), (4096, 4096, 1024),
+                    (9216, 4096, 128), (4096, 4096, 128)):
+        assert kgemm.gemm_plan(m, n, k)["splits"] == 1, (m, n, k)
+
+
+#: (m, k, n) that split: one 128 x 128 tile of a long K, six tiles, a
+#: K that ends inside a k tile, a 64-column tile
+SPLIT_GEOMS = [(64, 2048, 100), (129, 1000, 257), (7, 300, 3),
+               (200, 1300, 40)]
+
+
+@pytest.mark.parametrize("geom", SPLIT_GEOMS)
+@pytest.mark.parametrize("act", ACTS)
+def test_gemm_split_plain_matches_pallas_interpret(geom, act):
+    """The split arithmetic (each slice's product, summed in slice
+    order, then bias and activation) against the Pallas matmul in
+    interpret mode, through the forward and the backward's two products,
+    within the FC bands (rtol 1e-4 / atol 1e-4 forward, 2e-4 / 2e-3
+    backward)."""
+    m, k, n = geom
+    assert kgemm.gemm_plan(m, n, k)["splits"] > 1
+    x, w, b, e = _operands((m, k, n))
+    tx, tw, tb, te = (torch.tensor(v) for v in (x, w, b, e))
+    want = np.asarray(jgemm.fc_forward(jnp.asarray(x), jnp.asarray(w),
+                                       jnp.asarray(b), act, interpret=True))
+    got = kgemm.gemm_split_plain(tx, tw, tb, act)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    y = jlinear.forward(np, x, w, b, "linear")
+    err_in, grad_w, _ = jgemm.fc_backward(
+        jnp.asarray(x), jnp.asarray(y), jnp.asarray(w), jnp.asarray(e),
+        "linear", interpret=True)
+    assert kgemm.gemm_plan(m, k, n)["splits"] >= 1
+    np.testing.assert_allclose(kgemm.gemm_split_plain(te, tw.t()).numpy(),
+                               np.asarray(err_in), rtol=2e-4, atol=2e-3)
+    np.testing.assert_allclose(
+        kgemm.gemm_split_plain(tx.t(), te).numpy(), np.asarray(grad_w),
+        rtol=2e-4, atol=2e-3)
+
+
+def test_gemm_split_plain_differs_from_unsplit_only_by_order():
+    """One slice of all of K is the plain forward bit for bit; any split
+    moves a value by the summation order alone."""
+    rng = np.random.default_rng(4)
+    a = torch.tensor(rng.normal(size=(33, 700)).astype(np.float32))
+    b = torch.tensor((rng.normal(size=(700, 20)) / np.sqrt(700)).astype(
+        np.float32))
+    bias = torch.tensor(rng.normal(size=20).astype(np.float32))
+    whole = kgemm.fc_forward_plain(a, b, bias, "tanh")
+    assert torch.equal(kgemm.gemm_split_plain(a, b, bias, "tanh", per=704),
+                       whole)
+    for per in (32, 96, 352):
+        torch.testing.assert_close(
+            kgemm.gemm_split_plain(a, b, bias, "tanh", per=per), whole,
+            rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_split_kernel_matches_plain_at_alexnet_fc_shapes_on_the_card():
+    """gemm_fc at AlexNet's fc7 products at batch 128 (the forward and
+    err_v.W^T split K, x^T.err_v does not) against the plain version and
+    the split arithmetic (TF32 off), bit-identical across two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernels run only on a card")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        rng = np.random.default_rng(6)
+
+        def dev(*shape, scale=1.0):
+            return torch.tensor(rng.normal(size=shape) * scale,
+                                dtype=torch.float32, device="cuda")
+
+        x, w, e = dev(128, 4096), dev(4096, 4096, scale=1 / 64), dev(128,
+                                                                    4096)
+        bias = dev(4096)
+        for a, b, bv, act in ((x, w, bias, "strict_relu"),
+                              (e, w.t(), None, "linear"),
+                              (x.t(), e, None, "linear")):
+            got = kgemm.gemm_fc(a, b, bv, act)
+            assert torch.equal(got, kgemm.gemm_fc(a, b, bv, act))
+            torch.testing.assert_close(
+                got, kgemm.fc_forward_plain(a, b, bv, act), rtol=1e-5,
+                atol=1e-5)
+            torch.testing.assert_close(
+                got, kgemm.gemm_split_plain(a, b, bv, act), rtol=1e-5,
+                atol=1e-5)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32

@@ -33,12 +33,18 @@
 // cores (no TF32), so the reference's f32 bands hold.  No split without a
 // fixed-order reduction and no atomics: two launches are bit-identical.
 //
-//  forward, f32:   the 128x128 tile of tile_f32.cuh, shared with gemm.cu
-//                  (256 threads, each an 8x8 sub-tile of f32 sums, 8-deep
-//                  k tiles double-buffered).  M = n*oh*ow pixels, N = cout,
-//                  K = ky*kx*cin in (iy, ix, ci) order, in which the HWIO
-//                  weights already are a row-major (K, N) matrix; bias in
-//                  the epilogue.
+//  forward, f32:   the shared f32 loop of tile_f32.cuh (gemm.cu runs on
+//                  it too): M = n*oh*ow pixels, N = cout, K = ky*kx*cin
+//                  in (iy, ix, ci) order, in which the HWIO weights
+//                  already are a row-major (K, N) matrix, fetched by
+//                  cp.async; the im2col patch gathered through registers
+//                  and stored transposed (GatherA), 16-byte loads of 4
+//                  channels where cin % 4 == 0, one-float loads else
+//                  (conv1's 3).  Tiles by cout and grid fill
+//                  (fwd_f32_tile): N 64, 96 or 128, whichever pads cout
+//                  least (conv1's 96 takes 96); M 128, or 64 where its
+//                  grid fills the last wave of resident blocks (the
+//                  card's own residency) better.  Bias in the epilogue.
 //  forward, bf16:  the same GEMM on the tensor cores: two consumer
 //                  warpgroups (BM = 128) issue wgmma m64nNk16 (bf16 in, f32
 //                  sums) on 64-deep k tiles, 128-byte swizzled in shared
@@ -87,13 +93,15 @@
 //                  blocks best (split_k; the card's own residency from
 //                  cudaOccupancyMaxActiveBlocksPerMultiprocessor in
 //                  znicz_conv2d_weight_grad_plan).
-// Registers (ptxas, sm_90a), no spills: the bf16 forward 100 / 155 / 203
-// / 245 at N 64 / 128 / 192 / 256, one block of 256 threads an SM; the
-// input gradient 116 / 120 / 168 / 246 / 254 at N 8 / 32 / 64 / 96 / 128,
-// one block an SM (two at N 8 and 32, by registers and shared memory);
-// the weight gradient 173 / 167 at 128 x 128 (the one-float / 16-byte
-// loader), one block an SM, 123 / 111 at 128 x 64 and 121 / 111 at 64 x
-// 128, two, and 79 at 64 x 64, three.
+// Registers (ptxas, sm_90a), no spills: the f32 forward 125-147 (capped
+// at 128 for 256 threads), two blocks of 256 threads an SM at 128 x 128
+// and 128 x 96, three to six of the smaller tiles; the bf16 forward 100 /
+// 155 / 203 / 245 at N 64 / 128 / 192 / 256, one block of 256 threads an
+// SM; the input gradient 116 / 120 / 168 / 246 / 254 at N 8 / 32 / 64 /
+// 96 / 128, one block an SM (two at N 8 and 32, by registers and shared
+// memory); the weight gradient 173 / 167 at 128 x 128 (the one-float /
+// 16-byte loader), one block an SM, 123 / 111 at 128 x 64 and 121 / 111
+// at 64 x 128, two, and 79 at 64 x 64, three.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -114,23 +122,6 @@ struct ConvArgs {
   int oh, ow, cout;  // y and its cotangent e (n, oh, ow, cout)
   int ky, kx, sy, sx, pt, pl;
 };
-
-// One row of a thread's sub-tile (+ bias) into a row of N elements at
-// columns n_first..n_first+7, 16-byte stores where the row allows.
-__device__ __forceinline__ void store_row(float* row, const float (&acc)[TN],
-                                          const float (&bv)[TN], int n_first,
-                                          int N, bool vec) {
-  if (vec && n_first + TN <= N) {
-    *reinterpret_cast<float4*>(row) = make_float4(
-        acc[0] + bv[0], acc[1] + bv[1], acc[2] + bv[2], acc[3] + bv[3]);
-    *reinterpret_cast<float4*>(row + 4) = make_float4(
-        acc[4] + bv[4], acc[5] + bv[5], acc[6] + bv[6], acc[7] + bv[7]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < TN; ++j)
-      if (n_first + j < N) row[j] = acc[j] + bv[j];
-  }
-}
 
 // k -> (iy, ix, ci) of the forward's K, kept incrementally: ci fastest.
 struct FwdCursor {
@@ -181,100 +172,160 @@ struct Window {
 
 // ----------------------------------------------------------- forward, f32
 
-// A (M x K) of the forward, gathered from x: row m = output pixel (n, oy,
-// ox), column k = (iy, ix, ci), A = x[n, oy*sy + iy - pt, ox*sx + ix - pl,
-// ci] or 0 outside the image.  k-contiguous: a thread loads 4 consecutive k
-// of its pixel; with cin % 4 == 0 they are 4 channels of one tap (one load
-// of 16 bytes).  It keeps its own window and cursor: built on Window and
-// FwdCursor (above) it ran the f32 forward 1.5-1.9 % slower on the H100.
-struct FwdA {
-  static constexpr bool kKC = true;
-  const float* img;  // x of this thread's image
-  int W, H, cin, kx, K;
-  bool vec, row_ok;
-  int h0, w0;          // the pixel's window origin in x
-  int k, ci, ix, iy;   // this thread's first k of the next tile
+// A (M x K) of the forward, gathered from x through registers into the
+// shared f32 loop's stages (the StagedLoader pattern): row m = output
+// pixel (n, oy, ox), column k = (iy, ix, ci), A = x[n, oy*sy + iy - pt,
+// ox*sx + ix - pl, ci] or 0 outside the image.  Thread t takes chunk
+// column q = t % (kBK / 4) (4 k) of rows first + step p.  Each row's
+// window (origin h0, w0 and the offset in x of its tap (0, 0)) is
+// computed once into shared memory (`rows`), so a thread keeps one (ci,
+// ix, iy) cursor for its chunk's first k, stepped kBK a tile by
+// precomputed increments with two carries (no loop).  VEC (cin % 4 == 0,
+// x 16-byte aligned): the 4 k are 4 channels of one tap, one 16-byte
+// load; else (conv1's cin 3) 4 loads, each with its own tap.  Off the
+// image reads nothing and stores zeros; rows past the last pixel have an
+// origin no tap reaches.
+template <class T, bool VEC>
+struct GatherA {
+  using C = Chunks<T::BM, T::kThreads, true>;
+  const float* x;
+  const int4* rows;      // the BM rows' windows: h0, w0, offset
+  int H, W, cin, kx, K;
+  int k, ci, ix, iy;     // the cursor at this thread's chunk's first k
+  int dci, dix, diy;     // one k tile (kBK) in (ci, ix, iy)
+  float v[C::kPasses][4];
 
-  __device__ FwdA(const float* x, const ConvArgs& g, int m0, bool vec_)
-      : W(g.w), H(g.h), cin(g.cin), kx(g.kx), K(g.ky * g.kx * g.cin),
-        vec(vec_) {
-    const int m = m0 + threadIdx.x / 2;
+  // the window of output pixel m (its rows entry)
+  __device__ static int4 window(const ConvArgs& g, int m) {
     const int per_img = g.oh * g.ow;
-    row_ok = m < g.n * per_img;
-    const int n = row_ok ? m / per_img : 0;
-    const int r = m - n * per_img;
-    h0 = (r / g.ow) * g.sy - g.pt;
-    w0 = (r % g.ow) * g.sx - g.pl;
-    img = x + static_cast<size_t>(n) * g.h * g.w * g.cin;
-    k = (threadIdx.x % 2) * 4;
+    if (m >= g.n * per_img) return make_int4(-(1 << 29), 0, 0, 0);
+    const int n = m / per_img, r = m - n * per_img;
+    const int h0 = (r / g.ow) * g.sy - g.pt, w0 = (r % g.ow) * g.sx - g.pl;
+    return make_int4(h0, w0, ((n * g.h + h0) * g.w + w0) * g.cin, 0);
+  }
+
+  __device__ GatherA(const float* x_, const int4* rows_, const ConvArgs& g)
+      : x(x_), rows(rows_), H(g.h), W(g.w), cin(g.cin), kx(g.kx),
+        K(g.ky * g.kx * g.cin) {
+    k = 4 * C::q();
     ci = k % cin;
-    const int tap = k / cin;
-    ix = tap % kx;
-    iy = tap / kx;
+    ix = k / cin % kx;
+    iy = k / cin / kx;
+    dci = kBK % cin;
+    dix = kBK / cin % kx;
+    diy = kBK / cin / kx;
   }
 
-  __device__ __forceinline__ float at(int kk, int c, int jx, int jy) const {
-    const int h = h0 + jy, w = w0 + jx;
-    if (!row_ok || kk >= K || h < 0 || h >= H || w < 0 || w >= W) return 0.f;
-    return img[(static_cast<size_t>(h) * W + w) * cin + c];
+  __device__ __forceinline__ static bool inside(int v, int size) {
+    return static_cast<unsigned>(v) < static_cast<unsigned>(size);
   }
 
-  __device__ __forceinline__ void load(float (&r)[4]) {
-    if (vec) {
-      const int h = h0 + iy, w = w0 + ix;
-      if (row_ok && k < K && h >= 0 && h < H && w >= 0 && w < W)
-        load4(r, img + (static_cast<size_t>(h) * W + w) * cin + ci);
-      else
-        zero4(r);
-    } else {
-      int c = ci, jx = ix, jy = iy;
+  __device__ __forceinline__ void fetch(float*) {
+    const int tap = (iy * W + ix) * cin + ci;  // VEC: the chunk's offset
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        r[j] = at(k + j, c, jx, jy);
-        if (++c == cin) {
-          c = 0;
-          if (++jx == kx) {
-            jx = 0;
-            ++jy;
+    for (int p = 0; p < C::kPasses; ++p) {
+      const int row = C::row(p);
+      const int4 win = rows[row < C::kRows ? row : 0];
+      if (VEC) {
+        const bool ok = k < K && inside(win.x + iy, H) && inside(win.y + ix, W);
+        const float4 f = ok ? *reinterpret_cast<const float4*>(x + win.z + tap)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+        v[p][0] = f.x;
+        v[p][1] = f.y;
+        v[p][2] = f.z;
+        v[p][3] = f.w;
+      } else {
+        int c = ci, jx = ix, jy = iy;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = k + e < K && inside(win.x + jy, H) &&
+                          inside(win.y + jx, W);
+          v[p][e] = ok ? x[win.z + (jy * W + jx) * cin + c] : 0.f;
+          if (++c == cin) {
+            c = 0;
+            if (++jx == kx) {
+              jx = 0;
+              ++jy;
+            }
           }
         }
       }
     }
-    k += BK;
-    ci += BK;
-    while (ci >= cin) {
+    k += kBK;
+    ci += dci;
+    ix += dix;
+    iy += diy;
+    if (ci >= cin) {
       ci -= cin;
-      if (++ix == kx) {
-        ix = 0;
-        ++iy;
-      }
+      ++ix;
     }
+    if (ix >= kx) {
+      ix -= kx;
+      ++iy;
+    }
+  }
+
+  __device__ __forceinline__ void store(float* stage) {
+#pragma unroll
+    for (int p = 0; p < C::kPasses; ++p)
+      if (C::row(p) < C::kRows)
+        store_kc<T::BM>(stage, C::row(p), C::q(), v[p]);
   }
 };
 
-__global__ void __launch_bounds__(kThreads)
+// The forward's dynamic shared memory: the ring, then the rows' windows.
+template <class T>
+constexpr int fwd_f32_smem() {
+  return T::kSmem + static_cast<int>(sizeof(int4)) * T::BM;
+}
+
+// y = conv(x, w) + bias on the shared f32 loop: A gathered (KC), B the
+// HWIO weights as a row-major (K, cout) matrix (OC); bias in the
+// epilogue, 16-byte stores of each row's two runs of 4 columns.
+template <int BM, int BN, bool VEC>
+__global__ void __launch_bounds__(Tile<BM, BN>::kThreads, kMinBlocks)
 conv_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 const float* __restrict__ bias, float* __restrict__ y,
-                ConvArgs g, bool vec_x, bool vec_w, bool vec_y) {
+                ConvArgs g, bool vec_w, bool vec_y) {
+  using T = Tile<BM, BN>;
+  extern __shared__ __align__(16) float fwd_ring[];
+  int4* rows = reinterpret_cast<int4*>(fwd_ring + kStages * (T::kA + T::kB));
   const int M = g.n * g.oh * g.ow, N = g.cout, K = g.ky * g.kx * g.cin;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  FwdA la(x, g, m0, vec_x);
-  DenseTile<false> lb{w, N, K, n0, 0, vec_w};
+  const int m0 = blockIdx.x * T::BM, n0 = blockIdx.y * T::BN;
+  for (int r = threadIdx.x; r < T::BM; r += T::kThreads)
+    rows[r] = GatherA<T, VEC>::window(g, m0 + r);
+  __syncthreads();
+  GatherA<T, VEC> la(x, rows, g);
+  AsyncLoader<T, BN> lb{w, N, N, K, n0, 0, vec_w};
   float acc[TM][TN];
-  mainloop(la, lb, (K + BK - 1) / BK, acc);
+  mainloop<T>(fwd_ring, la, lb, (K + kBK - 1) / kBK, acc);
 
-  const int ty = threadIdx.x / (BN / TN), tx = threadIdx.x % (BN / TN);
-  const int n_first = n0 + tx * TN;
   float bv[TN];
 #pragma unroll
-  for (int j = 0; j < TN; ++j)
-    bv[j] = (bias != nullptr && n_first + j < N) ? bias[n_first + j] : 0.f;
+  for (int j = 0; j < TN; ++j) {
+    const int n = n0 + col_of<T>(j);
+    bv[j] = bias != nullptr && n < N ? bias[n] : 0.f;
+  }
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
-    if (m >= M) break;
-    store_row(y + static_cast<size_t>(m) * N + n_first, acc[i], bv, n_first,
-              N, vec_y);
+    const int m = m0 + row_of<T>(i);
+    if (m >= M) continue;
+    float* row = y + static_cast<size_t>(m) * N;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // columns col_of(4h) .. + 3
+      const int n = n0 + col_of<T>(4 * h);
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = acc[i][4 * h + e] + bv[4 * h + e];
+      if (vec_y && n + 3 < N) {
+        *reinterpret_cast<float4*>(row + n) = make_float4(v[0], v[1], v[2],
+                                                          v[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (n + e < N) row[n + e] = v[e];
+      }
+    }
   }
 }
 
@@ -1025,19 +1076,118 @@ unsigned tiles(long long items, int per) {
   return static_cast<unsigned>((items + per - 1) / per);
 }
 
+// The f32 forward's N tile for `cout` output channels: the first of 64,
+// 96 and 128 that holds cout, or above 128 the one of 128, 96 and 64
+// that pads cout least, the wider on a tie.
+int fwd_f32_bn(int cout) {
+  if (cout <= 64) return 64;
+  if (cout <= 96) return 96;
+  if (cout <= 128) return 128;
+  int best = 128;
+  for (int bn = 96; bn >= 64; bn -= 32)
+    if (tiles(cout, bn) * bn < tiles(cout, best) * best) best = bn;
+  return best;
+}
+
+// Blocks an SM on this card of the BM x BN forward with the VEC gather.
+template <int BM, int BN, bool VEC>
+int fwd_blocks() {
+  using T = Tile<BM, BN>;
+  return blocks_per_sm(conv_fwd_kernel<BM, BN, VEC>, T::kThreads,
+                       fwd_f32_smem<T>());
+}
+
+template <int BM, int BN>
+int fwd_blocks(bool vec) {
+  return vec ? fwd_blocks<BM, BN, true>() : fwd_blocks<BM, BN, false>();
+}
+
+int fwd_blocks(int bm, int bn, bool vec) {
+  switch (bm * 1000 + bn) {
+    case 128064: return fwd_blocks<128, 64>(vec);
+    case 128096: return fwd_blocks<128, 96>(vec);
+    case 128128: return fwd_blocks<128, 128>(vec);
+    case 64064: return fwd_blocks<64, 64>(vec);
+    case 64096: return fwd_blocks<64, 96>(vec);
+    default: return fwd_blocks<64, 128>(vec);
+  }
+}
+
+// Blocks an SM of the BM x BN forward: the fewer of its two gathers', so
+// that the tile is a function of the shape.  Asked of the card once a
+// tile and process (every launch plans its tile; the answers stay).
+int fwd_residency(int bm, int bn) {
+  static int cache[2][3];  // [BM 64, 128][BN 64, 96, 128]; 0: not asked
+  int& r = cache[bm == 128][(bn - 64) / 32];
+  if (r == 0) {
+    const int a = fwd_blocks(bm, bn, true), b = fwd_blocks(bm, bn, false);
+    r = a < b ? a : b;
+  }
+  return r;
+}
+
+// The fill of the last of the waves that `t` tiles take, `wave` blocks
+// resident at once, as the fraction t / (waves * wave): true if (ta,
+// wave_a) fills strictly better than (tb, wave_b).
+bool fills_better(long long ta, long long wave_a, long long tb,
+                  long long wave_b) {
+  const long long ra = (ta + wave_a - 1) / wave_a * wave_a;
+  const long long rb = (tb + wave_b - 1) / wave_b * wave_b;
+  return ta * rb > tb * ra;
+}
+
+// The f32 forward's tile for m output pixels and cout channels
+// (fwd_f32_tile in kernels/conv.py is its twin): N by cout
+// (fwd_f32_bn); M 128, or 64 where its grid fills its last wave of
+// resident blocks strictly better.  out = {BM, BN, blocks an SM}.
+void fwd_f32_plan(long long m, int cout, int* out) {
+  const int bn = fwd_f32_bn(cout), sms = sm_count();
+  const long long nt = tiles(cout, bn);
+  int res[2] = {fwd_residency(128, bn), fwd_residency(64, bn)};
+  for (int& r : res) r = r > 0 ? r : 1;  // 0: the launch itself will fail
+  const long long t128 = tiles(m, 128) * nt, t64 = tiles(m, 64) * nt;
+  const bool small = fills_better(t64, static_cast<long long>(sms) * res[1],
+                                  t128, static_cast<long long>(sms) * res[0]);
+  out[0] = small ? 64 : 128;
+  out[1] = bn;
+  out[2] = res[small ? 1 : 0];
+}
+
+template <int BM, int BN>
+cudaError_t fwd_f32(const float* x, const float* w, const float* bias,
+                    float* y, const ConvArgs& g, cudaStream_t s) {
+  using T = Tile<BM, BN>;
+  const dim3 grid(tiles(static_cast<long long>(g.n) * g.oh * g.ow, BM),
+                  tiles(g.cout, BN));
+  const bool vw = aligned16(w) && g.cout % 4 == 0;
+  const bool vy = aligned16(y) && g.cout % 4 == 0;
+  if (aligned16(x) && g.cin % 4 == 0)
+    return launch(conv_fwd_kernel<BM, BN, true>, grid, T::kThreads,
+                  fwd_f32_smem<T>(), s, x, w, bias, y, g, vw, vy);
+  return launch(conv_fwd_kernel<BM, BN, false>, grid, T::kThreads,
+                fwd_f32_smem<T>(), s, x, w, bias, y, g, vw, vy);
+}
+
 int launch_fwd_f32(const void* x, const void* w, const void* bias, void* y,
                    const ConvArgs& g, void* stream) {
   if (bad_args(g)) return static_cast<int>(cudaErrorInvalidValue);
   const float* xp = static_cast<const float*>(x);
   const float* wp = static_cast<const float*>(w);
+  const float* bp = static_cast<const float*>(bias);
   float* yp = static_cast<float*>(y);
-  const dim3 grid(tiles(static_cast<long long>(g.n) * g.oh * g.ow, BM),
-                  tiles(g.cout, BN));
-  conv_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      xp, wp, static_cast<const float*>(bias), yp, g,
-      aligned16(xp) && g.cin % 4 == 0, aligned16(wp) && g.cout % 4 == 0,
-      aligned16(yp) && g.cout % 4 == 0);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int plan[3];
+  fwd_f32_plan(static_cast<long long>(g.n) * g.oh * g.ow, g.cout, plan);
+  cudaError_t err;
+  switch (plan[0] * 1000 + plan[1]) {
+    case 128064: err = fwd_f32<128, 64>(xp, wp, bp, yp, g, s); break;
+    case 128096: err = fwd_f32<128, 96>(xp, wp, bp, yp, g, s); break;
+    case 64096: err = fwd_f32<64, 96>(xp, wp, bp, yp, g, s); break;
+    case 128128: err = fwd_f32<128, 128>(xp, wp, bp, yp, g, s); break;
+    case 64064: err = fwd_f32<64, 64>(xp, wp, bp, yp, g, s); break;
+    default: err = fwd_f32<64, 128>(xp, wp, bp, yp, g, s);
+  }
+  return static_cast<int>(err);
 }
 
 // The N tile of the bf16 forward: the least padded cout, the wider tile
@@ -1097,41 +1247,9 @@ void wg_tile(int* bm, int* bn, int* per_sm) {
   *bm = T::BM;
   *bn = T::BN;
   // both loaders' instantiations must agree (the smoke checks it)
-  int res[2] = {0, 0};
-  const decltype(wg_kernel<T, true>()) kernels[2] = {wg_kernel<T, true>(),
-                                                      wg_kernel<T, false>()};
-  for (int i = 0; i < 2; ++i) {
-    cudaFuncSetAttribute(kernels[i],
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         T::kSmem);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&res[i], kernels[i],
-                                                  kWgThreads, T::kSmem);
-  }
-  *per_sm = res[0] == res[1] ? res[0] : -1;
-}
-
-// Slices of K for `tiles` output tiles over k_tiles k tiles, with `wave`
-// blocks resident at once (split_k in kernels/conv.py is its twin): the
-// count whose grid fills its last wave best, up to kWgMaxWaves waves,
-// the fewest slices on a tie; each slice a whole number of k tiles.  For
-// w waves the fullest grid has the most slices that fit, so w * wave /
-// tiles (rounded down, then by whole k tiles) is the only candidate.
-long long weight_grad_splits(long long tiles, long long wave,
-                             long long k_tiles) {
-  long long best = 0, best_waves = 1;
-  for (long long w = 1; w <= kWgMaxWaves; ++w) {
-    long long s = w * wave / tiles;
-    s = s < 1 ? 1 : s;
-    s = s < k_tiles ? s : k_tiles;
-    const long long per = (k_tiles + s - 1) / s;
-    const long long sp = (k_tiles + per - 1) / per;
-    const long long waves = (sp * tiles + wave - 1) / wave;
-    if (sp * best_waves > best * waves) {  // a fuller last wave
-      best = sp;
-      best_waves = waves;
-    }
-  }
-  return best;
+  const int a = blocks_per_sm(wg_kernel<T, true>(), kWgThreads, T::kSmem);
+  const int b = blocks_per_sm(wg_kernel<T, false>(), kWgThreads, T::kSmem);
+  *per_sm = a == b ? a : -1;
 }
 
 template <class T>
@@ -1201,6 +1319,25 @@ extern "C" int znicz_conv2d_fwd_bf16(const void* x, const void* w,
 // The bf16 forward's N tile for `cout` output channels.
 extern "C" int znicz_conv2d_fwd_bf16_tile(int cout) {
   return fwd_bf16_bn(cout);
+}
+
+// The f32 forward's tile for m = n*oh*ow output pixels and cout
+// channels, as this card runs it: out = {BM, BN, resident blocks an SM}.  kernels/conv.py
+// fwd_f32_tile computes the same from its table of residencies; the
+// smoke holds one against the other.
+extern "C" int znicz_conv2d_fwd_f32_plan(long long m, int cout, int* out) {
+  if (m < 1 || cout < 1) return static_cast<int>(cudaErrorInvalidValue);
+  fwd_f32_plan(m, cout, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Resident blocks an SM on this card of the f32 forward's (bm, bn) tile
+// with the 16-byte (vec 1) or the one-float (vec 0) gather; the plan
+// takes the fewer of the two.  0 for no such tile.
+extern "C" int znicz_conv2d_fwd_f32_residency(int bm, int bn, int vec) {
+  if ((bm != 64 && bm != 128) || (bn != 64 && bn != 96 && bn != 128))
+    return 0;
+  return fwd_blocks(bm, bn, vec != 0);
 }
 
 // ei (n, h, w, cin) = the input gradient of the cotangent e (n, oh, ow,
@@ -1309,14 +1446,13 @@ extern "C" int znicz_conv2d_weight_grad_plan(int rows, int cout, int k,
     default:
       wg_tile<WgSmall>(&bm, &bn, &per_sm);
   }
-  int device = 0, sms = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int sms = sm_count();
   const long long t = static_cast<long long>(tiles(rows - 1, bm)) *
                       tiles(cout, bn);
   const long long k_tiles = (k + kWgBK - 1) / kWgBK;
-  const long long splits = weight_grad_splits(
-      t, static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1), k_tiles);
+  const long long splits = whole_wave_splits(
+      t, static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1), k_tiles,
+      kWgMaxWaves);
   const long long per = (k_tiles + splits - 1) / splits * kWgBK;
   out[0] = bm;
   out[1] = bn;

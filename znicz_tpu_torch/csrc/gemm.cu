@@ -18,15 +18,24 @@
 // 34.4 GFLOP against 134 MB of operands and result, far above the f32
 // CUDA cores' ridge of ~20 flop/byte, so 2*M*N*K / 67 TFLOP/s (0.51 ms).
 //
-// Design (right and simple first; wgmma, TMA and a bf16 instantiation
-// are later work): the 128x128 tile of tile_f32.cuh, shared with conv.cu,
-// over two dense tile loaders.  The TPU kernel's (m, n, k) grid carries its
-// sum across k in VMEM scratch; here the k axis is the tile's K loop inside
-// the block.  Loads past a ragged edge read as zero and stores are masked,
-// so nothing is padded in device memory (the reference pads outside its
-// kernel).  Bias and activation run in the epilogue, before the one store
-// of each output.  No split-K and no atomics: each output is one thread's
-// sum in a fixed order, so two launches are bit-identical.
+// Design: the shared f32 loop of tile_f32.cuh (conv.cu's forward runs on
+// it too) over two dense tile loaders, chosen by how each operand lies:
+// B (K, N) and A^T stored (K, M) arrive by cp.async (AsyncLoader), A (M,
+// K) and B^T stored (N, K) through registers, stored transposed
+// (StagedLoader), so the transposed forms read the stored matrices in
+// place.  The TPU kernel's (m, n, k) grid carries its sum across k in
+// VMEM scratch; here the k axis is the loop inside the block.  Tiles of
+// 128 rows by 128 columns (64 where n <= 64).  A product whose tile grid
+// fills the card poorly (AlexNet's batch-128 products: 32-72 tiles for
+// 132 SMs) splits K over grid z into slices of whole k tiles, the count
+// that fills the last of at most 4 waves of resident blocks best
+// (gemm_plan, the conv weight gradient's rule); the slices write f32
+// partials, and gemm_reduce_kernel adds them in slice order and applies
+// bias and activation once.  Loads past a ragged edge arrive as zeros and
+// stores are masked, so nothing is padded in device memory (the reference
+// pads outside its kernel).  Unsplit, bias and activation run in the
+// epilogue, before the one store of each output.  No atomics: every sum
+// has a fixed order, so two launches are bit-identical.
 //
 // act_backward: out = err * act'(y), the derivative taken from the
 // forward output y (activations.derivative_from_output), one elementwise
@@ -38,12 +47,14 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 #include "tile_f32.cuh"
 
 namespace {
 
 using namespace znicz_tile;
+using znicz_hopper::launch;
 
 // activation codes, the order of kernels/gemm.py ACT_CODES
 enum Act { kLinear = 0, kTanh = 1, kRelu = 2, kStrictRelu = 3, kSigmoid = 4 };
@@ -82,45 +93,98 @@ __device__ __forceinline__ float derivative(float y, int act) {
   }
 }
 
-template <bool A_KC, bool B_KC>
-__global__ void __launch_bounds__(kThreads)
+// C (or split z's partial) of the block's tile.  A and B through dense
+// loaders over the split's k range [z * per, min(K, (z + 1) * per)).
+// Unsplit (gridDim.z 1): act(acc + bias) into C.  Split: the raw sums
+// into part[z] (M, N); gemm_reduce_kernel adds the slices in order and
+// applies bias and activation once.
+template <int BM, int BN, bool A_KC, bool B_KC>
+__global__ void __launch_bounds__(Tile<BM, BN>::kThreads, kMinBlocks)
 gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                const float* __restrict__ bias, float* __restrict__ C, int M,
-                int N, int K, int act, bool vec_a, bool vec_b, bool vec_c) {
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  DenseTile<A_KC> la{A, M, K, m0, 0, vec_a};
-  DenseTile<B_KC> lb{B, N, K, n0, 0, vec_b};
+                const float* __restrict__ bias, float* __restrict__ C,
+                float* __restrict__ part, int M, int N, int K, int per,
+                int act, bool vec_a, bool vec_b, bool vec_c) {
+  using T = Tile<BM, BN>;
+  using LA = std::conditional_t<A_KC, StagedLoader<T, BM>, AsyncLoader<T, BM>>;
+  using LB = std::conditional_t<B_KC, StagedLoader<T, BN>, AsyncLoader<T, BN>>;
+  extern __shared__ __align__(16) float gemm_smem[];
+  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
+  const int kbeg = blockIdx.z * per;
+  const int kend = kbeg + per < K ? kbeg + per : K;
+  LA la{A, M, A_KC ? K : M, kend, m0, kbeg, vec_a};
+  LB lb{B, N, B_KC ? K : N, kend, n0, kbeg, vec_b};
   float acc[TM][TN];
-  mainloop(la, lb, (K + BK - 1) / BK, acc);
+  mainloop<T>(gemm_smem, la, lb, (kend - kbeg + kBK - 1) / kBK, acc);
 
-  const int ty = threadIdx.x / (BN / TN);  // this thread's 8 rows ...
-  const int tx = threadIdx.x % (BN / TN);  // ... and 8 columns
-  const int n_first = n0 + tx * TN;
+  const bool split = gridDim.z > 1;
+  float* out = split ? part + static_cast<size_t>(blockIdx.z) * M * N : C;
   float bv[TN];
 #pragma unroll
-  for (int j = 0; j < TN; ++j)
-    bv[j] = (bias != nullptr && n_first + j < N) ? bias[n_first + j] : 0.f;
-  // 16-byte stores where the rows are aligned and the 8 columns all exist
-  const bool vec_row = vec_c && n_first + TN <= N;
+  for (int j = 0; j < TN; ++j) {
+    const int n = n0 + col_of<T>(j);
+    bv[j] = !split && bias != nullptr && n < N ? bias[n] : 0.f;
+  }
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
-    if (m >= M) break;
-    float out[TN];
+    const int m = m0 + row_of<T>(i);
+    if (m >= M) continue;
+    float v[TN];
 #pragma unroll
-    for (int j = 0; j < TN; ++j) out[j] = activate(acc[i][j] + bv[j], act);
-    float* row = C + static_cast<size_t>(m) * N + n_first;
-    if (vec_row) {
-      *reinterpret_cast<float4*>(row) =
-          make_float4(out[0], out[1], out[2], out[3]);
-      *reinterpret_cast<float4*>(row + 4) =
-          make_float4(out[4], out[5], out[6], out[7]);
-    } else {
+    for (int j = 0; j < TN; ++j)
+      v[j] = split ? acc[i][j] : activate(acc[i][j] + bv[j], act);
+    float* row = out + static_cast<size_t>(m) * N;
 #pragma unroll
-      for (int j = 0; j < TN; ++j)
-        if (n_first + j < N) row[j] = out[j];
+    for (int h = 0; h < 2; ++h) {  // two runs of 4 columns, 16-byte stores
+      const int n = n0 + col_of<T>(4 * h);
+      if (vec_c && n + 3 < N) {
+        *reinterpret_cast<float4*>(row + n) =
+            make_float4(v[4 * h], v[4 * h + 1], v[4 * h + 2], v[4 * h + 3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (n + e < N) row[n + e] = v[4 * h + e];
+      }
     }
+  }
+}
+
+// C = act(sum of the S partials in slice order + bias), VEC elements a
+// step (4 where N % 4 == 0 and every pointer is 16-byte aligned).
+template <int VEC>
+__global__ void __launch_bounds__(256)
+gemm_reduce_kernel(const float* __restrict__ part, int splits, long long mn,
+                   int N, const float* __restrict__ bias, int act,
+                   float* __restrict__ C) {
+  const long long stride =
+      static_cast<long long>(gridDim.x) * blockDim.x * VEC;
+  for (long long i =
+           (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) *
+           VEC;
+       i < mn; i += stride) {
+    float acc[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      const float* p = part + s * mn + i;
+      if constexpr (VEC == 4) {
+        const float4 v = *reinterpret_cast<const float4*>(p);
+        acc[0] += v.x;
+        acc[1] += v.y;
+        acc[2] += v.z;
+        acc[3] += v.w;
+      } else {
+        acc[0] += p[0];
+      }
+    }
+    const int n = static_cast<int>(i % N);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      acc[e] = activate(acc[e] + (bias != nullptr ? bias[n + e] : 0.f), act);
+    if constexpr (VEC == 4)
+      *reinterpret_cast<float4*>(C + i) =
+          make_float4(acc[0], acc[1], acc[2], acc[3]);
+    else
+      C[i] = acc[0];
   }
 }
 
@@ -147,13 +211,92 @@ act_backward_f32_kernel(const float* __restrict__ y,
   }
 }
 
-template <bool A_KC, bool B_KC>
-void launch_gemm(const float* A, const float* B, const float* bias, float* C,
-                 int M, int N, int K, int act, bool vec_a, bool vec_b,
-                 bool vec_c, cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_f32_kernel<A_KC, B_KC><<<grid, kThreads, 0, stream>>>(
-      A, B, bias, C, M, N, K, act, vec_a, vec_b, vec_c);
+// The GEMM's tile: 128 rows by 128 columns, 64 where n <= 64
+// (gemm_tile in kernels/gemm.py is its twin).
+int gemm_bn(int n) { return n <= 64 ? 64 : 128; }
+
+constexpr int kGemmBM = 128;
+// the most waves of resident blocks the split-K schedule spreads over
+constexpr int kGemmMaxWaves = 4;
+
+template <int BN, bool A_KC, bool B_KC>
+int gemm_residency_of() {
+  using T = Tile<kGemmBM, BN>;
+  return blocks_per_sm(gemm_f32_kernel<kGemmBM, BN, A_KC, B_KC>, T::kThreads,
+                       T::kSmem);
+}
+
+template <int BN>
+int gemm_residency_of(bool trans_a, bool trans_b) {
+  if (!trans_a && !trans_b) return gemm_residency_of<BN, true, false>();
+  if (!trans_a) return gemm_residency_of<BN, true, true>();
+  if (!trans_b) return gemm_residency_of<BN, false, false>();
+  return gemm_residency_of<BN, false, true>();
+}
+
+// Blocks an SM of the instantiation for BN columns and these layouts.
+int gemm_residency(int bn, bool trans_a, bool trans_b) {
+  return bn == 64 ? gemm_residency_of<64>(trans_a, trans_b)
+                  : gemm_residency_of<128>(trans_a, trans_b);
+}
+
+// Blocks an SM of the tile of BN columns: the least over its four
+// operand layouts, so that the schedule is a function of the shape alone.
+int gemm_residency(int bn) {
+  int least = gemm_residency(bn, false, false);
+  for (int t = 1; t < 4; ++t) {
+    const int r = gemm_residency(bn, t & 1, t >> 1);
+    least = r < least ? r : least;
+  }
+  return least;
+}
+
+// out = {BM, BN, resident blocks an SM, splits, per (k a slice)}.
+void gemm_plan(int m, int n, int k, int* out) {
+  const int bn = gemm_bn(n), per_sm = gemm_residency(bn);
+  const long long t = static_cast<long long>((m + kGemmBM - 1) / kGemmBM) *
+                      ((n + bn - 1) / bn);
+  const long long k_tiles = (k + kBK - 1) / kBK;
+  const long long splits = whole_wave_splits(
+      t, static_cast<long long>(sm_count()) * (per_sm > 0 ? per_sm : 1),
+      k_tiles, kGemmMaxWaves);
+  const long long per = (k_tiles + splits - 1) / splits * kBK;
+  out[0] = kGemmBM;
+  out[1] = bn;
+  out[2] = per_sm;
+  out[3] = static_cast<int>((k + per - 1) / per);
+  out[4] = static_cast<int>(per);
+}
+
+template <int BN, bool A_KC, bool B_KC>
+cudaError_t launch_gemm(const float* A, const float* B, const float* bias,
+                        float* C, float* part, int M, int N, int K,
+                        int splits, int per, int act, bool vec_a, bool vec_b,
+                        bool vec_c, cudaStream_t stream) {
+  using T = Tile<kGemmBM, BN>;
+  const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM, splits);
+  return launch(gemm_f32_kernel<kGemmBM, BN, A_KC, B_KC>, grid, T::kThreads,
+                T::kSmem, stream, A, B, bias, C, part, M, N, K, per, act,
+                vec_a, vec_b, vec_c);
+}
+
+template <int BN>
+cudaError_t launch_layout(bool trans_a, bool trans_b, const float* A,
+                          const float* B, const float* bias, float* C,
+                          float* part, int M, int N, int K, int splits,
+                          int per, int act, bool va, bool vb, bool vc,
+                          cudaStream_t s) {
+  if (!trans_a && !trans_b)
+    return launch_gemm<BN, true, false>(A, B, bias, C, part, M, N, K, splits,
+                                        per, act, va, vb, vc, s);
+  if (!trans_a)
+    return launch_gemm<BN, true, true>(A, B, bias, C, part, M, N, K, splits,
+                                       per, act, va, vb, vc, s);
+  if (!trans_b)
+    return launch_gemm<BN, false, false>(A, B, bias, C, part, M, N, K,
+                                         splits, per, act, va, vb, vc, s);
+  return launch_gemm<BN, false, true>(A, B, bias, C, part, M, N, K, splits,
+                                      per, act, va, vb, vc, s);
 }
 
 }  // namespace
@@ -161,35 +304,57 @@ void launch_gemm(const float* A, const float* B, const float* bias, float* C,
 // C = act(op(A) . op(B) + bias), all f32, row-major.  A is (M, K), or
 // (K, M) stored and read transposed when trans_a; B is (K, N), or (N, K)
 // stored and read transposed when trans_b; bias (N) or null; C (M, N).
-// Returns the cudaError_t of the launch (0 = success); a bad shape or
-// activation code returns cudaErrorInvalidValue without launching.
+// K is split into `splits` slices of `per` (per % 32 == 0, splits * per
+// >= K > (splits - 1) * per); with splits > 1, part is scratch of splits
+// * M * N floats (else unused, may be null).  Returns the cudaError_t of
+// the launches (0 = success); a bad shape, split or activation code
+// returns cudaErrorInvalidValue without launching.
 extern "C" int znicz_gemm_f32(const void* A, const void* B, const void* bias,
-                              void* C, int M, int N, int K, int trans_a,
-                              int trans_b, int act, void* stream) {
-  if (M < 1 || N < 1 || K < 1 || act < kLinear || act > kSigmoid)
+                              void* C, void* part, int M, int N, int K,
+                              int trans_a, int trans_b, int act, int splits,
+                              int per, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || act < kLinear || act > kSigmoid ||
+      splits < 1 || splits > 65535 || per < 1 || per % kBK != 0 ||
+      static_cast<long long>(splits) * per < K ||
+      static_cast<long long>(splits - 1) * per >= K ||
+      (splits > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* a = static_cast<const float*>(A);
   const float* b = static_cast<const float*>(B);
   const float* bs = static_cast<const float*>(bias);
   float* c = static_cast<float*>(C);
+  float* p = static_cast<float*>(part);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // rows of the stored operands start 16-byte aligned iff the base is and
   // the stored row length is a multiple of 4 floats
-  const bool vec_a = aligned16(a) && (trans_a ? M : K) % 4 == 0;
-  const bool vec_b = aligned16(b) && (trans_b ? K : N) % 4 == 0;
-  const bool vec_c = aligned16(c) && N % 4 == 0;
-  if (!trans_a && !trans_b)
-    launch_gemm<true, false>(a, b, bs, c, M, N, K, act, vec_a, vec_b, vec_c,
-                                    s);
-  else if (!trans_a && trans_b)
-    launch_gemm<true, true>(a, b, bs, c, M, N, K, act, vec_a, vec_b, vec_c,
-                                    s);
-  else if (trans_a && !trans_b)
-    launch_gemm<false, false>(a, b, bs, c, M, N, K, act, vec_a, vec_b, vec_c,
-                                    s);
+  const bool va = aligned16(a) && (trans_a ? M : K) % 4 == 0;
+  const bool vb = aligned16(b) && (trans_b ? K : N) % 4 == 0;
+  const bool vc = aligned16(c) && N % 4 == 0;
+  const cudaError_t err =
+      gemm_bn(N) == 64
+          ? launch_layout<64>(trans_a, trans_b, a, b, bs, c, p, M, N, K,
+                             splits, per, act, va, vb, vc, s)
+          : launch_layout<128>(trans_a, trans_b, a, b, bs, c, p, M, N, K,
+                             splits, per, act, va, vb, vc, s);
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const long long mn = static_cast<long long>(M) * N;
+  if (N % 4 == 0 && aligned16(p) && aligned16(c) &&
+      (bs == nullptr || aligned16(bs)))
+    gemm_reduce_kernel<4><<<blocks_for(mn / 4), 256, 0, s>>>(p, splits, mn,
+                                                             N, bs, act, c);
   else
-    launch_gemm<false, true>(a, b, bs, c, M, N, K, act, vec_a, vec_b, vec_c,
-                                    s);
+    gemm_reduce_kernel<1><<<blocks_for(mn), 256, 0, s>>>(p, splits, mn, N,
+                                                         bs, act, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The GEMM's schedule for an (m, k) x (k, n) product as this card runs
+// it: out = {BM, BN, resident blocks an SM (the least of the tile's four
+// layouts), splits, per}.  kernels/gemm.py gemm_plan computes the same
+// from its table of residencies; the smoke holds one against the other.
+extern "C" int znicz_gemm_f32_plan(int m, int n, int k, int* out) {
+  if (m < 1 || n < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  gemm_plan(m, n, k, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -210,6 +375,13 @@ extern "C" int znicz_act_backward_f32(const void* y, const void* err,
     act_backward_f32_kernel<1><<<blocks_for(n), 256, 0, s>>>(yp, ep, op, n,
                                                              act);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Resident blocks an SM on this card of the instantiation for BN (64 or
+// 128) columns and the given operand layouts (0 for no such tile).
+extern "C" int znicz_gemm_f32_residency(int bn, int trans_a, int trans_b) {
+  if (bn != 64 && bn != 128) return 0;
+  return gemm_residency(bn, trans_a != 0, trans_b != 0);
 }
 
 extern "C" const char* znicz_gemm_error_string(int code) {

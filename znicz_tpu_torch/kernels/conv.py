@@ -50,7 +50,8 @@ import torch
 import torch.nn.functional as F
 
 from znicz_tpu_torch.kernels import build as _build
-from znicz_tpu_torch.kernels.gemm import BF16_FLOPS, F32_FLOPS, _bound_of
+from znicz_tpu_torch.kernels.gemm import (BF16_FLOPS, F32_FLOPS, _bound_of,
+                                          whole_wave_splits)
 from znicz_tpu_torch.ops.conv import normalize_geometry, out_size
 
 #: kernel launches since import (or since a caller reset them to 0)
@@ -71,9 +72,15 @@ SOURCE = "znicz_tpu_torch/csrc/conv.cu"
 #: the dtypes each kernel takes (all operands alike)
 FWD_DTYPES = (torch.float32, torch.bfloat16)
 
-#: the depth of the f32 tile's k tiles and the side of its output tiles
-#: (BK, BM = BN in csrc/tile_f32.cuh): the f32 forward
-K_TILE, TILE = 8, 128
+#: the depth of the f32 forward's k tiles (kBK in csrc/tile_f32.cuh)
+K_TILE = 16
+#: the f32 forward's tile family (conv_fwd_kernel<BM, BN, VEC> in
+#: csrc/conv.cu): (BM, BN) -> resident blocks an SM on the H100, the
+#: fewer of its two loaders', by ptxas's registers and the tile's shared
+#: memory (the smoke holds this table against
+#: cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+FWD_F32_TILES = {(128, 128): 2, (128, 96): 2, (128, 64): 3, (64, 128): 4,
+                 (64, 96): 4, (64, 64): 6}
 #: the weight gradient's k tiles: 32 pixels (kWgBK in csrc/conv.cu)
 WEIGHT_GRAD_K_TILE = 32
 #: the weight gradient's tile family (WgTile in csrc/conv.cu): (BM, BN)
@@ -203,6 +210,25 @@ def fwd_bf16_tile(cout: int) -> int:
     return min((256, 192, 128), key=lambda bn: math.ceil(cout / bn) * bn)
 
 
+def fwd_f32_tile(m: int, cout: int) -> tuple:
+    """``(BM, BN)`` of the f32 forward's tile for ``m`` = n·oh·ow output
+    pixels and ``cout`` channels, the twin of ``fwd_f32_plan`` in
+    csrc/conv.cu.  BN: the first of 64, 96 and 128 that holds cout, or
+    above 128 the one of 128, 96 and 64 that pads cout least (the wider
+    on a tie).  BM: 128, or 64 where its grid fills the last of its
+    waves of resident blocks (SMS x :data:`FWD_F32_TILES`) strictly
+    better."""
+    bn = next((b for b in (64, 96, 128) if cout <= b), None)
+    if bn is None:
+        bn = min((128, 96, 64), key=lambda b: math.ceil(cout / b) * b)
+    # each BM's tiles, and those rounded up to whole waves
+    nt = math.ceil(cout / bn)
+    t128, t64 = math.ceil(m / 128) * nt, math.ceil(m / 64) * nt
+    w128, w64 = (SMS * FWD_F32_TILES[(bm, bn)] for bm in (128, 64))
+    r128, r64 = math.ceil(t128 / w128) * w128, math.ceil(t64 / w64) * w64
+    return (64 if t64 * r128 > t128 * r64 else 128), bn
+
+
 def input_grad_tile(cin: int) -> tuple:
     """``(BM, BN)`` of the input-gradient kernel's tile for ``cin`` input
     channels (its N), the twin of ``input_grad_bn`` in csrc/conv.cu: a
@@ -223,26 +249,17 @@ def weight_grad_tile(rows: int, n: int) -> tuple:
 
 def split_k(rows: int, n: int, k: int) -> tuple:
     """``(splits, per)`` of the weight gradient's K = ``k`` pixels for a
-    ``rows`` x ``n`` product (``rows`` = ky·kx·cin + 1), the twin of
-    ``weight_grad_splits`` in csrc/conv.cu: with ``wave`` = SMS x the
-    tile's resident blocks, the slice count whose grid fills its last
-    wave best, over at most ``WEIGHT_GRAD_MAX_WAVES`` waves (the fewest
-    slices on a tie); each slice a whole number of 32-pixel k tiles, none
-    empty.  For w waves the fullest grid takes the most slices that fit,
-    floor(w·wave / tiles) (fewer once whole k tiles round them), so those
-    few counts are the only candidates.  The bias row is summed by row
-    tile 0's blocks, so the tiles cover rows - 1."""
+    ``rows`` x ``n`` product (``rows`` = ky·kx·cin + 1), the twin of the
+    weight gradient's schedule in csrc/conv.cu: with ``wave`` = SMS x
+    the tile's resident blocks, :func:`whole_wave_splits` over at most
+    ``WEIGHT_GRAD_MAX_WAVES`` waves, each slice a whole number of
+    32-pixel k tiles, none empty.  The bias row is summed by row tile 0's
+    blocks, so the tiles cover rows - 1."""
     bm, bn = weight_grad_tile(rows, n)
-    tiles = math.ceil((rows - 1) / bm) * math.ceil(n / bn)
-    wave = SMS * WEIGHT_GRAD_TILES[(bm, bn)]
     k_tiles = math.ceil(k / WEIGHT_GRAD_K_TILE)
-    best, best_waves = 0, 1
-    for w in range(1, WEIGHT_GRAD_MAX_WAVES + 1):
-        s = min(max(1, w * wave // tiles), k_tiles)
-        sp = math.ceil(k_tiles / math.ceil(k_tiles / s))  # whole k tiles
-        waves = math.ceil(sp * tiles / wave)
-        if sp * best_waves > best * waves:          # a fuller last wave
-            best, best_waves = sp, waves
+    best = whole_wave_splits(
+        math.ceil((rows - 1) / bm) * math.ceil(n / bn),
+        SMS * WEIGHT_GRAD_TILES[(bm, bn)], k_tiles, WEIGHT_GRAD_MAX_WAVES)
     per = math.ceil(k_tiles / best) * WEIGHT_GRAD_K_TILE
     return math.ceil(k / per), per
 
@@ -369,6 +386,11 @@ def _library():
             fn.restype = i32
         lib.znicz_conv2d_weight_grad_plan.argtypes = [i32] * 3 + [ptr]
         lib.znicz_conv2d_weight_grad_plan.restype = i32
+        lib.znicz_conv2d_fwd_f32_plan.argtypes = [ctypes.c_longlong, i32,
+                                                  ptr]
+        lib.znicz_conv2d_fwd_f32_plan.restype = i32
+        lib.znicz_conv2d_fwd_f32_residency.argtypes = [i32, i32, i32]
+        lib.znicz_conv2d_fwd_f32_residency.restype = i32
         lib.znicz_conv_error_string.argtypes = [i32]
         lib.znicz_conv_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -387,6 +409,29 @@ def weight_grad_plan_on_card(rows: int, n: int, k: int) -> dict:
     return {"tile": [bm, bn], "splits": splits, "per": per,
             "blocks": math.ceil((rows - 1) / bm) * math.ceil(n / bn)
             * splits, "blocks_per_sm": per_sm}
+
+
+def fwd_f32_plan_on_card(m: int, cout: int) -> dict:
+    """The f32 forward's tile as ``csrc/conv.cu`` chooses it on this
+    card, and that tile's resident blocks an SM."""
+    out = (ctypes.c_int * 3)()
+    _raise_on(_library().znicz_conv2d_fwd_f32_plan(m, cout, out),
+              "conv2d_fwd plan")
+    return {"tile": [out[0], out[1]], "blocks_per_sm": out[2]}
+
+
+def fwd_f32_residency_on_card(gathers: bool = False) -> dict:
+    """``{"BMxBN": resident blocks an SM}`` of each f32 forward tile on
+    this card: the fewer of its two gathers' (as the plan takes it), or
+    with ``gathers`` each instantiation's, keyed ``"BMxBN/vec"`` (1 the
+    16-byte gather, 0 the one-float)."""
+    lib = _library()
+    by = {f"{bm}x{bn}/{v}": lib.znicz_conv2d_fwd_f32_residency(bm, bn, v)
+          for bm, bn in FWD_F32_TILES for v in (0, 1)}
+    if gathers:
+        return by
+    return {f"{bm}x{bn}": min(by[f"{bm}x{bn}/0"], by[f"{bm}x{bn}/1"])
+            for bm, bn in FWD_F32_TILES}
 
 
 def _raise_on(rc: int, what: str) -> None:

@@ -13,6 +13,10 @@ products of ``fc_backward`` (``:137``) reach, and ``_act_backward``
   (in, out) weights and (batch, in) activations as they are.  f32 sums
   on the CUDA cores, no TF32; bias and activation in the epilogue;
   ragged edges masked in the kernel, nothing padded.
+  Products whose tile grid fills the card poorly split K into the
+  slices :func:`gemm_plan` chooses, summed in slice order by a second
+  kernel before bias and activation (:func:`gemm_split_plain` is the
+  plain version of that arithmetic).
 - :func:`act_backward` ``(y, err, activation)`` -> ``err * act'(y)``,
   the derivative from the forward output.  ``linear`` returns ``err``
   and launches nothing, as the reference does.
@@ -31,6 +35,8 @@ count kernel launches and nothing else.  Importing this module needs no
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
@@ -52,8 +58,17 @@ FUSED_ACTIVATIONS = (activations.LINEAR, activations.TANH,
                      activations.RELU, activations.STRICT_RELU,
                      activations.SIGMOID)
 _ACT_CODES = {a: i for i, a in enumerate(FUSED_ACTIVATIONS)}
-#: the depth of the kernel's k tiles (BK in csrc/tile_f32.cuh)
-K_TILE = 8
+#: the depth of the kernel's k tiles (kBK in csrc/tile_f32.cuh)
+K_TILE = 16
+#: the kernel's tiles (gemm_bn in csrc/gemm.cu): (BM, BN) -> resident
+#: blocks an SM on the H100, the least over the tile's four operand
+#: layouts, by ptxas's registers and the tile's shared memory (the smoke
+#: holds this table against cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+GEMM_TILES = {(128, 128): 2, (128, 64): 3}
+#: the split-K schedule spreads over at most this many waves
+GEMM_MAX_WAVES = 4
+#: the H100's SMs
+SMS = 132
 
 #: H100 SXM data-sheet peaks: HBM bytes/s; f32 flop/s of the CUDA cores;
 #: dense bf16 flop/s of the tensor cores
@@ -79,6 +94,75 @@ def fc_forward_plain(x, w, bias=None, activation: str = activations.LINEAR):
 def act_backward_plain(y, err, activation: str):
     """The plain PyTorch ``err * act'(y)``."""
     return activations.backward(torch, activation, y, err)
+
+
+def gemm_split_plain(a, b, bias=None, activation: str = activations.LINEAR,
+                     per=None):
+    """The plain PyTorch ``act(a @ b + bias)`` with K in slices of
+    ``per`` (the plan's by default): each slice's product, summed in
+    slice order, then bias and activation — the split kernel's
+    arithmetic."""
+    (m, k), n = a.shape, b.shape[1]
+    per = gemm_plan(m, n, k)["per"] if per is None else per
+    v = None
+    for lo in range(0, k, per):
+        part = a[:, lo:lo + per] @ b[lo:lo + per]
+        v = part if v is None else v + part
+    if bias is not None:
+        v = v + bias
+    return activations.forward(torch, activation, v)
+
+
+def gemm_tile(m: int, n: int) -> tuple:
+    """``(BM, BN)`` of the kernel's tile for an (m, ·) x (·, n) product,
+    the twin of ``gemm_bn`` in csrc/gemm.cu: 128 rows, and 128 columns
+    unless n <= 64."""
+    return 128, (64 if n <= 64 else 128)
+
+
+def whole_wave_splits(tiles: int, wave: int, k_tiles: int,
+                      max_waves: int) -> int:
+    """Slices of a K of ``k_tiles`` k tiles for ``tiles`` output tiles,
+    ``wave`` blocks resident at once, the twin of ``whole_wave_splits``
+    in csrc/tile_f32.cuh: the count whose grid fills its last wave best
+    over at most ``max_waves`` waves, the fewest on a tie, each slice a
+    whole number of k tiles.  For w waves the fullest grid takes the most
+    slices that fit, floor(w·wave / tiles) (fewer once whole k tiles
+    round them), so those few counts are the only candidates."""
+    best, best_waves = 0, 1
+    for w in range(1, max_waves + 1):
+        s = min(max(1, w * wave // tiles), k_tiles)
+        sp = math.ceil(k_tiles / math.ceil(k_tiles / s))  # whole k tiles
+        waves = math.ceil(sp * tiles / wave)
+        if sp * best_waves > best * waves:          # a fuller last wave
+            best, best_waves = sp, waves
+    return best
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(m: int, n: int, k: int) -> tuple:
+    bm, bn = gemm_tile(m, n)
+    k_tiles = math.ceil(k / K_TILE)
+    splits = whole_wave_splits(math.ceil(m / bm) * math.ceil(n / bn),
+                               SMS * GEMM_TILES[(bm, bn)], k_tiles,
+                               GEMM_MAX_WAVES)
+    per = math.ceil(k_tiles / splits) * K_TILE
+    return bm, bn, math.ceil(k / per), per
+
+
+def gemm_plan(m: int, n: int, k: int) -> dict:
+    """The kernel's schedule for an (m, k) x (k, n) product, the twin of
+    ``gemm_plan`` in csrc/gemm.cu: its tile (:func:`gemm_tile`), and K in
+    ``splits`` slices of ``per`` — with ``wave`` = SMS x the tile's
+    resident blocks, the slice count whose grid fills its last wave best
+    over at most ``GEMM_MAX_WAVES`` waves (the fewest slices on a tie),
+    each slice a whole number of k tiles, none empty
+    (:func:`whole_wave_splits`, the conv weight gradient's rule).  Also
+    its blocks and the tile's resident blocks an SM."""
+    bm, bn, splits, per = _plan(m, n, k)
+    return {"tile": [bm, bn], "splits": splits, "per": per,
+            "blocks": math.ceil(m / bm) * math.ceil(n / bn) * splits,
+            "blocks_per_sm": GEMM_TILES[(bm, bn)]}
 
 
 def _bound_of(flops: float, nbytes: float, peak: float = F32_FLOPS) -> dict:
@@ -143,8 +227,12 @@ def _library():
     if _lib is None:
         lib = _build.load("gemm")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.znicz_gemm_f32.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
+        lib.znicz_gemm_f32.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
         lib.znicz_gemm_f32.restype = i32
+        lib.znicz_gemm_f32_plan.argtypes = [i32] * 3 + [ptr]
+        lib.znicz_gemm_f32_plan.restype = i32
+        lib.znicz_gemm_f32_residency.argtypes = [i32] * 3
+        lib.znicz_gemm_f32_residency.restype = i32
         lib.znicz_act_backward_f32.argtypes = [ptr] * 3 + [
             ctypes.c_longlong, i32, ptr]
         lib.znicz_act_backward_f32.restype = i32
@@ -152,6 +240,31 @@ def _library():
         lib.znicz_gemm_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def gemm_plan_on_card(m: int, n: int, k: int) -> dict:
+    """The kernel's schedule as ``csrc/gemm.cu`` computes it on this
+    card (:func:`gemm_plan`'s keys), its residency from the CUDA
+    occupancy calculator."""
+    out = (ctypes.c_int * 5)()
+    _raise_on(_library().znicz_gemm_f32_plan(m, n, k, out), "gemm_fc plan")
+    bm, bn, per_sm, splits, per = out
+    return {"tile": [bm, bn], "splits": splits, "per": per,
+            "blocks": math.ceil(m / bm) * math.ceil(n / bn) * splits,
+            "blocks_per_sm": per_sm}
+
+
+def gemm_residency_on_card(layouts: bool = False) -> dict:
+    """``{"BMxBN": resident blocks an SM}`` of each tile on this card
+    (the least over its four operand layouts, as the plan takes it), or
+    with ``layouts`` each instantiation's, keyed ``"BMxBN/trans_a,
+    trans_b"``."""
+    if not layouts:
+        return {f"{bm}x{bn}": gemm_plan_on_card(bm, bn, K_TILE)[
+            "blocks_per_sm"] for bm, bn in GEMM_TILES}
+    lib = _library()
+    return {f"{bm}x{bn}/{ta},{tb}": lib.znicz_gemm_f32_residency(bn, ta, tb)
+            for bm, bn in GEMM_TILES for ta in (0, 1) for tb in (0, 1)}
 
 
 def _raise_on(rc: int, what: str) -> None:
@@ -182,11 +295,15 @@ def gemm_fc(a, b, bias=None, activation: str = activations.LINEAR):
     trans_a, trans_b = _stored(a, "a"), _stored(b, "b")
     if a.device.type == "cpu":
         return fc_forward_plain(a, b, bias, activation)
+    _, _, splits, per = _plan(m, n, k)
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    part = torch.empty((splits, m, n), dtype=torch.float32,
+                       device=a.device) if splits > 1 else None
     rc = _library().znicz_gemm_f32(
         a.data_ptr(), b.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(), m, n, k,
-        trans_a, trans_b, _ACT_CODES[activation],
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(), m, n, k, trans_a,
+        trans_b, _ACT_CODES[activation], splits, per,
         torch.cuda.current_stream(a.device).cuda_stream)
     _raise_on(rc, "gemm_fc")
     gemm_launches += 1
