@@ -199,6 +199,7 @@ from znicz_tpu_torch.models import mnist_fc as tmnist
 from znicz_tpu_torch.ops import activations
 from znicz_tpu_torch.ops import deconv as tdeconv_ops
 from znicz_tpu_torch.ops import kohonen as tk_ops
+from znicz_tpu_torch.ops import pooling as tpool_ops
 from znicz_tpu_torch.observe.trace import TRACER
 from znicz_tpu_torch.parallel.transformer import (init_params,
                                                   make_logits_fn,
@@ -432,6 +433,11 @@ DECODE_EDGE_LENGTHS = {"split_boundaries": [64, 128, 192, 2048, 1024, 63,
                        "all_one": [1] * SLOTS}
 
 
+#: kernel phase, past one block's 32 heads: this many heads (two head
+#: blocks a split and slot), bf16, at the serving view and mix of lengths
+WIDE_HEADS = 64
+
+
 def _decode_case(q, k, v, pt, ln) -> dict:
     """The kernel at one input against its plain version, two launches
     bit for bit, the launch counted once a call."""
@@ -460,7 +466,10 @@ def phase_kernel() -> dict:
     spin kernel ahead of the start event (``lead``: a 20 µs call must not
     be timed as its wrapper's host issue); its two kernels apart
     (``torch.profiler``), and the call at every slot of length 1 (the
-    fixed cost) and of the whole view."""
+    fixed cost) and of the whole view.  Then WIDE_HEADS heads at head_dim
+    64 and 128 in bf16, against the plain version with the same control
+    and timed beside the bound (on a tree whose kernel stops at 32
+    heads this case is recorded as not run)."""
     rng = np.random.default_rng(SEED)
     lengths = rng.permutation([1, 17, 300, 700, 1024, 1500, 2000, 2048])
     lengths = [int(n) for n in lengths]
@@ -532,9 +541,11 @@ def phase_kernel() -> dict:
             if dtype == torch.bfloat16 and head_dim == D // HEADS:
                 timed = t
             del args, q, k, v, pt, ln
+    wide = _wide_heads_cases(rng, lengths)
     # the serving shapes: bf16, head_dim 64, the widest page view
     return {"phase": "kernel", "ptxas": ptxas_usage("paged_decode"),
             "checks": checks, "atol": KERNEL_ATOL, "lengths": lengths,
+            "wide_heads": wide,
             "shape": {"B": SLOTS, "H": HEADS, "Dh": D // HEADS,
                       "page": PAGE, "P": -(-MAX_LEN // PAGE),
                       "dtype": "bfloat16"},
@@ -543,6 +554,49 @@ def phase_kernel() -> dict:
                                            "bound_ms", "bound_by",
                                            "bound_bytes", "splits")},
             "max_abs_err": max(c["max_abs_err"] for c in checks)}
+
+
+def _wide_heads_cases(rng, lengths) -> list:
+    """The decode kernel at WIDE_HEADS heads, bf16, head_dim 64 and 128:
+    within KERNEL_ATOL of the plain version, bit-identical across two
+    launches, the band rejecting the split control; timed beside its
+    bound and the plain version."""
+    if not hasattr(kdecode, "HEADS_PER_BLOCK"):
+        return [{"heads": WIDE_HEADS, "run": False,
+                 "note": "this tree's kernel takes at most 32 heads"}]
+    rows = []
+    for head_dim in kdecode.HEAD_DIMS:
+        args = decode_inputs(rng, torch.bfloat16, head_dim, lengths,
+                             heads=WIDE_HEADS)
+        q, k, v, pt, ln = args
+        pps, splits = kdecode.decode_split(SLOTS, pt.shape[1], PAGE,
+                                           WIDE_HEADS)
+        case = _decode_case(*args)
+        longest = int(ln.argmax())
+        pt_bad = pt.clone()
+        pt_bad[longest, pps:2 * pps] = pt[longest, :pps]
+        control = float((case.pop("_out") - kdecode.paged_decode_plain(
+            q, k, v, pt_bad, ln)).abs().max())
+        nbytes = kdecode.bound_bytes(q, k, pt, ln)
+        row = {"heads": WIDE_HEADS, "head_dim": head_dim,
+               "dtype": "bfloat16", "pages_per_split": pps,
+               "splits": splits,
+               "blocks": splits * SLOTS * kdecode.head_blocks(WIDE_HEADS),
+               "control_max_abs_err": control, **case,
+               "ms": time_cuda_ms(lambda: kdecode.paged_decode(*args),
+                                  lead=True),
+               "plain_ms": time_cuda_ms(
+                   lambda: kdecode.paged_decode_plain(*args), lead=True),
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes"}
+        rows.append(row)
+        if not (row["max_abs_err"] <= KERNEL_ATOL and row["deterministic"]):
+            fail(f"decode at {WIDE_HEADS} heads vs plain: {row}")
+        if not control > KERNEL_ATOL:
+            fail(f"the decode band passes its control at {WIDE_HEADS} "
+                 f"heads ({row})")
+        del args, q, k, v, pt, ln
+    return rows
 
 
 def _kernel_key(mangled: str) -> str:
@@ -1155,11 +1209,76 @@ def _adam_compare(leaves, h, bs, control_bs) -> dict:
     return out
 
 
+def _adam_leaf_hyper(h) -> list:
+    """Per-leaf (lr, wd, c1, c2) on the card for bench_fc's six leaves,
+    as the fused step passes them: lr and wd differ between w and b,
+    and each layer has its own step count (t = 3, 4, 5)."""
+    out = []
+    for i in range(6):
+        t = _dev(np.float32(3 + i // 2))
+        scale = 1.0 if i % 2 == 0 else 2.0
+        out.append((h["lr"] * scale, h["wd"] * (2 - scale),
+                    1.0 - h["b1"] ** t, 1.0 - h["b2"] ** t))
+    return out
+
+
+def _adam_multi_compare(leaves, h, bs) -> dict:
+    """One adam_update_multi_ call over the six leaves with per-leaf
+    scalars against six one-leaf adam_update_ launches and the plain
+    version leaf by leaf: bit for bit, one launch counted."""
+    per_leaf = _adam_leaf_hyper(h)
+    multi, single, plain = _clone(leaves), _clone(leaves), _clone(leaves)
+    before = koptim.adam_launches
+    koptim.adam_update_multi_(
+        [(lf["w"], lf["g"], lf["m"], lf["v"], *hl)
+         for lf, hl in zip(multi, per_leaf)], h["b1"], h["b2"], h["eps"], bs)
+    launches = koptim.adam_launches - before
+    for sl, pl, (lr, wd, c1, c2) in zip(single, plain, per_leaf):
+        koptim.adam_update_(sl["w"], sl["g"], sl["m"], sl["v"], lr, wd,
+                            h["b1"], h["b2"], h["eps"], c1, c2, bs)
+        koptim.adam_update_plain(pl["w"], pl["g"], pl["m"], pl["v"], lr, wd,
+                                 h["b1"], h["b2"], h["eps"], c1, c2, bs)
+    torch.cuda.synchronize()
+
+    def same(a, b):
+        return all(torch.equal(x[n], y[n]) for x, y in zip(a, b)
+                   for n in ("w", "m", "v"))
+    return {"launches": launches, "identical_to_one_leaf": same(multi, single),
+            "identical_to_plain": same(multi, plain)}
+
+
+def _adam_grids(shapes) -> dict:
+    """The AdamW grid from optim.cu on this card (its occupancy
+    calculator's residency) against ``kernels/optim.py adam_grid`` at
+    bench_fc's leaves and at launches of a few vectors or scalars."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    vecs, tails, _, _ = koptim.adam_spaces(
+        [(int(np.prod(s)), True) for s in shapes])
+    cases = [(vecs, tails), (1000, 3), (0, 3), (1, 0), (10 ** 7, 0),
+             (0, 300000), (5, 2 ** 20)]
+    rows = []
+    for v, t in cases:
+        card = koptim.adam_grid_on_card(v, t)
+        rows.append({"vecs": v, "tails": t, **card,
+                     "twin": koptim.adam_grid(v, t, card["blocks_per_sm"],
+                                              sms)})
+    if any(r["blocks"] != r["twin"] for r in rows):
+        fail(f"optim.cu's AdamW grid differs from adam_grid: {rows}")
+    return {"sms": sms, "blocks_per_sm": rows[0]["blocks_per_sm"],
+            "bench_fc": rows[0], "plans_equal": len(rows)}
+
+
 def phase_optim() -> dict:
     """The update kernels against their plain versions on bench_fc's six
     leaves (SGD with f32 and bf16 velocity, AdamW), each with the bs = 1
-    control; then one step over the six leaves timed against the plain
-    version and torch.optim's fused optimizers."""
+    control, and AdamW's one launch over the six leaves against six
+    one-leaf launches and the plain version, bit for bit, its grid
+    against its Python twin; then one step over the six leaves timed
+    against the plain version and torch.optim's fused optimizers (AdamW
+    one call), the kernels and the library with a spin kernel ahead of
+    the start event (``lead``: six wrapper calls can take as long on the
+    host as the step on the device).  On a tree without the multi-leaf
+    entry (a parent's) AdamW's step is its six launches."""
     rng = np.random.default_rng(SEED + 9)
     shapes = fc_leaf_shapes()
     bs = _dev(np.float32(FC_BATCH))
@@ -1192,6 +1311,14 @@ def phase_optim() -> dict:
         fail(f"adam_update_ vs plain outside the band: {out['adam']}")
     if not all(control[f"{n}_rel"] > OPTIM_TOL for n in ("w", "m", "v")):
         fail(f"the adam bands pass the bs = 1 control: {out['adam']}")
+    multi = getattr(koptim, "adam_update_multi_", None)
+    if multi is not None:
+        out["adam"]["multi"] = _adam_multi_compare(adam_leaves, ah, bs)
+        if out["adam"]["multi"] != {"launches": 1,
+                                    "identical_to_one_leaf": True,
+                                    "identical_to_plain": True}:
+            fail(f"adam_update_multi_ over six leaves: {out['adam']}")
+        out["adam_grid"] = _adam_grids(shapes)
 
     # one step = six launches, timed on the bf16-velocity state (bench_fc)
     # and the AdamW state; the library yardsticks update clones of the
@@ -1211,6 +1338,11 @@ def phase_optim() -> dict:
                    ah["c2"], bs)
         return run
 
+    def adam_multi_step(leaves):
+        batch = [(leaf["w"], leaf["g"], leaf["m"], leaf["v"], ah["lr"],
+                  ah["wd"], ah["c1"], ah["c2"]) for leaf in leaves]
+        return lambda: multi(batch, ah["b1"], ah["b2"], ah["eps"], bs)
+
     def library(opt_cls, leaves, **kw):
         params = []
         for leaf in leaves:
@@ -1225,26 +1357,31 @@ def phase_optim() -> dict:
                             ("sgd_vel_float32", torch.float32)):
         leaves = sgd_state[vel_dtype]
         timed[name] = {
-            "ms": time_cuda_ms(sgd_step(koptim.sgd_update_, leaves)),
+            "ms": time_cuda_ms(sgd_step(koptim.sgd_update_, leaves),
+                               lead=True),
             "plain_ms": time_cuda_ms(sgd_step(koptim.sgd_update_plain,
                                               leaves)),
             "library_ms": time_cuda_ms(library(
                 torch.optim.SGD, leaves, lr=OPTIM_HYPER["lr"],
                 momentum=OPTIM_HYPER["mom"],
-                weight_decay=OPTIM_HYPER["wd"])),
+                weight_decay=OPTIM_HYPER["wd"]), lead=True),
             "library_note": "torch.optim.SGD(momentum, fused=True), f32 "
                             "state: the same update up to folding lr "
                             "into the momentum, without the L1 mix and "
                             "without bf16 state",
             **koptim.sgd_bound(shapes, vel_dtype)}
     timed["adam"] = {
-        "ms": time_cuda_ms(adam_step(koptim.adam_update_, adam_leaves)),
+        "ms": time_cuda_ms(adam_step(koptim.adam_update_, adam_leaves)
+                           if multi is None
+                           else adam_multi_step(adam_leaves), lead=True),
+        "launches_a_step": 6 if multi is None else 1,
         "plain_ms": time_cuda_ms(adam_step(koptim.adam_update_plain,
                                            adam_leaves)),
         "library_ms": time_cuda_ms(library(
             torch.optim.AdamW, adam_leaves, lr=ADAM_HYPER["lr"],
             betas=(ADAM_HYPER["b1"], ADAM_HYPER["b2"]),
-            eps=ADAM_HYPER["eps"], weight_decay=ADAM_HYPER["wd"])),
+            eps=ADAM_HYPER["eps"], weight_decay=ADAM_HYPER["wd"]),
+            lead=True),
         "library_note": "torch.optim.AdamW(fused=True) on the grads "
                         "divided by bs: the same function",
         **koptim.adam_bound(shapes)}
@@ -1365,8 +1502,9 @@ def phase_mnist_fused() -> dict:
     """bench_fc's configuration (bench.py:303-313) through build_fused on
     the card: K-step train_steps calls (one warm, FUSED_REPS timed with
     CUDA events, one profiled), then one epoch through Workflow.run; then
-    AdamW for a few steps.  The update kernels' counters are set to 0
-    just before each path and read just after."""
+    AdamW for a few steps, one update launch a step.  The update
+    kernels' counters are set to 0 just before each path and read just
+    after."""
     from torch.profiler import ProfilerActivity, profile
 
     w = _fused_workflow(optimizer_config={"state_dtype": "bfloat16"})
@@ -1426,9 +1564,12 @@ def phase_mnist_fused() -> dict:
     m = wa.step.train_steps(xs[:ADAM_K], ys[:ADAM_K], ms[:ADAM_K])
     adam_loss = float(m["loss"]) / (FC_BATCH * ADAM_K)
     adam_n = koptim.adam_launches                    # ... read just after
-    if not np.isfinite(adam_loss) or adam_n < 6 * ADAM_K:
+    # one launch a step for all six leaves (six, one a leaf, on a tree
+    # without the multi-leaf entry)
+    adam_want = ADAM_K * (1 if hasattr(koptim, "adam_update_multi_") else 6)
+    if not np.isfinite(adam_loss) or adam_n != adam_want:
         fail(f"adam: loss {adam_loss}, {adam_n} launches over {ADAM_K} "
-             f"steps")
+             f"steps (want {adam_want})")
     return {"phase": "mnist_fused",
             "config": {"layers": list(FC_LAYERS), "batch": FC_BATCH,
                        "optimizer": "sgd", "momentum": 0.9, "lr": 0.05,
@@ -2017,11 +2158,87 @@ def _conv_fc_weights(w) -> dict:
             for f in w.forwards if f.weights}
 
 
+#: the max-pool backward at AlexNet's pool1 (k3 s2 over 55 x 55 x 96 at
+#: batch 128): a peak at every (4p + 2, 4q + 2) of the input is the
+#: maximum of every window that holds it, so each inner peak wins all
+#: four of its windows (13 x 13 cells a channel); the scatter_add_ form
+#: the port had before runs this many times beside the deterministic one
+POOL_BWD_SHAPE, POOL_BWD_WINDOW = (128, 55, 55, 96), (3, 3, 2, 2)
+POOL_BWD_FOUR_TERM_CELLS = 128 * 96 * 13 * 13
+POOL_BWD_OLD_RUNS = 4
+
+
+def pool_backward_check() -> dict:
+    """``ops/pooling.py scatter_backward`` at AlexNet's pool1 on the card:
+    offsets from the port's max-pool forward over an input whose peaks
+    win four windows each, a normal error; two runs bit-identical and
+    equal to ``np.add.at`` (the numpy branch, the reference's code) on
+    the host's copy, each timed.  The old ``scatter_add_`` form (atomics)
+    runs POOL_BWD_OLD_RUNS times beside it: whether its runs differ from
+    each other and from ``np.add.at`` is recorded, not gated."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 41)
+    n, h, w, c = POOL_BWD_SHAPE
+    ky, kx, sy, sx = POOL_BWD_WINDOW
+    x = torch.rand(POOL_BWD_SHAPE, generator=gen, device=DEVICE)
+    x[:, 2::4, 2::4] += 10.0
+    _, off = tpool_ops.max_forward(torch, x, ky, kx, sy, sx)
+    del x
+    err = torch.randn(off.shape, generator=gen, device=DEVICE)
+    flat = off.reshape(n, -1, c).long()
+    terms = torch.zeros((n, h * w, c), dtype=torch.int32, device=DEVICE)
+    terms.scatter_add_(1, flat, torch.ones_like(flat, dtype=torch.int32))
+    four = int((terms == 4).sum())
+    if four != POOL_BWD_FOUR_TERM_CELLS:
+        fail(f"pool backward input: {four} four-term cells, want "
+             f"{POOL_BWD_FOUR_TERM_CELLS}")
+
+    def run():
+        return tpool_ops.scatter_backward(torch, err, off, POOL_BWD_SHAPE,
+                                          POOL_BWD_WINDOW)
+
+    def old():
+        out = torch.zeros((n, h * w, c), device=DEVICE)
+        out.scatter_add_(1, flat, err.reshape(n, -1, c))
+        return out.reshape(POOL_BWD_SHAPE)
+
+    first, second = run(), run()
+    olds = [old() for _ in range(POOL_BWD_OLD_RUNS)]
+    torch.cuda.synchronize()
+    want = tpool_ops.scatter_backward(np, err.cpu().numpy(),
+                                      off.cpu().numpy(), POOL_BWD_SHAPE)
+
+    def bits_of(t):
+        return t.cpu().numpy().view(np.int32)
+    out = {"shape": list(POOL_BWD_SHAPE), "window": list(POOL_BWD_WINDOW),
+           "four_term_cells": four,
+           "cells_of_3_or_more_terms": int((terms >= 3).sum()),
+           "identical_runs": bool(torch.equal(first, second)),
+           "equals_np_add_at": bool(np.array_equal(bits_of(first),
+                                                   want.view(np.int32))),
+           "old_runs": POOL_BWD_OLD_RUNS,
+           "old_runs_differ": any(not torch.equal(olds[0], o)
+                                  for o in olds[1:]),
+           "old_runs_equal_np_add_at": [
+               bool(np.array_equal(bits_of(o), want.view(np.int32)))
+               for o in olds],
+           "old_max_abs_diff": float((olds[0] - first).abs().max()),
+           "ms": time_cuda_ms(run, iters=10),
+           "old_ms": time_cuda_ms(old, iters=10)}
+    if not (out["identical_runs"] and out["equals_np_add_at"]):
+        fail(f"scatter_backward on the card is not np.add.at's: {out}")
+    return out
+
+
+def phase_pool_backward() -> dict:
+    return {"phase": "pool_backward", **pool_backward_check()}
+
+
 def phase_alexnet_eager() -> dict:
     """alexnet.build(fused=False) at its defaults on TorchDevice() through
     Workflow.run: every conv layer on the conv kernels, fc6/fc7 on the FC
     kernels, the conv and FC counters set to 0 just before the run and
-    read just after; one train minibatch profiled."""
+    read just after; one train minibatch profiled; then the max-pool
+    backward's determinism at pool1 (:func:`pool_backward_check`)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     tprng.seed_all(SEED)
@@ -2153,6 +2370,8 @@ def phase_alexnet_eager() -> dict:
              f"eval minibatches")
     if not conv_ms > 0:
         fail(f"the profiled minibatch shows no conv kernel: {out}")
+    del w
+    out["pool_backward"] = pool_backward_check()
     return out
 
 
@@ -2738,6 +2957,11 @@ POOL_CASES = (((100, 28, 28, 32), 2, 2, False), ((100, 14, 14, 64), 2, 2,
               ((128, 55, 55, 96), 3, 2, False), ((3, 9, 8, 5), 3, 2, False),
               ((3, 9, 8, 5), 3, 2, True), ((4, 11, 13, 6), 2, 2, False),
               ((4, 11, 13, 6), 2, 2, True), ((2, 7, 5, 4), 2, 3, True))
+#: the one-element path beside the four-channel one: three channels
+#: (c % 4 != 0) and MNIST conv's pool2 with x 4 bytes off 16-byte
+#: alignment (input shape, window side, stride, abs variant, aligned)
+POOL_PATH_CASES = (((100, 28, 28, 3), 2, 2, False, True),
+                   ((100, 14, 14, 64), 2, 2, False, False))
 #: the timed shapes: MNIST conv's pool1 and pool2 (batch 100; one of each
 #: a minibatch) and AlexNet's pool1 (batch 128, k3 s2), the largest
 POOL_TIMED = (("mnist_pool1", (100, 28, 28, 32), 2, 2),
@@ -2782,11 +3006,22 @@ def phase_stochastic_pool() -> dict:
     through bits= (y, the taps, the offsets) over POOL_CASES with windows
     of zero mass, and through seed=; the winners' frequencies over a
     fixed window within a chi-square band that the 16-bit control fails;
-    then the kernel, the plain version and the bound at POOL_TIMED."""
+    then the kernel (with a spin kernel ahead of the start event, and
+    its device time alone from the profiler), the plain version and the
+    bound at POOL_TIMED.  The
+    cases of POOL_PATH_CASES take the one-element path, the others with
+    c % 4 == 0 four channels a thread (each check names its path where
+    the tree has both)."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 21)
+    path_of = getattr(kpool, "four_channel_path", None)
     checks = []
-    for shape, k, s, use_abs in POOL_CASES:
+    for shape, k, s, use_abs, aligned in \
+            [case + (True,) for case in POOL_CASES] + list(POOL_PATH_CASES):
         x = torch.randn(shape, generator=gen, device=DEVICE)
+        if not aligned:
+            store = torch.empty(x.numel() + 1, device=DEVICE)
+            store[1:] = x.reshape(-1)
+            x = store[1:].view(shape)
         # a block of windows with zero mass: x <= 0 (x = 0 for |x|)
         z = s + k                   # the rows and columns of 2 x 2 windows
         x[0, :z, :z] = 0.0 if use_abs else -x[0, :z, :z].abs()
@@ -2803,13 +3038,20 @@ def phase_stochastic_pool() -> dict:
                     torch.equal(taps, _taps_of(off_p, shape[2], k, s, s)))
         zero_mass = bool((taps[0, :2, :2] == 0).all())
         checks.append({"shape": list(shape), "k": k, "s": s,
-                       "abs": use_abs, "identical": same,
+                       "abs": use_abs, "aligned": aligned,
+                       "four_channels": None if path_of is None else
+                       path_of(shape[3], k, k, x, y, off, bits),
+                       "identical": same,
                        "max_abs_err": float((y - y_p).abs().max()),
                        "zero_mass_tap0": zero_mass,
                        "taps_in_window": bool(((taps >= 0) &
                                                (taps < k * k)).all())})
         if not (same and zero_mass and checks[-1]["taps_in_window"]):
             fail(f"stochastic_pool bits= vs plain: {checks[-1]}")
+    if path_of is not None and not all(
+            c["four_channels"] == (c["aligned"] and c["shape"][3] % 4 == 0)
+            for c in checks):
+        fail(f"stochastic_pool took an unexpected path: {checks}")
     seeded = []
     for shape, k, s in ((100, 28, 28, 32), 2, 2), ((128, 55, 55, 96), 3, 2):
         x = torch.randn(shape, generator=gen, device=DEVICE)
@@ -2857,8 +3099,13 @@ def phase_stochastic_pool() -> dict:
                 counter_rng.random_bits(SEED, m, DEVICE))
 
         timed.append({"layer": name, "shape": list(shape), "k": k, "s": s,
+                      "four_channels": None if path_of is None else
+                      path_of(shape[3], k, k, x),
                       "ms": time_cuda_ms(lambda: kpool.stochastic_pool(
-                          x, k, k, s, s, seed=SEED)),
+                          x, k, k, s, s, seed=SEED), lead=True),
+                      "kernel_ms": kernel_ms_by_name(
+                          lambda: kpool.stochastic_pool(
+                              x, k, k, s, s, seed=SEED), "stochastic_pool"),
                       "plain_ms": time_cuda_ms(plain, iters=5),
                       "library_ms": None, **kpool.bound(shape, k, k, s, s)})
         del x
@@ -3819,7 +4066,9 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
     a deconv wrapper's its launches of one build_deep train minibatch at
     batch 64, the stochastic pool's its two launches of one MNIST conv
     minibatch, an LRN kernel's AlexNet's two norm layers; the dropout
-    kernel's are at 64 M elements.  Each conv.cu entry names the kernels
+    kernel's are at 64 M elements.  AdamW's launches are the fused
+    step's, one a step over all its leaves, and its ms one such call
+    over bench_fc's six.  Each conv.cu entry names the kernels
     it launches (``cuda_kernels``)."""
     def entry(name, source, replaces, launches, timed, max_abs_err,
               **extra):
@@ -3969,6 +4218,10 @@ def phase_waves() -> dict:
 PHASES_ALONE = {"kernel": lambda: phase_kernel(),
                 "flash": lambda: phase_flash(),
                 "gemm": lambda: phase_gemm(),
+                "optim": lambda: phase_optim(),
+                "mnist_fused": lambda: phase_mnist_fused(),
+                "stochastic_pool": lambda: phase_stochastic_pool(),
+                "pool_backward": lambda: phase_pool_backward(),
                 "conv": lambda: phase_conv(),
                 "alexnet_eager": lambda: phase_alexnet_eager(),
                 "deconv": lambda: phase_deconv(),

@@ -209,10 +209,60 @@ def test_decode_split_depends_on_shapes_only_and_covers_the_view(
 
 
 def test_supported_takes_up_to_32_heads():
+    """Up to 32 heads, and past them: a (split, slot) takes one block of
+    up to HEADS_PER_BLOCK heads each, so 40 and 64 heads are served as
+    the reference serves them; no head at all is not a shape."""
     assert kdecode.supported(64, torch.bfloat16, 8)
-    assert kdecode.supported(128, torch.float32, kdecode.MAX_HEADS)
-    assert not kdecode.supported(64, torch.bfloat16, kdecode.MAX_HEADS + 1)
+    assert kdecode.supported(128, torch.float32, kdecode.HEADS_PER_BLOCK)
+    assert kdecode.supported(64, torch.bfloat16, 40)
+    assert kdecode.supported(128, torch.bfloat16, 64)
     assert not kdecode.supported(64, torch.bfloat16, 0)
+    assert [kdecode.head_blocks(h) for h in (1, 32, 33, 40, 64, 65)] == \
+        [1, 1, 2, 2, 2, 3]
+
+
+#: past one block's 32 heads: (B, H, Dh, page, n_pages, P, lengths)
+HEAD_CASES = [(2, 40, 16, 8, 9, 3, (5, 24)), (2, 64, 8, 8, 9, 3, (1, 17))]
+
+
+@pytest.mark.parametrize("case", HEAD_CASES)
+def test_plain_matches_jax_past_32_heads(case):
+    """At 40 and 64 heads the plain version and the split twin (at the
+    split the wrapper takes for that head count) against the JAX Pallas
+    kernel in interpret mode and its jnp reference, f32, band 2e-5."""
+    *shape, lengths = case
+    args = _split_inputs(sum(shape), *shape, lengths)
+    want_kernel = np.asarray(paged_flash_decode(*args, interpret=True))
+    want_ref = np.asarray(reference(*args))
+    B, H, _, page, _, P = shape
+    pps, _ = kdecode.decode_split(B, P, page, H)
+    for got in (kdecode.paged_decode_plain(*_torch(*args)),
+                kdecode.paged_decode_split_plain(*_torch(*args), pps)):
+        assert got.shape == (B, H, shape[2])
+        np.testing.assert_allclose(got.numpy(), want_kernel, rtol=BAND,
+                                   atol=BAND)
+        np.testing.assert_allclose(got.numpy(), want_ref, rtol=BAND,
+                                   atol=BAND)
+
+
+@pytest.mark.parametrize("batch,pages,page", [(8, 128, 16), (1, 128, 16),
+                                              (8, 16, 16), (3, 2048, 1)])
+def test_decode_split_counts_head_blocks(batch, pages, page):
+    """Up to 32 heads the split is the one-block split it always was
+    (the serving path's launch does not move); past them it aims the
+    same ~SPLIT_BLOCKS blocks over the batch and the head blocks."""
+    base = kdecode.decode_split(batch, pages, page)
+    for heads in (1, 8, 32):
+        assert kdecode.decode_split(batch, pages, page, heads) == base
+    for heads in (40, 64, 96):
+        pps, splits = kdecode.decode_split(batch, pages, page, heads)
+        blocks = splits * batch * kdecode.head_blocks(heads)
+        assert 1 <= pps <= pages and \
+            (splits - 1) * pps < pages <= splits * pps
+        assert pps >= base[0]
+        if pps > -(-kdecode.MIN_SPLIT_ROWS // page):
+            assert blocks >= kdecode.SPLIT_BLOCKS // 2
+    assert kdecode.decode_split(8, 128, 16, 64) == (8, 16)
 
 
 @pytest.mark.cuda
@@ -236,3 +286,26 @@ def test_kernel_matches_plain_at_the_split_cases_on_card(dtype, case):
     torch.cuda.synchronize()
     assert torch.equal(out, again)
     torch.testing.assert_close(out, want, rtol=BAND, atol=BAND)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("heads", [40, 64])
+def test_kernel_matches_plain_past_32_heads_on_card(dtype, heads):
+    """Two head blocks a (split, slot), the second of 40 heads' holding
+    8: the kernel against the plain version at head_dim 64 and 128,
+    bit-identical across two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernel runs only on a card")
+    for head_dim in kdecode.HEAD_DIMS:
+        q, k, v, pt, ln = (torch.from_numpy(a).to("cuda") for a in
+                           _split_inputs(heads + head_dim, 4, heads,
+                                         head_dim, 16, 40, 8,
+                                         (1, 33, 100, 128)))
+        q, k, v = (t.to(dtype) for t in (q, k, v))
+        out = kdecode.paged_decode(q, k, v, pt, ln)
+        again = kdecode.paged_decode(q, k, v, pt, ln)
+        want = kdecode.paged_decode_plain(q, k, v, pt, ln)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        torch.testing.assert_close(out, want, rtol=BAND, atol=BAND)

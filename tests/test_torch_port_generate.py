@@ -180,6 +180,42 @@ def test_paged_decode_matches_jax_pallas_decoder(params):
     assert ours.stats()["decode_steps"] == 16
 
 
+@pytest.mark.parametrize("heads", [40, 64])
+def test_paged_decode_matches_jax_past_32_heads(heads):
+    """A one-layer model of 40 and 64 heads (head_dim 4) through both
+    paged planes for 4 batched steps: the port's decoder builds and
+    serves past one kernel block's 32 heads, as the reference does."""
+    params = jax_init_params(np.random.default_rng(heads), 1, 4 * heads,
+                             heads, 64, VOCAB)
+    kw = dict(heads=heads, max_len=32, batch=2, page=8)
+    jax_dec = JaxPagedKVDecoder(params, use_pallas=True, **kw)
+    ours = PagedKVDecoder(params, device="cpu", **kw)
+    pages, pos, tok = [], np.zeros(2, np.int32), np.zeros(2, np.int32)
+    for i, prompt in enumerate(_prompts(heads, [6, 11])):
+        pj, want = _admit(jax_dec, prompt)
+        pt_, got = _admit(ours, prompt)
+        assert pj == pt_
+        np.testing.assert_allclose(got, want, rtol=BAND, atol=BAND)
+        pages.append(pj)
+        pos[i], tok[i] = len(prompt), int(np.argmax(want))
+    for _ in range(4):
+        for i in range(2):
+            while len(pages[i]) * 8 < pos[i] + 1:
+                new = jax_dec.ledger.alloc(1)
+                assert ours.ledger.alloc(1) == new
+                pages[i] += new
+        pt = np.zeros((2, ours.view_bucket(max(map(len, pages)))),
+                      np.int32)
+        for i, pg in enumerate(pages):
+            pt[i, :len(pg)] = pg
+        want = jax_dec.decode_paged(pt, pos, tok)
+        got = ours.decode_paged(pt, pos, tok)
+        np.testing.assert_allclose(got, want, rtol=BAND, atol=BAND)
+        assert (got.argmax(1) == want.argmax(1)).all()
+        tok = want.argmax(1).astype(np.int32)
+        pos += 1
+
+
 def _drive_paged(dec, prompt, n_new, slot=0):
     """Hand-drive one greedy request through the paged plane."""
     pages, logits = _admit(dec, prompt)

@@ -99,6 +99,119 @@ def test_adam_matches_pallas_interpret(shape, as_tensors):
                                    atol=1e-6)
 
 
+#: bench_fc-like leaves at small width (784-64-64-10: w and b of three
+#: layers), with lr / wd per leaf (the fused step's lr and lr_b) and
+#: c1 / c2 per layer (each layer's own step count)
+MULTI_SHAPES = [(784, 64), (64,), (64, 64), (64,), (64, 10), (10,)]
+MULTI_T = (3.0, 3.0, 5.0, 5.0, 1.0, 1.0)
+MULTI_LR_WD = ((0.01, 1e-3), (0.02, 0.0), (0.01, 1e-3), (0.02, 0.0),
+               (0.005, 1e-2), (0.01, 0.0))
+
+
+def _multi_state(seed):
+    rng = np.random.default_rng(seed)
+    out = []
+    for shape in MULTI_SHAPES:
+        w, g = (rng.normal(size=shape).astype(np.float32) for _ in range(2))
+        m = (rng.normal(size=shape) * 0.1).astype(np.float32)
+        v = (np.abs(rng.normal(size=shape)) * 0.01).astype(np.float32)
+        out.append((w, g, m, v))
+    return out
+
+
+@pytest.mark.parametrize("as_tensors", [False, True])
+def test_adam_multi_matches_one_leaf_calls_and_pallas_interpret(as_tensors):
+    """One adam_update_multi_ call over six leaves with per-leaf lr, wd,
+    c1 and c2 equals six adam_update_ calls bit for bit and the JAX
+    package's fused_adam_update leaf by leaf in interpret mode (band
+    1e-5 / 1e-6); on the CPU it counts no launch."""
+    _, _, b1, b2, eps, bs = ADAM_ARGS
+    state = _multi_state(13)
+    conv = (lambda x: torch.tensor(x, dtype=torch.float32)) if as_tensors \
+        else (lambda x: x)
+    multi, single = ([_tensors(*arrays) for arrays in state]
+                     for _ in range(2))
+    leaves = []
+    for (w, g, m, v), t, (lr, wd) in zip(multi, MULTI_T, MULTI_LR_WD):
+        tt = conv(t)
+        leaves.append((w, g, m, v, conv(lr), conv(wd), 1.0 - conv(b1) ** tt,
+                       1.0 - conv(b2) ** tt))
+    before = koptim.adam_launches
+    koptim.adam_update_multi_(leaves, conv(b1), conv(b2), conv(eps),
+                              conv(bs))
+    assert koptim.adam_launches == before
+    for leaf, ops, (w, g, m, v), t, (lr, wd) in zip(
+            leaves, single, state, MULTI_T, MULTI_LR_WD):
+        koptim.adam_update_(*ops, *leaf[4:6], conv(b1), conv(b2),
+                            conv(eps), *leaf[6:], conv(bs))
+        for got, want in zip((leaf[0], leaf[2], leaf[3]),
+                             (ops[0], ops[2], ops[3])):
+            assert torch.equal(got, want)
+        refs = fused_adam_update(*map(jnp.asarray, (w, g, m, v)), t, lr, wd,
+                                 b1, b2, eps, bs, interpret=True)
+        for got, want in zip((leaf[0], leaf[2], leaf[3]), refs):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=1e-5, atol=1e-6)
+
+
+def test_adam_multi_refuses_bad_leaves():
+    w, g, m, v = (torch.ones(4, 4) for _ in range(4))
+    args = _adam_args(False)
+    leaf = (w, g, m, v, args[0], args[1], args[5], args[6])
+    shared = (args[2], args[3], args[4], args[7])
+    with pytest.raises(ValueError, match="no leaves"):
+        koptim.adam_update_multi_([], *shared)
+    with pytest.raises(ValueError, match="twice"):
+        koptim.adam_update_multi_([leaf, leaf], *shared)
+    with pytest.raises(ValueError, match="m must be"):
+        koptim.adam_update_multi_([(w, g, m.double(), v) + leaf[4:]],
+                                  *shared)
+
+
+#: leaf sizes (n, all operands 16-byte aligned) across leaf boundaries,
+#: tails of 1 to 3 elements, leaves of fewer than 4, an unaligned leaf
+#: (all of it scalar) and zero-vector leaves between others
+COVER_LEAVES = [
+    [(20037, True)],
+    [(7, True), (1, True), (4096, True), (3, True), (40961, True),
+     (10, True)],
+    [(1030, True), (2, True), (555, False), (9, True), (3000, True)],
+    [(3, False), (5, True), (1, True)],
+]
+
+
+@pytest.mark.parametrize("leaves", COVER_LEAVES)
+@pytest.mark.parametrize("blocks_per_sm", [1, 4, 8])
+def test_adam_grid_covers_every_element_exactly_once(leaves, blocks_per_sm):
+    """The kernel's index arithmetic (adam_cover, at the grid adam_grid
+    gives on a card of 132 SMs and on one of 3, and at one block) updates
+    every element of every leaf once and nothing else; the grid is at
+    most ADAM_WAVES waves and at least one block."""
+    vecs, tails, vec0, tail0 = koptim.adam_spaces(leaves)
+    assert vecs == sum(n // 4 for n, ok in leaves if ok)
+    assert vecs * 4 + tails == sum(n for n, _ in leaves)
+    want = [(i, e) for i, (n, _) in enumerate(leaves) for e in range(n)]
+    for sms in (132, 3, None):
+        blocks = 1 if sms is None else \
+            koptim.adam_grid(vecs, tails, blocks_per_sm, sms)
+        if sms is not None:
+            assert 1 <= blocks <= koptim.ADAM_WAVES * blocks_per_sm * sms
+        assert sorted(koptim.adam_cover(leaves, blocks)) == want
+
+
+def test_adam_grid_is_whole_waves_at_bench_fc():
+    """bench_fc's six leaves (5.0 M vectors, 2 scalars) fill ADAM_WAVES
+    whole waves; a launch of a few vectors takes a block a chunk."""
+    leaves = [(784 * 4096, True), (4096, True), (4096 * 4096, True),
+              (4096, True), (40960, True), (10, True)]
+    vecs, tails, _, _ = koptim.adam_spaces(leaves)
+    assert (vecs, tails) == (20037640 // 4, 2)
+    assert koptim.adam_grid(vecs, tails, 3) == koptim.ADAM_WAVES * 3 * 132
+    assert koptim.adam_grid(1000, 3, 3) == 2
+    assert koptim.adam_grid(0, 3, 3) == 1
+    assert koptim.adam_grid(0, 3000, 3) == 12
+
+
 @pytest.mark.parametrize("xp", ["numpy", "torch"])
 def test_ops_updates_match_the_reference_ops(xp):
     """``ops/sgd.py`` and ``ops/adam.py`` (both branches) against the
@@ -196,3 +309,47 @@ def test_kernels_match_plain_on_the_card():
         koptim.adam_update_plain(ref[0], g, ref[1], ref[2], *args)
         assert all(torch.equal(a, b) for a, b in zip(ker, ref))
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_adam_multi_on_the_card_is_the_one_leaf_kernel_bit_for_bit():
+    """adam_update_multi_ over 35 leaves (two launches: 32 and 3), one of
+    them unaligned and several with tails, against one-leaf launches and
+    the plain version: bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernels run only on a card")
+    rng = np.random.default_rng(8)
+    sizes = [int(n) for n in rng.integers(1, 5000, size=35)]
+    state = []
+    for n in sizes:
+        w, g, m = (torch.tensor(rng.normal(size=n), dtype=torch.float32,
+                                device="cuda") for _ in range(3))
+        state.append((w, g, m, m.abs() * 0.01))
+    args = [a.cuda() for a in _adam_args(True)]
+    lr, wd, b1, b2, eps, c1, c2, bs = args
+
+    def clone(i, j, x):
+        if (i, j) != (3, 0):
+            return x.clone()
+        store = torch.empty(x.numel() + 1, device="cuda")
+        store[1:] = x                   # leaf 3's w 4 bytes off alignment
+        return store[1:]
+
+    copies = [[[clone(i, j, x) for j, x in enumerate(leaf)]
+               for i, leaf in enumerate(state)] for _ in range(3)]
+    assert copies[0][3][0].data_ptr() % 16
+    before = koptim.adam_launches
+    koptim.adam_update_multi_(
+        [(w, g, m, v, lr * (i + 1), wd, c1, c2)
+         for i, (w, g, m, v) in enumerate(copies[0])], b1, b2, eps, bs)
+    assert koptim.adam_launches == before + 2
+    for i, ((w, g, m, v), (pw, pg, pm, pv)) in enumerate(
+            zip(copies[1], copies[2])):
+        koptim.adam_update_(w, g, m, v, lr * (i + 1), wd, b1, b2, eps, c1,
+                            c2, bs)
+        koptim.adam_update_plain(pw, pg, pm, pv, lr * (i + 1), wd, b1, b2,
+                                 eps, c1, c2, bs)
+    torch.cuda.synchronize()
+    for a, b, c in zip(*copies):
+        for i in (0, 2, 3):
+            assert torch.equal(a[i], b[i]) and torch.equal(a[i], c[i])

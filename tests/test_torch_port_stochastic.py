@@ -426,3 +426,44 @@ def test_stochastic_pool_kernel_matches_plain_on_the_card():
     torch.cuda.synchronize()
     assert kpool.launches == before + 1
     assert torch.equal(y, y_p) and torch.equal(off, off_p)
+
+
+def test_four_channel_path_takes_the_paths_shapes():
+    """The kernel's dispatch (``four_channel_path``): MNIST conv's 32
+    and 64 channels and AlexNet's 96 take four channels a thread; three
+    channels, a window of more than 16 taps or an operand off 16-byte
+    alignment take one element a thread."""
+    x = torch.zeros(64)
+    assert all(kpool.four_channel_path(c, k, k, x) for c, k in
+               ((32, 2), (64, 2), (96, 3), (4, 4)))
+    assert not kpool.four_channel_path(3, 2, 2, x)
+    assert not kpool.four_channel_path(6, 2, 2, x)
+    assert not kpool.four_channel_path(32, 5, 5, x)
+    assert not kpool.four_channel_path(32, 2, 2, x[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k,s", [((16, 27, 27, 32), 3, 2),
+                                       ((8, 28, 28, 3), 2, 2),
+                                       ((4, 11, 13, 96), 3, 2),
+                                       ((4, 14, 14, 64), 2, 2)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_both_kernel_paths_match_plain_on_the_card(shape, k, s, aligned):
+    """Four channels a thread (c % 4 == 0, aligned) and one element a
+    thread (c 3, or x 4 bytes off alignment) against the plain version,
+    bit for bit, through seed= and through bits=."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n = int(np.prod(shape))
+    store = torch.randn(n + 1, device="cuda")
+    x = (store[:n] if aligned else store[1:]).view(shape)
+    y, off = kpool.stochastic_pool(x, k, k, s, s, seed=5)
+    words = counter_rng.random_bits(5, y.numel(), "cuda")
+    y_p, off_p = kpool.stochastic_pool_plain(x, k, k, s, s, False, words)
+    bits = torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(
+        torch.int32).reshape(y.shape)
+    y_b, off_b = kpool.stochastic_pool(x, k, k, s, s, True, bits=bits)
+    y_pb, off_pb = kpool.stochastic_pool_plain(x, k, k, s, s, True, words)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_p) and torch.equal(off, off_p)
+    assert torch.equal(y_b, y_pb) and torch.equal(off_b, off_pb)

@@ -12,25 +12,30 @@
 // card's ~295 flop/byte ridge, so the least time is
 // sum(lengths) * H * 2 * Dh * sizeof(T) / 3.35 TB/s.
 //
-// Design: flash-decoding, split over pages, all heads in one block.
-//  - The grid is (split, slot).  Split s owns page-table entries [s*pps,
-//    (s+1)*pps); pps comes from the host's shapes alone (decode_split in
-//    kernels/decode.py: about two blocks an SM over the batch at the
-//    widest page view), never from lengths, which stay on the card.  A
-//    split that starts at or past lengths[b] writes the empty state (m =
-//    -1e30, l = 0, acc = 0) and exits, so a short slot costs one
-//    near-empty block a split and a long one fills the card.
-//  - One page of one slot, all H heads, is one contiguous run of page *
-//    H * Dh elements of the arena.  The block reads its split's page ids
-//    into shared memory once, then thread 0 streams the live rows in
-//    chunks of cr rows (the largest divisor of page whose rows fit 16
-//    KB an operand) by the TMA's 1-D bulk copy into a ring of up to 4 K+V
-//    stages on mbarriers, at most 96 KB: two blocks an SM, so every
-//    block of the widest view is resident at once, whichever slots are
-//    long, and two of a bf16 split's four pages are in flight while one
-//    is scored; no load waits on the page table.  Only live rows are
-//    read.
-//  - Warp h takes head h (H <= 32), q in registers.  TPR = Dh / VEC
+// Design: flash-decoding, split over pages, up to 32 heads a block.
+//  - The grid is (split, slot, head block).  Split s owns page-table
+//    entries [s*pps, (s+1)*pps); pps comes from the host's shapes alone
+//    (decode_split in kernels/decode.py: about two blocks an SM over the
+//    batch and the head blocks at the widest page view), never from
+//    lengths, which stay on the card.  A split that starts at or past
+//    lengths[b] writes the empty state (m = -1e30, l = 0, acc = 0) and
+//    exits, so a short slot costs one near-empty block a split and a long
+//    one fills the card.
+//  - Head block z takes heads [32z, min(H, 32z + 32)); at H <= 32 there
+//    is one, holding every head.  One page of one slot, all H heads, is
+//    one contiguous run of page * H * Dh elements of the arena, and a
+//    block's heads are one run of each row.  The block reads its split's
+//    page ids into shared memory once, then thread 0 streams the live
+//    rows in chunks of cr rows (the largest divisor of page whose rows
+//    fit 16 KB an operand) by the TMA's 1-D bulk copy (one copy of the
+//    chunk where the block holds every head, else one a row) into a ring
+//    of up to 4 K+V stages on mbarriers, at most 96 KB: two blocks an SM,
+//    so every block of the widest view is resident at once, whichever
+//    slots are long, and two of a bf16 split's four pages are in flight
+//    while one is scored; no load waits on the page table.  Only live
+//    rows are read.
+//  - Warp w takes head 32z + w, q in registers (the last head block's
+//    warps past H only keep the block's barriers).  TPR = Dh / VEC
 //    lanes share one key row (VEC elements of a 16-byte load each; the
 //    q.k partial sums meet by shuffle), so a warp scores 32 / TPR row
 //    groups at once, each two rows a step (loads and shuffles
@@ -60,7 +65,7 @@ namespace {
 using namespace znicz_hopper;
 
 constexpr float kMaskValue = -1e30f;  // the serve plane's mask constant
-constexpr int kMaxHeads = 32;         // one warp a head
+constexpr int kMaxHeads = 32;         // a block's heads, one warp each
 constexpr int kMaxStages = 4;
 constexpr int kRows = 2;  // key rows a row group scores at once
 // the combine: threads a block, and splits whose acc rows a round stages
@@ -101,26 +106,45 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p,
 
 // Chunk c of the split (rows c*cr.. of it, inside one page) into its
 // stage of the ring: K at `dst`, V stage_bytes after it, both counted on
-// the stage's mbarrier.  Thread 0 only.
-template <typename T>
+// the stage's mbarrier.  The block's heads are a run of each arena row of
+// H heads: a block of every head copies the chunk as one run, any other
+// block one run a row.  The run's place is recomputed here from the
+// block's indices, so the score loop keeps no register for it.  Thread 0
+// only.
+template <typename T, int DH>
 __device__ __forceinline__ void issue_chunk(
     const T* k_pages, const T* v_pages, const int* pages, int c, int cr,
-    int live, int page, size_t row_elems, uint32_t stage_bytes, int stages,
+    int live, int page, int H, uint32_t stage_bytes, int stages,
     uint32_t ring, uint32_t bar0) {
+  const int h0 = blockIdx.z * kMaxHeads;
+  const size_t row_elems = static_cast<size_t>(H) * DH;
+  const uint32_t row_bytes =
+      min(H - h0, static_cast<int>(blockDim.x) / 32) * DH * sizeof(T);
   const int s = c % stages, r = c * cr;
-  const uint32_t bytes = min(cr, live - r) * row_elems * sizeof(T);
+  const int rows = min(cr, live - r);
   const size_t off =
-      (static_cast<size_t>(pages[r / page]) * page + r % page) * row_elems;
+      (static_cast<size_t>(pages[r / page]) * page + r % page) * row_elems +
+      static_cast<size_t>(h0) * DH;
   const uint32_t bar = bar0 + 8 * s;
   const uint32_t dst = ring + 2u * s * stage_bytes;
-  mbar_expect_tx(bar, 2 * bytes);
-  bulk_load(dst, k_pages + off, bytes, bar);
-  bulk_load(dst + stage_bytes, v_pages + off, bytes, bar);
+  mbar_expect_tx(bar, 2u * rows * row_bytes);
+  if (row_bytes == row_elems * sizeof(T)) {
+    bulk_load(dst, k_pages + off, rows * row_bytes, bar);
+    bulk_load(dst + stage_bytes, v_pages + off, rows * row_bytes, bar);
+    return;
+  }
+  for (int i = 0; i < rows; ++i) {
+    bulk_load(dst + i * row_bytes, k_pages + off + i * row_elems, row_bytes,
+              bar);
+    bulk_load(dst + stage_bytes + i * row_bytes,
+              v_pages + off + i * row_elems, row_bytes, bar);
+  }
 }
 
-// One split of one slot: the partial state (acc[Dh], m, l) of each head
-// into ws[b][split][h].  The dynamic shared memory holds `stages` K+V
-// stages of `cr` rows each, then the split's page ids.
+// One split of one slot and one head block: the partial state (acc[Dh],
+// m, l) of each of its heads into ws[b][split][h].  The dynamic shared
+// memory holds `stages` K+V stages of `cr` rows of blockDim.x / 32 heads
+// each, then the split's page ids.
 template <typename T, int DH>
 __global__ void __launch_bounds__(kMaxHeads * 32, 1)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
@@ -138,7 +162,11 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   __shared__ __align__(8) uint64_t bars[kMaxStages];
 
   const int split = blockIdx.x, b = blockIdx.y;
-  const int h = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int hs = blockDim.x / 32;              // the heads a stage row holds
+  const int h0 = blockIdx.z * kMaxHeads;       // the block's first head
+  const int hb = min(H - h0, hs);              // and its number of heads
+  const int hl = threadIdx.x / 32, h = h0 + hl, lane = threadIdx.x % 32;
+  const bool active = hl < hb;                 // warp-uniform
   const int g = lane / TPR, sub = lane % TPR;
 
   // this thread's first page id is read beside the length, not after it
@@ -154,6 +182,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   float* part =
       ws + ((static_cast<size_t>(b) * gridDim.x + split) * H + h) * (DH + 2);
   if (live <= 0) {  // past the slot's length: the empty state
+    if (!active) return;
     for (int d = lane; d < DH; d += 32) part[d] = 0.f;
     if (lane == 0) {
       part[DH] = kMaskValue;
@@ -162,8 +191,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     return;
   }
 
-  const size_t row_elems = static_cast<size_t>(H) * DH;
-  const uint32_t stage_bytes = cr * row_elems * sizeof(T);  // one operand
+  const int srow = hb * DH;                               // a stage row
+  const uint32_t stage_bytes = cr * hs * DH * sizeof(T);  // one operand
   int* pages = reinterpret_cast<int*>(smem + 2u * stages * stage_bytes);
   const int n_pages_live = (live + page - 1) / page;
   for (int j = threadIdx.x; j < n_pages_live; j += blockDim.x) {
@@ -183,17 +212,18 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   const int n_chunks = (live + cr - 1) / cr;
   if (threadIdx.x == 0)
     for (int c = 0; c < stages && c < n_chunks; ++c)
-      issue_chunk(k_pages, v_pages, pages, c, cr, live, page, row_elems,
-                  stage_bytes, stages, ring, bar0);
+      issue_chunk<T, DH>(k_pages, v_pages, pages, c, cr, live, page, H,
+                         stage_bytes, stages, ring, bar0);
 
   float qv[VEC];
-  load16(q + (static_cast<size_t>(b) * H + h) * DH + sub * VEC, qv);
+  if (active)
+    load16(q + (static_cast<size_t>(b) * H + h) * DH + sub * VEC, qv);
   float m = kMaskValue, l = 0.f;
   float acc[VEC];
 #pragma unroll
   for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
 
-  const size_t col = static_cast<size_t>(h) * DH + sub * VEC;
+  const int col = hl * DH + sub * VEC;
   const float scale_log2 = sm_scale * kLog2e;  // scores in log2 units
 #pragma unroll 1
   for (int c = 0; c < n_chunks; ++c) {
@@ -208,7 +238,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     // every lane reaches the shuffles together, whatever its rows'
     // validity
 #pragma unroll 1
-    for (int base = 0; base < rows; base += G * kRows) {
+    for (int base = 0; active && base < rows; base += G * kRows) {
       float sc[kRows], vv[kRows][VEC];
       bool valid[kRows];
 #pragma unroll
@@ -218,8 +248,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
         sc[u] = 0.f;
         if (valid[u]) {
           float kv[VEC];
-          load16(ks + r * row_elems + col, kv);
-          load16(vs + r * row_elems + col, vv[u]);
+          load16(ks + r * srow + col, kv);
+          load16(vs + r * srow + col, vv[u]);
 #pragma unroll
           for (int i = 0; i < VEC; ++i) sc[u] += qv[i] * kv[i];
         }
@@ -251,8 +281,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     }
     __syncthreads();  // every warp is done with stage s: refill it
     if (threadIdx.x == 0 && c + stages < n_chunks)
-      issue_chunk(k_pages, v_pages, pages, c + stages, cr, live, page,
-                  row_elems, stage_bytes, stages, ring, bar0);
+      issue_chunk<T, DH>(k_pages, v_pages, pages, c + stages, cr, live, page,
+                         H, stage_bytes, stages, ring, bar0);
   }
 
   // every row is read: the combine may launch (a block that exits
@@ -273,7 +303,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
       acc[i] = acc[i] * a + __shfl_xor_sync(0xffffffffu, acc[i], off) * a_o;
     m = m_new;
   }
-  if (g == 0) {
+  if (active && g == 0) {
 #pragma unroll
     for (int i = 0; i < VEC; ++i) part[sub * VEC + i] = acc[i];
     if (sub == 0) {
@@ -360,7 +390,8 @@ cudaError_t run(const void* q, const void* k, const void* v, const void* pt,
                 const void* len, void* ws, void* out, int B, int H,
                 int n_pages, int page, int P, int pps, int splits,
                 float sm_scale, cudaStream_t stream) {
-  const size_t row_bytes = static_cast<size_t>(H) * DH * sizeof(T);
+  const int hs = H < kMaxHeads ? H : kMaxHeads;  // a block's heads
+  const size_t row_bytes = static_cast<size_t>(hs) * DH * sizeof(T);
   const int cr = chunk_rows(page, row_bytes);
   if (cr < 1) return cudaErrorInvalidValue;
   const int chunks = (pps * page + cr - 1) / cr;  // of a whole split
@@ -368,7 +399,9 @@ cudaError_t run(const void* q, const void* k, const void* v, const void* pt,
   while (stages > 1 && 2 * stages * cr * row_bytes > kRingBytes) --stages;
   const size_t smem = 2 * stages * cr * row_bytes + pps * sizeof(int);
   cudaError_t err = launch(
-      paged_decode_kernel<T, DH>, dim3(splits, B), 32 * H, smem, stream,
+      paged_decode_kernel<T, DH>,
+      dim3(splits, B, (H + kMaxHeads - 1) / kMaxHeads), 32 * hs, smem,
+      stream,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int32_t*>(pt),
       static_cast<const int32_t*>(len), static_cast<float*>(ws), H, n_pages,
@@ -394,10 +427,10 @@ cudaError_t run(const void* q, const void* k, const void* v, const void* pt,
 // dtype codes: 0 = bfloat16, 1 = float32.  ws is f32 scratch of B *
 // splits * H * (head_dim + 2); the page view's P entries go to splits of
 // pps each (splits = ceil(P / pps)).  Returns the cudaError_t of the
-// launches (0 = success); an unsupported (dtype, head_dim), more than 32
-// heads, a split count that does not cover the view or more than 4096
-// splits (the combine's shared memory) returns cudaErrorInvalidValue
-// without launching.
+// launches (0 = success); an unsupported (dtype, head_dim), a split
+// count that does not cover the view or more than 4096 splits (the
+// combine's shared memory) returns cudaErrorInvalidValue without
+// launching.
 extern "C" int znicz_paged_decode(int dtype, int head_dim, const void* q,
                                   const void* k_pages, const void* v_pages,
                                   const void* page_table,
@@ -406,7 +439,7 @@ extern "C" int znicz_paged_decode(int dtype, int head_dim, const void* q,
                                   int pps, int splits, float sm_scale,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B < 1 || H < 1 || H > kMaxHeads || page < 1 || P < 1 || pps < 1 ||
+  if (B < 1 || H < 1 || page < 1 || P < 1 || pps < 1 ||
       splits != (P + pps - 1) / pps || splits > kMaxSplits)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;

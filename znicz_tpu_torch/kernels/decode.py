@@ -14,8 +14,9 @@ least time is ``Σ lengths · H · 2 · Dh · itemsize / 3.35 TB/s``
 (:func:`bound_bytes`).  Design (flash-decoding; the source's header has
 the details): the page view is split into runs of pages
 (:func:`decode_split`, from the host's shapes alone), one block a (split,
-slot) with all heads, a warp a head; each block streams its split's live
-rows whole-page-contiguous by the TMA into a shared-memory ring and
+slot, head block) of up to ``HEADS_PER_BLOCK`` heads, a warp a head, so
+any head count is served; each block streams its split's live rows (its
+heads' run of each) by the TMA into a shared-memory ring and
 writes its partial softmax state to a workspace, and a second kernel
 merges the splits in split order (:func:`paged_decode_split_plain` is
 that arithmetic in PyTorch).
@@ -49,9 +50,11 @@ SOURCE = "znicz_tpu_torch/csrc/paged_decode.cu"
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 HEAD_DIMS = (64, 128)
-#: a block holds all heads, a warp each (kMaxHeads in the source)
-MAX_HEADS = 32
-#: blocks the page split aims at over the batch: two for each of the
+#: a block holds up to this many heads, a warp each (kMaxHeads in the
+#: source); more heads take more blocks
+HEADS_PER_BLOCK = 32
+#: blocks the page split aims at over the batch and the head blocks: two
+#: for each of the
 #: H100's 132 SMs (most slots are shorter than the view, and a split
 #: past a slot's length exits at once; four an SM, 32-row splits, was no
 #: faster on the H100 and doubled the combine's reads)
@@ -68,20 +71,27 @@ _lib = None
 
 def supported(head_dim: int, dtype, heads: int | None = None) -> bool:
     """Shapes the compiled kernel has instantiations for: head_dim 64
-    or 128 in bfloat16 or float32, at most ``MAX_HEADS`` heads (when
-    given); any page size works (a stage holds a divisor of it)."""
+    or 128 in bfloat16 or float32, and any head count of at least one
+    (when given); any page size works (a stage holds a divisor of it)."""
     return int(head_dim) in HEAD_DIMS and dtype in _DTYPE_CODES and \
-        (heads is None or 1 <= int(heads) <= MAX_HEADS)
+        (heads is None or int(heads) >= 1)
 
 
-def decode_split(batch: int, pages: int, page: int) -> tuple:
+def head_blocks(heads: int) -> int:
+    """The blocks a (split, slot) takes for ``heads`` heads."""
+    return -(-int(heads) // HEADS_PER_BLOCK)
+
+
+def decode_split(batch: int, pages: int, page: int, heads: int = 1) -> tuple:
     """``(pages_per_split, splits)`` of a page view of ``pages`` entries
-    of ``page`` rows for ``batch`` slots: about ``SPLIT_BLOCKS`` blocks
-    over the batch, no split under ``MIN_SPLIT_ROWS`` rows, and ``splits
-    = ceil(pages / pages_per_split)``, so no split lies wholly past the
+    of ``page`` rows for ``batch`` slots of ``heads`` heads: about
+    ``SPLIT_BLOCKS`` blocks over the batch and the head blocks (one up
+    to ``HEADS_PER_BLOCK`` heads, so the split is the same for every
+    such count), no split under ``MIN_SPLIT_ROWS`` rows, and ``splits =
+    ceil(pages / pages_per_split)``, so no split lies wholly past the
     view.  A function of the host's shapes only, never of the lengths
     (which stay on the card)."""
-    want = -(-SPLIT_BLOCKS // int(batch))
+    want = -(-SPLIT_BLOCKS // (int(batch) * head_blocks(heads)))
     pps = max(-(-int(pages) // want), -(-MIN_SPLIT_ROWS // int(page)))
     pps = min(pps, int(pages))
     return pps, -(-int(pages) // pps)
@@ -212,9 +222,8 @@ def paged_decode(q, k_pages, v_pages, page_table, lengths):
                          f"{q.device.type}")
     if not supported(Dh, q.dtype, H):
         raise ValueError(f"no paged_decode kernel for head_dim={Dh}, "
-                         f"dtype={q.dtype}, heads={H} (have head_dim "
-                         f"{HEAD_DIMS} in bfloat16/float32, 1 to "
-                         f"{MAX_HEADS} heads)")
+                         f"dtype={q.dtype} (have head_dim {HEAD_DIMS} in "
+                         f"bfloat16/float32)")
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
                     ("page_table", page_table), ("lengths", lengths)):
         if not t.is_contiguous():
@@ -222,7 +231,7 @@ def paged_decode(q, k_pages, v_pages, page_table, lengths):
         if name in ("q", "k_pages", "v_pages") and t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (the "
                              f"kernel reads rows in 16-byte loads)")
-    pps, splits = decode_split(B, P, page)
+    pps, splits = decode_split(B, P, page, H)
     if splits > MAX_SPLITS:
         raise ValueError(f"no paged_decode kernel for a view of {P} pages "
                          f"of {page} rows at batch {B}: {splits} splits > "

@@ -9,16 +9,22 @@ the bodies of ``ops/pallas/sgd.py`` (``fused_sgd_update``, ``:31``) and
   ``g = grad/bs + wd·((1-l1)·w + l1·sign w)``, ``vel = mom·vel + lr·g``,
   ``w -= vel``; ``vel`` may be stored in bf16 (f32 math, one rounded
   store);
+- :func:`adam_update_multi_` ``(leaves, b1, b2, eps, bs)``: in place
+  AdamW on every leaf ``(w, grad, m, v, lr, wd, c1, c2)`` of ``leaves``,
+  with the bias corrections ``c1 = 1 - b1^t`` and ``c2 = 1 - b2^t`` made
+  by the caller, outside the kernel, as the reference makes them
+  (``adam.py:43-45``); the fused step computes them on the device once
+  per layer from its step count, and updates all its leaves in one call;
 - :func:`adam_update_` ``(w, grad, m, v, lr, wd, b1, b2, eps, c1, c2,
-  bs)``: in place AdamW with the bias corrections ``c1 = 1 - b1^t`` and
-  ``c2 = 1 - b2^t`` made by the caller, outside the kernel, as the
-  reference makes them (``adam.py:43-45``); the fused step computes
-  them on the device once per layer from its step count.
+  bs)``: the same on one leaf.
 
 On CUDA tensors every scalar is a 0-d (or one-element) float32 tensor on
 the same device — the counterpart of the TPU kernel's SMEM pack — so a
 step's batch size (a device value) and an LR schedule's values reach the
-kernel with no host sync.  Each call updates one leaf with one launch.
+kernel with no host sync.  An SGD call updates one leaf with one launch;
+an AdamW call updates up to ``ADAM_LEAVES`` leaves a launch, the leaves
+read as one index space of 16-byte vectors (:func:`adam_grid` sizes its
+grid; :func:`adam_cover` is its index arithmetic in Python).
 
 The wrappers run the plain versions (:func:`sgd_update_plain`,
 :func:`adam_update_plain`, the ``ops/`` formulas in torch) on CPU tensors
@@ -49,6 +55,13 @@ SOURCE = "znicz_tpu_torch/csrc/optim.cu"
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 
+#: leaves an AdamW launch takes (kAdamLeaves in the source: its table is
+#: a kernel parameter, under 4 KB); threads a block, 16-byte vectors of
+#: each operand a thread loads before its math, and the most waves of
+#: resident blocks in its grid (kThreads, kUnroll, kAdamWaves)
+ADAM_LEAVES = 32
+ADAM_THREADS, ADAM_UNROLL, ADAM_WAVES = 256, 2, 4
+
 _VEL_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _lib = None
 
@@ -73,6 +86,64 @@ def adam_update_plain(w, grad, m, v, lr, wd, b1, b2, eps, c1, c2, bs):
         for x, new in zip((w, m, v), outs):
             x.copy_(new)
     return w, m, v
+
+
+def adam_spaces(leaves) -> tuple:
+    """``(vecs, tails, vec0, tail0)`` of an AdamW launch over ``leaves``,
+    ``(n, aligned)`` pairs, as the source builds its table: a leaf gives
+    ``n // 4`` 16-byte vectors where its operands are all 16-byte
+    aligned (else none), and its other elements to the scalar space;
+    ``vec0``/``tail0`` are each leaf's first index in the two spaces."""
+    vecs = tails = 0
+    vec0, tail0 = [], []
+    for n, aligned in leaves:
+        vec0.append(vecs)
+        tail0.append(tails)
+        v = int(n) // 4 if aligned else 0
+        vecs += v
+        tails += int(n) - 4 * v
+    return vecs, tails, vec0, tail0
+
+
+def adam_grid(vecs: int, tails: int, blocks_per_sm: int,
+              sms: int = 132) -> int:
+    """Blocks of an AdamW launch (``adam_grid`` in the source):
+    ``ADAM_WAVES`` waves of ``blocks_per_sm`` x ``sms``, or one block a
+    chunk of ``ADAM_UNROLL`` x ``ADAM_THREADS`` vectors where there are
+    fewer, and at least the blocks the scalars need."""
+    chunks = -(-int(vecs) // (ADAM_UNROLL * ADAM_THREADS))
+    want = max(chunks, -(-int(tails) // ADAM_THREADS), 1)
+    return min(want, ADAM_WAVES * int(blocks_per_sm) * int(sms))
+
+
+def adam_cover(leaves, blocks: int):
+    """The source's index arithmetic at ``blocks`` blocks over
+    ``leaves`` (``(n, aligned)`` pairs): yields ``(leaf, element)`` for
+    every element each thread updates, vectors first (chunks of
+    ``ADAM_UNROLL`` x ``ADAM_THREADS`` vectors, block b taking chunks b,
+    b + blocks, ...), then the scalars the grid strides over."""
+    vecs, tails, vec0, tail0 = adam_spaces(leaves)
+    count = len(vec0)
+    chunk = ADAM_UNROLL * ADAM_THREADS
+    for b in range(blocks):
+        for t in range(ADAM_THREADS):
+            leaf = 0
+            for base in range(b * chunk + t, vecs, blocks * chunk):
+                for u in range(ADAM_UNROLL):
+                    j = base + u * ADAM_THREADS
+                    while leaf + 1 < count and j >= vec0[leaf + 1]:
+                        leaf += 1
+                    if j < vecs:
+                        at = j - vec0[leaf]
+                        yield from ((leaf, 4 * at + e) for e in range(4))
+    for first in range(blocks * ADAM_THREADS):
+        leaf = 0
+        for s in range(first, tails, blocks * ADAM_THREADS):
+            while leaf + 1 < count and s >= tail0[leaf + 1]:
+                leaf += 1
+            n_vec = (vec0[leaf + 1] if leaf + 1 < count else vecs) - \
+                vec0[leaf]
+            yield leaf, 4 * n_vec + s - tail0[leaf]
 
 
 def _bound(leaves, bytes_per_param: int, flops_per_param: int) -> dict:
@@ -143,8 +214,13 @@ def _library():
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.znicz_sgd_update.argtypes = [i32, ptr, ptr, ptr, i64, ptr, ptr]
         lib.znicz_sgd_update.restype = i32
-        lib.znicz_adam_update.argtypes = [ptr] * 4 + [i64, ptr, ptr]
-        lib.znicz_adam_update.restype = i32
+        lib.znicz_adam_update_multi.argtypes = [i32, ptr, ptr, ptr, ptr,
+                                                ptr]
+        lib.znicz_adam_update_multi.restype = i32
+        lib.znicz_adam_grid.argtypes = [i64, i64]
+        lib.znicz_adam_grid.restype = i64
+        lib.znicz_adam_residency.argtypes = []
+        lib.znicz_adam_residency.restype = i32
         lib.znicz_optim_error_string.argtypes = [i32]
         lib.znicz_optim_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -178,23 +254,58 @@ def sgd_update_(w, grad, vel, lr, wd, l1, mom, bs):
     return w, vel
 
 
+def adam_update_multi_(leaves, b1, b2, eps, bs) -> None:
+    """One in-place AdamW step on every leaf ``(w, grad, m, v, lr, wd,
+    c1, c2)`` of ``leaves`` (all f32, distinct ``w``, one device), with
+    each leaf's bias corrections ``c1``, ``c2`` given and ``b1``, ``b2``,
+    ``eps`` and ``bs`` shared.  The plain version leaf by leaf on CPU
+    tensors; on CUDA tensors one launch for every ``ADAM_LEAVES`` leaves
+    (on the current stream)."""
+    global adam_launches
+    leaves = [tuple(leaf) for leaf in leaves]
+    if not leaves:
+        raise ValueError("no leaves to update")
+    device = leaves[0][0].device
+    for w, grad, m, v, *_ in leaves:
+        _check(w, grad=grad, m=m, v=v)
+        if w.device != device:
+            raise ValueError(f"leaves on {w.device} and {device}")
+        for name, x in (("grad", grad), ("m", m), ("v", v)):
+            if x.dtype != torch.float32:
+                raise ValueError(f"{name} must be float32, not {x.dtype}")
+    if len({leaf[0].data_ptr() for leaf in leaves}) != len(leaves):
+        raise ValueError("a leaf appears twice (its updates would race)")
+    if device.type == "cpu":
+        for w, grad, m, v, lr, wd, c1, c2 in leaves:
+            adam_update_plain(w, grad, m, v, lr, wd, b1, b2, eps, c1, c2, bs)
+        return
+    shared = _scalar_ptrs(device, b1=b1, b2=b2, eps=eps, bs=bs)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for first in range(0, len(leaves), ADAM_LEAVES):
+        group = leaves[first:first + ADAM_LEAVES]
+        ops = [t.data_ptr() for leaf in group for t in leaf[:4]]
+        hyper = [p for w, _, _, _, lr, wd, c1, c2 in group
+                 for p in _scalar_ptrs(device, lr=lr, wd=wd, c1=c1, c2=c2)]
+        rc = _library().znicz_adam_update_multi(
+            len(group), (ctypes.c_void_p * len(ops))(*ops),
+            (ctypes.c_longlong * len(group))(*(leaf[0].numel()
+                                               for leaf in group)),
+            (ctypes.c_void_p * len(hyper))(*hyper), shared, stream)
+        _raise_on(rc, "adam_update_multi_")
+        adam_launches += 1
+
+
 def adam_update_(w, grad, m, v, lr, wd, b1, b2, eps, c1, c2, bs):
     """One in-place AdamW step on a leaf -> ``(w, m, v)``, all f32,
-    with the bias corrections ``c1``, ``c2`` given.  The plain version on
-    CPU tensors, the kernel on CUDA tensors."""
-    global adam_launches
-    _check(w, grad=grad, m=m, v=v)
-    for name, x in (("grad", grad), ("m", m), ("v", v)):
-        if x.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, not {x.dtype}")
-    if w.device.type == "cpu":
-        return adam_update_plain(w, grad, m, v, lr, wd, b1, b2, eps, c1, c2,
-                                 bs)
-    hyper = _scalar_ptrs(w.device, lr=lr, wd=wd, b1=b1, b2=b2, eps=eps,
-                         c1=c1, c2=c2, bs=bs)
-    rc = _library().znicz_adam_update(
-        w.data_ptr(), grad.data_ptr(), m.data_ptr(), v.data_ptr(), w.numel(),
-        hyper, torch.cuda.current_stream(w.device).cuda_stream)
-    _raise_on(rc, "adam_update_")
-    adam_launches += 1
+    with the bias corrections ``c1``, ``c2`` given: the one-leaf case of
+    :func:`adam_update_multi_`."""
+    adam_update_multi_([(w, grad, m, v, lr, wd, c1, c2)], b1, b2, eps, bs)
     return w, m, v
+
+
+def adam_grid_on_card(vecs: int, tails: int) -> dict:
+    """The AdamW launch's grid on this card (the source's ``adam_grid``
+    at the occupancy calculator's residency) and that residency."""
+    lib = _library()
+    return {"blocks": int(lib.znicz_adam_grid(vecs, tails)),
+            "blocks_per_sm": int(lib.znicz_adam_residency())}

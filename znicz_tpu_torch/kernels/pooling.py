@@ -21,6 +21,14 @@ or ``bits=``: uint32 (or int32) bits of shape (n, oh, ow, c), the TPU
 kernel's test operand, through which the tests hold this kernel against
 the JAX package.
 
+The kernel takes one of two paths, with the same arithmetic on every
+element (:func:`four_channel_path` says which): four consecutive
+channels of one output pixel a thread where ``c % 4 == 0``, the window
+has at most 16 taps and x, y, the offsets and the bits are 16-byte
+aligned (MNIST conv's 32 and 64 channels, AlexNet's 96: one Philox block
+for four words, float4 tap loads, float4/int4 stores); one element a
+thread otherwise (at most ``MAX_TAPS`` taps).
+
 :func:`stochastic_pool_plain` is the plain PyTorch version (the patch
 tensor, running sums in tap order).  The wrapper runs it on CPU tensors
 only; on CUDA tensors it launches the kernel or raises.  ``launches``
@@ -47,6 +55,8 @@ REPLACES = "znicz_tpu/ops/pallas/pooling.py:84"
 SOURCE = "znicz_tpu_torch/csrc/pooling.cu"
 #: the kernel keeps a window's taps in registers: at most this many
 MAX_TAPS = 64
+#: the most taps of the four-channels-a-thread path (four floats a tap)
+MAX_TAPS_4 = 16
 
 _lib = None
 
@@ -55,6 +65,16 @@ def output_shape(x_shape, ky: int, kx: int, sy: int, sx: int) -> tuple:
     n, h, w, c = x_shape
     return (n, pool_ops.pool_out_size(h, ky, sy),
             pool_ops.pool_out_size(w, kx, sx), c)
+
+
+def four_channel_path(c: int, ky: int, kx: int, *tensors) -> bool:
+    """Whether the kernel takes four channels a thread for ``c``
+    channels, a ``ky`` x ``kx`` window and these operands (x, y, the
+    offsets and the bits, where given): ``c % 4 == 0``, at most
+    ``MAX_TAPS_4`` taps and every operand 16-byte aligned (the source's
+    dispatch in ``znicz_stochastic_pool_f32``)."""
+    return c % 4 == 0 and c // 4 <= 1024 and ky * kx <= MAX_TAPS_4 and \
+        all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def stochastic_pool_plain(x, ky: int, kx: int, sy: int, sx: int,

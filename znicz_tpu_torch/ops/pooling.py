@@ -174,8 +174,16 @@ def stochastic_forward(xp, x, ky, kx, sy, sx, uniform, use_abs: bool,
     return y, offsets_of(xp, idx, x.shape, ky, kx, sy, sx)
 
 
-def scatter_backward(xp, err_output, offsets, in_shape):
-    """Route err to recorded winner offsets (max/stochastic backward)."""
+def scatter_backward(xp, err_output, offsets, in_shape, window=None):
+    """Route err to recorded winner offsets (max/stochastic backward).
+
+    The numpy branch is the reference's ``np.add.at``: each input cell
+    sums its terms in output order.  The torch branch gives the same
+    bits on every device and every run, so it takes the pooling
+    ``window`` ``(ky, kx, sy, sx)``: where windows do not overlap
+    (stride >= window) a cell receives at most one term and a scatter is
+    exact; where they do, :func:`_tap_scatter` adds the terms without
+    atomics in ``np.add.at``'s order."""
     n, h, w, c = in_shape
     flat = offsets.reshape(n, -1, c)
     e = err_output.reshape(n, -1, c)
@@ -184,11 +192,41 @@ def scatter_backward(xp, err_output, offsets, in_shape):
         ni = np.arange(n)[:, None, None]
         ci = np.arange(c)[None, None, :]
         np.add.at(out, (ni, flat, ci), e)
-    else:
-        out = torch.zeros((n, h * w, c), dtype=err_output.dtype,
-                          device=err_output.device)
-        out.scatter_add_(1, flat.long(), e)
+        return out.reshape(in_shape)
+    if window is None:
+        raise ValueError("the torch scatter needs the pooling window "
+                         "(ky, kx, sy, sx)")
+    ky, kx, sy, sx = window
+    if sy < ky or sx < kx:
+        return _tap_scatter(err_output, offsets, in_shape, ky, kx, sy, sx)
+    out = torch.zeros((n, h * w, c), dtype=err_output.dtype,
+                      device=err_output.device)
+    out.scatter_add_(1, flat.long(), e)
     return out.reshape(in_shape)
+
+
+def _tap_scatter(err_output, offsets, in_shape, ky, kx, sy, sx):
+    """Overlapping windows: one pass a tap, in DESCENDING tap order, adds
+    each output's err (or +0.0) into the strided view of the tap's input
+    cells, in an output padded to whole windows and then cropped.  The
+    windows covering a cell meet it at descending taps in ascending
+    (oy, ox) order, which is ``np.add.at``'s order, and adding +0.0
+    changes no sum, so the result is the numpy branch's, bit for bit."""
+    n, h, w, c = in_shape
+    oh, ow = pool_out_size(h, ky, sy), pool_out_size(w, kx, sx)
+    e = err_output.reshape(n, oh, ow, c)
+    off = offsets.reshape(n, oh, ow, c)
+    dev, it = e.device, off.dtype
+    oy = torch.arange(oh, device=dev, dtype=it)[None, :, None, None] * sy
+    ox = torch.arange(ow, device=dev, dtype=it)[None, None, :, None] * sx
+    tap = (off // w - oy) * kx + (off % w - ox)      # the winner's tap
+    ph, pw = max(h, (oh - 1) * sy + ky), max(w, (ow - 1) * sx + kx)
+    out = torch.zeros((n, ph, pw, c), dtype=e.dtype, device=dev)
+    for t in reversed(range(ky * kx)):
+        iy, ix = divmod(t, kx)
+        out[:, iy:iy + (oh - 1) * sy + 1:sy,
+            ix:ix + (ow - 1) * sx + 1:sx] += torch.where(tap == t, e, 0.0)
+    return out[:, :h, :w].contiguous()
 
 
 def avg_backward(xp, err_output, in_shape, ky, kx, sy, sx):

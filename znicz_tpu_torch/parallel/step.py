@@ -375,19 +375,22 @@ class FusedTrainStep(Unit):
                 torch.sqrt(sq), min=1e-12), max=1.0)
             grads = [{k: v * scale for k, v in leaf.items()}
                      for leaf in grads]
-        for leaf, grad, h in zip(params, grads, hyper):
-            if self.optimizer == "adam":
-                b1, b2, eps = self._adam_consts
+        if self.optimizer == "adam":
+            # every leaf of the step, w and b of each layer, in one call
+            b1, b2, eps = self._adam_consts
+            leaves = []
+            for leaf, grad, h in zip(params, grads, hyper):
                 leaf["t"].add_(1.0)
                 # bias corrections on the device, outside the kernel
                 c1, c2 = 1.0 - b1 ** leaf["t"], 1.0 - b2 ** leaf["t"]
-                for k, lr, wd in (("w", "lr", "wd"), ("b", "lr_b", "wd_b")):
-                    if k in leaf:
-                        koptim.adam_update_(
-                            leaf[k], grad[k].contiguous(), leaf["v" + k],
-                            leaf["s" + k], h[lr], h[wd], b1, b2, eps, c1,
-                            c2, bs)
-                continue
+                leaves += [(leaf[k], grad[k].contiguous(), leaf["v" + k],
+                            leaf["s" + k], h[lr], h[wd], c1, c2)
+                           for k, lr, wd in (("w", "lr", "wd"),
+                                             ("b", "lr_b", "wd_b"))
+                           if k in leaf]
+            koptim.adam_update_multi_(leaves, b1, b2, eps, bs)
+            return
+        for leaf, grad, h in zip(params, grads, hyper):
             for k, lr, wd, mom in (("w", "lr", "wd", "mom"),
                                    ("b", "lr_b", "wd_b", "mom_b")):
                 if k in leaf:

@@ -158,15 +158,13 @@ class PagedKVDecoder(KVDecoder):
         if self.page < 1:
             raise ValueError(f"page must be >= 1, got {page}")
         if self.device.type == "cuda" and \
-                not _kdecode.supported(self.head_dim, self.dtype,
-                                       self.heads):
+                not _kdecode.supported(self.head_dim, self.dtype):
             # decide at CONSTRUCTION, never mid-request, and never by
             # quietly serving the plain path
             raise ValueError(
                 f"no paged-decode kernel for head_dim={self.head_dim}, "
-                f"dtype={self.dtype}, heads={self.heads} (have head_dim "
-                f"{_kdecode.HEAD_DIMS} in bfloat16/float32, 1 to "
-                f"{_kdecode.MAX_HEADS} heads)")
+                f"dtype={self.dtype} (have head_dim "
+                f"{_kdecode.HEAD_DIMS} in bfloat16/float32)")
         self.max_pages = -(-self.max_len // self.page)
         self.page_buckets = bucket_sizes(self.max_pages)
         if arena_pages is None:

@@ -80,7 +80,7 @@ class GDMaxPooling(GDPooling):
             arr.unmap()
         self.err_input.set_devmem(pool_ops.scatter_backward(
             torch, self.err_output.devmem, self.input_offset.devmem,
-            tuple(self.input.shape)))
+            tuple(self.input.shape), (self.ky, self.kx, self.sy, self.sx)))
 
 
 class GDMaxAbsPooling(GDMaxPooling):
