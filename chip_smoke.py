@@ -136,21 +136,30 @@ exits non-zero without the final ``ok`` line):
    minibatch; then the card against the CPU at test size with the same
    bits (a TF32 control).
 16. **kohonen** — ``som_step`` against its plain version at
-   bench_kohonen's and the reference sweep's shapes (a bs - 1 control);
-   bench_kohonen's run (scan mode, 3 epochs after a warm one, exact
-   launches); the demo's defaults per minibatch until the decision stops
-   it; the card against the CPU on the demo (identical winners).
+   bench_kohonen's and the reference sweep's shapes (a bs - 1 control)
+   and on integer data past them (ten chunks; three chunks with h a
+   chunk at a time; 3 and 7 neurons; W off shared memory): identical
+   winners, bits identical across launches, the card's plan equal to
+   ``som_plan`` over a sweep, at least one cluster resident; timed with a spin kernel ahead, the profiler's
+   kernel time by name, exactly one kernel a step; bench_kohonen's run
+   (scan mode, 3 epochs after a warm one, exact launches); the demo's
+   defaults per minibatch until the decision stops it; the card against
+   the CPU on the demo (identical winners).
 17. **lrn_dropout** — the LRN kernels against their plain versions at
-   AlexNet's two norm layers (a cut-window control), timed against
-   ``F.local_response_norm``; the dropout kernel against its plain
-   version at one seed, its drop rate on 64 M elements, timed.
+   AlexNet's two norm layers (a cut-window control), the backward bit-
+   identical there on the quad path and on the element path (c 5, an
+   unaligned x), its plan equal to ``lrn_plan`` over a sweep, timed
+   against ``F.local_response_norm``; the dropout kernel against its
+   plain version at one seed, its drop rate on 64 M elements, timed.
 18. **kernel_hw** — ``utils/kernel_hw.run_parity("cuda")``, all fourteen
    families of the reference ``ok``; the LRN, dropout and bf16 conv
    forward counters set to 0 just before and read just after (this is
    the path that reaches them).
 
 ``python3 chip_smoke.py --phase NAME ...`` runs only the named phases
-(kernel, flash, gemm, conv, alexnet_eager, deconv, or **waves**: the
+(kernel, flash, gemm, optim, mnist_fused, stochastic_pool,
+pool_backward, conv, alexnet_eager, deconv, kohonen, lrn_dropout, or
+**waves**: the
 weight gradient at AlexNet's and build_deep's shapes with split_k's
 slices, one fewer and one more, through the C entry, which runs on
 older trees of the port too) after the build, for iterating on one
@@ -366,27 +375,51 @@ def host_us(fn, calls: int = 100) -> float:
     return float(np.median(times)) * 1e6
 
 
-def kernel_ms_by_name(fn, tag: str, iters: int = 10) -> dict:
-    """Device ms per call of each kernel whose name holds ``tag`` that
-    ``fn`` launches (``name<template args>``), from ``torch.profiler``
-    over ``iters`` calls with L2 flushed before each, as
-    :func:`time_cuda_ms` flushes it."""
+#: untimed fills that open kernel_ms_by_name's window
+PROFILE_LEAD_IN = 4
+
+
+def kernel_ms_by_name(fn, tag: str, iters: int = 10,
+                      windows: int = 5) -> dict:
+    """Device ms per call of each kernel whose name starts with ``tag``
+    (``name<template args>``, or a plain kernel's ``name``) that ``fn``
+    launches, from ``torch.profiler`` over ``iters`` calls with L2
+    flushed before each, as :func:`time_cuda_ms` flushes it.  The tracer
+    drops a window's first device activities, more often late in a long
+    process (alexnet_eager's finding), so each window opens with
+    PROFILE_LEAD_IN untimed fills that take the loss.  Each such kernel
+    launches once a call, so the window must record exactly ``iters``
+    launches of it: else it is profiled again, up to ``windows``
+    windows, and then the smoke fails; no time is taken from a window
+    that lost launches."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(64 << 20, dtype=torch.int32, device=DEVICE)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        name = re.search(rf"({tag}\w*<[^>]*>)", e.key)
-        if name and e.self_device_time_total > 0:
-            out[name.group(1)] = e.self_device_time_total / 1e3 / iters
-    return out
+    counts = None
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_LEAD_IN):
+                flush.zero_()
+            torch.cuda.synchronize()
+            for _ in range(iters):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        out, counts = {}, {}
+        for e in prof.key_averages():
+            name = re.search(rf"\b({tag}\w*(?:<[^>]*>)?)", e.key)
+            if name and e.self_device_time_total > 0:
+                out[name.group(1)] = e.self_device_time_total / 1e3 / iters
+                counts[name.group(1)] = e.count
+        if out and all(c == iters for c in counts.values()):
+            return out
+        print(f"kernel_ms_by_name({tag}): a window recorded {counts} "
+              f"launches of {iters} calls; profiling again",
+              file=sys.stderr)
+    fail(f"kernel_ms_by_name({tag}): {windows} windows, none recorded "
+         f"exactly {iters} launches of each kernel (last: {counts})")
 
 
 def decode_inputs(rng, dtype, head_dim, lengths, batch=SLOTS, heads=HEADS,
@@ -3281,8 +3314,8 @@ def phase_mnist_conv_stochastic() -> dict:
 #: order against cuBLAS's hᵀx): ~1e-7 of the weights' norm.  The band on
 #: the norm-relative error of each 64-row tile is 1e-5; the control, the
 #: kernel at bs - 1, drops one sample (~1/B of the update: >= 2e-3)
-SOM_SHAPES = (("bench_kohonen", 500, 256, 16, 16, 0.5, 8.0),
-              ("parity_sweep", 64, 256, 128, 16, 0.3, 1.5))
+SOM_SHAPES = (("bench_kohonen", 500, 256, 16, 0.5, 8.0),
+              ("parity_sweep", 64, 256, 128, 0.3, 1.5))
 SOM_TOL = 1e-5
 #: bench.py bench_kohonen: a 16x16 grid over 16-wide samples, 4000 train
 #: samples at minibatch 500 (8 steps an epoch), 3 epochs after a 1-epoch
@@ -3330,40 +3363,117 @@ def _som_run(device, scan: bool, epochs=None, warm=False, **kw):
     return w, wall, winners
 
 
+#: shapes past SOM_SHAPES' paths, on small integers so that every distance
+#: is exact in f32 (the winners then cannot differ by rounding, and exact
+#: ties across ranks are common): ten chunks; fewer neurons than ranks;
+#: W too large for shared memory (the plan's device-memory sums); h a
+#: chunk at a time over three chunks, 75 neurons a rank
+SOM_EDGES = (("ten_chunks", 5000, 256, 16, 0.5, 8.0),
+             ("three_chunks", 700, 600, 16, 0.5, 4.0),
+             ("three_neurons", 50, 3, 3, 0.5, 1.0),
+             ("seven_neurons", 50, 7, 3, 0.5, 1.0),
+             ("not_resident", 300, 2048, 512, 0.2, 4.0))
+#: the plan twin's sweep: every (B, N, D) of these against som_plan
+SOM_PLAN_SWEEP = [(b, n, d) for b in (1, 5, 50, 64, 500, 2048, 2049, 5000)
+                  for n in (1, 3, 7, 9, 64, 256, 1000, 2048, 20000)
+                  for d in (1, 2, 3, 16, 128, 512)]
+
+
+def _som_inputs(rng, b, n, d, integers=False):
+    if integers:
+        x = _dev(rng.integers(-3, 4, size=(b, d)))
+        w = _dev(rng.integers(-3, 4, size=(n, d)))
+    else:
+        x = _dev(rng.normal(size=(b, d)))
+        w = _dev(rng.normal(size=(n, d)) * 0.5)
+    side = int(np.sqrt(n))
+    rows = side if side * side == n else 1
+    return x, w, _dev(tk_ops.grid_coords(np, rows, n // rows))
+
+
+def _som_check(name, x, w, coords, alpha, sigma, control) -> dict:
+    b = x.shape[0]
+    new_w, idx = ksom.som_step(x, w, coords, alpha, sigma, b)
+    new_w2, idx2 = ksom.som_step(x, w, coords, alpha, sigma, b)
+    ref_w, ref_idx = ksom.som_step_plain(x, w, coords, alpha, sigma, b)
+    torch.cuda.synchronize()
+    check = {"case": name, "b": b, "n": w.shape[0], "d": x.shape[1],
+             "rel_err": tile_rel_err(new_w[None], ref_w[None]),
+             "winners_identical": bool(torch.equal(idx, ref_idx)),
+             "bits_identical": bool(torch.equal(new_w, new_w2) and
+                                    torch.equal(idx, idx2)),
+             "max_abs_err": float((new_w - ref_w).abs().max())}
+    if control:
+        ctl, _ = ksom.som_step(x, w, coords, alpha, sigma, b - 1)
+        check["control_rel_err"] = tile_rel_err(ctl[None], ref_w[None])
+    if hasattr(ksom, "som_plan"):
+        plan = ksom.som_plan(b, w.shape[0], x.shape[1])
+        check.update(chunk=plan["chunk"], slices=plan["slices"],
+                     resident=plan["resident"],
+                     clusters=ksom.clusters_on_card(b, w.shape[0],
+                                                    x.shape[1]))
+    if not (check["winners_identical"] and check["rel_err"] <= SOM_TOL and
+            check["bits_identical"] and
+            check.get("control_rel_err", 1.0) > SOM_TOL and
+            check.get("clusters", 1) >= 1):
+        fail(f"som_step vs plain: {check}")
+    return check
+
+
+def _som_plans() -> dict:
+    """The card's plan (``znicz_som_plan``) against ``som_plan`` over
+    SOM_PLAN_SWEEP; a tree before the cluster kernel has neither and
+    reports None."""
+    if not hasattr(ksom, "som_plan_on_card"):
+        return None
+    for b, n, d in SOM_PLAN_SWEEP:
+        twin = ksom.som_plan(b, n, d)
+        try:
+            card = ksom.som_plan_on_card(b, n, d)
+        except RuntimeError:
+            card = None
+        if card != twin:
+            fail(f"som_step's plan at {(b, n, d)}: kohonen.cu {card}, "
+                 f"kernels/kohonen.py {twin}")
+    return {"shapes_checked": len(SOM_PLAN_SWEEP),
+            "bench_kohonen": ksom.som_plan(500, 256, 16)}
+
+
 def phase_kohonen() -> dict:
-    """som_step against its plain version (band, bs - 1 control, bit
-    identity, times); bench_kohonen's run (scan mode, exact launches);
-    the demo's defaults per minibatch until the decision stops; the card
+    """som_step against its plain version (band, bs - 1 control, winners
+    and bits identical across launches, the card's plan against its twin
+    and at least one cluster resident) at SOM_SHAPES and SOM_EDGES; its
+    time with a spin kernel ahead of the start event, the profiler's
+    kernel time by name and its kernels a step (one on the cluster tree,
+    two before); bench_kohonen's run (scan mode, exact launches); the
+    demo's defaults per minibatch until the decision stops; the card
     against the CPU on the demo."""
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(SEED + 31)
-    checks, timed = [], {}
-    for name, b, n, d, side, alpha, sigma in SOM_SHAPES:
-        x = _dev(rng.normal(size=(b, d)))
-        w = _dev(rng.normal(size=(n, d)) * 0.5)
-        coords = _dev(tk_ops.grid_coords(np, side, side))
-        new_w, idx = ksom.som_step(x, w, coords, alpha, sigma, b)
-        new_w2, idx2 = ksom.som_step(x, w, coords, alpha, sigma, b)
-        ctl, _ = ksom.som_step(x, w, coords, alpha, sigma, b - 1)
-        ref_w, ref_idx = ksom.som_step_plain(x, w, coords, alpha, sigma, b)
-        torch.cuda.synchronize()
-        rel = tile_rel_err(new_w[None], ref_w[None])
-        control = tile_rel_err(ctl[None], ref_w[None])
-        checks.append({"case": name, "b": b, "n": n, "d": d,
-                       "rel_err": rel, "control_rel_err": control,
-                       "winners_identical": bool(torch.equal(idx, ref_idx)),
-                       "deterministic": bool(torch.equal(new_w, new_w2) and
-                                             torch.equal(idx, idx2)),
-                       "max_abs_err": float((new_w - ref_w).abs().max())})
-        if not (checks[-1]["winners_identical"] and rel <= SOM_TOL and
-                control > SOM_TOL and checks[-1]["deterministic"]):
-            fail(f"som_step vs plain: {checks[-1]}")
-        if name == "bench_kohonen":
-            timed = {"ms": time_cuda_ms(lambda: ksom.som_step(
-                         x, w, coords, alpha, sigma, b)),
-                     "plain_ms": time_cuda_ms(lambda: ksom.som_step_plain(
-                         x, w, coords, alpha, sigma, b)),
-                     "library_ms": None, **ksom.bound(x.shape, w.shape)}
+    checks, timed = [], []
+    for name, b, n, d, alpha, sigma in SOM_SHAPES:
+        x, w, coords = _som_inputs(rng, b, n, d)
+        checks.append(_som_check(name, x, w, coords, alpha, sigma, True))
+
+        def step():
+            return ksom.som_step(x, w, coords, alpha, sigma, b)
+
+        kernel_ms = kernel_ms_by_name(step, "som_")
+        timed.append({
+            "case": name, "shape": f"x {b}x{d}, w {n}x{d}",
+            "ms": time_cuda_ms(step, lead=True), "kernel_ms": kernel_ms,
+            "kernels_a_step": len(kernel_ms),
+            "plain_ms": time_cuda_ms(lambda: ksom.som_step_plain(
+                x, w, coords, alpha, sigma, b), lead=True),
+            "library_ms": None, **ksom.bound(x.shape, w.shape)})
+        # one kernel a step: one som_ kernel, launched once a call (the
+        # profiler's count, held exactly by kernel_ms_by_name)
+        if hasattr(ksom, "som_plan") and len(kernel_ms) != 1:
+            fail(f"som_step is not one kernel a step: {timed[-1]}")
+    for name, b, n, d, alpha, sigma in SOM_EDGES:
+        x, w, coords = _som_inputs(rng, b, n, d, integers=True)
+        checks.append(_som_check(name, x, w, coords, alpha, sigma, False))
+        del x, w, coords
     _som_run(DEVICE, True, epochs=1, warm=True, **SOM_BENCH)   # warm-up
     bench, wall, _ = _som_run(DEVICE, True, epochs=SOM_EPOCHS, **SOM_BENCH)
     bench_launches = ksom.launches                       # ... read after
@@ -3375,7 +3485,8 @@ def phase_kohonen() -> dict:
     w_card = demo.trainer.weights.map_read()
     w_cpu = cpu.trainer.weights.map_read()
     out = {"phase": "kohonen", "tol": SOM_TOL, "checks": checks,
-           "timed": {**timed, "shape": "x 500x16, w 256x16"},
+           "plans": _som_plans(), "ptxas": ptxas_usage("kohonen"),
+           "timed": {**timed[0], "by_shape": timed},
            "bench": {**{k: list(v) if isinstance(v, tuple) else v
                         for k, v in SOM_BENCH.items()},
                      "epochs": SOM_EPOCHS, "scan_epoch": True,
@@ -3424,6 +3535,34 @@ DROP_SHAPES = (("fc6_input", (128, 9216)), ("64M", (8192, 8192)))
 DROP_RATIO, DROP_RATE_TOL = 0.5, 1e-3
 
 
+#: the LRN backward off AlexNet's shapes: c 5 (the element path), an x
+#: one float off 16 bytes at c 96 (the element path), and c 128 with
+#: run_parity's rows (the quad path): (shape, x's offset in floats)
+LRN_PATH_CASES = (((2, 13, 13, 5), 0), ((4, 13, 13, 96), 1),
+                  ((4, 8, 8, 128), 0))
+#: the plan twin's sweep: (rows, c, n, beta, aligned)
+LRN_PLAN_SWEEP = [(r, c, n, beta, al) for r in (1, 7, 387200)
+                  for c in (1, 3, 4, 5, 96, 128, 256, 384, 4096, 4100, 8192)
+                  for n in (1, 4, 5, 9) for beta in (0.75, 0.6)
+                  for al in (True, False)]
+
+
+def _lrn_plans() -> dict:
+    """The backward's plan from lrn.cu against ``kernels/lrn.py
+    lrn_plan`` over LRN_PLAN_SWEEP; None on a tree before the quad
+    path."""
+    if not hasattr(klrn, "lrn_plan_on_card"):
+        return None
+    for case in LRN_PLAN_SWEEP:
+        card, twin = klrn.lrn_plan_on_card(*case), klrn.lrn_plan(*case)
+        if card != twin:
+            fail(f"lrn_backward's plan at {case}: lrn.cu {card}, "
+                 f"kernels/lrn.py {twin}")
+    return {"cases_checked": len(LRN_PLAN_SWEEP),
+            **{name: klrn.lrn_plan(int(np.prod(shape[:-1])), shape[-1], 5)
+               for name, shape in LRN_SHAPES}}
+
+
 def phase_lrn_dropout() -> dict:
     """The LRN kernels against their plain versions at AlexNet's norm
     shapes (band, cut-window control, times against
@@ -3461,6 +3600,13 @@ def phase_lrn_dropout() -> dict:
             if not (check[kind]["rel_err"] <= LRN_TOL and
                     check[kind]["control_rel_err"] > LRN_TOL):
                 fail(f"lrn {kind} vs plain: {check}")
+        if hasattr(klrn, "lrn_plan"):
+            check["bwd_path"] = klrn.lrn_plan(
+                x.numel() // c, c, n, beta, klrn.aligned16(x, e))["path"]
+            if not (check["bwd"]["identical"] and
+                    check["bwd_path"] == "quad"):
+                fail(f"lrn backward not bit-identical on the quad path: "
+                     f"{check}")
         lrn_checks.append(check)
         for kind, kern, plain, lib in (
                 ("fwd", lambda: klrn.lrn_forward(x, *LRN_ARGS),
@@ -3476,6 +3622,25 @@ def phase_lrn_dropout() -> dict:
                               else time_cuda_ms(lib, iters=5),
                               **klrn.bound(shape, n, kind == "bwd")})
         del x, e, got, want, cut, lib_fwd, xn
+    lrn_paths, lrn_plans = [], _lrn_plans()
+    for shape, offset in LRN_PATH_CASES:
+        store = torch.randn(int(np.prod(shape)) + offset, generator=gen,
+                            device=DEVICE) * 3.0
+        x = store[offset:].view(shape)
+        e = torch.randn(shape, generator=gen, device=DEVICE)
+        got = klrn.lrn_backward(x, e, *LRN_ARGS)
+        want = klrn.lrn_backward_plain(x, e, *LRN_ARGS)
+        torch.cuda.synchronize()
+        lrn_paths.append({
+            "shape": list(shape), "offset_floats": offset,
+            "path": None if lrn_plans is None else klrn.lrn_plan(
+                x.numel() // shape[-1], shape[-1], n, beta,
+                klrn.aligned16(x, e))["path"],
+            "identical": bool(torch.equal(got, want)),
+            "max_abs_err": float((got - want).abs().max())})
+        if not lrn_paths[-1]["identical"]:
+            fail(f"lrn backward vs plain: {lrn_paths[-1]}")
+        del store, x, e, got, want
     drop_checks, drop_timed = [], []
     for name, shape in DROP_SHAPES:
         x = torch.randn(shape, generator=gen, device=DEVICE)
@@ -3522,7 +3687,8 @@ def phase_lrn_dropout() -> dict:
                                              "dropout":
                                              ptxas_usage("dropout")},
             "lrn_args": list(LRN_ARGS), "lrn_tol": LRN_TOL,
-            "lrn_checks": lrn_checks, "lrn_timed": lrn_timed,
+            "lrn_checks": lrn_checks, "lrn_path_checks": lrn_paths,
+            "lrn_plans": lrn_plans, "lrn_timed": lrn_timed,
             "lrn_path": lrn_path, "dropout_checks": drop_checks,
             "dropout_timed": drop_timed,
             "path_note": "lrn: sums over AlexNet's norm1 and norm2 at batch "
@@ -4137,7 +4303,8 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
                             "reduce_splits_kernel"]),
         entry("som_step", ksom.SOURCE, ksom.REPLACES,
               som["bench"]["launches"], som["timed"],
-              max(c["max_abs_err"] for c in som["checks"])),
+              max(c["max_abs_err"] for c in som["checks"]),
+              cuda_kernels=["som_step_kernel<Resident>"]),
         entry("stochastic_pool", kpool.SOURCE, kpool.REPLACES,
               mcs["launches"]["stochastic_pool"], spool["path"],
               spool["path"]["max_abs_err"]),
@@ -4146,7 +4313,8 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
               lrn_path["fwd"]["max_abs_err"]),
         entry("lrn_backward", klrn.SOURCE, klrn.REPLACES_BWD,
               hw["lrn_backward"], lrn_path["bwd"],
-              lrn_path["bwd"]["max_abs_err"]),
+              lrn_path["bwd"]["max_abs_err"],
+              cuda_kernels=["lrn_bwd_quad_kernel<N>", "lrn_bwd_kernel"]),
         entry("dropout_forward", kdrop.SOURCE, kdrop.REPLACES,
               hw["dropout_forward"], lrn_drop["dropout_timed"][-1],
               max(c["max_abs_err"] for c in lrn_drop["dropout_checks"]))]}
@@ -4225,7 +4393,9 @@ PHASES_ALONE = {"kernel": lambda: phase_kernel(),
                 "conv": lambda: phase_conv(),
                 "alexnet_eager": lambda: phase_alexnet_eager(),
                 "deconv": lambda: phase_deconv(),
-                "waves": lambda: phase_waves()}
+                "waves": lambda: phase_waves(),
+                "kohonen": lambda: phase_kohonen(),
+                "lrn_dropout": lambda: phase_lrn_dropout()}
 
 
 def main() -> int:

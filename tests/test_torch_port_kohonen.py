@@ -10,7 +10,12 @@
 - the port's scan mode against its per-minibatch mode, the ``min_delta``
   stop and the mid-pass fallback (the reference's
   ``tests/test_kohonen_rbm.py`` cases);
-- the wrapper's refusals, its bound, and a ``cuda``-marked card check.
+- the kernel's own order (``som_step_twin``: ``som_plan``'s chunks and
+  runs, the cluster's reduction ``rank_winners``) against the Pallas
+  kernel, the plan's cover of neurons and samples, and the reduction's
+  first-tie winner;
+- the wrapper's refusals, its bound, and a ``cuda``-marked card check
+  (bit-identical launches, one CUDA kernel a step).
 """
 
 import numpy as np
@@ -73,6 +78,85 @@ def test_som_step_plain_matches_pallas(b, n, d, bs, alpha, sigma):
         w_t2, _ = ksom.som_step(torch.tensor(x2), torch.tensor(w),
                                 torch.tensor(coords), alpha, sigma, bs)
         np.testing.assert_array_equal(w_t2.numpy(), w_t.numpy())
+
+
+@pytest.mark.parametrize("b,n,d,bs,alpha,sigma", [
+    (500, 256, 16, 500, 0.5, 8.0),     # bench_kohonen's step, 16 runs
+    (64, 256, 128, 64, 0.3, 1.5),      # the reference's parity sweep
+    (50, 64, 2, 37, 0.5, 4.0),         # the demo's step, a padded tail
+    (7, 9, 3, 1, 0.9, 0.5)])
+def test_som_step_twin_matches_pallas(b, n, d, bs, alpha, sigma):
+    """The kernel's order of summation (som_plan's chunks and runs) and
+    its cluster's winners, in torch, against the Pallas kernel in
+    interpret mode: identical winners, weights within 1e-5."""
+    rng = np.random.default_rng(b + n + d)
+    x = rng.normal(size=(b, d)).astype(np.float32)
+    w = (rng.normal(size=(n, d)) * 0.5).astype(np.float32)
+    side = int(np.sqrt(n))
+    coords = np.asarray(jk_ops.grid_coords(np, side, n // side))
+    w_j, idx_j = j_som_step(jnp.asarray(x), jnp.asarray(w),
+                            jnp.asarray(coords), alpha, sigma, bs,
+                            interpret=True)
+    w_t, idx_t = ksom.som_step_twin(torch.tensor(x), torch.tensor(w),
+                                    torch.tensor(coords), alpha, sigma, bs)
+    np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_j))
+    np.testing.assert_allclose(w_t.numpy(), np.asarray(w_j), rtol=0,
+                               atol=WEIGHT_ATOL)
+
+
+@pytest.mark.parametrize("b", [500, 50, 5000])
+@pytest.mark.parametrize("n", [256, 64, 7, 3])
+def test_som_plan_covers_neurons_and_samples(b, n):
+    """Each neuron belongs to exactly one rank (ranks past N own none),
+    the chunks cover every sample, the runs every quad of a chunk, and
+    the layout fits a block's shared memory."""
+    plan = ksom.som_plan(b, n, 16)
+    owned = [j for lo, hi in plan["ranges"] for j in range(lo, hi)]
+    assert owned == list(range(n))
+    assert len(plan["ranges"]) == ksom.RANKS
+    assert all(hi - lo <= plan["per"] for lo, hi in plan["ranges"])
+    chunk = plan["chunk"]
+    assert chunk % 4 == 0 and chunk & (chunk - 1) == 0
+    assert chunk <= ksom.MAX_CHUNK and chunk < 2 * max(b, 4)
+    seen = [s for b0 in range(0, b, chunk) for s in
+            range(b0, min(b0 + chunk, b))]
+    assert seen == list(range(b))
+    quads = -(-min(chunk, b) // 4)
+    runs = [q for s in range(plan["slices"]) for q in
+            range(s * quads // plan["slices"],
+                  (s + 1) * quads // plan["slices"])]
+    assert runs == list(range(quads))
+    assert plan["resident"] and plan["smem_bytes"] <= ksom.SMEM_BUDGET
+
+
+def test_som_plan_leaves_shared_memory_for_a_large_w():
+    """W's rows past shared memory: the sums go to device memory, and a
+    grid no chunk fits is refused by the plan (the launch then raises)."""
+    plan = ksom.som_plan(300, 2048, 512)
+    assert not plan["resident"] and plan["smem_bytes"] <= ksom.SMEM_BUDGET
+    assert ksom.som_plan(100, 100000, 128) is None
+
+
+@pytest.mark.parametrize("n", [256, 64, 7, 3])
+def test_rank_winners_is_the_first_minimum(n):
+    """The cluster's reduction of per-rank (d2, j) pairs gives
+    torch.argmin's first-tie winner on rows whose minimum is tied across
+    ranks, and 0 on all-NaN rows, as argmin does."""
+    rng = np.random.default_rng(n)
+    plan = ksom.som_plan(64, n, 16)
+    d2 = torch.tensor(rng.integers(0, 4, size=(64, n)), dtype=torch.float32)
+    for r in range(0, 64, 4):          # the minimum in the last ranks first
+        d2[r, rng.permutation(n)[:min(n, 3)]] = -1.0
+    d2[5] = float("nan")
+    d2[6, : n // 2] = float("nan")     # NaN never wins
+    got = ksom.rank_winners(d2, plan["ranges"])
+    want = torch.where(d2.isnan(), float("inf"), d2).argmin(dim=1)
+    want[5] = torch.argmin(d2[5])
+    assert int(want[5]) == 0
+    assert torch.equal(got, want)
+    ties = [(d2[r] == d2[r].nan_to_num(9.0).min()).nonzero()
+            for r in range(64)]
+    assert sum(len(t) > 1 for t in ties) > 16     # the rows do tie
 
 
 def test_som_step_first_minimum_wins():
@@ -330,10 +414,20 @@ def test_som_step_kernel_matches_plain_on_the_card():
     w = torch.tensor(rng.normal(size=(256, 16)), dtype=torch.float32,
                      device="cuda")
     coords = torch.tensor(tk_ops.grid_coords(np, 16, 16), device="cuda")
+    from torch.profiler import ProfilerActivity, profile
+
     before = ksom.launches
-    got = ksom.som_step(x, w, coords, 0.5, 8.0, 480)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = ksom.som_step(x, w, coords, 0.5, 8.0, 480)
+        torch.cuda.synchronize()
+    again = ksom.som_step(x, w, coords, 0.5, 8.0, 480)
     want = ksom.som_step_plain(x, w, coords, 0.5, 8.0, 480)
     torch.cuda.synchronize()
-    assert ksom.launches == before + 1
+    assert ksom.launches == before + 2
     assert torch.equal(got[1], want[1])
     assert float((got[0] - want[0]).abs().max()) < WEIGHT_ATOL
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    kernels = [e for e in prof.key_averages()
+               if e.self_device_time_total > 0]
+    assert len(kernels) == 1 and kernels[0].count == 1, kernels
+    assert "som_step_kernel" in kernels[0].key

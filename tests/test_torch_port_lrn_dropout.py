@@ -12,7 +12,10 @@ the JAX package on the CPU.
 - ``utils/kernel_hw.run_parity("cpu")``: ``ok`` for every ported family,
   the unported ones named so and never ``ok``, and ``FAIL`` for a
   deliberately broken plain version;
-- refusals, bounds, and a ``cuda``-marked card check.
+- ``lrn_plan``: the backward's quad path at AlexNet's widths, the
+  element path at c % 4 != 0 and off 16 bytes;
+- refusals, bounds, and a ``cuda``-marked card check (the backward bit-
+  identical on both paths).
 """
 
 import numpy as np
@@ -97,6 +100,33 @@ def test_lrn_refusals_and_bound():
     assert fwd["bound_by"] == bwd["bound_by"] == "bytes"
     assert abs(fwd["bound_ms"] - 0.0888) < 1e-3
     assert abs(bwd["bound_ms"] - 0.1331) < 1e-3
+
+
+@pytest.mark.parametrize("c", [96, 256, 128])
+def test_lrn_plan_takes_four_channels_a_thread(c):
+    """AlexNet's norm widths and run_parity's take the quad path: whole
+    rows a block of about 256 threads, x and t of its rows in shared
+    memory, AlexNet's window unrolled."""
+    x = torch.zeros(3, c)
+    plan = klrn.lrn_plan(3, c, 5, 0.75, klrn.aligned16(x, x))
+    tx, ty = plan["threads"]
+    assert plan["path"] == "quad" and tx == c // 4
+    assert ty == plan["rows_per_block"] and tx * ty <= 256 < tx * (ty + 1)
+    assert plan["smem_bytes"] == 2 * ty * c * 4 and plan["n_fixed"] == 5
+    assert klrn.lrn_plan(3, c, 4)["n_fixed"] == 0      # n at run time
+    assert klrn.lrn_plan(3, c, 5, 0.6)["n_fixed"] == 0
+
+
+@pytest.mark.parametrize("c,offset", [(3, 0), (5, 0), (96, 1), (128, 2)])
+def test_lrn_plan_element_path(c, offset):
+    """c % 4 != 0, or a storage offset that moves x off 16 bytes, takes
+    the one-element kernel."""
+    store = torch.zeros(4 * c + offset)
+    x = store[offset:].view(4, c)
+    assert klrn.aligned16(x) == (offset * 4 % 16 == 0)
+    plan = klrn.lrn_plan(4, c, 5, 0.75, klrn.aligned16(x, torch.zeros(c)))
+    assert plan["path"] == "element" and plan["threads"] == (256, 1)
+    assert plan["rows_per_block"] == 2048 // c
 
 
 @pytest.mark.parametrize("ratio", [0.5, 0.4, 0.1, 0.0])
@@ -201,6 +231,16 @@ def test_lrn_and_dropout_kernels_match_plain_on_the_card():
                        klrn.lrn_forward_plain(x, *args))
     assert torch.equal(klrn.lrn_backward(x, e, *args),
                        klrn.lrn_backward_plain(x, e, *args))
+    assert klrn.lrn_plan(x.numel() // 96, 96, 5, 0.75,
+                         klrn.aligned16(x, e))["path"] == "quad"
+    x5, e5 = x[..., :5].contiguous(), e[..., :5].contiguous()
+    assert klrn.lrn_plan(x5.numel() // 5, 5, 5)["path"] == "element"
+    assert torch.equal(klrn.lrn_backward(x5, e5, *args),
+                       klrn.lrn_backward_plain(x5, e5, *args))
+    for n in (3, 4):     # the quad path with n at run time
+        assert torch.equal(klrn.lrn_backward(x, e, 1e-4, 0.75, 2.0, n),
+                           klrn.lrn_backward_plain(x, e, 1e-4, 0.75, 2.0,
+                                                   n))
     y, m = kdrop.dropout_forward(x, 0.5, seed=3)
     words = kdrop.counter_rng.random_bits(3, x.numel(), "cuda")
     y_p, m_p = kdrop.dropout_forward_plain(x, 0.5, words)

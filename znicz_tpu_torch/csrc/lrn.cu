@@ -19,10 +19,25 @@
 // norm1 (128 x 55 x 55 x 96, 148.7 MB a tensor) needs 0.089 ms forward and
 // 0.133 ms backward at 3.35 TB/s.  Design: each block stages a tile of
 // whole rows in shared memory (the TPU kernel's lane rolls become indexed
-// reads of the staged row), so x is read from device memory once; the
-// backward keeps d^-beta and t of the tile there too, since t_i of a
-// neighbour is needed by the adjoint window.  One thread an element,
-// consecutive threads on consecutive channels.
+// reads of the staged row), so x is read from device memory once.
+//
+// Forward, and the backward's element path (c % 4 != 0, a pointer off 16
+// bytes, or c > 4096): one thread an element, consecutive threads on
+// consecutive channels; the backward keeps d^-beta and t of the tile in
+// shared memory too, since t_i of a neighbour is needed by the adjoint
+// window.
+//
+// The backward's quad path (lrn_bwd_quad_kernel<N>, kernels/lrn.py
+// lrn_plan): a thread owns 4 consecutive channels of one row, a block
+// whole rows (threadIdx.x the channel quad, threadIdx.y the row: no
+// division an element).  x and e come in as one float4 each, dx goes out
+// as one, so every byte moves once: x is staged in shared memory for the
+// neighbours' windows, then the 4 values of t, with one barrier between;
+// e and d^-beta stay in registers from t to the output.  The windows are
+// the plain version's: the first tap, then each next one added in channel
+// order, 0 past the row's ends (ops/lrn.py window_sum).  N = 5 (AlexNet's,
+// with beta 0.75) unrolls them over the neighbouring quads, read as
+// float4; N = 0 takes n (and beta) at run time.
 
 #include <cuda_runtime.h>
 
@@ -114,6 +129,112 @@ __global__ void lrn_bwd_kernel(const float* __restrict__ x,
   }
 }
 
+// s[i] = sum_{o < n} v(4 q + i - lo + o) in order of o, the first tap as
+// it is: v(p) is row[p] (squared where kSquare) inside the row, 0 outside;
+// own is row[4 q .. 4 q + 3], already in registers.
+template <int kN, int kLo, bool kSquare>
+__device__ __forceinline__ void window4(const float* row, int c, int q,
+                                        int lo, int n, float4 own,
+                                        float s[4]) {
+  if constexpr (kN > 0) {
+    static_assert(kLo <= 4 && kN - 1 - kLo <= 4, "one quad a side");
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4* row4 = reinterpret_cast<const float4*>(row);
+    const float4 l = q > 0 ? row4[q - 1] : z;
+    const float4 r = 4 * q + 4 < c ? row4[q + 1] : z;
+    float v[12] = {l.x, l.y, l.z, l.w, own.x, own.y, own.z, own.w,
+                   r.x, r.y, r.z, r.w};
+    if (kSquare) {
+#pragma unroll
+      for (int m = 0; m < 12; ++m) v[m] = __fmul_rn(v[m], v[m]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[i] = v[4 + i - kLo];
+#pragma unroll
+      for (int o = 1; o < kN; ++o) s[i] = __fadd_rn(s[i], v[4 + i - kLo + o]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      for (int o = 0; o < n; ++o) {
+        const int p = 4 * q + i - lo + o;
+        float t = p >= 0 && p < c ? row[p] : 0.f;
+        if (kSquare) t = __fmul_rn(t, t);
+        s[i] = o == 0 ? t : __fadd_rn(s[i], t);
+      }
+    }
+  }
+}
+
+template <int kN>
+__global__ void __launch_bounds__(1024)
+    lrn_bwd_quad_kernel(const float4* __restrict__ x,
+                        const float4* __restrict__ e,
+                        float4* __restrict__ dx, LrnArgs a) {
+  extern __shared__ float4 smem4[];
+  const int n = kN > 0 ? kN : a.n;
+  const bool beta34 = kN > 0 || a.beta34;
+  const int q = threadIdx.x, qn = a.c >> 2;
+  float* sx = reinterpret_cast<float*>(smem4) + threadIdx.y * a.c;
+  float* st = reinterpret_cast<float*>(smem4) +
+              (blockDim.y + threadIdx.y) * a.c;
+  const long long row =
+      static_cast<long long>(blockIdx.x) * blockDim.y + threadIdx.y;
+  const bool live = row < a.rows;
+  const long long at = row * qn + q;
+  float4 xv = make_float4(0.f, 0.f, 0.f, 0.f), ev = xv;
+  if (live) {
+    xv = x[at];
+    ev = e[at];
+  }
+  reinterpret_cast<float4*>(sx)[q] = xv;
+  __syncthreads();
+  float s[4];
+  window4<kN, kN / 2, true>(sx, a.c, q, n / 2, n, xv, s);
+  const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
+  const float ea[4] = {ev.x, ev.y, ev.z, ev.w};
+  float dnb[4], t[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float d = __fadd_rn(a.k, __fmul_rn(a.alpha, s[i]));
+    dnb[i] = beta34 ? __fdiv_rn(__fsqrt_rn(__fsqrt_rn(d)), d)
+                    : powf(d, -a.beta);
+    t[i] = __fmul_rn(__fmul_rn(ea[i], xa[i]), __fdiv_rn(dnb[i], d));
+  }
+  const float4 tv = make_float4(t[0], t[1], t[2], t[3]);
+  reinterpret_cast<float4*>(st)[q] = tv;
+  __syncthreads();
+  window4<kN, kN - 1 - kN / 2, false>(st, a.c, q, n - 1 - n / 2, n, tv, s);
+  float o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    o[i] = __fsub_rn(__fmul_rn(ea[i], dnb[i]),
+                     __fmul_rn(__fmul_rn(a.two_alpha_beta, xa[i]), s[i]));
+  if (live) dx[at] = make_float4(o[0], o[1], o[2], o[3]);
+}
+
+constexpr int kQuadThreads = 256;  // a quad block's target size
+constexpr int kMaxQuads = 1024;    // channel quads of a row at most
+
+// The backward's quad path at (c, n, beta34); false: the element path.
+struct QuadPlan {
+  int tx, ty, smem, n_fixed;
+};
+
+bool quad_plan(int c, int n, int beta34, bool aligned, QuadPlan& q) {
+  if (c % 4 != 0 || !aligned || c / 4 > kMaxQuads) return false;
+  q.tx = c / 4;
+  q.ty = q.tx >= kQuadThreads ? 1 : kQuadThreads / q.tx;
+  q.smem = 2 * q.ty * c * static_cast<int>(sizeof(float));
+  q.n_fixed = n == 5 && beta34 ? 5 : 0;
+  return true;
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
+}
+
 int prepare(LrnArgs& a, long long rows, int c, int n, float alpha,
             float beta, int beta34, float k, float two_alpha_beta) {
   if (rows < 1 || c < 1 || n < 1) return -1;
@@ -177,14 +298,53 @@ extern "C" int znicz_lrn_backward_f32(const void* x, const void* e, void* dx,
   LrnArgs a;
   if (prepare(a, rows, c, n, alpha, beta, beta34, k, two_alpha_beta) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  QuadPlan qp;
+  if (quad_plan(c, n, beta34, aligned16(x) && aligned16(e) && aligned16(dx),
+                qp)) {
+    const float4* xp = static_cast<const float4*>(x);
+    const float4* ep = static_cast<const float4*>(e);
+    float4* op = static_cast<float4*>(dx);
+    void* args[] = {&xp, &ep, &op, &a};
+    const long long blocks = (rows + qp.ty - 1) / qp.ty;
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    const void* kernel =
+        qp.n_fixed == 5
+            ? reinterpret_cast<const void*>(lrn_bwd_quad_kernel<5>)
+            : reinterpret_cast<const void*>(lrn_bwd_quad_kernel<0>);
+    return static_cast<int>(cudaLaunchKernel(
+        kernel, dim3(static_cast<unsigned>(blocks)), dim3(qp.tx, qp.ty), args,
+        qp.smem, s));
+  }
   const float* xp = static_cast<const float*>(x);
   const float* ep = static_cast<const float*>(e);
   float* op = static_cast<float*>(dx);
   void* args[] = {&xp, &ep, &op, &a};
-  return static_cast<int>(launch(reinterpret_cast<const void*>(
-                                     lrn_bwd_kernel),
-                                 3, a, args,
-                                 static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(
+      launch(reinterpret_cast<const void*>(lrn_bwd_kernel), 3, a, args, s));
+}
+
+// The backward's launch at (rows, c, n) into out[0..5]: quad path (1) or
+// element path (0), rows a block, threads x and y, shared-memory bytes,
+// and the quad kernel's fixed n (5, or 0 for n at run time; 0 on the
+// element path).  kernels/lrn.py lrn_plan is its twin.
+extern "C" int znicz_lrn_backward_plan(long long rows, int c, int n,
+                                       int beta34, int aligned, int* out) {
+  LrnArgs a;
+  if (prepare(a, rows, c, n, 0.f, 0.f, beta34, 0.f, 0.f) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  QuadPlan qp;
+  if (quad_plan(c, n, beta34, aligned != 0, qp)) {
+    const int v[6] = {1, qp.ty, qp.tx, qp.ty, qp.smem, qp.n_fixed};
+    for (int i = 0; i < 6; ++i) out[i] = v[i];
+  } else {
+    const int v[6] = {0, a.rows_per_block, kThreads, 1,
+                      3 * a.rows_per_block * c *
+                          static_cast<int>(sizeof(float)),
+                      0};
+    for (int i = 0; i < 6; ++i) out[i] = v[i];
+  }
+  return 0;
 }
 
 extern "C" const char* znicz_lrn_error_string(int code) {

@@ -14,6 +14,11 @@ them on CPU tensors only; on CUDA tensors they launch the kernels or
 raise.  ``fwd_launches`` / ``bwd_launches`` count kernel launches and
 nothing else.  Importing this module needs no ``nvcc``: the library is
 built at the first CUDA call.
+
+The backward takes one of two paths, :func:`lrn_plan` its Python twin
+of ``csrc/lrn.cu``'s choice: four channels a thread (float4 loads and
+stores, whole rows a block) where ``c % 4 == 0``, ``c <= 4096`` and
+every pointer lies on 16 bytes, else one element a thread.
 """
 
 from __future__ import annotations
@@ -35,6 +40,10 @@ bwd_launches = 0
 REPLACES_FWD = "znicz_tpu/ops/pallas/lrn.py:65"
 REPLACES_BWD = "znicz_tpu/ops/pallas/lrn.py:79"
 SOURCE = "znicz_tpu_torch/csrc/lrn.cu"
+
+#: the quad path's block target, its widest row (in quads), and the
+#: element path's block and tile (``csrc/lrn.cu``)
+QUAD_THREADS, MAX_QUADS, ELEM_THREADS, ELEM_TILE = 256, 1024, 256, 2048
 
 _lib = None
 
@@ -59,6 +68,47 @@ def bound(x_shape, n: int, backward: bool = False) -> dict:
     return _bound_of((2 * n + 6) * elems, 8 * elems)
 
 
+def lrn_plan(rows: int, c: int, n: int, beta: float = 0.75,
+             aligned: bool = True) -> dict:
+    """The backward's launch at (rows, c), as ``quad_plan`` in
+    ``csrc/lrn.cu`` chooses it: ``path`` ("quad" or "element"),
+    ``rows_per_block``, ``threads`` (x, y), ``smem_bytes`` and, on the
+    quad path, ``n_fixed``: 5 for AlexNet's window at beta 0.75 (the
+    unrolled instantiation), else 0 (n at run time).  ``aligned``: every
+    pointer lies on 16 bytes (:func:`aligned16`)."""
+    if c % 4 == 0 and aligned and c // 4 <= MAX_QUADS:
+        tx = c // 4
+        ty = 1 if tx >= QUAD_THREADS else QUAD_THREADS // tx
+        return {"path": "quad", "rows_per_block": ty, "threads": (tx, ty),
+                "smem_bytes": 2 * ty * c * 4,
+                "n_fixed": 5 if n == 5 and beta == 0.75 else 0}
+    per = 1 if c >= ELEM_TILE else ELEM_TILE // c
+    return {"path": "element", "rows_per_block": per,
+            "threads": (ELEM_THREADS, 1), "smem_bytes": 3 * per * c * 4,
+            "n_fixed": 0}
+
+
+def aligned16(*tensors) -> bool:
+    """Whether every tensor's data starts on 16 bytes (the quad path's
+    float4 accesses)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def lrn_plan_on_card(rows: int, c: int, n: int, beta: float = 0.75,
+                     aligned: bool = True) -> dict:
+    """``znicz_lrn_backward_plan`` from ``csrc/lrn.cu`` in
+    :func:`lrn_plan`'s terms, for the smoke to hold one against the
+    other."""
+    out = (ctypes.c_int * 6)()
+    rc = _library().znicz_lrn_backward_plan(
+        rows, c, n, int(beta == 0.75), int(aligned),
+        ctypes.cast(out, ctypes.c_void_p))
+    _raise_on(rc, "lrn_backward_plan")
+    quad, per, tx, ty, smem, n_fixed = list(out)
+    return {"path": "quad" if quad else "element", "rows_per_block": per,
+            "threads": (tx, ty), "smem_bytes": smem, "n_fixed": n_fixed}
+
+
 def _library():
     global _lib
     if _lib is None:
@@ -69,7 +119,10 @@ def _library():
                                               f32, i32, f32, ptr]
         lib.znicz_lrn_backward_f32.argtypes = [ptr, ptr, ptr, i64, i32, i32,
                                                f32, f32, i32, f32, f32, ptr]
-        for fn in (lib.znicz_lrn_forward_f32, lib.znicz_lrn_backward_f32):
+        lib.znicz_lrn_backward_plan.argtypes = [i64, i32, i32, i32, i32,
+                                                ptr]
+        for fn in (lib.znicz_lrn_forward_f32, lib.znicz_lrn_backward_f32,
+                   lib.znicz_lrn_backward_plan):
             fn.restype = i32
         lib.znicz_lrn_error_string.argtypes = [i32]
         lib.znicz_lrn_error_string.restype = ctypes.c_char_p
