@@ -146,20 +146,38 @@ exits non-zero without the final ``ok`` line):
    defaults per minibatch until the decision stops it; the card against
    the CPU on the demo (identical winners).
 17. **lrn_dropout** — the LRN kernels against their plain versions at
-   AlexNet's two norm layers (a cut-window control), the backward bit-
-   identical there on the quad path and on the element path (c 5, an
-   unaligned x), its plan equal to ``lrn_plan`` over a sweep, timed
-   against ``F.local_response_norm``; the dropout kernel against its
-   plain version at one seed, its drop rate on 64 M elements, timed.
+   AlexNet's two norm layers (a cut-window control), both directions
+   bit-identical there on the quad path and on the element path (c 5, an
+   unaligned x), each direction's plan equal to ``lrn_plan`` over a
+   sweep, each layer timed against its bound and the forward against
+   ``F.local_response_norm``; the dropout kernel against its plain
+   version at one seed, its drop rate on 64 M elements, timed beside
+   ``aten.native_dropout``.
+17a. **alexnet_fused** — ``models/alexnet.py build()`` at its defaults
+   (fused, 227 px, batch 128, 1000 classes, dropout 0.5, bf16 over f32
+   masters, the data set pinned on the card) through ``train_steps`` (K
+   staged batches; one warm call, timed ones by CUDA events, one
+   profiled), the LRN and SGD counters set to 0 just before and read
+   just after (exactly 2 LRN forwards and 2 backwards and one update a
+   leaf a step); step ms, samples/s, MFU, peak memory, idle share; then
+   one epoch through ``Workflow.run``, the counts again exact.
+17b. **fused_conv_parity** — the fused conv shape in f32, the card
+   against the CPU for the test-size AlexNet (dropout 0) and MNIST conv
+   with stochastic pools (the same numpy uniforms on both sides): the
+   same n_err, weights within a band that the same runs with TF32 on
+   must fail; MNIST conv and CIFAR conv fused at their own widths
+   (batch 100) for an epoch each; the fused max-pool backward at
+   AlexNet's pool1 bit-identical across two runs (f32 and bf16) and
+   equal to the CPU's in f32.
 18. **kernel_hw** — ``utils/kernel_hw.run_parity("cuda")``, all fourteen
    families of the reference ``ok``; the LRN, dropout and bf16 conv
-   forward counters set to 0 just before and read just after (this is
-   the path that reaches them).
+   forward counters set to 0 just before and read just after (the only
+   path to the last two).
 
 ``python3 chip_smoke.py --phase NAME ...`` runs only the named phases
 (kernel, flash, gemm, optim, mnist_fused, stochastic_pool,
-pool_backward, conv, alexnet_eager, deconv, kohonen, lrn_dropout, or
-**waves**: the
+pool_backward, conv, alexnet_eager, deconv, kohonen, lrn_dropout,
+alexnet_fused, fused_conv_parity, or **waves**: the
 weight gradient at AlexNet's and build_deep's shapes with split_k's
 slices, one fewer and one more, through the C entry, which runs on
 older trees of the port too) after the build, for iterating on one
@@ -1184,17 +1202,16 @@ def _bf16_ulps(a, b) -> int:
                .abs().max())
 
 
-def _sgd_compare(leaves, h, bs, vel_dtype, control_bs) -> dict:
+def _sgd_compare(leaves, hs, bs, vel_dtype, control_bs) -> dict:
     """Kernel (at ``control_bs`` when given) vs plain at ``bs``, leaf by
-    leaf: the worst f32 relative error of w (and of an f32 vel), the
-    worst bf16 ulp distance of a bf16 vel, and whether bit-identical."""
+    leaf, each leaf with its own (lr, wd, l1, mom) from ``hs``: the worst
+    f32 relative error of w (and of an f32 vel), the worst bf16 ulp
+    distance of a bf16 vel, and whether bit-identical."""
     ker, ref = _clone(leaves), _clone(leaves)
     kbs = bs if control_bs is None else _dev(np.float32(control_bs))
-    for kl, rl in zip(ker, ref):
-        koptim.sgd_update_(kl["w"], kl["g"], kl["vel"], h["lr"], h["wd"],
-                           h["l1"], h["mom"], kbs)
-        koptim.sgd_update_plain(rl["w"], rl["g"], rl["vel"], h["lr"],
-                                h["wd"], h["l1"], h["mom"], bs)
+    for kl, rl, h in zip(ker, ref, hs):
+        koptim.sgd_update_(kl["w"], kl["g"], kl["vel"], *h, kbs)
+        koptim.sgd_update_plain(rl["w"], rl["g"], rl["vel"], *h, bs)
     torch.cuda.synchronize()
     out = {"w_rel": max(_rel(k["w"], r["w"]) for k, r in zip(ker, ref)),
            "max_abs_err": max(_max_abs(k[n], r[n]) for k, r in
@@ -1220,6 +1237,18 @@ def _sgd_rejects(r: dict) -> bool:
     return r["w_rel"] > OPTIM_TOL and (
         r["vel_ulps"] > OPTIM_BF16_ULPS if "vel_ulps" in r
         else r["vel_rel"] > OPTIM_TOL)
+
+
+def _sgd_checked(leaves, hs, bs, vel_dtype) -> dict:
+    """:func:`_sgd_compare` and its bs = 1 control; fails unless the
+    sound update is within the bands and the control outside them."""
+    r = {"sound": _sgd_compare(leaves, hs, bs, vel_dtype, None),
+         "control": _sgd_compare(leaves, hs, bs, vel_dtype, 1)}
+    if not _sgd_within(r["sound"]):
+        fail(f"sgd_update_ vs plain outside the band: {r}")
+    if not _sgd_rejects(r["control"]):
+        fail(f"the sgd bands pass the bs = 1 control: {r}")
+    return r
 
 
 def _adam_compare(leaves, h, bs, control_bs) -> dict:
@@ -1324,13 +1353,9 @@ def phase_optim() -> dict:
     for vel_dtype in (torch.float32, torch.bfloat16):
         name = f"sgd_vel_{str(vel_dtype).split('.')[-1]}"
         leaves = _optim_state(rng, shapes, vel_dtype)
-        sound = _sgd_compare(leaves, h, bs, vel_dtype, None)
-        control = _sgd_compare(leaves, h, bs, vel_dtype, 1)
-        out[name] = {"sound": sound, "control": control}
-        if not _sgd_within(sound):
-            fail(f"sgd_update_ vs plain outside the band: {out[name]}")
-        if not _sgd_rejects(control):
-            fail(f"the sgd bands pass the bs = 1 control: {out[name]}")
+        out[name] = _sgd_checked(
+            leaves, [(h["lr"], h["wd"], h["l1"], h["mom"])] * len(leaves),
+            bs, vel_dtype)
         sgd_state[vel_dtype] = leaves
     ah = _scalars(ADAM_HYPER)
     t_step = _dev(np.float32(3.0))            # the step count after 2
@@ -3535,40 +3560,49 @@ DROP_SHAPES = (("fc6_input", (128, 9216)), ("64M", (8192, 8192)))
 DROP_RATIO, DROP_RATE_TOL = 0.5, 1e-3
 
 
-#: the LRN backward off AlexNet's shapes: c 5 (the element path), an x
+#: both LRN kernels off AlexNet's shapes: c 5 (the element path), an x
 #: one float off 16 bytes at c 96 (the element path), and c 128 with
 #: run_parity's rows (the quad path): (shape, x's offset in floats)
 LRN_PATH_CASES = (((2, 13, 13, 5), 0), ((4, 13, 13, 96), 1),
                   ((4, 8, 8, 128), 0))
-#: the plan twin's sweep: (rows, c, n, beta, aligned)
+#: the plan twin's sweep: (rows, c, n, beta, aligned), each direction
 LRN_PLAN_SWEEP = [(r, c, n, beta, al) for r in (1, 7, 387200)
                   for c in (1, 3, 4, 5, 96, 128, 256, 384, 4096, 4100, 8192)
                   for n in (1, 4, 5, 9) for beta in (0.75, 0.6)
                   for al in (True, False)]
 
 
+def lrn_path_of(x, e, backward: bool):
+    c = x.shape[-1]
+    return klrn.lrn_plan(x.numel() // c, c, LRN_ARGS[3], LRN_ARGS[1],
+                         klrn.aligned16(x, e), backward=backward)["path"]
+
+
 def _lrn_plans() -> dict:
-    """The backward's plan from lrn.cu against ``kernels/lrn.py
-    lrn_plan`` over LRN_PLAN_SWEEP; None on a tree before the quad
-    path."""
-    if not hasattr(klrn, "lrn_plan_on_card"):
-        return None
+    """Each direction's plan from lrn.cu against ``kernels/lrn.py
+    lrn_plan`` over LRN_PLAN_SWEEP."""
     for case in LRN_PLAN_SWEEP:
-        card, twin = klrn.lrn_plan_on_card(*case), klrn.lrn_plan(*case)
-        if card != twin:
-            fail(f"lrn_backward's plan at {case}: lrn.cu {card}, "
-                 f"kernels/lrn.py {twin}")
-    return {"cases_checked": len(LRN_PLAN_SWEEP),
-            **{name: klrn.lrn_plan(int(np.prod(shape[:-1])), shape[-1], 5)
-               for name, shape in LRN_SHAPES}}
+        for backward in (True, False):
+            card = klrn.lrn_plan_on_card(*case, backward=backward)
+            twin = klrn.lrn_plan(*case, backward=backward)
+            if card != twin:
+                fail(f"lrn plan (backward {backward}) at {case}: lrn.cu "
+                     f"{card}, kernels/lrn.py {twin}")
+    return {"cases_checked": 2 * len(LRN_PLAN_SWEEP),
+            **{f"{name}_{kind}": klrn.lrn_plan(
+                int(np.prod(shape[:-1])), shape[-1], 5,
+                backward=kind == "bwd")
+               for name, shape in LRN_SHAPES for kind in ("fwd", "bwd")}}
 
 
 def phase_lrn_dropout() -> dict:
     """The LRN kernels against their plain versions at AlexNet's norm
-    shapes (band, cut-window control, times against
-    F.local_response_norm, which computes the same forward with alpha·n),
-    and the dropout kernel against its plain version at one seed (bit for
-    bit, the drop rate, y == x·mask, times)."""
+    shapes (bit for bit on the quad path, band, cut-window control, each
+    layer timed against its bound and F.local_response_norm, which
+    computes the same forward with alpha·n) and off them (the element
+    path), their plans against the Python twin, and the dropout kernel
+    against its plain version at one seed (bit for bit, the drop rate,
+    y == x·mask, times)."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 41)
     alpha, beta, k, n = LRN_ARGS
     lrn_checks, lrn_timed = [], []
@@ -3600,12 +3634,10 @@ def phase_lrn_dropout() -> dict:
             if not (check[kind]["rel_err"] <= LRN_TOL and
                     check[kind]["control_rel_err"] > LRN_TOL):
                 fail(f"lrn {kind} vs plain: {check}")
-        if hasattr(klrn, "lrn_plan"):
-            check["bwd_path"] = klrn.lrn_plan(
-                x.numel() // c, c, n, beta, klrn.aligned16(x, e))["path"]
-            if not (check["bwd"]["identical"] and
-                    check["bwd_path"] == "quad"):
-                fail(f"lrn backward not bit-identical on the quad path: "
+        for kind in ("fwd", "bwd"):
+            check[f"{kind}_path"] = path = lrn_path_of(x, e, kind == "bwd")
+            if not (check[kind]["identical"] and path == "quad"):
+                fail(f"lrn {kind} not bit-identical on the quad path: "
                      f"{check}")
         lrn_checks.append(check)
         for kind, kern, plain, lib in (
@@ -3615,12 +3647,13 @@ def phase_lrn_dropout() -> dict:
                      xn, n, alpha=alpha * n, beta=beta, k=k)),
                 ("bwd", lambda: klrn.lrn_backward(x, e, *LRN_ARGS),
                  lambda: klrn.lrn_backward_plain(x, e, *LRN_ARGS), None)):
-            lrn_timed.append({"layer": name, "kernel": kind,
-                              "ms": time_cuda_ms(kern),
-                              "plain_ms": time_cuda_ms(plain, iters=5),
-                              "library_ms": None if lib is None
-                              else time_cuda_ms(lib, iters=5),
-                              **klrn.bound(shape, n, kind == "bwd")})
+            row = {"layer": name, "kernel": kind, "ms": time_cuda_ms(kern),
+                   "plain_ms": time_cuda_ms(plain, iters=5),
+                   "library_ms": None if lib is None
+                   else time_cuda_ms(lib, iters=5),
+                   **klrn.bound(shape, n, kind == "bwd")}
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            lrn_timed.append(row)
         del x, e, got, want, cut, lib_fwd, xn
     lrn_paths, lrn_plans = [], _lrn_plans()
     for shape, offset in LRN_PATH_CASES:
@@ -3628,18 +3661,22 @@ def phase_lrn_dropout() -> dict:
                             device=DEVICE) * 3.0
         x = store[offset:].view(shape)
         e = torch.randn(shape, generator=gen, device=DEVICE)
-        got = klrn.lrn_backward(x, e, *LRN_ARGS)
-        want = klrn.lrn_backward_plain(x, e, *LRN_ARGS)
+        got = {"fwd": klrn.lrn_forward(x, *LRN_ARGS),
+               "bwd": klrn.lrn_backward(x, e, *LRN_ARGS)}
+        want = {"fwd": klrn.lrn_forward_plain(x, *LRN_ARGS),
+                "bwd": klrn.lrn_backward_plain(x, e, *LRN_ARGS)}
         torch.cuda.synchronize()
-        lrn_paths.append({
-            "shape": list(shape), "offset_floats": offset,
-            "path": None if lrn_plans is None else klrn.lrn_plan(
-                x.numel() // shape[-1], shape[-1], n, beta,
-                klrn.aligned16(x, e))["path"],
-            "identical": bool(torch.equal(got, want)),
-            "max_abs_err": float((got - want).abs().max())})
-        if not lrn_paths[-1]["identical"]:
-            fail(f"lrn backward vs plain: {lrn_paths[-1]}")
+        for kind in ("fwd", "bwd"):
+            lrn_paths.append({
+                "kernel": kind, "shape": list(shape),
+                "offset_floats": offset,
+                "path": lrn_path_of(x, e, kind == "bwd"),
+                "identical": bool(torch.equal(got[kind], want[kind])),
+                "max_abs_err": float((got[kind] - want[kind]).abs().max())})
+            quad = offset == 0 and shape[-1] % 4 == 0
+            if not (lrn_paths[-1]["identical"] and lrn_paths[-1]["path"]
+                    == ("quad" if quad else "element")):
+                fail(f"lrn {kind} vs plain: {lrn_paths[-1]}")
         del store, x, e, got, want
     drop_checks, drop_timed = [], []
     for name, shape in DROP_SHAPES:
@@ -3671,7 +3708,10 @@ def phase_lrn_dropout() -> dict:
                            "ms": time_cuda_ms(lambda: kdrop.dropout_forward(
                                x, DROP_RATIO, seed=SEED)),
                            "plain_ms": time_cuda_ms(plain, iters=5),
-                           "library_ms": None, **kdrop.bound(x.numel())})
+                           "library_ms": time_cuda_ms(
+                               lambda: torch.ops.aten.native_dropout(
+                                   x, DROP_RATIO, True), iters=5),
+                           **kdrop.bound(x.numel())})
         del x
     lrn_path = {}
     for kind in ("fwd", "bwd"):
@@ -3681,8 +3721,9 @@ def phase_lrn_dropout() -> dict:
         lrn_path[kind].update(
             library_ms=None if kind == "bwd"
             else sum(t["library_ms"] for t in rows),
-            bound_by="bytes", max_abs_err=max(c[kind]["max_abs_err"]
-                                              for c in lrn_checks))
+            bound_by="bytes", bound_share=lrn_path[kind]["bound_ms"] /
+            lrn_path[kind]["ms"], max_abs_err=max(c[kind]["max_abs_err"]
+                                                  for c in lrn_checks))
     return {"phase": "lrn_dropout", "ptxas": {"lrn": ptxas_usage("lrn"),
                                              "dropout":
                                              ptxas_usage("dropout")},
@@ -3695,6 +3736,441 @@ def phase_lrn_dropout() -> dict:
                          "128; dropout: the 64 M-element tensor"}
 
 
+#: alexnet_fused: alexnet.build() at its defaults, fused (227 px, batch
+#: 128, 1000 classes, dropout 0.5, lr 0.01, momentum 0.9, decay 5e-4, bf16
+#: compute over f32 masters), on the synthetic loader's data set of
+#: alexnet_eager (n_train 384, n_valid 128: 3 train and 1 validation
+#: minibatches an epoch) pinned on the card.  K staged batches (rolled
+#: copies of the data set's first 128 samples); one warm train_steps
+#: call, AF_REPS timed with CUDA events, one profiled; then one epoch
+#: through Workflow.run
+AF_K, AF_REPS = 4, 3
+
+
+def _forward_flops(w) -> float:
+    """Flops of one forward of ``w``'s conv and FC layers at its batch:
+    2 x the multiply-adds (output positions x kx·ky·c_in x c_out for a
+    conv, in x out for an FC layer)."""
+    total = 0.0
+    for f in w.forwards:
+        if not f.weights:
+            continue
+        out = f.output.shape
+        if len(out) == 4:
+            total += 2.0 * np.prod(out) * f.kx * f.ky * f.input.shape[3]
+        else:
+            total += 2.0 * np.prod(out) * np.prod(f.input.shape[1:])
+    return total
+
+
+def _lrn_sgd_counts() -> dict:
+    return {"lrn_forward": klrn.fwd_launches,
+            "lrn_backward": klrn.bwd_launches,
+            "sgd_update": koptim.sgd_launches,
+            "hand_conv": kconv.fwd_launches + kconv.input_grad_launches +
+            kconv.weight_grad_launches}
+
+
+def _zero_lrn_sgd_counts() -> None:
+    klrn.fwd_launches = klrn.bwd_launches = koptim.sgd_launches = 0
+    kconv.fwd_launches = kconv.input_grad_launches = 0
+    kconv.weight_grad_launches = 0
+
+
+def _fused_sgd_leaves_check(step) -> dict:
+    """The SGD kernel against its plain version at the fused step's own
+    leaves (every w and b: fc6's 9216 x 4096 down to the 96-element
+    bias), each with the hyperparameters the step passes it (its layer's
+    lr, wd, l1 and momentum, the bias's own), bs the batch, with the
+    bs = 1 control: in the step's velocity dtype and in bf16 (the
+    ``state_dtype`` option).  w, the summed gradient and the velocity
+    come from a seeded generator on the card."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 47)
+
+    def randn(shape, scale, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=DEVICE) *
+                scale).to(dtype)
+
+    shapes, hs, vel_dtypes = [], [], set()
+    for leaf, h in zip(step._params, step._hyper_device()):
+        for k, lr, wd, mom in (("w", "lr", "wd", "mom"),
+                               ("b", "lr_b", "wd_b", "mom_b")):
+            if k in leaf:
+                shapes.append(tuple(leaf[k].shape))
+                hs.append((h[lr], h[wd], h["l1"], h[mom]))
+                vel_dtypes.add(leaf["v" + k].dtype)
+    if vel_dtypes != {torch.float32}:
+        fail(f"alexnet fused velocity dtypes {vel_dtypes}, expected f32")
+    bs = _dev(np.float32(ALEX_BATCH))
+    out = {"leaves": len(shapes), "shapes": shapes,
+           "elements": int(sum(np.prod(sh) for sh in shapes)),
+           "hyper": [[float(v) for v in h] for h in hs], "bs": ALEX_BATCH}
+    for vel_dtype in (torch.float32, torch.bfloat16):
+        leaves = [{"w": randn(sh, 0.05), "g": randn(sh, 32.0),
+                   "vel": randn(sh, 0.01, vel_dtype)} for sh in shapes]
+        out[f"vel_{str(vel_dtype).split('.')[-1]}"] = _sgd_checked(
+            leaves, hs, bs, vel_dtype)
+        del leaves
+    return out
+
+
+def phase_alexnet_fused() -> dict:
+    """alexnet.build() at its defaults through the fused step on the
+    card: cuDNN convs and cuBLAS matmuls under autograd (the reference's
+    fused step runs XLA's), LRN on its two kernels through the ``lrn``
+    Function, the update on the SGD kernel.  The LRN and SGD counters
+    set to 0 just before the staged calls and read just after (exactly
+    2 LRN forwards, 2 LRN backwards and one SGD launch a leaf a train
+    step), step ms by CUDA events, samples/s, MFU, peak memory, the idle
+    share of one profiled call; then one epoch through Workflow.run, the
+    counters again exact (an eval minibatch runs the LRN forward only).
+    First, before the counters are set to 0, the SGD kernel is held
+    against its plain version at the step's own leaves."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tprng.seed_all(SEED)
+    w = talexnet.build(n_train=ALEX_TRAIN, n_valid=ALEX_VALID)
+    t0 = time.perf_counter()
+    w.initialize(device=TorchDevice())
+    init_s = time.perf_counter() - t0
+    step = w.step
+    if step.compute_dtype != torch.bfloat16 or step._dataset_dev is None:
+        fail(f"alexnet fused: compute {step.compute_dtype}, dataset pinned "
+             f"{step._dataset_dev is not None}")
+    sgd_leaves = _fused_sgd_leaves_check(step)
+    data, labels = step._dataset_dev
+    idx = torch.tensor((np.arange(ALEX_BATCH)[None, :] -
+                        np.arange(AF_K)[:, None]) % ALEX_BATCH,
+                       device=DEVICE)
+    xs, ys = data[idx], labels[idx]
+    ms = torch.ones((AF_K, ALEX_BATCH), dtype=torch.bool, device=DEVICE)
+    n_leaves = sum(k in leaf for leaf in step._params for k in ("w", "b"))
+    before = _conv_fc_weights(w)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_lrn_sgd_counts()                           # 0 just before ...
+    losses = [float(step.train_steps(xs, ys, ms)["loss"]) /
+              (ALEX_BATCH * AF_K)]
+    events = []
+    for _ in range(AF_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = step.train_steps(xs, ys, ms)
+        end.record()
+        events.append((start, end, metrics))
+    torch.cuda.synchronize()
+    call_ms = [a.elapsed_time(b) for a, b, _ in events]
+    losses += [float(m["loss"]) / (ALEX_BATCH * AF_K) for _, _, m in events]
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step.train_steps(xs, ys, ms)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = _lrn_sgd_counts()                     # ... read just after
+    steps = AF_K * (2 + AF_REPS)
+    expect = {"lrn_forward": 2 * steps, "lrn_backward": 2 * steps,
+              "sgd_update": n_leaves * steps, "hand_conv": 0}
+    device = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")
+              and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    lrn_ms = sum(e.self_device_time_total for e in device
+                 if "lrn_" in e.key) / 1e3
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:12]
+    del xs, ys, ms, idx
+    # one epoch through the graph: Repeater -> Loader -> FusedStep ->
+    # Decision, the loader serving indices into the pinned data set
+    marks = _per_minibatch_marks(w)
+    _zero_lrn_sgd_counts()                           # 0 just before ...
+    t0 = time.perf_counter()
+    w.run()
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    epoch_launches = _lrn_sgd_counts()               # ... read just after
+    classes = [c for _, c in marks]
+    n_train_mb = classes.count(2)
+    n_eval_mb = len(classes) - n_train_mb
+    epoch_expect = {"lrn_forward": 2 * (n_train_mb + n_eval_mb),
+                    "lrn_backward": 2 * n_train_mb,
+                    "sgd_update": n_leaves * n_train_mb, "hand_conv": 0}
+    step.sync_to_units()
+    after = _conv_fc_weights(w)
+    hist = w.decision.metrics_history
+    step_ms = float(np.median(call_ms)) / AF_K
+    sps = ALEX_BATCH / (step_ms / 1e3)
+    flops = 3.0 * _forward_flops(w)
+    out = {"phase": "alexnet_fused",
+           "config": {"batch": ALEX_BATCH, "input": 227, "classes": 1000,
+                      "dropout": 0.5, "lr": 0.01, "momentum": 0.9,
+                      "compute": str(step.compute_dtype), "K": AF_K,
+                      "timed_calls": AF_REPS, "n_train": ALEX_TRAIN,
+                      "n_valid": ALEX_VALID, "dataset_on_device": True},
+           "route": "cuDNN convs and matmuls under autograd, LRN on its "
+                    "forward and backward kernels, SGD on the update "
+                    "kernel; pooling and dropout plain torch",
+           "init_s": init_s, "losses_per_sample": losses,
+           "call_ms": call_ms, "step_ms": step_ms, "samples_per_s": sps,
+           "train_flops_per_step": flops,
+           "mfu": flops / ALEX_BATCH * sps / BF16_FLOPS,
+           "mfu_note": "3 x the conv and FC layers' forward flops against "
+                       "989 TFLOP/s bf16",
+           "peak_mem_bytes": peak, "steps": steps, "leaves": n_leaves,
+           "sgd_at_leaves": sgd_leaves,
+           "launches": launches, "expect": expect,
+           "profile": {"steps": AF_K, "wall_ms": wall_ms,
+                       "device_busy_ms": busy_ms,
+                       "device_idle_share": 1 - busy_ms / wall_ms,
+                       "busy_ms_per_step": busy_ms / AF_K,
+                       "lrn_kernels_ms_per_step": lrn_ms / AF_K,
+                       "top_device": [
+                           {"name": e.key[:80], "count": e.count,
+                            "ms_per_step":
+                                e.self_device_time_total / 1e3 / AF_K}
+                           for e in top]},
+           "epoch": {"wall_s": epoch_s, "history": hist,
+                     "train_minibatches": n_train_mb,
+                     "eval_minibatches": n_eval_mb,
+                     "launches": epoch_launches, "expect": epoch_expect}}
+    if not all(np.isfinite(losses)):
+        fail(f"alexnet fused loss not finite: {out}")
+    if launches != expect or epoch_launches != epoch_expect:
+        fail(f"alexnet fused launches: {out}")
+    if not (len(hist) == 1 and bool(w.decision.complete)):
+        fail(f"the fused alexnet epoch did not finish: {hist}")
+    unchanged = [name for name, (wb, bb) in before.items()
+                 if np.array_equal(after[name][0], wb)
+                 or np.array_equal(after[name][1], bb)]
+    if unchanged or not all(np.isfinite(a).all() for wb in after.values()
+                            for a in wb):
+        fail(f"alexnet fused weights unchanged {unchanged} or not finite")
+    if not lrn_ms > 0:
+        fail(f"the profiled call shows no LRN kernel: {out}")
+    return out
+
+
+#: fused_conv_parity: the test-size AlexNet (alexnet_parity's, dropout 0)
+#: and MNIST conv with both pools stochastic at narrow widths
+#: (mnist_conv_stochastic's parity run), fused, in f32: the card (cuDNN
+#: and cuBLAS with TF32 off, the LRN kernels) against the port on the CPU
+#: (oneDNN, the plain versions), the same numpy uniforms drawn on both
+#: sides.  They sum the same f32 products in other orders (the fused AE
+#: moved 1e-6 under the same change, ae_parity), so the weight band is
+#: 2e-6; the same run with TF32 on must fail it.  MNIST conv's first
+#: layer (c_in 1, 5x5) is where cuDNN picks a non-fused Winograd weight
+#: gradient (winogradWgradDelta9x9_5x5), 6.5e-4 from an f64 reference
+#: against oneDNN's 5.3e-7 (the profiler and an f64 probe, PERF.md):
+#: that run moves the layer's weights 1.1e-5, so it is held to the band
+#: with cuDNN off (the native im2col conv on cuBLAS: 6e-8), and the
+#: cuDNN run, the route users take, to FCP_CUDNN_WEIGHT_ATOL: 9x its
+#: 1.1e-5 and 100x under the TF32 control's 1.1e-2, which it must fail
+#: too with cuDNN on (the same n_err in all three)
+FCP_EPOCHS, FCP_WEIGHT_ATOL, FCP_CUDNN_WEIGHT_ATOL = 3, 2e-6, 1e-4
+#: MNIST conv and CIFAR conv at their own widths, fused on the card in
+#: bf16 (batch 100; 500 train and 100 validation samples, one epoch)
+FCP_MODEL_TRAIN, FCP_MODEL_VALID = 500, 100
+
+
+def inject_uniforms(w, seed: int) -> None:
+    """Every NEEDS_RNG forward of ``w`` draws its uniforms from one numpy
+    stream (the same on any device, in draw order)."""
+    rng = np.random.default_rng(seed)
+    for fwd in w.forwards:
+        if fwd.NEEDS_RNG:
+            fwd.draw_uniform = lambda gen, shape, device: torch.tensor(
+                rng.random(tuple(shape), dtype=np.float32), device=device)
+
+
+def _fused_parity_run(which, device, allow_tf32=False, cudnn=True):
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+    torch.backends.cudnn.allow_tf32 = allow_tf32
+    torch.backends.cudnn.enabled = cudnn
+    try:
+        tprng.seed_all(SEED)
+        if which == "alexnet":
+            layers = small_alexnet_layers(0.0, 0.03)
+            cfg = {"n_classes": 10, "sample_shape": (67, 67, 3),
+                   "n_train": 32, "n_valid": 16, "minibatch_size": 8,
+                   "spread": 1.0, "noise": 0.5}
+        else:
+            layers = stochastic_mnist_layers(narrow=True)
+            cfg = {"n_classes": 10, "sample_shape": (28, 28, 1),
+                   "n_train": 60, "n_valid": 20, "minibatch_size": 10,
+                   "spread": 2.5, "noise": 1.0}
+        w = StandardWorkflow(
+            name=which, layers=layers, loss_function="softmax",
+            loader_name="synthetic_image", loader_config=cfg,
+            decision_config={"max_epochs": FCP_EPOCHS}, fused=True)
+        w.initialize(device=TorchDevice(device, precision="float32"))
+        inject_uniforms(w, SEED)
+        w.run()
+        w.step.sync_to_units()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+        torch.backends.cudnn.enabled = True
+    return w.decision.metrics_history, _conv_fc_weights(w)
+
+
+def fused_pool_backward_check() -> dict:
+    """``ops/pooling.py max_forward_fast``'s backward at AlexNet's pool1
+    (the input whose peaks win four windows each, a normal cotangent):
+    two runs on the card bit-identical, in f32 and in the fused step's
+    bf16, the f32 one equal to the CPU's bits; each timed."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 43)
+    ky, kx, sy, sx = POOL_BWD_WINDOW
+    x = torch.rand(POOL_BWD_SHAPE, generator=gen, device=DEVICE)
+    x[:, 2::4, 2::4] += 10.0
+    out = {"shape": list(POOL_BWD_SHAPE), "window": list(POOL_BWD_WINDOW)}
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(dtype).requires_grad_(True)
+        y = tpool_ops.max_forward_fast(xd, ky, kx, sy, sx)
+        g = torch.randn(y.shape, generator=gen, device=DEVICE).to(dtype)
+
+        def run():
+            return torch.autograd.grad(y, xd, g, retain_graph=True)[0]
+
+        first, second = run(), run()
+        r = {"identical_runs": bool(torch.equal(first, second)),
+             "ms": time_cuda_ms(run, iters=10)}
+        if dtype == torch.float32:
+            xc = xd.detach().cpu().requires_grad_(True)
+            yc = tpool_ops.max_forward_fast(xc, ky, kx, sy, sx)
+            want = torch.autograd.grad(yc, xc, g.cpu())[0]
+            r["equals_cpu"] = bool(torch.equal(first.cpu(), want))
+        out[str(dtype).replace("torch.", "")] = r
+        del xd, y, g, first, second
+    if not (out["float32"]["identical_runs"] and out["float32"]["equals_cpu"]
+            and out["bfloat16"]["identical_runs"]):
+        fail(f"the fused max-pool backward is not deterministic: {out}")
+    return out
+
+
+#: the fused max pool's two forms at MNIST conv's and CIFAR conv's 2x2
+#: pools, batch 100 in the fused step's bf16: (pool, NHWC input)
+MAXPOOL_FORM_SHAPES = (("mnist_conv.pool1", (100, 28, 28, 32)),
+                       ("mnist_conv.pool2", (100, 14, 14, 64)),
+                       ("cifar_conv.pool1", (100, 32, 32, 32)),
+                       ("cifar_conv.pool2", (100, 16, 16, 64)))
+
+
+def fused_maxpool_forms() -> list:
+    """``max_forward_fast``'s reshape form (windows that tile the input)
+    against the strided-tap form, which computes the same bits, at the
+    2x2 pools that take it: forward and backward bit for bit on an input
+    of a few levels (ties in most windows), then each form's forward and
+    forward + backward timed on the device (a spin kernel ahead) and on
+    the host (what a host-bound step pays to issue it)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 53)
+    forms = {"reshape": lambda t: tpool_ops._MaxPoolNonoverlap.apply(
+                 t, 2, 2),
+             "taps": lambda t: tpool_ops._MaxPoolTaps.apply(t, 2, 2, 2, 2)}
+    rows = []
+    for pool, shape in MAXPOOL_FORM_SHAPES:
+        x = torch.randint(0, 4, shape, generator=gen,
+                          device=DEVICE).to(torch.bfloat16)
+        x.requires_grad_(True)
+        g = torch.randn((shape[0], shape[1] // 2, shape[2] // 2, shape[3]),
+                        generator=gen, device=DEVICE).to(torch.bfloat16)
+        row, got = {"pool": pool, "shape": list(shape)}, {}
+        for form, fn in forms.items():
+            y = fn(x)
+            got[form] = (y, torch.autograd.grad(y, x, g)[0])
+
+            def both(fn=fn):
+                return torch.autograd.grad(fn(x), x, g)[0]
+
+            row[form] = {"fwd_ms": time_cuda_ms(lambda fn=fn: fn(x),
+                                                lead=True),
+                         "fwd_bwd_ms": time_cuda_ms(both, lead=True),
+                         "fwd_host_us": host_us(lambda fn=fn: fn(x)),
+                         "fwd_bwd_host_us": host_us(both)}
+        row["identical"] = all(torch.equal(a, b) for a, b in
+                               zip(got["reshape"], got["taps"]))
+        rows.append(row)
+        if not row["identical"]:
+            fail(f"the fused max pool's two forms differ: {row}")
+    return rows
+
+
+def phase_fused_conv_parity() -> dict:
+    """The fused conv shape in f32, the card against the CPU (identical
+    n_err, weights within FCP_WEIGHT_ATOL, which TF32 must fail) for the
+    test-size AlexNet and MNIST conv with stochastic pools (cuDNN off,
+    then on at FCP_CUDNN_WEIGHT_ATOL); MNIST conv and CIFAR conv fused at
+    their own widths on the card; the fused max-pool backward's
+    determinism at AlexNet's pool1 and its two forms at the 2x2 pools.
+    Every run is made before the first check fails."""
+    def spread(a, b):
+        return max(float(np.abs(x - y).max()) for name in a
+                   for x, y in zip(a[name], b[name]))
+
+    out = {"phase": "fused_conv_parity", "epochs": FCP_EPOCHS,
+           "band": {"weight_atol": FCP_WEIGHT_ATOL,
+                    "cudnn_weight_atol": FCP_CUDNN_WEIGHT_ATOL}}
+    bad, cpu = [], {}
+    for name, which, cudnn, band in (
+            ("alexnet", "alexnet", True, FCP_WEIGHT_ATOL),
+            ("mnist_conv_stochastic", "mnist_conv_stochastic", False,
+             FCP_WEIGHT_ATOL),
+            ("mnist_conv_stochastic_cudnn", "mnist_conv_stochastic", True,
+             FCP_CUDNN_WEIGHT_ATOL)):
+        if which not in cpu:
+            cpu[which] = _fused_parity_run(which, "cpu")
+        card = _fused_parity_run(which, DEVICE, cudnn=cudnn)
+        tf32 = _fused_parity_run(which, DEVICE, allow_tf32=True,
+                                 cudnn=cudnn)
+        r = out[name] = {"cudnn": cudnn, "band": band,
+                         "history_card": card[0],
+                         "history_cpu": cpu[which][0],
+                         "weight_max_abs": spread(card[1], cpu[which][1]),
+                         "tf32_control_weight_max_abs": spread(
+                             tf32[1], cpu[which][1])}
+        if card[0] != cpu[which][0]:
+            bad.append(f"{name} n_err card != cpu")
+        if not r["weight_max_abs"] <= band:
+            bad.append(f"{name} weights card vs cpu")
+        if not r["tf32_control_weight_max_abs"] > band:
+            bad.append(f"the {name} band passes the TF32 control")
+    from znicz_tpu_torch.models import cifar_conv as tcifar
+
+    for name, mod in (("mnist_conv", tmnist_conv), ("cifar_conv", tcifar)):
+        tprng.seed_all(SEED)
+        w = mod.build(loader_name="synthetic_image", max_epochs=1,
+                      n_train=FCP_MODEL_TRAIN, n_valid=FCP_MODEL_VALID)
+        w.initialize(device=TorchDevice())
+        before = _conv_fc_weights(w)
+        t0 = time.perf_counter()
+        w.run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        w.step.sync_to_units()
+        after = _conv_fc_weights(w)
+        r = out[name] = {"compute": str(w.step.compute_dtype),
+                         "batch": w.loader.max_minibatch_size,
+                         "wall_s": wall_s,
+                         "history": w.decision.metrics_history,
+                         "weights_finite": all(np.isfinite(a).all()
+                                               for v in after.values()
+                                               for a in v),
+                         "layers_trained": sum(
+                             not np.array_equal(after[k][0], before[k][0])
+                             for k in after), "layers": len(after)}
+        if not (bool(w.decision.complete) and r["weights_finite"] and
+                r["layers_trained"] == r["layers"]):
+            bad.append(f"{name} fused did not train")
+        del w
+    out["pool_backward"] = fused_pool_backward_check()
+    out["maxpool_forms"] = fused_maxpool_forms()
+    if bad:
+        fail(f"fused_conv_parity: {bad}: {out}")
+    return out
+
+
 #: the reference's kernel-layer families (utils/pallas_hw.py run_parity)
 KERNEL_HW_FAMILIES = {"sgd", "adam", "dropout", "lrn", "fc_gemm",
                       "conv_fwd", "conv_bwd", "deconv", "stochastic_pool",
@@ -3704,9 +4180,9 @@ KERNEL_HW_FAMILIES = {"sgd", "adam", "dropout", "lrn", "fc_gemm",
 
 def phase_kernel_hw() -> dict:
     """utils/kernel_hw.run_parity on the card, the launch counters of the
-    kernels only this path reaches (LRN, dropout, the bf16 conv forward)
-    set to 0 just before and read just after: all fourteen families of
-    the reference must be there and ok."""
+    kernels only this path reaches (dropout, the bf16 conv forward) and
+    of LRN's set to 0 just before and read just after: all fourteen
+    families of the reference must be there and ok."""
     torch.cuda.synchronize()
     klrn.fwd_launches = klrn.bwd_launches = kdrop.launches = 0
     kconv.fwd_bf16_launches = 0
@@ -4224,15 +4700,16 @@ def phase_build() -> dict:
 
 def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
                 fused, conv, alexnet, deconv, ae, spool, mcs, som,
-                lrn_drop, kernel_hw) -> dict:
+                lrn_drop, alex_fused, kernel_hw) -> dict:
     """The eighteen kernels: launches from the main paths' runs, times
     and errors from the kernel phases, bounds from this run's inputs.  A
     conv kernel's times and bound sum its launches of one AlexNet train
     minibatch at batch 128 (the bf16 forward: AlexNet's five forwards),
     a deconv wrapper's its launches of one build_deep train minibatch at
     batch 64, the stochastic pool's its two launches of one MNIST conv
-    minibatch, an LRN kernel's AlexNet's two norm layers; the dropout
-    kernel's are at 64 M elements.  AdamW's launches are the fused
+    minibatch, an LRN kernel's AlexNet's two norm layers (its launches
+    alexnet_fused's, two a train step); the dropout kernel's are at 64 M
+    elements.  AdamW's launches are the fused
     step's, one a step over all its leaves, and its ms one such call
     over bench_fc's six.  Each conv.cu entry names the kernels
     it launches (``cuda_kernels``)."""
@@ -4309,11 +4786,12 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
               mcs["launches"]["stochastic_pool"], spool["path"],
               spool["path"]["max_abs_err"]),
         entry("lrn_forward", klrn.SOURCE, klrn.REPLACES_FWD,
-              hw["lrn_forward"], lrn_path["fwd"],
-              lrn_path["fwd"]["max_abs_err"]),
+              alex_fused["launches"]["lrn_forward"], lrn_path["fwd"],
+              lrn_path["fwd"]["max_abs_err"], path="alexnet_fused",
+              cuda_kernels=["lrn_fwd_quad_kernel<N>", "lrn_fwd_kernel"]),
         entry("lrn_backward", klrn.SOURCE, klrn.REPLACES_BWD,
-              hw["lrn_backward"], lrn_path["bwd"],
-              lrn_path["bwd"]["max_abs_err"],
+              alex_fused["launches"]["lrn_backward"], lrn_path["bwd"],
+              lrn_path["bwd"]["max_abs_err"], path="alexnet_fused",
               cuda_kernels=["lrn_bwd_quad_kernel<N>", "lrn_bwd_kernel"]),
         entry("dropout_forward", kdrop.SOURCE, kdrop.REPLACES,
               hw["dropout_forward"], lrn_drop["dropout_timed"][-1],
@@ -4395,7 +4873,9 @@ PHASES_ALONE = {"kernel": lambda: phase_kernel(),
                 "deconv": lambda: phase_deconv(),
                 "waves": lambda: phase_waves(),
                 "kohonen": lambda: phase_kohonen(),
-                "lrn_dropout": lambda: phase_lrn_dropout()}
+                "lrn_dropout": lambda: phase_lrn_dropout(),
+                "alexnet_fused": lambda: phase_alexnet_fused(),
+                "fused_conv_parity": lambda: phase_fused_conv_parity()}
 
 
 def main() -> int:
@@ -4472,11 +4952,14 @@ def main() -> int:
     emit(som)
     lrn_drop = phase_lrn_dropout()
     emit(lrn_drop)
+    alex_fused = phase_alexnet_fused()
+    emit(alex_fused)
+    emit(phase_fused_conv_parity())
     kernel_hw = phase_kernel_hw()
     emit(kernel_hw)
     emit({**kernel_line(kernel, flash, gemm, optim, serve, train, eager,
                         fused, conv, alexnet, deconv, ae, spool, mcs, som,
-                        lrn_drop, kernel_hw),
+                        lrn_drop, alex_fused, kernel_hw),
           "first_stream": streams[0][:8],
           "seconds": time.perf_counter() - T_START})
     print(nvidia_smi(), flush=True)

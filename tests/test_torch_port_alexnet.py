@@ -15,7 +15,8 @@
   over with ``load_forward_params`` and the port takes the JAX shuffle
   stream's state after initialize.  Per-epoch n_err must be identical and
   every conv and FC weight within ``WEIGHT_ATOL``;
-- the registry, the refusals and what the fused shape does yet.
+- the registry and the refusals; the fused shape is
+  ``tests/test_torch_port_fused_conv.py``'s.
 """
 
 import numpy as np
@@ -435,8 +436,9 @@ def test_standard_workflow_fused_fc_only_trains():
 
 def test_alexnet_refusals():
     tprng.seed_all(1)
-    with pytest.raises(NotImplementedError, match="torch_apply.*ROADMAP"):
-        talexnet.build(input_size=67, n_train=100, fused=True)
+    # the fused shape builds (tests/test_torch_port_fused_conv.py trains it)
+    w = talexnet.build(input_size=67, n_train=100, fused=True)
+    assert type(w.step).__name__ == "FusedTrainStep"
     for kw in ({"loader_name": "file_image"},
                {"loader_name": "full_batch_image"},
                {"loader_config": {"augment": True}}):

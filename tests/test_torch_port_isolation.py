@@ -55,7 +55,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                  "kernels.counter_rng", "kernels.kohonen", "kernels.pooling",
                  "kernels.lrn", "kernels.dropout", "ops.kohonen",
                  "units.kohonen", "models.kohonen", "models.mnist_conv",
-                 "utils.kernel_hw"):
+                 "models.cifar_conv", "utils.kernel_hw"):
         assert f"znicz_tpu_torch.{name}" in doc["modules"]
 
 

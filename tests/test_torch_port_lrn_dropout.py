@@ -12,10 +12,12 @@ the JAX package on the CPU.
 - ``utils/kernel_hw.run_parity("cpu")``: ``ok`` for every ported family,
   the unported ones named so and never ``ok``, and ``FAIL`` for a
   deliberately broken plain version;
-- ``lrn_plan``: the backward's quad path at AlexNet's widths, the
+- ``lrn_plan``: each direction's quad path at AlexNet's widths, the
   element path at c % 4 != 0 and off 16 bytes;
-- refusals, bounds, and a ``cuda``-marked card check (the backward bit-
-  identical on both paths).
+- the ``lrn`` autograd Function: its gradient is the plain backward's,
+  it saves x only, and on CPU tensors it counts no launch;
+- refusals, bounds, and a ``cuda``-marked card check (both directions
+  bit-identical on both paths).
 """
 
 import numpy as np
@@ -104,29 +106,72 @@ def test_lrn_refusals_and_bound():
 
 @pytest.mark.parametrize("c", [96, 256, 128])
 def test_lrn_plan_takes_four_channels_a_thread(c):
-    """AlexNet's norm widths and run_parity's take the quad path: whole
-    rows a block of about 256 threads, x and t of its rows in shared
-    memory, AlexNet's window unrolled."""
+    """AlexNet's norm widths and run_parity's take the quad path in both
+    directions: whole rows a block of about 256 threads, x (the forward)
+    or x and t (the backward) of its rows in shared memory, AlexNet's
+    window unrolled."""
     x = torch.zeros(3, c)
-    plan = klrn.lrn_plan(3, c, 5, 0.75, klrn.aligned16(x, x))
-    tx, ty = plan["threads"]
-    assert plan["path"] == "quad" and tx == c // 4
-    assert ty == plan["rows_per_block"] and tx * ty <= 256 < tx * (ty + 1)
-    assert plan["smem_bytes"] == 2 * ty * c * 4 and plan["n_fixed"] == 5
-    assert klrn.lrn_plan(3, c, 4)["n_fixed"] == 0      # n at run time
-    assert klrn.lrn_plan(3, c, 5, 0.6)["n_fixed"] == 0
+    for backward, arrays in ((True, 2), (False, 1)):
+        plan = klrn.lrn_plan(3, c, 5, 0.75, klrn.aligned16(x, x),
+                             backward=backward)
+        tx, ty = plan["threads"]
+        assert plan["path"] == "quad" and tx == c // 4
+        assert ty == plan["rows_per_block"] and \
+            tx * ty <= 256 < tx * (ty + 1)
+        assert plan["smem_bytes"] == arrays * ty * c * 4
+        assert plan["n_fixed"] == 5
+        assert klrn.lrn_plan(3, c, 4, backward=backward)["n_fixed"] == 0
+        assert klrn.lrn_plan(3, c, 5, 0.6,
+                             backward=backward)["n_fixed"] == 0
 
 
 @pytest.mark.parametrize("c,offset", [(3, 0), (5, 0), (96, 1), (128, 2)])
 def test_lrn_plan_element_path(c, offset):
     """c % 4 != 0, or a storage offset that moves x off 16 bytes, takes
-    the one-element kernel."""
+    the one-element kernel in both directions: x of its rows staged
+    forward, x, d^-beta and t backward."""
     store = torch.zeros(4 * c + offset)
     x = store[offset:].view(4, c)
     assert klrn.aligned16(x) == (offset * 4 % 16 == 0)
-    plan = klrn.lrn_plan(4, c, 5, 0.75, klrn.aligned16(x, torch.zeros(c)))
-    assert plan["path"] == "element" and plan["threads"] == (256, 1)
-    assert plan["rows_per_block"] == 2048 // c
+    for backward, arrays in ((True, 3), (False, 1)):
+        plan = klrn.lrn_plan(4, c, 5, 0.75,
+                             klrn.aligned16(x, torch.zeros(c)),
+                             backward=backward)
+        assert plan["path"] == "element" and plan["threads"] == (256, 1)
+        assert plan["rows_per_block"] == 2048 // c
+        assert plan["smem_bytes"] == arrays * (2048 // c) * c * 4
+
+
+@pytest.mark.parametrize("n", [5, 4])
+@pytest.mark.parametrize("shape", [(2, 5, 4, 24), (3, 7, 5)])
+def test_lrn_function_gradient_is_the_plain_backward(n, shape):
+    """``kernels/lrn.py lrn``'s forward is the plain forward and its
+    gradient the plain backward at x, bit for bit, on a cotangent that
+    reaches it non-contiguous; no launch is counted on the CPU."""
+    rng = np.random.default_rng(n)
+    args = (1e-2, 0.75, 2.0, n)
+    x = torch.tensor((rng.normal(size=shape) * 3).astype(np.float32),
+                     requires_grad=True)
+    e = torch.tensor(rng.normal(size=shape[::-1]).astype(np.float32)).t() \
+        if len(shape) == 2 else torch.tensor(
+            rng.normal(size=shape).astype(np.float32))
+    before = (klrn.fwd_launches, klrn.bwd_launches)
+    y = klrn.lrn.apply(x, *args)
+    (dx,) = torch.autograd.grad(y, x, e)
+    assert (klrn.fwd_launches, klrn.bwd_launches) == before
+    xd = x.detach()
+    assert torch.equal(y.detach(), klrn.lrn_forward_plain(xd, *args))
+    assert torch.equal(dx, klrn.lrn_backward_plain(xd, e.contiguous(),
+                                                   *args))
+
+
+def test_lrn_function_saves_x_only():
+    """The memory of the reference's ``jax.checkpoint``: the graph keeps
+    the input and no intermediate of the window sums."""
+    x = torch.rand((4, 6, 8), requires_grad=True)
+    y = klrn.lrn.apply(x, 1e-4, 0.75, 2.0, 5)
+    saved = y.grad_fn.saved_tensors
+    assert len(saved) == 1 and saved[0].data_ptr() == x.data_ptr()
 
 
 @pytest.mark.parametrize("ratio", [0.5, 0.4, 0.1, 0.0])
@@ -231,16 +276,29 @@ def test_lrn_and_dropout_kernels_match_plain_on_the_card():
                        klrn.lrn_forward_plain(x, *args))
     assert torch.equal(klrn.lrn_backward(x, e, *args),
                        klrn.lrn_backward_plain(x, e, *args))
-    assert klrn.lrn_plan(x.numel() // 96, 96, 5, 0.75,
-                         klrn.aligned16(x, e))["path"] == "quad"
+    for backward in (True, False):
+        assert klrn.lrn_plan(x.numel() // 96, 96, 5, 0.75,
+                             klrn.aligned16(x, e),
+                             backward=backward)["path"] == "quad"
     x5, e5 = x[..., :5].contiguous(), e[..., :5].contiguous()
     assert klrn.lrn_plan(x5.numel() // 5, 5, 5)["path"] == "element"
+    assert torch.equal(klrn.lrn_forward(x5, *args),
+                       klrn.lrn_forward_plain(x5, *args))
     assert torch.equal(klrn.lrn_backward(x5, e5, *args),
                        klrn.lrn_backward_plain(x5, e5, *args))
+    store = torch.randn(x.numel() + 1, device="cuda")
+    xu = store[1:].view(x.shape)          # off 16 bytes: the element path
+    assert torch.equal(klrn.lrn_forward(xu, *args),
+                       klrn.lrn_forward_plain(xu, *args))
     for n in (3, 4):     # the quad path with n at run time
+        assert torch.equal(klrn.lrn_forward(x, 1e-4, 0.75, 2.0, n),
+                           klrn.lrn_forward_plain(x, 1e-4, 0.75, 2.0, n))
         assert torch.equal(klrn.lrn_backward(x, e, 1e-4, 0.75, 2.0, n),
                            klrn.lrn_backward_plain(x, e, 1e-4, 0.75, 2.0,
                                                    n))
+    xg = x.clone().requires_grad_(True)
+    (dx,) = torch.autograd.grad(klrn.lrn.apply(xg, *args), xg, e)
+    assert torch.equal(dx, klrn.lrn_backward_plain(x, e, *args))
     y, m = kdrop.dropout_forward(x, 0.5, seed=3)
     words = kdrop.counter_rng.random_bits(3, x.numel(), "cuda")
     y_p, m_p = kdrop.dropout_forward_plain(x, 0.5, words)

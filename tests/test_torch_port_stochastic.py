@@ -406,8 +406,10 @@ def test_mnist_conv_build_defaults_raise():
     assert tmnist_conv.LAYERS == jmnist_conv.LAYERS
     with pytest.raises(NotImplementedError, match="loader/mnist.py"):
         tmnist_conv.build()
-    with pytest.raises(NotImplementedError, match="fused conv shape"):
-        tmnist_conv.build(loader_name="synthetic_image")
+    # the fused shape, the default, builds on the synthetic loader
+    fused = tmnist_conv.build(loader_name="synthetic_image", n_train=20,
+                              n_valid=10, minibatch_size=10)
+    assert type(fused.step).__name__ == "FusedTrainStep"
     w = tmnist_conv.build(loader_name="synthetic_image", fused=False,
                           n_train=20, n_valid=10, minibatch_size=10)
     assert [type(f).__name__ for f in w.forwards][:2] == ["ConvRELU",

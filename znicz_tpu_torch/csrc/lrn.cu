@@ -21,23 +21,24 @@
 // whole rows in shared memory (the TPU kernel's lane rolls become indexed
 // reads of the staged row), so x is read from device memory once.
 //
-// Forward, and the backward's element path (c % 4 != 0, a pointer off 16
+// The element path of both directions (c % 4 != 0, a pointer off 16
 // bytes, or c > 4096): one thread an element, consecutive threads on
 // consecutive channels; the backward keeps d^-beta and t of the tile in
 // shared memory too, since t_i of a neighbour is needed by the adjoint
 // window.
 //
-// The backward's quad path (lrn_bwd_quad_kernel<N>, kernels/lrn.py
-// lrn_plan): a thread owns 4 consecutive channels of one row, a block
-// whole rows (threadIdx.x the channel quad, threadIdx.y the row: no
-// division an element).  x and e come in as one float4 each, dx goes out
-// as one, so every byte moves once: x is staged in shared memory for the
-// neighbours' windows, then the 4 values of t, with one barrier between;
-// e and d^-beta stay in registers from t to the output.  The windows are
-// the plain version's: the first tap, then each next one added in channel
-// order, 0 past the row's ends (ops/lrn.py window_sum).  N = 5 (AlexNet's,
-// with beta 0.75) unrolls them over the neighbouring quads, read as
-// float4; N = 0 takes n (and beta) at run time.
+// The quad path of both directions (lrn_fwd_quad_kernel<N>,
+// lrn_bwd_quad_kernel<N>, kernels/lrn.py lrn_plan): a thread owns 4
+// consecutive channels of one row, a block whole rows (threadIdx.x the
+// channel quad, threadIdx.y the row: no division an element).  x (and
+// e) come in as one float4 each, y (dx) goes out as one, so every byte
+// moves once: x is staged in shared memory for the neighbours' windows;
+// the backward then stages the 4 values of t, with one barrier between,
+// and keeps e and d^-beta in registers from t to the output.  The
+// windows are the plain version's: the first tap, then each next one
+// added in channel order, 0 past the row's ends (ops/lrn.py window_sum).
+// N = 5 (AlexNet's, with beta 0.75) unrolls them over the neighbouring
+// quads, read as float4; N = 0 takes n (and beta) at run time.
 
 #include <cuda_runtime.h>
 
@@ -167,6 +168,44 @@ __device__ __forceinline__ void window4(const float* row, int c, int q,
   }
 }
 
+// d^-beta of the 4 window sums s at (k, alpha, beta) as ops/lrn.py
+// computes it: d = k + alpha s, then sqrt(sqrt(d)) / d at beta 0.75.
+__device__ __forceinline__ void neg_beta_pow4(const float s[4], bool beta34,
+                                              const LrnArgs& a, float d[4],
+                                              float dnb[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    d[i] = __fadd_rn(a.k, __fmul_rn(a.alpha, s[i]));
+    dnb[i] = beta34 ? __fdiv_rn(__fsqrt_rn(__fsqrt_rn(d[i])), d[i])
+                    : powf(d[i], -a.beta);
+  }
+}
+
+template <int kN>
+__global__ void __launch_bounds__(1024)
+    lrn_fwd_quad_kernel(const float4* __restrict__ x,
+                        float4* __restrict__ y, LrnArgs a) {
+  extern __shared__ float4 smem4[];
+  const int n = kN > 0 ? kN : a.n;
+  const bool beta34 = kN > 0 || a.beta34;
+  const int q = threadIdx.x, qn = a.c >> 2;
+  float* sx = reinterpret_cast<float*>(smem4) + threadIdx.y * a.c;
+  const long long row =
+      static_cast<long long>(blockIdx.x) * blockDim.y + threadIdx.y;
+  const bool live = row < a.rows;
+  const long long at = row * qn + q;
+  float4 xv = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (live) xv = x[at];
+  reinterpret_cast<float4*>(sx)[q] = xv;
+  __syncthreads();
+  float s[4], d[4], dnb[4];
+  window4<kN, kN / 2, true>(sx, a.c, q, n / 2, n, xv, s);
+  neg_beta_pow4(s, beta34, a, d, dnb);
+  if (live)
+    y[at] = make_float4(__fmul_rn(xv.x, dnb[0]), __fmul_rn(xv.y, dnb[1]),
+                        __fmul_rn(xv.z, dnb[2]), __fmul_rn(xv.w, dnb[3]));
+}
+
 template <int kN>
 __global__ void __launch_bounds__(1024)
     lrn_bwd_quad_kernel(const float4* __restrict__ x,
@@ -190,18 +229,14 @@ __global__ void __launch_bounds__(1024)
   }
   reinterpret_cast<float4*>(sx)[q] = xv;
   __syncthreads();
-  float s[4];
+  float s[4], d[4], dnb[4], t[4];
   window4<kN, kN / 2, true>(sx, a.c, q, n / 2, n, xv, s);
+  neg_beta_pow4(s, beta34, a, d, dnb);
   const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
   const float ea[4] = {ev.x, ev.y, ev.z, ev.w};
-  float dnb[4], t[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float d = __fadd_rn(a.k, __fmul_rn(a.alpha, s[i]));
-    dnb[i] = beta34 ? __fdiv_rn(__fsqrt_rn(__fsqrt_rn(d)), d)
-                    : powf(d, -a.beta);
-    t[i] = __fmul_rn(__fmul_rn(ea[i], xa[i]), __fdiv_rn(dnb[i], d));
-  }
+  for (int i = 0; i < 4; ++i)
+    t[i] = __fmul_rn(__fmul_rn(ea[i], xa[i]), __fdiv_rn(dnb[i], d[i]));
   const float4 tv = make_float4(t[0], t[1], t[2], t[3]);
   reinterpret_cast<float4*>(st)[q] = tv;
   __syncthreads();
@@ -217,18 +252,31 @@ __global__ void __launch_bounds__(1024)
 constexpr int kQuadThreads = 256;  // a quad block's target size
 constexpr int kMaxQuads = 1024;    // channel quads of a row at most
 
-// The backward's quad path at (c, n, beta34); false: the element path.
+// The quad path at (c, n, beta34) of a kernel that stages ``arrays``
+// rows of floats a row of its block (the forward x, the backward x and
+// t); false: the element path.
 struct QuadPlan {
   int tx, ty, smem, n_fixed;
 };
 
-bool quad_plan(int c, int n, int beta34, bool aligned, QuadPlan& q) {
+bool quad_plan(int c, int n, int beta34, bool aligned, int arrays,
+               QuadPlan& q) {
   if (c % 4 != 0 || !aligned || c / 4 > kMaxQuads) return false;
   q.tx = c / 4;
   q.ty = q.tx >= kQuadThreads ? 1 : kQuadThreads / q.tx;
-  q.smem = 2 * q.ty * c * static_cast<int>(sizeof(float));
+  q.smem = arrays * q.ty * c * static_cast<int>(sizeof(float));
   q.n_fixed = n == 5 && beta34 ? 5 : 0;
   return true;
+}
+
+cudaError_t launch_quad(const void* kernel5, const void* kernel0,
+                        const QuadPlan& qp, long long rows, void** args,
+                        cudaStream_t s) {
+  const long long blocks = (rows + qp.ty - 1) / qp.ty;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  return cudaLaunchKernel(qp.n_fixed == 5 ? kernel5 : kernel0,
+                          dim3(static_cast<unsigned>(blocks)),
+                          dim3(qp.tx, qp.ty), args, qp.smem, s);
 }
 
 bool aligned16(const void* p) {
@@ -278,13 +326,22 @@ extern "C" int znicz_lrn_forward_f32(const void* x, void* y, long long rows,
   LrnArgs a;
   if (prepare(a, rows, c, n, alpha, beta, beta34, k, 0.f) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  QuadPlan qp;
+  if (quad_plan(c, n, beta34, aligned16(x) && aligned16(y), 1, qp)) {
+    const float4* xp = static_cast<const float4*>(x);
+    float4* yp = static_cast<float4*>(y);
+    void* args[] = {&xp, &yp, &a};
+    return static_cast<int>(launch_quad(
+        reinterpret_cast<const void*>(lrn_fwd_quad_kernel<5>),
+        reinterpret_cast<const void*>(lrn_fwd_quad_kernel<0>), qp, rows,
+        args, s));
+  }
   const float* xp = static_cast<const float*>(x);
   float* yp = static_cast<float*>(y);
   void* args[] = {&xp, &yp, &a};
-  return static_cast<int>(launch(reinterpret_cast<const void*>(
-                                     lrn_fwd_kernel),
-                                 1, a, args,
-                                 static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch(
+      reinterpret_cast<const void*>(lrn_fwd_kernel), 1, a, args, s));
 }
 
 // dx (rows, c) = the LRN input gradient of the cotangent e at x; the scalar
@@ -301,20 +358,15 @@ extern "C" int znicz_lrn_backward_f32(const void* x, const void* e, void* dx,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   QuadPlan qp;
   if (quad_plan(c, n, beta34, aligned16(x) && aligned16(e) && aligned16(dx),
-                qp)) {
+                2, qp)) {
     const float4* xp = static_cast<const float4*>(x);
     const float4* ep = static_cast<const float4*>(e);
     float4* op = static_cast<float4*>(dx);
     void* args[] = {&xp, &ep, &op, &a};
-    const long long blocks = (rows + qp.ty - 1) / qp.ty;
-    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-    const void* kernel =
-        qp.n_fixed == 5
-            ? reinterpret_cast<const void*>(lrn_bwd_quad_kernel<5>)
-            : reinterpret_cast<const void*>(lrn_bwd_quad_kernel<0>);
-    return static_cast<int>(cudaLaunchKernel(
-        kernel, dim3(static_cast<unsigned>(blocks)), dim3(qp.tx, qp.ty), args,
-        qp.smem, s));
+    return static_cast<int>(launch_quad(
+        reinterpret_cast<const void*>(lrn_bwd_quad_kernel<5>),
+        reinterpret_cast<const void*>(lrn_bwd_quad_kernel<0>), qp, rows,
+        args, s));
   }
   const float* xp = static_cast<const float*>(x);
   const float* ep = static_cast<const float*>(e);
@@ -324,22 +376,25 @@ extern "C" int znicz_lrn_backward_f32(const void* x, const void* e, void* dx,
       launch(reinterpret_cast<const void*>(lrn_bwd_kernel), 3, a, args, s));
 }
 
-// The backward's launch at (rows, c, n) into out[0..5]: quad path (1) or
-// element path (0), rows a block, threads x and y, shared-memory bytes,
-// and the quad kernel's fixed n (5, or 0 for n at run time; 0 on the
-// element path).  kernels/lrn.py lrn_plan is its twin.
-extern "C" int znicz_lrn_backward_plan(long long rows, int c, int n,
-                                       int beta34, int aligned, int* out) {
+// The launch of one direction (backward != 0: the backward) at
+// (rows, c, n) into out[0..5]: quad path (1) or element path (0), rows a
+// block, threads x and y, shared-memory bytes, and the quad kernel's
+// fixed n (5, or 0 for n at run time; 0 on the element path).
+// kernels/lrn.py lrn_plan is its twin.
+extern "C" int znicz_lrn_plan(long long rows, int c, int n, int beta34,
+                              int aligned, int backward, int* out) {
   LrnArgs a;
   if (prepare(a, rows, c, n, 0.f, 0.f, beta34, 0.f, 0.f) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int arrays = backward ? 2 : 1;
   QuadPlan qp;
-  if (quad_plan(c, n, beta34, aligned != 0, qp)) {
+  if (quad_plan(c, n, beta34, aligned != 0, arrays, qp)) {
     const int v[6] = {1, qp.ty, qp.tx, qp.ty, qp.smem, qp.n_fixed};
     for (int i = 0; i < 6; ++i) out[i] = v[i];
   } else {
+    // the element kernels stage x (forward) or x, d^-beta and t
     const int v[6] = {0, a.rows_per_block, kThreads, 1,
-                      3 * a.rows_per_block * c *
+                      (backward ? 3 : 1) * a.rows_per_block * c *
                           static_cast<int>(sizeof(float)),
                       0};
     for (int i = 0; i < 6; ++i) out[i] = v[i];

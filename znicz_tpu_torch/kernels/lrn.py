@@ -15,10 +15,15 @@ raise.  ``fwd_launches`` / ``bwd_launches`` count kernel launches and
 nothing else.  Importing this module needs no ``nvcc``: the library is
 built at the first CUDA call.
 
-The backward takes one of two paths, :func:`lrn_plan` its Python twin
+Each direction takes one of two paths, :func:`lrn_plan` its Python twin
 of ``csrc/lrn.cu``'s choice: four channels a thread (float4 loads and
 stores, whole rows a block) where ``c % 4 == 0``, ``c <= 4096`` and
 every pointer lies on 16 bytes, else one element a thread.
+
+:class:`lrn` is the differentiable form the fused step composes: its
+forward launches :func:`lrn_forward`, its backward :func:`lrn_backward`
+(which recomputes d from x), and it saves x only, as the reference's
+``jax.checkpoint`` around its jnp LRN keeps only the input.
 """
 
 from __future__ import annotations
@@ -69,22 +74,25 @@ def bound(x_shape, n: int, backward: bool = False) -> dict:
 
 
 def lrn_plan(rows: int, c: int, n: int, beta: float = 0.75,
-             aligned: bool = True) -> dict:
-    """The backward's launch at (rows, c), as ``quad_plan`` in
+             aligned: bool = True, backward: bool = True) -> dict:
+    """The launch of one direction at (rows, c), as ``quad_plan`` in
     ``csrc/lrn.cu`` chooses it: ``path`` ("quad" or "element"),
     ``rows_per_block``, ``threads`` (x, y), ``smem_bytes`` and, on the
     quad path, ``n_fixed``: 5 for AlexNet's window at beta 0.75 (the
     unrolled instantiation), else 0 (n at run time).  ``aligned``: every
-    pointer lies on 16 bytes (:func:`aligned16`)."""
+    pointer lies on 16 bytes (:func:`aligned16`).  The forward stages x
+    (one row of floats a block row), the backward x and t on the quad
+    path and x, d^-beta and t on the element path."""
     if c % 4 == 0 and aligned and c // 4 <= MAX_QUADS:
         tx = c // 4
         ty = 1 if tx >= QUAD_THREADS else QUAD_THREADS // tx
         return {"path": "quad", "rows_per_block": ty, "threads": (tx, ty),
-                "smem_bytes": 2 * ty * c * 4,
+                "smem_bytes": (2 if backward else 1) * ty * c * 4,
                 "n_fixed": 5 if n == 5 and beta == 0.75 else 0}
     per = 1 if c >= ELEM_TILE else ELEM_TILE // c
     return {"path": "element", "rows_per_block": per,
-            "threads": (ELEM_THREADS, 1), "smem_bytes": 3 * per * c * 4,
+            "threads": (ELEM_THREADS, 1),
+            "smem_bytes": (3 if backward else 1) * per * c * 4,
             "n_fixed": 0}
 
 
@@ -95,15 +103,14 @@ def aligned16(*tensors) -> bool:
 
 
 def lrn_plan_on_card(rows: int, c: int, n: int, beta: float = 0.75,
-                     aligned: bool = True) -> dict:
-    """``znicz_lrn_backward_plan`` from ``csrc/lrn.cu`` in
-    :func:`lrn_plan`'s terms, for the smoke to hold one against the
-    other."""
+                     aligned: bool = True, backward: bool = True) -> dict:
+    """``znicz_lrn_plan`` from ``csrc/lrn.cu`` in :func:`lrn_plan`'s
+    terms, for the smoke to hold one against the other."""
     out = (ctypes.c_int * 6)()
-    rc = _library().znicz_lrn_backward_plan(
-        rows, c, n, int(beta == 0.75), int(aligned),
+    rc = _library().znicz_lrn_plan(
+        rows, c, n, int(beta == 0.75), int(aligned), int(backward),
         ctypes.cast(out, ctypes.c_void_p))
-    _raise_on(rc, "lrn_backward_plan")
+    _raise_on(rc, "lrn_plan")
     quad, per, tx, ty, smem, n_fixed = list(out)
     return {"path": "quad" if quad else "element", "rows_per_block": per,
             "threads": (tx, ty), "smem_bytes": smem, "n_fixed": n_fixed}
@@ -119,10 +126,9 @@ def _library():
                                               f32, i32, f32, ptr]
         lib.znicz_lrn_backward_f32.argtypes = [ptr, ptr, ptr, i64, i32, i32,
                                                f32, f32, i32, f32, f32, ptr]
-        lib.znicz_lrn_backward_plan.argtypes = [i64, i32, i32, i32, i32,
-                                                ptr]
+        lib.znicz_lrn_plan.argtypes = [i64, i32, i32, i32, i32, i32, ptr]
         for fn in (lib.znicz_lrn_forward_f32, lib.znicz_lrn_backward_f32,
-                   lib.znicz_lrn_backward_plan):
+                   lib.znicz_lrn_plan):
             fn.restype = i32
         lib.znicz_lrn_error_string.argtypes = [i32]
         lib.znicz_lrn_error_string.restype = ctypes.c_char_p
@@ -193,3 +199,22 @@ def lrn_backward(x, err_output, alpha: float, beta: float, k: float,
     _raise_on(rc, "lrn_backward")
     bwd_launches += 1
     return out
+
+
+class lrn(torch.autograd.Function):
+    """LRN over the last axis of an f32 ``x`` with its exact adjoint,
+    both on the kernels (their plain versions on CPU tensors).  Saves x
+    only: the backward recomputes d from it."""
+
+    @staticmethod
+    def forward(ctx, x, alpha: float, beta: float, k: float, n: int):
+        x = x.contiguous()
+        ctx.save_for_backward(x)
+        ctx.args = (alpha, beta, k, n)
+        return lrn_forward(x, alpha, beta, k, n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        return (lrn_backward(x, grad.contiguous(), *ctx.args), None, None,
+                None, None)

@@ -7,9 +7,11 @@ it): 227x227x3 input; conv 96/11x11 s4 -> LRN -> pool3 s2 -> conv 256/5x5
 pad2 -> LRN -> pool -> conv 384 -> conv 384 -> conv 256 -> pool -> fc 4096
 (dropout) -> fc 4096 (dropout) -> softmax 1000.
 
-``build(fused=False)`` trains eager on the conv and FC kernels; the fused
-shape waits for the pooling, LRN and dropout units' ``torch_apply``
-(ROADMAP queue A item 8a) and raises.  The image-file loaders
+``build()`` (``fused=True``, the default) trains through the fused step:
+cuDNN convs and plain matmuls under autograd, as the reference's fused
+step runs XLA's, with LRN on its forward and backward kernels and the
+update on the SGD kernel; ``build(fused=False)`` trains eager on the
+conv and FC kernels.  The image-file loaders
 (``file_image``, ``full_batch_image``) and ``augment`` wait for
 ``loader/image.py`` (item 5) and raise too; the synthetic in-memory
 loader is the default, as in the reference.

@@ -3,13 +3,12 @@
 conv config — BASELINE.md config 2).
 
 The same declarative layer list (conv 32 5x5 p2 -> pool 2x2 -> conv 64
-5x5 p2 -> pool 2x2 -> fc 128 -> softmax 10) and signature.  Eager
-(``fused=False``) over the in-memory ``synthetic_image`` loader; a caller
+5x5 p2 -> pool 2x2 -> fc 128 -> softmax 10) and signature.  Fused (the
+default) or eager over the in-memory ``synthetic_image`` loader; a caller
 may swap a pooling layer's type (``stochastic_pooling``), as the
-reference's StandardWorkflow accepts.  The reference's defaults need what
-is not ported yet, and raise: the IDX file loader (``loader/mnist.py``,
-ROADMAP.md queue A item 5) and the fused conv shape (``torch_apply`` for
-pooling, queue A item 8a).
+reference's StandardWorkflow accepts.  The reference's default loader,
+the MNIST IDX files (``loader/mnist.py``, ROADMAP.md queue A item 5), is
+not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -43,18 +42,13 @@ def build(max_epochs: int = 10, minibatch_size: int = 100,
           snapshotter_config: dict | None = None,
           optimizer: str = "sgd",
           optimizer_config: dict | None = None) -> StandardWorkflow:
-    """The reference's signature and defaults; runs with ``fused=False``
-    and ``loader_name="synthetic_image"``."""
+    """The reference's signature and defaults; runs with
+    ``loader_name="synthetic_image"``."""
     if loader_name == "mnist":
         raise NotImplementedError(
             "the MNIST IDX file loader (loader/mnist.py) is not ported yet "
             "(ROADMAP.md queue A item 5); pass loader_name="
             "'synthetic_image'")
-    if fused:
-        raise NotImplementedError(
-            "the fused conv shape (torch_apply for pooling, random "
-            "bits in FusedTrainStep) is not ported yet (ROADMAP.md queue A "
-            "item 8a); pass fused=False")
     cfg = {"n_classes": 10, "sample_shape": (28, 28, 1),
            "n_train": n_train, "n_valid": n_valid,
            "minibatch_size": minibatch_size, "spread": 2.5, "noise": 1.0}

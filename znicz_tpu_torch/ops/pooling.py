@@ -18,9 +18,15 @@ Semantics kept from the reference:
   expectation.  The eager units sample through the kernel
   (``kernels/pooling.py``); :func:`stochastic_forward` is the oracle.
 
-Every function takes ``xp`` (``numpy`` or ``torch``); the numpy branch is
-the reference's code.  The fused path's custom backwards are not ported
-yet (ROADMAP queue A item 8a).
+Every eager function takes ``xp`` (``numpy`` or ``torch``); the numpy
+branch is the reference's code.  The fused step's forms
+(:func:`max_forward_fast`, :func:`maxabs_forward_fast`,
+:func:`avg_forward_fast`, :func:`stochastic_forward_fast`) are torch
+autograd Functions with the reference's own backwards: first-winner
+masks over the k*k strided taps, each tap's term added into a strided
+view of the padded input, in the reference's tap order.  No scatter and
+no atomics, so overlapping windows (AlexNet's k3 s2) give the same bits
+on every run.
 """
 
 from __future__ import annotations
@@ -246,3 +252,212 @@ def avg_backward(xp, err_output, in_shape, ky, kx, sy, sx):
         for ix in range(kx):
             padded[:, iy:iy + oh * sy:sy, ix:ix + ow * sx:sx, :] += e
     return padded[:, :h, :w, :]
+
+
+# -- the fused step's forms (znicz_tpu/ops/pooling.py :107-386) ------------
+
+def _tap_geometry(h, w, ky, kx, sy, sx):
+    """``(oh, ow, ph, pw)``: the output size and the padded extent that
+    holds every (possibly partial) window, at least the input's."""
+    oh, ow = pool_out_size(h, ky, sy), pool_out_size(w, kx, sx)
+    return oh, ow, max(h, (oh - 1) * sy + ky), max(w, (ow - 1) * sx + kx)
+
+
+def _taps(xpad, oh, ow, ky, kx, sy, sx):
+    """The k*k strided views of the padded input, row-major window
+    order."""
+    return [xpad[:, dy:dy + (oh - 1) * sy + 1:sy,
+                 dx:dx + (ow - 1) * sx + 1:sx, :]
+            for dy in range(ky) for dx in range(kx)]
+
+
+def _pad_to(x, ph, pw, value):
+    return F.pad(x, (0, 0, 0, pw - x.shape[2], 0, ph - x.shape[1]),
+                 value=value)
+
+
+def _add_taps(terms, shape, ky, kx, sy, sx, order):
+    """The transpose of the taps: each tap's term added into the strided
+    view of its input cells in an output padded to whole windows, taps
+    in ``order``, then cropped to the input's ``shape``."""
+    n, h, w, c = shape
+    oh, ow, ph, pw = _tap_geometry(h, w, ky, kx, sy, sx)
+    out = torch.zeros((n, ph, pw, c), dtype=terms[0].dtype,
+                      device=terms[0].device)
+    for t in order:
+        dy, dx = divmod(t, kx)
+        out[:, dy:dy + (oh - 1) * sy + 1:sy,
+            dx:dx + (ow - 1) * sx + 1:sx] += terms[t]
+    return out[:, :h, :w].contiguous()
+
+
+def _first_winner_backward(x, y, g, ky, kx, sy, sx):
+    """The reference's ``_mpgen_bwd``: each output's cotangent goes to the
+    first tap (row-major window order) whose value equals the output."""
+    oh, ow, ph, pw = _tap_geometry(*x.shape[1:3], ky, kx, sy, sx)
+    taps = _taps(_pad_to(x, ph, pw, float("-inf")), oh, ow, ky, kx, sy,
+                 sx)
+    seen = torch.zeros(y.shape, dtype=torch.bool, device=y.device)
+    terms = []
+    for tap in taps:
+        hit = tap == y
+        terms.append(torch.where(hit & ~seen, g, 0.0))
+        seen |= hit
+    return _add_taps(terms, x.shape, ky, kx, sy, sx, range(ky * kx))
+
+
+def _tap_max(taps):
+    y = taps[0].clone(memory_format=torch.contiguous_format)
+    for t in taps[1:]:
+        torch.maximum(y, t, out=y)
+    return y
+
+
+class _MaxPoolTaps(torch.autograd.Function):
+    """Max pooling as an elementwise max over the strided taps (the
+    reference's ``_maxpool_taps``), any geometry."""
+
+    @staticmethod
+    def forward(ctx, x, ky, kx, sy, sx):
+        oh, ow, ph, pw = _tap_geometry(*x.shape[1:3], ky, kx, sy, sx)
+        y = _tap_max(_taps(_pad_to(x, ph, pw, float("-inf")), oh, ow, ky,
+                           kx, sy, sx))
+        ctx.save_for_backward(x, y)
+        ctx.window = (ky, kx, sy, sx)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        return (_first_winner_backward(x, y, g, *ctx.window), None, None,
+                None, None)
+
+
+class _MaxPoolNonoverlap(torch.autograd.Function):
+    """Window == stride dividing the input (the reference's
+    ``_maxpool_nonoverlap``): a reshape and a max; the backward puts the
+    cotangent on the first winner of each window in row-major order."""
+
+    @staticmethod
+    def forward(ctx, x, ky, kx):
+        n, h, w, c = x.shape
+        y = x.reshape(n, h // ky, ky, w // kx, kx, c).amax(dim=(2, 4))
+        ctx.save_for_backward(x, y)
+        ctx.window = (ky, kx)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        ky, kx = ctx.window
+        n, h, w, c = x.shape
+        xr = x.reshape(n, h // ky, ky, w // kx, kx, c)
+        mask = xr == y[:, :, None, :, None, :]
+        # rank = the lexicographic running count of winners; the first
+        # winner has rank 1
+        s_dx = torch.cumsum(mask.to(torch.int32), dim=4)
+        row_tot = s_dx[:, :, :, :, -1:, :]
+        rank = torch.cumsum(row_tot, dim=2) - row_tot + s_dx
+        dx = torch.where(mask & (rank == 1), g[:, :, None, :, None, :],
+                         0.0)
+        return dx.reshape(n, h, w, c), None, None
+
+
+def max_forward_fast(x, ky, kx, sy, sx):
+    """The fused step's max pooling: the reshape form where the windows
+    tile the input exactly, else the strided taps.  Both give the same
+    bits; at MNIST conv's and CIFAR conv's 2x2 pools the reshape form
+    issues and runs in about half the tap form's time (``chip_smoke.py``
+    fused_conv_parity, PERF.md)."""
+    if (sy, sx) == (ky, kx) and x.shape[1] % ky == 0 and \
+            x.shape[2] % kx == 0:
+        return _MaxPoolNonoverlap.apply(x, ky, kx)
+    return _MaxPoolTaps.apply(x, ky, kx, sy, sx)
+
+
+class _MaxAbsPool(torch.autograd.Function):
+    """The signed winner of the max-|x| window from two tap folds,
+    ``pos = max(x)`` and ``neg = max(-x)`` (each over its own -inf
+    padding); y is the winning tap's value in both branches, so the
+    backward is the max pool's."""
+
+    @staticmethod
+    def forward(ctx, x, ky, kx, sy, sx):
+        oh, ow, ph, pw = _tap_geometry(*x.shape[1:3], ky, kx, sy, sx)
+        pos, neg = (_tap_max(_taps(_pad_to(v, ph, pw, float("-inf")), oh,
+                                   ow, ky, kx, sy, sx)) for v in (x, -x))
+        y = torch.where(pos >= neg, pos, -neg)
+        ctx.save_for_backward(x, y)
+        ctx.window = (ky, kx, sy, sx)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        return (_first_winner_backward(x, y, g, *ctx.window), None, None,
+                None, None)
+
+
+def maxabs_forward_fast(x, ky, kx, sy, sx):
+    return _MaxAbsPool.apply(x, ky, kx, sy, sx)
+
+
+class _AvgPool(torch.autograd.Function):
+    """The windowed sum over the zero-padded input (taps in row-major
+    order) over the clipped window's count; the backward spreads the
+    cotangent over the count and adds it to each cell's taps in
+    descending tap order, the order of the transposed windowed sum the
+    reference's autodiff emits."""
+
+    @staticmethod
+    def forward(ctx, x, ky, kx, sy, sx):
+        n, h, w, c = x.shape
+        oh, ow, ph, pw = _tap_geometry(h, w, ky, kx, sy, sx)
+        taps = _taps(_pad_to(x, ph, pw, 0.0), oh, ow, ky, kx, sy, sx)
+        s = taps[0].clone(memory_format=torch.contiguous_format)
+        for t in taps[1:]:
+            s += t
+        count = torch.as_tensor(window_counts(h, w, ky, kx, sy, sx)[1][None],
+                                dtype=x.dtype, device=x.device)
+        ctx.save_for_backward(count)
+        ctx.geometry = (x.shape, ky, kx, sy, sx)
+        return s / count
+
+    @staticmethod
+    def backward(ctx, g):
+        (count,) = ctx.saved_tensors
+        shape, ky, kx, sy, sx = ctx.geometry
+        e = g / count
+        return (_add_taps([e] * (ky * kx), shape, ky, kx, sy, sx,
+                          reversed(range(ky * kx))), None, None, None, None)
+
+
+def avg_forward_fast(x, ky, kx, sy, sx):
+    return _AvgPool.apply(x, ky, kx, sy, sx)
+
+
+class _StochasticPool(torch.autograd.Function):
+    """Train-mode stochastic pooling from the uniforms ``u``: the
+    inverse-CDF winner of each window (:func:`_stochastic_choice`), the
+    cotangent routed to it tap by tap; ``u`` gets none."""
+
+    @staticmethod
+    def forward(ctx, x, u, ky, kx, sy, sx, use_abs):
+        patch, idx = _stochastic_choice(torch, x, ky, kx, sy, sx, u,
+                                        use_abs)
+        y = torch.gather(patch, 3, idx[:, :, :, None, :])[:, :, :, 0, :]
+        ctx.save_for_backward(idx)
+        ctx.geometry = (x.shape, x.dtype, ky, kx, sy, sx)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        shape, dtype, ky, kx, sy, sx = ctx.geometry
+        terms = [torch.where(idx == t, g, 0.0) for t in range(ky * kx)]
+        dx = _add_taps(terms, shape, ky, kx, sy, sx, range(ky * kx))
+        return dx.to(dtype), None, None, None, None, None, None
+
+
+def stochastic_forward_fast(x, u, ky, kx, sy, sx, use_abs: bool):
+    return _StochasticPool.apply(x, u, ky, kx, sy, sx, use_abs)

@@ -28,6 +28,15 @@ the reference.  Per minibatch:
   the host; Adam's step count ``t`` is a device leaf and its bias
   corrections are computed from it on the device.
 
+Forwards that need random bits (``NEEDS_RNG``: dropout, stochastic
+pooling) draw them in a train step from one ``torch.Generator`` on the
+step's device, minted at initialize by ``prng.get().key`` as the
+reference mints its one key; each such forward draws its uniforms in
+forward order, so the stream advances per step and per unit, as the
+reference's split and fold per step and unit do.  An eval step draws
+nothing.  The draws never sync with the host.  The two frameworks draw
+different bits from one seed.
+
 A full-batch dataset is pinned on the device at initialize, so the hot
 loop ships only the minibatch's indices.  Metric sums stay on the device
 and reach the host once per class pass (``defer_metrics``).
@@ -37,8 +46,8 @@ same step for now; CUDA graphs are later work).
 Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md queue
 A): a mesh over more than one device, ``shard_update``,
 ``shard_params``, ``quantized_collectives``, ``anatomy``,
-``accumulate_steps > 1``, ``ema_decay``, ``scan_epoch``, the input
-pipeline's ``make_stager``, and forwards that need random bits.
+``accumulate_steps > 1``, ``ema_decay``, ``scan_epoch`` and the input
+pipeline's ``make_stager``.
 """
 
 from __future__ import annotations
@@ -48,7 +57,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from znicz_tpu_torch.core import backends
+from znicz_tpu_torch.core import backends, prng
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core.units import Unit
 from znicz_tpu_torch.kernels import optim as koptim
@@ -164,6 +173,7 @@ class FusedTrainStep(Unit):
         self._dev = None
         self._params = None
         self._adam_consts = None  # (b1, b2, eps) device scalars
+        self._gen = None          # the train steps' torch.Generator
         self._dataset_dev = None  # device-pinned (data, labels) full batch
         self._hyper_cache = None  # (signature, per-layer device scalars)
         self._acc = None          # device-side metric sums (deferred mode)
@@ -241,12 +251,13 @@ class FusedTrainStep(Unit):
                                                     copy=True))
 
     # -- forward / loss composition -----------------------------------------
-    def _forward_chain(self, params, x, train: bool):
+    def _forward_chain(self, params, x, train: bool, rng=None):
         """Compose the forwards; returns pre-softmax logits when the last
         layer is All2AllSoftmax under EvaluatorSoftmax (the loss takes
-        log_softmax directly).  Activations and params run in
-        ``compute_dtype``; autograd casts the gradients back to the f32
-        masters."""
+        log_softmax directly).  ``rng`` is the train step's generator,
+        handed to each NEEDS_RNG forward, which draws from it in forward
+        order.  Activations and params run in ``compute_dtype``;
+        autograd casts the gradients back to the f32 masters."""
         cdt = self.compute_dtype
         x = x.to(cdt)
         last = len(self.forwards) - 1
@@ -257,7 +268,8 @@ class FusedTrainStep(Unit):
             if i == last and logits_tail:
                 x = fwd.torch_apply_linear(pc, x)
             else:
-                x = fwd.torch_apply(pc, x, train=train)
+                x = fwd.torch_apply(pc, x, train=train, rng=rng if getattr(
+                    fwd, "NEEDS_RNG", False) else None)
         return x, logits_tail
 
     def _nt_recovery_valid(self) -> bool:
@@ -339,7 +351,8 @@ class FusedTrainStep(Unit):
         for t in leaves:
             t.requires_grad_(True)
         try:
-            out, logits_tail = self._forward_chain(params, x, train=True)
+            out, logits_tail = self._forward_chain(params, x, train=True,
+                                                   rng=self._gen)
             loss, metrics = self._loss_and_metrics(out, logits_tail,
                                                    labels, mask)
             flat = iter(torch.autograd.grad(loss, leaves))
@@ -413,11 +426,6 @@ class FusedTrainStep(Unit):
                 raise ValueError(
                     f"l1_vs_l2 is SGD-only (adam applies decoupled L2 "
                     f"weight decay); set it to 0 on: {bad}")
-        needs_rng = [f.name for f in self.forwards
-                     if getattr(f, "NEEDS_RNG", False)]
-        if needs_rng:
-            raise _not_ported(f"a forward that needs random bits "
-                              f"({needs_rng})")
         # a TorchDevice names the device; anything else means the default,
         # cuda — which raises on a host without one, never the CPU
         self._dev = device.torch_device \
@@ -427,6 +435,9 @@ class FusedTrainStep(Unit):
             self.compute_dtype = getattr(device, "compute_dtype", None) or \
                 backends.resolve_compute_dtype(self._dev.type)
         self._params = self.gather_params()
+        # one generator for every train step's draws, minted whether or
+        # not a forward draws, as the reference mints its key
+        self._gen = prng.get().key(self._dev)
         if self.optimizer == "adam":
             cfg = self.optimizer_config
             self._adam_consts = tuple(

@@ -13,9 +13,8 @@ the reference:
   kernels, plain torch elsewhere).  Complete.
 - ``fused=True``: the accelerated segment collapsed into one
   ``FusedTrainStep`` (``parallel/step.py``).  It composes the forwards'
-  ``torch_apply``, which the FC, conv and deconv units have: a layer list
-  with a pooling, LRN or dropout layer raises ``NotImplementedError``
-  (ROADMAP queue A item 8a).
+  ``torch_apply``, which every registered forward unit has (FC, conv,
+  deconv, pooling, LRN, dropout).
 
 Layer spec keys: ``type`` (MatchingObject registry name), ``->`` (forward
 constructor kwargs), ``<-`` (gradient/hyperparameter kwargs), ``name``;
@@ -296,11 +295,6 @@ class StandardWorkflow(StandardWorkflowBase):
     def link_fused_step(self) -> None:
         """Forwards/evaluator/gds subsumed by one FusedTrainStep; control
         graph is Repeater -> Loader -> Step -> Decision."""
-        lacking = [f.name for f in self.forwards
-                   if type(f).torch_apply is Forward.torch_apply]
-        if lacking:
-            raise _not_ported(f"the fused step's forward (torch_apply) of "
-                              f"{lacking}", "8a")
         self._make_gds()
         step = self.step = FusedTrainStep(
             self, forwards=self.forwards, evaluator=self.evaluator,

@@ -15,6 +15,12 @@ place of the reference's jax keys — the two frameworks draw different
 bits from one seed, so the parity tests inject the mask.  Plain torch on
 the device: the reference's units never reach its dropout kernel
 (``ops/pallas/dropout.py``), and neither do these.
+
+``torch_apply`` is the fused step's forward, the reference's
+``xla_apply``: ``x * make_mask(u, ratio)`` with u drawn from the step's
+generator in a train step, the identity at eval or at ratio 0.  Plain
+torch, as the reference's fused route is jnp: the dropout kernel draws
+its own bits by another rule (``bits > thresh``).
 """
 
 from __future__ import annotations
@@ -55,6 +61,12 @@ class DropoutForward(Forward):
         u = torch.rand(shape, generator=prng.get().key(device),
                        device=device)
         return make_mask(torch, u, self.dropout_ratio, torch.float32)
+
+    def torch_apply(self, p: dict, x, *, rng=None, train=True):
+        if not train or self.dropout_ratio == 0.0:
+            return x
+        u = self.draw_uniform(rng, x.shape, x.device)
+        return x * make_mask(torch, u, self.dropout_ratio, x.dtype)
 
     def numpy_run(self) -> None:
         x = self.input.mem

@@ -17,6 +17,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from znicz_tpu_torch.core import prng
 from znicz_tpu_torch.core.accelerated_units import (AcceleratedUnit,
@@ -116,14 +117,23 @@ class Forward(NNLayerBase):
 
     def torch_apply(self, p: dict, x, *, rng=None, train=True):
         """The forward in torch over a params leaf-dict, composed by the
-        fused step (the reference's ``xla_apply``).  ``rng`` is for
-        units that set ``NEEDS_RNG`` (dropout), which the port's fused
-        step refuses yet."""
+        fused step (the reference's ``xla_apply``).  ``rng`` is the
+        step's ``torch.Generator``, given to units that set
+        ``NEEDS_RNG`` (dropout, stochastic pooling) in train steps."""
         raise NotImplementedError(
             f"{type(self).__name__} does not support the fused step")
 
     #: class flag: torch_apply consumes a random generator each step
     NEEDS_RNG = False
+
+    def draw_uniform(self, rng, shape, device):
+        """Uniforms in [0, 1) of ``shape`` from the fused step's
+        generator: the one draw of a ``NEEDS_RNG`` unit's train
+        forward."""
+        if rng is None:
+            raise ValueError(f"{self.name}: a train forward of a "
+                             f"NEEDS_RNG unit needs the step's generator")
+        return torch.rand(tuple(shape), generator=rng, device=device)
 
     def init_weights(self, n_input: int, n_output: int) -> None:
         if not self.weights:

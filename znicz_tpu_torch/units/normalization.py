@@ -3,9 +3,17 @@
 normalization.py :: LRNormalizerForward, LRNormalizerBackward).
 
 AlexNet cross-map LRN with the reference's hyperparameters
-(alpha/beta/k/n) and the exact-derivative backward (``ops/lrn.py``), plain
-torch on the device: the reference's units never reach its LRN kernel
-(``ops/pallas/lrn.py``), and neither do these.
+(alpha/beta/k/n) and the exact-derivative backward (``ops/lrn.py``).  The
+eager units are plain torch on the device: the reference's eager units
+never reach its LRN kernel (``ops/pallas/lrn.py``), and neither do these.
+
+The fused step's forward (``torch_apply``) runs in f32 and casts back
+to the compute dtype, as the reference's ``xla_apply`` does, through
+``kernels/lrn.py lrn``: the forward and backward kernels, x the only
+saved tensor.  That is a deliberate divergence: the reference's fused
+LRN is jnp under ``jax.checkpoint``, which XLA fuses into one pass on
+the TPU; eager PyTorch would take some fifteen passes over the tensor
+for the same forward, and the kernels give the plain version's bits.
 """
 
 from __future__ import annotations
@@ -13,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from znicz_tpu_torch.kernels import lrn as klrn
 from znicz_tpu_torch.ops import lrn as lrn_ops
 from znicz_tpu_torch.units.nn_units import Forward, GradientDescentBase
 
@@ -34,6 +43,11 @@ class LRNormalizerForward(Forward):
 
     def _run(self, xp, x):
         return lrn_ops.forward(xp, x, self.alpha, self.beta, self.k, self.n)
+
+    def torch_apply(self, p: dict, x, *, rng=None, train=True):
+        y = klrn.lrn.apply(x.to(torch.float32), self.alpha, self.beta,
+                           self.k, self.n)
+        return y.to(x.dtype)
 
     def numpy_run(self) -> None:
         self.output.map_invalidate()

@@ -12,6 +12,12 @@ mode — its plain version on CPU tensors — with a seed drawn from the
 host prng stream per forward, the reference's route under
 ``engine.pallas`` (``units/pooling.py:212-234``); in ``forward_mode`` it
 returns the probability-weighted expectation in plain torch.
+
+``torch_apply`` is the fused step's forward, the reference's
+``xla_apply``: the tap forms of ``ops/pooling.py`` with their custom
+backwards, no offsets.  A stochastic unit in a train step draws its
+uniforms from the step's generator and samples in plain torch, as the
+reference's fused route is jnp; at eval it takes the expectation.
 """
 
 from __future__ import annotations
@@ -88,6 +94,11 @@ class MaxPooling(OffsetPooling):
         return pool_ops.max_forward(xp, x, self.ky, self.kx, self.sy,
                                     self.sx, use_abs=self.USE_ABS)
 
+    def torch_apply(self, p: dict, x, *, rng=None, train=True):
+        fast = pool_ops.maxabs_forward_fast if self.USE_ABS \
+            else pool_ops.max_forward_fast
+        return fast(x, self.ky, self.kx, self.sy, self.sx)
+
     def numpy_run(self) -> None:
         y, off = self._run(np, self.input.mem)
         self.output.map_invalidate()
@@ -115,6 +126,10 @@ class AvgPooling(Pooling):
 
     MAPPING = {"avg_pooling"}
 
+    def torch_apply(self, p: dict, x, *, rng=None, train=True):
+        return pool_ops.avg_forward_fast(x, self.ky, self.kx, self.sy,
+                                         self.sx)
+
     def numpy_run(self) -> None:
         self.output.map_invalidate()
         self.output.mem = pool_ops.avg_forward(
@@ -136,6 +151,17 @@ class StochasticPooling(OffsetPooling):
 
     def _uniform_host(self, shape):
         return prng.get().uniform(0.0, 1.0, shape).astype(np.float32)
+
+    def torch_apply(self, p: dict, x, *, rng=None, train=True):
+        if train:
+            u = self.draw_uniform(rng, self.output_shape_for(x.shape),
+                                  x.device)
+            return pool_ops.stochastic_forward_fast(
+                x, u, self.ky, self.kx, self.sy, self.sx, self.USE_ABS)
+        y, _ = pool_ops.stochastic_forward(
+            torch, x, self.ky, self.kx, self.sy, self.sx, None,
+            self.USE_ABS, train=False)
+        return y
 
     def numpy_run(self) -> None:
         train = not self.forward_mode
