@@ -66,11 +66,16 @@ exits non-zero without the final ``ok`` line):
    widths (784-4096-4096-10, batch 1024) through ``Workflow.run`` on
    ``TorchDevice()``, the FC kernels' counters set to 0 just before and
    read just after; ms per train minibatch.
-9. **mnist_fused** — bench_fc's configuration through ``build_fused``:
+9. **mnist_fused** — bench_fc's configuration through ``build_fused``,
+   every step a CUDA graph replay but each body's first:
    ``train_steps`` calls of K minibatches (one warm, timed ones, one
-   profiled), one epoch through ``Workflow.run``, then AdamW; the update
-   kernels' counters set to 0 just before and read just after; step ms,
-   samples/s, MFU, peak memory, idle share.
+   profiled), 3 epochs through ``Workflow.run`` profiled after their
+   first minibatches, then AdamW; the update kernels' counters set to 0
+   just before and read just after (exact through replays), each
+   graph's replays counted, and in a profiled window of replays the SGD
+   and AdamW kernels the card ran equal to what the counters added
+   (``replayed_launches``); step ms, host issue µs, samples/s, MFU, peak
+   memory, busy ms and idle share on both paths.
 10. **mnist_parity** — the MNIST FC sample at its defaults in f32, the
    card against the CPU, eager and fused; the fused loss band must reject
    the same run with TF32 on.
@@ -118,9 +123,11 @@ exits non-zero without the final ``ok`` line):
    reject TF32, and the eager path must not move under it.
 13d. **ae_fused** — bench_deconv_ae's configuration (``build_deep``
    fused, batch 64, K = 64 staged batches, bf16 over f32 masters) through
-   ``train_steps``: samples/s, MFU, peak memory, idle share.  It runs
-   cuDNN under autograd and the SGD update kernel, not the hand-written
-   conv kernels (as the reference's fused step runs XLA's convs).
+   ``train_steps`` and 3 epochs of ``Workflow.run``, graph replays and
+   the profiled SGD launches as in mnist_fused: samples/s, MFU, peak
+   memory, busy ms and idle share.  It runs cuDNN under autograd and
+   the SGD update kernel, not the hand-written conv kernels (as the
+   reference's fused step runs XLA's convs).
 14. **stochastic_pool** — the stochastic-pool kernel against its plain
    version bit for bit through ``bits=`` (y, taps, offsets; MNIST conv's
    and AlexNet's pool shapes, odd sizes with clipped borders, windows of
@@ -151,24 +158,41 @@ exits non-zero without the final ``ok`` line):
    unaligned x), each direction's plan equal to ``lrn_plan`` over a
    sweep, each layer timed against its bound and the forward against
    ``F.local_response_norm``; the dropout kernel against its plain
-   version at one seed, its drop rate on 64 M elements, timed beside
-   ``aten.native_dropout``.
+   version at one seed bit for bit in f32 and bf16 (fc6's input and 64 M
+   elements on the vector path, and the element path), its plan against
+   ``dropout_plan``, its drop rate on 64 M elements, the kernel timed
+   beside ``aten.native_dropout`` and its byte bound.
 17a. **alexnet_fused** — ``models/alexnet.py build()`` at its defaults
    (fused, 227 px, batch 128, 1000 classes, dropout 0.5, bf16 over f32
    masters, the data set pinned on the card) through ``train_steps`` (K
    staged batches; one warm call, timed ones by CUDA events, one
-   profiled), the LRN and SGD counters set to 0 just before and read
-   just after (exactly 2 LRN forwards and 2 backwards and one update a
-   leaf a step); step ms, samples/s, MFU, peak memory, idle share; then
-   one epoch through ``Workflow.run``, the counts again exact.
-17b. **fused_conv_parity** — the fused conv shape in f32, the card
+   profiled), every step a graph replay but each body's first, the LRN
+   and SGD counters set to 0 just before and read just after (exactly 2
+   LRN forwards and 2 backwards and one update a leaf a step, replays
+   included, and the SGD and both LRN kernels the card ran in a profiled
+   window of replays equal to what the counters added); step ms,
+   samples/s, MFU, peak memory, idle share; then 3 epochs through
+   ``Workflow.run`` profiled in the last, the counts and each graph's
+   replays again exact.
+17b. **graph_parity** — the graphed fused step against its unrolled
+   body (``_train_step``) on a twin from the same seed, 8 steps, every
+   learning rate halved before the fifth: bit-identical metrics and
+   params (weights, velocities, moments, step counts) for MNIST FC at
+   bench_fc's widths with bf16 velocity, with AdamW, the 67-px AlexNet
+   with dropout 0.5 and MNIST conv with both pools stochastic (the
+   step's generator drawn in replays; cuDNN deterministic on both for
+   the conv nets); then ``accumulate_steps``,
+   ``ema_decay`` and ``scan_epoch`` once each on the card against the
+   CPU in f32.
+17c. **fused_conv_parity** — the fused conv shape in f32, the card
    against the CPU for the test-size AlexNet (dropout 0) and MNIST conv
-   with stochastic pools (the same numpy uniforms on both sides): the
-   same n_err, weights within a band that the same runs with TF32 on
-   must fail; MNIST conv and CIFAR conv fused at their own widths
-   (batch 100) for an epoch each; the fused max-pool backward at
-   AlexNet's pool1 bit-identical across two runs (f32 and bf16) and
-   equal to the CPU's in f32.
+   with stochastic pools (the same numpy uniforms on both sides, through
+   a device tensor a wrapper refills before each train minibatch, so the
+   card's steps are graph replays, counted): the same n_err, weights
+   within a band that the same runs with TF32 on must fail; MNIST conv
+   and CIFAR conv fused at their own widths (batch 100) for an epoch
+   each; the fused max-pool backward at AlexNet's pool1 bit-identical
+   across two runs (f32 and bf16) and equal to the CPU's in f32.
 18. **kernel_hw** — ``utils/kernel_hw.run_parity("cuda")``, all fourteen
    families of the reference ``ok``; the LRN, dropout and bf16 conv
    forward counters set to 0 just before and read just after (the only
@@ -177,11 +201,16 @@ exits non-zero without the final ``ok`` line):
 ``python3 chip_smoke.py --phase NAME ...`` runs only the named phases
 (kernel, flash, gemm, optim, mnist_fused, stochastic_pool,
 pool_backward, conv, alexnet_eager, deconv, kohonen, lrn_dropout,
-alexnet_fused, fused_conv_parity, or **waves**: the
+ae_fused, alexnet_fused, graph_parity, fused_conv_parity, or two that
+only measure and run on older trees of the port too: **waves**, the
 weight gradient at AlexNet's and build_deep's shapes with split_k's
-slices, one fewer and one more, through the C entry, which runs on
-older trees of the port too) after the build, for iterating on one
-kernel family.
+slices, one fewer and one more, through the C entry; **fused_compare**,
+the dropout kernel at 64 M elements beside ``aten.native_dropout`` and
+the three fused paths through ``train_steps`` and ``Workflow.run``)
+after the build, for iterating on one kernel family.  To hold a change
+against its parent on one card, copy this file into a checkout of the
+parent and run ``--phase fused_compare`` there and here in one call:
+parent, change, change, parent.
 
 Every line carries ``at_s``, the seconds since the smoke started.  Then
 a ``{"kernels": [...]}`` line for all eighteen kernels, the card's name
@@ -218,6 +247,7 @@ from znicz_tpu_torch.kernels import kohonen as ksom
 from znicz_tpu_torch.kernels import lrn as klrn
 from znicz_tpu_torch.kernels import optim as koptim
 from znicz_tpu_torch.kernels import pooling as kpool
+from znicz_tpu_torch.loader.base import TRAIN
 from znicz_tpu_torch.models import alexnet as talexnet
 from znicz_tpu_torch.models import autoencoder as tautoencoder
 from znicz_tpu_torch.models import kohonen as tkohonen
@@ -393,8 +423,56 @@ def host_us(fn, calls: int = 100) -> float:
     return float(np.median(times)) * 1e6
 
 
-#: untimed fills that open kernel_ms_by_name's window
-PROFILE_LEAD_IN = 4
+#: untimed fills, and untimed calls of the profiled function, that open
+#: each profiled window: the tracer drops some of a window's first device
+#: activities late in a long process (alexnet_eager's finding), at times
+#: the first launch of each kernel it meets (one launch of ten lost in
+#: every window of a process)
+PROFILE_LEAD_IN, PROFILE_LEAD_CALLS = 4, 2
+#: the spin kernel (``torch.cuda._sleep``) that marks where a profiled
+#: window's counted calls begin: its name, its cycles (~25 µs at the
+#: H100's clock) and the least device µs that tells it from the short
+#: spin (OPEN_CYCLES) that opens the window to take the tracer's loss
+MARK_KERNEL, MARK_CYCLES, MARK_MIN_US, OPEN_CYCLES = \
+    "spin_kernel", 50_000, 10.0, 1_000
+
+
+def profiled_after_mark(fn, calls: int, lead=None):
+    """One torch.profiler window: a short spin kernel, PROFILE_LEAD_IN
+    fills and PROFILE_LEAD_CALLS calls of ``lead`` (default ``fn``)
+    that take the tracer's losses, then a long spin kernel as the mark,
+    then ``calls`` calls of ``fn``, each device-synchronised on both
+    sides.  Returns the device activities that started after the mark
+    as ``(name, device µs)`` pairs, or None where the window lost the
+    mark (it is told from the short spin by its length)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    lead = fn if lead is None else lead
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=DEVICE)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(OPEN_CYCLES)
+        for _ in range(PROFILE_LEAD_IN):
+            flush.zero_()
+        for _ in range(PROFILE_LEAD_CALLS):
+            flush.zero_()
+            lead()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(MARK_CYCLES)
+        torch.cuda.synchronize()
+        for _ in range(calls):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    marks = [e for e in device if MARK_KERNEL in e.name and
+             e.time_range.elapsed_us() >= MARK_MIN_US]
+    if len(marks) != 1:
+        return None
+    mark_end = marks[0].time_range.end
+    return [(e.name, e.time_range.elapsed_us()) for e in device
+            if e.time_range.start >= mark_end]
 
 
 def kernel_ms_by_name(fn, tag: str, iters: int = 10,
@@ -402,42 +480,214 @@ def kernel_ms_by_name(fn, tag: str, iters: int = 10,
     """Device ms per call of each kernel whose name starts with ``tag``
     (``name<template args>``, or a plain kernel's ``name``) that ``fn``
     launches, from ``torch.profiler`` over ``iters`` calls with L2
-    flushed before each, as :func:`time_cuda_ms` flushes it.  The tracer
-    drops a window's first device activities, more often late in a long
-    process (alexnet_eager's finding), so each window opens with
-    PROFILE_LEAD_IN untimed fills that take the loss.  Each such kernel
-    launches once a call, so the window must record exactly ``iters``
-    launches of it: else it is profiled again, up to ``windows``
-    windows, and then the smoke fails; no time is taken from a window
-    that lost launches."""
-    from torch.profiler import ProfilerActivity, profile
-
-    flush = torch.empty(64 << 20, dtype=torch.int32, device=DEVICE)
-    fn()
-    torch.cuda.synchronize()
+    flushed before each, as :func:`time_cuda_ms` flushes it: only the
+    calls after :func:`profiled_after_mark`'s mark count, so the
+    tracer's losses at the window's start fall on untimed calls.  Each
+    such kernel launches once a call, so the window must record exactly
+    ``iters`` launches of it after the mark: else it is profiled again,
+    up to ``windows`` windows, and then the smoke fails; no time is
+    taken from a window that lost launches."""
     counts = None
     for _ in range(windows):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(PROFILE_LEAD_IN):
-                flush.zero_()
-            torch.cuda.synchronize()
-            for _ in range(iters):
-                flush.zero_()
-                fn()
-            torch.cuda.synchronize()
+        acts = profiled_after_mark(fn, iters)
         out, counts = {}, {}
-        for e in prof.key_averages():
-            name = re.search(rf"\b({tag}\w*(?:<[^>]*>)?)", e.key)
-            if name and e.self_device_time_total > 0:
-                out[name.group(1)] = e.self_device_time_total / 1e3 / iters
-                counts[name.group(1)] = e.count
+        for key, us in acts or ():
+            name = re.search(rf"\b({tag}\w*(?:<[^>]*>)?)", key)
+            if name and us > 0:
+                n = name.group(1)
+                out[n] = out.get(n, 0.0) + us / 1e3 / iters
+                counts[n] = counts.get(n, 0) + 1
         if out and all(c == iters for c in counts.values()):
             return out
-        print(f"kernel_ms_by_name({tag}): a window recorded {counts} "
-              f"launches of {iters} calls; profiling again",
-              file=sys.stderr)
+        print(f"kernel_ms_by_name({tag}): a window recorded "
+              f"{'no mark' if acts is None else counts} launches of "
+              f"{iters} calls; profiling again", file=sys.stderr)
     fail(f"kernel_ms_by_name({tag}): {windows} windows, none recorded "
          f"exactly {iters} launches of each kernel (last: {counts})")
+
+
+def device_profile(prof, wall_ms: float, steps: int, top: int = 10,
+                   sums=()) -> dict:
+    """A profiled window of ``steps`` steps in ``wall_ms`` of host time:
+    the device's busy ms (every CUDA activity's self time, the kernels of
+    graph replays included), its idle share, busy ms and device ops a
+    step, the ``top`` activities by time, and the ms a step of the
+    activities whose names hold each string of ``sums``."""
+    device = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")
+              and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    ranked = sorted(device, key=lambda e: -e.self_device_time_total)
+    return {"steps": steps, "wall_ms": wall_ms,
+            "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms,
+            "busy_ms_per_step": busy_ms / steps,
+            "ops_per_step": sum(e.count for e in device) / steps,
+            "top_device": [{"name": e.key[:80], "count": e.count,
+                            "ms_per_step":
+                                e.self_device_time_total / 1e3 / steps}
+                           for e in ranked[:top]],
+            "ms_per_step_of": {
+                key: sum(e.self_device_time_total for e in device
+                         if key in e.key) / 1e3 / steps for key in sums}}
+
+
+#: single-step train_steps calls after timed_train_steps's, each from an
+#: idle card, for the host's issue time of a step
+ONE_STEP_CALLS = 3
+
+
+def timed_train_steps(step, xs, ys, ms, reps: int, sums=()) -> dict:
+    """``reps`` ``train_steps`` calls of the K staged minibatches, CUDA
+    events around each call and the host clock around its issue (no
+    sync inside): each call's device ms and host ms (a step's share of
+    it, unless a call of many steps fills the launch queue and the host
+    waits on the card), and its metric sums; then one call under
+    torch.profiler (the device's busy time and idle share, the ms of
+    the kernels named by ``sums``); then ONE_STEP_CALLS one-step calls,
+    each after a sync, whose median host time is the issue cost of a
+    step from an idle card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    k = int(xs.shape[0])
+    events = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        metrics = step.train_steps(xs, ys, ms)
+        host = time.perf_counter() - t0
+        end.record()
+        events.append((start, end, host, metrics))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step.train_steps(xs, ys, ms)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # the host's cost to issue one step into an idle queue (a K-step
+    # call can fill the launch queue, and then the host waits on the card)
+    issue = []
+    for _ in range(ONE_STEP_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step.train_steps(xs[:1], ys[:1], ms[:1])
+        issue.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    call_ms = [s.elapsed_time(e) for s, e, _, _ in events]
+    return {"call_ms": call_ms,
+            "call_host_ms": [h * 1e3 for _, _, h, _ in events],
+            "step_ms": float(np.median(call_ms)) / k,
+            "host_issue_us_per_step": float(np.median(issue)) * 1e6,
+            "call_host_us_per_step": float(np.median(
+                [h for _, _, h, _ in events])) / k * 1e6,
+            "metrics": [m for _, _, _, m in events],
+            "profile": device_profile(prof, wall_ms, k, sums=sums)}
+
+
+def workflow_run_profiled(w, warm: int, timed: int) -> dict:
+    """One ``w.run()`` (Repeater -> Loader -> FusedStep -> Decision),
+    each minibatch's class recorded as the step runs it: after ``warm``
+    minibatches (the first eager step and the capture of each graph come
+    before), a sync and ``timed`` minibatches on the host clock alone
+    (their ms a minibatch and the step's own host µs a minibatch), then
+    a sync and torch.profiler from there to the run's end (the device's
+    busy time and idle share; the tracer stretches the host's side)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step = w.step
+    orig = step.run
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    classes, host_s, marks = [], [], []
+
+    def run():
+        if len(classes) in (warm, warm + timed):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            if len(marks) == 2:
+                prof.start()
+        classes.append(int(w.loader.minibatch_class))
+        t0 = time.perf_counter()
+        orig()
+        if len(marks) == 1:
+            host_s.append(time.perf_counter() - t0)
+
+    step.run = run
+    t0 = time.perf_counter()
+    try:
+        w.run()
+        torch.cuda.synchronize()
+    finally:
+        del step.run
+    end = time.perf_counter()
+    if len(marks) != 2 or len(classes) == warm + timed:
+        fail(f"the run had {len(classes)} minibatches, not more than "
+             f"{warm} + {timed}")
+    prof.stop()
+    wall_ms = (end - marks[1]) * 1e3
+    n = len(classes) - warm - timed
+    return {"classes": classes, "run_s": end - t0,
+            "timed_minibatches": timed,
+            "ms_per_minibatch": (marks[1] - marks[0]) * 1e3 / timed,
+            "step_host_us": float(np.median(host_s)) * 1e6,
+            "profiled_minibatches": n,
+            "profile": device_profile(prof, wall_ms, n)}
+
+
+def replays_of(step) -> dict:
+    """The replays of the step's graphs, summed by body (0: a body that
+    ran once, eagerly, and was never captured)."""
+    out = {}
+    for key, g in step._graphs.items():
+        out[key[0]] = out.get(key[0], 0) + (0 if g is None else g.replays)
+    return out
+
+
+#: the kernel counters a fused step's graphs replay: (module, counter,
+#: the name its kernels start with in the profiler)
+REPLAYED_KERNELS = {
+    "sgd_update": (koptim, "sgd_launches", "sgd_kernel"),
+    "adam_update": (koptim, "adam_launches", "adam_multi_kernel"),
+    "lrn_forward": (klrn, "fwd_launches", "lrn_fwd"),
+    "lrn_backward": (klrn, "bwd_launches", "lrn_bwd")}
+
+
+def replayed_launches(fn, names, windows: int = 5) -> dict:
+    """``fn`` (replays of captured fused steps) under torch.profiler: for
+    each counter of ``names`` (REPLAYED_KERNELS) what one call of ``fn``
+    added to it (``counted``: a replay adds its capture's launches, it
+    runs no wrapper) against the kernels of that name the card ran in it
+    (``ran``).  :func:`profiled_after_mark`'s window, one call after
+    the mark: the calls before it take the tracer's losses.  A window
+    whose counts differ is profiled again, up to ``windows``; then the
+    smoke fails.  ``calls`` is how many times ``fn`` ran in all."""
+    rows, calls = None, 0
+    for _ in range(windows):
+        before = {}
+
+        def lead():
+            lead.n += 1
+            fn()
+            if lead.n == PROFILE_LEAD_CALLS:
+                before.update({n: getattr(*REPLAYED_KERNELS[n][:2])
+                               for n in names})
+        lead.n = 0
+        acts = profiled_after_mark(fn, 1, lead)
+        calls += PROFILE_LEAD_CALLS + 1
+        rows = {n: {"counted": getattr(*REPLAYED_KERNELS[n][:2]) -
+                    before[n],
+                    "ran": None if acts is None else sum(
+                        1 for key, us in acts if us > 0 and
+                        re.search(rf"\b{REPLAYED_KERNELS[n][2]}", key))}
+                for n in names}
+        if all(r["counted"] == r["ran"] for r in rows.values()):
+            return {"calls": calls, **rows}
+        print(f"replayed_launches: a window counted {rows}; profiling "
+              f"again", file=sys.stderr)
+    fail(f"replayed launches: {windows} windows, in none did the card run "
+         f"what the counters counted (last: {rows})")
 
 
 def decode_inputs(rng, dtype, head_dim, lengths, batch=SLOTS, heads=HEADS,
@@ -1454,6 +1704,10 @@ EAGER_EPOCHS, EAGER_TRAIN, EAGER_VALID = 2, 4096, 1024
 #: warm one (bench.py _throughput's protocol: K rolled copies of one
 #: seeded batch staged on the device); AdamW steps after
 FUSED_K, FUSED_REPS, ADAM_K = 16, 3, 4
+#: then MF_EPOCHS epochs of MF_TRAIN_MB minibatches through Workflow.run:
+#: the first epoch warm (the train body's eager step and its capture),
+#: the next two timed on the host clock, the last profiled
+MF_EPOCHS, MF_TRAIN_MB, MF_WARM, MF_TIMED = 4, 4, 4, 8
 #: matmul weights of bench_fc's model (784-4096-4096-10): the N of
 #: MFU = 6 N samples/s / peak, as utils/flops.py counts an All2All
 FC_MATMUL_WEIGHTS = 784 * 4096 + 4096 * 4096 + 4096 * 10
@@ -1547,10 +1801,10 @@ def _staged_batches(rng, k: int):
                                       device=DEVICE)
 
 
-def _fused_workflow(**kw):
+def _fused_workflow(max_epochs=1, n_train=2 * FC_BATCH, **kw):
     tprng.seed_all(SEED)
-    w = tmnist.build_fused(max_epochs=1, layers=FC_LAYERS,
-                           minibatch_size=FC_BATCH, n_train=2 * FC_BATCH,
+    w = tmnist.build_fused(max_epochs=max_epochs, layers=FC_LAYERS,
+                           minibatch_size=FC_BATCH, n_train=n_train,
                            n_valid=0, **kw)
     w.initialize(device=TorchDevice())
     return w
@@ -1558,14 +1812,14 @@ def _fused_workflow(**kw):
 
 def phase_mnist_fused() -> dict:
     """bench_fc's configuration (bench.py:303-313) through build_fused on
-    the card: K-step train_steps calls (one warm, FUSED_REPS timed with
-    CUDA events, one profiled), then one epoch through Workflow.run; then
-    AdamW for a few steps, one update launch a step.  The update
-    kernels' counters are set to 0 just before each path and read just
-    after."""
-    from torch.profiler import ProfilerActivity, profile
-
-    w = _fused_workflow(optimizer_config={"state_dtype": "bfloat16"})
+    the card, every step a graph replay but each body's first: K-step
+    train_steps calls (one warm, FUSED_REPS timed with CUDA events, one
+    profiled), then MF_EPOCHS epochs through Workflow.run (warm, timed,
+    profiled: workflow_run_profiled); then AdamW for a few steps, one update
+    launch a step.  The update kernels' counters are set to 0 just
+    before each path and read just after: exact, replays included."""
+    w = _fused_workflow(max_epochs=MF_EPOCHS, n_train=MF_TRAIN_MB * FC_BATCH,
+                        optimizer_config={"state_dtype": "bfloat16"})
     step = w.step
     xs, ys, ms = _staged_batches(np.random.default_rng(SEED + 10), FUSED_K)
     torch.cuda.synchronize()
@@ -1573,86 +1827,64 @@ def phase_mnist_fused() -> dict:
     koptim.sgd_launches = 0                          # 0 just before ...
     losses = [float(step.train_steps(xs, ys, ms)["loss"]) / (FC_BATCH *
                                                              FUSED_K)]
-    events = []
-    for _ in range(FUSED_REPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        metrics = step.train_steps(xs, ys, ms)
-        end.record()
-        events.append((start, end, metrics))
-    torch.cuda.synchronize()
-    call_ms = [s.elapsed_time(e) for s, e, _ in events]
-    losses += [float(m["loss"]) / (FC_BATCH * FUSED_K) for _, _, m in events]
+    timed = timed_train_steps(step, xs, ys, ms, FUSED_REPS)
+    losses += [float(m["loss"]) / (FC_BATCH * FUSED_K)
+               for m in timed.pop("metrics")]
     peak = torch.cuda.max_memory_allocated()
-    # busy and wall time from the same profiled window, CUDA activity only
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step.train_steps(xs, ys, ms)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA")
-              and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
-    top = sorted(device, key=lambda e: -e.self_device_time_total)[:10]
-    # one epoch through the graph: Repeater -> Loader -> FusedStep ->
-    # Decision, the dataset pinned on the device (index-fed)
-    t0 = time.perf_counter()
-    w.run()
-    torch.cuda.synchronize()
-    epoch_s = time.perf_counter() - t0
+    # MF_EPOCHS epochs through the graph: Repeater -> Loader -> FusedStep
+    # -> Decision, the dataset pinned on the device (index-fed)
+    run = workflow_run_profiled(w, MF_WARM, MF_TIMED)
     sgd_n = koptim.sgd_launches                      # ... read just after
-    # the warm, timed and profiled calls, then the epoch's 2 minibatches
-    steps = FUSED_K * (2 + FUSED_REPS) + 2
+    # the warm, timed and profiled calls, then the epochs' minibatches
+    staged = FUSED_K * (2 + FUSED_REPS) + ONE_STEP_CALLS
+    steps = staged + MF_EPOCHS * MF_TRAIN_MB
+    replays = replays_of(step)
+    want_replays = {"steps": staged - 1,
+                    "train": MF_EPOCHS * MF_TRAIN_MB - 1}
     hist = w.decision.metrics_history
-    step_ms = float(np.median(call_ms)) / FUSED_K
-    sps = FC_BATCH / (step_ms / 1e3)
+    sps = FC_BATCH / (timed["step_ms"] / 1e3)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         fail(f"fused loss not finite and falling: {losses}")
-    if sgd_n < 6 * steps:
-        fail(f"sgd_update_ launched {sgd_n} times over {steps} steps")
-    if not (len(hist) == 1 and bool(w.decision.complete) and
+    if sgd_n != 6 * steps:
+        fail(f"sgd_update_ launched {sgd_n} times over {steps} steps of "
+             f"6 leaves")
+    if replays != want_replays:
+        fail(f"mnist fused graph replays {replays}, want {want_replays}")
+    if not (len(hist) == MF_EPOCHS and bool(w.decision.complete) and
             step._dataset_dev is not None):
-        fail(f"the fused epoch through Workflow.run did not finish: {hist}")
+        fail(f"the fused epochs through Workflow.run did not finish: {hist}")
     # AdamW, the same configuration with f32 moments
     wa = _fused_workflow(optimizer="adam")
     koptim.adam_launches = 0                         # 0 just before ...
     m = wa.step.train_steps(xs[:ADAM_K], ys[:ADAM_K], ms[:ADAM_K])
     adam_loss = float(m["loss"]) / (FC_BATCH * ADAM_K)
     adam_n = koptim.adam_launches                    # ... read just after
-    # one launch a step for all six leaves (six, one a leaf, on a tree
-    # without the multi-leaf entry)
-    adam_want = ADAM_K * (1 if hasattr(koptim, "adam_update_multi_") else 6)
-    if not np.isfinite(adam_loss) or adam_n != adam_want:
+    if not np.isfinite(adam_loss) or adam_n != ADAM_K or \
+            replays_of(wa.step) != {"steps": ADAM_K - 1}:
         fail(f"adam: loss {adam_loss}, {adam_n} launches over {ADAM_K} "
-             f"steps (want {adam_want})")
+             f"steps, replays {replays_of(wa.step)}")
+    # what the replays ran, by the profiler, against the counters
+    profiled = {
+        "sgd": replayed_launches(lambda: step.train_steps(xs, ys, ms),
+                                 ("sgd_update",)),
+        "adam": replayed_launches(
+            lambda: wa.step.train_steps(xs[:ADAM_K], ys[:ADAM_K],
+                                        ms[:ADAM_K]), ("adam_update",))}
     return {"phase": "mnist_fused",
             "config": {"layers": list(FC_LAYERS), "batch": FC_BATCH,
                        "optimizer": "sgd", "momentum": 0.9, "lr": 0.05,
                        "state_dtype": "bfloat16", "compute": "bfloat16",
-                       "K": FUSED_K, "timed_calls": FUSED_REPS},
-            "losses_per_sample": losses, "call_ms": call_ms,
-            "step_ms": step_ms, "samples_per_s": sps,
+                       "K": FUSED_K, "timed_calls": FUSED_REPS,
+                       "epochs": MF_EPOCHS, "train_minibatches": MF_TRAIN_MB},
+            "losses_per_sample": losses, **timed,
+            "samples_per_s": sps,
             "mfu": 6.0 * FC_MATMUL_WEIGHTS * sps / BF16_FLOPS,
             "peak_mem_bytes": peak, "sgd_update_launches": sgd_n,
-            "steps": steps,
-            "profile": {"steps": FUSED_K, "wall_ms": wall_ms,
-                        "device_busy_ms": busy_ms or None,
-                        "device_idle_share": (1 - busy_ms / wall_ms)
-                        if busy_ms else None,
-                        "busy_ms_per_step": busy_ms / FUSED_K,
-                        "ops_per_step": sum(e.count for e in device)
-                        / FUSED_K,
-                        "top_device": [
-                            {"name": e.key[:80], "count": e.count,
-                             "ms_per_step":
-                                 e.self_device_time_total / 1e3 / FUSED_K}
-                            for e in top]},
-            "epoch": {"wall_s": epoch_s, "history": hist},
+            "steps": steps, "graph_replays": replays,
+            "workflow_run": {**run, "history": hist},
             "adam": {"steps": ADAM_K, "loss_per_sample": adam_loss,
-                     "adam_update_launches": adam_n}}
+                     "adam_update_launches": adam_n},
+            "replayed_launches_profiled": profiled}
 
 
 def _parity_run(kind, device, allow_tf32=False):
@@ -2873,7 +3105,8 @@ def phase_ae_parity() -> dict:
 
 
 #: ae_fused: bench.py bench_deconv_ae (:399-423): build_deep from seed 7,
-#: batch 64, n_train 64, no validation, one seeded batch and its K = 64
+#: batch 64, no validation (n_train 4 minibatches, for the epochs through
+#: Workflow.run after the staged calls), one seeded batch and its K = 64
 #: rolled copies staged on the card (identity targets), bf16 compute over
 #: f32 masters (the card's default), SGD momentum 0.9; one warm call of
 #: train_steps, AE_FUSED_REPS timed with CUDA events, one profiled.  The
@@ -2884,6 +3117,9 @@ def phase_ae_parity() -> dict:
 #: the bench's 0.001 goes to inf at once), so the smoke trains at 1e-6,
 #: where the loss falls through all 320
 AE_FUSED_K, AE_FUSED_REPS, AE_FUSED_LR = 64, 3, 1e-6
+#: then AEF_EPOCHS epochs of AEF_TRAIN_MB minibatches through
+#: Workflow.run: one warm, two timed on the host clock, one profiled
+AEF_EPOCHS, AEF_TRAIN_MB, AEF_WARM, AEF_TIMED = 4, 4, 4, 8
 
 
 def _ae_step_flops(w, exact: bool) -> float:
@@ -2905,74 +3141,67 @@ def _ae_step_flops(w, exact: bool) -> float:
     return 3.0 * total
 
 
-def phase_ae_fused() -> dict:
-    """bench_deconv_ae's configuration through build_deep(fused=True) on
-    the card: K-step train_steps calls (one warm, AE_FUSED_REPS timed,
-    one profiled); the SGD update kernel's counter set to 0 just before
-    and read just after.  The forward and backward run cuDNN
-    (torch_apply's F.conv2d and F.conv_transpose2d under autograd), not
-    the hand-written conv kernels: the reference's fused step runs XLA's
-    convs, not its Pallas kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
+def _ae_fused_setup():
+    """bench_deconv_ae's build_deep (64x64x3, batch 64) fused on the card
+    for AEF_EPOCHS epochs -> ``(w, xs, ms)``: AE_FUSED_K staged batches
+    (rolled copies of one normal batch) and their masks."""
     tprng.seed_all(7)
-    w = tautoencoder.build_deep(max_epochs=1, minibatch_size=AE_BATCH,
-                                n_train=AE_BATCH, n_valid=0,
+    w = tautoencoder.build_deep(max_epochs=AEF_EPOCHS,
+                                minibatch_size=AE_BATCH,
+                                n_train=AE_BATCH * AEF_TRAIN_MB, n_valid=0,
                                 lr=AE_FUSED_LR)
     w.initialize(device=TorchDevice())
-    step = w.step
     x = torch.tensor(np.random.default_rng(0).normal(
         size=(AE_BATCH, 64, 64, 3)), dtype=torch.float32, device=DEVICE)
     idx = torch.tensor((np.arange(AE_BATCH)[None, :] -
                         np.arange(AE_FUSED_K)[:, None]) % AE_BATCH,
                        device=DEVICE)
-    xs = x[idx]
-    ms = torch.ones((AE_FUSED_K, AE_BATCH), dtype=torch.bool, device=DEVICE)
+    return w, x[idx], torch.ones((AE_FUSED_K, AE_BATCH), dtype=torch.bool,
+                                 device=DEVICE)
+
+
+def phase_ae_fused() -> dict:
+    """bench_deconv_ae's configuration through build_deep(fused=True) on
+    the card, every step a graph replay but each body's first: K-step
+    train_steps calls (one warm, AE_FUSED_REPS timed, one profiled), then
+    AEF_EPOCHS epochs through Workflow.run (warm, timed, profiled); the
+    SGD update kernel's counter set to 0 just before and
+    read just after.  The forward and backward run cuDNN (torch_apply's
+    F.conv2d and F.conv_transpose2d under autograd), not the hand-written
+    conv kernels: the reference's fused step runs XLA's convs, not its
+    Pallas kernels."""
+    w, xs, ms = _ae_fused_setup()
+    step = w.step
     n_values = AE_BATCH * AE_FUSED_K * 64 * 64 * 3
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_ae_counts()
     koptim.sgd_launches = 0                          # 0 just before ...
     losses = [float(step.train_steps(xs, xs, ms)["loss"]) / n_values]
-    events = []
-    for _ in range(AE_FUSED_REPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        metrics = step.train_steps(xs, xs, ms)
-        end.record()
-        events.append((start, end, metrics))
-    torch.cuda.synchronize()
-    call_ms = [s.elapsed_time(e) for s, e, _ in events]
-    losses += [float(m["loss"]) / n_values for _, _, m in events]
+    timed = timed_train_steps(step, xs, xs, ms, AE_FUSED_REPS)
+    losses += [float(m["loss"]) / n_values for m in timed.pop("metrics")]
     peak = torch.cuda.max_memory_allocated()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step.train_steps(xs, xs, ms)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    run = workflow_run_profiled(w, AEF_WARM, AEF_TIMED)
     sgd_n = koptim.sgd_launches                      # ... read just after
     hand_conv = _ae_counts()
-    device = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA")
-              and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
-    top = sorted(device, key=lambda e: -e.self_device_time_total)[:10]
-    steps = AE_FUSED_K * (2 + AE_FUSED_REPS)
-    step_ms = float(np.median(call_ms)) / AE_FUSED_K
-    sps = AE_BATCH / (step_ms / 1e3)
+    staged = AE_FUSED_K * (2 + AE_FUSED_REPS) + ONE_STEP_CALLS
+    steps = staged + AEF_EPOCHS * AEF_TRAIN_MB
+    replays = replays_of(step)
+    want_replays = {"steps": staged - 1,
+                    "train": AEF_EPOCHS * AEF_TRAIN_MB - 1}
+    sps = AE_BATCH / (timed["step_ms"] / 1e3)
     out = {"phase": "ae_fused",
            "config": {"input": [64, 64, 3], "n_kernels": [64, 128],
                       "batch": AE_BATCH, "K": AE_FUSED_K, "seed": 7,
                       "optimizer": "sgd", "momentum": 0.9,
                       "lr": AE_FUSED_LR,
                       "compute": str(step.compute_dtype),
-                      "timed_calls": AE_FUSED_REPS},
+                      "timed_calls": AE_FUSED_REPS, "epochs": AEF_EPOCHS,
+                      "train_minibatches": AEF_TRAIN_MB},
            "route": "cuDNN (torch_apply under autograd) and the SGD "
-                    "update kernel; not the hand-written conv kernels",
-           "losses_per_value": losses, "call_ms": call_ms,
-           "step_ms": step_ms, "samples_per_s": sps,
+                    "update kernel, in CUDA graph replays; not the "
+                    "hand-written conv kernels",
+           "losses_per_value": losses, **timed, "samples_per_s": sps,
            "mfu": _ae_step_flops(w, False) / AE_BATCH * sps / BF16_FLOPS,
            "mfu_exact_products": _ae_step_flops(w, True) / AE_BATCH * sps /
            BF16_FLOPS,
@@ -2981,15 +3210,9 @@ def phase_ae_fused() -> dict:
                        "mfu_exact_products the products computed",
            "peak_mem_bytes": peak, "sgd_update_launches": sgd_n,
            "hand_conv_launches": hand_conv, "steps": steps,
-           "profile": {"steps": AE_FUSED_K, "wall_ms": wall_ms,
-                       "device_busy_ms": busy_ms,
-                       "device_idle_share": 1 - busy_ms / wall_ms,
-                       "busy_ms_per_step": busy_ms / AE_FUSED_K,
-                       "top_device": [
-                           {"name": e.key[:80], "count": e.count,
-                            "ms_per_step":
-                                e.self_device_time_total / 1e3 / AE_FUSED_K}
-                           for e in top]}}
+           "graph_replays": replays,
+           "workflow_run": {**run,
+                            "history": w.decision.metrics_history}}
     if step.compute_dtype != torch.bfloat16:
         fail(f"ae fused computes in {step.compute_dtype}, not bf16")
     if not all(np.isfinite(losses)) or \
@@ -3000,9 +3223,15 @@ def phase_ae_fused() -> dict:
     if sgd_n != n_leaves * steps:
         fail(f"sgd_update_ launched {sgd_n} times over {steps} steps of "
              f"{n_leaves} leaves")
+    if replays != want_replays:
+        fail(f"ae fused graph replays {replays}, want {want_replays}")
     if any(hand_conv.values()):
         fail(f"the fused ae step launched hand-written conv kernels: "
              f"{hand_conv}")
+    if not bool(w.decision.complete):
+        fail(f"the fused ae epochs did not finish: {out}")
+    out["replayed_launches_profiled"] = replayed_launches(
+        lambda: step.train_steps(xs, xs, ms), ("sgd_update",))
     return out
 
 
@@ -3555,10 +3784,19 @@ LRN_SHAPES = (("norm1", (128, 55, 55, 96)), ("norm2", (128, 27, 27, 256)))
 LRN_ARGS = (1e-4, 0.75, 2.0, 5)
 LRN_TOL = 1e-6
 #: dropout: AlexNet's fc6 input at batch 128 and one 64 M-element tensor,
-#: ratio 0.5; the drop rate within 0.1 % of the ratio on the 64 M
+#: ratio 0.5, in f32 and bf16 (the kernel's vector path); the drop rate
+#: within 0.1 % of the ratio on the 64 M
 DROP_SHAPES = (("fc6_input", (128, 9216)), ("64M", (8192, 8192)))
+DROP_DTYPES = (torch.float32, torch.bfloat16)
 DROP_RATIO, DROP_RATE_TOL = 0.5, 1e-3
-
+#: the element path, in both dtypes: an n that fills no whole 16-byte
+#: group (1001 x 7) and fc6's input one element off 16 bytes (shape,
+#: x's offset in elements)
+DROP_PATH_CASES = (((1001, 7), 0), ((128, 9216), 1))
+#: the plan twin's sweep: (n, aligned) in each dtype
+DROP_PLAN_SWEEP = [(n, al) for n in (1, 3, 4, 8, 1000, 7007, 1179648,
+                                     1 << 20, 8192 * 8192, 8192 * 8192 + 4)
+                   for al in (True, False)]
 
 #: both LRN kernels off AlexNet's shapes: c 5 (the element path), an x
 #: one float off 16 bytes at c 96 (the element path), and c 128 with
@@ -3678,41 +3916,7 @@ def phase_lrn_dropout() -> dict:
                     == ("quad" if quad else "element")):
                 fail(f"lrn {kind} vs plain: {lrn_paths[-1]}")
         del store, x, e, got, want
-    drop_checks, drop_timed = [], []
-    for name, shape in DROP_SHAPES:
-        x = torch.randn(shape, generator=gen, device=DEVICE)
-        y, mask = kdrop.dropout_forward(x, DROP_RATIO, seed=SEED)
-        words = counter_rng.random_bits(SEED, x.numel(), DEVICE)
-        y_p, mask_p = kdrop.dropout_forward_plain(x, DROP_RATIO, words)
-        del words
-        rate = float((mask == 0).double().mean())
-        check = {"shape": list(shape), "drop_rate": rate,
-                 "max_abs_err": float((y - y_p).abs().max()),
-                 "identical": bool(torch.equal(y, y_p) and
-                                   torch.equal(mask, mask_p)),
-                 "y_is_x_mask": bool(torch.equal(y, x * mask))}
-        drop_checks.append(check)
-        if not (check["identical"] and check["y_is_x_mask"]):
-            fail(f"dropout vs plain: {check}")
-        if name == "64M" and not abs(rate - DROP_RATIO) <= DROP_RATE_TOL:
-            fail(f"dropout rate {rate} not within {DROP_RATE_TOL} of "
-                 f"{DROP_RATIO}")
-        del y, mask, y_p, mask_p
-
-        def plain(x=x):
-            return kdrop.dropout_forward_plain(
-                x, DROP_RATIO,
-                counter_rng.random_bits(SEED, x.numel(), DEVICE))
-
-        drop_timed.append({"shape": list(shape),
-                           "ms": time_cuda_ms(lambda: kdrop.dropout_forward(
-                               x, DROP_RATIO, seed=SEED)),
-                           "plain_ms": time_cuda_ms(plain, iters=5),
-                           "library_ms": time_cuda_ms(
-                               lambda: torch.ops.aten.native_dropout(
-                                   x, DROP_RATIO, True), iters=5),
-                           **kdrop.bound(x.numel())})
-        del x
+    drop = phase_dropout(gen)
     lrn_path = {}
     for kind in ("fwd", "bwd"):
         rows = [t for t in lrn_timed if t["kernel"] == kind]
@@ -3730,10 +3934,107 @@ def phase_lrn_dropout() -> dict:
             "lrn_args": list(LRN_ARGS), "lrn_tol": LRN_TOL,
             "lrn_checks": lrn_checks, "lrn_path_checks": lrn_paths,
             "lrn_plans": lrn_plans, "lrn_timed": lrn_timed,
-            "lrn_path": lrn_path, "dropout_checks": drop_checks,
-            "dropout_timed": drop_timed,
+            "lrn_path": lrn_path, **drop,
             "path_note": "lrn: sums over AlexNet's norm1 and norm2 at batch "
                          "128; dropout: the 64 M-element tensor"}
+
+
+def _drop_plans() -> list:
+    """dropout.cu's launch against ``dropout_plan`` over DROP_PLAN_SWEEP,
+    both dtypes."""
+    rows = []
+    for dtype in DROP_DTYPES:
+        for n, aligned in DROP_PLAN_SWEEP:
+            card = kdrop.dropout_plan_on_card(n, dtype, aligned)
+            twin = kdrop.dropout_plan(n, dtype, aligned)
+            if card != twin:
+                fail(f"dropout.cu's plan differs from dropout_plan at n {n} "
+                     f"{dtype} aligned {aligned}: {card} {twin}")
+            rows.append((str(dtype), n, aligned, card["path"],
+                         card["blocks"]))
+    return rows
+
+
+def _drop_check(x) -> dict:
+    """The kernel at one seed against its plain version on the same x:
+    y and mask bit for bit, y == x·mask, the drop rate."""
+    y, mask = kdrop.dropout_forward(x, DROP_RATIO, seed=SEED)
+    words = counter_rng.random_bits(SEED, x.numel(), DEVICE)
+    y_p, mask_p = kdrop.dropout_forward_plain(x, DROP_RATIO, words)
+    check = {"shape": list(x.shape), "dtype": str(x.dtype),
+             "drop_rate": float((mask == 0).double().mean()),
+             "max_abs_err": float((y.float() - y_p.float()).abs().max()),
+             "identical": bool(torch.equal(y, y_p) and
+                               torch.equal(mask, mask_p)),
+             "y_is_x_mask": bool(torch.equal(y, x * mask))}
+    if not (check["identical"] and check["y_is_x_mask"]):
+        fail(f"dropout vs plain: {check}")
+    return check
+
+
+def _drop_timed(x) -> dict:
+    """The kernel, its plain version and ``aten.native_dropout`` on x
+    (64 M elements), each with the same iterations but the plain
+    version's 5; the library call writes a 1-byte bool mask, so its own
+    byte bound (9 bytes an element at f32, 5 at bf16) stands beside
+    it."""
+    def plain():
+        return kdrop.dropout_forward_plain(
+            x, DROP_RATIO, counter_rng.random_bits(SEED, x.numel(), DEVICE))
+
+    size = x.element_size()
+    row = {"shape": list(x.shape), "dtype": str(x.dtype),
+           "ms": time_cuda_ms(lambda: kdrop.dropout_forward(
+               x, DROP_RATIO, seed=SEED)),
+           "plain_ms": time_cuda_ms(plain, iters=5),
+           "library_ms": time_cuda_ms(
+               lambda: torch.ops.aten.native_dropout(x, DROP_RATIO, True)),
+           "library_bound_ms": x.numel() * (2 * size + 1) /
+           HBM_BYTES_PER_S * 1e3,
+           **kdrop.bound(x.numel(), dtype=x.dtype)}
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["library_bound_share"] = row["library_bound_ms"] / row["library_ms"]
+    return row
+
+
+def phase_dropout(gen) -> dict:
+    """The dropout kernel against its plain version at one seed, bit for
+    bit (y and mask), in f32 and bf16, on the vector path at DROP_SHAPES
+    and on the element path at DROP_PATH_CASES; its plan from dropout.cu
+    against ``dropout_plan``; at 64 M elements the drop rate, and the
+    kernel, its plain version and ``aten.native_dropout`` timed
+    (_drop_timed)."""
+    checks, paths, timed = [], [], []
+    for name, shape in DROP_SHAPES:
+        for dtype in DROP_DTYPES:
+            x = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+            checks.append({"name": name, **_drop_check(x)})
+            path = kdrop.dropout_plan_on_card(x.numel(), dtype)["path"]
+            if path != "vector":
+                fail(f"dropout at {shape} {dtype} took the {path} path")
+            if name == "64M":
+                rate = checks[-1]["drop_rate"]
+                if not abs(rate - DROP_RATIO) <= DROP_RATE_TOL:
+                    fail(f"dropout rate {rate} not within {DROP_RATE_TOL} "
+                         f"of {DROP_RATIO}")
+                timed.append(_drop_timed(x))
+            del x
+    for shape, offset in DROP_PATH_CASES:
+        for dtype in DROP_DTYPES:
+            n = int(np.prod(shape))
+            store = torch.randn(n + offset, generator=gen,
+                                device=DEVICE).to(dtype)
+            x = store[offset:].view(shape)
+            path = kdrop.dropout_plan_on_card(
+                n, dtype, x.data_ptr() % 16 == 0)["path"]
+            paths.append({"offset": offset, "path": path, **_drop_check(x)})
+            if path != "element":
+                fail(f"dropout at {shape} offset {offset} took the {path} "
+                     f"path")
+            del store, x
+    return {"dropout_checks": checks, "dropout_path_checks": paths,
+            "dropout_plans_checked": len(_drop_plans()),
+            "dropout_timed": timed}
 
 
 #: alexnet_fused: alexnet.build() at its defaults, fused (227 px, batch
@@ -3742,9 +4043,14 @@ def phase_lrn_dropout() -> dict:
 #: alexnet_eager (n_train 384, n_valid 128: 3 train and 1 validation
 #: minibatches an epoch) pinned on the card.  K staged batches (rolled
 #: copies of the data set's first 128 samples); one warm train_steps
-#: call, AF_REPS timed with CUDA events, one profiled; then one epoch
+#: call, AF_REPS timed with CUDA events, one profiled; then the epochs
 #: through Workflow.run
 AF_K, AF_REPS = 4, 3
+#: then AF_EPOCHS epochs through Workflow.run: two warm (by their end the
+#: train body, 2 minibatches, and the eval body, 2 epochs' validation
+#: minibatch, each ran eagerly once and were captured), one timed on the
+#: host clock, one profiled
+AF_EPOCHS, AF_WARM, AF_TIMED = 4, 8, 4
 
 
 def _forward_flops(w) -> float:
@@ -3814,36 +4120,45 @@ def _fused_sgd_leaves_check(step) -> dict:
     return out
 
 
-def phase_alexnet_fused() -> dict:
-    """alexnet.build() at its defaults through the fused step on the
-    card: cuDNN convs and cuBLAS matmuls under autograd (the reference's
-    fused step runs XLA's), LRN on its two kernels through the ``lrn``
-    Function, the update on the SGD kernel.  The LRN and SGD counters
-    set to 0 just before the staged calls and read just after (exactly
-    2 LRN forwards, 2 LRN backwards and one SGD launch a leaf a train
-    step), step ms by CUDA events, samples/s, MFU, peak memory, the idle
-    share of one profiled call; then one epoch through Workflow.run, the
-    counters again exact (an eval minibatch runs the LRN forward only).
-    First, before the counters are set to 0, the SGD kernel is held
-    against its plain version at the step's own leaves."""
-    from torch.profiler import ProfilerActivity, profile
-
+def _alexnet_fused_setup():
+    """alexnet.build() at its defaults, fused on the card for AF_EPOCHS
+    epochs -> ``(w, xs, ys, ms, init_s)``: AF_K staged batches (rolled
+    copies of the pinned data set's first 128 samples), their masks, and
+    the seconds initialize took."""
     tprng.seed_all(SEED)
-    w = talexnet.build(n_train=ALEX_TRAIN, n_valid=ALEX_VALID)
+    w = talexnet.build(n_train=ALEX_TRAIN, n_valid=ALEX_VALID,
+                       max_epochs=AF_EPOCHS)
     t0 = time.perf_counter()
     w.initialize(device=TorchDevice())
     init_s = time.perf_counter() - t0
+    data, labels = w.step._dataset_dev
+    idx = torch.tensor((np.arange(ALEX_BATCH)[None, :] -
+                        np.arange(AF_K)[:, None]) % ALEX_BATCH,
+                       device=DEVICE)
+    return w, data[idx], labels[idx], torch.ones(
+        (AF_K, ALEX_BATCH), dtype=torch.bool, device=DEVICE), init_s
+
+
+def phase_alexnet_fused() -> dict:
+    """alexnet.build() at its defaults through the fused step on the
+    card, every step a graph replay but each body's first: cuDNN convs
+    and cuBLAS matmuls under autograd (the reference's fused step runs
+    XLA's), LRN on its two kernels through the ``lrn`` Function, the
+    update on the SGD kernel.  The LRN and SGD counters set to 0 just
+    before the staged calls and read just after (exactly 2 LRN forwards,
+    2 LRN backwards and one SGD launch a leaf a train step), step ms by
+    CUDA events, samples/s, MFU, peak memory, the idle share of one
+    profiled call; then AF_EPOCHS epochs through Workflow.run (warm,
+    timed, profiled), the counters again exact (an eval
+    minibatch runs the LRN forward only).  First, before the counters
+    are set to 0, the SGD kernel is held against its plain version at
+    the step's own leaves."""
+    w, xs, ys, ms, init_s = _alexnet_fused_setup()
     step = w.step
     if step.compute_dtype != torch.bfloat16 or step._dataset_dev is None:
         fail(f"alexnet fused: compute {step.compute_dtype}, dataset pinned "
              f"{step._dataset_dev is not None}")
     sgd_leaves = _fused_sgd_leaves_check(step)
-    data, labels = step._dataset_dev
-    idx = torch.tensor((np.arange(ALEX_BATCH)[None, :] -
-                        np.arange(AF_K)[:, None]) % ALEX_BATCH,
-                       device=DEVICE)
-    xs, ys = data[idx], labels[idx]
-    ms = torch.ones((AF_K, ALEX_BATCH), dtype=torch.bool, device=DEVICE)
     n_leaves = sum(k in leaf for leaf in step._params for k in ("w", "b"))
     before = _conv_fc_weights(w)
     torch.cuda.synchronize()
@@ -3851,95 +4166,73 @@ def phase_alexnet_fused() -> dict:
     _zero_lrn_sgd_counts()                           # 0 just before ...
     losses = [float(step.train_steps(xs, ys, ms)["loss"]) /
               (ALEX_BATCH * AF_K)]
-    events = []
-    for _ in range(AF_REPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        metrics = step.train_steps(xs, ys, ms)
-        end.record()
-        events.append((start, end, metrics))
-    torch.cuda.synchronize()
-    call_ms = [a.elapsed_time(b) for a, b, _ in events]
-    losses += [float(m["loss"]) / (ALEX_BATCH * AF_K) for _, _, m in events]
+    timed = timed_train_steps(step, xs, ys, ms, AF_REPS, sums=("lrn_",))
+    losses += [float(m["loss"]) / (ALEX_BATCH * AF_K)
+               for m in timed.pop("metrics")]
     peak = torch.cuda.max_memory_allocated()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step.train_steps(xs, ys, ms)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
     launches = _lrn_sgd_counts()                     # ... read just after
-    steps = AF_K * (2 + AF_REPS)
+    steps = AF_K * (2 + AF_REPS) + ONE_STEP_CALLS
+    # what the replays ran, by the profiler, against the counters
+    profiled = replayed_launches(
+        lambda: step.train_steps(xs, ys, ms),
+        ("sgd_update", "lrn_forward", "lrn_backward"))
     expect = {"lrn_forward": 2 * steps, "lrn_backward": 2 * steps,
               "sgd_update": n_leaves * steps, "hand_conv": 0}
-    device = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA")
-              and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
-    lrn_ms = sum(e.self_device_time_total for e in device
-                 if "lrn_" in e.key) / 1e3
-    top = sorted(device, key=lambda e: -e.self_device_time_total)[:12]
-    del xs, ys, ms, idx
-    # one epoch through the graph: Repeater -> Loader -> FusedStep ->
-    # Decision, the loader serving indices into the pinned data set
-    marks = _per_minibatch_marks(w)
+    del xs, ys, ms
+    # AF_EPOCHS epochs through the graph: Repeater -> Loader -> FusedStep
+    # -> Decision, the loader serving indices into the pinned data set
     _zero_lrn_sgd_counts()                           # 0 just before ...
-    t0 = time.perf_counter()
-    w.run()
-    torch.cuda.synchronize()
-    epoch_s = time.perf_counter() - t0
+    run = workflow_run_profiled(w, AF_WARM, AF_TIMED)
     epoch_launches = _lrn_sgd_counts()               # ... read just after
-    classes = [c for _, c in marks]
+    classes = run["classes"]
     n_train_mb = classes.count(2)
     n_eval_mb = len(classes) - n_train_mb
     epoch_expect = {"lrn_forward": 2 * (n_train_mb + n_eval_mb),
                     "lrn_backward": 2 * n_train_mb,
                     "sgd_update": n_leaves * n_train_mb, "hand_conv": 0}
+    replays = replays_of(step)
+    want_replays = {"steps": steps + AF_K * profiled["calls"] - 1,
+                    "train": n_train_mb - 1, "eval": n_eval_mb - 1}
     step.sync_to_units()
     after = _conv_fc_weights(w)
     hist = w.decision.metrics_history
-    step_ms = float(np.median(call_ms)) / AF_K
-    sps = ALEX_BATCH / (step_ms / 1e3)
+    sps = ALEX_BATCH / (timed["step_ms"] / 1e3)
     flops = 3.0 * _forward_flops(w)
     out = {"phase": "alexnet_fused",
            "config": {"batch": ALEX_BATCH, "input": 227, "classes": 1000,
                       "dropout": 0.5, "lr": 0.01, "momentum": 0.9,
                       "compute": str(step.compute_dtype), "K": AF_K,
                       "timed_calls": AF_REPS, "n_train": ALEX_TRAIN,
-                      "n_valid": ALEX_VALID, "dataset_on_device": True},
+                      "n_valid": ALEX_VALID, "epochs": AF_EPOCHS,
+                      "dataset_on_device": True},
            "route": "cuDNN convs and matmuls under autograd, LRN on its "
                     "forward and backward kernels, SGD on the update "
-                    "kernel; pooling and dropout plain torch",
-           "init_s": init_s, "losses_per_sample": losses,
-           "call_ms": call_ms, "step_ms": step_ms, "samples_per_s": sps,
-           "train_flops_per_step": flops,
+                    "kernel, in CUDA graph replays; pooling and dropout "
+                    "plain torch",
+           "init_s": init_s, "losses_per_sample": losses, **timed,
+           "samples_per_s": sps, "train_flops_per_step": flops,
            "mfu": flops / ALEX_BATCH * sps / BF16_FLOPS,
            "mfu_note": "3 x the conv and FC layers' forward flops against "
                        "989 TFLOP/s bf16",
            "peak_mem_bytes": peak, "steps": steps, "leaves": n_leaves,
            "sgd_at_leaves": sgd_leaves,
            "launches": launches, "expect": expect,
-           "profile": {"steps": AF_K, "wall_ms": wall_ms,
-                       "device_busy_ms": busy_ms,
-                       "device_idle_share": 1 - busy_ms / wall_ms,
-                       "busy_ms_per_step": busy_ms / AF_K,
-                       "lrn_kernels_ms_per_step": lrn_ms / AF_K,
-                       "top_device": [
-                           {"name": e.key[:80], "count": e.count,
-                            "ms_per_step":
-                                e.self_device_time_total / 1e3 / AF_K}
-                           for e in top]},
-           "epoch": {"wall_s": epoch_s, "history": hist,
-                     "train_minibatches": n_train_mb,
-                     "eval_minibatches": n_eval_mb,
-                     "launches": epoch_launches, "expect": epoch_expect}}
+           "replayed_launches_profiled": profiled,
+           "graph_replays": replays,
+           "workflow_run": {**run, "history": hist,
+                            "train_minibatches": n_train_mb,
+                            "eval_minibatches": n_eval_mb,
+                            "launches": epoch_launches,
+                            "expect": epoch_expect}}
+    lrn_ms = timed["profile"]["ms_per_step_of"]["lrn_"]
     if not all(np.isfinite(losses)):
         fail(f"alexnet fused loss not finite: {out}")
     if launches != expect or epoch_launches != epoch_expect:
         fail(f"alexnet fused launches: {out}")
-    if not (len(hist) == 1 and bool(w.decision.complete)):
-        fail(f"the fused alexnet epoch did not finish: {hist}")
+    if replays != want_replays:
+        fail(f"alexnet fused graph replays {replays}, want {want_replays}")
+    if not (len(hist) == AF_EPOCHS and bool(w.decision.complete)):
+        fail(f"the fused alexnet epochs did not finish: {hist}")
     unchanged = [name for name, (wb, bb) in before.items()
                  if np.array_equal(after[name][0], wb)
                  or np.array_equal(after[name][1], bb)]
@@ -3973,14 +4266,41 @@ FCP_EPOCHS, FCP_WEIGHT_ATOL, FCP_CUDNN_WEIGHT_ATOL = 3, 2e-6, 1e-4
 FCP_MODEL_TRAIN, FCP_MODEL_VALID = 500, 100
 
 
-def inject_uniforms(w, seed: int) -> None:
+def inject_uniforms(w, seed: int) -> list:
     """Every NEEDS_RNG forward of ``w`` draws its uniforms from one numpy
-    stream (the same on any device, in draw order)."""
+    stream (the same on any device, in forward order) through a tensor
+    of its own on the step's device: its first train draw fills it, and
+    a wrapper around ``w.step.run`` refills each, in forward order,
+    before every later train minibatch.  The step body reads the tensor,
+    so a graph replay reads each minibatch's values as an eager step
+    does.  Returns the list the wrapper appends each minibatch's class
+    to."""
     rng = np.random.default_rng(seed)
-    for fwd in w.forwards:
-        if fwd.NEEDS_RNG:
-            fwd.draw_uniform = lambda gen, shape, device: torch.tensor(
-                rng.random(tuple(shape), dtype=np.float32), device=device)
+    units = [f for f in w.forwards if f.NEEDS_RNG]
+    bufs, classes = {}, []
+
+    def fill(i, shape, device):
+        u = torch.from_numpy(rng.random(tuple(shape), dtype=np.float32))
+        if i in bufs:
+            bufs[i].copy_(u)
+        else:
+            bufs[i] = u.to(device)
+        return bufs[i]
+
+    for i, fwd in enumerate(units):
+        fwd.draw_uniform = lambda gen, shape, device, i=i: \
+            bufs[i] if i in bufs else fill(i, shape, device)
+    orig = w.step.run
+
+    def run():
+        classes.append(int(w.loader.minibatch_class))
+        if classes[-1] == TRAIN:
+            for i in sorted(bufs):
+                fill(i, bufs[i].shape, None)
+        orig()
+
+    w.step.run = run
+    return classes
 
 
 def _fused_parity_run(which, device, allow_tf32=False, cudnn=True):
@@ -4006,14 +4326,20 @@ def _fused_parity_run(which, device, allow_tf32=False, cudnn=True):
             loader_name="synthetic_image", loader_config=cfg,
             decision_config={"max_epochs": FCP_EPOCHS}, fused=True)
         w.initialize(device=TorchDevice(device, precision="float32"))
-        inject_uniforms(w, SEED)
+        classes = inject_uniforms(w, SEED)
         w.run()
         w.step.sync_to_units()
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = tf32
         torch.backends.cudnn.enabled = True
-    return w.decision.metrics_history, _conv_fc_weights(w)
+    replays, want = None, None
+    if device != "cpu":
+        # every train and eval step a graph replay but each body's first
+        replays = replays_of(w.step)
+        n_train = classes.count(TRAIN)
+        want = {"train": n_train - 1, "eval": len(classes) - n_train - 1}
+    return w.decision.metrics_history, _conv_fc_weights(w), replays, want
 
 
 def fused_pool_backward_check() -> dict:
@@ -4129,13 +4455,17 @@ def phase_fused_conv_parity() -> dict:
                          "history_cpu": cpu[which][0],
                          "weight_max_abs": spread(card[1], cpu[which][1]),
                          "tf32_control_weight_max_abs": spread(
-                             tf32[1], cpu[which][1])}
+                             tf32[1], cpu[which][1]),
+                         "graph_replays": card[2]}
         if card[0] != cpu[which][0]:
             bad.append(f"{name} n_err card != cpu")
         if not r["weight_max_abs"] <= band:
             bad.append(f"{name} weights card vs cpu")
         if not r["tf32_control_weight_max_abs"] > band:
             bad.append(f"the {name} band passes the TF32 control")
+        if card[2] != card[3] or tf32[2] != tf32[3]:
+            bad.append(f"{name} replays {card[2]} {tf32[2]}, want "
+                       f"{card[3]}")
     from znicz_tpu_torch.models import cifar_conv as tcifar
 
     for name, mod in (("mnist_conv", tmnist_conv), ("cifar_conv", tcifar)):
@@ -4168,6 +4498,171 @@ def phase_fused_conv_parity() -> dict:
     out["maxpool_forms"] = fused_maxpool_forms()
     if bad:
         fail(f"fused_conv_parity: {bad}: {out}")
+    return out
+
+
+#: graph_parity: the graphed step against its unrolled body over GP_STEPS
+#: train steps, every learning rate halved before step GP_LR_AT
+GP_STEPS, GP_LR_AT = 8, 4
+#: the fused step's modes on the card (f32, TF32 off) against the CPU:
+#: the bands of tests/test_torch_port_fused_modes.py (summation order
+#: only, ~1e-7 on these tiny nets)
+MODES_WEIGHT_ATOL = 1e-6
+
+
+def _gp_mnist(**kw):
+    return lambda: tmnist.build_fused(max_epochs=1, layers=FC_LAYERS,
+                                      minibatch_size=FC_BATCH,
+                                      n_train=2 * FC_BATCH, n_valid=0, **kw)
+
+
+def _gp_alexnet():
+    return StandardWorkflow(
+        name="alexnet67", layers=small_alexnet_layers(0.5, 0.03),
+        loss_function="softmax", loader_name="synthetic_image",
+        loader_config={"n_classes": 10, "sample_shape": (67, 67, 3),
+                       "n_train": 64, "n_valid": 0, "minibatch_size": 8,
+                       "spread": 1.0, "noise": 0.5},
+        decision_config={"max_epochs": 1}, fused=True)
+
+
+def _gp_mnist_conv():
+    return StandardWorkflow(
+        name="mnist_conv_stochastic", layers=stochastic_mnist_layers(),
+        loss_function="softmax", loader_name="synthetic_image",
+        loader_config={"n_classes": 10, "sample_shape": (28, 28, 1),
+                       "n_train": 200, "n_valid": 0, "minibatch_size": 100,
+                       "spread": 2.5, "noise": 1.0},
+        decision_config={"max_epochs": 1}, fused=True)
+
+
+def _gp_staged(w, k: int):
+    """``k`` minibatches staged on the card from the step's pinned data
+    set (rolled copies of its first minibatch's rows)."""
+    data, labels = w.step._dataset_dev
+    b = w.loader.max_minibatch_size
+    idx = torch.tensor((np.arange(b)[None, :] - np.arange(k)[:, None]) %
+                       data.shape[0], device=DEVICE)
+    return data[idx], labels[idx], torch.ones((k, b), dtype=torch.bool,
+                                              device=DEVICE)
+
+
+def _graph_parity_case(make, deterministic: bool) -> dict:
+    """Two workflows from one seed on the card: one through
+    ``train_steps`` a step at a time (each a graph replay but the first),
+    its twin through the step's unrolled body (``_train_step``, eager
+    launches), the learning rates halved on both before step GP_LR_AT.
+    Every step's metrics and, at the end, every tensor of the params
+    (weights, velocities, moments, step counts) compared bit for bit.
+    ``deterministic``: cuDNN's deterministic algorithms on both twins
+    (its backward may sum with atomics in a varying order)."""
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        twins = []
+        for _ in range(2):
+            tprng.seed_all(SEED + 61)
+            w = make()
+            w.initialize(device=TorchDevice())
+            twins.append(w)
+        graphed, eager = twins
+        xs, ys, ms = _gp_staged(graphed, GP_STEPS)
+        buf = graphed.step._hyper_buf.data_ptr()
+        differ = []
+        for k in range(GP_STEPS):
+            if k == GP_LR_AT:
+                for w in twins:
+                    for gd in w.gds:
+                        gd.learning_rate *= 0.5
+                        gd.learning_rate_bias *= 0.5
+            got = graphed.step.train_steps(xs[k:k + 1], ys[k:k + 1],
+                                           ms[k:k + 1])
+            want = eager.step._train_step(xs[k], ys[k], ms[k])
+            differ += [f"step {k} {key}" for key in want
+                       if not torch.equal(got[key], want[key])]
+        torch.cuda.synchronize()
+        differ += [f"{i}.{key}" for i, (a, b) in enumerate(zip(
+            graphed.step._params, eager.step._params)) for key in a
+            if not torch.equal(a[key], b[key])]
+        lr = float(graphed.step._hyper_views[0]["lr"])
+        return {"differ": differ, "replays": replays_of(graphed.step),
+                "hyper_buffer_kept": graphed.step._hyper_buf.data_ptr() ==
+                buf, "lr_after": lr,
+                "tensors": sum(len(leaf) for leaf in graphed.step._params),
+                "loss_last": float(got["loss"])}
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+
+def _modes_run(mode: str, device: str) -> tuple:
+    """One fused mode from one seed in f32 on ``device`` -> (history,
+    weights): accumulate_steps 4 (4 x 16, SGD), ema_decay 0.8 (the
+    averaged weights) or scan_epoch."""
+    tprng.seed_all(SEED + 67)
+    hyper = {"learning_rate": 0.05, "learning_rate_bias": 0.05,
+             "gradient_moment": 0.9, "gradient_moment_bias": 0.9}
+    layers = [{"type": "all2all_tanh", "->": {"output_sample_shape": 12},
+               "<-": dict(hyper)},
+              {"type": "softmax", "->": {"output_sample_shape": 4},
+               "<-": dict(hyper)}]
+    loader = {"n_classes": 4, "sample_shape": (6,), "n_train": 64,
+              "n_valid": 0 if mode == "accumulate" else 30,
+              "minibatch_size": 16, "shuffle_limit": 0}
+    kw = {"accumulate": {"accumulate_steps": 4},
+          "ema": {"ema_decay": 0.8}, "scan": {}}[mode]
+    root.common.engine.scan_epoch = mode == "scan"
+    try:
+        w = StandardWorkflow(name=mode, layers=layers,
+                             loss_function="softmax",
+                             loader_name="synthetic_classifier",
+                             loader_config=loader,
+                             decision_config={"max_epochs": 3}, **kw)
+        w.initialize(device=TorchDevice(device, precision="float32"))
+    finally:
+        root.common.engine.scan_epoch = False
+    w.run()
+    w.step.sync_to_units()
+    weights = [np.array(a.map_read()) for f in w.forwards
+               for a in (f.weights, f.bias)]
+    if mode == "ema":
+        weights = [leaf[k] for leaf in w.step.ema_params() for k in "wb"]
+    return w.decision.metrics_history, weights, w.step
+
+
+def phase_graph_parity() -> dict:
+    """The graphed fused step against its unrolled body on the card, bit
+    for bit over GP_STEPS steps with an LR change: MNIST FC at bench_fc's
+    widths with bf16 velocity, the same with AdamW, the 67-px AlexNet
+    with dropout 0.5 and MNIST conv with both pools stochastic at its
+    own widths (the step's generator drawn in every replay); then
+    accumulate_steps, ema_decay and scan_epoch each once on the card
+    against the CPU in f32."""
+    out = {"phase": "graph_parity", "steps": GP_STEPS, "lr_halved_at":
+           GP_LR_AT, "modes_weight_atol": MODES_WEIGHT_ATOL}
+    bad = []
+    for name, make, det in (
+            ("mnist_sgd_bf16_velocity",
+             _gp_mnist(optimizer_config={"state_dtype": "bfloat16"}), False),
+            ("mnist_adamw", _gp_mnist(optimizer="adam"), False),
+            ("alexnet67_dropout", _gp_alexnet, True),
+            ("mnist_conv_stochastic", _gp_mnist_conv, True)):
+        r = out[name] = _graph_parity_case(make, det)
+        if r["differ"] or r["replays"] != {"steps": GP_STEPS - 1} or \
+                not r["hyper_buffer_kept"]:
+            bad.append(name)
+    for mode in ("accumulate", "ema", "scan"):
+        card, cpu = _modes_run(mode, DEVICE), _modes_run(mode, "cpu")
+        r = out[mode] = {
+            "history_card": card[0], "history_cpu": cpu[0],
+            "weight_max_abs": max(float(np.abs(a - b).max())
+                                  for a, b in zip(card[1], cpu[1])),
+            "replays": replays_of(card[2])}
+        if card[0] != cpu[0] or not r["weight_max_abs"] <= \
+                MODES_WEIGHT_ATOL or not r["replays"] or \
+                not all(r["replays"].values()):
+            bad.append(mode)
+    if bad:
+        fail(f"graph_parity: {bad}: {out}")
     return out
 
 
@@ -4726,6 +5221,9 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
     sgd = optim["timed"]["sgd_vel_bfloat16"]
     hw = kernel_hw["launches"]
     lrn_path = lrn_drop["lrn_path"]
+    drop_f32, drop_bf16 = (
+        next(r for r in lrn_drop["dropout_timed"] if r["dtype"] == str(dt))
+        for dt in (torch.float32, torch.bfloat16))
     return {"kernels": [
         entry("paged_decode", kdecode.SOURCE, kdecode.REPLACES,
               serve["kernel_launches"], kernel, kernel["max_abs_err"],
@@ -4794,8 +5292,12 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
               lrn_path["bwd"]["max_abs_err"], path="alexnet_fused",
               cuda_kernels=["lrn_bwd_quad_kernel<N>", "lrn_bwd_kernel"]),
         entry("dropout_forward", kdrop.SOURCE, kdrop.REPLACES,
-              hw["dropout_forward"], lrn_drop["dropout_timed"][-1],
-              max(c["max_abs_err"] for c in lrn_drop["dropout_checks"]))]}
+              hw["dropout_forward"], drop_f32,
+              max(c["max_abs_err"] for c in lrn_drop["dropout_checks"]),
+              library_bound_ms=drop_f32["library_bound_ms"],
+              bf16={k: drop_bf16[k] for k in (
+                  "ms", "plain_ms", "bound_ms", "library_ms",
+                  "library_bound_ms")})]}
 
 
 def phase_waves() -> dict:
@@ -4859,6 +5361,66 @@ def phase_waves() -> dict:
             "fewer_ms": sum(r["fewer"]["ms"] for r in rows_out[:5])}
 
 
+def _compare_path(w, xs, ys, ms, reps, warm, timed) -> dict:
+    w.step.train_steps(xs, ys, ms)
+    t = timed_train_steps(w.step, xs, ys, ms, reps)
+    run = workflow_run_profiled(w, warm, timed)
+    return {"train_steps": {
+                "step_ms": t["step_ms"],
+                "host_issue_us_per_step": t["host_issue_us_per_step"],
+                "busy_ms_per_step": t["profile"]["busy_ms_per_step"],
+                "idle_share": t["profile"]["device_idle_share"]},
+            "workflow_run": {
+                "ms_per_minibatch": run["ms_per_minibatch"],
+                "step_host_us": run["step_host_us"],
+                "busy_ms_per_minibatch": run["profile"]["busy_ms_per_step"],
+                "idle_share": run["profile"]["device_idle_share"]}}
+
+
+def phase_fused_compare() -> dict:
+    """The readings that hold a change against its parent on one card,
+    without the other phases' gates: the dropout kernel at 64 M elements
+    (f32, and bf16 where the tree's kernel takes it) beside
+    ``aten.native_dropout``, and bench_fc's MNIST FC, build_deep and
+    AlexNet at 227 px fused, each through ``train_steps`` (one warm call,
+    timed ones, one profiled) and ``Workflow.run`` (warm, timed,
+    profiled) as mnist_fused, ae_fused and alexnet_fused run them.  It
+    calls only entry points the port has had since AlexNet first trained
+    fused, so a copy of this file runs it in an older checkout too (run
+    parent, change, change, parent in one call)."""
+    import znicz_tpu_torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    out = {"phase": "fused_compare", "package": os.path.dirname(
+        os.path.realpath(znicz_tpu_torch.__file__)), "dropout_64M": {}}
+    for dtype in DROP_DTYPES:
+        x = torch.randn((8192, 8192), generator=gen, device=DEVICE).to(dtype)
+        try:
+            kdrop.dropout_forward(x, DROP_RATIO, seed=SEED)
+        except ValueError:          # a tree whose kernel takes f32 only
+            out["dropout_64M"][str(dtype)] = None
+            continue
+        out["dropout_64M"][str(dtype)] = {
+            "ms": time_cuda_ms(lambda: kdrop.dropout_forward(
+                x, DROP_RATIO, seed=SEED)),
+            "library_ms": time_cuda_ms(
+                lambda: torch.ops.aten.native_dropout(x, DROP_RATIO, True))}
+        del x
+    w = _fused_workflow(max_epochs=MF_EPOCHS, n_train=MF_TRAIN_MB * FC_BATCH,
+                        optimizer_config={"state_dtype": "bfloat16"})
+    xs, ys, ms = _staged_batches(np.random.default_rng(SEED + 10), FUSED_K)
+    out["mnist_fused"] = _compare_path(w, xs, ys, ms, FUSED_REPS, MF_WARM,
+                                       MF_TIMED)
+    w, xs, ms = _ae_fused_setup()
+    out["ae_fused"] = _compare_path(w, xs, xs, ms, AE_FUSED_REPS, AEF_WARM,
+                                    AEF_TIMED)
+    del w, xs, ys, ms
+    w, xs, ys, ms, _ = _alexnet_fused_setup()
+    out["alexnet_fused"] = _compare_path(w, xs, ys, ms, AF_REPS, AF_WARM,
+                                         AF_TIMED)
+    return out
+
+
 #: phases ``--phase`` may run alone (after the build), for iterating on
 #: one kernel family; the smoke proper takes no arguments
 PHASES_ALONE = {"kernel": lambda: phase_kernel(),
@@ -4874,8 +5436,11 @@ PHASES_ALONE = {"kernel": lambda: phase_kernel(),
                 "waves": lambda: phase_waves(),
                 "kohonen": lambda: phase_kohonen(),
                 "lrn_dropout": lambda: phase_lrn_dropout(),
+                "ae_fused": lambda: phase_ae_fused(),
                 "alexnet_fused": lambda: phase_alexnet_fused(),
-                "fused_conv_parity": lambda: phase_fused_conv_parity()}
+                "graph_parity": lambda: phase_graph_parity(),
+                "fused_conv_parity": lambda: phase_fused_conv_parity(),
+                "fused_compare": lambda: phase_fused_compare()}
 
 
 def main() -> int:
@@ -4954,6 +5519,7 @@ def main() -> int:
     emit(lrn_drop)
     alex_fused = phase_alexnet_fused()
     emit(alex_fused)
+    emit(phase_graph_parity())
     emit(phase_fused_conv_parity())
     kernel_hw = phase_kernel_hw()
     emit(kernel_hw)

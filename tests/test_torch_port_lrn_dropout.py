@@ -7,8 +7,11 @@ the JAX package on the CPU.
   library yardstick ``F.local_response_norm`` with alpha·n computes the
   same forward;
 - ``kernels/dropout.py``'s plain version against the Pallas
-  ``dropout_forward`` through ``bits=``: identical y and mask; the
-  ``seed=`` draw (mask values, drop rate, y = x·mask);
+  ``dropout_forward`` through ``bits=``, in f32 and in bf16 (the mask the
+  scale cast to bf16, y the bf16 product rounded once): identical y and
+  mask; the ``seed=`` draw (mask values, drop rate, y = x·mask);
+  ``dropout_plan`` at the smoke's shapes and where n fills no whole
+  16-byte group or x lies off 16 bytes;
 - ``utils/kernel_hw.run_parity("cpu")``: ``ok`` for every ported family,
   the unported ones named so and never ``ok``, and ``FAIL`` for a
   deliberately broken plain version;
@@ -16,8 +19,9 @@ the JAX package on the CPU.
   element path at c % 4 != 0 and off 16 bytes;
 - the ``lrn`` autograd Function: its gradient is the plain backward's,
   it saves x only, and on CPU tensors it counts no launch;
-- refusals, bounds, and a ``cuda``-marked card check (both directions
-  bit-identical on both paths).
+- refusals, bounds, and ``cuda``-marked card checks (both LRN
+  directions bit-identical on both paths; the dropout kernel bit for bit
+  in bf16 and on its element path).
 """
 
 import numpy as np
@@ -190,6 +194,53 @@ def test_dropout_plain_matches_pallas(ratio):
     assert m.dtype == torch.float32
 
 
+@pytest.mark.parametrize("ratio", [0.5, 0.3])
+def test_dropout_bf16_plain_matches_pallas(ratio):
+    """bf16 x: the TPU kernel's mask is the f32 scale cast to bf16 and y
+    the bf16 product; the plain version takes the same rule."""
+    rng = np.random.default_rng(int(ratio * 10) + 7)
+    x = rng.normal(size=(4, 9, 40)).astype(np.float32)
+    bits = rng.integers(0, 2 ** 32, x.shape, dtype=np.uint32)
+    y_j, m_j = j_dropout_forward(jnp.asarray(x, jnp.bfloat16), 0, ratio,
+                                 bits=jnp.asarray(bits), interpret=True)
+    y, m = kdrop.dropout_forward(torch.tensor(x).to(torch.bfloat16), ratio,
+                                 bits=torch.from_numpy(bits))
+    assert y.dtype == m.dtype == torch.bfloat16
+    assert y_j.dtype == m_j.dtype == jnp.bfloat16
+    np.testing.assert_array_equal(y.float().numpy(),
+                                  np.asarray(y_j, np.float32))
+    np.testing.assert_array_equal(m.float().numpy(),
+                                  np.asarray(m_j, np.float32))
+    # the scale 1 / (1 - 0.3) is not a bf16 value: the mask rounds it
+    kept = m.float().numpy()[m.float().numpy() > 0]
+    assert set(kept.tolist()) == {float(torch.tensor(
+        kdrop.scale(ratio)).to(torch.bfloat16))}
+
+
+@pytest.mark.parametrize("n,dtype", [
+    (128 * 9216, torch.float32), (128 * 9216, torch.bfloat16),
+    (8192 * 8192, torch.float32), (8192 * 8192, torch.bfloat16)])
+def test_dropout_plan_at_the_smoke_shapes(n, dtype):
+    """The vector path at AlexNet's fc6 input and at 64 M elements: one
+    16-byte group (4 f32 or 8 bf16 elements) a thread and one block a 256
+    groups."""
+    per = 4 if dtype == torch.float32 else 8
+    groups = n // per
+    assert kdrop.dropout_plan(n, dtype, True) == {
+        "path": "vector", "blocks": -(-groups // 256), "threads": 256}
+
+
+@pytest.mark.parametrize("n,dtype,aligned", [
+    (7007, torch.float32, True), (1004, torch.bfloat16, True),
+    (128 * 9216, torch.float32, False), (3, torch.bfloat16, True)])
+def test_dropout_plan_element_path(n, dtype, aligned):
+    """An n that fills no whole group (n % 4 != 0 in f32, n % 8 != 0 in
+    bf16) or an operand off 16 bytes: one element a thread, one block a
+    256 elements."""
+    assert kdrop.dropout_plan(n, dtype, aligned) == {
+        "path": "element", "threads": 256, "blocks": -(-n // 256)}
+
+
 def test_dropout_seed_draw():
     x = torch.randn(512, 256)
     y, m = kdrop.dropout_forward(x, 0.25, seed=4)
@@ -219,6 +270,8 @@ def test_dropout_refusals_and_bound():
     assert kdrop.threshold(0.0) == 0
     b = kdrop.bound(1 << 26)
     assert b["bytes"] == 12 << 26 and b["bound_by"] == "bytes"
+    assert kdrop.bound(1 << 26, dtype=torch.bfloat16)["bytes"] == 6 << 26
+    assert kdrop.bound(1 << 26, with_bits=True)["bytes"] == 16 << 26
 
 
 # -- the kernel-layer check -------------------------------------------------
@@ -307,3 +360,32 @@ def test_lrn_and_dropout_kernels_match_plain_on_the_card():
     results = kernel_hw.run_parity("cuda")
     assert all(v == "ok" for k, v in results.items()
                if k not in kernel_hw.NOT_PORTED), results
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_kernel_bf16_and_element_path_on_the_card(dtype):
+    """The kernel bit for bit against its plain version on the vector
+    path and on the element path (n % 8 != 0; x one element off 16
+    bytes), from a seed and from bits=."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for shape, offset in (((128, 9216), 0), ((1001, 7), 0),
+                          ((128, 9216), 1)):
+        n = int(np.prod(shape))
+        x = (torch.randn(n + offset, device="cuda") * 2).to(dtype)[
+            offset:].view(shape)
+        words = kdrop.counter_rng.random_bits(5, n, "cuda")
+        want = kdrop.dropout_forward_plain(x, 0.4, words)
+        before = kdrop.launches
+        got = kdrop.dropout_forward(x, 0.4, seed=5)
+        bits = words.to(torch.int64).view(shape).to(torch.uint32) \
+            if hasattr(torch, "uint32") else None
+        torch.cuda.synchronize()
+        assert kdrop.launches == before + 1
+        assert got[0].dtype == got[1].dtype == dtype
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        if bits is not None:
+            gb = kdrop.dropout_forward(x, 0.4, bits=bits.contiguous())
+            assert torch.equal(gb[0], want[0]) and torch.equal(gb[1],
+                                                               want[1])

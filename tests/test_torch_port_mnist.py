@@ -469,7 +469,6 @@ def test_fused_confusion_matrix_survives_midpass_flush():
 
 @pytest.mark.parametrize("option", [
     {"mesh": {"data": 2}}, {"shard_update": True}, {"shard_params": True},
-    {"accumulate_steps": 2}, {"ema_decay": 0.99},
     {"quantized_collectives": {"mode": "int8"}}, {"pipeline_depth": 2},
     {"anatomy": True}])
 def test_unported_options_raise(option):
@@ -478,7 +477,7 @@ def test_unported_options_raise(option):
 
 
 def test_unported_step_options_raise():
-    for option in ({"scan_epoch": True}, {"donate": False}):
+    for option in ({"donate": False},):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_step.FusedTrainStep(**option)
     # a unit mesh and quantized collectives switched off build

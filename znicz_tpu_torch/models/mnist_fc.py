@@ -13,10 +13,11 @@ Two execution shapes over the same units:
 
 Datasets: seeded synthetic MNIST-shaped blobs; weights come from the
 ``prng`` streams (or from ``units/nn_units.py load_forward_params``).
-``build_fused`` has the reference's signature minus the options the
-port's step does not take yet (mesh sharding, ZeRO, accumulation, EMA,
-quantized collectives, anatomy, the input pipeline): those raise
-``NotImplementedError`` when passed as not-default.
+``build_fused`` has the reference's signature; the options the port's
+step does not take yet (mesh sharding, ZeRO, quantized collectives,
+anatomy, the input pipeline) raise ``NotImplementedError`` when passed
+as not-default.  Gradient accumulation and EMA run as the reference's
+do; on the card every step is a CUDA graph replay.
 """
 
 from __future__ import annotations

@@ -71,9 +71,24 @@ def _border_pad(h, w, ky, kx, sy, sx):
     return max((oh - 1) * sy + ky - h, 0), max((ow - 1) * sx + kx - w, 0)
 
 
-def _as(xp, a, like):
-    """A numpy constant as ``xp``'s array (on ``like``'s device)."""
-    return a if xp is np else torch.as_tensor(a, device=like.device)
+#: device copies of the numpy constants the torch forms use (window
+#: validity, counts, tap offsets), made once per value, dtype and device:
+#: a step body captured into a CUDA graph may not copy from the host
+_DEVICE_CONSTANTS: dict = {}
+
+
+def _as(xp, a, like, dtype=None):
+    """A numpy constant as ``xp``'s array (on ``like``'s device, read
+    only: torch callers share one cached copy)."""
+    if xp is np:
+        return a
+    a = np.ascontiguousarray(a)
+    key = (a.dtype.str, a.shape, a.tobytes(), str(like.device), dtype)
+    t = _DEVICE_CONSTANTS.get(key)
+    if t is None:
+        t = _DEVICE_CONSTANTS[key] = torch.as_tensor(a, dtype=dtype,
+                                                     device=like.device)
+    return t
 
 
 def patches(xp, x, ky, kx, sy, sx, pad_value=0.0):
@@ -417,8 +432,8 @@ class _AvgPool(torch.autograd.Function):
         s = taps[0].clone(memory_format=torch.contiguous_format)
         for t in taps[1:]:
             s += t
-        count = torch.as_tensor(window_counts(h, w, ky, kx, sy, sx)[1][None],
-                                dtype=x.dtype, device=x.device)
+        count = _as(torch, window_counts(h, w, ky, kx, sy, sx)[1][None], x,
+                    x.dtype)
         ctx.save_for_backward(count)
         ctx.geometry = (x.shape, ky, kx, sy, sx)
         return s / count

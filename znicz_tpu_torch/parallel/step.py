@@ -40,18 +40,39 @@ different bits from one seed.
 A full-batch dataset is pinned on the device at initialize, so the hot
 loop ships only the minibatch's indices.  Metric sums stay on the device
 and reach the host once per class pass (``defer_metrics``).
-``train_steps`` runs K minibatches in one call (a Python loop over the
-same step for now; CUDA graphs are later work).
+
+On ``cuda`` every step body (train, eval, and the accumulation
+half-step) runs as a replay of a ``torch.cuda.CUDAGraph``, one graph a
+(body, input shapes): the counterpart of the reference's one jitted
+dispatch a minibatch.  The first call of each runs the body eagerly (it
+is a real step, and it builds every kernel and workspace on the capture
+stream); the second captures the body and replays the capture at once;
+every later call copies its inputs into the graph's buffers and replays.
+A body that cannot be captured raises with the reason; nothing falls
+back to eager launches.  The hyperparameters live in one persistent
+device buffer written in place, the step's generator is registered with
+every graph (a replay advances its Philox offset as an eager step
+would), and each kernel counter's launches at capture are added back on
+every replay.  ``train_steps`` runs K minibatches in one call: K replays
+of the same graph (the reference scans them in one program).  The CPU
+runs the same bodies eagerly.
+
+``accumulate_steps > 1`` sums the gradients of a half-step (graphed on
+the card) on the device and applies the update (eagerly) every N train
+minibatches and at the train pass's last; ``ema_decay`` keeps f32
+mirrors ``ew``/``eb`` updated after every update inside the step body;
+``scan_epoch`` uploads the class pass's plan once at its first
+minibatch and replays the step once a plan row.
 
 Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md queue
 A): a mesh over more than one device, ``shard_update``,
 ``shard_params``, ``quantized_collectives``, ``anatomy``,
-``accumulate_steps > 1``, ``ema_decay``, ``scan_epoch`` and the input
-pipeline's ``make_stager``.
+``donate=False`` and the input pipeline's ``make_stager``.
 """
 
 from __future__ import annotations
 
+import sys
 from typing import Optional
 
 import numpy as np
@@ -90,6 +111,79 @@ def _not_ported(what: str):
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP.md queue A, the fused step's "
         f"leftovers); the port's fused step runs on one device")
+
+
+def _kernel_counters() -> list:
+    """``(module, name)`` of every launch counter of the loaded kernel
+    wrappers (``kernels/*.py``: the ints whose names end in
+    ``launches``)."""
+    return [(mod, attr) for name, mod in list(sys.modules.items())
+            if name.startswith("znicz_tpu_torch.kernels.") and mod is not None
+            for attr, v in vars(mod).items()
+            if attr.endswith("launches") and type(v) is int]
+
+
+def _capture_reason(exc: BaseException) -> str:
+    """The error that stopped a capture and the one it set off, if any
+    (a failed capture also fails its ``capture_end``)."""
+    first = exc.__context__
+    return str(exc) if first is None else f"{first} (then: {exc})"
+
+
+class _StepGraph:
+    """One step body captured into a CUDA graph: the buffers it reads its
+    inputs from, the tensors it writes its outputs to (overwritten by
+    every replay), each kernel counter's launches a replay, and the
+    replays so far."""
+
+    def __init__(self, what: str, body, inputs, device, stream,
+                 generator) -> None:
+        # static input buffers, allocated outside the graph's pool
+        self.inputs = [torch.empty(t.shape, dtype=t.dtype, device=device)
+                       for t in inputs]
+        self.graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            # replays advance the generator's offset as eager draws would
+            self.graph.register_generator_state(generator)
+        counters = _kernel_counters()
+        before = [getattr(mod, attr) for mod, attr in counters]
+        try:
+            with torch.cuda.graph(self.graph, stream=stream):
+                self.outputs = body(*self.inputs)
+        except Exception as exc:
+            raise RuntimeError(
+                f"the fused step's {what} body cannot be captured into a "
+                f"CUDA graph: {_capture_reason(exc)}") from exc
+        finally:
+            # the capture recorded the wrappers' launches, it ran none
+            after = [getattr(mod, attr) for mod, attr in counters]
+            for (mod, attr), n in zip(counters, before):
+                setattr(mod, attr, n)
+        self.launches = [(mod, attr, a - b) for (mod, attr), a, b
+                         in zip(counters, after, before) if a != b]
+        self.replays = 0
+
+    def __call__(self, *inputs):
+        for buf, t in zip(self.inputs, inputs):
+            if t.device.type == "cpu":
+                # through pinned memory (PyTorch's caching host allocator
+                # keeps the block until the copy is done), so the host
+                # need not wait for the queued replays to reach the copy
+                t = t.pin_memory()
+            buf.copy_(t, non_blocking=True)
+        self.graph.replay()
+        self.replays += 1
+        for mod, attr, n in self.launches:
+            setattr(mod, attr, getattr(mod, attr) + n)
+        return self.outputs
+
+
+def _fold(acc: Optional[dict], metrics: dict) -> dict:
+    """``acc + metrics`` key by key in new tensors (``metrics`` may be a
+    graph's outputs, which its next replay overwrites)."""
+    if acc is None:
+        return {k: v.clone() for k, v in metrics.items()}
+    return {k: acc[k] + v for k, v in metrics.items()}
 
 
 class FusedTrainStep(Unit):
@@ -143,10 +237,6 @@ class FusedTrainStep(Unit):
         refused = {"donate=False": not donate,
                    "shard_update": shard_update,
                    "shard_params": shard_params,
-                   "accumulate_steps > 1": accumulate_steps > 1,
-                   "ema_decay": ema_decay is not None,
-                   "scan_epoch": scan_epoch if scan_epoch is not None
-                   else root.common.engine.get("scan_epoch", False),
                    "anatomy": anatomy if anatomy is not None
                    else root.common.engine.get("step_anatomy", False)}
         qc = quantized_collectives if quantized_collectives is not None \
@@ -158,6 +248,14 @@ class FusedTrainStep(Unit):
                 raise _not_ported(what)
         #: global-norm gradient clipping of the batch-mean gradient
         self.clip_norm = clip_norm
+        #: apply the summed gradients every N train minibatches (and at
+        #: the train pass's last)
+        self.accumulate_steps = int(accumulate_steps)
+        #: Polyak averaging: ``e = d·e + (1-d)·w`` after every update
+        self.ema_decay = ema_decay
+        #: a whole class pass from its first minibatch (None: resolved
+        #: from root.common.engine.scan_epoch when the data set is pinned)
+        self.scan_epoch = scan_epoch
         self.forwards = list(forwards or [])
         self.evaluator = evaluator
         #: gradient units in FORWARD order (gds[i] pairs forwards[i]);
@@ -175,8 +273,18 @@ class FusedTrainStep(Unit):
         self._adam_consts = None  # (b1, b2, eps) device scalars
         self._gen = None          # the train steps' torch.Generator
         self._dataset_dev = None  # device-pinned (data, labels) full batch
-        self._hyper_cache = None  # (signature, per-layer device scalars)
+        self._hyper_sig = None    # the hyperparameters in the buffer
+        self._hyper_buf = None    # (layers, HYPER_KEYS) f32 on the device
+        self._hyper_views = None  # per-layer dicts of 0-d views into it
+        self._graphs = None       # (body, input shapes) -> _StepGraph
+        self._stream = None       # the capture stream (cuda only)
+        self._cw = None           # the class weights on the device
+        self._protos = None       # the class targets on the device
         self._acc = None          # device-side metric sums (deferred mode)
+        self._grad_acc = None     # summed grads awaiting their update
+        self._bs_acc = None       # their summed sample count
+        self._acc_count = 0       # half-steps since the last update
+        self._scan_in_flight = False  # the class pass ran from its plan
         self._conf_seen = None    # confusion sums already folded this pass
         self._nt_valid = None     # nearest-target recovery proven valid?
         # metrics the Decision links to (mirrors the evaluator's attrs)
@@ -213,8 +321,22 @@ class FusedTrainStep(Unit):
                     leaf["s" + k] = torch.zeros_like(leaf[k])
             if self.optimizer == "adam":
                 leaf["t"] = torch.zeros((), device=self._dev)
+            if self.ema_decay is not None:
+                # f32 mirrors, seeded with the weights
+                for k in ("w", "b"):
+                    if k in leaf:
+                        leaf["e" + k] = leaf[k].clone()
             params.append(leaf)
         return params
+
+    def ema_params(self) -> list:
+        """Host copies of the averaged weights: a ``{"w": ..., "b": ...}``
+        dict a layer, in unit order."""
+        if self.ema_decay is None:
+            raise RuntimeError("ema_decay is not enabled on this step")
+        return [{k[1]: leaf[k].detach().cpu().numpy().copy()
+                 for k in ("ew", "eb") if k in leaf}
+                for leaf in self._params]
 
     def hyper_params(self) -> list:
         """Per-layer hyperparams as host floats, read from the gd units."""
@@ -228,16 +350,24 @@ class FusedTrainStep(Unit):
         ]
 
     def _hyper_device(self) -> list:
-        """Per-layer dicts of 0-d device scalars (views into one f32
-        buffer), re-uploaded only when an LR schedule changed a value."""
+        """Per-layer dicts of 0-d device scalars, views into one f32
+        buffer that lives as long as the step: an LR schedule's new
+        values are written into it in place, so the kernels (and the
+        graphs that captured their pointers) read them at the next
+        step."""
         sig = tuple(tuple(h[k] for k in self.HYPER_KEYS)
                     for h in self.hyper_params())
-        if self._hyper_cache is None or self._hyper_cache[0] != sig:
-            buf = torch.tensor(sig, dtype=torch.float32, device=self._dev)
-            views = [{k: buf[i, j] for j, k in enumerate(self.HYPER_KEYS)}
-                     for i in range(len(sig))]
-            self._hyper_cache = (sig, views)
-        return self._hyper_cache[1]
+        if self._hyper_buf is None:
+            self._hyper_buf = torch.tensor(sig, dtype=torch.float32,
+                                           device=self._dev)
+            self._hyper_views = [
+                {k: self._hyper_buf[i, j]
+                 for j, k in enumerate(self.HYPER_KEYS)}
+                for i in range(len(sig))]
+        elif sig != self._hyper_sig:
+            self._hyper_buf.copy_(torch.tensor(sig, dtype=torch.float32))
+        self._hyper_sig = sig
+        return self._hyper_views
 
     def sync_to_units(self) -> None:
         """Write copies of the device params back into the unit Arrays
@@ -308,9 +438,7 @@ class FusedTrainStep(Unit):
             # per-class weights: each sample's CE term scaled by its TRUE
             # class's weight, so autograd yields err rows scaled exactly
             # like the eager evaluator's
-            cw = getattr(self.evaluator, "class_weights", None)
-            wrow = fmask if cw is None else \
-                fmask * torch.as_tensor(cw, device=out.device)[labels]
+            wrow = fmask if self._cw is None else fmask * self._cw[labels]
             loss = -(picked * wrow).sum()
             pred = out.detach().argmax(dim=1)
             metrics = {"loss": loss, "n_err": ((pred != labels) & mask).sum()}
@@ -331,9 +459,11 @@ class FusedTrainStep(Unit):
             metrics = {"loss": loss,
                        "mse_sum": (diff * diff).mean(dim=1).sum()}
             if self._nt_recovery_valid():
-                protos = torch.as_tensor(
-                    self.evaluator.class_targets.map_read(),
-                    device=out.device).to(out.dtype)
+                if self._protos is None:      # uploaded once
+                    self._protos = torch.as_tensor(
+                        self.evaluator.class_targets.map_read(),
+                        device=out.device)
+                protos = self._protos.to(out.dtype)
                 nearest = EvaluatorMSE.nearest_prototype
                 pred = nearest(torch, out.detach(), protos)
                 lab = nearest(torch, target, protos)
@@ -342,9 +472,10 @@ class FusedTrainStep(Unit):
         raise TypeError(f"unsupported evaluator {type(self.evaluator)}")
 
     # -- the step bodies -----------------------------------------------------
-    def _train_step(self, x, labels, mask) -> dict:
-        """One minibatch: forward, autograd backward, in-place update.
-        Returns the metric sums (device tensors)."""
+    def _grads_and_metrics(self, x, labels, mask):
+        """Forward and autograd backward of one minibatch -> ``(grads,
+        metrics)``: the summed gradients a layer and the metric sums
+        (device tensors), ``bs`` the mask's sum."""
         params = self._params
         leaves = [leaf[k] for leaf in params for k in ("w", "b")
                   if k in leaf]
@@ -363,9 +494,21 @@ class FusedTrainStep(Unit):
                  for leaf in params]
         metrics["loss"] = loss.detach()
         metrics["bs"] = mask.sum()
-        self._apply_update(params, grads, self._hyper_device(),
+        return grads, metrics
+
+    def _train_step(self, x, labels, mask) -> dict:
+        """One minibatch: forward, autograd backward, in-place update.
+        Returns the metric sums (device tensors)."""
+        grads, metrics = self._grads_and_metrics(x, labels, mask)
+        self._apply_update(self._params, grads, self._hyper_device(),
                            metrics["bs"].to(torch.float32))
         return metrics
+
+    def _grads_step(self, x, labels, mask) -> dict:
+        """The accumulation half-step: the summed gradients and the
+        metric sums, no update."""
+        grads, metrics = self._grads_and_metrics(x, labels, mask)
+        return {"grads": grads, "metrics": metrics}
 
     def _eval_step(self, x, labels, mask) -> dict:
         with torch.no_grad():
@@ -375,6 +518,55 @@ class FusedTrainStep(Unit):
                                                 mask)
         metrics["bs"] = mask.sum()
         return metrics
+
+    def _batch(self, raw, x=None, labels=None) -> tuple:
+        """``(x, labels, mask)`` of a minibatch from its raw indices (-1
+        = padding): gathered from the pinned data set, or the ``x`` and
+        ``labels`` the loader served."""
+        mask = raw >= 0
+        if x is None:
+            idx = torch.clamp(raw, min=0)
+            data, labels_all = self._dataset_dev
+            x, labels = data[idx], labels_all[idx]
+        return x, labels, mask
+
+    def _train_batch(self, *inputs) -> dict:
+        return self._train_step(*self._batch(*inputs))
+
+    def _eval_batch(self, *inputs) -> dict:
+        return self._eval_step(*self._batch(*inputs))
+
+    def _grads_batch(self, *inputs) -> dict:
+        return self._grads_step(*self._batch(*inputs))
+
+    def _dispatch(self, kind: str, body, *inputs):
+        """``body(*inputs)`` on the step's device.  On the CPU the body
+        runs eagerly.  On the card the first call of each ``(kind, input
+        shapes)`` runs it eagerly on the capture stream (a real step that
+        builds every kernel and workspace), the second captures it into
+        a CUDA graph and replays the capture at once, and every later
+        call copies ``inputs`` (host or device tensors) into the graph's
+        buffers and replays it."""
+        self._hyper_device()      # an LR change lands in the buffer first
+        if self._graphs is None:
+            return body(*(t.to(self._dev) for t in inputs))
+        key = (kind,) + tuple((tuple(t.shape), t.dtype) for t in inputs)
+        if key not in self._graphs:
+            self._graphs[key] = None
+            main = torch.cuda.current_stream(self._dev)
+            self._stream.wait_stream(main)
+            with torch.cuda.stream(self._stream):
+                out = body(*(t.to(self._dev) for t in inputs))
+            main.wait_stream(self._stream)
+            return out
+        graph = self._graphs[key]
+        if graph is None:
+            needs_rng = kind != "eval" and any(
+                getattr(f, "NEEDS_RNG", False) for f in self.forwards)
+            graph = self._graphs[key] = _StepGraph(
+                kind, body, inputs, self._dev, self._stream,
+                self._gen if needs_rng else None)
+        return graph(*inputs)
 
     def _apply_update(self, params, grads, hyper, bs) -> None:
         """One optimizer step, in place, for summed gradients ``grads``
@@ -402,14 +594,23 @@ class FusedTrainStep(Unit):
                                              ("b", "lr_b", "wd_b"))
                            if k in leaf]
             koptim.adam_update_multi_(leaves, b1, b2, eps, bs)
-            return
-        for leaf, grad, h in zip(params, grads, hyper):
-            for k, lr, wd, mom in (("w", "lr", "wd", "mom"),
-                                   ("b", "lr_b", "wd_b", "mom_b")):
-                if k in leaf:
-                    koptim.sgd_update_(leaf[k], grad[k].contiguous(),
-                                       leaf["v" + k], h[lr], h[wd],
-                                       h["l1"], h[mom], bs)
+        else:
+            for leaf, grad, h in zip(params, grads, hyper):
+                for k, lr, wd, mom in (("w", "lr", "wd", "mom"),
+                                       ("b", "lr_b", "wd_b", "mom_b")):
+                    if k in leaf:
+                        koptim.sgd_update_(leaf[k], grad[k].contiguous(),
+                                           leaf["v" + k], h[lr], h[wd],
+                                           h["l1"], h[mom], bs)
+        if self.ema_decay is not None:
+            # the reference's order: d * e + (1 - d) * w, each product
+            # rounded to f32, with d and 1 - d as f32 constants
+            d = np.float32(self.ema_decay)
+            rest = float(np.float32(1.0) - d)
+            for leaf in params:
+                for k in ("w", "b"):
+                    if k in leaf:
+                        leaf["e" + k].mul_(float(d)).add_(leaf[k] * rest)
 
     # -- lifecycle ----------------------------------------------------------
     def initialize(self, device=None, **kwargs) -> None:
@@ -443,6 +644,13 @@ class FusedTrainStep(Unit):
             self._adam_consts = tuple(
                 torch.tensor(float(cfg[k]), device=self._dev)
                 for k in ("beta1", "beta2", "eps"))
+        cw = getattr(self.evaluator, "class_weights", None)
+        self._cw = None if cw is None else torch.as_tensor(cw,
+                                                           device=self._dev)
+        self._hyper_device()
+        if self._dev.type == "cuda":
+            self._graphs = {}
+            self._stream = torch.cuda.Stream(self._dev)
         self._pin_dataset()
         self.initialized = True
 
@@ -466,17 +674,30 @@ class FusedTrainStep(Unit):
                              torch.tensor(labels, device=self._dev))
         # the loader now serves indices only
         self.loader.serve_indices_only = True
+        if self.scan_epoch is None:
+            self.scan_epoch = bool(root.common.engine.get("scan_epoch",
+                                                          False))
+        if self.scan_epoch and self.accumulate_steps > 1:
+            raise ValueError("accumulate_steps > 1 is a per-minibatch "
+                             "mode; disable scan_epoch to use it")
+        if self.scan_epoch:
+            # the plan of each class pass, captured at its first serve
+            self.loader.capture_class_plan = True
 
     def train_steps(self, xs, ys, masks) -> dict:
         """Run ``xs.shape[0]`` training minibatches in one call and
         return the summed metric dict (device tensors).  ``xs``/``ys``/
-        ``masks`` carry a leading step axis; a Python loop over the same
-        step for now (the reference scans them in one program)."""
+        ``masks`` carry a leading step axis; on the card each minibatch
+        is one replay of the step's graph (the reference scans them in
+        one program)."""
+        if self.accumulate_steps > 1:
+            raise ValueError("train_steps applies the optimizer per "
+                             "minibatch; accumulate_steps > 1 requires "
+                             "the per-minibatch run() path")
         total = None
         for k in range(int(xs.shape[0])):
-            m = self._train_step(xs[k], ys[k], masks[k])
-            total = m if total is None else \
-                {key: total[key] + m[key] for key in total}
+            total = _fold(total, self._dispatch(
+                "steps", self._train_step, xs[k], ys[k], masks[k]))
         return total
 
     def make_stager(self):
@@ -485,47 +706,114 @@ class FusedTrainStep(Unit):
     # -- per-minibatch control callback -------------------------------------
     def run(self) -> None:
         loader = self.loader
+        if self.scan_epoch and self._dataset_dev is not None and \
+                (int(loader.minibatch_offset) == 0 or
+                 self._scan_in_flight):
+            self._run_scanned_class(loader)
+            return
+        # (a class pass entered mid-way falls through to the
+        # per-minibatch path for the rest of it)
         # one upload a step: the raw indices (-1 = padding); the mask and
         # the clamped gather indices are made on the device
-        raw = torch.tensor(loader.minibatch_indices.mem, device=self._dev)
-        mask = raw >= 0
-        if self._dataset_dev is not None:
-            idx = torch.clamp(raw, min=0)
-            data, labels_all = self._dataset_dev
-            x, labels = data[idx], labels_all[idx]
-        else:
-            x = self._put(loader.minibatch_data.mem)
+        inputs = (torch.from_numpy(np.asarray(loader.minibatch_indices.mem)),)
+        if self._dataset_dev is None:
             lab = loader.minibatch_targets if isinstance(
                 self.evaluator, EvaluatorMSE) else loader.minibatch_labels
-            labels = torch.tensor(lab.mem, device=self._dev)
+            inputs += (torch.as_tensor(np.asarray(loader.minibatch_data.mem),
+                                       dtype=torch.float32),
+                       torch.from_numpy(np.asarray(lab.mem)))
         if int(loader.minibatch_class) != TRAIN:
-            metrics = self._eval_step(x, labels, mask)
+            metrics = self._dispatch("eval", self._eval_batch, *inputs)
+        elif self.accumulate_steps > 1:
+            metrics = self._accumulate(
+                self._dispatch("grads", self._grads_batch, *inputs), loader)
         else:
-            metrics = self._train_step(x, labels, mask)
+            metrics = self._dispatch("train", self._train_batch, *inputs)
         self._finish_run(loader, metrics)
+
+    def _accumulate(self, half: dict, loader) -> dict:
+        """Fold a half-step's summed gradients into the device
+        accumulator; apply the update every ``accumulate_steps`` train
+        minibatches and at the END of a train pass (a ragged tail must
+        not leak into the next epoch's first update).  Returns the
+        half-step's metrics."""
+        grads, metrics = half["grads"], half["metrics"]
+        if self._grad_acc is None:
+            self._grad_acc = [{k: g.clone() for k, g in leaf.items()}
+                              for leaf in grads]
+            self._bs_acc = metrics["bs"].clone()
+        else:
+            for acc, leaf in zip(self._grad_acc, grads):
+                for k, g in leaf.items():
+                    acc[k].add_(g)
+            self._bs_acc += metrics["bs"]
+        self._acc_count += 1
+        if self._acc_count >= self.accumulate_steps or loader.last_minibatch:
+            self._apply_update(self._params, self._grad_acc,
+                               self._hyper_device(),
+                               self._bs_acc.to(torch.float32))
+            self._grad_acc = None
+            self._bs_acc = None
+            self._acc_count = 0
+        return metrics
+
+    def _run_scanned_class(self, loader) -> None:
+        """Epoch-scan mode: the first minibatch of a class pass uploads
+        the pass's plan once and runs the step once a plan row (one
+        replay each on the card), summing the metrics on the device; the
+        control loop keeps iterating and the sums land at the pass's last
+        minibatch, the "virtual minibatch" the Decision sees in deferred
+        mode."""
+        if int(loader.minibatch_offset) == 0:
+            plan = torch.from_numpy(loader.class_plan())
+            if self._dev.type == "cuda":      # one upload, not waited for
+                plan = plan.pin_memory()
+            plan = plan.to(self._dev, non_blocking=True)
+            kind, body = ("train", self._train_batch) \
+                if int(loader.minibatch_class) == TRAIN \
+                else ("eval", self._eval_batch)
+            acc = None
+            for row in plan:
+                acc = _fold(acc, self._dispatch(kind, body, row))
+            self._acc = acc
+            self._scan_in_flight = True
+        if loader.last_minibatch:
+            self._publish(_to_host(self._acc), cumulative=True)
+            self._acc = None
+            self._conf_seen = None
+            self._scan_in_flight = False
+        else:
+            self._zero_published()
 
     def _finish_run(self, loader, metrics) -> None:
         # chaos hook (site "step.params"): NaN-poisons the params — the
-        # observable effect of NaN gradients
-        self._params = poison_hook("step.params", self._params)
+        # observable effect of NaN gradients — in place, since the
+        # captured graphs read these tensors
+        poisoned = poison_hook("step.params", self._params)
+        if poisoned is not self._params:
+            for leaf, bad in zip(self._params, poisoned):
+                for k, v in leaf.items():
+                    v.copy_(bad[k])
         if not self.defer_metrics:
             self._publish(_to_host(metrics))
             return
         # deferred mode: fold into the device-side sums (no host sync) and
         # fetch only at the end of the class pass
-        self._acc = metrics if self._acc is None else \
-            {k: self._acc[k] + v for k, v in metrics.items()}
+        self._acc = _fold(self._acc, metrics)
         if loader.last_minibatch:
             self._publish(_to_host(self._acc), cumulative=True)
             self._acc = None
             self._conf_seen = None
         else:
-            # non-final minibatches contribute zero to the Decision's
-            # accumulators; the class-pass totals land in one shot above
-            self.n_err = 0
-            self.mse = 0.0
-            self.loss = 0.0
-            self.minibatch_size = 0
+            self._zero_published()
+
+    def _zero_published(self) -> None:
+        """Non-final minibatches contribute zero to the Decision's
+        accumulators; the class-pass totals land in one shot."""
+        self.n_err = 0
+        self.mse = 0.0
+        self.loss = 0.0
+        self.minibatch_size = 0
 
     def _publish(self, sums, cumulative: bool = False) -> None:
         """Write (host) metric sums into the attrs the Decision reads.
