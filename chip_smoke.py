@@ -36,7 +36,9 @@ exits non-zero without the final ``ok`` line):
    card's occupancy) held against kernels/gemm.py gemm_plan; the twelve
    products timed at full width, each with its tile and slices, and the
    headline in all four operand layouts; registers and resident blocks
-   of every instantiation.
+   of every instantiation; ``act_backward`` at AlexNet's strict-ReLU
+   shapes (fc7 and fc6 at batch 128) beside
+   ``aten.threshold_backward``, the one PyTorch call that computes it.
 1d. **optim** — the SGD (f32 and bf16 velocity) and AdamW update kernels
    against their plain versions on bench_fc's six leaves, each band
    rejecting a control with bs = 1; one six-leaf step timed against the
@@ -193,6 +195,19 @@ exits non-zero without the final ``ok`` line):
    and CIFAR conv fused at their own widths (batch 100) for an epoch
    each; the fused max-pool backward at AlexNet's pool1 bit-identical
    across two runs (f32 and bf16) and equal to the CPU's in f32.
+17d. **input_pipeline** — the input layer: host-fed AlexNet
+   (``alexnet.layers()`` through ``StandardWorkflow(fused=True)``, 227
+   px, batch 128, ``dataset_on_device_max_bytes`` 0: 79.1 MB a minibatch
+   from the host) synchronously and at pipeline depth 2, index-fed
+   MNIST FC at bench_fc's widths and CIFAR conv on its own pickle files,
+   each sync against depth 2 (ms a minibatch, the profiled epoch's busy
+   ms and idle share, the stall table, the HtoD copies by stream), and
+   ``native.gather_rows`` against numpy at AlexNet's minibatch; gates:
+   histories and weights bit-identical to the sync runs, depth + 2
+   pinned ring slots serving every batch, the staged copies on a stream
+   the step does not run on, the same graphs and replays (no capture in
+   the steady state), the worker dead after run and stop, the gather
+   bit-identical.
 18. **kernel_hw** — ``utils/kernel_hw.run_parity("cuda")``, all fourteen
    families of the reference ``ok``; the LRN, dropout and bf16 conv
    forward counters set to 0 just before and read just after (the only
@@ -201,7 +216,8 @@ exits non-zero without the final ``ok`` line):
 ``python3 chip_smoke.py --phase NAME ...`` runs only the named phases
 (kernel, flash, gemm, optim, mnist_fused, stochastic_pool,
 pool_backward, conv, alexnet_eager, deconv, kohonen, lrn_dropout,
-ae_fused, alexnet_fused, graph_parity, fused_conv_parity, or two that
+ae_fused, alexnet_fused, graph_parity, fused_conv_parity,
+input_pipeline, or two that
 only measure and run on older trees of the port too: **waves**, the
 weight gradient at AlexNet's and build_deep's shapes with split_k's
 slices, one fewer and one more, through the C entry; **fused_compare**,
@@ -587,14 +603,17 @@ def timed_train_steps(step, xs, ys, ms, reps: int, sums=()) -> dict:
             "profile": device_profile(prof, wall_ms, k, sums=sums)}
 
 
-def workflow_run_profiled(w, warm: int, timed: int) -> dict:
+def workflow_run_profiled(w, warm: int, timed: int,
+                          streams: bool = False) -> dict:
     """One ``w.run()`` (Repeater -> Loader -> FusedStep -> Decision),
     each minibatch's class recorded as the step runs it: after ``warm``
     minibatches (the first eager step and the capture of each graph come
     before), a sync and ``timed`` minibatches on the host clock alone
     (their ms a minibatch and the step's own host µs a minibatch), then
     a sync and torch.profiler from there to the run's end (the device's
-    busy time and idle share; the tracer stretches the host's side)."""
+    busy time and idle share; the tracer stretches the host's side), and
+    with ``streams`` the window's device activities by stream
+    (:func:`stream_table`)."""
     from torch.profiler import ProfilerActivity, profile
 
     step = w.step
@@ -633,7 +652,8 @@ def workflow_run_profiled(w, warm: int, timed: int) -> dict:
             "ms_per_minibatch": (marks[1] - marks[0]) * 1e3 / timed,
             "step_host_us": float(np.median(host_s)) * 1e6,
             "profiled_minibatches": n,
-            "profile": device_profile(prof, wall_ms, n)}
+            "profile": device_profile(prof, wall_ms, n),
+            **({"streams": stream_table(prof)} if streams else {})}
 
 
 def replays_of(step) -> dict:
@@ -1394,9 +1414,32 @@ def phase_gemm() -> dict:
                      lambda: kgemm.act_backward_plain(y, err, tanh)),
                  "library_ms": None,
                  "library_note": "no single PyTorch call computes "
-                                 "err * act'(y) from y",
+                                 "err * act'(y) from y at tanh",
                  "max_abs_err": max(c["max_abs_err"] for c in act_checks),
                  **kgemm.act_backward_bound(y, tanh)}
+    # AlexNet eager's launches: fc7's and fc6's strict-ReLU backward at
+    # batch 128, where one PyTorch call computes the same function,
+    # aten.threshold_backward(err, y, 0) (err where y > 0, else 0)
+    relu = activations.STRICT_RELU
+    rows = []
+    for name, _, n_out in reversed(ALEX_FC):
+        report, (y, err) = _act_check(rng, ALEX_BATCH, n_out, relu)
+        act_checks.append(report)
+        lib_out = torch.ops.aten.threshold_backward(err, y, 0.0)
+        rows.append({
+            "layer": name, "m": ALEX_BATCH, "n": n_out,
+            "ms": time_cuda_ms(lambda: kgemm.act_backward(y, err, relu)),
+            "plain_ms": time_cuda_ms(
+                lambda: kgemm.act_backward_plain(y, err, relu)),
+            "library_ms": time_cuda_ms(
+                lambda: torch.ops.aten.threshold_backward(err, y, 0.0)),
+            "library_max_abs_err": float(
+                (lib_out - kgemm.act_backward(y, err, relu)).abs().max()),
+            **kgemm.act_backward_bound(y, relu)})
+    act_alexnet = {**_summed(rows, max(c["max_abs_err"]
+                                       for c in act_checks)),
+                   "activation": relu, "layers": rows,
+                   "library": "aten.threshold_backward(err, y, 0)"}
     usage = ptxas_usage("gemm")
     if plans is not None:
         by = plans["blocks_per_sm_by_layout"]
@@ -1410,7 +1453,7 @@ def phase_gemm() -> dict:
             "gemm_timed": timed, "gemm_layouts": layouts, "gemm": {
                 **timed[1], "max_abs_err": max(c["max_abs_err"]
                                                for c in checks)},
-            "act_backward": act_timed}
+            "act_backward": act_timed, "act_backward_alexnet": act_alexnet}
 
 
 def _optim_state(rng, shapes, vel_dtype=None):
@@ -5241,8 +5284,14 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
               cuda_kernels=["gemm_f32_kernel<BM,BN,A_KC,B_KC>",
                             "gemm_reduce_kernel<VEC>"]),
         entry("act_backward", kgemm.SOURCE, kgemm.REPLACES_ACT,
-              eager["act_backward_launches"], gemm["act_backward"],
-              gemm["act_backward"]["max_abs_err"]),
+              alexnet["launches"]["act_backward"],
+              gemm["act_backward_alexnet"],
+              gemm["act_backward_alexnet"]["max_abs_err"],
+              path="alexnet_eager",
+              bench_fc_tanh={"launches": eager["act_backward_launches"],
+                             **{k: gemm["act_backward"][k] for k in (
+                                 "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")}}),
         entry("sgd_update", koptim.SOURCE, koptim.REPLACES,
               fused["sgd_update_launches"], sgd,
               max(optim[k]["sound"]["max_abs_err"]
@@ -5421,6 +5470,349 @@ def phase_fused_compare() -> dict:
     return out
 
 
+#: input_pipeline: host-fed AlexNet — models/alexnet.py layers() through
+#: StandardWorkflow(fused=True) at 227 px, batch 128, 1000 classes, bf16
+#: over f32 masters, on the synthetic_image loader with 1024 train and
+#: 256 validation samples asked (the loader serves 20 and 5 a class of
+#: its 50: 1000 and 250, 8 and 2 minibatches an epoch) for IP_EPOCHS
+#: epochs, with dataset_on_device_max_bytes 0, so every minibatch ships
+#: its 79.1 MB from the host; once synchronously, once at IP_DEPTH.  The
+#: first IP_WARM minibatches (each body's eager step and its capture)
+#: are warm, the next IP_TIMED (the first epoch's other train
+#: minibatches) timed on the host clock, the second epoch profiled
+IP_TRAIN, IP_VALID, IP_EPOCHS, IP_DEPTH = 1024, 256, 2, 2
+IP_WARM, IP_TIMED = 4, 6
+#: index-fed MNIST FC: bench_fc's widths (784-4096-4096-10, batch 1024),
+#: 32 train and 2 validation minibatches an epoch, the data set pinned
+IP_FC_TRAIN, IP_FC_VALID, IP_FC_EPOCHS = 32 * 1024, 2 * 1024, 2
+IP_FC_WARM, IP_FC_TIMED = 4, 24
+#: the native gather timed against numpy fancy indexing, median of this
+#: many calls each
+IP_GATHER_REPS = 10
+#: CIFAR conv on its own (synthesized) pickle files, fused, one epoch of
+#: 500 train and 100 validation samples, batch 100: the validation
+#: minibatch, the train body's eager step and its capture warm, two
+#: replays timed, the last profiled
+IP_CIFAR_TRAIN, IP_CIFAR_VALID = 500, 100
+IP_CIFAR_WARM, IP_CIFAR_TIMED = 3, 2
+
+
+def stream_table(prof) -> dict:
+    """The device activities of a profiled window, from its chrome
+    trace: by CUDA stream, the kernels and each kind of copy with its
+    count, bytes, ms and its most frequent sizes; and ``union_ms``, the
+    time at least one activity ran on any stream (the busy time, with
+    copies that overlap kernels counted once)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    table, spans = {}, []
+    for e in events:
+        args = e.get("args") or {}
+        if e.get("ph") != "X" or e.get("cat") not in (
+                "kernel", "gpu_memcpy", "gpu_memset") or "stream" not in args:
+            continue
+        name = e["name"]
+        kind = "kernel" if e["cat"] == "kernel" else \
+            next((k for k in ("HtoD", "DtoH", "DtoD", "Memset")
+                  if k in name), "other")
+        if "Pinned" in name:
+            kind += " pinned"
+        row = table.setdefault(str(args["stream"]), {}).setdefault(
+            kind, {"count": 0, "bytes": 0, "ms": 0.0, "sizes": {}})
+        row["count"] += 1
+        nbytes = int(args.get("bytes", 0))
+        row["bytes"] += nbytes
+        row["ms"] += float(e.get("dur", 0.0)) / 1e3
+        if kind != "kernel":
+            row["sizes"][nbytes] = row["sizes"].get(nbytes, 0) + 1
+        spans.append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+    for kinds in table.values():
+        for row in kinds.values():
+            row["sizes"] = dict(sorted(row["sizes"].items(),
+                                       key=lambda kv: -kv[1])[:6])
+    union, end = 0.0, None
+    for lo, hi in sorted(spans):
+        if end is None or lo > end:
+            union += hi - lo
+            end = hi
+        elif hi > end:
+            union += hi - end
+            end = hi
+    return {"by_stream": table, "union_ms": union / 1e3}
+
+
+def _pipeline_run(make, depth, warm, timed) -> tuple:
+    """``make(depth)`` -> an initialized workflow, run through
+    workflow_run_profiled (warm, timed, the rest profiled with the
+    streams of its device activities), then stopped -> ``(reading,
+    workflow, weights)``: ms a minibatch, the profiled window's busy ms
+    and idle share, the stall table, the streams, the ring, the graphs
+    and their replays, the history, and whether the worker thread is
+    dead after ``stop``."""
+    w = make(depth)
+    step = w.step
+    run = workflow_run_profiled(w, warm, timed, streams=True)
+    streams = run["streams"]["by_stream"]
+    union_ms = run["streams"]["union_ms"] / run["profiled_minibatches"]
+    pipe = getattr(w.loader, "pipeline", None)
+    stats = pipe.stats.snapshot() if pipe is not None else None
+    thread = pipe._thread if pipe is not None else None
+    step.sync_to_units()
+    weights = _conv_fc_weights(w)
+    rings = {k: {"slots": len(r["bufs"]),
+                 "pinned": all(torch.from_numpy(b).is_pinned()
+                               for b in r["bufs"]),
+                 "served": r["i"] + len(r["bufs"])}
+             for k, r in getattr(w.loader, "_rings", {}).items()}
+    w.stop()
+    reading = {"depth": depth, "ms_per_minibatch": run["ms_per_minibatch"],
+               "step_host_us": run["step_host_us"],
+               "timed_minibatches": run["timed_minibatches"],
+               "profiled_minibatches": run["profiled_minibatches"],
+               "busy_ms_per_minibatch": union_ms,
+               "idle_share": 1 - union_ms * run["profiled_minibatches"] /
+               run["profile"]["wall_ms"],
+               "idle_share_timed": 1 - union_ms / run["ms_per_minibatch"],
+               "activity_ms_per_minibatch": run["profile"][
+                   "busy_ms_per_step"],
+               "profile_wall_ms": run["profile"]["wall_ms"],
+               "top_device": run["profile"]["top_device"][:5],
+               "streams": streams, "stats": stats, "rings": rings,
+               "graphs": sorted(str(k) for k in step._graphs or ()),
+               "graph_replays": replays_of(step),
+               "history": w.decision.metrics_history,
+               "worker_alive_after_stop": bool(thread is not None and
+                                               thread.is_alive()),
+               "classes": run["classes"]}
+    return reading, w, weights
+
+
+def _pipeline_gates(name, sync, piped, sync_w, piped_w, host_fed) -> list:
+    """The phase's gates on one pipelined run against its synchronous
+    run; returns what failed."""
+    bad = []
+    if piped["history"] != sync["history"]:
+        bad.append(f"{name}: history {piped['history']} != sync "
+                   f"{sync['history']}")
+    moved = [k for k in sync_w if not all(
+        np.array_equal(a, b) for a, b in zip(sync_w[k], piped_w[k]))]
+    if moved:
+        bad.append(f"{name}: weights differ from the sync run's at {moved}")
+    if piped["graphs"] != sync["graphs"] or \
+            piped["graph_replays"] != sync["graph_replays"]:
+        bad.append(f"{name}: graphs {piped['graphs']} replays "
+                   f"{piped['graph_replays']} != sync {sync['graphs']} "
+                   f"{sync['graph_replays']} (a capture in the steady "
+                   f"state)")
+    n = len(piped["classes"])
+    n_train = piped["classes"].count(2)
+    if piped["graph_replays"] != {"train": n_train - 1,
+                                  "eval": n - n_train - 1}:
+        bad.append(f"{name}: replays {piped['graph_replays']} for "
+                   f"{n_train} train and {n - n_train} eval minibatches")
+    if piped["worker_alive_after_stop"]:
+        bad.append(f"{name}: the prefetch worker outlived run and stop")
+    if piped["stats"]["consumed"] != n:
+        bad.append(f"{name}: {piped['stats']['consumed']} batches consumed "
+                   f"for {n} minibatches")
+    if host_fed:
+        depth = piped["depth"]
+        for key, ring in piped["rings"].items():
+            if ring["slots"] != depth + 2 or not ring["pinned"] or \
+                    ring["served"] != n:
+                bad.append(f"{name}: ring {key} {ring}, want {depth + 2} "
+                           f"pinned slots serving {n} batches")
+        if set(piped["rings"]) != {"data", "labels"}:
+            bad.append(f"{name}: rings {sorted(piped['rings'])}")
+        step_streams = {s for s, kinds in piped["streams"].items()
+                        if "kernel" in kinds}
+        h2d = {s: kinds for s, kinds in piped["streams"].items()
+               if any(k.startswith("HtoD") for k in kinds)}
+        if not any("HtoD pinned" in kinds for kinds in h2d.values()):
+            bad.append(f"{name}: no pinned HtoD copy in the profiled "
+                       f"window: {piped['streams']}")
+        if set(h2d) & step_streams:
+            bad.append(f"{name}: HtoD copies on a stream that runs the "
+                       f"step: {piped['streams']}")
+    return bad
+
+
+def _host_fed_alexnet(depth, data=None):
+    """Host-fed AlexNet at ``depth`` (None: synchronous).  ``data``, an
+    earlier run's ``(original_data, original_labels, class_lengths)``,
+    is served again instead of making the 791 MB set anew (the loader
+    draws it from its own prng stream, so the shuffles do not move)."""
+    tprng.seed_all(SEED)
+    prev = root.common.engine.get("dataset_on_device_max_bytes", 1 << 30)
+    root.common.engine.dataset_on_device_max_bytes = 0
+    try:
+        w = StandardWorkflow(
+            name="AlexNet-host-fed", layers=talexnet.layers(),
+            loss_function="softmax", loader_name="synthetic_image",
+            loader_config={"n_classes": 50, "sample_shape": (227, 227, 3),
+                           "n_train": IP_TRAIN, "n_valid": IP_VALID,
+                           "minibatch_size": ALEX_BATCH, "spread": 1.0,
+                           "noise": 0.5},
+            decision_config={"max_epochs": IP_EPOCHS}, fused=True,
+            pipeline_config={"depth": depth} if depth else None)
+        if data is not None:
+            def load_data(loader=w.loader):
+                loader.original_data.mem, loader.original_labels.mem = \
+                    data[:2]
+                loader.class_lengths = list(data[2])
+            w.loader.load_data = load_data
+        w.initialize(device=TorchDevice())
+    finally:
+        root.common.engine.dataset_on_device_max_bytes = prev
+    if w.step._dataset_dev is not None or w.loader.serve_indices_only:
+        fail("host-fed alexnet: the data set was pinned on the card")
+    return w
+
+
+def _index_fed_mnist(depth):
+    tprng.seed_all(SEED)
+    w = tmnist.build_fused(max_epochs=IP_FC_EPOCHS, layers=FC_LAYERS,
+                           minibatch_size=FC_BATCH, n_train=IP_FC_TRAIN,
+                           n_valid=IP_FC_VALID, pipeline_depth=depth)
+    w.initialize(device=TorchDevice())
+    if w.step._dataset_dev is None:
+        fail("index-fed mnist: the data set was not pinned")
+    return w
+
+
+def _cifar_on_files(depth):
+    from znicz_tpu_torch.models import cifar_conv as tcifar
+    from znicz_tpu_torch.pipeline import attach_prefetcher
+
+    tprng.seed_all(SEED)
+    w = tcifar.build(max_epochs=1, n_train=IP_CIFAR_TRAIN,
+                     n_valid=IP_CIFAR_VALID)
+    if depth:
+        w.input_pipeline = attach_prefetcher(
+            w.loader, stager=w.step.make_stager(), depth=depth)
+    w.initialize(device=TorchDevice())
+    return w
+
+
+def gather_timed(src: np.ndarray, batch: int) -> dict:
+    """``gather_rows`` at one minibatch of ``batch`` rows of ``src``
+    (shuffled indices, the last 3 rows padding) against numpy fancy
+    indexing into a preallocated buffer, as fill_minibatch's numpy path
+    does: median ms of IP_GATHER_REPS calls each, and the two results
+    bit-identical."""
+    from znicz_tpu_torch import native
+
+    rng = np.random.default_rng(SEED + 61)
+    idx = np.full(batch, -1, np.int64)
+    idx[:batch - 3] = rng.permutation(len(src))[:batch - 3]
+    got = np.empty((batch,) + src.shape[1:], src.dtype)
+    want = np.empty_like(got)
+
+    def by_numpy():
+        want[:batch - 3] = src[idx[:batch - 3]]
+        want[batch - 3:] = 0
+
+    times = {"native": [], "numpy": []}
+    for _ in range(IP_GATHER_REPS):
+        for key, fn in (("native", lambda: native.gather_rows(src, idx,
+                                                               got)),
+                        ("numpy", by_numpy)):
+            t0 = time.perf_counter()
+            fn()
+            times[key].append((time.perf_counter() - t0) * 1e3)
+    out = {"rows": batch, "row_bytes": got[0].nbytes,
+           "bytes": got.nbytes, "threads": min(native.MAX_THREADS,
+                                               os.cpu_count() or 1),
+           "native_ms": float(np.median(times["native"])),
+           "numpy_ms": float(np.median(times["numpy"])),
+           "identical": bool(np.array_equal(got, want))}
+    out["native_gb_per_s"] = got.nbytes / out["native_ms"] / 1e6
+    out["numpy_gb_per_s"] = got.nbytes / out["numpy_ms"] / 1e6
+    return out
+
+
+def phase_input_pipeline() -> dict:
+    """The port's input layer on the card.  Host-fed AlexNet (IP_*: every
+    minibatch's 79.1 MB shipped from the host) synchronously and through
+    the input pipeline at depth IP_DEPTH: ms a minibatch, the profiled
+    epoch's busy ms and idle share, the stall table, the HtoD copies by
+    stream; index-fed MNIST FC at bench_fc's widths and CIFAR conv on its
+    own pickle files, each sync against depth IP_DEPTH; the native gather
+    at AlexNet's minibatch against numpy.  Gates: every pipelined history
+    and every weight equal to its synchronous run's; the ring of
+    host-fed AlexNet holds depth + 2 pinned slots that serve every batch
+    (none allocated after the first fills); its staged HtoD copies on a
+    stream that runs none of the step's kernels; the same graphs and
+    replays as the synchronous run (no capture in the steady state); the
+    worker dead after the workflow's run and stop (it parks at the last
+    epoch boundary until stop, as the reference's does); the gather
+    bit-identical to numpy.  cuDNN runs deterministic here, so a race in
+    the staging would show as a moved weight."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out = {"phase": "input_pipeline", "cudnn_deterministic": True}
+    bad = []
+    try:
+        sync, w, sync_w = _pipeline_run(_host_fed_alexnet, None, IP_WARM,
+                                        IP_TIMED)
+        data = (w.loader.original_data.mem, w.loader.original_labels.mem,
+                w.loader.class_lengths)
+        out["gather"] = gather_timed(data[0], ALEX_BATCH)
+        del w
+        piped, w, piped_w = _pipeline_run(
+            lambda depth: _host_fed_alexnet(depth, data), IP_DEPTH,
+            IP_WARM, IP_TIMED)
+        del w, data
+        out["alexnet_host_fed"] = {
+            "config": {"batch": ALEX_BATCH, "input": 227, "classes": 1000,
+                       "n_train": IP_TRAIN, "n_valid": IP_VALID,
+                       "epochs": IP_EPOCHS, "dataset_on_device": False,
+                       "minibatch_bytes": ALEX_BATCH * 227 * 227 * 3 * 4,
+                       "warm": IP_WARM, "timed": IP_TIMED},
+            "sync": sync, "pipelined": piped,
+            "speedup": sync["ms_per_minibatch"] / piped["ms_per_minibatch"]}
+        bad += _pipeline_gates("alexnet host-fed", sync, piped, sync_w,
+                               piped_w, True)
+        if not out["gather"]["identical"]:
+            bad.append(f"gather_rows differs from numpy: {out['gather']}")
+        fc = {}
+        for depth in (None, IP_DEPTH):
+            fc[depth] = _pipeline_run(_index_fed_mnist, depth, IP_FC_WARM,
+                                      IP_FC_TIMED)
+        out["mnist_fc_index_fed"] = {
+            "config": {"layers": list(FC_LAYERS), "batch": FC_BATCH,
+                       "n_train": IP_FC_TRAIN, "n_valid": IP_FC_VALID,
+                       "epochs": IP_FC_EPOCHS, "dataset_on_device": True},
+            "sync": fc[None][0], "pipelined": fc[IP_DEPTH][0]}
+        bad += _pipeline_gates("mnist fc index-fed", fc[None][0],
+                               fc[IP_DEPTH][0], fc[None][2], fc[IP_DEPTH][2],
+                               False)
+        del fc
+        cifar = {}
+        for depth in (None, IP_DEPTH):
+            cifar[depth] = _pipeline_run(_cifar_on_files, depth,
+                                         IP_CIFAR_WARM, IP_CIFAR_TIMED)
+        out["cifar_conv_files"] = {
+            "loader": type(cifar[None][1].loader).__name__,
+            "data_dir": cifar[None][1].loader.data_dir,
+            "n_train": IP_CIFAR_TRAIN, "n_valid": IP_CIFAR_VALID,
+            "sync": cifar[None][0], "pipelined": cifar[IP_DEPTH][0]}
+        if out["cifar_conv_files"]["loader"] != "PicklesImageLoader":
+            bad.append(f"cifar conv loader {out['cifar_conv_files']}")
+        bad += _pipeline_gates("cifar conv files", cifar[None][0],
+                               cifar[IP_DEPTH][0], cifar[None][2],
+                               cifar[IP_DEPTH][2], False)
+        del cifar
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if bad:
+        fail(f"input_pipeline: {bad}: {out}")
+    return out
+
+
 #: phases ``--phase`` may run alone (after the build), for iterating on
 #: one kernel family; the smoke proper takes no arguments
 PHASES_ALONE = {"kernel": lambda: phase_kernel(),
@@ -5440,6 +5832,7 @@ PHASES_ALONE = {"kernel": lambda: phase_kernel(),
                 "alexnet_fused": lambda: phase_alexnet_fused(),
                 "graph_parity": lambda: phase_graph_parity(),
                 "fused_conv_parity": lambda: phase_fused_conv_parity(),
+                "input_pipeline": lambda: phase_input_pipeline(),
                 "fused_compare": lambda: phase_fused_compare()}
 
 
@@ -5521,6 +5914,7 @@ def main() -> int:
     emit(alex_fused)
     emit(phase_graph_parity())
     emit(phase_fused_conv_parity())
+    emit(phase_input_pipeline())
     kernel_hw = phase_kernel_hw()
     emit(kernel_hw)
     emit({**kernel_line(kernel, flash, gemm, optim, serve, train, eager,

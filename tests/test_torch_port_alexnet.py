@@ -444,10 +444,16 @@ def test_alexnet_refusals():
                {"loader_config": {"augment": True}}):
         with pytest.raises(NotImplementedError, match="loader/image.py"):
             talexnet.build(fused=False, **kw)
-    for cfg in ("pipeline_config", "health_config", "snapshotter_config"):
+    for cfg in ("health_config", "snapshotter_config"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TStandard(layers=_small_layers(talexnet), fused=True,
                       loader_name="synthetic_image", **{cfg: {}})
+    # the input pipeline is ported (tests/test_torch_port_pipeline.py)
+    piped = TStandard(layers=_small_layers(talexnet), fused=True,
+                      loader_name="synthetic_image",
+                      pipeline_config={"depth": 2})
+    assert piped.input_pipeline.depth == 2
+    assert piped.loader.pipeline is piped.input_pipeline
     for kw, msg in (({"optimizer": "adam"}, "requires fused"),
                     ({"clip_norm": 1.0}, "requires fused"),
                     ({"pipeline_config": {"depth": 2}}, "requires fused")):

@@ -410,8 +410,9 @@ def test_models_train_fused_by_default(model):
 
 def test_cifar_conv_is_the_reference_config():
     assert tcifar.LAYERS == jcifar.LAYERS
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tcifar.build()
+    # the default loader is the CIFAR pickle batches, as the reference's
+    # (trained in tests/test_torch_port_file_loaders.py)
+    assert type(tcifar.build().loader).__name__ == "PicklesImageLoader"
     w = tcifar.build(loader_name="synthetic_image", fused=False,
                      n_train=20, n_valid=10, minibatch_size=10)
     assert [type(f).__name__ for f in w.forwards] == [

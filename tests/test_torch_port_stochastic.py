@@ -404,8 +404,9 @@ def test_mnist_conv_stochastic_matches_jax():
 
 def test_mnist_conv_build_defaults_raise():
     assert tmnist_conv.LAYERS == jmnist_conv.LAYERS
-    with pytest.raises(NotImplementedError, match="loader/mnist.py"):
-        tmnist_conv.build()
+    # the default loader is the MNIST IDX files, as the reference's
+    # (trained in tests/test_torch_port_file_loaders.py)
+    assert type(tmnist_conv.build().loader).__name__ == "MnistLoader"
     # the fused shape, the default, builds on the synthetic loader
     fused = tmnist_conv.build(loader_name="synthetic_image", n_train=20,
                               n_valid=10, minibatch_size=10)

@@ -1,2 +1,3 @@
-"""Data loaders of the port: the minibatch server, the full-batch loader
-and the seeded synthetic datasets."""
+"""Data loaders of the port: the minibatch server, the full-batch loader,
+the seeded synthetic datasets, the MNIST IDX and CIFAR pickle file
+loaders and their normalizers."""

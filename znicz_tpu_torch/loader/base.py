@@ -17,9 +17,19 @@ rows; a short tail is padded and the true row count exposed as
 names.
 
 The class-plan capture (``capture_class_plan``, :meth:`Loader.class_plan`,
-:func:`plan_device_arrays`) serves the SOM trainer's epoch scan.  Not
-ported yet (ROADMAP queue A): the snapshot state dicts and the prefetch
-pipeline's hooks (``fill_batch``, staged batches).
+:func:`plan_device_arrays`) serves the SOM trainer's and the fused
+step's epoch scans.
+
+The prefetch pipeline's hooks (``znicz_tpu_torch/pipeline``): the
+producer runs :meth:`Loader._next_record` -> :meth:`Loader.fill_batch`
+-> :meth:`Loader._complete_record` on its worker, filling rotating ring
+buffers (:meth:`Loader._next_buffer`); the consumer publishes each
+batch's record (:meth:`Loader._consume_prefetched`) and the step takes
+the staged device tensors (:meth:`Loader.take_staged`).  On the card
+each ring slot is pinned host memory, so the stager's host-to-device
+copy is truly asynchronous and needs no staging copy of its own.
+:meth:`Loader.state_dict` / :meth:`Loader.load_state_dict` carry the
+serving cursor and re-arm the pipeline on a restore.
 """
 
 from __future__ import annotations
@@ -96,12 +106,22 @@ class Loader(AcceleratedUnit):
         #: each class start (dead work for everyone else)
         self.capture_class_plan = False
         self._current_plan = None        # captured at each class start
+        #: attached BatchPrefetcher (znicz_tpu_torch.pipeline) — when set,
+        #: run() consumes prefetched batches instead of serving
+        self.pipeline = None
+        #: the pipeline's staged payload for the CURRENT batch (taken
+        #: one-shot by the step via take_staged)
+        self.staged = None
         # dataset geometry, set by load_data()
         self.class_lengths = [0, 0, 0]
         self._position = 0               # offset within current class
         self._class = TEST
-        self._epoch = 0
+        self._epoch = 0                  # private epoch cursor: epoch_number
+        #                                  is its published mirror (the
+        #                                  pipeline producer advances this;
+        #                                  only the consumer writes publics)
         self._shuffled: dict[int, np.ndarray] = {}
+        self._rings: dict[str, dict] = {}   # fill_batch rotating buffers
 
     # -- override points ----------------------------------------------------
     def load_data(self) -> None:
@@ -116,6 +136,51 @@ class Loader(AcceleratedUnit):
         """Copy rows selected by ``minibatch_indices`` into the served
         arrays; indices beyond ``minibatch_size`` are -1 (padding)."""
         raise NotImplementedError
+
+    def fill_batch(self, indices: np.ndarray, count: int) -> dict:
+        """Pipeline-producer fill: gather the rows selected by ``indices``
+        (-1 = padding, zeroed) into PRODUCER-OWNED buffers and return them
+        as ``{"data": ..., "labels": ..., "targets": ...}`` (present keys
+        only).  Unlike :meth:`fill_minibatch` this must not touch the
+        published ``minibatch_*`` attributes — it runs on the prefetch
+        worker while downstream units still read the previous batch.
+        Implementations use :meth:`_next_buffer` so the staging ring owns
+        buffer lifetimes."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement fill_batch — the "
+            f"prefetch pipeline needs a producer-side fill that leaves "
+            f"the published minibatch_* attributes alone")
+
+    def _next_buffer(self, key: str, shape: tuple, dtype) -> np.ndarray:
+        """Rotating preallocated buffer for ``fill_batch``: the ring holds
+        ``pipeline.depth + 2`` slots (queue depth + the batch in flight +
+        the one being consumed), so a buffer is reused only after its
+        batch has fully left the pipeline.  On the card each slot is
+        pinned host memory (``torch.empty(..., pin_memory=True)`` viewed
+        as numpy), the source the stager's asynchronous copy needs.
+        Rotation requires a slot-detaching stager (ring_safe_stager's
+        copy or fence); a stager-less pipeline hands raw host buffers to
+        the consumer, so it gets a fresh buffer per serve instead."""
+        if self.pipeline is None or not self.pipeline.detaches_slots:
+            return np.empty(shape, dtype)
+        slots = self.pipeline.depth + 2
+        ring = self._rings.setdefault(key, {"bufs": [], "i": 0})
+        bufs = ring["bufs"]
+        if len(bufs) < slots:
+            bufs.append(self._ring_slot(shape, dtype))
+            return bufs[-1]
+        buf = bufs[ring["i"] % slots]
+        ring["i"] += 1
+        return buf
+
+    def _ring_slot(self, shape: tuple, dtype) -> np.ndarray:
+        """One ring buffer: pinned host memory when the loader serves a
+        CUDA device, plain numpy otherwise."""
+        dev = getattr(self.device, "torch_device", None)
+        if dev is None or dev.type != "cuda":
+            return np.empty(shape, dtype)
+        tdt = torch.from_numpy(np.empty(0, dtype)).dtype
+        return torch.empty(shape, dtype=tdt, pin_memory=True).numpy()
 
     # -- geometry helpers ---------------------------------------------------
     def class_offset(self, cls: int) -> int:
@@ -155,23 +220,38 @@ class Loader(AcceleratedUnit):
 
     # -- serving ------------------------------------------------------------
     def numpy_run(self) -> None:
+        if self.pipeline is not None:
+            self._consume_prefetched()
+            return
         self._serve()
 
     def torch_run(self) -> None:
+        if self.pipeline is not None:
+            self._consume_prefetched()
+            if self.staged is None and not self.serve_indices_only:
+                # no stager attached: upload on the consumer thread
+                # exactly like the synchronous path below
+                self._upload_minibatch()
+            return
         self._serve()
         if self.serve_indices_only:
             # the fused step pinned the dataset on the device: it consumes
             # only minibatch_indices, so the host gather + upload of the
             # minibatch itself would be dead work on the hot loop
             return
+        self._upload_minibatch()
+
+    def _upload_minibatch(self) -> None:
         for arr in (self.minibatch_data, self.minibatch_labels,
                     self.minibatch_targets):
             if arr:
                 arr.unmap()
 
     def _next_record(self) -> dict:
-        """Advance the serving cursor one minibatch and return the
-        control record."""
+        """Advance the PRIVATE serving cursor one minibatch and return the
+        control record — publishes nothing.  The sync path and the
+        pipeline producer share this core, so serve order (and therefore
+        prng order) is identical with prefetching on or off."""
         cls = self._class
         length = self.class_lengths[cls]
         start = self._position
@@ -208,7 +288,7 @@ class Loader(AcceleratedUnit):
 
     def _publish_record(self, rec: dict) -> None:
         """Write a record's control metadata into the published attrs the
-        downstream units read."""
+        downstream units read (consumer-thread only)."""
         self.epoch_ended = False
         self.minibatch_indices.map_invalidate()
         self.minibatch_indices.mem = rec["indices"]
@@ -227,6 +307,28 @@ class Loader(AcceleratedUnit):
         self._complete_record(rec)
         self.epoch_number = rec["epoch_number"]
         self.epoch_ended = rec["epoch_ended"]
+
+    def _consume_prefetched(self) -> None:
+        """Pop the next pipelined batch and replay it: control metadata,
+        filled host arrays, and the staged device payload."""
+        batch = self.pipeline.next_batch()
+        rec = batch.record
+        self._publish_record(rec)
+        if batch.arrays:
+            for name, host in batch.arrays.items():
+                arr = getattr(self, f"minibatch_{name}")
+                arr.map_invalidate()
+                arr.mem = host
+        self.staged = batch.staged
+        self.epoch_number = rec["epoch_number"]
+        self.epoch_ended = rec["epoch_ended"]
+
+    def take_staged(self):
+        """One-shot handoff of the pipeline's staged payload for the
+        current batch (None in sync mode or when nothing was staged) —
+        steps call this instead of re-uploading the batch."""
+        staged, self.staged = self.staged, None
+        return staged
 
     def class_plan(self) -> np.ndarray:
         """The FULL minibatch plan of the class currently being served:
@@ -247,3 +349,32 @@ class Loader(AcceleratedUnit):
         flat = plan.reshape(-1)
         flat[:length] = order[:length]
         return plan
+
+    # -- lifecycle ----------------------------------------------------------
+    def stop(self) -> None:
+        if self.pipeline is not None:
+            self.pipeline.stop()
+
+    # -- snapshot support ---------------------------------------------------
+    def state_dict(self) -> dict:
+        # at a snapshot point (epoch boundary) the pipeline's determinism
+        # barrier guarantees the private cursor equals the sync-mode state
+        return {
+            "epoch_number": int(self._epoch),
+            "position": int(self._position),
+            "cls": int(self._class),
+            "shuffled": {c: v.copy() for c, v in self._shuffled.items()},
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        if self.pipeline is not None:
+            # prefetched batches belong to the pre-restore cursor: drain
+            # the worker and re-arm it on the restored state
+            self.pipeline.resync()
+        self.staged = None
+        self._epoch = int(state["epoch_number"])
+        self.epoch_number = self._epoch
+        self._position = state["position"]
+        self._class = state["cls"]
+        self._shuffled = {c: np.asarray(v) for c, v in
+                          state["shuffled"].items()}

@@ -3,17 +3,32 @@
 
 The whole dataset lives in one Array pair (``original_data``,
 ``original_labels`` / ``original_targets``) in [test | validation |
-train] storage order; ``fill_minibatch`` is a host-side numpy gather (the
-reference's own numpy path; its native threaded gather is not ported).
-The fused step pins the dataset on the device and gathers there.
+train] storage order; ``fill_minibatch`` and the prefetch producer's
+``fill_batch`` gather rows on the host through the native threaded
+gather (``znicz_tpu_torch/native``), numpy only where the reference
+takes it (a non-contiguous source or a dtype mismatch).  The fused step
+pins a dataset that fits on the device and gathers there.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from znicz_tpu_torch import native
 from znicz_tpu_torch.core.memory import Array
 from znicz_tpu_torch.loader.base import Loader
+
+
+def _gather(src: np.ndarray, indices: np.ndarray, count: int,
+            dst: np.ndarray) -> None:
+    """``dst[:count] = src[indices[:count]]``, ``dst[count:] = 0``: the
+    native gather (it zeroes the -1 padding rows itself), numpy for a
+    source it cannot take."""
+    if src.flags.c_contiguous and src.dtype == dst.dtype:
+        native.gather_rows(src, indices, dst)
+    else:
+        dst[:count] = src[indices[:count]]
+        dst[count:] = 0
 
 
 class FullBatchLoader(Loader):
@@ -44,13 +59,31 @@ class FullBatchLoader(Loader):
         # previous one (the reference's rule for asynchronous dispatch)
         data = np.empty((self.max_minibatch_size,) + src.shape[1:],
                         src.dtype)
-        data[:count] = src[idx]
-        data[count:] = 0
+        _gather(src, indices, count, data)
         self.minibatch_data.mem = data
         if self.original_labels:
             labels = np.zeros((self.max_minibatch_size,), np.int32)
             labels[:count] = self.original_labels.mem[idx]
             self.minibatch_labels.mem = labels
+
+    def fill_batch(self, indices: np.ndarray, count: int) -> dict:
+        """Producer-side gather for the prefetch pipeline.  Unlike
+        :meth:`fill_minibatch` there is no per-serve fresh buffer: the
+        staging ring owns buffer lifetimes (a slot is reused only after
+        its batch has left the pipeline), so the gather lands in a
+        rotating preallocated buffer (pinned on the card's host)."""
+        src = self.original_data.mem
+        data = self._next_buffer(
+            "data", (self.max_minibatch_size,) + src.shape[1:], src.dtype)
+        _gather(src, indices, count, data)
+        out = {"data": data}
+        if self.original_labels:
+            labels = self._next_buffer(
+                "labels", (self.max_minibatch_size,), np.int32)
+            labels[:count] = self.original_labels.mem[indices[:count]]
+            labels[count:] = 0
+            out["labels"] = labels
+        return out
 
 
 class FullBatchLoaderMSE(FullBatchLoader):
@@ -77,3 +110,14 @@ class FullBatchLoaderMSE(FullBatchLoader):
                            src.dtype)
         targets[:count] = src[indices[:count]]
         self.minibatch_targets.mem = targets
+
+    def fill_batch(self, indices: np.ndarray, count: int) -> dict:
+        out = super().fill_batch(indices, count)
+        src = self.original_targets.mem
+        targets = self._next_buffer(
+            "targets", (self.max_minibatch_size,) + src.shape[1:],
+            src.dtype)
+        targets[:count] = src[indices[:count]]
+        targets[count:] = 0
+        out["targets"] = targets
+        return out

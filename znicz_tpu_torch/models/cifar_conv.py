@@ -4,10 +4,11 @@ CIFAR10/cifar.py, the ConvRELU benchmark workflow in BASELINE.json).
 
 The same declarative layer list (conv 32 3x3 p1 -> pool 2x2 -> conv 64
 3x3 p1 -> pool 2x2 -> dropout 0.3 -> fc 256 -> softmax 10) and signature,
-fused by default.  Runs over the in-memory ``synthetic_image`` loader;
-the reference's default loader, the CIFAR python-batch pickles
-(``pickles_image``), waits for ``loader/image.py`` (ROADMAP.md queue A
-item 5) and raises.
+fused by default.  The default data path reads CIFAR python-format
+pickle batches (``pickles_image``, ``loader/pickles.py``) from
+``root.common.dirs.datasets/cifar``: real files as they are, a seeded
+CIFAR-format set synthesized once otherwise; ``loader_name=
+"synthetic_image"`` takes the in-memory stand-in.
 """
 
 from __future__ import annotations
@@ -42,16 +43,17 @@ def build(max_epochs: int = 10, minibatch_size: int = 100,
           snapshotter_config: dict | None = None,
           optimizer: str = "sgd",
           optimizer_config: dict | None = None) -> StandardWorkflow:
-    """The reference's signature and defaults; runs with
-    ``loader_name="synthetic_image"``."""
+    """The reference's signature and defaults."""
     if loader_name == "pickles_image":
-        raise NotImplementedError(
-            "the CIFAR pickle loader (pickles_image, loader/image.py) is "
-            "not ported yet (ROADMAP.md queue A item 5); pass loader_name="
-            "'synthetic_image'")
-    cfg = {"n_classes": 10, "sample_shape": (32, 32, 3),
-           "n_train": n_train, "n_valid": n_valid,
-           "minibatch_size": minibatch_size, "spread": 2.0, "noise": 1.0}
+        # CIFAR python-batch pickle files (real ones when dropped into
+        # root.common.dirs.datasets/cifar, synthesized otherwise)
+        cfg = {"n_train": n_train, "n_valid": n_valid,
+               "minibatch_size": minibatch_size, "sample_shape": (32, 32, 3)}
+    else:
+        cfg = {"n_classes": 10, "sample_shape": (32, 32, 3),
+               "n_train": n_train, "n_valid": n_valid,
+               "minibatch_size": minibatch_size, "spread": 2.0,
+               "noise": 1.0}
     cfg.update(loader_config or {})
     return StandardWorkflow(
         name="CifarConv", layers=LAYERS, loss_function="softmax",

@@ -3,12 +3,13 @@
 conv config — BASELINE.md config 2).
 
 The same declarative layer list (conv 32 5x5 p2 -> pool 2x2 -> conv 64
-5x5 p2 -> pool 2x2 -> fc 128 -> softmax 10) and signature.  Fused (the
-default) or eager over the in-memory ``synthetic_image`` loader; a caller
-may swap a pooling layer's type (``stochastic_pooling``), as the
-reference's StandardWorkflow accepts.  The reference's default loader,
-the MNIST IDX files (``loader/mnist.py``, ROADMAP.md queue A item 5), is
-not ported yet and raises.
+5x5 p2 -> pool 2x2 -> fc 128 -> softmax 10) and signature, fused (the
+default) or eager.  The default data path is the IDX file loader
+(``loader/mnist.py``): real MNIST files when present under
+``root.common.dirs.datasets/mnist``, a seeded synthesized IDX quartet
+otherwise; ``loader_name="synthetic_image"`` takes the in-memory
+stand-in.  A caller may swap a pooling layer's type
+(``stochastic_pooling``), as the reference's StandardWorkflow accepts.
 """
 
 from __future__ import annotations
@@ -42,16 +43,16 @@ def build(max_epochs: int = 10, minibatch_size: int = 100,
           snapshotter_config: dict | None = None,
           optimizer: str = "sgd",
           optimizer_config: dict | None = None) -> StandardWorkflow:
-    """The reference's signature and defaults; runs with
-    ``loader_name="synthetic_image"``."""
+    """The reference's signature and defaults."""
     if loader_name == "mnist":
-        raise NotImplementedError(
-            "the MNIST IDX file loader (loader/mnist.py) is not ported yet "
-            "(ROADMAP.md queue A item 5); pass loader_name="
-            "'synthetic_image'")
-    cfg = {"n_classes": 10, "sample_shape": (28, 28, 1),
-           "n_train": n_train, "n_valid": n_valid,
-           "minibatch_size": minibatch_size, "spread": 2.5, "noise": 1.0}
+        cfg = {"n_train": n_train, "n_valid": n_valid,
+               "minibatch_size": minibatch_size,
+               "normalization_type": "linear"}
+    else:
+        cfg = {"n_classes": 10, "sample_shape": (28, 28, 1),
+               "n_train": n_train, "n_valid": n_valid,
+               "minibatch_size": minibatch_size, "spread": 2.5,
+               "noise": 1.0}
     cfg.update(loader_config or {})
     return StandardWorkflow(
         name="MnistConv", layers=LAYERS, loss_function="softmax",

@@ -15,9 +15,10 @@ Datasets: seeded synthetic MNIST-shaped blobs; weights come from the
 ``prng`` streams (or from ``units/nn_units.py load_forward_params``).
 ``build_fused`` has the reference's signature; the options the port's
 step does not take yet (mesh sharding, ZeRO, quantized collectives,
-anatomy, the input pipeline) raise ``NotImplementedError`` when passed
-as not-default.  Gradient accumulation and EMA run as the reference's
-do; on the card every step is a CUDA graph replay.
+anatomy) raise ``NotImplementedError`` when passed as not-default.
+Gradient accumulation, EMA and ``pipeline_depth`` (the input pipeline
+with the step's stager) run as the reference's do; on the card every
+step is a CUDA graph replay.
 """
 
 from __future__ import annotations
@@ -159,7 +160,9 @@ def build_fused(max_epochs=4, layers=(64,), lr=0.05, moment=0.9,
     # the sample count behind the class-pass metrics comes from the step
     dec.link_attrs(step, ("minibatch_n_err", "n_err"), "minibatch_size")
     if pipeline_depth:
-        # the reference attaches the input pipeline with the step's
-        # stager here; the port's step has none yet and raises
-        step.make_stager()
+        # async input pipeline: the host serve of batch k+1 and its copy
+        # to the device overlap the compute of batch k
+        from znicz_tpu_torch.pipeline import attach_prefetcher
+        attach_prefetcher(w.loader, stager=step.make_stager(),
+                          depth=pipeline_depth)
     return w

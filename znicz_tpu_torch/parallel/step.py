@@ -64,10 +64,18 @@ mirrors ``ew``/``eb`` updated after every update inside the step body;
 ``scan_epoch`` uploads the class pass's plan once at its first
 minibatch and replays the step once a plan row.
 
+The input pipeline (``znicz_tpu_torch/pipeline``) feeds the step through
+:meth:`FusedTrainStep.make_stager`: its worker copies each batch's step
+inputs (the raw indices, and the rows and labels when the data set is
+not pinned) from pinned ring slots to the card on a side stream, and
+``run`` consumes them from ``loader.take_staged()``, its stream waiting
+on the staging event; a graph's static inputs then take a device-to-
+device copy and no host copy.
+
 Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md queue
 A): a mesh over more than one device, ``shard_update``,
-``shard_params``, ``quantized_collectives``, ``anatomy``,
-``donate=False`` and the input pipeline's ``make_stager``.
+``shard_params``, ``quantized_collectives``, ``anatomy`` and
+``donate=False``.
 """
 
 from __future__ import annotations
@@ -83,6 +91,8 @@ from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core.units import Unit
 from znicz_tpu_torch.kernels import optim as koptim
 from znicz_tpu_torch.loader.base import TRAIN
+from znicz_tpu_torch.pipeline import (ready_on_current_stream,
+                                      ring_safe_stager)
 from znicz_tpu_torch.resilience.faults import poison_hook
 from znicz_tpu_torch.units.all2all import All2AllSoftmax
 from znicz_tpu_torch.units.evaluator import EvaluatorMSE, EvaluatorSoftmax
@@ -148,7 +158,11 @@ class _StepGraph:
         counters = _kernel_counters()
         before = [getattr(mod, attr) for mod, attr in counters]
         try:
-            with torch.cuda.graph(self.graph, stream=stream):
+            # thread-local capture: the input pipeline's worker keeps
+            # allocating pinned slots and copying on its side stream while
+            # this thread captures
+            with torch.cuda.graph(self.graph, stream=stream,
+                                  capture_error_mode="thread_local"):
                 self.outputs = body(*self.inputs)
         except Exception as exc:
             raise RuntimeError(
@@ -170,6 +184,8 @@ class _StepGraph:
                 # keeps the block until the copy is done), so the host
                 # need not wait for the queued replays to reach the copy
                 t = t.pin_memory()
+            # a staged (device) input: a device-to-device copy on the
+            # replay's stream, which already waited on its staging event
             buf.copy_(t, non_blocking=True)
         self.graph.replay()
         self.replays += 1
@@ -278,6 +294,7 @@ class FusedTrainStep(Unit):
         self._hyper_views = None  # per-layer dicts of 0-d views into it
         self._graphs = None       # (body, input shapes) -> _StepGraph
         self._stream = None       # the capture stream (cuda only)
+        self._h2d_stream = None   # the input pipeline's side stream
         self._cw = None           # the class weights on the device
         self._protos = None       # the class targets on the device
         self._acc = None          # device-side metric sums (deferred mode)
@@ -651,6 +668,7 @@ class FusedTrainStep(Unit):
         if self._dev.type == "cuda":
             self._graphs = {}
             self._stream = torch.cuda.Stream(self._dev)
+            self._h2d_stream = torch.cuda.Stream(self._dev)
         self._pin_dataset()
         self.initialized = True
 
@@ -700,12 +718,64 @@ class FusedTrainStep(Unit):
                 "steps", self._train_step, xs[k], ys[k], masks[k]))
         return total
 
+    # -- input-pipeline staging ---------------------------------------------
     def make_stager(self):
-        raise _not_ported("the input pipeline's stager (pipeline_depth)")
+        """Producer-side staging callable for the input pipeline
+        (``znicz_tpu_torch.pipeline``): copies the NEXT batch's step
+        inputs to the step's device while the current step runs, so the
+        host-to-device copy hides under device compute.  Signature:
+        ``stage(record, arrays) -> (staged_dict, nbytes)``.
+
+        The staged inputs are the ones the synchronous ``run`` uploads,
+        in the same dtypes and shapes, so the step's graphs see the same
+        keys and capture nothing new: the raw indices (-1 = padding; the
+        mask and the gather indices are made from them on the device, as
+        the reference stages its idx and mask) and, when the data set is
+        not pinned, the f32 rows and the labels or targets, all in one
+        staging call.  In ``scan_epoch`` mode the class pass runs from
+        its plan and nothing is staged, ``(None, 0)``.  On the card the
+        copies run on the step's side stream from the loader's pinned
+        ring slots, handed off through
+        :func:`~znicz_tpu_torch.pipeline.ring_safe_stager`.  The stager
+        is made before ``initialize``, so it reads the device and the
+        side stream at each call."""
+        def put(*host):
+            out = []
+            for a in host:
+                t = torch.from_numpy(a)
+                d = torch.empty(t.shape, dtype=t.dtype, device=self._dev)
+                out.append(d.copy_(t, non_blocking=True))
+            if len(out) > 1:
+                # the rows in f32, as the synchronous path uploads them
+                out[1] = out[1].to(torch.float32)
+            return tuple(out)
+
+        def stage(rec, arrays):
+            if self.scan_epoch and self._dataset_dev is not None:
+                # the class pass runs from its plan: per-minibatch
+                # staging would be dead device buffers (the pipeline
+                # still overlaps the shuffle and plan work)
+                return None, 0
+            host = (rec["indices"],)
+            if self._dataset_dev is None:
+                y = arrays["targets" if isinstance(
+                    self.evaluator, EvaluatorMSE) else "labels"]
+                host += (arrays["data"], y)
+            inputs, event = ring_safe_stager(put, self._dev,
+                                             self._h2d_stream)(*host)
+            return ({"inputs": inputs, "event": event},
+                    sum(a.nbytes for a in host))
+
+        return stage
 
     # -- per-minibatch control callback -------------------------------------
     def run(self) -> None:
         loader = self.loader
+        # pipelined feeding: the step inputs were copied to the device by
+        # the prefetch worker — consume them instead of re-shipping the
+        # host copies
+        staged = loader.take_staged() \
+            if getattr(loader, "pipeline", None) is not None else None
         if self.scan_epoch and self._dataset_dev is not None and \
                 (int(loader.minibatch_offset) == 0 or
                  self._scan_in_flight):
@@ -713,15 +783,11 @@ class FusedTrainStep(Unit):
             return
         # (a class pass entered mid-way falls through to the
         # per-minibatch path for the rest of it)
-        # one upload a step: the raw indices (-1 = padding); the mask and
-        # the clamped gather indices are made on the device
-        inputs = (torch.from_numpy(np.asarray(loader.minibatch_indices.mem)),)
-        if self._dataset_dev is None:
-            lab = loader.minibatch_targets if isinstance(
-                self.evaluator, EvaluatorMSE) else loader.minibatch_labels
-            inputs += (torch.as_tensor(np.asarray(loader.minibatch_data.mem),
-                                       dtype=torch.float32),
-                       torch.from_numpy(np.asarray(lab.mem)))
+        if staged is not None:
+            inputs = staged["inputs"]
+            ready_on_current_stream(inputs, staged["event"])
+        else:
+            inputs = self._host_inputs(loader)
         if int(loader.minibatch_class) != TRAIN:
             metrics = self._dispatch("eval", self._eval_batch, *inputs)
         elif self.accumulate_steps > 1:
@@ -730,6 +796,21 @@ class FusedTrainStep(Unit):
         else:
             metrics = self._dispatch("train", self._train_batch, *inputs)
         self._finish_run(loader, metrics)
+
+    def _host_inputs(self, loader) -> tuple:
+        """The synchronous path's step inputs from the loader's published
+        host arrays: one upload a step of the raw indices (-1 = padding;
+        the mask and the clamped gather indices are made on the device),
+        plus the f32 rows and the labels or targets when the data set is
+        not pinned."""
+        inputs = (torch.from_numpy(np.asarray(loader.minibatch_indices.mem)),)
+        if self._dataset_dev is None:
+            lab = loader.minibatch_targets if isinstance(
+                self.evaluator, EvaluatorMSE) else loader.minibatch_labels
+            inputs += (torch.as_tensor(np.asarray(loader.minibatch_data.mem),
+                                       dtype=torch.float32),
+                       torch.from_numpy(np.asarray(lab.mem)))
+        return inputs
 
     def _accumulate(self, half: dict, loader) -> dict:
         """Fold a half-step's summed gradients into the device

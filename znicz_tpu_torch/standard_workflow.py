@@ -18,9 +18,12 @@ the reference:
 
 Layer spec keys: ``type`` (MatchingObject registry name), ``->`` (forward
 constructor kwargs), ``<-`` (gradient/hyperparameter kwargs), ``name``;
-any other key is shorthand for a forward kwarg.  The snapshotter (item
-7), the health guard (item 14) and the input pipeline (item 9) are not
-ported: their configs raise ``NotImplementedError`` unless None.
+any other key is shorthand for a forward kwarg.  ``pipeline_config=
+{"depth": N}`` (fused only) attaches the input pipeline
+(``znicz_tpu_torch/pipeline``): a worker serves N batches ahead and
+copies each to the card on a side stream while the step runs.  The
+snapshotter (item 7) and the health guard (item 14) are not ported:
+their configs raise ``NotImplementedError`` unless None.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ from typing import Optional
 
 from znicz_tpu_torch.core.mutable import Bool
 from znicz_tpu_torch.core.plumbing import Repeater
-from znicz_tpu_torch.loader import synthetic  # noqa: F401  (registers loaders)
+from znicz_tpu_torch.loader import (mnist, pickles,  # noqa: F401
+                                    synthetic)  # (register loaders)
 from znicz_tpu_torch.loader.base import TRAIN, get_loader
 from znicz_tpu_torch.parallel.step import FusedTrainStep
 import znicz_tpu_torch.units  # noqa: F401  (populates the MatchingObject registry)
@@ -144,6 +148,10 @@ class StandardWorkflow(StandardWorkflowBase):
         self.decision_config = dict(decision_config or {})
         self.fused = fused
         self.mesh = mesh
+        #: async input pipeline (znicz_tpu_torch.pipeline): ``{"depth":
+        #: N}`` prefetches N batches ahead with overlapped H2D staging;
+        #: None = synchronous serving
+        self.pipeline_config = pipeline_config
         self.defer_metrics = defer_metrics
         #: "sgd" (reference parity, eager + fused) or "adam" (AdamW,
         #: fused-only — the eager gd units carry SGD semantics)
@@ -187,13 +195,12 @@ class StandardWorkflow(StandardWorkflowBase):
                 "path owns its own host uploads and may draw host prng "
                 "per step, which the prefetch producer would reorder)")
         for config, what, item in (
-                (pipeline_config, "the input pipeline (pipeline_config)",
-                 "9"),
                 (health_config, "the health guard (health_config)", "14"),
                 (snapshotter_config, "the snapshotter (snapshotter_config)",
                  "7")):
             if config is not None:
                 raise _not_ported(what, item)
+        self.input_pipeline = None
         self.create_workflow()
 
     # -- graph assembly ------------------------------------------------------
@@ -205,6 +212,8 @@ class StandardWorkflow(StandardWorkflowBase):
         self.link_decision(self.evaluator)
         if self.fused:
             self.link_fused_step()
+            if self.pipeline_config is not None:
+                self.link_pipeline()
         else:
             self.link_gds()
         # the loop back-edge: exactly ONE provider — the Repeater fires on
@@ -325,6 +334,15 @@ class StandardWorkflow(StandardWorkflowBase):
         else:
             self.decision.link_attrs(step, ("minibatch_mse", "mse"))
         self._tail = self.decision
+
+    def link_pipeline(self) -> None:
+        """Async input pipeline: a prefetch worker runs the loader's
+        serve loop ahead of the step and stages each batch onto the card
+        while the previous step computes (znicz_tpu_torch.pipeline)."""
+        from znicz_tpu_torch.pipeline import attach_prefetcher
+        self.input_pipeline = attach_prefetcher(
+            self.loader, stager=self.step.make_stager(),
+            **self.pipeline_config)
 
     def link_end_point(self) -> None:
         self.end_point.link_from(self._tail)
