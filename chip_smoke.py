@@ -208,6 +208,23 @@ exits non-zero without the final ``ok`` line):
    the step does not run on, the same graphs and replays (no capture in
    the steady state), the worker dead after run and stop, the gather
    bit-identical.
+17e. **snapshot_resume** — snapshots, the workflow CLI and the
+   supervisor: ``python -m znicz_tpu_torch wf.py`` trains
+   ``alexnet.build()`` at full width (227 px, batch 128, 1000 classes,
+   dropout 0.5; 256 samples, no validation) to epoch 1 with the
+   snapshotter on, a second process resumes that snapshot with ``-w`` to
+   epoch 2, and its history, a digest of every param and momentum leaf
+   and of the step's generator state equal the uninterrupted run's
+   here, its counters showing the SGD and LRN kernels launched (the
+   snapshot's size, write and restore seconds printed); CIFAR conv on
+   its pickle files at depth 2 crashed at a seeded epoch and resumed by
+   ``run_supervised``, bit-identical to the synchronous run with no
+   worker left; MNIST FC at bench_fc's width with one hidden layer
+   (784-4096-10), AdamW and EMA, snapshotted, restored into a fresh
+   workflow (the launcher's ``resume``) and continued
+   bit-identically (one AdamW launch a step); the same, and the 67-px
+   AlexNet with dropout, restored into a step that has already
+   captured its graphs: bit-identical, no stale replay.
 18. **kernel_hw** — ``utils/kernel_hw.run_parity("cuda")``, all fourteen
    families of the reference ``ok``; the LRN, dropout and bf16 conv
    forward counters set to 0 just before and read just after (the only
@@ -217,7 +234,7 @@ exits non-zero without the final ``ok`` line):
 (kernel, flash, gemm, optim, mnist_fused, stochastic_pool,
 pool_backward, conv, alexnet_eager, deconv, kohonen, lrn_dropout,
 ae_fused, alexnet_fused, graph_parity, fused_conv_parity,
-input_pipeline, or two that
+input_pipeline, snapshot_resume, or two that
 only measure and run on older trees of the port too: **waves**, the
 weight gradient at AlexNet's and build_deep's shapes with split_k's
 slices, one fewer and one more, through the C entry; **fused_compare**,
@@ -5813,6 +5830,476 @@ def phase_input_pipeline() -> dict:
     return out
 
 
+#: snapshot_resume (a): AlexNet at full width (227 px, batch 128, 1000
+#: classes, dropout 0.5), 2 train minibatches an epoch and no
+#: validation; the first CLI run to SR_EPOCHS - 1 epochs writes the
+#: snapshot, the second resumes it to SR_EPOCHS; each CLI process's
+#: time limit in seconds
+SR_TRAIN, SR_EPOCHS, SR_CLI_TIMEOUT = 2 * 128, 2, 300
+#: (b): CIFAR conv on its pickle files, pipelined at depth 2
+SR_CIFAR_EPOCHS = 4
+#: (c): MNIST FC at bench_fc's width, cut to one hidden layer (its
+#: AdamW + EMA snapshot of both hidden layers is 253 MB and took 21-26 s
+#: of one core's compression on the H100 host), AdamW and EMA: the
+#: layers, train and validation samples, the EMA decay
+SR_FC_LAYERS = FC_LAYERS[:1]
+SR_FC_TRAIN, SR_FC_VALID, SR_FC_EMA = 4 * 1024, 1024, 0.999
+#: the workflow file the CLI runs in (a): alexnet.build() at its full
+#: width, its epochs, sample count and snapshotter from
+#: root.snapshot_smoke; after main() a result file: the history, a
+#: SHA-256 of every param, momentum and optimizer leaf of the step and
+#: of its generator's state, the SGD and LRN launch counters (set to 0
+#: just before main), the seconds the restore took and the snapshot
+#: written (its size and seconds)
+SR_WORKFLOW = '''
+import hashlib
+import json
+import os
+import time
+
+import torch
+
+from znicz_tpu_torch.core.config import root
+from znicz_tpu_torch.kernels import lrn, optim
+from znicz_tpu_torch.models import alexnet
+
+
+def build():
+    cfg = root.snapshot_smoke
+    snaps = cfg.get("snapshotter_config")
+    return alexnet.build(max_epochs=cfg.max_epochs, n_train=cfg.n_train,
+                         n_valid=0, dropout=0.5,
+                         snapshotter_config=snaps.as_dict() if snaps
+                         else None)
+
+
+def digests(step):
+    out = {f"{i}.{k}": hashlib.sha256(
+        t.detach().reshape(-1).cpu().view(torch.uint8).numpy().tobytes()
+        ).hexdigest()
+        for i, leaf in enumerate(step._params) for k, t in leaf.items()}
+    out["generator"] = hashlib.sha256(
+        step._gen.get_state().numpy().tobytes()).hexdigest()
+    return out
+
+
+def wait_after_initialize(w, path, timeout):
+    """Make ``w.initialize`` wait, once done, until ``path`` exists (a
+    snapshot another process publishes with os.replace)."""
+    initialize = w.initialize
+    waited = {}
+
+    def wrapped(**kwargs):
+        initialize(**kwargs)
+        t0 = time.perf_counter()
+        while not os.path.exists(path):
+            if time.perf_counter() - t0 > timeout:
+                raise TimeoutError(f"{path} did not appear")
+            time.sleep(0.02)
+        waited["s"] = time.perf_counter() - t0
+
+    w.initialize = wrapped
+    return waited
+
+
+def run(load, main):
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    w, _ = load(build)
+    cfg = root.snapshot_smoke
+    waited = {} if not cfg.get("wait_for") else wait_after_initialize(
+        w, cfg.wait_for, cfg.wait_timeout)
+    optim.sgd_launches = lrn.fwd_launches = lrn.bwd_launches = 0
+    t0 = time.perf_counter()
+    main()
+    main_s = time.perf_counter() - t0
+    launcher = getattr(main, "__self__", None)
+    snap = getattr(w, "snapshotter", None)
+    with open(cfg.result_file, "w") as f:
+        json.dump({"history": w.decision.metrics_history,
+                   "digests": digests(w.step),
+                   "launches": {"sgd_update": optim.sgd_launches,
+                                "lrn_forward": lrn.fwd_launches,
+                                "lrn_backward": lrn.bwd_launches},
+                   "graph_replays": sum(g.replays for g in
+                                        (w.step._graphs or {}).values()
+                                        if g),
+                   "restore_s": getattr(launcher, "restore_seconds", None),
+                   "waited_s": waited.get("s"),
+                   "snapshot": None if snap is None else snap.last_export,
+                   "main_s": main_s, "end_time": time.time()}, f)
+'''
+
+
+class _SrCli:
+    """One ``python -m znicz_tpu_torch`` run of the workflow file, started
+    at once in its own process; ``result()`` waits for it and returns
+    (its result document, the seconds from its start to its result
+    written), failing on a non-zero exit; ``kill()`` stops it if it
+    still runs."""
+
+    def __init__(self, tmp, wf, name, *args) -> None:
+        self.name = name
+        self.path = os.path.join(tmp, f"{name}.json")
+        self.t0 = time.time()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "znicz_tpu_torch", wf, "--random-seed",
+             str(SEED), "-o", f"root.snapshot_smoke.n_train={SR_TRAIN}",
+             "-o", f"root.snapshot_smoke.result_file={self.path}", *args],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            env={**os.environ, "ZNICZ_TPU_SITE_CONFIG": ""},
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def result(self) -> tuple:
+        out, err = self.proc.communicate(timeout=SR_CLI_TIMEOUT)
+        if self.proc.returncode != 0:
+            fail(f"snapshot_resume: the {self.name} CLI run exited "
+                 f"{self.proc.returncode}: {out[-2000:]} {err[-4000:]}")
+        with open(self.path) as f:
+            doc = json.load(f)
+        # from the start to the result written (the process's own clock)
+        return doc, doc["end_time"] - self.t0
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+
+
+def _sr_in_process(wf: str, tmp: str) -> tuple:
+    """The uninterrupted SR_EPOCHS-epoch run of the same workflow file in
+    this process, through the launcher as the CLI drives it (seeded as
+    ``--random-seed`` seeds) -> (result document, wall seconds)."""
+    from znicz_tpu_torch.__main__ import load_workflow_module
+    from znicz_tpu_torch.launcher import Launcher
+
+    result = os.path.join(tmp, "uninterrupted.json")
+    root.snapshot_smoke.update({"max_epochs": SR_EPOCHS,
+                                "n_train": SR_TRAIN,
+                                "result_file": result})
+    try:
+        tprng.seed_all(SEED)
+        module = load_workflow_module(wf)
+        launcher = Launcher(device=TorchDevice())
+        t0 = time.perf_counter()
+        module.run(launcher.load, launcher.main)
+        wall = time.perf_counter() - t0
+    finally:
+        del root.snapshot_smoke
+    with open(result) as f:
+        return json.load(f), wall
+
+
+def _sr_cli_round_trip(tmp: str, overlapped) -> tuple:
+    """(a): the CLI to epoch SR_EPOCHS - 1 with the snapshotter on, the
+    CLI again from that snapshot (``-w``) to SR_EPOCHS, and the
+    uninterrupted run in this process.  Both CLI processes start at once
+    (the second restores when the first has published its snapshot)
+    and run while ``overlapped()`` (the phase's other parts) and the
+    uninterrupted run go on here -> (reading, the other parts' result,
+    what failed)."""
+    wf = os.path.join(tmp, "alexnet_wf.py")
+    with open(wf, "w") as f:
+        f.write(SR_WORKFLOW)
+    snaps = os.path.join(tmp, "snaps")
+    snap_path = os.path.join(snaps, f"alexnet_{SR_EPOCHS - 1}.npz")
+    clis = [_SrCli(
+        tmp, wf, "first",
+        "-o", f"root.snapshot_smoke.max_epochs={SR_EPOCHS - 1}",
+        "-o", "root.snapshot_smoke.snapshotter_config={"
+        f"'directory': '{snaps}', 'prefix': 'alexnet', "
+        "'only_improved': False}")]
+    try:
+        # the resumed process starts too: it initializes, then waits for
+        # the first one to publish the snapshot before it restores it
+        clis.append(_SrCli(
+            tmp, wf, "resumed", "-w", snap_path,
+            "-o", f"root.snapshot_smoke.max_epochs={SR_EPOCHS}",
+            "-o", f"root.snapshot_smoke.wait_for={snap_path}",
+            "-o", f"root.snapshot_smoke.wait_timeout={SR_CLI_TIMEOUT}"))
+        others = overlapped()
+        straight, straight_s = _sr_in_process(wf, tmp)
+        first, first_s = clis[0].result()
+        resumed, resumed_s = clis[1].result()
+    finally:
+        for cli in clis:
+            cli.kill()
+    snap = first["snapshot"]
+    if snap is None or snap["path"] != snap_path:
+        fail(f"snapshot_resume: the first run wrote no snapshot at "
+             f"{snap_path}: {first}")
+    bad = []
+    steps = SR_TRAIN // ALEX_BATCH              # train minibatches an epoch
+    want = {"sgd_update": 16 * steps, "lrn_forward": 2 * steps,
+            "lrn_backward": 2 * steps}
+    if resumed["history"] != straight["history"]:
+        bad.append(f"history {resumed['history']} != uninterrupted "
+                   f"{straight['history']}")
+    moved = sorted(k for k, v in straight["digests"].items()
+                   if resumed["digests"].get(k) != v)
+    if moved or set(resumed["digests"]) != set(straight["digests"]):
+        bad.append(f"digests differ from the uninterrupted run: {moved}")
+    if resumed["launches"] != want:
+        bad.append(f"the resumed run's launches {resumed['launches']} != "
+                   f"{want}")
+    if resumed["graph_replays"] < 1:
+        bad.append("the resumed run replayed no graph")
+    reading = {
+        "config": {"input": 227, "batch": ALEX_BATCH, "classes": 1000,
+                   "dropout": 0.5, "n_train": SR_TRAIN, "n_valid": 0,
+                   "epochs": SR_EPOCHS, "snapshot_epoch": SR_EPOCHS - 1},
+        "snapshot_mb": snap["bytes"] / 1e6,
+        "collect_s": snap["collect_s"], "write_s": snap["write_s"],
+        "restore_s": resumed["restore_s"],
+        "cli_first_s": first_s, "cli_resumed_s": resumed_s,
+        "uninterrupted_s": straight_s,
+        "first_main_s": first["main_s"], "resumed_main_s":
+        resumed["main_s"], "resumed_waited_s": resumed["waited_s"],
+        "overlapped": "both CLI processes ran beside each other and the "
+        "phase's other parts; the resumed one restored once the first "
+        "published its snapshot",
+        "history": resumed["history"],
+        "leaves_compared": len(straight["digests"]),
+        "resumed_launches": resumed["launches"],
+        "resumed_graph_replays": resumed["graph_replays"],
+        "identical": not bad}
+    return reading, others, bad
+
+
+def _sr_cifar(snap_dir, depth, built):
+    """CIFAR conv on its pickle files (the reference's config, fused),
+    SR_CIFAR_EPOCHS epochs, at pipeline ``depth`` (None: synchronous),
+    snapshotting every epoch into ``snap_dir`` when given; appended to
+    ``built``."""
+    from znicz_tpu_torch.models import cifar_conv as tcifar
+    from znicz_tpu_torch.pipeline import attach_prefetcher
+
+    tprng.seed_all(SEED)
+    cfg = None if snap_dir is None else {
+        "directory": snap_dir, "prefix": "cifar", "only_improved": False,
+        "keep_all": True}
+    w = tcifar.build(max_epochs=SR_CIFAR_EPOCHS, n_train=IP_CIFAR_TRAIN,
+                     n_valid=IP_CIFAR_VALID, snapshotter_config=cfg)
+    if depth:
+        w.input_pipeline = attach_prefetcher(
+            w.loader, stager=w.step.make_stager(), depth=depth)
+    w.initialize(device=TorchDevice())
+    built.append(w)
+    return w
+
+
+def _sr_supervised_drill() -> tuple:
+    """(b): the synchronous run, then the pipelined one crashed at a
+    seeded epoch and resumed by ``run_supervised`` -> (reading, what
+    failed)."""
+    from znicz_tpu_torch.pipeline import BatchPrefetcher
+    from znicz_tpu_torch.resilience import faults
+    from znicz_tpu_torch.resilience.supervisor import (SupervisorPolicy,
+                                                       run_supervised)
+
+    built = []
+    t0 = time.perf_counter()
+    sync = _sr_cifar(None, None, built)
+    sync.run()
+    sync.step.sync_to_units()
+    sync_w = _conv_fc_weights(sync)
+    crash_epoch = int(np.random.default_rng(SEED).integers(
+        1, SR_CIFAR_EPOCHS))
+    plan = faults.FaultPlan(seed=SEED)
+    plan.crash_at("workflow.step", when=lambda workflow, unit:
+                  int(workflow.decision.epoch_number) == crash_epoch)
+    with tempfile.TemporaryDirectory() as snaps:
+        with faults.active(plan):
+            report = run_supervised(
+                lambda: _sr_cifar(snaps, IP_DEPTH, built), snaps,
+                SupervisorPolicy(sleep=lambda s: None))
+        w = report.workflow
+        w.step.sync_to_units()
+        weights = _conv_fc_weights(w)
+        staged = w.input_pipeline.stats.snapshot()["bytes_staged"]
+        for each in built:
+            each.stop()
+        alive = [t.name for t in threading.enumerate()
+                 if t.name == BatchPrefetcher.THREAD_NAME and t.is_alive()]
+        flights = len(report.flights)
+    bad = []
+    if not plan.log or report.restarts != 1 or not report.resumed_from:
+        bad.append(f"the drill: {report.as_dict()}, fired {plan.log}")
+    if w.decision.metrics_history != sync.decision.metrics_history:
+        bad.append(f"supervised history {w.decision.metrics_history} != "
+                   f"sync {sync.decision.metrics_history}")
+    moved = [k for k in sync_w if not all(
+        np.array_equal(a, b) for a, b in zip(sync_w[k], weights[k]))]
+    if moved:
+        bad.append(f"supervised weights moved from the sync run: {moved}")
+    if alive or staged <= 0:
+        bad.append(f"workers alive {alive}, bytes staged {staged}")
+    reading = {"epochs": SR_CIFAR_EPOCHS, "n_train": IP_CIFAR_TRAIN,
+               "n_valid": IP_CIFAR_VALID, "depth": IP_DEPTH,
+               "loader": type(w.loader).__name__,
+               "crash_epoch": crash_epoch, "restarts": report.restarts,
+               "resumed_from": [os.path.basename(p)
+                                for p in report.resumed_from],
+               "flights": flights, "bytes_staged": staged,
+               "workers_alive": alive,
+               "history": w.decision.metrics_history,
+               "seconds": time.perf_counter() - t0, "identical": not bad}
+    return reading, bad
+
+
+def _step_digests(step) -> dict:
+    """Every leaf of the fused step's params (weights, velocities,
+    moments, step counts, EMA mirrors) and its generator's state as
+    host bytes, for a bit-for-bit comparison."""
+    out = {f"{i}.{k}": t.detach().reshape(-1).cpu().view(
+        torch.uint8).numpy().tobytes()
+        for i, leaf in enumerate(step._params) for k, t in leaf.items()}
+    out["generator"] = step._gen.get_state().numpy().tobytes()
+    return out
+
+
+def _sr_resume_pair(make, tmp: str, name: str, count=None) -> tuple:
+    """(c) and (d) for one workflow: ``make(epochs)`` -> an initialized
+    fused workflow.  The uninterrupted 2-epoch run; a 1-epoch run's
+    snapshot resumed (the launcher's ``resume``: the restore, the
+    Decision re-armed for the second epoch) in a fresh 2-epoch workflow
+    (the counter
+    ``count`` read over its run); and the same snapshot restored into a
+    2-epoch workflow that has already run both epochs, every body
+    captured and replayed, which must replay the restored state and not
+    the buffers it had -> (reading, what failed)."""
+    from znicz_tpu_torch.launcher import resume
+    from znicz_tpu_torch.snapshotter import collect_state, write_snapshot
+
+    full = make(2)
+    full.run()
+    want = (full.decision.metrics_history, _step_digests(full.step))
+    first = make(1)
+    first.run()
+    path = os.path.join(tmp, f"{name}.npz")
+    t0 = time.perf_counter()
+    arrays, meta = collect_state(first)
+    write_snapshot(path, arrays, meta)
+    write_s = time.perf_counter() - t0
+    del first
+    bad, reading = [], {"snapshot_mb": os.path.getsize(path) / 1e6,
+                        "write_s": write_s}
+    fresh = make(2)
+    t0 = time.perf_counter()
+    resume(fresh, path)
+    reading["restore_s"] = time.perf_counter() - t0
+    if count is not None:
+        setattr(*count, 0)
+    fresh.run()
+    if count is not None:
+        reading["launches"] = getattr(*count)
+    got = (fresh.decision.metrics_history, _step_digests(fresh.step))
+    if got != want:
+        bad.append(f"{name}: the fresh restore differs from the "
+                   f"uninterrupted run: {got[0]} vs {want[0]}, leaves "
+                   f"{sorted(k for k in want[1] if got[1].get(k) != want[1][k])}")
+    del fresh
+    stepped = make(2)
+    stepped.run()
+    graphs = dict(stepped.step._graphs or {})
+    before = replays_of(stepped.step)
+    resume(stepped, path)
+    stepped.run()
+    after = replays_of(stepped.step)
+    got = (stepped.decision.metrics_history, _step_digests(stepped.step))
+    same_graphs = all(stepped.step._graphs.get(k) is g
+                      for k, g in graphs.items())
+    if got != want:
+        bad.append(f"{name}: the restore into the captured step differs "
+                   f"(a stale replay?): {got[0]} vs {want[0]}, leaves "
+                   f"{sorted(k for k in want[1] if got[1].get(k) != want[1][k])}")
+    if not graphs or not same_graphs or \
+            after.get("train", 0) <= before.get("train", 0):
+        bad.append(f"{name}: graphs recaptured or not replayed: "
+                   f"{before} -> {after}")
+    reading.update({"history": want[0], "leaves": len(want[1]),
+                    "captured_graphs": len(graphs),
+                    "replays_before_restore": before,
+                    "replays_after_restore": after,
+                    "graphs_kept": same_graphs, "identical": not bad})
+    return reading, bad
+
+
+def _sr_mnist_adam(epochs):
+    tprng.seed_all(SEED)
+    w = tmnist.build_fused(max_epochs=epochs, layers=SR_FC_LAYERS,
+                           minibatch_size=FC_BATCH, n_train=SR_FC_TRAIN,
+                           n_valid=SR_FC_VALID, optimizer="adam",
+                           ema_decay=SR_FC_EMA)
+    w.initialize(device=TorchDevice())
+    return w
+
+
+def _sr_alexnet67(epochs):
+    tprng.seed_all(SEED)
+    w = _gp_alexnet()
+    w.decision.max_epochs = epochs
+    w.initialize(device=TorchDevice())
+    return w
+
+
+def phase_snapshot_resume() -> dict:
+    """Snapshots, the workflow CLI and the supervisor on the card.  (a)
+    ``python -m znicz_tpu_torch wf.py`` trains alexnet.build() at full
+    width to epoch 1 and writes a snapshot; a second process resumes it
+    with ``-w`` to epoch 2; its history, a digest of every param,
+    momentum leaf and of the step's generator state equal those of the
+    uninterrupted 2-epoch run made here, and its counters show the SGD
+    and LRN kernels launched (16 and 2 + 2 a train step).  (b) CIFAR conv
+    on its pickle files at pipeline depth 2, crashed at a seeded epoch
+    and resumed by ``run_supervised``: history and weights equal to the
+    synchronous run's, no prefetch worker left.  (c) MNIST FC at
+    bench_fc's width with one hidden layer, AdamW and EMA (one
+    ``adam_multi_kernel``
+    launch a step): snapshot, restore into a fresh workflow, continue,
+    bit-identical to the uninterrupted run.  (d) that snapshot, and the
+    67-px AlexNet's with dropout, restored into a workflow whose step
+    has already captured and replayed its graphs: it continues
+    bit-identical, the graphs kept.  (b)-(d) and the uninterrupted run
+    of (a) run here while the first CLI process runs (most of it the
+    snapshot's compression, on one host core).  cuDNN runs
+    deterministic."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    t0 = time.perf_counter()
+    out = {"phase": "snapshot_resume", "cudnn_deterministic": True}
+
+    def others(tmp):
+        bad, t1 = [], time.perf_counter()
+        out["cifar_supervised"], b = _sr_supervised_drill()
+        bad += b
+        out["mnist_adam_ema"], b = _sr_resume_pair(
+            _sr_mnist_adam, tmp, "mnist_adam_ema",
+            (koptim, "adam_launches"))
+        bad += b
+        steps = SR_FC_TRAIN // FC_BATCH
+        if out["mnist_adam_ema"]["launches"] != steps:
+            bad.append(f"adam launches {out['mnist_adam_ema']['launches']}"
+                       f" != one a train step ({steps})")
+        out["alexnet67_dropout"], b = _sr_resume_pair(
+            _sr_alexnet67, tmp, "alexnet67_dropout")
+        # (b)-(d) in this process, beside the CLI processes of (a)
+        out["in_process_s"] = time.perf_counter() - t1
+        return bad + b
+
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out["alexnet_cli"], bad, b = _sr_cli_round_trip(
+                tmp, lambda: others(tmp))
+            bad += b
+    finally:
+        torch.backends.cudnn.deterministic = False
+    out["seconds"] = time.perf_counter() - t0
+    if bad:
+        fail(f"snapshot_resume: {bad}: {out}")
+    return out
+
+
 #: phases ``--phase`` may run alone (after the build), for iterating on
 #: one kernel family; the smoke proper takes no arguments
 PHASES_ALONE = {"kernel": lambda: phase_kernel(),
@@ -5833,6 +6320,7 @@ PHASES_ALONE = {"kernel": lambda: phase_kernel(),
                 "graph_parity": lambda: phase_graph_parity(),
                 "fused_conv_parity": lambda: phase_fused_conv_parity(),
                 "input_pipeline": lambda: phase_input_pipeline(),
+                "snapshot_resume": lambda: phase_snapshot_resume(),
                 "fused_compare": lambda: phase_fused_compare()}
 
 
@@ -5915,6 +6403,7 @@ def main() -> int:
     emit(phase_graph_parity())
     emit(phase_fused_conv_parity())
     emit(phase_input_pipeline())
+    emit(phase_snapshot_resume())
     kernel_hw = phase_kernel_hw()
     emit(kernel_hw)
     emit({**kernel_line(kernel, flash, gemm, optim, serve, train, eager,

@@ -444,10 +444,16 @@ def test_alexnet_refusals():
                {"loader_config": {"augment": True}}):
         with pytest.raises(NotImplementedError, match="loader/image.py"):
             talexnet.build(fused=False, **kw)
-    for cfg in ("health_config", "snapshotter_config"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TStandard(layers=_small_layers(talexnet), fused=True,
-                      loader_name="synthetic_image", **{cfg: {}})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TStandard(layers=_small_layers(talexnet), fused=True,
+                  loader_name="synthetic_image", health_config={})
+    # the snapshotter is ported (tests/test_torch_port_snapshotter.py):
+    # its gated side chain sits after the Decision
+    snapped = TStandard(layers=_small_layers(talexnet), fused=True,
+                        loader_name="synthetic_image",
+                        snapshotter_config={"only_improved": False})
+    assert type(snapped.snapshotter).__name__ == "NNSnapshotter"
+    assert snapped.decision in snapped.snapshotter.links_from
     # the input pipeline is ported (tests/test_torch_port_pipeline.py)
     piped = TStandard(layers=_small_layers(talexnet), fused=True,
                       loader_name="synthetic_image",

@@ -58,7 +58,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                  "models.cifar_conv", "utils.kernel_hw", "native",
                  "pipeline", "pipeline.prefetcher", "loader.mnist",
                  "loader.pickles", "loader.normalization",
-                 "resilience.retry"):
+                 "resilience.retry", "snapshotter", "launcher", "__main__",
+                 "observe.flight", "observe.watchtower",
+                 "resilience.supervisor"):
         assert f"znicz_tpu_torch.{name}" in doc["modules"]
 
 
@@ -81,7 +83,8 @@ COPIES = ["core/config.py", "core/logger.py", "observe/registry.py",
           "core/units.py", "core/plumbing.py", "core/workflow.py",
           "units/decision.py", "ops/kohonen.py", "resilience/retry.py",
           "loader/normalization.py", "loader/mnist.py", "loader/pickles.py",
-          "native/loader_core.cpp"]
+          "native/loader_core.cpp", "resilience/supervisor.py",
+          "observe/watchtower.py"]
 
 
 def _code(src: str) -> str:

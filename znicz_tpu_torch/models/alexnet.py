@@ -91,3 +91,10 @@ def build(max_epochs: int = 1, minibatch_size: int = 128,
         decision_config={"max_epochs": max_epochs},
         snapshotter_config=snapshotter_config, fused=fused, mesh=mesh,
         optimizer_config=optimizer_config)
+
+
+def run(load, main):
+    """The sample's ``run(load, main)`` entry, driven by the CLI
+    (``python -m znicz_tpu_torch <workflow.py> [config.py ...]``)."""
+    load(build)
+    main()

@@ -60,3 +60,10 @@ def build(max_epochs: int = 10, minibatch_size: int = 100,
         decision_config={"max_epochs": max_epochs},
         snapshotter_config=snapshotter_config, fused=fused, mesh=mesh,
         optimizer=optimizer, optimizer_config=optimizer_config)
+
+
+def run(load, main):
+    """The sample's ``run(load, main)`` entry, driven by the CLI
+    (``python -m znicz_tpu_torch <workflow.py> [config.py ...]``)."""
+    load(build)
+    main()

@@ -1,0 +1,768 @@
+"""Watchtower — retained time series and declarative SLO/health rules:
+a copy of ``znicz_tpu/observe/watchtower.py`` (stdlib only; the drift
+check in ``tests/test_torch_port_isolation.py`` holds the code equal).
+
+- :class:`TimeSeriesRing` samples ``registry.snapshot_flat()`` into a
+  bounded ring of timestamped deltas (a sample stores only the keys
+  whose value changed; evicted deltas fold into a base snapshot, so
+  reconstruction is exact).  ``summary()`` gives min/mean/max/last and
+  a rate for counters.
+- :class:`Rule` is a predicate over one metric (an exact flat key, a
+  family summed across labelsets, or a label-filtered subset), reduced
+  over a trailing window and required to breach for ``for_s`` seconds
+  before it trips.  A trip increments
+  ``znicz_watchtower_trips_total{rule=...}``, drops a
+  ``watchtower.trip`` instant on the trace timeline, offers the flight
+  recorder an auto-dump, and calls the rule's action (log by default;
+  :func:`supervisor_interrupt` for the cooperative hang abort).
+
+:class:`Watchtower` owns both and evaluates every rule on the thread
+that samples: a background cadence (``start(interval_s)``) and/or the
+workflow run loop (``attach(workflow)`` samples every
+``step_every``-th ``workflow.step`` boundary).  Sampling only reads the
+registry, so metric histories are bit-exact with the sampler on or off.
+The flight recorder (``observe/flight.py``) samples the global
+``WATCHTOWER`` into every artifact.
+"""
+
+from __future__ import annotations
+
+import logging
+import re
+import threading
+import time
+from collections import deque
+from typing import Callable, Optional
+
+from znicz_tpu_torch.observe import probe as _probe
+from znicz_tpu_torch.observe import registry as _reg
+from znicz_tpu_torch.observe import trace as _trace
+
+#: default ring capacity — at the 5 s default cadence, one hour of
+#: history; at per-32-signal step sampling, the newest few epochs
+DEFAULT_CAPACITY = 720
+
+#: default sampling stride for workflow-attached towers: one sample per
+#: N control-graph signal deliveries (count-based => deterministic; 32
+#: keeps the sampler's share of a fast CPU step loop well under the
+#: bench's 2 % overhead bound)
+DEFAULT_STEP_EVERY = 32
+
+_TRIPS = _reg.counter(
+    "znicz_watchtower_trips_total",
+    "SLO/health rule trips (rule engine, observe/watchtower.py)",
+    labelnames=("rule",))
+
+#: flat-key suffixes treated as monotonic (rate shown in summaries)
+_COUNTER_SUFFIXES = ("_total", "_count", "_sum")
+
+
+def _is_counter_key(key: str) -> bool:
+    name = key.split("{", 1)[0]
+    return name.endswith(_COUNTER_SUFFIXES)
+
+
+class TimeSeriesRing:
+    """Bounded ring of timestamped ``snapshot_flat()`` deltas."""
+
+    def __init__(self, capacity: int = DEFAULT_CAPACITY,
+                 registry: Optional[_reg.Registry] = None) -> None:
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        self.capacity = int(capacity)
+        self._registry = registry or _reg.REGISTRY
+        self._lock = threading.Lock()
+        self._base: dict = {}          # values just before the oldest sample
+        self._base_ts: Optional[float] = None
+        self._samples: deque = deque()  # (ts, {key: new_value})
+        self._last: dict = {}          # values as of the newest sample
+        self._version = 0              # bumps per sample (summary cache)
+        self._summary_cache: tuple = (-1, {})
+
+    def __len__(self) -> int:
+        return len(self._samples)
+
+    # -- capture -------------------------------------------------------------
+    def sample(self, flat: Optional[dict] = None,
+               ts: Optional[float] = None) -> dict:
+        """Capture one sample; returns the delta recorded.  ``flat`` and
+        ``ts`` are injectable for deterministic tests; production callers
+        pass neither.
+
+        Production samples use ``skip_zero=False`` — with the default
+        (compact) flavor, a gauge draining back to 0 simply VANISHES
+        from the flat dict and its last nonzero value would be carried
+        forward forever (a drained serve queue reading saturated in
+        every later sample, rule, and flight artifact).  Keys that were
+        present and then vanish are recorded as an explicit 0 delta for
+        the same reason — belt and braces for injected test flats.
+
+        A NaN value (a DEAD scrape-time gauge provider — the registry
+        deliberately returns NaN instead of crashing the scrape) is
+        treated as a vanish: NaN != NaN would re-record the key in
+        EVERY delta, and a bare ``NaN`` token is invalid JSON for
+        strict consumers of ``/timeseries.json`` — the series drops to
+        an explicit 0 instead of carrying stale saturation forward."""
+        if flat is None:
+            flat = self._registry.snapshot_flat(skip_zero=False,
+                                                buckets=True)
+        if ts is None:
+            ts = time.time()
+        with self._lock:
+            delta = {}
+            for k, v in flat.items():
+                if v == v and self._last.get(k) != v:
+                    delta[k] = v
+            for k, last in self._last.items():
+                if last != 0.0 and (k not in flat
+                                    or flat[k] != flat[k]):
+                    delta[k] = 0.0
+            self._samples.append((ts, delta))
+            self._last.update(delta)
+            while len(self._samples) > self.capacity:
+                old_ts, old_delta = self._samples.popleft()
+                self._base.update(old_delta)
+                self._base_ts = old_ts
+            self._version += 1
+            return delta
+
+    def current(self) -> dict:
+        """Values as of the newest sample (one dict copy)."""
+        with self._lock:
+            return dict(self._last)
+
+    # -- reconstruction ------------------------------------------------------
+    def _snapshot_locked(self) -> tuple:
+        # base_ts rides in the same locked copy — read unlocked it could
+        # belong to a sample still visible in the samples list
+        with self._lock:
+            return (dict(self._base), self._base_ts,
+                    list(self._samples), self._version)
+
+    def series(self, metric: str, window_s: Optional[float] = None,
+               now: Optional[float] = None) -> list:
+        """``[(ts, value)]`` for ``metric`` (flat-key / family / label
+        filter semantics of :func:`match_keys`), summed across matching
+        keys with values carried forward between deltas.  ``window_s``
+        keeps only samples within the trailing window ending at ``now``
+        (default: the newest sample's stamp)."""
+        base, _, samples, _ = self._snapshot_locked()
+        if not samples:
+            return []
+        if now is None:
+            now = samples[-1][0]
+        cutoff = None if window_s is None else now - window_s
+        cur = dict(base)
+        out = []
+        for ts, delta in samples:
+            cur.update(delta)
+            keys = match_keys(metric, cur)
+            if not keys:
+                continue
+            if cutoff is not None and ts < cutoff:
+                continue
+            out.append((ts, sum(cur[k] for k in keys)))
+        return out
+
+    def summary(self) -> dict:
+        """Per-key ``{min, mean, max, last}`` over the retained window,
+        plus ``rate_per_s`` for counter-shaped keys — the ``/status.json``
+        digest.  Per-bucket ``_bucket{le=}`` keys are distribution
+        internals (the quantile keys already summarize them) and are
+        skipped.  Memoized per ring version: a dashboard polling faster
+        than the sampler pays one dict lookup, not a full replay of
+        capacity x keys."""
+        base, _, samples, version = self._snapshot_locked()
+        if not samples:
+            return {}
+        cached_version, cached = self._summary_cache
+        if cached_version == version:
+            return cached
+        stats: dict = {}
+        first_ts = samples[0][0]
+        last_ts = samples[-1][0]
+        cur = dict(base)
+        for ts, delta in samples:
+            cur.update(delta)
+            for key, value in cur.items():
+                if "_bucket{" in key:
+                    continue
+                s = stats.get(key)
+                if s is None:
+                    stats[key] = [value, value, value, 1, value, value]
+                else:                  # [min, max, sum, n, first, last]
+                    if value < s[0]:
+                        s[0] = value
+                    if value > s[1]:
+                        s[1] = value
+                    s[2] += value
+                    s[3] += 1
+                    s[5] = value
+        out = {}
+        span = last_ts - first_ts
+        for key, (mn, mx, total, n, first, last) in sorted(stats.items()):
+            row = {"min": round(mn, 6), "mean": round(total / n, 6),
+                   "max": round(mx, 6), "last": round(last, 6)}
+            if _is_counter_key(key) and span > 0:
+                row["rate_per_s"] = round((last - first) / span, 6)
+            out[key] = row
+        with self._lock:
+            self._summary_cache = (version, out)
+        return out
+
+    def to_dict(self, last_n: Optional[int] = None) -> dict:
+        """The ``GET /timeseries.json`` wire shape: the delta ring plus
+        the fold-in base — a consumer replays ``base`` then ``samples``
+        in order to reconstruct every series exactly.  ``last_n`` keeps
+        only the newest N samples, folding the over-limit head into the
+        base with the SAME invariant eviction uses (the flight recorder
+        bounds its artifacts this way)."""
+        base, base_ts, samples, _ = self._snapshot_locked()
+        if last_n is not None and len(samples) > last_n:
+            for ts, delta in samples[:-last_n]:
+                base.update(delta)
+                base_ts = ts
+            samples = samples[-last_n:]
+        return {"capacity": self.capacity,
+                "base_ts": base_ts,
+                "base": base,
+                "samples": [{"ts": ts, "delta": delta}
+                            for ts, delta in samples]}
+
+
+def match_keys(metric: str, flat: dict) -> list:
+    """Flat keys in ``flat`` selected by ``metric``:
+
+    - ``"name"`` — the exact label-less key, or every labelset of the
+      family (summed by callers);
+    - ``'name{kind="nan_guard"}'`` — label filter: every key of the
+      family whose label string carries ALL the given pairs.
+    """
+    if "{" in metric:
+        name, _, rest = metric.partition("{")
+        pairs = [p for p in rest.rstrip("}").split(",") if p]
+        prefix = name + "{"
+        return [k for k in flat if k.startswith(prefix)
+                and all(p in k for p in pairs)]
+    return [k for k in flat
+            if k == metric or k.startswith(metric + "{")]
+
+
+_LE_RE = re.compile(r'le="([^"]+)"')
+
+
+def _bucket_layout(metric: str, flat: dict) -> Optional[tuple]:
+    """``(edges, key_groups)`` for histogram family ``metric`` in
+    ``flat``: ``key_groups`` is one tuple of flat keys per ``le``
+    threshold (ascending, ``+Inf`` last when present), each group the
+    matching labelsets to sum.  The layout depends only on WHICH keys
+    exist — the sampler caches it and re-evaluates just the values."""
+    if "{" in metric:
+        name, _, rest = metric.partition("{")
+        pairs = [p for p in rest.rstrip("}").split(",") if p]
+    else:
+        name, pairs = metric, []
+    prefix = name + "_bucket{"
+    groups: dict = {}
+    for k in flat:
+        if not k.startswith(prefix) or not all(p in k for p in pairs):
+            continue
+        m = _LE_RE.search(k)
+        if m is None:
+            continue
+        le = float("inf") if m.group(1) == "+Inf" else float(m.group(1))
+        groups.setdefault(le, []).append(k)
+    if not groups:
+        return None
+    les = sorted(groups)
+    edges = tuple(le for le in les if le != float("inf"))
+    return edges, tuple(tuple(groups[le]) for le in les)
+
+
+def _bucket_eval(layout: tuple, flat: dict) -> tuple:
+    """Evaluate a :func:`_bucket_layout` against current values:
+    ``(edges, per_bucket_counts)`` shaped for
+    :func:`~znicz_tpu_torch.observe.registry.quantile_from_buckets` — finite
+    edges, per-bucket (non-cumulative) counts with overflow last."""
+    edges, key_groups = layout
+    cumulative = [sum(map(flat.__getitem__, keys))
+                  for keys in key_groups]
+    counts = [cumulative[0]] + [cumulative[i] - cumulative[i - 1]
+                                for i in range(1, len(cumulative))]
+    if len(edges) == len(key_groups):  # no +Inf labelset: empty overflow
+        counts.append(0.0)
+    return edges, tuple(counts)
+
+
+def bucket_counts(metric: str, flat: dict) -> Optional[tuple]:
+    """``(edges, per_bucket_counts)`` for histogram family ``metric``
+    from a flat snapshot carrying cumulative ``_bucket{le=...}`` keys
+    (``snapshot_flat(buckets=True)``), summed across matching labelsets
+    (same label-filter semantics as :func:`match_keys`); None when the
+    snapshot has no such keys."""
+    layout = _bucket_layout(metric, flat)
+    if layout is None:
+        return None
+    return _bucket_eval(layout, flat)
+
+
+class Rule:
+    """One declarative SLO/health rule; see module docstring.
+
+    ``predicate(value) -> bool`` judges the reduced window value;
+    ``for_s`` requires the breach to hold continuously that long before
+    the trip fires; after firing, the rule re-arms only once the
+    predicate goes false (no trip storms).  ``action(rule, value)`` is
+    invoked on each trip (exceptions are swallowed — a broken action
+    must not kill the sampler or the run loop).
+
+    With ``quantile=q`` the rule watches a HISTOGRAM family: each sample
+    stores the family's bucket-count vector (from the flat snapshot's
+    ``_bucket{le=}`` keys) and the reduce runs over bucket-count DELTAS
+    inside the window — ``window_quantile`` is the q-quantile of only
+    the window's observations, ``quantile_ratio`` divides the newer
+    half's q-quantile by the older half's (a trailing-baseline
+    regression detector).  The lifetime ``_p95`` estimate in the flat
+    snapshot cannot do either: cumulative buckets damp a mid-run
+    regression in proportion to process age.  Each judged delta must
+    hold >= ``min_count`` observations — volatile warm-up windows
+    return None (no trip) instead of a noise verdict.
+
+    The window is bounded by ``max_window`` entries as well as by
+    ``window_s`` seconds: a step-attached tower on a fast CPU loop can
+    sample hundreds of times per second, and an unbounded 60 s window
+    would make every per-sample reduce scan thousands of entries — the
+    oldest entries age out first, so the reduce still spans (up to)
+    the full window duration at coarser granularity.
+    """
+
+    #: reduces over bucket-count deltas (require quantile=...)
+    _QUANTILE = ("window_quantile", "quantile_ratio")
+    #: reduces needing >= 2 samples / a real window
+    _WINDOWED = ("delta", "rate", "ratio_to_first") + _QUANTILE
+    REDUCES = ("last", "min", "max", "mean") + _WINDOWED
+
+    def __init__(self, name: str, metric: str,
+                 predicate: Callable[[float], bool], *,
+                 window_s: float = 0.0, for_s: float = 0.0,
+                 reduce: str = "last",
+                 quantile: Optional[float] = None, min_count: int = 1,
+                 max_window: int = 512,
+                 action: Optional[Callable] = None,
+                 description: str = "") -> None:
+        if reduce not in self.REDUCES:
+            raise ValueError(f"unknown reduce {reduce!r}; known: "
+                             f"{self.REDUCES}")
+        if reduce in self._WINDOWED and window_s <= 0.0:
+            raise ValueError(f"reduce={reduce!r} needs window_s > 0")
+        if (quantile is not None) != (reduce in self._QUANTILE):
+            raise ValueError(f"reduce={reduce!r} and quantile="
+                             f"{quantile!r} go together: bucket-delta "
+                             f"reduces {self._QUANTILE} need a quantile "
+                             f"and scalar reduces reject one")
+        if quantile is not None and not 0.0 < quantile < 1.0:
+            raise ValueError(f"quantile must be in (0, 1), got "
+                             f"{quantile}")
+        self.name = name
+        self.metric = metric
+        self.predicate = predicate
+        self.window_s = float(window_s)
+        self.for_s = float(for_s)
+        self.reduce = reduce
+        self.quantile = quantile
+        self.min_count = int(min_count)
+        self.action = action
+        self.description = description
+        if max_window < 2:
+            raise ValueError(f"max_window must be >= 2, got {max_window}")
+        self.trips = 0
+        #: set by the evaluating tower once the metric selector has
+        #: matched at least one flat key — False in /status.json means
+        #: the rule has NEVER been evaluated (metric not yet emitted,
+        #: or a typo'd/mis-shaped selector: a histogram family with a
+        #: scalar reduce only exists as _count/_sum/_p95/_bucket keys)
+        self.matching = False
+        self.last_value: Optional[float] = None
+        self.last_trip_ts: Optional[float] = None
+        #: (ts, raw metric value); maxlen ages out the oldest entries
+        #: when the sampler cadence outruns window_s
+        self._window: deque = deque(maxlen=int(max_window))
+        self._breach_since: Optional[float] = None
+        self._tripped = False
+
+    # -- evaluation (called by the owning Watchtower's sampler) --------------
+    def _quantile_reduced(self) -> Optional[float]:
+        """Quantile over bucket-count deltas inside the window; the
+        window stores ``(ts, (edges, counts))`` entries.  Entries whose
+        edges differ from the newest (a re-declared histogram) are
+        dropped rather than mis-subtracted."""
+        edges = self._window[-1][1][0]
+        entries = [e for e in self._window if e[1][0] == edges]
+        if len(entries) < 2:
+            return None
+
+        def q_of(older, newer) -> Optional[float]:
+            d = [b - a for a, b in zip(older[1][1], newer[1][1])]
+            if sum(d) < self.min_count:
+                return None
+            return _reg.quantile_from_buckets(edges, d, self.quantile)
+
+        if self.reduce == "window_quantile":
+            return q_of(entries[0], entries[-1])
+        mid = len(entries) // 2            # quantile_ratio
+        older = q_of(entries[0], entries[mid])
+        newer = q_of(entries[mid], entries[-1])
+        if older is None or newer is None or older <= 0.0:
+            return None
+        return newer / older
+
+    def _reduced(self) -> Optional[float]:
+        if self.quantile is not None:
+            return self._quantile_reduced()
+        vals = [v for _, v in self._window]
+        if not vals:
+            return None
+        if self.reduce == "last":
+            return vals[-1]
+        if self.reduce == "min":
+            return min(vals)
+        if self.reduce == "max":
+            return max(vals)
+        if self.reduce == "mean":
+            return sum(vals) / len(vals)
+        if len(vals) < 2:
+            return None                    # windowed reduces need history
+        first_ts, first = self._window[0]
+        last_ts, last = self._window[-1]
+        if self.reduce == "delta":
+            return last - first
+        if self.reduce == "rate":
+            span = last_ts - first_ts
+            return (last - first) / span if span > 0 else None
+        return last / first if first > 0 else None   # ratio_to_first
+
+    def observe(self, ts: float, value: float) -> Optional[float]:
+        """Feed one sampled raw value; returns the reduced value when
+        this observation TRIPS the rule, None otherwise."""
+        self._window.append((ts, value))
+        if self.window_s > 0.0:
+            # evict past the window but keep ONE at-or-before-cutoff
+            # anchor — delta/rate/ratio_to_first measure against the
+            # window's trailing edge, not an arbitrary survivor
+            cutoff = ts - self.window_s
+            while len(self._window) > 1 and self._window[1][0] <= cutoff:
+                self._window.popleft()
+        else:
+            while len(self._window) > 1:
+                self._window.popleft()
+        reduced = self._reduced()
+        if reduced is None:
+            return None
+        self.last_value = reduced
+        if not self.predicate(reduced):
+            self._breach_since = None
+            self._tripped = False          # re-arm after recovery
+            return None
+        if self._breach_since is None:
+            self._breach_since = ts
+        if ts - self._breach_since < self.for_s:
+            return None
+        if self._tripped:
+            return None
+        self._tripped = True
+        self.trips += 1
+        self.last_trip_ts = ts
+        return reduced
+
+    def snapshot(self) -> dict:
+        return {"name": self.name, "metric": self.metric,
+                "reduce": self.reduce, "quantile": self.quantile,
+                "window_s": self.window_s,
+                "for_s": self.for_s, "trips": self.trips,
+                "matching": self.matching,
+                "breaching": self._breach_since is not None,
+                "last_value": self.last_value,
+                "last_trip_ts": self.last_trip_ts,
+                "description": self.description}
+
+
+# -- trip actions ------------------------------------------------------------
+
+def log_action(rule: Rule, value: float) -> None:
+    """Default action: one WARNING on the watchtower logger."""
+    logging.getLogger("znicz_tpu.watchtower").warning(
+        "SLO rule %s tripped: %s %s = %.6g", rule.name, rule.metric,
+        rule.reduce, value)
+
+
+def supervisor_interrupt(rule: Rule, value: float) -> None:
+    """Cooperative supervisor interrupt: abort injected hangs through
+    the same channel the watchdog uses (``faults.interrupt_hangs``) —
+    under ``run_supervised`` a rule tripping on a wedged metric unparks
+    the hang so the attempt fails fast and restarts.  Real (non-
+    injected) hangs still need the watchdog's ``step_timeout``."""
+    from znicz_tpu_torch.resilience import faults
+
+    log_action(rule, value)
+    faults.interrupt_hangs()
+
+
+class Watchtower:
+    """Sampler + rule engine over one :class:`TimeSeriesRing`."""
+
+    THREAD_NAME = "znicz-watchtower"
+
+    def __init__(self, capacity: int = DEFAULT_CAPACITY,
+                 registry: Optional[_reg.Registry] = None,
+                 step_every: int = DEFAULT_STEP_EVERY) -> None:
+        if step_every < 1:
+            raise ValueError(f"step_every must be >= 1, got {step_every}")
+        self.ring = TimeSeriesRing(capacity, registry)
+        self.rules: list[Rule] = []
+        #: per-rule key-selection memo: rule index -> (n_keys,
+        #: selection) — the rules list is append-only, so the index is
+        #: a stable identity (id() could be reused after a GC).
+        #: Flat-snapshot keys only ever ACCUMULATE (registry children
+        #: are append-only and the ring's carried-forward dict never
+        #: drops a key), so the key COUNT is a sound cache version —
+        #: rescanning the whole dict per rule per sample was the
+        #: sampler's dominant cost
+        self._match_cache: dict = {}
+        self.step_every = int(step_every)
+        self._step_count = 0
+        self._eval_lock = threading.Lock()
+        self._stop_evt: Optional[threading.Event] = None
+        self._thread: Optional[threading.Thread] = None
+
+    # -- rules ---------------------------------------------------------------
+    def add_rule(self, rule: Rule) -> Rule:
+        with self._eval_lock:
+            self.rules.append(rule)
+        return rule
+
+    def _fire(self, rule: Rule, value: float) -> None:
+        _TRIPS.labels(rule=rule.name).inc()
+        _trace.instant("watchtower.trip", rule=rule.name,
+                       metric=rule.metric, value=float(value))
+        from znicz_tpu_torch.observe import flight as _flight
+
+        _flight.auto_dump("rule", rule=rule.name, metric=rule.metric,
+                          value=float(value))
+        action = rule.action or log_action
+        try:
+            action(rule, value)
+        except Exception:  # noqa: BLE001 — a broken action must not
+            logging.getLogger("znicz_tpu.watchtower").exception(
+                "rule %s action failed", rule.name)   # kill the sampler
+
+    # -- sampling ------------------------------------------------------------
+    def observe_now(self, ts: Optional[float] = None) -> Optional[float]:
+        """Take one sample and evaluate every rule against it (the
+        sampler thread, the step hook and tests all funnel through
+        here).  No-op while the observe plane is disabled — the bare
+        walk stays bare.  Returns the sample timestamp, or None when
+        disabled."""
+        if not _probe.enabled():
+            return None
+        if ts is None:
+            ts = time.time()
+        # same flavor the ring's no-arg sample() would take: skip_zero
+        # off so drained gauges record their 0, buckets on so quantile
+        # rules can reduce over bucket-count deltas
+        flat = self.ring._registry.snapshot_flat(skip_zero=False,
+                                                 buckets=True)
+        fired = []
+        with self._eval_lock:
+            self.ring.sample(flat=flat, ts=ts)
+            # _eval_lock serializes every sampler, and only sample()
+            # mutates _last — reading it uncopied here is safe and
+            # skips a per-sample dict copy on the step hot path
+            cur = self.ring._last
+            n = len(cur)
+            for i, rule in enumerate(self.rules):
+                cached = self._match_cache.get(i)
+                if cached is None or cached[0] != n:
+                    sel = (_bucket_layout(rule.metric, cur)
+                           if rule.quantile is not None
+                           else match_keys(rule.metric, cur))
+                    cached = (n, sel)
+                    self._match_cache[i] = cached
+                sel = cached[1]
+                if not sel:
+                    continue
+                rule.matching = True
+                if rule.quantile is not None:
+                    # histogram-family rule: feed the bucket-count
+                    # vector; the reduce runs over in-window deltas
+                    value = _bucket_eval(sel, cur)
+                else:
+                    value = sum(map(cur.__getitem__, sel))
+                tripped = rule.observe(ts, value)
+                if tripped is not None:
+                    fired.append((rule, tripped))
+        # fire OUTSIDE the eval lock: an action (or the flight
+        # recorder's auto-dump) may itself need to sample the ring —
+        # under the lock that would deadlock (threading.Lock is not
+        # reentrant), and `cur` must not be mutated mid-rule-loop
+        for rule, value in fired:
+            self._fire(rule, value)
+        return ts
+
+    def flight_sample(self) -> None:
+        """One registry sample for a flight dump — bypasses the observe
+        master switch (a post-mortem wants the numbers regardless) and
+        takes the eval lock so it cannot race a concurrent
+        :meth:`observe_now`'s rule evaluation over the ring's
+        carried-forward dict."""
+        with self._eval_lock:
+            self.ring.sample()
+
+    def on_step(self) -> None:
+        """Workflow run-loop hook: sample every ``step_every``-th signal
+        delivery — count-based, so chaos tests reproduce exactly."""
+        self._step_count += 1
+        if self._step_count % self.step_every:
+            return
+        self.observe_now()
+
+    # -- workflow attachment -------------------------------------------------
+    def attach(self, workflow) -> "Watchtower":
+        """Register with ``workflow`` so the run loop calls
+        :meth:`on_step` at every ``workflow.step`` boundary."""
+        if self not in workflow.watchtowers:
+            workflow.watchtowers.append(self)
+        return self
+
+    def detach(self, workflow) -> None:
+        if self in workflow.watchtowers:
+            workflow.watchtowers.remove(self)
+
+    # -- background cadence --------------------------------------------------
+    def start(self, interval_s: float = 5.0) -> None:
+        """Sample + evaluate on a daemon thread every ``interval_s``
+        seconds until :meth:`stop`."""
+        if self._thread is not None:
+            raise RuntimeError("watchtower sampler already started")
+        self._stop_evt = threading.Event()
+        stop = self._stop_evt
+
+        def loop() -> None:
+            log = logging.getLogger("znicz_tpu.watchtower")
+            while not stop.wait(interval_s):
+                try:
+                    self.observe_now()
+                except Exception:  # noqa: BLE001 — a dead provider (or
+                    # a raising predicate) must not kill the cadence,
+                    # but silently-dead sampling is worse than noise
+                    log.exception("watchtower sample failed")
+        self._thread = threading.Thread(target=loop, daemon=True,
+                                        name=self.THREAD_NAME)
+        self._thread.start()
+
+    def stop(self) -> None:
+        if self._thread is None:
+            return
+        self._stop_evt.set()
+        self._thread.join(timeout=5.0)
+        self._thread = None
+        self._stop_evt = None
+
+    # -- export --------------------------------------------------------------
+    def snapshot(self) -> dict:
+        """The ``/status.json`` block: sample count, rule states, and
+        the per-key min/mean/max/last (+rate) digest."""
+        return {"samples": len(self.ring),
+                "step_every": self.step_every,
+                "rules": [r.snapshot() for r in self.rules],
+                "summary": self.ring.summary()}
+
+    def timeseries_dict(self) -> dict:
+        """The ``GET /timeseries.json`` payload."""
+        doc = self.ring.to_dict()
+        doc["rules"] = [r.snapshot() for r in self.rules]
+        return doc
+
+
+# -- rule catalogue (docs/OBSERVABILITY.md) ----------------------------------
+
+def step_latency_regression(factor: float = 2.0, window_s: float = 60.0,
+                            for_s: float = 0.0, min_count: int = 8,
+                            action: Optional[Callable] = None) -> Rule:
+    """Step-latency p95 regressed vs the trailing baseline: the p95 of
+    the window's newer half of ``znicz_workflow_step_seconds``
+    observations (bucket-count deltas) grew more than ``factor``x over
+    the older half's.  Windowed on purpose — the lifetime ``_p95``
+    estimate damps a mid-run regression in proportion to process age."""
+    return Rule(
+        "step_latency_regression", "znicz_workflow_step_seconds",
+        lambda r: r > factor, window_s=window_s, for_s=for_s,
+        reduce="quantile_ratio", quantile=0.95, min_count=min_count,
+        action=action,
+        description=f"windowed step p95 > {factor}x the trailing "
+                    f"baseline half-window")
+
+
+def serve_queue_saturation(depth: float = 64.0, for_s: float = 5.0,
+                           action: Optional[Callable] = None) -> Rule:
+    """Serving admission queue pinned above ``depth`` chunks — the
+    batcher is saturated and deadlines are about to shed load."""
+    return Rule(
+        "serve_queue_saturation", "znicz_serve_queue_depth",
+        lambda v: v > depth, for_s=for_s, action=action,
+        description=f"serve queue depth > {depth:g} for {for_s:g}s")
+
+
+def nan_guard_trip_rate(max_per_s: float = 0.1, window_s: float = 60.0,
+                        action: Optional[Callable] = None) -> Rule:
+    """NaN-guard trips arriving faster than ``max_per_s`` — training is
+    diverging faster than skip-batch can hide."""
+    return Rule(
+        "nan_guard_trip_rate",
+        'znicz_resilience_events_total{kind="nan_guard"}',
+        lambda r: r > max_per_s, window_s=window_s, reduce="rate",
+        action=action,
+        description=f"nan_guard trips > {max_per_s:g}/s over "
+                    f"{window_s:g}s")
+
+
+def recompile_storm(max_in_window: float = 3.0, window_s: float = 60.0,
+                    action: Optional[Callable] = None,
+                    metric: str = "znicz_recompiles_total") -> Rule:
+    """Watched programs recompiling repeatedly after warmup — a shape
+    leak (the serve engine's zero-steady-state-recompile property is
+    being violated somewhere).  ``metric`` widens the net:
+    pointed at ``znicz_compile_cache_misses_total`` the rule counts
+    EVERY cold XLA compile the persistent cache observed — programs
+    nobody registered with ``watch_compiles`` included — so a serve
+    fleet alarms on compile storms a warm cache should have absorbed."""
+    # a non-default metric gets its own rule name, so a tower carrying
+    # both variants keeps their trips apart in znicz_watchtower_trips_
+    # total{rule=...} and flight-dump tags
+    name = ("recompile_storm" if metric == "znicz_recompiles_total"
+            else f"recompile_storm[{metric}]")
+    return Rule(
+        name, metric,
+        lambda d: d > max_in_window, window_s=window_s, reduce="delta",
+        action=action,
+        description=f"> {max_in_window:g} recompiles inside "
+                    f"{window_s:g}s ({metric})")
+
+
+def pipeline_consumer_starvation(ratio: float = 0.5,
+                                 window_s: float = 30.0,
+                                 action: Optional[Callable] = None) -> Rule:
+    """Consumers starving on the prefetch queue more than ``ratio`` of
+    wall time — the input pipeline (not compute) bounds throughput."""
+    return Rule(
+        "pipeline_consumer_starvation",
+        "znicz_pipeline_consumer_starved_seconds_total",
+        lambda r: r > ratio, window_s=window_s, reduce="rate",
+        action=action,
+        description=f"consumer starved > {ratio:g} s/s over "
+                    f"{window_s:g}s")
+
+
+#: THE process-global watchtower (mirrors registry.REGISTRY and
+#: trace.TRACER): WebStatus serves its ring at /timeseries.json and its
+#: summary inside /status.json; the flight recorder snapshots it.
+WATCHTOWER = Watchtower()

@@ -346,6 +346,79 @@ class FusedTrainStep(Unit):
             params.append(leaf)
         return params
 
+    def place_params(self, params: list) -> None:
+        """Copy ``params`` (``gather_params``' layout) into the step's
+        leaves in place: its captured graphs read those tensors, so they
+        replay the new values."""
+        for leaf, new in zip(self._params, params, strict=True):
+            if leaf.keys() != new.keys():
+                raise ValueError(f"param leaf keys {sorted(new)} != the "
+                                 f"step's {sorted(leaf)}")
+            for k, v in new.items():
+                leaf[k].copy_(v)
+
+    def load_generator_state(self, state) -> None:
+        """Set the train steps' generator to a saved ``get_state()``
+        (uint8).  ``set_state`` writes the seed and offset in place, and
+        the captured graphs read the generator's offset at each replay.
+        A state of another device's generator (a CPU run's snapshot
+        resumed on the card) cannot be set: the step keeps its own
+        generator and logs a warning."""
+        state = torch.as_tensor(np.asarray(state, np.uint8))
+        try:
+            self._gen.set_state(state)
+        except RuntimeError as exc:
+            self.warning(f"the snapshot's generator state ({state.numel()}"
+                         f" bytes) does not fit this step's "
+                         f"{self._dev.type} generator ({exc}); keeping "
+                         f"the generator minted at initialize")
+
+    def extra_state_arrays(self) -> dict:
+        """Optimizer state that has no unit Array home (adam second
+        moments and step count, EMA mirrors) -> host arrays for the
+        snapshotter under the reference's keys (``"{layer}.{key}"``), in
+        the param shape.  Every leaf comes down in one device-to-host
+        copy of their concatenation, not one sync a leaf."""
+        if self._params is None:
+            return {}
+        keys = []
+        if self.optimizer == "adam":
+            keys += ["sw", "sb", "t"]
+        if self.ema_decay is not None:
+            keys += ["ew", "eb"]
+        dev = {f"{i}.{k}": leaf[k] for i, leaf in enumerate(self._params)
+               for k in keys if k in leaf}
+        if not dev:
+            return {}
+        flat = torch.cat([t.detach().reshape(-1).to(torch.float32)
+                          for t in dev.values()]).cpu().numpy()
+        out, at = {}, 0
+        for key, t in dev.items():
+            n = t.numel()
+            out[key] = flat[at:at + n].reshape(tuple(t.shape)).copy()
+            at += n
+        return out
+
+    def load_extra_state(self, arrays: dict) -> None:
+        """Restore ``extra_state_arrays`` output into the step's leaves
+        (after ``place_params`` on resume), in place.  The reference's
+        error-feedback residuals (``rw``/``rb``) belong to quantized
+        collectives, which the port refuses: they are dropped, as the
+        reference drops them in a step without error feedback."""
+        for key, val in arrays.items():
+            i, k = key.split(".", 1)
+            if k in ("rw", "rb"):
+                continue
+            leaf = self._params[int(i)]
+            if k not in leaf:
+                raise ValueError(f"snapshot optimizer state {key!r} has no "
+                                 f"leaf in this step")
+            val = np.asarray(val, np.float32)
+            if tuple(val.shape) != tuple(leaf[k].shape):
+                raise ValueError(f"{key}: snapshot shape {val.shape} != "
+                                 f"step shape {tuple(leaf[k].shape)}")
+            leaf[k].copy_(torch.from_numpy(val))
+
     def ema_params(self) -> list:
         """Host copies of the averaged weights: a ``{"w": ..., "b": ...}``
         dict a layer, in unit order."""
@@ -677,7 +750,7 @@ class FusedTrainStep(Unit):
         only minibatch INDICES.  Gated on size
         (``root.common.engine.dataset_on_device_max_bytes``, default 1
         GiB)."""
-        self._dataset_dev = None
+        pinned, self._dataset_dev = self._dataset_dev, None
         data_arr, labels_arr, _why = full_batch_arrays(
             self.loader, mse=isinstance(self.evaluator, EvaluatorMSE))
         if data_arr is None:
@@ -687,9 +760,17 @@ class FusedTrainStep(Unit):
         data = np.asarray(data_arr.mem, np.float32)
         if data.nbytes > limit:
             return
-        labels = np.asarray(labels_arr.mem)
-        self._dataset_dev = (self._put(data),
-                             torch.tensor(labels, device=self._dev))
+        host = (torch.from_numpy(data),
+                torch.from_numpy(np.asarray(labels_arr.mem)))
+        if pinned is not None:
+            # a re-pin (a restore): into the tensors the captured graphs
+            # gather from
+            for d, h in zip(pinned, host):
+                d.copy_(h)
+            self._dataset_dev = pinned
+        else:
+            self._dataset_dev = tuple(h.to(self._dev, copy=True)
+                                      for h in host)
         # the loader now serves indices only
         self.loader.serve_indices_only = True
         if self.scan_epoch is None:

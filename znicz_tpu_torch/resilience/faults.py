@@ -81,6 +81,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from znicz_tpu_torch.observe import flight as _flight
 from znicz_tpu_torch.observe import probe as _probe
 
 
@@ -226,9 +227,13 @@ class FaultPlan:
             return
         # telemetry plane: every firing lands as a counter + an instant
         # event on the step timeline (emitted OUTSIDE the plan lock —
-        # the registry/tracer must never nest under it)
+        # the registry/tracer must never nest under it); with the flight
+        # recorder configured, the firing also freezes a post-mortem
+        # artifact (no-op + rate-limited otherwise)
         _probe.resilience_event("fault", site=site, action=fault.action,
                                 hit=hit)
+        _flight.auto_dump("fault", site=site, action=fault.action,
+                          hit=hit)
         if fault.action == "kill":
             # simulated SIGKILL: die NOW, exactly like the OOM killer —
             # the elastic fleet's post-mortem comes from its own side.

@@ -21,9 +21,12 @@ constructor kwargs), ``<-`` (gradient/hyperparameter kwargs), ``name``;
 any other key is shorthand for a forward kwarg.  ``pipeline_config=
 {"depth": N}`` (fused only) attaches the input pipeline
 (``znicz_tpu_torch/pipeline``): a worker serves N batches ahead and
-copies each to the card on a side stream while the step runs.  The
-snapshotter (item 7) and the health guard (item 14) are not ported:
-their configs raise ``NotImplementedError`` unless None.
+copies each to the card on a side stream while the step runs.
+``snapshotter_config`` (the ``NNSnapshotter`` kwargs: directory, prefix,
+interval, only_improved, keep_all) adds the gated snapshotter side
+chain after the Decision, as the reference does.  The health guard
+(item 14) is not ported: ``health_config`` raises
+``NotImplementedError`` unless None.
 """
 
 from __future__ import annotations
@@ -194,12 +197,10 @@ class StandardWorkflow(StandardWorkflowBase):
                 "pipeline_config requires fused=True (the eager per-unit "
                 "path owns its own host uploads and may draw host prng "
                 "per step, which the prefetch producer would reorder)")
-        for config, what, item in (
-                (health_config, "the health guard (health_config)", "14"),
-                (snapshotter_config, "the snapshotter (snapshotter_config)",
-                 "7")):
-            if config is not None:
-                raise _not_ported(what, item)
+        if health_config is not None:
+            raise _not_ported("the health guard (health_config)", "14")
+        self.snapshotter_config = snapshotter_config
+        self.snapshotter = None
         self.input_pipeline = None
         self.create_workflow()
 
@@ -216,6 +217,7 @@ class StandardWorkflow(StandardWorkflowBase):
                 self.link_pipeline()
         else:
             self.link_gds()
+        self.link_snapshotter()
         # the loop back-edge: exactly ONE provider — the Repeater fires on
         # any signal, so a second edge would double-run each minibatch
         self.repeater.link_from(self._tail)
@@ -343,6 +345,19 @@ class StandardWorkflow(StandardWorkflowBase):
         self.input_pipeline = attach_prefetcher(
             self.loader, stager=self.step.make_stager(),
             **self.pipeline_config)
+
+    def link_snapshotter(self) -> None:
+        """Gated snapshotter side chain: runs after the Decision at each
+        epoch end; no-op when snapshotter_config is None."""
+        if self.snapshotter_config is None:
+            return
+        from znicz_tpu_torch.snapshotter import NNSnapshotter
+        snap = self.snapshotter = NNSnapshotter(self,
+                                                **self.snapshotter_config)
+        snap.link_from(self._tail)
+        snap.link_workflow_state(self)
+        snap.gate_skip = ~self.decision.epoch_ended
+        self._tail = snap
 
     def link_end_point(self) -> None:
         self.end_point.link_from(self._tail)
