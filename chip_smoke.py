@@ -208,7 +208,25 @@ exits non-zero without the final ``ok`` line):
    the step does not run on, the same graphs and replays (no capture in
    the steady state), the worker dead after run and stop, the gather
    bit-identical.
-17e. **snapshot_resume** — snapshots, the workflow CLI and the
+17e. **image_files** — the image-file loaders (``loader/image.py``,
+   decoding with PIL as the reference does): (a) ``alexnet.build()`` at
+   full width (227-px crops of 256-px decodes with mirrors, 1000
+   classes, batch 128, dropout 0.5), fused, ``file_image`` with
+   ``augment`` over a synthesized tree of 256 128-px PNGs (each decode
+   resizes to 256 px), one class pass of 2 train minibatches
+   synchronously and at pipeline depth 2, each profiled (ms a minibatch, busy ms, idle share, the loader's serve
+   ms), with the decode ms an image (``_decode`` through PIL) and the
+   synthesis seconds; gates: histories and weights bit-identical, the
+   first served minibatch of both routes byte-equal to a CPU loader's
+   of the same seed, exact LRN and SGD launches and graph replays; (b)
+   ``image_ae.build()`` at its defaults eager (exact conv2d_fwd,
+   input-gradient, weight-gradient, deconv2d and deconv2d_backward
+   launches) and fused, (c) ``yale_faces.build()`` at its defaults
+   fused (exact SGD launches) and eager (exact gemm_fc and act_backward
+   launches), 2 epochs each, every run on the card in
+   f32 against the CPU: the image AE's MSE within rtol 1e-5 and weights
+   within 4e-6, Yale's n_err equal and weights within 2e-6.
+17f. **snapshot_resume** — snapshots, the workflow CLI and the
    supervisor: ``python -m znicz_tpu_torch wf.py`` trains
    ``alexnet.build()`` at full width (227 px, batch 128, 1000 classes,
    dropout 0.5; 256 samples, no validation) to epoch 1 with the
@@ -234,7 +252,7 @@ exits non-zero without the final ``ok`` line):
 (kernel, flash, gemm, optim, mnist_fused, stochastic_pool,
 pool_backward, conv, alexnet_eager, deconv, kohonen, lrn_dropout,
 ae_fused, alexnet_fused, graph_parity, fused_conv_parity,
-input_pipeline, snapshot_resume, or two that
+input_pipeline, image_files, snapshot_resume, or two that
 only measure and run on older trees of the port too: **waves**, the
 weight gradient at AlexNet's and build_deep's shapes with split_k's
 slices, one fewer and one more, through the C entry; **fused_compare**,
@@ -253,6 +271,7 @@ true, ...}`` line.  Exits non-zero without a usable CUDA device.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -5830,6 +5849,414 @@ def phase_input_pipeline() -> dict:
     return out
 
 
+#: image_files (a): alexnet.build() at full width (227-px crops of 256-px
+#: decodes with mirrors, 1000 classes, batch 128, dropout 0.5), fused,
+#: ``file_image`` with ``augment`` over a synthesized tree of IF_CLASSES
+#: x IF_PER_CLASS PNGs of IF_TREE_PX px and no validation: one class
+#: pass of two train minibatches, synchronous and at depth IF_DEPTH; the
+#: loaders' decode (PIL, as the reference's) timed over IF_DECODE_IMAGES
+#: of them.  Cut to the phase's 15 s: the files are IF_TREE_PX px, so
+#: each decode resizes them to 256 px, as it does ImageNet's files of
+#: assorted sizes (256-px files took PIL 5.2 s to write and 3.7 ms an
+#: image to read on the H100's host, PERF.md), and each loader fits its
+#: normalizer on IF_FIT_SAMPLES train images, not the loader's default
+#: 256 (a decode and a pass over each: 0.8-1.2 s of each AlexNet
+#: initialize there)
+IF_CLASSES, IF_PER_CLASS, IF_DEPTH, IF_INPUT = 8, 32, 2, 227
+IF_TREE_PX, IF_DECODE_IMAGES, IF_FIT_SAMPLES = 128, 64, 32
+#: (b) image_ae.build() and (c) yale_faces.build() at their defaults
+#: (24-px RGB, 16 kernels; 15 subjects at 32-px grayscale) but
+#: IF_EPOCHS epochs (their default 10; at 3 the two took 0.7-4.1 s and
+#: 1.1-2.1 s on the H100's host, PERF.md), each on the card against the
+#: port on the CPU in f32 from one seed.  The image AE's bands are
+#: ae_parity's (the conv AE's); Yale's weights sum the same f32 products
+#: in other orders through cuBLAS, so its band is fused_conv_parity's
+#: 2e-6, with the same n_err
+IF_EPOCHS, IF_YALE_WEIGHT_ATOL = 2, 2e-6
+#: each image AE minibatch's launches, read from the code (ae_eager's
+#: AE_LAUNCHES for one conv and one deconv): a forward runs conv2d_fwd
+#: at the conv and deconv2d (the input-gradient kernel) at the deconv; a
+#: train minibatch adds deconv2d_backward (its weight-gradient kernel and
+#: conv2d_fwd for its err_input) and the conv's weight gradient (the
+#: first layer needs no err_input)
+IF_AE_LAUNCHES = {"train": {"conv2d_fwd": 2, "conv2d_input_grad": 1,
+                            "conv2d_weight_grad": 2, "deconv2d": 1,
+                            "deconv2d_backward": 1},
+                  "eval": {"conv2d_fwd": 1, "conv2d_input_grad": 1,
+                           "conv2d_weight_grad": 0, "deconv2d": 1,
+                           "deconv2d_backward": 0}}
+#: Yale's, eager: gemm_fc at the tanh layer's forward, and its err_input
+#: and weight gradient after act_backward in a train minibatch (the
+#: softmax layer's forward and backward are plain torch)
+IF_YALE_LAUNCHES = {"train": {"gemm_fc": 3, "act_backward": 1},
+                    "eval": {"gemm_fc": 1, "act_backward": 0}}
+
+
+def _weights_of(w) -> list:
+    """Host copies of every forward's weights and bias (where it has one)."""
+    return [np.array(getattr(f, a).map_read()) for f in w.forwards
+            for a in ("weights", "bias") if getattr(f, a, None)]
+
+
+def _image_alexnet_run(tree: str, depth) -> tuple:
+    """alexnet.build() on ``tree`` with augment, fused on the card, one
+    class pass synchronously (``depth`` None) or through the input
+    pipeline, all of it profiled -> (reading, weights, first served
+    minibatch's data, the CPU loader's config).  The LRN and SGD
+    counters are set to 0 just before ``run`` and read just after."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from znicz_tpu_torch.pipeline import attach_prefetcher
+
+    tprng.seed_all(SEED)
+    t0 = time.perf_counter()
+    w = talexnet.build(max_epochs=1, minibatch_size=ALEX_BATCH,
+                       input_size=IF_INPUT, loader_name="file_image",
+                       loader_config={"data_dir": tree, "augment": True,
+                                      "valid_fraction": 0.0,
+                                      "fit_samples": IF_FIT_SAMPLES})
+    if depth:
+        w.input_pipeline = attach_prefetcher(
+            w.loader, stager=w.step.make_stager(), depth=depth)
+    w.initialize(device=TorchDevice())
+    init_s = time.perf_counter() - t0
+    loader, step = w.loader, w.step
+    if step._dataset_dev is not None or loader.serve_indices_only:
+        fail("image_files alexnet: the augmenting loader was pinned")
+    first, serve_s = [], []
+    fill = loader.fill_batch if depth else loader.fill_minibatch
+
+    def timed_fill(*args):
+        t = time.perf_counter()
+        out = fill(*args)
+        serve_s.append(time.perf_counter() - t)
+        if not first:
+            first.append((out if depth else {"data": loader.minibatch_data
+                                             .mem})["data"].copy())
+        return out
+    setattr(loader, "fill_batch" if depth else "fill_minibatch", timed_fill)
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    _zero_lrn_sgd_counts()                           # 0 just before ...
+    prof.start()
+    t0 = time.perf_counter()
+    w.run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    prof.stop()
+    launches = _lrn_sgd_counts()                     # ... read just after
+    n_mb = len(serve_s)
+    t0 = time.perf_counter()
+    streams = stream_table(prof)
+    trace_s = time.perf_counter() - t0
+    pipe = loader.pipeline
+    stats = pipe.stats.snapshot() if pipe is not None else None
+    # the trained leaves, compared on the card (a host copy of AlexNet's
+    # 62 M parameters would cost the phase ~0.3 s a run)
+    weights = {f"{i}.{k}": leaf[k].detach().clone()
+               for i, leaf in enumerate(step._params) for k in ("w", "b")
+               if k in leaf}
+    n_leaves = len(weights)
+    cfg = dict(w._loader_config)
+    w.stop()
+    busy_ms = streams["union_ms"] / n_mb
+    reading = {
+        "depth": depth, "init_s": init_s, "run_s": wall_s,
+        "trace_s": trace_s, "minibatches": n_mb,
+        "ms_per_minibatch": wall_s * 1e3 / n_mb,
+        "busy_ms_per_minibatch": busy_ms,
+        "idle_share": 1 - busy_ms * n_mb / (wall_s * 1e3),
+        "loader_serve_ms": float(np.mean(serve_s)) * 1e3,
+        "loader_serve_ms_all": [s * 1e3 for s in serve_s],
+        "streams": streams["by_stream"], "stats": stats,
+        "rings": sorted(loader._rings),
+        "graphs": sorted(str(k) for k in step._graphs or ()),
+        "graph_replays": replays_of(step),
+        "history": w.decision.metrics_history,
+        "launches": launches, "leaves": n_leaves,
+        "expect": {"lrn_forward": 2 * n_mb, "lrn_backward": 2 * n_mb,
+                   "sgd_update": n_leaves * n_mb, "hand_conv": 0},
+        "worker_alive_after_stop": bool(
+            pipe is not None and pipe._thread is not None and
+            pipe._thread.is_alive())}
+    return reading, weights, first[0], cfg
+
+
+def _decode_timings(tree: str) -> dict:
+    """The loaders' decode (``_decode``: PIL's read, convert, float32) over
+    IF_DECODE_IMAGES files of the tree."""
+    import PIL
+
+    from znicz_tpu_torch.loader import image as timage
+
+    paths, _, _ = timage.scan_image_tree(tree)
+    shape = (IF_INPUT + 29,) * 2 + (3,)
+    t0 = time.perf_counter()
+    for p in paths[:IF_DECODE_IMAGES]:
+        timage._decode(p, shape)
+    return {"decoder": f"PIL {PIL.__version__}",
+            "images": IF_DECODE_IMAGES,
+            "decode_ms_per_image": (time.perf_counter() - t0) * 1e3 /
+            IF_DECODE_IMAGES}
+
+
+def _image_alexnet(tmp: str) -> tuple:
+    """(a): the tree, the two runs and their gates -> (reading, bad)."""
+    from znicz_tpu_torch.loader import image as timage
+    from znicz_tpu_torch.loader.base import get_loader
+
+    tree = os.path.join(tmp, "alexnet")
+    t0 = time.perf_counter()
+    decode = IF_INPUT + 29                  # alexnet.build's augment
+    timage.synthesize_image_dataset(tree, n_classes=IF_CLASSES,
+                                    n_per_class=IF_PER_CLASS,
+                                    size=(IF_TREE_PX, IF_TREE_PX))
+    synth_s = time.perf_counter() - t0
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        sync, sync_w, sync_first, cfg = _image_alexnet_run(tree, None)
+        piped, piped_w, piped_first, _ = _image_alexnet_run(tree, IF_DEPTH)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    # the first served minibatch against a CPU loader of the same seed
+    t0 = time.perf_counter()
+    tprng.seed_all(SEED)
+    cpu = get_loader("file_image")(None, **cfg)
+    cpu.initialize(device=TorchDevice("cpu"))
+    cpu.run()
+    cpu_first = cpu.minibatch_data.mem
+    cpu_loader_s = time.perf_counter() - t0
+    out = {"tree": {"classes": IF_CLASSES, "per_class": IF_PER_CLASS,
+                    "size": [IF_TREE_PX] * 2, "images": IF_CLASSES *
+                    IF_PER_CLASS},
+           "synth_s": synth_s, "cpu_loader_s": cpu_loader_s,
+           "config": {"batch": ALEX_BATCH, "input": IF_INPUT,
+                      "decode": decode,
+                      "classes": 1000, "dropout": 0.5, "epochs": 1,
+                      "valid_fraction": 0.0, "loader": "file_image",
+                      "augment": True,
+                      "fit_samples": cfg["fit_samples"]},
+           "sync": sync, "pipelined": piped,
+           "first_minibatch_equals_cpu_loader": {
+               "sync": sync_first.tobytes() == cpu_first.tobytes(),
+               "pipelined": piped_first.tobytes() == cpu_first.tobytes()},
+           **_decode_timings(tree)}
+    bad = []
+    if sync["history"] != piped["history"] or len(sync["history"]) != 1:
+        bad.append(f"alexnet histories {sync['history']} / "
+                   f"{piped['history']}")
+    moved = [k for k in sync_w if not torch.equal(sync_w[k], piped_w[k])]
+    if moved:
+        bad.append(f"alexnet depth {IF_DEPTH} weights differ from the "
+                   f"sync run's at {moved}")
+    for run in (sync, piped):
+        name = f"alexnet depth {run['depth']}"
+        if run["minibatches"] != 2:
+            bad.append(f"{name}: {run['minibatches']} minibatches, not 2")
+        if run["launches"] != run["expect"]:
+            bad.append(f"{name}: launches {run['launches']} != "
+                       f"{run['expect']}")
+        if run["graph_replays"] != {"train": run["minibatches"] - 1}:
+            bad.append(f"{name}: graph replays {run['graph_replays']}")
+        if run["worker_alive_after_stop"]:
+            bad.append(f"{name}: the prefetch worker outlived run and stop")
+    if piped["rings"] != ["data", "labels"] or \
+            piped["stats"]["consumed"] != 2:
+        bad.append(f"alexnet depth {IF_DEPTH}: rings {piped['rings']}, "
+                   f"stats {piped['stats']}")
+    if not all(out["first_minibatch_equals_cpu_loader"].values()):
+        bad.append(f"alexnet first minibatch differs from the CPU loader's:"
+                   f" {out['first_minibatch_equals_cpu_loader']}")
+    infinite = [k for k, t in sync_w.items() if not torch.isfinite(t).all()]
+    if infinite:
+        bad.append(f"alexnet weights not finite at {infinite}")
+    del sync_w, piped_w
+    gc.collect()            # the two workflows' cycles, in this phase
+    return out, bad
+
+
+def _small_image_run(make, device, fused, counts=None) -> dict:
+    """``make()`` (seeded here) on ``device`` in f32, TF32 off, through
+    ``Workflow.run``; with ``counts`` (zero, read) the kernel counters
+    set to 0 just before the run and read just after, and the classes of
+    its minibatches."""
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        tprng.seed_all(SEED)
+        w = make()
+        w.initialize(device=TorchDevice(device, precision="float32"))
+        classes, serve = [], w.loader.run
+
+        def run():
+            serve()
+            classes.append(int(w.loader.minibatch_class))
+        w.loader.run = run
+        if counts:
+            counts[0]()                              # 0 just before ...
+        t0 = time.perf_counter()
+        w.run()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = counts[1]() if counts else None   # ... read just after
+        if fused:
+            w.step.sync_to_units()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    return {"history": w.decision.metrics_history, "weights": _weights_of(w),
+            "wall_s": wall_s, "launches": launches, "classes": classes,
+            "minibatches": len(classes),
+            "pinned": fused and w.step._dataset_dev is not None,
+            "leaves": sum(bool(f.weights) + bool(f.bias)
+                          for f in w.forwards),
+            "loader": type(w.loader).__name__,
+            "served_shape": list(w.loader.served_shape)}
+
+
+def _per_class(table: dict, classes: list) -> dict:
+    n_train = classes.count(TRAIN)
+    n_eval = len(classes) - n_train
+    return {k: table["train"][k] * n_train + table["eval"][k] * n_eval
+            for k in table["train"]}
+
+
+def _held(card: dict, cpu: dict) -> dict:
+    return {"max_abs_weight_err": max(float(np.abs(a - b).max()) for a, b in
+                                      zip(card["weights"], cpu["weights"])),
+            "cpu_history": cpu["history"], "cpu_wall_s": cpu["wall_s"]}
+
+
+def _image_ae(tmp: str) -> tuple:
+    """(b): the image AE eager (conv kernels, counted) and fused (cuDNN),
+    each on the card against the CPU -> (reading, bad)."""
+    from znicz_tpu_torch.models import image_ae as timage_ae
+
+    tree = timage_ae.ensure_dataset(os.path.join(tmp, "image_ae"))
+    out, bad = {}, []
+
+    def mse(h):
+        return [[r[k] for k in sorted(r) if k.startswith("metric")]
+                for r in h]
+    for fused in (False, True):
+        kind = "fused" if fused else "eager"
+
+        def make():
+            return timage_ae.build(max_epochs=IF_EPOCHS, fused=fused,
+                                   loader_config={"data_dir": tree})
+        card = _small_image_run(make, DEVICE, fused, None if fused else
+                                (_zero_ae_counts, _ae_counts))
+        cpu = _small_image_run(make, "cpu", fused)
+        r = out[kind] = {k: v for k, v in card.items() if k != "weights"}
+        r.update(_held(card, cpu))
+        r["mse_rel_vs_cpu"] = max(
+            abs(x - y) / abs(y) for a, b in zip(mse(card["history"]),
+                                                 mse(cpu["history"]))
+            for x, y in zip(a, b))
+        if not fused:
+            r["expect"] = _per_class(IF_AE_LAUNCHES, card["classes"])
+            if card["launches"] != r["expect"]:
+                bad.append(f"image_ae eager launches {card['launches']} != "
+                           f"{r['expect']}")
+        if len(card["history"]) != IF_EPOCHS or \
+                not r["mse_rel_vs_cpu"] <= AE_PARITY_MSE_RTOL:
+            bad.append(f"image_ae {kind} mse {card['history']} against the "
+                       f"CPU's {cpu['history']}")
+        if not r["max_abs_weight_err"] <= AE_PARITY_ATOL:
+            bad.append(f"image_ae {kind} weights {r['max_abs_weight_err']} "
+                       f"from the CPU's")
+    if not out["fused"]["pinned"]:
+        bad.append("image_ae fused: the data set was not pinned")
+    return out, bad
+
+
+def _gemm_counts() -> dict:
+    return {"gemm_fc": kgemm.gemm_launches,
+            "act_backward": kgemm.act_launches}
+
+
+def _zero_gemm_counts() -> None:
+    kgemm.gemm_launches = kgemm.act_launches = 0
+
+
+def _yale(tmp: str) -> tuple:
+    """(c): Yale faces fused (SGD launches counted) and eager (gemm_fc and
+    act_backward counted), each on the card against the CPU ->
+    (reading, bad)."""
+    from znicz_tpu_torch.models import yale_faces as tyale
+
+    tree = tyale.ensure_dataset(os.path.join(tmp, "yale"))
+    out, bad = {}, []
+    for fused in (True, False):
+        kind = "fused" if fused else "eager"
+
+        def make():
+            return tyale.build(max_epochs=IF_EPOCHS, fused=fused,
+                               loader_config={"data_dir": tree})
+        counts = ((lambda: setattr(koptim, "sgd_launches", 0)),
+                  lambda: {"sgd_update": koptim.sgd_launches}) if fused \
+            else (_zero_gemm_counts, _gemm_counts)
+        card = _small_image_run(make, DEVICE, fused, counts)
+        cpu = _small_image_run(make, "cpu", fused)
+        r = out[kind] = {k: v for k, v in card.items() if k != "weights"}
+        r.update(_held(card, cpu))
+        n_train = card["classes"].count(TRAIN)
+        r["expect"] = ({"sgd_update": card["leaves"] * n_train} if fused
+                       else _per_class(IF_YALE_LAUNCHES, card["classes"]))
+        if card["launches"] != r["expect"]:
+            bad.append(f"yale {kind} launches {card['launches']} != "
+                       f"{r['expect']}")
+        if card["history"] != cpu["history"] or \
+                len(card["history"]) != IF_EPOCHS:
+            bad.append(f"yale {kind} history {card['history']} != the "
+                       f"CPU's {cpu['history']}")
+        if not r["max_abs_weight_err"] <= IF_YALE_WEIGHT_ATOL:
+            bad.append(f"yale {kind} weights {r['max_abs_weight_err']} from "
+                       f"the CPU's")
+    if not out["fused"]["pinned"] or out["fused"]["served_shape"] != [
+            32, 32, 1]:
+        bad.append(f"yale fused: pinned {out['fused']['pinned']}, served "
+                   f"{out['fused']['served_shape']}")
+    return out, bad
+
+
+def phase_image_files() -> dict:
+    """The image-file loaders on the card (``loader/image.py``, decoding
+    with PIL).  (a) AlexNet at full width from a synthesized 128-px PNG
+    tree, resized to 256 px, with seeded crops and mirrors, fused: one
+    class pass synchronous and at depth IF_DEPTH, profiled (ms a
+    minibatch, busy ms, idle share, the loader's serve ms), the decode
+    ms an image and the tree's synthesis seconds; gates: the histories
+    and weights bit-identical, the first served minibatch (of
+    both routes) byte-equal to a CPU loader's of the same seed, the LRN
+    and SGD launches and the graph replays exact.  (b) image_ae.build()
+    eager (conv2d_fwd, the input gradient, the weight gradient,
+    deconv2d and deconv2d_backward counted exactly) and fused, each
+    against the CPU within the conv AE's bands.  (c) yale_faces.build()
+    fused (SGD launches exact) and eager (gemm_fc and act_backward
+    exact), each with the CPU's n_err and its weights within
+    IF_YALE_WEIGHT_ATOL.  Every part runs before the first failure is
+    raised."""
+    t0 = time.perf_counter()
+    out = {"phase": "image_files"}
+    bad = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, part in (("alexnet", _image_alexnet),
+                          ("image_ae", _image_ae), ("yale_faces", _yale)):
+            t1 = time.perf_counter()
+            out[key], b = part(tmp)
+            out[key]["seconds"] = time.perf_counter() - t1
+            bad += b
+    out["seconds"] = time.perf_counter() - t0
+    if bad:
+        fail(f"image_files: {bad}: {out}")
+    return out
+
+
 #: snapshot_resume (a): AlexNet at full width (227 px, batch 128, 1000
 #: classes, dropout 0.5), 2 train minibatches an epoch and no
 #: validation; the first CLI run to SR_EPOCHS - 1 epochs writes the
@@ -6320,6 +6747,7 @@ PHASES_ALONE = {"kernel": lambda: phase_kernel(),
                 "graph_parity": lambda: phase_graph_parity(),
                 "fused_conv_parity": lambda: phase_fused_conv_parity(),
                 "input_pipeline": lambda: phase_input_pipeline(),
+                "image_files": lambda: phase_image_files(),
                 "snapshot_resume": lambda: phase_snapshot_resume(),
                 "fused_compare": lambda: phase_fused_compare()}
 
@@ -6403,6 +6831,7 @@ def main() -> int:
     emit(phase_graph_parity())
     emit(phase_fused_conv_parity())
     emit(phase_input_pipeline())
+    emit(phase_image_files())
     emit(phase_snapshot_resume())
     kernel_hw = phase_kernel_hw()
     emit(kernel_hw)

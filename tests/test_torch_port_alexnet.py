@@ -439,11 +439,16 @@ def test_alexnet_refusals():
     # the fused shape builds (tests/test_torch_port_fused_conv.py trains it)
     w = talexnet.build(input_size=67, n_train=100, fused=True)
     assert type(w.step).__name__ == "FusedTrainStep"
-    for kw in ({"loader_name": "file_image"},
-               {"loader_name": "full_batch_image"},
-               {"loader_config": {"augment": True}}):
-        with pytest.raises(NotImplementedError, match="loader/image.py"):
-            talexnet.build(fused=False, **kw)
+    # the image-file loaders are ported (tests/test_torch_port_image.py);
+    # augment needs one of them, as in the reference
+    for name, cls in (("file_image", "FileImageLoader"),
+                      ("full_batch_image", "FullBatchImageLoader")):
+        w = talexnet.build(fused=False, loader_name=name,
+                           loader_config={"augment": True})
+        assert type(w.loader).__name__ == cls
+        assert w.loader.crop == (227, 227) and w.loader.mirror
+    with pytest.raises(ValueError, match="image-file loader"):
+        talexnet.build(fused=False, loader_config={"augment": True})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TStandard(layers=_small_layers(talexnet), fused=True,
                   loader_name="synthetic_image", health_config={})

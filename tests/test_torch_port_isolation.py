@@ -60,7 +60,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                  "loader.pickles", "loader.normalization",
                  "resilience.retry", "snapshotter", "launcher", "__main__",
                  "observe.flight", "observe.watchtower",
-                 "resilience.supervisor"):
+                 "resilience.supervisor", "loader.image",
+                 "units.mean_disp_normalizer", "models.image_ae",
+                 "models.yale_faces"):
         assert f"znicz_tpu_torch.{name}" in doc["modules"]
 
 
@@ -84,7 +86,7 @@ COPIES = ["core/config.py", "core/logger.py", "observe/registry.py",
           "units/decision.py", "ops/kohonen.py", "resilience/retry.py",
           "loader/normalization.py", "loader/mnist.py", "loader/pickles.py",
           "native/loader_core.cpp", "resilience/supervisor.py",
-          "observe/watchtower.py"]
+          "observe/watchtower.py", "models/yale_faces.py"]
 
 
 def _code(src: str) -> str:

@@ -156,7 +156,7 @@ def test_staged_inputs_equal_the_synchronous_inputs(direct_transfers):
     loader, step = w.loader, w.step
     stage = step.make_stager()
     rec = loader._next_record()
-    arrays = loader.fill_batch(rec["indices"], rec["size"])
+    arrays = loader.fill_batch(rec["indices"], rec["size"], rec["cls"])
     staged, nbytes = stage(rec, arrays)
     loader._publish_record(rec)
     loader.fill_minibatch()
@@ -465,7 +465,7 @@ def test_loaders_gather_through_the_native_core(monkeypatch):
     idx = loader.minibatch_indices.mem
     np.testing.assert_array_equal(loader.minibatch_data.mem,
                                   loader.original_data.mem[idx])
-    out = loader.fill_batch(idx, 20)
+    out = loader.fill_batch(idx, 20, loader.minibatch_class)
     np.testing.assert_array_equal(out["data"], loader.minibatch_data.mem)
     assert calls == [20, 20]
     src = np.asfortranarray(loader.original_data.mem)

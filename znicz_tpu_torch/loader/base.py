@@ -137,13 +137,14 @@ class Loader(AcceleratedUnit):
         arrays; indices beyond ``minibatch_size`` are -1 (padding)."""
         raise NotImplementedError
 
-    def fill_batch(self, indices: np.ndarray, count: int) -> dict:
+    def fill_batch(self, indices: np.ndarray, count: int, cls: int) -> dict:
         """Pipeline-producer fill: gather the rows selected by ``indices``
-        (-1 = padding, zeroed) into PRODUCER-OWNED buffers and return them
-        as ``{"data": ..., "labels": ..., "targets": ...}`` (present keys
-        only).  Unlike :meth:`fill_minibatch` this must not touch the
-        published ``minibatch_*`` attributes — it runs on the prefetch
-        worker while downstream units still read the previous batch.
+        (-1 = padding, zeroed) of the minibatch class ``cls`` into
+        PRODUCER-OWNED buffers and return them as ``{"data": ...,
+        "labels": ..., "targets": ...}`` (present keys only).  Unlike
+        :meth:`fill_minibatch` this must not touch the published
+        ``minibatch_*`` attributes — it runs on the prefetch worker while
+        downstream units still read the previous batch.
         Implementations use :meth:`_next_buffer` so the staging ring owns
         buffer lifetimes."""
         raise NotImplementedError(

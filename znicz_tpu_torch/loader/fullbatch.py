@@ -66,7 +66,7 @@ class FullBatchLoader(Loader):
             labels[:count] = self.original_labels.mem[idx]
             self.minibatch_labels.mem = labels
 
-    def fill_batch(self, indices: np.ndarray, count: int) -> dict:
+    def fill_batch(self, indices: np.ndarray, count: int, cls: int) -> dict:
         """Producer-side gather for the prefetch pipeline.  Unlike
         :meth:`fill_minibatch` there is no per-serve fresh buffer: the
         staging ring owns buffer lifetimes (a slot is reused only after
@@ -111,8 +111,8 @@ class FullBatchLoaderMSE(FullBatchLoader):
         targets[:count] = src[indices[:count]]
         self.minibatch_targets.mem = targets
 
-    def fill_batch(self, indices: np.ndarray, count: int) -> dict:
-        out = super().fill_batch(indices, count)
+    def fill_batch(self, indices: np.ndarray, count: int, cls: int) -> dict:
+        out = super().fill_batch(indices, count, cls)
         src = self.original_targets.mem
         targets = self._next_buffer(
             "targets", (self.max_minibatch_size,) + src.shape[1:],

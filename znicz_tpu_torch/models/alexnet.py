@@ -11,18 +11,16 @@ pad2 -> LRN -> pool -> conv 384 -> conv 384 -> conv 256 -> pool -> fc 4096
 cuDNN convs and plain matmuls under autograd, as the reference's fused
 step runs XLA's, with LRN on its forward and backward kernels and the
 update on the SGD kernel; ``build(fused=False)`` trains eager on the
-conv and FC kernels.  The image-file loaders
-(``file_image``, ``full_batch_image``) and ``augment`` wait for
-``loader/image.py`` (item 5) and raise too; the synthetic in-memory
+conv and FC kernels.  ``loader_name="file_image"`` (or
+``"full_batch_image"``) reads a directory-per-class image tree through
+``loader/image.py`` with a fitted mean_disp normalizer, and ``augment``
+serves the canonical seeded crops and mirrors; the synthetic in-memory
 loader is the default, as in the reference.
 """
 
 from __future__ import annotations
 
 from znicz_tpu_torch.standard_workflow import StandardWorkflow
-
-#: the reference's image-file loaders, not ported yet
-_FILE_LOADERS = ("file_image", "full_batch_image")
 
 
 def layers(n_classes: int = 1000, lr: float = 0.01, moment: float = 0.9,
@@ -71,17 +69,34 @@ def build(max_epochs: int = 1, minibatch_size: int = 128,
           snapshotter_config: dict | None = None,
           optimizer_config: dict | None = None) -> StandardWorkflow:
     """The reference's signature and defaults.  The synthetic loader
-    serves ``min(n_classes, 50)`` classes of spatially smooth images."""
+    serves ``min(n_classes, 50)`` classes of spatially smooth images.
+    ``loader_name="file_image"`` + ``loader_config={"data_dir": ...}``
+    streams a directory-per-class ImageNet-style tree with fitted
+    mean_disp normalization (the real-data path); add ``"augment": True``
+    for the canonical AlexNet recipe — decode at ``input_size + 29``
+    (256 for 227) and serve seeded random crops + horizontal mirrors on
+    TRAIN, center crops elsewhere (Krizhevsky et al. 2012, the
+    reference pipeline's augmentation)."""
     loader_config = dict(loader_config or {})
-    if loader_name in _FILE_LOADERS or loader_config.get("augment"):
-        raise NotImplementedError(
-            f"the image-file loaders {_FILE_LOADERS} and augment are not "
-            f"ported yet (loader/image.py, ROADMAP.md queue A item 5)")
-    cfg = {"n_classes": min(n_classes, 50),
-           "sample_shape": (input_size, input_size, 3),
-           "n_train": n_train, "n_valid": n_valid,
-           "minibatch_size": minibatch_size, "spread": 1.0,
-           "noise": 0.5}
+    if loader_config.get("augment") and loader_name not in (
+            "file_image", "full_batch_image"):
+        raise ValueError(f"augment requires an image-file loader "
+                         f"(got loader_name={loader_name!r})")
+    if loader_name in ("file_image", "full_batch_image"):
+        cfg = {"sample_shape": (input_size, input_size, 3),
+               "minibatch_size": minibatch_size,
+               "normalization_type": "mean_disp"}
+        if loader_config.pop("augment", False):
+            # decode larger, serve random input_size crops + mirrors
+            decode = input_size + 29          # 256 for the canonical 227
+            cfg.update({"sample_shape": (decode, decode, 3),
+                        "crop": (input_size, input_size), "mirror": True})
+    else:
+        cfg = {"n_classes": min(n_classes, 50),
+               "sample_shape": (input_size, input_size, 3),
+               "n_train": n_train, "n_valid": n_valid,
+               "minibatch_size": minibatch_size, "spread": 1.0,
+               "noise": 0.5}
     cfg.update(loader_config)
     return StandardWorkflow(
         name="AlexNet",

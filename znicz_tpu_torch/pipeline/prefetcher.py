@@ -251,7 +251,8 @@ class BatchPrefetcher:
                 rec = loader._next_record()
                 arrays = None
                 if not loader.serve_indices_only:
-                    arrays = loader.fill_batch(rec["indices"], rec["size"])
+                    arrays = loader.fill_batch(rec["indices"], rec["size"],
+                                              rec["cls"])
                 loader._complete_record(rec)
                 serve_dt = time.perf_counter() - t0
                 self.stats.serve_s += serve_dt

@@ -8,4 +8,5 @@ fully populated.
 
 from znicz_tpu_torch.units import (all2all, conv, deconv,  # noqa: F401
                                    dropout, gd, gd_conv, gd_deconv,
-                                   gd_pooling, normalization, pooling)
+                                   gd_pooling, mean_disp_normalizer,
+                                   normalization, pooling)
