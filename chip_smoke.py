@@ -57,6 +57,18 @@ exits non-zero without the final ``ok`` line):
    and that package served in-process (8 slots, max_len 2048, page 16,
    bf16): 12 concurrent greedy requests through HTTP, the launch counter
    set to 0 just before and read just after.
+4b. **speculative** — the same package served with ``--speculative
+   --spec-k 4 --draft-layers 1``: (a) the 12 requests again, each stream
+   held token for token against serve's (a mismatch passes only as a
+   bf16 tie, re-decoded), paged_decode launches exactly k + 1 draft
+   steps and a 6-layer verify a speculative round and 6 a plain one,
+   both page ledgers closed, ``/meta`` speculative; (b) the batcher
+   with and without the draft in f32 (TF32 off) and a control with the
+   verify frontier one row later that the identity gate must reject;
+   (c) one verify of 5 rows against 5 decode steps on identical arenas
+   in bf16 and f32, within the parity bands, its control outside them,
+   and the verify's kernel call at B·Q 40 timed beside the step's at B
+   8.
 5. **profile** — a steady decode step with all 8 slots live, timed
    without and with ``torch.profiler`` (busy time, the kernel's share,
    the idle share).
@@ -271,6 +283,7 @@ true, ...}`` line.  Exits non-zero without a usable CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -316,8 +329,9 @@ from znicz_tpu_torch.parallel.transformer import (init_params,
                                                   param_shapes,
                                                   params_from_numpy,
                                                   params_to_numpy)
+from znicz_tpu_torch.serve.continuous import ContinuousBatcher
 from znicz_tpu_torch.serve.kvcache import KVDecoder
-from znicz_tpu_torch.serve.paged import PagedKVDecoder
+from znicz_tpu_torch.serve.paged import PagedKVDecoder, truncate_draft
 from znicz_tpu_torch.serve.server import (build_generate_parser,
                                           start_generate_server)
 from znicz_tpu_torch.standard_workflow import StandardWorkflow
@@ -340,6 +354,13 @@ MAX_TOKENS = 32
 PROFILE_STEPS = 20
 #: the parity subset: prompt lengths and teacher-forced decode steps
 PARITY_LENS, PARITY_STEPS = (17, 511, 1024), 16
+#: speculative phase: draft tokens a round and the draft's depth (the
+#: target's first layers); (b)'s in-process f32 run: its requests (the
+#: serve phase's first prompts) and new tokens each; its own clock's
+#: budget in seconds
+SPEC_K, DRAFT_LAYERS = 4, 1
+SPEC_F32_REQUESTS, SPEC_F32_TOKENS = 4, 16
+SPEC_BUDGET_S = 12.0
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 non-tensor and
 #: bf16 dense tensor-core flop/s
@@ -4793,41 +4814,38 @@ def _stream(port: int, ids: list, out: dict) -> None:
     out["total_ms"] = (time.perf_counter() - t0) * 1e3
 
 
-def phase_serve(pkg: str) -> dict:
-    args = build_generate_parser().parse_args(
+def serve_prompts() -> list:
+    """The serve phase's 12 prompts of PROMPT_LENS ids, from its seed."""
+    rng = np.random.default_rng(SEED + 1)
+    return [rng.integers(0, VOCAB, n).tolist() for n in PROMPT_LENS]
+
+
+def serve_args(pkg: str, *extra: str):
+    return build_generate_parser().parse_args(
         [pkg, "--serve", "--port", "0", "--slots", str(SLOTS),
          "--max-len", str(MAX_LEN), "--page-size", str(PAGE),
-         "--device", DEVICE])
-    t0 = time.perf_counter()
-    lm_params, meta = load_lm(pkg)
-    server = start_generate_server(args, lm_params, meta)
-    boot_s = time.perf_counter() - t0
-    decoder = server.decoder
-    if decoder.device.type != DEVICE or \
-            decoder.dtype != resolve_compute_dtype(DEVICE):
-        fail(f"server decodes in {decoder.dtype} on {decoder.device}")
-    rng = np.random.default_rng(SEED + 1)
-    prompts = [rng.integers(0, VOCAB, n).tolist() for n in PROMPT_LENS]
+         "--device", DEVICE, *extra])
+
+
+def stream_all(port: int, prompts: list) -> tuple:
+    """Every prompt streamed at once, a thread each -> (results, wall
+    s); fails if a stream does not finish."""
     results = [{} for _ in prompts]
-    steps0 = decoder.decode_steps
-    TRACER.clear()
-    kdecode.launches = 0                     # counts: 0 just before ...
     t0 = time.perf_counter()
-    threads = [threading.Thread(target=_stream,
-                                args=(server.port, ids, out))
+    threads = [threading.Thread(target=_stream, args=(port, ids, out))
                for ids, out in zip(prompts, results)]
     for t in threads:
         t.start()
     for t in threads:
         t.join(timeout=600)
-    wall_s = time.perf_counter() - t0
-    launches = kdecode.launches              # ... and read just after
-    steps = decoder.decode_steps - steps0
-    server.stop()                            # drains: the ledger is final
-    snap = server.metrics.snapshot()
     if any(t.is_alive() for t in threads):
         fail("a request stream did not finish")
-    n_tokens = 0
+    return results, time.perf_counter() - t0
+
+
+def streamed_tokens(prompts, results) -> list:
+    """Each request's tokens; fails unless it streamed MAX_TOKENS ids in
+    the vocab and ended with its one terminal ``length`` event."""
     streams = []
     for ids, res in zip(prompts, results):
         events = res.get("events", [])
@@ -4840,8 +4858,31 @@ def phase_serve(pkg: str) -> dict:
                                               for t in toks):
             fail(f"prompt of {len(ids)} tokens streamed {len(toks)} "
                  f"tokens, want {MAX_TOKENS} ids in [0, {VOCAB})")
-        n_tokens += len(toks)
         streams.append(toks)
+    return streams
+
+
+def phase_serve(pkg: str) -> dict:
+    args = serve_args(pkg)
+    t0 = time.perf_counter()
+    lm_params, meta = load_lm(pkg)
+    server = start_generate_server(args, lm_params, meta)
+    boot_s = time.perf_counter() - t0
+    decoder = server.decoder
+    if decoder.device.type != DEVICE or \
+            decoder.dtype != resolve_compute_dtype(DEVICE):
+        fail(f"server decodes in {decoder.dtype} on {decoder.device}")
+    prompts = serve_prompts()
+    steps0 = decoder.decode_steps
+    TRACER.clear()
+    kdecode.launches = 0                     # counts: 0 just before ...
+    results, wall_s = stream_all(server.port, prompts)
+    launches = kdecode.launches              # ... and read just after
+    steps = decoder.decode_steps - steps0
+    server.stop()                            # drains: the ledger is final
+    snap = server.metrics.snapshot()
+    streams = streamed_tokens(prompts, results)
+    n_tokens = sum(map(len, streams))
     if launches < steps * N_LAYERS or launches == 0:
         fail(f"paged_decode launched {launches} times over {steps} "
              f"decode steps x {N_LAYERS} layers")
@@ -4864,6 +4905,390 @@ def phase_serve(pkg: str) -> dict:
             "ledger": {k: snap[k] for k in ("admitted", "completed",
                                             "failed", "abandoned")},
             "_streams": streams, "_decoder": decoder}
+
+
+@contextlib.contextmanager
+def shifted_frontier():
+    """The control: while open, every verify pass (a paged_decode call
+    on the SLOTS·(SPEC_K + 1) flattened queries) sees one row past its
+    frontier (query ``i`` also sees row ``pos + i + 1``, the proposal it
+    judges), clamped to the page view; single-query steps are left as
+    they are."""
+    kernel = kdecode.paged_decode
+    n_verify = SLOTS * (SPEC_K + 1)
+
+    def shifted(q, k_pages, v_pages, page_table, lengths):
+        if q.shape[0] == n_verify:
+            lengths = torch.clamp(
+                lengths + 1, max=page_table.shape[1] * k_pages.shape[1])
+        return kernel(q, k_pages, v_pages, page_table, lengths)
+
+    kdecode.paged_decode = shifted
+    try:
+        yield
+    finally:
+        kdecode.paged_decode = kernel
+
+
+def redecode_logits(dec, prompt, prefix) -> np.ndarray:
+    """Plain decode of ``prompt`` then ``prefix`` (teacher-forced) in
+    slot 0 of the paged decoder ``dec``; the logits that choose the
+    token after the prefix."""
+    pages = dec.ledger.alloc(dec.pages_for(len(prompt) + len(prefix)))
+    try:
+        kv1, logits = dec.prefill(prompt)
+        dec.adopt_paged(kv1, pages[:dec.pages_for(len(prompt))])
+        pt = np.zeros((dec.batch, dec.view_bucket(len(pages))), np.int32)
+        pt[0, :len(pages)] = pages
+        pos = np.zeros(dec.batch, np.int32)
+        tok = np.zeros(dec.batch, np.int32)
+        for i, t in enumerate(prefix):
+            pos[0], tok[0] = len(prompt) + i, t
+            logits = dec.decode_paged(pt, pos, tok)[0]
+        return logits
+    finally:
+        dec.ledger.release(pages)
+
+
+def stream_identity(got, want, prompts, plain_decoder, band) -> dict:
+    """The token-identity gate: every speculative stream must equal its
+    plain one.  At a stream's first mismatch the prefix is re-decoded
+    by a plain decoder (``plain_decoder()``, made at the first need) and
+    the mismatch passes only as a tie: both tokens' logits within
+    ``band`` of the top one (the top-2 gap is printed beside)."""
+    ties, bad, dec = [], [], None
+    for r, (g, w, ids) in enumerate(zip(got, want, prompts)):
+        if g == w:
+            continue
+        if len(g) != len(w):
+            bad.append({"request": r, "lengths": [len(g), len(w)]})
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(g, w)) if a != b)
+        dec = dec or plain_decoder()
+        lg = redecode_logits(dec, ids, w[:j])
+        top = np.sort(lg)[-2:]
+        case = {"request": r, "prompt_len": len(ids), "position": j,
+                "spec": g[j], "plain": w[j],
+                "top2_gap": float(top[1] - top[0]),
+                "deficit": float(top[1] - min(lg[g[j]], lg[w[j]]))}
+        (ties if case["deficit"] <= band else bad).append(case)
+    return {"identical": sum(g == w for g, w in zip(got, want)),
+            "streams": len(got), "ties": ties, "mismatches": bad,
+            "band": band, "ok": not bad}
+
+
+def _spec_http(pkg, prompts, plain_streams) -> tuple:
+    """(a): the CLI's speculative server, bf16, the serve phase's
+    traffic; -> (reading, failures)."""
+    t0 = time.perf_counter()
+    lm_params, meta = load_lm(pkg)
+    server = start_generate_server(
+        serve_args(pkg, "--speculative", "--spec-k", str(SPEC_K),
+                   "--draft-layers", str(DRAFT_LAYERS)),
+        lm_params, meta)
+    boot_s = time.perf_counter() - t0
+    target, draft = server.decoder, server.batcher._draft
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{server.port}/meta", timeout=60) as r:
+        meta_doc = json.loads(r.read())
+    TRACER.clear()
+    kdecode.launches = 0                     # counts: 0 just before ...
+    results, wall_s = stream_all(server.port, prompts)
+    launches = kdecode.launches              # ... and read just after
+    spans = [e for e in TRACER.tail(len(TRACER))
+             if e["name"] == "generate.decode_step"]
+    server.stop()                            # drains: the ledgers are final
+    snap = server.metrics.snapshot()
+    ledger = server.batcher.page_ledger()
+    streams = streamed_tokens(prompts, results)
+    spec_ms = [e["dur"] / 1e3 for e in spans if e["args"]["spec_k"]]
+    plain_rounds = sum(not e["args"]["spec_k"] for e in spans)
+    want_launches = len(spec_ms) * ((SPEC_K + 1) * draft.n_layers
+                                    + target.n_layers) \
+        + plain_rounds * target.n_layers
+    judged = snap["spec_accepted"] + snap["spec_rejected"]
+    slot_rounds = judged // SPEC_K
+    ident = stream_identity(
+        streams, plain_streams, prompts,
+        lambda: PagedKVDecoder(lm_params, heads=HEADS, max_len=MAX_LEN,
+                               batch=SLOTS, page=PAGE, device=DEVICE),
+        PARITY_ATOL_BF16)
+    bad = []
+    if not ident["ok"]:
+        bad.append(f"(a) streams differ from plain decode: {ident}")
+    if launches != want_launches:
+        bad.append(f"(a) paged_decode launched {launches} times, want "
+                   f"{want_launches} ({len(spec_ms)} speculative and "
+                   f"{plain_rounds} plain rounds)")
+    if judged <= 0 or judged % SPEC_K:
+        bad.append(f"(a) {judged} draft tokens judged, want a positive "
+                   f"multiple of {SPEC_K}")
+    if ledger.get("pages_used") != 0 or ledger.get("draft_pages_used") \
+            != 0:
+        bad.append(f"(a) page ledgers after stop: {ledger}")
+    if meta_doc.get("speculative") is not True:
+        bad.append(f"(a) /meta: {meta_doc}")
+    if snap["completed"] != len(prompts):
+        bad.append(f"(a) admission ledger: {snap}")
+    ttft = [r["ttft_ms"] for r in results]
+    return {"boot_s": boot_s, "dtype": str(target.dtype),
+            "requests": len(prompts), "max_tokens": MAX_TOKENS,
+            "identity": ident, "kernel_launches": launches,
+            "expected_launches": want_launches,
+            "rounds": {"speculative": len(spec_ms), "plain": plain_rounds},
+            "spec_accepted": snap["spec_accepted"],
+            "spec_rejected": snap["spec_rejected"],
+            "acceptance_rate": snap["spec_accepted"] / max(judged, 1),
+            "tokens_per_greedy_slot_round":
+                1 + snap["spec_accepted"] / max(slot_rounds, 1),
+            "round_ms_p50": float(np.median(spec_ms)) if spec_ms
+            else None,
+            "ttft_ms_p50": float(np.median(ttft)),
+            "tokens": sum(map(len, streams)), "wall_s": wall_s,
+            "tokens_per_s": sum(map(len, streams)) / wall_s,
+            "page_ledger": ledger, "speculative_meta":
+                meta_doc.get("speculative")}, bad
+
+
+def _f32_decoders(lm_params, draft_params=None) -> tuple:
+    root.common.engine.precision = "float32"
+    try:
+        kw = dict(heads=HEADS, max_len=MAX_LEN, batch=SLOTS, page=PAGE,
+                  device=DEVICE)
+        return (PagedKVDecoder(lm_params, **kw),
+                None if draft_params is None else
+                PagedKVDecoder(draft_params, **kw))
+    finally:
+        root.common.engine.precision = "bfloat16"
+
+
+def _batched(decoder, prompts, n_new, draft=None) -> tuple:
+    """-> (each prompt's stream, the draft tokens accepted and rejected)."""
+    batcher = ContinuousBatcher(decoder, draft=draft, spec_k=SPEC_K,
+                                default_timeout_s=600.0)
+    try:
+        streams = [batcher.submit(ids, max_new_tokens=n_new)
+                   for ids in prompts]
+        streams = [s.result(timeout_s=600) for s in streams]
+    finally:
+        batcher.stop()
+    snap = batcher.metrics.snapshot()
+    return streams, (snap["spec_accepted"], snap["spec_rejected"])
+
+
+def _spec_f32(lm_params, prompts) -> tuple:
+    """(b): target and draft in f32 on the card, TF32 off; the batcher
+    with and without the draft; with a draft of the target's own
+    weights, which accepts, so rounds emit several tokens and the next
+    round reuses the accepted rows; and the control (the target's
+    frontier one row later), which the identity gate must reject."""
+    target, draft = _f32_decoders(lm_params,
+                                  truncate_draft(lm_params, DRAFT_LAYERS))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        plain, _ = _batched(target, prompts, SPEC_F32_TOKENS)
+        spec, judged = _batched(target, prompts, SPEC_F32_TOKENS, draft)
+        self_draft = _f32_decoders(lm_params)[0]
+        own, own_judged = _batched(target, prompts, SPEC_F32_TOKENS,
+                                   self_draft)
+        del self_draft
+        with shifted_frontier():
+            shifted, _ = _batched(target, prompts, SPEC_F32_TOKENS, draft)
+
+        def plain_decoder():
+            return _f32_decoders(lm_params)[0]
+
+        ident = stream_identity(spec, plain, prompts, plain_decoder,
+                                PARITY_ATOL_F32)
+        own_ident = stream_identity(own, plain, prompts, plain_decoder,
+                                    PARITY_ATOL_F32)
+        control = stream_identity(shifted, plain, prompts, plain_decoder,
+                                  PARITY_ATOL_F32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    bad = []
+    if not ident["ok"]:
+        bad.append(f"(b) f32 streams differ from plain decode: {ident}")
+    if not own_ident["ok"]:
+        bad.append(f"(b) f32 streams with the target's own weights as "
+                   f"the draft differ from plain decode: {own_ident}")
+    if own_judged[0] <= 0:
+        bad.append(f"(b) the target's own weights as the draft accepted "
+                   f"nothing: {own_judged}")
+    if control["ok"]:
+        bad.append(f"(b) the identity gate passed the shifted-frontier "
+                   f"control: {control}")
+    return {"dtype": str(target.dtype), "requests": len(prompts),
+            "max_tokens": SPEC_F32_TOKENS, "identity": ident,
+            "accepted_rejected": list(judged),
+            "own_weights_draft": {
+                "identity": own_ident, "accepted_rejected": list(own_judged),
+                "acceptance_rate": own_judged[0] / max(sum(own_judged), 1)},
+            "control": {"rejected": not control["ok"],
+                        "mismatches": len(control["mismatches"]),
+                        "identical": control["identical"]}}, bad
+
+
+def _verify_parity(lm_params, precision, prompts, band) -> dict:
+    """(c): two decoders with identical arenas (the prompts adopted
+    into one, its arena copied into the other), one verify of SPEC_K + 1
+    rows against as many single-token decode steps fed the same tokens,
+    and the control (the frontier one row later) from the same arena."""
+    root.common.engine.precision = precision
+    try:
+        kw = dict(heads=HEADS, max_len=MAX_LEN, batch=SLOTS, page=PAGE,
+                  device=DEVICE)
+        a, b = PagedKVDecoder(lm_params, **kw), PagedKVDecoder(lm_params,
+                                                               **kw)
+    finally:
+        root.common.engine.precision = "bfloat16"
+    q_len = SPEC_K + 1
+    pos = np.asarray([len(p) for p in prompts], np.int32)
+    pages = []
+    for ids in prompts:
+        pg = a.ledger.alloc(a.pages_for(len(ids) + q_len))
+        kv1, _ = a.prefill(ids)
+        a.adopt_paged(kv1, pg[:a.pages_for(len(ids))])
+        pages.append(pg)
+    crossing = [int(n) for n in pos if n // PAGE != (n + q_len - 1) // PAGE]
+    if not crossing:
+        fail(f"verify_parity: no slot crosses a page inside {q_len} rows")
+    pt = np.zeros((SLOTS, a.view_bucket(max(map(len, pages)))), np.int32)
+    for i, pg in enumerate(pages):
+        pt[i, :len(pg)] = pg
+    start = {n: t.clone() for n, t in a._arena.items()}
+    for n, t in b._arena.items():
+        t.copy_(start[n])
+    tokens = np.random.default_rng(SEED + 4).integers(
+        0, VOCAB, (SLOTS, q_len)).astype(np.int32)
+    got = a.verify_paged(pt, pos, tokens)
+    want = np.stack([b.decode_paged(pt, pos + i, tokens[:, i])
+                     for i in range(q_len)], axis=1)
+    for n, t in a._arena.items():
+        t.copy_(start[n])
+    with shifted_frontier():
+        shifted = a.verify_paged(pt, pos, tokens)
+    if not (np.isfinite(got).all() and np.isfinite(want).all()):
+        fail(f"verify_parity: non-finite logits ({precision})")
+    out = {"dtype": str(a.dtype), "q_len": q_len, "slot_lengths":
+           pos.tolist(), "crossing_page": crossing,
+           "max_abs_logit_diff": float(np.abs(got - want).max()),
+           "argmax_flips": int((got.argmax(-1) != want.argmax(-1)).sum()),
+           "compared": SLOTS * q_len, "band": band,
+           "control_max_abs_diff": float(np.abs(shifted - want).max())}
+    out["ok"] = out["max_abs_logit_diff"] <= band
+    out["control_rejected"] = out["control_max_abs_diff"] > band
+    if precision == "bfloat16":
+        out["timed"] = _verify_timed(a, pt, pos, q_len)
+    return out
+
+
+def verify_bound_bytes(q, k_pages, pt, pos, q_len) -> int:
+    """Bytes the verify pass's attention must move: the B·Q queries,
+    each slot's live K and V rows (``pos + Q`` of them) read ONCE for
+    all its Q queries, the slots' page table and positions, and the f32
+    output.  The flattened call reads a slot's rows Q times; that is its
+    cost, not the function's."""
+    n, H, Dh = q.shape
+    rows = int((np.asarray(pos, np.int64) + q_len).sum())
+    return (q.numel() * q.element_size()
+            + 2 * rows * H * Dh * k_pages.element_size()
+            + pt.size * 4 + pos.size * 4 + n * H * Dh * 4)
+
+
+def _verify_timed(dec, pt, pos, q_len) -> dict:
+    """The verify pass's kernel call (B·Q flattened queries, each with
+    its slot's page-table row and frontier) beside the single-query
+    step's at the same view, on one arena layer, with their splits and
+    byte bounds.  The verify's bound reads each slot's rows once
+    (:func:`verify_bound_bytes`); ``flattened_bytes_ms`` is the time
+    of the bytes the flattened call reads, each slot's rows Q times."""
+    rng = np.random.default_rng(SEED + 5)
+    ka, va = dec._arena["k"][0], dec._arena["v"][0]
+    rows = pos[:, None] + np.arange(q_len)[None, :]
+    cases = {"verify": (np.repeat(pt, q_len, axis=0), (rows + 1).ravel()),
+             "decode": (pt, pos + 1)}
+    out = {}
+    for name, (table, lengths) in cases.items():
+        q = torch.tensor(rng.normal(size=(len(lengths), HEADS, D // HEADS)),
+                         dtype=dec.dtype, device=DEVICE)
+        table = torch.tensor(table, device=DEVICE)
+        lengths = torch.tensor(lengths, dtype=torch.int32, device=DEVICE)
+        ms = time_cuda_ms(lambda: kdecode.paged_decode(q, ka, va, table,
+                                                       lengths), lead=True)
+        flat = kdecode.bound_bytes(q, ka, table, lengths)
+        nbytes = verify_bound_bytes(q, ka, pt, pos, q_len) \
+            if name == "verify" else flat
+        out[name] = {"queries": len(lengths), "ms": ms,
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "bound_by": "bytes",
+                     "flattened_bytes_ms": flat / HBM_BYTES_PER_S * 1e3,
+                     "split": dict(zip(("pages_per_split", "splits"),
+                                       kdecode.decode_split(
+                                           len(lengths), table.shape[1],
+                                           PAGE, HEADS)))}
+    return out
+
+
+def phase_speculative(pkg: str, serve: dict, plain_streams: list) -> dict:
+    """Speculative decoding (``generate --serve --speculative --spec-k
+    SPEC_K --draft-layers DRAFT_LAYERS``) on the serve phase's package:
+    (a) its 12 greedy requests over HTTP in bf16, held token for token
+    against the serve phase's plain streams, with exact paged_decode
+    launches (k + 1 draft steps of one layer and a 6-layer verify a
+    speculative round, 6 a plain one, the rounds counted by kind from
+    the decode-step spans), both page ledgers closed after stop and
+    /meta speculative; (b) the batcher with and without the draft in
+    f32 on the card, TF32 off, and the shifted-frontier control the
+    identity gate must reject; (c) verify_parity in bf16 and f32: one
+    verify of k + 1 rows against k + 1 decode steps on identical
+    arenas, within the parity bands, its control outside them."""
+    t0 = time.perf_counter()
+    prompts = serve_prompts()
+    http, bad = _spec_http(pkg, prompts, plain_streams)
+    t_a = time.perf_counter()
+    lm_params, _ = load_lm(pkg)
+    f32, bad_b = _spec_f32(lm_params, prompts[:SPEC_F32_REQUESTS])
+    bad += bad_b
+    t_b = time.perf_counter()
+    parity = {"bf16": _verify_parity(lm_params, "bfloat16",
+                                     prompts[:SLOTS], PARITY_ATOL_BF16),
+              "f32": _verify_parity(lm_params, "float32",
+                                    prompts[:SLOTS], PARITY_ATOL_F32)}
+    for name, r in parity.items():
+        if not r["ok"]:
+            bad.append(f"(c) verify vs decode logits ({name}): {r}")
+        if not r["control_rejected"]:
+            bad.append(f"(c) the {name} band passed the shifted-frontier "
+                       f"control: {r}")
+    seconds = time.perf_counter() - t0
+    out = {"phase": "speculative", "spec_k": SPEC_K,
+           "draft_layers": DRAFT_LAYERS, "http": http, "f32": f32,
+           "verify_parity": parity,
+           "plain": {k: serve.get(k) for k in (
+               "decode_step_ms_p50", "tokens_per_s", "ttft_ms_p50",
+               "boot_s")},
+           "part_s": {"http": t_a - t0, "f32": t_b - t_a,
+                      "verify_parity": seconds - (t_b - t0)},
+           "seconds": seconds, "budget_s": SPEC_BUDGET_S,
+           "within_budget": seconds <= SPEC_BUDGET_S}
+    if bad:
+        fail(f"speculative: {bad}")
+    return out
+
+
+def phase_speculative_alone() -> dict:
+    """``--phase speculative``: a package of the seeded initial weights
+    and its own plain serve pass first (not on the phase's clock)."""
+    params = init_params(np.random.default_rng(SEED), N_LAYERS, D, HEADS,
+                         FF, VOCAB)
+    with tempfile.TemporaryDirectory() as tmp:
+        pkg = export_lm(params, os.path.join(tmp, "lm.npz"), heads=HEADS)
+        serve = phase_serve(pkg)
+        streams = serve.pop("_streams")
+        serve.pop("_decoder")
+        return phase_speculative(pkg, serve, streams)
 
 
 def phase_profile(decoder) -> dict:
@@ -5274,7 +5699,7 @@ def phase_build() -> dict:
 
 def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
                 fused, conv, alexnet, deconv, ae, spool, mcs, som,
-                lrn_drop, alex_fused, kernel_hw) -> dict:
+                lrn_drop, alex_fused, kernel_hw, spec) -> dict:
     """The eighteen kernels: launches from the main paths' runs, times
     and errors from the kernel phases, bounds from this run's inputs.  A
     conv kernel's times and bound sum its launches of one AlexNet train
@@ -5286,7 +5711,8 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
     elements.  AdamW's launches are the fused
     step's, one a step over all its leaves, and its ms one such call
     over bench_fc's six.  Each conv.cu entry names the kernels
-    it launches (``cuda_kernels``)."""
+    it launches (``cuda_kernels``); paged_decode's also carries the
+    speculative path's launches and its verify call's time."""
     def entry(name, source, replaces, launches, timed, max_abs_err,
               **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -5307,7 +5733,13 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
         entry("paged_decode", kdecode.SOURCE, kdecode.REPLACES,
               serve["kernel_launches"], kernel, kernel["max_abs_err"],
               cuda_kernels=["paged_decode_kernel<T,DH>",
-                            "paged_decode_kernel_combine<DH>"]),
+                            "paged_decode_kernel_combine<DH>"],
+              speculative={
+                  "launches": spec["http"]["kernel_launches"],
+                  "rounds": spec["http"]["rounds"],
+                  **{f"{name}_{key}": t[key] for name, t in
+                     spec["verify_parity"]["bf16"]["timed"].items()
+                     for key in ("ms", "bound_ms")}}),
         entry("flash_attention_fwd", kflash.SOURCE, kflash.REPLACES_FWD,
               train["fwd_launches"], flash["fwd"],
               flash["fwd"]["max_abs_err"]),
@@ -6749,6 +7181,7 @@ PHASES_ALONE = {"kernel": lambda: phase_kernel(),
                 "input_pipeline": lambda: phase_input_pipeline(),
                 "image_files": lambda: phase_image_files(),
                 "snapshot_resume": lambda: phase_snapshot_resume(),
+                "speculative": lambda: phase_speculative_alone(),
                 "fused_compare": lambda: phase_fused_compare()}
 
 
@@ -6792,11 +7225,13 @@ def main() -> int:
         package_s = time.perf_counter() - t0
         del trained
         serve = phase_serve(pkg)
+        streams = serve.pop("_streams")
+        decoder = serve.pop("_decoder")
+        serve["package_s"] = package_s
+        emit(serve)
+        spec = phase_speculative(pkg, serve, streams)
+        emit(spec)
         lm_params, _ = load_lm(pkg)
-    streams = serve.pop("_streams")
-    decoder = serve.pop("_decoder")
-    serve["package_s"] = package_s
-    emit(serve)
     emit(phase_profile(decoder))
     del decoder
     emit(phase_parity(lm_params))
@@ -6837,7 +7272,7 @@ def main() -> int:
     emit(kernel_hw)
     emit({**kernel_line(kernel, flash, gemm, optim, serve, train, eager,
                         fused, conv, alexnet, deconv, ae, spool, mcs, som,
-                        lrn_drop, alex_fused, kernel_hw),
+                        lrn_drop, alex_fused, kernel_hw, spec),
           "first_stream": streams[0][:8],
           "seconds": time.perf_counter() - T_START})
     print(nvidia_smi(), flush=True)

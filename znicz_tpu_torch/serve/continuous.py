@@ -1,7 +1,6 @@
 """Continuous batching for generative decode — the admission half of
 the generative serving plane; the counterpart of
-``znicz_tpu/serve/continuous.py`` (without speculative decoding, which
-comes with a later slice of the port).
+``znicz_tpu/serve/continuous.py``.
 
 The continuous batcher keeps ONE decode batch running over a
 fixed-width *slot map*: every decode step advances all occupied slots by
@@ -31,7 +30,11 @@ admits against the PAGE budget (a queued request waits for free arena
 pages, not a worst-case bucket), ``grow`` is a page-table append,
 eviction on arena exhaustion fails the growing request loudly, and a
 crash-path sweep keeps the page ledger exact (``pages_used == Σ live
-slot pages``).
+slot pages``).  With a ``draft`` decoder each step becomes a speculative
+round — the draft proposes ``spec_k`` tokens, the target verifies all
+of them in one batched pass, and greedy streams stay token-identical to
+plain decode by construction (every emitted token is the target's own
+greedy choice).
 """
 
 from __future__ import annotations
@@ -146,7 +149,7 @@ class TokenStream:
 class _GenRequest:
     __slots__ = ("stream", "prompt", "max_new", "sampler", "deadline",
                  "pos", "next_token", "emitted", "finished", "track",
-                 "t0_perf", "first_perf", "pages")
+                 "t0_perf", "first_perf", "pages", "draft_pages")
 
     def __init__(self, stream: TokenStream, prompt: np.ndarray,
                  max_new: int, sampler: TokenSampler,
@@ -163,11 +166,20 @@ class _GenRequest:
         #: arena pages this request holds (paged decoder only) — the
         #: page table maps row r to (pages[r // page], r % page)
         self.pages: list = []
+        self.draft_pages: list = []
         #: trace anchors: every phase span of this request
         #: lands on one synthetic per-request track
         self.track = request_track(stream.request_id)
         self.t0_perf = time.perf_counter()      # admission (queue start)
         self.first_perf: float | None = None    # first token sampled
+
+    @property
+    def greedy(self) -> bool:
+        """Greedy requests ride the speculative acceptance rule; sampled
+        ones take one token per round from the verify logits' position 0
+        (their exact decode distribution — speculation never distorts
+        sampling)."""
+        return self.sampler.temperature == 0.0 or self.sampler.top_k == 1
 
     @property
     def total_budget(self) -> int:
@@ -188,16 +200,43 @@ class ContinuousBatcher(Logger):
     :class:`~znicz_tpu_torch.serve.paged.PagedKVDecoder` requests hold
     arena pages instead and admission/growth/eviction ride the page
     ledger.
+
+    ``draft`` (paged only) switches every step to a speculative
+    draft+verify round proposing ``spec_k`` tokens — greedy streams
+    stay token-identical to plain decode; sampled ones keep their
+    exact seeded distribution.
     """
 
     def __init__(self, decoder: KVDecoder, max_queue: int = 64,
                  default_timeout_s: float = 60.0,
-                 metrics: GenerateMetrics | None = None) -> None:
+                 metrics: GenerateMetrics | None = None,
+                 draft: KVDecoder | None = None,
+                 spec_k: int = 4) -> None:
         super().__init__()
         self.decoder = decoder
         #: paged decoders swap the shared bucket cache for the
         #: block-paged arena: admission and growth ride the page ledger
         self._paged = bool(getattr(decoder, "paged", False))
+        self._draft = draft
+        self._spec_k = int(spec_k)
+        if self._spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+        if draft is not None:
+            if not self._paged or not getattr(draft, "paged", False):
+                raise ValueError(
+                    "speculative decoding needs PagedKVDecoder for both "
+                    "target and draft (the contiguous path has no "
+                    "multi-row verify)")
+            if draft.batch != decoder.batch:
+                raise ValueError(f"draft batch {draft.batch} != target "
+                                 f"batch {decoder.batch}")
+            if draft.vocab != decoder.vocab:
+                raise ValueError(f"draft vocab {draft.vocab} != target "
+                                 f"vocab {decoder.vocab} — the draft "
+                                 "must speak the same charmap")
+            if draft.max_len < decoder.max_len:
+                raise ValueError(f"draft max_len {draft.max_len} < "
+                                 f"target max_len {decoder.max_len}")
         self.slots: list = [None] * decoder.batch
         self.max_queue = int(max_queue)
         self.default_timeout_s = default_timeout_s
@@ -206,6 +245,10 @@ class ContinuousBatcher(Logger):
         if self._paged:
             self.metrics.on_pages(decoder.ledger.used,
                                   decoder.ledger.total)
+        if draft is not None:
+            # touch both counter series so fleet delta rules see the 0
+            # baseline, not a missing key
+            self.metrics.on_spec(0, 0)
         self.step_count = 0
         self._kv = None
         self._bucket = 0
@@ -322,6 +365,9 @@ class ContinuousBatcher(Logger):
         if req.pages:
             self.decoder.ledger.release(req.pages)
             req.pages = []
+        if req.draft_pages:
+            self._draft.ledger.release(req.draft_pages)
+            req.draft_pages = []
         if self._paged:
             self.metrics.on_pages(self.decoder.ledger.used,
                                   self.decoder.ledger.total)
@@ -357,11 +403,17 @@ class ContinuousBatcher(Logger):
 
     def _can_admit(self, req: _GenRequest) -> bool:
         """Paged admission gate: the request's PROMPT pages must be free
-        in the arena — the rest of its budget grows page by page as it
-        decodes.  A gated request stays queued; running slots free pages
-        as they finish."""
+        in the arena (and the draft's, under speculation) — the rest of
+        its budget grows page by page as it decodes.  A gated request
+        stays queued; running slots free pages as they finish."""
         need = self.decoder.pages_for(len(req.prompt))
-        return self.decoder.ledger.free >= need
+        if self.decoder.ledger.free < need:
+            return False
+        if self._draft is not None and \
+                self._draft.ledger.free < self._draft.pages_for(
+                    len(req.prompt)):
+            return False
+        return True
 
     def _admit(self) -> None:
         """Move pending requests into free slots: prefill the prompt,
@@ -464,6 +516,12 @@ class ContinuousBatcher(Logger):
         kv1, logits = dec.prefill(
             req.prompt, bucket=dec.bucket_for(len(req.prompt)))
         dec.adopt_paged(kv1, req.pages)
+        if self._draft is not None:
+            d = self._draft
+            req.draft_pages = d.ledger.alloc(d.pages_for(len(req.prompt)))
+            kv1d, _ = d.prefill(req.prompt,
+                                bucket=d.bucket_for(len(req.prompt)))
+            d.adopt_paged(kv1d, req.draft_pages)
         self.metrics.on_pages(dec.ledger.used, dec.ledger.total)
         return logits
 
@@ -471,35 +529,42 @@ class ContinuousBatcher(Logger):
     def _ensure_pages(self, req: _GenRequest, slot: int,
                       rows: int) -> bool:
         """grow() as a page-table append: extend the request's page
-        table until it covers ``rows`` sequence rows.  Exhaustion is the
-        eviction policy — the GROWING request fails loudly with an error
-        sentinel naming the arena (its pages free immediately;
+        tables until they cover ``rows`` sequence rows.  Exhaustion is
+        the eviction policy — the GROWING request fails loudly with an
+        error sentinel naming the arena (its pages free immediately;
         everything else keeps decoding)."""
-        dec = self.decoder
-        while len(req.pages) * dec.page < rows:
-            try:
-                req.pages.extend(dec.ledger.alloc(1))
-            except ArenaExhausted as exc:
-                self.warning(f"evicting {req.stream.request_id}: {exc}")
-                self._finish(req, {
-                    "error": f"KV arena exhausted after {req.emitted} "
-                             f"tokens: {exc}",
-                    "done": True})
-                self.slots[slot] = None
-                return False
+        pairs = [(self.decoder, req.pages)]
+        if self._draft is not None:
+            pairs.append((self._draft, req.draft_pages))
+        for dec, pages in pairs:
+            while len(pages) * dec.page < rows:
+                try:
+                    pages.extend(dec.ledger.alloc(1))
+                except ArenaExhausted as exc:
+                    self.warning(f"evicting {req.stream.request_id}: "
+                                 f"{exc}")
+                    self._finish(req, {
+                        "error": f"KV arena exhausted after "
+                                 f"{req.emitted} tokens: {exc}",
+                        "done": True})
+                    self.slots[slot] = None
+                    return False
         return True
 
-    def _page_table(self) -> np.ndarray:
-        """Assemble the device-facing page table: a ``(slots, view)``
-        int32 array at the page-view bucket covering the widest live
-        slot; empty slots and padding entries point at the scratch page
-        (their writes land in /dev/null and their reads are masked)."""
-        widest = max(len(r.pages) for r in self.slots if r is not None)
-        pt = np.zeros((len(self.slots), self.decoder.view_bucket(widest)),
+    def _page_table(self, dec, attr: str) -> np.ndarray:
+        """Assemble the device-facing page table for one decoder: a
+        ``(slots, view)`` int32 array at the page-view bucket covering
+        the widest live slot; empty slots and padding entries point at
+        the scratch page (their writes land in /dev/null and their
+        reads are masked)."""
+        widest = max(len(getattr(r, attr))
+                     for r in self.slots if r is not None)
+        pt = np.zeros((len(self.slots), dec.view_bucket(widest)),
                       np.int32)
         for i, req in enumerate(self.slots):
             if req is not None:
-                pt[i, :len(req.pages)] = req.pages
+                pages = getattr(req, attr)
+                pt[i, :len(pages)] = pages
         return pt
 
     def _sweep_orphan_pages(self) -> int:
@@ -511,6 +576,10 @@ class ContinuousBatcher(Logger):
             return 0
         n = self.decoder.ledger.reclaim(
             [p for r in self.slots if r is not None for p in r.pages])
+        if self._draft is not None:
+            n += self._draft.ledger.reclaim(
+                [p for r in self.slots if r is not None
+                 for p in r.draft_pages])
         if n:
             self.warning(f"swept {n} orphaned arena pages")
         self.metrics.on_pages(self.decoder.ledger.used,
@@ -526,17 +595,63 @@ class ContinuousBatcher(Logger):
         with self._cond:
             owned = sum(len(r.pages) for r in self.slots
                         if r is not None)
-        return {"paged": True,
-                "pages_used": self.decoder.ledger.used,
-                "pages_owned": owned,
-                "pages_total": self.decoder.ledger.total,
-                "pages_peak": self.decoder.ledger.peak_used}
+            draft_owned = sum(len(r.draft_pages) for r in self.slots
+                              if r is not None)
+        out = {"paged": True,
+               "pages_used": self.decoder.ledger.used,
+               "pages_owned": owned,
+               "pages_total": self.decoder.ledger.total,
+               "pages_peak": self.decoder.ledger.peak_used}
+        if self._draft is not None:
+            out["draft_pages_used"] = self._draft.ledger.used
+            out["draft_pages_owned"] = draft_owned
+        return out
+
+    def _spec_round(self, pt, ptd, pos, tok):
+        """Draft-then-verify: the draft proposes k tokens per slot
+        (k+1 single-token steps — the last one writes the k-th
+        proposal's K/V so an all-accepted round leaves the draft cache
+        current), then the target judges all k+1 positions in ONE
+        batched verify pass.  Returns ``(proposals (B, k), verify
+        logits (B, k+1, V))``."""
+        k = self._spec_k
+        feeds = tok.copy()
+        proposals = np.zeros((len(self.slots), k), np.int32)
+        for j in range(k + 1):
+            dlogits = self._draft.decode_paged(ptd, pos + j, feeds)
+            if j < k:
+                feeds = np.argmax(dlogits, axis=1).astype(np.int32)
+                proposals[:, j] = feeds
+        tokens = np.concatenate([tok[:, None], proposals], axis=1)
+        return proposals, self.decoder.verify_paged(pt, pos, tokens)
 
     def _step_paged(self) -> None:
-        """One batched single-token decode round over the paged arena."""
+        """One batched round over the paged arena: plain single-token
+        decode, or a speculative draft+verify round emitting 1..k+1
+        tokens per greedy slot."""
+        k = self._spec_k if self._draft is not None else 0
+        if k:
+            # a verify pass writes k+1 rows per slot UNCONDITIONALLY — a
+            # slot within k tokens of its budget would be forced past
+            # pages_for(budget) (spurious eviction in a tight arena)
+            # and, at the max_len boundary, past the widest page view.
+            # The round degrades to plain decode whenever any live slot
+            # is that close to its end — its final tokens were arriving
+            # one per step anyway.
+            head = min((r.total_budget - r.pos - 1
+                        for r in self.slots if r is not None),
+                       default=0)
+            if head < k:
+                k = 0
+            # an all-sampled batch gains nothing from a round (each
+            # slot takes one token off verify position 0 anyway) but
+            # would pay k+1 draft steps and the wide verify for it
+            elif not any(r.greedy for r in self.slots
+                         if r is not None):
+                k = 0
         for i, req in enumerate(self.slots):
             if req is not None and \
-                    not self._ensure_pages(req, i, req.pos + 1):
+                    not self._ensure_pages(req, i, req.pos + k + 1):
                 continue                     # evicted: arena exhausted
         live = [(i, r) for i, r in enumerate(self.slots)
                 if r is not None]
@@ -547,24 +662,50 @@ class ContinuousBatcher(Logger):
         for i, req in live:
             pos[i] = req.pos
             tok[i] = req.next_token
-        pt = self._page_table()
+        pt = self._page_table(self.decoder, "pages")
         t_step = time.perf_counter()
-        logits = self.decoder.decode_paged(pt, pos, tok)
+        if k:
+            proposals, vlogits = self._spec_round(
+                pt, self._page_table(self._draft, "draft_pages"), pos,
+                tok)
+        else:
+            logits = self.decoder.decode_paged(pt, pos, tok)
         self.step_count += 1
         _trace.TRACER.complete("generate.decode_step", t_step,
                                time.perf_counter() - t_step,
                                step=self.step_count, active=len(live),
-                               paged=True)
+                               paged=True, spec_k=k)
         now = time.monotonic()
         for i, req in live:
             if req.stream.cancelled or (req.deadline is not None and
                                         now > req.deadline):
                 self._retire_if_done(req, i, now)
                 continue
-            req.pos += 1
-            token = req.sampler.sample(logits[i])
-            req.next_token = token
-            self._emit_token(req, token)
+            if not k:
+                emitted = [req.sampler.sample(logits[i])]
+            elif req.greedy:
+                g = np.argmax(vlogits[i], axis=-1)
+                a = 0
+                while a < k and proposals[i, a] == g[a]:
+                    a += 1
+                # a accepted drafts + the target's own token at the
+                # first mismatch (or the bonus token when all matched):
+                # every emitted token IS the target's greedy choice, so
+                # the stream is token-identical to plain decode by
+                # construction
+                emitted = [int(t) for t in proposals[i, :a]] + [int(g[a])]
+                self.metrics.on_spec(a, k - a)
+            else:
+                # sampled request: position 0 of the verify logits IS
+                # its exact next-token distribution — one token per
+                # round, distribution untouched
+                emitted = [req.sampler.sample(vlogits[i, 0])]
+            for token in emitted:
+                req.pos += 1
+                req.next_token = int(token)
+                self._emit_token(req, int(token))
+                if req.emitted >= req.max_new:
+                    break
             self._retire_if_done(req, i, now)
 
     def _step(self) -> None:

@@ -4,10 +4,11 @@
 Everything is stdlib + O(1) per event: a fixed-bucket TTFT histogram
 (p50/p95/p99 read off the cumulative bucket counts, no per-request
 sample retention), admission / completion / failure counters, slot and
-queue gauges, arena-page occupancy and tokens/sec over a sliding
-window.  ``snapshot()`` returns a plain JSON-able dict — the wire schema
-served by ``GET /metrics``; the same events are mirrored into the
-process-global registry as the ``znicz_generate_*`` family.
+queue gauges, arena-page occupancy, the speculative acceptance counts
+and tokens/sec over a sliding window.  ``snapshot()`` returns a plain
+JSON-able dict — the wire schema served by ``GET /metrics``; the same
+events are mirrored into the process-global registry as the
+``znicz_generate_*`` family.
 """
 
 from __future__ import annotations
@@ -58,8 +59,8 @@ _M_GEN_ABANDONED = _metrics.counter(
 _M_GEN_QUEUE = _metrics.gauge(
     "znicz_generate_queue_depth",
     "admitted generations waiting for a decode slot (newest batcher)")
-# paged-arena occupancy: the fleet-rule signal for the generative
-# memory plane
+# paged-arena occupancy and speculation acceptance: the fleet-rule
+# signals for the generative memory plane
 _M_GEN_PAGES_TOTAL = _metrics.gauge(
     "znicz_generate_cache_pages_total",
     "allocatable KV-arena pages (scratch page excluded; newest paged "
@@ -67,6 +68,10 @@ _M_GEN_PAGES_TOTAL = _metrics.gauge(
 _M_GEN_PAGES_USED = _metrics.gauge(
     "znicz_generate_cache_pages_used",
     "KV-arena pages held by live generations (newest paged batcher)")
+_M_GEN_SPEC = _metrics.counter(
+    "znicz_generate_spec_tokens_total",
+    "speculative draft tokens judged by the target verify pass",
+    labelnames=("event",))
 
 
 class LatencyHistogram:
@@ -153,6 +158,8 @@ class GenerateMetrics:
         self.queue_depth = 0       # admitted, waiting for a slot
         self.pages_used = 0        # paged arena only; 0 on contiguous
         self.pages_total = 0
+        self.spec_accepted = 0     # draft tokens the target confirmed
+        self.spec_rejected = 0     # draft tokens the target overrode
         self.ttft = LatencyHistogram(TTFT_BUCKETS_MS)
         self._recent: deque = deque()       # (stamp, n_tokens)
         _M_GEN_TPS.set_function(self.tokens_per_sec)  # newest wins
@@ -227,6 +234,20 @@ class GenerateMetrics:
             _M_GEN_PAGES_USED.set(used)
             _M_GEN_PAGES_TOTAL.set(total)
 
+    def on_spec(self, accepted: int, rejected: int) -> None:
+        """One slot's speculative round outcome: of the k draft
+        proposals the target verified, ``accepted`` matched its greedy
+        choice and ``rejected`` were overridden."""
+        with self._lock:
+            self.spec_accepted += int(accepted)
+            self.spec_rejected += int(rejected)
+        if _probe.enabled():
+            # inc(0) still CREATES the labelled child: the batcher's
+            # init-time on_spec(0, 0) must materialize both series so
+            # fleet delta rules see a 0 baseline, not a missing key
+            _M_GEN_SPEC.labels(event="accepted").inc(accepted)
+            _M_GEN_SPEC.labels(event="rejected").inc(rejected)
+
     # -- export -------------------------------------------------------------
     def tokens_per_sec(self) -> float:
         """Streamed tokens/sec over the sliding window (since-start
@@ -261,5 +282,7 @@ class GenerateMetrics:
                 "queue_depth": self.queue_depth,
                 "pages_used": self.pages_used,
                 "pages_total": self.pages_total,
+                "spec_accepted": self.spec_accepted,
+                "spec_rejected": self.spec_rejected,
                 "ttft": self.ttft.snapshot(),
             }

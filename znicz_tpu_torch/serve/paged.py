@@ -22,12 +22,16 @@ Layout and invariants (the reference's):
   owner's rows are rewritten before exposure or masked by its own
   ``pos``.
 
-Single-query decode attention goes through
+Decode attention goes through
 :func:`znicz_tpu_torch.kernels.decode.paged_decode`: on a CUDA arena it
 ALWAYS launches the hand-written kernel (there is no switch, and an
 arena the kernel cannot take is refused at construction, never served
 by the plain path); on a CPU arena the wrapper runs its plain PyTorch
-twin.  Prompt prefill and the rest of the math are inherited from
+twin.  The speculative verify pass goes through the same kernel: its
+``B·Q`` queries are one flattened batch, each with its slot's page-table
+row and its own causal frontier as its length (the reference computes
+that attention in jnp; a recorded divergence).  Prompt prefill and the
+rest of the math are inherited from
 :class:`~znicz_tpu_torch.serve.kvcache.KVDecoder`.
 """
 
@@ -137,7 +141,11 @@ class PagedKVDecoder(KVDecoder):
       single-request cache into arena pages (admission);
     - ``decode_paged(page_table, pos, token)`` — one batched
       single-token step: write each slot's row through its page table,
-      attend over the slot's live rows with the paged-decode kernel.
+      attend over the slot's live rows with the paged-decode kernel;
+    - ``verify_paged(page_table, pos, tokens)`` — the speculative
+      target pass: write and attend ``q_len`` rows per slot in one
+      batched pass, returning logits at every position (the acceptance
+      rule reads these directly).
 
     ``page`` is the rows-per-page granularity; ``arena_pages`` sizes the
     shared buffer (default: worst case — every slot at ``max_len`` —
@@ -248,52 +256,85 @@ class PagedKVDecoder(KVDecoder):
     def decode_paged(self, page_table, pos, token) -> np.ndarray:
         """One batched decode step through the page table; writes each
         slot's row into the shared arena in place and returns host
-        logits ``(batch, vocab)``."""
-        pt, pos, _ = self._check_view(page_table, pos, 1)
+        logits ``(batch, vocab)`` — the verify pass of one row."""
+        return self.verify_paged(page_table, pos,
+                                 np.asarray(token, np.int32)[:, None])[:, 0]
+
+    def verify_paged(self, page_table, pos, tokens) -> np.ndarray:
+        """The speculative target pass: process ``tokens (batch, Q)``
+        (last accepted token + Q-1 draft proposals) in one batched pass,
+        writing Q rows per slot, and return logits ``(batch, Q, vocab)``
+        — position ``i``'s row predicts the token after ``tokens[:i]``,
+        which is exactly what the greedy acceptance rule compares.
+
+        Each layer writes all ``B·Q`` rows through the page table, then
+        launches the paged-decode kernel once on the flattened queries:
+        query ``(b, i)`` takes slot ``b``'s page-table row and length
+        ``pos[b] + i + 1``, so it sees rows ``<= pos[b] + i`` and the
+        draft rows after its own stay invisible."""
+        tokens = np.asarray(tokens, np.int32)
+        if tokens.ndim != 2:
+            raise ValueError(f"verify tokens must be (batch, q); got "
+                             f"{tokens.shape}")
+        q_len = tokens.shape[1]
+        pt, pos, _ = self._check_view(page_table, pos, q_len)
         ps = self._params
         H, Dh, page = self.heads, self.head_dim, self.page
         B = pos.size
-        pt_t = self._tensor(pt, torch.int32)
-        lengths = self._tensor(pos + 1, torch.int32)
-        slots = np.arange(B)
-        pg_w = self._tensor(pt[slots, pos // page])
-        off = self._tensor(pos % page)
-        x = ps["emb"][self._tensor(token)][:, None, :]  # (B, 1, d)
+        n = B * q_len
+        rows = pos[:, None] + np.arange(q_len, dtype=np.int32)[None, :]
+        pg_w = self._tensor(np.take_along_axis(pt, rows // page, axis=1)
+                            .ravel())
+        off = self._tensor((rows % page).ravel())
+        pt_q = self._tensor(np.repeat(pt, q_len, axis=0), torch.int32)
+        lengths = self._tensor((rows + 1).ravel(), torch.int32)
+        x = ps["emb"][self._tensor(tokens)]          # (B, Q, d)
         for li, p in enumerate(ps["blocks"]):
             h = _layer_norm(x, p["ln1_g"], p["ln1_b"])
-            q = (h @ p["wq"]).reshape(B, H, Dh)
+            q = (h @ p["wq"]).reshape(n, H, Dh)
             ka, va = self._arena["k"][li], self._arena["v"][li]
-            # write THIS slot's row through the page table, then attend
-            # over the view including it (row pos itself attends — the
-            # kernel's lengths are pos + 1)
-            ka[pg_w, off] = (h @ p["wk"]).reshape(B, H, Dh)
-            va[pg_w, off] = (h @ p["wv"]).reshape(B, H, Dh)
-            o = _kdecode.paged_decode(q, ka, va, pt_t, lengths)
-            o = o.to(va.dtype).reshape(B, 1, -1)
+            # all Q rows are written before any query attends; each
+            # query's length hides the rows after its own
+            ka[pg_w, off] = (h @ p["wk"]).reshape(n, H, Dh)
+            va[pg_w, off] = (h @ p["wv"]).reshape(n, H, Dh)
+            o = _kdecode.paged_decode(q, ka, va, pt_q, lengths)
+            o = o.to(va.dtype).reshape(B, q_len, -1)
             x = _ffn(x + o @ p["wo"], p)
-        logits = (x[:, 0] @ ps["head"]).float().cpu().numpy()
+        logits = (x @ ps["head"]).float().cpu().numpy()
         with self._lock:
             self.decode_steps += 1
-            self.tokens_decoded += int(pos.size)
+            self.tokens_decoded += int(tokens.size)
         return logits
 
-    def warmup(self) -> int:
-        """Exercise every prompt bucket's prefill and adopt scatter and
-        the decode at every page-view width once, so the kernel library
-        is built and loaded and the allocator pools are warm before
-        live traffic; returns the number of shapes run.  All warmup
-        writes land on the scratch page."""
+    def warmup(self, spec_k: int | None = None) -> int:
+        """Exercise every prompt bucket's prefill and adopt scatter, the
+        decode at every page-view width, and (when ``spec_k`` is given)
+        the verify of ``spec_k + 1`` rows at every view that holds them,
+        so the kernel library is built and loaded and the allocator
+        pools are warm before live traffic; returns the number of shapes
+        run.  All warmup writes land on the scratch page."""
         t0 = time.perf_counter()
         for b in self.buckets:
             kv1, _ = self.prefill([0], bucket=b)
             self.adopt_paged(kv1, [])                # all-scratch splice
         zeros = np.zeros(self.batch, np.int32)
+        n = len(self.buckets)
         for pv in self.page_buckets:
-            self.decode_paged(np.zeros((self.batch, pv), np.int32), zeros,
-                              zeros)
-        n = len(self.buckets) + len(self.page_buckets)
+            pt = np.zeros((self.batch, pv), np.int32)
+            self.decode_paged(pt, zeros, zeros)
+            n += 1
+            # verify writes spec_k+1 rows, so live traffic only ever
+            # dispatches it at views that hold them (the batcher's
+            # _ensure_pages guarantees pages*page >= pos+k+1): a
+            # narrower view would just fail the warmup
+            if spec_k and pv * self.page >= spec_k + 1:
+                self.verify_paged(pt, zeros,
+                                  np.zeros((self.batch, spec_k + 1),
+                                           np.int32))
+                n += 1
         self.info(f"paged warmup: {len(self.buckets)} prefill buckets "
-                  f"+ {len(self.page_buckets)} page views in "
+                  f"+ {len(self.page_buckets)} page views"
+                  f"{' (with verify)' if spec_k else ''} in "
                   f"{time.perf_counter() - t0:.2f}s")
         return n
 
@@ -308,3 +349,21 @@ class PagedKVDecoder(KVDecoder):
             "arena_bytes": self.arena_bytes(),
         })
         return out
+
+
+def truncate_draft(params, n_layers: int):
+    """Derive a layer-truncated draft from a target param pytree: same
+    embedding, same head (same charmap vocab by construction), first
+    ``n_layers`` blocks, as f32 numpy.  Early-exit drafting — the
+    zero-extra-training way to get a cheaper proposer whose logits track
+    the target's."""
+    blocks = params["blocks"]
+    n_layers = int(n_layers)
+    if not 1 <= n_layers < len(blocks):
+        raise ValueError(f"draft needs 1 <= n_layers < {len(blocks)}, "
+                         f"got {n_layers}")
+    return {"emb": np.asarray(params["emb"], np.float32),
+            "head": np.asarray(params["head"], np.float32),
+            "blocks": [{k: np.asarray(a, np.float32)
+                        for k, a in blk.items()}
+                       for blk in blocks[:n_layers]]}

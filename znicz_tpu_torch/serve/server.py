@@ -9,6 +9,7 @@ counterpart of ``znicz_tpu/serve/server.py``'s ``generate`` half.
 
 CLI:  python -m znicz_tpu_torch generate <lm.npz> [--prompt TEXT |
           --tokens IDS] [--serve --port N --slots B] [--device cpu]
+          [--speculative --spec-k K --draft-layers N]
 
 Runs on ``cuda`` unless ``--device`` names another device; with no card
 and no ``--device cpu`` the CLI exits non-zero with a message.  The
@@ -192,6 +193,7 @@ class GenerateServer(Logger):
                 "max_len": self.decoder.max_len,
                 "slots": self.decoder.batch,
                 "paged": bool(getattr(self.decoder, "paged", False)),
+                "speculative": self.batcher._draft is not None,
                 "package": self.package_info,
                 "n_requests": self.metrics.snapshot()["admitted"]}
 
@@ -402,12 +404,32 @@ def build_generate_parser() -> argparse.ArgumentParser:
                         "(0 = worst case: slots x max_len rows); "
                         "smaller values bank on the long tail and set "
                         "the real slot ceiling")
+    p.add_argument("--speculative", action="store_true",
+                   help="speculative decoding: the package's draft "
+                        "model (or --draft-layers) proposes, the "
+                        "target verifies — greedy output is "
+                        "token-identical to plain decode")
+    p.add_argument("--spec-k", type=int, default=4,
+                   help="draft tokens proposed per speculative round")
+    p.add_argument("--draft-layers", type=int, default=0,
+                   help="with --speculative and no draft in the "
+                        "package: truncate the target to its first N "
+                        "layers as the draft")
+    p.add_argument("--pallas-decode", action="store_true",
+                   help="accepted and ignored: on a CUDA arena every "
+                        "decode and verify step always runs the "
+                        "paged-decode kernel (the reference's switch "
+                        "for its TPU kernel)")
     p.add_argument("--device", default=None,
                    help="torch device to run on (default cuda; there is "
                         "no automatic CPU fallback — pass cpu to run "
                         "on the CPU)")
     p.add_argument("--no-warmup", action="store_true",
                    help="skip exercising every cache bucket at boot")
+    p.add_argument("--feedback-spool", default=None, metavar="DIR",
+                   help="not ported yet, raises NotImplementedError "
+                        "(the reference appends every completed "
+                        "generation to a learn-plane spool directory)")
     p.add_argument("--smoke-test", action="store_true",
                    help="start, stream one self-request, exit (CI "
                         "probe)")
@@ -424,19 +446,63 @@ def _parse_prompt(args, charmap) -> list:
     return encode_chars(args.prompt, charmap)
 
 
+class GenerateConfigError(ValueError):
+    """A ``generate`` configuration the serving plane refuses; the CLI
+    prints it and exits 2."""
+
+
+def _build_draft(args, params, meta):
+    """The speculative draft decoder for ``--speculative``: the
+    package's own draft when it carries one, else the target truncated
+    to its first ``--draft-layers`` blocks."""
+    from znicz_tpu_torch.serve.paged import PagedKVDecoder, truncate_draft
+    from znicz_tpu_torch.utils.export import load_lm_draft
+
+    dparams, dmeta = load_lm_draft(args.package)
+    dheads = dmeta["heads"] if dmeta else meta["heads"]
+    if dparams is None and args.draft_layers:
+        dparams = truncate_draft(params, args.draft_layers)
+    if dparams is None:
+        raise GenerateConfigError(
+            "--speculative needs a draft model in the package "
+            "(export_lm draft_params=...) or --draft-layers N")
+    # the draft's k+1 single-query steps a round have the decode shape
+    # and run the same paged-decode kernel
+    return PagedKVDecoder(dparams, heads=dheads, max_len=args.max_len,
+                          batch=args.slots, page=args.page_size,
+                          arena_pages=args.arena_pages or None,
+                          device=args.device)
+
+
 def start_generate_server(args, params, meta) -> GenerateServer:
     """Boot the serving half of ``generate``: decoder (the paged arena
-    unless ``--no-paged``), warmup, continuous batcher, HTTP listener.
-    Returns the started server; ``server.port`` is the bound port."""
+    unless ``--no-paged``), the draft under ``--speculative``, warmup,
+    continuous batcher, HTTP listener.  Returns the started server;
+    ``server.port`` is the bound port.  Raises
+    :class:`GenerateConfigError` for a configuration the reference's CLI
+    refuses with exit code 2."""
     from znicz_tpu_torch.serve.continuous import ContinuousBatcher
     from znicz_tpu_torch.utils.naming import package_fingerprint
 
+    if args.feedback_spool:
+        raise NotImplementedError(
+            "the learn-plane feedback spool (--feedback-spool) is not "
+            "ported yet (ROADMAP.md queue A item 13)")
+    if args.speculative and args.no_paged:
+        raise GenerateConfigError("--speculative needs the paged arena "
+                                  "(drop --no-paged)")
+    if args.speculative and args.spec_k < 1:
+        raise GenerateConfigError(f"--spec-k must be >= 1, got "
+                                  f"{args.spec_k}")
+    draft = _build_draft(args, params, meta) if args.speculative else None
     if args.no_paged:
         from znicz_tpu_torch.serve.kvcache import KVDecoder
 
         decoder = KVDecoder(params, heads=meta["heads"],
                             max_len=args.max_len, batch=args.slots,
                             device=args.device)
+        if not args.no_warmup:
+            decoder.warmup()
     else:
         from znicz_tpu_torch.serve.paged import PagedKVDecoder
 
@@ -444,10 +510,14 @@ def start_generate_server(args, params, meta) -> GenerateServer:
             params, heads=meta["heads"], max_len=args.max_len,
             batch=args.slots, page=args.page_size,
             arena_pages=args.arena_pages or None, device=args.device)
-    if not args.no_warmup:
-        decoder.warmup()
+        if not args.no_warmup:
+            decoder.warmup(spec_k=args.spec_k if draft is not None
+                           else None)
+            if draft is not None:
+                draft.warmup()
     batcher = ContinuousBatcher(decoder, max_queue=args.max_queue,
-                                default_timeout_s=args.timeout_s)
+                                default_timeout_s=args.timeout_s,
+                                draft=draft, spec_k=args.spec_k)
     server = GenerateServer(batcher, charmap=meta.get("charmap"),
                             port=args.port, name=meta.get("name", "lm"),
                             package_info=package_fingerprint(args.package))
@@ -529,7 +599,11 @@ def generate_main(argv) -> int:
         return 2
     if not (args.serve or args.smoke_test):
         return _one_shot(args, params, meta)
-    server = start_generate_server(args, params, meta)
+    try:
+        server = start_generate_server(args, params, meta)
+    except GenerateConfigError as exc:
+        print(f"generate: {exc}")
+        return 2
     if args.smoke_test:
         return _smoke(server)
     done = threading.Event()
