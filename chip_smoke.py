@@ -46,10 +46,12 @@ exits non-zero without the final ``ok`` line):
 2. **train** — bench.py bench_transformer's step at full width (6
    layers, d 512, 8 heads, ff 2048, vocab 32000; batch 8, t 2048, 16 CE
    chunks, bf16 over f32 masters) from a seed through
-   ``make_train_step``: one warm and 12 timed steps with the flash
-   launch counters set to 0 just before and read just after; the loss
-   must be finite and fall.  Then two profiled steps, and the host's
-   time to issue one step from an idle card (on a copy of the params).
+   ``make_train_step``, each step a CUDA graph replay after the first
+   (eager) and the second (captured): two warm and 12 timed steps with
+   the flash launch counters set to 0 just before and read just after;
+   the loss must be finite and fall.  Then two profiled steps and the
+   host's time to issue one, and the same for the step's eager body
+   (``step.eager``, on a copy of the params) beside them.
 3. **train_parity** — 3 steps at 2 layers, batch 2, t 256: the card in
    f32 against the CPU, bf16 against f32; the f32 loss band must reject
    the same steps with TF32 on.
@@ -76,6 +78,20 @@ exits non-zero without the final ``ok`` line):
    attention) and the contiguous decoder (plain attention), f32 and bf16.
 7. **handoff** — the package's weights in a paged decoder in f32, each
    step's logits held against ``make_logits_fn``.
+7b. **char_lm** — ``models/char_lm.py`` at bench_transformer's block
+   widths over the synthesized corpus (vocab 14, seq_len 2048, batch 8):
+   (a) two epochs through ``run(load, main)`` as the CLI drives it
+   (``-o root.char_lm.*``, ``lm_export``), every train and eval
+   minibatch but the first of each a CUDA graph replay, the flash
+   counters exact, the train loss falling, the second epoch's ms and
+   idle share; (b) the graphed step bit-identical to its eager body
+   over 4 steps, both timed and profiled, the flash kernels a replay
+   runs matching the counters; (c) each remat policy's losses against
+   no remat, with peak memory; (d) the MoE step (4 experts, top-2, aux
+   and z-loss) timed at full width, and at 2 layers, d 64 card (f32)
+   against the CPU with a TF32 control; (e) the exported package served
+   by ``generate --serve`` in f32, each greedy stream equal to
+   ``make_logits_fn``'s argmax, paged_decode launched.
 8. **mnist_eager** — ``models/mnist_fc.py build_eager`` at bench_fc's
    widths (784-4096-4096-10, batch 1024) through ``Workflow.run`` on
    ``TorchDevice()``, the FC kernels' counters set to 0 just before and
@@ -264,7 +280,8 @@ exits non-zero without the final ``ok`` line):
 (kernel, flash, gemm, optim, mnist_fused, stochastic_pool,
 pool_backward, conv, alexnet_eager, deconv, kohonen, lrn_dropout,
 ae_fused, alexnet_fused, graph_parity, fused_conv_parity,
-input_pipeline, image_files, snapshot_resume, or two that
+input_pipeline, image_files, snapshot_resume, speculative, char_lm,
+train, or two that
 only measure and run on older trees of the port too: **waves**, the
 weight gradient at AlexNet's and build_deep's shapes with split_k's
 slices, one fewer and one more, through the C entry; **fused_compare**,
@@ -722,9 +739,12 @@ def replays_of(step) -> dict:
     return out
 
 
-#: the kernel counters a fused step's graphs replay: (module, counter,
-#: the name its kernels start with in the profiler)
+#: the kernel counters a captured step's graphs replay: (module,
+#: counter, the name its kernels start with in the profiler; the flash
+#: backward's dq kernel, one of its two kernels a launch)
 REPLAYED_KERNELS = {
+    "flash_fwd": (kflash, "fwd_launches", "flash_fwd_"),
+    "flash_bwd": (kflash, "bwd_launches", "flash_bwd_dq"),
     "sgd_update": (koptim, "sgd_launches", "sgd_kernel"),
     "adam_update": (koptim, "adam_launches", "adam_multi_kernel"),
     "lrn_forward": (klrn, "fwd_launches", "lrn_fwd"),
@@ -4797,8 +4817,9 @@ def phase_kernel_hw() -> dict:
     return out
 
 
-def _stream(port: int, ids: list, out: dict) -> None:
-    body = json.dumps({"tokens": ids, "max_tokens": MAX_TOKENS,
+def _stream(port: int, ids: list, out: dict,
+            max_tokens: int = MAX_TOKENS) -> None:
+    body = json.dumps({"tokens": ids, "max_tokens": max_tokens,
                        "temperature": 0.0}).encode()
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/generate", data=body,
@@ -5442,10 +5463,13 @@ def _train_batch(seed: int, b: int, t: int):
 
 def phase_train(params) -> tuple:
     """The full-width training step of bench.py bench_transformer on the
-    card: a warm step and TRAIN_STEPS timed ones with both flash launch
-    counters set to 0 just before and read just after, then two
-    profiled steps (device busy time against the wall time of that
-    same window).  Returns the report and the trained params."""
+    card, a CUDA graph replay from its second call: two warm steps (the
+    eager one and the capture) and TRAIN_STEPS timed ones with both
+    flash launch counters set to 0 just before and read just after, then
+    two profiled steps (device busy time against the wall time of that
+    same window) and the host's time to issue one; then the step's eager
+    body (``step.eager``) the same way on a copy of the initial params.
+    Returns the report and the trained params."""
     from torch.profiler import ProfilerActivity, profile
 
     step = make_train_step(None, N_LAYERS, D, HEADS, FF, VOCAB, lr=TRAIN_LR,
@@ -5455,8 +5479,8 @@ def phase_train(params) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kflash.fwd_launches = kflash.bwd_launches = 0   # counts: 0 just before
-    ps, loss = step(ps, tokens, labels)             # warm
-    losses, events = [loss], []
+    losses = [step(ps, tokens, labels)[1] for _ in range(2)]   # warm
+    events = []
     for _ in range(TRAIN_STEPS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -5469,7 +5493,7 @@ def phase_train(params) -> tuple:
     fwd, bwd = kflash.fwd_launches, kflash.bwd_launches  # ... read after
     peak = torch.cuda.max_memory_allocated()
     losses = [float(x) for x in losses]
-    steps = TRAIN_STEPS + 1
+    steps = TRAIN_STEPS + 2
     if not all(np.isfinite(losses)):
         fail(f"non-finite training loss: {losses}")
     if not losses[-1] < losses[0]:
@@ -5480,51 +5504,84 @@ def phase_train(params) -> tuple:
     step_ms = float(np.median([s.elapsed_time(e) for s, e in events]))
     tokens_per_s = TRAIN_B * TRAIN_T / (step_ms / 1e3)
 
-    def two_steps():
-        nonlocal ps
-        for _ in range(2):
-            ps, _ = step(ps, tokens, labels)
+    def profiled(run, ps) -> dict:
+        """Two steps of ``run`` under the profiler (busy and wall time
+        from the same window; device activity only, as recording every
+        host op would stretch the step), then the host's time to issue
+        one step from an idle card: where it exceeds the device busy
+        time, the timed step is the host's."""
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2):
+                run(ps, tokens, labels)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / 2
+        device = [e for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA")
+                  and e.self_device_time_total > 0]
+        busy_ms = sum(e.self_device_time_total for e in device) / 1e3 / 2
+
+        def kernel_ms(tag):
+            return sum(e.self_device_time_total for e in device
+                       if tag in e.key) / 1e3 / 2
+
+        fwd_ms, bwd_ms = kernel_ms("flash_fwd_"), kernel_ms("flash_bwd_")
+        top = sorted(device, key=lambda e: -e.self_device_time_total)[:10]
+        issue_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(ps, tokens, labels)
+            issue_ms.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
+        return {"host_issue_ms": float(np.median(issue_ms)),
+                "profile": {
+                    "steps": 2, "wall_ms_per_step": wall_ms,
+                    "device_busy_ms_per_step": busy_ms or None,
+                    "device_idle_share":
+                        (1 - busy_ms / wall_ms) if busy_ms else None,
+                    "flash_fwd_ms_per_step": fwd_ms or None,
+                    "flash_bwd_ms_per_step": bwd_ms or None,
+                    "flash_share_of_busy":
+                        (fwd_ms + bwd_ms) / busy_ms if busy_ms else None,
+                    "ops_per_step": sum(e.count for e in device) / 2,
+                    "top_device": [
+                        {"name": e.key[:80], "count": e.count,
+                         "ms_per_step": e.self_device_time_total / 1e3 / 2}
+                        for e in top]}}
 
-    # busy and wall time from the same profiled window; device activity
-    # only, as recording every host op would stretch the step
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        two_steps()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / 2
-    device = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA")
-              and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in device) / 1e3 / 2
-
-    def kernel_ms(tag):
-        return sum(e.self_device_time_total for e in device
-                   if tag in e.key) / 1e3 / 2
-
-    fwd_ms, bwd_ms = kernel_ms("flash_fwd_"), kernel_ms("flash_bwd_")
-    top = sorted(device, key=lambda e: -e.self_device_time_total)[:10]
-    # the host's own time to issue one step (autograd and launches, no
-    # sync inside) from an idle card, on a copy of the initial params so
-    # the trained ones stay as they are: where it exceeds the device busy
-    # time, the timed step is the host's
-    probe, issue_ms = params_from_numpy(params, DEVICE), []
+    graphed = profiled(step, ps)
+    # the eager body on a copy of the initial params (the trained ones
+    # stay as they are): timed as the graphed steps were, then where
+    # its host time goes (host ops and CUDA API calls by self CPU time)
+    probe = params_from_numpy(params, DEVICE)
+    step.eager(probe, tokens, labels)
+    eager_events = []
     for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        probe, _ = step(probe, tokens, labels)
-        issue_ms.append((time.perf_counter() - t0) * 1e3)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step.eager(probe, tokens, labels)
+        end.record()
+        eager_events.append((start, end))
     torch.cuda.synchronize()
-    # where that host time goes: one step with host ops and CUDA API
-    # calls recorded, by self CPU time
+    eager = profiled(step.eager, probe)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as host_prof:
-        probe, _ = step(probe, tokens, labels)
+        step.eager(probe, tokens, labels)
         torch.cuda.synchronize()
     del probe
     host_ops = [e for e in host_prof.key_averages()
                 if e.self_cpu_time_total > 0]
     host_top = sorted(host_ops, key=lambda e: -e.self_cpu_time_total)[:12]
+    eager["step_ms"] = float(np.median([s.elapsed_time(e)
+                                        for s, e in eager_events]))
+    eager["host_profile"] = {
+        "self_cpu_ms": sum(e.self_cpu_time_total for e in host_ops) / 1e3,
+        "top": [{"name": e.key[:60], "count": e.count,
+                 "self_cpu_ms": e.self_cpu_time_total / 1e3}
+                for e in host_top]}
     return {"phase": "train", "steps": steps, "timed_steps": TRAIN_STEPS,
             "shape": {"n_layers": N_LAYERS, "d": D, "heads": HEADS,
                       "ff": FF, "vocab": VOCAB, "b": TRAIN_B, "t": TRAIN_T,
@@ -5535,28 +5592,8 @@ def phase_train(params) -> tuple:
             "mfu": 6.0 * _n_matmul(N_LAYERS) * tokens_per_s / BF16_FLOPS,
             "peak_mem_bytes": peak,
             "fwd_launches": fwd, "bwd_launches": bwd,
-            "host_issue_ms": float(np.median(issue_ms)),
-            "host_profile": {
-                "self_cpu_ms": sum(e.self_cpu_time_total
-                                   for e in host_ops) / 1e3,
-                "top": [{"name": e.key[:60], "count": e.count,
-                         "self_cpu_ms": e.self_cpu_time_total / 1e3}
-                        for e in host_top]},
-            "profile": {"steps": 2, "wall_ms_per_step": wall_ms,
-                        "device_busy_ms_per_step": busy_ms or None,
-                        "device_idle_share":
-                            (1 - busy_ms / wall_ms) if busy_ms else None,
-                        "flash_fwd_ms_per_step": fwd_ms or None,
-                        "flash_bwd_ms_per_step": bwd_ms or None,
-                        "flash_share_of_busy":
-                            (fwd_ms + bwd_ms) / busy_ms if busy_ms
-                            else None,
-                        "ops_per_step": sum(e.count for e in device) / 2,
-                        "top_device": [
-                            {"name": e.key[:80], "count": e.count,
-                             "ms_per_step":
-                                 e.self_device_time_total / 1e3 / 2}
-                            for e in top]}}, ps
+            "replays": sum(g.replays for g in step.graphs.values() if g),
+            **graphed, "eager": eager}, ps
 
 
 def phase_train_parity() -> dict:
@@ -5677,6 +5714,431 @@ def phase_handoff(lm_params) -> dict:
     return out
 
 
+#: the char_lm phase: bench_transformer's block widths over the
+#: synthesized corpus (vocab 14): seq_len, minibatch, plain-SGD learning
+#: rate (1e-2 diverges within 3 steps, dense and MoE, as 0.05 does for
+#: the train phase), epochs through Workflow.run (the first captures
+#: the graphs)
+CHAR_T, CHAR_B, CHAR_LR, CHAR_EPOCHS = 2048, 8, 1e-3, 2
+#: (b) graphed steps against as many eager ones, then timed steps a side
+CHAR_GRAPH_STEPS, CHAR_TIMED = 4, 5
+#: (c) a remat policy's losses against no remat over 2 steps: the same
+#: kernels recompute the same values, so bit-equal is expected; 1e-6
+#: leaves room for a reordered sum
+CHAR_REMAT_RTOL = 1e-6
+#: (d) the MoE step: experts, routing k, aux and z-loss weights; its
+#: card-vs-CPU run at 2 layers, d 64 (head dim 64), b 2, t 256, f32.
+#: The port's CPU band against JAX is rtol 1e-4 / atol 1e-5 on losses
+#: and 1e-5 on params, but three f32 steps at d 64 with TF32 on stay
+#: inside it, so the card is held to train_parity's bands (5e-7, 1e-6:
+#: summation order only), which the TF32 control must fail
+CHAR_MOE = {"n_experts": 4, "moe_top_k": 2, "moe_aux_weight": 0.01,
+            "moe_zloss_weight": 1e-3}
+CHAR_MOE_SMALL = (2, 64, 1, 256, 2, 256)     # layers, d, heads, ff, b, t
+#: (e) requests served, their prompt characters and new tokens each
+CHAR_PROMPTS, CHAR_NEW = ("1\tw00", "0\tw01", "1\tw0002 w", "0\t"), 16
+
+
+def _char_corpus(tmp: str) -> tuple:
+    """The synthesized corpus in ``tmp`` -> (directory, vocab)."""
+    from znicz_tpu_torch.loader.sequence import CharSequenceLoader
+
+    loader = CharSequenceLoader(None, data_dir=tmp, seq_len=CHAR_T)
+    loader.load_data()
+    return tmp, loader.vocab
+
+
+def _char_batch(data_dir: str, vocab: list) -> tuple:
+    """The corpus's first CHAR_B - 2 train windows and two padding rows
+    as (tokens, labels, mask) on the card."""
+    with open(os.path.join(data_dir, "train.txt")) as f:
+        ids = np.array([vocab.index(c) for c in f.read()], np.int64)
+    n = CHAR_B - 2
+    win = ids[:n * CHAR_T + 1]
+    tokens = np.zeros((CHAR_B, CHAR_T), np.int64)
+    labels = np.zeros((CHAR_B, CHAR_T), np.int64)
+    tokens[:n] = win[:-1].reshape(n, CHAR_T)
+    labels[:n] = win[1:].reshape(n, CHAR_T)
+    mask = np.arange(CHAR_B) < n
+    return tuple(torch.tensor(a, device=DEVICE) for a in (tokens, labels,
+                                                          mask))
+
+
+def _char_workflow(data_dir: str) -> tuple:
+    """(a): models/char_lm.py ``run(load, main)`` as the CLI drives it
+    (``-o root.char_lm.*`` at full width, ``-o
+    root.common.engine.lm_export``), through a Launcher on the card.
+    Each minibatch's class and host ms recorded; epoch 2's minibatches
+    profiled; the flash counters set to 0 just before ``main`` and read
+    just after."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from znicz_tpu_torch.launcher import Launcher
+    from znicz_tpu_torch.models import char_lm
+
+    pkg = os.path.join(data_dir, "char_lm.npz")
+    root.char_lm.update({"max_epochs": CHAR_EPOCHS, "seq_len": CHAR_T,
+                         "minibatch_size": CHAR_B, "n_layers": N_LAYERS,
+                         "d": D, "heads": HEADS, "lr": CHAR_LR,
+                         "data_dir": data_dir})
+    root.common.engine.lm_export = pkg
+    launcher = Launcher(device=TorchDevice())
+    seen, prof = [], profile(activities=[ProfilerActivity.CUDA])
+    window = []                 # the profiled window's start and end
+
+    def load(builder, **kw):
+        w, snap = launcher.load(builder, **kw)
+        run, export = w.step.run, w.step.export_lm
+
+        def recorded():
+            cls = int(w.loader.minibatch_class)
+            epoch = seen[-1][0] + (seen[-1][1] == TRAIN != cls) \
+                if seen else 0
+            if epoch == CHAR_EPOCHS - 1 and not window:
+                prof.start()       # (a process's first start takes s)
+                torch.cuda.synchronize()
+                window.append(time.perf_counter())
+            t0 = time.perf_counter()
+            run()
+            seen.append((epoch, cls, (time.perf_counter() - t0) * 1e3,
+                         w.step.minibatch_mse))
+
+        def exported(path, **kwargs):
+            torch.cuda.synchronize()
+            window.append(time.perf_counter())
+            prof.stop()
+            return export(path, **kwargs)
+
+        w.step.run, w.step.export_lm = recorded, exported
+        return w, snap
+
+    try:
+        tprng.seed_all(SEED + 80)
+        kflash.fwd_launches = kflash.bwd_launches = 0   # 0 just before
+        t0 = time.perf_counter()
+        char_lm.run(load, launcher.main)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        fwd, bwd = kflash.fwd_launches, kflash.bwd_launches  # read after
+    finally:
+        del root.char_lm
+        root.common.engine.lm_export = ""
+    w = launcher.workflow
+    del w.step.run, w.step.export_lm
+    if len(window) != 2 or not os.path.exists(pkg):
+        fail(f"char_lm: the run exported nothing ({window}, {pkg})")
+    return w, pkg, seen, (fwd, bwd), run_s, device_profile(
+        prof, (window[1] - window[0]) * 1e3,
+        sum(1 for s in seen if s[0] == CHAR_EPOCHS - 1))
+
+
+def _char_graphed_vs_eager(params, vocab, batch) -> dict:
+    """(b): the graphed step against its eager body from the same params,
+    CHAR_GRAPH_STEPS steps each: losses and every param bit for bit;
+    then CHAR_TIMED timed steps a side (CUDA events), two profiled steps
+    a side (busy and idle share), and the flash kernels a replay runs
+    against the counters' increments (the profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step = make_train_step(None, N_LAYERS, D, HEADS, FF, len(vocab),
+                           lr=CHAR_LR, masked=True, device=DEVICE)
+    graphed = params_from_numpy(params, DEVICE)
+    eager = params_from_numpy(params, DEVICE)
+    lg = [step(graphed, *batch)[1] for _ in range(CHAR_GRAPH_STEPS)]
+    le = [step.eager(eager, *batch)[1] for _ in range(CHAR_GRAPH_STEPS)]
+    torch.cuda.synchronize()
+    differ = [f"loss {k}" for k, (a, b) in enumerate(zip(lg, le))
+              if not torch.equal(a, b)]
+    differ += [f"param {i}" for i, (a, b) in enumerate(zip(
+        lm_leaves(graphed), lm_leaves(eager))) if not torch.equal(a, b)]
+    replays = {key[0]: g.replays for key, g in step.graphs.items() if g}
+    out = {"differ": differ, "losses": [float(x) for x in lg],
+           "replays": replays}
+    for name, fn, ps in (("graphed", step, graphed),
+                         ("eager", step.eager, eager)):
+        def one(fn=fn, ps=ps):
+            fn(ps, *batch)
+        ms = []
+        for _ in range(CHAR_TIMED):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            one()
+            end.record()
+            ms.append((start, end))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(2):
+                one()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        issue = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one()
+            issue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        out[name] = {"step_ms": float(np.median([s.elapsed_time(e)
+                                                 for s, e in ms])),
+                     "host_issue_ms": float(np.median(issue)),
+                     "profile": device_profile(prof, wall_ms, 2, top=5)}
+    out["replayed"] = replayed_launches(lambda: step(graphed, *batch),
+                                        ["flash_fwd", "flash_bwd"])
+    return out
+
+
+def _char_remat(params, vocab, batch) -> dict:
+    """(c): two steps a policy from the same params: losses against no
+    remat, and the peak memory of the eager first step and of the
+    second, which captures the graph."""
+    out = {}
+    for policy in (None, "dots", "dots_no_batch", "nothing"):
+        step = make_train_step(None, N_LAYERS, D, HEADS, FF, len(vocab),
+                               lr=CHAR_LR, masked=True, remat_policy=policy,
+                               device=DEVICE)
+        ps = params_from_numpy(params, DEVICE)
+        losses, peaks = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses.append(float(step(ps, *batch)[1]))
+            peaks.append(torch.cuda.max_memory_allocated())
+        out[str(policy)] = {"losses": losses, "peak_bytes_eager": peaks[0],
+                            "peak_bytes_capture": peaks[1]}
+        del step, ps
+        gc.collect()
+    base = out["None"]["losses"]
+    for r in out.values():
+        r["loss_rel_vs_none"] = max(abs(a - b) / abs(b)
+                                    for a, b in zip(r["losses"], base))
+    return out
+
+
+def _char_moe(vocab, batch) -> dict:
+    """(d): the MoE step at full width (2 warm steps, the eager one and
+    the capture, then CHAR_TIMED timed replays), then at CHAR_MOE_SMALL
+    card (f32, TF32 off) against the CPU over 3 steps, with the TF32-on
+    control."""
+    params = init_params(np.random.default_rng(SEED + 82), N_LAYERS, D,
+                         HEADS, FF, len(vocab), n_experts=CHAR_MOE[
+                             "n_experts"])
+    step = make_train_step(None, N_LAYERS, D, HEADS, FF, len(vocab),
+                           lr=CHAR_LR, masked=True, device=DEVICE,
+                           **CHAR_MOE)
+    ps = params_from_numpy(params, DEVICE)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(ps, *batch)[1] for _ in range(2)]
+    ms = []
+    for _ in range(CHAR_TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(step(ps, *batch)[1])
+        end.record()
+        ms.append((start, end))
+    torch.cuda.synchronize()
+    full = {"losses": [float(x) for x in losses],
+            "step_ms": float(np.median([s.elapsed_time(e) for s, e in ms])),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "replays": sum(g.replays for g in step.graphs.values() if g)}
+    del step, ps
+    gc.collect()
+    layers, d, heads, ff, b, t = CHAR_MOE_SMALL
+    small = init_params(np.random.default_rng(SEED + 83), layers, d, heads,
+                        ff, len(vocab), n_experts=CHAR_MOE["n_experts"])
+    rng = np.random.default_rng(SEED + 84)
+    tokens = rng.integers(0, len(vocab), (b, t))
+    labels = rng.integers(0, len(vocab), (b, t))
+    mask = np.arange(b) < b - 1
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+    def run(device, allow_tf32=False):
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+        torch.backends.cudnn.allow_tf32 = allow_tf32
+        s = make_train_step(None, layers, d, heads, ff, len(vocab),
+                            lr=CHAR_LR, masked=True,
+                            compute_dtype=torch.float32, device=device,
+                            **CHAR_MOE)
+        p = params_from_numpy(small, device)
+        run_losses = [float(s(p, tokens, labels, mask)[1])
+                      for _ in range(3)]
+        return run_losses, params_to_numpy(p)
+
+    try:
+        card, cpu, control = run(DEVICE), run("cpu"), run(DEVICE, True)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+
+    def vs_cpu(r):
+        return {"loss_rel": max(abs(a - b) / abs(b)
+                                for a, b in zip(r[0], cpu[0])),
+                "param_max_abs": max(
+                    float(np.abs(a - b).max()) for a, b in
+                    zip(lm_leaves(r[1]), lm_leaves(cpu[1])))}
+
+    return {"full": full, "small_shape": dict(zip(
+        ("n_layers", "d", "heads", "ff", "b", "t"), CHAR_MOE_SMALL)),
+        "small_losses": {"card": card[0], "cpu": cpu[0],
+                         "card_tf32": control[0]},
+        "card_vs_cpu": vs_cpu(card), "tf32_vs_cpu": vs_cpu(control)}
+
+
+def _char_serve(pkg: str, vocab: list) -> dict:
+    """(e): the exported package through ``generate --serve`` on the card
+    in f32 (CHAR_PROMPTS greedy, CHAR_NEW tokens each, streamed at
+    once), the paged-decode counter set to 0 just before and read just
+    after; each stream held against make_logits_fn's argmax (flash
+    forward, f32) on its growing sequence."""
+    args = build_generate_parser().parse_args(
+        [pkg, "--serve", "--port", "0", "--slots", "4", "--max-len", "128",
+         "--page-size", str(PAGE), "--max-tokens", str(CHAR_NEW),
+         "--device", DEVICE])
+    lm_params, meta = load_lm(pkg)
+    root.common.engine.precision = "float32"
+    try:
+        server = start_generate_server(args, lm_params, meta)
+    finally:
+        root.common.engine.precision = "bfloat16"
+    prompts = [[vocab.index(c) for c in p] for p in CHAR_PROMPTS]
+    results = [{} for _ in prompts]
+    kdecode.launches = 0                           # 0 just before ...
+    threads = [threading.Thread(target=_stream, args=(
+        server.port, ids, res, CHAR_NEW)) for ids, res in zip(prompts,
+                                                              results)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    launches = kdecode.launches                    # ... and read after
+    server.stop()
+    dtype = str(server.decoder.dtype)
+    oracle = make_logits_fn(None, N_LAYERS, D, HEADS, FF, len(vocab),
+                            compute_dtype=torch.float32, device=DEVICE)
+    ps32 = params_from_numpy(lm_params, DEVICE)
+    streams, oracle_streams = [], []
+    for ids, res in zip(prompts, results):
+        toks = [e["token"] for e in res.get("events", []) if "token" in e]
+        seq, want = list(ids), []
+        for tok in toks:
+            lg = oracle(ps32, np.asarray([seq]))[0, -1]
+            want.append(int(torch.argmax(lg)))
+            seq.append(tok)
+        streams.append(toks)
+        oracle_streams.append(want)
+    return {"dtype": dtype, "streams": streams,
+            "text": ["".join(meta["charmap"][t] for t in s)
+                     for s in streams],
+            "oracle_streams": oracle_streams, "decode_launches": launches,
+            "ttft_ms": [r.get("ttft_ms") for r in results]}
+
+
+def lm_leaves(ps) -> list:
+    """The leaves of an LM param pytree (tensors or numpy), keys sorted
+    within each block."""
+    return [ps["emb"], ps["head"]] + [blk[k] for blk in ps["blocks"]
+                                      for k in sorted(blk)]
+
+
+def phase_char_lm() -> dict:
+    """models/char_lm.py at bench_transformer's block widths (6 layers, d
+    512, 8 heads, ff 2048) over the synthesized corpus (vocab 14) at
+    seq_len 2048, minibatch 8: (a) CHAR_EPOCHS epochs through the CLI's
+    ``run(load, main)`` on the card, every minibatch but the first of
+    each kind a CUDA graph replay on the flash kernels (launches counted
+    exactly), exporting through ``lm_export``; (b) the graphed step bit-
+    identical to its eager body, both timed; (c) each remat policy;
+    (d) the MoE step, and card against CPU at 2 layers; (e) the export
+    served by ``generate --serve`` on the paged-decode kernel, greedy
+    streams equal to the logits oracle's argmax."""
+    t_phase = time.perf_counter()
+    part_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        part_s[name] = time.perf_counter() - t0
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir, vocab = _char_corpus(tmp)
+        w, pkg, seen, (fwd, bwd), run_s, prof = timed("a", _char_workflow,
+                                                      data_dir)
+        n_train = sum(1 for s in seen if s[1] == TRAIN)
+        n_eval = len(seen) - n_train
+        graphs = {key[0]: g.replays for body in (w.step._step, w.step._eval)
+                  for key, g in body.graphs.items() if g is not None}
+        train_mse = [s[3] for s in seen if s[1] == TRAIN]
+        steady = [s for s in seen if s[0] == CHAR_EPOCHS - 1]
+        a = {"minibatches": len(seen), "train": n_train, "eval": n_eval,
+             "vocab": len(vocab), "run_s": run_s,
+             "fwd_launches": fwd, "bwd_launches": bwd,
+             "replays": graphs, "train_mse": train_mse,
+             "history": w.decision.metrics_history,
+             "train_ms": [s[2] for s in seen if s[1] == TRAIN],
+             "eval_ms": [s[2] for s in seen if s[1] != TRAIN],
+             "train_ms_steady_p50": float(np.median(
+                 [s[2] for s in steady if s[1] == TRAIN])),
+             "eval_ms_steady_p50": float(np.median(
+                 [s[2] for s in steady if s[1] != TRAIN])),
+             "profiled_epoch": CHAR_EPOCHS, "profile": prof}
+        params = params_to_numpy(w.step._params)
+        del w
+        gc.collect()
+        batch = _char_batch(data_dir, vocab)
+        b = timed("b", _char_graphed_vs_eager, params, vocab, batch)
+        c = timed("c", _char_remat, params, vocab, batch)
+        d = timed("d", _char_moe, vocab, batch)
+        e = timed("e", _char_serve, pkg, vocab)
+    out = {"phase": "char_lm",
+           "shape": {"n_layers": N_LAYERS, "d": D, "heads": HEADS, "ff": FF,
+                     "vocab": len(vocab), "b": CHAR_B, "t": CHAR_T,
+                     "lr": CHAR_LR, "compute": "bfloat16"},
+           "a_workflow": a, "b_graphed_vs_eager": b, "c_remat": c,
+           "d_moe": d, "e_serve": e,
+           "bands": {"remat_loss_rel": CHAR_REMAT_RTOL,
+                     "moe_loss_rel_f32": TRAIN_LOSS_RTOL,
+                     "moe_param_atol_f32": TRAIN_PARAM_ATOL},
+           "part_s": part_s, "seconds": time.perf_counter() - t_phase}
+    bad = []
+    if fwd != N_LAYERS * len(seen) or bwd != N_LAYERS * n_train:
+        bad.append(f"(a) flash fwd {fwd} / bwd {bwd} over {len(seen)} "
+                   f"minibatches, {n_train} train, x {N_LAYERS} layers")
+    if graphs != {"train": n_train - 1, "eval": n_eval - 1}:
+        bad.append(f"(a) replays {graphs}")
+    if not all(np.isfinite(train_mse)) or not train_mse[-1] < train_mse[0]:
+        bad.append(f"(a) train mse {train_mse}")
+    if b["differ"] or b["replays"] != {"train": CHAR_GRAPH_STEPS - 1}:
+        bad.append(f"(b) differ {b['differ']}, replays {b['replays']}")
+    for policy, r in c.items():
+        if not r["loss_rel_vs_none"] <= CHAR_REMAT_RTOL:
+            bad.append(f"(c) {policy}: {r['losses']}")
+    if not c["nothing"]["peak_bytes_eager"] < c["None"]["peak_bytes_eager"]:
+        bad.append("(c) full remat saved no memory")
+    if not all(np.isfinite(d["full"]["losses"])):
+        bad.append(f"(d) MoE losses {d['full']['losses']}")
+    if not (d["card_vs_cpu"]["loss_rel"] <= TRAIN_LOSS_RTOL and
+            d["card_vs_cpu"]["param_max_abs"] <= TRAIN_PARAM_ATOL):
+        bad.append(f"(d) card vs cpu {d['card_vs_cpu']}")
+    if d["tf32_vs_cpu"]["loss_rel"] <= TRAIN_LOSS_RTOL and \
+            d["tf32_vs_cpu"]["param_max_abs"] <= TRAIN_PARAM_ATOL:
+        bad.append(f"(d) the bands pass the TF32 control "
+                   f"{d['tf32_vs_cpu']}")
+    if e["streams"] != e["oracle_streams"] or \
+            any(len(s) != CHAR_NEW for s in e["streams"]) or \
+            not e["decode_launches"] or e["dtype"] != str(torch.float32):
+        bad.append(f"(e) streams {e['streams']} vs {e['oracle_streams']}, "
+                   f"{e['decode_launches']} decode launches, {e['dtype']}")
+    if bad:
+        fail(f"char_lm: {bad}: {out}")
+    return out
+
+
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5699,7 +6161,7 @@ def phase_build() -> dict:
 
 def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
                 fused, conv, alexnet, deconv, ae, spool, mcs, som,
-                lrn_drop, alex_fused, kernel_hw, spec) -> dict:
+                lrn_drop, alex_fused, kernel_hw, spec, char) -> dict:
     """The eighteen kernels: launches from the main paths' runs, times
     and errors from the kernel phases, bounds from this run's inputs.  A
     conv kernel's times and bound sum its launches of one AlexNet train
@@ -5712,7 +6174,9 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
     step's, one a step over all its leaves, and its ms one such call
     over bench_fc's six.  Each conv.cu entry names the kernels
     it launches (``cuda_kernels``); paged_decode's also carries the
-    speculative path's launches and its verify call's time."""
+    speculative path's launches and its verify call's time, and the
+    flash and paged_decode entries the char_lm phase's launches (its
+    workflow's and its served package's)."""
     def entry(name, source, replaces, launches, timed, max_abs_err,
               **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -5734,6 +6198,7 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
               serve["kernel_launches"], kernel, kernel["max_abs_err"],
               cuda_kernels=["paged_decode_kernel<T,DH>",
                             "paged_decode_kernel_combine<DH>"],
+              char_lm_launches=char["e_serve"]["decode_launches"],
               speculative={
                   "launches": spec["http"]["kernel_launches"],
                   "rounds": spec["http"]["rounds"],
@@ -5742,10 +6207,12 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
                      for key in ("ms", "bound_ms")}}),
         entry("flash_attention_fwd", kflash.SOURCE, kflash.REPLACES_FWD,
               train["fwd_launches"], flash["fwd"],
-              flash["fwd"]["max_abs_err"]),
+              flash["fwd"]["max_abs_err"],
+              char_lm_launches=char["a_workflow"]["fwd_launches"]),
         entry("flash_attention_bwd", kflash.SOURCE, kflash.REPLACES_BWD,
               train["bwd_launches"], flash["bwd"],
-              flash["bwd"]["max_abs_err"]),
+              flash["bwd"]["max_abs_err"],
+              char_lm_launches=char["a_workflow"]["bwd_launches"]),
         entry("gemm_fc", kgemm.SOURCE, kgemm.REPLACES_GEMM,
               eager["gemm_fc_launches"], gemm["gemm"],
               gemm["gemm"]["max_abs_err"],
@@ -7182,6 +7649,10 @@ PHASES_ALONE = {"kernel": lambda: phase_kernel(),
                 "image_files": lambda: phase_image_files(),
                 "snapshot_resume": lambda: phase_snapshot_resume(),
                 "speculative": lambda: phase_speculative_alone(),
+                "char_lm": lambda: phase_char_lm(),
+                "train": lambda: phase_train(init_params(
+                    np.random.default_rng(SEED), N_LAYERS, D, HEADS, FF,
+                    VOCAB))[0],
                 "fused_compare": lambda: phase_fused_compare()}
 
 
@@ -7237,6 +7708,8 @@ def main() -> int:
     emit(phase_parity(lm_params))
     emit(phase_handoff(lm_params))
     del lm_params
+    char = phase_char_lm()
+    emit(char)
     eager = phase_mnist_eager()
     emit(eager)
     fused = phase_mnist_fused()
@@ -7272,7 +7745,7 @@ def main() -> int:
     emit(kernel_hw)
     emit({**kernel_line(kernel, flash, gemm, optim, serve, train, eager,
                         fused, conv, alexnet, deconv, ae, spool, mcs, som,
-                        lrn_drop, alex_fused, kernel_hw, spec),
+                        lrn_drop, alex_fused, kernel_hw, spec, char),
           "first_stream": streams[0][:8],
           "seconds": time.perf_counter() - T_START})
     print(nvidia_smi(), flush=True)

@@ -62,7 +62,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                  "observe.flight", "observe.watchtower",
                  "resilience.supervisor", "loader.image",
                  "units.mean_disp_normalizer", "models.image_ae",
-                 "models.yale_faces"):
+                 "models.yale_faces", "loader.text", "loader.sequence",
+                 "parallel.moe", "parallel.graphs", "units.lm",
+                 "models.char_lm"):
         assert f"znicz_tpu_torch.{name}" in doc["modules"]
 
 
@@ -86,7 +88,8 @@ COPIES = ["core/config.py", "core/logger.py", "observe/registry.py",
           "units/decision.py", "ops/kohonen.py", "resilience/retry.py",
           "loader/normalization.py", "loader/mnist.py", "loader/pickles.py",
           "native/loader_core.cpp", "resilience/supervisor.py",
-          "observe/watchtower.py", "models/yale_faces.py"]
+          "observe/watchtower.py", "models/yale_faces.py",
+          "loader/text.py"]
 
 
 def _code(src: str) -> str:

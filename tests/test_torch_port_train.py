@@ -200,13 +200,29 @@ def test_params_numpy_round_trip_and_shapes(params, batch):
     assert shapes == jtfm.param_shapes(N_LAYERS, D, FF, VOCAB)
 
 
+@pytest.mark.parametrize("option,item", [
+    ({"shard_update": True}, 10), ({"shard_params": True}, 10),
+    ({"head_sharded": True}, 10),
+    ({"quantized_collectives": {"mode": "int8"}}, 10),
+    ({"anatomy": True}, 14)])
+def test_unported_options_raise(option, item):
+    """The options the reference serves only on wide meshes, and
+    ``anatomy``, raise naming their ROADMAP item (the MoE options and
+    ``remat_policy`` build: tests/test_torch_port_moe.py)."""
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue A "
+                                                  f"item {item}"):
+        tfm.make_train_step(None, N_LAYERS, D, HEADS, FF, VOCAB,
+                            device="cpu", **option)
+
+
 @pytest.mark.parametrize("option", [
-    {"shard_update": True}, {"shard_params": True}, {"head_sharded": True},
-    {"n_experts": 4}, {"moe_aux_weight": 0.01}, {"moe_top_k": 2},
-    {"moe_zloss_weight": 1e-3}, {"remat_policy": "dots"},
-    {"quantized_collectives": {"mode": "int8"}}, {"anatomy": True}])
-def test_unported_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    {"moe_aux_weight": 0.01}, {"moe_top_k": 2}, {"moe_zloss_weight": 1e-3},
+    {"n_experts": 4, "moe_top_k": 5}, {"remat_policy": "everything"}])
+def test_invalid_moe_and_remat_options_raise(option):
+    """MoE options without ``n_experts`` would train a dense model
+    silently, ``moe_top_k`` must pick among the experts, and an unknown
+    remat policy has no meaning: each is a ``ValueError``."""
+    with pytest.raises(ValueError):
         tfm.make_train_step(None, N_LAYERS, D, HEADS, FF, VOCAB,
                             device="cpu", **option)
 

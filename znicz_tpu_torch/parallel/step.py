@@ -80,7 +80,6 @@ A): a mesh over more than one device, ``shard_update``,
 
 from __future__ import annotations
 
-import sys
 from typing import Optional
 
 import numpy as np
@@ -91,6 +90,7 @@ from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core.units import Unit
 from znicz_tpu_torch.kernels import optim as koptim
 from znicz_tpu_torch.loader.base import TRAIN
+from znicz_tpu_torch.parallel.graphs import run_graphed
 from znicz_tpu_torch.pipeline import (ready_on_current_stream,
                                       ring_safe_stager)
 from znicz_tpu_torch.resilience.faults import poison_hook
@@ -121,77 +121,6 @@ def _not_ported(what: str):
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP.md queue A, the fused step's "
         f"leftovers); the port's fused step runs on one device")
-
-
-def _kernel_counters() -> list:
-    """``(module, name)`` of every launch counter of the loaded kernel
-    wrappers (``kernels/*.py``: the ints whose names end in
-    ``launches``)."""
-    return [(mod, attr) for name, mod in list(sys.modules.items())
-            if name.startswith("znicz_tpu_torch.kernels.") and mod is not None
-            for attr, v in vars(mod).items()
-            if attr.endswith("launches") and type(v) is int]
-
-
-def _capture_reason(exc: BaseException) -> str:
-    """The error that stopped a capture and the one it set off, if any
-    (a failed capture also fails its ``capture_end``)."""
-    first = exc.__context__
-    return str(exc) if first is None else f"{first} (then: {exc})"
-
-
-class _StepGraph:
-    """One step body captured into a CUDA graph: the buffers it reads its
-    inputs from, the tensors it writes its outputs to (overwritten by
-    every replay), each kernel counter's launches a replay, and the
-    replays so far."""
-
-    def __init__(self, what: str, body, inputs, device, stream,
-                 generator) -> None:
-        # static input buffers, allocated outside the graph's pool
-        self.inputs = [torch.empty(t.shape, dtype=t.dtype, device=device)
-                       for t in inputs]
-        self.graph = torch.cuda.CUDAGraph()
-        if generator is not None:
-            # replays advance the generator's offset as eager draws would
-            self.graph.register_generator_state(generator)
-        counters = _kernel_counters()
-        before = [getattr(mod, attr) for mod, attr in counters]
-        try:
-            # thread-local capture: the input pipeline's worker keeps
-            # allocating pinned slots and copying on its side stream while
-            # this thread captures
-            with torch.cuda.graph(self.graph, stream=stream,
-                                  capture_error_mode="thread_local"):
-                self.outputs = body(*self.inputs)
-        except Exception as exc:
-            raise RuntimeError(
-                f"the fused step's {what} body cannot be captured into a "
-                f"CUDA graph: {_capture_reason(exc)}") from exc
-        finally:
-            # the capture recorded the wrappers' launches, it ran none
-            after = [getattr(mod, attr) for mod, attr in counters]
-            for (mod, attr), n in zip(counters, before):
-                setattr(mod, attr, n)
-        self.launches = [(mod, attr, a - b) for (mod, attr), a, b
-                         in zip(counters, after, before) if a != b]
-        self.replays = 0
-
-    def __call__(self, *inputs):
-        for buf, t in zip(self.inputs, inputs):
-            if t.device.type == "cpu":
-                # through pinned memory (PyTorch's caching host allocator
-                # keeps the block until the copy is done), so the host
-                # need not wait for the queued replays to reach the copy
-                t = t.pin_memory()
-            # a staged (device) input: a device-to-device copy on the
-            # replay's stream, which already waited on its staging event
-            buf.copy_(t, non_blocking=True)
-        self.graph.replay()
-        self.replays += 1
-        for mod, attr, n in self.launches:
-            setattr(mod, attr, getattr(mod, attr) + n)
-        return self.outputs
 
 
 def _fold(acc: Optional[dict], metrics: dict) -> dict:
@@ -631,32 +560,17 @@ class FusedTrainStep(Unit):
 
     def _dispatch(self, kind: str, body, *inputs):
         """``body(*inputs)`` on the step's device.  On the CPU the body
-        runs eagerly.  On the card the first call of each ``(kind, input
-        shapes)`` runs it eagerly on the capture stream (a real step that
-        builds every kernel and workspace), the second captures it into
-        a CUDA graph and replays the capture at once, and every later
-        call copies ``inputs`` (host or device tensors) into the graph's
-        buffers and replays it."""
+        runs eagerly; on the card through :func:`run_graphed`, one graph
+        a ``(kind, input shapes)``."""
         self._hyper_device()      # an LR change lands in the buffer first
         if self._graphs is None:
             return body(*(t.to(self._dev) for t in inputs))
         key = (kind,) + tuple((tuple(t.shape), t.dtype) for t in inputs)
-        if key not in self._graphs:
-            self._graphs[key] = None
-            main = torch.cuda.current_stream(self._dev)
-            self._stream.wait_stream(main)
-            with torch.cuda.stream(self._stream):
-                out = body(*(t.to(self._dev) for t in inputs))
-            main.wait_stream(self._stream)
-            return out
-        graph = self._graphs[key]
-        if graph is None:
-            needs_rng = kind != "eval" and any(
-                getattr(f, "NEEDS_RNG", False) for f in self.forwards)
-            graph = self._graphs[key] = _StepGraph(
-                kind, body, inputs, self._dev, self._stream,
-                self._gen if needs_rng else None)
-        return graph(*inputs)
+        needs_rng = kind != "eval" and any(
+            getattr(f, "NEEDS_RNG", False) for f in self.forwards)
+        return run_graphed(self._graphs, key, f"fused step's {kind}", body,
+                           inputs, self._dev, self._stream,
+                           self._gen if needs_rng else None)
 
     def _apply_update(self, params, grads, hyper, bs) -> None:
         """One optimizer step, in place, for summed gradients ``grads``

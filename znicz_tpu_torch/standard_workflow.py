@@ -36,7 +36,8 @@ from typing import Optional
 from znicz_tpu_torch.core.mutable import Bool
 from znicz_tpu_torch.core.plumbing import Repeater
 from znicz_tpu_torch.loader import (image, mnist,  # noqa: F401
-                                    pickles, synthetic)  # (register loaders)
+                                    pickles, sequence, synthetic,
+                                    text)  # (register loaders)
 from znicz_tpu_torch.loader.base import TRAIN, get_loader
 from znicz_tpu_torch.parallel.step import FusedTrainStep
 import znicz_tpu_torch.units  # noqa: F401  (populates the MatchingObject registry)

@@ -8,5 +8,5 @@ fully populated.
 
 from znicz_tpu_torch.units import (all2all, conv, deconv,  # noqa: F401
                                    dropout, gd, gd_conv, gd_deconv,
-                                   gd_pooling, mean_disp_normalizer,
+                                   gd_pooling, lm, mean_disp_normalizer,
                                    normalization, pooling)
