@@ -38,7 +38,9 @@ exits non-zero without the final ``ok`` line):
    headline in all four operand layouts; registers and resident blocks
    of every instantiation; ``act_backward`` at AlexNet's strict-ReLU
    shapes (fc7 and fc6 at batch 128) beside
-   ``aten.threshold_backward``, the one PyTorch call that computes it.
+   ``aten.threshold_backward``, the one PyTorch call that computes it,
+   and beside an empty kernel launched over the same grid from the same
+   library and timed the same way (the launch floor).
 1d. **optim** — the SGD (f32 and bf16 velocity) and AdamW update kernels
    against their plain versions on bench_fc's six leaves, each band
    rejecting a control with bs = 1; one six-leaf step timed against the
@@ -271,6 +273,26 @@ exits non-zero without the final ``ok`` line):
    bit-identically (one AdamW launch a step); the same, and the 67-px
    AlexNet with dropout, restored into a step that has already
    captured its graphs: bit-identical, no stale replay.
+17g. **data_parallel** — the fused step data-parallel on a one-rank
+   NCCL world (one H100: NCCL across GPUs is not exercised here): (c)
+   ``sgd_update_`` and one ``adam_update_multi_`` on AlexNet's 16 leaves
+   cut as ranks 0 and n - 1 of n = 2 and 4 hold them (views at the
+   ranks' offsets, a 250-element slice among them), bit for bit against
+   the plain versions and against one launch on the whole leaves; (a)
+   ``alexnet.build()`` at its defaults fused for 3 train minibatches
+   through ``Workflow.run`` with no group, then joined through
+   ``launcher.multihost`` replicated, ``shard_update`` and
+   ``shard_params``: each bit-identical to the run with no group
+   (weights, momenta, the generator, the history), the SGD, LRN and
+   collective counters set to 0 just before and read just after (exact),
+   the replays counted; ms a step of 3 timed ``train_steps`` calls of 4
+   staged batches, peak memory, and one replay profiled for its NCCL and
+   copy activities; (b) MNIST FC at bench_fc's widths with AdamW, int8
+   collectives with error feedback and bf16 ones, 4 steps on the card
+   (f32) on the world against the CPU with no group (its runs in a
+   process of their own, overlapping (a)), within the MNIST FC bands,
+   the loss band rejecting the card's run with TF32 on.  The group is
+   destroyed at the phase's end.
 18. **kernel_hw** — ``utils/kernel_hw.run_parity("cuda")``, all fourteen
    families of the reference ``ok``; the LRN, dropout and bf16 conv
    forward counters set to 0 just before and read just after (the only
@@ -280,8 +302,8 @@ exits non-zero without the final ``ok`` line):
 (kernel, flash, gemm, optim, mnist_fused, stochastic_pool,
 pool_backward, conv, alexnet_eager, deconv, kohonen, lrn_dropout,
 ae_fused, alexnet_fused, graph_parity, fused_conv_parity,
-input_pipeline, image_files, snapshot_resume, speculative, char_lm,
-train, or two that
+input_pipeline, image_files, snapshot_resume, data_parallel,
+speculative, char_lm, train, or two that
 only measure and run on older trees of the port too: **waves**, the
 weight gradient at AlexNet's and build_deep's shapes with split_k's
 slices, one fewer and one more, through the C entry; **fused_compare**,
@@ -305,6 +327,8 @@ import gc
 import json
 import os
 import re
+import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -315,6 +339,7 @@ import urllib.request
 import numpy as np
 import torch
 
+from znicz_tpu_torch import launcher
 from znicz_tpu_torch.core import prng as tprng
 from znicz_tpu_torch.core.backends import TorchDevice, resolve_compute_dtype
 from znicz_tpu_torch.core.config import root
@@ -340,6 +365,8 @@ from znicz_tpu_torch.ops import deconv as tdeconv_ops
 from znicz_tpu_torch.ops import kohonen as tk_ops
 from znicz_tpu_torch.ops import pooling as tpool_ops
 from znicz_tpu_torch.observe.trace import TRACER
+from znicz_tpu_torch.parallel import mesh as tmesh
+from znicz_tpu_torch.parallel import zero as tzero
 from znicz_tpu_torch.parallel.transformer import (init_params,
                                                   make_logits_fn,
                                                   make_train_step,
@@ -1510,11 +1537,17 @@ def phase_gemm() -> dict:
                 lambda: kgemm.act_backward_plain(y, err, relu)),
             "library_ms": time_cuda_ms(
                 lambda: torch.ops.aten.threshold_backward(err, y, 0.0)),
+            # the launch floor: an empty kernel over the same grid from
+            # the same library, timed the same way
+            "empty_launch_ms": time_cuda_ms(
+                lambda: kgemm.empty_launch(y.numel(), y.device)),
             "library_max_abs_err": float(
                 (lib_out - kgemm.act_backward(y, err, relu)).abs().max()),
             **kgemm.act_backward_bound(y, relu)})
     act_alexnet = {**_summed(rows, max(c["max_abs_err"]
                                        for c in act_checks)),
+                   "empty_launch_ms": sum(r["empty_launch_ms"]
+                                          for r in rows),
                    "activation": relu, "layers": rows,
                    "library": "aten.threshold_backward(err, y, 0)"}
     usage = ptxas_usage("gemm")
@@ -6161,7 +6194,8 @@ def phase_build() -> dict:
 
 def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
                 fused, conv, alexnet, deconv, ae, spool, mcs, som,
-                lrn_drop, alex_fused, kernel_hw, spec, char) -> dict:
+                lrn_drop, alex_fused, kernel_hw, spec, char,
+                data_parallel) -> dict:
     """The eighteen kernels: launches from the main paths' runs, times
     and errors from the kernel phases, bounds from this run's inputs.  A
     conv kernel's times and bound sum its launches of one AlexNet train
@@ -6174,9 +6208,11 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
     step's, one a step over all its leaves, and its ms one such call
     over bench_fc's six.  Each conv.cu entry names the kernels
     it launches (``cuda_kernels``); paged_decode's also carries the
-    speculative path's launches and its verify call's time, and the
+    speculative path's launches and its verify call's time, the
     flash and paged_decode entries the char_lm phase's launches (its
-    workflow's and its served package's)."""
+    workflow's and its served package's), and the SGD, AdamW and LRN
+    entries the data_parallel phase's (its AlexNet epochs with no group
+    and in the three layouts, its MNIST FC codec runs on the card)."""
     def entry(name, source, replaces, launches, timed, max_abs_err,
               **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -6189,6 +6225,10 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
 
     sgd = optim["timed"]["sgd_vel_bfloat16"]
     hw = kernel_hw["launches"]
+    dp = {k: sum(r["launches"][k] for r in data_parallel["alexnet"].values())
+          for k in ("sgd_update", "lrn_forward", "lrn_backward")}
+    dp["adam_update"] = sum(data_parallel["mnist_fc_codecs"][k][
+        "adam_launches"] for k in DP_CODECS)
     lrn_path = lrn_drop["lrn_path"]
     drop_f32, drop_bf16 = (
         next(r for r in lrn_drop["dropout_timed"] if r["dtype"] == str(dt))
@@ -6230,10 +6270,12 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
         entry("sgd_update", koptim.SOURCE, koptim.REPLACES,
               fused["sgd_update_launches"], sgd,
               max(optim[k]["sound"]["max_abs_err"]
-                  for k in ("sgd_vel_float32", "sgd_vel_bfloat16"))),
+                  for k in ("sgd_vel_float32", "sgd_vel_bfloat16")),
+              data_parallel_launches=dp["sgd_update"]),
         entry("adam_update", koptim.SOURCE, koptim.REPLACES,
               fused["adam"]["adam_update_launches"], optim["timed"]["adam"],
-              optim["adam"]["sound"]["max_abs_err"]),
+              optim["adam"]["sound"]["max_abs_err"],
+              data_parallel_launches=dp["adam_update"]),
         *(entry(f"conv2d_{kind}", kconv.SOURCE, replaces,
                 alexnet["launches"][f"conv2d_{kind}"], conv["path"][kind],
                 conv["path"][kind]["max_abs_err"], cuda_kernels=cuda)
@@ -6270,11 +6312,13 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
         entry("lrn_forward", klrn.SOURCE, klrn.REPLACES_FWD,
               alex_fused["launches"]["lrn_forward"], lrn_path["fwd"],
               lrn_path["fwd"]["max_abs_err"], path="alexnet_fused",
-              cuda_kernels=["lrn_fwd_quad_kernel<N>", "lrn_fwd_kernel"]),
+              cuda_kernels=["lrn_fwd_quad_kernel<N>", "lrn_fwd_kernel"],
+              data_parallel_launches=dp["lrn_forward"]),
         entry("lrn_backward", klrn.SOURCE, klrn.REPLACES_BWD,
               alex_fused["launches"]["lrn_backward"], lrn_path["bwd"],
               lrn_path["bwd"]["max_abs_err"], path="alexnet_fused",
-              cuda_kernels=["lrn_bwd_quad_kernel<N>", "lrn_bwd_kernel"]),
+              cuda_kernels=["lrn_bwd_quad_kernel<N>", "lrn_bwd_kernel"],
+              data_parallel_launches=dp["lrn_backward"]),
         entry("dropout_forward", kdrop.SOURCE, kdrop.REPLACES,
               hw["dropout_forward"], drop_f32,
               max(c["max_abs_err"] for c in lrn_drop["dropout_checks"]),
@@ -7626,6 +7670,546 @@ def phase_snapshot_resume() -> dict:
     return out
 
 
+#: data_parallel (a): alexnet.build() at its defaults (alexnet_fused's
+#: configuration: 227 px, batch 128, 1000 classes, dropout 0.5, bf16 over
+#: f32 masters, the data set pinned) for one epoch of DP_TRAIN_MB train
+#: minibatches (350 samples: the last one padded) through Workflow.run,
+#: with no group and in each layout on a one-rank NCCL world; then DP_REPS
+#: timed train_steps calls of DP_K staged batches a layout
+DP_LAYOUTS = {"replicated": {}, "shard_update": {"shard_update": True},
+              "shard_params": {"shard_params": True}}
+DP_TRAIN_MB, DP_K, DP_REPS = 3, 4, 3
+#: (b): MNIST FC at bench_fc's widths (784-4096-4096-10, batch 1024),
+#: AdamW at lr 1e-3, for DP_FC_STEPS train steps with each codec, the card
+#: (f32, TF32 off) on the one-rank world against the CPU with no group.
+#: The MNIST FC bands: identical n_err, weights within the AdamW band
+#: (2e-3: a gradient element the two devices round to either side of an
+#: int8 or bf16 step moves by up to lr there), the train loss within
+#: mnist_parity's 1e-5, which the card's run with TF32 on must fail
+DP_FC_STEPS, DP_FC_LR, DP_FC_WEIGHT_ATOL = 4, 1e-3, 2e-3
+DP_CODECS = {"int8_ef": {"mode": "int8", "error_feedback": True},
+             "bf16": {"mode": "bf16", "error_feedback": False}}
+#: (c): the (world size, rank) whose shards of AlexNet's 16 leaves the
+#: update kernels take: ranks 0 and n - 1 of n = 2 and 4 (fc8's bias at
+#: n = 4 is a 250-element slice, not a multiple of 4, at a 16-byte
+#: misaligned offset on rank 3)
+DP_SHARDS = ((2, 0), (2, 1), (4, 0), (4, 3))
+#: (d): the pre-multiplied sum that NCCL runs a kernel for at one rank
+#: (a one-rank sum is no operation and a one-rank gather one copy, so
+#: the step's own collectives show no NCCL kernel on one card): x · 0.5,
+#: exact in f32, over DP_PREMUL_N elements
+DP_PREMUL, DP_PREMUL_N = 0.5, 1 << 20
+#: a device activity NCCL launches, by its kernel's name
+DP_NCCL_KERNEL = re.compile(r"nccl|oneRank", re.I)
+
+
+def _dp_weights(w) -> dict:
+    """Host bytes of every weight, bias and momentum in the param shape
+    (regathered from shards) and of the step's generator state."""
+    w.step.sync_to_units()
+    out = {f"{f.name}.{a}": np.asarray(arr.map_read()).tobytes()
+           for f in w.forwards for a, arr in (("w", f.weights),
+                                              ("b", f.bias)) if arr}
+    out.update({f"{g.name}.v{a}": np.asarray(arr.map_read()).tobytes()
+                for g in w.gds for a, arr in (("w", g.gradient_weights),
+                                              ("b", g.gradient_bias))
+                if arr})
+    out["generator"] = w.step._gen.get_state().numpy().tobytes()
+    return out
+
+
+def _dp_replay_activities(step, xs, ys, ms) -> dict:
+    """One train_steps call of one staged batch (a replay of the captured
+    step) under torch.profiler: the device activities after the mark,
+    those whose names hold "nccl" or "memcpy" by name, and all of them."""
+    acts = None
+    for _ in range(3):
+        acts = profiled_after_mark(
+            lambda: step.train_steps(xs[:1], ys[:1], ms[:1]), 1)
+        if acts:
+            break
+    if not acts:
+        fail("data_parallel: three profiled windows lost their mark")
+    coll = {}
+    for name, us in acts:
+        if re.search("nccl|memcpy", name, re.I):
+            coll[name[:80]] = coll.get(name[:80], 0) + 1
+    return {"activities": len(acts), "nccl_or_memcpy": coll,
+            "copies": sum(coll.values())}
+
+
+@contextlib.contextmanager
+def _dp_data_once(made: dict):
+    """AlexNet's synthetic data set drawn once for the phase's runs: the
+    loader's ``load_data`` draws it at the first build and hands later
+    builds of the same configuration a copy (``made`` keeps them).  The
+    data has a stream of its own ("synthetic"), so no other draw
+    moves."""
+    from znicz_tpu_torch.loader.synthetic import SyntheticImageLoader
+
+    draw = SyntheticImageLoader.load_data
+
+    def load_data(self):
+        key = (self.sample_shape, self.n_classes, str(self.n_per_class),
+               self.spread, self.noise)
+        if key not in made:
+            draw(self)
+            made[key] = (self.original_data.mem.copy(),
+                         self.original_labels.mem.copy(),
+                         list(self.class_lengths))
+        data, labels, lengths = made[key]
+        self.original_data.mem = data.copy()
+        self.original_labels.mem = labels.copy()
+        self.class_lengths = list(lengths)
+
+    SyntheticImageLoader.load_data = load_data
+    try:
+        yield
+    finally:
+        SyntheticImageLoader.load_data = draw
+
+
+def _dp_nccl_in_replay(step) -> dict:
+    """(d): one all-reduce that NCCL runs a kernel for at one rank (the
+    pre-multiplied sum), captured in a CUDA graph on the step's capture
+    stream after one eager call there, and replayed under torch.profiler:
+    the replay's device activities by name, the NCCL kernels among them,
+    and the result against x · DP_PREMUL."""
+    import torch.distributed as dist
+
+    group, stream = step.mesh.group, step._stream
+    x = torch.arange(DP_PREMUL_N, dtype=torch.float32, device=DEVICE)
+    buf = x.clone()
+    op = dist._make_nccl_premul_sum(DP_PREMUL)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(stream):
+        dist.all_reduce(buf, op=op, group=group)          # eager, warm
+    torch.cuda.synchronize()
+    eager_ok = torch.equal(buf, x * DP_PREMUL)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        dist.all_reduce(buf, op=op, group=group)
+
+    def replay():
+        buf.copy_(x)
+        graph.replay()
+    acts = None
+    for _ in range(3):
+        acts = profiled_after_mark(replay, 1)
+        if acts:
+            break
+    if not acts:
+        fail("data_parallel: three profiled windows lost their mark")
+    names = {}
+    for name, _us in acts:
+        names[name[:80]] = names.get(name[:80], 0) + 1
+    torch.cuda.synchronize()
+    return {"op": f"premul_sum({DP_PREMUL})", "elements": DP_PREMUL_N,
+            "stream": "the step's capture stream", "activities": names,
+            "nccl_kernels": {k: v for k, v in names.items()
+                             if DP_NCCL_KERNEL.search(k)},
+            "eager_equal": eager_ok,
+            "replay_equal": torch.equal(buf, x * DP_PREMUL)}
+
+
+def _dp_alexnet_run(layout) -> dict:
+    """(a) for one layout (None: no group, replicated): the epoch through
+    Workflow.run with the SGD, LRN and collective counters set to 0 just
+    before and read just after, the graph replays, the digests; then the
+    timed train_steps calls (ms a step, the collectives a step, peak
+    memory) and one profiled replay."""
+    gc.collect()                        # the last run's graphs and pools
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem_start = torch.cuda.memory_allocated()
+    t_start = time.perf_counter()
+    tprng.seed_all(SEED)
+    w = talexnet.build(n_train=DP_TRAIN_MB * ALEX_BATCH, n_valid=0,
+                       max_epochs=1, **DP_LAYOUTS[layout or "replicated"])
+    t0 = time.perf_counter()
+    w.initialize(device=TorchDevice())
+    init_s = time.perf_counter() - t0
+    step = w.step
+    _zero_lrn_sgd_counts()                           # 0 just before ...
+    tmesh.collective_launches = 0
+    t0 = time.perf_counter()
+    w.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {**_lrn_sgd_counts(),
+                "collectives": tmesh.collective_launches}
+    replays = replays_of(step)                       # ... read just after
+    out = {"mesh": repr(step.mesh), "init_s": init_s, "run_s": run_s,
+           "history": w.decision.metrics_history, "launches": launches,
+           "graph_replays": replays, "digests": _dp_weights(w),
+           "leaf_shapes": [{k: tuple(v.shape) for k, v in leaf.items()}
+                           for leaf in step._params]}
+    data, labels = step._dataset_dev
+    idx = torch.tensor((np.arange(ALEX_BATCH)[None, :] -
+                        np.arange(DP_K)[:, None]) % ALEX_BATCH,
+                       device=DEVICE)
+    xs, ys = data[idx], labels[idx]
+    ms = torch.ones((DP_K, ALEX_BATCH), dtype=torch.bool, device=DEVICE)
+    step.train_steps(xs, ys, ms)                     # eager, capture
+    torch.cuda.synchronize()
+    before = tmesh.collective_launches
+    events = []
+    for _ in range(DP_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step.train_steps(xs, ys, ms)
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    out["step_ms"] = [s.elapsed_time(e) / DP_K for s, e in events]
+    out["collectives_per_step"] = (tmesh.collective_launches - before) / \
+        (DP_REPS * DP_K)
+    # the run's own peak: from initialize through the timed calls, over
+    # what was allocated before it was built
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated() - mem_start
+    out["replay_profile"] = _dp_replay_activities(step, xs, ys, ms)
+    out["seconds"] = time.perf_counter() - t_start
+    out["_step"] = step
+    return out
+
+
+def _dp_fc_run(device, codec, allow_tf32=False) -> dict:
+    """(b): one epoch of DP_FC_STEPS train minibatches in f32 on
+    ``device`` (the card on the world, the CPU with no group) -> the
+    history, the epoch's train loss, the weights, the AdamW launches and
+    the error-feedback residuals' largest magnitude."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+    try:
+        tprng.seed_all(SEED)
+        w = tmnist.build_fused(
+            max_epochs=1, layers=FC_LAYERS, minibatch_size=FC_BATCH,
+            n_train=DP_FC_STEPS * FC_BATCH, n_valid=0, lr=DP_FC_LR,
+            optimizer="adam", quantized_collectives=codec,
+            mesh=None if device == DEVICE else tmesh.DataMesh(1))
+        w.initialize(device=TorchDevice(device, precision="float32"))
+        losses, logged = [], w.decision.on_epoch_logged
+
+        def on_epoch_logged():
+            losses.append(float(w.step.loss))
+            logged()
+
+        w.decision.on_epoch_logged = on_epoch_logged
+        koptim.adam_launches = 0
+        w.run()
+        launches = koptim.adam_launches
+        extra = w.step.extra_state_arrays()
+        w.step.sync_to_units()
+        weights = [a.copy() for f in w.forwards
+                   for a in (f.weights.map_read(), f.bias.map_read())]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return {"history": w.decision.metrics_history, "losses": losses,
+            "weights": weights, "adam_launches": launches,
+            "mesh": repr(w.step.mesh),
+            "residual_max": max((float(np.abs(v).max()) for k, v in
+                                 extra.items() if k.endswith(("rw", "rb"))),
+                                default=0.0)}
+
+
+#: (b)'s CPU runs, in a process of their own: the whole smoke starts it
+#: before snapshot_resume, whose host work keeps one core busy, and
+#: ``--phase data_parallel`` at the phase's start; DP_CPU_THREADS of the
+#: host's cores, the rest left to the phase it runs beside
+DP_CPU_THREADS = 6
+DP_CPU_SCRIPT = """
+import pickle, sys
+sys.path.insert(0, {root!r})
+import torch
+torch.set_num_threads({threads})
+import chip_smoke as cs
+runs = {{name: cs._dp_fc_run("cpu", codec)
+        for name, codec in cs.DP_CODECS.items()}}
+with open({out!r}, "wb") as f:
+    pickle.dump(runs, f)
+"""
+
+
+def _dp_cpu_start() -> tuple:
+    """Start (b)'s CPU runs in a process of their own (no card in its
+    view) -> ``(process, result path, its directory)``."""
+    tmp = tempfile.mkdtemp()
+    out = os.path.join(tmp, "dp_cpu.pkl")
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.Popen(
+        [sys.executable, "-c", DP_CPU_SCRIPT.format(
+            root=os.path.dirname(os.path.abspath(__file__)), out=out,
+            threads=DP_CPU_THREADS)],
+        env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True)
+    return proc, out, tmp
+
+
+def _dp_cpu_stop(started) -> None:
+    """Stop the CPU runs' process if it still runs, and remove its
+    directory."""
+    proc, _, tmp = started
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _dp_cpu_results(proc, path) -> dict:
+    import pickle
+
+    _, err = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        fail(f"data_parallel: the CPU runs exited {proc.returncode}: "
+             f"{err[-3000:]}")
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def _dp_fc_codecs(cpu_runs) -> dict:
+    t0 = time.perf_counter()
+    out, bad = {}, []
+    for name, codec in DP_CODECS.items():
+        card, cpu = _dp_fc_run(DEVICE, codec), cpu_runs()[name]
+        row = {"history_card": card["history"], "history_cpu": cpu["history"],
+               "losses_card": card["losses"], "losses_cpu": cpu["losses"],
+               "loss_rel": max(abs(a - b) / abs(b) for a, b in
+                               zip(card["losses"], cpu["losses"])),
+               "weight_max_abs": max(float(np.abs(a - b).max()) for a, b in
+                                     zip(card["weights"], cpu["weights"])),
+               "adam_launches": card["adam_launches"],
+               "residual_max": card["residual_max"], "mesh": card["mesh"]}
+        if name == "int8_ef":
+            tf = _dp_fc_run(DEVICE, codec, allow_tf32=True)
+            row["tf32_control"] = {
+                "losses": tf["losses"],
+                "loss_rel": max(abs(a - b) / abs(b) for a, b in
+                                zip(tf["losses"], cpu["losses"]))}
+            if not row["tf32_control"]["loss_rel"] > MNIST_PARITY_LOSS_RTOL:
+                bad.append(f"{name}: the loss band passes the TF32 control")
+            if not row["residual_max"] > 0:
+                bad.append(f"{name}: no error-feedback residual accrued")
+        if row["history_card"] != row["history_cpu"]:
+            bad.append(f"{name}: n_err histories differ")
+        if not row["loss_rel"] <= MNIST_PARITY_LOSS_RTOL:
+            bad.append(f"{name}: train loss card vs cpu")
+        if not row["weight_max_abs"] <= DP_FC_WEIGHT_ATOL:
+            bad.append(f"{name}: weights card vs cpu")
+        if row["adam_launches"] != DP_FC_STEPS:
+            bad.append(f"{name}: {row['adam_launches']} AdamW launches, "
+                       f"not one a step")
+        out[name] = row
+    out["seconds"] = time.perf_counter() - t0
+    return out, bad
+
+
+def _dp_update_kernels(shapes) -> tuple:
+    """(c): ``sgd_update_`` leaf by leaf and one ``adam_update_multi_``
+    over AlexNet's 16 leaves, each leaf cut as ``zero.pad_slice`` gives
+    rank r of n its slice (a view of the leaf at the rank's offset, as the
+    shard_update step passes them), against the plain versions on the
+    same slices and against one launch on the whole leaves, bit for bit."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 61)
+    h = _scalars(OPTIM_HYPER)
+    ah = _scalars(ADAM_HYPER)
+    t_step = _dev(np.float32(3.0))
+    ah["c1"], ah["c2"] = 1.0 - ah["b1"] ** t_step, 1.0 - ah["b2"] ** t_step
+    bs = _dev(np.float32(ALEX_BATCH))
+
+    def randn(shape, scale):
+        return torch.randn(shape, generator=gen, device=DEVICE) * scale
+
+    rows, bad = [], []
+    t0 = time.perf_counter()
+    for n, rank in DP_SHARDS:
+        full = [{"w": randn(sh, 0.05), "g": randn(sh, 32.0),
+                 "v": randn(sh, 0.01), "m": randn(sh, 0.1),
+                 "s": randn(sh, 0.01).abs()} for sh in shapes]
+        ker, ref, whole = _clone(full), _clone(full), _clone(full)
+
+        def cut(leaves, keys):
+            return [{k: tzero.pad_slice(leaf[k], rank, n) for k in keys}
+                    for leaf in leaves]
+        ks, rs = cut(ker, "wgv"), cut(ref, "wgv")
+        before = koptim.sgd_launches
+        for kl, rl in zip(ks, rs):
+            koptim.sgd_update_(kl["w"], kl["g"], kl["v"], h["lr"], h["wd"],
+                               h["l1"], h["mom"], bs)
+            koptim.sgd_update_plain(rl["w"], rl["g"], rl["v"], h["lr"],
+                                    h["wd"], h["l1"], h["mom"], bs)
+        sgd_launches = koptim.sgd_launches - before
+        for wl in whole:
+            koptim.sgd_update_(wl["w"], wl["g"], wl["v"], h["lr"], h["wd"],
+                               h["l1"], h["mom"], bs)
+        wcut = cut(whole, "wv")
+        sgd = {"to_plain": all(torch.equal(a[k], b[k]) for a, b in
+                               zip(ks, rs) for k in "wv"),
+               "to_whole_leaf": all(torch.equal(a[k], b[k]) for a, b in
+                                    zip(ks, wcut) for k in "wv"),
+               "max_abs_err": max(_max_abs(a[k], b[k]) for a, b in
+                                  zip(ks, rs) for k in "wv")}
+        ker, ref, whole = _clone(full), _clone(full), _clone(full)
+        ks, rs = cut(ker, "wgms"), cut(ref, "wgms")
+        before = koptim.adam_launches
+
+        def multi(leaves):
+            koptim.adam_update_multi_(
+                [(lf["w"], lf["g"], lf["m"], lf["s"], ah["lr"], ah["wd"],
+                  ah["c1"], ah["c2"]) for lf in leaves], ah["b1"], ah["b2"],
+                ah["eps"], bs)
+        multi(ks)
+        adam_launches = koptim.adam_launches - before
+        multi(whole)
+        for rl in rs:
+            koptim.adam_update_plain(rl["w"], rl["g"], rl["m"], rl["s"],
+                                     ah["lr"], ah["wd"], ah["b1"], ah["b2"],
+                                     ah["eps"], ah["c1"], ah["c2"], bs)
+        wcut = cut(whole, "wms")
+        adam = {"to_plain": all(torch.equal(a[k], b[k]) for a, b in
+                                zip(ks, rs) for k in "wms"),
+                "to_whole_leaf": all(torch.equal(a[k], b[k]) for a, b in
+                                     zip(ks, wcut) for k in "wms"),
+                "max_abs_err": max(_max_abs(a[k], b[k]) for a, b in
+                                   zip(ks, rs) for k in "wms")}
+        torch.cuda.synchronize()
+        lengths = [int(x["w"].numel()) for x in ks]
+        row = {"n": n, "rank": rank, "slices": len(lengths),
+               "slice_lengths": lengths,
+               "not_multiple_of_4": [m for m in lengths if m % 4],
+               "misaligned": sum(1 for x in ks
+                                 if x["w"].data_ptr() % 16),
+               "sgd_launches": sgd_launches, "sgd": sgd,
+               "adam_launches": adam_launches, "adam": adam}
+        rows.append(row)
+        if not (sgd["to_plain"] and sgd["to_whole_leaf"] and
+                adam["to_plain"] and adam["to_whole_leaf"]):
+            bad.append(f"update kernels at n={n} rank {rank}: {row}")
+        if sgd_launches != len(shapes) or adam_launches != 1:
+            bad.append(f"update launches at n={n} rank {rank}: {row}")
+        del full, ker, ref, whole, ks, rs, wcut
+    if not any(r["not_multiple_of_4"] for r in rows):
+        bad.append("no shard slice whose length is not a multiple of 4")
+    return {"shards": rows, "seconds": time.perf_counter() - t0}, bad
+
+
+def phase_data_parallel(cpu_started=None) -> dict:
+    """Data parallel of the fused step on a one-rank NCCL world (the card
+    is one H100, and NCCL refuses two ranks on one device): (c) the update
+    kernels at the shard shapes of 2 and 4 ranks; (a) full-width fused
+    AlexNet with no group, then joined through ``launcher.multihost`` in
+    each layout, each bit-identical to the run with no group, the SGD,
+    LRN and collective launches exact, the replays counted, ms a step,
+    peak memory and one profiled replay's collective activities; (b)
+    MNIST FC AdamW with int8 (error feedback) and bf16 collectives, the
+    card against the CPU with a TF32 control, the CPU's runs in a process
+    of their own (``cpu_started``, else started first); (d) a collective
+    NCCL runs a kernel for
+    at one rank, captured on the step's capture stream, its kernel seen
+    in a profiled replay.  AlexNet's data set is drawn once for the
+    phase.  cuDNN runs deterministic; the group is destroyed at the
+    end."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    t0 = time.perf_counter()
+    out = {"phase": "data_parallel", "cudnn_deterministic": True,
+           "config": {"alexnet_train_minibatches": DP_TRAIN_MB,
+                      "K": DP_K, "timed_calls": DP_REPS,
+                      "fc_steps": DP_FC_STEPS, "fc_lr": DP_FC_LR,
+                      "codecs": DP_CODECS, "shards": DP_SHARDS},
+           "bands": {"fc_loss_rel": MNIST_PARITY_LOSS_RTOL,
+                     "fc_weight_atol": DP_FC_WEIGHT_ATOL}}
+    bad, cpu = [], {}
+
+    def cpu_runs():
+        if not cpu:
+            t1 = time.perf_counter()
+            cpu.update(_dp_cpu_results(proc, path))
+            out["cpu_wait_s"] = time.perf_counter() - t1
+        return cpu
+
+    started = cpu_started or _dp_cpu_start()
+    proc, path, _ = started
+    made = {}
+    try:
+        with _dp_data_once(made):
+            runs = {"ungrouped": _dp_alexnet_run(None)}
+        del runs["ungrouped"]["_step"]
+        shapes = [runs["ungrouped"]["leaf_shapes"][i][k]
+                  for i, leaf in enumerate(runs["ungrouped"]["leaf_shapes"])
+                  for k in ("w", "b") if k in leaf]
+        out["update_kernels_at_shards"], b = _dp_update_kernels(shapes)
+        bad += b
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        t1 = time.perf_counter()
+        launcher.multihost(f"127.0.0.1:{port}", 1, 0)
+        out["join_s"] = time.perf_counter() - t1
+        try:
+            with _dp_data_once(made):
+                for layout in DP_LAYOUTS:
+                    runs[layout] = _dp_alexnet_run(layout)
+                    step = runs[layout].pop("_step")
+            out["nccl_kernel_in_replay"] = d = _dp_nccl_in_replay(step)
+            del step
+            if not (d["nccl_kernels"] and d["eager_equal"] and
+                    d["replay_equal"]):
+                bad.append(f"(d) no NCCL kernel in the replay, or a wrong "
+                           f"sum: {d}")
+            out["mnist_fc_codecs"], b = _dp_fc_codecs(cpu_runs)
+            bad += b
+        finally:
+            torch.distributed.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic = False
+        _dp_cpu_stop(started)
+    n_leaves = len(shapes)
+    want = runs["ungrouped"]["digests"]
+    per_step = {"ungrouped": 0, "replicated": 2,
+                "shard_update": 2 + n_leaves, "shard_params": 2 + n_leaves}
+    for name, run in runs.items():
+        expect = {"lrn_forward": 2 * DP_TRAIN_MB,
+                  "lrn_backward": 2 * DP_TRAIN_MB,
+                  "sgd_update": n_leaves * DP_TRAIN_MB, "hand_conv": 0,
+                  "collectives": per_step[name] * DP_TRAIN_MB}
+        run["expect"] = expect
+        if run["launches"] != expect:
+            bad.append(f"{name}: launches {run['launches']} != {expect}")
+        if run["collectives_per_step"] != per_step[name]:
+            bad.append(f"{name}: {run['collectives_per_step']} collectives "
+                       f"a replayed step, not {per_step[name]}")
+        # the first minibatch runs eagerly, the second captures and
+        # replays, the third replays
+        if run["graph_replays"].get("train") != DP_TRAIN_MB - 1:
+            bad.append(f"{name}: replays {run['graph_replays']}")
+        # a one-rank NCCL sum is no operation, a one-rank all-gather one
+        # device copy: a replay copies what the run with no group's does,
+        # plus a gather a leaf (shard_params) or a gather and the copy
+        # into the weights a leaf (shard_update)
+        extra = run["replay_profile"]["copies"] - \
+            runs["ungrouped"]["replay_profile"]["copies"]
+        want_extra = {"ungrouped": 0, "replicated": 0,
+                      "shard_update": 2 * n_leaves,
+                      "shard_params": n_leaves}[name]
+        run["replay_copies_over_ungrouped"] = extra
+        if extra != want_extra:
+            bad.append(f"{name}: a replay made {extra} device copies more "
+                       f"than the run with no group, not {want_extra}")
+        digests = run.pop("digests")
+        run["identical_to_ungrouped"] = digests == want and \
+            run["history"] == runs["ungrouped"]["history"]
+        if not run["identical_to_ungrouped"]:
+            diff = sorted(k for k in want if digests.get(k) != want[k])
+            bad.append(f"{name}: differs from the run with no group in "
+                       f"{diff}")
+    out["alexnet"] = runs
+    out["seconds"] = time.perf_counter() - t0
+    if bad:
+        fail(f"data_parallel: {bad}: {out}")
+    return out
+
+
 #: phases ``--phase`` may run alone (after the build), for iterating on
 #: one kernel family; the smoke proper takes no arguments
 PHASES_ALONE = {"kernel": lambda: phase_kernel(),
@@ -7648,6 +8232,7 @@ PHASES_ALONE = {"kernel": lambda: phase_kernel(),
                 "input_pipeline": lambda: phase_input_pipeline(),
                 "image_files": lambda: phase_image_files(),
                 "snapshot_resume": lambda: phase_snapshot_resume(),
+                "data_parallel": lambda: phase_data_parallel(),
                 "speculative": lambda: phase_speculative_alone(),
                 "char_lm": lambda: phase_char_lm(),
                 "train": lambda: phase_train(init_params(
@@ -7740,12 +8325,19 @@ def main() -> int:
     emit(phase_fused_conv_parity())
     emit(phase_input_pipeline())
     emit(phase_image_files())
-    emit(phase_snapshot_resume())
+    dp_cpu = _dp_cpu_start()        # beside snapshot_resume's one core
+    try:
+        emit(phase_snapshot_resume())
+        data_parallel = phase_data_parallel(dp_cpu)
+    finally:
+        _dp_cpu_stop(dp_cpu)
+    emit(data_parallel)
     kernel_hw = phase_kernel_hw()
     emit(kernel_hw)
     emit({**kernel_line(kernel, flash, gemm, optim, serve, train, eager,
                         fused, conv, alexnet, deconv, ae, spool, mcs, som,
-                        lrn_drop, alex_fused, kernel_hw, spec, char),
+                        lrn_drop, alex_fused, kernel_hw, spec, char,
+                        data_parallel),
           "first_stream": streams[0][:8],
           "seconds": time.perf_counter() - T_START})
     print(nvidia_smi(), flush=True)

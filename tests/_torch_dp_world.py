@@ -1,0 +1,256 @@
+"""Gloo worlds for the port's data-parallel tests
+(``test_torch_port_data_parallel.py``, ``test_torch_port_qcomm.py``,
+``test_torch_port_multihost.py``).
+
+:func:`run_world` starts ``n`` processes of this file, each a rank of
+one gloo world on the CPU; each runs every case of a job in order and
+writes its results, which come back as a list a rank.  A case is a dict
+naming one of the ``CASES`` functions and its arguments; its result is a
+dict of numpy arrays, lists and numbers.  The workers import torch and
+the port only, never jax: the tests hold what comes back against the
+JAX package in their own process.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import socket
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_world(n: int, cases: list, inits=None, timeout: float = 240.0):
+    """Run ``cases`` on every rank of a gloo world of ``n`` processes ->
+    ``[rank 0's results, rank 1's, ...]``, each a list a case.
+    ``inits`` (any picklable) reaches every case as ``job["inits"]``."""
+    port = free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        job = os.path.join(tmp, "job.pkl")
+        with open(job, "wb") as f:
+            pickle.dump({"cases": cases, "inits": inits}, f)
+        env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+        env["OMP_NUM_THREADS"] = "1"
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), str(r), str(n),
+             str(port), job, tmp], cwd=REPO, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(n)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=timeout)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        bad = [(r, p.returncode, log[-4000:])
+               for r, (p, log) in enumerate(zip(procs, logs))
+               if p.returncode != 0]
+        if bad:
+            raise RuntimeError(f"gloo world of {n} failed: {bad}")
+        out = []
+        for r in range(n):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+        return out
+
+
+# -- the cases (run in the workers) -------------------------------------------
+
+def _mnist_build(case, max_epochs):
+    from znicz_tpu_torch.core import prng as tprng
+    from znicz_tpu_torch.models import mnist_fc
+
+    layouts = {"replicated": {}, "shard_update": {"shard_update": True},
+               "shard_params": {"shard_params": True}}
+    tprng.seed_all(case["seed"])
+    return mnist_fc.build_fused(
+        max_epochs=max_epochs, layers=tuple(case["layers"]),
+        minibatch_size=case["minibatch"], n_train=case["n_train"],
+        n_valid=case["n_valid"], optimizer=case.get("optimizer", "sgd"),
+        **layouts[case.get("layout", "replicated")],
+        **case.get("options", {}))
+
+
+def _initialize(w, case, inits):
+    from znicz_tpu_torch.core import prng as tprng
+    from znicz_tpu_torch.core.backends import TorchDevice
+    from znicz_tpu_torch.core.config import root
+    from znicz_tpu_torch.units.nn_units import load_forward_params
+
+    init = inits.get(case.get("init")) if inits else None
+    if init is not None:
+        load_forward_params(w.forwards, init["params"])
+    if case.get("scan_epoch"):
+        w.step.scan_epoch = True
+    root.common.engine.zero_gather_via_psum = bool(case.get("via_psum"))
+    # host_fed: the data set stays on the host, so every minibatch's
+    # rows are uploaded (by the stager under pipeline_depth)
+    root.common.engine.dataset_on_device_max_bytes = \
+        0 if case.get("host_fed") else 1 << 30
+    w.initialize(device=TorchDevice("cpu"))
+    if init is not None:
+        tprng.get().load_state_dict(init["state"])
+
+
+def _gauge(name, unit="FusedStep"):
+    from znicz_tpu_torch.observe import registry
+
+    return registry.REGISTRY.get(name).labels(unit=unit).get()
+
+
+def case_mnist(case, inits):
+    """MNIST FC fused on the world: optionally restored from a snapshot
+    (``restore``), optionally snapshotted after ``snapshot_epochs``
+    (``snapshot``), run to ``epochs``; returns the histories, weights,
+    momenta, EMA mirrors, the ZeRO gauges and the step's residuals."""
+    import torch
+
+    from znicz_tpu_torch.snapshotter import (collect_state, restore_state,
+                                             write_snapshot)
+
+    out = {}
+    if case.get("snapshot"):
+        w = _mnist_build(case, case["snapshot_epochs"])
+        _initialize(w, case, inits)
+        w.run()
+        arrays, meta = collect_state(w)
+        if torch.distributed.get_rank() == 0:
+            write_snapshot(case["snapshot"], arrays, meta)
+        torch.distributed.barrier()
+        out["snapshot_rw"] = arrays.get("step.opt.0.rw")
+    w = _mnist_build(case, case["epochs"])
+    _initialize(w, case, inits)
+    rows = set()
+    dispatch = w.step._dispatch
+
+    def spy(kind, body, *inputs):
+        rows.update(int(t.shape[0]) for t in inputs)
+        return dispatch(kind, body, *inputs)
+    w.step._dispatch = spy
+    out["param_bytes"] = _gauge("znicz_zero_param_bytes")
+    out["opt_bytes"] = _gauge("znicz_zero_opt_state_bytes")
+    out["gather_nbytes"] = w.step._zero_gather_nbytes
+    before = _gauge("znicz_zero_gathered_bytes_total")
+    if case.get("restore"):
+        restore_state(w, case["restore"])
+        out["restored_extra"] = w.step.extra_state_arrays()
+        w.decision.max_epochs = case["epochs"]
+        w.decision.complete.set(False)
+    w.run()
+    out["gathered_delta"] = _gauge("znicz_zero_gathered_bytes_total") - \
+        before
+    out["dispatched_rows"] = sorted(rows)
+    w.step.sync_to_units()
+    out["hist"] = [(h.get("metric_train"), h.get("metric_validation"))
+                   for h in w.decision.metrics_history]
+    out["w"] = [np.asarray(a.map_read()).copy() for f in w.forwards
+                for a in (f.weights, f.bias)]
+    out["v"] = [np.asarray(a.map_read()).copy() for g in w.gds
+                for a in (g.gradient_weights, g.gradient_bias)]
+    if w.step.ema_decay is not None:
+        out["ema"] = w.step.ema_params()
+    out["extra"] = w.step.extra_state_arrays()
+    out["vw_dtype"] = str(w.step._params[0]["vw"].dtype)
+    out["leaf_shapes"] = [{k: tuple(v.shape) for k, v in leaf.items()}
+                          for leaf in w.step._params]
+    return out
+
+
+def case_generator(case, inits):
+    """The step's generator after initialize: each rank's first draws."""
+    import torch
+
+    w = _mnist_build(case, 1)
+    _initialize(w, case, inits)
+    return {"draws": torch.rand(8, generator=w.step._gen).numpy()}
+
+
+def case_qcomm(case, inits):
+    """The codec's collectives on this rank's slice of ``inputs``:
+    ``psum_tree`` (with and without residuals) and ``gather_slices``."""
+    import torch
+
+    from znicz_tpu_torch.parallel import mesh as tmesh
+    from znicz_tpu_torch.parallel import qcomm
+
+    m = tmesh.data_parallel_mesh()
+    r = m.rank
+    codec = qcomm.resolve(case["config"])
+    tree = [{k: torch.from_numpy(v[r]) for k, v in leaf.items()}
+            for leaf in inits["trees"]]
+    res = [{k: torch.from_numpy(v[r]) for k, v in leaf.items()}
+           for leaf in inits["residuals"]]
+    summed, _ = qcomm.psum_tree(tree, m, codec)
+    summed_ef, new_res = qcomm.psum_tree(tree, m, codec, res)
+    exact, _ = qcomm.quantized_psum(tree, m, None)
+    out = {"summed": [{k: v.numpy() for k, v in leaf.items()}
+                      for leaf in summed],
+           "summed_ef": [{k: v.numpy() for k, v in leaf.items()}
+                         for leaf in summed_ef],
+           "new_res": [{k: v.numpy() for k, v in leaf.items()}
+                       for leaf in new_res],
+           "exact": [{k: v.numpy() for k, v in leaf.items()}
+                     for leaf in exact],
+           "gathered": []}
+    for full in inits["gather"]:
+        flat = np.pad(full.reshape(-1), (0, (-full.size) % m.size))
+        s = flat.size // m.size
+        shard = torch.from_numpy(flat[r * s:(r + 1) * s].copy())
+        out["gathered"].append(
+            qcomm.gather_slices(shard, m, full.shape, codec).numpy())
+    return out
+
+
+def case_backend(case, inits):
+    """A step on CUDA tensors over this gloo group must refuse."""
+    import torch
+
+    from znicz_tpu_torch.parallel import mesh as tmesh
+
+    try:
+        tmesh.check_backend(tmesh.data_parallel_mesh(),
+                            torch.device("cuda"))
+    except RuntimeError as exc:
+        return {"refused": str(exc)}
+    return {"refused": None}
+
+
+CASES = {"mnist": case_mnist, "generator": case_generator,
+         "qcomm": case_qcomm, "backend": case_backend}
+
+
+def _worker(rank: int, n: int, port: int, job: str, out_dir: str) -> None:
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    with open(job, "rb") as f:
+        spec = pickle.load(f)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=n, rank=rank)
+    try:
+        results = [CASES[c["fn"]](c, spec["inits"]) for c in spec["cases"]]
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(results, f)
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, REPO)
+    _worker(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]),
+            sys.argv[4], sys.argv[5])

@@ -25,7 +25,7 @@ import znicz_tpu_torch.__main__ as cli
 from znicz_tpu_torch.core import prng
 from znicz_tpu_torch.core.backends import NumpyDevice, TorchDevice
 from znicz_tpu_torch.core.config import root
-from znicz_tpu_torch.launcher import Launcher, multihost
+from znicz_tpu_torch.launcher import Launcher
 from znicz_tpu_torch.models import alexnet, cifar_conv, mnist_conv
 from znicz_tpu_torch.resilience import faults
 from znicz_tpu_torch.snapshotter import verify_snapshot
@@ -235,7 +235,7 @@ def test_cli_device_defaults_to_cuda_and_raises_without_a_card(wf):
 @pytest.mark.parametrize("flag,item", [
     (["--optimize", "2"], "14"), (["--ensemble-train", "2"], "14"),
     (["--manhole"], "14"), (["--publish", "markdown"], "14"),
-    (["--profile", "prof"], "14"), (["--coordinator", "h:1"], "10")])
+    (["--profile", "prof"], "14")])
 def test_unported_flags_raise_with_their_item(wf, flag, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         cli.main([wf, "-d", "cpu"] + flag)
@@ -262,8 +262,6 @@ def test_launcher_unported_options_raise():
                      ({"manhole_path": ""}, "14")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             Launcher(**kw)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        multihost("localhost:1", 2, 0)
 
 
 def test_generate_keeps_its_route_and_the_fault_plan_env(monkeypatch):

@@ -64,7 +64,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                  "units.mean_disp_normalizer", "models.image_ae",
                  "models.yale_faces", "loader.text", "loader.sequence",
                  "parallel.moe", "parallel.graphs", "units.lm",
-                 "models.char_lm"):
+                 "models.char_lm", "parallel.mesh", "parallel.zero",
+                 "parallel.qcomm"):
         assert f"znicz_tpu_torch.{name}" in doc["modules"]
 
 

@@ -24,8 +24,14 @@ naming its ROADMAP item rather than being ignored: ``--optimize``,
 subcommands ``fleet``, ``learn``, ``elastic``, ``flight``, ``trace``,
 ``forge`` and the ``ZNICZ_TPU_HEARTBEAT`` and
 ``ZNICZ_TPU_METRICS_EXPORT`` envs of a workflow run (item 14);
-``--coordinator`` (item 10); ``serve`` (item 13).  ``aot`` has no counterpart: the port has no
-XLA executables to compile ahead of time (a recorded divergence).
+``serve`` (item 13).  ``aot`` has no counterpart: the port has no XLA
+executables to compile ahead of time (a recorded divergence).
+
+``--coordinator host:port --num-processes N --process-id R`` joins a
+data-parallel world before the workflow is built
+(``launcher.multihost``: NCCL on the card, gloo with ``-d cpu``); a
+fused step's default mesh is then the whole world.  Every process runs
+the same command line but for its ``--process-id``.
 """
 
 from __future__ import annotations
@@ -46,8 +52,7 @@ _UNPORTED_FLAGS = {
     "ensemble_train": ("ensemble training (--ensemble-train)", "14"),
     "manhole": ("the manhole (--manhole)", "14"),
     "publish": ("the post-training report (--publish)", "14"),
-    "profile": ("the profiler trace (--profile)", "14"),
-    "coordinator": ("the multi-process join (--coordinator)", "10")}
+    "profile": ("the profiler trace (--profile)", "14")}
 #: worker-side envs of the elastic fleet not ported yet
 _UNPORTED_ENVS = {"ZNICZ_TPU_HEARTBEAT": "the elastic heartbeat",
                   "ZNICZ_TPU_METRICS_EXPORT": "the fleet metrics export"}
@@ -139,8 +144,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--publish", default=None, metavar="BACKEND",
                    choices=("markdown", "html"),
                    help="not ported yet (item 14)")
-    p.add_argument("--coordinator", default=None,
-                   help="not ported yet (item 10)")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="join a data-parallel world whose rank 0 listens "
+                        "here (with --num-processes and --process-id)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     return p
@@ -185,6 +191,25 @@ def main(argv=None) -> int:
     for flag, (what, item) in _UNPORTED_FLAGS.items():
         if getattr(args, flag) is not None:
             raise _not_ported(what, item)
+    if args.coordinator is None:
+        return _run_workflow(args)
+    if args.num_processes is None or args.process_id is None:
+        raise SystemExit("--coordinator needs --num-processes and "
+                         "--process-id")
+    import torch.distributed as dist
+
+    from znicz_tpu_torch.launcher import multihost
+
+    multihost(args.coordinator, args.num_processes, args.process_id,
+              device=args.device)
+    try:
+        return _run_workflow(args)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run_workflow(args) -> int:
+    """Seed, configure, load the workflow file and run it."""
     from znicz_tpu_torch.core import prng
     from znicz_tpu_torch.core.config import (apply_config_file, root,
                                              set_by_path)

@@ -211,6 +211,10 @@ act_backward_f32_kernel(const float* __restrict__ y,
   }
 }
 
+// An empty kernel: launched over act_backward's grid, it times the floor
+// of such a launch (the smoke holds act_backward's time against it).
+__global__ void __launch_bounds__(256) empty_kernel() {}
+
 // The GEMM's tile: 128 rows by 128 columns, 64 where n <= 64
 // (gemm_tile in kernels/gemm.py is its twin).
 int gemm_bn(int n) { return n <= 64 ? 64 : 128; }
@@ -374,6 +378,15 @@ extern "C" int znicz_act_backward_f32(const void* y, const void* err,
   else
     act_backward_f32_kernel<1><<<blocks_for(n), 256, 0, s>>>(yp, ep, op, n,
                                                              act);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The empty kernel over the grid act_backward's vector path takes for n
+// elements.  Same return convention.
+extern "C" int znicz_empty_launch(long long n, void* stream) {
+  if (n < 4) return static_cast<int>(cudaErrorInvalidValue);
+  empty_kernel<<<blocks_for(n / 4), 256, 0,
+                 static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

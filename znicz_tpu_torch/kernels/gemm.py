@@ -236,6 +236,8 @@ def _library():
         lib.znicz_act_backward_f32.argtypes = [ptr] * 3 + [
             ctypes.c_longlong, i32, ptr]
         lib.znicz_act_backward_f32.restype = i32
+        lib.znicz_empty_launch.argtypes = [ctypes.c_longlong, ptr]
+        lib.znicz_empty_launch.restype = i32
         lib.znicz_gemm_error_string.argtypes = [i32]
         lib.znicz_gemm_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -336,6 +338,16 @@ def act_backward(y, err, activation: str):
     _raise_on(rc, "act_backward")
     act_launches += 1
     return out
+
+
+def empty_launch(n: int, device) -> None:
+    """An empty kernel over the grid :func:`act_backward`'s vector path
+    takes for ``n`` elements, launched through the same library, on the
+    current stream of ``device``: a measurement of the launch floor, on
+    no path (so no counter)."""
+    rc = _library().znicz_empty_launch(
+        int(n), torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(rc, "empty_launch")
 
 
 def fc_forward(x, w, bias=None, activation: str = activations.LINEAR):

@@ -7,14 +7,21 @@ caller names another (``TorchDevice("cpu")``, ``NumpyDevice()``): there
 is no quiet CPU fallback.  ``stealth`` (``-s``) is accepted and does
 nothing: the port has no plotters or other side services to suppress.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: the profiler trace directory and the manhole (item 14), and the
-multi-process join, ``multihost`` with ``wait_for_coordinator`` (item 10).
+The multi-process join (``multihost``, the CLI's ``--coordinator``) is
+the reference's collapse of veles' master/slave protocol into peers
+(SURVEY.md §3.4): N identical processes join one ``torch.distributed``
+world and run the same standalone path, the fused step's collectives
+replacing the job protocol.  Not ported yet, each raising
+``NotImplementedError`` with its ROADMAP item: the profiler trace
+directory and the manhole (item 14).
 """
 
 from __future__ import annotations
 
+import datetime
+import os
 import signal
+import socket
 import sys
 import time
 from typing import Optional
@@ -22,7 +29,14 @@ from typing import Optional
 from znicz_tpu_torch.core.backends import AutoDevice, Device
 from znicz_tpu_torch.core.logger import Logger
 from znicz_tpu_torch.core.mutable import Bool
+from znicz_tpu_torch.resilience.retry import RetryPolicy
 from znicz_tpu_torch.snapshotter import process_rank_world, restore_state
+
+#: non-zero ranks wait for the coordinator under this schedule before
+#: joining: bounded at ~60 s of backed-off TCP probes (the reference's)
+DEFAULT_CONNECT_RETRY = dict(max_attempts=40, base_delay=0.1,
+                             multiplier=1.4, max_delay=3.0,
+                             retryable=(OSError,), seed=0)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -30,11 +44,80 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
                                f"A item {item})")
 
 
+class CoordinatorUnreachable(RuntimeError):
+    """The multihost coordinator never accepted a connection within the
+    bounded retry schedule."""
+
+
+def wait_for_coordinator(coordinator: str,
+                         policy: Optional[RetryPolicy] = None,
+                         connect_timeout: float = 1.0) -> None:
+    """Block until ``coordinator`` (``host:port``) accepts a TCP
+    connection, retrying under a bounded ``RetryPolicy``; exhaustion
+    raises :class:`CoordinatorUnreachable` naming the address."""
+    policy = policy or RetryPolicy(**DEFAULT_CONNECT_RETRY)
+    host, _, port = coordinator.rpartition(":")
+    if not host or not port.isdigit():
+        raise ValueError(f"coordinator address {coordinator!r} is not "
+                         f"host:port")
+
+    def probe() -> None:
+        with socket.create_connection((host, int(port)),
+                                      timeout=connect_timeout):
+            pass
+
+    try:
+        policy.call(probe)
+    except OSError as exc:
+        raise CoordinatorUnreachable(
+            f"multihost coordinator {coordinator} unreachable after "
+            f"{policy.total_attempts} attempts "
+            f"(last error: {exc!r}); is process 0 up?") from exc
+
+
 def multihost(coordinator: str, num_processes: int, process_id: int,
-              **_kwargs) -> None:
-    """The reference's multi-process join (``--coordinator``)."""
-    raise _not_ported("the multi-process join (multihost, --coordinator)",
-                      "10")
+              connect_policy: Optional[RetryPolicy] = None,
+              initialization_timeout: Optional[int] = None,
+              device: str = "cuda") -> None:
+    """Join a multi-process data-parallel job: every process is a peer
+    and ``process_id`` its rank; rank 0 hosts the rendezvous store at
+    ``coordinator`` (``host:port``).  Call before the workflow is built.
+
+    Ranks other than 0 first wait for the coordinator's port under a
+    bounded :class:`RetryPolicy` (``connect_policy``, default
+    ``DEFAULT_CONNECT_RETRY``).  Then ``dist.init_process_group`` at
+    ``tcp://{coordinator}``: NCCL on ``cuda`` (the device becomes
+    ``cuda:<local rank>``: ``$LOCAL_RANK``, else the rank modulo the
+    cards this host has), gloo on ``cpu`` (and ``numpy``).  There is no
+    fallback from one backend to the other.  ``initialization_timeout``
+    (seconds) bounds the rendezvous."""
+    import torch
+    import torch.distributed as dist
+
+    if not 0 <= int(process_id) < int(num_processes):
+        raise ValueError(f"process_id {process_id} is not a rank of "
+                         f"{num_processes} processes")
+    if process_id != 0:
+        wait_for_coordinator(coordinator, connect_policy)
+    kwargs = {}
+    if initialization_timeout is not None:
+        kwargs["timeout"] = datetime.timedelta(
+            seconds=int(initialization_timeout))
+    if device in ("cpu", "numpy"):
+        backend = "gloo"
+    else:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "multihost on cuda: torch.cuda.is_available() is False; "
+                "pass device='cpu' (CLI: -d cpu) for a gloo world")
+        local = int(os.environ.get(
+            "LOCAL_RANK", int(process_id) % torch.cuda.device_count()))
+        torch.cuda.set_device(local)
+        backend = "nccl"
+        kwargs["device_id"] = torch.device("cuda", local)
+    dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
+                            world_size=int(num_processes),
+                            rank=int(process_id), **kwargs)
 
 
 def resume(workflow, path: str) -> dict:
@@ -129,15 +212,16 @@ class Launcher(Logger):
             # (the snapshotter's granularity), so a final export is a
             # legitimate resume point; then exit with 128+SIGTERM so a
             # supervisor can tell "terminated as asked" (143) from
-            # "completed" (0).  Only the elected writer (rank 0) exports.
+            # "completed" (0).  Every rank exports (the state's gather is
+            # a collective); only the elected writer (rank 0) writes.
             snapshotter = getattr(self.workflow, "snapshotter", None)
             if snapshotter is not None and \
-                    process_rank_world()[0] == 0 and \
                     getattr(snapshotter, "target_workflow", None) is not None:
                 try:
                     snapshotter.export()
-                    self.info(f"SIGTERM: final snapshot -> "
-                              f"{snapshotter.destination}")
+                    if process_rank_world()[0] == 0:
+                        self.info(f"SIGTERM: final snapshot -> "
+                                  f"{snapshotter.destination}")
                 except Exception as exc:  # noqa: BLE001 — exit anyway
                     self.warning(f"SIGTERM: final snapshot failed: "
                                  f"{exc!r}")

@@ -67,8 +67,12 @@ def build(max_epochs: int = 1, minibatch_size: int = 128,
           loader_name: str = "synthetic_image",
           loader_config: dict | None = None,
           snapshotter_config: dict | None = None,
-          optimizer_config: dict | None = None) -> StandardWorkflow:
-    """The reference's signature and defaults.  The synthetic loader
+          optimizer_config: dict | None = None,
+          shard_update: bool = False, shard_params: bool = False,
+          quantized_collectives: dict | None = None) -> StandardWorkflow:
+    """The reference's signature and defaults, and the data-parallel
+    options of the fused step (``StandardWorkflow``'s), which the
+    reference's ``build`` does not pass.  The synthetic loader
     serves ``min(n_classes, 50)`` classes of spatially smooth images.
     ``loader_name="file_image"`` + ``loader_config={"data_dir": ...}``
     streams a directory-per-class ImageNet-style tree with fitted
@@ -105,7 +109,9 @@ def build(max_epochs: int = 1, minibatch_size: int = 128,
         loader_config=cfg,
         decision_config={"max_epochs": max_epochs},
         snapshotter_config=snapshotter_config, fused=fused, mesh=mesh,
-        optimizer_config=optimizer_config)
+        optimizer_config=optimizer_config, shard_update=shard_update,
+        shard_params=shard_params,
+        quantized_collectives=quantized_collectives)
 
 
 def run(load, main):

@@ -8,17 +8,18 @@ Two execution shapes over the same units:
   its own backend path per minibatch (numpy oracle, or per-unit torch:
   the ``gemm_fc`` and ``act_backward`` kernels on the card);
 - ``build_fused``: the accelerated segment collapsed into one
-  ``FusedTrainStep`` on one device (``parallel/step.py``: the update
-  kernels on the card).
+  ``FusedTrainStep`` (``parallel/step.py``: the update kernels on the
+  card), on one device or data-parallel over a ``torch.distributed``
+  world.
 
 Datasets: seeded synthetic MNIST-shaped blobs; weights come from the
 ``prng`` streams (or from ``units/nn_units.py load_forward_params``).
-``build_fused`` has the reference's signature; the options the port's
-step does not take yet (mesh sharding, ZeRO, quantized collectives,
-anatomy) raise ``NotImplementedError`` when passed as not-default.
-Gradient accumulation, EMA and ``pipeline_depth`` (the input pipeline
-with the step's stager) run as the reference's do; on the card every
-step is a CUDA graph replay.
+``build_fused`` has the reference's signature and passes ``mesh``,
+``shard_update``, ``shard_params`` and ``quantized_collectives``
+through to the step; ``anatomy`` raises ``NotImplementedError`` (item
+14).  Gradient accumulation, EMA and ``pipeline_depth`` (the input
+pipeline with the step's stager) run as the reference's do; on the card
+every step is a CUDA graph replay.
 """
 
 from __future__ import annotations

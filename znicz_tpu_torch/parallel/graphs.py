@@ -9,8 +9,8 @@ it into a ``torch.cuda.CUDAGraph`` at its second and replays the capture
 at once, and replays it at every later call after copying the inputs
 into the graph's static buffers.  A body that cannot be captured raises
 with the reason; nothing falls back to eager launches.  A replay runs
-no kernel wrapper, so each kernel counter's launches at capture are
-added back on every replay.
+no kernel wrapper, so each kernel counter's launches at capture (and
+the mesh's collective count) are added back on every replay.
 """
 
 from __future__ import annotations
@@ -22,10 +22,11 @@ import torch
 
 def _kernel_counters() -> list:
     """``(module, name)`` of every launch counter of the loaded kernel
-    wrappers (``kernels/*.py``: the ints whose names end in
-    ``launches``)."""
+    wrappers (``kernels/*.py``) and of the mesh's collectives
+    (``parallel/mesh.py``): the ints whose names end in ``launches``."""
     return [(mod, attr) for name, mod in list(sys.modules.items())
-            if name.startswith("znicz_tpu_torch.kernels.") and mod is not None
+            if (name.startswith("znicz_tpu_torch.kernels.") or
+                name == "znicz_tpu_torch.parallel.mesh") and mod is not None
             for attr, v in vars(mod).items()
             if attr.endswith("launches") and type(v) is int]
 

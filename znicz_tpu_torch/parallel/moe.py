@@ -12,7 +12,7 @@ one device.
   regularizers, in f32 whatever the compute dtype.
 - :func:`moe_ffn_dispatch`, the token-sharded all-to-all regime, needs
   an expert axis across devices: it raises until ROADMAP.md queue A
-  item 10 brings the multi-GPU axes.
+  item 10b brings the transformer's multi-GPU axes.
 """
 
 from __future__ import annotations
@@ -73,5 +73,5 @@ def moe_ffn_dispatch(*_args, **_kwargs):
     across devices, which the port does not have yet."""
     raise NotImplementedError(
         "moe_ffn_dispatch needs an expert axis across devices: not ported "
-        "yet (ROADMAP.md queue A item 10, multi-GPU axes); on one device "
+        "yet (ROADMAP.md queue A item 10b, multi-GPU axes); on one device "
         "use moe_ffn")

@@ -1,5 +1,5 @@
-"""FusedTrainStep — the port of ``znicz_tpu/parallel/step.py`` on one
-device.
+"""FusedTrainStep — the port of ``znicz_tpu/parallel/step.py``, on one
+device or data-parallel over a ``torch.distributed`` world.
 
 One Unit replaces the accelerated segment of an NN workflow (forwards ->
 evaluator -> gradient updates): Repeater -> Loader -> FusedTrainStep ->
@@ -72,10 +72,37 @@ not pinned) from pinned ring slots to the card on a side stream, and
 on the staging event; a graph's static inputs then take a device-to-
 device copy and no host copy.
 
-Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md queue
-A): a mesh over more than one device, ``shard_update``,
-``shard_params``, ``quantized_collectives``, ``anatomy`` and
-``donate=False``.
+Data parallel (ROADMAP.md queue A item 10a).  The reference is one
+process driving N devices through ``shard_map``; the port runs one
+process per device over a ``torch.distributed`` world, its place in it a
+:class:`~znicz_tpu_torch.parallel.mesh.DataMesh` (``mesh=None``: the
+whole world, or a mesh of one outside any world).  Every rank runs the
+same seeded loader and serves the same global minibatch; rank r takes
+its contiguous rows ``[r·b/n, (r+1)·b/n)`` (those ``P("data")`` gives
+device r) and a minibatch n does not divide raises at initialize.  Each
+rank runs autograd over its rows; the summed gradients go through one
+all-reduce of their concatenation (with ``quantized_collectives``,
+``qcomm.psum_tree``'s quantize -> all-gather -> dequantize -> f32 sum
+in rank order, and the error-feedback residuals ``rw``/``rb`` carried
+per rank), and the metric sums and ``bs`` through one exact all-reduce,
+so the Decision runs the same on every rank.  The layouts are the
+reference's: replicated; ``shard_update`` (ZeRO-1: the optimizer state
+lives as flat 1/n shards, each rank updates its slice of every leaf and
+the slices are all-gathered back); ``shard_params`` (the weights and
+EMA mirrors live as flat shards too, regathered leaf by leaf before
+each forward: pure data movement, so it is bit-identical to
+``shard_update``).  On the card the collectives run inside the step's
+CUDA graphs (an NCCL group is required; the group is warmed by one
+eager collective on the step's stream at initialize); on the CPU the
+group is gloo.  Each rank's generator is its own stream (rank 0 keeps
+the one minted at initialize, so a world of one draws what an ungrouped
+step draws).  Snapshots hold param-shaped arrays whatever the layout:
+the state is gathered to every rank before a write, and each rank takes
+its slice at a restore, at any world size.
+
+Not ported: ``anatomy`` (item 14) raises ``NotImplementedError``;
+``donate=False`` raises ``ValueError`` (PyTorch has no donation: the
+update always runs in place on the master params).
 """
 
 from __future__ import annotations
@@ -90,6 +117,9 @@ from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core.units import Unit
 from znicz_tpu_torch.kernels import optim as koptim
 from znicz_tpu_torch.loader.base import TRAIN
+from znicz_tpu_torch.observe import probe as _probe
+from znicz_tpu_torch.parallel import mesh as _mesh
+from znicz_tpu_torch.parallel import qcomm, zero
 from znicz_tpu_torch.parallel.graphs import run_graphed
 from znicz_tpu_torch.pipeline import (ready_on_current_stream,
                                       ring_safe_stager)
@@ -117,10 +147,9 @@ def full_batch_arrays(loader, mse: bool):
     return data_arr, labels_arr, None
 
 
-def _not_ported(what: str):
+def _not_ported(what: str, item: str):
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue A, the fused step's "
-        f"leftovers); the port's fused step runs on one device")
+        f"{what} is not ported yet (ROADMAP.md queue A item {item})")
 
 
 def _fold(acc: Optional[dict], metrics: dict) -> dict:
@@ -176,21 +205,26 @@ class FusedTrainStep(Unit):
             raise ValueError(
                 "state_dtype applies to the SGD momentum buffers only "
                 "(adam moments need f32 second-moment accumulation)")
-        sizes = dict(getattr(mesh, "shape", mesh) or {})
-        if any(int(n) != 1 for n in sizes.values()):
-            raise _not_ported(f"a mesh over more than one device ({sizes})")
-        refused = {"donate=False": not donate,
-                   "shard_update": shard_update,
-                   "shard_params": shard_params,
-                   "anatomy": anatomy if anatomy is not None
-                   else root.common.engine.get("step_anatomy", False)}
-        qc = quantized_collectives if quantized_collectives is not None \
-            else root.common.engine.get("quantized_collectives", None)
-        refused["quantized_collectives"] = bool(qc) and \
-            dict(qc).get("mode", "off") != "off"
-        for what, on in refused.items():
-            if on:
-                raise _not_ported(what)
+        if not donate:
+            raise ValueError(
+                "donate=False has no counterpart: PyTorch has no buffer "
+                "donation, and the port's update always runs in place on "
+                "the master params")
+        if anatomy if anatomy is not None else \
+                root.common.engine.get("step_anatomy", False):
+            raise _not_ported("anatomy (the split-dispatch step accounting)",
+                              "14")
+        #: the data mesh (resolved at initialize: None is the whole world)
+        self.mesh = mesh
+        #: the weights (and EMA mirrors) live as flat 1/n shards between
+        #: steps, regathered before each forward; implies shard_update
+        self.shard_params = bool(shard_params)
+        #: the optimizer state lives as flat 1/n shards; each rank
+        #: updates its slice and the slices are all-gathered back
+        self.shard_update = bool(shard_update) or self.shard_params
+        #: the codec config of the gradient sum and the shard_params
+        #: regather (None: root.common.engine.quantized_collectives)
+        self.quantized_collectives = quantized_collectives
         #: global-norm gradient clipping of the batch-mean gradient
         self.clip_norm = clip_norm
         #: apply the summed gradients every N train minibatches (and at
@@ -233,6 +267,15 @@ class FusedTrainStep(Unit):
         self._scan_in_flight = False  # the class pass ran from its plan
         self._conf_seen = None    # confusion sums already folded this pass
         self._nt_valid = None     # nearest-target recovery proven valid?
+        self._codec = None        # resolved qcomm.Codec (None = exact)
+        self._ef = False          # error-feedback residuals rw/rb?
+        self._gather_via_psum = False   # the shard_params regather form
+        self._zero_gather_nbytes = 0    # bytes gathered a dispatch
+        self._zero_gather_counter = None
+        self._qcomm_grad_bytes = None   # (wire, exact) a train step
+        self._qcomm_gather_bytes = None  # (wire, exact) a dispatch
+        self._qcomm_grad_counters = None
+        self._qcomm_gather_counters = None
         # metrics the Decision links to (mirrors the evaluator's attrs)
         self.n_err = 0
         self.mse = 0.0
@@ -242,36 +285,75 @@ class FusedTrainStep(Unit):
         self.minibatch_size = 0
 
     # -- parameters -----------------------------------------------------------
+    #: leaf keys holding optimizer state (flat-sharded under shard_update)
+    OPT_STATE_KEYS = ("vw", "vb", "sw", "sb")
+
     def _put(self, host, dtype=torch.float32) -> torch.Tensor:
         """A device copy of a host array (never a view of it)."""
         return torch.tensor(np.asarray(host), dtype=dtype, device=self._dev)
 
+    def _flat_shard_put(self, host, dtype=torch.float32) -> torch.Tensor:
+        """This rank's flat slice of a host array, zero-padded to the
+        mesh's multiple (the ZeRO layout of ``zero.pad_slice``), on the
+        device."""
+        part = zero.pad_slice(torch.from_numpy(np.asarray(host, np.float32)),
+                              self.mesh.rank, self.mesh.size)
+        return part.to(dtype=dtype, device=self._dev, copy=True)
+
+    def _leaf_sharded(self, k: str) -> bool:
+        """Does leaf key ``k`` live as a flat shard?  The one layout
+        decision of gather_params, extra_state_arrays, load_extra_state
+        and sync_to_units.  (The error-feedback residuals ``rw``/``rb``
+        are rank-local and param-shaped: the reference's slab row.)"""
+        if k in self.OPT_STATE_KEYS:
+            return self.shard_update
+        if k in ("w", "b", "ew", "eb"):
+            return self.shard_params
+        return False
+
+    def _param_shape(self, i: int, key: str) -> tuple:
+        fwd = self.forwards[i]
+        return tuple((fwd.weights if key.endswith("w") else fwd.bias).shape)
+
+    def _unshard(self, shard: torch.Tensor, shape) -> torch.Tensor:
+        """A flat shard's full param-shaped tensor on every rank (one
+        all-gather: every rank must call it)."""
+        return zero.all_gather_slices(shard, self.mesh, shape).clone()
+
     def gather_params(self) -> list:
         """The params from the unit Arrays: per layer a dict of f32
         master ``w``/``b``, momentum ``vw``/``vb`` (in ``state_dtype``),
-        and for adam the second moments ``sw``/``sb`` and the step count
-        ``t`` (a 0-d device leaf)."""
+        for adam the second moments ``sw``/``sb`` and the step count
+        ``t`` (a 0-d device leaf), the EMA mirrors ``ew``/``eb``, and
+        under error feedback the rank's residuals ``rw``/``rb``; each
+        leaf in its layout (``_leaf_sharded``)."""
         vdt = self.state_dtype or torch.float32
+        put_w = self._flat_shard_put if self.shard_params else self._put
+        put_v = self._flat_shard_put if self.shard_update else self._put
         params = []
-        for fwd, gd in zip(self.forwards, self.gds):
-            leaf = {k: self._put(arr.map_read())
+        for i, (fwd, gd) in enumerate(zip(self.forwards, self.gds)):
+            leaf = {k: put_w(arr.map_read())
                     for k, arr in fwd.param_arrays().items()}
             for k, vel in (("w", gd.gradient_weights),
                            ("b", gd.gradient_bias)):
                 if k not in leaf:
                     continue
-                leaf["v" + k] = self._put(
-                    vel.map_read() if vel else np.zeros(leaf[k].shape),
-                    vdt)
+                shape = self._param_shape(i, k)
+                leaf["v" + k] = put_v(
+                    vel.map_read() if vel else np.zeros(shape), vdt)
                 if self.optimizer == "adam":
-                    leaf["s" + k] = torch.zeros_like(leaf[k])
+                    leaf["s" + k] = put_v(np.zeros(shape))
             if self.optimizer == "adam":
                 leaf["t"] = torch.zeros((), device=self._dev)
-            if self.ema_decay is not None:
-                # f32 mirrors, seeded with the weights
-                for k in ("w", "b"):
-                    if k in leaf:
-                        leaf["e" + k] = leaf[k].clone()
+            for k in ("w", "b"):
+                if k not in leaf:
+                    continue
+                if self.ema_decay is not None:
+                    # f32 mirrors, seeded with the weights, in their layout
+                    leaf["e" + k] = leaf[k].clone()
+                if self._ef:
+                    leaf["r" + k] = torch.zeros(self._param_shape(i, k),
+                                                device=self._dev)
             params.append(leaf)
         return params
 
@@ -301,13 +383,19 @@ class FusedTrainStep(Unit):
                          f" bytes) does not fit this step's "
                          f"{self._dev.type} generator ({exc}); keeping "
                          f"the generator minted at initialize")
+            return
+        # the snapshot holds rank 0's generator: the other ranks re-key it
+        self._rank_stream()
 
     def extra_state_arrays(self) -> dict:
         """Optimizer state that has no unit Array home (adam second
-        moments and step count, EMA mirrors) -> host arrays for the
-        snapshotter under the reference's keys (``"{layer}.{key}"``), in
-        the param shape.  Every leaf comes down in one device-to-host
-        copy of their concatenation, not one sync a leaf."""
+        moments and step count, EMA mirrors, error-feedback residuals)
+        -> host arrays for the snapshotter under the reference's keys
+        (``"{layer}.{key}"``), always in the param shape: sharded leaves
+        are all-gathered, and the residuals come as the reference's
+        ``(n, *shape)`` slab of every rank's.  A collective: every rank
+        calls it.  Every leaf comes down in one device-to-host copy of
+        their concatenation, not one sync a leaf."""
         if self._params is None:
             return {}
         keys = []
@@ -315,8 +403,19 @@ class FusedTrainStep(Unit):
             keys += ["sw", "sb", "t"]
         if self.ema_decay is not None:
             keys += ["ew", "eb"]
-        dev = {f"{i}.{k}": leaf[k] for i, leaf in enumerate(self._params)
-               for k in keys if k in leaf}
+        if self._ef:
+            keys += ["rw", "rb"]
+        dev = {}
+        for i, leaf in enumerate(self._params):
+            for k in keys:
+                if k not in leaf:
+                    continue
+                t = leaf[k]
+                if k in ("rw", "rb"):
+                    t = self.mesh.all_gather(t)
+                elif self._leaf_sharded(k):
+                    t = self._unshard(t, self._param_shape(i, k))
+                dev[f"{i}.{k}"] = t
         if not dev:
             return {}
         flat = torch.cat([t.detach().reshape(-1).to(torch.float32)
@@ -330,32 +429,56 @@ class FusedTrainStep(Unit):
 
     def load_extra_state(self, arrays: dict) -> None:
         """Restore ``extra_state_arrays`` output into the step's leaves
-        (after ``place_params`` on resume), in place.  The reference's
-        error-feedback residuals (``rw``/``rb``) belong to quantized
-        collectives, which the port refuses: they are dropped, as the
-        reference drops them in a step without error feedback."""
+        (after ``place_params`` on resume), in place, each rank taking
+        its slice of a sharded leaf.  The residual slab of a snapshot
+        taken at another world size is folded: only the rank sum of the
+        residuals means anything, and it goes onto rank 0.  Residuals
+        restored into a step without error feedback are dropped, as the
+        reference drops them."""
         for key, val in arrays.items():
             i, k = key.split(".", 1)
+            i = int(i)
+            val = np.asarray(val, np.float32)
             if k in ("rw", "rb"):
-                continue
-            leaf = self._params[int(i)]
+                if not self._ef:
+                    continue
+                n = self.mesh.size
+                if val.shape[0] != n:
+                    folded = np.zeros((n,) + val.shape[1:], np.float32)
+                    folded[0] = val.sum(axis=0)
+                    val = folded
+                val = val[self.mesh.rank]
+            leaf = self._params[i]
             if k not in leaf:
                 raise ValueError(f"snapshot optimizer state {key!r} has no "
                                  f"leaf in this step")
-            val = np.asarray(val, np.float32)
-            if tuple(val.shape) != tuple(leaf[k].shape):
+            want = self._param_shape(i, k) if self._leaf_sharded(k) or \
+                k in ("rw", "rb") else tuple(leaf[k].shape)
+            if tuple(val.shape) != want:
                 raise ValueError(f"{key}: snapshot shape {val.shape} != "
-                                 f"step shape {tuple(leaf[k].shape)}")
-            leaf[k].copy_(torch.from_numpy(val))
+                                 f"step shape {want}")
+            if self._leaf_sharded(k):
+                leaf[k].copy_(self._flat_shard_put(val))
+            else:
+                leaf[k].copy_(torch.from_numpy(val))
 
     def ema_params(self) -> list:
         """Host copies of the averaged weights: a ``{"w": ..., "b": ...}``
-        dict a layer, in unit order."""
+        dict a layer, in unit order (regathered from their shards under
+        shard_params: every rank calls it)."""
         if self.ema_decay is None:
             raise RuntimeError("ema_decay is not enabled on this step")
-        return [{k[1]: leaf[k].detach().cpu().numpy().copy()
-                 for k in ("ew", "eb") if k in leaf}
-                for leaf in self._params]
+        out = []
+        for i, leaf in enumerate(self._params):
+            layer = {}
+            for k in ("ew", "eb"):
+                if k in leaf:
+                    t = leaf[k]
+                    if self._leaf_sharded(k):
+                        t = self._unshard(t, self._param_shape(i, k))
+                    layer[k[1]] = t.detach().cpu().numpy().copy()
+            out.append(layer)
+        return out
 
     def hyper_params(self) -> list:
         """Per-layer hyperparams as host floats, read from the gd units."""
@@ -390,14 +513,108 @@ class FusedTrainStep(Unit):
 
     def sync_to_units(self) -> None:
         """Write copies of the device params back into the unit Arrays
-        (snapshot / inspection path; the hot loop never does this)."""
-        for fwd, gd, leaf in zip(self.forwards, self.gds, self._params):
+        (snapshot / inspection path; the hot loop never does this),
+        regathering sharded leaves to the param shape: every rank calls
+        it."""
+        for i, (fwd, gd, leaf) in enumerate(
+                zip(self.forwards, self.gds, self._params)):
             for k, arr, vel in (("w", fwd.weights, gd.gradient_weights),
                                 ("b", fwd.bias, gd.gradient_bias)):
+                if k not in leaf:
+                    continue
+                shape = self._param_shape(i, k)
+                w, v = leaf[k], leaf["v" + k]
+                if self._leaf_sharded(k):
+                    w = self._unshard(w, shape)
+                if self._leaf_sharded("v" + k):
+                    v = self._unshard(v, shape)
+                arr.set_devmem(w.detach().clone())
+                vel.set_devmem(v.to(torch.float32, copy=True))
+
+    # -- accounting (the reference's znicz_zero_* and qcomm families) ---------
+    def _account_zero_memory(self) -> None:
+        """Per-rank persistent-state bytes into ``znicz_zero_param_bytes``
+        and ``znicz_zero_opt_state_bytes`` (a shard counts its own bytes,
+        padding included), the bytes a ``shard_params`` dispatch gathers,
+        and the codec's figures."""
+        n = self.mesh.size
+        param_b = opt_b = gather_b = 0
+        for leaf in self._params:
+            for k, v in leaf.items():
+                nb = v.numel() * v.element_size()
+                if k in ("w", "b"):
+                    param_b += nb
+                    if self.shard_params:
+                        gather_b += nb * n
+                else:
+                    opt_b += nb
+        self._zero_gather_nbytes = gather_b
+        _probe.zero_memory(self.name, param_b, opt_b)
+        self._zero_gather_counter = _probe.zero_gather_counter(self.name)
+        self._account_qcomm()
+
+    def _account_qcomm(self) -> None:
+        """Static wire and exact bytes of the quantized collectives: the
+        gradient sum a train step, and the shard_params regather a
+        dispatch, with the compression-ratio gauges."""
+        if self._codec is None:
+            return
+        n = self.mesh.size
+        grad_wire = grad_exact = zg_wire = zg_exact = 0
+        for i, leaf in enumerate(self._params):
+            for k in ("w", "b"):
+                if k not in leaf:
+                    continue
+                size = int(np.prod(self._param_shape(i, k)))
+                grad_wire += qcomm.wire_nbytes(self._codec, size)
+                grad_exact += qcomm.exact_nbytes(size)
+                if self.shard_params:
+                    padded = zero.shard_len(size, n) * n
+                    zg_wire += n * qcomm.wire_nbytes(self._codec,
+                                                     padded // n)
+                    zg_exact += qcomm.exact_nbytes(padded)
+        self._qcomm_grad_bytes = (grad_wire, grad_exact)
+        self._qcomm_grad_counters = _probe.qcomm_counters(self.name,
+                                                          "grad_psum")
+        _probe.qcomm_ratio(self.name, "grad_psum", grad_wire, grad_exact)
+        if self.shard_params:
+            self._qcomm_gather_bytes = (zg_wire, zg_exact)
+            self._qcomm_gather_counters = _probe.qcomm_counters(
+                self.name, "zero_gather")
+            _probe.qcomm_ratio(self.name, "zero_gather", zg_wire, zg_exact)
+
+    def _note_gathered(self, n_steps: int = 1) -> None:
+        """Count ``n_steps`` dispatches' regathers under shard_params."""
+        if not _probe.enabled():
+            return
+        if self._zero_gather_nbytes:
+            self._zero_gather_counter.inc(
+                float(self._zero_gather_nbytes) * n_steps)
+        if self._qcomm_gather_bytes:
+            for c, nb in zip(self._qcomm_gather_counters,
+                             self._qcomm_gather_bytes):
+                c.inc(float(nb) * n_steps)
+
+    def _note_qcomm_grads(self, n_steps: int = 1) -> None:
+        """Count ``n_steps`` train dispatches' quantized gradient sums."""
+        if self._qcomm_grad_bytes and _probe.enabled():
+            for c, nb in zip(self._qcomm_grad_counters,
+                             self._qcomm_grad_bytes):
+                c.inc(float(nb) * n_steps)
+
+    def _publish_residual_norm(self) -> None:
+        """The L2 norm of every rank's error-feedback residuals into
+        ``znicz_qcomm_residual_norm`` (class-pass cadence; a collective,
+        taken on every rank alike)."""
+        if not self._ef or not _probe.enabled():
+            return
+        sq = torch.zeros(1, device=self._dev)
+        for leaf in self._params:
+            for k in ("rw", "rb"):
                 if k in leaf:
-                    arr.set_devmem(leaf[k].detach().clone())
-                    vel.set_devmem(leaf["v" + k].to(torch.float32,
-                                                    copy=True))
+                    sq += torch.sum(torch.square(leaf[k]))
+        _probe.qcomm_residual_norm(
+            self.name, float(torch.sqrt(self.mesh.all_reduce_(sq))))
 
     # -- forward / loss composition -----------------------------------------
     def _forward_chain(self, params, x, train: bool, rng=None):
@@ -491,17 +708,66 @@ class FusedTrainStep(Unit):
         raise TypeError(f"unsupported evaluator {type(self.evaluator)}")
 
     # -- the step bodies -----------------------------------------------------
+    def _trainable(self) -> list:
+        """Per layer ``{"w", "b"}`` in the param shape for the forward:
+        the master leaves, or under shard_params their regather (one
+        all-gather a leaf, in the order the forward uses them)."""
+        if not self.shard_params:
+            return [{k: leaf[k] for k in ("w", "b") if k in leaf}
+                    for leaf in self._params]
+        sites = [(i, k) for i, leaf in enumerate(self._params)
+                 for k in ("w", "b") if k in leaf]
+        full = zero.gather_chain(
+            [self._params[i][k] for i, k in sites],
+            [self._param_shape(i, k) for i, k in sites], self.mesh,
+            via_psum=self._gather_via_psum, codec=self._codec)
+        out = [{} for _ in self._params]
+        for (i, k), v in zip(sites, full):
+            out[i][k] = v
+        return out
+
+    def _sum_metrics(self, metrics: dict) -> dict:
+        """The metric sums over the mesh, exactly: one all-reduce of
+        their f32 concatenation (counts below 2^24 stay exact), each
+        cast back to its dtype.  Unchanged without a group."""
+        if self.mesh.group is None:
+            return metrics
+        keys = list(metrics)
+        flat = self.mesh.all_reduce_(torch.cat(
+            [metrics[k].reshape(-1).to(torch.float32) for k in keys]))
+        out, at = {}, 0
+        for k in keys:
+            v = metrics[k]
+            out[k] = flat[at:at + v.numel()].reshape(v.shape).to(v.dtype)
+            at += v.numel()
+        return out
+
+    def _sum_grads(self, grads: list) -> list:
+        """The gradient sums over the mesh through the codec seam: one
+        exact all-reduce, or the quantized sum with the rank's
+        error-feedback residuals carried into their leaves in place."""
+        residuals = None
+        if self._ef:
+            residuals = [{k: self._params[i]["r" + k] for k in g}
+                         for i, g in enumerate(grads)]
+        grads, new_res = qcomm.quantized_psum(grads, self.mesh, self._codec,
+                                              residuals)
+        if new_res is not None:
+            for res, new in zip(residuals, new_res):
+                for k, v in new.items():
+                    res[k].copy_(v)
+        return grads
+
     def _grads_and_metrics(self, x, labels, mask):
-        """Forward and autograd backward of one minibatch -> ``(grads,
-        metrics)``: the summed gradients a layer and the metric sums
-        (device tensors), ``bs`` the mask's sum."""
-        params = self._params
-        leaves = [leaf[k] for leaf in params for k in ("w", "b")
-                  if k in leaf]
+        """Forward and autograd backward of this rank's rows -> ``(grads,
+        metrics)``: the gradients summed over the mesh a layer and the
+        metric sums (device tensors), ``bs`` the masks' sum."""
+        trainable = self._trainable()
+        leaves = [t for leaf in trainable for t in leaf.values()]
         for t in leaves:
             t.requires_grad_(True)
         try:
-            out, logits_tail = self._forward_chain(params, x, train=True,
+            out, logits_tail = self._forward_chain(trainable, x, train=True,
                                                    rng=self._gen)
             loss, metrics = self._loss_and_metrics(out, logits_tail,
                                                    labels, mask)
@@ -509,11 +775,10 @@ class FusedTrainStep(Unit):
         finally:
             for t in leaves:
                 t.requires_grad_(False)
-        grads = [{k: next(flat) for k in ("w", "b") if k in leaf}
-                 for leaf in params]
+        grads = [{k: next(flat) for k in leaf} for leaf in trainable]
         metrics["loss"] = loss.detach()
         metrics["bs"] = mask.sum()
-        return grads, metrics
+        return self._sum_grads(grads), self._sum_metrics(metrics)
 
     def _train_step(self, x, labels, mask) -> dict:
         """One minibatch: forward, autograd backward, in-place update.
@@ -531,12 +796,12 @@ class FusedTrainStep(Unit):
 
     def _eval_step(self, x, labels, mask) -> dict:
         with torch.no_grad():
-            out, logits_tail = self._forward_chain(self._params, x,
+            out, logits_tail = self._forward_chain(self._trainable(), x,
                                                    train=False)
             _, metrics = self._loss_and_metrics(out, logits_tail, labels,
                                                 mask)
         metrics["bs"] = mask.sum()
-        return metrics
+        return self._sum_metrics(metrics)
 
     def _batch(self, raw, x=None, labels=None) -> tuple:
         """``(x, labels, mask)`` of a minibatch from its raw indices (-1
@@ -558,8 +823,23 @@ class FusedTrainStep(Unit):
     def _grads_batch(self, *inputs) -> dict:
         return self._grads_step(*self._batch(*inputs))
 
+    def _local_rows(self, t):
+        """This rank's contiguous rows of a global minibatch input (a
+        tensor or a host array: the host paths cut before the copy, so
+        a rank uploads only its own rows)."""
+        n = self.mesh.size
+        if n == 1:
+            return t
+        b = int(t.shape[0])
+        if b % n:
+            raise ValueError(f"minibatch {b} not divisible by data-mesh "
+                             f"size {n}")
+        rows = b // n
+        return t[self.mesh.rank * rows:(self.mesh.rank + 1) * rows]
+
     def _dispatch(self, kind: str, body, *inputs):
-        """``body(*inputs)`` on the step's device.  On the CPU the body
+        """``body(*inputs)`` on the step's device, where ``inputs`` are
+        already this rank's rows (``_local_rows``).  On the CPU the body
         runs eagerly; on the card through :func:`run_graphed`, one graph
         a ``(kind, input shapes)``."""
         self._hyper_device()      # an LR change lands in the buffer first
@@ -572,9 +852,24 @@ class FusedTrainStep(Unit):
                            inputs, self._dev, self._stream,
                            self._gen if needs_rng else None)
 
+    def _update_operands(self, leaf, grad, k) -> tuple:
+        """``(w, g)`` the update kernels take for leaf key ``k``: whole
+        leaves when replicated; under shard_update this rank's flat
+        slices (the weight's own shard under shard_params)."""
+        if not self.shard_update:
+            return leaf[k], grad[k].contiguous()
+        n, rank = self.mesh.size, self.mesh.rank
+        g = zero.pad_slice(grad[k], rank, n)
+        w = leaf[k] if self.shard_params else \
+            zero.pad_slice(leaf[k], rank, n)
+        return w, g
+
     def _apply_update(self, params, grads, hyper, bs) -> None:
         """One optimizer step, in place, for summed gradients ``grads``
-        over ``bs`` samples (a device scalar), on the update kernels."""
+        over ``bs`` samples (a device scalar), on the update kernels: on
+        whole leaves, or under shard_update on this rank's slices, which
+        are then all-gathered back into the replicated weights (under
+        shard_params the updated slice is the weight's layout)."""
         if self.clip_norm is not None:
             # clip the batch-mean gradient's GLOBAL norm across layers;
             # scaling the sums by the same factor is equivalent
@@ -584,28 +879,36 @@ class FusedTrainStep(Unit):
                 torch.sqrt(sq), min=1e-12), max=1.0)
             grads = [{k: v * scale for k, v in leaf.items()}
                      for leaf in grads]
+        updated = []              # (leaf, k, the updated w operand)
         if self.optimizer == "adam":
-            # every leaf of the step, w and b of each layer, in one call
+            # every leaf (or shard) of the step, w and b of each layer, in
+            # one call
             b1, b2, eps = self._adam_consts
             leaves = []
             for leaf, grad, h in zip(params, grads, hyper):
                 leaf["t"].add_(1.0)
                 # bias corrections on the device, outside the kernel
                 c1, c2 = 1.0 - b1 ** leaf["t"], 1.0 - b2 ** leaf["t"]
-                leaves += [(leaf[k], grad[k].contiguous(), leaf["v" + k],
-                            leaf["s" + k], h[lr], h[wd], c1, c2)
-                           for k, lr, wd in (("w", "lr", "wd"),
-                                             ("b", "lr_b", "wd_b"))
-                           if k in leaf]
+                for k, lr, wd in (("w", "lr", "wd"), ("b", "lr_b", "wd_b")):
+                    if k in leaf:
+                        w, g = self._update_operands(leaf, grad, k)
+                        leaves.append((w, g, leaf["v" + k], leaf["s" + k],
+                                       h[lr], h[wd], c1, c2))
+                        updated.append((leaf, k, w))
             koptim.adam_update_multi_(leaves, b1, b2, eps, bs)
         else:
             for leaf, grad, h in zip(params, grads, hyper):
                 for k, lr, wd, mom in (("w", "lr", "wd", "mom"),
                                        ("b", "lr_b", "wd_b", "mom_b")):
                     if k in leaf:
-                        koptim.sgd_update_(leaf[k], grad[k].contiguous(),
-                                           leaf["v" + k], h[lr], h[wd],
-                                           h["l1"], h[mom], bs)
+                        w, g = self._update_operands(leaf, grad, k)
+                        koptim.sgd_update_(w, g, leaf["v" + k], h[lr],
+                                           h[wd], h["l1"], h[mom], bs)
+                        updated.append((leaf, k, w))
+        if self.shard_update and not self.shard_params:
+            # the post-update regather: pure data movement
+            for leaf, k, w in updated:
+                leaf[k].copy_(zero.all_gather_slices(w, self.mesh, leaf[k]))
         if self.ema_decay is not None:
             # the reference's order: d * e + (1 - d) * w, each product
             # rounded to f32, with d and 1 - d as f32 constants
@@ -636,13 +939,31 @@ class FusedTrainStep(Unit):
         self._dev = device.torch_device \
             if isinstance(device, backends.TorchDevice) else \
             backends.device(None)
+        self.mesh = _mesh.resolve(self.mesh)
+        _mesh.check_backend(self.mesh, self._dev)
+        n_data = self.mesh.size
+        if self.loader is not None and \
+                int(self.loader.max_minibatch_size) % n_data != 0:
+            raise ValueError(
+                f"minibatch {self.loader.max_minibatch_size} not divisible "
+                f"by data-mesh size {n_data}")
         if self.compute_dtype is None:
             self.compute_dtype = getattr(device, "compute_dtype", None) or \
                 backends.resolve_compute_dtype(self._dev.type)
+        # the regather's form and the codec, before gather_params: the
+        # residual leaves must exist in the params
+        self._gather_via_psum = bool(root.common.engine.get(
+            "zero_gather_via_psum", False))
+        self._codec = qcomm.resolve(self.quantized_collectives)
+        self._ef = self._codec is not None and self._codec.error_feedback
         self._params = self.gather_params()
+        self._account_zero_memory()
         # one generator for every train step's draws, minted whether or
-        # not a forward draws, as the reference mints its key
+        # not a forward draws, as the reference mints its key; a stream
+        # of its own on every rank but 0, as the reference folds the rank
+        # into each step's key
         self._gen = prng.get().key(self._dev)
+        self._rank_stream()
         if self.optimizer == "adam":
             cfg = self.optimizer_config
             self._adam_consts = tuple(
@@ -656,8 +977,33 @@ class FusedTrainStep(Unit):
             self._graphs = {}
             self._stream = torch.cuda.Stream(self._dev)
             self._h2d_stream = torch.cuda.Stream(self._dev)
+            if self.mesh.group is not None:
+                # one eager collective on the step's stream: the group's
+                # communicator exists before the first capture
+                self._stream.wait_stream(torch.cuda.current_stream(self._dev))
+                with torch.cuda.stream(self._stream):
+                    self.mesh.all_reduce_(torch.zeros(1, device=self._dev))
+                torch.cuda.current_stream(self._dev).wait_stream(self._stream)
         self._pin_dataset()
         self.initialized = True
+
+    def _rank_stream(self) -> None:
+        """Re-key the step's generator for this rank (rank 0 keeps it):
+        a seed derived from its seed and the rank, at its offset where the
+        generator has one (a CUDA generator: every rank draws as much a
+        step, so a restored offset is every rank's)."""
+        rank = self.mesh.rank
+        if rank == 0:
+            return
+        gen = self._gen
+        try:
+            offset = gen.get_offset()
+        except RuntimeError:          # a CPU generator has none
+            offset = None
+        gen.manual_seed(int(np.random.SeedSequence(
+            (gen.initial_seed(), rank)).generate_state(1, np.uint64)[0]))
+        if offset is not None:
+            gen.set_offset(offset)
 
     def _pin_dataset(self) -> None:
         """Place a full-batch dataset on the device so the hot loop ships
@@ -710,7 +1056,10 @@ class FusedTrainStep(Unit):
         total = None
         for k in range(int(xs.shape[0])):
             total = _fold(total, self._dispatch(
-                "steps", self._train_step, xs[k], ys[k], masks[k]))
+                "steps", self._train_step,
+                *(self._local_rows(t) for t in (xs[k], ys[k], masks[k]))))
+        self._note_gathered(int(xs.shape[0]))
+        self._note_qcomm_grads(int(xs.shape[0]))
         return total
 
     # -- input-pipeline staging ---------------------------------------------
@@ -756,6 +1105,7 @@ class FusedTrainStep(Unit):
                 y = arrays["targets" if isinstance(
                     self.evaluator, EvaluatorMSE) else "labels"]
                 host += (arrays["data"], y)
+            host = tuple(self._local_rows(a) for a in host)
             inputs, event = ring_safe_stager(put, self._dev,
                                              self._h2d_stream)(*host)
             return ({"inputs": inputs, "event": event},
@@ -788,8 +1138,10 @@ class FusedTrainStep(Unit):
         elif self.accumulate_steps > 1:
             metrics = self._accumulate(
                 self._dispatch("grads", self._grads_batch, *inputs), loader)
+            self._note_qcomm_grads()
         else:
             metrics = self._dispatch("train", self._train_batch, *inputs)
+            self._note_qcomm_grads()
         self._finish_run(loader, metrics)
 
     def _host_inputs(self, loader) -> tuple:
@@ -797,14 +1149,16 @@ class FusedTrainStep(Unit):
         host arrays: one upload a step of the raw indices (-1 = padding;
         the mask and the clamped gather indices are made on the device),
         plus the f32 rows and the labels or targets when the data set is
-        not pinned."""
-        inputs = (torch.from_numpy(np.asarray(loader.minibatch_indices.mem)),)
+        not pinned; each cut to this rank's rows before the upload."""
+        def rows(arr):
+            return self._local_rows(np.asarray(arr.mem))
+        inputs = (torch.from_numpy(rows(loader.minibatch_indices)),)
         if self._dataset_dev is None:
             lab = loader.minibatch_targets if isinstance(
                 self.evaluator, EvaluatorMSE) else loader.minibatch_labels
-            inputs += (torch.as_tensor(np.asarray(loader.minibatch_data.mem),
+            inputs += (torch.as_tensor(rows(loader.minibatch_data),
                                        dtype=torch.float32),
-                       torch.from_numpy(np.asarray(lab.mem)))
+                       torch.from_numpy(rows(lab)))
         return inputs
 
     def _accumulate(self, half: dict, loader) -> dict:
@@ -850,7 +1204,11 @@ class FusedTrainStep(Unit):
                 else ("eval", self._eval_batch)
             acc = None
             for row in plan:
-                acc = _fold(acc, self._dispatch(kind, body, row))
+                acc = _fold(acc, self._dispatch(kind, body,
+                                                self._local_rows(row)))
+            if kind == "train":
+                self._note_qcomm_grads(int(plan.shape[0]))
+            self._note_gathered(int(plan.shape[0]))
             self._acc = acc
             self._scan_in_flight = True
         if loader.last_minibatch:
@@ -858,10 +1216,16 @@ class FusedTrainStep(Unit):
             self._acc = None
             self._conf_seen = None
             self._scan_in_flight = False
+            self._publish_residual_norm()
         else:
             self._zero_published()
 
     def _finish_run(self, loader, metrics) -> None:
+        # one dispatch (train, half-step or eval) = one regather under
+        # shard_params
+        self._note_gathered()
+        if loader.last_minibatch:
+            self._publish_residual_norm()
         # chaos hook (site "step.params"): NaN-poisons the params — the
         # observable effect of NaN gradients — in place, since the
         # captured graphs read these tensors

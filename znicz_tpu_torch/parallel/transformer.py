@@ -31,7 +31,7 @@ minibatch.  The CPU runs them eagerly.
 What the reference has and the port does not yet (each raises
 ``NotImplementedError``; ROADMAP.md queue A): meshes with an axis above
 1 (data, sequence, tensor and expert parallelism), ``shard_update``,
-``shard_params``, ``head_sharded`` and quantized collectives (item 10),
+``shard_params``, ``head_sharded`` and quantized collectives (item 10b),
 and ``anatomy`` (item 14).
 """
 
@@ -321,11 +321,11 @@ def _refuse(mesh, **options) -> None:
     if wide:
         raise NotImplementedError(
             f"mesh axes {wide}: data, sequence, tensor and expert "
-            f"parallelism are not ported yet (ROADMAP.md queue A item 10, "
+            f"parallelism are not ported yet (ROADMAP.md queue A item 10b, "
             f"multi-GPU axes); the port trains on one device")
     for name, value in options.items():
         if value:
-            item = "14" if name == "anatomy" else "10"
+            item = "14" if name == "anatomy" else "10b"
             raise NotImplementedError(
                 f"{name}={value!r} is not ported yet (ROADMAP.md queue A "
                 f"item {item})")

@@ -21,6 +21,12 @@ by the JAX package) restores everything else identically and keeps the
 generator the step minted at initialize, with a logged warning: no
 torch generator draws the key's bits.
 
+In a data-parallel world (``launcher.multihost``) every rank collects
+the state, since the fused step gathers its sharded leaves to the param
+shape by collectives; rank 0 alone writes, and the other ranks verify
+the published file.  Every rank restores from the same file and takes
+its own slice, at any world size.
+
 Exactness contract (pinned by tests/test_torch_port_snapshotter.py):
 resume from the epoch-N snapshot and the metric history of epochs N+1..
 is bit-identical to an uninterrupted run.  A restore into a step whose
@@ -497,16 +503,19 @@ class SnapshotterToFile(SnapshotterBase):
     def export(self) -> None:
         w = self.target_workflow
         rank, world = process_rank_world()
+        t0 = time.perf_counter()
+        # every rank collects: a data-parallel step's sharded state
+        # reaches the param shape through collectives
+        arrays, meta = collect_state(w)
         if rank != 0:
             # rank-0-writes / all-ranks-verify: concurrent writers would
             # race each other into torn files; every other rank instead
             # verifies the published artifact so corruption is caught at
             # save time on some rank, not at restore time after a crash
-            epoch = int(w.loader.epoch_number)
-            self._verify_published(self.snapshot_path(epoch))
+            del arrays
+            self._verify_published(self.snapshot_path(
+                int(meta["loader"]["epoch_number"])))
             return
-        t0 = time.perf_counter()
-        arrays, meta = collect_state(w)
         collected = time.perf_counter()
         epoch = int(meta["loader"]["epoch_number"])
         path = self.snapshot_path(epoch)

@@ -13,7 +13,7 @@ instead (:meth:`TransformerLMStep.make_stager`).
 
 Torch-only, as the reference's is XLA-only: ``numpy_init`` raises.  Not
 ported yet: ``anatomy`` (ROADMAP.md queue A item 14) and the sharded
-options the transformer refuses (item 10).
+options the transformer refuses (item 10b).
 """
 
 from __future__ import annotations
