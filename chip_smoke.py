@@ -36,11 +36,18 @@ exits non-zero without the final ``ok`` line):
    card's occupancy) held against kernels/gemm.py gemm_plan; the twelve
    products timed at full width, each with its tile and slices, and the
    headline in all four operand layouts; registers and resident blocks
-   of every instantiation; ``act_backward`` at AlexNet's strict-ReLU
-   shapes (fc7 and fc6 at batch 128) beside
-   ``aten.threshold_backward``, the one PyTorch call that computes it,
-   and beside an empty kernel launched over the same grid from the same
-   library and timed the same way (the launch floor).
+   of every instantiation; ``act_backward`` with and without the bias
+   gradient at every activation, on and off its vector path: err_v
+   against its plain twin, grad_b against the twin's sums in the
+   kernel's order (a band rejecting a control with the last row
+   dropped), both bit-identical across launches; at AlexNet's
+   strict-ReLU shapes (fc7 and fc6 at batch 128) its one launch timed
+   beside a torch column sum of err_v alone, ``aten.threshold_backward``
+   with and without a column sum (the library's pair) and an empty
+   kernel launched over the same grid and clusters from the same library
+   (the launch floor); one ``fc_backward`` profiled: act_backward first
+   and once, then only the GEMM's kernels.  The parent's two-launch
+   pair is timed by ``act_compare`` on the parent's tree.
 1d. **optim** — the SGD (f32 and bf16 velocity) and AdamW update kernels
    against their plain versions on bench_fc's six leaves, each band
    rejecting a control with bs = 1; one six-leaf step timed against the
@@ -293,6 +300,18 @@ exits non-zero without the final ``ok`` line):
    process of their own, overlapping (a)), within the MNIST FC bands,
    the loss band rejecting the card's run with TF32 on.  The group is
    destroyed at the phase's end.
+17h. **serve_forward** — the forward-serving plane: AlexNet at its own
+   configuration (227 px, 1000 classes) initialized on the card,
+   exported once and loaded as an ``ExportedForward`` in eval's type
+   (bf16); the engine's warmup captures buckets 1, 2, 4 and 8 into CUDA
+   graphs; each bucket's replay bit-identical to its eager body, exactly
+   two ``lrn_forward`` launches a forward (replays counted); the card
+   against the CPU's f32 forward within a band that rejects the CPU run
+   with LRN skipped; served over HTTP to concurrent clients with no
+   capture after warmup; then MNIST FC's widths exported and served by
+   ``python -m znicz_tpu_torch serve --smoke-test`` on cuda (its own
+   process) and with ``--native`` (the C++ runtime, built beside the
+   AlexNet work, held against the torch forward).
 18. **kernel_hw** — ``utils/kernel_hw.run_parity("cuda")``, all fourteen
    families of the reference ``ok``; the LRN, dropout and bf16 conv
    forward counters set to 0 just before and read just after (the only
@@ -303,16 +322,19 @@ exits non-zero without the final ``ok`` line):
 pool_backward, conv, alexnet_eager, deconv, kohonen, lrn_dropout,
 ae_fused, alexnet_fused, graph_parity, fused_conv_parity,
 input_pipeline, image_files, snapshot_resume, data_parallel,
-speculative, char_lm, train, or two that
+serve_forward, speculative, char_lm, train, or three that
 only measure and run on older trees of the port too: **waves**, the
 weight gradient at AlexNet's and build_deep's shapes with split_k's
 slices, one fewer and one more, through the C entry; **fused_compare**,
 the dropout kernel at 64 M elements beside ``aten.native_dropout`` and
-the three fused paths through ``train_steps`` and ``Workflow.run``)
-after the build, for iterating on one kernel family.  To hold a change
-against its parent on one card, copy this file into a checkout of the
-parent and run ``--phase fused_compare`` there and here in one call:
-parent, change, change, parent.
+the three fused paths through ``train_steps`` and ``Workflow.run``;
+**act_compare**, the tree's route to err_v and grad_b at AlexNet's fc7
+and fc6 — one launch, or act_backward and a torch column sum on a tree
+before it — beside the library's pair and the empty launch) after the
+build, for iterating on one kernel family.  To hold a change against
+its parent on one card, copy this file into a checkout of the parent
+and run ``--phase fused_compare`` (or ``act_compare``) there and here
+in one call: parent, change, change, parent.
 
 Every line carries ``at_s``, the seconds since the smoke started.  Then
 a ``{"kernels": [...]}`` line for all eighteen kernels, the card's name
@@ -324,6 +346,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import io
 import json
 import os
 import re
@@ -1397,6 +1420,116 @@ def _act_check(rng, m, n, act) -> tuple:
     return report, (y, err)
 
 
+#: act_backward's grad_b vs its plain twin, norm-relative: the twin adds
+#: the kernel's err_v in the kernel's order with the same f32 roundings,
+#: so bit-identical is expected; the band leaves room for an ulp.  It
+#: must reject the control, the twin's sums without the last row (what a
+#: kernel that dropped the last lane's tail would return)
+GRADB_TOL = 1e-6
+
+
+def _act_bias_check(rng, name, m, n, act) -> tuple:
+    """act_backward with grad_b at (m, n) against its plain twin: err_v
+    within ACT_TOL (bit-identical at strict ReLU, where the derivative is
+    0 or 1), grad_b within GRADB_TOL and its control outside it, both
+    bit-identical across two launches -> (report, (y, err, err_v))."""
+    y = _dev(np.maximum(rng.normal(size=(m, n)), 0) if act ==
+             activations.STRICT_RELU else activations.forward(
+                 np, act, rng.normal(size=(m, n)).astype(np.float32)))
+    err = _dev(rng.normal(size=(m, n)))
+    got = kgemm.act_backward(y, err, act, bias_grad=True)
+    again = kgemm.act_backward(y, err, act, bias_grad=True)
+    want = kgemm.act_bias_backward_plain(y, err, act)
+    vec = 4 if n % 4 == 0 else 1
+    plan = kgemm.act_bias_plan(m, n, vec)
+    control = kgemm.column_sum_in_plan_order(
+        torch.cat([want[0][:-1], torch.zeros_like(want[0][-1:])]), vec)
+    torch.cuda.synchronize()
+
+    def rel(a):
+        return float((a - want[1]).norm() / want[1].norm())
+
+    check = {"layer": name, "m": m, "n": n, "activation": act,
+             "plan": plan, "err_v_rel": tile_rel_err(got[0][None],
+                                                     want[0][None]),
+             "err_v_identical": bool(torch.equal(got[0], want[0])),
+             "grad_b_rel": rel(got[1]), "control_rel": rel(control),
+             "grad_b_identical_to_twin": bool(torch.equal(got[1], want[1])),
+             "deterministic": bool(torch.equal(got[0], again[0]) and
+                                   torch.equal(got[1], again[1])),
+             "max_abs_err": max(float((got[0] - want[0]).abs().max()),
+                                float((got[1] - want[1]).abs().max()))}
+    exact = act != activations.STRICT_RELU or check["err_v_identical"]
+    if not (exact and check["err_v_rel"] <= ACT_TOL and
+            check["deterministic"] and check["grad_b_rel"] <= GRADB_TOL):
+        fail(f"act_backward with grad_b vs plain: {check} (bands "
+             f"{ACT_TOL}, {GRADB_TOL})")
+    if not check["control_rel"] > GRADB_TOL:
+        fail(f"the grad_b band passes its control ({check})")
+    return check, (y, err, got[0])
+
+
+def _act_bias_row(rng, name, m, n, act) -> dict:
+    """:func:`_act_bias_check` at a path's shape, then timed beside a
+    torch column sum of err_v alone, the library's pair and the empty
+    launch over the same grid."""
+    check, (y, err, err_v) = _act_bias_check(rng, name, m, n, act)
+
+    def library():
+        torch.ops.aten.threshold_backward(err, y, 0.0).sum(dim=0)
+
+    lib = torch.ops.aten.threshold_backward(err, y, 0.0)
+    return {"layer": name, "m": m, "n": n, "check": check,
+            "ms": time_cuda_ms(lambda: kgemm.act_backward(
+                y, err, act, bias_grad=True)),
+            "plain_ms": time_cuda_ms(
+                lambda: kgemm.act_bias_backward_plain(y, err, act)),
+            "sum_ms": time_cuda_ms(lambda: err_v.sum(dim=0)),
+            "library_ms": time_cuda_ms(library),
+            "library_act_ms": time_cuda_ms(
+                lambda: torch.ops.aten.threshold_backward(err, y, 0.0)),
+            # the launch floor: an empty kernel over the same grid and
+            # clusters from the same library, timed the same way
+            "empty_launch_ms": time_cuda_ms(lambda: kgemm.empty_launch(y)),
+            "library_max_abs_err": float((lib - err_v).abs().max()),
+            **kgemm.act_backward_bound(y, act, bias_grad=True)}
+
+
+#: the kernels an fc_backward may launch on the card: act_backward, the
+#: GEMM and the GEMM's split-K sum
+FC_BACKWARD_KERNELS = ("act_backward_f32_kernel", "gemm_f32_kernel",
+                       "gemm_reduce_kernel")
+
+
+def _fc_backward_kernels(rng) -> dict:
+    """One fc_backward at AlexNet's fc7 (batch 128, strict ReLU) under
+    the profiler: its first kernel is act_backward, launched once, and
+    every other kernel is the GEMM's (no PyTorch reduction after it)."""
+    _, n_in, n_out = ALEX_FC[1]
+    x = _dev(rng.normal(size=(ALEX_BATCH, n_in)))
+    w = _dev(rng.normal(size=(n_in, n_out)) / np.sqrt(n_in))
+    y = _dev(np.maximum(rng.normal(size=(ALEX_BATCH, n_out)), 0))
+    e = _dev(rng.normal(size=(ALEX_BATCH, n_out)))
+    relu = activations.STRICT_RELU
+    names = None
+    for _ in range(5):
+        acts = profiled_after_mark(
+            lambda: kgemm.fc_backward(x, y, w, e, relu), 1)
+        if acts is not None:
+            names = [name for name, _ in acts if "flush" not in name and
+                     "zero" not in name.lower() and "fill" not in
+                     name.lower()]
+            if names and FC_BACKWARD_KERNELS[0] in names[0]:
+                break
+    report = {"kernels": [n[:60] for n in names or []]}
+    if not names or FC_BACKWARD_KERNELS[0] not in names[0] or \
+            sum(FC_BACKWARD_KERNELS[0] in n for n in names) != 1 or \
+            not all(any(k in n for k in FC_BACKWARD_KERNELS)
+                    for n in names):
+        fail(f"fc_backward's kernels on the card: {report}")
+    return report
+
+
 def alexnet_fc_products() -> list:
     """AlexNet's six FC products of a train minibatch at batch 128, as
     gemm_check cases: each layer's forward (bias, strict ReLU), err_v.W^T
@@ -1479,6 +1612,11 @@ def phase_gemm() -> dict:
                   for act in kgemm.FUSED_ACTIVATIONS[1:]]
     act_checks += [_act_check(rng, FC_BATCH, h1, act)[0]
                    for act in kgemm.FUSED_ACTIVATIONS[1:]]
+    # grad_b in the same launch: every activation on the vector path and
+    # off it (13 columns), a ragged row count, bench_fc's hidden layer
+    act_checks += [_act_bias_check(rng, "bias", m, n, act)[0]
+                   for m, n in ((7, 13), (129, 256), (FC_BATCH, h1))
+                   for act in kgemm.FUSED_ACTIVATIONS[1:]]
     # timings at full width: bench_fc's six products of one train step
     # (fc1 forward, the widest layer's, is the headline) and AlexNet's six
     timed = []
@@ -1512,44 +1650,33 @@ def phase_gemm() -> dict:
     del a, b
     act_report, (y, err) = _act_check(rng, FC_BATCH, h1, tanh)
     act_timed = {"m": FC_BATCH, "n": h1, "activation": tanh,
-                 "ms": time_cuda_ms(lambda: kgemm.act_backward(y, err,
-                                                               tanh)),
+                 "ms": time_cuda_ms(lambda: kgemm.act_backward(
+                     y, err, tanh, bias_grad=True)),
                  "plain_ms": time_cuda_ms(
-                     lambda: kgemm.act_backward_plain(y, err, tanh)),
+                     lambda: kgemm.act_bias_backward_plain(y, err, tanh)),
                  "library_ms": None,
                  "library_note": "no single PyTorch call computes "
                                  "err * act'(y) from y at tanh",
                  "max_abs_err": max(c["max_abs_err"] for c in act_checks),
-                 **kgemm.act_backward_bound(y, tanh)}
+                 **kgemm.act_backward_bound(y, tanh, bias_grad=True)}
     # AlexNet eager's launches: fc7's and fc6's strict-ReLU backward at
-    # batch 128, where one PyTorch call computes the same function,
-    # aten.threshold_backward(err, y, 0) (err where y > 0, else 0)
+    # batch 128, err_v and grad_b from one launch; the library computes
+    # the same pair as aten.threshold_backward(err, y, 0) (err where y >
+    # 0, else 0) and a column sum
     relu = activations.STRICT_RELU
-    rows = []
-    for name, _, n_out in reversed(ALEX_FC):
-        report, (y, err) = _act_check(rng, ALEX_BATCH, n_out, relu)
-        act_checks.append(report)
-        lib_out = torch.ops.aten.threshold_backward(err, y, 0.0)
-        rows.append({
-            "layer": name, "m": ALEX_BATCH, "n": n_out,
-            "ms": time_cuda_ms(lambda: kgemm.act_backward(y, err, relu)),
-            "plain_ms": time_cuda_ms(
-                lambda: kgemm.act_backward_plain(y, err, relu)),
-            "library_ms": time_cuda_ms(
-                lambda: torch.ops.aten.threshold_backward(err, y, 0.0)),
-            # the launch floor: an empty kernel over the same grid from
-            # the same library, timed the same way
-            "empty_launch_ms": time_cuda_ms(
-                lambda: kgemm.empty_launch(y.numel(), y.device)),
-            "library_max_abs_err": float(
-                (lib_out - kgemm.act_backward(y, err, relu)).abs().max()),
-            **kgemm.act_backward_bound(y, relu)})
+    rows = [_act_bias_row(rng, name, ALEX_BATCH, n_out, relu)
+            for name, _, n_out in reversed(ALEX_FC)]
+    act_checks += [r.pop("check") for r in rows]
     act_alexnet = {**_summed(rows, max(c["max_abs_err"]
                                        for c in act_checks)),
-                   "empty_launch_ms": sum(r["empty_launch_ms"]
-                                          for r in rows),
+                   **{key: sum(r[key] for r in rows) for key in (
+                       "empty_launch_ms", "sum_ms",
+                       "library_act_ms")},
                    "activation": relu, "layers": rows,
-                   "library": "aten.threshold_backward(err, y, 0)"}
+                   "library": "aten.threshold_backward(err, y, 0) + "
+                              "sum(dim=0)",
+                   "plan": kgemm.act_bias_plan(ALEX_BATCH, 4096),
+                   "fc_backward_kernels": _fc_backward_kernels(rng)}
     usage = ptxas_usage("gemm")
     if plans is not None:
         by = plans["blocks_per_sm_by_layout"]
@@ -1557,13 +1684,63 @@ def phase_gemm() -> dict:
                     lambda bm, bn, a_kc, b_kc:
                     by[f"{bm}x{bn}/{1 - a_kc},{b_kc}"])
     return {"phase": "gemm", "ptxas": usage, "plans": plans,
-            "tol": {"gemm": GEMM_TOL, "act_backward": ACT_TOL},
+            "tol": {"gemm": GEMM_TOL, "act_backward": ACT_TOL,
+                    "grad_b": GRADB_TOL},
             "checks": checks, "split_cases": split_cases,
             "act_checks": act_checks,
             "gemm_timed": timed, "gemm_layouts": layouts, "gemm": {
                 **timed[1], "max_abs_err": max(c["max_abs_err"]
                                                for c in checks)},
             "act_backward": act_timed, "act_backward_alexnet": act_alexnet}
+
+
+def phase_act_compare() -> dict:
+    """Measures only, and runs on a parent tree too: at AlexNet's fc7
+    and fc6 strict-ReLU backward (batch 128) this tree's route to err_v
+    and grad_b — one launch where act_backward takes ``bias_grad``, else
+    act_backward followed by a torch column sum — beside act_backward
+    called without ``bias_grad`` (on a tree with the one launch, that
+    same launch), the library's pair and the empty launch, each
+    event-timed as phase gemm times them."""
+    rng = np.random.default_rng(SEED + 8)
+    relu = activations.STRICT_RELU
+    fused = hasattr(kgemm, "act_bias_plan")
+    rows = []
+    for name, _, n_out in reversed(ALEX_FC):
+        y = _dev(np.maximum(rng.normal(size=(ALEX_BATCH, n_out)), 0))
+        err = _dev(rng.normal(size=(ALEX_BATCH, n_out)))
+        if fused:
+            def route(y=y, err=err):
+                kgemm.act_backward(y, err, relu, bias_grad=True)
+
+            def empty(y=y):
+                kgemm.empty_launch(y)
+        else:
+            def route(y=y, err=err):
+                kgemm.act_backward(y, err, relu).sum(dim=0)
+
+            def empty(y=y):
+                kgemm.empty_launch(y.numel(), y.device)
+
+        def library(y=y, err=err):
+            torch.ops.aten.threshold_backward(err, y, 0.0).sum(dim=0)
+
+        if not rows:
+            # untimed: the process's first timings meet the card's idle
+            # clocks (a first row measured 1.2-1.5x its repeat)
+            time_cuda_ms(route)
+        rows.append({"layer": name, "m": ALEX_BATCH, "n": n_out,
+                     "ms": time_cuda_ms(route),
+                     "act_ms": time_cuda_ms(
+                         lambda y=y, err=err: kgemm.act_backward(y, err,
+                                                                 relu)),
+                     "library_ms": time_cuda_ms(library),
+                     "empty_launch_ms": time_cuda_ms(empty)})
+    return {"phase": "act_compare", "route": "act_backward with grad_b, "
+            "one launch" if fused else "act_backward + sum(dim=0)",
+            "layers": rows,
+            **{key: sum(r[key] for r in rows) for key in (
+                "ms", "act_ms", "library_ms", "empty_launch_ms")}}
 
 
 def _optim_state(rng, shapes, vel_dtype=None):
@@ -6195,7 +6372,7 @@ def phase_build() -> dict:
 def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
                 fused, conv, alexnet, deconv, ae, spool, mcs, som,
                 lrn_drop, alex_fused, kernel_hw, spec, char,
-                data_parallel) -> dict:
+                data_parallel, serve_forward) -> dict:
     """The eighteen kernels: launches from the main paths' runs, times
     and errors from the kernel phases, bounds from this run's inputs.  A
     conv kernel's times and bound sum its launches of one AlexNet train
@@ -6212,7 +6389,11 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
     flash and paged_decode entries the char_lm phase's launches (its
     workflow's and its served package's), and the SGD, AdamW and LRN
     entries the data_parallel phase's (its AlexNet epochs with no group
-    and in the three layouts, its MNIST FC codec runs on the card)."""
+    and in the three layouts, its MNIST FC codec runs on the card), and
+    the LRN forward's the serve_forward phase's HTTP load (two a replayed
+    batch of the served AlexNet).  act_backward's times are its one
+    launch with grad_b at AlexNet's fc7 and fc6, its library call
+    threshold_backward and a column sum."""
     def entry(name, source, replaces, launches, timed, max_abs_err,
               **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -6313,7 +6494,9 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
               alex_fused["launches"]["lrn_forward"], lrn_path["fwd"],
               lrn_path["fwd"]["max_abs_err"], path="alexnet_fused",
               cuda_kernels=["lrn_fwd_quad_kernel<N>", "lrn_fwd_kernel"],
-              data_parallel_launches=dp["lrn_forward"]),
+              data_parallel_launches=dp["lrn_forward"],
+              serve_forward_launches=serve_forward["http"][
+                  "lrn_forward_launches"]),
         entry("lrn_backward", klrn.SOURCE, klrn.REPLACES_BWD,
               alex_fused["launches"]["lrn_backward"], lrn_path["bwd"],
               lrn_path["bwd"]["max_abs_err"], path="alexnet_fused",
@@ -8210,6 +8393,317 @@ def phase_data_parallel(cpu_started=None) -> dict:
     return out
 
 
+#: serve_forward: AlexNet at its own configuration (models/alexnet.py:
+#: 227 px, 1000 classes), initialized from the seed on the card, exported
+#: once and served with buckets up to SF_MAX_BATCH (1, 2, 4, 8)
+SF_MAX_BATCH = 8
+#: the HTTP load: SF_CLIENTS concurrent clients of SF_REQUESTS requests
+#: each, of 1 or 2 images (a 227-px image is ~3 MB of JSON)
+SF_CLIENTS, SF_REQUESTS = 4, 2
+#: card vs CPU on served rows, norm-relative on the centred
+#: log-probabilities (the logits up to a constant a row): the card
+#: computes in eval's type, bf16 (~3 significant digits through eight
+#: layers), the CPU in f32.  The band must reject the control, the CPU's
+#: forward with both LRN layers skipped (what a card path that lost its
+#: lrn_forward launches would return)
+SF_BAND = 5e-2
+#: ExportedForward against the native runtime, both f32 on the host
+SF_NATIVE_ATOL = 1e-5
+#: MNIST FC's default widths (models/mnist_fc.py: 784-64-10) as a
+#: StandardWorkflow: the sample's own build functions assemble units without
+#: layer specs, which export_forward needs (in both packages)
+SF_FC_LAYERS = [{"type": "all2all_tanh", "->": {"output_sample_shape": 64}},
+                {"type": "softmax", "->": {"output_sample_shape": 10}}]
+SF_CLI_TIMEOUT = 300
+
+
+def _centred_logp(p) -> np.ndarray:
+    lp = np.log(np.maximum(np.asarray(p, np.float64), 1e-30))
+    return lp - lp.mean(axis=1, keepdims=True)
+
+
+def _sf_rel(got, want) -> float:
+    """Norm-relative error of ``got``'s centred log-probabilities
+    against ``want``'s."""
+    a, b = _centred_logp(got), _centred_logp(want)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _post_json(url: str, doc: dict, timeout: float = 120) -> dict:
+    req = urllib.request.Request(
+        url, data=json.dumps(doc).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def _sf_http(engine, backend, shape, rng) -> tuple:
+    """SF_CLIENTS concurrent clients POST /predict to a ServeServer over
+    the warmed engine -> (report, the requests, their answers): every
+    answer arrives, nothing is captured, and the lrn_forward launches are
+    two a replayed batch."""
+    from znicz_tpu_torch.serve.server import ServeServer
+
+    server = ServeServer(engine, warmup=False, max_wait_ms=2.0)
+    port = server.start()
+    reqs = [rng.normal(size=(1 + i % 2,) + shape).astype(np.float32)
+            for i in range(SF_CLIENTS * SF_REQUESTS)]
+    answers, errors = {}, []
+    runs0, compiles0 = engine.run_count, engine.compile_count
+    captures0 = backend.captures
+    klrn.fwd_launches = 0
+
+    def client(c):
+        try:
+            for j in range(SF_REQUESTS):
+                i = c * SF_REQUESTS + j
+                doc = _post_json(f"http://127.0.0.1:{port}/predict",
+                                 {"input": reqs[i].tolist()})
+                answers[i] = np.asarray(doc["output"], np.float32)
+        except Exception as exc:  # noqa: BLE001 — failed below
+            errors.append(repr(exc))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SF_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    wall = time.perf_counter() - t0
+    snap = server.metrics_snapshot()
+    server.stop()
+    runs = engine.run_count - runs0
+    report = {"requests": len(reqs), "rows": sum(len(r) for r in reqs),
+              "wall_s": wall, "batches": runs,
+              "batch_size_histogram": snap["serving"][
+                  "batch_size_histogram"],
+              "latency_ms": {k: snap["serving"]["latency"][k]
+                             for k in ("p50_ms", "p95_ms", "mean_ms")},
+              "captures_after_warmup": backend.captures - captures0,
+              "compiles_after_warmup": engine.compile_count - compiles0,
+              "lrn_forward_launches": klrn.fwd_launches,
+              "errors": errors}
+    bad = []
+    if errors or len(answers) != len(reqs) or \
+            snap["serving"]["completed"] != len(reqs):
+        bad.append(f"HTTP: {report}")
+    if report["captures_after_warmup"] or report["compiles_after_warmup"]:
+        bad.append(f"HTTP serving captured after warmup: {report}")
+    if klrn.fwd_launches != 2 * runs:
+        bad.append(f"HTTP: {klrn.fwd_launches} lrn_forward launches in "
+                   f"{runs} replayed batches, not {2 * runs}")
+    return report, reqs, answers, bad
+
+
+def _sf_mnist_fc(tmp, cpu_ok) -> tuple:
+    """MNIST FC's default widths exported from the card and served by
+    ``python -m znicz_tpu_torch serve --smoke-test`` on cuda (its own
+    process) and with ``--native`` (this process), the native runtime
+    held against the torch forward."""
+    from znicz_tpu_torch.__main__ import main as cli_main
+    from znicz_tpu_torch.native import infer as tinfer
+    from znicz_tpu_torch.utils.export import ExportedForward, export_forward
+
+    tprng.seed_all(SEED)
+    w = StandardWorkflow(
+        name="MnistFC", loss_function="softmax", layers=SF_FC_LAYERS,
+        loader_name="synthetic_classifier",
+        loader_config={"n_classes": 10, "sample_shape": (28, 28),
+                       "n_train": 64, "n_valid": 0, "minibatch_size": 64},
+        decision_config={"max_epochs": 1})
+    w.initialize(device=TorchDevice())
+    pkg = export_forward(w, os.path.join(tmp, "mnist_fc.npz"))
+    del w
+    bad = []
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "znicz_tpu_torch", "serve", pkg, "--port",
+         "0", "--max-batch", "8", "--smoke-test"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env={**os.environ, "ZNICZ_TPU_SITE_CONFIG": ""},
+        capture_output=True, text=True, timeout=SF_CLI_TIMEOUT)
+    cli = {"rc": proc.returncode, "s": time.perf_counter() - t0}
+    if proc.returncode != 0:
+        fail(f"serve_forward: the serve CLI on cuda exited "
+             f"{proc.returncode}: {proc.stdout[-2000:]} "
+             f"{proc.stderr[-4000:]}")
+    doc = json.loads(proc.stdout.strip().splitlines()[-1])
+    cli.update(smoke=doc["smoke"],
+               compile_count=doc["metrics"]["engine"]["compile_count"])
+    if doc["smoke"] != "ok" or cli["compile_count"] != 4:
+        bad.append(f"the serve CLI on cuda: {cli}")
+    cpu_ok()                          # the native runtime is built
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["serve", pkg, "--port", "0", "--max-batch", "8",
+                       "--smoke-test", "--native"])
+    native_doc = json.loads(buf.getvalue().strip().splitlines()[-1])
+    native = {"rc": rc, "s": time.perf_counter() - t0,
+              "smoke": native_doc["smoke"],
+              "static_shapes": native_doc["metrics"]["engine"][
+                  "static_shapes"]}
+    if rc != 0 or native["smoke"] != "ok" or native["static_shapes"]:
+        bad.append(f"the serve CLI with --native: {native}")
+    x = np.random.default_rng(SEED + 23).normal(
+        size=(16, 28, 28)).astype(np.float32)
+    cc = tinfer.NativeForward(pkg)(x)
+    host = ExportedForward(pkg, device="cpu")(x)
+    card = ExportedForward(pkg)(x)
+    native.update(max_abs_vs_torch_cpu=float(np.abs(cc - host).max()),
+                  card_rel=_sf_rel(card, cc))
+    if not native["max_abs_vs_torch_cpu"] <= SF_NATIVE_ATOL or \
+            not native["card_rel"] <= SF_BAND:
+        bad.append(f"the native runtime against the torch forward: "
+                   f"{native}")
+    return {"cli_cuda": cli, "native": native}, bad
+
+
+def phase_serve_forward() -> dict:
+    """The forward-serving plane at full width: AlexNet (227 px, 1000
+    classes) initialized on the card, exported once and loaded as an
+    ExportedForward in eval's type; a BatchEngine whose warmup captures
+    buckets 1, 2, 4 and 8 once each; every bucket's replay bit-identical
+    to its eager body, lrn_forward launched exactly twice a forward
+    (replays counted); the card against the CPU's f32 forward within
+    SF_BAND, whose control (LRN skipped) it rejects; served over HTTP by
+    SF_CLIENTS concurrent clients with nothing captured after warmup;
+    then MNIST FC's package through ``serve --smoke-test`` on cuda and
+    with ``--native`` (the native runtime built beside the AlexNet
+    work)."""
+    from znicz_tpu_torch.native import infer as tinfer
+    from znicz_tpu_torch.serve.engine import BatchEngine
+    from znicz_tpu_torch.units.normalization import LRNormalizerForward
+    from znicz_tpu_torch.utils.export import ExportedForward, export_forward
+
+    t0 = time.perf_counter()
+    out = {"phase": "serve_forward", "max_batch": SF_MAX_BATCH,
+           "bands": {"card_vs_cpu": SF_BAND, "native": SF_NATIVE_ATOL}}
+    bad, built = [], {}
+
+    def build_native():
+        t1 = time.perf_counter()
+        try:
+            tinfer.lib()
+            built["s"] = time.perf_counter() - t1
+        except Exception as exc:  # noqa: BLE001 — raised by built_ok
+            built["error"] = exc
+
+    native_build = threading.Thread(target=build_native, daemon=True)
+    native_build.start()
+
+    def built_ok():
+        native_build.join()
+        if "error" in built:
+            raise built["error"]
+        out["native_build_s"] = built["s"]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tprng.seed_all(SEED)
+        t1 = time.perf_counter()
+        # the synthetic loader's 50 classes need 50 samples at least
+        w = talexnet.build(n_train=50, n_valid=0,
+                           minibatch_size=SF_MAX_BATCH)
+        w.initialize(device=TorchDevice())
+        out["init_s"] = time.perf_counter() - t1
+        pkg = os.path.join(tmp, "alexnet.npz")
+        t1 = time.perf_counter()
+        export_forward(w, pkg)
+        out["export_s"] = time.perf_counter() - t1
+        out["package_mb"] = os.path.getsize(pkg) / 1e6
+        del w
+        gc.collect()
+        t1 = time.perf_counter()
+        backend = ExportedForward(pkg)
+        out["load_s"] = time.perf_counter() - t1
+        out["compute_dtype"] = str(backend.compute_dtype)
+        shape = backend.input_shape
+        engine = BatchEngine(backend, max_batch=SF_MAX_BATCH)
+        klrn.fwd_launches = 0
+        t1 = time.perf_counter()
+        engine.warmup()
+        torch.cuda.synchronize()
+        out["warmup_s"] = time.perf_counter() - t1
+        n_buckets = len(engine.buckets)
+        # a bucket's materialization: its eager first run, then the
+        # capture's replay, two lrn_forward launches each
+        out["warmup"] = {"buckets": list(engine.buckets),
+                         "compile_count": engine.compile_count,
+                         "captures": backend.captures,
+                         "lrn_forward_launches": klrn.fwd_launches}
+        if engine.compile_count != n_buckets or \
+                backend.captures != n_buckets or \
+                klrn.fwd_launches != 4 * n_buckets:
+            bad.append(f"warmup: {out['warmup']}")
+        rng = np.random.default_rng(SEED + 22)
+        xs = {b: rng.normal(size=(b,) + shape).astype(np.float32)
+              for b in engine.buckets}
+        replays0 = {k: g.replays for k, g in backend.graphs.items()}
+        klrn.fwd_launches = 0
+        identical, ms = {}, {}
+        for b, x in xs.items():
+            identical[b] = bool(np.array_equal(backend(x), backend.eager(x)))
+        out["replay_vs_eager"] = {
+            "identical": identical, "lrn_forward_launches": klrn.fwd_launches,
+            "replays": {str(k[0]): g.replays - replays0[k]
+                        for k, g in backend.graphs.items()}}
+        if not all(identical.values()):
+            bad.append(f"a replay differs from its eager body: {identical}")
+        if klrn.fwd_launches != 4 * n_buckets or \
+                any(v != 1 for v in out["replay_vs_eager"]["replays"]
+                    .values()):
+            bad.append(f"replay vs eager launches: "
+                       f"{out['replay_vs_eager']}")
+        # a forward of the largest bucket through the engine (host clock,
+        # the H2D of its input and the D2H of its answer included)
+        for name, fn in (("replay", backend), ("eager", backend.eager)):
+            fn(xs[SF_MAX_BATCH])
+            times = []
+            for _ in range(5):
+                t1 = time.perf_counter()
+                fn(xs[SF_MAX_BATCH])
+                times.append((time.perf_counter() - t1) * 1e3)
+            ms[name] = float(np.median(times))
+        out["batch8_host_ms"] = ms
+        out["http"], reqs, answers, b = _sf_http(engine, backend, shape,
+                                                 rng)
+        bad += b
+        # the card against the CPU's f32 forward, and the band's control
+        host = ExportedForward(pkg, device="cpu")
+        control = ExportedForward(pkg, device="cpu")
+        for unit in control._units:
+            if isinstance(unit, LRNormalizerForward):
+                unit.torch_apply = lambda p, x, **kw: x
+        card_rows = np.concatenate([answers[0], answers[1]])
+        host_rows = host(np.concatenate(reqs[:2]))
+        x2 = xs[2]
+        host2 = host(x2)
+        out["card_vs_cpu"] = {
+            "eager_rel": _sf_rel(backend.eager(x2), host2),
+            "replay_rel": _sf_rel(backend(x2), host2),
+            "http_rel": _sf_rel(card_rows, host_rows),
+            "control_rel": _sf_rel(control(x2), host2),
+            "argmax_agree": float(np.mean(card_rows.argmax(1) ==
+                                          host_rows.argmax(1))),
+            "max_abs": float(np.abs(card_rows - host_rows).max())}
+        cvc = out["card_vs_cpu"]
+        if not max(cvc["eager_rel"], cvc["replay_rel"],
+                   cvc["http_rel"]) <= SF_BAND:
+            bad.append(f"card vs CPU past {SF_BAND}: {cvc}")
+        if not cvc["control_rel"] > SF_BAND:
+            bad.append(f"the card-vs-CPU band passes its control: {cvc}")
+        del backend, engine, host, control
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["mnist_fc"], b = _sf_mnist_fc(tmp, built_ok)
+        bad += b
+    out["seconds"] = time.perf_counter() - t0
+    if bad:
+        fail(f"serve_forward: {bad}: {out}")
+    return out
+
+
 #: phases ``--phase`` may run alone (after the build), for iterating on
 #: one kernel family; the smoke proper takes no arguments
 PHASES_ALONE = {"kernel": lambda: phase_kernel(),
@@ -8238,7 +8732,9 @@ PHASES_ALONE = {"kernel": lambda: phase_kernel(),
                 "train": lambda: phase_train(init_params(
                     np.random.default_rng(SEED), N_LAYERS, D, HEADS, FF,
                     VOCAB))[0],
-                "fused_compare": lambda: phase_fused_compare()}
+                "fused_compare": lambda: phase_fused_compare(),
+                "serve_forward": lambda: phase_serve_forward(),
+                "act_compare": lambda: phase_act_compare()}
 
 
 def main() -> int:
@@ -8332,12 +8828,14 @@ def main() -> int:
     finally:
         _dp_cpu_stop(dp_cpu)
     emit(data_parallel)
+    serve_forward = phase_serve_forward()
+    emit(serve_forward)
     kernel_hw = phase_kernel_hw()
     emit(kernel_hw)
     emit({**kernel_line(kernel, flash, gemm, optim, serve, train, eager,
                         fused, conv, alexnet, deconv, ae, spool, mcs, som,
                         lrn_drop, alex_fused, kernel_hw, spec, char,
-                        data_parallel),
+                        data_parallel, serve_forward),
           "first_stream": streams[0][:8],
           "seconds": time.perf_counter() - T_START})
     print(nvidia_smi(), flush=True)

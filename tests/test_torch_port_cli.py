@@ -242,7 +242,7 @@ def test_unported_flags_raise_with_their_item(wf, flag, item):
 
 
 @pytest.mark.parametrize("sub,item", [
-    ("serve", "13"), ("fleet", "14"), ("learn", "14"), ("elastic", "14"),
+    ("fleet", "14"), ("learn", "14"), ("elastic", "14"),
     ("flight", "14"), ("trace", "14"), ("forge", "14")])
 def test_unported_subcommands_raise_with_their_item(sub, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
@@ -276,6 +276,16 @@ def test_generate_keeps_its_route_and_the_fault_plan_env(monkeypatch):
     assert seen == [["pkg.npz", "--device", "cpu"]]
     assert faults.get_plan() is not None
     assert cli.main(["aot", "pkg.npz"]) == 2
+
+
+def test_serve_routes_to_serve_main(monkeypatch):
+    import znicz_tpu_torch.serve.server as server
+
+    seen = []
+    monkeypatch.setattr(server, "serve_main",
+                        lambda argv: seen.append(argv) or 5)
+    assert cli.main(["serve", "pkg.npz", "--device", "cpu"]) == 5
+    assert seen == [["pkg.npz", "--device", "cpu"]]
 
 
 @pytest.mark.parametrize("env", ["ZNICZ_TPU_HEARTBEAT",

@@ -350,3 +350,144 @@ def test_split_kernel_matches_plain_at_alexnet_fc_shapes_on_the_card():
         torch.cuda.synchronize()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+# -- act_backward with the bias gradient in one launch ----------------------
+
+#: shapes of the fused act/bias pass: the reference's geometries' (B, O),
+#: AlexNet's fc7/fc6 at batch 128, bench_fc's hidden layer at batch 1024,
+#: one row, and columns off the 4-wide vector path
+BIAS_SHAPES = [(32, 100), (7, 3), (129, 257), (8, 128), (128, 4096),
+               (1024, 1024), (1, 5), (200, 13)]
+
+
+@pytest.mark.parametrize("geom", FC_GEOMS)
+@pytest.mark.parametrize("act", ACTS[1:])
+def test_fused_bias_twin_matches_pallas_fc_backward(geom, act):
+    """The plain twin of the one-launch backward (``err_v`` and
+    ``grad_b`` in the kernel's order, then the two GEMMs) against the
+    reference's ``fc_backward`` in interpret mode, at the FC GEMM band
+    (rtol 1e-4 / atol 2e-4)."""
+    x, w, b, e = _operands(geom)
+    y = jlinear.forward(np, x, w, b, act)
+    wants = jgemm.fc_backward(jnp.asarray(x), jnp.asarray(y), jnp.asarray(w),
+                              jnp.asarray(e), act, interpret=True)
+    err_v, grad_b = kgemm.act_bias_backward_plain(torch.tensor(y),
+                                                  torch.tensor(e), act)
+    gots = (kgemm.fc_forward_plain(err_v, torch.tensor(w).t()),
+            kgemm.fc_forward_plain(torch.tensor(x).t(), err_v), grad_b)
+    for name, g, want in zip(("err_input", "grad_w", "grad_b"), gots,
+                             wants):
+        np.testing.assert_allclose(g.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=2e-4, err_msg=name)
+    # fc_backward on CPU tensors takes exactly this route
+    for g, want in zip(kgemm.fc_backward(torch.tensor(x), torch.tensor(y),
+                                         torch.tensor(w), torch.tensor(e),
+                                         act), gots):
+        assert torch.equal(g, want)
+
+
+@pytest.mark.parametrize("m,n", BIAS_SHAPES)
+@pytest.mark.parametrize("vec", [1, 4])
+def test_bias_twin_against_an_f64_column_sum(m, n, vec):
+    """The twin's column sums against the f64 sums of the same f32
+    values, within the bound of any order of f32 additions: (m - 1) u
+    sum |v| a column, u = 2^-24."""
+    rng = np.random.default_rng(m * 31 + n)
+    v = rng.normal(size=(m, n)).astype(np.float32)
+    got = kgemm.column_sum_in_plan_order(torch.tensor(v), vec).numpy()
+    want = v.astype(np.float64).sum(axis=0)
+    bound = max(m - 1, 1) * 2.0 ** -24 * np.abs(v).astype(
+        np.float64).sum(axis=0)
+    assert np.all(np.abs(got - want) <= bound)
+
+
+def _kernel_order_sums(v, vec):
+    """act_backward's column sums as csrc/gemm.cu's threads take them,
+    one f32 addition at a time in numpy: a lane's rows, a block's lanes
+    (lane 0 first), then rank 0 over the cluster's ranks."""
+    m, n = v.shape
+    plan = kgemm.act_bias_plan(m, n, vec)
+    per, f32 = plan["rows_per_lane"], np.float32
+    out = np.zeros(n, np.float32)
+    for col in range(n):
+        g = f32(0)
+        for rank in range(plan["ranks"]):
+            b = f32(0)
+            for lane in range(kgemm.ACT_LANES):
+                acc = f32(0)
+                r0 = (rank * kgemm.ACT_LANES + lane) * per
+                for r in range(r0, min(m, r0 + per)):
+                    acc = f32(acc + v[r, col])
+                b = f32(b + acc)
+            g = f32(g + b)
+        out[col] = g
+    return out
+
+
+@pytest.mark.parametrize("m,n", [(129, 257), (37, 8), (7, 3), (300, 12)])
+@pytest.mark.parametrize("vec", [1, 4])
+def test_bias_twin_adds_in_the_kernels_order(m, n, vec):
+    """The twin's vectorised sums give the bits of the kernel's per-thread
+    order, so the smoke can hold the card's grad_b to it tightly."""
+    v = np.random.default_rng(m + n).normal(size=(m, n)).astype(np.float32)
+    got = kgemm.column_sum_in_plan_order(torch.tensor(v), vec).numpy()
+    np.testing.assert_array_equal(got, _kernel_order_sums(v, vec))
+
+
+@pytest.mark.parametrize("m,n", BIAS_SHAPES)
+@pytest.mark.parametrize("vec", [1, 4])
+def test_bias_plan_splits_every_row_once(m, n, vec):
+    plan = kgemm.act_bias_plan(m, n, vec)
+    ranks, per = plan["ranks"], plan["rows_per_lane"]
+    assert ranks in (1, 2, 4, 8)
+    assert plan["tiles"] * kgemm.ACT_COLS * vec >= n
+    assert (plan["tiles"] - 1) * kgemm.ACT_COLS * vec < n
+    assert ranks * kgemm.ACT_LANES * per >= m
+    assert (ranks * kgemm.ACT_LANES * per - m) < ranks * kgemm.ACT_LANES
+    # a rank more would have given some block no rows, or the grid
+    # covers the SMs already
+    assert ranks == kgemm.ACT_MAX_RANKS or ranks * kgemm.ACT_LANES >= m \
+        or plan["tiles"] * ranks >= kgemm.SMS
+
+
+def test_act_backward_bias_grad_refuses_linear_and_keeps_err_v():
+    rng = np.random.default_rng(2)
+    y, e = (torch.tensor(rng.normal(size=(5, 6)).astype(np.float32))
+            for _ in range(2))
+    with pytest.raises(ValueError, match="linear"):
+        kgemm.act_backward(y, e, "linear", bias_grad=True)
+    err_v, grad_b = kgemm.act_backward(y, e, "tanh", bias_grad=True)
+    assert torch.equal(err_v, kgemm.act_backward_plain(y, e, "tanh"))
+    assert grad_b.shape == (6,)
+    b = kgemm.act_backward_bound(y, "tanh", bias_grad=True)
+    assert b["bytes"] == 12 * 30 + 4 * 6 and b["bound_by"] == "bytes"
+
+
+@pytest.mark.cuda
+def test_fused_act_backward_on_the_card_is_one_launch_and_reproducible():
+    """On a card: fc_backward with an activation makes one act_backward
+    launch and two GEMM launches; err_v equals the twin's bits at strict
+    ReLU; grad_b is bit-identical across launches and within 1e-6
+    (norm-relative) of the twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernels run only on a card")
+    rng = np.random.default_rng(4)
+    for m, n in ((128, 4096), (129, 257), (7, 3)):
+        y = torch.tensor(np.maximum(rng.normal(size=(m, n)), 0),
+                         dtype=torch.float32, device="cuda")
+        e = torch.tensor(rng.normal(size=(m, n)), dtype=torch.float32,
+                         device="cuda")
+        got = kgemm.act_backward(y, e, "strict_relu", bias_grad=True)
+        again = kgemm.act_backward(y, e, "strict_relu", bias_grad=True)
+        want = kgemm.act_bias_backward_plain(y, e, "strict_relu")
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1], again[1])
+        assert float((got[1] - want[1]).norm() / want[1].norm()) <= 1e-6
+        x = torch.randn(m, 16, device="cuda")
+        w = torch.randn(16, n, device="cuda")
+        before = (kgemm.gemm_launches, kgemm.act_launches)
+        kgemm.fc_backward(x, y, w, e, "strict_relu")
+        assert (kgemm.gemm_launches - before[0],
+                kgemm.act_launches - before[1]) == (2, 1)
+    torch.cuda.synchronize()

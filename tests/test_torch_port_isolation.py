@@ -65,7 +65,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                  "models.yale_faces", "loader.text", "loader.sequence",
                  "parallel.moe", "parallel.graphs", "units.lm",
                  "models.char_lm", "parallel.mesh", "parallel.zero",
-                 "parallel.qcomm"):
+                 "parallel.qcomm", "serve.engine", "serve.batcher",
+                 "native.infer", "utils.export"):
         assert f"znicz_tpu_torch.{name}" in doc["modules"]
 
 
@@ -90,7 +91,8 @@ COPIES = ["core/config.py", "core/logger.py", "observe/registry.py",
           "loader/normalization.py", "loader/mnist.py", "loader/pickles.py",
           "native/loader_core.cpp", "resilience/supervisor.py",
           "observe/watchtower.py", "models/yale_faces.py",
-          "loader/text.py"]
+          "loader/text.py", "serve/metrics.py", "serve/batcher.py",
+          "native/infer_core.cpp"]
 
 
 def _code(src: str) -> str:

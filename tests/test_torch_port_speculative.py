@@ -535,6 +535,6 @@ def test_pallas_decode_flag_parses_and_changes_nothing(params, tmp_path):
 
 def test_feedback_spool_is_not_ported_yet(params, tmp_path):
     pkg = _package(params, tmp_path)
-    with pytest.raises(NotImplementedError, match="queue A item 13"):
+    with pytest.raises(NotImplementedError, match="queue A item 14"):
         _generate(pkg, "--serve", "--feedback-spool",
                   str(tmp_path / "spool"))

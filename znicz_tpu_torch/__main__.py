@@ -9,6 +9,9 @@ Usage:
     python -m znicz_tpu_torch generate <lm_package.npz> [--prompt TEXT |
                               --serve --port N --slots B]
                               [--device cpu] [options]
+    python -m znicz_tpu_torch serve <package.npz> [--port N]
+                              [--max-batch N] [--native] [--device cpu]
+                              [--smoke-test] [options]
 
 The workflow file must expose ``run(load, main)`` (every ``models/``
 sample does); config files are executed Python mutating the global
@@ -23,8 +26,8 @@ naming its ROADMAP item rather than being ignored: ``--optimize``,
 ``--ensemble-train``, ``--manhole``, ``--publish``, ``--profile``, the
 subcommands ``fleet``, ``learn``, ``elastic``, ``flight``, ``trace``,
 ``forge`` and the ``ZNICZ_TPU_HEARTBEAT`` and
-``ZNICZ_TPU_METRICS_EXPORT`` envs of a workflow run (item 14);
-``serve`` (item 13).  ``aot`` has no counterpart: the port has no XLA
+``ZNICZ_TPU_METRICS_EXPORT`` envs of a workflow run (item 14).
+``aot`` has no counterpart: the port has no XLA
 executables to compile ahead of time (a recorded divergence).
 
 ``--coordinator host:port --num-processes N --process-id R`` joins a
@@ -43,7 +46,7 @@ import os
 import sys
 
 #: subcommands not ported yet -> their ROADMAP queue A item
-_UNPORTED_SUBCOMMANDS = {"serve": "13", "fleet": "14", "learn": "14",
+_UNPORTED_SUBCOMMANDS = {"fleet": "14", "learn": "14",
                          "elastic": "14", "flight": "14", "trace": "14",
                          "forge": "14"}
 #: flags not ported yet -> (what, item); each raises when given
@@ -180,6 +183,10 @@ def main(argv=None) -> int:
         from znicz_tpu_torch.serve.server import generate_main
 
         return generate_main(argv[1:])
+    if argv[0] == "serve":
+        from znicz_tpu_torch.serve.server import serve_main
+
+        return serve_main(argv[1:])
     if argv[0] == "aot":
         print("znicz_tpu_torch: 'aot' has no counterpart in the port (no "
               "XLA executables to compile ahead of time)", file=sys.stderr)

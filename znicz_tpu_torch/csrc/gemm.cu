@@ -37,12 +37,28 @@
 // epilogue, before the one store of each output.  No atomics: every sum
 // has a fixed order, so two launches are bit-identical.
 //
-// act_backward: out = err * act'(y), the derivative taken from the
-// forward output y (activations.derivative_from_output), one elementwise
-// pass.  Bound: bytes (y and err read once, out written once: 12 bytes an
-// element).  A grid-stride loop over 16-byte vectors where the size and
-// alignment allow, else over single elements.
+// act_backward: err_v = err * act'(y), the derivative taken from the
+// forward output y (activations.derivative_from_output), and with it the
+// bias gradient grad_b[j] = sum_i err_v[i, j] in the same pass.  Bound:
+// bytes (y and err read once, err_v written once: 12 bytes an element, and
+// 4 a column of grad_b).  At the FC shapes (AlexNet's 128 x 4096) those
+// bytes take ~1.9 us and a launch's own floor ~5 us, so the design's point
+// is the launch it saves: the reference forms grad_b with a column sum
+// outside its kernel, which XLA fuses on the TPU; PyTorch eager cannot, and
+// would read err_v again in a second launch.  Each block takes a tile of
+// kActCols 16-byte vectors (64 columns; one column a thread off the vector
+// path) and kActLanes row lanes; the rows are split over the `ranks`
+// blocks of one thread-block cluster.  Each lane sums its rows in row
+// order (their loads issued together, kActUnroll at a time), each block
+// its lanes in lane order into a row of rank 0's shared memory (a
+// distributed-shared-memory store), and after one cluster barrier rank 0
+// adds the rows in rank order.  No atomics: the order is fixed, so two
+// launches are bit-identical, and kernels/gemm.py
+// act_bias_backward_plain sums in this order.  The product
+// and the sums are rounded as written (__fmul_rn, __fadd_rn), so nothing
+// is contracted into an FMA and err_v is the value summed.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -53,6 +69,7 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
 using namespace znicz_tile;
 using znicz_hopper::launch;
 
@@ -188,32 +205,152 @@ gemm_reduce_kernel(const float* __restrict__ part, int splits, long long mn,
   }
 }
 
+// act_backward's block: kActCols column threads by kActLanes row lanes;
+// the rows split over a cluster of at most kActMaxRanks blocks
+// (kernels/gemm.py act_bias_plan chooses the launch)
+constexpr int kActCols = 16;
+constexpr int kActLanes = 16;
+constexpr int kActMaxRanks = 8;
+// rows of a lane whose loads are in flight together
+constexpr int kActUnroll = 4;
+
+// err_v (m, n) = err * act'(y) and grad_b (n) = the column sums of err_v:
+// each lane's rows in row order, a block's lanes in lane order, the
+// cluster's ranks in rank order.  Grid (tiles, ranks), clusters of
+// (1, ranks, 1), kActCols * kActLanes threads.
 template <int VEC>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kActCols * kActLanes)
 act_backward_f32_kernel(const float* __restrict__ y,
                         const float* __restrict__ err,
-                        float* __restrict__ out, long long n, int act) {
-  const long long stride =
-      static_cast<long long>(gridDim.x) * blockDim.x * VEC;
-  for (long long i =
-           (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) *
-           VEC;
-       i < n; i += stride) {
-    if (VEC == 4) {
-      const float4 yv = *reinterpret_cast<const float4*>(y + i);
-      const float4 ev = *reinterpret_cast<const float4*>(err + i);
-      *reinterpret_cast<float4*>(out + i) = make_float4(
-          ev.x * derivative(yv.x, act), ev.y * derivative(yv.y, act),
-          ev.z * derivative(yv.z, act), ev.w * derivative(yv.w, act));
-    } else {
-      out[i] = err[i] * derivative(y[i], act);
+                        float* __restrict__ out, float* __restrict__ grad_b,
+                        long long m, long long n, long long rows_per_lane,
+                        int act) {
+  __shared__ __align__(16) float lane_part[kActLanes][kActCols * VEC];
+  // rank 0's: every rank's partial, a row a rank
+  __shared__ __align__(16) float rank_part[kActMaxRanks][kActCols * VEC];
+  // this block has started: the wait before the store into rank 0 pairs
+  // it, so no rank stores into a block that does not exist yet
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const int cx = static_cast<int>(threadIdx.x) % kActCols;
+  const int lane = static_cast<int>(threadIdx.x) / kActCols;
+  const long long col =
+      (static_cast<long long>(blockIdx.x) * kActCols + cx) * VEC;
+  const long long r0 =
+      (static_cast<long long>(blockIdx.y) * kActLanes + lane) *
+      rows_per_lane;
+  const long long r1 = r0 + rows_per_lane < m ? r0 + rows_per_lane : m;
+  float acc[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+  if (col < n) {
+    // kActUnroll rows at a time: every row's loads are issued before the
+    // first is used, so a lane's rows cost one trip to memory, not one a
+    // row; the sums still take the rows in order
+    for (long long rb = r0; rb < r1; rb += kActUnroll) {
+      float yv[kActUnroll][VEC], ev[kActUnroll][VEC];
+#pragma unroll
+      for (int u = 0; u < kActUnroll; ++u) {
+        if (rb + u >= r1) break;
+        const long long i = (rb + u) * n + col;
+        if constexpr (VEC == 4) {
+          const float4 a = *reinterpret_cast<const float4*>(y + i);
+          const float4 b = *reinterpret_cast<const float4*>(err + i);
+          yv[u][0] = a.x, yv[u][1] = a.y, yv[u][2] = a.z, yv[u][3] = a.w;
+          ev[u][0] = b.x, ev[u][1] = b.y, ev[u][2] = b.z, ev[u][3] = b.w;
+        } else {
+          yv[u][0] = y[i];
+          ev[u][0] = err[i];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kActUnroll; ++u) {
+        if (rb + u >= r1) break;
+        float v[VEC];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          v[e] = __fmul_rn(ev[u][e], derivative(yv[u][e], act));
+          acc[e] = __fadd_rn(acc[e], v[e]);
+        }
+        const long long i = (rb + u) * n + col;
+        if constexpr (VEC == 4)
+          *reinterpret_cast<float4*>(out + i) =
+              make_float4(v[0], v[1], v[2], v[3]);
+        else
+          out[i] = v[0];
+      }
     }
+  }
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) lane_part[lane][cx * VEC + e] = acc[e];
+  __syncthreads();
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (lane == 0) {
+    // the block's partial, its lanes in lane order, stored into rank 0's
+    // shared memory at this rank's row (a remote store for ranks > 0)
+    float* dst = cluster.map_shared_rank(&rank_part[0][0], 0) +
+                 rank * kActCols * VEC;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      float b = 0.f;
+#pragma unroll
+      for (int l = 0; l < kActLanes; ++l)
+        b = __fadd_rn(b, lane_part[l][cx * VEC + e]);
+      dst[cx * VEC + e] = b;
+    }
+  }
+  // every rank's partial has landed in rank 0, and after this barrier no
+  // rank touches another's memory, so the others may leave
+  cluster.sync();
+  if (rank == 0 && lane == 0 && col < n) {
+    const int ranks = static_cast<int>(cluster.num_blocks());
+    float g[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) g[e] = 0.f;
+#pragma unroll
+    for (int r = 0; r < kActMaxRanks; ++r) {
+      if (r >= ranks) break;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        g[e] = __fadd_rn(g[e], rank_part[r][cx * VEC + e]);
+    }
+    if constexpr (VEC == 4)
+      *reinterpret_cast<float4*>(grad_b + col) =
+          make_float4(g[0], g[1], g[2], g[3]);
+    else
+      grad_b[col] = g[0];
   }
 }
 
-// An empty kernel: launched over act_backward's grid, it times the floor
-// of such a launch (the smoke holds act_backward's time against it).
-__global__ void __launch_bounds__(256) empty_kernel() {}
+// An empty kernel: launched with act_backward's grid and clusters, it
+// times the floor of such a launch (the smoke holds act_backward's time
+// against it).
+__global__ void __launch_bounds__(kActCols * kActLanes) empty_kernel() {}
+
+// A cluster of 1, 2, 4 or 8 ranks and `tiles` (at most 2^31 - 1) tiles
+bool act_grid_ok(long long tiles, int ranks) {
+  return tiles >= 1 && tiles <= 0x7fffffffLL && ranks >= 1 &&
+         ranks <= kActMaxRanks && (ranks & (ranks - 1)) == 0;
+}
+
+// act_backward's launch configuration (grid, block, clusters) for
+// `tiles` column tiles by `ranks` blocks of a cluster
+cudaLaunchConfig_t act_config(long long tiles, int ranks, cudaStream_t s,
+                              cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(tiles),
+                     static_cast<unsigned>(ranks));
+  cfg.blockDim = dim3(kActCols * kActLanes);
+  cfg.stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = 1;
+  attr->val.clusterDim.y = static_cast<unsigned>(ranks);
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
 
 // The GEMM's tile: 128 rows by 128 columns, 64 where n <= 64
 // (gemm_tile in kernels/gemm.py is its twin).
@@ -362,31 +499,50 @@ extern "C" int znicz_gemm_f32_plan(int m, int n, int k, int* out) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// out = err * act'(y) over n f32 elements.  Same return convention.
+// err_v = err * act'(y) over (m, n) f32 row-major and grad_b (n) its
+// column sums, on the launch kernels/gemm.py act_bias_plan gives: `tiles`
+// blocks of kActCols * vec columns by `ranks` blocks of a cluster,
+// rows_per_lane rows to a lane; vec 4 needs n % 4 == 0 and every pointer
+// 16-byte aligned.  Same return convention; a launch that does not cover
+// (m, n) returns cudaErrorInvalidValue without launching.
 extern "C" int znicz_act_backward_f32(const void* y, const void* err,
-                                      void* out, long long n, int act,
-                                      void* stream) {
-  if (n < 1 || act < kLinear || act > kSigmoid)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                                      void* out, void* grad_b, long long m,
+                                      long long n, long long tiles,
+                                      int ranks, long long rows_per_lane,
+                                      int vec, int act, void* stream) {
   const float* yp = static_cast<const float*>(y);
   const float* ep = static_cast<const float*>(err);
   float* op = static_cast<float*>(out);
-  if (n % 4 == 0 && aligned16(yp) && aligned16(ep) && aligned16(op))
-    act_backward_f32_kernel<4><<<blocks_for(n / 4), 256, 0, s>>>(yp, ep, op,
-                                                                 n, act);
-  else
-    act_backward_f32_kernel<1><<<blocks_for(n), 256, 0, s>>>(yp, ep, op, n,
-                                                             act);
+  float* gp = static_cast<float*>(grad_b);
+  if (m < 1 || n < 1 || act < kLinear || act > kSigmoid || gp == nullptr ||
+      (vec != 1 && vec != 4) || !act_grid_ok(tiles, ranks) ||
+      rows_per_lane < 1 || tiles * kActCols * vec < n ||
+      rows_per_lane * ranks * kActLanes < m ||
+      (vec == 4 && (n % 4 != 0 || !aligned16(yp) || !aligned16(ep) ||
+                    !aligned16(op) || !aligned16(gp))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      act_config(tiles, ranks, static_cast<cudaStream_t>(stream), &attr);
+  const cudaError_t err_code =
+      vec == 4 ? cudaLaunchKernelEx(&cfg, act_backward_f32_kernel<4>, yp, ep,
+                                    op, gp, m, n, rows_per_lane, act)
+               : cudaLaunchKernelEx(&cfg, act_backward_f32_kernel<1>, yp, ep,
+                                    op, gp, m, n, rows_per_lane, act);
+  if (err_code != cudaSuccess) return static_cast<int>(err_code);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The empty kernel over the grid act_backward's vector path takes for n
-// elements.  Same return convention.
-extern "C" int znicz_empty_launch(long long n, void* stream) {
-  if (n < 4) return static_cast<int>(cudaErrorInvalidValue);
-  empty_kernel<<<blocks_for(n / 4), 256, 0,
-                 static_cast<cudaStream_t>(stream)>>>();
+// The empty kernel over act_backward's grid and clusters for `tiles` by
+// `ranks`.  Same return convention.
+extern "C" int znicz_empty_launch(long long tiles, int ranks, void* stream) {
+  if (!act_grid_ok(tiles, ranks))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      act_config(tiles, ranks, static_cast<cudaStream_t>(stream), &attr);
+  const cudaError_t err_code = cudaLaunchKernelEx(&cfg, empty_kernel);
+  if (err_code != cudaSuccess) return static_cast<int>(err_code);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -55,7 +55,9 @@
 //    (a release arrival: its reads of them are ordered before the peers'
 //    next pushes, which follow their wait.acquire on it) and waits on it
 //    before it pushes the next chunk's, so no push lands on pairs still
-//    being read; the last wait pairs the last arrival before exit.
+//    being read; a relaxed arrival at entry pairs the first chunk's wait,
+//    so no push reaches a block that has not started; the last wait
+//    pairs the last arrival before exit.
 // Every phase is latency-bound at 16 warps an SM: by clock64 stamps on
 // the card, no one phase holds most of bench_kohonen's step.
 
@@ -256,6 +258,12 @@ __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
 }
 
+// an arrival that orders no memory: it says only that this block has
+// started, which a peer must know before it touches this block's memory
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
@@ -322,6 +330,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float* wl = kResident ? sm + L.w : w + static_cast<long long>(lo) * D;
   const float* cells = sm + L.cells;
 
+  // this block has started: the first chunk's wait pairs it, so no
+  // peer pushes into this block's memory before it exists
+  cluster_arrive_relaxed();
   // every copy of the first chunk's x, W's rows and the grid in flight
   stage_x(xt, x, 0, min(p.chunk, B), p.chunk, xp, D);
   if (kResident)
@@ -431,7 +442,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                              g * p.chunk + 4 * sq) =
         make_int4(bj[0], bj[1], bj[2], bj[3]);
     __syncthreads();
-    if (c > 0) cluster_wait();  // every rank has read the last pairs
+    // every rank has started (c == 0) or has read the last pairs
+    cluster_wait();
     float2* pairs = reinterpret_cast<float2*>(sm + L.prd);
     const int* paj = reinterpret_cast<const int*>(sm + L.paj);
     for (int b = tid; b < nb; b += kThreads) {

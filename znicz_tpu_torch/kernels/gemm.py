@@ -17,16 +17,23 @@ products of ``fc_backward`` (``:137``) reach, and ``_act_backward``
   slices :func:`gemm_plan` chooses, summed in slice order by a second
   kernel before bias and activation (:func:`gemm_split_plain` is the
   plain version of that arithmetic).
-- :func:`act_backward` ``(y, err, activation)`` -> ``err * act'(y)``,
-  the derivative from the forward output.  ``linear`` returns ``err``
-  and launches nothing, as the reference does.
+- :func:`act_backward` ``(y, err, activation, bias_grad)`` -> ``err *
+  act'(y)``, the derivative from the forward output, and with
+  ``bias_grad`` also ``grad_b``, its column sums, from the same launch:
+  the rows split over the blocks of a thread-block cluster, the sums
+  taken in a fixed order (:func:`act_bias_plan`;
+  :func:`act_bias_backward_plain` sums in that order).  ``linear``
+  returns ``err`` and launches nothing, as the reference does.
 
 :func:`fc_forward` and :func:`fc_backward` compose them with the
-reference's semantics (``ops/linear.py``); ``grad_b`` is a plain torch
-sum, as the reference sums it outside its kernels.
+reference's semantics (``ops/linear.py``).  The reference sums
+``grad_b`` outside its kernel, where XLA fuses it into the activation
+pass; here a non-linear backward takes it from act_backward's one
+launch, and a linear one (no activation pass to ride) is a torch sum.
 
 The wrappers run the plain versions (:func:`fc_forward_plain`,
-:func:`act_backward_plain`) on CPU tensors only; on CUDA tensors they
+:func:`act_backward_plain`, :func:`act_bias_backward_plain`) on CPU
+tensors only; on CUDA tensors they
 launch the kernels or raise.  ``gemm_launches`` / ``act_launches``
 count kernel launches and nothing else.  Importing this module needs no
 ``nvcc``: the library is built at the first CUDA call.
@@ -67,6 +74,11 @@ K_TILE = 16
 GEMM_TILES = {(128, 128): 2, (128, 64): 3}
 #: the split-K schedule spreads over at most this many waves
 GEMM_MAX_WAVES = 4
+#: act_backward's block (csrc/gemm.cu kActCols, kActLanes): column
+#: threads (a 16-byte vector of 4 columns each, or one column off the
+#: vector path) by row lanes; the rows split over a cluster of at most
+#: ACT_MAX_RANKS blocks
+ACT_COLS, ACT_LANES, ACT_MAX_RANKS = 16, 16, 8
 #: the H100's SMs
 SMS = 132
 
@@ -94,6 +106,66 @@ def fc_forward_plain(x, w, bias=None, activation: str = activations.LINEAR):
 def act_backward_plain(y, err, activation: str):
     """The plain PyTorch ``err * act'(y)``."""
     return activations.backward(torch, activation, y, err)
+
+
+def act_bias_plan(m: int, n: int, vec: int = 4) -> dict:
+    """act_backward's launch for an (m, n) ``err_v`` at vector width
+    ``vec`` (4 where n % 4 == 0 and every pointer is 16-byte aligned,
+    else 1), which the wrapper hands to csrc/gemm.cu: ``tiles`` blocks
+    of ``ACT_COLS * vec`` columns across, and the rows split over
+    ``ranks`` blocks of one cluster, ``rows_per_lane`` rows to each of a
+    block's ``ACT_LANES`` lanes.  ``ranks`` is the fewest (a power of two
+    up to ``ACT_MAX_RANKS``) whose grid covers the SMs once, and no more
+    than give every block a lane's worth of rows."""
+    tiles = math.ceil(n / (ACT_COLS * vec))
+    ranks = 1
+    while ranks < ACT_MAX_RANKS and tiles * ranks < SMS and \
+            ranks * ACT_LANES < m:
+        ranks *= 2
+    return {"tiles": tiles, "ranks": ranks,
+            "rows_per_lane": math.ceil(m / (ranks * ACT_LANES))}
+
+
+def _act_vec(*tensors) -> int:
+    """The kernel's vector width for these (m, n) operands: 4 where n is
+    a multiple of 4 and every pointer is 16-byte aligned, else 1."""
+    ok = tensors[0].shape[-1] % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in tensors)
+    return 4 if ok else 1
+
+
+def column_sum_in_plan_order(v, vec: int = 4):
+    """The column sums of a 2-D f32 ``v`` (m, n) in act_backward's
+    order: each lane's rows in row order from 0, each block's lanes in
+    lane order from 0, the cluster's ranks in rank order from 0 — the
+    kernel's f32 additions one for one, so the same bits."""
+    m, n = v.shape
+    plan = act_bias_plan(m, n, vec)
+    ranks, per = plan["ranks"], plan["rows_per_lane"]
+    rows = ranks * ACT_LANES * per
+    if rows > m:                      # rows past m add nothing
+        v = torch.cat([v, v.new_zeros(rows - m, n)])
+    v = v.reshape(ranks, ACT_LANES, per, n)
+    lane = v.new_zeros(ranks, ACT_LANES, n)
+    for r in range(per):
+        lane = lane + v[:, :, r]
+    block = v.new_zeros(ranks, n)
+    for lo in range(ACT_LANES):
+        block = block + lane[:, lo]
+    out = v.new_zeros(n)
+    for r in range(ranks):
+        out = out + block[r]
+    return out
+
+
+def act_bias_backward_plain(y, err, activation: str, vec: int = None):
+    """The plain PyTorch ``(err * act'(y), grad_b)`` on 2-D ``y`` and
+    ``err``: ``grad_b`` the column sums in the kernel's order
+    (:func:`column_sum_in_plan_order`, at the kernel's vector width for
+    these operands unless ``vec`` is given)."""
+    err_v = act_backward_plain(y, err, activation)
+    vec = _act_vec(y, err) if vec is None else vec
+    return err_v, column_sum_in_plan_order(err_v, vec)
 
 
 def gemm_split_plain(a, b, bias=None, activation: str = activations.LINEAR,
@@ -187,10 +259,14 @@ def bound(a, b, bias=None, activation: str = activations.LINEAR) -> dict:
     return _bound_of(flops, nbytes)
 
 
-def act_backward_bound(y, activation: str) -> dict:
-    """The same for :func:`act_backward`: y and err read, out written."""
+def act_backward_bound(y, activation: str, bias_grad: bool = False) -> dict:
+    """The same for :func:`act_backward`: y and err read, out written,
+    and with ``bias_grad`` one add an element and ``grad_b`` (a column
+    each) written."""
     n = y.numel()
-    return _bound_of(_ACT_FLOPS[activation] * n, 12 * n)
+    cols = y.shape[-1] if bias_grad else 0
+    return _bound_of((_ACT_FLOPS[activation] + bool(bias_grad)) * n,
+                     12 * n + 4 * cols)
 
 
 def _check_activation(activation: str) -> None:
@@ -233,10 +309,11 @@ def _library():
         lib.znicz_gemm_f32_plan.restype = i32
         lib.znicz_gemm_f32_residency.argtypes = [i32] * 3
         lib.znicz_gemm_f32_residency.restype = i32
-        lib.znicz_act_backward_f32.argtypes = [ptr] * 3 + [
-            ctypes.c_longlong, i32, ptr]
+        i64 = ctypes.c_longlong
+        lib.znicz_act_backward_f32.argtypes = [ptr] * 4 + [
+            i64, i64, i64, i32, i64, i32, i32, ptr]
         lib.znicz_act_backward_f32.restype = i32
-        lib.znicz_empty_launch.argtypes = [ctypes.c_longlong, ptr]
+        lib.znicz_empty_launch.argtypes = [i64, i32, ptr]
         lib.znicz_empty_launch.restype = i32
         lib.znicz_gemm_error_string.argtypes = [i32]
         lib.znicz_gemm_error_string.restype = ctypes.c_char_p
@@ -312,10 +389,13 @@ def gemm_fc(a, b, bias=None, activation: str = activations.LINEAR):
     return out
 
 
-def act_backward(y, err, activation: str):
-    """``err * act'(y)`` on same-shaped contiguous f32 tensors; returns
-    ``err`` itself for ``linear`` (no launch).  The plain version on CPU
-    tensors, the kernel on CUDA tensors."""
+def act_backward(y, err, activation: str, bias_grad: bool = False):
+    """``err * act'(y)`` on same-shaped contiguous f32 tensors, taken as
+    (shape[0], rest); with ``bias_grad`` -> ``(err_v, grad_b)``, grad_b
+    the column sums over the rows from the same launch.  Returns ``err``
+    itself for ``linear`` (no launch; not with ``bias_grad``).  The plain
+    versions on CPU tensors, the kernel on CUDA tensors; the kernel
+    always writes grad_b, which is dropped without ``bias_grad``."""
     global act_launches
     _check_activation(activation)
     if y.shape != err.shape:
@@ -325,28 +405,42 @@ def act_backward(y, err, activation: str):
     if not (y.is_contiguous() and err.is_contiguous()):
         raise ValueError("y and err must be contiguous")
     if activation == activations.LINEAR:
+        if bias_grad:
+            raise ValueError("a linear backward has no activation pass "
+                             "to take grad_b from; sum err itself")
         return err
-    if y.device.type == "cpu":
-        return act_backward_plain(y, err, activation)
     if y.numel() < 1:
         raise ValueError("empty act_backward")
+    m = y.shape[0] if y.dim() > 1 else 1
+    y2, e2 = y.reshape(m, -1), err.reshape(m, -1)
+    if y.device.type == "cpu":
+        if bias_grad:
+            return act_bias_backward_plain(y2, e2, activation)
+        return act_backward_plain(y, err, activation)
+    n = y2.shape[1]
     out = torch.empty_like(err)
+    grad_b = torch.empty(n, dtype=torch.float32, device=y.device)
+    vec = _act_vec(y2, e2, out, grad_b)
+    plan = act_bias_plan(m, n, vec)
     rc = _library().znicz_act_backward_f32(
-        y.data_ptr(), err.data_ptr(), out.data_ptr(), y.numel(),
+        y.data_ptr(), err.data_ptr(), out.data_ptr(), grad_b.data_ptr(), m,
+        n, plan["tiles"], plan["ranks"], plan["rows_per_lane"], vec,
         _ACT_CODES[activation], torch.cuda.current_stream(y.device)
         .cuda_stream)
     _raise_on(rc, "act_backward")
     act_launches += 1
-    return out
+    return (out, grad_b) if bias_grad else out
 
 
-def empty_launch(n: int, device) -> None:
-    """An empty kernel over the grid :func:`act_backward`'s vector path
-    takes for ``n`` elements, launched through the same library, on the
-    current stream of ``device``: a measurement of the launch floor, on
-    no path (so no counter)."""
+def empty_launch(y) -> None:
+    """An empty kernel over the grid and clusters :func:`act_backward`'s
+    vector path takes for a 2-D ``y``, launched through the same library
+    on the current stream of ``y``'s device: a measurement of the launch
+    floor, on no path (so no counter)."""
+    plan = act_bias_plan(y.shape[0], y.shape[1], 4)
     rc = _library().znicz_empty_launch(
-        int(n), torch.cuda.current_stream(device).cuda_stream)
+        plan["tiles"], plan["ranks"],
+        torch.cuda.current_stream(y.device).cuda_stream)
     _raise_on(rc, "empty_launch")
 
 
@@ -360,14 +454,17 @@ def fc_backward(x, y, w, err_output, activation: str = activations.LINEAR,
                 activation_applied: bool = True):
     """All2All backward -> ``(err_input, grad_w, grad_b)``, gradients
     summed over the batch (the semantics of ``ops/linear.py backward``):
-    ``err_v = err * act'(y)`` then ``err_v @ w.T`` and ``x.T @ err_v`` on
-    the kernels, ``grad_b`` a torch sum."""
+    ``err_v = err * act'(y)`` and ``grad_b`` from act_backward's one
+    launch, then ``err_v @ w.T`` and ``x.T @ err_v`` on the GEMM kernel.
+    With no activation to apply (``linear`` or ``activation_applied``
+    False), ``err_v`` is the error itself and ``grad_b`` a torch sum."""
     x_flat = x.reshape(x.shape[0], -1)
     err = err_output.reshape(err_output.shape[0], -1)
-    if activation_applied:
-        err_v = act_backward(y.reshape(y.shape[0], -1), err, activation)
+    if activation_applied and activation != activations.LINEAR:
+        err_v, grad_b = act_backward(y.reshape(y.shape[0], -1), err,
+                                     activation, bias_grad=True)
     else:
-        err_v = err
+        err_v, grad_b = err, err.sum(dim=0)
     err_input = gemm_fc(err_v, w.t()).reshape(x.shape)
     grad_w = gemm_fc(x_flat.t(), err_v)
-    return err_input, grad_w, err_v.sum(dim=0)
+    return err_input, grad_w, grad_b

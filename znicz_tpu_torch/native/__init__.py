@@ -1,13 +1,15 @@
 """Native host-side loader core — the port of ``znicz_tpu/native``
 (C++ through ctypes, as the reference binds its native pieces).
 
-``loader_core.cpp`` is a byte-for-byte copy of the reference's source
-(tests/test_torch_port_isolation.py holds the two equal).  It is
-compiled at first use with ``g++ -O3 -shared -fPIC -std=c++17 -pthread``
-into ``znicz_tpu_torch/_build/`` (git-ignored), named by a hash of the
-source and the flags; the build writes a temporary file that is renamed
-into place, so concurrent processes (the tests' workers) never load a
-torn library.
+``loader_core.cpp`` and ``infer_core.cpp`` (the C++ inference runtime
+of ``infer.py``) are byte-for-byte copies of the reference's sources
+(tests/test_torch_port_isolation.py holds them equal).  :func:`build`
+compiles one at first use with ``g++ -O3 -shared -fPIC -std=c++17
+-pthread`` (and its link flags: ``-lz`` for the runtime's zlib) into
+``znicz_tpu_torch/_build/`` (git-ignored), named by a hash of the source
+and the flags; the build writes a temporary file that is renamed into
+place, so concurrent processes (the tests' workers) never load a torn
+library.
 
 One divergence from the reference: the reference quietly serves numpy
 when no compiler is found (``native.available()``).  Here a failed
@@ -46,32 +48,40 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
-def library_path() -> Path:
-    """Where the library built from ``loader_core.cpp`` lives."""
-    digest = hashlib.sha256(SOURCE.read_bytes())
-    digest.update(" ".join((CXX,) + CXX_FLAGS).encode())
-    return BUILD_DIR / f"libloader_core-{digest.hexdigest()[:16]}.so"
+def library_path(source: Optional[Path] = None,
+                 link_flags: tuple = ()) -> Path:
+    """Where the library built from ``source`` (``SOURCE`` by default)
+    lives: named by the source and by a hash of its bytes, the compiler
+    and the flags."""
+    source = SOURCE if source is None else source
+    digest = hashlib.sha256(source.read_bytes())
+    digest.update(" ".join((CXX,) + CXX_FLAGS + tuple(link_flags))
+                  .encode())
+    return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile ``loader_core.cpp`` unless it is built; returns the
-    library's path.  Raises with the compiler's output when the build
-    fails or the compiler is missing."""
-    path = library_path()
+def build(source: Optional[Path] = None, link_flags: tuple = ()) -> Path:
+    """Compile ``source`` (``SOURCE``, ``loader_core.cpp``, by default)
+    unless it is built, with ``link_flags`` after the source (``-lz`` for
+    ``infer_core.cpp``); returns the library's path.  Raises with the
+    compiler's output when the build fails or the compiler is
+    missing."""
+    source = SOURCE if source is None else source
+    path = library_path(source, link_flags)
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [CXX, *CXX_FLAGS, str(SOURCE), "-o", str(tmp)]
+    cmd = [CXX, *CXX_FLAGS, str(source), "-o", str(tmp), *link_flags]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=180)
     except OSError as exc:
-        raise RuntimeError(f"the native loader core cannot be built: "
+        raise RuntimeError(f"the native {source.stem} cannot be built: "
                            f"{' '.join(cmd)}: {exc}") from exc
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"the native loader core failed to build "
+        raise RuntimeError(f"the native {source.stem} failed to build "
                            f"({' '.join(cmd)} exited {proc.returncode}):\n"
                            f"{proc.stderr}")
     os.replace(tmp, path)

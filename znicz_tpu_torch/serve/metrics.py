@@ -1,14 +1,17 @@
-"""Generative serving telemetry — the counterpart of
-``znicz_tpu/serve/metrics.py`` for the generate plane.
+"""Serving telemetry — the counterpart of ``znicz_tpu/serve/metrics.py``
+for both serving planes: the forward-package plane (``ServingMetrics``,
+read by the micro-batcher and ``GET /metrics``) and the generate plane
+(``GenerateMetrics``).
 
-Everything is stdlib + O(1) per event: a fixed-bucket TTFT histogram
-(p50/p95/p99 read off the cumulative bucket counts, no per-request
-sample retention), admission / completion / failure counters, slot and
-queue gauges, arena-page occupancy, the speculative acceptance counts
-and tokens/sec over a sliding window.  ``snapshot()`` returns a plain
-JSON-able dict — the wire schema served by ``GET /metrics``; the same
-events are mirrored into the process-global registry as the
-``znicz_generate_*`` family.
+Everything is stdlib + O(1) per event: fixed-bucket latency and TTFT
+histograms (p50/p95/p99 read off the cumulative bucket counts, no
+per-request sample retention), an exact coalesced-batch-size histogram,
+admission / rejection / timeout / completion / failure counters, queue
+and slot gauges, arena-page occupancy, the speculative acceptance
+counts, QPS and tokens/sec over sliding windows.  ``snapshot()`` returns
+a plain JSON-able dict — the wire schema served by ``GET /metrics``;
+the same events are mirrored into the process-global registry as the
+``znicz_serve_*`` and ``znicz_generate_*`` families.
 """
 
 from __future__ import annotations
@@ -27,15 +30,42 @@ from znicz_tpu_torch.observe.registry import quantile_from_buckets
 LATENCY_BUCKETS_MS = (
     0.5, 1, 2, 5, 10, 20, 50, 100, 200, 500, 1000, 2000, 4000, 8000)
 
+# shared-registry mirror: the per-instance snapshot() below stays the
+# /status.json wire schema; these donate the same events into
+# the process-global plane GET /metrics scrapes.  Counters aggregate
+# across ServingMetrics instances (process-lifetime, Prometheus
+# semantics); the QPS/queue-depth gauges follow the newest instance —
+# one serving plane per process is the deployed shape.
+_M_REQUESTS = _metrics.counter(
+    "znicz_serve_requests_total", "serving requests by outcome",
+    labelnames=("event",))
+_M_LATENCY = _metrics.histogram(
+    "znicz_serve_latency_seconds", "request latency (admit -> complete)",
+    buckets=tuple(b / 1000.0 for b in LATENCY_BUCKETS_MS))
+_M_BATCHES = _metrics.counter(
+    "znicz_serve_batches_total", "coalesced engine batches dispatched")
+_M_BATCH_ROWS = _metrics.counter(
+    "znicz_serve_batch_rows_total", "rows across coalesced batches")
+_M_QUEUE = _metrics.gauge("znicz_serve_queue_depth",
+                          "admitted chunks awaiting service")
+_M_QPS = _metrics.gauge("znicz_serve_qps",
+                        "completions/sec over the sliding window "
+                        "(newest serving plane)")
+# `errors` counts failed BATCHES (one engine crash,
+# however many requests rode it); this counts failed REQUESTS, so the
+# admission ledger closes exactly: admitted == completed + failed
+_M_REQ_FAILED = _metrics.counter(
+    "znicz_serve_requests_failed_total",
+    "requests terminally failed (engine error, deadline, shutdown)")
+
 #: TTFT bucket upper bounds in milliseconds — generative serving's
 #: time-to-first-token spans an in-process prefill (~ms) to a deep
 #: admission queue under load
 TTFT_BUCKETS_MS = (
     1, 2.5, 5, 10, 25, 50, 100, 250, 500, 1000, 2500, 5000, 10000)
 
-# registry mirrors: counters aggregate across instances (process
-# lifetime, Prometheus semantics); gauges follow the newest instance —
-# one serving plane per process is the deployed shape
+# generative plane mirrors: same newest-instance-wins gauge convention
+# as the serve mirrors above
 _M_GEN_REQUESTS = _metrics.counter(
     "znicz_generate_requests_total", "generation requests by outcome",
     labelnames=("event",))
@@ -55,7 +85,8 @@ _M_GEN_ABANDONED = _metrics.counter(
     "znicz_generate_abandoned_total",
     "requests abandoned by the client (cancel / disconnect)")
 # the wait queue is scrapeable (not snapshot-only): a fleet
-# autoscaler rule reads the total queue depth across workers
+# autoscaler rule reads the total queue depth across workers, like
+# znicz_serve_queue_depth
 _M_GEN_QUEUE = _metrics.gauge(
     "znicz_generate_queue_depth",
     "admitted generations waiting for a decode slot (newest batcher)")
@@ -104,7 +135,7 @@ class LatencyHistogram:
     def percentile(self, p: float) -> float:
         """Estimated ``p``-th percentile in milliseconds (0 when empty)
         — delegates to the registry's shared
-        :func:`~znicz_tpu.observe.registry.quantile_from_buckets`
+        :func:`~znicz_tpu_torch.observe.registry.quantile_from_buckets`
         (one quantile estimator, not two private codes), with
         this histogram's long-standing overflow convention (interpolate
         toward ``max(last_edge, mean)``)."""
@@ -128,6 +159,141 @@ class LatencyHistogram:
                 "+Inf": self.counts[-1],
             },
         }
+
+
+class ServingMetrics:
+    """Thread-safe aggregate of one serving plane's counters.
+
+    One instance is shared by the batcher (admission, queue depth,
+    request latency) and the HTTP front end; the engine keeps its own
+    compile/run counters and the server merges both views in
+    ``GET /metrics``.
+    """
+
+    #: sliding-window length for the recent-QPS figure
+    WINDOW_S = 10.0
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.started_at = time.monotonic()
+        self.admitted = 0
+        self.rejected = 0          # backpressure: queue-full fast failures
+        self.timed_out = 0         # deadline expired before service
+        self.completed = 0
+        self.errors = 0            # model/engine raised during service
+        self.failed = 0            # requests terminally failed (ledger:
+        #                            admitted == completed + failed)
+        self.queue_depth = 0       # live gauge, maintained by the batcher
+        self.batch_sizes: dict[int, int] = {}   # coalesced batch -> count
+        self.latency = LatencyHistogram()
+        self._recent: deque = deque()           # completion stamps
+        _M_QPS.set_function(self.qps)           # newest instance wins
+
+    # -- event hooks (called by batcher / server) ---------------------------
+    # registry mirrors honor the observe master switch like every other
+    # probe (probe.set_enabled(False) => the instance counters keep
+    # serving /status.json but the shared plane stops moving and the
+    # per-request hot path drops the global-registry lock traffic)
+    def on_admit(self, n_chunks: int = 1) -> None:
+        with self._lock:
+            self.admitted += 1
+            self.queue_depth += n_chunks
+            depth = self.queue_depth
+        if _probe.enabled():
+            _M_QUEUE.set(depth)
+            _M_REQUESTS.labels(event="admitted").inc()
+
+    def on_reject(self) -> None:
+        with self._lock:
+            self.rejected += 1
+        if _probe.enabled():
+            _M_REQUESTS.labels(event="rejected").inc()
+
+    def on_dequeue(self, n_chunks: int = 1) -> None:
+        with self._lock:
+            self.queue_depth = max(0, self.queue_depth - n_chunks)
+            depth = self.queue_depth
+        if _probe.enabled():
+            _M_QUEUE.set(depth)
+
+    def on_timeout(self) -> None:
+        with self._lock:
+            self.timed_out += 1
+        if _probe.enabled():
+            _M_REQUESTS.labels(event="timed_out").inc()
+
+    def on_error(self) -> None:
+        with self._lock:
+            self.errors += 1
+        if _probe.enabled():
+            _M_REQUESTS.labels(event="error").inc()
+
+    def on_request_failed(self) -> None:
+        """One REQUEST got a terminal error (any cause: engine failure,
+        deadline, non-drain shutdown) — the batcher calls this exactly
+        once per request, from the one place requests fail, so
+        ``admitted == completed + failed`` holds after a drain."""
+        with self._lock:
+            self.failed += 1
+        if _probe.enabled():
+            _M_REQ_FAILED.inc()
+
+    def on_batch(self, batch_rows: int) -> None:
+        with self._lock:
+            self.batch_sizes[batch_rows] = \
+                self.batch_sizes.get(batch_rows, 0) + 1
+        if _probe.enabled():
+            _M_BATCHES.inc()
+            _M_BATCH_ROWS.inc(batch_rows)
+
+    def on_complete(self, latency_s: float) -> None:
+        now = time.monotonic()
+        with self._lock:
+            self.completed += 1
+            self.latency.record(latency_s)
+            self._recent.append(now)
+            cutoff = now - self.WINDOW_S
+            while self._recent and self._recent[0] < cutoff:
+                self._recent.popleft()
+        if _probe.enabled():
+            _M_REQUESTS.labels(event="completed").inc()
+            _M_LATENCY.observe(latency_s)
+
+    # -- export -------------------------------------------------------------
+    def qps(self) -> float:
+        """Completions per second over the sliding window (falls back to
+        the since-start average while the window is still filling)."""
+        with self._lock:
+            return self._qps_locked(time.monotonic())
+
+    def _qps_locked(self, now: float) -> float:
+        elapsed = now - self.started_at
+        if elapsed <= 0:
+            return 0.0
+        if elapsed < self.WINDOW_S:
+            return self.completed / elapsed
+        cutoff = now - self.WINDOW_S
+        while self._recent and self._recent[0] < cutoff:
+            self._recent.popleft()
+        return len(self._recent) / self.WINDOW_S
+
+    def snapshot(self) -> dict:
+        now = time.monotonic()
+        with self._lock:
+            return {
+                "uptime_s": round(now - self.started_at, 3),
+                "qps": round(self._qps_locked(now), 3),
+                "admitted": self.admitted,
+                "rejected": self.rejected,
+                "timed_out": self.timed_out,
+                "completed": self.completed,
+                "errors": self.errors,
+                "failed": self.failed,
+                "queue_depth": self.queue_depth,
+                "batch_size_histogram": {
+                    str(k): v for k, v in sorted(self.batch_sizes.items())},
+                "latency": self.latency.snapshot(),
+            }
 
 
 class GenerateMetrics:

@@ -1,5 +1,22 @@
-"""HTTP front end + CLI of the generative serving plane — the
-counterpart of ``znicz_tpu/serve/server.py``'s ``generate`` half.
+"""HTTP front ends + CLIs of the serving planes — the counterpart of
+``znicz_tpu/serve/server.py``.
+
+The forward-package plane (``ServeServer``, ``python -m znicz_tpu_torch
+serve``): requests enter a bounded queue, the micro-batcher coalesces
+them into bucketed engine batches (on the card one CUDA graph replay a
+batch), and the telemetry needed to operate the thing is one GET away.
+
+    POST /predict   {"input": [[...], ...], "timeout_s": 5}
+                    -> 200 {"output": [...]}
+                    |  400 bad request  | 503 queue full (backpressure)
+                    |  504 deadline exceeded
+    GET  /metrics       -> serving + engine counters (metrics.py schema)
+    GET  /metrics.prom  -> process registry, Prometheus text
+    GET  /trace.json    -> this worker's span ring
+    GET  /healthz | /livez | /readyz | /
+
+The generate plane (``GenerateServer``, ``python -m znicz_tpu_torch
+generate``):
 
     POST /generate      streaming (ndjson) or single-document generation
     GET  /metrics       -> {"generate": ..., "decoder": ...}
@@ -7,13 +24,20 @@ counterpart of ``znicz_tpu/serve/server.py``'s ``generate`` half.
     GET  /trace.json    -> span ring incl. per-request phase spans
     GET  /healthz | /livez | /readyz | /
 
-CLI:  python -m znicz_tpu_torch generate <lm.npz> [--prompt TEXT |
+CLI:  python -m znicz_tpu_torch serve <package.npz> [--port N]
+          [--max-batch N] [--max-wait-ms F] [--max-queue N] [--native]
+          [--no-warmup] [--no-aot] [--device cpu] [--smoke-test]
+      python -m znicz_tpu_torch generate <lm.npz> [--prompt TEXT |
           --tokens IDS] [--serve --port N --slots B] [--device cpu]
           [--speculative --spec-k K --draft-layers N]
 
-Runs on ``cuda`` unless ``--device`` names another device; with no card
-and no ``--device cpu`` the CLI exits non-zero with a message.  The
-forward-package ``serve`` plane comes with a later slice of the port.
+Both run on ``cuda`` unless ``--device`` names another device; with no
+card and no ``--device cpu`` the CLIs exit non-zero with a message.
+``serve --native`` serves through the C++ runtime on the host, by the
+user's choice; a runtime that cannot be built exits non-zero too.
+``--no-aot`` parses and is ignored (the port has no ahead-of-time
+executables), and ``--feedback-spool`` (the learn plane's spool) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -25,12 +49,15 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+import numpy as np
 
 from znicz_tpu_torch.core.logger import Logger
 from znicz_tpu_torch.observe import trace as _trace
 from znicz_tpu_torch.observe.federation import (next_request_id,
                                                 request_track)
-from znicz_tpu_torch.serve.batcher import QueueFull
+from znicz_tpu_torch.serve.batcher import (DeadlineExceeded, MicroBatcher,
+                                           QueueFull)
+from znicz_tpu_torch.serve.engine import BatchEngine, load_backend
 
 
 class _JsonHandler(BaseHTTPRequestHandler):
@@ -103,6 +130,140 @@ class _JsonHandler(BaseHTTPRequestHandler):
         from znicz_tpu_torch.observe.trace import TRACER
 
         self._reply(200, TRACER.export_dict())
+
+
+class ServeServer(Logger):
+    """The assembled forward-package serving plane: engine + batcher +
+    HTTP."""
+
+    def __init__(self, model, port: int = 0, max_batch: int | None = None,
+                 max_wait_ms: float = 2.0, max_queue: int = 128,
+                 default_timeout_s: float = 30.0,
+                 warmup: bool = True, package_info: dict | None = None,
+                 feedback=None) -> None:
+        super().__init__()
+        if feedback is not None:
+            raise NotImplementedError(
+                "the learn-plane feedback spool is not ported yet "
+                "(ROADMAP.md queue A item 14)")
+        #: content fingerprint of the package this worker booted from
+        #: (utils/naming.py package_fingerprint) — served on /readyz so
+        #: rolling weight updates can verify adoption
+        self.package_info = package_info
+        if isinstance(model, BatchEngine):
+            if max_batch is not None and max_batch != model.max_batch:
+                raise ValueError(
+                    f"max_batch={max_batch} conflicts with the supplied "
+                    f"engine's max_batch={model.max_batch}; configure it "
+                    "on the engine")
+            self.engine = model
+        else:
+            self.engine = BatchEngine(
+                model, max_batch=64 if max_batch is None else max_batch)
+        if warmup and self.engine.input_shape is not None:
+            self.engine.warmup()
+        self.batcher = MicroBatcher(self.engine, max_wait_ms=max_wait_ms,
+                                    max_queue=max_queue,
+                                    default_timeout_s=default_timeout_s)
+        self.metrics = self.batcher.metrics
+        self.port = int(port)
+        self._httpd = None
+        self._thread = None
+
+    # -- payloads ------------------------------------------------------------
+    def metrics_snapshot(self) -> dict:
+        """Serving + engine counters — the ``GET /metrics`` document."""
+        return {"serving": self.metrics.snapshot(),
+                "engine": self.engine.stats()}
+
+    def meta_snapshot(self) -> dict:
+        return {"model": self.engine.meta,
+                "n_requests": self.metrics.admitted,
+                "max_batch": self.engine.max_batch,
+                "package": self.package_info}
+
+    # -- HTTP ----------------------------------------------------------------
+    def start(self) -> int:
+        plane = self
+
+        class Handler(_JsonHandler):
+            def do_GET(self):
+                if self.path.startswith("/metrics.prom"):
+                    self._reply_prom()
+                elif self.path.startswith("/metrics"):
+                    self._reply(200, plane.metrics_snapshot())
+                elif self.path.startswith("/trace.json"):
+                    self._reply_trace()
+                elif self.path.startswith("/livez"):
+                    self._reply_livez()
+                elif self.path.startswith("/readyz"):
+                    self._reply_readyz(plane.batcher.draining,
+                                       plane.package_info)
+                elif self.path.startswith("/healthz"):
+                    self._reply_healthz(plane.batcher.draining)
+                else:
+                    self._reply(200, plane.meta_snapshot())
+
+            def do_POST(self):
+                if not self.path.startswith("/predict"):
+                    self._reply(404, {"error": "POST /predict"})
+                    return
+                rid = self._request_id()     # router-minted or admission
+                try:
+                    n = int(self.headers.get("Content-Length", 0))
+                    doc = json.loads(self.rfile.read(n))
+                    future = plane.batcher.submit(
+                        doc["input"], timeout_s=doc.get("timeout_s"),
+                        request_id=rid)
+                except QueueFull as exc:
+                    self._reply(503, {"error": str(exc)},
+                                headers=(("Retry-After", "1"),))
+                    return
+                except (KeyError, ValueError, TypeError,
+                        json.JSONDecodeError) as exc:
+                    self._reply(400, {"error": str(exc)})
+                    return
+                try:
+                    out = future.result()
+                except DeadlineExceeded as exc:
+                    self._reply(504, {"error": str(exc)})
+                    return
+                except QueueFull as exc:    # non-drain shutdown flushed it
+                    self._reply(503, {"error": str(exc)},
+                                headers=(("Retry-After", "1"),))
+                    return
+                except Exception as exc:  # noqa: BLE001 — engine failure
+                    self._reply(500, {"error": str(exc)})
+                    return
+                self._reply(200, {"output": np.asarray(out).tolist()},
+                            headers=(("X-Request-Id", rid),))
+
+        self._httpd = ThreadingHTTPServer(("127.0.0.1", self.port), Handler)
+        self.port = self._httpd.server_address[1]
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        daemon=True, name="serve-http")
+        self._thread.start()
+        self.info(f"serving on http://127.0.0.1:{self.port}/ "
+                  f"(buckets {list(self.engine.buckets)})")
+        return self.port
+
+    def stop(self, drain: bool = True) -> None:
+        """Graceful shutdown, in load-balancer-observable order: the
+        batcher drains FIRST — while it does, ``/healthz`` answers 503
+        "draining" and new ``/predict`` admissions get 503 QueueFull —
+        then the listener closes, and the engine backend is released
+        only if the drain actually finished (a worker still grinding
+        through the queue must not lose its backend mid-batch)."""
+        drained = self.batcher.stop(drain=drain)
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+            self._httpd = None
+        if drained:
+            self.engine.close()
+        else:
+            self.warning("drain still in progress past the join timeout;"
+                         " leaving the engine open for the worker")
 
 
 def encode_chars(text: str, charmap) -> list:
@@ -487,7 +648,7 @@ def start_generate_server(args, params, meta) -> GenerateServer:
     if args.feedback_spool:
         raise NotImplementedError(
             "the learn-plane feedback spool (--feedback-spool) is not "
-            "ported yet (ROADMAP.md queue A item 13)")
+            "ported yet (ROADMAP.md queue A item 14)")
     if args.speculative and args.no_paged:
         raise GenerateConfigError("--speculative needs the paged arena "
                                   "(drop --no-paged)")
@@ -619,6 +780,105 @@ def generate_main(argv) -> int:
         # default first would let a second SIGTERM kill the worker
         # mid-drain and lose every request it had admitted
         print("generate: draining...")
+        server.stop()
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    return 0
+
+
+def build_serve_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="znicz_tpu_torch serve",
+        description="serve a forward package over HTTP with dynamic "
+                    "micro-batching")
+    p.add_argument("package", help="path to a utils/export.py .npz package")
+    p.add_argument("--port", type=int, default=8080,
+                   help="listen port (0 picks a free one)")
+    p.add_argument("--max-batch", type=int, default=64,
+                   help="largest coalesced batch (bucket ceiling)")
+    p.add_argument("--max-wait-ms", type=float, default=2.0,
+                   help="how long an underfull batch waits for stragglers")
+    p.add_argument("--max-queue", type=int, default=128,
+                   help="queue bound in chunks; beyond it -> 503")
+    p.add_argument("--timeout-s", type=float, default=30.0,
+                   help="default per-request deadline")
+    p.add_argument("--native", action="store_true",
+                   help="serve through the C++ runtime on the host (no "
+                        "torch in the request path); exits non-zero when "
+                        "it cannot be built")
+    p.add_argument("--no-warmup", action="store_true",
+                   help="skip materializing the batch buckets")
+    p.add_argument("--no-aot", action="store_true",
+                   help="accepted for reference command lines; the port "
+                        "has no ahead-of-time executables")
+    p.add_argument("--feedback-spool", default=None, metavar="DIR",
+                   help="not ported yet (item 14)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the forward (default cuda; "
+                        "cpu only when named)")
+    p.add_argument("--smoke-test", action="store_true",
+                   help="start, serve one self-request, exit (CI probe)")
+    return p
+
+
+def serve_main(argv) -> int:
+    from znicz_tpu_torch.core.backends import device as _device
+    from znicz_tpu_torch.utils.naming import package_fingerprint
+
+    args = build_serve_parser().parse_args(argv)
+    if args.feedback_spool:
+        raise NotImplementedError(
+            "the learn-plane feedback spool (--feedback-spool) is not "
+            "ported yet (ROADMAP.md queue A item 14)")
+    if not args.native:
+        try:
+            _device(args.device)
+        except RuntimeError as exc:
+            print(f"serve: {exc}", file=sys.stderr)
+            return 2
+    try:
+        backend = load_backend(args.package, prefer_native=args.native,
+                               device=args.device)
+    except (OSError, ValueError, RuntimeError, KeyError) as exc:
+        print(f"serve: cannot load {args.package!r}: {exc}")
+        return 2
+    server = ServeServer(backend, port=args.port, max_batch=args.max_batch,
+                         max_wait_ms=args.max_wait_ms,
+                         max_queue=args.max_queue,
+                         default_timeout_s=args.timeout_s,
+                         warmup=not args.no_warmup,
+                         package_info=package_fingerprint(args.package))
+    port = server.start()
+    if args.smoke_test:
+        import urllib.request
+
+        shape = server.engine.input_shape or (1,)
+        x = np.zeros((2,) + tuple(shape), np.float32)
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/predict",
+            data=json.dumps({"input": x.tolist()}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            out = json.loads(r.read())
+        ok = len(out["output"]) == 2
+        print(json.dumps({"smoke": "ok" if ok else "bad",
+                          "port": port,
+                          "metrics": server.metrics_snapshot()}))
+        server.stop()
+        return 0 if ok else 1
+    # serve until SIGTERM (docker/k8s stop) or Ctrl-C — both drain
+    done = threading.Event()
+    import signal
+
+    prev = signal.signal(signal.SIGTERM, lambda *a: done.set())
+    try:
+        done.wait()
+    except KeyboardInterrupt:
+        pass
+    try:
+        # the handler stays installed through the drain (see
+        # generate_main)
+        print("serve: draining...")
         server.stop()
     finally:
         signal.signal(signal.SIGTERM, prev)
