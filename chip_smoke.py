@@ -300,7 +300,24 @@ exits non-zero without the final ``ok`` line):
    process of their own, overlapping (a)), within the MNIST FC bands,
    the loss band rejecting the card's run with TF32 on.  The group is
    destroyed at the phase's end.
-17h. **serve_forward** — the forward-serving plane: AlexNet at its own
+17h. **lm_axes** — the transformer's ``(data, seq, model)`` mesh: (a)
+   ``ring_flash_attention`` over a stand-in seq axis that plays rank r
+   of n on one card over the whole K and V (rotation s hands over block
+   (r - s - 1) mod n), every rank's output and the q, k, v gradients
+   against one whole-sequence flash launch at the training step's
+   attention (b·h 64, t 2048, dh 64, bf16), n = 2 and 4, causal and not,
+   within a tile band that rejects rank 0 merging its future block; the
+   flash launches exactly Σ(r+1) under causal, n² without; ms of both;
+   (b) the train phase's step with no group, then joined through
+   ``launcher.multihost`` as a one-rank NCCL world on ``make_mesh({"data":
+   1, "seq": 1, "model": 1})``: replicated and ``head_sharded`` (16 CE
+   chunks) bit-identical to the step with no group and the same options
+   over 3 graphed steps, ``shard_update`` and ``shard_params``
+   bit-identical to the grouped replicated step, the int8 codec's losses
+   within a band of the replicated's; collectives a step, replays, flash
+   launches, ms a step, peak memory, one replay's NCCL activities.  The
+   group is destroyed at the phase's end.
+17i. **serve_forward** — the forward-serving plane: AlexNet at its own
    configuration (227 px, 1000 classes) initialized on the card,
    exported once and loaded as an ``ExportedForward`` in eval's type
    (bf16); the engine's warmup captures buckets 1, 2, 4 and 8 into CUDA
@@ -321,7 +338,7 @@ exits non-zero without the final ``ok`` line):
 (kernel, flash, gemm, optim, mnist_fused, stochastic_pool,
 pool_backward, conv, alexnet_eager, deconv, kohonen, lrn_dropout,
 ae_fused, alexnet_fused, graph_parity, fused_conv_parity,
-input_pipeline, image_files, snapshot_resume, data_parallel,
+input_pipeline, image_files, snapshot_resume, data_parallel, lm_axes,
 serve_forward, speculative, char_lm, train, or three that
 only measure and run on older trees of the port too: **waves**, the
 weight gradient at AlexNet's and build_deep's shapes with split_k's
@@ -6372,7 +6389,7 @@ def phase_build() -> dict:
 def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
                 fused, conv, alexnet, deconv, ae, spool, mcs, som,
                 lrn_drop, alex_fused, kernel_hw, spec, char,
-                data_parallel, serve_forward) -> dict:
+                data_parallel, serve_forward, lm_axes) -> dict:
     """The eighteen kernels: launches from the main paths' runs, times
     and errors from the kernel phases, bounds from this run's inputs.  A
     conv kernel's times and bound sum its launches of one AlexNet train
@@ -6387,7 +6404,10 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
     it launches (``cuda_kernels``); paged_decode's also carries the
     speculative path's launches and its verify call's time, the
     flash and paged_decode entries the char_lm phase's launches (its
-    workflow's and its served package's), and the SGD, AdamW and LRN
+    workflow's and its served package's), the flash entries the lm_axes
+    phase's (the ring's composition, Σ(r+1) a causal ring of n, and the
+    LM step on the one-rank world in each layout), and the SGD, AdamW
+    and LRN
     entries the data_parallel phase's (its AlexNet epochs with no group
     and in the three layouts, its MNIST FC codec runs on the card), and
     the LRN forward's the serve_forward phase's HTTP load (two a replayed
@@ -6406,6 +6426,11 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
 
     sgd = optim["timed"]["sgd_vel_bfloat16"]
     hw = kernel_hw["launches"]
+    lm_axes_flash = {k: {"ring": sum(r["launches"][k]
+                                     for r in lm_axes["ring"]["rows"]),
+                         "lm_step": sum(r["flash_launches"][k] for r in
+                                        lm_axes["lm_step"].values())}
+                     for k in ("fwd", "bwd")}
     dp = {k: sum(r["launches"][k] for r in data_parallel["alexnet"].values())
           for k in ("sgd_update", "lrn_forward", "lrn_backward")}
     dp["adam_update"] = sum(data_parallel["mnist_fc_codecs"][k][
@@ -6429,11 +6454,13 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
         entry("flash_attention_fwd", kflash.SOURCE, kflash.REPLACES_FWD,
               train["fwd_launches"], flash["fwd"],
               flash["fwd"]["max_abs_err"],
-              char_lm_launches=char["a_workflow"]["fwd_launches"]),
+              char_lm_launches=char["a_workflow"]["fwd_launches"],
+              lm_axes_launches=lm_axes_flash["fwd"]),
         entry("flash_attention_bwd", kflash.SOURCE, kflash.REPLACES_BWD,
               train["bwd_launches"], flash["bwd"],
               flash["bwd"]["max_abs_err"],
-              char_lm_launches=char["a_workflow"]["bwd_launches"]),
+              char_lm_launches=char["a_workflow"]["bwd_launches"],
+              lm_axes_launches=lm_axes_flash["bwd"]),
         entry("gemm_fc", kgemm.SOURCE, kgemm.REPLACES_GEMM,
               eager["gemm_fc_launches"], gemm["gemm"],
               gemm["gemm"]["max_abs_err"],
@@ -8393,6 +8420,318 @@ def phase_data_parallel(cpu_started=None) -> dict:
     return out
 
 
+#: lm_axes (a): the ring's composition at the training step's attention
+#: (b·h 64: batch 8, 8 heads; t 2048; dh 64; bf16), the sequence split
+#: over n of LM_RING_NS ranks that the one card plays one after another
+LM_RING_NS = (2, 4)
+#: ring against one whole-sequence flash launch, as the largest norm-
+#: relative error of any 64-row tile (tile_rel_err), fixed before the
+#: first run.  Each ring block's o is rounded to bf16 before the f32
+#: lse merge and each block's dq, dk, dv partial is a bf16 kernel output
+#: summed in bf16, where the whole sequence normalises and sums once:
+#: a few bf16 roundings (2^-9 relative each) a value, as FLASH_TOL's
+#: bf16 kernel-vs-plain band allows.  A rank that merges a future block
+#: (the control) moves its rows' outputs by order 1
+LM_RING_TOL = {"o": 1e-2, "dq": 1e-2, "dk": 1e-2, "dv": 1e-2}
+#: lm_axes (b): the layouts of the one-rank NCCL world, three steps each
+#: (eager, captured and replayed, replayed) from the seeded initial
+#: weights, then LM_AXES_TIMED timed replays
+LM_AXES_LAYOUTS = {"replicated": {}, "head_sharded": {"head_sharded": True},
+                   "shard_update": {"shard_update": True},
+                   "shard_params": {"shard_params": True}}
+LM_AXES_STEPS, LM_AXES_TIMED = 3, 5
+#: the int8 codec at one rank quantizes each gradient chunk to 255
+#: levels (~0.4 % of its absmax) before the update: the first loss is
+#: the forward at the initial weights (bit-identical), the next two
+#: move by the update's quantization, a few 1e-5 of losses near 10 at
+#: lr 1e-3; the band, fixed before the first run, is rtol 1e-3
+LM_INT8_RTOL = 1e-3
+
+
+class SeqStandIn:
+    """The ring's seq axis for rank ``index`` of ``size`` played on one
+    device over the WHOLE folded K and V ``(b·h, t, dh)``: the s-th
+    rotation hands over block ``(index - s - 1) mod size`` as slices of
+    the whole tensors, so autograd carries each block's gradient back
+    to them (``parallel/ring_attention.py ring_blocks``' stand-in
+    contract)."""
+
+    def __init__(self, kf, vf, index: int, size: int) -> None:
+        self.kf, self.vf, self.index, self.size = kf, vf, index, size
+        self.rotations = 0
+
+    def ppermute(self, _tensors):
+        self.rotations += 1
+        j = (self.index - self.rotations) % self.size
+        t_l = self.kf.shape[1] // self.size
+        return [x[:, j * t_l:(j + 1) * t_l].contiguous()
+                for x in (self.kf, self.vf)]
+
+
+def ring_composition_run(q, k, v, do, n: int, causal: bool):
+    """Every rank of an n-rank ring through ``ring_flash_attention`` with
+    :class:`SeqStandIn` axes, one after another, then one backward of
+    ``(o · do).sum()`` -> (o, dq, dk, dv) over the whole ``(b, t, h,
+    dh)`` tensors."""
+    from znicz_tpu_torch.parallel import ring_attention as ring
+
+    q, k, v = (x.detach().requires_grad_(True) for x in (q, k, v))
+    b, t, h, dh = q.shape
+    t_l = t // n
+    kf, vf = (x.transpose(1, 2).reshape(b * h, t, dh) for x in (k, v))
+    outs = [ring.ring_flash_attention(
+        q[:, r * t_l:(r + 1) * t_l], k[:, r * t_l:(r + 1) * t_l],
+        v[:, r * t_l:(r + 1) * t_l], SeqStandIn(kf, vf, r, n), causal)
+        for r in range(n)]
+    o = torch.cat(outs, 1)
+    return (o.detach(),) + torch.autograd.grad(o, (q, k, v), do)
+
+
+def whole_run(q, k, v, do, causal: bool):
+    """One whole-sequence flash_attention forward and backward."""
+    q, k, v = (x.detach().requires_grad_(True) for x in (q, k, v))
+    o = kflash.flash_attention(q, k, v, causal)
+    return (o.detach(),) + torch.autograd.grad(o, (q, k, v), do)
+
+
+@contextlib.contextmanager
+def future_block_merged():
+    """The control: rank 0 merges block 1, a future block under causal
+    masking, unmasked."""
+    from znicz_tpu_torch.parallel import ring_attention as ring
+
+    rule = ring.ring_block
+    ring.ring_block = lambda me, blk, causal: \
+        "full" if (me, blk) == (0, 1) else rule(me, blk, causal)
+    try:
+        yield
+    finally:
+        ring.ring_block = rule
+
+
+def ring_composition(device, b, h, t, dh, dtype, ns=LM_RING_NS,
+                     seed=SEED, timed=False) -> tuple:
+    """(a): the ring composition against the whole-sequence flash kernel
+    at (b, t, h, dh) for each n of ``ns``, causal and not: each output's
+    tile error against LM_RING_TOL, the flash launches of the ring's
+    forward and backward (counted on CUDA tensors: Σ(r+1) under causal,
+    n² without), and the control (causal, n = ns[0]: rank 0 merging a
+    future block) which the band must reject; ``timed`` adds ms of the
+    ring's forward and backward over all ranks beside the whole
+    kernel's.  Runs on CPU tensors too (the plain versions, no launch
+    counts).  -> (report, failures)"""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    q, k, v, do = (torch.randn((b, t, h, dh), generator=gen).to(
+        device=device, dtype=dtype) for _ in range(4))
+    rows, bad = [], []
+    for causal in (True, False):
+        want = whole_run(q, k, v, do, causal)
+        for n in ns:
+            kflash.fwd_launches = kflash.bwd_launches = 0
+            got = ring_composition_run(q, k, v, do, n, causal)
+            launches = (kflash.fwd_launches, kflash.bwd_launches)
+            row = {"n": n, "causal": causal,
+                   "err": {name: tile_rel_err(
+                       g.transpose(1, 2).reshape(b * h, t, dh),
+                       w.transpose(1, 2).reshape(b * h, t, dh))
+                       for name, g, w in zip(("o", "dq", "dk", "dv"), got,
+                                             want)}}
+            expect = n * (n + 1) // 2 if causal else n * n
+            if torch.device(device).type == "cuda":
+                row["launches"] = {"fwd": launches[0], "bwd": launches[1],
+                                   "expect": expect}
+                if launches != (expect, expect):
+                    bad.append(f"ring n={n} causal={causal}: launches "
+                               f"{launches}, not {expect} each")
+            bad += [f"ring n={n} causal={causal}: {name} tile error {e}"
+                    for name, e in row["err"].items()
+                    if not e <= LM_RING_TOL[name]]
+            if timed:
+                row["ms"] = time_cuda_ms(
+                    lambda: ring_composition_run(q, k, v, do, n, causal),
+                    iters=5, warmup=1)
+                row["whole_ms"] = time_cuda_ms(
+                    lambda: whole_run(q, k, v, do, causal), iters=5,
+                    warmup=1)
+            rows.append(row)
+    with future_block_merged():
+        ctl = ring_composition_run(q, k, v, do, ns[0], True)
+    want = whole_run(q, k, v, do, True)
+    control = {"n": ns[0], "o_err": tile_rel_err(
+        ctl[0].transpose(1, 2).reshape(b * h, t, dh),
+        want[0].transpose(1, 2).reshape(b * h, t, dh))}
+    control["rejected"] = not control["o_err"] <= LM_RING_TOL["o"]
+    if not control["rejected"]:
+        bad.append(f"the band passes the future-block control: {control}")
+    return {"shape": {"b": b, "h": h, "t": t, "dh": dh,
+                      "dtype": str(dtype)},
+            "band": LM_RING_TOL, "rows": rows, "control": control}, bad
+
+
+def _global_digests(params) -> dict:
+    """sha256 of every leaf's bytes of a global numpy pytree."""
+    import hashlib
+
+    flat = {"emb": params["emb"], "head": params["head"]}
+    for i, blk in enumerate(params["blocks"]):
+        flat.update({f"blocks.{i}.{k}": a for k, a in blk.items()})
+    return {k: hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+            for k, a in flat.items()}
+
+
+def _lm_axes_run(mesh, params, tokens, labels, profile_replay=False,
+                 **options) -> dict:
+    """(b) for one layout: the full-width step (phase train's) on
+    ``mesh`` (None: no group) from ``params``: LM_AXES_STEPS steps with
+    the flash and collective counters set to 0 just before and read
+    just after, the gathered params' digests, the collectives of one
+    more (replayed) step, LM_AXES_TIMED timed replays, the peak memory
+    and, with ``profile_replay``, one replay's NCCL and copy
+    activities."""
+    from znicz_tpu_torch.parallel import transformer as tfm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    mem_start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(mesh, N_LAYERS, D, HEADS, FF, VOCAB,
+                           lr=TRAIN_LR, loss_chunks=TRAIN_CHUNKS,
+                           device=DEVICE, **options)
+    specs = tfm.param_specs(N_LAYERS, options.get("head_sharded", False))
+    host = tfm.shard_params_host(params, specs, 1) \
+        if options.get("shard_params") else params
+    ps = params_from_numpy(host, DEVICE, mesh=mesh, specs=step.specs)
+    kflash.fwd_launches = kflash.bwd_launches = 0
+    tmesh.collective_launches = 0
+    losses = [step(ps, tokens, labels)[1] for _ in range(LM_AXES_STEPS)]
+    torch.cuda.synchronize()
+    out = {"losses": [float(x) for x in losses],
+           "flash_launches": {"fwd": kflash.fwd_launches,
+                              "bwd": kflash.bwd_launches},
+           "collectives": tmesh.collective_launches}
+    got = tfm.params_to_numpy(ps, mesh, step.specs if mesh else None)
+    if options.get("shard_params"):
+        got = tfm.unshard_params_host(got, specs, param_shapes(
+            N_LAYERS, D, FF, VOCAB))
+    out["digests"] = _global_digests(got)
+    del got
+    before = tmesh.collective_launches
+    step(ps, tokens, labels)
+    torch.cuda.synchronize()
+    out["collectives_per_step"] = tmesh.collective_launches - before
+    events = []
+    for _ in range(LM_AXES_TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(ps, tokens, labels)
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    out["ms_per_step"] = [s.elapsed_time(e) for s, e in events]
+    out["step_ms"] = float(np.median(out["ms_per_step"]))
+    # the run's own peak: from the step's build through the timed steps
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated() - mem_start
+    out["replays"] = sum(g.replays for g in step.graphs.values() if g)
+    if profile_replay:
+        acts = None
+        for _ in range(3):
+            acts = profiled_after_mark(lambda: step(ps, tokens, labels), 1)
+            if acts:
+                break
+        names = {}
+        for name, _us in acts or ():
+            if re.search("nccl|memcpy", name, re.I):
+                names[name[:80]] = names.get(name[:80], 0) + 1
+        out["replay_profile"] = {
+            "activities": len(acts or ()), "nccl_or_memcpy": names,
+            "nccl_kernels": {k: v for k, v in names.items()
+                             if DP_NCCL_KERNEL.search(k)}}
+    del step, ps
+    return out
+
+
+def phase_lm_axes() -> dict:
+    """The transformer's (data, seq, model) mesh on the one card: (a)
+    the ring's composition at the training step's attention against the
+    whole-sequence kernel (LM_RING_NS ranks played one after another,
+    a control, exact launch counts, ms); (b) phase train's full-width
+    step joined to a one-rank NCCL world (``launcher.multihost``)
+    through ``make_mesh({"data": 1, "seq": 1, "model": 1})`` in each
+    layout — replicated and head_sharded bit-identical to the step with
+    no group and the same options, shard_update and shard_params
+    bit-identical to the grouped replicated step — then the int8 codec
+    within LM_INT8_RTOL of the replicated losses; collectives a step,
+    replays, flash launches, ms a step and peak memory each, one
+    replay's NCCL activities.  The group is destroyed at the end."""
+    t0 = time.perf_counter()
+    out = {"phase": "lm_axes"}
+    out["ring"], bad = ring_composition(DEVICE, TRAIN_B, HEADS, TRAIN_T,
+                                        D // HEADS, torch.bfloat16,
+                                        timed=True)
+    out["ring"]["seconds"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    params = init_params(np.random.default_rng(SEED), N_LAYERS, D, HEADS, FF,
+                         VOCAB)
+    tokens, labels = _train_batch(SEED, TRAIN_B, TRAIN_T)
+    runs = {"ungrouped": _lm_axes_run(None, params, tokens, labels),
+            "ungrouped_head_sharded": _lm_axes_run(
+                None, params, tokens, labels, head_sharded=True)}
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    launcher.multihost(f"127.0.0.1:{port}", 1, 0)
+    try:
+        mesh = tmesh.make_mesh({"data": 1, "seq": 1, "model": 1})
+        out["mesh"] = {"repr": repr(mesh), "backend": mesh.backend}
+        for name, opts in LM_AXES_LAYOUTS.items():
+            runs[name] = _lm_axes_run(mesh, params, tokens, labels,
+                                      profile_replay=name == "replicated",
+                                      **opts)
+        runs["int8"] = _lm_axes_run(
+            mesh, params, tokens, labels,
+            quantized_collectives={"mode": "int8"})
+    finally:
+        torch.distributed.destroy_process_group()
+    same = {"replicated": "ungrouped",
+            "head_sharded": "ungrouped_head_sharded",
+            "shard_update": "replicated", "shard_params": "replicated"}
+    for name, ref in same.items():
+        ok = runs[name]["digests"] == runs[ref]["digests"] and \
+            runs[name]["losses"] == runs[ref]["losses"]
+        runs[name]["identical_to"] = {ref: ok}
+        if not ok:
+            bad.append(f"{name} differs from {ref}")
+    rel = [abs(a - b) / abs(b) for a, b in
+           zip(runs["int8"]["losses"], runs["replicated"]["losses"])]
+    runs["int8"]["loss_rel_to_replicated"] = rel
+    if not (max(rel) <= LM_INT8_RTOL and
+            runs["int8"]["losses"][0] == runs["replicated"]["losses"][0]):
+        bad.append(f"int8 losses {runs['int8']['losses']} against "
+                   f"{runs['replicated']['losses']}")
+    for name, run in runs.items():
+        if run["flash_launches"] != {"fwd": LM_AXES_STEPS * N_LAYERS,
+                                     "bwd": LM_AXES_STEPS * N_LAYERS}:
+            bad.append(f"{name}: flash launches {run['flash_launches']}")
+        # the first step runs eagerly, the second captures and replays:
+        # every later step (the collectives' one, the timed) replays
+        if run["replays"] != LM_AXES_STEPS + LM_AXES_TIMED:
+            bad.append(f"{name}: {run['replays']} replays")
+        if not all(np.isfinite(run["losses"])):
+            bad.append(f"{name}: non-finite losses {run['losses']}")
+        run.pop("digests")
+    grouped = [n for n in runs if not n.startswith("ungrouped")]
+    if any(runs[n]["collectives_per_step"] == 0 for n in grouped):
+        bad.append("a grouped step made no collective")
+    out["lm_step"] = runs
+    out["lm_step_seconds"] = time.perf_counter() - t1
+    out["seconds"] = time.perf_counter() - t0
+    if bad:
+        fail(f"lm_axes: {bad}: {out}")
+    return out
+
+
 #: serve_forward: AlexNet at its own configuration (models/alexnet.py:
 #: 227 px, 1000 classes), initialized from the seed on the card, exported
 #: once and served with buckets up to SF_MAX_BATCH (1, 2, 4, 8)
@@ -8727,6 +9066,7 @@ PHASES_ALONE = {"kernel": lambda: phase_kernel(),
                 "image_files": lambda: phase_image_files(),
                 "snapshot_resume": lambda: phase_snapshot_resume(),
                 "data_parallel": lambda: phase_data_parallel(),
+                "lm_axes": lambda: phase_lm_axes(),
                 "speculative": lambda: phase_speculative_alone(),
                 "char_lm": lambda: phase_char_lm(),
                 "train": lambda: phase_train(init_params(
@@ -8828,6 +9168,8 @@ def main() -> int:
     finally:
         _dp_cpu_stop(dp_cpu)
     emit(data_parallel)
+    lm_axes = phase_lm_axes()
+    emit(lm_axes)
     serve_forward = phase_serve_forward()
     emit(serve_forward)
     kernel_hw = phase_kernel_hw()
@@ -8835,7 +9177,7 @@ def main() -> int:
     emit({**kernel_line(kernel, flash, gemm, optim, serve, train, eager,
                         fused, conv, alexnet, deconv, ae, spool, mcs, som,
                         lrn_drop, alex_fused, kernel_hw, spec, char,
-                        data_parallel, serve_forward),
+                        data_parallel, serve_forward, lm_axes),
           "first_stream": streams[0][:8],
           "seconds": time.perf_counter() - T_START})
     print(nvidia_smi(), flush=True)

@@ -1,6 +1,7 @@
-"""Gloo worlds for the port's data-parallel tests
+"""Gloo worlds for the port's multi-process tests
 (``test_torch_port_data_parallel.py``, ``test_torch_port_qcomm.py``,
-``test_torch_port_multihost.py``).
+``test_torch_port_multihost.py``, ``test_torch_port_lm_axes.py``,
+``test_torch_port_ring_attention.py``).
 
 :func:`run_world` starts ``n`` processes of this file, each a rank of
 one gloo world on the CPU; each runs every case of a job in order and
@@ -229,8 +230,152 @@ def case_backend(case, inits):
     return {"refused": None}
 
 
+_MESHES = {}
+
+
+def _lm_mesh(axes):
+    """One mesh a layout for the whole job: its groups are made once
+    (``new_group`` is collective and every rank makes every group)."""
+    from znicz_tpu_torch.parallel import mesh as tmesh
+
+    key = tuple(axes.items())
+    if key not in _MESHES:
+        _MESHES[key] = tmesh.make_mesh(dict(axes))
+    return _MESHES[key]
+
+
+def case_lm(case, inits):
+    """The transformer step on a (data, seq, model) mesh in f32 on the
+    CPU: ``steps`` steps from the global params ``inits[case["init"]]``
+    (``tokens``, ``labels`` and, masked, ``mask`` there too), then the
+    eval loss and the logits at the trained params when asked.  Rank 0
+    returns the gathered global params; every rank its losses, its
+    mesh coordinates and the collectives it made."""
+    import torch
+
+    from znicz_tpu_torch.parallel import mesh as tmesh
+    from znicz_tpu_torch.parallel import transformer as tfm
+
+    init = inits[case["init"]]
+    arch = init["arch"]
+    mesh = _lm_mesh(case["mesh"])
+    opts = dict(case.get("options", {}))
+    masked = "mask" in init and case.get("masked", False)
+    step = tfm.make_train_step(mesh, *arch, lr=case.get("lr", 0.2),
+                               compute_dtype=torch.float32, masked=masked,
+                               device="cpu", **opts)
+    n_experts = opts.get("n_experts")
+    host = init["params"]
+    if opts.get("shard_params"):
+        host = tfm.shard_params_host(host, tfm.param_specs(
+            arch[0], opts.get("head_sharded", False),
+            moe=bool(n_experts)), mesh.shape["data"])
+    ps = tfm.params_from_numpy(host, "cpu", mesh=mesh, specs=step.specs)
+    batch = (init["tokens"], init["labels"]) + \
+        ((init["mask"],) if masked else ())
+    before = tmesh.collective_launches
+    losses = [float(step(ps, *batch)[1]) for _ in range(case["steps"])]
+    out = {"losses": losses, "coords": mesh.coords,
+           "collectives": tmesh.collective_launches - before}
+    got = tfm.params_to_numpy(ps, mesh, step.specs)
+    if opts.get("shard_params"):
+        specs = tfm.param_specs(arch[0], opts.get("head_sharded", False),
+                                moe=bool(n_experts))
+        got = tfm.unshard_params_host(got, specs, tfm.param_shapes(
+            arch[0], arch[1], arch[3], arch[4], n_experts=n_experts))
+    if mesh.rank == 0:
+        out["params"] = got
+    if case.get("eval"):
+        # at the gathered params placed anew: one replica of each leaf,
+        # as the reference's eval reads the params it is handed
+        ps = tfm.params_from_numpy(got, "cpu", mesh=mesh,
+                                   specs=tfm.param_specs(
+                                       arch[0], opts.get("head_sharded",
+                                                         False),
+                                       moe=bool(n_experts)))
+        moe = {k: opts[k] for k in ("n_experts", "moe_top_k") if k in opts}
+        ev = tfm.make_eval_loss(mesh, *arch, compute_dtype=torch.float32,
+                                masked=masked, device="cpu",
+                                loss_chunks=opts.get("loss_chunks"),
+                                head_sharded=opts.get("head_sharded",
+                                                      False), **moe)
+        out["eval"] = float(ev(ps, *batch))
+        if not opts.get("head_sharded"):
+            lg = tfm.make_logits_fn(mesh, *arch,
+                                    compute_dtype=torch.float32,
+                                    device="cpu", **moe)
+            logits = lg(ps, init["tokens"]).numpy()
+            if mesh.rank == 0:
+                out["logits"] = logits
+    return out
+
+
+def case_ring(case, inits):
+    """Both ring forms over a ``seq`` mesh of the world on this rank's
+    block of the global (b, t, h, dh) q, k, v: the output and the q, k,
+    v gradients of ``(o * w).sum()`` for each form and masking, the
+    flash forwards and backwards each ran (the plain versions, counted
+    by call), the collectives they made; and ``ring_mha_forward``."""
+    import torch
+
+    from znicz_tpu_torch.kernels import flash_attention as kflash
+    from znicz_tpu_torch.parallel import mesh as tmesh
+    from znicz_tpu_torch.parallel import ring_attention as ring
+
+    seq = _lm_mesh({"seq": torch.distributed.get_world_size()}).axis("seq")
+    calls = {"fwd": 0, "bwd": 0}
+    for kind in ("fwd", "bwd"):
+        name = f"flash_attention_{kind}"
+        plain = getattr(kflash, name)
+
+        def counted(*args, _plain=plain, _kind=kind):
+            calls[_kind] += 1
+            return _plain(*args)
+        setattr(kflash, name, counted)
+
+    def block(a):
+        t_l = a.shape[1] // seq.size
+        return torch.tensor(a[:, seq.index * t_l:(seq.index + 1) * t_l])
+
+    out = {}
+    for form in ("ring_attention", "ring_flash_attention"):
+        for causal in (False, True):
+            q, k, v = (block(inits[x]).requires_grad_(True)
+                       for x in ("q", "k", "v"))
+            calls.update(fwd=0, bwd=0)
+            before = tmesh.collective_launches
+            o = getattr(ring, form)(q, k, v, seq, causal=causal)
+            grads = torch.autograd.grad((o * block(inits["w"])).sum(),
+                                        (q, k, v))
+            out[(form, causal)] = {
+                "o": o.detach().numpy(),
+                **{g: t.numpy() for g, t in zip(("dq", "dk", "dv"), grads)},
+                "calls": dict(calls),
+                "collectives": tmesh.collective_launches - before}
+    params = {k: torch.tensor(v) for k, v in inits["mha_params"].items()}
+    out["mha"] = ring.ring_mha_forward(block(inits["x"]), params,
+                                       inits["heads"], seq,
+                                       causal=True).detach().numpy()
+    out["index"] = seq.index
+    return out
+
+
+def case_lm_backend(case, inits):
+    """The transformer step on CUDA tensors over this gloo world's mesh
+    must refuse when it is built."""
+    from znicz_tpu_torch.parallel import transformer as tfm
+
+    try:
+        tfm.make_train_step(_lm_mesh(case["mesh"]), *case["arch"],
+                            device="cuda")
+    except RuntimeError as exc:
+        return {"refused": str(exc)}
+    return {"refused": None}
+
+
 CASES = {"mnist": case_mnist, "generator": case_generator,
-         "qcomm": case_qcomm, "backend": case_backend}
+         "qcomm": case_qcomm, "backend": case_backend, "lm": case_lm,
+         "lm_backend": case_lm_backend, "ring": case_ring}
 
 
 def _worker(rank: int, n: int, port: int, job: str, out_dir: str) -> None:

@@ -65,7 +65,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                  "models.yale_faces", "loader.text", "loader.sequence",
                  "parallel.moe", "parallel.graphs", "units.lm",
                  "models.char_lm", "parallel.mesh", "parallel.zero",
-                 "parallel.qcomm", "serve.engine", "serve.batcher",
+                 "parallel.qcomm", "parallel.ring_attention",
+                 "serve.engine", "serve.batcher",
                  "native.infer", "utils.export"):
         assert f"znicz_tpu_torch.{name}" in doc["modules"]
 

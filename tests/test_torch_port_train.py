@@ -206,13 +206,20 @@ def test_params_numpy_round_trip_and_shapes(params, batch):
     ({"quantized_collectives": {"mode": "int8"}}, 10),
     ({"anatomy": True}, 14)])
 def test_unported_options_raise(option, item):
-    """The options the reference serves only on wide meshes, and
-    ``anatomy``, raise naming their ROADMAP item (the MoE options and
-    ``remat_policy`` build: tests/test_torch_port_moe.py)."""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue A "
-                                                  f"item {item}"):
-        tfm.make_train_step(None, N_LAYERS, D, HEADS, FF, VOCAB,
-                            device="cpu", **option)
+    """``anatomy`` raises naming its ROADMAP item; the layout and
+    collective options the reference serves on wide meshes (item 10)
+    build since the (data, seq, model) mesh, here on a mesh of one
+    (their parity with the JAX step on wide meshes:
+    tests/test_torch_port_lm_axes.py)."""
+    if item == 14:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue A "
+                                                      f"item {item}"):
+            tfm.make_train_step(None, N_LAYERS, D, HEADS, FF, VOCAB,
+                                device="cpu", **option)
+        return
+    step = tfm.make_train_step(None, N_LAYERS, D, HEADS, FF, VOCAB,
+                               device="cpu", **option)
+    assert callable(step) and step.mesh.size == 1
 
 
 @pytest.mark.parametrize("option", [
@@ -230,9 +237,15 @@ def test_invalid_moe_and_remat_options_raise(option):
 @pytest.mark.parametrize("build", [tfm.make_train_step, tfm.make_eval_loss,
                                    tfm.make_logits_fn])
 def test_wide_mesh_raises_and_unit_mesh_builds(build):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A mesh wider than the world raises (one process a device: a mesh
+    of 2 needs a world of 2), the pipeline's axes name item 10c, and a
+    unit mesh builds."""
+    with pytest.raises(ValueError, match="world of 1"):
         build({"data": 2, "seq": 1, "model": 1}, N_LAYERS, D, HEADS, FF,
               VOCAB, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10c"):
+        build({"data": 1, "pipe": 2}, N_LAYERS, D, HEADS, FF, VOCAB,
+              device="cpu")
     assert callable(build({"data": 1, "seq": 1, "model": 1}, N_LAYERS, D,
                           HEADS, FF, VOCAB, device="cpu"))
     assert callable(build(_mesh(), N_LAYERS, D, HEADS, FF, VOCAB,

@@ -12,7 +12,10 @@ minibatch is a CUDA graph replay on the flash kernels.
 has none), and ``run`` takes the builder's arguments from
 ``root.char_lm`` (`-o root.char_lm.d=512 -o root.char_lm.n_layers=6
 ...`), so the CLI trains any width; everything else is the
-reference's.
+reference's.  ``mesh`` is the step's ``(data, seq, model)`` mesh (a
+``{axis: size}``; from the CLI ``-o "root.char_lm.mesh={'data': 1,
+'seq': 2, 'model': 2}"`` in a world of 4 started with
+``--coordinator``), None a data-only mesh over the world.
 """
 
 from __future__ import annotations
@@ -96,8 +99,8 @@ def run(load, main):
     # znicz_tpu_torch generate` boots directly
     path = str(root.common.engine.get("lm_export", "") or "")
     if path:
-        # multi-process runs: only rank 0 writes
+        # multi-process runs: every rank gathers, only rank 0 writes
         from znicz_tpu_torch.snapshotter import process_rank_world
+        w.step.export_lm(path)
         if process_rank_world()[0] == 0:
-            w.step.export_lm(path)
             print(f"char_lm: exported LM package -> {path}")

@@ -48,3 +48,37 @@ def attention(q, k, v, causal: bool = False):
     p = softmax(masked_scores(q, k, causal))
     return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(),
                         v.float()).to(v.dtype)
+
+
+def split_heads(x, n_heads: int):
+    """``(b, t, d)`` -> per-head ``(b, t, n_heads, d / n_heads)`` (a
+    view)."""
+    b, t, d = x.shape
+    return x.reshape(b, t, n_heads, d // n_heads)
+
+
+def merge_heads(x):
+    """Per-head ``(b, t, h, dh)`` -> ``(b, t, h·dh)``."""
+    b, t, h, dh = x.shape
+    return x.reshape(b, t, h * dh)
+
+
+def mha_forward(x, params: dict, n_heads: int, causal: bool = False,
+                attention_fn=None):
+    """Full MHA block: qkv projections -> attention -> output projection.
+    ``params``: wq/wk/wv/wo ``(d, d)`` (+ optional bq/bk/bv/bo).
+    ``attention_fn(q, k, v, causal)`` overrides the core (the ring
+    variant passes its sequence-parallel core) — ONE definition of the
+    projection/param convention for all MHA assemblies."""
+    def proj(w_key, b_key):
+        y = x @ params[w_key]
+        if params.get(b_key) is not None:
+            y = y + params[b_key]
+        return split_heads(y, n_heads)
+
+    q, k, v = proj("wq", "bq"), proj("wk", "bk"), proj("wv", "bv")
+    core = attention if attention_fn is None else attention_fn
+    y = merge_heads(core(q, k, v, causal=causal)) @ params["wo"]
+    if params.get("bo") is not None:
+        y = y + params["bo"]
+    return y

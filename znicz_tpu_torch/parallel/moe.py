@@ -1,50 +1,57 @@
-"""Mixture-of-experts FFN — the port of ``znicz_tpu/parallel/moe.py`` on
-one device.
+"""Mixture-of-experts FFN — the port of ``znicz_tpu/parallel/moe.py``.
 
-- :func:`moe_ffn` is the reference's dense-masked regime with the
-  expert axis of size 1: every expert runs over every token and each
-  token's output is its experts' outputs weighted by their gates (the
-  reference's ``psum`` over the expert axis is the identity here).  It
-  keeps top-1 switch routing and top-k ≥ 2 with GShard renormalization.
-  The expert products are batched matmuls (``torch.bmm``), as the
+- :func:`moe_ffn` is the reference's dense-masked regime: every expert
+  of this rank runs over every token, each token's output is its
+  experts' outputs weighted by their gates, and the ranks' partial
+  outputs are summed over the axis (``tp.psum``, the reference's
+  ``psum`` with its transpose).  The transformer step passes the
+  ``model`` axis, over which the experts are sharded ``E/tp`` a rank;
+  with no axis (or a line of one) every expert is local.  It keeps
+  top-1 switch routing and top-k ≥ 2 with GShard renormalization.  The
+  expert products are batched matmuls (``torch.bmm``), as the
   reference's are XLA einsums outside any Pallas kernel.
 - :func:`router_z_loss` and :func:`load_balance_aux` are the two
   regularizers, in f32 whatever the compute dtype.
-- :func:`moe_ffn_dispatch`, the token-sharded all-to-all regime, needs
-  an expert axis across devices: it raises until ROADMAP.md queue A
-  item 10b brings the transformer's multi-GPU axes.
+- :func:`moe_ffn_dispatch`, the token-sharded all-to-all regime over
+  the pipeline step's expert axis, raises until ROADMAP.md queue A item
+  10c.
 """
 
 from __future__ import annotations
 
 import torch
 
+from znicz_tpu_torch.parallel import tp
 
-def moe_ffn(x, gate_w, w1, b1, w2, b2, act, top_k: int = 1):
-    """``x`` ``(tokens, d)``; ``gate_w`` ``(d, E)``; ``w1`` ``(E, d,
-    ff)``, ``b1`` ``(E, ff)``, ``w2`` ``(E, ff, d)``, ``b2`` ``(E, d)``.
-    Returns ``(y (tokens, d), gate_probs (tokens, E))``.
+
+def moe_ffn(x, gate_w, w1, b1, w2, b2, act, axis=None, top_k: int = 1):
+    """``x`` ``(tokens, d)`` replicated over ``axis``; ``gate_w`` ``(d,
+    E)`` replicated; ``w1`` ``(E_local, d, ff)``, ``b1`` ``(E_local,
+    ff)``, ``w2`` ``(E_local, ff, d)``, ``b2`` ``(E_local, d)``: this
+    rank's experts, ``axis.index * E_local`` onwards.  Returns ``(y
+    (tokens, d), gate_probs (tokens, E))``, both replicated.
 
     ``top_k=1`` is switch routing (the winner scaled by its raw softmax
     prob); ``top_k≥2`` is GShard-style: the k winners' probs are
     RENORMALIZED to sum to 1 and their expert outputs combine
     weighted."""
-    n_exp = w1.shape[0]
+    e_local = w1.shape[0]
     scores = x @ gate_w                            # (tokens, E)
     gate_probs = torch.softmax(scores, dim=-1)
     choice_k = torch.topk(scores, top_k, dim=-1).indices   # (tokens, k)
     gate_k = gate_probs.gather(1, choice_k)        # (tokens, k)
     if top_k > 1:
         gate_k = gate_k / gate_k.sum(dim=-1, keepdim=True)
-    ids = torch.arange(n_exp, device=x.device)
-    # (E, tokens): each expert's combined gate weight per token (0 when
-    # the token routed elsewhere)
-    sel = choice_k[None, :, :] == ids[:, None, None]       # (E, t, k)
+    first = axis.index * e_local if axis is not None else 0
+    ids = first + torch.arange(e_local, device=x.device)
+    # (E_local, tokens): each local expert's combined gate weight per
+    # token (0 when the token routed elsewhere)
+    sel = choice_k[None, :, :] == ids[:, None, None]       # (E_l, t, k)
     wgt = (sel.to(x.dtype) * gate_k[None, :, :]).sum(-1)
-    xe = x.expand(n_exp, *x.shape)                 # (E, t, d), no copy
-    h = act(torch.bmm(xe, w1) + b1[:, None, :])    # (E, t, ff)
-    y_e = torch.bmm(h, w2) + b2[:, None, :]        # (E, t, d)
-    return (y_e * wgt[:, :, None]).sum(dim=0), gate_probs
+    xe = x.expand(e_local, *x.shape)               # (E_l, t, d), no copy
+    h = act(torch.bmm(xe, w1) + b1[:, None, :])    # (E_l, t, ff)
+    y_e = torch.bmm(h, w2) + b2[:, None, :]        # (E_l, t, d)
+    return tp.psum((y_e * wgt[:, :, None]).sum(dim=0), axis), gate_probs
 
 
 def router_z_loss(scores):
@@ -69,9 +76,9 @@ def load_balance_aux(gate_probs):
 
 def moe_ffn_dispatch(*_args, **_kwargs):
     """The reference's token-dispatch regime (tokens sharded over the
-    expert axis, two all-to-all exchanges).  It needs an expert axis
-    across devices, which the port does not have yet."""
+    expert axis, two all-to-all exchanges), the pipeline step's.  Not
+    ported yet."""
     raise NotImplementedError(
-        "moe_ffn_dispatch needs an expert axis across devices: not ported "
-        "yet (ROADMAP.md queue A item 10b, multi-GPU axes); on one device "
-        "use moe_ffn")
+        "moe_ffn_dispatch (tokens sharded over the expert axis) is not "
+        "ported yet (ROADMAP.md queue A item 10c, the pipeline step and "
+        "the expert axis); use moe_ffn, experts sharded over model")

@@ -1,9 +1,9 @@
-"""The transformer LM — the counterpart of
-``znicz_tpu/parallel/transformer.py``, on one device: layer norm, the
-compute-dtype policy, parameter init, and the functional trainer
-(:func:`make_train_step`), eval loss (:func:`make_eval_loss`) and
-full-pass logits oracle (:func:`make_logits_fn`) over one shared
-forward body.
+"""The transformer LM on a ``(data, seq, model)`` mesh — the port of
+``znicz_tpu/parallel/transformer.py``'s ``make_train_step``,
+``make_eval_loss`` and ``make_logits_fn``: layer norm, the
+compute-dtype policy, parameter init and layouts, and the functional
+trainer, eval loss and full-pass logits oracle over one shared forward
+body.
 
 Parameters are a plain dict of tensors mirroring the reference's
 pytree: ``emb (vocab, d)``, ``head (d, vocab)`` and ``blocks[i]`` with
@@ -11,33 +11,60 @@ pytree: ``emb (vocab, d)``, ``head (d, vocab)`` and ``blocks[i]`` with
 ``w1 b1 w2 b2`` or, with ``n_experts``, the MoE FFN's ``gate ew1 eb1
 ew2 eb2`` (``parallel/moe.py``).  :func:`init_params` is pure numpy and
 draws in the reference's order, so one seed gives identical weights in
-both packages; :func:`params_from_numpy` carries such a numpy pytree
-(as ``load_lm`` returns it) onto a device and :func:`params_to_numpy`
-brings it back (the train -> ``export_lm`` -> serve handoff).
+both packages.
 
-Attention in every block goes through the flash-attention kernels
-(``kernels/flash_attention.py``): on CUDA tensors the hand-written
-kernels, on CPU tensors their plain versions.  Unlike the reference
-there is no switch back to dense attention
-(``root.common.engine.flash_attention``) and no quiet dense path for an
-unsupported head dim: a step for a head dim or dtype the kernels lack
-raises when it is built.
+The mesh.  One process a device, each a rank of one ``torch.distributed``
+world; ``mesh`` (``parallel/mesh.py make_mesh``, or a ``{axis: size}``)
+is this rank's place on ``(data, seq, model)``, None a mesh of one with
+no group.  Each rank holds its local shards in f32, by the layouts of
+:func:`param_specs` (specs are tuples of axis names, ``()``
+replicated): attention's q/k/v column-sharded and wo row-sharded over
+``model``, the MLP Megatron-sharded, MoE experts sharded ``E/tp`` a
+rank, the head vocab-sharded with ``head_sharded``.
+:func:`params_from_numpy` places a global numpy pytree on a mesh (the
+reference's ``device_put`` with ``NamedSharding``) and
+:func:`params_to_numpy`, collective on a mesh, gathers it back.  A step
+takes the global minibatch and cuts this rank's block: the rows of
+``data``, the time block of ``seq`` and the mask rows of ``data``.
+Attention is the flash kernels' (``kernels/flash_attention.py``: on
+CUDA tensors the hand-written kernels, on CPU tensors their plain
+versions): plain flash at ``seq`` 1, ring flash attention
+(``parallel/ring_attention.py``) above.  There is no switch back to
+dense attention (``root.common.engine.flash_attention``): a step for a
+head dim or dtype the kernels lack raises when it is built.
+
+The gradients are the reference's.  It differentiates inside
+``shard_map`` with replication checking off, where a ``psum``'s
+transpose is again a ``psum`` (the cotangent of a rank's term is the
+sum of the cotangents over the group), its loss is the ``(data,
+seq)`` sum of the local terms and its update divides by the shard
+count.  The port reproduces each leaf's update: every rank
+differentiates its own local term (:func:`_forward_ce`, the
+reference's ``reduce=False`` form), every collective of the forward is
+a ``torch.autograd.Function`` whose backward is the reference's
+transpose (``tp.psum``, the ring's rotations), and the update is ``w -=
+lr·g``; with a codec the gradients are summed over ``(data, seq)``
+through ``qcomm.quantized_psum`` and divided by the shard count, as the
+reference's are.  A replica of a replicated leaf therefore takes its
+own gradient, as in the reference: above ``data``, ``seq`` or
+``model`` 1 the run is not the one-device run (ROADMAP.md
+"Divergences").
 
 On CUDA the train step and the eval body run as CUDA graph replays
 (``parallel/graphs.py run_graphed``), one graph a (body, input shapes,
-param tensors): the counterpart of the reference's one jitted program a
-minibatch.  The CPU runs them eagerly.
+param tensors), the mesh's collectives captured with them: the
+counterpart of the reference's one jitted program a minibatch.  A CUDA
+step needs an NCCL world (``mesh.check_backend``).  The CPU runs them
+eagerly.
 
-What the reference has and the port does not yet (each raises
-``NotImplementedError``; ROADMAP.md queue A): meshes with an axis above
-1 (data, sequence, tensor and expert parallelism), ``shard_update``,
-``shard_params``, ``head_sharded`` and quantized collectives (item 10b),
-and ``anatomy`` (item 14).
+Not ported: ``anatomy`` (ROADMAP.md queue A item 14) raises
+``NotImplementedError``; the pipeline step is item 10c.
 """
 
 from __future__ import annotations
 
 import functools
+import itertools
 
 import numpy as np
 import torch
@@ -47,11 +74,14 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from znicz_tpu_torch.core.backends import device as _device
 from znicz_tpu_torch.core.backends import resolve_compute_dtype
+from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.kernels import flash_attention as _kflash
-from znicz_tpu_torch.parallel import tp
+from znicz_tpu_torch.parallel import mesh as _mesh
+from znicz_tpu_torch.parallel import qcomm, tp, zero
 from znicz_tpu_torch.parallel.graphs import run_graphed
 from znicz_tpu_torch.parallel.moe import (load_balance_aux, moe_ffn,
                                           router_z_loss)
+from znicz_tpu_torch.parallel.ring_attention import ring_flash_attention
 
 _GELU = functools.partial(F.gelu, approximate="tanh")  # jax.nn.gelu default
 
@@ -142,46 +172,251 @@ def _leaves(params) -> list:
         a for blk in params["blocks"] for a in blk.values()]
 
 
-def params_from_numpy(params, device, dtype=torch.float32) -> dict:
+
+
+def _zip_map(fn, params, specs) -> dict:
+    """``fn(leaf, spec)`` over a params pytree and its spec tree."""
+    return {"emb": fn(params["emb"], specs["emb"]),
+            "head": fn(params["head"], specs["head"]),
+            "blocks": [{k: fn(a, sblk[k]) for k, a in blk.items()}
+                       for blk, sblk in zip(params["blocks"],
+                                            specs["blocks"])]}
+
+
+def _rebuild(like, leaves) -> dict:
+    """The pytree of ``like``'s structure holding ``leaves`` in
+    :func:`_leaves` order."""
+    it = iter(leaves)
+    out = {"emb": next(it), "head": next(it), "blocks": []}
+    for blk in like["blocks"]:
+        out["blocks"].append({k: next(it) for k in blk})
+    return out
+
+
+# -- layouts ------------------------------------------------------------------
+def param_specs(n_layers: int, head_sharded: bool = False,
+                moe: bool = False) -> dict:
+    """The reference's PartitionSpecs as tuples (``()`` replicated):
+    attention qkv column-sharded, wo row-sharded, MLP Megatron-sharded
+    over ``model``; the rest replicated.  ``head_sharded`` vocab-shards
+    the LM head over ``model``; ``moe`` shards the expert stacks over
+    ``model`` on the expert dim, gate replicated."""
+    blk = {"ln1_g": (), "ln1_b": (),
+           "wq": (None, "model"), "wk": (None, "model"),
+           "wv": (None, "model"), "wo": ("model", None),
+           "ln2_g": (), "ln2_b": ()}
+    if moe:
+        blk.update({"gate": (), "ew1": ("model", None, None),
+                    "eb1": ("model", None), "ew2": ("model", None, None),
+                    "eb2": ("model", None)})
+    else:
+        blk.update({"w1": (None, "model"), "b1": ("model",),
+                    "w2": ("model", None), "b2": ()})
+    head = (None, "model") if head_sharded else ()
+    return {"emb": (), "head": head,
+            "blocks": [dict(blk) for _ in range(n_layers)]}
+
+
+def shard_params_specs(specs) -> dict:
+    """The ``shard_params`` layout: every replicated leaf becomes a flat
+    array sharded over ``data``; tensor-sharded leaves keep theirs."""
+    return _map(lambda s: ("data",) if s == () else s, specs)
+
+
+def shard_params_host(params, specs, n: int) -> dict:
+    """Host-side conversion INTO the ``shard_params`` layout: replicated
+    leaves flatten and zero-pad to a multiple of ``n``; tensor-sharded
+    leaves pass through.  ``specs`` is the replicated layout
+    (:func:`param_specs`)."""
+    def conv(w, s):
+        if s != ():
+            return w
+        f = np.asarray(w).reshape(-1)
+        return np.pad(f, (0, (-f.size) % n)) if f.size % n else f
+    return _zip_map(conv, params, specs)
+
+
+def unshard_params_host(params, specs, shapes) -> dict:
+    """Inverse of :func:`shard_params_host` on host arrays: flat padded
+    leaves slice back to their :func:`param_shapes` shapes."""
+    flat = [np.asarray(w).reshape(-1)[:int(np.prod(shp))].reshape(shp)
+            if s == () else np.asarray(w)
+            for w, s, shp in zip(_leaves(params), _leaves(specs),
+                                 _leaves(shapes))]
+    return _rebuild(params, flat)
+
+
+def _check_tp(model_size: int, heads: int, d: int, ff: int,
+              vocab_sharded: int | None = None,
+              n_experts: int | None = None) -> int:
+    """The reference's ``_check_tp`` -> the heads a ``model`` rank
+    holds."""
+    if heads % model_size or d % model_size:
+        raise ValueError(f"tp={model_size} must divide heads={heads} "
+                         f"and d={d}")
+    # the MoE FFN shards the EXPERT dim, never ff; the dense FFN
+    # Megatron-splits ff
+    if n_experts:
+        if n_experts % model_size:
+            raise ValueError(f"n_experts={n_experts} must divide by "
+                             f"tp={model_size}")
+    elif ff % model_size:
+        raise ValueError(f"tp={model_size} must divide ff={ff}")
+    if vocab_sharded is not None and vocab_sharded % model_size:
+        raise ValueError(f"head_sharded needs vocab={vocab_sharded} "
+                         f"divisible by tp={model_size}")
+    return heads // model_size
+
+
+def _as_mesh(mesh) -> "_mesh.Mesh":
+    """None -> a mesh of one with no group; a ``Mesh`` as given; a
+    ``{axis: size}`` (or an object with ``.shape``) through
+    ``make_mesh``."""
+    if mesh is None:
+        return _mesh.local_mesh()
+    if isinstance(mesh, _mesh.Mesh):
+        return mesh
+    return _mesh.make_mesh(dict(getattr(mesh, "shape", mesh)))
+
+
+def _shard(a, spec, mesh):
+    """This rank's block of the global array ``a`` under ``spec``."""
+    for dim, name in enumerate(spec):
+        if name is None:
+            continue
+        k, i = mesh.shape.get(name, 1), mesh.coords.get(name, 0)
+        if a.shape[dim] % k:
+            raise ValueError(f"dim {dim} of {tuple(a.shape)} does not "
+                             f"split over {name}={k}")
+        n = a.shape[dim] // k
+        a = a[(slice(None),) * dim + (slice(i * n, (i + 1) * n),)]
+    return a
+
+
+def _global(gathered: np.ndarray, spec, mesh) -> np.ndarray:
+    """The global array from every rank's block (``gathered[r]``): each
+    block is read from the first rank that holds it (the rank with the
+    block's coordinates on the spec's axes and 0 on the others), as the
+    reference's ``device_get`` reads the first device holding it."""
+    sharded = [(dim, name) for dim, name in enumerate(spec)
+               if name is not None]
+    local = gathered.shape[1:]
+    shape = list(local)
+    for dim, name in sharded:
+        shape[dim] *= mesh.shape.get(name, 1)
+    out = np.empty(shape, gathered.dtype)
+    sizes = tuple(mesh.shape.values()) or (1,)
+    for idx in itertools.product(*(range(mesh.shape.get(name, 1))
+                                   for _, name in sharded)):
+        coords = {name: i for (_, name), i in zip(sharded, idx)}
+        owner = int(np.ravel_multi_index(
+            tuple(coords.get(a, 0) for a in mesh.shape) or (0,), sizes))
+        where = [slice(None)] * len(shape)
+        for (dim, _), i in zip(sharded, idx):
+            where[dim] = slice(i * local[dim], (i + 1) * local[dim])
+        out[tuple(where)] = gathered[owner]
+    return out
+
+
+def params_from_numpy(params, device, dtype=torch.float32, mesh=None,
+                      specs=None) -> dict:
     """Copy a parameter pytree of numpy (or CPU tensor) leaves onto
-    ``device`` as ``dtype`` tensors, keeping the pytree's shape.  Always
-    a copy, never a view of the caller's arrays: the train step updates
-    its params in place."""
-    return _map(lambda a: torch.tensor(np.asarray(a, np.float32)).to(
-        device=device, dtype=dtype), params)
+    ``device`` as ``dtype`` tensors, keeping the pytree's shape.  On a
+    ``mesh`` each leaf is this rank's block of the global leaf under
+    ``specs`` (default: :func:`param_specs` of the pytree, replicated
+    head; a step's layout is ``step.specs``).  Always a copy, never a
+    view of the caller's arrays: the train step updates its params in
+    place."""
+    def put(a, spec):
+        a = np.asarray(a, np.float32)
+        if mesh is not None:
+            a = _shard(a, spec, mesh)
+        return torch.tensor(np.ascontiguousarray(a)).to(device=device,
+                                                        dtype=dtype)
+    if mesh is not None:
+        mesh = _as_mesh(mesh)
+        specs = specs or param_specs(len(params["blocks"]),
+                                     moe="ew1" in params["blocks"][0])
+    return _zip_map(put, params, specs or _map(lambda _: (), params))
 
 
-def params_to_numpy(params) -> dict:
+def params_to_numpy(params, mesh=None, specs=None) -> dict:
     """The inverse of :func:`params_from_numpy`: a numpy f32 pytree (what
-    ``utils.export.export_lm`` packages)."""
-    return _map(lambda a: a.detach().float().cpu().numpy(), params)
+    ``utils.export.export_lm`` packages).  On a ``mesh`` the global
+    pytree, gathered over the whole world: collective, every rank calls
+    it and every rank gets the result."""
+    if mesh is None:
+        return _map(lambda a: a.detach().float().cpu().numpy(), params)
+    mesh = _as_mesh(mesh)
+    specs = specs or param_specs(len(params["blocks"]),
+                                 moe="ew1" in params["blocks"][0])
+    every = mesh.axis(tuple(mesh.shape))
+    return _zip_map(lambda a, spec: _global(
+        every.all_gather(a.detach().float()).cpu().numpy(), spec, mesh),
+        params, specs)
+
+
+class _Axes:
+    """The step's axis handles on its mesh: ``data``, ``seq``, ``model``
+    and ``ds`` (``("data", "seq")``, over which the loss and the
+    quantized gradients sum); ``n_shards`` = data × seq."""
+
+    def __init__(self, mesh) -> None:
+        self.mesh = mesh
+        self.data = mesh.axis("data")
+        self.seq = mesh.axis("seq")
+        self.model = mesh.axis("model")
+        self.ds = mesh.axis(("data", "seq"))
+        self.n_shards = self.data.size * self.seq.size
+
+    def cut(self, t, time: bool = True):
+        """This rank's block of a global ``(batch, time)`` input (rows of
+        ``data``, the time block of ``seq``), or of a ``(batch,)`` mask
+        (``time=False``)."""
+        nd, ns = self.data.size, self.seq.size
+        b = t.shape[0]
+        if b % nd:
+            raise ValueError(f"batch {b} not divisible by data={nd}")
+        rows = b // nd
+        t = t[self.data.index * rows:(self.data.index + 1) * rows]
+        if not time:
+            return t
+        if t.shape[1] % ns:
+            raise ValueError(f"time {t.shape[1]} not divisible by "
+                             f"seq={ns}")
+        cols = t.shape[1] // ns
+        return t[:, self.seq.index * cols:(self.seq.index + 1) * cols]
 
 
 # -- the shared forward ------------------------------------------------------
-def _block(x, p, heads: int, causal: bool, moe_top_k: int = 1,
+def _block(x, p, ax, heads_local: int, causal: bool, moe_top_k: int = 1,
            moe_aux_weight: float = 0.0, moe_zloss_weight: float = 0.0):
-    """One transformer block: flash attention over tensor-parallel heads,
+    """One transformer block on local shards: flash attention over this
+    rank's heads (ring flash attention over ``seq`` when it is sharded),
     then the Megatron MLP (tanh GELU) or, for an MoE block, the dense-
-    masked MoE FFN.  The reference's ``_block`` with the sequence axis
-    unsharded.  Returns ``(x, aux)``: the MoE block's regularizers,
+    masked MoE FFN over this rank's experts, each half summed over
+    ``model``.  Returns ``(x, aux)``: the MoE block's regularizers,
     weighted here, or None for a dense block."""
     h = _layer_norm(x, p["ln1_g"], p["ln1_b"])
     b, t_loc, _ = h.shape
 
     def heads_of(w):
-        return (h @ w).reshape(b, t_loc, heads, -1)
+        return (h @ w).reshape(b, t_loc, heads_local, -1)
 
     q, k, v = heads_of(p["wq"]), heads_of(p["wk"]), heads_of(p["wv"])
-    o = _kflash.flash_attention(q, k, v, causal=causal)
+    if ax.seq.size > 1:
+        o = ring_flash_attention(q, k, v, ax.seq, causal=causal)
+    else:
+        o = _kflash.flash_attention(q, k, v, causal=causal)
     o = o.reshape(b, t_loc, -1)
-    x = x + tp.row_parallel(o, p["wo"])
+    x = x + tp.row_parallel(o, p["wo"], None, ax.model)
     m = _layer_norm(x, p["ln2_g"], p["ln2_b"])
     if "ew1" not in p:
-        return x + tp.mlp(m, p["w1"], p["b1"], p["w2"], p["b2"],
-                          _GELU), None
+        return x + tp.mlp(m, p["w1"], p["b1"], p["w2"], p["b2"], _GELU,
+                          ax.model), None
     m2d = m.reshape(-1, m.shape[-1])
     y2d, probs = moe_ffn(m2d, p["gate"], p["ew1"], p["eb1"], p["ew2"],
-                         p["eb2"], _GELU, top_k=moe_top_k)
+                         p["eb2"], _GELU, ax.model, top_k=moe_top_k)
     # the regularizers pre-weighted here, as the reference's are (its
     # weights are static floats); a zero weight adds nothing to compute
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -215,21 +450,25 @@ def _remat_context(saved: tuple):
     return create_selective_checkpoint_contexts(policy)
 
 
-def _forward_hidden(ps, tokens, heads: int, causal: bool, cdt,
-                    remat: bool = False, remat_policy: str | None = None,
-                    moe_top_k: int = 1, moe_aux_weight: float = 0.0,
+def _forward_hidden(ps, tokens, heads_local: int, causal: bool, cdt,
+                    ax=None, remat: bool = False,
+                    remat_policy: str | None = None, moe_top_k: int = 1,
+                    moe_aux_weight: float = 0.0,
                     moe_zloss_weight: float = 0.0):
     """Embedding + block stack — the ONE pre-head forward body, shared by
     the CE loss (:func:`_forward_ce`) and the logits oracle
     (:func:`make_logits_fn`).  Returns ``(x, aux_term, ps_cast)``: the
     hidden states, the summed MoE regularizer term, and the params cast
     to the compute dtype (so the caller's head product follows the same
-    precision policy).  ``remat`` wraps each block in
+    precision policy).  ``ax`` is the step's axes (None: one device).
+    ``remat`` wraps each block in
     ``torch.utils.checkpoint``: the backward recomputes the block's
-    activations instead of keeping them; ``remat_policy`` (one of
-    :data:`REMAT_POLICIES`, implies remat) keeps the outputs of its
-    products.  The checkpoints keep no RNG state (the blocks draw
-    nothing), which the CUDA graph capture needs."""
+    activations (and its collectives) instead of keeping them;
+    ``remat_policy`` (one of :data:`REMAT_POLICIES`, implies remat)
+    keeps the outputs of its products.  The checkpoints keep no RNG
+    state (the blocks draw nothing), which the CUDA graph capture
+    needs."""
+    ax = ax or _Axes(_mesh.local_mesh())
     ps = _map(lambda w: w.to(cdt), ps)
     x = ps["emb"][tokens]                            # (b, t, d)
     kw = {"use_reentrant": False, "preserve_rng_state": False}
@@ -238,7 +477,7 @@ def _forward_hidden(ps, tokens, heads: int, causal: bool, cdt,
                                              REMAT_POLICIES[remat_policy])
     aux_term = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in ps["blocks"]:
-        args = (x, p, heads, causal, moe_top_k, moe_aux_weight,
+        args = (x, p, ax, heads_local, causal, moe_top_k, moe_aux_weight,
                 moe_zloss_weight)
         x, aux = checkpoint(_block, *args, **kw) \
             if remat or remat_policy else _block(*args)
@@ -256,13 +495,34 @@ def _dense_chunk_nll(xc, lc, wc, head):
     return (-picked * wc).sum()
 
 
-def _ce_token_nll_sum(x, labels, head, n_chunks: int, weights):
-    """Σ weights·(-log p[label]) over the tokens, ``n_chunks`` token
-    chunks at a time, each recomputed in the backward
+def _vshard_chunk_nll(xc, lc, wc, head_local, model):
+    """The same sum for a VOCAB-SHARDED head (Megatron parallel cross
+    entropy, arXiv:1909.08053 §3): each ``model`` rank computes its
+    ``(chunk, vocab/tp)`` logit columns; the stable-softmax max reduces
+    by an all-reduce MAX with no gradient (the shift is gradient-
+    neutral), the sum-exp and the owner's picked logit by ``tp.psum`` —
+    the full-vocab logits row never exists on any rank."""
+    logits = (xc @ head_local).float()               # (chunk, v_loc)
+    v_loc = logits.shape[-1]
+    start = model.index * v_loc
+    m = model.all_reduce_(logits.detach().amax(-1), op="max")
+    se = tp.psum(torch.exp(logits - m[:, None]).sum(-1), model)
+    lse = m + torch.log(se)
+    mine = (lc >= start) & (lc < start + v_loc)
+    picked_loc = logits.gather(-1, (lc - start).clamp(0, v_loc - 1)
+                               [:, None])[:, 0]
+    picked = tp.psum(torch.where(mine, picked_loc,
+                                 torch.zeros_like(picked_loc)), model)
+    return (-(picked - lse) * wc).sum()
+
+
+def _ce_token_nll_sum(x, labels, chunk_nll, n_chunks: int, weights):
+    """Σ weights·(-log p[label]) over the local tokens, ``n_chunks``
+    token chunks at a time, each recomputed in the backward
     (``torch.utils.checkpoint``): the full ``(tokens, vocab)`` f32
-    logits never exist, only one chunk's.  Padded rows weigh 0.
-    Per-token numerics equal the dense path; only the cross-token
-    summation order differs."""
+    logits never exist, only one chunk's.  ``chunk_nll(xc, lc, wc)`` is
+    the chunk's sum.  Padded rows weigh 0.  Per-token numerics equal the
+    dense path; only the cross-token summation order differs."""
     b, t, d = x.shape
     n_tok = b * t
     xf = x.reshape(n_tok, d)
@@ -275,31 +535,41 @@ def _ce_token_nll_sum(x, labels, head, n_chunks: int, weights):
         xf = F.pad(xf, (0, 0, 0, pad))
         lf = F.pad(lf, (0, pad))
         wf = F.pad(wf, (0, pad))
-    totals = [checkpoint(_dense_chunk_nll, xf[i * chunk:(i + 1) * chunk],
+    totals = [checkpoint(chunk_nll, xf[i * chunk:(i + 1) * chunk],
                          lf[i * chunk:(i + 1) * chunk],
-                         wf[i * chunk:(i + 1) * chunk], head,
+                         wf[i * chunk:(i + 1) * chunk],
                          use_reentrant=False, preserve_rng_state=False)
               for i in range(n_chunks)]
     return torch.stack(totals).sum()
 
 
-def _forward_ce(ps, tokens, labels, mask, heads: int, causal: bool,
-                cdt, loss_chunks: int | None = None, **hidden_kw):
+def _forward_ce(ps, tokens, labels, mask, heads_local: int, causal: bool,
+                cdt, ax=None, loss_chunks: int | None = None,
+                head_sharded: bool = False, **hidden_kw):
     """The ONE forward + CE-loss body (shared by the train step and the
-    eval pass).  ``mask`` is a per-row validity mask or None; masked rows
-    contribute neither loss nor gradients (padded rows still count in
-    the MoE routing statistics, as in the reference: the aux is a
-    regularizer, not a metric).  The reference's normalisations with one
-    data and one sequence shard: the unmasked loss is the mean over all
-    tokens, the masked one the nll sum over the valid rows' tokens, each
-    plus the summed MoE regularizer term.  ``hidden_kw`` goes to
-    :func:`_forward_hidden` (remat and the MoE options)."""
-    x, aux_term, ps = _forward_hidden(ps, tokens, heads, causal, cdt,
-                                      **hidden_kw)
+    eval pass) -> this rank's LOCAL term, whose sum over ``(data, seq)``
+    is the reference's reduced loss times the shard count (its
+    ``reduce=False`` form).  ``mask`` is this rank's rows' validity or
+    None; masked rows contribute neither loss nor gradients (padded rows
+    still count in the MoE routing statistics, as in the reference: the
+    aux is a regularizer, not a metric).  Unmasked: the local token mean
+    plus the MoE term; masked: ``n_shards·nll / total`` (``total`` the
+    valid tokens of the whole minibatch: the mask is seq-invariant, so
+    its count sums over ``data`` and multiplies by ``seq``) plus the MoE
+    term.  A vocab-sharded head always takes the chunk helper (its CE
+    needs the reduced softmax; one chunk when unchunked).
+    ``hidden_kw`` goes to :func:`_forward_hidden`."""
+    ax = ax or _Axes(_mesh.local_mesh())
+    x, aux_term, ps = _forward_hidden(ps, tokens, heads_local, causal, cdt,
+                                      ax, **hidden_kw)
     b_l, t_l = labels.shape
     mvec = mask[:, None].float() if mask is not None else None
-    if loss_chunks and loss_chunks > 1:
-        nll = _ce_token_nll_sum(x, labels, ps["head"], loss_chunks, mvec)
+    if head_sharded or (loss_chunks and loss_chunks > 1):
+        fn = functools.partial(_vshard_chunk_nll, head_local=ps["head"],
+                               model=ax.model) if head_sharded else \
+            functools.partial(_dense_chunk_nll, head=ps["head"])
+        nll = _ce_token_nll_sum(x, labels, fn, max(loss_chunks or 1, 1),
+                                mvec)
     else:
         logits = (x @ ps["head"]).float()
         logp = torch.log_softmax(logits, dim=-1)
@@ -308,34 +578,29 @@ def _forward_ce(ps, tokens, labels, mask, heads: int, causal: bool,
             -(picked * mvec.expand_as(picked)).sum()
     if mask is None:
         return nll / (b_l * t_l) + aux_term
-    total = mask.float().sum() * t_l
-    return nll / torch.clamp(total, min=1.0) + aux_term
+    total = ax.data.all_reduce_(mask.float().sum() * t_l) * ax.seq.size
+    return ax.n_shards * nll / torch.clamp(total, min=1.0) + aux_term
+
+
+def _reduced(local, ax):
+    """The reported loss: the local terms summed over ``(data, seq)``
+    over the shard count (exactly, whatever the codec), then the
+    ``model`` line's first rank's on every rank.  The model ranks'
+    replicas of the replicated leaves take their own gradients (the
+    reference's transpose), so their losses part after the first step;
+    the reference reports its first device's, and a workflow on every
+    rank must read one number to take one decision."""
+    loss = ax.ds.all_reduce_(local.detach().clone()) / ax.n_shards
+    if ax.model.group is not None and ax.model.size > 1:
+        loss = ax.model.all_reduce_(
+            loss if ax.model.index == 0 else torch.zeros_like(loss))
+    return loss
 
 
 # -- the step, eval and logits factories ------------------------------------
-def _refuse(mesh, **options) -> None:
-    """The reference options the port has not ported: each raises rather
-    than being ignored, naming its ROADMAP item."""
-    axes = dict(getattr(mesh, "shape", mesh) or {})
-    wide = {a: n for a, n in axes.items() if n != 1}
-    if wide:
-        raise NotImplementedError(
-            f"mesh axes {wide}: data, sequence, tensor and expert "
-            f"parallelism are not ported yet (ROADMAP.md queue A item 10b, "
-            f"multi-GPU axes); the port trains on one device")
-    for name, value in options.items():
-        if value:
-            item = "14" if name == "anatomy" else "10b"
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported yet (ROADMAP.md queue A "
-                f"item {item})")
-
-
 def _check_moe(n_experts, moe_top_k: int, moe_aux_weight: float = 0.0,
                moe_zloss_weight: float = 0.0) -> None:
-    """The MoE options' validity: the reference's ``_check_tp`` on a
-    one-device mesh (every expert count divides by tp 1), plus the
-    port's refusal of MoE options on a dense stack (the reference
+    """The port's refusal of MoE options on a dense stack (the reference
     ignores them there; its ``TransformerLMStep`` refuses them too) and
     of a ``moe_top_k`` outside ``1..n_experts``."""
     if not n_experts:
@@ -349,13 +614,22 @@ def _check_moe(n_experts, moe_top_k: int, moe_aux_weight: float = 0.0,
                          f"n_experts={n_experts}")
 
 
-def _setup(mesh, d: int, heads: int, compute_dtype, device, **options):
-    """Shared build-time checks -> ``(device, compute dtype)``.
-    On CUDA the flash kernels must have an instantiation for the head
-    dim and compute dtype — decided here, never mid-step."""
-    _refuse(mesh, **options)
+def _setup(mesh, d: int, heads: int, ff: int, vocab_sharded, n_experts,
+           compute_dtype, device, anatomy: bool = False):
+    """Shared build-time checks -> ``(axes, device, compute dtype, heads
+    a model rank holds)``.  On CUDA the flash kernels must have an
+    instantiation for the head dim and compute dtype, and the world must
+    be NCCL's — decided here, never mid-step."""
+    if anatomy:
+        raise NotImplementedError(
+            f"anatomy={anatomy!r} is not ported yet (ROADMAP.md queue A "
+            f"item 14)")
     if d % heads:
         raise ValueError(f"heads={heads} must divide d={d}")
+    ax = _Axes(_as_mesh(mesh))
+    heads_local = _check_tp(ax.model.size, heads, d, ff, vocab_sharded,
+                            n_experts)
+    _mesh.check_backend(ax.mesh, torch.device(device or "cuda"))
     dev = _device(device)
     cdt = _default_compute_dtype(compute_dtype, dev)
     if cdt not in (torch.bfloat16, torch.float32):
@@ -366,7 +640,7 @@ def _setup(mesh, d: int, heads: int, compute_dtype, device, **options):
             f"no flash-attention kernel for head_dim={d // heads}, "
             f"dtype={cdt} (have head_dim {_kflash.HEAD_DIMS} in "
             f"bfloat16/float32)")
-    return dev, cdt
+    return ax, dev, cdt, heads_local
 
 
 def _tensor(a, dtype=torch.int64):
@@ -386,14 +660,41 @@ def _batch(masked: bool, tokens, labels, mask) -> tuple:
     return inputs if mask is None else inputs + (_tensor(mask, torch.bool),)
 
 
-def _check_params(params, dev) -> list:
+def _cutter(ax):
+    """-> ``cut(tokens, labels, mask=None)``: this rank's block of a
+    global minibatch (numpy or tensors), as the step's local inputs take
+    it."""
+    def cut(tokens, labels, mask=None):
+        block = (ax.cut(tokens), ax.cut(labels))
+        return block if mask is None else block + (ax.cut(mask, False),)
+    return cut
+
+
+def _check_params(params, dev, shapes) -> list:
     leaves = _leaves(params)
-    for w in leaves:
+    for w, shape in zip(leaves, _leaves(shapes)):
         if w.device.type != dev.type or w.dtype != torch.float32:
             raise ValueError(
                 f"params must be float32 tensors on {dev} (see "
                 f"params_from_numpy); got {w.dtype} on {w.device}")
+        if tuple(w.shape) != tuple(shape):
+            raise ValueError(
+                f"a param of shape {tuple(w.shape)} where this rank's "
+                f"layout holds {tuple(shape)} (place global params with "
+                f"params_from_numpy(..., mesh=, specs=step.specs))")
     return leaves
+
+
+def _local_shapes(shapes, specs, ax) -> dict:
+    """The shapes of this rank's blocks of leaves of ``shapes`` under
+    ``specs`` (a flat ``("data",)`` leaf: its padded slice)."""
+    def local(shape, spec):
+        if spec == ("data",):
+            return (zero.shard_len(int(np.prod(shape)), ax.data.size),)
+        spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+        return tuple(n // (ax.mesh.shape.get(a, 1) if a else 1)
+                     for n, a in zip(shape, spec))
+    return _zip_map(local, shapes, specs)
 
 
 def _eager(dev):
@@ -431,6 +732,24 @@ def _runner(dev):
     return run
 
 
+def _entry(run, kind: str, dev, ax, masked: bool, shapes, body_of):
+    """-> ``(fn, local)``: ``fn(params, tokens, labels[, mask])`` on a
+    global minibatch, which it cuts to this rank's block, and
+    ``local(params, *block)`` on a block already cut (``fn.cut``), both
+    through ``run``."""
+    cut = _cutter(ax)
+
+    def local(params, *block):
+        leaves = _check_params(params, dev, shapes)
+        return run(kind, leaves, body_of(params, leaves), block)
+
+    def fn(params, tokens, labels, mask=None):
+        return local(params, *cut(*_batch(masked, tokens, labels, mask)))
+
+    fn.cut, fn.local = cut, local
+    return fn
+
+
 def make_train_step(mesh, n_layers: int, d: int,
                     heads: int, ff: int, vocab: int,
                     lr: float = 0.1, causal: bool = True, compute_dtype=None,
@@ -447,84 +766,160 @@ def make_train_step(mesh, n_layers: int, d: int,
     """-> ``step(params, tokens, labels) -> (params, loss)``
     (``masked=True``: ``step(params, tokens, labels, mask)`` with a
     per-row bool mask — padded rows train nothing), the reference's
-    train step on one device.
+    train step on this rank of ``mesh``.
 
-    ``mesh``: None or the reference's ``{axis: size}`` with every size 1.
-    ``params``: the f32 master pytree on ``device``
-    (:func:`params_from_numpy`); ``tokens``/``labels``: int ``(batch,
-    time)``, numpy or tensors.  The forward casts the masters to
-    ``compute_dtype`` (default: bf16 on cuda, f32 on cpu); autograd
-    carries the gradients back to the f32 masters, and the SGD update
-    ``w -= lr·g`` is applied IN PLACE — the returned ``params`` is the
-    same dict, and the in-place update is what the reference's
-    ``donate=True`` buys.  ``loss`` is a 0-d f32 tensor on the device,
-    which later steps leave as it is.  On the card the step is a CUDA
-    graph replay from its second call on the same params (see
-    :func:`_runner`); ``step.eager`` runs the same body with eager
-    launches (to hold the replays against), ``step.graphs`` holds the
-    graphs.
+    ``mesh``: None (one device, no group), a ``parallel/mesh.py Mesh``
+    or a ``{axis: size}`` over the world.  ``params``: this rank's f32
+    blocks on ``device`` in the layout ``step.specs``
+    (:func:`params_from_numpy` with ``mesh`` and ``specs``);
+    ``tokens``/``labels``: the GLOBAL int ``(batch, time)`` minibatch,
+    numpy or tensors, of which the step takes this rank's block
+    (``step.local(params, *step.cut(tokens, labels[, mask]))`` takes a
+    block already cut, as the LM unit's staging does).  The forward
+    casts the masters to ``compute_dtype`` (default: bf16 on cuda, f32
+    on cpu); autograd carries the gradients back to the f32 masters and
+    the update is applied IN PLACE — the returned ``params`` is the same
+    dict, and the in-place update is what the reference's ``donate=True``
+    buys.  ``loss`` is the global loss, a 0-d f32 tensor on the device.
+    On the card the step is a CUDA graph replay from its second call on
+    the same params (see :func:`_runner`); ``step.eager`` runs the same
+    body with eager launches, ``step.graphs`` holds the graphs.
 
-    ``remat`` recomputes each block in the backward
-    (``torch.utils.checkpoint``), ``remat_policy`` ("dots" |
-    "dots_no_batch" | "nothing", :data:`REMAT_POLICIES`) keeps the
-    outputs of its products and recomputes the rest; ``loss_chunks=k``
-    computes the CE k token-chunks at a time, each recomputed in the
-    backward, so the ``(tokens, vocab)`` f32 logits never exist whole.
-    ``n_experts=E`` swaps every block's dense FFN for a dense-masked MoE
-    FFN (``parallel/moe.py``; pass ``init_params(..., n_experts=E)``
-    params) routing each token to its ``moe_top_k`` best experts;
-    ``moe_aux_weight`` adds the switch load-balance aux and
-    ``moe_zloss_weight`` the router z-loss, summed over blocks, to the
-    training loss.  ``device`` defaults to ``cuda`` and raises on a host
-    without one — the port never falls back to the CPU on its own.  The
-    reference's sharding, quantized-collective and anatomy options raise
-    ``NotImplementedError``."""
-    dev, cdt = _setup(
-        mesh, d, heads, compute_dtype, device, shard_update=shard_update,
-        shard_params=shard_params, head_sharded=head_sharded,
-        quantized_collectives=quantized_collectives, anatomy=anatomy)
+    ``remat`` recomputes each block in the backward, ``remat_policy``
+    ("dots" | "dots_no_batch" | "nothing", :data:`REMAT_POLICIES`)
+    keeps the outputs of its products; ``loss_chunks=k`` computes the CE
+    k token-chunks at a time, each recomputed in the backward;
+    ``head_sharded`` vocab-shards the head over ``model`` with Megatron
+    parallel cross-entropy (:func:`_vshard_chunk_nll`).  ``n_experts=E``
+    swaps every block's dense FFN for the dense-masked MoE FFN
+    (``parallel/moe.py``, experts sharded over ``model``) routing each
+    token to its ``moe_top_k`` best experts; ``moe_aux_weight`` adds the
+    switch load-balance aux and ``moe_zloss_weight`` the router z-loss,
+    summed over blocks, to the training loss.
+
+    The layouts of the replicated leaves (the reference's
+    arXiv:2004.13336 splits over ``data``): ``shard_update`` updates a
+    1/n slice a ``data`` rank and regathers the slices through a sum
+    (``zero.psum_regather``); ``shard_params`` keeps them flat-sharded
+    over ``data`` between steps (``step.specs`` is
+    :func:`shard_params_specs`; place :func:`shard_params_host` arrays,
+    read back with :func:`unshard_params_host`), gathers them ahead of
+    the forward outside autograd (``zero.gather_chain``, one collective
+    a leaf; ``root.common.engine.zero_gather_via_psum`` takes the
+    sum form) and updates the local slice.  ``quantized_collectives``
+    (None defers to ``root.common.engine.quantized_collectives``) sums
+    every gradient leaf over ``(data, seq)`` through one quantized sum
+    (``qcomm.quantized_psum``) and ships the ``shard_params`` gathers
+    quantized; the reported loss sums exactly.
+
+    ``device`` defaults to ``cuda`` and raises on a host without one —
+    the port never falls back to the CPU on its own; a CUDA step needs
+    an NCCL world.  ``anatomy`` raises ``NotImplementedError``."""
+    if shard_params and shard_update:
+        raise ValueError(
+            "shard_params subsumes shard_update (replicated leaves "
+            "persist sharded and update in place — there is no "
+            "regather left to split); pass only one")
+    ax, dev, cdt, heads_local = _setup(
+        mesh, d, heads, ff, vocab if head_sharded else None, n_experts,
+        compute_dtype, device, anatomy=anatomy)
     _check_moe(n_experts, moe_top_k, moe_aux_weight, moe_zloss_weight)
     if remat_policy is not None and remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy={remat_policy!r} — choose from "
                          f"{sorted(REMAT_POLICIES)}")
-    fwd_kw = dict(loss_chunks=loss_chunks, remat=remat,
-                  remat_policy=remat_policy, moe_top_k=moe_top_k,
-                  moe_aux_weight=moe_aux_weight,
+    specs = param_specs(n_layers, head_sharded, moe=bool(n_experts))
+    step_specs = shard_params_specs(specs) if shard_params else specs
+    shapes = param_shapes(n_layers, d, ff, vocab, n_experts=n_experts)
+    full_shapes = _leaves(_local_shapes(shapes, specs, ax))
+    replicated = [s == () for s in _leaves(specs)]
+    via_psum = bool(root.common.engine.get("zero_gather_via_psum", False))
+    codec = qcomm.resolve(quantized_collectives)
+    fwd_kw = dict(loss_chunks=loss_chunks, head_sharded=head_sharded,
+                  remat=remat, remat_policy=remat_policy,
+                  moe_top_k=moe_top_k, moe_aux_weight=moe_aux_weight,
                   moe_zloss_weight=moe_zloss_weight)
+    n_data, i_data = ax.data.size, ax.data.index
+
+    def full_leaves(leaves) -> list:
+        """The leaves the forward reads: under ``shard_params`` the
+        replicated ones gathered whole (outside autograd, so the
+        gradients are the replicated layout's), marked for autograd."""
+        if not shard_params:
+            return leaves
+        idx = [i for i, r in enumerate(replicated) if r]
+        with torch.no_grad():
+            whole = zero.gather_chain([leaves[i] for i in idx],
+                                      [full_shapes[i] for i in idx],
+                                      ax.data, via_psum=via_psum,
+                                      codec=codec)
+        out = list(leaves)
+        for i, w in zip(idx, whole):
+            out[i] = w.requires_grad_(True)
+        return out
+
+    def update_(leaves, grads) -> None:
+        for w, g, rep in zip(leaves, grads, replicated):
+            # the reference's w - lr·g/n with its n-scaled g: lr·g here
+            # (a codec's sum carries the n back)
+            upd = lr * g if codec is None else lr * g / ax.n_shards
+            if rep and shard_params:
+                w.sub_(zero.pad_slice(upd, i_data, n_data))
+            elif rep and shard_update:
+                w.copy_(zero.psum_regather(
+                    zero.pad_slice(w, i_data, n_data) -
+                    zero.pad_slice(upd, i_data, n_data), ax.data, w))
+            else:
+                w.sub_(upd)
 
     def body_of(params, leaves):
         def body(tok, lab, m=None):
-            loss = _forward_ce(params, tok, lab, m, heads, causal, cdt,
-                               **fwd_kw)
-            grads = torch.autograd.grad(loss, leaves)
+            full = full_leaves(leaves)
+            local = _forward_ce(_rebuild(params, full), tok, lab, m,
+                                heads_local, causal, cdt, ax, **fwd_kw)
+            grads = torch.autograd.grad(local, full)
             with torch.no_grad():
-                for w, g in zip(leaves, grads):
-                    w.sub_(lr * g)
-            return loss.detach()
+                if codec is not None:
+                    grads, _ = qcomm.quantized_psum(list(grads), ax.ds,
+                                                    codec)
+                loss = _reduced(local, ax)
+                update_(leaves, grads)
+            return loss
         return body
 
-    def call(run, params, tokens, labels, mask):
-        inputs = _batch(masked, tokens, labels, mask)
-        leaves = _check_params(params, dev)
-        # autograd's leaves are marked outside the (captured) body
-        for w in leaves:
-            w.requires_grad_(True)
-        try:
-            loss = run("train", leaves, body_of(params, leaves), inputs)
-        finally:
-            for w in leaves:
-                w.requires_grad_(False)
-        return params, loss
+    local_shapes = _local_shapes(shapes, step_specs, ax)
 
-    run, eager_run = _runner(dev), _eager(dev)
+    def with_grad(run):
+        def graded(kind, leaves, body, inputs):
+            # autograd's leaves are marked outside the (captured) body
+            held = [w for w, rep in zip(leaves, replicated)
+                    if not (rep and shard_params)]
+            for w in held:
+                w.requires_grad_(True)
+            try:
+                return run(kind, leaves, body, inputs)
+            finally:
+                for w in held:
+                    w.requires_grad_(False)
+        return graded
+
+    run = _runner(dev)
+    train = _entry(with_grad(run), "train", dev, ax, masked, local_shapes,
+                   body_of)
+    eager = _entry(with_grad(_eager(dev)), "train", dev, ax, masked,
+                   local_shapes, body_of)
 
     def step(params, tokens, labels, mask=None):
-        return call(run, params, tokens, labels, mask)
+        return params, train(params, tokens, labels, mask)
 
-    def eager(params, tokens, labels, mask=None):
-        return call(eager_run, params, tokens, labels, mask)
+    def step_local(params, *block):
+        return params, train.local(params, *block)
 
-    step.eager, step.graphs = eager, run.graphs
+    def step_eager(params, tokens, labels, mask=None):
+        return params, eager(params, tokens, labels, mask)
+
+    step.eager, step.graphs, step.cut, step.local = \
+        step_eager, run.graphs, train.cut, step_local
+    step.mesh, step.specs = ax.mesh, step_specs
     return step
 
 
@@ -537,28 +932,32 @@ def make_eval_loss(mesh, n_layers: int, d: int,
     """-> ``eval_loss(params, tokens, labels[, mask]) -> loss`` — the
     train step's forward + CE loss (the shared :func:`_forward_ce`) with
     no update, no autograd graph and no MoE regularizers (it has no aux
-    weights, as the reference's has none).  On the card a CUDA graph
-    replay from its second call on the same params, as the train step
-    is; ``eval_loss.graphs`` holds the graphs."""
-    dev, cdt = _setup(mesh, d, heads, compute_dtype, device,
-                      head_sharded=head_sharded)
+    weights, as the reference's has none), on this rank of ``mesh`` in
+    the replicated layout (``eval_loss.specs``); the global minibatch
+    in, the global loss out (``.cut`` / ``.local`` as the train
+    step's).  On the card a CUDA graph replay from its second call on
+    the same params; ``eval_loss.graphs`` holds the graphs."""
+    ax, dev, cdt, heads_local = _setup(
+        mesh, d, heads, ff, vocab if head_sharded else None, n_experts,
+        compute_dtype, device)
     _check_moe(n_experts, moe_top_k)
+    specs = param_specs(n_layers, head_sharded, moe=bool(n_experts))
+    shapes = _local_shapes(param_shapes(n_layers, d, ff, vocab,
+                                        n_experts=n_experts), specs, ax)
 
-    def body_of(params):
+    def body_of(params, _leaves):
         @torch.no_grad()
         def body(tok, lab, m=None):
-            return _forward_ce(params, tok, lab, m, heads, causal, cdt,
-                               loss_chunks=loss_chunks, moe_top_k=moe_top_k)
+            return _reduced(_forward_ce(
+                params, tok, lab, m, heads_local, causal, cdt, ax,
+                loss_chunks=loss_chunks, head_sharded=head_sharded,
+                moe_top_k=moe_top_k), ax)
         return body
 
     run = _runner(dev)
-
-    def eval_loss(params, tokens, labels, mask=None):
-        inputs = _batch(masked, tokens, labels, mask)
-        leaves = _check_params(params, dev)
-        return run("eval", leaves, body_of(params), inputs)
-
-    eval_loss.graphs = run.graphs
+    eval_loss = _entry(run, "eval", dev, ax, masked, shapes, body_of)
+    eval_loss.graphs, eval_loss.mesh, eval_loss.specs = \
+        run.graphs, ax.mesh, specs
     return eval_loss
 
 
@@ -571,16 +970,30 @@ def make_logits_fn(mesh, n_layers: int, d: int,
     forward through the SAME :func:`_forward_hidden` body the train and
     eval steps use, with the head applied per position.  The generative
     serving plane's correctness oracle: KV-cache decode is held against
-    exactly this function."""
-    dev, cdt = _setup(mesh, d, heads, compute_dtype, device)
+    exactly this function.  On a mesh each rank computes its block of
+    the global ``tokens`` and the blocks are gathered over ``(data,
+    seq)``: every rank returns the whole.  The head is replicated
+    (``head_sharded`` has no logits form, as in the reference)."""
+    ax, dev, cdt, heads_local = _setup(mesh, d, heads, ff, None, n_experts,
+                                       compute_dtype, device)
     _check_moe(n_experts, moe_top_k)
+    specs = param_specs(n_layers, False, moe=bool(n_experts))
+    shapes = _local_shapes(param_shapes(n_layers, d, ff, vocab,
+                                        n_experts=n_experts), specs, ax)
 
     @torch.no_grad()
     def logits(params, tokens):
-        _check_params(params, dev)
-        x, _aux, ps = _forward_hidden(params, _tensor(tokens).to(dev),
-                                      heads, causal, cdt,
-                                      moe_top_k=moe_top_k)
-        return (x @ ps["head"]).float()
+        _check_params(params, dev, shapes)
+        block = ax.cut(_tensor(tokens)).to(dev)
+        x, _aux, ps = _forward_hidden(params, block, heads_local, causal,
+                                      cdt, ax, moe_top_k=moe_top_k)
+        out = (x @ ps["head"]).float()
+        if ax.ds.size == 1:
+            return out
+        nd, ns = ax.data.size, ax.seq.size
+        b_l, t_l, v = out.shape
+        every = ax.ds.all_gather(out).view(nd, ns, b_l, t_l, v)
+        return every.permute(0, 2, 1, 3, 4).reshape(nd * b_l, ns * t_l, v)
 
+    logits.mesh, logits.specs = ax.mesh, specs
     return logits

@@ -1,19 +1,27 @@
 """Transformer language-model step unit — the port of
-``znicz_tpu/units/lm.py``: it wires the one-device transformer stack
-(``parallel/transformer.py``: flash attention, MoE blocks, remat
-policies, mixed precision) into the unit graph with the fused step's
-control contract: Repeater -> Loader -> step -> Decision.
+``znicz_tpu/units/lm.py``: it wires the transformer stack
+(``parallel/transformer.py``: flash attention, the ``(data, seq,
+model)`` mesh, MoE blocks, remat policies, mixed precision) into the
+unit graph with the fused step's control contract: Repeater -> Loader
+-> step -> Decision.
 
-Per minibatch it stages (tokens, labels, padding mask) on the device in
-one pinned host-to-device copy, runs the train step or the eval pass
-(each a CUDA graph replay on the card from its second call) and reads
-the loss back: one sync a minibatch, the ``minibatch_mse`` the decision
-watches.  The input pipeline stages the next minibatch on a side stream
-instead (:meth:`TransformerLMStep.make_stager`).
+``mesh`` is the step's (a ``parallel/mesh.py Mesh`` or ``{axis:
+size}``); None is a data-only mesh over the world
+(``launcher.multihost``), a mesh of one outside any world.  Every rank
+runs the same loader over the same global minibatches.
+
+Per minibatch it stages this rank's block of (tokens, labels, padding
+mask) on the device in one pinned host-to-device copy, runs the train
+step or the eval pass (each a CUDA graph replay on the card from its
+second call) and reads the global loss back: one sync a minibatch, the
+``minibatch_mse`` the decision watches.  The input pipeline stages the
+next minibatch on a side stream instead
+(:meth:`TransformerLMStep.make_stager`).  ``state_dict``,
+``export_lm`` and so the snapshotter gather the global params: on a
+mesh a collective every rank makes.
 
 Torch-only, as the reference's is XLA-only: ``numpy_init`` raises.  Not
-ported yet: ``anatomy`` (ROADMAP.md queue A item 14) and the sharded
-options the transformer refuses (item 10b).
+ported yet: ``anatomy`` (ROADMAP.md queue A item 14).
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from znicz_tpu_torch.core import prng
 from znicz_tpu_torch.core.accelerated_units import AcceleratedUnit
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.loader.base import TRAIN
+from znicz_tpu_torch.parallel import mesh as _mesh
 from znicz_tpu_torch.parallel import transformer as tfm
 from znicz_tpu_torch.pipeline import (ready_on_current_stream,
                                       ring_safe_stager)
@@ -63,7 +72,7 @@ class TransformerLMStep(AcceleratedUnit):
         #: CE loss chunk count — set when vocab ≫ d so the (tokens,
         #: vocab) logits never materialize
         self.loss_chunks = loss_chunks
-        #: vocab-shard the LM head (refused until the multi-GPU axes)
+        #: vocab-shard the LM head over the mesh's model axis
         self.head_sharded = head_sharded
         #: MoE FFN blocks: expert count, load-balance aux and router
         #: z-loss weights (training loss only), and routing k
@@ -114,11 +123,15 @@ class TransformerLMStep(AcceleratedUnit):
                 "queue A item 14)")
         self.vocab_size = int(self.loader.vocab_size)
         self._dev = self.device.torch_device
+        if self.mesh is None and _mesh.world()[1] > 1:
+            self.mesh = {"data": _mesh.world()[1], "seq": 1, "model": 1}
+        if self.mesh is not None and not isinstance(self.mesh, _mesh.Mesh):
+            self.mesh = _mesh.make_mesh(dict(getattr(self.mesh, "shape",
+                                                     self.mesh)))
         if self._params is None:
             self._params = tfm.init_params(
                 prng.get(), self.n_layers, self.d, self.heads, self.ff,
                 self.vocab_size, n_experts=self.n_experts)
-        self._params = tfm.params_from_numpy(self._params, self._dev)
         # masked: the loader's padded tail rows contribute neither loss
         # nor gradients
         arch = (self.mesh, self.n_layers, self.d, self.heads, self.ff,
@@ -133,22 +146,38 @@ class TransformerLMStep(AcceleratedUnit):
             moe_zloss_weight=self.moe_zloss_weight,
             remat_policy=self.remat_policy, **common)
         self._eval = tfm.make_eval_loss(*arch, **common)
+        self._params = self._place(self._params)
         if self._dev.type == "cuda":
             self._h2d_stream = torch.cuda.Stream(self._dev)
         #: reused mask row — the hot loop allocates no index per step
         self._arange = np.arange(self.loader.max_minibatch_size)
 
+    def _place(self, params) -> dict:
+        """A global numpy pytree as this rank's blocks on the device (the
+        step's layout on its mesh)."""
+        return tfm.params_from_numpy(params, self._dev, mesh=self.mesh,
+                                     specs=self._step.specs)
+
+    def _global_params(self) -> dict:
+        """The global numpy pytree (a collective on a mesh)."""
+        return tfm.params_to_numpy(self._params, self.mesh,
+                                   self._step.specs if self.mesh is not None
+                                   else None)
+
     def _stage_batch(self, tokens, labels, count: int) -> tuple:
-        """(tokens, labels, mask) on the step's device in ONE host-to-
-        device copy: packed into one int64 block, pinned on the card
-        (PyTorch's caching host allocator keeps it until the copy is
-        done), then split into views.  Shared by the synchronous path
-        and the input-pipeline stager."""
+        """This rank's block of (tokens, labels, mask) on the step's
+        device in ONE host-to-device copy: packed into one int64 block,
+        pinned on the card (PyTorch's caching host allocator keeps it
+        until the copy is done), then split into views.  Shared by the
+        synchronous path and the input-pipeline stager."""
+        tokens, labels, mask = self._step.cut(
+            np.asarray(tokens), np.asarray(labels),
+            self._arange[:np.shape(tokens)[0]] < count)
         b, t = np.shape(tokens)
         packed = np.empty(2 * b * t + b, np.int64)
         packed[:b * t] = np.reshape(tokens, -1)
         packed[b * t:2 * b * t] = np.reshape(labels, -1)
-        packed[2 * b * t:] = self._arange < count
+        packed[2 * b * t:] = mask
         host = torch.from_numpy(packed)
         if self._dev.type == "cuda":
             host = host.pin_memory()
@@ -192,9 +221,9 @@ class TransformerLMStep(AcceleratedUnit):
             inputs = self._stage_batch(loader.minibatch_data.mem,
                                        loader.minibatch_labels.mem, count)
         if int(loader.minibatch_class) == TRAIN:
-            self._params, loss = self._step(self._params, *inputs)
+            self._params, loss = self._step.local(self._params, *inputs)
         else:
-            loss = self._eval(self._params, *inputs)
+            loss = self._eval.local(self._params, *inputs)
         self.minibatch_mse = float(loss)
         self.minibatch_size = count
 
@@ -206,7 +235,9 @@ class TransformerLMStep(AcceleratedUnit):
         loader's charmap, bootable by ``python -m znicz_tpu_torch
         generate`` into the paged decode plane.  ``draft_layers=k`` also
         ships a layer-truncated draft (the first k blocks + the shared
-        embedding and head) for speculative decoding."""
+        embedding and head) for speculative decoding.  On a mesh every
+        rank calls it (the params' gather is collective) and rank 0
+        writes."""
         from znicz_tpu_torch.serve.paged import truncate_draft
         from znicz_tpu_torch.utils.export import export_lm
 
@@ -217,7 +248,9 @@ class TransformerLMStep(AcceleratedUnit):
         if self.n_experts:
             raise ValueError("export_lm cannot package an MoE stack "
                              "(KV-cache decode serves dense FFN only)")
-        params = tfm.params_to_numpy(self._params)
+        params = self._global_params()
+        if _mesh.world()[0] != 0:
+            return path
         draft = truncate_draft(params, draft_layers) if draft_layers \
             else None
         charmap = list(getattr(self.loader, "vocab", []) or []) or None
@@ -231,7 +264,7 @@ class TransformerLMStep(AcceleratedUnit):
         if self._params is None:
             return {}
         params = self._params if self._step is None else \
-            tfm.params_to_numpy(self._params)
+            self._global_params()
         return {"params": params}
 
     def load_state_dict(self, state: dict) -> None:
@@ -271,17 +304,22 @@ class TransformerLMStep(AcceleratedUnit):
         if self._step is None:
             self._params = params
             return
-        # initialized: copy into the live tensors, which the captured
-        # graphs read and update
-        pairs = [(self._params[k], params[k]) for k in ("emb", "head")] + [
-            (blk[k], snap[k]) for blk, snap in zip(self._params["blocks"],
-                                                   params["blocks"])
-            for k in blk]
-        bad = [tuple(w.shape) for w, a in pairs
-               if tuple(w.shape) != tuple(np.shape(a))]
+        # initialized: copy this rank's blocks into the live tensors,
+        # which the captured graphs read and update
+        params = {"emb": params["emb"], "head": params["head"],
+                  "blocks": [{k: snap[k] for k in blk} for blk, snap in
+                             zip(self._params["blocks"], params["blocks"])]}
+        try:
+            placed = self._place(params)
+        except ValueError as exc:
+            raise ValueError(f"snapshot params' shapes do not match this "
+                             f"workflow's (ff={self.ff}): {exc}") from exc
+        pairs = list(zip(tfm._leaves(self._params), tfm._leaves(placed)))
+        bad = [tuple(a.shape) for w, a in pairs
+               if tuple(w.shape) != tuple(a.shape)]
         if bad:
             raise ValueError(f"snapshot params' shapes do not match this "
                              f"workflow's (ff={self.ff}): {bad[:3]}")
         with torch.no_grad():
             for w, a in pairs:
-                w.copy_(torch.as_tensor(np.asarray(a, np.float32)))
+                w.copy_(a)
