@@ -329,6 +329,29 @@ exits non-zero without the final ``ok`` line):
    ``python -m znicz_tpu_torch serve --smoke-test`` on cuda (its own
    process) and with ``--native`` (the C++ runtime, built beside the
    AlexNet work, held against the torch forward).
+17j. **pipe_expert** — the pipeline step and the expert axis at the
+   char LM's MoE block widths (d 512, ff 2048, 4 experts; 8
+   microbatches of 1024 rows): (a) ``parallel/pipeline.py``'s GPipe
+   ticks with 2 and 4 stages played one after another on the card
+   (each stage's rotation hands over what the stage before it sent),
+   bit-identical to the stages applied one after another in f32 and
+   bf16, a stage fed one tick late rejected, tick counts and ms; then,
+   joined through ``launcher.multihost`` as a one-rank NCCL world on
+   ``make_mesh({"data": 1, "pipe": 1, "expert": 1})``: (b)
+   ``make_pipeline_step`` for 20 steps bit-identical to the step with
+   no group, bf16 within the reference's band of f32 with the params
+   f32, the loss below 0.8x its first; collectives a step, replays, ms
+   a step, peak memory; (c) ``moe_ffn_dispatch`` over the expert line
+   at 16384 tokens, top-1 and top-2: at lossless capacity its values
+   and gradients against ``moe_ffn`` (a misrouted slot rejected), at
+   capacity 1.0 its dropped pairs against the host's count, and one
+   call captured in a CUDA graph, the replay bit-identical to the eager
+   call with NCCL's all-to-all in it; (d) the train phase's step for 2
+   steps, saved through ``parallel/checkpoint.py``, restored into the
+   ``shard_params`` layout and run 2 more: losses and params
+   bit-identical to 4 uninterrupted steps, the flash launches counted
+   exactly; MB written, seconds to write and to restore.  The group is
+   destroyed at the phase's end.
 18. **kernel_hw** — ``utils/kernel_hw.run_parity("cuda")``, all fourteen
    families of the reference ``ok``; the LRN, dropout and bf16 conv
    forward counters set to 0 just before and read just after (the only
@@ -339,7 +362,7 @@ exits non-zero without the final ``ok`` line):
 pool_backward, conv, alexnet_eager, deconv, kohonen, lrn_dropout,
 ae_fused, alexnet_fused, graph_parity, fused_conv_parity,
 input_pipeline, image_files, snapshot_resume, data_parallel, lm_axes,
-serve_forward, speculative, char_lm, train, or three that
+serve_forward, pipe_expert, speculative, char_lm, train, or three that
 only measure and run on older trees of the port too: **waves**, the
 weight gradient at AlexNet's and build_deep's shapes with split_k's
 slices, one fewer and one more, through the C entry; **fused_compare**,
@@ -361,6 +384,7 @@ true, ...}`` line.  Exits non-zero without a usable CUDA device.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import io
@@ -6389,7 +6413,7 @@ def phase_build() -> dict:
 def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
                 fused, conv, alexnet, deconv, ae, spool, mcs, som,
                 lrn_drop, alex_fused, kernel_hw, spec, char,
-                data_parallel, serve_forward, lm_axes) -> dict:
+                data_parallel, serve_forward, lm_axes, pipe_expert) -> dict:
     """The eighteen kernels: launches from the main paths' runs, times
     and errors from the kernel phases, bounds from this run's inputs.  A
     conv kernel's times and bound sum its launches of one AlexNet train
@@ -6406,7 +6430,9 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
     flash and paged_decode entries the char_lm phase's launches (its
     workflow's and its served package's), the flash entries the lm_axes
     phase's (the ring's composition, Σ(r+1) a causal ring of n, and the
-    LM step on the one-rank world in each layout), and the SGD, AdamW
+    LM step on the one-rank world in each layout) and the pipe_expert
+    phase's (its checkpointed LM runs, uninterrupted and resumed), and
+    the SGD, AdamW
     and LRN
     entries the data_parallel phase's (its AlexNet epochs with no group
     and in the three layouts, its MNIST FC codec runs on the card), and
@@ -6431,6 +6457,9 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
                          "lm_step": sum(r["flash_launches"][k] for r in
                                         lm_axes["lm_step"].values())}
                      for k in ("fwd", "bwd")}
+    pe_flash = {k: sum(r["flash_launches"][k] for r in
+                       pipe_expert["d_checkpoint"].values())
+                for k in ("fwd", "bwd")}
     dp = {k: sum(r["launches"][k] for r in data_parallel["alexnet"].values())
           for k in ("sgd_update", "lrn_forward", "lrn_backward")}
     dp["adam_update"] = sum(data_parallel["mnist_fc_codecs"][k][
@@ -6455,12 +6484,14 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
               train["fwd_launches"], flash["fwd"],
               flash["fwd"]["max_abs_err"],
               char_lm_launches=char["a_workflow"]["fwd_launches"],
-              lm_axes_launches=lm_axes_flash["fwd"]),
+              lm_axes_launches=lm_axes_flash["fwd"],
+              pipe_expert_launches=pe_flash["fwd"]),
         entry("flash_attention_bwd", kflash.SOURCE, kflash.REPLACES_BWD,
               train["bwd_launches"], flash["bwd"],
               flash["bwd"]["max_abs_err"],
               char_lm_launches=char["a_workflow"]["bwd_launches"],
-              lm_axes_launches=lm_axes_flash["bwd"]),
+              lm_axes_launches=lm_axes_flash["bwd"],
+              pipe_expert_launches=pe_flash["bwd"]),
         entry("gemm_fc", kgemm.SOURCE, kgemm.REPLACES_GEMM,
               eager["gemm_fc_launches"], gemm["gemm"],
               gemm["gemm"]["max_abs_err"],
@@ -8569,11 +8600,12 @@ def ring_composition(device, b, h, t, dh, dtype, ns=LM_RING_NS,
 
 
 def _global_digests(params) -> dict:
-    """sha256 of every leaf's bytes of a global numpy pytree."""
+    """sha256 of every leaf's bytes of a global numpy pytree (the LM's, or
+    a flat dict of leaves)."""
     import hashlib
 
-    flat = {"emb": params["emb"], "head": params["head"]}
-    for i, blk in enumerate(params["blocks"]):
+    flat = dict(params)
+    for i, blk in enumerate(flat.pop("blocks", ())):
         flat.update({f"blocks.{i}.{k}": a for k, a in blk.items()})
     return {k: hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
             for k, a in flat.items()}
@@ -8729,6 +8761,544 @@ def phase_lm_axes() -> dict:
     out["seconds"] = time.perf_counter() - t0
     if bad:
         fail(f"lm_axes: {bad}: {out}")
+    return out
+
+
+#: pipe_expert: the char LM's MoE block widths (models/char_lm.py: d 512,
+#: ff 2048, 4 experts), PE_MICRO microbatches of PE_ROWS rows from SEED
+PE_EXPERTS, PE_MICRO, PE_ROWS = 4, 8, 1024
+#: (a) the GPipe schedule at S of PE_STAGES stages played in turn
+PE_STAGES = (2, 4)
+#: (b) the pipeline step: steps a run, and its target ys = xs / 2 (the
+#: reference's bf16 test's) at lr 2.0, which the CPU run of these widths
+#: (256 rows) took to 0.71x its first loss in 20 steps; bf16 against f32
+#: over the first PE_BF16_STEPS losses, the reference's band
+#: (tests/test_transformer_spmd.py:191); the loss must fall below
+#: PE_LEARN x its first
+PE_STEPS, PE_LR, PE_BF16_STEPS, PE_BF16_RTOL, PE_LEARN = 20, 2.0, 5, 5e-2, \
+    0.8
+#: (c) moe_ffn_dispatch: tokens, and the band against moe_ffn in f32
+#: (TF32 off) as the largest error over the largest magnitude of the
+#: reference, values and each gradient: the same products summed in
+#: another order (buckets against all tokens), a few f32 ulps
+PE_TOKENS, PE_DISPATCH_BAND = 16384, 1e-5
+#: (d) the LM train cell resumed from a checkpoint: steps before the save
+#: and after the restore
+PE_CKPT_STEPS = 2
+
+
+class StageStandIn:
+    """The ``pipe`` axis for stage ``index`` of ``size`` played on one
+    device after the stage before it (``prev``): each tick's rotation
+    records what this stage sends and hands over what ``prev`` sent
+    ``lag`` ticks before (1: the same tick, the schedule's rule; 2: the
+    control, a stage fed one tick late)."""
+
+    def __init__(self, index: int, size: int, prev=None, lag: int = 1):
+        self.index, self.size, self.prev, self.lag = index, size, prev, lag
+        self.sent = []
+
+    def ppermute(self, tensors, shift=1):
+        self.sent.append(tensors[0])
+        t = len(self.sent) - self.lag
+        if self.prev is None or t < 0:
+            return [torch.zeros_like(tensors[0])]
+        return [self.prev.sent[t]]
+
+
+def gpipe_played(stage_fn, stages, xs, lags=None):
+    """Every stage of a pipeline through ``parallel/pipeline.py
+    pipeline_ticks`` with :class:`StageStandIn` axes, stage 0 first, the
+    stages' emissions summed (the ``psum``) -> ``(outputs, stage
+    applications)``."""
+    from znicz_tpu_torch.parallel.pipeline import pipeline_ticks
+
+    n = len(stages)
+    lags = lags or [1] * n
+    calls = [0]
+
+    def counted(p, x):
+        calls[0] += 1
+        return stage_fn(p, x)
+    prev, out = None, None
+    for s, p in enumerate(stages):
+        prev = StageStandIn(s, n, prev, lags[s])
+        emitted = pipeline_ticks(counted, p, xs, prev)
+        out = emitted if out is None else out + emitted
+    return out, calls[0]
+
+
+def gpipe_sequential(stage_fn, stages, xs):
+    """Each microbatch through the stages one after another."""
+    outs = []
+    for x in xs:
+        for p in stages:
+            x = stage_fn(p, x)
+        outs.append(x)
+    return torch.stack(outs)
+
+
+def _pe_schedule(tfm) -> tuple:
+    """(a): the schedule at each S of PE_STAGES in f32 and bf16 against
+    the stages applied one after another, bit for bit; the control (the
+    last stage fed one tick late) must differ.  -> (report, failures)"""
+    rng = np.random.default_rng(SEED)
+    xs32 = torch.tensor(rng.normal(size=(PE_MICRO, PE_ROWS, D)).astype(
+        np.float32), device=DEVICE)
+    rows, bad = [], []
+    for n in PE_STAGES:
+        host = tfm.init_moe_pipeline_params(rng, n, D, FF, PE_EXPERTS)
+        for dtype in (torch.float32, torch.bfloat16):
+            stages = [{k: torch.tensor(v[s:s + 1], device=DEVICE,
+                                       dtype=dtype) for k, v in host.items()}
+                      for s in range(n)]
+            xs = xs32.to(dtype)
+            with torch.no_grad():
+                got, calls = gpipe_played(tfm.moe_stage, stages, xs)
+                want = gpipe_sequential(tfm.moe_stage, stages, xs)
+                row = {"stages": n, "dtype": str(dtype),
+                       "ticks": PE_MICRO + n - 1, "stage_calls": calls,
+                       "sequential_calls": n * PE_MICRO,
+                       "identical": torch.equal(got, want),
+                       "finite": bool(torch.isfinite(got).all())}
+                row["ms"] = time_cuda_ms(
+                    lambda: gpipe_played(tfm.moe_stage, stages, xs),
+                    iters=3, warmup=1)
+                row["sequential_ms"] = time_cuda_ms(
+                    lambda: gpipe_sequential(tfm.moe_stage, stages, xs),
+                    iters=3, warmup=1)
+                if n == PE_STAGES[0]:
+                    ctl, _ = gpipe_played(tfm.moe_stage, stages, xs,
+                                          lags=[1] * (n - 1) + [2])
+                    row["control_max_abs"] = float(
+                        (ctl.float() - want.float()).abs().max())
+                    row["control_rejected"] = not torch.equal(ctl, want)
+                    if not row["control_rejected"]:
+                        bad.append(f"(a) the late-fed control passes: {row}")
+            if not (row["identical"] and row["finite"] and
+                    calls == n * (PE_MICRO + n - 1)):
+                bad.append(f"(a) schedule: {row}")
+            rows.append(row)
+            del stages
+    return {"rows": rows}, bad
+
+
+def _pe_step_run(tfm, mesh, host, xs, ys, dtype) -> dict:
+    """(b) one run: PE_STEPS steps of the pipeline step on ``mesh`` (None:
+    no group) in ``dtype`` from ``host``, the collective counter set to
+    0 just before and read just after; ms of each step (a replay from
+    the second), peak memory, replays and the params' digests."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    mem_start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step = tfm.make_pipeline_step(mesh, PE_EXPERTS, lr=PE_LR,
+                                  compute_dtype=dtype, device=DEVICE)
+    ps = params_from_numpy(host, DEVICE, mesh=mesh, specs=step.specs)
+    tmesh.collective_launches = 0
+    losses, events = [], []
+    for _ in range(PE_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(step(ps, xs, ys)[1])
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    out = {"losses": [float(x) for x in losses],
+           "collectives_per_step": tmesh.collective_launches / PE_STEPS,
+           "replays": sum(g.replays for g in step.graphs.values() if g),
+           "ms_per_step": [s.elapsed_time(e) for s, e in events][2:],
+           "peak_mem_bytes": torch.cuda.max_memory_allocated() - mem_start,
+           "params_f32": all(w.dtype == torch.float32 for w in ps.values())}
+    out["step_ms"] = float(np.median(out["ms_per_step"]))
+    out["digests"] = _global_digests(params_to_numpy(ps, mesh, step.specs))
+    del step, ps
+    return out
+
+
+def _pe_step(tfm, mesh) -> tuple:
+    """(b): the step with no group and on the one-rank world in f32 (bit
+    for bit), on the world in bf16 (the losses within PE_BF16_RTOL of
+    f32's, the params f32); the f32 loss falls below PE_LEARN x its
+    first.  -> (report, failures)"""
+    rng = np.random.default_rng(SEED + 1)
+    host = tfm.init_moe_pipeline_params(rng, 1, D, FF, PE_EXPERTS)
+    xs = torch.tensor(rng.normal(size=(PE_MICRO, PE_ROWS, D)).astype(
+        np.float32), device=DEVICE)
+    ys = 0.5 * xs
+    runs = {"ungrouped": _pe_step_run(tfm, None, host, xs, ys,
+                                      torch.float32),
+            "grouped": _pe_step_run(tfm, mesh, host, xs, ys, torch.float32),
+            "grouped_bf16": _pe_step_run(tfm, mesh, host, xs, ys, None)}
+    bad = []
+    f32, bf16 = runs["grouped"], runs["grouped_bf16"]
+    runs["grouped"]["identical_to_ungrouped"] = same = \
+        f32["digests"] == runs["ungrouped"]["digests"] and \
+        f32["losses"] == runs["ungrouped"]["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in
+           zip(bf16["losses"][:PE_BF16_STEPS], f32["losses"])]
+    bf16["loss_rel_to_f32"] = rel
+    if not same:
+        bad.append("(b) the grouped step differs from the step with no group")
+    if not (max(rel) <= PE_BF16_RTOL and bf16["params_f32"]):
+        bad.append(f"(b) bf16 losses {bf16['losses']} against f32's")
+    if not f32["losses"][-1] < PE_LEARN * f32["losses"][0]:
+        bad.append(f"(b) the loss does not fall: {f32['losses']}")
+    for name, run in runs.items():
+        run.pop("digests")
+        if run["replays"] != PE_STEPS - 1 or \
+                not all(np.isfinite(run["losses"])):
+            bad.append(f"(b) {name}: {run['replays']} replays, losses "
+                       f"{run['losses']}")
+    if runs["ungrouped"]["collectives_per_step"] != 0 or \
+            f32["collectives_per_step"] == 0:
+        bad.append("(b) the collectives a step")
+    return runs, bad
+
+
+def _rel_err(got, want) -> float:
+    return float((got.double() - want.double()).abs().max() /
+                 want.double().abs().max())
+
+
+@contextlib.contextmanager
+def slot_misrouted(tmoe):
+    """The control: the first (token, choice) pair's slot moved to the
+    next expert's bucket (its last slot, empty at lossless capacity)."""
+    slots = tmoe.bucket_slots
+
+    def wrong(choice, n_experts, capacity):
+        slot, keep = slots(choice, n_experts, capacity)
+        e = (choice.reshape(-1)[0] + 1) % n_experts
+        slot = slot.clone()
+        slot[0] = e * capacity + capacity - 1
+        return slot, keep
+    tmoe.bucket_slots = wrong
+    try:
+        yield
+    finally:
+        tmoe.bucket_slots = slots
+
+
+def _host_drops(choice: np.ndarray, n_experts: int, capacity: int) -> int:
+    """The (token, choice) pairs past their expert's capacity, counted
+    on the host in token-major order."""
+    seen = [0] * n_experts
+    dropped = 0
+    for e in choice.reshape(-1):
+        dropped += seen[e] >= capacity
+        seen[e] += 1
+    return int(dropped)
+
+
+def _pe_dispatch(tfm, mesh) -> tuple:
+    """(c): moe_ffn_dispatch over the one-rank world's expert line
+    (NCCL's all-to-all) at PE_TOKENS tokens, top-1 and top-2: at the
+    lossless capacity E / top_k its values and gradients against
+    moe_ffn within PE_DISPATCH_BAND, a misrouted slot rejected; at
+    capacity 1.0 its dropped pairs against the host's count and its
+    values against the plain version with those drops; one call
+    captured in a CUDA graph (:func:`_pe_dispatch_graph`).  -> (report,
+    failures)"""
+    from znicz_tpu_torch.parallel import moe as tmoe
+
+    expert = mesh.axis("expert")
+    rng = np.random.default_rng(SEED + 2)
+    host = tfm.init_moe_pipeline_params(rng, 1, D, FF, PE_EXPERTS)
+    w = {k: torch.tensor(v[0], device=DEVICE) for k, v in host.items()}
+    x = torch.tensor(rng.normal(size=(PE_TOKENS, D)).astype(np.float32),
+                     device=DEVICE)
+    wsum = torch.tensor(rng.normal(size=(PE_TOKENS, D)).astype(np.float32),
+                        device=DEVICE)
+    names = ("x", "gate", "w1", "b1", "w2", "b2")
+    gelu = tfm._GELU
+
+    def run(fn, **kw):
+        args = [t.detach().clone().requires_grad_(True) for t in
+                (x, w["gate"], w["w1"], w["b1"], w["w2"], w["b2"])]
+        y, _ = fn(*args, gelu, **kw)
+        return [y.detach()] + [g for g in torch.autograd.grad(
+            (y * wsum).sum(), args)]
+
+    out, bad = {}, []
+    for k in (1, 2):
+        lossless = PE_EXPERTS / k
+        want = run(tmoe.moe_ffn, axis=None, top_k=k)
+        tmesh.collective_launches = 0
+        got = run(tmoe.moe_ffn_dispatch, axis=expert,
+                  capacity_factor=lossless, top_k=k)
+        row = {"top_k": k, "capacity_factor": lossless,
+               "collectives": tmesh.collective_launches,
+               "err": dict(zip(("y",) + names,
+                               (_rel_err(g, r) for g, r in zip(got, want))))}
+        with torch.no_grad(), slot_misrouted(tmoe):
+            ctl, _ = tmoe.moe_ffn_dispatch(
+                x, w["gate"], w["w1"], w["b1"], w["w2"], w["b2"], gelu,
+                expert, capacity_factor=lossless, top_k=k)
+        row["control_err"] = _rel_err(ctl, want[0])
+        if any(e > PE_DISPATCH_BAND for e in row["err"].values()) or \
+                row["control_err"] <= PE_DISPATCH_BAND or \
+                row["collectives"] != 4:
+            bad.append(f"(c) lossless top-{k}: {row}")
+        # capacity 1.0: drops, counted on the host and held against the
+        # plain version with them
+        with torch.no_grad():
+            y, _ = tmoe.moe_ffn_dispatch(
+                x, w["gate"], w["w1"], w["b1"], w["w2"], w["b2"], gelu,
+                expert, capacity_factor=1.0, top_k=k)
+            scores = x @ w["gate"]
+            choice = torch.topk(scores, k, dim=-1).indices
+            cap = int(np.ceil(1.0 * PE_TOKENS * k / PE_EXPERTS))
+            _slot, keep = tmoe.bucket_slots(choice, PE_EXPERTS, cap)
+            probs = torch.softmax(scores, -1).gather(1, choice)
+            if k > 1:
+                probs = probs / probs.sum(-1, keepdim=True)
+            h = gelu(torch.einsum("td,edf->etf", x, w["w1"]) +
+                     w["b1"][:, None])
+            y_e = torch.einsum("etf,efd->etd", h, w["w2"]) + w["b2"][:, None]
+            plain = sum(keep.view(-1, k)[:, j, None] * probs[:, j, None] *
+                        y_e[choice[:, j], torch.arange(PE_TOKENS)]
+                        for j in range(k))
+        row["capacity_1"] = {
+            "capacity": cap, "dropped": int((~keep).sum()),
+            "host_dropped": _host_drops(choice.cpu().numpy(), PE_EXPERTS,
+                                        cap),
+            "err": _rel_err(y, plain)}
+        c1 = row["capacity_1"]
+        if c1["dropped"] != c1["host_dropped"] or c1["dropped"] == 0 or \
+                c1["err"] > PE_DISPATCH_BAND:
+            bad.append(f"(c) capacity 1.0 top-{k}: {c1}")
+        out[f"top{k}"] = row
+        del want, got
+    out["graph"], b = _pe_dispatch_graph(tmoe, expert, x, w, gelu)
+    bad += b
+    return out, bad
+
+
+def _replay_counts(fn) -> collections.Counter:
+    """The device activities of one call of ``fn`` (a graph replay), by
+    name, from a profiled window."""
+    acts = None
+    for _ in range(3):
+        acts = profiled_after_mark(fn, 1)
+        if acts:
+            break
+    if not acts:
+        fail("pipe_expert: three profiled windows lost their mark")
+    return collections.Counter(name[:80] for name, _us in acts)
+
+
+def _pe_dispatch_graph(tmoe, expert, x, w, gelu) -> tuple:
+    """(c)'s capture: one top-2 dispatch at lossless capacity through
+    ``run_graphed`` (eager, captured and replayed, replayed), its
+    replays against the eager call and its collectives counted; then
+    the replay's device activities beside those of the same body with no
+    expert axis (no all-to-all): two more, one for each of NCCL's
+    exchanges, as many as two replays of one bare captured
+    ``expert.all_to_all`` of its buckets run (less its copy out).  ->
+    (report, failures)"""
+    from znicz_tpu_torch.parallel.graphs import run_graphed
+
+    dev = torch.device(DEVICE)
+    cap = int(np.ceil(2.0 * PE_TOKENS * 2 / PE_EXPERTS))
+
+    def graphed(axis):
+        graphs, stream = {}, torch.cuda.Stream()
+
+        def body(xb):
+            return tmoe.moe_ffn_dispatch(
+                xb, w["gate"], w["w1"], w["b1"], w["w2"], w["b2"], gelu,
+                axis, capacity_factor=PE_EXPERTS / 2, top_k=2)[0]
+
+        def call():
+            return run_graphed(graphs, "dispatch", "dispatch", body, (x,),
+                               dev, stream)
+        return call, graphs
+    with torch.no_grad():
+        call, graphs = graphed(expert)
+        eager = call().clone()
+        tmesh.collective_launches = 0
+        replays = [call().clone() for _ in range(2)]
+        torch.cuda.synchronize()
+        collectives = tmesh.collective_launches
+        with_a2a = _replay_counts(call)
+        bare_call, _ = graphed(None)
+        for _ in range(2):                  # eager, then captured
+            bare_call()
+        without = _replay_counts(bare_call)
+        buckets = torch.randn(1, PE_EXPERTS, cap, D, device=DEVICE)
+        exchanged = torch.empty_like(buckets)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            exchanged.copy_(expert.all_to_all(buckets))     # eager, warm
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            exchanged.copy_(expert.all_to_all(buckets))
+        copy = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(copy, stream=stream):
+            exchanged.copy_(buckets)
+        a2a = _replay_counts(graph.replay) - _replay_counts(copy.replay)
+        torch.cuda.synchronize()
+    out = {"replays": graphs["dispatch"].replays,
+           "collectives_in_two_calls": collectives,
+           "identical_to_eager": all(torch.equal(r, eager) for r in replays),
+           "replay_activities": dict(with_a2a),
+           "without_all_to_all": dict(without),
+           "all_to_all_activities": dict(a2a),
+           "bare_exchange_equal": torch.equal(exchanged, buckets)}
+    # a captured device copy runs on the copy engine or as an SM copy
+    # kernel, so the names may differ between graphs: the counts are
+    # held, two exchanges' worth of activities more than without them
+    extra = sum(with_a2a.values()) - sum(without.values())
+    out["extra_activities"] = extra
+    bad = []
+    if not (out["identical_to_eager"] and collectives == 4 and a2a and
+            extra == 2 * sum(a2a.values()) and out["bare_exchange_equal"]):
+        bad.append(f"(c) the captured dispatch: {out}")
+    return out, bad
+
+
+def _pe_lm_run(tfm, mesh, params, tokens, labels, path=None) -> dict:
+    """(d) one run of phase train's step on the one-rank mesh from
+    ``params``: 2 · PE_CKPT_STEPS steps in the replicated layout, or with
+    ``path`` PE_CKPT_STEPS steps, a ``save_pytree`` to ``path``, the step
+    rebuilt in the shard_params layout from ``load_pytree`` and
+    PE_CKPT_STEPS more; the flash counters set to 0 just before the
+    first step and read just after the last."""
+    from znicz_tpu_torch.parallel import checkpoint as tckpt
+
+    def make(**opts):
+        return make_train_step(mesh, N_LAYERS, D, HEADS, FF, VOCAB,
+                               lr=TRAIN_LR, loss_chunks=TRAIN_CHUNKS,
+                               device=DEVICE, **opts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    specs = tfm.param_specs(N_LAYERS)
+    step = make()
+    ps = params_from_numpy(params, DEVICE, mesh=mesh, specs=step.specs)
+    kflash.fwd_launches = kflash.bwd_launches = 0
+    steps = PE_CKPT_STEPS if path else 2 * PE_CKPT_STEPS
+    losses = [step(ps, tokens, labels)[1] for _ in range(steps)]
+    out = {}
+    if path:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tckpt.save_pytree(path, ps, mesh=mesh, specs=step.specs)
+        out["save_s"] = time.perf_counter() - t0
+        out["mb_written"] = sum(
+            os.path.getsize(os.path.join(path, f))
+            for f in os.listdir(path)) / 1e6
+        del step
+        t0 = time.perf_counter()
+        # the live params as the template: their shapes, dtype and device
+        restored = tckpt.load_pytree(path, like=ps, mesh=mesh, specs=specs)
+        torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - t0
+        del ps
+        step = make(shard_params=True)
+        # the shard_params layout: each replicated leaf flat, this data
+        # rank's slice of it
+        ps = tfm._map(lambda w, s: tzero.pad_slice(
+            w, step.mesh.axis("data").index,
+            step.mesh.axis("data").size).clone() if s == () else w,
+            restored, specs)
+        del restored
+        losses += [step(ps, tokens, labels)[1] for _ in range(PE_CKPT_STEPS)]
+    torch.cuda.synchronize()
+    out["losses"] = [float(x) for x in losses]
+    out["flash_launches"] = {"fwd": kflash.fwd_launches,
+                             "bwd": kflash.bwd_launches}
+    got = tfm.params_to_numpy(ps, mesh, step.specs)
+    if path:
+        got = tfm.unshard_params_host(got, specs, param_shapes(
+            N_LAYERS, D, FF, VOCAB))
+    out["digests"] = _global_digests(got)
+    out["replays"] = sum(g.replays for g in step.graphs.values() if g)
+    del step, ps, got
+    return out
+
+
+def _pe_checkpoint(tfm, mesh) -> tuple:
+    """(d): phase train's step for 2 · PE_CKPT_STEPS steps uninterrupted,
+    then saved after PE_CKPT_STEPS and resumed from the checkpoint in
+    the shard_params layout: the losses and the final params bit for
+    bit, the flash launches exactly N_LAYERS a step each way.  ->
+    (report, failures)"""
+    params = init_params(np.random.default_rng(SEED), N_LAYERS, D, HEADS, FF,
+                         VOCAB)
+    tokens, labels = _train_batch(SEED, TRAIN_B, TRAIN_T)
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {"uninterrupted": _pe_lm_run(tfm, mesh, params, tokens,
+                                            labels),
+                "resumed": _pe_lm_run(tfm, mesh, params, tokens, labels,
+                                      os.path.join(tmp, "ckpt"))}
+    bad = []
+    a, b = runs["uninterrupted"], runs["resumed"]
+    b["identical"] = a["losses"] == b["losses"] and \
+        a["digests"] == b["digests"]
+    if not b["identical"]:
+        bad.append(f"(d) resumed {b['losses']} against {a['losses']}")
+    for name, run in runs.items():
+        n = 2 * PE_CKPT_STEPS * N_LAYERS
+        if run["flash_launches"] != {"fwd": n, "bwd": n}:
+            bad.append(f"(d) {name}: flash launches {run['flash_launches']}")
+        if not all(np.isfinite(run["losses"])):
+            bad.append(f"(d) {name}: losses {run['losses']}")
+        run.pop("digests")
+    return runs, bad
+
+
+def phase_pipe_expert() -> dict:
+    """The pipeline step and the expert axis on the one card: (a) the
+    GPipe schedule of ``parallel/pipeline.py`` at the char LM's MoE
+    block widths, PE_STAGES stages played in turn (StageStandIn), bit
+    for bit the stages applied one after another, in f32 and bf16, a
+    late-fed control rejected; then on a one-rank NCCL world
+    (``launcher.multihost``, ``make_mesh({"data": 1, "pipe": 1,
+    "expert": 1})``): (b) ``make_pipeline_step`` bit for bit the step
+    with no group, bf16 within the reference's band of f32, learning;
+    (c) ``moe_ffn_dispatch`` against ``moe_ffn`` at PE_TOKENS tokens,
+    its drops, and one call captured with NCCL's all-to-all in the
+    replay; (d) phase train's step saved through ``parallel/
+    checkpoint.py`` and resumed in the shard_params layout, bit for bit
+    the uninterrupted run, its flash launches counted.  The group is
+    destroyed at the end."""
+    from znicz_tpu_torch.parallel import transformer as tfm
+
+    t0 = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"phase": "pipe_expert", "widths": {
+        "d": D, "ff": FF, "experts": PE_EXPERTS, "microbatches": PE_MICRO,
+        "rows": PE_ROWS}}
+    try:
+        out["a_schedule"], bad = _pe_schedule(tfm)
+        out["a_seconds"] = time.perf_counter() - t0
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        launcher.multihost(f"127.0.0.1:{port}", 1, 0)
+        try:
+            mesh = tmesh.make_mesh({"data": 1, "pipe": 1, "expert": 1})
+            out["mesh"] = {"repr": repr(mesh), "backend": mesh.backend}
+            for part, fn in (("b_step", _pe_step),
+                             ("c_dispatch", _pe_dispatch),
+                             ("d_checkpoint", _pe_checkpoint)):
+                t1 = time.perf_counter()
+                out[part], b = fn(tfm, mesh)
+                out[f"{part[0]}_seconds"] = time.perf_counter() - t1
+                bad += b
+        finally:
+            torch.distributed.destroy_process_group()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    out["seconds"] = time.perf_counter() - t0
+    if bad:
+        fail(f"pipe_expert: {bad}: {out}")
     return out
 
 
@@ -9067,6 +9637,7 @@ PHASES_ALONE = {"kernel": lambda: phase_kernel(),
                 "snapshot_resume": lambda: phase_snapshot_resume(),
                 "data_parallel": lambda: phase_data_parallel(),
                 "lm_axes": lambda: phase_lm_axes(),
+                "pipe_expert": lambda: phase_pipe_expert(),
                 "speculative": lambda: phase_speculative_alone(),
                 "char_lm": lambda: phase_char_lm(),
                 "train": lambda: phase_train(init_params(
@@ -9172,12 +9743,15 @@ def main() -> int:
     emit(lm_axes)
     serve_forward = phase_serve_forward()
     emit(serve_forward)
+    pipe_expert = phase_pipe_expert()
+    emit(pipe_expert)
     kernel_hw = phase_kernel_hw()
     emit(kernel_hw)
     emit({**kernel_line(kernel, flash, gemm, optim, serve, train, eager,
                         fused, conv, alexnet, deconv, ae, spool, mcs, som,
                         lrn_drop, alex_fused, kernel_hw, spec, char,
-                        data_parallel, serve_forward, lm_axes),
+                        data_parallel, serve_forward, lm_axes,
+                        pipe_expert),
           "first_stream": streams[0][:8],
           "seconds": time.perf_counter() - T_START})
     print(nvidia_smi(), flush=True)

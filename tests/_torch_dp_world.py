@@ -1,7 +1,8 @@
 """Gloo worlds for the port's multi-process tests
 (``test_torch_port_data_parallel.py``, ``test_torch_port_qcomm.py``,
 ``test_torch_port_multihost.py``, ``test_torch_port_lm_axes.py``,
-``test_torch_port_ring_attention.py``).
+``test_torch_port_ring_attention.py``, ``test_torch_port_pipe_expert.py``,
+``test_torch_port_checkpoint.py``).
 
 :func:`run_world` starts ``n`` processes of this file, each a rank of
 one gloo world on the CPU; each runs every case of a job in order and
@@ -373,9 +374,221 @@ def case_lm_backend(case, inits):
     return {"refused": None}
 
 
+def _np_tree(tree):
+    return {k: v.detach().numpy().copy() for k, v in tree.items()}
+
+
+def case_pipe_step(case, inits):
+    """The pipeline step on a (data, pipe, expert) mesh on the CPU:
+    ``steps`` steps from ``inits["pipe"]`` in f32 (``bf16``: bfloat16
+    compute) -> every rank's losses, its blocks after the first step and
+    after the last, and its coordinates."""
+    import torch
+
+    from znicz_tpu_torch.parallel import transformer as tfm
+
+    init = inits["pipe"]
+    mesh = _lm_mesh(case["mesh"])
+    step = tfm.make_pipeline_step(
+        mesh, init["n_experts"], lr=init["lr"], device="cpu",
+        compute_dtype=torch.bfloat16 if case.get("bf16") else torch.float32)
+    ps = tfm.params_from_numpy(init["params"], "cpu", mesh=mesh,
+                               specs=step.specs)
+    losses, first = [], None
+    for i in range(case["steps"]):
+        losses.append(float(step(ps, init["xs"], init["ys"])[1]))
+        if i == 0:
+            first = _np_tree(ps)
+    out = {"losses": losses, "first": first, "blocks": _np_tree(ps),
+           "coords": mesh.coords}
+    out["global"] = tfm.params_to_numpy(ps, mesh, step.specs)
+    return out
+
+
+def case_axes(case, inits):
+    """``pipeline_apply`` over ``pipe`` and ``moe_ffn`` over ``expert``,
+    each over a mesh of the whole world, on this rank's blocks."""
+    import torch
+
+    from znicz_tpu_torch.parallel import moe as tmoe
+    from znicz_tpu_torch.parallel.pipeline import pipeline_apply
+
+    n = torch.distributed.get_world_size()
+    pipe = _lm_mesh({"pipe": n}).axis("pipe")
+    p = inits["pipeline"]
+    r = pipe.index
+    out = {"pipeline": pipeline_apply(
+        lambda wb, x: torch.tanh(x @ wb[0][0] + wb[1][0]),
+        (torch.tensor(p["ws"][r:r + 1]), torch.tensor(p["bs"][r:r + 1])),
+        torch.tensor(p["xs"]), pipe).numpy()}
+    expert = _lm_mesh({"expert": n}).axis("expert")
+    m = inits["moe"]
+    e_l = m["w1"].shape[0] // n
+    blk = {k: torch.tensor(m[k][expert.index * e_l:(expert.index + 1) * e_l])
+           for k in ("w1", "b1", "w2", "b2")}
+    out["moe"] = tmoe.moe_ffn(
+        torch.tensor(m["x"]), torch.tensor(m["gate"]), blk["w1"], blk["b1"],
+        blk["w2"], blk["b2"], torch.relu, expert)[0].numpy()
+    return out
+
+
+def case_dispatch(case, inits):
+    """``moe_ffn_dispatch`` over an ``expert`` mesh of the whole world on
+    this rank's tokens and experts of ``inits[case["init"]]``: the
+    output and, with ``loss``, the gradients of ``(y * w).sum()`` (or
+    ``(y ** 2).sum()``) for x, gate and the expert weights."""
+    import functools
+
+    import torch
+    import torch.nn.functional as F
+
+    from znicz_tpu_torch.parallel import moe as tmoe
+
+    init = inits[case["init"]]
+    n = torch.distributed.get_world_size()
+    axis = _lm_mesh({"expert": n}).axis("expert")
+    r = axis.index
+    t_l = init["x"].shape[0] // n
+    e_l = init["w1"].shape[0] // n
+    args = [torch.tensor(init["x"][r * t_l:(r + 1) * t_l]),
+            torch.tensor(init["gate"])] + [
+        torch.tensor(init[k][r * e_l:(r + 1) * e_l])
+        for k in ("w1", "b1", "w2", "b2")]
+    for a in args:
+        a.requires_grad_(True)
+    y, _ = tmoe.moe_ffn_dispatch(
+        *args[:2], *args[2:], functools.partial(F.gelu, approximate="tanh"),
+        axis, capacity_factor=case["capacity_factor"],
+        top_k=case.get("top_k", 1))
+    if case.get("loss") == "square":
+        loss = (y * y).sum()
+    else:
+        loss = (y * torch.tensor(init["wsum"][r * t_l:(r + 1) * t_l])).sum()
+    grads = torch.autograd.grad(loss, args)
+    return {"y": y.detach().numpy(),
+            "grads": [g.numpy() for g in grads]}
+
+
+def case_hybrid(case, inits):
+    """A hybrid mesh over this world split into nodes of
+    ``LOCAL_WORLD_SIZE`` ranks: the rank array, this rank's coordinates,
+    the world line's gather of the ranks (line order), an all-to-all
+    over one axis, and a placed-and-gathered leaf."""
+    import torch
+
+    from znicz_tpu_torch.parallel import mesh as tmesh
+    from znicz_tpu_torch.parallel import transformer as tfm
+
+    os.environ["LOCAL_WORLD_SIZE"] = str(case["local"])
+    try:
+        mesh = tmesh.make_hybrid_mesh(case["axes"], case["dcn"])
+    finally:
+        del os.environ["LOCAL_WORLD_SIZE"]
+    every = mesh.axis(tuple(mesh.shape))
+    line = mesh.axis(case["exchange"])
+    sent = torch.tensor([[100 * mesh.rank + j] for j in range(line.size)],
+                        dtype=torch.float32)
+    leaf = {"w": inits["hybrid"]}
+    spec = {"w": tuple(mesh.shape)}
+    ps = tfm.params_from_numpy(leaf, "cpu", mesh=mesh, specs=spec)
+    return {"devices": mesh.devices, "coords": mesh.coords,
+            "gathered": every.all_gather(
+                torch.tensor([float(mesh.rank)])).numpy().ravel(),
+            "exchanged": line.all_to_all(sent).numpy().ravel(),
+            "line_ranks": line.ranks, "block": ps["w"].numpy(),
+            "back": tfm.params_to_numpy(ps, mesh, spec)["w"]}
+
+
+def case_ckpt(case, inits):
+    """A checkpoint of the LM step's params on ``case["mesh_a"]`` after
+    ``steps`` steps, restored onto ``mesh_b`` (and onto ``mesh_a``):
+    rank 0's gathered saved and restored params, every rank's check of
+    its restored blocks against the saved global, and the loss of one
+    more step on each mesh from the restored params (and from the live
+    ones on ``mesh_a``)."""
+    import torch
+
+    from znicz_tpu_torch.parallel import checkpoint as tckpt
+    from znicz_tpu_torch.parallel import transformer as tfm
+
+    init = inits["ckpt"]
+    arch, batch = init["arch"], (init["tokens"], init["labels"])
+    hs = case.get("head_sharded", False)
+    mesh_a = _lm_mesh(case["mesh_a"])
+    step_a = tfm.make_train_step(mesh_a, *arch, lr=init["lr"],
+                                 compute_dtype=torch.float32, device="cpu",
+                                 head_sharded=hs)
+    ps = tfm.params_from_numpy(init["params"], "cpu", mesh=mesh_a,
+                               specs=step_a.specs)
+    for _ in range(init["steps"]):
+        step_a(ps, *batch)
+    saved = tfm.params_to_numpy(ps, mesh_a, step_a.specs)
+    tckpt.save_pytree(case["path"], ps, mesh=mesh_a, specs=step_a.specs)
+    out = {"live_a": float(step_a(ps, *batch)[1])}
+    specs_b = tfm.param_specs(arch[0])
+    for name, mesh, specs in (("a", mesh_a, step_a.specs),
+                              ("b", _lm_mesh(case["mesh_b"]), specs_b)):
+        like = tfm.params_from_numpy(init["params"], "cpu", mesh=mesh,
+                                     specs=specs)
+        got = tckpt.load_pytree(case["path"], like=like, mesh=mesh,
+                                specs=specs)
+        want = tfm.params_from_numpy(saved, "cpu", mesh=mesh, specs=specs)
+        out[f"blocks_equal_{name}"] = all(
+            torch.equal(g, w) for g, w in zip(tfm._leaves(got),
+                                              tfm._leaves(want)))
+        step = step_a if name == "a" else tfm.make_train_step(
+            mesh, *arch, lr=init["lr"], compute_dtype=torch.float32,
+            device="cpu")
+        out[f"restored_{name}"] = float(step(got, *batch)[1])
+    if mesh_a.rank == 0:
+        out["saved"] = saved
+    return out
+
+
+def case_ckpt_retry(case, inits):
+    """``save_pytree`` of a small replicated pytree under a retry policy
+    with one planted OSError on one rank: rank 0's ``os.replace``
+    (``case["fail"] == "replace"``) or rank 1's DCP write (``"write"``).
+    Every rank's retries, whether the planted failure fired, and whether
+    the restored leaves are the saved ones."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.checkpoint import FileSystemWriter
+
+    from znicz_tpu_torch.parallel import checkpoint as tckpt
+    from znicz_tpu_torch.resilience.retry import RetryPolicy
+
+    who, owner, name = {"replace": (0, tckpt.os, "replace"),
+                        "write": (1, FileSystemWriter, "write_data")}[
+                            case["fail"]]
+    real, left = getattr(owner, name), [1]
+
+    def once(*args, **kwargs):
+        if left[0]:
+            left[0] -= 1
+            raise OSError(f"planted {case['fail']} failure")
+        return real(*args, **kwargs)
+    params = {"w": torch.arange(12.0).reshape(3, 4), "b": [torch.ones(3)]}
+    policy = RetryPolicy(max_attempts=3, base_delay=0.0, jitter=0.0)
+    if dist.get_rank() == who:
+        setattr(owner, name, once)
+    try:
+        tckpt.save_pytree(case["path"], params, retry=policy)
+    finally:
+        setattr(owner, name, real)
+    got = tckpt.load_pytree(case["path"], like=params)
+    return {"retries": policy.total_retries, "fired": left[0] == 0,
+            "equal": all(torch.equal(got[k][0] if k == "b" else got[k],
+                                     params[k][0] if k == "b" else params[k])
+                         for k in params)}
+
+
 CASES = {"mnist": case_mnist, "generator": case_generator,
          "qcomm": case_qcomm, "backend": case_backend, "lm": case_lm,
-         "lm_backend": case_lm_backend, "ring": case_ring}
+         "lm_backend": case_lm_backend, "ring": case_ring,
+         "pipe_step": case_pipe_step, "axes": case_axes,
+         "dispatch": case_dispatch, "hybrid": case_hybrid,
+         "ckpt": case_ckpt, "ckpt_retry": case_ckpt_retry}
 
 
 def _worker(rank: int, n: int, port: int, job: str, out_dir: str) -> None:
@@ -389,6 +602,8 @@ def _worker(rank: int, n: int, port: int, job: str, out_dir: str) -> None:
                             world_size=n, rank=rank)
     try:
         results = [CASES[c["fn"]](c, spec["inits"]) for c in spec["cases"]]
+        # no rank tears its groups down while a peer's traffic is in flight
+        dist.barrier()
     finally:
         dist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:

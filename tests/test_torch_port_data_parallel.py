@@ -598,20 +598,24 @@ def test_cuda_step_refuses_a_gloo_group(dp, n):
 
 def test_mesh_constructors_and_refusals():
     """The mesh outside a world is a mesh of one; other sizes raise,
-    and so do the pipeline's axes and DCN axes (item 10c; the
-    transformer's seq and model axes: tests/test_torch_port_lm_axes.py)."""
+    the pipeline's axes and DCN axes too (they build like any axis: the
+    pipeline step's worlds are tests/test_torch_port_pipe_expert.py, the
+    transformer's seq and model axes tests/test_torch_port_lm_axes.py);
+    the fused step refuses every axis but data."""
     m = tmesh.data_parallel_mesh()
     assert (m.shape, m.rank, m.group) == ({"data": 1}, 0, None)
     assert tmesh.make_mesh({"data": 1, "seq": 1}).size == 1
     assert tmesh.make_hybrid_mesh({"data": 1}).size == 1
+    assert tmesh.make_hybrid_mesh({"data": 1, "expert": 1},
+                                  {"expert": 1}).size == 1
     for bad in (lambda: tmesh.data_parallel_mesh(2),
-                lambda: tmesh.make_mesh({"data": 1, "model": 2})):
+                lambda: tmesh.make_mesh({"data": 1, "model": 2}),
+                lambda: tmesh.make_mesh({"data": 1, "expert": 2}),
+                lambda: tmesh.make_hybrid_mesh({"data": 2}, {"data": 2})):
         with pytest.raises(ValueError, match="world of 1"):
             bad()
-    for bad in (lambda: tmesh.make_mesh({"data": 1, "expert": 2}),
-                lambda: tmesh.make_hybrid_mesh({"data": 2}, {"data": 2})):
-        with pytest.raises(NotImplementedError, match="10c"):
-            bad()
+    with pytest.raises(NotImplementedError, match="fused step"):
+        tmesh.resolve({"data": 1, "pipe": 2})
     with pytest.raises(ValueError, match="dcn axes"):
         tmesh.make_hybrid_mesh({"data": 1}, {"seq": 1})
     tmesh.check_backend(m, torch.device("cuda"))    # no group, no check

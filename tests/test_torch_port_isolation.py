@@ -1,5 +1,5 @@
 """The port stands alone: ``znicz_tpu_torch`` and ``chip_smoke.py``
-import neither ``jax`` nor any ``znicz_tpu`` module, and importing the
+import neither ``jax`` (nor ``orbax``) nor any ``znicz_tpu`` module, and importing the
 kernel modules needs no CUDA toolkit (kernels build at their first CUDA
 call).  Also the drift check for the modules the port keeps as copies
 of the reference: the same code, imports renamed to the port."""
@@ -26,7 +26,7 @@ for name in mods:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "orbax"))
              or m == "znicz_tpu" or m.startswith("znicz_tpu."))
 print(json.dumps({"modules": mods, "bad": bad}))
 """
@@ -66,6 +66,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                  "parallel.moe", "parallel.graphs", "units.lm",
                  "models.char_lm", "parallel.mesh", "parallel.zero",
                  "parallel.qcomm", "parallel.ring_attention",
+                 "parallel.pipeline", "parallel.checkpoint",
                  "serve.engine", "serve.batcher",
                  "native.infer", "utils.export"):
         assert f"znicz_tpu_torch.{name}" in doc["modules"]

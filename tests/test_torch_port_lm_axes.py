@@ -26,8 +26,9 @@ heads, ff 64, vocab 16; ``tests/test_transformer_flag_fuzz.py``):
   each replica takes its own gradient), and the port's follow the
   reference's, as the parity above holds;
 - the mesh: each rank's coordinates against the reference's device
-  array, the pipeline and DCN refusals naming item 10c, and a CUDA step
-  over a gloo world refused when built.
+  array, the pipeline's axes and DCN axes building like any other (a
+  mesh spans its world), and a CUDA step over a gloo world refused
+  when built.
 
 Each world is one module-scoped spawn of gloo processes
 (``tests/_torch_dp_world.py``) running all of its cases; the JAX runs
@@ -267,14 +268,21 @@ def test_cuda_step_over_a_gloo_world_is_refused(worlds):
             assert r["refused"] and "needs a nccl group" in r["refused"]
 
 
-def test_mesh_refusals_name_item_10c():
+def test_mesh_pipe_expert_and_dcn_axes_span_the_world():
+    """The pipeline's axes and DCN axes are axes like the others: a mesh
+    of one builds, a wider one needs a world as wide (the pipeline step
+    on gloo worlds: tests/test_torch_port_pipe_expert.py)."""
     for bad in (lambda: tmesh.make_mesh({"data": 1, "pipe": 2}),
                 lambda: tmesh.make_mesh({"expert": 2}),
-                lambda: tmesh.make_hybrid_mesh({"data": 2}, {"data": 2})):
-        with pytest.raises(NotImplementedError, match="item 10c"):
+                lambda: tmesh.make_hybrid_mesh({"data": 2}, {"data": 2}),
+                lambda: tmesh.make_mesh(_axes(1, 2, 1))):
+        with pytest.raises(ValueError, match="world of 1"):
             bad()
-    with pytest.raises(ValueError, match="world of 1"):
-        tmesh.make_mesh(_axes(1, 2, 1))
+    pipe = tmesh.make_mesh({"data": 1, "pipe": 1, "expert": 1})
+    assert pipe.axis(("pipe", "expert")).size == 1
+    assert tmesh.make_hybrid_mesh({"data": 1, "model": 1},
+                                  {"data": 1}).coords == {"data": 0,
+                                                          "model": 0}
     one = tmesh.make_mesh(_axes(1, 1, 1))
     assert (one.size, one.coords, one.backend) == (
         1, {"data": 0, "seq": 0, "model": 0}, None)

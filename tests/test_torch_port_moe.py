@@ -6,8 +6,10 @@ the CPU in f32 at a small size (2 layers, d 64, 2 heads, ff 128, vocab
   GShard renormalization), ``load_balance_aux`` and ``router_z_loss``
   within 1e-5 of the reference's, which runs under its own one-device
   mesh (``shard_map`` over ``model``, whose ``psum`` is the identity
-  there); ``moe_ffn_dispatch`` refuses (it needs an expert axis across
-  devices).
+  there); ``moe_ffn_dispatch`` on one rank within 1e-5 of ``moe_ffn``,
+  values and gradients, at a lossless capacity, and its drops at one
+  slot an expert (its all-to-all worlds against the JAX dispatch:
+  ``tests/test_torch_port_pipe_expert.py``).
 - ``make_train_step`` with ``n_experts=4``, ``moe_top_k`` 1 and 2, aux
   0.01 and z-loss 1e-3: losses within rtol 1e-4 / atol 1e-5 and params
   within 1e-5 over 3 steps (the bands of tests/test_torch_port_train.py,
@@ -23,6 +25,8 @@ the CPU in f32 at a small size (2 layers, d 64, 2 heads, ff 128, vocab
 
 The JAX side runs its Pallas flash kernel in interpret mode where the
 head dim allows it, as tests/test_torch_port_train.py does."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -139,9 +143,34 @@ def test_regularizers_are_f32_for_bf16_inputs():
     assert z.dtype == aux.dtype == torch.float32
 
 
-def test_moe_ffn_dispatch_refuses():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tmoe.moe_ffn_dispatch(None, None, None, None, None, None, None)
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_moe_ffn_dispatch_matches_moe_ffn_on_one_rank(top_k):
+    """With every expert local and a lossless capacity (``E / top_k``)
+    the token dispatch computes the dense-masked FFN, values and
+    gradients (its all-to-all worlds: tests/test_torch_port_pipe_expert.py);
+    at capacity 1 a bucket holds one pair and later pairs add nothing."""
+    gen = torch.Generator().manual_seed(top_k)
+    x, gate = torch.randn(32, 8, generator=gen), torch.randn(8, E,
+                                                             generator=gen)
+    w1, w2 = (0.3 * torch.randn(E, a, b, generator=gen)
+              for a, b in ((8, 16), (16, 8)))
+    b1, b2 = torch.randn(E, 16, generator=gen), torch.randn(E, 8,
+                                                            generator=gen)
+    args = [t.requires_grad_(True) for t in (x, gate, w1, b1, w2, b2)]
+    outs = {}
+    for name, fn in (("dense", tmoe.moe_ffn), ("dispatch", functools.partial(
+            tmoe.moe_ffn_dispatch, capacity_factor=E / top_k))):
+        y, probs = fn(*args, tfm._GELU, None, top_k=top_k)
+        outs[name] = (y, probs) + torch.autograd.grad((y * y).sum(), args)
+    for a, b in zip(outs["dispatch"], outs["dense"]):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
+                                   rtol=MOE_BAND, atol=MOE_BAND)
+    y, _ = tmoe.moe_ffn_dispatch(*args, tfm._GELU, None,
+                                 capacity_factor=E / x.shape[0], top_k=1)
+    choice = (x @ gate).argmax(-1).tolist()
+    first = [choice.index(e) for e in set(choice)]
+    kept = (y.detach().abs().sum(-1) > 0).nonzero().ravel().tolist()
+    assert sorted(kept) == sorted(first)
 
 
 def test_init_params_and_shapes_match_jax_with_experts(moe_params):

@@ -12,12 +12,20 @@
   reference's are XLA einsums outside any Pallas kernel.
 - :func:`router_z_loss` and :func:`load_balance_aux` are the two
   regularizers, in f32 whatever the compute dtype.
-- :func:`moe_ffn_dispatch`, the token-sharded all-to-all regime over
-  the pipeline step's expert axis, raises until ROADMAP.md queue A item
-  10c.
+- :func:`moe_ffn_dispatch` is the token-sharded regime: each rank
+  holds its own tokens and ``E_local`` experts, and every routed token
+  travels to its expert's rank and back through two all-to-alls
+  (``DataMesh.all_to_all``, each an autograd Function whose backward is
+  the inverse exchange).  The reference forms the buckets and the
+  combine as one-hot einsums over ``(tokens, E, capacity)``; the port
+  indexes the same slots (:func:`bucket_slots`: a copy into the
+  buckets, a gather back), which gives the same values without the
+  ``tokens × E × capacity`` masks.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -74,11 +82,82 @@ def load_balance_aux(gate_probs):
     return n_exp * (f * pf.mean(dim=0)).sum()
 
 
-def moe_ffn_dispatch(*_args, **_kwargs):
-    """The reference's token-dispatch regime (tokens sharded over the
-    expert axis, two all-to-all exchanges), the pipeline step's.  Not
-    ported yet."""
-    raise NotImplementedError(
-        "moe_ffn_dispatch (tokens sharded over the expert axis) is not "
-        "ported yet (ROADMAP.md queue A item 10c, the pipeline step and "
-        "the expert axis); use moe_ffn, experts sharded over model")
+class _AllToAll(torch.autograd.Function):
+    """``axis.all_to_all``; its backward the inverse exchange (the same
+    swap of the leading dim)."""
+
+    @staticmethod
+    def forward(ctx, t, axis):
+        ctx.axis = axis
+        return axis.all_to_all(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.all_to_all(g.contiguous()), None
+
+
+def _all_to_all(t, axis):
+    if axis is None or axis.group is None:
+        return t
+    return _AllToAll.apply(t, axis)
+
+
+def bucket_slots(choice, n_experts: int, capacity: int):
+    """The bucket slot of every (token, choice) pair, token-major with
+    the k choices inner (``choice`` ``(tokens, k)``): expert ``e``'s
+    pairs take positions 0, 1, ... in that order, and the pair's slot is
+    ``e · capacity + position``.  -> ``(slot (tokens·k,), keep
+    (tokens·k,) bool)``: a pair past its expert's capacity is dropped
+    and its slot is ``n_experts · capacity`` (one spare slot past the
+    buckets)."""
+    cf = choice.reshape(-1)
+    experts = torch.arange(n_experts, device=cf.device)
+    onehot = (cf[:, None] == experts).to(torch.int64)      # (t·k, E)
+    pos = ((torch.cumsum(onehot, 0) - onehot) * onehot).sum(-1)
+    keep = pos < capacity
+    spare = torch.full_like(cf, n_experts * capacity)
+    return torch.where(keep, cf * capacity + pos, spare), keep
+
+
+def moe_ffn_dispatch(x, gate_w, w1, b1, w2, b2, act, axis=None,
+                     capacity_factor: float = 2.0, top_k: int = 1):
+    """Token-dispatch MoE FFN for the TOKEN-SHARDED regime: ``x``
+    ``(tokens_local, d)`` is this rank's tokens on the ``axis`` line (the
+    ``expert`` handle; None, or a line of one: every expert local), and
+    ``w1`` ``(E_local, d, ff)``, ``b1``, ``w2``, ``b2`` its experts,
+    ``axis.index · E_local`` onwards.  Each (token, choice) pair takes a
+    slot of its expert's bucket (``capacity = ceil(capacity_factor ·
+    tokens_local · top_k / E)`` slots a source rank, token-major); a
+    pair past its expert's capacity is dropped and adds nothing (size
+    ``capacity_factor`` ≥ ``E / top_k`` for lossless routing).  The
+    buckets travel to their experts' ranks and back through two
+    all-to-alls; gradients flow through both to ``x``, the gate and the
+    owning expert's weights.  ``top_k ≥ 2`` combines the k experts with
+    GShard-renormalized weights, as :func:`moe_ffn`.  Returns ``(y
+    (tokens_local, d), gate_probs)``, both sharded like ``x``."""
+    n_dev = 1 if axis is None else axis.size
+    tokens, d = x.shape
+    e_local = w1.shape[0]
+    n_experts = n_dev * e_local
+    scores = x @ gate_w                            # (t, E)
+    gate_probs = torch.softmax(scores, dim=-1)
+    choice_k = torch.topk(scores, top_k, dim=-1).indices   # (t, k)
+    gate_k = gate_probs.gather(1, choice_k)        # (t, k)
+    if top_k > 1:
+        gate_k = gate_k / gate_k.sum(dim=-1, keepdim=True)
+    capacity = int(math.ceil(capacity_factor * tokens * top_k / n_experts))
+    slot, _keep = bucket_slots(choice_k, n_experts, capacity)
+    # the buckets, one spare slot past them taking the dropped pairs
+    src = x.repeat_interleave(top_k, dim=0) if top_k > 1 else x
+    disp = x.new_zeros(n_experts * capacity + 1, d).index_copy(0, slot, src)
+    disp = disp[:-1].reshape(n_dev, e_local, capacity, d)
+    recv = _all_to_all(disp, axis)                 # my experts' buckets
+    xin = recv.transpose(0, 1).reshape(e_local, n_dev * capacity, d)
+    h = act(torch.bmm(xin, w1) + b1[:, None, :])
+    y = torch.bmm(h, w2) + b2[:, None, :]
+    y = y.reshape(e_local, n_dev, capacity, d).transpose(0, 1)
+    back = _all_to_all(y.contiguous(), axis)       # my tokens' results
+    res = torch.cat([back.reshape(n_experts * capacity, d),
+                     back.new_zeros(1, d)])
+    picked = res.index_select(0, slot).reshape(tokens, top_k, d)
+    return (picked * gate_k[:, :, None]).sum(1), gate_probs

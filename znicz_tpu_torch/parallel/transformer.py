@@ -57,8 +57,18 @@ counterpart of the reference's one jitted program a minibatch.  A CUDA
 step needs an NCCL world (``mesh.check_backend``).  The CPU runs them
 eagerly.
 
+The ``(data, pipe, expert)`` configuration: :func:`init_moe_pipeline_params`
+(stage-stacked MoE blocks, a flat dict ``gate w1 b1 w2 b2``),
+:func:`moe_pipeline_specs` and :func:`make_pipeline_step`, GPipe over
+``pipe`` (``parallel/pipeline.py``) with the dense-masked MoE FFN over
+``expert`` in each stage.  Its gradients are the reference's in the
+same way: the pipeline's and the experts' sums are ``tp.psum``, so at
+``pipe`` S the first update is S times the sequential model's, and a
+replica of ``gate`` (replicated over ``expert``) or of any leaf over
+``data`` takes its own gradient (ROADMAP.md "Divergences").
+
 Not ported: ``anatomy`` (ROADMAP.md queue A item 14) raises
-``NotImplementedError``; the pipeline step is item 10c.
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -81,7 +91,11 @@ from znicz_tpu_torch.parallel import qcomm, tp, zero
 from znicz_tpu_torch.parallel.graphs import run_graphed
 from znicz_tpu_torch.parallel.moe import (load_balance_aux, moe_ffn,
                                           router_z_loss)
+from znicz_tpu_torch.parallel.pipeline import pipeline_apply
 from znicz_tpu_torch.parallel.ring_attention import ring_flash_attention
+from znicz_tpu_torch.parallel.tree import (tree_leaves as _leaves,
+                                           tree_map as _map,
+                                           tree_rebuild as _rebuild)
 
 _GELU = functools.partial(F.gelu, approximate="tanh")  # jax.nn.gelu default
 
@@ -161,38 +175,6 @@ def param_shapes(n_layers: int, d: int, ff: int, vocab: int,
             "blocks": [dict(blk) for _ in range(n_layers)]}
 
 
-def _map(fn, params) -> dict:
-    return {"emb": fn(params["emb"]), "head": fn(params["head"]),
-            "blocks": [{k: fn(a) for k, a in blk.items()}
-                       for blk in params["blocks"]]}
-
-
-def _leaves(params) -> list:
-    return [params["emb"], params["head"]] + [
-        a for blk in params["blocks"] for a in blk.values()]
-
-
-
-
-def _zip_map(fn, params, specs) -> dict:
-    """``fn(leaf, spec)`` over a params pytree and its spec tree."""
-    return {"emb": fn(params["emb"], specs["emb"]),
-            "head": fn(params["head"], specs["head"]),
-            "blocks": [{k: fn(a, sblk[k]) for k, a in blk.items()}
-                       for blk, sblk in zip(params["blocks"],
-                                            specs["blocks"])]}
-
-
-def _rebuild(like, leaves) -> dict:
-    """The pytree of ``like``'s structure holding ``leaves`` in
-    :func:`_leaves` order."""
-    it = iter(leaves)
-    out = {"emb": next(it), "head": next(it), "blocks": []}
-    for blk in like["blocks"]:
-        out["blocks"].append({k: next(it) for k in blk})
-    return out
-
-
 # -- layouts ------------------------------------------------------------------
 def param_specs(n_layers: int, head_sharded: bool = False,
                 moe: bool = False) -> dict:
@@ -233,7 +215,7 @@ def shard_params_host(params, specs, n: int) -> dict:
             return w
         f = np.asarray(w).reshape(-1)
         return np.pad(f, (0, (-f.size) % n)) if f.size % n else f
-    return _zip_map(conv, params, specs)
+    return _map(conv, params, specs)
 
 
 def unshard_params_host(params, specs, shapes) -> dict:
@@ -294,8 +276,9 @@ def _shard(a, spec, mesh):
 
 
 def _global(gathered: np.ndarray, spec, mesh) -> np.ndarray:
-    """The global array from every rank's block (``gathered[r]``): each
-    block is read from the first rank that holds it (the rank with the
+    """The global array from every rank's block (``gathered[i]``: the
+    world line's order, row-major over the coordinates): each block is
+    read from the first rank that holds it (the rank with the
     block's coordinates on the spec's axes and 0 on the others), as the
     reference's ``device_get`` reads the first device holding it."""
     sharded = [(dim, name) for dim, name in enumerate(spec)
@@ -318,15 +301,20 @@ def _global(gathered: np.ndarray, spec, mesh) -> np.ndarray:
     return out
 
 
+def _need_specs(specs) -> None:
+    if specs is None:
+        raise ValueError("a mesh needs the layout's specs (a step's "
+                         "step.specs, or param_specs / moe_pipeline_specs)")
+
+
 def params_from_numpy(params, device, dtype=torch.float32, mesh=None,
                       specs=None) -> dict:
     """Copy a parameter pytree of numpy (or CPU tensor) leaves onto
     ``device`` as ``dtype`` tensors, keeping the pytree's shape.  On a
     ``mesh`` each leaf is this rank's block of the global leaf under
-    ``specs`` (default: :func:`param_specs` of the pytree, replicated
-    head; a step's layout is ``step.specs``).  Always a copy, never a
-    view of the caller's arrays: the train step updates its params in
-    place."""
+    ``specs``, which a mesh needs (a step's layout is ``step.specs``).
+    Always a copy, never a view of the caller's arrays: the train step
+    updates its params in place."""
     def put(a, spec):
         a = np.asarray(a, np.float32)
         if mesh is not None:
@@ -335,23 +323,23 @@ def params_from_numpy(params, device, dtype=torch.float32, mesh=None,
                                                         dtype=dtype)
     if mesh is not None:
         mesh = _as_mesh(mesh)
-        specs = specs or param_specs(len(params["blocks"]),
-                                     moe="ew1" in params["blocks"][0])
-    return _zip_map(put, params, specs or _map(lambda _: (), params))
+        _need_specs(specs)
+    return _map(put, params, specs or _map(lambda _: (), params))
 
 
 def params_to_numpy(params, mesh=None, specs=None) -> dict:
     """The inverse of :func:`params_from_numpy`: a numpy f32 pytree (what
     ``utils.export.export_lm`` packages).  On a ``mesh`` the global
     pytree, gathered over the whole world: collective, every rank calls
-    it and every rank gets the result."""
+    it and every rank gets the result, each block the first holder's (a
+    replicated leaf's replicas may differ: the first rank's copy, as the
+    reference's ``out_specs`` reads its first device's)."""
     if mesh is None:
         return _map(lambda a: a.detach().float().cpu().numpy(), params)
     mesh = _as_mesh(mesh)
-    specs = specs or param_specs(len(params["blocks"]),
-                                 moe="ew1" in params["blocks"][0])
+    _need_specs(specs)
     every = mesh.axis(tuple(mesh.shape))
-    return _zip_map(lambda a, spec: _global(
+    return _map(lambda a, spec: _global(
         every.all_gather(a.detach().float()).cpu().numpy(), spec, mesh),
         params, specs)
 
@@ -694,7 +682,7 @@ def _local_shapes(shapes, specs, ax) -> dict:
         spec = tuple(spec) + (None,) * (len(shape) - len(spec))
         return tuple(n // (ax.mesh.shape.get(a, 1) if a else 1)
                      for n, a in zip(shape, spec))
-    return _zip_map(local, shapes, specs)
+    return _map(local, shapes, specs)
 
 
 def _eager(dev):
@@ -703,6 +691,21 @@ def _eager(dev):
     def run(_kind, _leaves, body, inputs):
         return body(*(t.to(dev) for t in inputs))
     return run
+
+
+def _with_grad(run, held=lambda leaves: leaves):
+    """``run`` with autograd's leaves (``held(leaves)``) marked outside
+    the (captured) body, unmarked after it."""
+    def graded(kind, leaves, body, inputs):
+        marked = held(leaves)
+        for w in marked:
+            w.requires_grad_(True)
+        try:
+            return run(kind, leaves, body, inputs)
+        finally:
+            for w in marked:
+                w.requires_grad_(False)
+    return graded
 
 
 def _runner(dev):
@@ -889,18 +892,9 @@ def make_train_step(mesh, n_layers: int, d: int,
     local_shapes = _local_shapes(shapes, step_specs, ax)
 
     def with_grad(run):
-        def graded(kind, leaves, body, inputs):
-            # autograd's leaves are marked outside the (captured) body
-            held = [w for w, rep in zip(leaves, replicated)
-                    if not (rep and shard_params)]
-            for w in held:
-                w.requires_grad_(True)
-            try:
-                return run(kind, leaves, body, inputs)
-            finally:
-                for w in held:
-                    w.requires_grad_(False)
-        return graded
+        return _with_grad(run, lambda leaves: [
+            w for w, rep in zip(leaves, replicated)
+            if not (rep and shard_params)])
 
     run = _runner(dev)
     train = _entry(with_grad(run), "train", dev, ax, masked, local_shapes,
@@ -997,3 +991,111 @@ def make_logits_fn(mesh, n_layers: int, d: int,
 
     logits.mesh, logits.specs = ax.mesh, specs
     return logits
+
+
+# -- the (data, pipe, expert) configuration ----------------------------------
+def init_moe_pipeline_params(gen, n_stages: int, d: int, ff: int,
+                             n_experts: int) -> dict:
+    """Stage-stacked MoE-block params (leading dim the pipe stage), numpy
+    f32 from ``gen`` — draw for draw the reference's."""
+    def w(shape, scale=None):
+        scale = scale or 1.0 / np.sqrt(shape[-2])
+        return gen.normal(0.0, scale, shape).astype(np.float32)
+
+    return {
+        "gate": w((n_stages, d, n_experts)),
+        "w1": w((n_stages, n_experts, d, ff)),
+        "b1": np.zeros((n_stages, n_experts, ff), np.float32),
+        "w2": w((n_stages, n_experts, ff, d)),
+        "b2": np.zeros((n_stages, n_experts, d), np.float32),
+    }
+
+
+def moe_pipeline_specs() -> dict:
+    """Every leaf sharded over ``pipe`` on the stage dim and over
+    ``expert`` on the expert dim; ``gate`` over ``pipe`` only."""
+    return {k: ("pipe", "expert") if k != "gate" else ("pipe",)
+            for k in ("gate", "w1", "b1", "w2", "b2")}
+
+
+def moe_stage(p, x, expert=None):
+    """One pipeline stage on its block of the stage-stacked params: the
+    MoE residual block ``x + moe_ffn(x)`` (tanh GELU, top-1, this rank's
+    experts of the ``expert`` handle; None: every expert)."""
+    y, _ = moe_ffn(x, p["gate"][0], p["w1"][0], p["b1"][0], p["w2"][0],
+                   p["b2"][0], _GELU, expert)
+    return x + y
+
+
+def make_pipeline_step(mesh, n_experts: int, lr: float = 0.05,
+                       compute_dtype=None, device=None):
+    """-> ``step(params, xs, ys) -> (params, loss)`` on this rank of a
+    ``(data, pipe, expert)`` mesh (None: one device, no group): each pipe
+    stage is an expert-parallel MoE residual block (:func:`moe_stage`,
+    experts sharded over ``expert``); ``xs`` and ``ys`` are the GLOBAL
+    ``(n_micro, mb, d)`` microbatches and their regression targets
+    (numpy or tensors), of which the step takes this rank's ``mb`` rows
+    of ``data``.  ``params``: this rank's f32 blocks
+    in the layout ``step.specs`` (:func:`moe_pipeline_specs`, placed by
+    :func:`params_from_numpy`); sizes flow from them.  The loss is the
+    MSE summed over ``data``; the update, in place, is the reference's
+    ``w - lr·g / n_data`` (each rank differentiates its local term:
+    ``w -= lr·g``), so each rank keeps its own copy of a leaf it
+    shares, and the reported loss is the first rank's.  The forward casts
+    the masters to ``compute_dtype`` (default: bf16 on cuda, f32 on
+    cpu).  On the card the step is a CUDA graph replay from its second
+    call on the same params (``step.graphs``); a CUDA step needs an NCCL
+    world."""
+    mesh = _as_mesh(mesh)
+    data, pipe = mesh.axis("data"), mesh.axis("pipe")
+    expert, first = mesh.axis("expert"), mesh.axis(("pipe", "expert"))
+    if n_experts % expert.size:
+        raise ValueError(f"expert-axis size {expert.size} must divide "
+                         f"n_experts={n_experts}")
+    _mesh.check_backend(mesh, torch.device(device or "cuda"))
+    dev = _device(device)
+    cdt = _default_compute_dtype(compute_dtype, dev)
+
+    stage_fn = functools.partial(moe_stage, expert=expert)
+
+    def body_of(params, leaves):
+        def body(xs, ys):
+            ps = _map(lambda w: w.to(cdt), params)
+            out = pipeline_apply(stage_fn, ps, xs.to(cdt), pipe)
+            diff = out.float() - ys
+            local = (diff * diff).mean()
+            grads = torch.autograd.grad(local, leaves)
+            with torch.no_grad():
+                loss = data.all_reduce_(local.detach().clone()) / data.size
+                if first.group is not None and first.size > 1:
+                    loss = first.all_reduce_(
+                        loss if first.index == 0 else torch.zeros_like(loss))
+                for w, g in zip(leaves, grads):
+                    w.sub_(lr * g)
+            return loss
+        return body
+
+    def rows(a):
+        """This rank's rows of ``data`` of global microbatches."""
+        a = torch.as_tensor(a, dtype=torch.float32)
+        if a.shape[1] % data.size:
+            raise ValueError(f"microbatch of {a.shape[1]} not divisible "
+                             f"by data={data.size}")
+        n = a.shape[1] // data.size
+        return a[:, data.index * n:(data.index + 1) * n]
+
+    runner = _runner(dev)
+    run = _with_grad(runner)
+
+    def step(params, xs, ys):
+        leaves = _leaves(params)
+        for w in leaves:
+            if w.device.type != dev.type or w.dtype != torch.float32:
+                raise ValueError(
+                    f"params must be float32 tensors on {dev} (see "
+                    f"params_from_numpy); got {w.dtype} on {w.device}")
+        return params, run("pipe", leaves, body_of(params, leaves),
+                           (rows(xs), rows(ys)))
+
+    step.graphs, step.specs = runner.graphs, moe_pipeline_specs()
+    return step
