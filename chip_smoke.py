@@ -352,6 +352,26 @@ exits non-zero without the final ``ok`` line):
    bit-identical to 4 uninterrupted steps, the flash launches counted
    exactly; MB written, seconds to write and to restore.  The group is
    destroyed at the phase's end.
+17k. **zoo** — the rest of the zoo: (a) Wine (fused and eager),
+   Approximator (regression, and nearest-target fused and eager),
+   SpamFilter, TvChannels (fused, and eager through its Cutter: the
+   conv forward, weight- and input-gradient kernels) and the CD-1 RBM
+   at their build() defaults, f32, TF32 off, on the card and on the CPU
+   from one seed: gemm_fc, act_backward, conv and SGD launches exact
+   against the counts read from each run's units, n_err histories
+   identical, MSE histories and weights within bands that reject the
+   same run with TF32 on (the eager Approximator, with no TF32-capable
+   call, must not move under TF32), the RBM's h2v product (gemm_fc on
+   the transposed view of the shared weights, no copy) against its
+   plain twin; ms a minibatch of each; (b) fused Wine with a
+   per-minibatch LearningRateAdjust and an NNRollback forced mid-run
+   after the step's leaves were poisoned: card against the CPU, the
+   restore bit-equal in the same tensors, no graph recaptured; (c)
+   online training fed through ``InteractiveLoader.feed``, exported,
+   served in f32 by ``PredictionServer`` to ``predict_remote`` against
+   the CPU forward; (d) ``python -m znicz_tpu_torch
+   znicz_tpu_torch/models/wine.py`` with no ``-d``, on the card, in its
+   own process beside (a)'s CPU runs.
 18. **kernel_hw** — ``utils/kernel_hw.run_parity("cuda")``, all fourteen
    families of the reference ``ok``; the LRN, dropout and bf16 conv
    forward counters set to 0 just before and read just after (the only
@@ -362,8 +382,8 @@ exits non-zero without the final ``ok`` line):
 pool_backward, conv, alexnet_eager, deconv, kohonen, lrn_dropout,
 ae_fused, alexnet_fused, graph_parity, fused_conv_parity,
 input_pipeline, image_files, snapshot_resume, data_parallel, lm_axes,
-serve_forward, pipe_expert, speculative, char_lm, train, or three that
-only measure and run on older trees of the port too: **waves**, the
+serve_forward, pipe_expert, zoo, speculative, char_lm, train, or three
+that only measure and run on older trees of the port too: **waves**, the
 weight gradient at AlexNet's and build_deep's shapes with split_k's
 slices, one fewer and one more, through the C entry; **fused_compare**,
 the dropout kernel at 64 M elements beside ``aten.native_dropout`` and
@@ -420,10 +440,15 @@ from znicz_tpu_torch.kernels import optim as koptim
 from znicz_tpu_torch.kernels import pooling as kpool
 from znicz_tpu_torch.loader.base import TRAIN
 from znicz_tpu_torch.models import alexnet as talexnet
+from znicz_tpu_torch.models import approximator as tapprox
 from znicz_tpu_torch.models import autoencoder as tautoencoder
 from znicz_tpu_torch.models import kohonen as tkohonen
 from znicz_tpu_torch.models import mnist_conv as tmnist_conv
 from znicz_tpu_torch.models import mnist_fc as tmnist
+from znicz_tpu_torch.models import rbm as trbm
+from znicz_tpu_torch.models import spam as tspam
+from znicz_tpu_torch.models import tv_channels as ttv
+from znicz_tpu_torch.models import wine as twine
 from znicz_tpu_torch.ops import activations
 from znicz_tpu_torch.ops import deconv as tdeconv_ops
 from znicz_tpu_torch.ops import kohonen as tk_ops
@@ -446,6 +471,13 @@ from znicz_tpu_torch.standard_workflow import StandardWorkflow
 from znicz_tpu_torch.units import deconv as tdeconv_unit
 from znicz_tpu_torch.units import dropout as tdropout
 from znicz_tpu_torch.units import pooling as tpooling
+from znicz_tpu_torch.units.all2all import All2All, All2AllSoftmax
+from znicz_tpu_torch.units.conv import Conv
+from znicz_tpu_torch.units.gd import GradientDescent
+from znicz_tpu_torch.units.gd_conv import GradientDescentConv
+from znicz_tpu_torch.units.lr_adjust import ExpPolicy, LearningRateAdjust
+from znicz_tpu_torch.units.nn_rollback import NNRollback
+from znicz_tpu_torch.units.rbm import Binarization, WeightsUpdater
 from znicz_tpu_torch.utils.export import export_lm, load_lm
 from znicz_tpu_torch.utils.kernel_hw import run_parity
 
@@ -6413,7 +6445,8 @@ def phase_build() -> dict:
 def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
                 fused, conv, alexnet, deconv, ae, spool, mcs, som,
                 lrn_drop, alex_fused, kernel_hw, spec, char,
-                data_parallel, serve_forward, lm_axes, pipe_expert) -> dict:
+                data_parallel, serve_forward, lm_axes, pipe_expert,
+                zoo) -> dict:
     """The eighteen kernels: launches from the main paths' runs, times
     and errors from the kernel phases, bounds from this run's inputs.  A
     conv kernel's times and bound sum its launches of one AlexNet train
@@ -6439,7 +6472,9 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
     the LRN forward's the serve_forward phase's HTTP load (two a replayed
     batch of the served AlexNet).  act_backward's times are its one
     launch with grad_b at AlexNet's fc7 and fc6, its library call
-    threshold_backward and a column sum."""
+    threshold_backward and a column sum.  The gemm_fc, act_backward,
+    SGD and three f32 conv entries carry the zoo phase's launches (its
+    model runs on the card, its LR/rollback and online runs)."""
     def entry(name, source, replaces, launches, timed, max_abs_err,
               **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -6464,6 +6499,10 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
           for k in ("sgd_update", "lrn_forward", "lrn_backward")}
     dp["adam_update"] = sum(data_parallel["mnist_fc_codecs"][k][
         "adam_launches"] for k in DP_CODECS)
+    zoo_runs = [r["launches"] for r in zoo["models"].values()] + [
+        zoo[part]["launches"] for part in ("rbm_own_draws", "lr_rollback",
+                                           "online_serve")]
+    zl = {k: sum(r[k] for r in zoo_runs) for k in ZOO_COUNTERS}
     lrn_path = lrn_drop["lrn_path"]
     drop_f32, drop_bf16 = (
         next(r for r in lrn_drop["dropout_timed"] if r["dtype"] == str(dt))
@@ -6496,12 +6535,13 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
               eager["gemm_fc_launches"], gemm["gemm"],
               gemm["gemm"]["max_abs_err"],
               cuda_kernels=["gemm_f32_kernel<BM,BN,A_KC,B_KC>",
-                            "gemm_reduce_kernel<VEC>"]),
+                            "gemm_reduce_kernel<VEC>"],
+              zoo_launches=zl["gemm_fc"]),
         entry("act_backward", kgemm.SOURCE, kgemm.REPLACES_ACT,
               alexnet["launches"]["act_backward"],
               gemm["act_backward_alexnet"],
               gemm["act_backward_alexnet"]["max_abs_err"],
-              path="alexnet_eager",
+              path="alexnet_eager", zoo_launches=zl["act_backward"],
               bench_fc_tanh={"launches": eager["act_backward_launches"],
                              **{k: gemm["act_backward"][k] for k in (
                                  "ms", "plain_ms", "bound_ms", "bound_by",
@@ -6510,14 +6550,16 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
               fused["sgd_update_launches"], sgd,
               max(optim[k]["sound"]["max_abs_err"]
                   for k in ("sgd_vel_float32", "sgd_vel_bfloat16")),
-              data_parallel_launches=dp["sgd_update"]),
+              data_parallel_launches=dp["sgd_update"],
+              zoo_launches=zl["sgd_update"]),
         entry("adam_update", koptim.SOURCE, koptim.REPLACES,
               fused["adam"]["adam_update_launches"], optim["timed"]["adam"],
               optim["adam"]["sound"]["max_abs_err"],
               data_parallel_launches=dp["adam_update"]),
         *(entry(f"conv2d_{kind}", kconv.SOURCE, replaces,
                 alexnet["launches"][f"conv2d_{kind}"], conv["path"][kind],
-                conv["path"][kind]["max_abs_err"], cuda_kernels=cuda)
+                conv["path"][kind]["max_abs_err"], cuda_kernels=cuda,
+                zoo_launches=zl[f"conv2d_{kind}"])
           for kind, replaces, cuda in (
               ("fwd", kconv.REPLACES_FWD, ["conv_fwd_kernel<BM,BN,VEC>"]),
               ("input_grad", kconv.REPLACES_INPUT_GRAD,
@@ -9613,6 +9655,637 @@ def phase_serve_forward() -> dict:
     return out
 
 
+#: zoo phase (a): the rest of the zoo at each model's build() defaults
+#: (their epochs included), f32 with TF32 off, on the card and on the
+#: CPU from one seed: (name, model module, build kwargs).  Wine and the
+#: nearest-target Approximator also run eager, so the FC kernels' path is
+#: counted beside TvChannels' conv path
+ZOO_RUNS = (("wine_fused", twine, {}),
+            ("wine_eager", twine, {"fused": False}),
+            ("approximator_fused", tapprox, {}),
+            ("approximator_prototypes_fused", tapprox, {"prototypes": 5}),
+            ("approximator_prototypes_eager", tapprox,
+             {"prototypes": 5, "fused": False}),
+            ("spam_fused", tspam, {}),
+            ("tv_channels_fused", ttv, {}),
+            ("tv_channels_eager", ttv, {"fused": False}),
+            ("rbm", trbm, {}))
+#: the runs with no TF32-capable library call on their path: the eager
+#: Approximator's layers are the FC kernels (gemm_fc, act_backward), its
+#: SGD and MSE elementwise torch, so its TF32 run must equal its TF32-off
+#: run bit for bit.  Every other run meets a torch product or cuDNN
+#: (the fused steps' matmuls and convolutions, the eager softmax layer's
+#: products, the RBM's statistics), and its TF32 run must fail a band
+ZOO_TF32_BLIND = ("approximator_prototypes_eager",)
+#: card against CPU, both f32: the n_err histories identical, the MSE
+#: histories within ZOO_MSE_RTOL, and the weights at the end of epoch
+#: ZOO_HELD_EPOCH within ZOO_WEIGHT_ATOL (the models' later epochs go on
+#: at learning rates up to 0.3 with momentum 0.9, where the two sides'
+#: summation-order differences grow; the final weights' distance is
+#: reported).  The same bands as mnist_parity's and ae_parity's
+ZOO_HELD_EPOCH = 2
+ZOO_MSE_RTOL, ZOO_WEIGHT_ATOL = 1e-5, 1e-6
+#: the counted kernels of the zoo's paths
+ZOO_COUNTERS = ("gemm_fc", "act_backward", "conv2d_fwd",
+                "conv2d_input_grad", "conv2d_weight_grad", "sgd_update")
+#: (b): a fused Wine run with a per-minibatch LearningRateAdjust
+#: (ExpPolicy(ZOO_LR_GAMMA)) and an NNRollback forced at the end of
+#: epoch ZOO_ROLLBACK_EPOCH after the step's leaves were set to NaN, to
+#: ZOO_LR_EPOCHS epochs
+ZOO_LR_GAMMA, ZOO_ROLLBACK_EPOCH, ZOO_LR_EPOCHS = 0.99, 2, 4
+#: (c): the reference's online-training shape (tests/
+#: test_interactive_restful.py): samples, features, classes, hidden
+#: width, capacity, minibatch, epochs; the request batches served
+ZOO_ONLINE = {"n": 96, "features": 6, "classes": 3, "hidden": 16,
+              "minibatch": 24, "epochs": 6}
+ZOO_SERVE_BATCHES = (1, 5, 16)
+#: the served rows against the CPU forward of the same package, both f32
+#: (TF32 off): summation order only, ~1e-7 on softmax outputs of order 1
+ZOO_SERVE_ATOL = 1e-5
+#: (d): the CLI's time limit in seconds
+ZOO_CLI_TIMEOUT = 300
+
+
+def _zoo_counts() -> dict:
+    return {"gemm_fc": kgemm.gemm_launches,
+            "act_backward": kgemm.act_launches,
+            "conv2d_fwd": kconv.fwd_launches,
+            "conv2d_input_grad": kconv.input_grad_launches,
+            "conv2d_weight_grad": kconv.weight_grad_launches,
+            "sgd_update": koptim.sgd_launches}
+
+
+def _zero_zoo_counts() -> None:
+    kgemm.gemm_launches = kgemm.act_launches = 0
+    kconv.fwd_launches = kconv.input_grad_launches = 0
+    kconv.weight_grad_launches = 0
+    koptim.sgd_launches = 0
+
+
+def zoo_launch_table(w) -> dict:
+    """One train and one eval minibatch's launches of ZOO_COUNTERS, read
+    from the workflow's units: fused, one SGD launch a param leaf a train
+    step (the forwards and the backward are torch products and cuDNN);
+    eager, gemm_fc at each FC forward but the softmax layer (plain torch,
+    as the reference's), conv2d_fwd at each conv, and in a train
+    minibatch an FC gradient's err_input and weight-gradient GEMMs (the
+    err_input is computed even where the first layer drops it) after
+    act_backward where its activation is applied, and a conv gradient's
+    weight gradient and, below a layer that takes it (GDCutter), its
+    input gradient.  The RBM's three All2AllSigmoid units count as FC
+    forwards; its statistics and update are torch."""
+    train, ev = dict.fromkeys(ZOO_COUNTERS, 0), dict.fromkeys(
+        ZOO_COUNTERS, 0)
+    if getattr(w, "step", None) is not None:
+        train["sgd_update"] = sum(len(f.param_arrays()) for f in w.forwards)
+        return {"train": train, "eval": ev}
+    for u in w.units:
+        if isinstance(u, All2All) and not isinstance(u, All2AllSoftmax):
+            train["gemm_fc"] += 1
+            ev["gemm_fc"] += 1
+        elif isinstance(u, Conv):
+            train["conv2d_fwd"] += 1
+            ev["conv2d_fwd"] += 1
+        elif isinstance(u, GradientDescentConv):
+            train["conv2d_weight_grad"] += 1
+            train["conv2d_input_grad"] += int(u.need_err_input)
+        elif isinstance(u, GradientDescent) and \
+                u.ACTIVATION in kgemm.FUSED_ACTIVATIONS:
+            train["gemm_fc"] += 2
+            train["act_backward"] += int(
+                u.ACTIVATION != activations.LINEAR and u.ACTIVATION_APPLIED)
+    return {"train": train, "eval": ev}
+
+
+def _zoo_weights(w) -> list:
+    """Host copies of the trained params: the forwards' weights and
+    biases, the RBM's shared W and its two biases."""
+    upd = next((u for u in w.units if isinstance(u, WeightsUpdater)), None)
+    if upd is not None:
+        return [np.array(a.map_read()) for a in (upd.weights, upd.vbias,
+                                                 upd.hbias)]
+    if getattr(w, "step", None) is not None:
+        w.step.sync_to_units()
+    return _weights_of(w)
+
+
+class _SeededUniforms:
+    """The RBM's Binarization draws, card and CPU alike: seeded numpy
+    uniforms in draw order, copied to the unit's device."""
+
+    def __init__(self) -> None:
+        self.rng = np.random.default_rng(SEED)
+
+    def __call__(self, shape, device):
+        return torch.from_numpy(self.rng.uniform(size=tuple(shape)).astype(
+            np.float32)).to(device)
+
+
+def _zoo_run(make, device, allow_tf32=False, prepare=None,
+             seeded_draws=True) -> dict:
+    """``make()`` (seeded here) on ``device`` in f32 through
+    ``Workflow.run``, with the ZOO_COUNTERS set to 0 just before and read
+    just after, the classes of its minibatches, the weights at the end
+    of epoch ZOO_HELD_EPOCH and at the end, ms a minibatch over the run
+    and after its first epoch; ``prepare(w)`` after initialize (a
+    schedule's hooks).  With ``seeded_draws`` the RBM's Binarization
+    draws seeded numpy uniforms, the same on every device; without, its
+    own generator's."""
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+    torch.backends.cudnn.allow_tf32 = allow_tf32
+    try:
+        tprng.seed_all(SEED)
+        w = make()
+        w.initialize(device=TorchDevice(device, precision="float32"))
+        for u in w.units:
+            if seeded_draws and isinstance(u, Binarization):
+                u.draw_uniform = _SeededUniforms()
+        extra = prepare(w) if prepare is not None else None
+        classes, serve = [], w.loader.run
+
+        def run():
+            serve()
+            classes.append(int(w.loader.minibatch_class))
+        w.loader.run = run
+        held, first, logged = [], [], w.decision.on_epoch_logged
+
+        def on_epoch_logged():
+            logged()
+            epoch = len(w.decision.metrics_history)
+            if epoch == 1:
+                first[:] = [time.perf_counter(), len(classes)]
+            if epoch == ZOO_HELD_EPOCH:
+                held.extend(_zoo_weights(w))
+        w.decision.on_epoch_logged = on_epoch_logged
+        _zero_zoo_counts()                           # 0 just before ...
+        t0 = time.perf_counter()
+        w.run()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launches = _zoo_counts()                     # ... read just after
+        final = _zoo_weights(w)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    return {"w": w, "history": w.decision.metrics_history, "held": held,
+            "final": final, "launches": launches, "classes": classes,
+            "wall_s": t1 - t0, "extra": extra,
+            "ms_per_minibatch": 1e3 * (t1 - t0) / len(classes),
+            # after the first epoch: graphs captured, libraries loaded
+            "steady_ms_per_minibatch": 1e3 * (t1 - first[0]) /
+            (len(classes) - first[1])}
+
+
+def _zoo_distance(run: dict, cpu: dict) -> dict:
+    """``run`` against ``cpu``: identical histories, the MSE histories'
+    largest relative difference, the weights' largest absolute one at
+    the held epoch and at the end."""
+    def floats(h):
+        return [v for r in h for k, v in sorted(r.items())
+                if k.startswith("metric") and isinstance(v, float)]
+    a, b = floats(run["history"]), floats(cpu["history"])
+    return {
+        "history_identical": run["history"] == cpu["history"],
+        "mse_rel": max((abs(x - y) / abs(y) for x, y in zip(a, b)
+                        if y != 0), default=0.0),
+        "held_weight_err": max(float(np.abs(x - y).max()) for x, y in
+                               zip(run["held"], cpu["held"], strict=True)),
+        "final_weight_err": max(float(np.abs(x - y).max()) for x, y in
+                                zip(run["final"], cpu["final"],
+                                    strict=True))}
+
+
+def _zoo_within(d: dict, mse: bool) -> bool:
+    return (d["mse_rel"] <= ZOO_MSE_RTOL if mse else
+            d["history_identical"]) and \
+        d["held_weight_err"] <= ZOO_WEIGHT_ATOL
+
+
+def _zoo_makes(tmp: str) -> dict:
+    """ZOO_RUNS' builders, by run name (Spam's corpus under ``tmp``)."""
+    makes = {}
+    for name, module, kw in ZOO_RUNS:
+        kw = dict(kw)
+        if module is tspam:
+            kw["loader_config"] = {"data_dir": os.path.join(tmp, "spam")}
+
+        def make(module=module, kw=kw):
+            return module.build(**kw)
+        makes[name] = make
+    return makes
+
+
+def _zoo_models(makes: dict, cpu_runs: dict) -> tuple:
+    """(a): each run on the card, with TF32 off and on, against its CPU
+    run -> (reading, what failed)."""
+    out, bad = {}, []
+    for name, module, _ in ZOO_RUNS:
+        make, cpu = makes[name], cpu_runs.pop(name)
+        card = _zoo_run(make, DEVICE)
+        tf32 = _zoo_run(make, DEVICE, allow_tf32=True)
+        mse = card["w"].decision.__class__.__name__ == "DecisionMSE"
+        table = zoo_launch_table(card["w"])
+        r = out[name] = {
+            "epochs": len(card["history"]),
+            "minibatches": len(card["classes"]),
+            "train_minibatches": card["classes"].count(TRAIN),
+            "launches": card["launches"],
+            "expect": _per_class(table, card["classes"]),
+            "card_s": card["wall_s"], "cpu_s": cpu["wall_s"],
+            "ms_per_minibatch": card["ms_per_minibatch"],
+            "steady_ms_per_minibatch": card["steady_ms_per_minibatch"],
+            "cpu_ms_per_minibatch": cpu["ms_per_minibatch"],
+            "cpu_steady_ms_per_minibatch": cpu["steady_ms_per_minibatch"],
+            "history": [{k: v for k, v in h.items()
+                         if k.startswith("metric")}
+                        for h in card["history"]],
+            "vs_cpu": _zoo_distance(card, cpu),
+            "tf32_vs_cpu": _zoo_distance(tf32, cpu)}
+        if getattr(card["w"], "step", None) is not None:
+            r["graph_replays"] = replays_of(card["w"].step)
+            r["pinned"] = card["w"].step._dataset_dev is not None
+        if r["launches"] != r["expect"]:
+            bad.append(f"{name} launches {r['launches']} != {r['expect']}")
+        if card["classes"] != cpu["classes"]:
+            bad.append(f"{name}: the card served other classes than the "
+                       f"CPU")
+        if not _zoo_within(r["vs_cpu"], mse):
+            bad.append(f"{name} card vs cpu {r['vs_cpu']}")
+        if name in ZOO_TF32_BLIND:
+            same = tf32["history"] == card["history"] and all(
+                np.array_equal(x, y) for x, y in zip(tf32["final"],
+                                                     card["final"]))
+            r["tf32_bit_identical"] = same
+            if not same:
+                bad.append(f"{name}: its TF32 run moved")
+        elif _zoo_within(r["tf32_vs_cpu"], mse):
+            bad.append(f"{name}: the bands pass its TF32 run "
+                       f"{r['tf32_vs_cpu']}")
+        if module is trbm:
+            r["h2v"] = _zoo_h2v_check(card["w"])
+            if not r["h2v"]["ok"]:
+                bad.append(f"rbm h2v {r['h2v']}")
+        del card, cpu, tf32
+    return out, bad
+
+
+def _zoo_rbm_own_draws() -> tuple:
+    """(a): the RBM's ``build()`` + ``run()`` on the card with its own
+    draws (Binarization's ``torch.Generator`` from ``prng.get().key``,
+    no seeded uniforms), launches counted as for the others, held to the
+    reference's property: the last validation MSE below the first, and
+    a finite W that moved -> (reading, what failed)."""
+    start = []
+    run = _zoo_run(trbm.build, DEVICE, seeded_draws=False,
+                   prepare=lambda w: start.extend(_zoo_weights(w)))
+    mse = [h["metric_validation"] for h in run["history"]]
+    weights = run["final"][0]
+    out = {"launches": run["launches"],
+           "expect": _per_class(zoo_launch_table(run["w"]), run["classes"]),
+           "complete": bool(run["w"].decision.complete),
+           "validation_mse": mse, "w_finite": bool(
+               np.isfinite(weights).all()),
+           "w_moved": float(np.abs(weights - start[0]).max()),
+           "ms_per_minibatch": run["ms_per_minibatch"],
+           "steady_ms_per_minibatch": run["steady_ms_per_minibatch"]}
+    bad = []
+    if out["launches"] != out["expect"]:
+        bad.append(f"rbm own draws launches {out['launches']} != "
+                   f"{out['expect']}")
+    if not (out["complete"] and mse[-1] < mse[0] and out["w_finite"] and
+            out["w_moved"] > 0):
+        bad.append(f"rbm own draws {out}")
+    return out, bad
+
+
+def _zoo_h2v_check(w) -> dict:
+    """The RBM's h2v product as its unit launches it: ``gemm_fc`` of the
+    binary hidden states and the transposed view of the shared (nv, nh)
+    weights (trans_b, no copy) with the visible bias and the sigmoid,
+    against its plain twin on the same tensors; the band must reject
+    the same call reading the weights' memory untransposed."""
+    units = {u.name: u for u in w.units}
+    h2v, v2h = units["h2v"], units["v2h"]
+    h = h2v.input.devmem
+    wt = h2v.weights.devmem
+    view = wt.t()
+    args = (h, view, h2v.bias.devmem, activations.SIGMOID)
+    got = kgemm.fc_forward(*args)
+    want = kgemm.fc_forward_plain(*args)
+    control = kgemm.fc_forward(h, wt.reshape(view.shape),
+                               h2v.bias.devmem, activations.SIGMOID)
+    err = float((got - want).abs().max())
+    control_err = float((control - want).abs().max())
+    return {"shape": {"h": list(h.shape), "weights": list(wt.shape)},
+            "shared": h2v.weights is v2h.weights,
+            "trans_b": kgemm._stored(view, "b"),
+            "no_copy": view.data_ptr() == wt.data_ptr(),
+            "max_abs_err": err, "control_err": control_err,
+            "ok": (h2v.weights is v2h.weights and
+                   kgemm._stored(view, "b") == 1 and
+                   view.data_ptr() == wt.data_ptr() and
+                   err <= ZOO_WEIGHT_ATOL < control_err)}
+
+
+def _zoo_schedule_make(with_schedule: bool):
+    """(b)'s workflow: fused Wine to ZOO_LR_EPOCHS epochs, the loop
+    decision -> LearningRateAdjust -> NNRollback -> repeater."""
+    def make():
+        w = twine.build(max_epochs=ZOO_LR_EPOCHS)
+        tail = w.decision
+        w.repeater.links_from.clear()
+        w.decision.links_to.remove(w.repeater)
+        if with_schedule:
+            adj = w.lr_adjust = LearningRateAdjust(
+                w, lr_policy=ExpPolicy(ZOO_LR_GAMMA), name="lr_adjust")
+            for gd in w.gds:
+                adj.add_gd_unit(gd)
+            adj.link_from(tail)
+            tail = adj
+        rb = w.nn_rollback = NNRollback(w, fail_iterations=10 ** 6)
+        rb.link_workflow_state(w)
+        rb.link_from(tail)
+        rb.gate_skip = ~w.decision.epoch_ended
+        w.repeater.link_from(rb)
+        return w
+    return make
+
+
+def _zoo_force_rollback(w) -> dict:
+    """Hooked at the end of epoch ZOO_ROLLBACK_EPOCH: every w/b leaf of
+    the step set to NaN in place, then ``force_rollback``; -> what the
+    restore left in the leaves, read at once, and the graphs then."""
+    step, rb = w.step, w.nn_rollback
+    reading = {}
+    if step._graphs is not None:                # the card's graphs
+        reading["graphs_before"] = {str(k): id(g) for k, g in
+                                    step._graphs.items()}
+        reading["replays_before"] = sum(replays_of(step).values())
+    ptrs = [{k: t.data_ptr() for k, t in leaf.items()}
+            for leaf in step._params]
+    for leaf in step._params:
+        for k in ("w", "b"):
+            if k in leaf:
+                leaf[k].fill_(float("nan"))
+    rb.force_rollback()
+    good = {f"forward.{i}.{a}": k for i in range(len(step._params))
+            for a, k in (("weights", "w"), ("bias", "b"))}
+    reading["restored_bit_equal"] = all(
+        np.array_equal(step._params[int(key.split(".")[1])][k].cpu()
+                       .numpy(), rb._good[key])
+        for key, k in good.items())
+    reading["same_leaves"] = [{k: t.data_ptr() for k, t in leaf.items()}
+                              for leaf in step._params] == ptrs
+    reading["rollbacks"] = rb.rollback_count
+    return reading
+
+
+def _zoo_schedule(device: str, with_schedule: bool = True) -> dict:
+    """(b)'s run on ``device``; on the card, the graphs' identities and
+    replays around the rollback."""
+    def prepare(w):
+        state = {}
+        logged = w.decision.on_epoch_logged
+
+        def on_epoch_logged():
+            logged()
+            if len(w.decision.metrics_history) == ZOO_ROLLBACK_EPOCH:
+                state["rollback"] = _zoo_force_rollback(w)
+        w.decision.on_epoch_logged = on_epoch_logged
+        state["hyper_ptr"] = w.step._hyper_buf.data_ptr()
+        return state
+    run = _zoo_run(_zoo_schedule_make(with_schedule), device,
+                   prepare=prepare)
+    w = run["w"]
+    state = run["extra"]
+    state["hyper_ptr_kept"] = w.step._hyper_buf.data_ptr() == \
+        state.pop("hyper_ptr")
+    state["lr_final"] = float(w.gds[0].learning_rate)
+    state["hyper_lr_final"] = float(w.step._hyper_device()[0]["lr"])
+    if device != "cpu":
+        rb = state["rollback"]
+        rb["graphs_after"] = {str(k): id(g) for k, g in
+                              w.step._graphs.items()}
+        rb["no_recapture"] = rb["graphs_after"] == rb["graphs_before"]
+        rb["replays_after"] = sum(replays_of(w.step).values())
+    return run
+
+
+def _zoo_lr_rollback() -> tuple:
+    """(b) -> (reading, what failed)."""
+    card, cpu = _zoo_schedule(DEVICE), _zoo_schedule("cpu")
+    plain = _zoo_schedule("cpu", with_schedule=False)
+    d = _zoo_distance(card, cpu)
+    rb = card["extra"]["rollback"]
+    out = {"epochs": ZOO_LR_EPOCHS, "gamma": ZOO_LR_GAMMA,
+           "rollback_epoch": ZOO_ROLLBACK_EPOCH, "vs_cpu": d,
+           "history": [{k: v for k, v in h.items()
+                        if k.startswith("metric")}
+                       for h in card["history"]],
+           "schedule_moves_weights": max(
+               float(np.abs(x - y).max()) for x, y in
+               zip(cpu["final"], plain["final"])),
+           "launches": card["launches"],
+           "card": {k: v for k, v in card["extra"].items()
+                    if k != "rollback"},
+           "cpu": {k: v for k, v in cpu["extra"].items()
+                   if k != "rollback"},
+           "rollback": {k: v for k, v in rb.items()
+                        if not k.startswith("graphs_")},
+           "graphs": len(rb["graphs_after"])}
+    bad = []
+    if not _zoo_within({**d, "held_weight_err": d["final_weight_err"]},
+                       False):
+        bad.append(f"lr_rollback card vs cpu {d}")
+    if not out["schedule_moves_weights"] > 100 * ZOO_WEIGHT_ATOL:
+        bad.append("the schedule did not move the CPU run's weights")
+    if not (rb["restored_bit_equal"] and rb["same_leaves"] and
+            rb["no_recapture"] and rb["rollbacks"] == 1 and
+            rb["replays_after"] > rb["replays_before"] and
+            card["extra"]["hyper_ptr_kept"] and
+            card["extra"]["lr_final"] == cpu["extra"]["lr_final"] and
+            abs(card["extra"]["hyper_lr_final"] -
+                card["extra"]["lr_final"]) <= 1e-7 *
+            card["extra"]["lr_final"]):
+        bad.append(f"lr_rollback: {out}")
+    return out, bad
+
+
+def _zoo_online_make(data, labels):
+    def make():
+        w = StandardWorkflow(
+            name="Online", loss_function="softmax",
+            layers=[{"type": "all2all_tanh",
+                     "->": {"output_sample_shape": ZOO_ONLINE["hidden"]}},
+                    {"type": "softmax",
+                     "->": {"output_sample_shape": ZOO_ONLINE["classes"]}}],
+            loader_name="interactive",
+            loader_config={"sample_shape": (ZOO_ONLINE["features"],),
+                           "n_classes": ZOO_ONLINE["classes"],
+                           "capacity": ZOO_ONLINE["n"],
+                           "minibatch_size": ZOO_ONLINE["minibatch"]},
+            decision_config={"max_epochs": ZOO_ONLINE["epochs"]})
+        w.loader.feed(data, labels)
+        return w
+    return make
+
+
+def _zoo_online_serve(tmp: str) -> tuple:
+    """(c): online training fed through ``InteractiveLoader.feed``, on
+    the card against the CPU; the card's weights exported, loaded on the
+    card in f32 and served by ``PredictionServer``, a few
+    ``predict_remote`` calls held against the CPU forward of the same
+    package -> (reading, what failed)."""
+    from znicz_tpu_torch.loader.restful import (PredictionServer,
+                                                predict_remote)
+    from znicz_tpu_torch.utils.export import ExportedForward, export_forward
+
+    rng = np.random.default_rng(SEED)
+    n, f, c = ZOO_ONLINE["n"], ZOO_ONLINE["features"], ZOO_ONLINE["classes"]
+    centers = rng.normal(0, 2.0, (c, f)).astype(np.float32)
+    labels = rng.integers(0, c, n).astype(np.int32)
+    data = centers[labels] + rng.normal(0, 0.3, (n, f)).astype(np.float32)
+    make = _zoo_online_make(data, labels)
+    card, cpu = _zoo_run(make, DEVICE), _zoo_run(make, "cpu")
+    table = zoo_launch_table(card["w"])
+    out = {"vs_cpu": _zoo_distance(card, cpu),
+           "history": [h["metric_train"] for h in card["history"]],
+           "launches": card["launches"],
+           "expect": _per_class(table, card["classes"]),
+           "pinned": card["w"].step._dataset_dev is not None,
+           "ms_per_minibatch": card["ms_per_minibatch"],
+           "steady_ms_per_minibatch": card["steady_ms_per_minibatch"]}
+    bad = []
+    if out["launches"] != out["expect"]:
+        bad.append(f"online launches {out['launches']} != {out['expect']}")
+    if not _zoo_within(out["vs_cpu"], False):
+        bad.append(f"online card vs cpu {out['vs_cpu']}")
+    pkg = os.path.join(tmp, "online.npz")
+    export_forward(card["w"], pkg)
+    precision = root.common.engine.get("precision", "bfloat16")
+    root.common.engine.precision = "float32"
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model = ExportedForward(pkg, device=DEVICE)
+        host = ExportedForward(pkg, device="cpu")
+        server = PredictionServer(model, max_batch=max(ZOO_SERVE_BATCHES))
+        port = server.start()
+        try:
+            errs, t0 = [], time.perf_counter()
+            for b in ZOO_SERVE_BATCHES:
+                x = rng.normal(size=(b, f)).astype(np.float32)
+                y = predict_remote(f"http://127.0.0.1:{port}", x)
+                errs.append(float(np.abs(y - host(x)).max()))
+            http_s = time.perf_counter() - t0
+        finally:
+            server.stop()
+    finally:
+        root.common.engine.precision = precision
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    out["serve"] = {"batches": list(ZOO_SERVE_BATCHES),
+                    "max_abs_err": max(errs), "http_s": http_s,
+                    "requests": server.n_requests,
+                    "captures": model.captures,
+                    "compile_count": server.engine.compile_count,
+                    "compute_dtype": str(model.compute_dtype)}
+    buckets = {server.engine.bucket_for(b) for b in ZOO_SERVE_BATCHES}
+    if not (max(errs) <= ZOO_SERVE_ATOL and
+            server.n_requests == len(ZOO_SERVE_BATCHES) and
+            model.captures == len(buckets) ==
+            server.engine.compile_count):
+        bad.append(f"online serve {out['serve']}")
+    return out, bad
+
+
+def _zoo_cli_start() -> dict:
+    """(d): ``python -m znicz_tpu_torch znicz_tpu_torch/models/wine.py``
+    with no ``-d``, started at once in its own process; a thread collects
+    its output and the seconds from its start to its exit."""
+    cli = {"t0": time.perf_counter()}
+    proc = cli["proc"] = subprocess.Popen(
+        [sys.executable, "-m", "znicz_tpu_torch",
+         "znicz_tpu_torch/models/wine.py"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env={**os.environ, "ZNICZ_TPU_SITE_CONFIG": ""},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def collect():
+        cli["log"] = proc.communicate()[0]
+        cli["seconds"] = time.perf_counter() - cli["t0"]
+    cli["thread"] = threading.Thread(target=collect, daemon=True)
+    cli["thread"].start()
+    return cli
+
+
+def _zoo_cli_result(cli: dict) -> tuple:
+    """The CLI's reading: its own seconds (start to exit) and the
+    seconds until its result was collected, killed at ZOO_CLI_TIMEOUT."""
+    proc, thread = cli["proc"], cli["thread"]
+    thread.join(max(0.0, cli["t0"] + ZOO_CLI_TIMEOUT - time.perf_counter()))
+    if thread.is_alive():
+        proc.kill()
+        thread.join()
+    log = cli["log"]
+    epochs = re.findall(r"DecisionGD: epoch (\d+):", log)
+    out = {"rc": proc.returncode, "seconds": cli["seconds"],
+           "collected_s": time.perf_counter() - cli["t0"],
+           "on_cuda": "TorchDevice cuda" in log,
+           "epochs_logged": len(epochs), "tail": log[-600:]}
+    ok = out["rc"] == 0 and out["on_cuda"] and out["epochs_logged"] == 20
+    return out, [] if ok else [f"wine CLI {out}"]
+
+
+def phase_zoo() -> dict:
+    """The rest of the zoo on the card (``--phase zoo``).  (a) Wine,
+    Approximator (regression, and nearest-target eager and fused),
+    SpamFilter, TvChannels (fused, and eager: the conv forward, weight-
+    and input-gradient kernels behind a Cutter) and the CD-1 RBM at their
+    build() defaults, f32, TF32 off, each on the card and on the CPU:
+    every run's gemm_fc, act_backward, conv and SGD launches equal to
+    ``zoo_launch_table``'s counts of its minibatches, n_err histories
+    identical, MSE histories and weights within the ZOO bands, which
+    must reject the same run with TF32 on (the eager Approximator, with
+    no TF32-capable call, must not move); the RBM's h2v product (gemm_fc
+    on the transposed shared weights) against its plain twin; and the
+    RBM once more with its own draws, gated on the reference's property
+    (``_zoo_rbm_own_draws``).  (b) a
+    per-minibatch LearningRateAdjust on fused Wine with an NNRollback
+    forced mid-run: card against the CPU, the restore bit-equal in the
+    same leaves, no graph recaptured.  (c) online training from
+    ``InteractiveLoader.feed``, exported and served by
+    ``PredictionServer`` to ``predict_remote``, against the CPU forward.
+    (d) the Wine CLI with no ``-d``, in its own process beside (a)'s CPU
+    runs, timed from its start to its exit.  Every part runs before the first failure is raised."""
+    t0 = time.perf_counter()
+    cli = _zoo_cli_start()
+    out, bad = {"phase": "zoo"}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a)'s CPU runs beside the CLI process; the card's runs after it
+        # ended, so its work does not reach their times
+        makes = _zoo_makes(tmp)
+        cpu_runs = {name: _zoo_run(make, "cpu")
+                    for name, make in makes.items()}
+        out["cpu_s"] = time.perf_counter() - t0
+        out["cli"], b = _zoo_cli_result(cli)
+        bad += b
+        for key, part in (("models", lambda: _zoo_models(makes, cpu_runs)),
+                          ("rbm_own_draws", _zoo_rbm_own_draws),
+                          ("lr_rollback", _zoo_lr_rollback),
+                          ("online_serve", lambda: _zoo_online_serve(tmp))):
+            t1 = time.perf_counter()
+            out[key], b = part()
+            out[key + "_s"] = time.perf_counter() - t1
+            bad += b
+    out["seconds"] = time.perf_counter() - t0
+    if bad:
+        fail(f"zoo: {bad}: {out}")
+    return out
+
+
 #: phases ``--phase`` may run alone (after the build), for iterating on
 #: one kernel family; the smoke proper takes no arguments
 PHASES_ALONE = {"kernel": lambda: phase_kernel(),
@@ -9645,7 +10318,8 @@ PHASES_ALONE = {"kernel": lambda: phase_kernel(),
                     VOCAB))[0],
                 "fused_compare": lambda: phase_fused_compare(),
                 "serve_forward": lambda: phase_serve_forward(),
-                "act_compare": lambda: phase_act_compare()}
+                "act_compare": lambda: phase_act_compare(),
+                "zoo": lambda: phase_zoo()}
 
 
 def main() -> int:
@@ -9745,13 +10419,15 @@ def main() -> int:
     emit(serve_forward)
     pipe_expert = phase_pipe_expert()
     emit(pipe_expert)
+    zoo = phase_zoo()
+    emit(zoo)
     kernel_hw = phase_kernel_hw()
     emit(kernel_hw)
     emit({**kernel_line(kernel, flash, gemm, optim, serve, train, eager,
                         fused, conv, alexnet, deconv, ae, spool, mcs, som,
                         lrn_drop, alex_fused, kernel_hw, spec, char,
                         data_parallel, serve_forward, lm_axes,
-                        pipe_expert),
+                        pipe_expert, zoo),
           "first_stream": streams[0][:8],
           "seconds": time.perf_counter() - T_START})
     print(nvidia_smi(), flush=True)

@@ -985,7 +985,28 @@ class FusedTrainStep(Unit):
                     self.mesh.all_reduce_(torch.zeros(1, device=self._dev))
                 torch.cuda.current_stream(self._dev).wait_stream(self._stream)
         self._pin_dataset()
+        if self.scan_epoch and self._dataset_dev is not None:
+            self._refuse_per_minibatch_schedules()
         self.initialized = True
+
+    def _refuse_per_minibatch_schedules(self) -> None:
+        """In epoch-scan mode the hyperparams are read once per class
+        pass, so a per-MINIBATCH LR schedule would silently coarsen to
+        per-pass granularity: refuse it, as the reference does."""
+        from znicz_tpu_torch.units.lr_adjust import LearningRateAdjust
+        gd_ids = {id(gd) for gd in self.gds}
+        offenders = [
+            u.name for u in (self.workflow.units if self.workflow else [])
+            if isinstance(u, LearningRateAdjust) and not u.by_epoch
+            and any(id(gd) in gd_ids for gd, _, _ in u._gd_units)]
+        if offenders:
+            raise ValueError(
+                f"scan_epoch compiles a whole class pass into one "
+                f"dispatch reading hyperparams once, so the "
+                f"per-minibatch (by_epoch=False) LearningRateAdjust "
+                f"unit(s) {offenders} would silently coarsen to "
+                f"per-pass schedules; use by_epoch=True or disable "
+                f"scan_epoch")
 
     def _rank_stream(self) -> None:
         """Re-key the step's generator for this rank (rank 0 keeps it):

@@ -1,0 +1,141 @@
+"""Plotting units — the port of ``znicz_tpu/plotting.py`` (rebuild of
+veles/plotter.py + veles/plotting_units.py: AccumulatingPlotter,
+MatrixPlotter, ImagePlotter, Histogram); a copy.
+
+The reference shipped plot state over a ZMQ PUB socket to a separate
+matplotlib process.  This renders in-process with the Agg backend
+straight to PNG files under ``root.common.dirs.plots`` — same unit-level
+hook points (gated on ``decision.epoch_ended``), no display dependency.
+The plotters are host-only units: they read ``map_read()`` copies and
+never touch the card.  The one difference from the reference: the
+default plots dir is ``.data/plots`` under the checkout that holds the
+package, as ``core/config.py``'s other dirs are.  matplotlib is
+imported at the first render, never at import.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import numpy as np
+
+from znicz_tpu_torch.core.config import _DATA, root
+from znicz_tpu_torch.core.units import Unit
+
+root.common.dirs.plots = getattr(root.common.dirs, "plots", None) or \
+    os.path.join(_DATA, "plots")
+
+
+def _agg_pyplot():
+    import matplotlib
+    matplotlib.use("Agg", force=False)
+    import matplotlib.pyplot as plt
+    return plt
+
+
+class Plotter(Unit):
+    """Base render-to-file plotter (reference: veles/plotter.py ::
+    Plotter).  Subclasses implement ``redraw(plt, fig)``."""
+
+    def __init__(self, workflow=None, name: Optional[str] = None,
+                 directory: Optional[str] = None, **kwargs) -> None:
+        super().__init__(workflow, name=name, **kwargs)
+        self.directory = directory or str(root.common.dirs.plots)
+        self.render_count = 0
+        self.last_path: Optional[str] = None
+
+    def out_path(self) -> str:
+        return os.path.join(self.directory, f"{self.name}.png")
+
+    def run(self) -> None:
+        plt = _agg_pyplot()
+        fig = plt.figure(figsize=(6, 4), dpi=96)
+        try:
+            self.redraw(plt, fig)
+            os.makedirs(self.directory, exist_ok=True)
+            fig.savefig(self.out_path(), bbox_inches="tight")
+            self.last_path = self.out_path()
+            self.render_count += 1
+        finally:
+            plt.close(fig)
+
+    def redraw(self, plt, fig) -> None:
+        raise NotImplementedError
+
+
+class AccumulatingPlotter(Plotter):
+    """Metric-vs-epoch curve (reference: AccumulatingPlotter).  Reads the
+    data-linked ``input`` scalar each run and appends."""
+
+    def __init__(self, workflow=None, label: str = "metric",
+                 **kwargs) -> None:
+        super().__init__(workflow, **kwargs)
+        self.input = 0.0       # data-linked scalar (e.g. decision metric)
+        self.values: list[float] = []
+
+    def redraw(self, plt, fig) -> None:
+        self.values.append(float(self.input))
+        ax = fig.add_subplot(111)
+        ax.plot(np.arange(1, len(self.values) + 1), self.values,
+                marker="o", ms=3)
+        ax.set_xlabel("epoch")
+        ax.set_ylabel(self.name)
+        ax.grid(True, alpha=0.3)
+
+
+class MatrixPlotter(Plotter):
+    """Confusion-matrix heatmap (reference: MatrixPlotter)."""
+
+    def __init__(self, workflow=None, **kwargs) -> None:
+        super().__init__(workflow, **kwargs)
+        self.input = None      # data-linked matrix
+
+    def redraw(self, plt, fig) -> None:
+        m = np.asarray(self.input)
+        ax = fig.add_subplot(111)
+        im = ax.imshow(m, cmap="viridis")
+        fig.colorbar(im)
+        ax.set_xlabel("target")
+        ax.set_ylabel("predicted")
+        if m.shape[0] <= 20:
+            for i in range(m.shape[0]):
+                for j in range(m.shape[1]):
+                    ax.text(j, i, str(int(m[i, j])), ha="center",
+                            va="center", fontsize=7, color="white")
+
+
+class ImagePlotter(Plotter):
+    """Render a batch sample / arbitrary 2-D array as an image
+    (reference: ImagePlotter)."""
+
+    def __init__(self, workflow=None, **kwargs) -> None:
+        super().__init__(workflow, **kwargs)
+        self.input = None
+
+    def redraw(self, plt, fig) -> None:
+        img = np.asarray(self.input, np.float32)
+        img = img[0] if img.ndim > 3 else img
+        if img.ndim == 3 and img.shape[-1] == 1:
+            img = img[..., 0]
+        ax = fig.add_subplot(111)
+        ax.imshow(img, cmap=None if img.ndim == 3 else "gray")
+        ax.axis("off")
+
+
+class Histogram(Plotter):
+    """Value histogram of the linked array (reference: Histogram)."""
+
+    def __init__(self, workflow=None, n_bins: int = 50, **kwargs) -> None:
+        super().__init__(workflow, **kwargs)
+        self.input = None
+        self.n_bins = n_bins
+
+    def redraw(self, plt, fig) -> None:
+        vals = np.asarray(self.input.map_read() if hasattr(self.input,
+                                                           "map_read")
+                          else self.input).ravel()
+        ax = fig.add_subplot(111)
+        ax.hist(vals, bins=self.n_bins)
+        ax.set_ylabel("count")
+        ax.grid(True, alpha=0.3)

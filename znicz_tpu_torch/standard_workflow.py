@@ -35,8 +35,8 @@ from typing import Optional
 
 from znicz_tpu_torch.core.mutable import Bool
 from znicz_tpu_torch.core.plumbing import Repeater
-from znicz_tpu_torch.loader import (image, mnist,  # noqa: F401
-                                    pickles, sequence, synthetic,
+from znicz_tpu_torch.loader import (image, interactive,  # noqa: F401
+                                    mnist, pickles, sequence, synthetic,
                                     text)  # (register loaders)
 from znicz_tpu_torch.loader.base import TRAIN, get_loader
 from znicz_tpu_torch.parallel.step import FusedTrainStep

@@ -6,7 +6,10 @@ fwd<->gd registry that StandardWorkflow's layer-type lookup reads is
 fully populated.
 """
 
-from znicz_tpu_torch.units import (all2all, conv, deconv,  # noqa: F401
-                                   dropout, gd, gd_conv, gd_deconv,
-                                   gd_pooling, lm, mean_disp_normalizer,
-                                   normalization, pooling)
+from znicz_tpu_torch.units import (activation, all2all,  # noqa: F401
+                                   conv, cutter, deconv, dropout, gd,
+                                   gd_conv, gd_deconv, gd_pooling, lm,
+                                   lr_adjust, mean_disp_normalizer,
+                                   nn_rollback, normalization, pooling,
+                                   rbm, resizable_all2all,
+                                   weights_zerofilling)
