@@ -372,6 +372,29 @@ exits non-zero without the final ``ok`` line):
    the CPU forward; (d) ``python -m znicz_tpu_torch
    znicz_tpu_torch/models/wine.py`` with no ``-d``, on the card, in its
    own process beside (a)'s CPU runs.
+17z. **operations** — the operational planes, f32 with TF32 off, the
+   launch counters set to 0 before each part: (a) fused AlexNet (227
+   px, batch 128) with ``anatomy=True``: per step the ``grad`` and
+   ``update`` ms, the phase sum within 10 % of the step wall, the step's
+   ms beside the one-replay step's, the weights bit-identical to the
+   same steps replayed normally, LRN (2 + 2) and SGD (16) launches a
+   step exact, the ``znicz_anatomy_mfu`` gauge against 989 TFLOP/s; (b)
+   the LM step at ``train``'s width in its anatomy mode against the
+   plain ``make_train_step`` (losses within the reference's rtol 2e-4,
+   6 + 6 flash launches a step, per-phase ms, MFU); (c) ``python -m
+   znicz_tpu_torch --profile DIR`` on an eager MNIST FC workflow with no
+   ``-d``, and on the fused one: the traces name the gemm_fc and
+   act_backward kernels (eager) and the SGD kernel (fused) as many times
+   as their counters count, and ``compare_traces`` of each against
+   itself is all zeros; (d) ``HealthGuard(mode="skip")`` on
+   fused MNIST FC at full width with a NaN at ``step.loss``: one trip,
+   the certified weights restored into the same tensors, no graph
+   recaptured, the next replays training from them; (e) ``python -m
+   znicz_tpu_torch elastic --workers 1`` over the drill workflow on the
+   card, the worker SIGKILLed at the seeded hit and resumed, its
+   history bit-identical to an uninterrupted one-worker run, ``flight``
+   printing the restart's artifact, the worker's metrics export
+   parseable and rank-tagged.
 18. **kernel_hw** — ``utils/kernel_hw.run_parity("cuda")``, all fourteen
    families of the reference ``ok``; the LRN, dropout and bf16 conv
    forward counters set to 0 just before and read just after (the only
@@ -382,7 +405,8 @@ exits non-zero without the final ``ok`` line):
 pool_backward, conv, alexnet_eager, deconv, kohonen, lrn_dropout,
 ae_fused, alexnet_fused, graph_parity, fused_conv_parity,
 input_pipeline, image_files, snapshot_resume, data_parallel, lm_axes,
-serve_forward, pipe_expert, zoo, speculative, char_lm, train, or three
+serve_forward, pipe_expert, zoo, operations, speculative, char_lm,
+train, or three
 that only measure and run on older trees of the port too: **waves**, the
 weight gradient at AlexNet's and build_deep's shapes with split_k's
 slices, one fewer and one more, through the C entry; **fused_compare**,
@@ -453,6 +477,9 @@ from znicz_tpu_torch.ops import activations
 from znicz_tpu_torch.ops import deconv as tdeconv_ops
 from znicz_tpu_torch.ops import kohonen as tk_ops
 from znicz_tpu_torch.ops import pooling as tpool_ops
+from znicz_tpu_torch.observe import federation as tfederation
+from znicz_tpu_torch.observe import registry as tregistry
+from znicz_tpu_torch.observe.anatomy import TRAIN_PHASES
 from znicz_tpu_torch.observe.trace import TRACER
 from znicz_tpu_torch.parallel import mesh as tmesh
 from znicz_tpu_torch.parallel import zero as tzero
@@ -467,6 +494,7 @@ from znicz_tpu_torch.serve.kvcache import KVDecoder
 from znicz_tpu_torch.serve.paged import PagedKVDecoder, truncate_draft
 from znicz_tpu_torch.serve.server import (build_generate_parser,
                                           start_generate_server)
+from znicz_tpu_torch.resilience import faults as tfaults
 from znicz_tpu_torch.standard_workflow import StandardWorkflow
 from znicz_tpu_torch.units import deconv as tdeconv_unit
 from znicz_tpu_torch.units import dropout as tdropout
@@ -479,6 +507,7 @@ from znicz_tpu_torch.units.lr_adjust import ExpPolicy, LearningRateAdjust
 from znicz_tpu_torch.units.nn_rollback import NNRollback
 from znicz_tpu_torch.units.rbm import Binarization, WeightsUpdater
 from znicz_tpu_torch.utils.export import export_lm, load_lm
+from znicz_tpu_torch.utils import profiling as tprofiling
 from znicz_tpu_torch.utils.kernel_hw import run_parity
 
 SEED = 20261016
@@ -10286,6 +10315,542 @@ def phase_zoo() -> dict:
     return out
 
 
+#: operations: (a)'s timed anatomy steps after one warm one, (b)'s LM
+#: steps, the phase sum's band against the step wall
+#: (tests/test_anatomy.py:140), (b)'s loss band against the plain step
+#: (tests/test_anatomy.py:222's rtol)
+OPS_ALEX_STEPS, OPS_LM_STEPS, OPS_RECONCILE, OPS_LM_RTOL = 5, 3, 0.10, 2e-4
+#: (a): AlexNet's leaves and its LRN layers (launches a train step)
+OPS_ALEX_SGD, OPS_ALEX_LRN = 16, 2
+#: (d): minibatches an epoch and epochs; the NaN at the third publish
+#: (one an epoch: the first captures a copy, the second certifies it)
+OPS_HEALTH_MB, OPS_HEALTH_EPOCHS, OPS_HEALTH_NAN_AT = 4, 4, 3
+#: (e): the drill's epochs and its seeded kill (tests/test_elastic.py:58)
+OPS_DRILL_EPOCHS = 6
+OPS_KILL_AT_HIT = int(np.random.default_rng(1234).integers(40, 70))
+#: (c): the MNIST FC runs the CLI profiles (mnist_eager's widths), and
+#: the kernels each launches: eager, the FC kernels; fused, the SGD
+#: kernel (its matmuls are cuBLAS's under autograd)
+OPS_FC_TRAIN, OPS_FC_VALID = 2 * FC_BATCH, FC_BATCH
+OPS_PROFILED = {"eager": ("gemm_fc", "act_backward"), "fused": ("sgd",)}
+#: the counters of (c) by the name their kernels carry in a trace
+OPS_TRACE_KEYS = {"gemm_fc": "gemm_f32_kernel",
+                  "act_backward": "act_backward_f32_kernel",
+                  "sgd": "sgd_kernel"}
+OPS_CLI_TIMEOUT = 300
+OPS_FC_WORKFLOW = """
+import json
+
+from znicz_tpu_torch.core.config import root
+from znicz_tpu_torch.kernels import gemm, optim
+from znicz_tpu_torch.models import mnist_fc
+
+
+def counts():
+    return {"gemm_fc": gemm.gemm_launches, "act_backward": gemm.act_launches,
+            "sgd": optim.sgd_launches}
+
+
+def build():
+    cfg = root.ops_profile
+    make = mnist_fc.build_fused if cfg.fused else mnist_fc.build_eager
+    return make(max_epochs=1, layers=tuple(cfg.layers),
+                minibatch_size=cfg.batch, n_train=cfg.n_train,
+                n_valid=cfg.n_valid)
+
+
+def run(load, main):
+    w, _ = load(build)
+    initialize = w.initialize
+    at_run = {}
+
+    def initialized(**kwargs):
+        initialize(**kwargs)
+        at_run.update(counts())
+    w.initialize = initialized
+    main()
+    with open(root.ops_profile.result_file, "w") as f:
+        json.dump({"at_run": at_run, "at_end": counts(),
+                   "history": w.decision.metrics_history}, f)
+"""
+
+
+def _anatomy_reading(plane: str) -> dict:
+    """The plane's anatomy sums now: seconds a phase, the step walls,
+    the step count and the MFU gauge (``observe/anatomy.py``)."""
+    flat = tregistry.REGISTRY.snapshot_flat(skip_zero=False)
+    out = {p: flat.get(f'znicz_anatomy_phase_seconds_sum{{plane="{plane}",'
+                       f'phase="{p}"}}', 0.0) for p in TRAIN_PHASES}
+    out["step"] = flat.get(
+        f'znicz_anatomy_step_seconds_sum{{plane="{plane}"}}', 0.0)
+    out["steps"] = flat.get(f'znicz_anatomy_steps_total{{plane="{plane}"}}',
+                            0.0)
+    out["mfu"] = flat.get(f'znicz_anatomy_mfu{{plane="{plane}"}}', 0.0)
+    return out
+
+
+def _anatomy_step_ms(before: dict, after: dict) -> dict:
+    """One step's phases in ms between two readings, the phase sum's
+    share of the step wall, and the MFU gauge after it."""
+    ms = {p: (after[p] - before[p]) * 1e3 for p in TRAIN_PHASES}
+    wall = (after["step"] - before["step"]) * 1e3
+    return {**{f"{p}_ms": v for p, v in ms.items()}, "step_ms": wall,
+            "phase_sum_ms": sum(ms.values()),
+            "steps": after["steps"] - before["steps"], "mfu": after["mfu"]}
+
+
+@contextlib.contextmanager
+def _strict_f32():
+    """TF32 off and deterministic cuDNN algorithms, restored after."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+
+
+def _ops_alexnet_run(anatomy: bool) -> dict:
+    """alexnet.build() at its defaults, fused, in f32, through its
+    loader and step units minibatch by minibatch: one warm step, then
+    OPS_ALEX_STEPS timed ones (wall ms around ``step.run`` with a sync,
+    the anatomy's phases), the LRN and SGD counters set to 0 just before
+    them and read just after; the weights after."""
+    tprng.seed_all(SEED)
+    w = talexnet.build(n_train=ALEX_BATCH * (1 + OPS_ALEX_STEPS),
+                       n_valid=0, max_epochs=1)
+    w.step.anatomy = anatomy
+    w.initialize(device=TorchDevice(DEVICE, precision="float32"))
+    step, loader = w.step, w.loader
+    steps = []
+    for i in range(1 + OPS_ALEX_STEPS):
+        loader.run()
+        if i == 1:
+            _zero_lrn_sgd_counts()                   # 0 just before ...
+        before = _anatomy_reading("fused")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step.run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        if i:
+            steps.append({"wall_ms": wall_ms, **_anatomy_step_ms(
+                before, _anatomy_reading("fused"))})
+    launches = _lrn_sgd_counts()                     # ... read just after
+    step.sync_to_units()
+    out = {"steps": steps, "launches": launches,
+           "weights": _conv_fc_weights(w),
+           "graphs": None if step._graphs is None else len(step._graphs),
+           "flops_per_step": 3.0 * _forward_flops(w)}
+    del w, step, loader
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ops_alexnet() -> tuple:
+    """(a): the anatomy run, then the same steps replayed normally."""
+    with _strict_f32():
+        anat = _ops_alexnet_run(True)
+        plain = _ops_alexnet_run(False)
+    n = OPS_ALEX_STEPS
+    expect = {"lrn_forward": OPS_ALEX_LRN * n, "lrn_backward":
+              OPS_ALEX_LRN * n, "sgd_update": OPS_ALEX_SGD * n,
+              "hand_conv": 0}
+    diff = {name: max(float(np.max(np.abs(a - b))) for a, b in
+                      zip(anat["weights"][name], plain["weights"][name]))
+            for name in anat["weights"]}
+    # the one-replay step from the third call on (eager, capture, replay)
+    tail = slice(2, None)
+    out = {"config": {"batch": ALEX_BATCH, "input": 227, "precision": "f32",
+                      "tf32": False, "cudnn_deterministic": True,
+                      "steps": n, "warm": 1},
+           "route": "each phase eager with a sync at its seam (anatomy), "
+                    "against the step's one graph replay",
+           "anatomy_steps": anat["steps"],
+           "replay_wall_ms": [r["wall_ms"] for r in plain["steps"]],
+           "anatomy_ms_median": float(np.median(
+               [r["wall_ms"] for r in anat["steps"][tail]])),
+           "one_replay_ms_median": float(np.median(
+               [r["wall_ms"] for r in plain["steps"][tail]])),
+           "grad_ms_median": float(np.median(
+               [r["grad_ms"] for r in anat["steps"]])),
+           "update_ms_median": float(np.median(
+               [r["update_ms"] for r in anat["steps"]])),
+           "mfu_gauge": anat["steps"][-1]["mfu"],
+           "mfu_note": "znicz_anatomy_mfu{plane=fused}: 3 x the conv and FC "
+                       "forward flops over the step wall against 989 "
+                       "TFLOP/s (the bf16 peak; this step runs f32)",
+           "flops_per_step": anat["flops_per_step"],
+           "launches": {"anatomy": anat["launches"],
+                        "one_replay": plain["launches"], "expect": expect},
+           "graphs": {"anatomy": anat["graphs"], "one_replay":
+                      plain["graphs"]},
+           "weights_max_abs_diff": diff}
+    bad = []
+    for r in anat["steps"]:
+        if r["steps"] != 1 or not r["grad_ms"] > 0 or not r["update_ms"] > 0:
+            bad.append(f"an anatomy step without its phases: {r}")
+        if abs(r["phase_sum_ms"] - r["step_ms"]) > OPS_RECONCILE * \
+                r["step_ms"]:
+            bad.append(f"phase sum {r['phase_sum_ms']} vs step wall "
+                       f"{r['step_ms']} ms")
+    if anat["launches"] != expect or plain["launches"] != expect:
+        bad.append(f"alexnet anatomy launches {out['launches']}")
+    if any(v != 0.0 for v in diff.values()):
+        bad.append(f"anatomy weights differ from the replayed steps' {diff}")
+    if not out["mfu_gauge"] > 0:
+        bad.append(f"no MFU gauge: {out['mfu_gauge']}")
+    return out, bad
+
+
+def _ops_lm() -> tuple:
+    """(b): the LM step at ``train``'s width in f32, the plain graphed
+    step and then its anatomy form from the same params, 3 steps each,
+    the flash counters set to 0 just before each and read just after."""
+    params = init_params(np.random.default_rng(SEED), N_LAYERS, D, HEADS,
+                         FF, VOCAB)
+    tokens, labels = _train_batch(SEED, TRAIN_B, TRAIN_T)
+    runs = {}
+    with _strict_f32():
+        for anatomy in (False, True):
+            step = make_train_step(None, N_LAYERS, D, HEADS, FF, VOCAB,
+                                   lr=TRAIN_LR, loss_chunks=TRAIN_CHUNKS,
+                                   compute_dtype=torch.float32,
+                                   anatomy=anatomy, device=DEVICE)
+            ps = params_from_numpy(params, DEVICE)
+            torch.cuda.synchronize()
+            kflash.fwd_launches = kflash.bwd_launches = 0   # 0 before ...
+            losses, steps = [], []
+            for _ in range(OPS_LM_STEPS):
+                before = _anatomy_reading("transformer")
+                t0 = time.perf_counter()
+                ps, loss = step(ps, tokens, labels)
+                losses.append(float(loss))
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                steps.append({"wall_ms": wall_ms, **_anatomy_step_ms(
+                    before, _anatomy_reading("transformer"))})
+            runs[anatomy] = {"losses": losses, "steps": steps,
+                             "flash": {"fwd": kflash.fwd_launches,
+                                       "bwd": kflash.bwd_launches}}
+            del step, ps
+            gc.collect()
+            torch.cuda.empty_cache()
+    anat, plain = runs[True], runs[False]
+    expect = {"fwd": N_LAYERS * OPS_LM_STEPS, "bwd": N_LAYERS * OPS_LM_STEPS}
+    rel = [abs(a - b) / abs(b) for a, b in zip(anat["losses"],
+                                                plain["losses"])]
+    out = {"config": {"layers": N_LAYERS, "d": D, "heads": HEADS, "ff": FF,
+                      "vocab": VOCAB, "batch": TRAIN_B, "t": TRAIN_T,
+                      "loss_chunks": TRAIN_CHUNKS, "precision": "f32",
+                      "steps": OPS_LM_STEPS},
+           "losses": {"anatomy": anat["losses"], "plain": plain["losses"]},
+           "loss_rel_diff": rel, "rtol": OPS_LM_RTOL,
+           "anatomy_steps": anat["steps"],
+           "plain_wall_ms": [r["wall_ms"] for r in plain["steps"]],
+           "mfu_gauge": anat["steps"][-1]["mfu"],
+           "mfu_note": "znicz_anatomy_mfu{plane=transformer}: 6 x matmul "
+                       "params x tokens over the step wall against 989 "
+                       "TFLOP/s",
+           "flash": {"anatomy": anat["flash"], "plain": plain["flash"],
+                     "expect": expect}}
+    bad = []
+    if anat["flash"] != expect:
+        bad.append(f"LM anatomy flash launches {anat['flash']}, want "
+                   f"{expect}")
+    if not all(np.isfinite(anat["losses"])) or max(rel) > OPS_LM_RTOL:
+        bad.append(f"LM anatomy losses {anat['losses']} vs plain "
+                   f"{plain['losses']}")
+    for r in anat["steps"]:
+        if abs(r["phase_sum_ms"] - r["step_ms"]) > OPS_RECONCILE * \
+                r["step_ms"] or not r["grad_ms"] > 0:
+            bad.append(f"LM anatomy step {r}")
+    return out, bad
+
+
+def _ops_cli_start(tmp: str) -> dict:
+    """(c): the MNIST FC workflow file, eager and fused, each through
+    ``python -m znicz_tpu_torch --profile DIR`` with no ``-d``, both
+    started at once, each in its own process."""
+    wf = os.path.join(tmp, "ops_mnist_fc.py")
+    with open(wf, "w") as f:
+        f.write(OPS_FC_WORKFLOW)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    clis = {"t0": time.perf_counter()}
+    for mode in OPS_PROFILED:
+        cli = clis[mode] = {"prof": os.path.join(tmp, f"prof_{mode}"),
+                            "result": os.path.join(tmp, f"ops_{mode}.json")}
+        cli["proc"] = subprocess.Popen(
+            [sys.executable, "-m", "znicz_tpu_torch", wf, "--profile",
+             cli["prof"], "-o",
+             f"root.ops_profile.result_file={cli['result']}",
+             "-o", f"root.ops_profile.fused={mode == 'fused'}",
+             "-o", f"root.ops_profile.layers={list(FC_LAYERS)}",
+             "-o", f"root.ops_profile.batch={FC_BATCH}",
+             "-o", f"root.ops_profile.n_train={OPS_FC_TRAIN}",
+             "-o", f"root.ops_profile.n_valid={OPS_FC_VALID}"],
+            cwd=repo, env={**os.environ, "PYTHONPATH": repo,
+                           "ZNICZ_TPU_SITE_CONFIG": ""},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return clis
+
+
+def _ops_cli_result(clis: dict) -> tuple:
+    """(c)'s gates, each run: exit 0, the trace's kernels of its path
+    named as many times as the counters grew over the run, the trace
+    against itself all zeros."""
+    out, bad = {}, []
+    for mode, names in OPS_PROFILED.items():
+        cli = clis[mode]
+        log = cli["proc"].communicate(timeout=OPS_CLI_TIMEOUT)[0]
+        run = out[mode] = {"rc": cli["proc"].returncode,
+                           "seconds": time.perf_counter() - clis["t0"]}
+        if run["rc"] != 0:
+            bad.append(f"--profile {mode} CLI exited {run['rc']}: "
+                       f"{log[-3000:]}")
+            continue
+        with open(cli["result"]) as f:
+            res = json.load(f)
+        counted = {k: res["at_end"][k] - res["at_run"][k]
+                   for k in res["at_end"]}
+        rows = tprofiling.summarize_trace(cli["prof"], top=None)
+        traced = {k: sum(r["count"] for r in rows if key in r["op"])
+                  for k, key in OPS_TRACE_KEYS.items()}
+        deltas = tprofiling.compare_traces(cli["prof"], cli["prof"])
+        run.update(counted=counted, traced=traced,
+                   top=[{**r, "op": r["op"][:80]} for r in rows[:6]],
+                   families=sorted({r["category"] for r in deltas}),
+                   self_deltas=sorted({r["delta_ms"] for r in deltas}),
+                   history=res["history"])
+        if traced != counted or not all(counted[n] for n in names):
+            bad.append(f"--profile {mode} trace counts {traced} vs "
+                       f"counters {counted}")
+        if run["self_deltas"] != [0.0]:
+            bad.append(f"compare_traces of a trace with itself: {deltas}")
+    return out, bad
+
+
+def _ops_health() -> tuple:
+    """(d): HealthGuard(mode="skip") on fused MNIST FC at full width in
+    f32 with a NaN at the third ``step.loss`` publish."""
+    from znicz_tpu_torch.units import nn_rollback
+
+    hyper = {"learning_rate": 0.01, "gradient_moment": 0.9}
+    layers = [{"type": "all2all_tanh", "->": {"output_sample_shape": n},
+               "<-": dict(hyper)} for n in FC_LAYERS] + [
+        {"type": "softmax", "->": {"output_sample_shape": FC_CLASSES},
+         "<-": dict(hyper)}]
+    tprng.seed_all(SEED)
+    with _strict_f32():
+        w = StandardWorkflow(
+            name="OpsHealth", layers=layers, loss_function="softmax",
+            loader_name="synthetic_classifier",
+            loader_config={"n_classes": FC_CLASSES, "sample_shape": (28, 28),
+                           "n_train": FC_BATCH * OPS_HEALTH_MB, "n_valid": 0,
+                           "minibatch_size": FC_BATCH},
+            decision_config={"max_epochs": OPS_HEALTH_EPOCHS},
+            health_config={"mode": "skip"})
+        w.initialize(device=TorchDevice(DEVICE, precision="float32"))
+        step = w.step
+        ptrs = [t.data_ptr() for leaf in step._params for t in leaf.values()]
+        seen = {}
+        real = nn_rollback.restore_params
+
+        def restore(workflow, stored):
+            real(workflow, stored)
+            seen["graphs"] = {k: id(g) for k, g in step._graphs.items()}
+            seen["replays"] = replays_of(step)
+            seen["equal"] = all(
+                np.array_equal(leaf[k].cpu().numpy(),
+                               stored[f"forward.{i}.{name}"])
+                for i, leaf in enumerate(step._params)
+                for k, name in (("w", "weights"), ("b", "bias")))
+            seen["ptrs"] = [t.data_ptr() for leaf in step._params
+                            for t in leaf.values()]
+            seen["restored"] = {k: v.copy() for k, v in stored.items()}
+
+        nn_rollback.restore_params = restore
+        plan = tfaults.FaultPlan().nan_at("step.loss",
+                                          at_hit=OPS_HEALTH_NAN_AT)
+        try:
+            with tfaults.active(plan):
+                w.run()
+        finally:
+            nn_rollback.restore_params = real
+        step.sync_to_units()
+        end = {f"forward.{i}.{a}": getattr(f, a).map_read().copy()
+               for i, f in enumerate(w.forwards) for a in ("weights",
+                                                           "bias")}
+    guard = w.health_guard
+    graphs_end = {k: id(g) for k, g in step._graphs.items()}
+    replays_end = replays_of(step)
+    moved = seen and all(not np.array_equal(end[k], seen["restored"][k])
+                         for k in end)
+    out = {"config": {"layers": [FC_IN, *FC_LAYERS, FC_CLASSES],
+                      "batch": FC_BATCH, "minibatches": OPS_HEALTH_MB,
+                      "epochs": OPS_HEALTH_EPOCHS,
+                      "nan_at_publish": OPS_HEALTH_NAN_AT},
+           "guard": guard.snapshot(), "fired": bool(plan.log),
+           "restored_equal": seen.get("equal"),
+           "same_tensors": seen.get("ptrs") == ptrs and [
+               t.data_ptr() for leaf in step._params
+               for t in leaf.values()] == ptrs,
+           "recaptured": graphs_end != seen.get("graphs"),
+           "replays_at_restore": seen.get("replays"),
+           "replays_end": replays_end, "trained_after": bool(moved),
+           "finite": all(np.isfinite(v).all() for v in end.values()),
+           "history": w.decision.metrics_history}
+    bad = []
+    if not (out["fired"] and guard.nan_trips == 1 and
+            guard.skipped_batches == 1):
+        bad.append(f"health guard: {out['guard']}")
+    if not (out["restored_equal"] and out["same_tensors"]) or \
+            out["recaptured"] or not out["trained_after"] or \
+            not out["finite"]:
+        bad.append(f"health restore: {out}")
+    if not replays_end.get("train", 0) > (seen.get("replays") or {}).get(
+            "train", 0):
+        bad.append(f"no replay after the restore: {seen.get('replays')} -> "
+                   f"{replays_end}")
+    del w, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, bad
+
+
+def _ops_elastic_start(tmp: str) -> dict:
+    """(e): two supervisors at once, each ``python -m znicz_tpu_torch
+    elastic --workers 1`` over the drill workflow with no ``-d``: one
+    uninterrupted, one whose worker a seeded plan SIGKILLs."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    wf = os.path.join(repo, "znicz_tpu_torch", "models", "elastic_drill.py")
+    plan = tfaults.FaultPlan(seed=1234).kill_at(
+        "elastic.worker", at_hit=OPS_KILL_AT_HIT).to_env()
+    env = {**os.environ, "PYTHONPATH": repo, "ZNICZ_TPU_SITE_CONFIG": "",
+           "ZNICZ_TPU_ELASTIC_EPOCHS": str(OPS_DRILL_EPOCHS)}
+    runs = {"t0": time.perf_counter()}
+    for name, extra in (("base", []), ("drill", ["--fault-plan",
+                                                 f"0={plan}"])):
+        snap = os.path.join(tmp, name)
+        runs[name] = {"snap": snap, "proc": subprocess.Popen(
+            [sys.executable, "-m", "znicz_tpu_torch", "elastic",
+             "--workers", "1", "--snap-dir", snap, "--max-restarts", "2",
+             "--term-grace", "30", *extra, wf],
+            cwd=repo, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)}
+    return runs
+
+
+def _ops_elastic_result(runs: dict) -> tuple:
+    """(e)'s gates."""
+    out, bad, hist = {}, [], {}
+    repo = os.path.dirname(os.path.abspath(__file__))
+    for name in ("base", "drill"):
+        proc = runs[name]["proc"]
+        stdout, stderr = proc.communicate(timeout=OPS_CLI_TIMEOUT)
+        out[name] = {"rc": proc.returncode,
+                     "seconds": time.perf_counter() - runs["t0"]}
+        if proc.returncode != 0:
+            bad.append(f"elastic {name} exited {proc.returncode}: "
+                       f"{stderr[-3000:]}")
+            continue
+        report = json.loads(stdout.strip().splitlines()[-1])
+        out[name].update({k: report[k] for k in (
+            "completed", "restarts", "world_size", "flights",
+            "resumed_from")})
+        out[name]["deaths"] = [{k: d[k] for k in ("rank", "code", "cause")}
+                               for d in report["worker_deaths"]]
+        with open(os.path.join(runs[name]["snap"], "history_0.json")) as f:
+            hist[name] = json.load(f)["history"]
+    if bad:
+        return out, bad
+    drill = out["drill"]
+    out["history"] = hist["base"]
+    out["identical"] = hist["drill"] == hist["base"]
+    if not (out["base"]["completed"] and out["base"]["restarts"] == 0):
+        bad.append(f"uninterrupted elastic run: {out['base']}")
+    if not (drill["completed"] and drill["restarts"] == 1 and
+            any(d["code"] == -9 for d in drill["deaths"]) and
+            len(drill["resumed_from"]) == 1 and len(drill["flights"]) == 1):
+        bad.append(f"elastic drill: {drill}")
+    if not out["identical"]:
+        bad.append(f"resumed history {hist['drill']} vs {hist['base']}")
+    if drill["flights"]:
+        shown = subprocess.run(
+            [sys.executable, "-m", "znicz_tpu_torch", "flight",
+             drill["flights"][0]], cwd=repo, capture_output=True, text=True,
+            env={**os.environ, "PYTHONPATH": repo}, timeout=OPS_CLI_TIMEOUT)
+        out["flight_rc"] = shown.returncode
+        out["flight_head"] = shown.stdout.splitlines()[:2]
+        if shown.returncode != 0 or \
+                "flight: elastic_restart" not in shown.stdout:
+            bad.append(f"flight viewer: {shown.returncode} {shown.stdout} "
+                       f"{shown.stderr[-2000:]}")
+    path = os.path.join(runs["drill"]["snap"], "elastic",
+                        "metrics_r1_w0.json")
+    try:
+        with open(path) as f:
+            exported = json.load(f)
+        families = tfederation.parse_prometheus(exported["prom"])
+        out["metrics_export"] = {"rank": exported["rank"],
+                                 "families": len(families)}
+        if exported["rank"] != 0 or not families:
+            bad.append(f"metrics export {out['metrics_export']}")
+    except (OSError, ValueError, KeyError) as exc:
+        bad.append(f"metrics export {path}: {exc!r}")
+    return out, bad
+
+
+def phase_operations() -> dict:
+    """The operational planes on the card (``--phase operations``): the
+    subprocess parts (c) and (e) start first and run beside (d), which
+    times nothing; (a) and (b), which time steps, run after they ended.
+    Every part runs before the first failure is raised."""
+    t0 = time.perf_counter()
+    out, bad = {"phase": "operations"}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = _ops_cli_start(tmp)
+        elastic = _ops_elastic_start(tmp)
+        try:
+            t1 = time.perf_counter()
+            out["health"], b = _ops_health()
+            out["health_s"] = time.perf_counter() - t1
+            bad += b
+            out["profile_cli"], b = _ops_cli_result(cli)
+            bad += b
+            out["elastic"], b = _ops_elastic_result(elastic)
+            bad += b
+        finally:
+            # no process of this phase outlives it
+            for proc in (cli["eager"]["proc"], cli["fused"]["proc"],
+                         elastic["base"]["proc"],
+                         elastic["drill"]["proc"]):
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        out["subprocess_parts_s"] = time.perf_counter() - t0
+    for key, part in (("alexnet_anatomy", _ops_alexnet),
+                      ("lm_anatomy", _ops_lm)):
+        t1 = time.perf_counter()
+        out[key], b = part()
+        out[key + "_s"] = time.perf_counter() - t1
+        bad += b
+    out["card"] = nvidia_smi()
+    out["seconds"] = time.perf_counter() - t0
+    if bad:
+        fail(f"operations: {bad}: {json.dumps(out, default=str)[:6000]}")
+    return out
+
+
 #: phases ``--phase`` may run alone (after the build), for iterating on
 #: one kernel family; the smoke proper takes no arguments
 PHASES_ALONE = {"kernel": lambda: phase_kernel(),
@@ -10319,7 +10884,8 @@ PHASES_ALONE = {"kernel": lambda: phase_kernel(),
                 "fused_compare": lambda: phase_fused_compare(),
                 "serve_forward": lambda: phase_serve_forward(),
                 "act_compare": lambda: phase_act_compare(),
-                "zoo": lambda: phase_zoo()}
+                "zoo": lambda: phase_zoo(),
+                "operations": lambda: phase_operations()}
 
 
 def main() -> int:
@@ -10421,6 +10987,7 @@ def main() -> int:
     emit(pipe_expert)
     zoo = phase_zoo()
     emit(zoo)
+    emit(phase_operations())
     kernel_hw = phase_kernel_hw()
     emit(kernel_hw)
     emit({**kernel_line(kernel, flash, gemm, optim, serve, train, eager,

@@ -1,5 +1,6 @@
 """Gloo worlds for the port's multi-process tests
 (``test_torch_port_data_parallel.py``, ``test_torch_port_qcomm.py``,
+``test_torch_port_anatomy.py``,
 ``test_torch_port_multihost.py``, ``test_torch_port_lm_axes.py``,
 ``test_torch_port_ring_attention.py``, ``test_torch_port_pipe_expert.py``,
 ``test_torch_port_checkpoint.py``).
@@ -583,7 +584,27 @@ def case_ckpt_retry(case, inits):
                          for k in params)}
 
 
-CASES = {"mnist": case_mnist, "generator": case_generator,
+def case_mnist_anatomy(case, inits):
+    """``case_mnist`` of a step in anatomy mode, plus the phases its
+    accountant charged (``znicz_anatomy_phase_seconds`` counts and sums
+    of ``plane="fused"``) and the step walls' sum."""
+    from znicz_tpu_torch.observe import registry
+
+    def flat():
+        return registry.REGISTRY.snapshot_flat(skip_zero=False)
+
+    before = flat()
+    out = case_mnist(dict(case, options={**case.get("options", {}),
+                                         "anatomy": True}), inits)
+    after = flat()
+    out["anatomy"] = {k: after[k] - before.get(k, 0.0) for k in after
+                      if k.startswith("znicz_anatomy_") and
+                      'plane="fused"' in k}
+    return out
+
+
+CASES = {"mnist": case_mnist, "mnist_anatomy": case_mnist_anatomy,
+         "generator": case_generator,
          "qcomm": case_qcomm, "backend": case_backend, "lm": case_lm,
          "lm_backend": case_lm_backend, "ring": case_ring,
          "pipe_step": case_pipe_step, "axes": case_axes,

@@ -449,9 +449,11 @@ def test_alexnet_refusals():
         assert w.loader.crop == (227, 227) and w.loader.mirror
     with pytest.raises(ValueError, match="image-file loader"):
         talexnet.build(fused=False, loader_config={"augment": True})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TStandard(layers=_small_layers(talexnet), fused=True,
-                  loader_name="synthetic_image", health_config={})
+    # the health guard is ported (tests/test_torch_port_health_elastic
+    # .py): it sits between the Decision and the snapshotter
+    guarded = TStandard(layers=_small_layers(talexnet), fused=True,
+                        loader_name="synthetic_image", health_config={})
+    assert type(guarded.health_guard).__name__ == "HealthGuard"
     # the snapshotter is ported (tests/test_torch_port_snapshotter.py):
     # its gated side chain sits after the Decision
     snapped = TStandard(layers=_small_layers(talexnet), fused=True,

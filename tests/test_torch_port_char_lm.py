@@ -332,9 +332,10 @@ def test_moe_export_raises_and_the_unit_refuses(corpus, tmp_path):
     step = TransformerLMStep(None, loader=moe.loader)
     with pytest.raises(NotImplementedError):
         step.initialize(device=NumpyDevice())
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TransformerLMStep(None, loader=moe.loader, anatomy=True).initialize(
-            device=TorchDevice("cpu"))
+    # the anatomy mode is ported (tests/test_torch_port_anatomy.py)
+    anat = TransformerLMStep(None, loader=moe.loader, anatomy=True)
+    anat.initialize(device=TorchDevice("cpu"))
+    assert anat._step.graphs is None and anat._step.anatomy is not None
     with pytest.raises(ValueError, match="initialized"):
         TransformerLMStep(None, loader=moe.loader).export_lm(
             str(tmp_path / "x.npz"))

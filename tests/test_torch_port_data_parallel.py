@@ -622,11 +622,14 @@ def test_mesh_constructors_and_refusals():
 
 
 def test_step_refusals_left():
-    """donate=False and anatomy still raise, with their reasons."""
+    """donate=False still raises, with its reason; anatomy builds and
+    refuses accumulation in the reference's words."""
     with pytest.raises(ValueError, match="donation"):
         FusedTrainStep(None, donate=False)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        _port_build(RES, 1, anatomy=True)
+    assert _port_build(RES, 1, anatomy=True).step.anatomy
+    w = _port_build(RES, 1, anatomy=True, accumulate_steps=2)
+    with pytest.raises(ValueError, match="requires accumulate_steps == 1"):
+        w.initialize(device=TorchDevice("cpu"))
 
 
 def test_minibatch_not_divisible_raises():

@@ -471,9 +471,15 @@ def test_fused_confusion_matrix_survives_midpass_flush():
     {"mesh": {"data": 1, "model": 2}}, {"anatomy": True}])
 def test_unported_options_raise(option):
     """What the fused step still lacks raises naming its ROADMAP item:
-    a mesh axis other than data (item 10b), anatomy (item 14).  The data
-    mesh, shard_update, shard_params and quantized_collectives are
-    ported (tests/test_torch_port_data_parallel.py)."""
+    a mesh axis other than data (item 10b).  Anatomy is ported
+    (tests/test_torch_port_anatomy.py), as are the data mesh,
+    shard_update, shard_params and quantized_collectives
+    (tests/test_torch_port_data_parallel.py)."""
+    if "anatomy" in option:
+        w = tmnist.build_fused(max_epochs=1, **option)
+        w.initialize(device=TorchDevice("cpu"))
+        assert w.step._anatomy is not None
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         w = tmnist.build_fused(max_epochs=1, **option)
         w.initialize(device=TorchDevice("cpu"))

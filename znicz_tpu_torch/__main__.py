@@ -12,6 +12,12 @@ Usage:
     python -m znicz_tpu_torch serve <package.npz> [--port N]
                               [--max-batch N] [--native] [--device cpu]
                               [--smoke-test] [options]
+    python -m znicz_tpu_torch elastic --workers N --snap-dir D
+                              <workflow.py> [worker args ...]
+    python -m znicz_tpu_torch flight <artifact.json> [--json]
+    python -m znicz_tpu_torch trace <out.json> <workflow.py> [cfg ...]
+                              [options]
+    python -m znicz_tpu_torch trace --fleet -o out.json SRC [SRC ...]
 
 The workflow file must expose ``run(load, main)`` (every ``models/``
 sample does); config files are executed Python mutating the global
@@ -19,16 +25,24 @@ sample does); config files are executed Python mutating the global
 a snapshot (``snapshotter.py``: the reference's format, so a snapshot of
 either package resumes here).  ``-d`` takes ``auto`` (the default:
 cuda), ``cuda``, ``cpu`` and ``numpy``; there is no quiet CPU fallback.
+``--profile DIR`` writes a ``torch.profiler`` Chrome trace of the run
+under DIR (``launcher.py``).
+
+``elastic`` supervises N workers of this CLI (``resilience/
+elastic.py``); a worker finds ``$ZNICZ_TPU_HEARTBEAT`` (the heartbeat
+starts before the ``--coordinator`` join) and
+``$ZNICZ_TPU_METRICS_EXPORT`` (a rank-tagged registry snapshot file,
+``observe/federation.py``) in its env.  ``flight`` pretty-prints a
+flight-recorder artifact; ``trace`` runs a workflow and exports its span
+timeline, or with ``--fleet`` merges exported timelines.
 
 The parser takes every flag of the reference, so a reference command
 line parses.  What is not ported yet raises ``NotImplementedError``
 naming its ROADMAP item rather than being ignored: ``--optimize``,
-``--ensemble-train``, ``--manhole``, ``--publish``, ``--profile``, the
-subcommands ``fleet``, ``learn``, ``elastic``, ``flight``, ``trace``,
-``forge`` and the ``ZNICZ_TPU_HEARTBEAT`` and
-``ZNICZ_TPU_METRICS_EXPORT`` envs of a workflow run (item 14).
-``aot`` has no counterpart: the port has no XLA
-executables to compile ahead of time (a recorded divergence).
+``--ensemble-train``, ``--manhole``, ``--publish`` and the subcommands
+``fleet``, ``learn`` and ``forge`` (item 14).  ``aot`` has no
+counterpart: the port has no XLA executables to compile ahead of time
+(a recorded divergence).
 
 ``--coordinator host:port --num-processes N --process-id R`` joins a
 data-parallel world before the workflow is built
@@ -46,19 +60,13 @@ import os
 import sys
 
 #: subcommands not ported yet -> their ROADMAP queue A item
-_UNPORTED_SUBCOMMANDS = {"fleet": "14", "learn": "14",
-                         "elastic": "14", "flight": "14", "trace": "14",
-                         "forge": "14"}
+_UNPORTED_SUBCOMMANDS = {"fleet": "14", "learn": "14", "forge": "14"}
 #: flags not ported yet -> (what, item); each raises when given
 _UNPORTED_FLAGS = {
     "optimize": ("the genetic hyperparameter search (--optimize)", "14"),
     "ensemble_train": ("ensemble training (--ensemble-train)", "14"),
     "manhole": ("the manhole (--manhole)", "14"),
-    "publish": ("the post-training report (--publish)", "14"),
-    "profile": ("the profiler trace (--profile)", "14")}
-#: worker-side envs of the elastic fleet not ported yet
-_UNPORTED_ENVS = {"ZNICZ_TPU_HEARTBEAT": "the elastic heartbeat",
-                  "ZNICZ_TPU_METRICS_EXPORT": "the fleet metrics export"}
+    "publish": ("the post-training report (--publish)", "14")}
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -140,7 +148,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--manhole", nargs="?", const="", default=None,
                    metavar="PATH", help="not ported yet (item 14)")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="not ported yet (item 14)")
+                   help="write a torch.profiler Chrome trace of the run "
+                        "under DIR and log its top ops")
     p.add_argument("--trace", default=None, metavar="OUT_JSON",
                    help="export the observe-plane span timeline as "
                         "Chrome-trace JSON after the run")
@@ -174,11 +183,46 @@ def main(argv=None) -> int:
     if argv[0] in _UNPORTED_SUBCOMMANDS:
         raise _not_ported(f"the {argv[0]!r} subcommand",
                           _UNPORTED_SUBCOMMANDS[argv[0]])
+    if argv[0] == "elastic":
+        # the multi-process fleet supervisor: spawns N of this CLI as
+        # workers — dispatched before the env hooks below, which are
+        # worker-side only
+        from znicz_tpu_torch.resilience.elastic import elastic_main
+
+        return elastic_main(argv[1:])
     # cross-process chaos: a drill serializes its seeded fault plan into
     # the worker env ($ZNICZ_TPU_FAULT_PLAN); no env var = one lookup
     from znicz_tpu_torch.resilience import faults
 
     faults.install_from_env()
+    # fleet metric federation: an elastic supervisor asks its workers to
+    # publish rank-tagged registry snapshots beside the heartbeat files;
+    # the exporter covers every subcommand's registry.  No env = nothing.
+    mx_path = os.environ.get("ZNICZ_TPU_METRICS_EXPORT")
+    if mx_path:
+        from znicz_tpu_torch.observe.federation import start_metrics_export
+
+        start_metrics_export(mx_path, interval_s=float(os.environ.get(
+            "ZNICZ_TPU_METRICS_EXPORT_INTERVAL", "1.0")))
+    if argv[0] == "flight":
+        # the flight-recorder post-mortem viewer
+        from znicz_tpu_torch.observe import flight
+
+        return flight.flight_main(argv[1:])
+    if argv[0] == "trace":
+        if "--fleet" in argv:
+            # align N workers' exported timelines (or live /trace.json
+            # endpoints) onto one clock
+            from znicz_tpu_torch.observe.federation import fleet_trace_main
+
+            return fleet_trace_main([a for a in argv[1:] if a != "--fleet"])
+        # shorthand: run the workflow, export its span timeline
+        if len(argv) < 3:
+            print("usage: znicz_tpu_torch trace <out.json> <workflow.py> "
+                  "[config.py ...] [options] | znicz_tpu_torch trace "
+                  "--fleet -o out.json SRC [SRC ...]", file=sys.stderr)
+            return 2
+        return main(list(argv[2:]) + ["--trace", argv[1]])
     if argv[0] == "generate":
         from znicz_tpu_torch.serve.server import generate_main
 
@@ -191,15 +235,30 @@ def main(argv=None) -> int:
         print("znicz_tpu_torch: 'aot' has no counterpart in the port (no "
               "XLA executables to compile ahead of time)", file=sys.stderr)
         return 2
-    for env, what in _UNPORTED_ENVS.items():
-        if os.environ.get(env):
-            raise _not_ported(f"{what} (${env})", "14")
     args = build_parser().parse_args(argv)
     for flag, (what, item) in _UNPORTED_FLAGS.items():
         if getattr(args, flag) is not None:
             raise _not_ported(what, item)
+    # elastic-fleet liveness: the beat starts BEFORE the --coordinator
+    # join (torch import + the rendezvous can outlast a heartbeat
+    # timeout, and a silent boot window would read as a wedged process);
+    # its progress source is patched in once the launcher exists, until
+    # then it carries -1 ("process alive, no workflow yet")
+    hb_box: dict = {"launcher": None}
+    hb_path = os.environ.get("ZNICZ_TPU_HEARTBEAT")
+    if hb_path:
+        from znicz_tpu_torch.resilience.elastic import start_heartbeat
+
+        def hb_progress():
+            launcher = hb_box["launcher"]
+            if launcher is None or launcher.workflow is None:
+                return -1
+            return getattr(launcher.workflow, "signals_dispatched", -1)
+
+        start_heartbeat(hb_path, interval=float(os.environ.get(
+            "ZNICZ_TPU_HEARTBEAT_INTERVAL", "0.25")), progress=hb_progress)
     if args.coordinator is None:
-        return _run_workflow(args)
+        return _run_workflow(args, hb_box)
     if args.num_processes is None or args.process_id is None:
         raise SystemExit("--coordinator needs --num-processes and "
                          "--process-id")
@@ -210,12 +269,12 @@ def main(argv=None) -> int:
     multihost(args.coordinator, args.num_processes, args.process_id,
               device=args.device)
     try:
-        return _run_workflow(args)
+        return _run_workflow(args, hb_box)
     finally:
         dist.destroy_process_group()
 
 
-def _run_workflow(args) -> int:
+def _run_workflow(args, hb_box: dict) -> int:
     """Seed, configure, load the workflow file and run it."""
     from znicz_tpu_torch.core import prng
     from znicz_tpu_torch.core.config import (apply_config_file, root,
@@ -234,7 +293,9 @@ def _run_workflow(args) -> int:
         set_by_path(root, path, _parse_value(value))
     module = load_workflow_module(args.workflow)
     launcher = Launcher(device=make_device(args.device),
-                        snapshot=args.snapshot, stealth=args.stealth)
+                        snapshot=args.snapshot, stealth=args.stealth,
+                        profile_dir=args.profile)
+    hb_box["launcher"] = launcher     # the heartbeat reports progress now
     module.run(launcher.load, launcher.main)
     if args.trace is not None:
         from znicz_tpu_torch.observe.trace import export_trace

@@ -11,9 +11,16 @@ The multi-process join (``multihost``, the CLI's ``--coordinator``) is
 the reference's collapse of veles' master/slave protocol into peers
 (SURVEY.md §3.4): N identical processes join one ``torch.distributed``
 world and run the same standalone path, the fused step's collectives
-replacing the job protocol.  Not ported yet, each raising
-``NotImplementedError`` with its ROADMAP item: the profiler trace
-directory and the manhole (item 14).
+replacing the job protocol.
+
+``profile_dir`` (``--profile DIR``) wraps ``workflow.run()`` in
+``torch.profiler.profile`` — CPU activity, plus CUDA activity when the
+run is on the card — and writes its Chrome trace to
+``DIR/<run>/<host>.<pid>.pt.trace.json``, one run directory a launch;
+a failure to write is logged, never raised, and then the top-15 table
+of ``utils/profiling.py summarize_trace`` is logged.  Not ported yet,
+raising ``NotImplementedError`` with its ROADMAP item: the manhole
+(item 14).
 """
 
 from __future__ import annotations
@@ -148,13 +155,12 @@ class Launcher(Logger):
                  profile_dir: Optional[str] = None,
                  manhole_path: Optional[str] = None) -> None:
         super().__init__()
-        if profile_dir is not None:
-            raise _not_ported("the profiler trace (profile_dir, --profile)",
-                              "14")
         if manhole_path is not None:
             raise _not_ported("the manhole (manhole_path, --manhole)", "14")
         self.device = device
         self.snapshot = snapshot
+        #: the profiler trace's directory (None: no trace)
+        self.profile_dir = profile_dir
         self.workflow = None
         #: seconds ``resume`` took in ``main`` (None: no snapshot)
         self.restore_seconds: Optional[float] = None
@@ -193,13 +199,18 @@ class Launcher(Logger):
                                             decision.epoch_ended)
         prev = None
         prev_term = None
+        profiler = None
         try:
             prev = signal.signal(signal.SIGINT, self._on_sigint)
             # SIGTERM: finish the current epoch, publish a final
             # snapshot, exit 143 — the graceful half of kill-and-resume
             prev_term = signal.signal(signal.SIGTERM, self._on_sigterm)
+            if self.profile_dir:
+                profiler = self._start_profiler(device)
             self.workflow.run()
         finally:
+            if profiler is not None:
+                self._stop_profiler(profiler)
             if prev is not None:
                 signal.signal(signal.SIGINT, prev)
             if prev_term is not None:
@@ -227,6 +238,47 @@ class Launcher(Logger):
                                  f"{exc!r}")
             sys.exit(143)
         return self.workflow
+
+    def _start_profiler(self, device):
+        """``torch.profiler.profile`` over CPU activity, plus CUDA
+        activity when the workflow runs on the card, started."""
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        dev = getattr(device, "torch_device", None)
+        if (dev is None and torch.cuda.is_initialized()) or \
+                (dev is not None and dev.type == "cuda"):
+            activities.append(ProfilerActivity.CUDA)
+        profiler = profile(activities=activities)
+        profiler.__enter__()
+        return profiler
+
+    def _stop_profiler(self, profiler) -> None:
+        """Stop ``profiler``, write its Chrome trace under a new run
+        directory of ``profile_dir`` and log the top-15 table; a
+        failure is logged, never raised (cleanup goes on)."""
+        try:
+            profiler.__exit__(None, None, None)
+            run_dir = os.path.join(self.profile_dir,
+                                   time.strftime("%Y_%m_%d_%H_%M_%S"))
+            os.makedirs(run_dir, exist_ok=True)
+            path = os.path.join(run_dir, f"{socket.gethostname()}."
+                                         f"{os.getpid()}.pt.trace.json")
+            profiler.export_chrome_trace(path)
+            self.info(f"profiler trace -> {path}")
+        except Exception as exc:  # noqa: BLE001
+            self.warning(f"profiler trace failed: {exc!r}")
+            return
+        # the trace is on disk either way — a summary failure must not
+        # read as a broken trace
+        try:
+            from znicz_tpu_torch.utils.profiling import (format_summary,
+                                                         summarize_trace)
+            self.info("top ops by device time:\n" + format_summary(
+                summarize_trace(self.profile_dir, top=15)))
+        except Exception as exc:  # noqa: BLE001
+            self.warning(f"trace summary unavailable: {exc!r}")
 
     def _on_sigterm(self, signum, frame):
         # finish the epoch (the end point opens at the next epoch end,

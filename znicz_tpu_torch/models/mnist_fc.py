@@ -15,9 +15,8 @@ Two execution shapes over the same units:
 Datasets: seeded synthetic MNIST-shaped blobs; weights come from the
 ``prng`` streams (or from ``units/nn_units.py load_forward_params``).
 ``build_fused`` has the reference's signature and passes ``mesh``,
-``shard_update``, ``shard_params`` and ``quantized_collectives``
-through to the step; ``anatomy`` raises ``NotImplementedError`` (item
-14).  Gradient accumulation, EMA and ``pipeline_depth`` (the input
+``shard_update``, ``shard_params``, ``quantized_collectives`` and
+``anatomy`` (the step's phase accounting) through to the step.  Gradient accumulation, EMA and ``pipeline_depth`` (the input
 pipeline with the step's stager) run as the reference's do; on the card
 every step is a CUDA graph replay.
 """

@@ -28,6 +28,9 @@ the CUDA device, and a ``torch`` entry the torch and CUDA versions, and
 both only when CUDA is already initialized in the process
 (``torch.cuda.is_initialized()``) — a dump never boots the card, as the
 reference's never boots a backend.
+
+``python -m znicz_tpu_torch flight <artifact.json> [--json]``
+pretty-prints one (:func:`flight_main`).
 """
 
 from __future__ import annotations
@@ -255,3 +258,74 @@ def load(path: str) -> dict:
                          f"(schema={doc.get('schema')!r}, "
                          f"expected one of {_READABLE_SCHEMAS})")
     return doc
+
+
+# -- CLI (python -m znicz_tpu_torch flight <artifact.json>) ------------------
+
+def print_flight(doc: dict, out=None, span_rows: int = 20) -> None:
+    """Human rendering of one artifact: reason, the newest spans and
+    instants, rule states, the time-series digest, and the log tail."""
+    out = out or sys.stdout
+    w = out.write
+    w(f"flight: {doc['reason']} at {doc['iso']} "
+      f"(host {doc['host']}, pid {doc['pid']})\n")
+    if doc.get("extra"):
+        w(f"  extra: {json.dumps(doc['extra'])}\n")
+    cfg = doc.get("config") or {}
+    if cfg.get("mesh"):
+        m = cfg["mesh"]
+        w(f"  mesh: {m.get('device_count')}x {m.get('platform')} "
+          f"({m.get('device_kind')})\n")
+    spans = doc.get("spans", [])
+    w(f"\nspans: {len(spans)} ring events (newest last)\n")
+    for ev in spans[-span_rows:]:
+        args = f"  {json.dumps(ev['args'])}" if ev.get("args") else ""
+        if ev.get("ph") == "X":
+            w(f"  {ev['ts']:>14.1f}us  {ev.get('dur', 0):>11.1f}us  "
+              f"{ev['name']}{args}\n")
+        else:
+            w(f"  {ev['ts']:>14.1f}us  {'instant':>13}  "
+              f"{ev['name']}{args}\n")
+    ts = doc.get("timeseries", {})
+    samples = ts.get("samples", [])
+    w(f"\ntimeseries: {len(samples)} samples")
+    if len(samples) >= 2:
+        w(f" over {samples[-1]['ts'] - samples[0]['ts']:.1f}s")
+    w("\n")
+    for rule in ts.get("rules", []):
+        w(f"  rule {rule['name']}: trips={rule['trips']} "
+          f"last={rule['last_value']}\n")
+    summary = ts.get("summary", {})
+    for key, row in sorted(summary.items()):
+        rate = (f"  rate={row['rate_per_s']:g}/s"
+                if "rate_per_s" in row else "")
+        w(f"  {key}: last={row['last']:g} min={row['min']:g} "
+          f"mean={row['mean']:g} max={row['max']:g}{rate}\n")
+    w(f"\nmetrics: {len(doc.get('metrics', {}))} registry families\n")
+    for name, plane in sorted((doc.get("planes") or {}).items()):
+        w(f"  plane {name}: {json.dumps(plane)[:200]}\n")
+    tail = doc.get("log_tail", [])
+    if tail:
+        w(f"\nlog tail ({len(tail)} lines):\n")
+        for line in tail[-20:]:
+            w(f"  {line}\n")
+
+
+def flight_main(argv) -> int:
+    """``znicz_tpu_torch flight <artifact.json> [--json]`` entry point."""
+    args = [a for a in argv if not a.startswith("-")]
+    if len(args) != 1:
+        print("usage: znicz_tpu_torch flight <flight_artifact.json> [--json]",
+              file=sys.stderr)
+        return 2
+    try:
+        doc = load(args[0])
+    except (OSError, ValueError, json.JSONDecodeError) as exc:
+        print(f"flight: {exc}", file=sys.stderr)
+        return 1
+    if "--json" in argv:
+        json.dump(doc, sys.stdout, indent=1)
+        sys.stdout.write("\n")
+    else:
+        print_flight(doc)
+    return 0

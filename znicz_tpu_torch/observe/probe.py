@@ -473,6 +473,22 @@ def elastic_counts() -> dict:
             "world_size": int(_ELASTIC_WORLD.get())}
 
 
+# -- step anatomy ------------------------------------------------------------
+
+
+def anatomy_phase(plane: str, phase: str, dt_s: float,
+                  t0: Optional[float] = None) -> None:
+    """One already-timed anatomy phase from a producer that owns its
+    own clock (prefetcher input-wait/stage, the continuous batcher's
+    prefill/decode/verify).  Thin delegate so producers only import
+    probe; the import is lazy to keep anatomy off probe's module-load
+    path."""
+    if not _enabled:
+        return
+    from znicz_tpu_torch.observe import anatomy as _anatomy
+    _anatomy.observe_phase(plane, phase, dt_s, t0=t0)
+
+
 # -- goodput ledger (supervisor-side, like the elastic plane) --------------
 
 _GOODPUT_PRODUCTIVE = _reg.counter(

@@ -100,9 +100,20 @@ step draws).  Snapshots hold param-shaped arrays whatever the layout:
 the state is gathered to every rank before a write, and each rank takes
 its slice at a restore, at any world size.
 
-Not ported: ``anatomy`` (item 14) raises ``NotImplementedError``;
-``donate=False`` raises ``ValueError`` (PyTorch has no donation: the
-update always runs in place on the master params).
+``anatomy=True`` (or ``root.common.engine.step_anatomy``) is the
+reference's split-dispatch accounting: each train minibatch runs its
+phases eagerly, one after another — ``zero_gather`` (under
+shard_params), ``grad`` (the input upload, forward and autograd
+backward), ``collective`` (the gradient and metric sums) and ``update``
+(the update kernels) — the same torch calls in the same order as the
+one-body step, with a ``torch.cuda.synchronize()`` and a host stamp at
+each seam, feeding ``znicz_anatomy_*{plane="fused"}``
+(``observe/anatomy.py``) and its MFU gauge (``utils/flops.py``).  It is
+a diagnostic mode: on the card the phases run eagerly, not as CUDA graph
+replays, and the data set is not pinned (the per-minibatch host-fed
+path, as the reference's).  ``train_steps`` and eval minibatches take
+their usual path.  ``donate=False`` raises ``ValueError`` (PyTorch has
+no donation: the update always runs in place on the master params).
 """
 
 from __future__ import annotations
@@ -145,11 +156,6 @@ def full_batch_arrays(loader, mse: bool):
     if not labels_arr:
         return None, None, "loader exposes no labels/targets array"
     return data_arr, labels_arr, None
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue A item {item})")
 
 
 def _fold(acc: Optional[dict], metrics: dict) -> dict:
@@ -210,10 +216,12 @@ class FusedTrainStep(Unit):
                 "donate=False has no counterpart: PyTorch has no buffer "
                 "donation, and the port's update always runs in place on "
                 "the master params")
-        if anatomy if anatomy is not None else \
-                root.common.engine.get("step_anatomy", False):
-            raise _not_ported("anatomy (the split-dispatch step accounting)",
-                              "14")
+        #: step-anatomy mode: each train minibatch runs its phases
+        #: (zero_gather / grad / collective / update) eagerly with a
+        #: device sync and a host stamp between them, feeding
+        #: znicz_anatomy_*{plane="fused"}; None defers to
+        #: ``root.common.engine.step_anatomy`` (False)
+        self.anatomy = anatomy
         #: the data mesh (resolved at initialize: None is the whole world)
         self.mesh = mesh
         #: the weights (and EMA mirrors) live as flat 1/n shards between
@@ -276,6 +284,7 @@ class FusedTrainStep(Unit):
         self._qcomm_gather_bytes = None  # (wire, exact) a dispatch
         self._qcomm_grad_counters = None
         self._qcomm_gather_counters = None
+        self._anatomy = None      # StepAnatomy accountant (anatomy mode)
         # metrics the Decision links to (mirrors the evaluator's attrs)
         self.n_err = 0
         self.mse = 0.0
@@ -762,7 +771,13 @@ class FusedTrainStep(Unit):
         """Forward and autograd backward of this rank's rows -> ``(grads,
         metrics)``: the gradients summed over the mesh a layer and the
         metric sums (device tensors), ``bs`` the masks' sum."""
-        trainable = self._trainable()
+        grads, metrics = self._local_grads(self._trainable(), x, labels,
+                                           mask)
+        return self._sum_grads(grads), self._sum_metrics(metrics)
+
+    def _local_grads(self, trainable, x, labels, mask):
+        """This rank's unreduced ``(grads, metrics)`` of its rows at
+        the weights ``trainable``."""
         leaves = [t for leaf in trainable for t in leaf.values()]
         for t in leaves:
             t.requires_grad_(True)
@@ -778,7 +793,38 @@ class FusedTrainStep(Unit):
         grads = [{k: next(flat) for k in leaf} for leaf in trainable]
         metrics["loss"] = loss.detach()
         metrics["bs"] = mask.sum()
-        return self._sum_grads(grads), self._sum_metrics(metrics)
+        return grads, metrics
+
+    def _run_anatomy_step(self, *inputs) -> dict:
+        """Anatomy-mode train minibatch: the one-body step's calls cut
+        at its phase seams, run eagerly, with a device sync and a host
+        stamp at each seam.  Returns the metric sums the step would
+        have returned."""
+        anat = self._anatomy
+        hyper = self._hyper_device()
+        cuda = self._dev.type == "cuda"
+        anat.begin()
+        trainable = self._trainable()
+        if self.shard_params:
+            if cuda:
+                torch.cuda.synchronize(self._dev)
+            anat.stamp("zero_gather")
+        x, labels, mask = self._batch(*(t.to(self._dev) for t in inputs))
+        grads, metrics = self._local_grads(trainable, x, labels, mask)
+        if cuda:
+            torch.cuda.synchronize(self._dev)
+        anat.stamp("grad")
+        grads, metrics = self._sum_grads(grads), self._sum_metrics(metrics)
+        if cuda:
+            torch.cuda.synchronize(self._dev)
+        anat.stamp("collective")
+        self._apply_update(self._params, grads, hyper,
+                           metrics["bs"].to(torch.float32))
+        if cuda:
+            torch.cuda.synchronize(self._dev)
+        anat.stamp("update")
+        anat.finish()
+        return metrics
 
     def _train_step(self, x, labels, mask) -> dict:
         """One minibatch: forward, autograd backward, in-place update.
@@ -973,6 +1019,25 @@ class FusedTrainStep(Unit):
         self._cw = None if cw is None else torch.as_tensor(cw,
                                                            device=self._dev)
         self._hyper_device()
+        self.anatomy = bool(
+            self.anatomy if self.anatomy is not None
+            else root.common.engine.get("step_anatomy", False))
+        if self.anatomy:
+            # split-dispatch diagnostics are a per-minibatch mode: the
+            # accumulate path batches many steps into one update, which
+            # a host-stamped split cannot attribute
+            if self.accumulate_steps > 1:
+                raise ValueError("anatomy (split-dispatch step "
+                                 "accounting) requires "
+                                 "accumulate_steps == 1")
+            from znicz_tpu_torch.observe.anatomy import (TRAIN_PHASES,
+                                                         StepAnatomy)
+            from znicz_tpu_torch.utils import flops as _flops
+
+            self._anatomy = StepAnatomy("fused", TRAIN_PHASES)
+            if self.loader is not None:
+                self._anatomy.set_flops(_flops.train_step_flops(
+                    self.forwards, int(self.loader.max_minibatch_size)))
         if self._dev.type == "cuda":
             self._graphs = {}
             self._stream = torch.cuda.Stream(self._dev)
@@ -1032,6 +1097,10 @@ class FusedTrainStep(Unit):
         (``root.common.engine.dataset_on_device_max_bytes``, default 1
         GiB)."""
         pinned, self._dataset_dev = self._dataset_dev, None
+        if self.anatomy:
+            # the index-fed and scan paths batch work the split cannot
+            # attribute; anatomy keeps the per-minibatch host-fed path
+            return
         data_arr, labels_arr, _why = full_batch_arrays(
             self.loader, mse=isinstance(self.evaluator, EvaluatorMSE))
         if data_arr is None:
@@ -1159,6 +1228,9 @@ class FusedTrainStep(Unit):
         elif self.accumulate_steps > 1:
             metrics = self._accumulate(
                 self._dispatch("grads", self._grads_batch, *inputs), loader)
+            self._note_qcomm_grads()
+        elif self._anatomy is not None:
+            metrics = self._run_anatomy_step(*inputs)
             self._note_qcomm_grads()
         else:
             metrics = self._dispatch("train", self._train_batch, *inputs)

@@ -67,8 +67,11 @@ same way: the pipeline's and the experts' sums are ``tp.psum``, so at
 replica of ``gate`` (replicated over ``expert``) or of any leaf over
 ``data`` takes its own gradient (ROADMAP.md "Divergences").
 
-Not ported: ``anatomy`` (ROADMAP.md queue A item 14) raises
-``NotImplementedError``.
+``make_train_step(anatomy=True)`` is the reference's split-dispatch
+step: its phases (``zero_gather`` under shard_params, ``grad``,
+``collective``, ``update``) run eagerly one after another with a
+``torch.cuda.synchronize()`` and a host stamp at each seam, feeding
+``znicz_anatomy_*{plane="transformer"}``; see :func:`make_train_step`.
 """
 
 from __future__ import annotations
@@ -603,15 +606,11 @@ def _check_moe(n_experts, moe_top_k: int, moe_aux_weight: float = 0.0,
 
 
 def _setup(mesh, d: int, heads: int, ff: int, vocab_sharded, n_experts,
-           compute_dtype, device, anatomy: bool = False):
+           compute_dtype, device):
     """Shared build-time checks -> ``(axes, device, compute dtype, heads
     a model rank holds)``.  On CUDA the flash kernels must have an
     instantiation for the head dim and compute dtype, and the world must
     be NCCL's — decided here, never mid-step."""
-    if anatomy:
-        raise NotImplementedError(
-            f"anatomy={anatomy!r} is not ported yet (ROADMAP.md queue A "
-            f"item 14)")
     if d % heads:
         raise ValueError(f"heads={heads} must divide d={d}")
     ax = _Axes(_as_mesh(mesh))
@@ -815,9 +814,21 @@ def make_train_step(mesh, n_layers: int, d: int,
     (``qcomm.quantized_psum``) and ships the ``shard_params`` gathers
     quantized; the reported loss sums exactly.
 
+    ``anatomy=True`` returns the reference's split-dispatch step
+    instead: the same gather, forward, autograd and update calls run
+    eagerly phase by phase (``zero_gather`` / ``grad`` / ``collective`` /
+    ``update``, see :func:`_anatomy_step`), with a device sync and a host
+    stamp at each seam feeding ``znicz_anatomy_*{plane="transformer"}``.
+    Its reduction follows the quantized-collectives semantics (the local
+    gradients plus one explicit sum over ``(data, seq)`` — the true
+    batch-mean gradient) even with no codec, as the reference's does, so
+    on a mesh it tracks the plain step within a band, not bitwise; on one
+    device the two are the same calls.  A diagnostic mode: on the card
+    it runs eagerly, never as a graph replay (``step.graphs`` is None).
+
     ``device`` defaults to ``cuda`` and raises on a host without one —
     the port never falls back to the CPU on its own; a CUDA step needs
-    an NCCL world.  ``anatomy`` raises ``NotImplementedError``."""
+    an NCCL world."""
     if shard_params and shard_update:
         raise ValueError(
             "shard_params subsumes shard_update (replicated leaves "
@@ -825,7 +836,7 @@ def make_train_step(mesh, n_layers: int, d: int,
             "regather left to split); pass only one")
     ax, dev, cdt, heads_local = _setup(
         mesh, d, heads, ff, vocab if head_sharded else None, n_experts,
-        compute_dtype, device, anatomy=anatomy)
+        compute_dtype, device)
     _check_moe(n_experts, moe_top_k, moe_aux_weight, moe_zloss_weight)
     if remat_policy is not None and remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy={remat_policy!r} — choose from "
@@ -860,11 +871,13 @@ def make_train_step(mesh, n_layers: int, d: int,
             out[i] = w.requires_grad_(True)
         return out
 
-    def update_(leaves, grads) -> None:
+    def update_(leaves, grads, summed: bool = False) -> None:
         for w, g, rep in zip(leaves, grads, replicated):
             # the reference's w - lr·g/n with its n-scaled g: lr·g here
-            # (a codec's sum carries the n back)
-            upd = lr * g if codec is None else lr * g / ax.n_shards
+            # (an explicit sum, the codec's or anatomy's, carries the n
+            # back)
+            upd = lr * g / ax.n_shards if codec is not None or summed \
+                else lr * g
             if rep and shard_params:
                 w.sub_(zero.pad_slice(upd, i_data, n_data))
             elif rep and shard_update:
@@ -890,6 +903,13 @@ def make_train_step(mesh, n_layers: int, d: int,
         return body
 
     local_shapes = _local_shapes(shapes, step_specs, ax)
+    if anatomy:
+        def forward(params, full, tok, lab, m=None):
+            return _forward_ce(_rebuild(params, full), tok, lab, m,
+                               heads_local, causal, cdt, ax, **fwd_kw)
+        return _anatomy_step(ax, dev, masked, shapes, local_shapes,
+                             step_specs, replicated, shard_params,
+                             full_leaves, forward, codec, update_)
 
     def with_grad(run):
         return _with_grad(run, lambda leaves: [
@@ -914,6 +934,70 @@ def make_train_step(mesh, n_layers: int, d: int,
     step.eager, step.graphs, step.cut, step.local = \
         step_eager, run.graphs, train.cut, step_local
     step.mesh, step.specs = ax.mesh, step_specs
+    return step
+
+
+def _anatomy_step(ax, dev, masked, shapes, local_shapes, step_specs,
+                  replicated, shard_params, full_leaves, forward, codec,
+                  update_):
+    """``make_train_step(anatomy=True)``'s split step: the plain body's
+    calls cut at its phase seams and run eagerly — ``full_leaves``
+    (``zero_gather``, under shard_params), the upload, ``forward`` and
+    autograd with the reported loss (``grad``), the explicit sum of the
+    local gradients over ``(data, seq)`` through ``qcomm.quantized_psum``
+    (``collective``), ``update_`` of the summed gradients (``update``) —
+    with ``torch.cuda.synchronize()`` and a host stamp at each seam."""
+    from znicz_tpu_torch.observe.anatomy import TRAIN_PHASES, StepAnatomy
+
+    anat = StepAnatomy("transformer", TRAIN_PHASES)
+    # the MFU numerator: ~6 FLOPs per matmul weight per token for one
+    # train step (2 forward + 4 backward), the embedding lookup excluded;
+    # the global token count is known at the first call
+    matmul_params = sum(int(np.prod(s)) for s in _leaves(shapes)
+                        if len(s) >= 2) - int(np.prod(shapes["emb"]))
+    state = {"flops_set": False}
+    marked_of = [not (rep and shard_params) for rep in replicated]
+    cut = _cutter(ax)
+
+    def seam(phase):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        anat.stamp(phase)
+
+    def local(params, *block):
+        leaves = _check_params(params, dev, local_shapes)
+        if not state["flops_set"]:
+            tokens = int(block[0].numel()) * ax.n_shards
+            anat.set_flops(6.0 * matmul_params * tokens)
+            state["flops_set"] = True
+        anat.begin()
+        marked = [w for w, m in zip(leaves, marked_of) if m]
+        for w in marked:
+            w.requires_grad_(True)
+        try:
+            full = full_leaves(leaves)
+            if shard_params:
+                seam("zero_gather")
+            local_loss = forward(params, full, *(t.to(dev) for t in block))
+            grads = torch.autograd.grad(local_loss, full)
+        finally:
+            for w in marked:
+                w.requires_grad_(False)
+        with torch.no_grad():
+            loss = _reduced(local_loss, ax)
+            seam("grad")
+            grads, _ = qcomm.quantized_psum(list(grads), ax.ds, codec)
+            seam("collective")
+            update_(leaves, grads, summed=True)
+            seam("update")
+        anat.finish()
+        return params, loss
+
+    def step(params, tokens, labels, mask=None):
+        return local(params, *cut(*_batch(masked, tokens, labels, mask)))
+
+    step.eager, step.graphs, step.cut, step.local = step, None, cut, local
+    step.mesh, step.specs, step.anatomy = ax.mesh, step_specs, anat
     return step
 
 

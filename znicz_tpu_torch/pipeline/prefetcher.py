@@ -41,9 +41,9 @@ Failure semantics: any exception on the worker (including an armed
 consumer at the next :meth:`next_batch` once the queue drains.
 ``Workflow.run`` stops registered pipelines on any crash, and a loader
 restore calls :meth:`resync` so a restored cursor never mixes with
-batches prefetched from the pre-restore state.  The reference's
-step-anatomy phases are not ported (the port's probe has no anatomy
-plane); the registry counters and the trace instant are.
+batches prefetched from the pre-restore state.  The step-anatomy plane
+``pipeline`` takes the staging leg as its ``stage`` phase and the
+consumer's wait on an empty ring as ``input_wait``.
 """
 
 from __future__ import annotations
@@ -269,6 +269,10 @@ class BatchPrefetcher:
                     if observed:
                         _M_STAGE.inc(stage_dt)
                         probe.staged_bytes(int(nbytes))
+                        # anatomy plane: the staging leg as a phase of
+                        # the input pipeline's step
+                        probe.anatomy_phase("pipeline", "stage",
+                                            stage_dt, t0=t0)
                 batch = StagedBatch(rec, arrays, staged)
                 t0 = time.perf_counter()
                 while not self._stop.is_set():
@@ -337,6 +341,10 @@ class BatchPrefetcher:
         if probe.enabled():
             _M_CONS_STALL.inc(stall_dt)
             _M_CONSUMED.inc()
+            # anatomy plane: consumer-side input wait — the time the
+            # step sat blocked on an empty prefetch ring
+            probe.anatomy_phase("pipeline", "input_wait", stall_dt,
+                                t0=t0)
         if batch.record["epoch_ended"]:
             self._pending_release = True
         return batch

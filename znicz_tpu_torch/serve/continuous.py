@@ -47,6 +47,7 @@ import numpy as np
 
 from znicz_tpu_torch.core.logger import Logger
 from znicz_tpu_torch.observe import flight as _flight
+from znicz_tpu_torch.observe import probe as _probe
 from znicz_tpu_torch.observe import trace as _trace
 from znicz_tpu_torch.observe.federation import (next_request_id,
                                                 request_track)
@@ -477,6 +478,11 @@ class ContinuousBatcher(Logger):
                 time.perf_counter() - t_prefill, tid=req.track,
                 rid=req.stream.request_id, prompt_len=len(req.prompt),
                 slot=slot)
+            # anatomy plane: prompt attach / KV prefill as a phase of
+            # the serving plane's step taxonomy
+            _probe.anatomy_phase("serve", "prefill",
+                                 time.perf_counter() - t_prefill,
+                                 t0=t_prefill)
             req.pos = len(req.prompt)
             self.slots[slot] = req
             token = req.sampler.sample(logits)
@@ -675,6 +681,11 @@ class ContinuousBatcher(Logger):
                                time.perf_counter() - t_step,
                                step=self.step_count, active=len(live),
                                paged=True, spec_k=k)
+        # anatomy plane: a speculative round is a "verify" phase (draft
+        # proposals + the target's batched judgment); a plain round is
+        # one "decode" dispatch
+        _probe.anatomy_phase("serve", "verify" if k else "decode",
+                             time.perf_counter() - t_step, t0=t_step)
         now = time.monotonic()
         for i, req in live:
             if req.stream.cancelled or (req.deadline is not None and
@@ -734,6 +745,8 @@ class ContinuousBatcher(Logger):
         _trace.TRACER.complete("generate.decode_step", t_step,
                                time.perf_counter() - t_step,
                                step=self.step_count, active=active)
+        _probe.anatomy_phase("serve", "decode",
+                             time.perf_counter() - t_step, t0=t_step)
         now = time.monotonic()
         for i, req in enumerate(self.slots):
             if req is None:

@@ -24,9 +24,11 @@ any other key is shorthand for a forward kwarg.  ``pipeline_config=
 copies each to the card on a side stream while the step runs.
 ``snapshotter_config`` (the ``NNSnapshotter`` kwargs: directory, prefix,
 interval, only_improved, keep_all) adds the gated snapshotter side
-chain after the Decision, as the reference does.  The health guard
-(item 14) is not ported: ``health_config`` raises
-``NotImplementedError`` unless None.
+chain after the Decision, as the reference does.  ``health_config``
+(the ``HealthGuard`` kwargs: mode "skip" or "rollback", check_grads,
+store_interval; "rollback": the ``NNRollback`` kwargs) puts the per-step
+NaN/Inf guard between the Decision and the snapshotter
+(``resilience/health.py``).
 """
 
 from __future__ import annotations
@@ -46,11 +48,6 @@ from znicz_tpu_torch.units.decision import DecisionGD, DecisionMSE
 from znicz_tpu_torch.units.evaluator import EvaluatorMSE, EvaluatorSoftmax
 from znicz_tpu_torch.units.nn_units import (Forward, MatchingObject,
                                             NNWorkflow)
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue "
-                               f"A item {item})")
 
 
 class StandardWorkflowBase(NNWorkflow):
@@ -198,8 +195,9 @@ class StandardWorkflow(StandardWorkflowBase):
                 "pipeline_config requires fused=True (the eager per-unit "
                 "path owns its own host uploads and may draw host prng "
                 "per step, which the prefetch producer would reorder)")
-        if health_config is not None:
-            raise _not_ported("the health guard (health_config)", "14")
+        self.health_config = health_config
+        self.health_guard = None
+        self.nn_rollback = None
         self.snapshotter_config = snapshotter_config
         self.snapshotter = None
         self.input_pipeline = None
@@ -218,6 +216,7 @@ class StandardWorkflow(StandardWorkflowBase):
                 self.link_pipeline()
         else:
             self.link_gds()
+        self.link_health()
         self.link_snapshotter()
         # the loop back-edge: exactly ONE provider — the Repeater fires on
         # any signal, so a second edge would double-run each minibatch
@@ -346,6 +345,34 @@ class StandardWorkflow(StandardWorkflowBase):
         self.input_pipeline = attach_prefetcher(
             self.loader, stager=self.step.make_stager(),
             **self.pipeline_config)
+
+    def link_health(self) -> None:
+        """Resilience plane: per-step NaN/Inf guard between the metric
+        producers and the snapshotter (a poisoned step must be handled
+        before it can be snapshotted); no-op when health_config is None.
+        Its restores land in the fused step's live tensors
+        (``nn_rollback.restore_params``), so captured graphs train the
+        restored weights and nothing is recaptured."""
+        if self.health_config is None:
+            return
+        from znicz_tpu_torch.resilience.health import HealthGuard
+        from znicz_tpu_torch.units.nn_rollback import NNRollback
+        cfg = dict(self.health_config)
+        rollback_cfg = cfg.pop("rollback", None)
+        guard = self.health_guard = HealthGuard(self, **cfg)
+        guard.link_workflow_state(self)
+        if guard.mode == "rollback":
+            rb = self.nn_rollback = NNRollback(self, **(rollback_cfg or {}))
+            rb.link_workflow_state(self)
+            # the guard forces rollbacks per step; the unit's own
+            # epoch-gated run still stores last-good on improvement
+            rb.link_from(self._tail)
+            rb.gate_skip = ~self.decision.epoch_ended
+            guard.link_rollback(rb)
+            guard.link_from(rb)
+        else:
+            guard.link_from(self._tail)
+        self._tail = guard
 
     def link_snapshotter(self) -> None:
         """Gated snapshotter side chain: runs after the Decision at each

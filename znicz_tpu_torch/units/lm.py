@@ -20,12 +20,16 @@ next minibatch on a side stream instead
 ``export_lm`` and so the snapshotter gather the global params: on a
 mesh a collective every rank makes.
 
-Torch-only, as the reference's is XLA-only: ``numpy_init`` raises.  Not
-ported yet: ``anatomy`` (ROADMAP.md queue A item 14).
+Torch-only, as the reference's is XLA-only: ``numpy_init`` raises.
+``anatomy=True`` builds the step's split-dispatch form
+(``make_train_step(anatomy=True)``, ``plane="transformer"``) and times
+the synchronous path's host-to-device staging as the plane's ``stage``
+phase.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -35,6 +39,7 @@ from znicz_tpu_torch.core import prng
 from znicz_tpu_torch.core.accelerated_units import AcceleratedUnit
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.loader.base import TRAIN
+from znicz_tpu_torch.observe import probe
 from znicz_tpu_torch.parallel import mesh as _mesh
 from znicz_tpu_torch.parallel import transformer as tfm
 from znicz_tpu_torch.pipeline import (ready_on_current_stream,
@@ -90,6 +95,10 @@ class TransformerLMStep(AcceleratedUnit):
         #: selective rematerialization of each block (the port's own
         #: option here: the reference's unit builds its step without one)
         self.remat_policy = remat_policy
+        #: step-anatomy split-dispatch mode: the train step runs its
+        #: phases eagerly with host stamps between them, feeding
+        #: znicz_anatomy_*{plane="transformer"} — explicit-sum reduction
+        #: semantics, see make_train_step(anatomy=True).
         #: None -> root.common.engine.step_anatomy (False)
         self.anatomy = anatomy
         self.vocab_size: Optional[int] = None
@@ -117,10 +126,6 @@ class TransformerLMStep(AcceleratedUnit):
         if self.anatomy is None:
             self.anatomy = bool(root.common.engine.get("step_anatomy",
                                                        False))
-        if self.anatomy:
-            raise NotImplementedError(
-                "the LM step's anatomy mode is not ported yet (ROADMAP.md "
-                "queue A item 14)")
         self.vocab_size = int(self.loader.vocab_size)
         self._dev = self.device.torch_device
         if self.mesh is None and _mesh.world()[1] > 1:
@@ -144,7 +149,8 @@ class TransformerLMStep(AcceleratedUnit):
         self._step = tfm.make_train_step(
             *arch, lr=self.lr, moe_aux_weight=self.moe_aux_weight,
             moe_zloss_weight=self.moe_zloss_weight,
-            remat_policy=self.remat_policy, **common)
+            remat_policy=self.remat_policy, anatomy=bool(self.anatomy),
+            **common)
         self._eval = tfm.make_eval_loss(*arch, **common)
         self._params = self._place(self._params)
         if self._dev.type == "cuda":
@@ -217,6 +223,12 @@ class TransformerLMStep(AcceleratedUnit):
             # copy, overlapped with the previous step
             inputs = staged["lm"]
             ready_on_current_stream(inputs, staged["event"])
+        elif self.anatomy:
+            t0 = time.perf_counter()
+            inputs = self._stage_batch(loader.minibatch_data.mem,
+                                       loader.minibatch_labels.mem, count)
+            probe.anatomy_phase("transformer", "stage",
+                                time.perf_counter() - t0, t0=t0)
         else:
             inputs = self._stage_batch(loader.minibatch_data.mem,
                                        loader.minibatch_labels.mem, count)

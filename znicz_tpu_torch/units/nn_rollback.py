@@ -107,9 +107,9 @@ class NNRollback(Unit):
 
     def force_rollback(self) -> None:
         """Restore last-good state and cut the learning rates now —
-        called by ``run`` on epoch-level divergence (the reference's
-        health guard, which also calls it on a per-step NaN trip, is
-        ROADMAP item 14)."""
+        called by ``run`` on epoch-level divergence and by
+        ``resilience/health.py HealthGuard(mode="rollback")`` on a
+        per-step NaN trip."""
         if self._good:
             self._restore_good()
         for gd in getattr(self.target_workflow, "gds", []) or []:
