@@ -395,6 +395,28 @@ exits non-zero without the final ``ok`` line):
    history bit-identical to an uninterrupted one-worker run, ``flight``
    printing the restart's artifact, the worker's metrics export
    parseable and rank-tagged.
+17zz. **fleet_learn** — the serving fleet and the learn plane, its
+   subprocess parts started side by side: (a) packages A and B (the
+   serve phase's LM from two seeds) behind a ``FleetRouter`` over two
+   spawned ``generate --serve`` workers in bf16 (8 slots each), four
+   client threads streaming greedy requests, ``POST /rollout`` of B once
+   four have completed and a seeded SIGKILL at ``generate.step`` on the
+   second worker inside the rollout: every stream one terminal event,
+   the router's ledger closed, every worker on B's sha256, its decode
+   steps moved and its count of first-run shapes the warmup's, the
+   rollout's seconds; (b) a ``GenerateServer`` in this process on a
+   ``PagedKVDecoder`` adopted into a pool (``WorkerPool.adopt``) behind a
+   router: four prompts routed one at a time, ``paged_decode`` launches
+   exactly 6 a decode step, the streams equal to its batcher's direct
+   greedy decode of the same prompts; (c) the learn loop at
+   bench_transformer's block widths over the char corpus's vocabulary:
+   two workers appending to the feedback spool, the trainer
+   (``learn/trainer_workflow.py``) under ``run_elastic`` with
+   ``--profile``, the adoption bridge: one publish adopted fleet-wide,
+   the ledger closed, no request lost, the trace's flash forward and
+   backward kernels exactly 6 + 6 a train minibatch its spool implies,
+   the publish-to-adoption latency; (d) ``python -m znicz_tpu_torch
+   fleet <A> --smoke-test --workers 1 --port 0`` on the card exits 0.
 18. **kernel_hw** — ``utils/kernel_hw.run_parity("cuda")``, all fourteen
    families of the reference ``ok``; the LRN, dropout and bf16 conv
    forward counters set to 0 just before and read just after (the only
@@ -405,8 +427,8 @@ exits non-zero without the final ``ok`` line):
 pool_backward, conv, alexnet_eager, deconv, kohonen, lrn_dropout,
 ae_fused, alexnet_fused, graph_parity, fused_conv_parity,
 input_pipeline, image_files, snapshot_resume, data_parallel, lm_axes,
-serve_forward, pipe_expert, zoo, operations, speculative, char_lm,
-train, or three
+serve_forward, pipe_expert, zoo, operations, fleet_learn, speculative,
+char_lm, train, or three
 that only measure and run on older trees of the port too: **waves**, the
 weight gradient at AlexNet's and build_deep's shapes with split_k's
 slices, one fewer and one more, through the C entry; **fused_compare**,
@@ -437,11 +459,13 @@ import os
 import re
 import shutil
 import socket
+import signal
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -6475,7 +6499,7 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
                 fused, conv, alexnet, deconv, ae, spool, mcs, som,
                 lrn_drop, alex_fused, kernel_hw, spec, char,
                 data_parallel, serve_forward, lm_axes, pipe_expert,
-                zoo) -> dict:
+                zoo, fleet) -> dict:
     """The eighteen kernels: launches from the main paths' runs, times
     and errors from the kernel phases, bounds from this run's inputs.  A
     conv kernel's times and bound sum its launches of one AlexNet train
@@ -6503,7 +6527,11 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
     launch with grad_b at AlexNet's fc7 and fc6, its library call
     threshold_backward and a column sum.  The gemm_fc, act_backward,
     SGD and three f32 conv entries carry the zoo phase's launches (its
-    model runs on the card, its LR/rollback and online runs)."""
+    model runs on the card, its LR/rollback and online runs).  The
+    paged_decode entry carries the fleet_learn phase's (b) launches (the
+    adopted in-process worker behind the router), the flash entries the
+    kernels its (c) trainer ran, counted in that process's profiler
+    trace."""
     def entry(name, source, replaces, launches, timed, max_abs_err,
               **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -6542,6 +6570,7 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
               cuda_kernels=["paged_decode_kernel<T,DH>",
                             "paged_decode_kernel_combine<DH>"],
               char_lm_launches=char["e_serve"]["decode_launches"],
+              fleet_learn_launches=fleet["b_adopted"]["launches"],
               speculative={
                   "launches": spec["http"]["kernel_launches"],
                   "rounds": spec["http"]["rounds"],
@@ -6553,13 +6582,15 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
               flash["fwd"]["max_abs_err"],
               char_lm_launches=char["a_workflow"]["fwd_launches"],
               lm_axes_launches=lm_axes_flash["fwd"],
-              pipe_expert_launches=pe_flash["fwd"]),
+              pipe_expert_launches=pe_flash["fwd"],
+              fleet_learn_launches=fleet["c_learn"]["trace"]["flash_fwd"]),
         entry("flash_attention_bwd", kflash.SOURCE, kflash.REPLACES_BWD,
               train["bwd_launches"], flash["bwd"],
               flash["bwd"]["max_abs_err"],
               char_lm_launches=char["a_workflow"]["bwd_launches"],
               lm_axes_launches=lm_axes_flash["bwd"],
-              pipe_expert_launches=pe_flash["bwd"]),
+              pipe_expert_launches=pe_flash["bwd"],
+              fleet_learn_launches=fleet["c_learn"]["trace"]["flash_bwd"]),
         entry("gemm_fc", kgemm.SOURCE, kgemm.REPLACES_GEMM,
               eager["gemm_fc_launches"], gemm["gemm"],
               gemm["gemm"]["max_abs_err"],
@@ -10851,6 +10882,583 @@ def phase_operations() -> dict:
     return out
 
 
+#: fleet_learn (a): packages A and B are the serve phase's LM from two
+#: seeds, served by FL_WORKERS spawned ``generate --serve`` workers with
+#: the serve phase's slots, max len and page size, in bf16; FL_CLIENTS
+#: client threads stream FL_TOKENS-token greedy requests of 4–40 ids
+#: from the start; the rollout is posted once FL_WARM requests have
+#: completed, and the clients stop FL_TAIL completions after it reports
+#: done.  The victim (the second worker) is SIGKILLed at its
+#: FL_KILL_AT_HIT-th decode step: the traffic before the rollout gives
+#: it far fewer (FL_WARM requests of FL_TOKENS tokens, shared), the
+#: rollout's drain of the first worker sends it all traffic, and at
+#: ~17 steps a wave of FL_CLIENTS requests it reaches the hit within
+#: seconds, inside the first replacement's boot
+FL_SEEDS = (SEED + 301, SEED + 302)
+FL_WORKERS, FL_CLIENTS, FL_TOKENS = 2, 4, 16
+FL_WARM, FL_TAIL, FL_KILL_AT_HIT = 4, 8, 150
+#: (b): prompt lengths routed, one at a time, to the adopted in-process
+#: worker (then decoded directly by its batcher, one at a time)
+FL_B_LENS = (17, 130, 511, 33)
+#: (c): the learn loop over the char corpus's vocabulary at
+#: bench_transformer's block widths: the trainer's window, minibatch,
+#: records an epoch, epochs, publish cadence, plain-SGD learning rate
+#: (char_lm's) and pipeline depth; the traffic's prompts (4 characters)
+#: and new tokens: 4 + 61 = 65 ids, two windows of FL_SEQ + 1 a record,
+#: so an epoch of FL_RECORDS records is 16 windows, 2 minibatches
+FL_SEQ, FL_MB, FL_RECORDS, FL_EPOCHS, FL_EVERY = 32, 8, 8, 2, 2
+FL_LR, FL_DEPTH, FL_C_CLIENTS = 1e-3, 2, 3
+FL_C_PROMPTS, FL_C_TOKENS = ("1\tw0", "0\tw1", "1\tw2", "0\tw3"), 61
+#: every wait of the phase (readiness, a rollout, the trainer)
+FL_TIMEOUT = 300
+
+
+def _fl_env() -> dict:
+    repo = os.path.dirname(os.path.abspath(__file__))
+    return {**os.environ, "PYTHONPATH": repo, "ZNICZ_TPU_SITE_CONFIG": ""}
+
+
+def _fl_packages(tmp: str, pool) -> dict:
+    """Packages A and B (the serve phase's LM from two seeds) and C (the
+    char LM at bench_transformer's blocks over the corpus vocabulary),
+    each written on a thread of ``pool`` (zlib's deflate releases the
+    GIL): name -> future of its path, and the vocabulary."""
+    _, vocab = _char_corpus(os.path.join(tmp, "corpus"))
+
+    def export(name, seed, vocab_size, charmap):
+        return export_lm(
+            init_params(np.random.default_rng(seed), N_LAYERS, D, HEADS,
+                        FF, vocab_size),
+            os.path.join(tmp, f"lm_{name}.npz"), heads=HEADS,
+            charmap=charmap, name=name)
+
+    return {"a": pool.submit(export, "a", FL_SEEDS[0], VOCAB, None),
+            "c": pool.submit(export, "c", SEED + 303, len(vocab), vocab),
+            "b": pool.submit(export, "b", FL_SEEDS[1], VOCAB, None),
+            "vocab": vocab}
+
+
+def _fl_worker_args(*extra: str) -> list:
+    return ["--slots", str(SLOTS), "--max-len", str(MAX_LEN),
+            "--page-size", str(PAGE), "--device", DEVICE, *extra]
+
+
+def _fl_client(base, body_of, stop, results, lock, cid) -> None:
+    """Stream requests through the router until ``stop``: each outcome
+    recorded — completed, errored (one terminal error line), rejected
+    (503: never admitted), bad_terminal or broken (a lost request)."""
+    rng = np.random.default_rng(SEED + 310 + cid)
+    while not stop.is_set():
+        req = urllib.request.Request(
+            base + "/generate", data=json.dumps(body_of(rng)).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=FL_TIMEOUT) as r:
+                lines = [json.loads(raw) for raw in r]
+        except urllib.error.HTTPError as exc:
+            exc.read()
+            with lock:
+                results.append(("rejected", exc.code))
+            stop.wait(0.1)
+            continue
+        except Exception as exc:  # noqa: BLE001 — a lost request
+            with lock:
+                results.append(("broken", repr(exc)))
+            continue
+        terminals = [ln for ln in lines if ln.get("done")]
+        with lock:
+            if len(terminals) != 1 or lines[-1] is not terminals[0]:
+                results.append(("bad_terminal", lines[-3:]))
+            elif "error" in terminals[0]:
+                results.append(("errored", terminals[0]["error"]))
+            else:
+                results.append(("completed", len(lines) - 1))
+
+
+def _fl_kinds(results, lock) -> dict:
+    with lock:
+        return dict(collections.Counter(k for k, _ in results))
+
+
+def _fl_wait(pred, what: str, timeout: float = FL_TIMEOUT) -> None:
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            fail(f"fleet_learn: timed out waiting for {what}")
+        time.sleep(0.1)
+
+
+def _fl_worker_stats(pool) -> list:
+    """Each live worker's rank, package sha256 and decoder counters."""
+    out = []
+    for w in pool.workers():
+        doc = json.loads(urllib.request.urlopen(
+            w.base + "/metrics", timeout=30).read())["decoder"]
+        out.append({"rank": w.rank, "sha256": (w.fingerprint or {}).get(
+            "sha256", "")[:12], **{k: doc[k] for k in (
+                "compile_count", "decode_steps", "prefill_count")}})
+    return out
+
+
+def _fl_steady(pool, warm_count: int) -> tuple:
+    """Every live worker, after its share of the traffic: 3 more
+    requests sent to it directly move its decode steps and leave its
+    count of first-run shapes at the warmup's."""
+    before = _fl_worker_stats(pool)
+    for w in pool.workers():
+        for n in (5, 60, 300):
+            _stream(int(w.base.rsplit(":", 1)[1]),
+                    [i % VOCAB for i in range(1, n + 1)], {}, FL_TOKENS)
+    after = _fl_worker_stats(pool)
+    bad = [f"worker {a['rank']}: {b} -> {a} (warmup {warm_count})"
+           for b, a in zip(before, after)
+           if not (a["compile_count"] == b["compile_count"] == warm_count
+                   and a["decode_steps"] > b["decode_steps"] > 0)]
+    return {"before": before, "after": after}, bad
+
+
+def _fl_adopted(pkg: str, tmp: str) -> tuple:
+    """(b): a GenerateServer in this process on a PagedKVDecoder, adopted
+    into a pool (``WorkerPool.adopt``) behind a router; FL_B_LENS prompts
+    routed one at a time with the launch counter set to 0 just before
+    and read just after, then decoded by its batcher directly."""
+    from znicz_tpu_torch.fleet import FleetRouter, WorkerPool
+
+    params, meta = load_lm(pkg)
+    server = start_generate_server(serve_args(pkg), params, meta)
+    dec = server.decoder
+    warm_count = dec.compile_count
+    pool = WorkerPool(pkg, plane="generate",
+                      run_dir=os.path.join(tmp, "fleet_b"))
+    router = FleetRouter(pool)
+    rng = np.random.default_rng(SEED + 320)
+    prompts = [rng.integers(0, VOCAB, n).tolist() for n in FL_B_LENS]
+    try:
+        worker = pool.adopt(f"http://127.0.0.1:{server.port}")
+        if not pool.wait_ready(worker, timeout_s=60):
+            fail("fleet_learn (b): the adopted worker never read ready")
+        port = router.start()
+        steps0 = dec.decode_steps
+        TRACER.clear()
+        kdecode.launches = 0                     # 0 just before ...
+        routed = []
+        for ids in prompts:
+            res = {}
+            _stream(port, ids, res, FL_TOKENS)
+            routed.append(res)
+        launches = kdecode.launches              # ... and read after
+        steps = dec.decode_steps - steps0
+        step_ms = [e["dur"] / 1e3 for e in TRACER.tail(len(TRACER))
+                   if e["name"] == "generate.decode_step"]
+        ledger = router.snapshot()
+        direct = [server.batcher.submit(
+            ids, max_new_tokens=FL_TOKENS, temperature=0.0).result(
+                timeout_s=FL_TIMEOUT) for ids in prompts]
+    finally:
+        router.stop()
+        pool.stop()
+        server.stop()
+    streams = [[e["token"] for e in r.get("events", []) if "token" in e]
+               for r in routed]
+    out = {"prompt_lens": list(FL_B_LENS), "decode_steps": steps,
+           "launches": launches, "warmup_count": warm_count,
+           "decode_step_ms_p50": float(np.median(step_ms)),
+           "decode_step_ms_max": float(np.max(step_ms)),
+           "compile_count": dec.compile_count, "ledger": ledger,
+           "streams_equal": streams == direct,
+           "first_stream": streams[0][:8]}
+    bad = []
+    if not steps or launches != N_LAYERS * steps:
+        bad.append(f"(b) paged_decode launched {launches} times over "
+                   f"{steps} decode steps x {N_LAYERS} layers")
+    if streams != direct or any(len(s) != FL_TOKENS for s in streams):
+        bad.append(f"(b) routed streams {streams} != direct {direct}")
+    if dec.compile_count != warm_count or \
+            ledger["completed"] != len(prompts):
+        bad.append(f"(b) count {warm_count} -> {dec.compile_count}, "
+                   f"ledger {ledger}")
+    return out, bad, warm_count
+
+
+def _fl_spawn(pkg: str, tmp: str, name: str, worker_args: list,
+              victim_plan=None):
+    """A pool of FL_WORKERS spawned ``generate --serve`` workers, not
+    waited for; the last one carries ``victim_plan`` in its env."""
+    from znicz_tpu_torch.fleet import WorkerPool
+
+    pool = WorkerPool(pkg, plane="generate", worker_args=worker_args,
+                      env=_fl_env(), run_dir=os.path.join(tmp, name),
+                      probe_interval_s=0.25, ready_timeout_s=FL_TIMEOUT)
+    for i in range(FL_WORKERS):
+        extra = {tfaults.PLAN_ENV_VAR: victim_plan} \
+            if victim_plan and i == FL_WORKERS - 1 else None
+        pool.spawn(env_extra=extra)
+    return pool
+
+
+def _fl_ledger_closed(router) -> bool:
+    s = router.snapshot()
+    return s["admitted"] == s["completed"] + s["failed"] + s["client_gone"]
+
+
+def _fl_rollout(pool, pkg_b: str, warm_count: int) -> tuple:
+    """(a): the fleet under traffic, the rollout of B posted to the
+    router, the victim's seeded kill inside it."""
+    from znicz_tpu_torch.fleet import FleetRouter, RollingUpdate
+    from znicz_tpu_torch.utils.naming import package_fingerprint
+
+    t0 = time.perf_counter()
+    if not pool.wait_all_ready(timeout_s=FL_TIMEOUT):
+        fail(f"fleet_learn (a): workers never ready: {pool.snapshot()}")
+    ready_s = time.perf_counter() - t0
+    pool.start_probes()
+    router = FleetRouter(pool, max_retries=2)
+    router.attach_rollout(RollingUpdate(pool,
+                                        converge_timeout_s=FL_TIMEOUT))
+    port = router.start()
+    base = f"http://127.0.0.1:{port}"
+    results, lock, stop = [], threading.Lock(), threading.Event()
+
+    def body(rng):
+        return {"tokens": rng.integers(0, VOCAB, int(rng.integers(
+            4, 40))).tolist(), "max_tokens": FL_TOKENS,
+            "temperature": 0.0, "timeout_s": FL_TIMEOUT}
+
+    threads = [threading.Thread(target=_fl_client, args=(
+        base, body, stop, results, lock, c), daemon=True)
+        for c in range(FL_CLIENTS)]
+    for t in threads:
+        t.start()
+    try:
+        _fl_wait(lambda: _fl_kinds(results, lock).get("completed", 0)
+                 >= FL_WARM, "(a) the warm requests")
+        warm = _fl_kinds(results, lock)
+        t1 = time.perf_counter()
+        replaced_before = pool.replacements
+        posted = _post_json(base + "/rollout", {"package": pkg_b})
+        state = {}
+
+        def rolled():
+            state.update(json.loads(urllib.request.urlopen(
+                base + "/rollout", timeout=30).read()))
+            return state["state"] in ("done", "failed")
+        _fl_wait(rolled, "(a) the rollout")
+        rollout_s = time.perf_counter() - t1
+        done_at = _fl_kinds(results, lock).get("completed", 0)
+        _fl_wait(lambda: _fl_kinds(results, lock).get("completed", 0)
+                 >= done_at + FL_TAIL, "(a) the post-rollout tail")
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=FL_TIMEOUT)
+    _fl_wait(lambda: _fl_ledger_closed(router), "(a) the ledger")
+    kinds = _fl_kinds(results, lock)
+    fp_b = package_fingerprint(pkg_b)["sha256"]
+    pool.probe_once()
+    shas = sorted({(w.fingerprint or {}).get("sha256", "")
+                   for w in pool.workers()})
+    steady, bad = _fl_steady(pool, warm_count)
+    out = {"ready_s": ready_s, "posted": posted.get("started"),
+           "rollout_s": rollout_s, "rollout": {
+               k: state.get(k) for k in ("state", "adopted", "duration_s",
+                                         "error")},
+           "steps": [s["outcome"] for s in state.get("steps", [])],
+           "replacements": pool.replacements,
+           "replacements_before_rollout": replaced_before, "warm": warm,
+           "traffic": kinds, "ledger": router.snapshot(),
+           "converged_on_b": shas == [fp_b], "workers": steady}
+    router.stop()
+    if state.get("state") != "done":
+        bad.append(f"(a) rollout {state}")
+    if kinds.get("broken") or kinds.get("bad_terminal") or \
+            kinds.get("completed", 0) < FL_WARM + FL_TAIL:
+        bad.append(f"(a) traffic {kinds}: "
+                   f"{[r for r in results if r[0] != 'completed'][:4]}")
+    if not _fl_ledger_closed(router):
+        bad.append(f"(a) the router's ledger {out['ledger']}")
+    if shas != [fp_b]:
+        bad.append(f"(a) fleet on {shas}, not B's {fp_b[:12]}")
+    # the kill lands inside the rollout: on the victim before its turn
+    # (replaced by the probe loop on B) or while it drains (reaped)
+    if replaced_before or not (pool.replacements >= 1 or
+                               "killed" in out["steps"]):
+        bad.append(f"(a) the seeded kill did not land inside the "
+                   f"rollout: replacements {replaced_before} -> "
+                   f"{pool.replacements}, steps {out['steps']}")
+    return out, bad
+
+
+def _fl_expected_minibatches(spool: str, vocab: list) -> int:
+    """The train minibatches the trainer ran: its loader's epochs
+    replayed over the spool it read (the same records from the same
+    cursor: the spool's append order is fixed)."""
+    from znicz_tpu_torch.learn.spool import initial_cursor
+    from znicz_tpu_torch.loader.spool import SpoolSequenceLoader
+
+    ld = SpoolSequenceLoader(None, spool_dir=spool, charmap=vocab,
+                             seq_len=FL_SEQ, records_per_epoch=FL_RECORDS,
+                             minibatch_size=FL_MB, publish_cursor=False)
+    ld._cursor = initial_cursor(spool)
+    n = 0
+    for _ in range(FL_EPOCHS):
+        ld._ingest(wait=False)
+        n += -(-ld.class_lengths[TRAIN] // FL_MB)
+    return n
+
+
+def _fl_trainer_start(pkg: str, tmp: str, spool: str) -> dict:
+    """(c)'s trainer, started as soon as its package exists: run_elastic
+    (world 1, ``spmd=False``) over ``learn/trainer_workflow.py`` with
+    ``--profile`` on a thread.  It boots beside the workers and waits in
+    its first ingest for the spool's records."""
+    from znicz_tpu_torch.resilience.elastic import run_elastic
+    from znicz_tpu_torch.resilience.supervisor import SupervisorPolicy
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    trainer = {"pub": os.path.join(tmp, "publish"),
+               "prof": os.path.join(tmp, "prof"), "box": {},
+               "stop": threading.Event(), "t0": time.perf_counter()}
+    argv = [os.path.join(repo, "znicz_tpu_torch", "learn",
+                         "trainer_workflow.py"),
+            "-o", f"root.learn.spool_dir={spool}",
+            "-o", f"root.learn.package={pkg}",
+            "-o", f"root.learn.publish_dir={trainer['pub']}",
+            "-o", f"root.learn.publish_every={FL_EVERY}",
+            "-o", f"root.learn.max_epochs={FL_EPOCHS}",
+            "-o", f"root.learn.records_per_epoch={FL_RECORDS}",
+            "-o", f"root.learn.seq_len={FL_SEQ}",
+            "-o", f"root.learn.minibatch_size={FL_MB}",
+            "-o", f"root.learn.lr={FL_LR}",
+            "-o", f"root.learn.pipeline_depth={FL_DEPTH}",
+            "-o", f"root.learn.wait_timeout_s={FL_TIMEOUT}",
+            "--random-seed", str(SEED % 997), "-d", DEVICE,
+            "--profile", trainer["prof"]]
+
+    def train():
+        try:
+            trainer["box"]["report"] = run_elastic(
+                argv, os.path.join(tmp, "snaps"), workers=1, spmd=False,
+                env=_fl_env(), run_dir=os.path.join(tmp, "trainer"),
+                policy=SupervisorPolicy(max_restarts=0),
+                stop_event=trainer["stop"])
+        except Exception as exc:  # noqa: BLE001 — judged in (c)
+            trainer["box"]["error"] = exc
+
+    trainer["thread"] = threading.Thread(target=train, daemon=True)
+    trainer["thread"].start()
+    return trainer
+
+
+def _fl_learn(pool, trainer: dict, vocab: list, tmp: str,
+              spool: str) -> tuple:
+    """(c): the learn loop built from the API as ``learn --smoke-test``
+    builds it: the fleet's workers append to the spool, the trainer
+    (already booting) publishes, the bridge adopts."""
+    from znicz_tpu_torch.fleet import FleetRouter, RollingUpdate
+    from znicz_tpu_torch.learn.bridge import AdoptionBridge
+    from znicz_tpu_torch.learn.publish import latest_manifest
+
+    t0 = time.perf_counter()
+    if not pool.wait_all_ready(timeout_s=FL_TIMEOUT):
+        fail(f"fleet_learn (c): workers never ready: {pool.snapshot()}")
+    ready_s = time.perf_counter() - t0
+    pool.start_probes()
+    router = FleetRouter(pool)
+    rollout = RollingUpdate(pool, converge_timeout_s=FL_TIMEOUT)
+    router.attach_rollout(rollout)
+    base = f"http://127.0.0.1:{router.start()}"
+    pub, prof, box = trainer["pub"], trainer["prof"], trainer["box"]
+    bridge = AdoptionBridge(pub, pool, rollout, poll_s=0.25,
+                            rollout_timeout_s=FL_TIMEOUT)
+    pool.aggregator.register_status_provider("learn", bridge.status)
+    bridge.start()
+    results, lock, stop = [], threading.Lock(), threading.Event()
+
+    def body(rng):
+        return {"prompt": FL_C_PROMPTS[int(rng.integers(len(
+            FL_C_PROMPTS)))], "max_tokens": FL_C_TOKENS,
+            "temperature": 0.0, "timeout_s": FL_TIMEOUT}
+
+    threads = [threading.Thread(target=_fl_client, args=(
+        base, body, stop, results, lock, 10 + c), daemon=True)
+        for c in range(FL_C_CLIENTS)]
+    for t in threads:
+        t.start()
+    try:
+        def adopted():
+            if "error" in box:
+                fail(f"fleet_learn (c): the trainer failed: "
+                     f"{box['error']!r}")
+            doc = latest_manifest(pub)
+            return "report" in box and doc is not None and \
+                bridge.adoptions >= 1 and not rollout.rolling and \
+                (pool.expected_fingerprint or {}).get("sha256") == \
+                doc["fingerprint"]["sha256"]
+        _fl_wait(adopted, "(c) the trainer and the adoption")
+        loop_s = time.perf_counter() - trainer["t0"]
+    finally:
+        stop.set()
+        trainer["stop"].set()
+        for t in threads:
+            t.join(timeout=FL_TIMEOUT)
+        trainer["thread"].join(timeout=FL_TIMEOUT)
+        bridge.stop()
+    _fl_wait(lambda: _fl_ledger_closed(router), "(c) the ledger")
+    kinds = _fl_kinds(results, lock)
+    report = box["report"]
+    manifest = latest_manifest(pub)
+    pool.probe_once()
+    shas = sorted({(w.fingerprint or {}).get("sha256", "")
+                   for w in pool.workers()})
+    n_mb = _fl_expected_minibatches(spool, vocab)
+    rows = tprofiling.summarize_trace(prof, top=None)
+    traced = {k: sum(r["count"] for r in rows if re.search(
+        rf"\b{REPLAYED_KERNELS[k][2]}", r["op"])) for k in (
+            "flash_fwd", "flash_bwd")}
+    with open(os.path.join(tmp, "snaps", "history_0.json")) as f:
+        history = json.load(f)["history"]
+    out = {"ready_s": ready_s, "loop_s": loop_s,
+           "trainer": {k: report.as_dict()[k] for k in (
+               "completed", "restarts", "world_size")},
+           "history": history, "train_minibatches": n_mb,
+           "eval_minibatches": 0, "trace": traced,
+           "expected": {"flash_fwd": N_LAYERS * n_mb,
+                        "flash_bwd": N_LAYERS * n_mb},
+           "publishes": manifest and manifest["seq"],
+           "adoptions": bridge.adoptions,
+           "adoption_latency_s": bridge.last_adoption_s,
+           "traffic": kinds, "ledger": router.snapshot(),
+           "status": {k: v for k, v in
+                      pool.aggregator.status_doc()["package"].items()
+                      if k != "fingerprint"}}
+    router.stop()
+    bad = []
+    if not (report.completed and report.restarts == 0):
+        bad.append(f"(c) trainer {out['trainer']}")
+    if bridge.adoptions < 1 or shas != [manifest["fingerprint"]["sha256"]]:
+        bad.append(f"(c) adoptions {bridge.adoptions}, fleet on {shas}")
+    if kinds.get("broken") or kinds.get("bad_terminal"):
+        bad.append(f"(c) traffic {kinds}")
+    if not _fl_ledger_closed(router):
+        bad.append(f"(c) the router's ledger {out['ledger']}")
+    if not n_mb or traced != out["expected"]:
+        bad.append(f"(c) the trainer's trace counts {traced}, its "
+                   f"{n_mb} train minibatches imply {out['expected']}")
+    return out, bad
+
+
+def _fl_cli_start(pkg: str, tmp: str) -> subprocess.Popen:
+    """(d): ``python -m znicz_tpu_torch fleet <pkg> --smoke-test
+    --workers 1 --port 0`` on the card (no device flag: the workers'
+    default, cuda), in a session of its own: its worker is its child,
+    and the phase's clean-up ends the whole group."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen(
+        [sys.executable, "-m", "znicz_tpu_torch", "fleet", pkg,
+         "--smoke-test", "--workers", "1", "--port", "0", "--run-dir",
+         os.path.join(tmp, "fleet_cli")], cwd=repo, env=_fl_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+
+
+def _fl_cli_result(proc, t0: float) -> tuple:
+    stdout, stderr = proc.communicate(timeout=FL_TIMEOUT)
+    out = {"rc": proc.returncode, "seconds": time.perf_counter() - t0}
+    try:
+        doc = json.loads(stdout.strip().splitlines()[-1])
+        out.update(smoke=doc["smoke"], router=doc["router"])
+    except (ValueError, IndexError, KeyError):
+        doc = {}
+    if proc.returncode != 0 or doc.get("smoke") != "ok":
+        return out, [f"(d) fleet --smoke-test exited {proc.returncode}: "
+                     f"{stdout[-1500:]} {stderr[-3000:]}"]
+    return out, []
+
+
+def phase_fleet_learn() -> dict:
+    """The serving fleet and the learn plane on the card (``--phase
+    fleet_learn``): the packages are written on threads, and each
+    subprocess part starts as soon as its package is there, side by side
+    — (d)'s CLI and (a)'s workers on A, (c)'s workers on C — and boots
+    while (b) runs in this process on A and B is written; then (c)'s
+    loop runs on a thread beside (a).  Every part runs before the first
+    failure is raised, and no process of the phase outlives it."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    gc.collect()                # the card is shared with the phase's
+    torch.cuda.empty_cache()    # processes: hand back the cached blocks
+    t0 = time.perf_counter()
+    out, bad = {"phase": "fleet_learn"}, []
+    pools, cli, trainer = [], None, None
+    writers = ThreadPoolExecutor(3, thread_name_prefix="fl-export")
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            pk = _fl_packages(tmp, writers)
+            pkg_a = pk["a"].result()
+            out["package_a_s"] = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            cli = _fl_cli_start(pkg_a, tmp)
+            plan = tfaults.FaultPlan(seed=SEED).kill_at(
+                "generate.step", at_hit=FL_KILL_AT_HIT).to_env()
+            pool_a = _fl_spawn(pkg_a, tmp, "fleet_a", _fl_worker_args(),
+                               victim_plan=plan)
+            pools.append(pool_a)
+            pkg_c = pk["c"].result()
+            spool = os.path.join(tmp, "spool")
+            pool_c = _fl_spawn(pkg_c, tmp, "fleet_c", _fl_worker_args(
+                "--feedback-spool", spool))
+            pools.append(pool_c)
+            trainer = _fl_trainer_start(pkg_c, tmp, spool)
+            t2 = time.perf_counter()
+            out["b_adopted"], b, warm_count = _fl_adopted(pkg_a, tmp)
+            out["b_adopted"]["seconds"] = time.perf_counter() - t2
+            bad += b
+            box = {}
+
+            def learn():
+                try:
+                    box["out"] = _fl_learn(pool_c, trainer, pk["vocab"],
+                                           tmp, spool)
+                except Exception as exc:  # noqa: BLE001 — raised below
+                    box["error"] = exc
+
+            t3 = time.perf_counter()
+            learner = threading.Thread(target=learn, daemon=True)
+            learner.start()
+            pkg_b = pk["b"].result()
+            out["packages_s"] = time.perf_counter() - t0
+            out["a_fleet"], b = _fl_rollout(pool_a, pkg_b, warm_count)
+            out["a_fleet"]["seconds"] = time.perf_counter() - t3
+            bad += b
+            learner.join(timeout=3 * FL_TIMEOUT)
+            if "error" in box or "out" not in box:
+                bad.append(f"(c) {box.get('error')!r}")
+            else:
+                out["c_learn"], b = box["out"]
+                out["c_learn"]["seconds"] = time.perf_counter() - t3
+                bad += b
+            out["d_cli"], b = _fl_cli_result(cli, t1)
+            bad += b
+        finally:
+            writers.shutdown(wait=True)
+            if trainer is not None:     # its worker torn down by
+                trainer["stop"].set()   # run_elastic's stop event
+                trainer["thread"].join(timeout=FL_TIMEOUT)
+            for pool in pools:
+                pool.stop(drain=not bad)
+            if cli is not None:
+                try:                    # the CLI and any worker it left
+                    os.killpg(cli.pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+                cli.communicate()
+    out["card"] = nvidia_smi()
+    out["seconds"] = time.perf_counter() - t0
+    if bad:
+        fail(f"fleet_learn: {bad}: {json.dumps(out, default=str)[:6000]}")
+    return out
+
+
 #: phases ``--phase`` may run alone (after the build), for iterating on
 #: one kernel family; the smoke proper takes no arguments
 PHASES_ALONE = {"kernel": lambda: phase_kernel(),
@@ -10885,7 +11493,8 @@ PHASES_ALONE = {"kernel": lambda: phase_kernel(),
                 "serve_forward": lambda: phase_serve_forward(),
                 "act_compare": lambda: phase_act_compare(),
                 "zoo": lambda: phase_zoo(),
-                "operations": lambda: phase_operations()}
+                "operations": lambda: phase_operations(),
+                "fleet_learn": lambda: phase_fleet_learn()}
 
 
 def main() -> int:
@@ -10988,13 +11597,15 @@ def main() -> int:
     zoo = phase_zoo()
     emit(zoo)
     emit(phase_operations())
+    fleet = phase_fleet_learn()
+    emit(fleet)
     kernel_hw = phase_kernel_hw()
     emit(kernel_hw)
     emit({**kernel_line(kernel, flash, gemm, optim, serve, train, eager,
                         fused, conv, alexnet, deconv, ae, spool, mcs, som,
                         lrn_drop, alex_fused, kernel_hw, spec, char,
                         data_parallel, serve_forward, lm_axes,
-                        pipe_expert, zoo),
+                        pipe_expert, zoo, fleet),
           "first_stream": streams[0][:8],
           "seconds": time.perf_counter() - T_START})
     print(nvidia_smi(), flush=True)

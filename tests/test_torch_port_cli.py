@@ -254,9 +254,13 @@ def test_unported_flags_raise_with_their_item(wf, flag, item, tmp_path):
     ("fleet", "14"), ("learn", "14"), ("elastic", "14"),
     ("flight", "14"), ("trace", "14"), ("forge", "14")])
 def test_unported_subcommands_raise_with_their_item(sub, item, capsys):
-    """``fleet``, ``learn`` and ``forge`` raise naming their ROADMAP
-    item; ``elastic``, ``flight`` and ``trace`` are ported and reach
-    their own parsers, which refuse the bad argument."""
+    """``forge`` raises naming its ROADMAP item; ``fleet``, ``learn``,
+    ``elastic``, ``flight`` and ``trace`` are ported and reach their own
+    parsers, which refuse the bad argument."""
+    if sub in ("fleet", "learn"):
+        assert cli.main([sub, "x", "--workers", "0"]) == 2
+        assert "--workers must be >= 1" in capsys.readouterr().err
+        return
     if sub == "elastic":
         with pytest.raises(SystemExit) as exc:
             cli.main([sub, "x"])                 # no --snap-dir

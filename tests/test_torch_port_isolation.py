@@ -77,7 +77,11 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                  "models.rbm", "loader.interactive", "loader.restful",
                  "utils.flops", "utils.profiling", "observe.anatomy",
                  "observe.federation", "resilience.health",
-                 "resilience.elastic", "models.elastic_drill"):
+                 "resilience.elastic", "models.elastic_drill",
+                 "fleet", "fleet.workers", "fleet.router", "fleet.rollout",
+                 "fleet.autoscale", "fleet.cli", "learn", "learn.spool",
+                 "learn.publish", "learn.bridge", "learn.trainer_workflow",
+                 "learn.cli", "loader.spool"):
         assert f"znicz_tpu_torch.{name}" in doc["modules"]
 
 
@@ -111,7 +115,12 @@ COPIES = ["core/config.py", "core/logger.py", "observe/registry.py",
           "models/tv_channels.py", "models/rbm.py", "observe/anatomy.py",
           "observe/federation.py", "observe/__init__.py",
           "resilience/health.py", "resilience/__init__.py",
-          "resilience/elastic.py", "models/elastic_drill.py"]
+          "resilience/elastic.py", "models/elastic_drill.py",
+          "fleet/__init__.py", "fleet/workers.py", "fleet/router.py",
+          "fleet/rollout.py", "fleet/autoscale.py", "fleet/cli.py",
+          "learn/__init__.py", "learn/spool.py", "learn/publish.py",
+          "learn/bridge.py", "learn/trainer_workflow.py",
+          "loader/spool.py"]
 
 #: copies kept under another path than the reference's
 _REFERENCE_PATH = {"models/elastic_drill.py": "../tools/elastic_workflow.py"}
@@ -169,6 +178,29 @@ def test_copied_module_matches_reference(rel):
                       "worst torch-import + build time)")):
             assert a in ref
             ref = ref.replace(a, b)
+    if rel == "fleet/workers.py":
+        # the workers are this package's serving CLIs
+        a = '"-m", "znicz_tpu", self.plane'
+        assert a in ref
+        ref = ref.replace(a, '"-m", "znicz_tpu_torch", self.plane')
+    if rel == "fleet/cli.py":
+        # the CLI's name, and a package help without the reference's
+        # ahead-of-time executables (the port has none)
+        for a, b in (('prog="znicz_tpu fleet"',
+                      'prog="znicz_tpu_torch fleet"'),
+                     ('''"generate plane, forward package — "
+                                   "AOT-armed for compile_count == 0 "
+                                   "boots — for the serve plane)"''',
+                      '''"generate plane, forward package "
+                                   "for the serve plane)"''')):
+            assert a in ref
+            ref = ref.replace(a, b)
+    if rel == "loader/spool.py":
+        # the port's producer fill also takes the minibatch class
+        a = "def fill_batch(self, indices: np.ndarray, count: int) -> dict:"
+        assert a in ref
+        ref = ref.replace(a, "def fill_batch(self, indices: np.ndarray, "
+                             "count: int, cls: int) -> dict:")
     if rel == "core/workflow.py":
         # the one deliberate difference: no JAX compilation cache
         ref = ref.replace("from znicz_tpu import compilecache\n", "")

@@ -750,10 +750,9 @@ def test_server_rejects_conflicting_max_batch_and_the_spool():
     engine = BatchEngine(RecordingModel(), max_batch=8)
     with pytest.raises(ValueError, match="max_batch"):
         ServeServer(engine, max_batch=128)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ServeServer(engine, feedback=object())
-    server = ServeServer(engine, max_batch=8)   # a matching value is fine
-    assert server.engine is engine
+    spool = object()                # the learn plane's spool: taken
+    server = ServeServer(engine, max_batch=8, feedback=spool)
+    assert server.engine is engine and server.feedback is spool
     server.batcher.stop()
 
 
@@ -773,8 +772,16 @@ def test_cli_serve_smoke_over_exported_package(tmp_path, capsys):
                      "--smoke-test", "--device", "cpu"]) == 0
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])[
         "smoke"] == "ok"
-    with pytest.raises(NotImplementedError, match="item 14"):
-        cli_main(["serve", path, "--feedback-spool", str(tmp_path)])
+    # --feedback-spool appends the smoke's answered prediction
+    spool = str(tmp_path / "spool")
+    assert cli_main(["serve", path, "--port", "0", "--smoke-test",
+                     "--device", "cpu", "--feedback-spool", spool]) == 0
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])[
+        "smoke"] == "ok"
+    from znicz_tpu.learn.spool import SpoolReader, initial_cursor
+
+    recs, _ = SpoolReader(spool).read(initial_cursor(spool), 1, wait_s=1.0)
+    assert recs[0]["kind"] == "predict" and len(recs[0]["output"]) == 2
 
 
 def test_cli_serve_refuses_what_it_cannot_serve(tmp_path, capsys):

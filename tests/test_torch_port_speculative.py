@@ -534,7 +534,12 @@ def test_pallas_decode_flag_parses_and_changes_nothing(params, tmp_path):
 
 
 def test_feedback_spool_is_not_ported_yet(params, tmp_path):
+    """The spool is ported now: ``--feedback-spool`` appends the smoke's
+    completed generation, in the reference's record shape."""
+    from znicz_tpu.learn.spool import SpoolReader, initial_cursor
+
     pkg = _package(params, tmp_path)
-    with pytest.raises(NotImplementedError, match="queue A item 14"):
-        _generate(pkg, "--serve", "--feedback-spool",
-                  str(tmp_path / "spool"))
+    spool = str(tmp_path / "spool")
+    assert _generate(pkg, "--smoke-test", "--feedback-spool", spool) == 0
+    recs, _ = SpoolReader(spool).read(initial_cursor(spool), 1, wait_s=1.0)
+    assert recs[0]["kind"] == "generate" and len(recs[0]["tokens"]) == 8

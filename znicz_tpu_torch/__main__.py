@@ -12,6 +12,11 @@ Usage:
     python -m znicz_tpu_torch serve <package.npz> [--port N]
                               [--max-batch N] [--native] [--device cpu]
                               [--smoke-test] [options]
+    python -m znicz_tpu_torch fleet <package.npz> [--workers N --port P
+                              --autoscale] [-- worker flags ...]
+    python -m znicz_tpu_torch learn <lm_package.npz> [--workers N --port P
+                              --publish-every K] [--device cpu]
+                              [-- worker flags ...]
     python -m znicz_tpu_torch elastic --workers N --snap-dir D
                               <workflow.py> [worker args ...]
     python -m znicz_tpu_torch flight <artifact.json> [--json]
@@ -28,9 +33,15 @@ cuda), ``cuda``, ``cpu`` and ``numpy``; there is no quiet CPU fallback.
 ``--profile DIR`` writes a ``torch.profiler`` Chrome trace of the run
 under DIR (``launcher.py``).
 
-``elastic`` supervises N workers of this CLI (``resilience/
-elastic.py``); a worker finds ``$ZNICZ_TPU_HEARTBEAT`` (the heartbeat
-starts before the ``--coordinator`` join) and
+``fleet`` fronts N ``generate --serve`` (or ``serve``) workers of this
+CLI with a router, rolling updates and an optional autoscaler
+(``fleet/``); the device travels in the worker flags (``-- --device
+cpu``).  ``learn`` adds the feedback spool, a spool-fed trainer under
+the elastic supervisor and the adoption bridge (``learn/``); its
+``--device`` reaches the trainer and the workers.  ``elastic``
+supervises N workers of this CLI (``resilience/elastic.py``); a worker
+finds ``$ZNICZ_TPU_HEARTBEAT`` (the heartbeat starts before the
+``--coordinator`` join) and
 ``$ZNICZ_TPU_METRICS_EXPORT`` (a rank-tagged registry snapshot file,
 ``observe/federation.py``) in its env.  ``flight`` pretty-prints a
 flight-recorder artifact; ``trace`` runs a workflow and exports its span
@@ -39,8 +50,8 @@ timeline, or with ``--fleet`` merges exported timelines.
 The parser takes every flag of the reference, so a reference command
 line parses.  What is not ported yet raises ``NotImplementedError``
 naming its ROADMAP item rather than being ignored: ``--optimize``,
-``--ensemble-train``, ``--manhole``, ``--publish`` and the subcommands
-``fleet``, ``learn`` and ``forge`` (item 14).  ``aot`` has no
+``--ensemble-train``, ``--manhole``, ``--publish`` and the ``forge``
+subcommand (item 14).  ``aot`` has no
 counterpart: the port has no XLA executables to compile ahead of time
 (a recorded divergence).
 
@@ -60,7 +71,7 @@ import os
 import sys
 
 #: subcommands not ported yet -> their ROADMAP queue A item
-_UNPORTED_SUBCOMMANDS = {"fleet": "14", "learn": "14", "forge": "14"}
+_UNPORTED_SUBCOMMANDS = {"forge": "14"}
 #: flags not ported yet -> (what, item); each raises when given
 _UNPORTED_FLAGS = {
     "optimize": ("the genetic hyperparameter search (--optimize)", "14"),
@@ -183,6 +194,18 @@ def main(argv=None) -> int:
     if argv[0] in _UNPORTED_SUBCOMMANDS:
         raise _not_ported(f"the {argv[0]!r} subcommand",
                           _UNPORTED_SUBCOMMANDS[argv[0]])
+    if argv[0] == "fleet":
+        # the serving fleet: router + worker pool + SLO autoscaler +
+        # rolling weight updates over ordinary generate/serve workers
+        from znicz_tpu_torch.fleet.cli import fleet_main
+
+        return fleet_main(argv[1:])
+    if argv[0] == "learn":
+        # train-while-serve: serving fleet + spool-fed trainer under the
+        # elastic supervisor + adoption bridge
+        from znicz_tpu_torch.learn.cli import learn_main
+
+        return learn_main(argv[1:])
     if argv[0] == "elastic":
         # the multi-process fleet supervisor: spawns N of this CLI as
         # workers — dispatched before the env hooks below, which are

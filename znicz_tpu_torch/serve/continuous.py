@@ -212,8 +212,16 @@ class ContinuousBatcher(Logger):
                  default_timeout_s: float = 60.0,
                  metrics: GenerateMetrics | None = None,
                  draft: KVDecoder | None = None,
-                 spec_k: int = 4) -> None:
+                 spec_k: int = 4,
+                 on_complete=None) -> None:
         super().__init__()
+        #: feedback hook: called as ``on_complete(request_id,
+        #: prompt_ids, tokens)`` from THE single terminal path, COMPLETED
+        #: requests only — exactly the traffic the ledger counts
+        #: ``completed``, so the learn plane's spool and the admission
+        #: ledger can never disagree on what "accepted" means.  A hook
+        #: failure is logged, never fatal to the decode loop.
+        self._on_complete = on_complete
         self.decoder = decoder
         #: paged decoders swap the shared bucket cache for the
         #: block-paged arena: admission and growth ride the page ledger
@@ -358,6 +366,14 @@ class ContinuousBatcher(Logger):
             self.metrics.on_abandoned()
         else:
             self.metrics.on_complete()
+            if self._on_complete is not None:
+                try:
+                    self._on_complete(req.stream.request_id,
+                                      req.prompt.tolist(),
+                                      list(req.stream.tokens))
+                except Exception as exc:  # noqa: BLE001 — feedback must
+                    self.warning(              # never kill the worker
+                        f"on_complete feedback hook failed: {exc!r}")
 
     def _release_pages(self, req: _GenRequest) -> None:
         """Return a finished request's arena pages — called from the ONE

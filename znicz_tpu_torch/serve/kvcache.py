@@ -106,6 +106,11 @@ class KVDecoder(Logger):
     - ``adopt(kv, kv1, slot)`` — splice a prefilled single-request cache
       into a batch slot (continuous admission); ``grow`` pads a batch
       cache out to a larger bucket.
+
+    ``compile_count`` is the reference's count of first executions, one
+    a ``(kind, bucket)``.  The port compiles nothing (it runs eagerly
+    and its kernels are built ahead), so here it counts the shapes first
+    run: ``warmup()`` runs every one, and steady state then adds none.
     """
 
     def __init__(self, params, heads: int, max_len: int = 256,
@@ -130,6 +135,8 @@ class KVDecoder(Logger):
         self.buckets = bucket_sizes(self.max_len)
         self.dtype = self._cast_policy()
         self._params = params_from_numpy(params, self.device, self.dtype)
+        self._seen: set = set()      # (kind, bucket) first executions
+        self.compile_count = 0
         self.prefill_count = 0
         self.decode_steps = 0        # batched decode dispatches
         self.tokens_decoded = 0      # slot-tokens produced by decode
@@ -152,6 +159,15 @@ class KVDecoder(Logger):
             if total_len <= b:
                 return b
         return self.max_len
+
+    def _count(self, kind: str, bucket) -> None:
+        """Count the first run of a ``(kind, bucket)`` shape."""
+        with self._lock:
+            if (kind, bucket) not in self._seen:
+                self._seen.add((kind, bucket))
+                self.compile_count += 1
+                self.debug(f"first run of {kind} at bucket {bucket} "
+                           f"({self.compile_count} shapes)")
 
     # -- math ----------------------------------------------------------------
     def _cast_policy(self):
@@ -213,6 +229,7 @@ class KVDecoder(Logger):
         if ids.size > bucket:
             raise ValueError(f"prompt of {ids.size} tokens > bucket "
                              f"{bucket}")
+        self._count("prefill", bucket)
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :ids.size] = ids
         kv1, logits = self._prefill(self._tensor(padded), int(ids.size))
@@ -256,6 +273,7 @@ class KVDecoder(Logger):
             raise ValueError(f"decode positions [{int(pos.min())}, "
                              f"{int(pos.max())}] outside cache bucket "
                              f"{bucket}; grow() first")
+        self._count("decode", bucket)
         ps = self._params
         H, Dh = self.heads, self.head_dim
         pos_t = self._tensor(pos)
@@ -289,6 +307,7 @@ class KVDecoder(Logger):
         bucket = int(kv["k"].shape[2])
         if int(kv1["k"].shape[2]) != bucket:
             kv1 = self.grow(kv1, bucket)
+        self._count("adopt", bucket)
         for name in ("k", "v"):
             kv[name][:, slot] = kv1[name][:, 0]
         return kv
@@ -350,6 +369,7 @@ class KVDecoder(Logger):
                 "max_len": self.max_len, "batch": self.batch,
                 "buckets": list(self.buckets),
                 "device": str(self.device), "dtype": str(self.dtype),
+                "compile_count": self.compile_count,
                 "prefill_count": self.prefill_count,
                 "decode_steps": self.decode_steps,
                 "tokens_decoded": self.tokens_decoded,

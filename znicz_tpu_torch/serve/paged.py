@@ -220,6 +220,7 @@ class PagedKVDecoder(KVDecoder):
         if len(pages) > n:
             raise ValueError(f"{len(pages)} pages for a {t_p}-row "
                              f"prefill ({n} chunks)")
+        self._count("padopt", t_p)
         pg = np.zeros(n, np.int64)                   # tail -> scratch
         pg[:len(pages)] = np.asarray(pages, np.int64)
         pg = self._tensor(pg)
@@ -257,8 +258,10 @@ class PagedKVDecoder(KVDecoder):
         """One batched decode step through the page table; writes each
         slot's row into the shared arena in place and returns host
         logits ``(batch, vocab)`` — the verify pass of one row."""
-        return self.verify_paged(page_table, pos,
-                                 np.asarray(token, np.int32)[:, None])[:, 0]
+        tokens = np.asarray(token, np.int32)[:, None]
+        pt, pos, p_view = self._check_view(page_table, pos, 1)
+        self._count("pdecode", p_view)
+        return self._pass(pt, pos, tokens)[:, 0]
 
     def verify_paged(self, page_table, pos, tokens) -> np.ndarray:
         """The speculative target pass: process ``tokens (batch, Q)``
@@ -277,7 +280,15 @@ class PagedKVDecoder(KVDecoder):
             raise ValueError(f"verify tokens must be (batch, q); got "
                              f"{tokens.shape}")
         q_len = tokens.shape[1]
-        pt, pos, _ = self._check_view(page_table, pos, q_len)
+        pt, pos, p_view = self._check_view(page_table, pos, q_len)
+        self._count("pverify", (p_view, q_len))
+        return self._pass(pt, pos, tokens)
+
+    def _pass(self, pt, pos, tokens) -> np.ndarray:
+        """The batched pass behind decode and verify over a checked page
+        view: ``tokens (batch, Q)`` in, host logits ``(batch, Q,
+        vocab)`` out."""
+        q_len = tokens.shape[1]
         ps = self._params
         H, Dh, page = self.heads, self.head_dim, self.page
         B = pos.size

@@ -36,8 +36,10 @@ card and no ``--device cpu`` the CLIs exit non-zero with a message.
 ``serve --native`` serves through the C++ runtime on the host, by the
 user's choice; a runtime that cannot be built exits non-zero too.
 ``--no-aot`` parses and is ignored (the port has no ahead-of-time
-executables), and ``--feedback-spool`` (the learn plane's spool) is not
-ported yet.
+executables).  ``--feedback-spool DIR`` on either plane appends what it
+answered to the learn plane's spool (``learn/spool.py``): completed
+generations through the batcher's ``on_complete`` hook, answered
+predictions from ``ServeServer(feedback=)``.
 """
 
 from __future__ import annotations
@@ -142,14 +144,13 @@ class ServeServer(Logger):
                  warmup: bool = True, package_info: dict | None = None,
                  feedback=None) -> None:
         super().__init__()
-        if feedback is not None:
-            raise NotImplementedError(
-                "the learn-plane feedback spool is not ported yet "
-                "(ROADMAP.md queue A item 14)")
         #: content fingerprint of the package this worker booted from
         #: (utils/naming.py package_fingerprint) — served on /readyz so
         #: rolling weight updates can verify adoption
         self.package_info = package_info
+        #: learn-plane spool: answered predictions append as labeled
+        #: (input, output) pairs with request-id provenance
+        self.feedback = feedback
         if isinstance(model, BatchEngine):
             if max_batch is not None and max_batch != model.max_batch:
                 raise ValueError(
@@ -235,7 +236,15 @@ class ServeServer(Logger):
                 except Exception as exc:  # noqa: BLE001 — engine failure
                     self._reply(500, {"error": str(exc)})
                     return
-                self._reply(200, {"output": np.asarray(out).tolist()},
+                out_rows = np.asarray(out).tolist()
+                if plane.feedback is not None:
+                    try:
+                        plane.feedback.append_predict(
+                            rid, doc["input"], out_rows)
+                    except Exception as exc:  # noqa: BLE001 — feedback
+                        plane.warning(     # must never fail a request
+                            f"feedback append failed: {exc!r}")
+                self._reply(200, {"output": out_rows},
                             headers=(("X-Request-Id", rid),))
 
         self._httpd = ThreadingHTTPServer(("127.0.0.1", self.port), Handler)
@@ -588,9 +597,10 @@ def build_generate_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-warmup", action="store_true",
                    help="skip exercising every cache bucket at boot")
     p.add_argument("--feedback-spool", default=None, metavar="DIR",
-                   help="not ported yet, raises NotImplementedError "
-                        "(the reference appends every completed "
-                        "generation to a learn-plane spool directory)")
+                   help="append every completed generation (prompt + "
+                        "streamed tokens, request id) to this learn-"
+                        "plane spool directory — the train-while-serve "
+                        "feedback source")
     p.add_argument("--smoke-test", action="store_true",
                    help="start, stream one self-request, exit (CI "
                         "probe)")
@@ -645,10 +655,6 @@ def start_generate_server(args, params, meta) -> GenerateServer:
     from znicz_tpu_torch.serve.continuous import ContinuousBatcher
     from znicz_tpu_torch.utils.naming import package_fingerprint
 
-    if args.feedback_spool:
-        raise NotImplementedError(
-            "the learn-plane feedback spool (--feedback-spool) is not "
-            "ported yet (ROADMAP.md queue A item 14)")
     if args.speculative and args.no_paged:
         raise GenerateConfigError("--speculative needs the paged arena "
                                   "(drop --no-paged)")
@@ -676,9 +682,17 @@ def start_generate_server(args, params, meta) -> GenerateServer:
                            else None)
             if draft is not None:
                 draft.warmup()
+    on_complete = None
+    if args.feedback_spool:
+        # the learn plane's traffic tap: completed generations land in
+        # the crash-safe spool the trainer tails
+        from znicz_tpu_torch.learn.spool import FeedbackSpool
+
+        on_complete = FeedbackSpool(args.feedback_spool).append_generate
     batcher = ContinuousBatcher(decoder, max_queue=args.max_queue,
                                 default_timeout_s=args.timeout_s,
-                                draft=draft, spec_k=args.spec_k)
+                                draft=draft, spec_k=args.spec_k,
+                                on_complete=on_complete)
     server = GenerateServer(batcher, charmap=meta.get("charmap"),
                             port=args.port, name=meta.get("name", "lm"),
                             package_info=package_fingerprint(args.package))
@@ -812,7 +826,9 @@ def build_serve_parser() -> argparse.ArgumentParser:
                    help="accepted for reference command lines; the port "
                         "has no ahead-of-time executables")
     p.add_argument("--feedback-spool", default=None, metavar="DIR",
-                   help="not ported yet (item 14)")
+                   help="append every answered prediction (input, "
+                        "output, request id) to this learn-plane spool "
+                        "directory")
     p.add_argument("--device", default="cuda",
                    help="torch device of the forward (default cuda; "
                         "cpu only when named)")
@@ -826,10 +842,6 @@ def serve_main(argv) -> int:
     from znicz_tpu_torch.utils.naming import package_fingerprint
 
     args = build_serve_parser().parse_args(argv)
-    if args.feedback_spool:
-        raise NotImplementedError(
-            "the learn-plane feedback spool (--feedback-spool) is not "
-            "ported yet (ROADMAP.md queue A item 14)")
     if not args.native:
         try:
             _device(args.device)
@@ -842,12 +854,18 @@ def serve_main(argv) -> int:
     except (OSError, ValueError, RuntimeError, KeyError) as exc:
         print(f"serve: cannot load {args.package!r}: {exc}")
         return 2
+    feedback = None
+    if args.feedback_spool:
+        from znicz_tpu_torch.learn.spool import FeedbackSpool
+
+        feedback = FeedbackSpool(args.feedback_spool)
     server = ServeServer(backend, port=args.port, max_batch=args.max_batch,
                          max_wait_ms=args.max_wait_ms,
                          max_queue=args.max_queue,
                          default_timeout_s=args.timeout_s,
                          warmup=not args.no_warmup,
-                         package_info=package_fingerprint(args.package))
+                         package_info=package_fingerprint(args.package),
+                         feedback=feedback)
     port = server.start()
     if args.smoke_test:
         import urllib.request
