@@ -417,6 +417,33 @@ exits non-zero without the final ``ok`` line):
    backward kernels exactly 6 + 6 a train minibatch its spool implies,
    the publish-to-adoption latency; (d) ``python -m znicz_tpu_torch
    fleet <A> --smoke-test --workers 1 --port 0`` on the card exits 0.
+17zzz. **services** — the last modules of the reference, each part run
+   before the first failure is raised: (a) ``--optimize``'s core
+   (``utils/genetics.py optimize``) over an lr ``Tune`` on bench_fc's
+   model as a fused StandardWorkflow (784-4096-4096-10, batch 1024, 4
+   train minibatches and 1 valid one, one epoch), 4 individuals, 2
+   generations: the population route, SGD launches exactly 6 a replayed
+   step, one capture of the train body and one of the eval body for the
+   whole population, every individual's fitness equal bit for bit to its
+   sequential replay on the same step, an lr-0 individual scoring the
+   untrained step's error; the evaluator's seconds a generation beside
+   the sequential route's (one generation of full runs) on the same
+   workflow; Wine's hidden width, a structural ``Tune``, routed
+   sequentially; (b) ``--ensemble-train 3`` through the CLI over eager
+   Wine on the card, gemm_fc and act_backward launched exactly as the
+   members' minibatches imply, each member's history and its weights
+   at the held epoch against the same CLI on the CPU in the zoo's band,
+   which the card's TF32 run must fail; the fused Wine committee's
+   errors (``Ensemble.test_classification``); (c) serve_forward's
+   AlexNet package (exported here when the phase runs alone) through
+   ``forge upload``, ``list`` and ``fetch``, served from the registry by
+   ``forge_fetch`` on the card, ``lrn_forward`` launched twice a
+   forward, its rows bit-identical to the package loaded directly, a
+   corrupted copy of the registry refused with exit 2; (d) fused Wine
+   through the CLI with ``--publish markdown`` and ``--manhole=PATH``:
+   inside the run a manhole session reads the live epoch and a
+   ``WebStatus`` lists the workflow on ``/status.json`` and serves its
+   other endpoints; the report names the card, the socket is removed.
 18. **kernel_hw** — ``utils/kernel_hw.run_parity("cuda")``, all fourteen
    families of the reference ``ok``; the LRN, dropout and bf16 conv
    forward counters set to 0 just before and read just after (the only
@@ -427,8 +454,8 @@ exits non-zero without the final ``ok`` line):
 pool_backward, conv, alexnet_eager, deconv, kohonen, lrn_dropout,
 ae_fused, alexnet_fused, graph_parity, fused_conv_parity,
 input_pipeline, image_files, snapshot_resume, data_parallel, lm_axes,
-serve_forward, pipe_expert, zoo, operations, fleet_learn, speculative,
-char_lm, train, or three
+serve_forward, pipe_expert, zoo, operations, fleet_learn, services,
+speculative, char_lm, train, or three
 that only measure and run on older trees of the port too: **waves**, the
 weight gradient at AlexNet's and build_deep's shapes with split_k's
 slices, one fewer and one more, through the C entry; **fused_compare**,
@@ -6499,7 +6526,7 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
                 fused, conv, alexnet, deconv, ae, spool, mcs, som,
                 lrn_drop, alex_fused, kernel_hw, spec, char,
                 data_parallel, serve_forward, lm_axes, pipe_expert,
-                zoo, fleet) -> dict:
+                zoo, fleet, services) -> dict:
     """The eighteen kernels: launches from the main paths' runs, times
     and errors from the kernel phases, bounds from this run's inputs.  A
     conv kernel's times and bound sum its launches of one AlexNet train
@@ -6531,7 +6558,10 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
     paged_decode entry carries the fleet_learn phase's (b) launches (the
     adopted in-process worker behind the router), the flash entries the
     kernels its (c) trainer ran, counted in that process's profiler
-    trace."""
+    trace.  The SGD entry carries the services phase's ``--optimize``
+    population (bench_fc's widths), gemm_fc and act_backward its
+    ``--ensemble-train`` on eager Wine, the LRN forward its forge-fetched
+    AlexNet package."""
     def entry(name, source, replaces, launches, timed, max_abs_err,
               **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -6596,12 +6626,16 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
               gemm["gemm"]["max_abs_err"],
               cuda_kernels=["gemm_f32_kernel<BM,BN,A_KC,B_KC>",
                             "gemm_reduce_kernel<VEC>"],
-              zoo_launches=zl["gemm_fc"]),
+              zoo_launches=zl["gemm_fc"],
+              services_launches=services["ensemble"]["launches"][
+                  "gemm_fc"]),
         entry("act_backward", kgemm.SOURCE, kgemm.REPLACES_ACT,
               alexnet["launches"]["act_backward"],
               gemm["act_backward_alexnet"],
               gemm["act_backward_alexnet"]["max_abs_err"],
               path="alexnet_eager", zoo_launches=zl["act_backward"],
+              services_launches=services["ensemble"]["launches"][
+                  "act_backward"],
               bench_fc_tanh={"launches": eager["act_backward_launches"],
                              **{k: gemm["act_backward"][k] for k in (
                                  "ms", "plain_ms", "bound_ms", "bound_by",
@@ -6611,7 +6645,9 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
               max(optim[k]["sound"]["max_abs_err"]
                   for k in ("sgd_vel_float32", "sgd_vel_bfloat16")),
               data_parallel_launches=dp["sgd_update"],
-              zoo_launches=zl["sgd_update"]),
+              zoo_launches=zl["sgd_update"],
+              services_launches=services["optimize"]["vmapped"][
+                  "launches"]["sgd_update"]),
         entry("adam_update", koptim.SOURCE, koptim.REPLACES,
               fused["adam"]["adam_update_launches"], optim["timed"]["adam"],
               optim["adam"]["sound"]["max_abs_err"],
@@ -6656,7 +6692,8 @@ def kernel_line(kernel, flash, gemm, optim, serve, train, eager,
               cuda_kernels=["lrn_fwd_quad_kernel<N>", "lrn_fwd_kernel"],
               data_parallel_launches=dp["lrn_forward"],
               serve_forward_launches=serve_forward["http"][
-                  "lrn_forward_launches"]),
+                  "lrn_forward_launches"],
+              services_launches=services["forge"]["lrn_forward_launches"]),
         entry("lrn_backward", klrn.SOURCE, klrn.REPLACES_BWD,
               alex_fused["launches"]["lrn_backward"], lrn_path["bwd"],
               lrn_path["bwd"]["max_abs_err"], path="alexnet_fused",
@@ -9571,9 +9608,32 @@ def _sf_mnist_fc(tmp, cpu_ok) -> tuple:
     return {"cli_cuda": cli, "native": native}, bad
 
 
-def phase_serve_forward() -> dict:
+def sf_export_alexnet(pkg: str) -> dict:
+    """AlexNet at its own configuration initialized from the seed on the
+    card and exported as a forward package to ``pkg`` -> the seconds and
+    the package's size."""
+    from znicz_tpu_torch.utils.export import export_forward
+
+    tprng.seed_all(SEED)
+    t0 = time.perf_counter()
+    # the synthetic loader's 50 classes need 50 samples at least
+    w = talexnet.build(n_train=50, n_valid=0, minibatch_size=SF_MAX_BATCH)
+    w.initialize(device=TorchDevice())
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    export_forward(w, pkg)
+    out = {"init_s": init_s, "export_s": time.perf_counter() - t0,
+           "package_mb": os.path.getsize(pkg) / 1e6}
+    del w
+    gc.collect()
+    return out
+
+
+def phase_serve_forward(package_dir=None) -> dict:
     """The forward-serving plane at full width: AlexNet (227 px, 1000
-    classes) initialized on the card, exported once and loaded as an
+    classes) initialized on the card, exported once (into
+    ``package_dir`` when given, where the services phase fetches it
+    through the forge) and loaded as an
     ExportedForward in eval's type; a BatchEngine whose warmup captures
     buckets 1, 2, 4 and 8 once each; every bucket's replay bit-identical
     to its eager body, lrn_forward launched exactly twice a forward
@@ -9586,7 +9646,7 @@ def phase_serve_forward() -> dict:
     from znicz_tpu_torch.native import infer as tinfer
     from znicz_tpu_torch.serve.engine import BatchEngine
     from znicz_tpu_torch.units.normalization import LRNormalizerForward
-    from znicz_tpu_torch.utils.export import ExportedForward, export_forward
+    from znicz_tpu_torch.utils.export import ExportedForward
 
     t0 = time.perf_counter()
     out = {"phase": "serve_forward", "max_batch": SF_MAX_BATCH,
@@ -9611,20 +9671,8 @@ def phase_serve_forward() -> dict:
         out["native_build_s"] = built["s"]
 
     with tempfile.TemporaryDirectory() as tmp:
-        tprng.seed_all(SEED)
-        t1 = time.perf_counter()
-        # the synthetic loader's 50 classes need 50 samples at least
-        w = talexnet.build(n_train=50, n_valid=0,
-                           minibatch_size=SF_MAX_BATCH)
-        w.initialize(device=TorchDevice())
-        out["init_s"] = time.perf_counter() - t1
-        pkg = os.path.join(tmp, "alexnet.npz")
-        t1 = time.perf_counter()
-        export_forward(w, pkg)
-        out["export_s"] = time.perf_counter() - t1
-        out["package_mb"] = os.path.getsize(pkg) / 1e6
-        del w
-        gc.collect()
+        pkg = os.path.join(package_dir or tmp, "alexnet.npz")
+        out.update(sf_export_alexnet(pkg))
         t1 = time.perf_counter()
         backend = ExportedForward(pkg)
         out["load_s"] = time.perf_counter() - t1
@@ -11459,6 +11507,590 @@ def phase_fleet_learn() -> dict:
     return out
 
 
+#: services (a): --optimize over an lr Tune at bench_fc's widths (784-
+#: 4096-4096-10, batch 1024, the synthetic_classifier loader, bf16
+#: velocity) as a fused StandardWorkflow: SV_TRAIN_MB train minibatches
+#: and one valid minibatch, one epoch; SV_POP individuals, SV_GENS
+#: generations; the Tune's (default, min, max)
+SV_TRAIN_MB, SV_POP, SV_GENS = 4, 4, 2
+SV_LR = (0.05, 0.001, 0.5)
+#: (a): the loader's class spread: bench_fc's 2.5 separates the classes
+#: within 4 steps at any of the Tune's rates (every individual scored 0
+#: errors on the H100), so the blobs overlap here and the fitness
+#: depends on the rate
+SV_SPREAD = 0.05
+#: bench_fc's fused train step: one SGD launch a leaf, w and b of three
+#: layers
+SV_SGD_A_STEP = 6
+#: (a): the structural Tune, Wine's hidden width (a sequential route at
+#: Wine's build() widths), one generation
+SV_HIDDEN = (10, 4, 16)
+#: (b): --ensemble-train members, over eager Wine at its build() widths
+#: for SV_WINE_EPOCHS epochs; the weights held to the zoo's band at the
+#: end of epoch ZOO_HELD_EPOCH
+SV_MEMBERS, SV_WINE_EPOCHS = 3, 4
+#: (b): wine.build's split and batch: train and valid samples, batch
+SV_WINE_TRAIN, SV_WINE_VALID, SV_WINE_BATCH = 150, 30, 10
+#: (c): the forward package served twice: its first call materializes
+#: the shape (the eager run, then the capture's replay), the second
+#: replays: three forwards of AlexNet's two LRN layers
+SV_LRN_LAUNCHES = 3 * 2
+#: (d): fused Wine's epochs; the probe runs at the end of epoch
+#: SV_PROBE_EPOCH
+SV_STATUS_EPOCHS, SV_PROBE_EPOCH = 3, 2
+
+#: (b): eager Wine as a workflow file; each member writes its weights at
+#: the end of epoch ``held_epoch`` to ``out_dir/member_<k>.npz``
+SV_ENSEMBLE_WORKFLOW = """
+import os
+
+import numpy as np
+
+from znicz_tpu_torch.core.config import root
+from znicz_tpu_torch.models import wine
+
+
+def run(load, main):
+    cfg = root.services_ens
+    w, _ = load(wine.build, fused=False, max_epochs=cfg.max_epochs)
+    held, logged = {}, w.decision.on_epoch_logged
+
+    def on_epoch_logged():
+        logged()
+        if len(w.decision.metrics_history) == cfg.held_epoch:
+            held.update({f"{f.name}.{a}": np.array(getattr(f, a).map_read())
+                         for f in w.forwards for a in ("weights", "bias")})
+    w.decision.on_epoch_logged = on_epoch_logged
+    main()
+    k = len(os.listdir(cfg.out_dir))
+    np.savez(os.path.join(cfg.out_dir, f"member_{k}.npz"), **held)
+"""
+
+#: (d): fused Wine as a workflow file; ``root.services_status.probe(w)``
+#: runs at each epoch's end, inside the run
+SV_STATUS_WORKFLOW = """
+from znicz_tpu_torch.core.config import root
+from znicz_tpu_torch.models import wine
+
+
+def run(load, main):
+    w, _ = load(wine.build, max_epochs=root.services_status.max_epochs)
+    logged = w.decision.on_epoch_logged
+
+    def on_epoch_logged():
+        logged()
+        root.services_status.probe(w)
+    w.decision.on_epoch_logged = on_epoch_logged
+    main()
+"""
+
+
+class _SvModule:
+    """A workflow module (``run(load, main)``) over ``build`` whose
+    argument ``key`` is ``root.services.<key>``: what ``--optimize``
+    drives."""
+
+    def __init__(self, build, key: str, cast) -> None:
+        self.build, self.key, self.cast = build, key, cast
+
+    def run(self, load, main):
+        value = self.cast(root.services.get(self.key))
+        load(self.build, **{self.key: value})
+        main()
+
+
+def _sv_bench_fc(lr: float) -> StandardWorkflow:
+    """bench_fc's model (bench.py:303-313) as a fused StandardWorkflow."""
+    back = {"learning_rate": lr, "gradient_moment": 0.9}
+    return StandardWorkflow(
+        name="BenchFC", loss_function="softmax",
+        layers=[{"type": "all2all_tanh", "->": {"output_sample_shape": n},
+                 "<-": back} for n in FC_LAYERS] +
+        [{"type": "softmax", "->": {"output_sample_shape": FC_CLASSES},
+          "<-": back}],
+        loader_name="synthetic_classifier",
+        # the loader draws n // classes samples a class: round up, so
+        # the train split holds SV_TRAIN_MB whole minibatches
+        loader_config={"n_classes": FC_CLASSES, "sample_shape": (28, 28),
+                       "n_train": -(-SV_TRAIN_MB * FC_BATCH // FC_CLASSES) *
+                       FC_CLASSES,
+                       "n_valid": FC_BATCH, "minibatch_size": FC_BATCH,
+                       "spread": SV_SPREAD, "noise": 1.0},
+        decision_config={"max_epochs": 1},
+        optimizer_config={"state_dtype": "bfloat16"})
+
+
+#: the gd units' attribute of each column of the step's hyper buffer
+SV_GD_ATTRS = {"lr": "learning_rate", "wd": "weights_decay",
+               "l1": "l1_vs_l2", "mom": "gradient_moment",
+               "lr_b": "learning_rate_bias", "wd_b": "weights_decay_bias",
+               "mom_b": "gradient_moment_bias"}
+
+
+def _sv_sequential(step, rows: list, i: int, args: tuple, metric: str,
+                   epochs: int, seed: int) -> float:
+    """Individual ``i`` of an evaluator call replayed alone on the same
+    step: the call's starting state, its hyperparameters set on the gd
+    units (the step's usual buffer write), the generator re-keyed, the
+    train steps, one eval step; the state and units restored after."""
+    from znicz_tpu_torch.utils.genetics import individual_seed
+
+    saved = [{k: v.clone() for k, v in leaf.items()}
+             for leaf in step._params]
+    units = [{a: getattr(gd, a) for a in SV_GD_ATTRS.values()}
+             for gd in step.gds]
+    try:
+        for gd, row in zip(step.gds, rows):
+            for k, attr in SV_GD_ATTRS.items():
+                setattr(gd, attr, float(row[k]))
+        step._gen.manual_seed(individual_seed(seed, i))
+        xs, ys, ms = (torch.as_tensor(a).to(step._dev) for a in args[1:4])
+        for _ in range(epochs):
+            step.train_steps(xs, ys, ms)
+        ev = (step._local_rows(torch.as_tensor(a).to(step._dev))
+              for a in args[4:7])
+        return float(step._dispatch("eval", step._eval_step, *ev)[metric])
+    finally:
+        step.place_params(saved)
+        for gd, attrs in zip(step.gds, units):
+            for attr, v in attrs.items():
+                setattr(gd, attr, v)
+
+
+def _sv_optimize(launcher) -> tuple:
+    """(a): ``optimize`` as ``--optimize`` runs it, over the lr Tune at
+    bench_fc's widths: the population route, its SGD launches exact, one
+    capture of the train body and one of the eval body for the whole
+    population, each individual's fitness equal bit for bit to its
+    sequential replay, an lr-0 individual learning nothing; the seconds
+    a generation beside the sequential route's on the same workflow;
+    then Wine's hidden width, which must route sequentially."""
+    from znicz_tpu_torch.core.config import Tune, set_by_path
+    from znicz_tpu_torch.utils import genetics as tgenetics
+
+    out, bad, made, calls = {}, [], {}, []
+    real = tgenetics.make_population_evaluator
+
+    def recording(step, metric="n_err", epochs=1):
+        made.update(step=step, metric=metric, epochs=epochs)
+        evaluate = real(step, metric=metric, epochs=epochs)
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fits = evaluate(*args)
+            calls.append({"args": args, "fits": fits,
+                          "s": time.perf_counter() - t0})
+            return fits
+        return timed
+
+    module = _SvModule(_sv_bench_fc, "lr", float)
+    set_by_path(root, "services.lr", Tune(*SV_LR))
+    tgenetics.make_population_evaluator = recording
+    try:
+        koptim.sgd_launches = 0                      # 0 just before ...
+        kgemm.gemm_launches = kgemm.act_launches = 0
+        t0 = time.perf_counter()
+        best = tgenetics.optimize(module, launcher, SV_GENS,
+                                  population_size=SV_POP)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"sgd_update": koptim.sgd_launches,   # ... read after
+                    "gemm_fc": kgemm.gemm_launches,
+                    "act_backward": kgemm.act_launches}
+    finally:
+        tgenetics.make_population_evaluator = real
+    step, metric, epochs = made["step"], made["metric"], made["epochs"]
+    n_steps = SV_POP * SV_GENS * epochs * SV_TRAIN_MB
+    expect = {"sgd_update": SV_SGD_A_STEP * n_steps, "gemm_fc": 0,
+              "act_backward": 0}
+    graphs = [(k[0], g) for k, g in step._graphs.items() if g is not None]
+    captures = collections.Counter(kind for kind, _ in graphs)
+    replays = {kind: g.replays for kind, g in graphs}
+    out["vmapped"] = {
+        "best": best, "wall_s": wall, "launches": launches,
+        "expect": expect, "captures": dict(captures), "replays": replays,
+        "train_minibatches": [int(c["args"][1].shape[0]) for c in calls],
+        "evaluator_s_per_generation": [c["s"] for c in calls],
+        "fitness": [c["fits"].tolist() for c in calls]}
+    if best.get("_evaluator") != "vmapped":
+        bad.append(f"--optimize at bench_fc's widths routed "
+                   f"{best.get('_evaluator')}")
+    if launches != expect or \
+            out["vmapped"]["train_minibatches"] != [SV_TRAIN_MB] * SV_GENS:
+        bad.append(f"--optimize launches {launches} != {expect} "
+                   f"({out['vmapped']['train_minibatches']} minibatches)")
+    if dict(captures) != {"steps": 1, "eval": 1} or replays != {
+            "steps": n_steps - 1, "eval": SV_POP * SV_GENS - 1}:
+        bad.append(f"--optimize captures {dict(captures)}, replays "
+                   f"{replays}: not one capture a body for the population")
+    # each individual alone, bit for bit, on the same step and graphs
+    seed = step._gen.initial_seed()
+    mismatched = []
+    for g, call in enumerate(calls):
+        pop = call["args"][0]
+        for i, fit in enumerate(call["fits"]):
+            rows = [{k: v[i] for k, v in layer.items()} for layer in pop]
+            seq = _sv_sequential(step, rows, i, call["args"], metric,
+                                 epochs, seed)
+            if np.float32(seq) != np.float32(fit):
+                mismatched.append((g, i, seq, float(fit)))
+    # an lr-0 individual learns nothing: the untrained step's error
+    args = calls[0]["args"]
+    ev = [step._local_rows(torch.as_tensor(a).to(step._dev))
+          for a in args[4:7]]
+    untrained = float(step._dispatch("eval", step._eval_step, *ev)[metric])
+    pop0 = [{k: np.full(2, v, np.float32) for k, v in layer.items()}
+            for layer in step.hyper_params()]
+    for layer in pop0:
+        layer["lr"] = layer["lr_b"] = np.float32([0.0, SV_LR[0]])
+    lr0 = real(step, metric=metric, epochs=epochs)(pop0, *args[1:]).tolist()
+    out["vmapped"].update(sequential_mismatches=mismatched,
+                          untrained=untrained, lr0_and_default=lr0)
+    if mismatched:
+        bad.append(f"population vs sequential replay: {mismatched}")
+    if lr0[0] != untrained or lr0[1] == untrained:
+        bad.append(f"lr 0 -> {lr0[0]}, untrained {untrained}, default lr "
+                   f"-> {lr0[1]}")
+    after = collections.Counter(k[0] for k, g in step._graphs.items()
+                                if g is not None)
+    if len(set(f for c in calls for f in c["fits"].tolist())) < 2:
+        bad.append("every individual scored the same: the bit-for-bit "
+                   "check compares nothing")
+    if after != captures:
+        bad.append(f"the replays captured again: {dict(after)}")
+    del step, made, calls
+    gc.collect()
+    # the sequential route on the same workflow: one generation (the
+    # search left its last individual's value in root: the Tune again)
+    set_by_path(root, "services.lr", Tune(*SV_LR))
+    real_try = tgenetics._try_vmapped_evaluator
+
+    def refuse(*_args, **_kw):
+        raise tgenetics.NotVmappable("the sequential route, timed")
+    tgenetics._try_vmapped_evaluator = refuse
+    try:
+        t0 = time.perf_counter()
+        seq_best = tgenetics.optimize(module, launcher, 1,
+                                      population_size=SV_POP)
+        torch.cuda.synchronize()
+        out["sequential"] = {"best": seq_best,
+                             "s_per_generation": time.perf_counter() - t0}
+    finally:
+        tgenetics._try_vmapped_evaluator = real_try
+        del root.services
+    gc.collect()
+    # a structural Tune: Wine's hidden width routes sequentially
+    set_by_path(root, "services.hidden", Tune(*SV_HIDDEN))
+    try:
+        t0 = time.perf_counter()
+        hidden = tgenetics.optimize(_SvModule(twine.build, "hidden", int),
+                                    launcher, 1, population_size=SV_POP)
+        out["structural"] = {"best": hidden, "s": time.perf_counter() - t0}
+    finally:
+        del root.services
+    if hidden.get("_evaluator") != "sequential":
+        bad.append(f"Wine's hidden Tune routed {hidden.get('_evaluator')}")
+    gc.collect()
+    return out, bad
+
+
+def _sv_cli(argv: list, cwd: str) -> tuple:
+    """``python -m znicz_tpu_torch *argv`` in this process, from ``cwd``
+    -> (exit code, stdout, stderr)."""
+    from znicz_tpu_torch.__main__ import main as cli_main
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.chdir(cwd), contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(err):
+        rc = cli_main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _sv_ensemble_run(wf: str, tmp: str, name: str, device_args: list,
+                     tf32: bool = False) -> dict:
+    """``--ensemble-train SV_MEMBERS`` over eager Wine -> the summary and
+    each member's weights at the held epoch."""
+    held = os.path.join(tmp, name, "held")
+    os.makedirs(held)
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        t0 = time.perf_counter()
+        rc, _, err = _sv_cli(
+            [wf, "--ensemble-train", str(SV_MEMBERS), "--random-seed",
+             str(SEED), "-o", f"root.services_ens.out_dir={held}",
+             "-o", f"root.services_ens.max_epochs={SV_WINE_EPOCHS}",
+             "-o", f"root.services_ens.held_epoch={ZOO_HELD_EPOCH}",
+             *device_args], os.path.join(tmp, name))
+        seconds = time.perf_counter() - t0
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    if rc != 0:
+        fail(f"services: --ensemble-train ({name}) exited {rc}: "
+             f"{err[-3000:]}")
+    with open(os.path.join(tmp, name, "ensemble_wine.json")) as f:
+        summary = json.load(f)
+    weights = []
+    for k in range(SV_MEMBERS):
+        with np.load(os.path.join(held, f"member_{k}.npz")) as z:
+            weights.append({key: z[key] for key in z.files})
+    return {"summary": summary, "held": weights, "s": seconds}
+
+
+def _sv_ensemble(tmp: str) -> tuple:
+    """(b): ``--ensemble-train`` by the CLI on eager Wine on the card,
+    gemm_fc and act_backward counted exactly, each member against the
+    CPU run in the zoo's band (identical histories, the weights at the
+    held epoch within ZOO_WEIGHT_ATOL), which the card's TF32 run must
+    fail; then the committee of fused Wine through
+    ``Ensemble.test_classification``."""
+    from znicz_tpu_torch.utils.ensemble import Ensemble
+
+    wf = os.path.join(tmp, "wine_ensemble.py")
+    with open(wf, "w") as f:
+        f.write(SV_ENSEMBLE_WORKFLOW)
+    bad = []
+    kgemm.gemm_launches = kgemm.act_launches = 0     # 0 just before ...
+    card = _sv_ensemble_run(wf, tmp, "card", [])
+    launches = {"gemm_fc": kgemm.gemm_launches,      # ... read after
+                "act_backward": kgemm.act_launches}
+    tf32 = _sv_ensemble_run(wf, tmp, "tf32", [], tf32=True)
+    cpu = _sv_ensemble_run(wf, tmp, "cpu", ["-d", "cpu"])
+    table = zoo_launch_table(twine.build(fused=False))
+    epochs = sum(len(m["history"]) for m in card["summary"]["members"])
+    expect = {k: epochs * (SV_WINE_TRAIN // SV_WINE_BATCH *
+                           table["train"][k] +
+                           SV_WINE_VALID // SV_WINE_BATCH * table["eval"][k])
+              for k in launches}
+
+    def band(run):
+        return {
+            "histories_identical": [
+                a["history"] == b["history"] for a, b in zip(
+                    run["summary"]["members"], cpu["summary"]["members"],
+                    strict=True)],
+            "held_weight_err": max(
+                float(np.abs(a[k] - b[k]).max())
+                for a, b in zip(run["held"], cpu["held"], strict=True)
+                for k in a)}
+
+    out = {"members": SV_MEMBERS, "epochs": SV_WINE_EPOCHS,
+           "launches": launches, "expect": expect,
+           "summary": {k: card["summary"][k]
+                       for k in ("workflow", "n_members", "best", "mean")},
+           "seeds": [m["seed"] for m in card["summary"]["members"]],
+           "vs_cpu": band(card), "tf32_vs_cpu": band(tf32),
+           "card_s": card["s"], "tf32_s": tf32["s"], "cpu_s": cpu["s"]}
+
+    def within(b):
+        return all(b["histories_identical"]) and \
+            b["held_weight_err"] <= ZOO_WEIGHT_ATOL
+    if launches != expect:
+        bad.append(f"--ensemble-train launches {launches} != {expect}")
+    if not within(out["vs_cpu"]):
+        bad.append(f"--ensemble-train card vs CPU {out['vs_cpu']}")
+    if within(out["tf32_vs_cpu"]):
+        bad.append(f"the ensemble band passes its TF32 run "
+                   f"{out['tf32_vs_cpu']}")
+    t0 = time.perf_counter()
+    ens = Ensemble(twine.build, n_members=SV_MEMBERS,
+                   base_seed=SEED).train(TorchDevice())
+    out["committee"] = {**ens.test_classification(),
+                        "s": time.perf_counter() - t0}
+    c = out["committee"]
+    if c["n"] != SV_WINE_VALID or \
+            len(c["member_errs"]) != SV_MEMBERS or \
+            c["committee_err"] > max(c["member_errs"]):
+        bad.append(f"the fused Wine committee {c}")
+    del ens
+    gc.collect()
+    return out, bad
+
+
+def _sv_forge(pkg: str, tmp: str) -> tuple:
+    """(c): the AlexNet forward package through the ``forge`` CLI
+    (upload, list, fetch), served from the registry by ``forge_fetch``
+    on the card (lrn_forward counted) bit-identical to the package loaded
+    directly; a corrupted copy of the registry refused with exit 2."""
+    from znicz_tpu_torch.utils.export import ExportedForward, forge_fetch
+
+    reg, bad = os.path.join(tmp, "forge"), []
+    t0 = time.perf_counter()
+    runs = {"upload": _sv_cli(["forge", "--registry", reg, "upload", pkg,
+                               "--name", "alexnet", "--version", "1.0"],
+                              tmp),
+            "list": _sv_cli(["forge", "--registry", reg, "list"], tmp),
+            "fetch": _sv_cli(["forge", "--registry", reg, "fetch",
+                              "alexnet"], tmp)}
+    out = {"cli": {k: {"rc": r[0], "stdout": r[1].strip()}
+                   for k, r in runs.items()},
+           "cli_s": time.perf_counter() - t0}
+    if any(r[0] != 0 for r in runs.values()) or \
+            runs["list"][1] != "alexnet: 1.0\n" or \
+            runs["fetch"][1].strip() != os.path.join(reg, "alexnet-1.0.npz"):
+        bad.append(f"forge CLI: {out['cli']}")
+    t0 = time.perf_counter()
+    fetched = forge_fetch(reg, "alexnet")
+    out["fetch_load_s"] = time.perf_counter() - t0
+    direct = ExportedForward(pkg)
+    x = np.random.default_rng(SEED + 41).normal(
+        size=(SF_MAX_BATCH,) + fetched.input_shape).astype(np.float32)
+    klrn.fwd_launches = 0                            # 0 just before ...
+    rows = [fetched(x), fetched(x)]
+    torch.cuda.synchronize()
+    launches = klrn.fwd_launches                     # ... read after
+    want = direct(x)
+    out.update(lrn_forward_launches=launches, expect=SV_LRN_LAUNCHES,
+               rows=list(rows[0].shape),
+               identical=bool(all(np.array_equal(r, want) for r in rows)),
+               finite=bool(np.isfinite(rows[0]).all()))
+    if launches != SV_LRN_LAUNCHES:
+        bad.append(f"the fetched package: {launches} lrn_forward "
+                   f"launches, not {SV_LRN_LAUNCHES}")
+    if not out["identical"] or not out["finite"]:
+        bad.append(f"the fetched package's rows differ from the package "
+                   f"loaded directly: {out}")
+    del fetched, direct
+    gc.collect()
+    torch.cuda.empty_cache()
+    corrupt = os.path.join(tmp, "forge_corrupt")
+    shutil.copytree(reg, corrupt)
+    path = os.path.join(corrupt, "alexnet-1.0.npz")
+    with open(path, "r+b") as f:
+        f.seek(os.path.getsize(path) // 2)
+        byte = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    rc, _, err = _sv_cli(["forge", "--registry", corrupt, "fetch",
+                          "alexnet"], tmp)
+    out["corrupt"] = {"rc": rc, "stderr": err.strip()}
+    if rc != 2 or err != "forge: forge package alexnet==1.0 is corrupt " \
+            "(sha256 mismatch)\n":
+        bad.append(f"the corrupted copy: {out['corrupt']}")
+    return out, bad
+
+
+def _sv_status(tmp: str) -> tuple:
+    """(d): fused Wine through the CLI with ``--publish markdown`` and
+    ``--manhole=PATH``; at the end of epoch SV_PROBE_EPOCH, inside the
+    run, a manhole session reads the live workflow's epoch and a
+    ``WebStatus`` serves ``/status.json`` (the workflow listed) and the
+    other endpoints; the report names the card; the socket is gone
+    after."""
+    from znicz_tpu_torch.web_status import WebStatus
+
+    wf = os.path.join(tmp, "wine_status.py")
+    with open(wf, "w") as f:
+        f.write(SV_STATUS_WORKFLOW)
+    sock = os.path.join(tmp, "manhole.sock")
+    seen = {}
+
+    def probe(w):
+        if len(w.decision.metrics_history) != SV_PROBE_EPOCH:
+            return
+        conn = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        conn.settimeout(10)
+        conn.connect(sock)
+        conn.sendall(b"int(wf.decision.epoch_number)\n")
+        reply = ""
+        while reply.count(">>> ") < 2:
+            reply += conn.recv(65536).decode()
+        conn.close()
+        seen["manhole"] = reply.split(">>> ")[1].strip()
+        ws = WebStatus(port=0).register(w)
+        port = ws.start()
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/status.json", timeout=10) as r:
+                doc = json.loads(r.read())
+            seen["status"] = [{k: v for k, v in d.items()
+                               if k in ("name", "epoch", "complete")}
+                              for d in doc["workflows"]]
+            seen["endpoints"] = {}
+            for path in ("/metrics", "/trace.json", "/timeseries.json"):
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}{path}", timeout=10) as r:
+                    seen["endpoints"][path] = r.status
+        finally:
+            ws.stop()
+
+    root.services_status.max_epochs = SV_STATUS_EPOCHS
+    root.services_status.probe = probe
+    try:
+        t0 = time.perf_counter()
+        rc, _, err = _sv_cli([wf, "--publish", "markdown",
+                              f"--manhole={sock}"], tmp)
+        seconds = time.perf_counter() - t0
+    finally:
+        del root.services_status
+    report = os.path.join(tmp, "wine_report.md")
+    text = open(report).read() if os.path.exists(report) else ""
+    card = torch.cuda.get_device_name(0)
+    out = {"rc": rc, "s": seconds, **seen,
+           "report_names_card": card in text,
+           "report_device": next((ln for ln in text.splitlines()
+                                  if ln.startswith("- device:")), None),
+           "socket_removed": not os.path.exists(sock)}
+    bad = []
+    if rc != 0:
+        bad.append(f"the Wine CLI with --publish and --manhole exited "
+                   f"{rc}: {err[-2000:]}")
+    if out.get("manhole") != str(SV_PROBE_EPOCH):
+        bad.append(f"the manhole session read {out.get('manhole')!r}")
+    if out.get("status") != [{"name": "Wine", "epoch": SV_PROBE_EPOCH,
+                              "complete": False}] or \
+            set(out.get("endpoints", {}).values()) != {200}:
+        bad.append(f"the web status: {out.get('status')} "
+                   f"{out.get('endpoints')}")
+    if not out["report_names_card"] or not out["socket_removed"]:
+        bad.append(f"the report or the socket: {out}")
+    return out, bad
+
+
+def phase_services(pkg=None) -> dict:
+    """The last modules on the card (``--phase services``).  (a)
+    ``--optimize`` at bench_fc's widths over an lr Tune: the population
+    route, each replayed step's SGD launches exact, one capture a body
+    for the whole population, every individual bit-identical to its
+    sequential replay, an lr-0 individual learning nothing, the seconds a
+    generation beside the sequential route's; Wine's hidden width routed
+    sequentially.  (b) ``--ensemble-train`` on eager Wine, its FC kernels
+    counted exactly and held to the CPU run in the zoo's band (a TF32
+    control), the fused committee's errors.  (c) ``pkg``, AlexNet's
+    forward package (serve_forward's; exported here when alone), through
+    the forge: fetched and served, lrn_forward counted, bit-identical to
+    the package loaded directly, a corrupted copy refused.  (d)
+    ``--publish`` and ``--manhole`` on a fused Wine run, with the web
+    status read inside the run.  Every part runs before the first
+    failure is raised."""
+    from znicz_tpu_torch.launcher import Launcher
+
+    t0 = time.perf_counter()
+    out, bad = {"phase": "services"}, []
+    launcher = Launcher(device=TorchDevice())
+    with tempfile.TemporaryDirectory() as tmp:
+        if pkg is None:
+            pkg = os.path.join(tmp, "alexnet.npz")
+            out["export"] = sf_export_alexnet(pkg)
+        for key, part in (("optimize", lambda: _sv_optimize(launcher)),
+                          ("ensemble", lambda: _sv_ensemble(tmp)),
+                          ("forge", lambda: _sv_forge(pkg, tmp)),
+                          ("status", lambda: _sv_status(tmp))):
+            t1 = time.perf_counter()
+            out[key], b = part()
+            out[key + "_s"] = time.perf_counter() - t1
+            bad += b
+    out["card"] = nvidia_smi()
+    out["seconds"] = time.perf_counter() - t0
+    if bad:
+        fail(f"services: {bad}: {json.dumps(out, default=str)[:6000]}")
+    return out
+
+
 #: phases ``--phase`` may run alone (after the build), for iterating on
 #: one kernel family; the smoke proper takes no arguments
 PHASES_ALONE = {"kernel": lambda: phase_kernel(),
@@ -11494,7 +12126,8 @@ PHASES_ALONE = {"kernel": lambda: phase_kernel(),
                 "act_compare": lambda: phase_act_compare(),
                 "zoo": lambda: phase_zoo(),
                 "operations": lambda: phase_operations(),
-                "fleet_learn": lambda: phase_fleet_learn()}
+                "fleet_learn": lambda: phase_fleet_learn(),
+                "services": lambda: phase_services()}
 
 
 def main() -> int:
@@ -11590,7 +12223,10 @@ def main() -> int:
     emit(data_parallel)
     lm_axes = phase_lm_axes()
     emit(lm_axes)
-    serve_forward = phase_serve_forward()
+    # serve_forward's AlexNet package, fetched through the forge by the
+    # services phase
+    package_dir = tempfile.TemporaryDirectory()
+    serve_forward = phase_serve_forward(package_dir.name)
     emit(serve_forward)
     pipe_expert = phase_pipe_expert()
     emit(pipe_expert)
@@ -11599,13 +12235,16 @@ def main() -> int:
     emit(phase_operations())
     fleet = phase_fleet_learn()
     emit(fleet)
+    services = phase_services(os.path.join(package_dir.name, "alexnet.npz"))
+    emit(services)
+    package_dir.cleanup()
     kernel_hw = phase_kernel_hw()
     emit(kernel_hw)
     emit({**kernel_line(kernel, flash, gemm, optim, serve, train, eager,
                         fused, conv, alexnet, deconv, ae, spool, mcs, som,
                         lrn_drop, alex_fused, kernel_hw, spec, char,
                         data_parallel, serve_forward, lm_axes,
-                        pipe_expert, zoo, fleet),
+                        pipe_expert, zoo, fleet, services),
           "first_stream": streams[0][:8],
           "seconds": time.perf_counter() - T_START})
     print(nvidia_smi(), flush=True)

@@ -3,8 +3,8 @@ znicz_tpu_torch <workflow.py> [config.py ...]``, ``launcher.py``): the
 ``load``/``main`` contract of the models' ``run``, snapshot resume
 through ``Launcher(snapshot=)`` and ``-w``, the CLI end to end with a
 config file and ``-o`` overrides, every flag and subcommand of the
-reference that the port does not have yet raising with its ROADMAP
-item, the device defaulting to cuda (and raising without a card), and
+reference running (``--optimize``, ``--ensemble-train``, ``--manhole``,
+``--publish`` and ``forge`` among them), the device defaulting to cuda (and raising without a card), and
 SIGTERM ending a run at an epoch end with exit code 143 and a final
 snapshot that resumes bit-exact."""
 
@@ -236,9 +236,27 @@ def test_cli_device_defaults_to_cuda_and_raises_without_a_card(wf):
     (["--optimize", "2"], "14"), (["--ensemble-train", "2"], "14"),
     (["--manhole"], "14"), (["--publish", "markdown"], "14"),
     (["--profile", "prof"], "14")])
-def test_unported_flags_raise_with_their_item(wf, flag, item, tmp_path):
-    """What the CLI still lacks raises naming its ROADMAP item;
-    ``--profile`` is ported: the run writes its profiler trace."""
+def test_unported_flags_raise_with_their_item(wf, flag, item, tmp_path,
+                                              monkeypatch, capsys):
+    """Every flag of the reference runs (queue A item ``item`` closed):
+    ``--optimize`` over a ``Tune`` routes the population evaluator and
+    refuses ``--publish`` and ``--manhole``; ``--ensemble-train`` writes
+    the reference's summary; ``--manhole`` serves the run and removes its
+    socket; ``--publish`` writes the report naming the device;
+    ``--profile`` writes its profiler trace."""
+    from znicz_tpu_torch.core.config import Tune
+    from znicz_tpu_torch.utils import manhole
+
+    monkeypatch.chdir(tmp_path)
+    argv = [wf, "-d", "cpu"] + flag
+    if flag[0] == "--optimize":
+        root.port_cli.max_epochs = Tune(1, 1, 1)
+        for extra in (["--publish", "markdown"], ["--manhole"]):
+            assert cli.main(argv + extra) == 2
+        assert cli.main(argv) == 0
+        assert "'_evaluator': 'vmapped'" in capsys.readouterr().out
+        return
+    argv += ["-o", "root.port_cli.max_epochs=1"]
     if flag[0] == "--profile":
         prof = tmp_path / "prof"
         assert cli.main([wf, "-d", "cpu", "--profile", str(prof), "-o",
@@ -246,32 +264,47 @@ def test_unported_flags_raise_with_their_item(wf, flag, item, tmp_path):
         from znicz_tpu_torch.utils.profiling import summarize_trace
         assert summarize_trace(str(prof))
         return
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        cli.main([wf, "-d", "cpu"] + flag)
+    if flag[0] == "--ensemble-train":
+        assert cli.main(argv) == 0
+        out = _result(tmp_path / "ensemble_alexnet-narrow.json")
+        assert out["n_members"] == 2 and len(out["members"]) == 2
+        assert [m["seed"] for m in out["members"]] == [1, 2]
+        assert cli.main(argv + ["--publish", "markdown"]) == 2
+        return
+    if flag[0] == "--manhole":
+        served = []
+        start = manhole.Manhole.start
+        monkeypatch.setattr(manhole.Manhole, "start",
+                            lambda self: served.append(start(self)) or
+                            served[-1])
+        assert cli.main(argv) == 0
+        assert len(served) == 1 and not os.path.exists(served[0])
+        return
+    assert cli.main(argv) == 0
+    text = (tmp_path / "alexnet-narrow_report.md").read_text()
+    assert "- device: `cpu`" in text and f"- torch: {torch.__version__}" \
+        in text
 
 
 @pytest.mark.parametrize("sub,item", [
     ("fleet", "14"), ("learn", "14"), ("elastic", "14"),
     ("flight", "14"), ("trace", "14"), ("forge", "14")])
 def test_unported_subcommands_raise_with_their_item(sub, item, capsys):
-    """``forge`` raises naming its ROADMAP item; ``fleet``, ``learn``,
-    ``elastic``, ``flight`` and ``trace`` are ported and reach their own
-    parsers, which refuse the bad argument."""
+    """Every subcommand of the reference but ``aot`` is ported and
+    reaches its own parser, which refuses the bad argument."""
     if sub in ("fleet", "learn"):
         assert cli.main([sub, "x", "--workers", "0"]) == 2
         assert "--workers must be >= 1" in capsys.readouterr().err
         return
-    if sub == "elastic":
+    if sub in ("elastic", "forge"):
         with pytest.raises(SystemExit) as exc:
-            cli.main([sub, "x"])                 # no --snap-dir
+            cli.main([sub, "x"])       # no --snap-dir; no such command
         assert exc.value.code == 2
         return
     if sub in ("flight", "trace"):
         assert cli.main([sub, "x"]) in (1, 2)
         assert sub in capsys.readouterr().err
         return
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        cli.main([sub, "x"])
 
 
 @pytest.mark.parametrize("env", ["ZNICZ_TPU_HEARTBEAT",
@@ -303,11 +336,11 @@ def test_unported_envs_raise(wf, env, monkeypatch, tmp_path):
 
 
 def test_launcher_unported_options_raise():
-    """The manhole still raises naming its item; ``profile_dir`` is
-    ported."""
+    """Every option of the reference's Launcher is ported: the manhole
+    starts in ``main``, ``profile_dir`` is kept."""
     assert Launcher(profile_dir="p").profile_dir == "p"
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Launcher(manhole_path="")
+    launcher = Launcher(manhole_path="")
+    assert launcher.manhole_path == "" and launcher.manhole is None
 
 
 def test_generate_keeps_its_route_and_the_fault_plan_env(monkeypatch):

@@ -81,7 +81,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                  "fleet", "fleet.workers", "fleet.router", "fleet.rollout",
                  "fleet.autoscale", "fleet.cli", "learn", "learn.spool",
                  "learn.publish", "learn.bridge", "learn.trainer_workflow",
-                 "learn.cli", "loader.spool"):
+                 "learn.cli", "loader.spool", "utils.forge",
+                 "utils.manhole", "utils.publishing", "utils.ensemble",
+                 "utils.genetics", "web_status"):
         assert f"znicz_tpu_torch.{name}" in doc["modules"]
 
 
@@ -120,7 +122,25 @@ COPIES = ["core/config.py", "core/logger.py", "observe/registry.py",
           "fleet/rollout.py", "fleet/autoscale.py", "fleet/cli.py",
           "learn/__init__.py", "learn/spool.py", "learn/publish.py",
           "learn/bridge.py", "learn/trainer_workflow.py",
-          "loader/spool.py"]
+          "loader/spool.py", "utils/forge.py", "utils/manhole.py",
+          "web_status.py"]
+
+#: modules the port keeps as copies of the reference but for what names
+#: the framework: (module, top-level name, methods the port rewrote).
+#: Each named definition is the reference's code, those methods aside
+PARTIAL_COPIES = [
+    ("utils/genetics.py", "Genetics", ()),
+    ("utils/genetics.py", "NotVmappable", ()),
+    ("utils/genetics.py", "_build_only", ()),
+    ("utils/genetics.py", "_HYPER_ATTRS", ()),
+    ("utils/genetics.py", "_static_signature", ()),
+    ("utils/genetics.py", "optimize", ()),
+    ("utils/ensemble.py", "train_members_from_module", ()),
+    ("utils/ensemble.py", "Ensemble", ("_member_outputs",)),
+    ("utils/publishing.py", "BACKENDS", ()),
+    ("utils/publishing.py", "register_backend", ()),
+    ("utils/publishing.py", "BackendBase", ()),
+    ("utils/publishing.py", "Publisher", ())]
 
 #: copies kept under another path than the reference's
 _REFERENCE_PATH = {"models/elastic_drill.py": "../tools/elastic_workflow.py"}
@@ -206,3 +226,33 @@ def test_copied_module_matches_reference(rel):
         ref = ref.replace("from znicz_tpu import compilecache\n", "")
         ref = ref.replace("        compilecache.ensure()\n", "")
     assert _code(ours) == _code(ref)
+
+
+def _definition(path: str, name: str, rewritten: tuple) -> str:
+    """The AST dump of top-level ``name`` in ``path`` (a def, a class
+    without its ``rewritten`` methods, or an assignment), without
+    docstrings, imports renamed to the port (``_code``'s view)."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    for node in tree.body:
+        target = getattr(node, "name", None)
+        if isinstance(node, ast.Assign):
+            target = getattr(node.targets[0], "id", None)
+        elif isinstance(node, ast.AnnAssign):
+            target = getattr(node.target, "id", None)
+        if target != name:
+            continue
+        if isinstance(node, ast.ClassDef):
+            node.body = [n for n in node.body
+                         if getattr(n, "name", None) not in rewritten]
+        return _code(ast.unparse(node))
+    raise AssertionError(f"{name} is not defined in {path}")
+
+
+@pytest.mark.parametrize("rel,name,rewritten", PARTIAL_COPIES,
+                         ids=lambda v: v if isinstance(v, str) else "-")
+def test_partial_copy_matches_reference(rel, name, rewritten):
+    ref = _definition(os.path.join(REPO, "znicz_tpu", rel), name, rewritten)
+    ours = _definition(os.path.join(REPO, "znicz_tpu_torch", rel), name,
+                       rewritten)
+    assert ours == ref

@@ -6,6 +6,9 @@ Usage:
     python -m znicz_tpu_torch <workflow.py> [config.py ...] [-d DEVICE]
                               [-w snapshot.npz] [-o root.path=value]
                               [--random-seed N] [--trace OUT.json]
+                              [--optimize GENS | --ensemble-train N]
+                              [--manhole[=PATH]] [--publish BACKEND]
+    python -m znicz_tpu_torch forge [--registry DIR] {list,upload,fetch} ...
     python -m znicz_tpu_torch generate <lm_package.npz> [--prompt TEXT |
                               --serve --port N --slots B]
                               [--device cpu] [options]
@@ -33,6 +36,24 @@ cuda), ``cuda``, ``cpu`` and ``numpy``; there is no quiet CPU fallback.
 ``--profile DIR`` writes a ``torch.profiler`` Chrome trace of the run
 under DIR (``launcher.py``).
 
+``--optimize GENS`` runs the genetic search over the ``Tune`` leaves in
+``root`` (``utils/genetics.py``): a fused StandardWorkflow whose Tunes
+move only hyperparameters trains each generation's individuals one
+after another through one fused step (on the card, replays of one
+captured graph; the printed best config keeps the reference's
+``'_evaluator': 'vmapped'`` label for it), anything else by full
+sequential runs (``'sequential'``).  ``--ensemble-train N`` trains N
+members seeded ``--random-seed`` + i and writes
+``ensemble_<workflow>.json`` (``utils/ensemble.py``).  ``--manhole``
+serves a REPL into the running workflow on a 0600 UNIX socket
+(``utils/manhole.py``; ``--manhole=PATH`` names it).  ``--publish
+{markdown,html}`` writes a report of the run (``utils/publishing.py``),
+naming the device and the torch and CUDA versions.  They refuse the
+reference's combinations with exit code 2.  ``forge`` is the
+reference's ``veles forge`` pair over a local registry of forward
+packages (``utils/forge.py``): ``upload``, ``list`` and ``fetch``; a
+registry failure is a one-line ``forge: ...`` error and exit code 2.
+
 ``fleet`` fronts N ``generate --serve`` (or ``serve``) workers of this
 CLI with a router, rolling updates and an optional autoscaler
 (``fleet/``); the device travels in the worker flags (``-- --device
@@ -48,12 +69,9 @@ flight-recorder artifact; ``trace`` runs a workflow and exports its span
 timeline, or with ``--fleet`` merges exported timelines.
 
 The parser takes every flag of the reference, so a reference command
-line parses.  What is not ported yet raises ``NotImplementedError``
-naming its ROADMAP item rather than being ignored: ``--optimize``,
-``--ensemble-train``, ``--manhole``, ``--publish`` and the ``forge``
-subcommand (item 14).  ``aot`` has no
-counterpart: the port has no XLA executables to compile ahead of time
-(a recorded divergence).
+line parses, and every flag and subcommand of the reference runs but
+``aot``, which has no counterpart: the port has no XLA executables to
+compile ahead of time (a recorded divergence; it exits 2).
 
 ``--coordinator host:port --num-processes N --process-id R`` joins a
 data-parallel world before the workflow is built
@@ -69,21 +87,6 @@ import ast
 import importlib.util
 import os
 import sys
-
-#: subcommands not ported yet -> their ROADMAP queue A item
-_UNPORTED_SUBCOMMANDS = {"forge": "14"}
-#: flags not ported yet -> (what, item); each raises when given
-_UNPORTED_FLAGS = {
-    "optimize": ("the genetic hyperparameter search (--optimize)", "14"),
-    "ensemble_train": ("ensemble training (--ensemble-train)", "14"),
-    "manhole": ("the manhole (--manhole)", "14"),
-    "publish": ("the post-training report (--publish)", "14")}
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue "
-                               f"A item {item})")
-
 
 def load_workflow_module(path: str):
     spec = importlib.util.spec_from_file_location("znicz_workflow", path)
@@ -153,11 +156,19 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar="root.path=value",
                    help="config override, applied after config files")
     p.add_argument("--optimize", type=int, default=None, metavar="GENS",
-                   help="not ported yet (item 14)")
+                   help="genetic hyperparameter search over Tune() leaves")
     p.add_argument("--ensemble-train", type=int, default=None,
-                   metavar="N", help="not ported yet (item 14)")
+                   metavar="N", help="train N seeded members of the "
+                   "workflow and write an ensemble summary JSON "
+                   "(reference: --ensemble-train)")
     p.add_argument("--manhole", nargs="?", const="", default=None,
-                   metavar="PATH", help="not ported yet (item 14)")
+                   metavar="PATH",
+                   help="serve a live REPL into the running workflow on a "
+                        "0600-permission UNIX socket (connect with nc -U). "
+                        "Bare --manhole auto-creates a private path; to "
+                        "pick one, use the --manhole=PATH form (the "
+                        "space-separated form would swallow the workflow "
+                        "argument)")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler Chrome trace of the run "
                         "under DIR and log its top ops")
@@ -166,7 +177,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "Chrome-trace JSON after the run")
     p.add_argument("--publish", default=None, metavar="BACKEND",
                    choices=("markdown", "html"),
-                   help="not ported yet (item 14)")
+                   help="write a post-training report (reference: "
+                        "veles/publishing)")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
                    help="join a data-parallel world whose rank 0 listens "
                         "here (with --num-processes and --process-id)")
@@ -186,14 +198,59 @@ def make_device(name: str):
     return TorchDevice(name)
 
 
+def forge_main(argv) -> int:
+    """``forge list|upload|fetch`` — the reference's model-zoo up/download
+    CLI (veles forge ...) over the local registry."""
+    from znicz_tpu_torch.utils.forge import ForgeRegistry
+
+    p = argparse.ArgumentParser(prog="znicz_tpu_torch forge",
+                                description="model-zoo package registry")
+    p.add_argument("--registry", default=None,
+                   help="registry directory (default: root.common.forge."
+                        "dir or ./.forge)")
+    sub = p.add_subparsers(dest="cmd", required=True)
+    sub.add_parser("list", help="list packages and versions")
+    up = sub.add_parser("upload", help="register a forward package")
+    up.add_argument("package", help="path to a utils/export.py .npz")
+    up.add_argument("--name", required=True)
+    up.add_argument("--version", required=True)
+    fe = sub.add_parser("fetch", help="resolve + checksum-verify a package")
+    fe.add_argument("name")
+    fe.add_argument("--version", default=None,
+                    help="semantic latest when omitted")
+    fe.add_argument("-o", "--output", default=None,
+                    help="copy to this path (default: print the "
+                         "in-registry path)")
+    args = p.parse_args(argv)
+    reg = ForgeRegistry(registry_dir=args.registry)
+    try:
+        if args.cmd == "list":
+            for name, versions in sorted(reg.list_packages().items()):
+                print(f"{name}: {', '.join(versions)}")
+            return 0
+        if args.cmd == "upload":
+            entry = reg.upload(args.package, args.name, args.version)
+            print(f"uploaded {args.name}=={args.version} "
+                  f"(sha256 {entry['sha256'][:12]})")
+            return 0
+        path = reg.fetch(args.name, version=args.version, dest=args.output)
+        print(path)
+        return 0
+    except (KeyError, OSError, FileExistsError) as exc:
+        # unknown package/version, missing file, corrupt checksum,
+        # immutable re-upload — one-line error, CLI convention.  str()
+        # renders OS errors with filename+strerror (args[0] is errno)
+        msg = (exc.args[0] if isinstance(exc, KeyError) and exc.args
+               else str(exc))
+        print(f"forge: {msg}", file=sys.stderr)
+        return 2
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if not argv:
         print(__doc__.strip(), file=sys.stderr)
         return 2
-    if argv[0] in _UNPORTED_SUBCOMMANDS:
-        raise _not_ported(f"the {argv[0]!r} subcommand",
-                          _UNPORTED_SUBCOMMANDS[argv[0]])
     if argv[0] == "fleet":
         # the serving fleet: router + worker pool + SLO autoscaler +
         # rolling weight updates over ordinary generate/serve workers
@@ -227,6 +284,11 @@ def main(argv=None) -> int:
 
         start_metrics_export(mx_path, interval_s=float(os.environ.get(
             "ZNICZ_TPU_METRICS_EXPORT_INTERVAL", "1.0")))
+    if argv[0] == "forge":
+        site = apply_site_config()            # site may set the forge dir
+        if site:
+            print(f"applied site config {site}", file=sys.stderr)
+        return forge_main(argv[1:])
     if argv[0] == "flight":
         # the flight-recorder post-mortem viewer
         from znicz_tpu_torch.observe import flight
@@ -259,9 +321,6 @@ def main(argv=None) -> int:
               "XLA executables to compile ahead of time)", file=sys.stderr)
         return 2
     args = build_parser().parse_args(argv)
-    for flag, (what, item) in _UNPORTED_FLAGS.items():
-        if getattr(args, flag) is not None:
-            raise _not_ported(what, item)
     # elastic-fleet liveness: the beat starts BEFORE the --coordinator
     # join (torch import + the rendezvous can outlast a heartbeat
     # timeout, and a silent boot window would read as a wedged process);
@@ -315,16 +374,60 @@ def _run_workflow(args, hb_box: dict) -> int:
         path = path.removeprefix("root.")
         set_by_path(root, path, _parse_value(value))
     module = load_workflow_module(args.workflow)
+    if args.ensemble_train is not None:
+        import json
+
+        if args.ensemble_train <= 0:
+            print("--ensemble-train needs N >= 1", file=sys.stderr)
+            return 2
+        if args.publish or args.snapshot or args.profile or \
+                args.optimize is not None or args.manhole is not None:
+            print("--ensemble-train cannot be combined with --publish/"
+                  "-w/--profile/--optimize/--manhole (members are "
+                  "independent runs)", file=sys.stderr)
+            return 2
+        from znicz_tpu_torch.utils.ensemble import train_members_from_module
+        from znicz_tpu_torch.utils.naming import slugify
+
+        summary = train_members_from_module(
+            module, args.ensemble_train, args.random_seed,
+            lambda: Launcher(device=make_device(args.device),
+                             stealth=args.stealth))
+        out = f"ensemble_{slugify(summary['workflow'])}.json"
+        with open(out, "w") as f:
+            json.dump(summary, f, indent=1)
+        print(f"ensemble summary -> {out}")
+        return 0
     launcher = Launcher(device=make_device(args.device),
                         snapshot=args.snapshot, stealth=args.stealth,
-                        profile_dir=args.profile)
+                        profile_dir=args.profile,
+                        manhole_path=args.manhole)
     hb_box["launcher"] = launcher     # the heartbeat reports progress now
+    if args.optimize is not None:
+        if args.publish is not None:
+            print("--publish cannot be combined with --optimize "
+                  "(GA evaluation runs are throwaway)", file=sys.stderr)
+            return 2
+        if args.manhole is not None:
+            print("--manhole cannot be combined with --optimize "
+                  "(GA evaluation runs bypass Launcher.main)",
+                  file=sys.stderr)
+            return 2
+        from znicz_tpu_torch.utils.genetics import optimize
+
+        best = optimize(module, launcher, generations=args.optimize)
+        print(f"best config: {best}")
+        return 0
     module.run(launcher.load, launcher.main)
     if args.trace is not None:
         from znicz_tpu_torch.observe.trace import export_trace
 
         n = export_trace(args.trace)
         print(f"trace: wrote {n} events -> {args.trace}")
+    if args.publish is not None and launcher.workflow is not None:
+        from znicz_tpu_torch.utils.publishing import Publisher
+
+        Publisher(backend=args.publish).publish(launcher.workflow)
     return 0
 
 

@@ -18,9 +18,12 @@ replacing the job protocol.
 run is on the card — and writes its Chrome trace to
 ``DIR/<run>/<host>.<pid>.pt.trace.json``, one run directory a launch;
 a failure to write is logged, never raised, and then the top-15 table
-of ``utils/profiling.py summarize_trace`` is logged.  Not ported yet,
-raising ``NotImplementedError`` with its ROADMAP item: the manhole
-(item 14).
+of ``utils/profiling.py summarize_trace`` is logged.
+
+``manhole_path`` (``--manhole[=PATH]``) serves a live REPL into the
+running workflow (``utils/manhole.py``: a 0600 AF_UNIX socket, ``""``
+for a private path) with the reference's namespace, ``wf``,
+``launcher`` and ``root``, from after the resume until the run stops.
 """
 
 from __future__ import annotations
@@ -44,11 +47,6 @@ from znicz_tpu_torch.snapshotter import process_rank_world, restore_state
 DEFAULT_CONNECT_RETRY = dict(max_attempts=40, base_delay=0.1,
                              multiplier=1.4, max_delay=3.0,
                              retryable=(OSError,), seed=0)
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue "
-                               f"A item {item})")
 
 
 class CoordinatorUnreachable(RuntimeError):
@@ -155,12 +153,14 @@ class Launcher(Logger):
                  profile_dir: Optional[str] = None,
                  manhole_path: Optional[str] = None) -> None:
         super().__init__()
-        if manhole_path is not None:
-            raise _not_ported("the manhole (manhole_path, --manhole)", "14")
         self.device = device
         self.snapshot = snapshot
         #: the profiler trace's directory (None: no trace)
         self.profile_dir = profile_dir
+        #: when set, serve a live REPL into the running workflow on an
+        #: AF_UNIX socket ("" = auto private path) — reference's manhole
+        self.manhole_path = manhole_path
+        self.manhole = None
         self.workflow = None
         #: seconds ``resume`` took in ``main`` (None: no snapshot)
         self.restore_seconds: Optional[float] = None
@@ -189,6 +189,15 @@ class Launcher(Logger):
             self.info(f"resumed from {self.snapshot} "
                       f"(epoch {meta['loader']['epoch_number']}, "
                       f"{self.restore_seconds:.3f} s)")
+        if self.manhole_path is not None:
+            # explicitly opt-in, so it is served even under --stealth
+            from znicz_tpu_torch.core.config import root
+            from znicz_tpu_torch.utils.manhole import Manhole
+            self.manhole = Manhole(
+                namespace={"wf": self.workflow, "launcher": self,
+                           "root": root},
+                path=self.manhole_path)
+            self.manhole.start()
         decision = getattr(self.workflow, "decision", None)
         end_point = self.workflow.end_point
         gate = end_point.gate_block
@@ -211,6 +220,8 @@ class Launcher(Logger):
         finally:
             if profiler is not None:
                 self._stop_profiler(profiler)
+            if self.manhole is not None:
+                self.manhole.stop()
             if prev is not None:
                 signal.signal(signal.SIGINT, prev)
             if prev_term is not None:

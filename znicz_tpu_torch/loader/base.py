@@ -184,10 +184,18 @@ class Loader(AcceleratedUnit):
         return torch.empty(shape, dtype=tdt, pin_memory=True).numpy()
 
     # -- geometry helpers ---------------------------------------------------
+    @property
+    def total_samples(self) -> int:
+        return int(sum(self.class_lengths))
+
     def class_offset(self, cls: int) -> int:
         """Global sample index where class ``cls`` starts (storage order is
         [test | validation | train], reference layout)."""
         return int(sum(self.class_lengths[:cls]))
+
+    @property
+    def has_labels(self) -> bool:
+        return bool(self.minibatch_labels)
 
     def _nonempty_classes(self) -> list[int]:
         return [c for c in (TEST, VALID, TRAIN) if self.class_lengths[c] > 0]

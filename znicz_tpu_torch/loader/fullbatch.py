@@ -41,6 +41,13 @@ class FullBatchLoader(Loader):
 
     # subclasses override load_data() to fill original_* + class_lengths
 
+    def served_dataset(self):
+        """``(data, labels)`` in SERVED form — what fill_minibatch dishes
+        out, deterministically (no train-time randomness): the view eval
+        consumers (ensembles, probes) read instead of ``original_data``,
+        whose contents may be raw when the loader augments per serve."""
+        return self.original_data.map_read(), self.original_labels.map_read()
+
     def create_minibatch_data(self) -> None:
         sample_shape = self.original_data.shape[1:]
         self.minibatch_data.reset(

@@ -20,7 +20,8 @@ dtype mismatch).
 :func:`gather_rows` is the loaders' minibatch gather: ``dst[i] =
 src[idx[i]]``, rows with ``idx < 0`` zeroed, on up to 8 threads.  ctypes
 releases the GIL for the call, so a prefetch worker's gather runs beside
-the main thread's step issue.
+the main thread's step issue.  :class:`XorShift128P` is the reference's
+native xorshift128+ stream over the same library.
 """
 
 from __future__ import annotations
@@ -99,8 +100,56 @@ def lib() -> ctypes.CDLL:
                 ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                 ctypes.c_int]
             so.gather_rows.restype = None
+            so.xorshift128p_fill.argtypes = [
+                ctypes.POINTER(ctypes.c_uint64),
+                ctypes.POINTER(ctypes.c_float), ctypes.c_int64]
+            so.xorshift128p_fill.restype = None
+            so.shuffle_indices.argtypes = [
+                ctypes.POINTER(ctypes.c_uint64),
+                ctypes.POINTER(ctypes.c_int64), ctypes.c_int64]
+            so.shuffle_indices.restype = None
             _lib = so
         return _lib
+
+
+class XorShift128P:
+    """The native xorshift128+ stream (the reference PRNG family): the
+    reference's splitmix64 seeding and ``loader_core.cpp``'s fill and
+    Fisher-Yates shuffle, so a seed gives the reference's bits."""
+
+    def __init__(self, seed: int) -> None:
+        # splitmix64 seeding, never an all-zero state; the arithmetic in
+        # Python ints (numpy uint64 scalars warn on the wrapping
+        # multiplies), stored as uint64
+        self.state = np.empty(2, np.uint64)
+        mask = (1 << 64) - 1
+        z = int(seed or 0xDEADBEEF) & mask
+        for i in range(2):
+            z = (z + 0x9E3779B97F4A7C15) & mask
+            x = z
+            x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & mask
+            x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & mask
+            self.state[i] = np.uint64(x ^ (x >> 31))
+
+    def _state_ptr(self):
+        return self.state.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64))
+
+    def uniform(self, n: int) -> np.ndarray:
+        """``n`` float32 uniforms in [0, 1), advancing the stream."""
+        out = np.empty(int(n), np.float32)
+        lib().xorshift128p_fill(
+            self._state_ptr(),
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), out.size)
+        return out
+
+    def shuffle(self, idx: np.ndarray) -> None:
+        """Shuffle a C-contiguous int64 array in place."""
+        if idx.dtype != np.int64 or not idx.flags.c_contiguous:
+            raise ValueError(f"shuffle needs a C-contiguous int64 array, "
+                             f"got {idx.dtype}")
+        lib().shuffle_indices(
+            self._state_ptr(),
+            idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), idx.size)
 
 
 def gather_rows(src: np.ndarray, idx: np.ndarray, dst: np.ndarray,

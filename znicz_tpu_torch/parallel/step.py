@@ -520,6 +520,18 @@ class FusedTrainStep(Unit):
         self._hyper_sig = sig
         return self._hyper_views
 
+    def write_hyper(self, hyper: list) -> None:
+        """Write per-layer hyperparameters (``hyper_params()``' layout)
+        into the device buffer in place: the update kernels, and the
+        graphs that captured the buffer's views, read them from the next
+        step on.  They stand until the gd units' own values change, or
+        until ``write_hyper(self.hyper_params())`` puts those back (the
+        population evaluator's reset between individuals)."""
+        self._hyper_device()
+        self._hyper_buf.copy_(torch.tensor(
+            [[float(h[k]) for k in self.HYPER_KEYS] for h in hyper],
+            dtype=torch.float32))
+
     def sync_to_units(self) -> None:
         """Write copies of the device params back into the unit Arrays
         (snapshot / inspection path; the hot loop never does this),

@@ -14,6 +14,11 @@ packages cross between the two packages in both directions:
   :func:`load_lm` returns the numpy pytree that
   ``parallel.transformer.params_from_numpy`` carries onto a device.
 
+A forge registry (``utils/forge.py``) holds forward packages:
+:func:`forge_publish`, :func:`forge_fetch` (an :class:`ExportedForward`
+on the card unless the caller names another device) and
+:func:`forge_list`.
+
 One divergence: the reference embeds ahead-of-time XLA executables in a
 forward package (``attach_aot``, ``__aot__<bucket>`` entries, the
 ``aot`` CLI).  The port has no XLA executables, so it has no
@@ -335,3 +340,35 @@ class ExportedForward:
                             [x], self.device, self._stream)
             # a copy: the next replay overwrites the graph's output
             return y.cpu().numpy()
+
+
+# -- forge: local model-zoo packaging (reference: veles/forge) --------------
+# Thin wrappers over the registry (utils/forge.py ForgeRegistry: manifest,
+# sha256 integrity, semantic version order), the reference's three.
+
+def forge_publish(package_path: str, repo_dir: str, name: str,
+                  version: str = "1.0", metrics: dict | None = None) -> str:
+    """Publish a forward package (reference: veles forge upload)."""
+    from znicz_tpu_torch.utils.forge import ForgeRegistry
+
+    reg = ForgeRegistry(repo_dir)
+    entry = reg.upload(package_path, name, version, metadata=metrics or {})
+    return os.path.join(repo_dir, entry["file"])
+
+
+def forge_fetch(repo_dir: str, name: str, version: str | None = None,
+                device="cuda") -> ExportedForward:
+    """Fetch and load a published model (reference: veles forge fetch),
+    read in place from the registry after its checksum is verified; it
+    serves on ``device``, the card unless the caller names another."""
+    from znicz_tpu_torch.utils.forge import ForgeRegistry
+
+    return ExportedForward(ForgeRegistry(repo_dir).fetch(name, version),
+                           device=device)
+
+
+def forge_list(repo_dir: str) -> dict:
+    """name -> its versions in semantic order."""
+    from znicz_tpu_torch.utils.forge import ForgeRegistry
+
+    return ForgeRegistry(repo_dir).list_packages()
